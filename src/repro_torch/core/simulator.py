@@ -1,0 +1,489 @@
+"""CarbonFlex-Simulator: slot-level cluster engine (paper §5, §6).
+
+Discrete-time simulation of a cloud cluster running elastic batch jobs
+under a pluggable provisioning+scheduling policy.  Per slot:
+
+  1. admit arrivals into the active set;
+  2. ask the policy for ``(m_t, allocations)``;
+  3. enforce the capacity invariant (sum of allocations <= min(m_t, M));
+  4. advance job progress / waiting budgets;
+  5. account energy (Eq. 2–3) and carbon (Eq. 1);
+  6. record completions, waiting times and SLO violations.
+
+The engine runs past the nominal window until all admitted jobs finish
+(run-to-completion semantics shared by every policy in §6).
+
+Two engines, bit-for-bit identical outputs:
+
+- ``engine="vector"`` (default) — struct-of-arrays fast path: per-job
+  state lives in packed numpy vectors (``remaining``, ``slack_left``,
+  ``waited``, allocations), energy/carbon accounting is vectorised per
+  slot, and arrivals admit through a sorted pointer.  Policies that
+  implement the optional ``decide_packed(t, eng, ci, cluster)`` protocol
+  skip the per-job Python path entirely; others are served lightweight
+  array-backed ``ActiveJob`` views.
+- ``engine="scalar"`` — the readable per-ActiveJob reference
+  implementation, kept as the parity oracle.
+
+``simulate_many`` batches a (seeds x regions x policies) sweep through
+the vector engine, packing each distinct job list once.
+
+Single-region slice: independent jobs, no fault injection.  The
+accounting stays float64 numpy on the host, operation for operation as in
+the JAX package, so both packages give bit-identical results.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Sequence
+
+import numpy as np
+
+from . import emissions
+from .carbon import CarbonService
+from .policy import Policy
+from .scheduling import ActiveJob, EntryBlocks, apply_slot
+from .types import ClusterConfig, Job, SimResult, SlotLog
+
+_EPS = 1e-9
+
+
+# --- packed job tables ------------------------------------------------------
+
+
+class PackedJobs:
+    """Static struct-of-arrays view of a (arrival, job_id)-sorted job list.
+
+    Throughput/marginal lookups go through tables built with the *same*
+    ``Job.throughput``/``Job.marginal`` calls the scalar engine makes, so
+    gathered values are bit-identical to the scalar path."""
+
+    __slots__ = ("jobs", "n", "job_ids", "arrival", "length", "queue",
+                 "k_min", "k_max", "deadline", "elast", "power", "comm",
+                 "thr_tab", "blocks", "id2row")
+
+    def __init__(self, jobs_sorted: list[Job]) -> None:
+        self.jobs = jobs_sorted
+        n = self.n = len(jobs_sorted)
+        self.job_ids = np.array([j.job_id for j in jobs_sorted], dtype=np.int64)
+        self.arrival = np.array([j.arrival for j in jobs_sorted], dtype=np.int64)
+        self.length = np.array([j.length for j in jobs_sorted], dtype=np.float64)
+        self.queue = np.array([j.queue for j in jobs_sorted], dtype=np.int64)
+        self.k_min = np.array([j.k_min for j in jobs_sorted], dtype=np.int64)
+        self.k_max = np.array([j.k_max for j in jobs_sorted], dtype=np.int64)
+        self.deadline = np.array([j.deadline for j in jobs_sorted], dtype=np.int64)
+        self.elast = np.array([j.elasticity() for j in jobs_sorted], dtype=np.float64)
+        self.power = np.array([j.power for j in jobs_sorted], dtype=np.float64)
+        self.comm = np.array([j.comm_size for j in jobs_sorted], dtype=np.float64)
+        kmax_g = int(self.k_max.max()) if n else 0
+        self.thr_tab = np.zeros((n, kmax_g + 1))
+        for i, job in enumerate(jobs_sorted):
+            for k in range(1, kmax_g + 1):
+                self.thr_tab[i, k] = job.throughput(k)
+        self.blocks = EntryBlocks.build(jobs_sorted)
+        self.id2row = {j.job_id: i for i, j in enumerate(jobs_sorted)}
+
+
+def pack(jobs: list[Job]) -> PackedJobs:
+    return PackedJobs(sorted(jobs, key=lambda j: (j.arrival, j.job_id)))
+
+
+class _PackedActiveJob:
+    """ActiveJob-compatible view over the engine's packed arrays.
+
+    Dict-protocol policies (and ``on_completion`` hooks) read the same
+    attribute names as the scalar ``ActiveJob``; reads resolve into the
+    engine state, so views are always current without per-slot syncing."""
+
+    __slots__ = ("_eng", "row", "job")
+
+    def __init__(self, eng: "EngineState", row: int) -> None:
+        self._eng = eng
+        self.row = row
+        self.job = eng.packed.jobs[row]
+
+    @property
+    def remaining(self) -> float:
+        return self._eng.remaining[self.row]
+
+    @property
+    def slack_left(self) -> int:
+        return self._eng.slack_left[self.row]
+
+    @property
+    def waited(self) -> int:
+        return self._eng.waited[self.row]
+
+    @property
+    def started(self) -> bool:
+        return bool(self._eng.started[self.row])
+
+    @property
+    def forced(self) -> bool:
+        return self._eng.slack_left[self.row] <= 0
+
+    @property
+    def done(self) -> bool:
+        return self._eng.remaining[self.row] <= _EPS
+
+
+class EngineState:
+    """Dynamic per-run state of the vector engine (exposed to
+    ``decide_packed`` policies as their struct-of-arrays view)."""
+
+    __slots__ = ("packed", "remaining", "slack_left", "waited", "started",
+                 "in_system", "admitted", "rows", "_views")
+
+    def __init__(self, packed: PackedJobs) -> None:
+        self.packed = packed
+        self.remaining = packed.length.copy()
+        self.slack_left = np.array([j.delay for j in packed.jobs], dtype=np.int64)
+        self.waited = np.zeros(packed.n, dtype=np.int64)
+        self.started = np.zeros(packed.n, dtype=bool)
+        self.in_system = np.zeros(packed.n, dtype=bool)
+        self.admitted = 0                  # sorted-arrival admission pointer
+        self.rows = np.zeros(0, dtype=np.int64)
+        self._views: dict[int, _PackedActiveJob] = {}
+
+    def view(self, row: int) -> _PackedActiveJob:
+        v = self._views.get(row)
+        if v is None:
+            v = self._views[row] = _PackedActiveJob(self, row)
+        return v
+
+    def active_views(self) -> list[_PackedActiveJob]:
+        return [self.view(r) for r in self.rows.tolist()]
+
+
+def simulate(
+    jobs: list[Job],
+    ci: CarbonService,
+    cluster: ClusterConfig,
+    policy: Policy,
+    t0: int = 0,
+    horizon: int | None = None,
+    max_overrun: int = 24 * 21,
+    engine: str = "vector",
+) -> SimResult:
+    if engine == "scalar":
+        return _simulate_scalar(jobs, ci, cluster, policy, t0, horizon,
+                                max_overrun)
+    if engine == "vector":
+        return _simulate_vector(jobs, ci, cluster, policy, t0, horizon,
+                                max_overrun)
+    raise ValueError(f"unknown engine {engine!r}")
+
+
+# --- vector engine ----------------------------------------------------------
+
+
+def _simulate_vector(
+    jobs: list[Job],
+    ci: CarbonService,
+    cluster: ClusterConfig,
+    policy: Policy,
+    t0: int = 0,
+    horizon: int | None = None,
+    max_overrun: int = 24 * 21,
+    packed: PackedJobs | None = None,
+) -> SimResult:
+    horizon = int(horizon if horizon is not None else len(ci) - t0)
+    if packed is None:
+        packed = pack(jobs)
+    ci_pol = ci.degraded()              # the view policies read
+    policy.on_window_start(ci_pol, t0, horizon, packed.jobs, cluster)
+    decide_packed = getattr(policy, "decide_packed", None)
+    packed_safe = bool(getattr(policy, "packed_safe", False))
+
+    eng = EngineState(packed)
+    n = packed.n
+    id2row = packed.id2row
+    # per-server power: job-specific when set, cluster default otherwise
+    power = np.where(packed.power > 0, packed.power, cluster.power_per_server)
+    thr_tab = packed.thr_tab
+    slot_h = cluster.slot_hours
+    eta = cluster.eta_net
+
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    arrival = packed.arrival
+
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    t = t0
+    t_end = t0 + horizon
+    rows_dirty = True
+    while t < t_end + max_overrun:
+        while eng.admitted < n and arrival[eng.admitted] <= t:
+            eng.in_system[eng.admitted] = True
+            rows_dirty = True
+            eng.admitted += 1
+        if rows_dirty:
+            eng.rows = np.flatnonzero(eng.in_system)
+            rows_dirty = False
+        rows = eng.rows
+        if not len(rows) and eng.admitted == n and t >= t_end:
+            break
+
+        cap_t = cluster.capacity
+        if decide_packed is not None:
+            m_pol, kvec = decide_packed(t, eng, ci_pol, cluster)
+            m_t = int(min(m_pol, cap_t))
+            if packed_safe:
+                # Compliance is a class-level invariant of the decider
+                # (``packed_safe = True``: k in {0} | [k_min, k_max],
+                # active rows only, total within the m_t it was shown), so
+                # the per-slot guards reduce to one check.
+                bad = m_t < int(m_pol) and int(kvec.sum()) > m_t
+            else:
+                # Defensive: the scalar engine unconditionally clips every
+                # allocation into [k_min, k_max] and trims over-capacity
+                # totals; route any non-compliant packed allocation
+                # through the same trimmer instead of gathering
+                # out-of-table scales.
+                bad = (int(kvec.sum()) > m_t
+                       or bool(((kvec > 0) & ((kvec < packed.k_min)
+                                              | (kvec > packed.k_max))).any()))
+            if bad:
+                kvec = _kvec_enforced(kvec, eng, m_t)
+        else:
+            m_t, alloc = policy.decide(t, eng.active_views(), ci_pol, cluster)
+            m_t = int(min(m_t, cap_t))
+            alloc = _enforce_capacity(alloc, eng.active_views(), m_t)
+            kvec = np.zeros(n, dtype=np.int64)
+            for jid, k in alloc.items():
+                kvec[id2row[jid]] = k
+
+        civ = ci.ci(t)
+        k_rows = kvec[rows]
+        live = eng.remaining[rows] > _EPS      # "not done", pre-progress
+        arows = rows[k_rows > 0]               # energy: done jobs included,
+        k_a = kvec[arows]                      # matching the scalar loop
+        thr_a = thr_tab[arows, k_a]
+        # Fractional final slot (paper footnote 4): only the work actually
+        # needed is charged.  Each elementwise op mirrors the scalar
+        # ``emissions.slot_energy_kwh`` expression order, so per-job values
+        # (and hence the sequential slot sum) are bit-identical.
+        frac = np.minimum(1.0, eng.remaining[arows] / np.maximum(thr_a, 1e-9))
+        e_comp = k_a * power[arows] * slot_h * frac
+        ring = np.where(k_a <= 1, 0.0, 2.0 * (k_a - 1) / k_a)
+        gbits = packed.comm[arows] * 8.0 * ring * k_a * frac
+        e_vec = e_comp + eta * gbits / 3600.0 / 1000.0 * slot_h
+        energy = 0.0
+        for v in e_vec.tolist():               # sequential sum, scalar order
+            energy += v
+        carbon = emissions.slot_carbon_g(energy, civ)
+        total_energy += energy
+        total_carbon += carbon
+
+        # advance progress; unallocated live jobs spend waiting budget
+        prows = rows[(k_rows > 0) & live]
+        eng.remaining[prows] -= thr_tab[prows, kvec[prows]]
+        eng.started[prows] = True
+        wrows = rows[(k_rows == 0) & live]
+        eng.slack_left[wrows] -= 1
+        eng.waited[wrows] += 1
+
+        fin = rows[eng.remaining[rows] <= _EPS]
+        if len(fin):
+            completion[fin] = t
+            wait[fin] = eng.waited[fin]
+            violations[fin] = t > packed.deadline[fin]
+            for r in fin.tolist():
+                policy.on_completion(t, eng.view(r), bool(violations[r]))
+            eng.in_system[fin] = False
+            rows_dirty = True
+
+        used = int(k_a.sum())
+        running = len(arows)
+        logs.append(SlotLog(slot=t, ci=civ, provisioned=m_t, used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=running,
+                            queued=len(rows) - len(fin) - running))
+        t += 1
+
+    return SimResult(
+        policy=policy.name,
+        carbon_g=total_carbon,
+        energy_kwh=total_energy,
+        slots=logs,
+        wait_slots=wait,
+        violations=violations,
+        completion=completion,
+        num_jobs=n,
+    )
+
+
+def _kvec_enforced(kvec: np.ndarray, eng: EngineState, m_t: int) -> np.ndarray:
+    """Route an over-capacity packed allocation through the scalar trimmer."""
+    alloc = {int(eng.packed.job_ids[r]): int(kvec[r])
+             for r in np.flatnonzero(kvec)}
+    alloc = _enforce_capacity(alloc, eng.active_views(), m_t)
+    out = np.zeros_like(kvec)
+    for jid, k in alloc.items():
+        out[eng.packed.id2row[jid]] = k
+    return out
+
+
+# --- batch sweep API --------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SimCase:
+    """One (trace, CI, cluster, policy) configuration of a sweep."""
+
+    jobs: list[Job]
+    ci: CarbonService
+    cluster: ClusterConfig
+    policy: Policy
+    t0: int = 0
+    horizon: int | None = None
+    max_overrun: int = 24 * 21
+    engine: str = "vector"
+
+
+def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResult]:
+    """Run a (seeds x regions x policies) sweep through the engines.
+
+    Each distinct ``jobs`` list is packed into its struct-of-arrays form
+    exactly once (sorting, throughput/marginal tables, scheduling entry
+    blocks), so per-configuration cost is the slot loop itself rather
+    than per-configuration re-setup."""
+    packs: dict[int, PackedJobs] = {}
+    out: list[SimResult] = []
+    for case in cases:
+        if case.engine == "scalar":
+            out.append(_simulate_scalar(
+                case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                case.horizon, case.max_overrun))
+            continue
+        if case.engine != "vector":
+            raise ValueError(f"unknown engine {case.engine!r}")
+        packed = packs.get(id(case.jobs))
+        if packed is None:
+            packed = packs[id(case.jobs)] = pack(case.jobs)
+        out.append(_simulate_vector(
+            case.jobs, case.ci, case.cluster, case.policy, case.t0,
+            case.horizon, case.max_overrun, packed=packed))
+    return out
+
+
+# --- scalar reference engine ------------------------------------------------
+
+
+def _simulate_scalar(
+    jobs: list[Job],
+    ci: CarbonService,
+    cluster: ClusterConfig,
+    policy: Policy,
+    t0: int = 0,
+    horizon: int | None = None,
+    max_overrun: int = 24 * 21,
+) -> SimResult:
+    horizon = int(horizon if horizon is not None else len(ci) - t0)
+    jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
+    ci_pol = ci.degraded()
+    policy.on_window_start(ci_pol, t0, horizon, jobs, cluster)
+
+    active: list[ActiveJob] = []
+    n = len(jobs)
+    next_arrival = 0                  # pointer into the arrival-sorted list
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    id2row = {j.job_id: i for i, j in enumerate(jobs)}
+
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    t = t0
+    t_end = t0 + horizon
+    while t < t_end + max_overrun:
+        while next_arrival < n and jobs[next_arrival].arrival <= t:
+            j = jobs[next_arrival]
+            next_arrival += 1
+            active.append(ActiveJob(job=j, remaining=j.length, slack_left=j.delay))
+        if not active and next_arrival == n and t >= t_end:
+            break
+
+        m_t, alloc = policy.decide(t, active, ci_pol, cluster)
+        m_t = int(min(m_t, cluster.capacity))
+        alloc = _enforce_capacity(alloc, active, m_t)
+
+        civ = ci.ci(t)
+        energy = 0.0
+        for a in active:
+            k = alloc.get(a.job.job_id, 0)
+            if k > 0:
+                # Fractional final slot (paper footnote 4): only the work
+                # actually needed is charged.
+                frac = min(1.0, a.remaining / max(a.job.throughput(k), 1e-9))
+                energy += emissions.slot_energy_kwh(a.job, k, cluster, frac)
+        carbon = emissions.slot_carbon_g(energy, civ)
+        total_energy += energy
+        total_carbon += carbon
+
+        apply_slot(active, alloc)
+
+        finished = [a for a in active if a.done]
+        for a in finished:
+            row = id2row[a.job.job_id]
+            completion[row] = t
+            wait[row] = a.waited
+            violations[row] = t > a.job.deadline
+            policy.on_completion(t, a, bool(violations[row]))
+        active = [a for a in active if not a.done]
+
+        used = sum(alloc.values())
+        logs.append(SlotLog(slot=t, ci=civ, provisioned=m_t, used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=len(alloc), queued=len(active) - len(alloc)))
+        t += 1
+
+    return SimResult(
+        policy=policy.name,
+        carbon_g=total_carbon,
+        energy_kwh=total_energy,
+        slots=logs,
+        wait_slots=wait,
+        violations=violations,
+        completion=completion,
+        num_jobs=n,
+    )
+
+
+def _enforce_capacity(alloc: dict[int, int], active: list[ActiveJob], m_t: int) -> dict[int, int]:
+    """Capacity invariant: trim allocations (lowest marginal first) to m_t."""
+    by_id = {a.job.job_id: a for a in active}
+    alloc = {jid: int(k) for jid, k in alloc.items()
+             if jid in by_id and k > 0}
+    for jid in list(alloc):
+        a = by_id[jid]
+        alloc[jid] = int(np.clip(alloc[jid], a.job.k_min, a.job.k_max))
+    total = sum(alloc.values())
+    if total <= m_t:
+        return alloc
+    # Shed the least carbon-efficient increments first.
+    incs = []
+    for jid, k in alloc.items():
+        a = by_id[jid]
+        for kk in range(a.job.k_min + 1, k + 1):
+            incs.append((a.job.marginal(kk), jid, kk))
+    incs.sort()                      # lowest marginal first
+    for p, jid, kk in incs:
+        if total <= m_t:
+            break
+        if alloc.get(jid, 0) == kk:
+            alloc[jid] = kk - 1
+            total -= 1
+    # Still above capacity: drop whole base allocations, latest-slack first.
+    if total > m_t:
+        order = sorted(alloc, key=lambda jid: -by_id[jid].slack_left)
+        for jid in order:
+            if total <= m_t:
+                break
+            total -= alloc[jid]
+            del alloc[jid]
+    return alloc

@@ -1,0 +1,206 @@
+"""The experiment driver: one call from ``Scenario`` to per-policy results.
+
+``run()`` owns the continuous-learning loop of §4.2: replay the historical
+weeks through the offline oracle into a rolling :class:`KnowledgeBase`
+(one replay offset per week), construct every requested policy through the
+registry, evaluate each week through ``simulate_many`` (jobs packed once
+per week), then re-learn on the week just evaluated before the next — the
+violation-feedback loop of Algorithm 2 running inside the policies across
+the whole span.
+
+The knowledge base lives on ``device`` (``"cuda"`` by default), where the
+execution phase's lookups run as CUDA kernels; everything else is host
+numpy.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.policy import learn_window
+from repro_torch.core.simulator import SimCase, simulate_many
+from repro_torch.core.types import SimResult
+from repro_torch.device import resolve_device
+
+from .registry import PolicyContext, get_spec, make_policy, needs_kb
+from .scenario import WEEK, MaterializedScenario, Scenario
+
+#: The §6.1 comparison set of this package.
+DEFAULT_POLICIES: tuple[str, ...] = (
+    "carbon-agnostic", "gaia", "wait-awhile", "carbonscaler",
+    "carbonflex", "oracle",
+)
+
+
+def prepare_context(
+    mat: MaterializedScenario,
+    policies: Sequence[str],
+    kb_kwargs: dict | None = None,
+    forecast_quantile: float = 0.7,
+    device: str | torch.device = "cuda",
+) -> PolicyContext:
+    """Build the :class:`PolicyContext` for a materialized scenario,
+    running the initial learning phase when any requested policy needs the
+    knowledge base (held on ``device``).  ``forecast_quantile`` is the band
+    the ``*-robust`` policy variants threshold on."""
+    kb = None
+    if needs_kb(policies):
+        kb = KnowledgeBase(device=device, **(kb_kwargs or {}))
+        learn_window(kb, mat.hist, mat.ci, 0, WEEK, mat.cluster,
+                     offsets=mat.scenario.learn_offsets())
+    return PolicyContext(
+        cluster=mat.cluster, ci=mat.ci, mean_length=mat.mean_length, utilization=mat.scenario.utilization,
+        kb=kb, forecast_quantile=forecast_quantile)
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    """Per-policy results of one scenario run (one ``SimResult`` per
+    evaluated week, aggregates over the whole span).  ``learn_s`` and
+    ``execute_s`` split ``runtime_s`` into the learning phase (oracle
+    replays into the knowledge base) and the execution phase (the engines'
+    slot loops, knowledge-base lookups included)."""
+
+    scenario: Scenario
+    policies: tuple[str, ...]
+    weekly: dict[str, list[SimResult]]
+    kb_size: int
+    runtime_s: float
+    learn_s: float = 0.0
+    execute_s: float = 0.0
+
+    # --- aggregates ---------------------------------------------------------
+
+    def carbon_g(self, policy: str) -> float:
+        return float(sum(r.carbon_g for r in self.weekly[policy]))
+
+    def energy_kwh(self, policy: str) -> float:
+        return float(sum(r.energy_kwh for r in self.weekly[policy]))
+
+    def mean_wait(self, policy: str) -> float:
+        waits = np.concatenate([r.wait_slots for r in self.weekly[policy]]) \
+            if self.weekly[policy] else np.zeros(0)
+        return float(waits.mean()) if len(waits) else 0.0
+
+    def violation_rate(self, policy: str) -> float:
+        rs = self.weekly[policy]
+        v = np.concatenate([r.violations for r in rs]) \
+            if rs else np.zeros(0, dtype=bool)
+        return float(v.mean()) if len(v) else 0.0
+
+    def savings(self, policy: str, baseline: str | None = None) -> float:
+        """Carbon savings (%) of ``policy`` vs ``baseline`` in this run
+        (default: carbon-agnostic)."""
+        baseline = self._baseline(baseline)
+        if baseline is None:
+            return 0.0
+        base = self.carbon_g(baseline)
+        if base <= 0:
+            return 0.0
+        return 100.0 * (1.0 - self.carbon_g(policy) / base)
+
+    # --- presentation -------------------------------------------------------
+
+    def _baseline(self, baseline: str | None) -> str | None:
+        """Resolve the comparison baseline: an explicit name must be part
+        of the run (typos raise); the default is carbon-agnostic, or None
+        when it did not run."""
+        if baseline is not None:
+            if baseline not in self.weekly:
+                raise KeyError(
+                    f"baseline {baseline!r} was not part of this run; "
+                    f"policies: {', '.join(self.weekly)}")
+            return baseline
+        return "carbon-agnostic" if "carbon-agnostic" in self.weekly else None
+
+    def metrics(self, baseline: str | None = None) -> dict[str, dict]:
+        """Per-policy metric dicts."""
+        base = self._baseline(baseline)
+        out = {}
+        for name in self.policies:
+            m = {
+                "carbon_g": self.carbon_g(name),
+                "energy_kwh": self.energy_kwh(name),
+                "mean_wait_h": self.mean_wait(name),
+                "violation_rate": self.violation_rate(name),
+            }
+            if base:
+                m["savings_pct"] = round(self.savings(name, base), 2)
+            out[name] = m
+        return out
+
+    def table(self, baseline: str | None = None) -> str:
+        """Human-readable comparison table (the quickstart report)."""
+        base = self._baseline(baseline)
+        lines = [f"{'policy':18s} {'carbon kg':>10s} {'savings':>8s} "
+                 f"{'wait h':>7s} {'viol':>6s}"]
+        for name in self.policies:
+            sv = f"{self.savings(name, base):7.1f}%" if base else " " * 8
+            lines.append(
+                f"{name:18s} {self.carbon_g(name) / 1e3:10.1f} {sv} "
+                f"{self.mean_wait(name):7.1f} {self.violation_rate(name):6.3f}")
+        return "\n".join(lines)
+
+
+def run(
+    scenario: Scenario,
+    policies: Sequence[str] | None = None,
+    *,
+    kb_kwargs: dict | None = None,
+    forecast_quantile: float = 0.7,
+    device: str | torch.device = "cuda",
+) -> ExperimentResult:
+    """Run ``scenario`` under the named policies (registry names).
+
+    Evaluation week by week: simulate all policies on the week's arrivals
+    (one ``simulate_many`` dispatch — the week's jobs are packed once and
+    shared across policies), then fold the week back into the rolling
+    knowledge base for the next.  ``kb_kwargs`` forwards to
+    :class:`KnowledgeBase` (e.g. ``max_windows`` for the aging window,
+    feature weights for tuning studies).  ``device`` holds the knowledge
+    base; without a CUDA device the default raises.
+    """
+    device = resolve_device(device)
+    names = tuple(policies if policies is not None else DEFAULT_POLICIES)
+    for n in names:
+        get_spec(n)                     # unknown names raise before any work
+    t_start = time.perf_counter()
+    mat = scenario.materialize()
+    t_learn = time.perf_counter()
+    ctx = prepare_context(mat, names, kb_kwargs=kb_kwargs,
+                          forecast_quantile=forecast_quantile, device=device)
+    learn_s = time.perf_counter() - t_learn
+    execute_s = 0.0
+    instances = {n: make_policy(n, ctx) for n in names}
+    weekly: dict[str, list[SimResult]] = {n: [] for n in names}
+
+    for w in range(scenario.eval_weeks):
+        t0 = mat.t0 + w * WEEK
+        if w > 0 and ctx.kb is not None:
+            # continuous learning: replay the week just evaluated
+            t_learn = time.perf_counter()
+            learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK, mat.cluster,
+                         offsets=(t0 - WEEK,))
+            learn_s += time.perf_counter() - t_learn
+        ev = mat.eval_week(w)
+        if not ev:
+            continue
+        cases = [SimCase(jobs=ev, ci=mat.ci, cluster=mat.cluster,
+                         policy=instances[n], t0=t0, horizon=WEEK,
+                         engine=scenario.engine)
+                 for n in names]
+        t_exec = time.perf_counter()
+        for n, res in zip(names, simulate_many(cases)):
+            weekly[n].append(res)
+        execute_s += time.perf_counter() - t_exec
+
+    return ExperimentResult(
+        scenario=scenario, policies=names, weekly=weekly,
+        kb_size=len(ctx.kb) if ctx.kb is not None else 0,
+        runtime_s=time.perf_counter() - t_start,
+        learn_s=learn_s, execute_s=execute_s)

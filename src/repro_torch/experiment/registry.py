@@ -1,0 +1,163 @@
+"""Policy registry: names -> deferred policy constructors.
+
+The single-region policies of the paper's evaluation (§6.1, §6.7) register
+here.  Construction is *deferred*: a builder receives a
+:class:`PolicyContext` carrying the runtime objects policies need — the
+learned :class:`KnowledgeBase` for CarbonFlex, the mean historical length
+the paper grants every baseline — so drivers resolve ``"carbonflex"`` to a
+ready instance instead of hand-wiring each constructor.
+
+Register additional policies with :func:`register_policy`::
+
+    @register_policy("my-policy", description="...")
+    def _build(ctx: PolicyContext) -> Policy:
+        return MyPolicy(...)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.core import baselines
+from repro_torch.core.carbon import CarbonService
+from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.policy import CarbonFlexPolicy, OraclePolicy, Policy
+from repro_torch.core.types import ClusterConfig
+
+
+@dataclasses.dataclass
+class PolicyContext:
+    """Runtime context handed to deferred policy builders."""
+
+    cluster: ClusterConfig
+    ci: CarbonService
+    mean_length: float = 4.0
+    utilization: float = 0.5
+    kb: KnowledgeBase | None = None
+    # quantile the `*-robust` policy variants threshold on (configurable
+    # per experiment; 0.7 = mildly conservative upper band)
+    forecast_quantile: float = 0.7
+
+    def require_kb(self) -> KnowledgeBase:
+        if self.kb is None:
+            raise ValueError("policy requires a learned KnowledgeBase; "
+                             "the driver must run the learning phase first")
+        return self.kb
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicySpec:
+    """A registered policy: display name, builder, and whether it needs the
+    learned knowledge base (drivers use the flag to decide what to
+    prepare)."""
+
+    name: str
+    builder: Callable[[PolicyContext], Policy]
+    needs_kb: bool = False
+    description: str = ""
+
+
+REGISTRY: dict[str, PolicySpec] = {}
+
+
+def register_policy(name: str, *, needs_kb: bool = False, description: str = ""):
+    """Decorator registering a ``PolicyContext -> Policy`` builder."""
+
+    def deco(builder: Callable[[PolicyContext], Policy]):
+        if name in REGISTRY:
+            raise ValueError(f"policy {name!r} is already registered")
+        REGISTRY[name] = PolicySpec(name=name, builder=builder,
+                                    needs_kb=needs_kb, description=description)
+        return builder
+
+    return deco
+
+
+def get_spec(name: str) -> PolicySpec:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown policy {name!r}; registered policies: "
+                         f"{', '.join(sorted(REGISTRY))}") from None
+
+
+def make_policy(name: str, ctx: PolicyContext) -> Policy:
+    """Construct a fresh policy instance (policies are stateful — one
+    instance per simulation case)."""
+    return get_spec(name).builder(ctx)
+
+
+def available_policies() -> tuple[str, ...]:
+    return tuple(REGISTRY)
+
+
+def needs_kb(names) -> bool:
+    return any(get_spec(n).needs_kb for n in names)
+
+
+# --- the single-region §6 policies -------------------------------------------
+
+
+@register_policy("carbon-agnostic",
+                 description="status quo: FCFS, run immediately, no elasticity")
+def _carbon_agnostic(ctx: PolicyContext) -> Policy:
+    return baselines.CarbonAgnosticPolicy()
+
+
+@register_policy("gaia",
+                 description="GAIA lowest-CI-window start-time selection")
+def _gaia(ctx: PolicyContext) -> Policy:
+    return baselines.GaiaPolicy(mean_length=ctx.mean_length)
+
+
+@register_policy("wait-awhile",
+                 description="suspend/resume on the 30th-percentile CI threshold")
+def _wait_awhile(ctx: PolicyContext) -> Policy:
+    return baselines.WaitAwhilePolicy()
+
+
+@register_policy("wait-awhile-robust",
+                 description="wait-awhile thresholding on a conservative "
+                             "forecast quantile instead of the point "
+                             "forecast (forecast-error robust)")
+def _wait_awhile_robust(ctx: PolicyContext) -> Policy:
+    return baselines.RobustWaitAwhilePolicy(quantile=ctx.forecast_quantile)
+
+
+@register_policy("carbonscaler",
+                 description="per-job elastic CarbonScaler plans, cluster-reconciled")
+def _carbonscaler(ctx: PolicyContext) -> Policy:
+    return baselines.CarbonScalerPolicy(mean_length=ctx.mean_length)
+
+
+@register_policy("vcc", description="Google VCC capacity shaping, FCFS")
+def _vcc(ctx: PolicyContext) -> Policy:
+    return baselines.VCCPolicy(utilization=ctx.utilization)
+
+
+@register_policy("vcc-scaling",
+                 description="VCC capacity shaping + elastic filling")
+def _vcc_scaling(ctx: PolicyContext) -> Policy:
+    return baselines.VCCPolicy(scaling=True, utilization=ctx.utilization)
+
+
+@register_policy("carbonflex", needs_kb=True,
+                 description="CarbonFlex KNN execution phase (Algorithms 2+3)")
+def _carbonflex(ctx: PolicyContext) -> Policy:
+    return CarbonFlexPolicy(ctx.require_kb())
+
+
+@register_policy("carbonflex-robust", needs_kb=True,
+                 description="carbonflex with Table-2 forecast features "
+                             "computed on a conservative forecast quantile "
+                             "(forecast-error robust)")
+def _carbonflex_robust(ctx: PolicyContext) -> Policy:
+    return CarbonFlexPolicy(ctx.require_kb(),
+                            forecast_quantile=ctx.forecast_quantile,
+                            name="carbonflex-robust")
+
+
+@register_policy("oracle",
+                 description="Algorithm 1 with full future knowledge (upper bound)")
+def _oracle(ctx: PolicyContext) -> Policy:
+    return OraclePolicy()

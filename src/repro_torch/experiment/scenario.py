@@ -1,0 +1,143 @@
+"""Declarative scenario description for single-region CarbonFlex runs.
+
+A ``Scenario`` names what the paper's single-region sweeps vary — region,
+trace family, capacity, seed, learning/evaluation span, queue scaling,
+workload elasticity, distribution shift — and ``materialize()`` resolves
+it into the concrete ``(cluster, ci, jobs, hist/eval splits)``.
+
+Materialization is cached on the instance: repeated calls return the *same*
+job-list objects.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.carbon import REGIONS, CarbonService
+from repro_torch.core.types import ClusterConfig, Job, QueueConfig, default_queues
+from repro_torch.traces import TraceSpec, generate_trace, mean_length
+
+WEEK = 24 * 7
+# CI margin past the nominal trace so run-to-completion overruns stay
+# on real (not padded) carbon data.
+CI_MARGIN_HOURS = 24 * 30
+
+
+@dataclasses.dataclass
+class MaterializedScenario:
+    """Concrete world resolved from a :class:`Scenario`."""
+
+    scenario: "Scenario"
+    cluster: ClusterConfig
+    ci: CarbonService
+    spec: TraceSpec
+    jobs: list[Job]              # full trace (learning + evaluation weeks)
+    hist: list[Job]              # arrivals in the learning weeks
+    eval_jobs: list[Job]         # arrivals in the evaluation weeks
+    t0: int                      # first evaluation slot
+    mean_length: float
+
+    def eval_week(self, w: int) -> list[Job]:
+        """Arrivals of evaluation week ``w`` (0-based)."""
+        lo = self.t0 + w * WEEK
+        return [j for j in self.eval_jobs if lo <= j.arrival < lo + WEEK]
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One point of the paper's single-region experiment space.
+
+    ``seed`` drives both the CI trace (``seed``) and the workload trace
+    (``seed + 1``), so a single integer reproduces the whole world.
+    ``eval_shift`` regenerates the evaluation weeks from a +/-shifted
+    length/rate distribution (the Fig. 13 learning/execution mismatch)
+    while the learning weeks keep the unshifted trace.  ``engine`` picks
+    the slot simulator: ``"vector"`` (default) or the ``"scalar"``
+    reference loop, bit-identical to each other.
+    """
+
+    region: str = "south-australia"
+    family: str = "azure"
+    capacity: int = 60
+    utilization: float = 0.5
+    learn_weeks: int = 3
+    eval_weeks: int = 1
+    seed: int = 7
+    elasticity: str = "mix"          # "mix" | "high" | "moderate" | "low" | "none"
+    mode: str = "cpu"                # "cpu" | "gpu"
+    delay_scale: float = 1.0         # queue-slack scaling (Section 6.1 queues)
+    length_scale: float = 1.0
+    rate_scale: float = 1.0
+    delay_override: int | None = None   # uniform slack d (Fig. 9 / Fig. 14)
+    eval_shift: float = 0.0             # Fig. 13 distribution shift
+    engine: str = "vector"
+
+    def __post_init__(self) -> None:
+        if self.region not in REGIONS:
+            raise ValueError(f"unknown region {self.region!r}; available "
+                             f"regions: {', '.join(sorted(REGIONS))}")
+        if self.learn_weeks < 1 or self.eval_weeks < 1:
+            raise ValueError("learn_weeks and eval_weeks must be >= 1")
+        if self.engine not in ("scalar", "vector"):
+            raise ValueError(f"unknown engine {self.engine!r}; choose "
+                             "'scalar' or 'vector'")
+
+    # --- derived geometry ---------------------------------------------------
+
+    @property
+    def hours(self) -> int:
+        return WEEK * (self.learn_weeks + self.eval_weeks)
+
+    @property
+    def t0(self) -> int:
+        return WEEK * self.learn_weeks
+
+    def learn_offsets(self) -> tuple[int, ...]:
+        """Replay offsets for the initial learning phase: one per
+        historical week (§5 'Continuous Learning')."""
+        return tuple(WEEK * i for i in range(self.learn_weeks))
+
+    def queues(self) -> tuple[QueueConfig, ...]:
+        if self.delay_override is not None:
+            return tuple(
+                QueueConfig(q.name, max(self.delay_override, 0), q.max_length)
+                for q in default_queues())
+        return tuple(default_queues(self.delay_scale))
+
+    def trace_spec(self, shifted: bool = False) -> TraceSpec:
+        shift = self.eval_shift if shifted else 0.0
+        return TraceSpec(
+            family=self.family, hours=self.hours, capacity=self.capacity,
+            utilization=self.utilization,
+            seed=self.seed + 1 + (99 if shifted else 0),
+            elasticity=self.elasticity, mode=self.mode,
+            length_scale=self.length_scale * (1 + shift),
+            rate_scale=self.rate_scale * (1 + shift))
+
+    # --- materialization ----------------------------------------------------
+
+    def materialize(self) -> MaterializedScenario:
+        """Resolve to concrete (cluster, ci, jobs, splits); cached, so the
+        same ``Scenario`` instance always yields the same job lists."""
+        cached = self.__dict__.get("_materialized")
+        if cached is not None:
+            return cached
+        cluster = ClusterConfig(capacity=self.capacity, queues=self.queues())
+        ci = CarbonService.synthetic(self.region,
+                                     self.hours + CI_MARGIN_HOURS, seed=self.seed)
+        spec = self.trace_spec()
+        jobs = generate_trace(spec, cluster.queues)
+        t0 = self.t0
+        hist = [j for j in jobs if j.arrival < t0]
+        if self.eval_shift:
+            shifted = generate_trace(self.trace_spec(shifted=True),
+                                     cluster.queues)
+            eval_jobs = [j for j in shifted if t0 <= j.arrival < self.hours]
+            jobs = hist + eval_jobs
+        else:
+            eval_jobs = [j for j in jobs if t0 <= j.arrival < self.hours]
+        mat = MaterializedScenario(
+            scenario=self, cluster=cluster, ci=ci, spec=spec, jobs=jobs,
+            hist=hist, eval_jobs=eval_jobs, t0=t0,
+            mean_length=mean_length(spec))
+        object.__setattr__(self, "_materialized", mat)
+        return mat

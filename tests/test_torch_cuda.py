@@ -1,0 +1,132 @@
+"""The hand-written CUDA kernels of the PyTorch port against their plain
+versions, on the card.  Every test here is marked ``cuda`` and skips
+without a CUDA device; the file imports neither JAX nor ``repro``, so it
+runs on a machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: distances rtol/atol 1e-5 (fp32 sums of 13..256 squared terms
+in another order than the plain version); for the batch kernel atol 1e-4,
+because its plain version uses the norm expansion, whose float32
+cancellation error is about eps * (||q||^2 + ||x||^2) in d2.  Indices are
+equal up to ties.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.policy import learn_window
+from repro_torch.experiment import Scenario
+from repro_torch.kernels import knn
+
+WEEK = 24 * 7
+
+
+def _inputs(n, d, q=None, seed=0):
+    rng = np.random.default_rng(seed)
+    cases = rng.normal(size=(n, d)).astype(np.float32)
+    if q is None:
+        return cases, rng.normal(size=(d,)).astype(np.float32)
+    return cases, rng.normal(size=(q, d)).astype(np.float32)
+
+
+def _assert_topk_close(dist, idx, dist_ref, idx_ref, cases, queries,
+                       rtol=1e-5, atol=1e-5):
+    dist, dist_ref = np.asarray(dist), np.asarray(dist_ref)
+    idx, idx_ref = np.atleast_2d(np.asarray(idx)), np.atleast_2d(np.asarray(idx_ref))
+    np.testing.assert_allclose(dist, dist_ref, rtol=rtol, atol=atol)
+    q64 = np.atleast_2d(queries).astype(np.float64)
+    c64 = cases.astype(np.float64)
+    for r, j in zip(*np.nonzero(idx != idx_ref)):
+        a = np.linalg.norm(c64[idx[r, j]] - q64[r])
+        b = np.linalg.norm(c64[idx_ref[r, j]] - q64[r])
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    knn.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 1344, 2048, 2049, 9000])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_topk_matches_plain(cuda, n, k):
+    if k > n:
+        pytest.skip("k > N")
+    cases, q = _inputs(n, 13, seed=n + k)
+    c, qq = torch.from_numpy(cases).to(cuda), torch.from_numpy(q).to(cuda)
+    knn.reset_launches()
+    dist, idx = knn.knn_topk(c, qq, k)
+    torch.cuda.synchronize()
+    assert knn.launches["knn_topk"] == 1
+    dr, ir = knn.knn_topk_plain(c, qq, k)
+    _assert_topk_close(dist.cpu(), idx.cpu(), dr.cpu(), ir.cpu(), cases, q[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d", [(1, 5, 13), (168, 1344, 13), (1344, 1344, 13),
+                                   (37, 3000, 64), (9, 700, 256)])
+def test_kernel_topk_batch_matches_plain(cuda, q, n, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases, qs = _inputs(n, d, q=q, seed=q + n)
+    c, qq = torch.from_numpy(cases).to(cuda), torch.from_numpy(qs).to(cuda)
+    knn.reset_launches()
+    dist, idx = knn.knn_topk_batch(c, qq, 5)
+    torch.cuda.synchronize()
+    assert knn.launches["knn_topk_batch"] == 1
+    dr, ir = knn.knn_topk_batch_plain(c, qq, 5)
+    _assert_topk_close(dist.cpu(), idx.cpu(), dr.cpu(), ir.cpu(), cases, qs,
+                       rtol=1e-5, atol=1e-4)
+    # the batch kernel adds the same fmaf chain as the single-query one
+    for i in range(0, q, max(1, q // 4)):
+        d1, i1 = knn.knn_topk(c, qq[i].contiguous(), 5)
+        assert torch.equal(d1, dist[i]) and torch.equal(i1, idx[i])
+
+
+@pytest.mark.cuda
+def test_kernel_ties_and_checks(cuda):
+    cases = torch.zeros((3000, 4), device=cuda)
+    cases[[5, 2100, 2999]] = 1.0
+    q = torch.ones(4, device=cuda)
+    _, idx = knn.knn_topk(cases, q, 3)
+    assert idx.tolist() == [5, 2100, 2999]
+    _, bidx = knn.knn_topk_batch(cases, q[None].contiguous(), 3)
+    assert bidx.tolist() == [[5, 2100, 2999]]
+    with pytest.raises(TypeError):
+        knn.knn_topk(cases.double(), q.double(), 3)
+    with pytest.raises(ValueError):
+        knn.knn_topk(cases, q, 9)
+    with pytest.raises(ValueError):
+        knn.knn_topk(cases.t(), q[:3].contiguous(), 3)
+    with pytest.raises(ValueError):
+        knn.knn_topk(cases, q.cpu(), 3)
+
+
+@pytest.mark.cuda
+def test_kb_on_cuda_matches_cpu_neighbours(cuda):
+    mat = Scenario(capacity=8, learn_weeks=3, family="alibaba",
+                   seed=101).materialize()
+    cpu = KnowledgeBase(device="cpu")
+    learn_window(cpu, mat.hist, mat.ci, 0, WEEK, mat.cluster,
+                 offsets=(0, WEEK, 2 * WEEK))
+    kb = KnowledgeBase.from_windows(list(cpu._windows), device="cuda")
+    assert kb.case_matrix().device.type == "cuda"
+    assert kb.case_matrix().dtype == torch.float32
+    X = np.concatenate([w[0] for w in cpu._windows])
+    rng = np.random.default_rng(7)
+    states = X[rng.integers(len(X), size=120)] \
+        * (1.0 + 0.05 * rng.normal(size=(120, X.shape[1])))
+    knn.reset_launches()
+    m, r, d = kb.query_batch(states)
+    for i, s in enumerate(states):
+        m1, r1, d1 = kb.query(s)
+        _, _, dc = cpu.query(s)
+        np.testing.assert_allclose(d1, dc, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(d1, d[i])
+        np.testing.assert_array_equal(m1, m[i])
+    assert knn.launches == {"knn_topk": len(states), "knn_topk_batch": 1}
