@@ -5,9 +5,10 @@
 Phases, any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
-   of ``src/repro_torch/csrc`` and time the build;
+   of ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once) and
+   time each build;
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with times from CUDA events beside the
+   shapes its path gives it, with times from CUDA events beside the
    bound, the plain version and one library call;
 3. the main path: ``repro_torch.experiment.run`` over the quickstart
    scenario with six evaluation weeks (the rolling knowledge base fills to
@@ -18,19 +19,31 @@ Phases, any failure exits non-zero:
    whose ``m_t`` or ``rho`` would differ, and the whole scenario run on the
    CPU, counting the weekly results and slots that differ from the card's
    (information, not a gate); last, the main path again under one
-   ``torch.profiler`` trace for the card's busy share.
+   ``torch.profiler`` trace for the card's busy share;
+4. the serving path: llama3-8b at full width and depth (random weights
+   from a seeded generator) prefills 4 prompts of 2048 tokens, attention
+   through the flash kernel (32 launches), then decodes 64 greedy tokens
+   (no flash launch); layer 0's real q/k/v through the kernel against the
+   plain version; each layer's attention through the kernel against the
+   chunked attention on the chunked path's own q/k/v, and the logits so fed
+   (the chained prefill logits of the two, and of two chunk sizes of the
+   chunked attention, as information); then a warm timed run and a
+   traced one.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
@@ -42,13 +55,20 @@ import numpy as np  # noqa: E402
 from repro_torch.core import policy as policy_mod  # noqa: E402
 from repro_torch.core.knowledge import KnowledgeBase  # noqa: E402
 from repro_torch.core.provisioning import provision  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.experiment import Scenario, run  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import knn  # noqa: E402
+from repro_torch.models import init_params, transformer  # noqa: E402
+from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
+from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
-# sheet): HBM3 bandwidth and fp32 outside the tensor cores.
+# sheet): HBM3 bandwidth, fp32 outside the tensor cores, bf16 dense on the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 MAIN = dict(region="south-australia", capacity=40, learn_weeks=3, seed=1,
             eval_weeks=6)
@@ -121,8 +141,9 @@ def device_ms(fn, iters: int = 200) -> float | None:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -370,24 +391,335 @@ def main_path_phase():
                 traced_wall_s=traced_wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall)
 
+# --- flash attention and the serving path ------------------------------------
+
+SERVE_ARCH = "llama3-8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 64
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+# Relative L2 of the whole output against the plain version.  At these key
+# counts unit-normal inputs give outputs of std ~sqrt(e/Sk) = 0.04, below
+# the bf16 atol, so the elementwise test alone would pass a kernel whose
+# outputs were all 30 % too small; bf16 rounding of P and of the output
+# leaves a few 1e-3.
+FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# The same, for each layer's attention output on the model's own q/k/v
+# against the chunked attention: near one-hot softmax under the reference
+# init leaves ~2e-4 (1.5e-4 median over llama3-8b's 32 layers on an H100).
+ATTN_REL = 1e-3
+# (name, B, Sq, Sk, Hq, Hkv, D, causal_offset): the prefill's shape first
+FLASH_SHAPES = [
+    ("prefill", 4, 2048, 2048, 32, 8, 128, 0),
+    ("decode-like", 4, 1, 2112, 32, 8, 128, 2111),
+    ("ragged", 2, 130, 330, 8, 2, 64, 200),
+    ("multi-head", 2, 300, 300, 4, 4, 32, 0),
+]
+
+
+def flash_work(b, sq, sk, hq, hkv, d, offset, elt):
+    """(bytes, FLOPs) of one call: q, k, v read once and the output
+    written once; 4·D FLOPs per unmasked (query row, key) pair per head."""
+    pairs = sum(min(sk, offset + r + 1) for r in range(sq))
+    nbytes = elt * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)
+    return nbytes, 4.0 * b * hq * d * pairs
+
+
+def flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype):
+    """Unit-normal q, k, v from numpy (the model's own are nearly one-hot
+    after the reference init, so they would not test the spread case)."""
+    def one(n, h):
+        return torch.from_numpy(gen.normal(size=(b, n, h, d)).astype(np.float32)) \
+            .to("cuda", dtype)
+    return one(sq, hq), one(sk, hkv), one(sk, hkv)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def flash_check(q, k, v, offset, what):
+    """The kernel against its plain version on the same inputs: elementwise
+    within FLASH_TOL and, as a whole, within FLASH_REL relative L2.
+    Returns (max abs difference, relative L2)."""
+    out = fa.gqa_flash(q, k, v, causal_offset=offset)
+    torch.cuda.synchronize()
+    want = fa.gqa_flash_plain(q, k, v, causal_offset=offset)
+    tol = FLASH_TOL[q.dtype]
+    if out.shape != want.shape or out.dtype != q.dtype \
+            or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{what}: bad output {tuple(out.shape)} {out.dtype}")
+    err = (out.float() - want.float()).abs().max().item()
+    rel = rel_l2(out, want)
+    if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol) \
+            or not rel <= FLASH_REL[q.dtype]:
+        raise AssertionError(f"{what}: kernel and plain version differ by up to "
+                             f"{err}, relative L2 {rel}")
+    return err, rel
+
+
+def flash_kernel_phase():
+    """Phase 2 for ``gqa_flash``: every check shape in fp32 and bf16 against
+    the plain version; times at the prefill's shape in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = np.random.default_rng(1)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+            e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype}")
+            err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
+            log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+                f"D={d} offset={off} {str(dtype)[6:]}: agrees with the plain "
+                f"version (max abs diff {e}, relative L2 {r}, limit "
+                f"{FLASH_REL[dtype]})")
+
+    _, b, sq, sk, hq, hkv, d, off = FLASH_SHAPES[0]
+    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kernel():
+        return fa.gqa_flash(q, k, v)
+
+    def plain():
+        return fa.gqa_flash_plain(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
+    t = dict(ms=time_ms(kernel, 50, warmup=5),
+             plain_ms=time_ms(plain, 10, warmup=3),
+             library_ms=time_ms(library, 50, warmup=5))
+    t.update(device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 10),
+             library_device_ms=device_ms(library, 20))
+    nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
+    bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"gqa_flash prefill shape bf16: {t['ms']:.6f} ms/call (plain "
+        f"{t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} "
+        f"by {by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); device time "
+        f"{t['device_ms']} ms/call (plain {t['plain_device_ms']}, SDPA "
+        f"{t['library_device_ms']}); {flops / t['ms'] / 1e9:.3f} TFLOP/s; SDPA "
+        f"differs from the kernel by up to {lib_diff}")
+    return dict(name="gqa_flash", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:94",
+                max_abs_err=err[torch.bfloat16], max_abs_err_f32=err[torch.float32],
+                rel_l2=rels[torch.bfloat16], rel_l2_f32=rels[torch.float32],
+                bound_ms=bound, bound_by=by,
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                sdpa_max_abs_diff=lib_diff, **t)
+
+
+def teacher_forced(params, prompts, cfg, chunked):
+    """Layer by layer on the chunked model's input to each layer: the
+    relative L2 of the kernel's attention output against the chunked
+    attention's on that layer's own q/k/v, and of the last-position logits
+    of the flash model's last layer so fed against the chunked model's."""
+    lp = params["layers"]
+    x = params["embed"][prompts]
+    pos = torch.arange(x.shape[1], device=x.device)
+    rels = []
+    for li in range(cfg.num_layers):
+        h = rms_norm(x, lp["ln1"][li], cfg.norm_eps)
+        q, k, v = transformer.qkv(h, lp, li)
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        rels.append(rel_l2(fa.gqa_flash(q, k, v),
+                           chunked_attention(q, k, v, 0, chunked.attention_chunk)))
+        del h, q, k, v
+        if li == cfg.num_layers - 1:
+            got, _ = transformer.decoder_layer(x, lp, li, cfg, pos)
+        x, _ = transformer.decoder_layer(x, lp, li, chunked, pos)
+
+    def logits(h):
+        return rms_norm(h[:, -1], params["ln_f"], cfg.norm_eps) \
+            @ transformer.output_head(params)
+
+    return rels, rel_l2(logits(got), logits(x))
+
+
+def serve_phase():
+    """Phase 4: llama3-8b served at full width through
+    ``repro_torch.serve.greedy_generate`` (what ``python -m repro_torch.serve``
+    runs), launch counts reset just before and read just after."""
+    cfg = ARCHS[SERVE_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in torch.utils._pytree.tree_leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
+    log(f"serve: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+        f"{n_params} parameters initialised in {init_s:.3f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card)")
+
+    captured = []
+    kernel = fa.gqa_flash
+
+    def capture(q, k, v, causal_offset=0):
+        if not captured:
+            captured.append((q, k, v, causal_offset))
+        return kernel(q, k, v, causal_offset=causal_offset)
+
+    fa.gqa_flash = capture
+    fa.reset_launches()
+    knn.reset_launches()
+    try:
+        out = greedy_generate(params, prompts, cfg, SERVE_TOKENS)
+    finally:
+        fa.gqa_flash = kernel
+    launches = dict(fa.launches)
+    prefill_n, decode_n = out["prefill_flash_launches"], out["decode_flash_launches"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve: prefill {out['prefill_s']:.6f} s, decode {out['decode_s']:.6f} s "
+        f"({SERVE_BATCH * SERVE_TOKENS / out['decode_s']:.3f} tok/s), gqa_flash "
+        f"launches {prefill_n} in prefill + {decode_n} in decode, peak "
+        f"{peak / 2**30:.3f} GiB")
+    if (prefill_n, decode_n) != (cfg.num_layers, 0) \
+            or launches["gqa_flash"] != cfg.num_layers:
+        raise AssertionError(f"gqa_flash launched {prefill_n} times in prefill and "
+                             f"{decode_n} in decode ({launches}); expected "
+                             f"{cfg.num_layers} and 0")
+    cache, toks = out["cache"], out["tokens"]
+    max_seq = SERVE_PROMPT + SERVE_TOKENS
+    if cache["length"] != max_seq or cache["k"].shape != (
+            cfg.num_layers, SERVE_BATCH, max_seq, cfg.num_kv_heads,
+            cfg.resolved_head_dim):
+        raise AssertionError(f"cache length {cache['length']}, shape "
+                             f"{tuple(cache['k'].shape)}")
+    for name in ("prefill_logits", "last_logits"):
+        x = out[name]
+        if x.shape != (SERVE_BATCH, cfg.vocab_size) or not torch.isfinite(x).all():
+            raise AssertionError(f"{name}: shape {tuple(x.shape)} or non-finite")
+    if toks.shape != (SERVE_BATCH, SERVE_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated ids out of range: {toks.min()}..{toks.max()}")
+
+    # Layer 0's real q/k/v through the kernel against the plain version.
+    q, k, v, off = captured[0]
+    layer0_err, layer0_rel = flash_check(q, k, v, off, "gqa_flash on layer 0's q/k/v")
+    log(f"serve: layer 0's q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}: kernel "
+        f"agrees with the plain version (max abs diff {layer0_err}, relative L2 "
+        f"{layer0_rel})")
+    del captured[:], q, k, v
+
+    # The flash path against the chunked path on the same weights.  Chained
+    # through 32 layers the two diverge whatever the kernel: the reference
+    # init makes scores of std ~1e2, so a rounding difference in one layer
+    # flips near-tied softmax choices in the next (two chunk sizes of the
+    # same chunked attention diverge as far; both printed as information).
+    # The gate holds each layer's attention output, on the chunked path's
+    # own input to that layer, and the logits from the last layer so fed.
+    first_flash = out["prefill_logits"].float()
+    gen_flash = toks.cpu()
+    first_run = dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                     tokens_per_s=SERVE_BATCH * SERVE_TOKENS / out["decode_s"])
+    del out, cache, toks
+    chunked = dataclasses.replace(cfg, attention_backend="chunked")
+    t = time.perf_counter()
+    logits_c, cache_c = make_prefill(chunked, max_seq)(params, prompts)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t
+    del cache_c
+    half_chunk = dataclasses.replace(chunked, attention_chunk=chunked.attention_chunk // 2)
+    logits_h, cache_h = make_prefill(half_chunk, max_seq)(params, prompts)
+    del cache_h
+    chained = rel_l2(first_flash, logits_c)
+    chained_chunks = rel_l2(logits_h, logits_c)
+    agree = int((first_flash.argmax(-1) == logits_c.argmax(-1)).sum().item())
+    log(f"serve: chained prefill logits, flash vs chunked: relative L2 {chained}, "
+        f"first greedy token agrees on {agree} of {SERVE_BATCH} sequences; chunk "
+        f"{half_chunk.attention_chunk} vs {chunked.attention_chunk} of the chunked "
+        f"attention: relative L2 {chained_chunks}; chunked prefill {chunked_s:.6f} s")
+    attn_rel, forced = teacher_forced(params, prompts, cfg, chunked)
+    log(f"serve: each layer's attention on the chunked path's input, kernel vs "
+        f"chunked attention: relative L2 max {max(attn_rel)} (layer "
+        f"{int(np.argmax(attn_rel))}), median {float(np.median(attn_rel))} (limit "
+        f"{ATTN_REL}); last-position logits so fed {forced} (limit 2e-2)")
+    if not (max(attn_rel) <= ATTN_REL and forced <= 2e-2):
+        raise AssertionError(f"flash vs chunked: attention relative L2 up to "
+                             f"{max(attn_rel)}, logits {forced}")
+
+    # A warm run for the times, then a traced one for the device's share.
+    warm = greedy_generate(params, prompts, cfg, SERVE_TOKENS)
+    same = torch.equal(warm["tokens"].cpu(), gen_flash)
+    warm_run = dict(prefill_s=warm["prefill_s"], decode_s=warm["decode_s"],
+                    tokens_per_s=SERVE_BATCH * SERVE_TOKENS / warm["decode_s"])
+    log(f"serve, warm run: prefill {warm_run['prefill_s']:.6f} s, decode "
+        f"{warm_run['decode_s']:.6f} s ({warm_run['tokens_per_s']:.3f} tok/s); "
+        f"same tokens as the first run: {same}")
+    del warm
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        greedy_generate(params, prompts, cfg, 8)
+        traced_wall = time.perf_counter() - t
+    events = device_events(prof)
+    busy_ms = busy_us(events) / 1e3
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    log(f"serve, traced (prefill + 8 decode steps): {traced_wall:.6f} s wall under "
+        f"the profiler, card busy {busy_ms:.6f} ms = "
+        f"{100 * busy_ms / 1e3 / traced_wall:.6f} %")
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {ms:.6f} ms  {name[:100]}")
+    return dict(arch=cfg.name, params=n_params, init_s=init_s,
+                batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_TOKENS,
+                first_run=first_run, warm_run=warm_run, warm_same_tokens=same,
+                peak_gib=peak / 2**30, prefill_flash_launches=prefill_n,
+                decode_flash_launches=decode_n, layer0_max_abs_err=layer0_err,
+                layer0_rel_l2=layer0_rel, attn_rel_l2_max=max(attn_rel),
+                attn_rel_l2_median=float(np.median(attn_rel)),
+                forced_logits_rel_l2=forced,
+                chained_logits_rel_l2=chained, chained_chunk_rel_l2=chained_chunks,
+                first_token_agree=agree,
+                chunked_prefill_s=chunked_s, traced_wall_s=traced_wall,
+                traced_busy_ms=busy_ms, traced_busy_share=busy_ms / 1e3 / traced_wall,
+                launches=launches)
+
+
+def build_kernels():
+    """Build every kernel source at once (one nvcc each) and print each
+    build's time and the compiler's report."""
+    def timed(mod):
+        t = time.perf_counter()
+        report = mod.build()
+        return time.perf_counter() - t, report
+
+    sources = (("src/repro_torch/csrc/knn.cu", knn),
+               ("src/repro_torch/csrc/flash_attention.cu", fa))
+    with ThreadPoolExecutor(len(sources)) as ex:
+        futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
+        for src, fut in futures:
+            seconds, report = fut.result()
+            log(f"built {src} in {seconds:.3f} s")
+            if report:
+                log(report.strip())
+
 
 def main():
     card = card_line()
     log(f"card: {card}")
-    t = time.perf_counter()
-    report = knn.build()
-    log(f"built src/repro_torch/csrc/knn.cu in {time.perf_counter() - t:.3f} s")
-    if report:
-        log(report.strip())
+    build_kernels()
 
     kernels = kernel_phase()
+    kernels.append(flash_kernel_phase())
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
     kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay")
-    if kernels[0]["launches"] < 1 or kernels[1]["launches"] < 1:
-        raise AssertionError("a kernel of the path was never launched")
+    serve = serve_phase()
+    kernels[2].update(launches=serve["launches"]["gqa_flash"], path="serve-prefill")
+    if any(kern["launches"] < 1 for kern in kernels):
+        raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
                                   if k not in ("main", "batch")}}))
+    log(json.dumps({"serve_path": {k: v for k, v in serve.items()
+                                   if k != "launches"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

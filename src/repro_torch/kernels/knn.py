@@ -21,19 +21,10 @@ failed build raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "knn.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from ._build import build_library
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 launches = {"knn_topk": 0, "knn_topk_batch": 0}
@@ -77,17 +68,6 @@ def knn_topk_batch_plain(cases: torch.Tensor, queries: torch.Tensor, k: int):
 # --- build ------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{_SRC.name}")
-
-
 def build() -> str:
     """Compile ``csrc/knn.cu`` (once per source version) and load it.
 
@@ -96,26 +76,7 @@ def build() -> str:
     global _lib
     if _lib is not None:
         return ""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"libknn_{tag}.so"
-    log = ""
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {_SRC}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)         # atomic: concurrent builders agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
+    lib, log = build_library("knn")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.knn_topk_f32.argtypes = [p, p, i, i, i, p, p, p, p, p]
     lib.knn_topk_f32.restype = i

@@ -5,11 +5,15 @@ runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: distances rtol/atol 1e-5 (fp32 sums of 13..256 squared terms
+KNN tolerances: distances rtol/atol 1e-5 (fp32 sums of 13..256 squared terms
 in another order than the plain version); for the batch kernel atol 1e-4,
 because its plain version uses the norm expansion, whose float32
 cancellation error is about eps * (||q||^2 + ||x||^2) in d2.  Indices are
-equal up to ties.
+equal up to ties.  Flash attention: rtol = atol = 2e-5 in fp32 (TF32 off)
+and 5e-2 in bf16, the JAX package's kernel tolerances, and the whole output
+within a relative L2 of 2e-5 (fp32) and 1e-2 (bf16) of the plain version:
+outputs of long causal rows are small beside the bf16 atol, and the
+relative L2 catches a kernel whose outputs are all off by a common factor.
 """
 import numpy as np
 import pytest
@@ -18,9 +22,12 @@ import torch
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.experiment import Scenario
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import knn
 
 WEEK = 24 * 7
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
 def _inputs(n, d, q=None, seed=0):
@@ -29,6 +36,15 @@ def _inputs(n, d, q=None, seed=0):
     if q is None:
         return cases, rng.normal(size=(d,)).astype(np.float32)
     return cases, rng.normal(size=(q, d)).astype(np.float32)
+
+
+def _assert_flash_close(got, want, what):
+    tol, rel_tol = FLASH_TOL[want.dtype], FLASH_REL[want.dtype]
+    got, want = got.float().cpu(), want.float().cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol,
+                               err_msg=what)
+    rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    assert rel <= rel_tol, f"{what}: relative L2 {rel}"
 
 
 def _assert_topk_close(dist, idx, dist_ref, idx_ref, cases, queries,
@@ -130,3 +146,60 @@ def test_kb_on_cuda_matches_cpu_neighbours(cuda):
         np.testing.assert_array_equal(d1, d[i])
         np.testing.assert_array_equal(m1, m[i])
     assert knn.launches == {"knn_topk": len(states), "knn_topk_batch": 1}
+
+
+@pytest.fixture
+def cuda_flash():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.build()
+    return torch.device("cuda")
+
+
+FLASH_GRID = [(sq, extra, hq, group, d)
+              for sq in (1, 17, 64, 130) for extra in (0, 37, 200)
+              for hq, group in ((2, 1), (4, 2), (8, 4)) for d in (32, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernel_flash_matches_plain(cuda_flash, dtype):
+    for sq, extra, hq, group, d in FLASH_GRID:
+        rng = np.random.default_rng(sq + extra + hq + d)
+        sk = sq + extra
+        q, k, v = (torch.from_numpy(rng.normal(size=(2, n, h, d)).astype(np.float32))
+                   .to(cuda_flash, dtype) for n, h in ((sq, hq), (sk, hq // group),
+                                                        (sk, hq // group)))
+        fa.reset_launches()
+        out = fa.gqa_flash(q, k, v, causal_offset=extra)
+        torch.cuda.synchronize()
+        assert fa.launches["gqa_flash"] == 1
+        assert out.dtype == dtype and out.shape == q.shape
+        want = fa.gqa_flash_plain(q, k, v, causal_offset=extra)
+        _assert_flash_close(out, want, str((sq, extra, hq, group, d, dtype)))
+
+
+@pytest.mark.cuda
+def test_kernel_flash_strided_and_checks(cuda_flash):
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.normal(size=(2, 70, 3, 8, 64)).astype(np.float32)) \
+        .to(cuda_flash, torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :4], qkv[:, :, 2, :4]   # strided views
+    want = fa.gqa_flash_plain(q, k, v, causal_offset=5)
+    got = fa.gqa_flash(q, k, v, causal_offset=5)
+    _assert_flash_close(got, want, "strided views")
+    ok = q.contiguous(), k.contiguous(), v.contiguous()
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 4, 2, 96), device=cuda_flash)
+        fa.gqa_flash(x, x, x)
+    with pytest.raises(TypeError):
+        fa.gqa_flash(*(t.half() for t in ok))
+    with pytest.raises(TypeError):
+        fa.gqa_flash(ok[0].float(), ok[1], ok[2])
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.gqa_flash(ok[0].transpose(1, 3).contiguous().transpose(1, 3), ok[1], ok[2])
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.gqa_flash(ok[0], ok[1].cpu(), ok[2])
+    with pytest.raises(ValueError, match="causal_offset"):
+        fa.gqa_flash(*ok, causal_offset=-1)
