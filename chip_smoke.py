@@ -28,7 +28,15 @@ Phases, any failure exits non-zero:
    chunked attention on the chunked path's own q/k/v, and the logits so fed
    (the chained prefill logits of the two, and of two chunk sizes of the
    chunked attention, as information); then a warm timed run and a
-   traced one.
+   traced one;
+5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
+   paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
+   slot loop on the card and every slot's in-degree decrement through the
+   gating kernel, equal to the same scenario on the CPU's vector engine in
+   every weekly result and every slot; the independent twin (no edges, no
+   gating launch); then one full tile of 64 dag-carbon cells (8 regions x 8
+   CI seeds) through ``simulate_many``, each equal to its CPU vector run,
+   and one traced chunk of it for the card's busy share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -56,12 +64,18 @@ from repro_torch.core import policy as policy_mod  # noqa: E402
 from repro_torch.core.knowledge import KnowledgeBase  # noqa: E402
 from repro_torch.core.provisioning import provision  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.experiment import Scenario, run  # noqa: E402
+from repro_torch.core import scan_engine  # noqa: E402
+from repro_torch.core.carbon import CarbonService, REGIONS  # noqa: E402
+from repro_torch.core.dag import DagCarbonPolicy  # noqa: E402
+from repro_torch.core.simulator import SimCase, pack, simulate_many  # noqa: E402
+from repro_torch.experiment import DEFAULT_DAG_POLICIES, Scenario, run  # noqa: E402
+from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import knn  # noqa: E402
+from repro_torch.kernels import gating, knn  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
+from repro_torch.traces import DagConfig  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
 # sheet): HBM3 bandwidth, fp32 outside the tensor cores, bf16 dense on the
@@ -683,6 +697,258 @@ def serve_phase():
                 launches=launches)
 
 
+# --- DAG gating and the device slot loop -------------------------------------
+
+# The paper's default 150-server cluster, one evaluation week of DAG jobs.
+DAG = dict(capacity=150, learn_weeks=1, seed=7)
+TILE_REGIONS = tuple(REGIONS)[:8]
+TILE_SEEDS = range(8)
+
+
+def dag_week():
+    mat = Scenario(dag=DagConfig(), **DAG).materialize()
+    return mat, mat.eval_week(0)
+
+
+def gating_work(rows, graph):
+    """(bytes, operations) of one call: fin read once (one byte a cell), the
+    CSR read once, the int32 counts written once; one add per edge and
+    cell."""
+    elt = graph.pred_idx.element_size()
+    nbytes = rows * graph.n + elt * (graph.n + 1 + graph.n_edges) + 4 * rows * graph.n
+    return nbytes, rows * graph.n_edges
+
+
+def gating_check(fin, graph, parents, children, what):
+    """The kernel against its plain version (and the edge-list forms) on
+    the same inputs, equal exactly; returns the largest absolute
+    difference (0)."""
+    got = gating.dep_decrement_csr(fin, graph)
+    torch.cuda.synchronize()
+    want = gating.dep_decrement_csr_plain(fin, graph)
+    scatter = gating.dep_decrement_plain(fin, parents, children, graph.n)
+    edges = gating.dep_decrement(fin, parents, children, graph.n)
+    if got.dtype != torch.int32 or got.shape != fin.shape:
+        raise AssertionError(f"{what}: bad output {tuple(got.shape)} {got.dtype}")
+    for name, other in (("plain", want), ("index_add_", scatter),
+                        ("edge-list entry", edges)):
+        if not torch.equal(got, other):
+            diff = (got - other).abs().max().item()
+            raise AssertionError(f"{what}: kernel and {name} differ by up to {diff}")
+    return (got - want).abs().max().item() if got.numel() else 0
+
+
+def gating_kernel_phase():
+    """Phase 2 for the gating kernel: exact equality on the path's own
+    graph (the capacity-150 week padded to its 6144 rows, as the slot loop
+    lays it out, B=1 and B=64) and on an empty edge list, duplicate edges
+    and a row of in-degree above 64; times at the path's shape."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(2)
+    _, ev = dag_week()
+    packed = pack(ev)
+    n_pad = scan_engine._pad_rows(packed.n)
+    n = packed.n
+    deg = np.diff(packed.succ_ptr)
+    par = np.repeat(np.arange(n), deg)
+    chd = packed.succ_rows.copy()
+    log(f"gating: the path's graph has {n} rows ({n_pad} padded), {len(par)} edges, "
+        f"largest in-degree {int(packed.pred0.max())}")
+    dup = gen.integers(0, len(par), 500)
+    hub = gen.integers(0, n, 200)
+    graphs = [
+        ("path", par, chd),
+        ("empty", np.zeros(0, np.int64), np.zeros(0, np.int64)),
+        ("duplicates", np.concatenate([par, par[dup]]), np.concatenate([chd, chd[dup]])),
+        ("in-degree 200", np.concatenate([par, hub]),
+         np.concatenate([chd, np.full(200, 5)])),
+    ]
+    err = 0
+    for name, p, c in graphs:
+        graph = (scan_engine._dep_graph(packed, n_pad, dev) if name == "path"
+                 else gating.dep_graph(p, c, n_pad, device=dev))
+        pt, ct = (torch.from_numpy(x).to(dev) for x in (p, c))
+        for rows in (1, 64):
+            fin = torch.from_numpy(gen.random((rows, n_pad)) < 0.05).to(dev)
+            fin[:, n:] = False
+            err = max(err, gating_check(fin, graph, pt, ct, f"gating {name} B={rows}"))
+            log(f"gating {name:13s} B={rows:2d} n={n_pad} E={graph.n_edges}: equal "
+                f"to the plain version, index_add_ and the edge-list entry")
+
+    graph = scan_engine._dep_graph(packed, n_pad, dev)
+    pt, ct = (torch.from_numpy(x).to(dev) for x in (par, chd))
+    out = {}
+    for rows in (1, 64):
+        fin = torch.from_numpy(gen.random((rows, n_pad)) < 0.05).to(dev)
+
+        def library():
+            z = torch.zeros((rows, n_pad), dtype=torch.int32, device=dev)
+            return z.index_add_(1, ct, fin[:, pt].int())
+
+        def kernel():
+            return gating.dep_decrement_csr(fin, graph)
+
+        def plain():
+            return gating.dep_decrement_csr_plain(fin, graph)
+
+        t = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 2000),
+                 library_ms=time_ms(library, 2000))
+        t.update(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                 library_device_ms=device_ms(library))
+        nbytes, ops = gating_work(rows, graph)
+        b, by = bound_ms(nbytes, ops)
+        log(f"dep_decrement_csr B={rows} n={n_pad} E={graph.n_edges}: {t['ms']:.6f} "
+            f"ms/call (plain {t['plain_ms']:.6f}, index_add_ {t['library_ms']:.6f}, "
+            f"bound {b:.9f} by {by}: {nbytes} bytes); device time {t['device_ms']} "
+            f"ms/call (plain {t['plain_device_ms']}, index_add_ "
+            f"{t['library_device_ms']})")
+        out[rows] = dict(bound_ms=b, bound_by=by, bytes=nbytes, **t)
+    return dict(name="dep_decrement_csr", route="cuda",
+                source="src/repro_torch/csrc/gating.cu",
+                replaces="src/repro/kernels/gating.py:90", max_abs_err=err,
+                shape=f"B=1 n={n_pad} E={graph.n_edges} int32 CSR",
+                library="fin[:, parents].int() then zeros.index_add_(1, children, .): "
+                        "two calls",
+                tile_B64=out[64], **out[1])
+
+
+def same_results(a_res, b_res, names):
+    """(weekly results that differ, slots that differ): carbon, energy,
+    completion, waits and violations per week, used/running/queued per
+    slot, compared as floats with ==."""
+    weeks = slots = 0
+    for name in names:
+        for a, b in zip(a_res[name], b_res[name], strict=True):
+            weeks += not (a.carbon_g == b.carbon_g and a.energy_kwh == b.energy_kwh
+                          and np.array_equal(a.completion, b.completion)
+                          and np.array_equal(a.wait_slots, b.wait_slots)
+                          and np.array_equal(a.violations, b.violations))
+            slots += abs(len(a.slots) - len(b.slots)) + sum(
+                (x.used, x.running, x.queued) != (y.used, y.running, y.queued)
+                for x, y in zip(a.slots, b.slots))
+    return weeks, slots
+
+
+def dag_path_phase():
+    """Phase 5: the DAG path through ``run(..., engine="scan")`` on the
+    card, its CPU vector twin, the independent twin, and one full tile."""
+    gating.reset_launches()
+    scan_engine.reset_stats()
+    t = time.perf_counter()
+    res = run(Scenario(dag=DagConfig(), engine="scan", **DAG), DEFAULT_DAG_POLICIES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = gating.launches["dep_decrement"]
+    stats = dict(scan_engine.stats)
+    log(f"dag path (scan on the card): {wall:.3f} s wall, {stats['steps']} slot steps "
+        f"({stats['loop_s']:.3f} s in the chunk loops, "
+        f"{1e3 * stats['loop_s'] / stats['steps']:.6f} ms per step; host accounting "
+        f"{stats['account_s']:.3f} s), gating launches {launches}")
+    log(res.table())
+    t = time.perf_counter()
+    cpu = run(Scenario(dag=DagConfig(), engine="vector", **DAG), DEFAULT_DAG_POLICIES,
+              device="cpu")
+    cpu_wall = time.perf_counter() - t
+    weeks, slots = same_results(res.weekly, cpu.weekly, DEFAULT_DAG_POLICIES)
+    log(f"dag path, the CPU vector engine ({cpu_wall:.3f} s wall): {weeks} weekly "
+        f"results and {slots} slots differ from the card's scan run")
+    n_cells = len(DEFAULT_DAG_POLICIES)
+    if weeks or slots:
+        raise AssertionError(f"dag path: {weeks} weekly results, {slots} slots differ")
+    if not (launches == stats["dag_steps"] == stats["steps"] == stats["cell_steps"]
+            and launches >= 168 * n_cells and stats["delegated"] == 0):
+        raise AssertionError(f"dag path: {launches} gating launches for {stats}")
+    for name in DEFAULT_DAG_POLICIES:
+        (r,) = res.weekly[name]
+        if not (math.isfinite(r.carbon_g) and r.carbon_g > 0
+                and (r.completion >= 0).all() and r.num_jobs > 5000):
+            raise AssertionError(f"dag path {name}: bad result")
+    if not res.savings("dag-carbon") > 0:
+        raise AssertionError("dag-carbon saves nothing against dag-fcfs")
+
+    gating.reset_launches()
+    scan_engine.reset_stats()
+    twin = run(Scenario(dag=DagConfig(independent=True), engine="scan", **DAG),
+               DEFAULT_DAG_POLICIES)
+    twin_launches, twin_stats = gating.launches["dep_decrement"], dict(scan_engine.stats)
+    twin_cpu = run(Scenario(dag=DagConfig(independent=True), engine="vector", **DAG),
+                   DEFAULT_DAG_POLICIES, device="cpu")
+    tw, ts = same_results(twin.weekly, twin_cpu.weekly, DEFAULT_DAG_POLICIES)
+    log(f"independent twin: gating launches {twin_launches} in {twin_stats['steps']} "
+        f"slot steps; {tw} weekly results and {ts} slots differ from its CPU run")
+    log(twin.table())
+    if twin_launches or tw or ts or twin_stats["steps"] < 168 * n_cells:
+        raise AssertionError("independent twin: launched the gating or differs")
+
+    # One full tile: 64 dag-carbon cells on the same week, 8 regions x 8 CI
+    # seeds, one batched program on the card.
+    mat, ev = dag_week()
+    cis = [CarbonService.synthetic(r, mat.scenario.hours + CI_MARGIN_HOURS, seed=s)
+           for r in TILE_REGIONS for s in TILE_SEEDS]
+
+    def cases(engine, device, **kw):
+        return [SimCase(jobs=ev, ci=ci, cluster=mat.cluster, policy=DagCarbonPolicy(),
+                        t0=mat.t0, horizon=WEEK, engine=engine, device=device, **kw)
+                for ci in cis]
+
+    gating.reset_launches()
+    scan_engine.reset_stats()
+    t = time.perf_counter()
+    tile = simulate_many(cases("scan", "cuda"))
+    torch.cuda.synchronize()
+    tile_wall = time.perf_counter() - t
+    tile_launches, tile_stats = gating.launches["dep_decrement"], dict(scan_engine.stats)
+    t = time.perf_counter()
+    tile_cpu = simulate_many(cases("vector", "cpu"))
+    tile_cpu_wall = time.perf_counter() - t
+    tw, ts = same_results({"c": tile}, {"c": tile_cpu}, ["c"])
+    log(f"tile: {len(cis)} dag-carbon cells in {tile_stats['steps']} batched slot steps, "
+        f"{tile_wall:.3f} s wall ({len(cis) / tile_wall:.3f} cells/s, "
+        f"{tile_stats['cell_steps'] / tile_wall:.3f} cell slot steps/s; chunk loops "
+        f"{tile_stats['loop_s']:.3f} s = {1e3 * tile_stats['loop_s'] / tile_stats['steps']:.6f}"
+        f" ms per batched step, host accounting {tile_stats['account_s']:.3f} s); gating "
+        f"launches {tile_launches}; CPU vector engine {tile_cpu_wall:.3f} s: {tw} cells "
+        f"and {ts} slots differ")
+    if (tw or ts or tile_launches != tile_stats["dag_steps"]
+            or tile_stats["cell_steps"] != len(cis) * tile_stats["steps"]):
+        raise AssertionError(f"tile: {tw} cells / {ts} slots differ, {tile_launches} "
+                             f"launches for {tile_stats}")
+
+    # One traced chunk of the tile: the horizon's 168 slots and no overrun.
+    from torch.profiler import ProfilerActivity, profile
+
+    scan_engine.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        simulate_many(cases("scan", "cuda", max_overrun=0))
+        torch.cuda.synchronize()
+    chunk_s = scan_engine.stats["loop_s"]
+    events = device_events(prof)
+    busy_ms = busy_us(events) / 1e3
+    kernels_ms = busy_us([e for e in events if not e.name.startswith("Memcpy")]) / 1e3
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    log(f"traced chunk ({scan_engine.stats['steps']} batched steps of {len(cis)} cells): "
+        f"chunk loop {chunk_s:.6f} s under the profiler, card busy {busy_ms:.6f} ms = "
+        f"{100 * busy_ms / 1e3 / chunk_s:.6f} % of it, {kernels_ms:.6f} ms = "
+        f"{100 * kernels_ms / 1e3 / chunk_s:.6f} % in kernels (copies left out); "
+        f"{len(events)} device events")
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {ms:.6f} ms  {name[:100]}")
+    return dict(launches=launches, wall_s=wall, stats=stats, cpu_wall_s=cpu_wall,
+                weeks_differ=weeks, slots_differ=slots,
+                savings={n: res.savings(n) for n in DEFAULT_DAG_POLICIES},
+                twin_launches=twin_launches, twin_steps=twin_stats["steps"],
+                tile_cells=len(cis), tile_wall_s=tile_wall, tile_stats=tile_stats,
+                tile_launches=tile_launches, tile_cpu_wall_s=tile_cpu_wall,
+                tile_cells_per_s=len(cis) / tile_wall,
+                tile_cell_steps_per_s=tile_stats["cell_steps"] / tile_wall,
+                traced_chunk_loop_s=chunk_s, traced_chunk_busy_ms=busy_ms,
+                traced_chunk_busy_share=busy_ms / 1e3 / chunk_s,
+                traced_chunk_kernel_ms=kernels_ms,
+                traced_chunk_device_events=len(events))
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each) and print each
     build's time and the compiler's report."""
@@ -692,7 +958,8 @@ def build_kernels():
         return time.perf_counter() - t, report
 
     sources = (("src/repro_torch/csrc/knn.cu", knn),
-               ("src/repro_torch/csrc/flash_attention.cu", fa))
+               ("src/repro_torch/csrc/flash_attention.cu", fa),
+               ("src/repro_torch/csrc/gating.cu", gating))
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
         for src, fut in futures:
@@ -709,17 +976,21 @@ def main():
 
     kernels = kernel_phase()
     kernels.append(flash_kernel_phase())
+    kernels.append(gating_kernel_phase())
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
     kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay")
     serve = serve_phase()
     kernels[2].update(launches=serve["launches"]["gqa_flash"], path="serve-prefill")
+    dag = dag_path_phase()
+    kernels[3].update(launches=dag["launches"], path="dag-scan")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
                                   if k not in ("main", "batch")}}))
     log(json.dumps({"serve_path": {k: v for k, v in serve.items()
                                    if k != "launches"}}))
+    log(json.dumps({"dag_path": dag}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

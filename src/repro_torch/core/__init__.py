@@ -12,11 +12,15 @@ composable library.
                                      (vectorised; ``engine="scalar"`` for
                                      the reference path)
 - ``simulator.simulate_many``      — batched sweeps through the engines
+- ``scan_engine``                  — ``engine="scan"``: the slot loop on the
+                                     device, DAG gating through a CUDA kernel
+- ``dag``                          — DAG workloads, criticality and the
+                                     dag-fcfs/dag-carbon/dag-cap policies
 - ``baselines``                    — §6 baselines (agnostic/GAIA/WaitAwhile/
                                      CarbonScaler/VCC)
 - ``policy.Policy``                — the protocol every policy implements
 """
-from . import baselines, carbon, emissions, forecast, knowledge, oracle, policy, profiles, provisioning, scheduling, simulator, types  # noqa: F401
+from . import baselines, carbon, dag, emissions, forecast, knowledge, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
 from .carbon import CarbonService, synthesize_trace  # noqa: F401
 from .knowledge import KnowledgeBase  # noqa: F401
 from .policy import (CarbonFlexPolicy, LearnOutcome, OraclePolicy, Policy,  # noqa: F401

@@ -1,0 +1,522 @@
+"""The device slot loop (``engine="scan"``): the per-slot simulation loop
+of the threshold-fill policies as tensor ops on the device.
+
+The counterpart of the single-region, non-MPC part of the JAX package's
+``core/scan_engine.py``, with PyTorch's idiom inside the reference's names:
+
+- the *decision* of every native policy is packed tensor ops inside the
+  slot step (FCFS threshold-fill at ``k_min`` under an eligibility mask);
+- admission, dependency gating, release and deadline-from-release live in
+  the carried state; the in-degree decrement of DAG workloads goes through
+  the hand-written CUDA kernel of ``kernels/gating.py`` (its plain version
+  on the CPU), over a predecessor CSR built once per program;
+- structurally identical cases run as one batched program: a leading
+  batch dimension of up to ``BATCH_TILE`` cells takes the place of the
+  reference's ``vmap``, and the reference's ``lax.scan`` becomes a Python
+  loop of eager slot steps, chunked so termination is read on the host
+  once per chunk.
+
+Bit-parity contract: ``engine="scan"`` is bit-identical to the vector and
+scalar engines.  The device updates ``remaining`` in float64 with one
+subtraction per taken slot (``rem - thr``, the vector engine's IEEE op)
+and emits per-slot boolean grids (which rows ran, finished, violated)
+into preallocated (B, chunk, n_pad) tensors, copied to the host once per
+chunk.  The host replays fractional progress, energy and carbon from the
+``take`` grid with the vector engine's exact numpy expressions, in its
+order (``_active_energy``, ``_account_single``), and the threshold
+eligibility tables are computed on the host with the policies' own numpy
+expressions.
+
+Native policies (exact types): ``carbon-agnostic`` and ``dag-fcfs``
+(plain), ``wait-awhile``, ``wait-awhile-robust`` and ``dag-carbon``
+(thresh), ``dag-cap`` (cap).  Every other policy, and every job list
+whose ``k_min`` is not uniform (the reference's sequential fill), runs on
+the vector engine instead, which is bit-identical; ``stats["delegated"]``
+counts those cases.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import gating
+
+from . import emissions
+from .baselines import (CarbonAgnosticPolicy, RobustWaitAwhilePolicy,
+                        WaitAwhilePolicy)
+from .carbon import CarbonService
+from .dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
+from .forecast import QuantileCIView
+from .simulator import PackedJobs, SimCase, _simulate_vector, packed_for
+from .types import SimResult, SlotLog
+
+_EPS = 1e-9
+_log = logging.getLogger(__name__)
+_BIG_T = np.int64(2 ** 62)     # arrival sentinel for padding rows
+ROW_PAD = 256                  # row-count bucket
+CHUNK = 168                    # slots per chunk (horizon region)
+OVERRUN_CHUNK = 24             # slots per chunk past the horizon
+BATCH_TILE = 64                # cells per batched program
+
+#: Since the last ``reset_stats()``: slot steps (one per batched step
+#: call), cell steps (steps times the cells of the batch), steps with DAG
+#: gating, cases delegated to the vector engine, and host seconds in the
+#: chunk loops (device steps, the per-chunk tables and copies) and in the
+#: host accounting.
+stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "delegated": 0,
+         "loop_s": 0.0, "account_s": 0.0}
+
+
+def reset_stats() -> None:
+    for name in stats:
+        stats[name] = 0.0 if name.endswith("_s") else 0
+
+
+def native_kind(policy) -> str | None:
+    """The scan-native program family of ``policy``, or None to delegate.
+
+    Exact ``type()`` checks: a subclass may override ``decide`` in ways the
+    packed decision tables cannot see."""
+    tp = type(policy)
+    if tp in (CarbonAgnosticPolicy, DagFcfsPolicy):
+        return "plain"
+    if tp in (WaitAwhilePolicy, RobustWaitAwhilePolicy, DagCarbonPolicy):
+        return "thresh"
+    if tp is DagCapPolicy:
+        return "cap"
+    return None
+
+
+def _pad_rows(n: int) -> int:
+    """Smallest ROW_PAD multiple strictly greater than n (the last row is
+    always padding)."""
+    return (n // ROW_PAD + 1) * ROW_PAD
+
+
+# --- host tables -------------------------------------------------------------
+
+
+def _ci_block(ci, t0: int, n_valid: int) -> np.ndarray:
+    """Accounting CI per slot."""
+    if type(ci) is CarbonService:
+        # float64 widening is exact, matching the per-slot float() calls
+        tr = np.asarray(ci.trace, dtype=np.float64)
+        return tr[np.minimum(np.arange(t0, t0 + n_valid), len(tr) - 1)]
+    return np.array([ci.ci(t0 + i) for i in range(n_valid)])
+
+
+def _single_elig_fn(policy, ci_pol, kind: str) -> Callable:
+    """Per-slot low-carbon eligibility flags, computed with the policy's
+    own expressions (bit-parity by construction)."""
+    if kind == "plain":
+        return lambda ts: np.ones(len(ts), dtype=bool)
+    view = ci_pol
+    if type(policy) is RobustWaitAwhilePolicy:
+        view = QuantileCIView(ci_pol, policy.quantile)
+    pct = policy.percentile
+
+    tr = pad_tr = None
+    if type(view) is CarbonService and np.asarray(view.trace).dtype == np.float64:
+        # perfect-forecast fast path: whole-trace windows are the same
+        # float64 elements the per-slot forecast() calls slice, so the
+        # batched percentile is bitwise equal
+        tr = np.asarray(view.trace)
+        hor = int(view.horizon)
+        pad_tr = np.concatenate([tr, np.full(hor - 1, tr[-1])])
+
+    def elig(ts: np.ndarray) -> np.ndarray:
+        if tr is not None and ts[0] >= 0 and ts[-1] < len(tr):
+            civ = tr[np.minimum(ts, len(tr) - 1)]
+            fcm = pad_tr[ts[:, None] + np.arange(hor)[None, :]]
+            return civ <= np.percentile(fcm, pct, axis=1) + 1e-12
+        # one percentile call over the stacked windows: np.percentile with
+        # axis= interpolates each row with the same arithmetic as the
+        # per-row call, so this is bitwise identical to the policies'
+        # per-slot ``percentile_threshold(t, pct)``; rows of unequal length
+        # (trace tail) fall back to the per-row call.
+        tl = ts.tolist()
+        civ = np.array([view.ci(t) for t in tl])
+        fcs = [view.forecast(t) for t in tl]
+        if fcs and all(len(f) == len(fcs[0]) for f in fcs):
+            thresh = np.percentile(np.stack(fcs), pct, axis=1)
+        else:
+            thresh = np.array([float(np.percentile(f, pct)) for f in fcs])
+        return civ <= thresh + 1e-12
+
+    return elig
+
+
+# --- single-region program ---------------------------------------------------
+
+
+@dataclasses.dataclass
+class _SingleProgram:
+    """Host constants and initial carry of one native case (stacked across
+    a tile and moved to the device there), with its accounting mirrors."""
+
+    consts: dict                   # numpy arrays / 0-d scalars
+    carry0: dict
+    n_pad: int
+    xs_fn: Callable                # (ts: np.ndarray) -> per-slot eligibility
+    power: np.ndarray
+    m_t: int
+
+
+def _build_single(packed, cluster, policy, ci_pol, kind: str,
+                  t0: int, horizon: int) -> _SingleProgram:
+    n = packed.n
+    n_pad = _pad_rows(n)
+    power = np.where(packed.power > 0, packed.power, cluster.power_per_server)
+    kmin = packed.k_min
+    thr = packed.thr_tab[np.arange(n), kmin]
+    i64, f64 = np.int64, np.float64
+
+    def padded(src, fill, dtype):
+        out = np.full(n_pad, fill, dtype=dtype)
+        out[:n] = src
+        return out
+
+    elig_row = np.zeros(n_pad, dtype=bool)
+    if kind == "plain":
+        elig_row[:n] = True
+    elif kind == "cap":
+        # criticality is static per window (DagCapPolicy.on_window_start);
+        # a job missing from the map is critical (crit.get(..., True))
+        crit = policy._critical
+        elig_row[:n] = [bool(crit.get(int(j), True))
+                        for j in packed.job_ids.tolist()]
+    consts = dict(
+        arrival=padded(packed.arrival, _BIG_T, i64),
+        thr=padded(thr, 1.0, f64),
+        dl_span=padded(packed.dl_span, 0, i64),
+        elig_row=elig_row,
+        k0=np.array([kmin[0]], dtype=i64),
+        m_cap=np.array([cluster.capacity], dtype=i64),
+        n_real=i64(n),
+        t_end=i64(t0 + horizon),
+    )
+    carry0 = dict(
+        remaining=padded(packed.length, 0.0, f64),
+        slack=padded([j.delay for j in packed.jobs], 0, i64),
+        waited=np.zeros(n_pad, dtype=i64),
+        deadline_eff=padded(packed.deadline, 0, i64),
+        pred_left=padded(packed.pred0, 0, np.int32),
+        in_sys=np.zeros(n_pad, dtype=bool),
+        finished=np.zeros(n_pad, dtype=bool),
+        pending=np.zeros(n_pad, dtype=bool),
+        ended=np.asarray(False),
+    )
+    return _SingleProgram(
+        consts=consts, carry0=carry0, n_pad=n_pad,
+        xs_fn=_single_elig_fn(policy, ci_pol, kind), power=power,
+        m_t=int(cluster.capacity))
+
+
+def _dep_graph(packed: PackedJobs, n_pad: int,
+               device: torch.device) -> gating.DepGraph:
+    """The predecessor CSR of the packed rows, padded to ``n_pad`` rows."""
+    n = packed.n
+    deg = np.diff(packed.succ_ptr[:n + 1])
+    parents = np.repeat(np.arange(n, dtype=np.int64), deg)
+    children = packed.succ_rows[packed.succ_ptr[0]:packed.succ_ptr[n]]
+    return gating.dep_graph(parents, children, n_pad, device=device)
+
+
+def _single_step(c: dict, s: dict, t: torch.Tensor, elig_t: torch.Tensor,
+                 graph: gating.DepGraph | None):
+    """One engine slot for a batch of B cells (mirrors the vector engine's
+    loop body).  ``c`` and ``s`` hold (B, n_pad) rows, (B, 1) or (B,)
+    scalars; ``t`` and ``elig_t`` are (B, 1)."""
+    rem = s["remaining"]
+    slack = s["slack"]
+    waited = s["waited"]
+    dle = s["deadline_eff"]
+    pred = s["pred_left"]
+    in_sys = s["in_sys"]
+    fin_all = s["finished"]
+    pending = s["pending"]
+
+    # release (DAG): tasks whose last predecessor finished last slot —
+    # slack/deadline count from the release slot
+    if graph is not None:
+        in_sys = in_sys | pending
+        dle = torch.where(pending, t + c["dl_span"], dle)
+    # admission: arrival passed, not finished, not gated
+    arrived = c["arrival"] <= t
+    in_sys = in_sys | (arrived & ~fin_all & (pred == 0))
+
+    n_in = in_sys.sum(1)
+    n_arr = arrived.sum(1)
+    blocked = n_arr - n_in - fin_all.sum(1)
+    ended = s["ended"] | ((n_in == 0) & (n_arr == c["n_real"])
+                          & (blocked == 0) & (t[:, 0] >= c["t_end"]))
+    act = in_sys & ~ended[:, None]
+
+    # decision: FCFS threshold-fill at k_min (rows are (arrival, job_id)-
+    # sorted, so forced-then-unforced in row order IS the FCFS key); with
+    # a uniform k the "continue" fill is a rank-prefix per group
+    forced = slack <= 0
+    live = rem > _EPS
+    cand = act & live & (forced | elig_t | c["elig_row"])
+    k0, m_cap = c["k0"], c["m_cap"]
+    cf = cand & forced
+    cr = cand & ~forced
+    tf = cf & (torch.cumsum(cf, 1) * k0 <= m_cap)
+    used_f = k0 * tf.sum(1, keepdim=True)
+    tr = cr & (used_f + torch.cumsum(cr, 1) * k0 <= m_cap)
+    take = tf | tr
+
+    # progress in float64, the vector engine's op (energy and frac are
+    # replayed on the host from ``take``)
+    rem2 = torch.where(take, rem - c["thr"], rem)
+    wmask = (act & live & ~take).to(torch.int64)
+    fin = act & (rem2 <= _EPS)
+    waited2 = waited + wmask
+    carry = dict(remaining=rem2, slack=slack - wmask, waited=waited2,
+                 deadline_eff=dle, pred_left=pred, in_sys=in_sys & ~fin,
+                 finished=fin_all | fin, pending=pending, ended=ended)
+    if graph is not None:
+        dec = gating.dep_decrement_csr(fin, graph)
+        pred2 = pred - dec
+        carry["pred_left"] = pred2
+        carry["pending"] = (dec > 0) & (pred2 == 0) & arrived
+    ys = dict(take=take, fin=fin, viol=fin & (t > dle),
+              waited_fin=torch.where(fin, waited2, 0), n_rows=n_in,
+              ended=ended)
+    return carry, ys
+
+
+_YS_TYPES = dict(take=torch.bool, fin=torch.bool, viol=torch.bool,
+                 waited_fin=torch.int32, n_rows=torch.int32, ended=torch.bool)
+
+
+def _collect_chunks(c, carry, graph, t0s: np.ndarray, xs_fns, n_pad: int,
+                    horizon: int, span: int, device) -> dict:
+    """Run the batch chunk by chunk until every cell has ended or ``span``
+    slots are done; returns the per-slot outputs on the host, (B, S, ...).
+
+    Inside the horizon no cell can end (the ended-check needs ``t >=
+    t0 + horizon``), so full CHUNK chunks waste nothing; past it any slot
+    may end a cell, so OVERRUN_CHUNK chunks bound the slots computed past
+    the last end.  Each chunk writes its steps into preallocated device
+    tensors, copies them to the host once and reads ``ended`` there."""
+    b = len(t0s)
+    parts = []
+    off = 0
+    while off < span:
+        size = min(CHUNK if off < horizon else OVERRUN_CHUNK, span - off)
+        ts = t0s[:, None] + off + np.arange(size)[None, :]
+        elig = np.stack([fn(row) for fn, row in zip(xs_fns, ts)])
+        ts_d = torch.from_numpy(ts).to(device)
+        elig_d = torch.from_numpy(elig).to(device)
+        out = {k: torch.empty((b, size) if k in ("n_rows", "ended")
+                              else (b, size, n_pad), dtype=dt, device=device)
+               for k, dt in _YS_TYPES.items()}
+        for i in range(size):
+            carry, ys = _single_step(c, carry, ts_d[:, i:i + 1],
+                                     elig_d[:, i:i + 1], graph)
+            for k, v in ys.items():
+                out[k][:, i] = v
+        stats["steps"] += size
+        stats["cell_steps"] += size * b
+        if graph is not None:
+            stats["dag_steps"] += size
+        parts.append({k: v.cpu().numpy() for k, v in out.items()})
+        off += size
+        if parts[-1]["ended"][:, -1].all():
+            break
+    return {k: np.concatenate([p[k] for p in parts], axis=1) for k in parts[0]}
+
+
+# --- host accounting ---------------------------------------------------------
+
+
+def _active_energy(packed, power, slot_h, eta, take_a):
+    """Replay fractional progress and the vector engine's exact energy
+    expressions over the active (slot, row) cells of the take grid.
+
+    The device updates ``remaining`` with one subtraction per take slot
+    (``rem - thr``) and ``frac = min(1, rem / thr_guard)`` comes from the
+    pre-update value; replaying those row-wise here performs the identical
+    scalar arithmetic in the identical order — bitwise equal.  The nonzero
+    cells (row-major: each slot's segment in row order) are the per-slot
+    active sets; every energy operation is elementwise, so each cell sees
+    the arithmetic of a per-slot replay.  Returns per-slot segment bounds
+    plus row ids, allocations and energies of the active cells."""
+    n = take_a.shape[1]
+    s_idx, r_idx = np.nonzero(take_a)
+    bounds = np.searchsorted(s_idx, np.arange(take_a.shape[0] + 1))
+    thr = packed.thr_tab[np.arange(n), packed.k_min]
+    thr_guard = np.maximum(thr, 1e-9)
+    rem = packed.length.astype(np.float64, copy=True)
+    frac = np.empty(len(r_idx))
+    for i in range(take_a.shape[0]):
+        rows = r_idx[bounds[i]:bounds[i + 1]]
+        frac[bounds[i]:bounds[i + 1]] = np.minimum(
+            1.0, rem[rows] / thr_guard[rows])
+        rem[rows] -= thr[rows]
+    k = packed.k_min[r_idx]
+    e_comp = k * power[r_idx] * slot_h * frac
+    ring = np.where(k <= 1, 0.0, 2.0 * (k - 1) / np.maximum(k, 1))
+    gbits = packed.comm[r_idx] * 8.0 * ring * k * frac
+    e = e_comp + eta * gbits / 3600.0 / 1000.0 * slot_h
+    return bounds, r_idx, k, e
+
+
+def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
+                    prog) -> SimResult:
+    n = packed.n
+    slot_h = cluster.slot_hours
+    eta = cluster.eta_net
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    take_a = ys["take"][:n_valid, :n]
+    bounds, r_idx, k_act, e_act = _active_energy(packed, prog.power, slot_h,
+                                                 eta, take_a)
+    fs, fr = np.nonzero(ys["fin"][:n_valid, :n])
+    fbounds = np.searchsorted(fs, np.arange(n_valid + 1))
+    wfin_f = ys["waited_fin"][:n_valid, :n][fs, fr]
+    viol_f = ys["viol"][:n_valid, :n][fs, fr]
+    n_rows_a = ys["n_rows"][:n_valid]
+    civ_a = _ci_block(ci, t0, n_valid)
+    for i in range(n_valid):
+        t = t0 + i
+        civ = float(civ_a[i])
+        lo, hi = bounds[i], bounds[i + 1]
+        energy = 0.0
+        for v in e_act[lo:hi].tolist():        # sequential sum, scalar order
+            energy += v
+        carbon = emissions.slot_carbon_g(energy, civ)
+        total_energy += energy
+        total_carbon += carbon
+        flo, fhi = fbounds[i], fbounds[i + 1]
+        frows = fr[flo:fhi]
+        if len(frows):
+            completion[frows] = t
+            wait[frows] = wfin_f[flo:fhi]
+            violations[frows] = viol_f[flo:fhi]
+        used = int(k_act[lo:hi].sum())
+        running = int(hi - lo)
+        logs.append(SlotLog(slot=t, ci=civ, provisioned=prog.m_t, used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=running,
+                            queued=int(n_rows_a[i]) - len(frows) - running))
+    return SimResult(
+        policy=policy.name, carbon_g=total_carbon, energy_kwh=total_energy,
+        slots=logs, wait_slots=wait, violations=violations,
+        completion=completion, num_jobs=n)
+
+
+# --- public API --------------------------------------------------------------
+
+
+def simulate_scan(jobs, ci, cluster, policy, t0: int = 0,
+                  horizon: int | None = None, max_overrun: int = 24 * 21,
+                  device: str | torch.device = "cuda") -> SimResult:
+    """``simulate(..., engine="scan")``: the device slot loop for native
+    policies, the vector engine otherwise."""
+    return simulate_many_scan([SimCase(
+        jobs=jobs, ci=ci, cluster=cluster, policy=policy, t0=t0,
+        horizon=horizon, max_overrun=max_overrun, engine="scan",
+        device=device)])[0]
+
+
+@dataclasses.dataclass
+class _Member:
+    index: int
+    case: SimCase
+    packed: PackedJobs
+    prog: _SingleProgram
+
+
+def simulate_many_scan(cases: Sequence[SimCase],
+                       packs: dict | None = None) -> list[SimResult]:
+    """Batch path: group native cases by structure and run each group as
+    batched device programs of up to BATCH_TILE cells; everything else runs
+    on the vector engine.  ``packs`` shares packed job lists with the
+    caller (keyed by the list's identity)."""
+    packs = {} if packs is None else packs
+    results: list[SimResult | None] = [None] * len(cases)
+    groups: dict[tuple, list[_Member]] = {}
+    delegated: dict[str, int] = {}
+    for i, case in enumerate(cases):
+        device = resolve_device(case.device)
+        packed = packed_for(case.jobs, packs)
+        kind = native_kind(case.policy)
+        uniform = bool((packed.k_min == packed.k_min[0]).all()) if packed.n else False
+        if kind is None or not uniform:
+            if packed.n > 0:
+                who = type(case.policy).__name__ if kind is None \
+                    else f"{type(case.policy).__name__} (non-uniform k_min)"
+                delegated[who] = delegated.get(who, 0) + 1
+            results[i] = _simulate_vector(
+                case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                case.horizon, case.max_overrun, packed=packed)
+            continue
+        horizon = int(case.horizon if case.horizon is not None
+                      else len(case.ci) - case.t0)
+        ci_pol = case.ci.degraded()
+        case.policy.on_window_start(ci_pol, case.t0, horizon, packed.jobs,
+                                    case.cluster)
+        prog = _build_single(packed, case.cluster, case.policy, ci_pol, kind,
+                             case.t0, horizon)
+        # cells of one tile share the predecessor graph, so DAG cells group
+        # by job list
+        key = (str(device), prog.n_pad, kind, horizon,
+               horizon + case.max_overrun,
+               id(packed) if packed.has_deps else None)
+        groups.setdefault(key, []).append(_Member(i, case, packed, prog))
+    for key, members in groups.items():
+        device = torch.device(key[0])
+        graph = None
+        if members[0].packed.has_deps:
+            graph = _dep_graph(members[0].packed, members[0].prog.n_pad, device)
+        for lo in range(0, len(members), BATCH_TILE):
+            _run_single_tile(members[lo:lo + BATCH_TILE], graph, device,
+                             results)
+    if delegated:
+        stats["delegated"] += sum(delegated.values())
+        _log.info("scan batch: %d case(s) delegated to the vector engine "
+                  "(%s)", sum(delegated.values()),
+                  ", ".join(f"{k} x{v}" for k, v in sorted(delegated.items())))
+    return results  # type: ignore[return-value]
+
+
+def _run_single_tile(members: list[_Member], graph, device, results) -> None:
+    """One batched program over structurally identical cells."""
+    progs = [m.prog for m in members]
+
+    def stacked(key: str, part: str) -> torch.Tensor:
+        return torch.from_numpy(np.stack(
+            [getattr(p, part)[key] for p in progs])).to(device)
+
+    c = {k: stacked(k, "consts") for k in progs[0].consts}
+    carry = {k: stacked(k, "carry0") for k in progs[0].carry0}
+    case0 = members[0].case
+    horizon = int(case0.horizon if case0.horizon is not None
+                  else len(case0.ci) - case0.t0)
+    t_loop = time.perf_counter()
+    ys_all = _collect_chunks(
+        c, carry, graph, np.array([m.case.t0 for m in members], dtype=np.int64),
+        [p.xs_fn for p in progs], progs[0].n_pad, horizon,
+        horizon + case0.max_overrun, device)
+    t_acct = time.perf_counter()
+    stats["loop_s"] += t_acct - t_loop
+    for j, m in enumerate(members):
+        ys = {k: v[j] for k, v in ys_all.items()}
+        ended = ys["ended"]
+        n_valid = int(np.argmax(ended)) if ended.any() else len(ended)
+        results[m.index] = _account_single(
+            m.packed, m.case.ci, m.case.cluster, m.case.policy, m.case.t0, ys,
+            n_valid, m.prog)
+    stats["account_s"] += time.perf_counter() - t_acct

@@ -13,7 +13,16 @@ under a pluggable provisioning+scheduling policy.  Per slot:
 The engine runs past the nominal window until all admitted jobs finish
 (run-to-completion semantics shared by every policy in §6).
 
-Two engines, bit-for-bit identical outputs:
+Precedence-aware workloads (``core/dag.py``): a job whose ``deps`` name
+unfinished predecessors is *gated* — kept out of the active set, invisible
+to the policy, burning no waiting budget.  When its last predecessor
+completes at slot ``t`` it is *released* at ``t + 1``, and its slack and
+deadline count from the release slot.  The vector engine keeps a packed
+predecessor-count array decremented through a successor CSR on parent
+completion; the scalar path mirrors it with per-job counters — both
+bit-identical.
+
+Three engines, bit-for-bit identical outputs:
 
 - ``engine="vector"`` (default) — struct-of-arrays fast path: per-job
   state lives in packed numpy vectors (``remaining``, ``slack_left``,
@@ -23,14 +32,17 @@ Two engines, bit-for-bit identical outputs:
   skip the per-job Python path entirely; others are served lightweight
   array-backed ``ActiveJob`` views.
 - ``engine="scalar"`` — the readable per-ActiveJob reference
-  implementation, kept as the parity oracle.
+  implementation, kept as the parity oracle;
+- ``engine="scan"`` — the slot loop on the device (``core/scan_engine.py``)
+  for the threshold-fill policies, the DAG gating through a CUDA kernel;
+  every other policy delegates to the vector engine.
 
 ``simulate_many`` batches a (seeds x regions x policies) sweep through
-the vector engine, packing each distinct job list once.
+the engines, packing each distinct job list once.
 
-Single-region slice: independent jobs, no fault injection.  The
-accounting stays float64 numpy on the host, operation for operation as in
-the JAX package, so both packages give bit-identical results.
+Single-region slice, no fault injection.  The accounting stays float64
+numpy on the host, operation for operation as in the JAX package, so both
+packages give bit-identical results.
 """
 from __future__ import annotations
 
@@ -38,6 +50,7 @@ import dataclasses
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 from . import emissions
 from .carbon import CarbonService
@@ -60,7 +73,8 @@ class PackedJobs:
 
     __slots__ = ("jobs", "n", "job_ids", "arrival", "length", "queue",
                  "k_min", "k_max", "deadline", "elast", "power", "comm",
-                 "thr_tab", "blocks", "id2row")
+                 "thr_tab", "blocks", "id2row", "has_deps", "dl_span",
+                 "pred0", "succ_ptr", "succ_rows")
 
     def __init__(self, jobs_sorted: list[Job]) -> None:
         self.jobs = jobs_sorted
@@ -82,6 +96,53 @@ class PackedJobs:
                 self.thr_tab[i, k] = job.throughput(k)
         self.blocks = EntryBlocks.build(jobs_sorted)
         self.id2row = {j.job_id: i for i, j in enumerate(jobs_sorted)}
+        # Precedence structure (DAG workloads, core/dag.py): initial
+        # in-degree per row plus a successor CSR so parent completions can
+        # decrement child counters without a per-slot scan.
+        self.dl_span = self.deadline - self.arrival
+        pred0 = np.zeros(n, dtype=np.int64)
+        succ_lists: list[list[int]] = [[] for _ in range(n)]
+        has_deps = False
+        for i, job in enumerate(jobs_sorted):
+            for d in job.deps:
+                p = self.id2row.get(d)
+                if p is None:
+                    raise ValueError(
+                        f"job {job.job_id} depends on job {d}, which is not "
+                        f"in the submitted job list (DAGs must be submitted "
+                        f"whole)")
+                if p == i:
+                    raise ValueError(f"job {job.job_id} depends on itself")
+                has_deps = True
+                pred0[i] += 1
+                succ_lists[p].append(i)
+        self.has_deps = has_deps
+        self.pred0 = pred0
+        self.succ_ptr = np.zeros(n + 1, dtype=np.int64)
+        if n:
+            np.cumsum([len(s) for s in succ_lists], out=self.succ_ptr[1:])
+        self.succ_rows = np.array([s for lst in succ_lists for s in lst],
+                                  dtype=np.int64)
+        if has_deps:
+            self._check_acyclic()
+
+    def _check_acyclic(self) -> None:
+        """Kahn's algorithm: a cycle would deadlock the gating (jobs never
+        released), so reject it at pack time."""
+        indeg = self.pred0.copy()
+        order = list(np.flatnonzero(indeg == 0))
+        i = 0
+        while i < len(order):
+            r = int(order[i])
+            for s in self.succ_rows[self.succ_ptr[r]:self.succ_ptr[r + 1]]:
+                indeg[s] -= 1
+                if indeg[s] == 0:
+                    order.append(int(s))
+            i += 1
+        if len(order) != self.n:
+            stuck = [int(self.job_ids[r])
+                     for r in np.flatnonzero(indeg > 0)[:5]]
+            raise ValueError(f"dependency cycle among jobs {stuck}")
 
 
 def pack(jobs: list[Job]) -> PackedJobs:
@@ -132,7 +193,8 @@ class EngineState:
     ``decide_packed`` policies as their struct-of-arrays view)."""
 
     __slots__ = ("packed", "remaining", "slack_left", "waited", "started",
-                 "in_system", "admitted", "rows", "_views")
+                 "in_system", "admitted", "rows", "_views", "pred_left",
+                 "deadline_eff", "pending_release", "blocked")
 
     def __init__(self, packed: PackedJobs) -> None:
         self.packed = packed
@@ -144,6 +206,13 @@ class EngineState:
         self.admitted = 0                  # sorted-arrival admission pointer
         self.rows = np.zeros(0, dtype=np.int64)
         self._views: dict[int, _PackedActiveJob] = {}
+        # DAG gating state (no-ops for independent jobs): per-row live
+        # in-degree, release-adjusted deadlines, rows becoming admissible
+        # next slot, and the count of arrival-passed-but-gated rows.
+        self.pred_left = packed.pred0.copy()
+        self.deadline_eff = packed.deadline.copy()
+        self.pending_release: list[int] = []
+        self.blocked = 0
 
     def view(self, row: int) -> _PackedActiveJob:
         v = self._views.get(row)
@@ -164,7 +233,14 @@ def simulate(
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
     engine: str = "vector",
+    device: str | torch.device = "cuda",
 ) -> SimResult:
+    """One window under one policy.  ``device`` is where the scan engine
+    runs its slot loop; the host engines ignore it."""
+    if engine == "scan":
+        from .scan_engine import simulate_scan
+        return simulate_scan(jobs, ci, cluster, policy, t0, horizon,
+                             max_overrun, device=device)
     if engine == "scalar":
         return _simulate_scalar(jobs, ci, cluster, policy, t0, horizon,
                                 max_overrun)
@@ -212,19 +288,33 @@ def _simulate_vector(
     logs: list[SlotLog] = []
     total_energy = 0.0
     total_carbon = 0.0
+    has_deps = packed.has_deps
     t = t0
     t_end = t0 + horizon
     rows_dirty = True
     while t < t_end + max_overrun:
-        while eng.admitted < n and arrival[eng.admitted] <= t:
-            eng.in_system[eng.admitted] = True
+        if has_deps and eng.pending_release:
+            # Tasks whose last predecessor completed last slot: released
+            # now, with slack/deadline counting from the release slot.
+            for r in eng.pending_release:
+                eng.in_system[r] = True
+                eng.deadline_eff[r] = t + packed.dl_span[r]
+            eng.blocked -= len(eng.pending_release)
+            eng.pending_release.clear()
             rows_dirty = True
+        while eng.admitted < n and arrival[eng.admitted] <= t:
+            if has_deps and eng.pred_left[eng.admitted] > 0:
+                eng.blocked += 1       # gated: enters via the release path
+            else:
+                eng.in_system[eng.admitted] = True
+                rows_dirty = True
             eng.admitted += 1
         if rows_dirty:
             eng.rows = np.flatnonzero(eng.in_system)
             rows_dirty = False
         rows = eng.rows
-        if not len(rows) and eng.admitted == n and t >= t_end:
+        if (not len(rows) and eng.admitted == n and not eng.blocked
+                and t >= t_end):
             break
 
         cap_t = cluster.capacity
@@ -246,6 +336,10 @@ def _simulate_vector(
                 bad = (int(kvec.sum()) > m_t
                        or bool(((kvec > 0) & ((kvec < packed.k_min)
                                               | (kvec > packed.k_max))).any()))
+                if has_deps and not bad:
+                    # A gated row must never run (engine invariant); the
+                    # trimmer drops non-active allocations.
+                    bad = bool((kvec[~eng.in_system] > 0).any())
             if bad:
                 kvec = _kvec_enforced(kvec, eng, m_t)
         else:
@@ -290,9 +384,15 @@ def _simulate_vector(
         if len(fin):
             completion[fin] = t
             wait[fin] = eng.waited[fin]
-            violations[fin] = t > packed.deadline[fin]
+            violations[fin] = t > eng.deadline_eff[fin]
             for r in fin.tolist():
                 policy.on_completion(t, eng.view(r), bool(violations[r]))
+                if has_deps:
+                    for s in packed.succ_rows[
+                            packed.succ_ptr[r]:packed.succ_ptr[r + 1]]:
+                        eng.pred_left[s] -= 1
+                        if eng.pred_left[s] == 0 and s < eng.admitted:
+                            eng.pending_release.append(int(s))
             eng.in_system[fin] = False
             rows_dirty = True
 
@@ -332,7 +432,9 @@ def _kvec_enforced(kvec: np.ndarray, eng: EngineState, m_t: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class SimCase:
-    """One (trace, CI, cluster, policy) configuration of a sweep."""
+    """One (trace, CI, cluster, policy) configuration of a sweep.
+    ``device`` is where the scan engine runs its slot loop; the host
+    engines ignore it."""
 
     jobs: list[Job]
     ci: CarbonService
@@ -342,6 +444,7 @@ class SimCase:
     horizon: int | None = None
     max_overrun: int = 24 * 21
     engine: str = "vector"
+    device: str | torch.device = "cuda"
 
 
 def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResult]:
@@ -350,24 +453,40 @@ def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResul
     Each distinct ``jobs`` list is packed into its struct-of-arrays form
     exactly once (sorting, throughput/marginal tables, scheduling entry
     blocks), so per-configuration cost is the slot loop itself rather
-    than per-configuration re-setup."""
-    packs: dict[int, PackedJobs] = {}
-    out: list[SimResult] = []
+    than per-configuration re-setup.  Cases with ``engine="scan"`` go
+    through ``scan_engine.simulate_many_scan``, which runs structurally
+    identical cases as one batched device program."""
+    cases = list(cases)
     for case in cases:
-        if case.engine == "scalar":
-            out.append(_simulate_scalar(
-                case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                case.horizon, case.max_overrun))
-            continue
-        if case.engine != "vector":
+        if case.engine not in ("vector", "scalar", "scan"):
             raise ValueError(f"unknown engine {case.engine!r}")
-        packed = packs.get(id(case.jobs))
-        if packed is None:
-            packed = packs[id(case.jobs)] = pack(case.jobs)
-        out.append(_simulate_vector(
-            case.jobs, case.ci, case.cluster, case.policy, case.t0,
-            case.horizon, case.max_overrun, packed=packed))
+    packs: dict[int, PackedJobs] = {}
+    out: list[SimResult | None] = [None] * len(cases)
+    scan_idx = [i for i, c in enumerate(cases) if c.engine == "scan"]
+    if scan_idx:
+        from .scan_engine import simulate_many_scan
+        for i, res in zip(scan_idx, simulate_many_scan(
+                [cases[i] for i in scan_idx], packs)):
+            out[i] = res
+    for i, case in enumerate(cases):
+        if case.engine == "scalar":
+            out[i] = _simulate_scalar(
+                case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                case.horizon, case.max_overrun)
+        elif case.engine == "vector":
+            out[i] = _simulate_vector(
+                case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                case.horizon, case.max_overrun,
+                packed=packed_for(case.jobs, packs))
     return out
+
+
+def packed_for(jobs: list[Job], packs: dict[int, PackedJobs]) -> PackedJobs:
+    """``pack(jobs)``, once per job list in ``packs`` (keyed by identity)."""
+    packed = packs.get(id(jobs))
+    if packed is None:
+        packed = packs[id(jobs)] = pack(jobs)
+    return packed
 
 
 # --- scalar reference engine ------------------------------------------------
@@ -395,17 +514,70 @@ def _simulate_scalar(
     completion = np.full(n, -1, dtype=np.int64)
     id2row = {j.job_id: i for i, j in enumerate(jobs)}
 
+    # DAG gating (mirrors the vector engine's packed predecessor counters;
+    # see PackedJobs): live in-degree per job, successor adjacency,
+    # release-adjusted deadlines, and tasks pending release next slot.
+    has_deps = any(j.deps for j in jobs)
+    pred_left: dict[int, int] = {}
+    succ: dict[int, list[Job]] = {}
+    deadline_eff: dict[int, int] = {}
+    pending_release: list[Job] = []
+    blocked = 0
+    if has_deps:
+        by_id = {j.job_id: j for j in jobs}
+        pred_left = {j.job_id: 0 for j in jobs}
+        succ = {j.job_id: [] for j in jobs}
+        for j in jobs:
+            for d in j.deps:
+                if d not in by_id:
+                    raise ValueError(
+                        f"job {j.job_id} depends on job {d}, which is not "
+                        f"in the submitted job list (DAGs must be "
+                        f"submitted whole)")
+                if d == j.job_id:
+                    raise ValueError(f"job {j.job_id} depends on itself")
+                pred_left[j.job_id] += 1
+                succ[d].append(j)
+        order = [j for j in jobs if pred_left[j.job_id] == 0]
+        indeg = dict(pred_left)
+        i = 0
+        while i < len(order):
+            for c in succ[order[i].job_id]:
+                indeg[c.job_id] -= 1
+                if indeg[c.job_id] == 0:
+                    order.append(c)
+            i += 1
+        if len(order) != n:
+            stuck = [jid for jid, d in indeg.items() if d > 0][:5]
+            raise ValueError(f"dependency cycle among jobs {stuck}")
+
     logs: list[SlotLog] = []
     total_energy = 0.0
     total_carbon = 0.0
     t = t0
     t_end = t0 + horizon
     while t < t_end + max_overrun:
+        released = False
+        if has_deps and pending_release:
+            for j in pending_release:
+                active.append(ActiveJob(job=j, remaining=j.length,
+                                        slack_left=j.delay))
+                deadline_eff[j.job_id] = t + (j.deadline - j.arrival)
+            blocked -= len(pending_release)
+            pending_release = []
+            released = True
         while next_arrival < n and jobs[next_arrival].arrival <= t:
             j = jobs[next_arrival]
             next_arrival += 1
+            if has_deps and pred_left[j.job_id] > 0:
+                blocked += 1          # gated: enters via the release path
+                continue
             active.append(ActiveJob(job=j, remaining=j.length, slack_left=j.delay))
-        if not active and next_arrival == n and t >= t_end:
+        if released:
+            # keep active in (arrival, job_id) row order, matching the
+            # vector engine's sorted-row iteration (float-sum parity)
+            active.sort(key=lambda a: id2row[a.job.job_id])
+        if not active and next_arrival == n and not blocked and t >= t_end:
             break
 
         m_t, alloc = policy.decide(t, active, ci_pol, cluster)
@@ -429,11 +601,17 @@ def _simulate_scalar(
 
         finished = [a for a in active if a.done]
         for a in finished:
-            row = id2row[a.job.job_id]
+            jid = a.job.job_id
+            row = id2row[jid]
             completion[row] = t
             wait[row] = a.waited
-            violations[row] = t > a.job.deadline
+            violations[row] = t > deadline_eff.get(jid, a.job.deadline)
             policy.on_completion(t, a, bool(violations[row]))
+            if has_deps:
+                for child in succ[jid]:
+                    pred_left[child.job_id] -= 1
+                    if pred_left[child.job_id] == 0 and child.arrival <= t:
+                        pending_release.append(child)
         active = [a for a in active if not a.done]
 
         used = sum(alloc.values())

@@ -10,8 +10,9 @@ The unit model follows Section 3 of the paper:
   ``throughput(k) = sum_{i<=k} p_j(i)`` where ``p_j`` is the (monotone
   decreasing) marginal-throughput profile with ``p_j(k_min) = 1``.
 
-Single-region slice: independent jobs only (no DAG ``deps``), no geo
-cluster and no migration model.
+A job may be one task of a DAG: ``Job.deps`` names its predecessors (see
+``core/dag.py``).  Single-region only: no geo cluster and no migration
+model.
 """
 from __future__ import annotations
 
@@ -41,7 +42,14 @@ def default_queues(scale: float = 1.0) -> list[QueueConfig]:
 
 @dataclasses.dataclass
 class Job:
-    """An elastic batch job (Section 3)."""
+    """An elastic batch job (Section 3), optionally one task of a DAG.
+
+    ``deps`` lists the ``job_id`` s of predecessor tasks in the same
+    submitted job list: the engines gate this job until every predecessor
+    has completed (see ``core/dag.py`` for the DAG model and the
+    precedence-aware policies).  Independent jobs leave it empty.  While
+    gated the job is invisible to the policy, burns no waiting budget, and
+    its slack/deadline count from its *release* slot instead of arrival."""
 
     job_id: int
     arrival: int                   # a_j, slot index
@@ -55,6 +63,7 @@ class Job:
     power: float = 1.0
     comm_size: float = 0.0
     arch: str = "generic"          # which assigned architecture this job trains
+    deps: tuple[int, ...] = ()     # predecessor job_ids (precedence gating)
 
     @property
     def k_max(self) -> int:

@@ -1,7 +1,7 @@
 """repro_torch.experiment — the declarative experiment API.
 
 - ``registry``   — ``register_policy`` / ``PolicySpec`` / ``make_policy``:
-                   the single-region policies behind deferred constructors
+                   the single-region and DAG policies behind deferred constructors
                    that receive runtime context (knowledge base, mean
                    length) from the driver;
 - ``Scenario``   — a declarative experiment point (region, trace family,
@@ -20,7 +20,8 @@ Quickstart::
     print(run(Scenario(region="california", capacity=40)).table())
 """
 from . import registry  # noqa: F401
-from .driver import DEFAULT_POLICIES, ExperimentResult, prepare_context, run  # noqa: F401
+from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_POLICIES,  # noqa: F401
+                     ExperimentResult, prepare_context, run)
 from .registry import (PolicyContext, PolicySpec, available_policies,  # noqa: F401
-                       make_policy, register_policy)
+                       check_scenario_policies, make_policy, register_policy)
 from .scenario import WEEK, MaterializedScenario, Scenario  # noqa: F401

@@ -9,8 +9,8 @@ violation-feedback loop of Algorithm 2 running inside the policies across
 the whole span.
 
 The knowledge base lives on ``device`` (``"cuda"`` by default), where the
-execution phase's lookups run as CUDA kernels; everything else is host
-numpy.
+execution phase's lookups run as CUDA kernels, and so does the slot loop of
+``engine="scan"`` scenarios; everything else is host numpy.
 """
 from __future__ import annotations
 
@@ -27,13 +27,19 @@ from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
 
-from .registry import PolicyContext, get_spec, make_policy, needs_kb
+from .registry import (PolicyContext, check_scenario_policies, make_policy,
+                       needs_kb)
 from .scenario import WEEK, MaterializedScenario, Scenario
 
 #: The §6.1 comparison set of this package.
 DEFAULT_POLICIES: tuple[str, ...] = (
     "carbon-agnostic", "gaia", "wait-awhile", "carbonscaler",
     "carbonflex", "oracle",
+)
+
+#: The precedence-aware comparison set (scenarios with a DAG workload).
+DEFAULT_DAG_POLICIES: tuple[str, ...] = (
+    "dag-fcfs", "dag-carbon", "dag-cap",
 )
 
 
@@ -109,14 +115,17 @@ class ExperimentResult:
     def _baseline(self, baseline: str | None) -> str | None:
         """Resolve the comparison baseline: an explicit name must be part
         of the run (typos raise); the default is carbon-agnostic, or None
-        when it did not run."""
+        when it did not run (dag-fcfs on DAG runs)."""
         if baseline is not None:
             if baseline not in self.weekly:
                 raise KeyError(
                     f"baseline {baseline!r} was not part of this run; "
                     f"policies: {', '.join(self.weekly)}")
             return baseline
-        return "carbon-agnostic" if "carbon-agnostic" in self.weekly else None
+        for cand in ("carbon-agnostic", "dag-fcfs"):
+            if cand in self.weekly:
+                return cand
+        return None
 
     def metrics(self, baseline: str | None = None) -> dict[str, dict]:
         """Per-policy metric dicts."""
@@ -163,12 +172,15 @@ def run(
     knowledge base for the next.  ``kb_kwargs`` forwards to
     :class:`KnowledgeBase` (e.g. ``max_windows`` for the aging window,
     feature weights for tuning studies).  ``device`` holds the knowledge
-    base; without a CUDA device the default raises.
+    base and runs the slot loop of ``engine="scan"``; without a CUDA device
+    the default raises.  ``policies`` defaults to the DAG family on DAG
+    scenarios.
     """
     device = resolve_device(device)
-    names = tuple(policies if policies is not None else DEFAULT_POLICIES)
-    for n in names:
-        get_spec(n)                     # unknown names raise before any work
+    if policies is None:
+        policies = DEFAULT_DAG_POLICIES if scenario.is_dag else DEFAULT_POLICIES
+    names = tuple(policies)
+    check_scenario_policies(names, scenario.is_dag)   # unknown names raise too
     t_start = time.perf_counter()
     mat = scenario.materialize()
     t_learn = time.perf_counter()
@@ -192,7 +204,7 @@ def run(
             continue
         cases = [SimCase(jobs=ev, ci=mat.ci, cluster=mat.cluster,
                          policy=instances[n], t0=t0, horizon=WEEK,
-                         engine=scenario.engine)
+                         engine=scenario.engine, device=device)
                  for n in names]
         t_exec = time.perf_counter()
         for n, res in zip(names, simulate_many(cases)):

@@ -1,8 +1,9 @@
 """Policy registry: names -> deferred policy constructors.
 
-The single-region policies of the paper's evaluation (§6.1, §6.7) register
-here.  Construction is *deferred*: a builder receives a
-:class:`PolicyContext` carrying the runtime objects policies need — the
+The single-region policies of the paper's evaluation (§6.1, §6.7) and the
+precedence-aware DAG family register here.  Construction is *deferred*: a
+builder receives a :class:`PolicyContext` carrying the runtime objects
+policies need — the
 learned :class:`KnowledgeBase` for CarbonFlex, the mean historical length
 the paper grants every baseline — so drivers resolve ``"carbonflex"`` to a
 ready instance instead of hand-wiring each constructor.
@@ -20,6 +21,7 @@ from typing import Callable
 
 from repro_torch.core import baselines
 from repro_torch.core.carbon import CarbonService
+from repro_torch.core.dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import CarbonFlexPolicy, OraclePolicy, Policy
 from repro_torch.core.types import ClusterConfig
@@ -47,27 +49,33 @@ class PolicyContext:
 
 @dataclasses.dataclass(frozen=True)
 class PolicySpec:
-    """A registered policy: display name, builder, and whether it needs the
-    learned knowledge base (drivers use the flag to decide what to
-    prepare)."""
+    """A registered policy: display name, builder, and the context it needs
+    (drivers use the flags to decide what to prepare)."""
 
     name: str
     builder: Callable[[PolicyContext], Policy]
     needs_kb: bool = False
+    dag: bool = False                # runs on Scenario(dag=...) only
     description: str = ""
 
 
 REGISTRY: dict[str, PolicySpec] = {}
 
 
-def register_policy(name: str, *, needs_kb: bool = False, description: str = ""):
-    """Decorator registering a ``PolicyContext -> Policy`` builder."""
+def register_policy(name: str, *, needs_kb: bool = False, dag: bool = False,
+                    description: str = ""):
+    """Decorator registering a ``PolicyContext -> Policy`` builder.
+
+    ``dag=True`` marks a precedence-aware policy: it runs only on
+    ``Scenario(dag=...)`` workloads.  The driver rejects mixing scenario
+    kinds and policy families (:func:`check_scenario_policies`)."""
 
     def deco(builder: Callable[[PolicyContext], Policy]):
         if name in REGISTRY:
             raise ValueError(f"policy {name!r} is already registered")
         REGISTRY[name] = PolicySpec(name=name, builder=builder,
-                                    needs_kb=needs_kb, description=description)
+                                    needs_kb=needs_kb, dag=dag,
+                                    description=description)
         return builder
 
     return deco
@@ -93,6 +101,22 @@ def available_policies() -> tuple[str, ...]:
 
 def needs_kb(names) -> bool:
     return any(get_spec(n).needs_kb for n in names)
+
+
+def check_scenario_policies(names, is_dag: bool = False) -> None:
+    """Reject policies whose family does not match the scenario kind
+    (independent-job batch / DAG are mutually exclusive workload axes)."""
+    for n in names:
+        spec = get_spec(n)
+        if spec.dag and not is_dag:
+            raise ValueError(
+                f"policy {n!r} is precedence-aware; give the Scenario a "
+                f"DAG workload (e.g. dag=DagConfig())")
+        if not spec.dag and is_dag:
+            raise ValueError(
+                f"policy {n!r} assumes independent jobs; a DAG scenario "
+                f"runs the dag policy family (dag-fcfs/dag-carbon/dag-cap) "
+                f"— drop Scenario.dag for independent-job studies")
 
 
 # --- the single-region §6 policies -------------------------------------------
@@ -161,3 +185,29 @@ def _carbonflex_robust(ctx: PolicyContext) -> Policy:
                  description="Algorithm 1 with full future knowledge (upper bound)")
 def _oracle(ctx: PolicyContext) -> Policy:
     return OraclePolicy()
+
+
+# --- precedence-aware DAG policies -------------------------------------------
+
+
+@register_policy("dag-fcfs", dag=True,
+                 description="precedence-only baseline: FCFS over ready "
+                             "tasks, no carbon awareness")
+def _dag_fcfs(ctx: PolicyContext) -> Policy:
+    return DagFcfsPolicy()
+
+
+@register_policy("dag-carbon", dag=True,
+                 description="CarbonFlex-style CI-rank suspend/resume "
+                             "applied per ready task (the per-job carbon "
+                             "scheduler on DAG structure)")
+def _dag_carbon(ctx: PolicyContext) -> Policy:
+    return DagCarbonPolicy()
+
+
+@register_policy("dag-cap", dag=True,
+                 description="PCAPS-style criticality: critical-path tasks "
+                             "exempt from suspension, slack tasks deferred "
+                             "into clean windows")
+def _dag_cap(ctx: PolicyContext) -> Policy:
+    return DagCapPolicy()

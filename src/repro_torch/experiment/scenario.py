@@ -2,8 +2,9 @@
 
 A ``Scenario`` names what the paper's single-region sweeps vary — region,
 trace family, capacity, seed, learning/evaluation span, queue scaling,
-workload elasticity, distribution shift — and ``materialize()`` resolves
-it into the concrete ``(cluster, ci, jobs, hist/eval splits)``.
+workload elasticity, distribution shift, a DAG workload — and
+``materialize()`` resolves it into the concrete ``(cluster, ci, jobs,
+hist/eval splits)``.
 
 Materialization is cached on the instance: repeated calls return the *same*
 job-list objects.
@@ -14,7 +15,8 @@ import dataclasses
 
 from repro_torch.core.carbon import REGIONS, CarbonService
 from repro_torch.core.types import ClusterConfig, Job, QueueConfig, default_queues
-from repro_torch.traces import TraceSpec, generate_trace, mean_length
+from repro_torch.traces import (DagConfig, TraceSpec, dag_mean_task_length,
+                               generate_dag_trace, generate_trace, mean_length)
 
 WEEK = 24 * 7
 # CI margin past the nominal trace so run-to-completion overruns stay
@@ -51,8 +53,17 @@ class Scenario:
     ``eval_shift`` regenerates the evaluation weeks from a +/-shifted
     length/rate distribution (the Fig. 13 learning/execution mismatch)
     while the learning weeks keep the unshifted trace.  ``engine`` picks
-    the slot simulator: ``"vector"`` (default) or the ``"scalar"``
-    reference loop, bit-identical to each other.
+    the slot simulator: ``"vector"`` (default), the ``"scalar"`` reference
+    loop, or ``"scan"``, the slot loop on the device
+    (``core/scan_engine.py``), all bit-identical.
+
+    A non-``None`` ``dag`` (:class:`repro_torch.traces.DagConfig`) makes the
+    workload precedence-aware: the trace generator emits whole DAG jobs
+    (chains / map-reduce stages / random layered DAGs) expanded to tasks
+    with ``Job.deps`` edges, the engines gate each task until its
+    predecessors complete, and the ``dag-*`` policy family applies.
+    ``DagConfig(independent=True)`` generates the same tasks with the
+    edges stripped — the independent-task upper-bound twin.
     """
 
     region: str = "south-australia"
@@ -70,6 +81,7 @@ class Scenario:
     delay_override: int | None = None   # uniform slack d (Fig. 9 / Fig. 14)
     eval_shift: float = 0.0             # Fig. 13 distribution shift
     engine: str = "vector"
+    dag: DagConfig | None = None        # DAG workload (precedence gating)
 
     def __post_init__(self) -> None:
         if self.region not in REGIONS:
@@ -77,9 +89,13 @@ class Scenario:
                              f"regions: {', '.join(sorted(REGIONS))}")
         if self.learn_weeks < 1 or self.eval_weeks < 1:
             raise ValueError("learn_weeks and eval_weeks must be >= 1")
-        if self.engine not in ("scalar", "vector"):
+        if self.engine not in ("scalar", "vector", "scan"):
             raise ValueError(f"unknown engine {self.engine!r}; choose "
-                             "'scalar' or 'vector'")
+                             "'scalar', 'vector', or 'scan'")
+
+    @property
+    def is_dag(self) -> bool:
+        return self.dag is not None
 
     # --- derived geometry ---------------------------------------------------
 
@@ -125,12 +141,19 @@ class Scenario:
         ci = CarbonService.synthetic(self.region,
                                      self.hours + CI_MARGIN_HOURS, seed=self.seed)
         spec = self.trace_spec()
-        jobs = generate_trace(spec, cluster.queues)
+
+        def _gen(s: TraceSpec) -> list[Job]:
+            if self.dag is not None:
+                return generate_dag_trace(s, self.dag, cluster.queues)
+            return generate_trace(s, cluster.queues)
+
+        jobs = _gen(spec)
         t0 = self.t0
+        # Arrival-based splits keep DAGs whole: every task of a DAG
+        # arrives at the DAG's slot (gating releases it later).
         hist = [j for j in jobs if j.arrival < t0]
         if self.eval_shift:
-            shifted = generate_trace(self.trace_spec(shifted=True),
-                                     cluster.queues)
+            shifted = _gen(self.trace_spec(shifted=True))
             eval_jobs = [j for j in shifted if t0 <= j.arrival < self.hours]
             jobs = hist + eval_jobs
         else:
@@ -138,6 +161,7 @@ class Scenario:
         mat = MaterializedScenario(
             scenario=self, cluster=cluster, ci=ci, spec=spec, jobs=jobs,
             hist=hist, eval_jobs=eval_jobs, t0=t0,
-            mean_length=mean_length(spec))
+            mean_length=(dag_mean_task_length(self.dag, self.length_scale)
+                         if self.dag is not None else mean_length(spec)))
         object.__setattr__(self, "_materialized", mat)
         return mat

@@ -1,1 +1,3 @@
-from .workloads import TraceSpec, generate_trace, mean_length  # noqa: F401
+from .workloads import (DagConfig, TraceSpec, dag_mean_task_length,  # noqa: F401
+                        generate_dag_specs, generate_dag_trace,
+                        generate_trace, mean_length)

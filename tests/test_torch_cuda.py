@@ -14,6 +14,7 @@ and 5e-2 in bf16, the JAX package's kernel tolerances, and the whole output
 within a relative L2 of 2e-5 (fp32) and 1e-2 (bf16) of the plain version:
 outputs of long causal rows are small beside the bf16 atol, and the
 relative L2 catches a kernel whose outputs are all off by a common factor.
+DAG gating: integer counts, equal exactly.
 """
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.experiment import Scenario
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import knn
+from repro_torch.kernels import gating, knn
 
 WEEK = 24 * 7
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -203,3 +204,81 @@ def test_kernel_flash_strided_and_checks(cuda_flash):
         fa.gqa_flash(ok[0], ok[1].cpu(), ok[2])
     with pytest.raises(ValueError, match="causal_offset"):
         fa.gqa_flash(*ok, causal_offset=-1)
+
+
+@pytest.fixture
+def cuda_gating():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gating.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_edges,batch", [(256, 0, 1), (256, 37, 1),
+                                             (1024, 3000, 3), (6144, 5924, 64)])
+def test_kernel_gating_matches_plain(cuda_gating, n, n_edges, batch):
+    """Exact int32 counts against the plain versions, with duplicate edges
+    and one row of in-degree 90."""
+    rng = np.random.default_rng(n + n_edges + batch)
+    parents = np.concatenate([rng.integers(0, n - 1, n_edges),
+                              rng.integers(0, n - 1, 90)])
+    children = np.concatenate([rng.integers(0, n - 1, n_edges), np.full(90, 3)])
+    parents = np.concatenate([parents, parents[:n_edges // 3]])
+    children = np.concatenate([children, children[:n_edges // 3]])
+    fin = torch.from_numpy(rng.random((batch, n)) < 0.3).to(cuda_gating)
+    graph = gating.dep_graph(parents, children, n, device=cuda_gating)
+    gating.reset_launches()
+    got = gating.dep_decrement_csr(fin, graph)
+    torch.cuda.synchronize()
+    assert gating.launches["dep_decrement"] == 1
+    p, c = (torch.from_numpy(x).to(cuda_gating) for x in (parents, children))
+    want = gating.dep_decrement_plain(fin, p, c, n)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(gating.dep_decrement(fin[0], p, c, n), want[0])
+    assert torch.equal(gating.dep_decrement_csr(fin.to(torch.uint8), graph), want)
+
+
+@pytest.mark.cuda
+def test_kernel_gating_checks(cuda_gating):
+    graph = gating.dep_graph(np.array([0, 1]), np.array([2, 2]), 4, device=cuda_gating)
+    fin = torch.zeros(4, dtype=torch.bool, device=cuda_gating)
+    with pytest.raises(TypeError, match="bool or uint8"):
+        gating.dep_decrement_csr(fin.int(), graph)
+    with pytest.raises(TypeError, match="int32"):
+        gating.dep_decrement_csr(fin, gating.DepGraph(graph.pred_ptr.long(),
+                                                      graph.pred_idx.long()))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        gating.dep_decrement(fin, torch.tensor([0], device=cuda_gating).short(),
+                             torch.tensor([2], device=cuda_gating).short(), 4)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        gating.dep_decrement_csr(fin, gating.dep_graph(np.array([0]), np.array([2]), 4))
+    with pytest.raises(ValueError, match=r"\(n,\) or \(B, n\)"):
+        gating.dep_decrement_csr(torch.zeros(5, dtype=torch.bool, device=cuda_gating),
+                                 graph)
+    with pytest.raises(ValueError, match="contiguous"):
+        gating.dep_decrement_csr(torch.zeros((4, 3), dtype=torch.bool,
+                                             device=cuda_gating).t(), graph)
+
+
+@pytest.mark.cuda
+def test_dag_scan_on_cuda_equals_cpu(cuda_gating):
+    """A small DAG week through the device slot loop on the card and on the
+    CPU: equal bit for bit, the gating kernel launched once per slot step."""
+    from repro_torch.core import scan_engine
+    from repro_torch.experiment import run
+    from repro_torch.traces import DagConfig
+
+    kw = dict(dag=DagConfig(), engine="scan", capacity=12, learn_weeks=1, seed=7)
+    cpu = run(Scenario(**kw), device="cpu")
+    scan_engine.reset_stats()
+    gating.reset_launches()
+    card = run(Scenario(**kw), device="cuda")
+    assert gating.launches["dep_decrement"] == scan_engine.stats["dag_steps"] >= 3 * WEEK
+    for name in card.policies:
+        for a, b in zip(cpu.weekly[name], card.weekly[name], strict=True):
+            assert a.carbon_g == b.carbon_g and a.energy_kwh == b.energy_kwh
+            np.testing.assert_array_equal(a.completion, b.completion)
+            np.testing.assert_array_equal(a.wait_slots, b.wait_slots)
+            np.testing.assert_array_equal(a.violations, b.violations)
+            assert [vars(x) for x in a.slots] == [vars(y) for y in b.slots]

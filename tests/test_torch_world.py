@@ -92,7 +92,7 @@ def test_scenario_rejects_what_the_slice_lacks():
     with pytest.raises(ValueError, match="unknown region"):
         Scenario(region="nowhere")
     with pytest.raises(ValueError, match="engine"):
-        Scenario(engine="scan")
+        Scenario(engine="jit")             # "scan" is ported (DAG slice)
     with pytest.raises(TypeError):
         Scenario(regions=("california", "ontario"))
     with pytest.raises(NotImplementedError):
