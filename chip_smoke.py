@@ -36,7 +36,18 @@ Phases, any failure exits non-zero:
    every weekly result and every slot; the independent twin (no edges, no
    gating launch); then one full tile of 64 dag-carbon cells (8 regions x 8
    CI seeds) through ``simulate_many``, each equal to its CPU vector run,
-   and one traced chunk of it for the card's busy share.
+   and one traced chunk of it for the card's busy share;
+6. Algorithm 1 on the card: the kernel API path, ``kernels.ops.score_matrix``
+   over the oracle's (job, scale) pair grid of each learning window and of
+   the oracle policy's span, each equal to the plain version exactly, then
+   edge shapes; the main path again with ``backend="device"``, the
+   learning phase, the weekly re-learning and the oracle policy through the
+   greedy kernel (launches == ``solve`` attempts with entries), every
+   weekly result and slot equal to the same call on the CPU, and the weeks
+   and slots that differ from the ``backend="numpy"`` run counted; then
+   the kernel against ``greedy_pass_plain`` on every pass the path ran and
+   on a ``solve`` that extends deadlines, bit for bit, with times beside
+   the host numpy pass.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -60,9 +71,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np  # noqa: E402
 
+from repro_torch.core import oracle as oracle_mod  # noqa: E402
 from repro_torch.core import policy as policy_mod  # noqa: E402
 from repro_torch.core.knowledge import KnowledgeBase  # noqa: E402
+from repro_torch.core.profiles import amdahl_profile  # noqa: E402
 from repro_torch.core.provisioning import provision  # noqa: E402
+from repro_torch.core.types import Job  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import scan_engine  # noqa: E402
 from repro_torch.core.carbon import CarbonService, REGIONS  # noqa: E402
@@ -71,7 +85,7 @@ from repro_torch.core.simulator import SimCase, pack, simulate_many  # noqa: E40
 from repro_torch.experiment import DEFAULT_DAG_POLICIES, Scenario, run  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import gating, knn  # noqa: E402
+from repro_torch.kernels import gating, knn, ops, oracle_greedy, score  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
@@ -392,7 +406,7 @@ def main_path_phase():
         f"{100 * busy_ms / 1e3 / wall:.6f} % of the untraced run's wall")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  device {ms:.6f} ms  {name}")
-    return dict(main=main_launches, batch=batch_launches, flips=flips,
+    return dict(result=res, main=main_launches, batch=batch_launches, flips=flips,
                 rho_moves=rho_moves,
                 provisions=len(calls), wall_s=wall, learn_s=res.learn_s,
                 execute_s=res.execute_s, provision_s=spent[0],
@@ -814,8 +828,8 @@ def gating_kernel_phase():
 
 def same_results(a_res, b_res, names):
     """(weekly results that differ, slots that differ): carbon, energy,
-    completion, waits and violations per week, used/running/queued per
-    slot, compared as floats with ==."""
+    completion, waits and violations per week, every field of every slot,
+    compared with ==."""
     weeks = slots = 0
     for name in names:
         for a, b in zip(a_res[name], b_res[name], strict=True):
@@ -824,8 +838,7 @@ def same_results(a_res, b_res, names):
                           and np.array_equal(a.wait_slots, b.wait_slots)
                           and np.array_equal(a.violations, b.violations))
             slots += abs(len(a.slots) - len(b.slots)) + sum(
-                (x.used, x.running, x.queued) != (y.used, y.running, y.queued)
-                for x, y in zip(a.slots, b.slots))
+                vars(x) != vars(y) for x, y in zip(a.slots, b.slots))
     return weeks, slots
 
 
@@ -949,6 +962,326 @@ def dag_path_phase():
                 traced_chunk_device_events=len(events))
 
 
+# --- Algorithm 1: the score matrix and the oracle's greedy pass ----------------
+
+# Edge shapes of the score matrix: (name, J, T); the path's shapes come
+# from the main scenario's oracle windows.
+SCORE_EDGES = [("J=1 T=1", 1, 1), ("J=1 T=777", 1, 777), ("J=1000 T=1", 1000, 1),
+               ("J=257 T=129", 257, 129), ("J=3001 T=552", 3001, 552)]
+
+
+def oracle_windows():
+    """The main scenario's oracle windows: each learning window (the jobs
+    ``learn_window`` replays) and the oracle policy's span on evaluation
+    week 0 (the jobs in the order the engine hands them over), with its CI
+    slice and horizon."""
+    mat = Scenario(**MAIN).materialize()
+    out = []
+    for off in mat.scenario.learn_offsets():
+        jobs = [dataclasses.replace(j, arrival=j.arrival - off)
+                for j in mat.hist if off <= j.arrival < off + WEEK]
+        out.append((f"learn window {off // WEEK}", jobs, mat.ci.trace[off:off + WEEK],
+                    WEEK))
+    t0 = mat.t0
+    span = min(len(mat.ci) - t0,
+               WEEK + max(q.delay for q in mat.cluster.queues) + 24 * 14)
+    jobs = [dataclasses.replace(j, arrival=j.arrival - t0)
+            for j in pack(mat.eval_week(0)).jobs]
+    out.append(("oracle span week 0", jobs, mat.ci.trace[t0:t0 + span], span))
+    return out
+
+
+def score_args(jobs, ci, horizon, dev):
+    """The score matrix's inputs over a window's (job, scale) pairs:
+    marginals, CI, window bounds (float32, float32, int32, int32)."""
+    _, _, pgain, pt0, pt1, _ = oracle_mod._pairs(jobs, horizon)
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(dev)
+            for x, dt in ((pgain, np.float32), (ci, np.float32), (pt0, np.int32),
+                          (pt1, np.int32))]
+
+
+def score_ops_phase(windows):
+    """The kernel API path: ``ops.score_matrix`` on the card over each
+    oracle window's pair grid, launch counts reset just before and read
+    just after."""
+    dev = torch.device("cuda")
+    args = [score_args(jobs, ci, h, dev) for _, jobs, ci, h in windows]
+    score.reset_launches()
+    outs = [ops.score_matrix(*a) for a in args]
+    torch.cuda.synchronize()
+    launches = score.launches["score_matrix"]
+    if launches != len(windows):
+        raise AssertionError(f"score_matrix launched {launches} times for "
+                             f"{len(windows)} calls")
+    return dict(launches=launches, args=args, outs=outs)
+
+
+def score_kernel_phase(windows, path):
+    """The score kernel against its plain version: exactly equal on the
+    path's outputs and on edge shapes; its nonzero cells are the oracle's
+    entries; times at the first learning window's and the oracle span's
+    shapes."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(4)
+    err = 0.0
+    for (name, jobs, ci, h), a, out in zip(windows, path["args"], path["outs"]):
+        want = score.score_matrix_plain(*a)
+        if out.dtype != torch.float32 or not torch.equal(out, want):
+            raise AssertionError(f"score_matrix {name}: kernel and plain version differ "
+                                 f"by up to {(out - want).abs().max().item()}")
+        entries = len(oracle_mod._build_entries(jobs, ci, h)[0])
+        nonzero = int((out != 0).sum().item())
+        if nonzero != entries:
+            raise AssertionError(f"score_matrix {name}: {nonzero} nonzero cells for "
+                                 f"{entries} oracle entries")
+        log(f"score_matrix {name}: J={out.shape[0]} T={out.shape[1]}, equal to the "
+            f"plain version; {nonzero} nonzero cells = the oracle's entries")
+    for name, j, t in SCORE_EDGES:
+        marg = gen.uniform(0, 1, j).astype(np.float32)
+        ci = gen.uniform(20, 600, t).astype(np.float32)
+        ci[::4] = np.array([0.0, 1e-9, 1e-12, -3.0], np.float32)[np.arange(len(ci[::4])) % 4]
+        ts = gen.integers(0, t, j).astype(np.int32)
+        te = gen.integers(0, t + 5, j).astype(np.int32)
+        te[::3] = t + 40                   # past the end
+        ts[1::5] = te[1::5]                # empty window
+        a = [torch.from_numpy(x).to(dev) for x in (marg, ci, ts, te)]
+        got = score.score_matrix(*a)
+        torch.cuda.synchronize()
+        want = score.score_matrix_plain(*a)
+        if not torch.equal(got, want):
+            raise AssertionError(f"score_matrix {name}: differs from the plain version")
+        err = max(err, (got - want).abs().max().item())
+        log(f"score_matrix {name} (windows past the end and empty, CI at and "
+            f"below 1e-9): equal to the plain version")
+
+    rows = {}
+    for key, idx in (("first learning window", 0), ("oracle span", len(windows) - 1)):
+        a = path["args"][idx]
+        marg, ci, ts, te = a
+        j, t = marg.shape[0], ci.shape[0]
+
+        def kernel():
+            return score.score_matrix(*a)
+
+        def plain():
+            return score.score_matrix_plain(*a)
+
+        def library():
+            tt = torch.arange(t, device=dev)
+            mask = (tt >= ts[:, None]) & (tt < te[:, None])
+            return torch.where(mask, marg[:, None] / ci.clamp_min(1e-9), 0)
+
+        if not torch.equal(library(), kernel()):
+            raise AssertionError("the composed library expression differs from the kernel")
+        tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 2000),
+                  library_ms=time_ms(library, 2000))
+        tm.update(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                  library_device_ms=device_ms(library))
+        nbytes = 12 * j + 4 * t + 4 * j * t
+        b, by = bound_ms(nbytes, j * t)
+        log(f"score_matrix {key} J={j} T={t}: {tm['ms']:.6f} ms/call (plain "
+            f"{tm['plain_ms']:.6f}, where/clamp_min expression {tm['library_ms']:.6f}, "
+            f"bound {b:.9f} by {by}: {nbytes} bytes); device time {tm['device_ms']} "
+            f"ms/call (plain {tm['plain_device_ms']}, expression "
+            f"{tm['library_device_ms']})")
+        rows[key] = dict(shape=f"J={j} T={t}", bound_ms=b, bound_by=by, bytes=nbytes,
+                         **tm)
+    first = rows["first learning window"]
+    return dict(name="score_matrix", route="cuda", source="src/repro_torch/csrc/score.cu",
+                replaces="src/repro/kernels/score.py:46", max_abs_err=err,
+                launches=path["launches"], path="ops",
+                library="torch.where(mask, marg[:, None] / ci.clamp_min(1e-9), 0) "
+                        "with the mask from arange: five calls",
+                oracle_span=rows["oracle span"], **first)
+
+
+def oracle_path_phase(numpy_res):
+    """The main path with ``backend="device"``: learning, weekly re-learning
+    and the oracle policy through the greedy kernel, launch counts reset
+    just before and read just after; each ``solve`` attempt's entries are
+    kept for the kernel check."""
+    attempts = []
+    build_entries = oracle_mod._build_entries
+
+    def kept(jobs, ci, horizon):
+        out = build_entries(jobs, ci, horizon)
+        if len(out[0]):
+            attempts.append(dict(jobs=jobs, ci=ci, horizon=horizon, entries=out))
+        return out
+
+    oracle_mod._build_entries = kept
+    oracle_greedy.reset_launches()
+    oracle_mod.reset_stats()
+    try:
+        t = time.perf_counter()
+        res = run(Scenario(**MAIN), POLICIES, backend="device")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        oracle_mod._build_entries = build_entries
+    launches = oracle_greedy.launches["greedy_pass"]
+    stats = dict(oracle_mod.stats)
+    log(f"oracle path (backend=\"device\" on the card): {wall:.3f} s wall (learning "
+        f"{res.learn_s:.3f} s against {numpy_res.learn_s:.3f} s with the host numpy "
+        f"pass), greedy launches {launches} for {len(attempts)} solve attempts with "
+        f"entries ({stats['entries']} entries, {stats['walked']} walked, "
+        f"{stats['early_exits']} early exits)")
+    log(res.table())
+    if not (launches == len(attempts) == stats["device_passes"] >= 1):
+        raise AssertionError(f"greedy_pass launched {launches} times for "
+                             f"{len(attempts)} solve attempts with entries ({stats})")
+    oracles = [a for a in attempts if a["horizon"] > WEEK]
+    if len(oracles) < MAIN["eval_weeks"] or len(attempts) - len(oracles) < \
+            MAIN["learn_weeks"] + MAIN["eval_weeks"] - 1:
+        raise AssertionError(f"{len(attempts)} passes, {len(oracles)} of the oracle "
+                             "policy: the path skipped a learning window or a week")
+    t = time.perf_counter()
+    cpu = run(Scenario(**MAIN), POLICIES, backend="device", device="cpu")
+    cpu_wall = time.perf_counter() - t
+    weeks, slots = same_results(res.weekly, cpu.weekly, POLICIES)
+    log(f"oracle path on the CPU (plain pass, float64 knowledge base; {cpu_wall:.3f} s "
+        f"wall): {weeks} weekly results and {slots} slots differ from the card's run")
+    if weeks or slots:
+        raise AssertionError(f"oracle path: {weeks} weekly results, {slots} slots "
+                             "differ from the CPU run")
+    for name in POLICIES:
+        for r in res.weekly[name]:
+            if not (math.isfinite(r.carbon_g) and r.carbon_g > 0):
+                raise AssertionError(f"oracle path {name}: bad result")
+    nweeks, nslots = same_results(res.weekly, numpy_res.weekly, POLICIES)
+    log(f"against the backend=\"numpy\" run of the main path: {nweeks} of "
+        f"{len(POLICIES) * MAIN['eval_weeks']} weekly results and {nslots} slots differ "
+        f"(float32 work against float64; information)")
+    return dict(attempts=attempts, launches=launches, stats=stats, wall_s=wall,
+                learn_s=res.learn_s, execute_s=res.execute_s,
+                numpy_learn_s=numpy_res.learn_s, cpu_wall_s=cpu_wall,
+                weeks_differ_cpu=weeks, slots_differ_cpu=slots,
+                weeks_differ_numpy=nweeks, slots_differ_numpy=nslots,
+                savings={n: res.savings(n) for n in POLICIES})
+
+
+def greedy_args(attempt, dev):
+    jobs = attempt["jobs"]
+    j, t, k, g, _ = attempt["entries"]
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(dev)
+            for x, dt in ((j, np.int32), (t, np.int32), (k, np.int32), (g, np.float32),
+                          ([x.k_min for x in jobs], np.int32),
+                          ([x.length for x in jobs], np.float32))]
+
+
+def greedy_check(args, capacity, horizon, what):
+    """The kernel against ``greedy_pass_plain``: alloc, used, work and the
+    entries walked equal bit for bit; returns the plain version's results
+    and its host seconds."""
+    got = oracle_greedy.greedy_pass(*args, capacity, horizon)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), capacity, horizon)
+    plain_s = time.perf_counter() - t
+    for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"greedy_pass {what}: {name} differs from the plain "
+                                 "version")
+    return want, plain_s
+
+
+def extension_jobs():
+    """``tests/test_oracle.py::test_infeasible_extends_deadlines`` made
+    larger: 48 jobs of length 8-12 and no slack on 2 servers."""
+    gen = np.random.default_rng(6)
+    jobs = [Job(job_id=i, arrival=int(gen.integers(0, 120)),
+                length=float(gen.uniform(8, 12)), queue=0, delay=0,
+                profile=amdahl_profile(1, int(gen.integers(1, 4)), 0.5), k_min=1)
+            for i in range(48)]
+    return jobs, gen.uniform(50, 500, 400)
+
+
+def greedy_kernel_phase(path):
+    """The greedy kernel against its plain version on every pass of the
+    oracle path and on a ``solve`` that extends deadlines; times on the
+    three learning windows and the oracle span of week 0."""
+    dev = torch.device("cuda")
+    cap = MAIN["capacity"]
+    for i, att in enumerate(path["attempts"]):
+        want, _ = greedy_check(greedy_args(att, dev), cap, att["horizon"], f"pass {i}")
+        log(f"greedy_pass pass {i:2d}: {len(att['jobs'])} jobs x {att['horizon']} slots, "
+            f"{len(att['entries'][0])} entries, {want[3].item()} walked: equal to the "
+            f"plain version bit for bit")
+    jobs, ci = extension_jobs()
+    cpu = oracle_mod.solve(jobs, ci, 2, backend="device", device="cpu")
+    oracle_greedy.reset_launches()
+    oracle_mod.reset_stats()
+    card = oracle_mod.solve(jobs, ci, 2, backend="device")
+    ext_launches = oracle_greedy.launches["greedy_pass"]
+    if not (cpu.schedule.extended.any() and ext_launches == oracle_mod.stats["device_passes"] > 1
+            and np.array_equal(card.schedule.alloc, cpu.schedule.alloc)
+            and np.array_equal(card.schedule.extended, cpu.schedule.extended)
+            and all(np.array_equal(getattr(card, n), getattr(cpu, n))
+                    for n in ("capacity_curve", "rho_curve", "work_done"))):
+        raise AssertionError("solve with deadline extensions: the card and the CPU differ")
+    log(f"solve with deadline extensions (48 jobs, capacity 2, 400 slots): {ext_launches} "
+        f"passes, {int(cpu.schedule.extended.sum())} slots of extensions, equal on the "
+        f"card and the CPU")
+
+    learn = [a for a in path["attempts"] if a["horizon"] == WEEK][:MAIN["learn_weeks"]]
+    span = [a for a in path["attempts"] if a["horizon"] > WEEK][:1]
+    rows = []
+    for name, att in zip([f"learn window {i}" for i in range(len(learn))]
+                         + ["oracle span week 0"], learn + span):
+        args = greedy_args(att, dev)
+        h, n = att["horizon"], len(att["jobs"])
+        want, plain_s = greedy_check(args, cap, h, name)
+        walked = want[3].item()
+        ms = time_ms(lambda: oracle_greedy.greedy_pass(*args, cap, h), 10, warmup=2)
+        lengths = np.array([j.length for j in att["jobs"]])
+        t = time.perf_counter()
+        oracle_mod._greedy_numpy(att["jobs"], att["ci"], cap, h, lengths)
+        numpy_s = time.perf_counter() - t
+        t = time.perf_counter()
+        oracle_mod._build_entries(att["jobs"], att["ci"], h)
+        entries_s = time.perf_counter() - t
+        nbytes = 16 * walked + 8 * n + 4 * n * h + 4 * h + 4 * n
+        b, by = bound_ms(nbytes, 8 * walked)
+        log(f"greedy_pass {name}: {len(att['entries'][0])} entries, {walked} walked, "
+            f"{ms:.6f} ms/pass = {1e6 * ms / walked:.3f} ns per walked entry (bound "
+            f"{b:.9f} by {by}: {nbytes} bytes); plain pass {1e3 * plain_s:.3f} ms; host "
+            f"numpy pass {1e3 * numpy_s:.3f} ms, of which building the entries "
+            f"{1e3 * entries_s:.3f} ms")
+        rows.append(dict(window=name, entries=len(att["entries"][0]), walked=walked,
+                         ms=ms, plain_ms=1e3 * plain_s, numpy_pass_ms=1e3 * numpy_s,
+                         build_entries_ms=1e3 * entries_s, bound_ms=b, bound_by=by,
+                         bytes=nbytes))
+    # Device time from the kernel's own profiler events, with their count:
+    # device_ms() averages the card's busy time over the calls, which
+    # undercounts when the trace drops events of this ~17 ms kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    args = greedy_args(learn[0], dev)
+    for _ in range(3):
+        oracle_greedy.greedy_pass(*args, cap, WEEK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            oracle_greedy.greedy_pass(*args, cap, WEEK)
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof) if "greedy_pass_kernel" in e.name]
+    dms = (sum(e.time_range.elapsed_us() for e in events) / len(events) / 1e3
+           if events else None)
+    log(f"greedy_pass learn window 0: device time {dms} ms/pass over the "
+        f"{len(events)} kernel events the trace recorded of 10 passes")
+    first = rows[0]
+    return dict(name="greedy_pass", route="cuda",
+                source="src/repro_torch/csrc/oracle_greedy.cu",
+                replaces="src/repro/core/oracle.py:177 (_greedy_jax, a jitted "
+                         "lax.fori_loop; no Pallas kernel)",
+                launches=path["launches"], path="learn, oracle", max_abs_err=0.0,
+                ms=first["ms"], device_ms=dms, plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
+                device_events=len(events),
+                numpy_pass_ms=first["numpy_pass_ms"], serial_chain=first["walked"],
+                extension_passes=ext_launches, windows=rows)
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each) and print each
     build's time and the compiler's report."""
@@ -959,7 +1292,9 @@ def build_kernels():
 
     sources = (("src/repro_torch/csrc/knn.cu", knn),
                ("src/repro_torch/csrc/flash_attention.cu", fa),
-               ("src/repro_torch/csrc/gating.cu", gating))
+               ("src/repro_torch/csrc/gating.cu", gating),
+               ("src/repro_torch/csrc/score.cu", score),
+               ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy))
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
         for src, fut in futures:
@@ -984,13 +1319,20 @@ def main():
     kernels[2].update(launches=serve["launches"]["gqa_flash"], path="serve-prefill")
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
+    windows = oracle_windows()
+    score_path = score_ops_phase(windows)
+    kernels.append(score_kernel_phase(windows, score_path))
+    device_path = oracle_path_phase(path["result"])
+    kernels.append(greedy_kernel_phase(device_path))
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
-                                  if k not in ("main", "batch")}}))
+                                  if k not in ("result", "main", "batch")}}))
     log(json.dumps({"serve_path": {k: v for k, v in serve.items()
                                    if k != "launches"}}))
     log(json.dumps({"dag_path": dag}))
+    log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()
+                                    if k != "attempts"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

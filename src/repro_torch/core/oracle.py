@@ -13,19 +13,45 @@ job j's allocation in slot t from ``k-1`` to ``k`` (the base entry
 the sorted order guarantees the ``k-1`` entry is considered before ``k`` for
 the same slot, so the greedy pass visits allocations in a consistent order.
 
-The greedy pass is sequential and stays on the host in float64 numpy: the
-entry order comes from a stable lexsort on float64 scores, and any change
-of precision or summation order would reorder near-ties.
+The entries are built and sorted on the host in float64 (a stable lexsort:
+any change of precision there would reorder near-ties).  The greedy pass
+over them has three implementations, selected by ``solve(backend=...)``:
+
+- ``"numpy"``     — the default: a tight host pass in float64 with an early
+                    exit once every job is done;
+- ``"numpy-ref"`` — the readable reference pass;
+- ``"device"``    — the pass on ``device`` (the counterpart of the JAX
+                    package's ``backend="jax"``): the sorted entries cast to
+                    int32/float32 and walked by the CUDA kernel of
+                    ``kernels/oracle_greedy.py`` on a CUDA device, by its
+                    plain version on the CPU.  ``work`` adds up in float32,
+                    so it may differ from the float64 passes in the last
+                    bits, and in rare cases a job's completion with it.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
+from ..kernels import oracle_greedy
 from .types import Job, Schedule
 
 _EPS = 1e-9
+
+BACKENDS = ("numpy", "numpy-ref", "device")
+
+#: Device passes since the last ``reset_stats()``: passes run (``solve``
+#: attempts with entries), entries handed over, entries walked before every
+#: job was done, and passes that stopped early for that reason.
+stats = {"device_passes": 0, "entries": 0, "walked": 0, "early_exits": 0}
+
+
+def reset_stats() -> None:
+    for name in stats:
+        stats[name] = 0
 
 
 @dataclasses.dataclass
@@ -45,6 +71,27 @@ def _marginal_table(jobs: list[Job]) -> np.ndarray:
     return tab
 
 
+def _pairs(jobs: list[Job], horizon: int):
+    """The (job, scale) pairs with a positive marginal and a non-empty
+    admissible window, job-major and k ascending: job index, scale,
+    marginal throughput, window ``[t0, t1)`` and deadline of each (the
+    rows of the score matrix, ``kernels/score.py``)."""
+    z = np.zeros(0, dtype=np.int64)
+    if not jobs:
+        return z, z, np.zeros(0), z, z, z
+    marg = _marginal_table(jobs)                     # (n, K+1)
+    kmin = np.array([j.k_min for j in jobs], dtype=np.int64)
+    kmax = np.array([j.k_max for j in jobs], dtype=np.int64)
+    dl = np.array([j.deadline for j in jobs], dtype=np.int64)
+    t0 = np.maximum(np.array([j.arrival for j in jobs], dtype=np.int64), 0)
+    t1 = np.minimum(horizon, dl + 1)
+    ks = np.arange(marg.shape[1], dtype=np.int64)   # scale meshgrid axis
+    pair_ok = (ks[None, :] >= kmin[:, None]) & (ks[None, :] <= kmax[:, None]) \
+        & (marg > 0) & (t1 > t0)[:, None]
+    pj, pk = np.nonzero(pair_ok)
+    return pj, pk, marg[pj, pk], t0[pj], t1[pj], dl[pj]
+
+
 def _build_entries(jobs: list[Job], ci: np.ndarray, horizon: int):
     """Flattened (job, slot, scale) entry arrays, sorted by the greedy key.
 
@@ -57,24 +104,10 @@ def _build_entries(jobs: list[Job], ci: np.ndarray, horizon: int):
     ragged-arange.  Pair order (job-major, k ascending) plus the stable
     lexsort fix the entry order.
     """
-    n = len(jobs)
     z = np.zeros(0, dtype=np.int64)
-    if n == 0:
-        return z, z, z, np.zeros(0), np.zeros(0)
-    marg = _marginal_table(jobs)                     # (n, K+1)
-    kmin = np.array([j.k_min for j in jobs], dtype=np.int64)
-    kmax = np.array([j.k_max for j in jobs], dtype=np.int64)
-    dl = np.array([j.deadline for j in jobs], dtype=np.int64)
-    t0 = np.maximum(np.array([j.arrival for j in jobs], dtype=np.int64), 0)
-    t1 = np.minimum(horizon, dl + 1)
-    ks = np.arange(marg.shape[1], dtype=np.int64)   # scale meshgrid axis
-    pair_ok = (ks[None, :] >= kmin[:, None]) & (ks[None, :] <= kmax[:, None]) \
-        & (marg > 0) & (t1 > t0)[:, None]
-    pj, pk = np.nonzero(pair_ok)                    # job-major, k ascending
+    pj, pk, pgain, pt0, pt1, pdl = _pairs(jobs, horizon)
     if not len(pj):
         return z, z, z, np.zeros(0), np.zeros(0)
-    pgain = marg[pj, pk]
-    pt0, pt1, pdl = t0[pj], t1[pj], dl[pj]
     counts = pt1 - pt0                              # slots per (job, k) pair
     total = int(counts.sum())
     starts = np.cumsum(counts) - counts
@@ -135,27 +168,100 @@ def _greedy_numpy(jobs, ci, capacity, horizon, lengths):
             np.array(used, dtype=np.int64), np.array(work))
 
 
+def _greedy_numpy_ref(jobs, ci, capacity, horizon, lengths):
+    """Readable reference pass."""
+    j_idx, t_idx, k_val, gain, _ = _build_entries(jobs, ci, horizon)
+    n = len(jobs)
+    alloc = np.zeros((n, horizon), dtype=np.int64)
+    used = np.zeros(horizon, dtype=np.int64)
+    work = np.zeros(n)
+    kmin = np.array([j.k_min for j in jobs], dtype=np.int64)
+    for i in range(len(j_idx)):
+        j, t, k, g = j_idx[i], t_idx[i], k_val[i], gain[i]
+        if work[j] >= lengths[j] - _EPS:
+            continue  # line 11: job already done
+        prev = alloc[j, t]
+        add = kmin[j] if k == kmin[j] else 1  # base entry adds k_min servers
+        if (k == kmin[j] and prev != 0) or (k != kmin[j] and prev != k - 1):
+            continue  # incremental consistency
+        if used[t] + add > capacity:
+            continue  # line 9: capacity exceeded
+        alloc[j, t] = k
+        used[t] += add
+        work[j] += g if k != kmin[j] else 1.0  # base throughput p(k_min)=1
+    return alloc, used, work
+
+
+def _greedy_device(jobs, ci, capacity, horizon, lengths, device):
+    """The pass on ``device`` over the host-sorted entries, cast to int32
+    and float32 as the JAX package's ``backend="jax"`` casts them."""
+    j_idx, t_idx, k_val, gain, _ = _build_entries(jobs, ci, horizon)
+    n = len(jobs)
+    if len(j_idx) == 0:
+        return (np.zeros((n, horizon), np.int64), np.zeros(horizon, np.int64),
+                np.zeros(n))
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(device)
+
+    alloc, used, work, walked = oracle_greedy.greedy_pass(
+        put(j_idx, np.int32), put(t_idx, np.int32), put(k_val, np.int32),
+        put(gain, np.float32), put([j.k_min for j in jobs], np.int32),
+        put(lengths, np.float32), int(capacity), int(horizon))
+    walked = int(walked.item())
+    if walked < 0:
+        raise RuntimeError(f"greedy pass: entry {-1 - walked} holds an index "
+                           f"outside {n} jobs x {horizon} slots")
+    stats["device_passes"] += 1
+    stats["entries"] += len(j_idx)
+    stats["walked"] += walked
+    stats["early_exits"] += walked < len(j_idx)
+    return (alloc.cpu().numpy().astype(np.int64),
+            used.cpu().numpy().astype(np.int64),
+            work.cpu().numpy().astype(np.float64))
+
+
+def _greedy(jobs, ci, capacity, horizon, lengths, backend, device):
+    if backend == "numpy":
+        return _greedy_numpy(jobs, ci, capacity, horizon, lengths)
+    if backend == "numpy-ref":
+        return _greedy_numpy_ref(jobs, ci, capacity, horizon, lengths)
+    return _greedy_device(jobs, ci, capacity, horizon, lengths, device)
+
+
 def solve(
     jobs: list[Job],
     ci: np.ndarray,
     capacity: int,
     horizon: int | None = None,
+    backend: str = "numpy",
     max_extensions: int = 8,
     extension_slots: int = 24,
+    device: str | torch.device = "cuda",
 ) -> OracleResult:
     """Run Algorithm 1; on infeasibility, extend deadlines of unfinished jobs
     and retry (the paper's fix, §4.2 'Retaining Oracle decisions').
+
+    ``backend`` picks the greedy pass (see the module docstring);
+    ``device`` matters only for ``backend="device"``, where it defaults to
+    the card and raises without one.
 
     Retries stop early when no unfinished job's admissible window
     ``[arrival, min(horizon, deadline+1))`` can still grow — once every
     unfinished deadline has hit the horizon, further extensions cannot
     admit a single new (job, slot) entry or make any job newly feasible."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown oracle backend {backend!r}; use one of "
+                         f"{', '.join(BACKENDS)}")
+    if backend == "device":
+        device = resolve_device(device)
     horizon = int(horizon or len(ci))
     jobs = [dataclasses.replace(j) for j in jobs]
     lengths = np.array([j.length for j in jobs])
     extended = np.zeros(len(jobs), dtype=np.int64)
     for attempt in range(max_extensions + 1):
-        alloc, used, work = _greedy_numpy(jobs, ci, capacity, horizon, lengths)
+        alloc, used, work = _greedy(jobs, ci, capacity, horizon, lengths,
+                                    backend, device)
         unfinished = work < lengths - 1e-6
         if not unfinished.any() or attempt == max_extensions:
             break

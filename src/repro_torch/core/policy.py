@@ -21,6 +21,7 @@ from collections import deque
 from typing import Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 from . import oracle
 from .carbon import CarbonService
@@ -77,10 +78,13 @@ def learn_window(
     horizon: int,
     cluster: ClusterConfig,
     offsets: tuple[int, ...] = (0,),
+    backend: str = "numpy",
 ) -> LearnOutcome:
     """Learning phase over one historical window (optionally replayed at
     several start offsets, §5 'Continuous Learning').
 
+    ``backend`` is the oracle's greedy pass (``oracle.solve``); with
+    ``"device"`` it runs where the knowledge base lives (``kb.device``).
     Offsets whose window contains no arrivals are skipped and reported in
     ``LearnOutcome.empty``.
     """
@@ -101,7 +105,8 @@ def learn_window(
             empty.append(off)
             continue
         ci_slice = ci.trace[s0:s0 + horizon]
-        res = oracle.solve(window_jobs, ci_slice, capacity, horizon=horizon)
+        res = oracle.solve(window_jobs, ci_slice, capacity, horizon=horizon,
+                           backend=backend, device=kb.device)
         states = states_from_schedule(window_jobs, res.schedule.alloc,
                                       ci, nq, t0=s0)
         kb.add_window(states, res.capacity_curve, res.rho_curve)
@@ -218,8 +223,12 @@ class CarbonFlexPolicy:
 
 @dataclasses.dataclass
 class OraclePolicy:
-    """CarbonFlex(Oracle): Algorithm 1 with full future knowledge (§6.1)."""
+    """CarbonFlex(Oracle): Algorithm 1 with full future knowledge (§6.1).
+    ``backend`` and ``device`` pick the oracle's greedy pass
+    (``oracle.solve``); ``device`` matters only for ``backend="device"``."""
 
+    backend: str = "numpy"
+    device: str | torch.device = "cuda"
     name: str = "oracle"
 
     def on_window_start(self, ci, t0, horizon, jobs, cluster) -> None:
@@ -227,7 +236,7 @@ class OraclePolicy:
         span = min(len(ci) - t0, horizon + max(q.delay for q in cluster.queues) + 24 * 14)
         shifted = [dataclasses.replace(j, arrival=j.arrival - t0) for j in jobs]
         res = oracle.solve(shifted, ci.trace[t0:t0 + span], cluster.capacity,
-                           horizon=span)
+                           horizon=span, backend=self.backend, device=self.device)
         self._alloc = {j.job_id: res.schedule.alloc[i] for i, j in enumerate(shifted)}
         # row-indexed view for decide_packed: the engine packs the same
         # (arrival, job_id)-sorted list it passed to us, so oracle row i

@@ -10,7 +10,8 @@ the whole span.
 
 The knowledge base lives on ``device`` (``"cuda"`` by default), where the
 execution phase's lookups run as CUDA kernels, and so does the slot loop of
-``engine="scan"`` scenarios; everything else is host numpy.
+``engine="scan"`` scenarios and, with ``backend="device"``, the oracle's
+greedy pass; everything else is host numpy.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import oracle
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.core.simulator import SimCase, simulate_many
@@ -49,19 +51,22 @@ def prepare_context(
     kb_kwargs: dict | None = None,
     forecast_quantile: float = 0.7,
     device: str | torch.device = "cuda",
+    backend: str = "numpy",
 ) -> PolicyContext:
     """Build the :class:`PolicyContext` for a materialized scenario,
     running the initial learning phase when any requested policy needs the
     knowledge base (held on ``device``).  ``forecast_quantile`` is the band
-    the ``*-robust`` policy variants threshold on."""
+    the ``*-robust`` policy variants threshold on; ``backend`` is the
+    oracle's greedy pass, for the learning phase and the oracle policy."""
     kb = None
     if needs_kb(policies):
         kb = KnowledgeBase(device=device, **(kb_kwargs or {}))
         learn_window(kb, mat.hist, mat.ci, 0, WEEK, mat.cluster,
-                     offsets=mat.scenario.learn_offsets())
+                     offsets=mat.scenario.learn_offsets(), backend=backend)
     return PolicyContext(
         cluster=mat.cluster, ci=mat.ci, mean_length=mat.mean_length, utilization=mat.scenario.utilization,
-        kb=kb, forecast_quantile=forecast_quantile)
+        kb=kb, backend=backend, device=device,
+        forecast_quantile=forecast_quantile)
 
 
 @dataclasses.dataclass
@@ -163,6 +168,7 @@ def run(
     kb_kwargs: dict | None = None,
     forecast_quantile: float = 0.7,
     device: str | torch.device = "cuda",
+    backend: str = "numpy",
 ) -> ExperimentResult:
     """Run ``scenario`` under the named policies (registry names).
 
@@ -173,10 +179,16 @@ def run(
     :class:`KnowledgeBase` (e.g. ``max_windows`` for the aging window,
     feature weights for tuning studies).  ``device`` holds the knowledge
     base and runs the slot loop of ``engine="scan"``; without a CUDA device
-    the default raises.  ``policies`` defaults to the DAG family on DAG
-    scenarios.
+    the default raises.  ``backend`` is the oracle's greedy pass for the
+    learning phase, the weekly re-learning and the oracle policy
+    (``oracle.BACKENDS``; ``"device"`` runs it on ``device``, the port's
+    name for the JAX package's ``backend="jax"``).  ``policies`` defaults
+    to the DAG family on DAG scenarios.
     """
     device = resolve_device(device)
+    if backend not in oracle.BACKENDS:
+        raise ValueError(f"unknown oracle backend {backend!r}; use one of "
+                         f"{', '.join(oracle.BACKENDS)}")
     if policies is None:
         policies = DEFAULT_DAG_POLICIES if scenario.is_dag else DEFAULT_POLICIES
     names = tuple(policies)
@@ -185,7 +197,8 @@ def run(
     mat = scenario.materialize()
     t_learn = time.perf_counter()
     ctx = prepare_context(mat, names, kb_kwargs=kb_kwargs,
-                          forecast_quantile=forecast_quantile, device=device)
+                          forecast_quantile=forecast_quantile, device=device,
+                          backend=backend)
     learn_s = time.perf_counter() - t_learn
     execute_s = 0.0
     instances = {n: make_policy(n, ctx) for n in names}
@@ -197,7 +210,7 @@ def run(
             # continuous learning: replay the week just evaluated
             t_learn = time.perf_counter()
             learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK, mat.cluster,
-                         offsets=(t0 - WEEK,))
+                         offsets=(t0 - WEEK,), backend=backend)
             learn_s += time.perf_counter() - t_learn
         ev = mat.eval_week(w)
         if not ev:

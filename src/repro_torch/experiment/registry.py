@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
+
 from repro_torch.core import baselines
 from repro_torch.core.carbon import CarbonService
 from repro_torch.core.dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
@@ -36,6 +38,8 @@ class PolicyContext:
     mean_length: float = 4.0
     utilization: float = 0.5
     kb: KnowledgeBase | None = None
+    backend: str = "numpy"           # oracle backend for oracle/learning
+    device: str | torch.device = "cuda"   # where backend="device" runs
     # quantile the `*-robust` policy variants threshold on (configurable
     # per experiment; 0.7 = mildly conservative upper band)
     forecast_quantile: float = 0.7
@@ -184,7 +188,7 @@ def _carbonflex_robust(ctx: PolicyContext) -> Policy:
 @register_policy("oracle",
                  description="Algorithm 1 with full future knowledge (upper bound)")
 def _oracle(ctx: PolicyContext) -> Policy:
-    return OraclePolicy()
+    return OraclePolicy(backend=ctx.backend, device=ctx.device)
 
 
 # --- precedence-aware DAG policies -------------------------------------------

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``.
@@ -65,11 +66,13 @@ class DepGraph:
 
 
 def dep_graph(parents, children, n: int,
-              device: str | torch.device = "cpu") -> DepGraph:
+              device: str | torch.device = "cuda") -> DepGraph:
     """The :class:`DepGraph` of an edge list ``(parents[e], children[e])``
     (numpy arrays or tensors; duplicate edges count twice), built on the
-    host and moved to ``device``.  Predecessors of a row keep their edge
-    order."""
+    host and moved to ``device`` (the card by default; without one it
+    raises, so host callers pass ``device="cpu"``).  Predecessors of a row
+    keep their edge order."""
+    device = resolve_device(device)
     par = torch.as_tensor(np.asarray(parents), dtype=torch.int64)
     chd = torch.as_tensor(np.asarray(children), dtype=torch.int64)
     if par.shape != chd.shape or par.dim() != 1:

@@ -14,7 +14,9 @@ and 5e-2 in bf16, the JAX package's kernel tolerances, and the whole output
 within a relative L2 of 2e-5 (fp32) and 1e-2 (bf16) of the plain version:
 outputs of long causal rows are small beside the bf16 atol, and the
 relative L2 catches a kernel whose outputs are all off by a common factor.
-DAG gating: integer counts, equal exactly.
+DAG gating: integer counts, equal exactly.  Score matrix: one IEEE
+division per element in both versions, equal exactly.  Oracle greedy pass:
+the same float32 adds in the same order, equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -24,7 +26,7 @@ from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.experiment import Scenario
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import gating, knn
+from repro_torch.kernels import gating, knn, oracle_greedy, ops, score
 
 WEEK = 24 * 7
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -252,7 +254,8 @@ def test_kernel_gating_checks(cuda_gating):
         gating.dep_decrement(fin, torch.tensor([0], device=cuda_gating).short(),
                              torch.tensor([2], device=cuda_gating).short(), 4)
     with pytest.raises(ValueError, match="same CUDA device"):
-        gating.dep_decrement_csr(fin, gating.dep_graph(np.array([0]), np.array([2]), 4))
+        gating.dep_decrement_csr(fin, gating.dep_graph(np.array([0]), np.array([2]), 4,
+                                                       device="cpu"))
     with pytest.raises(ValueError, match=r"\(n,\) or \(B, n\)"):
         gating.dep_decrement_csr(torch.zeros(5, dtype=torch.bool, device=cuda_gating),
                                  graph)
@@ -282,3 +285,149 @@ def test_dag_scan_on_cuda_equals_cpu(cuda_gating):
             np.testing.assert_array_equal(a.wait_slots, b.wait_slots)
             np.testing.assert_array_equal(a.violations, b.violations)
             assert [vars(x) for x in a.slots] == [vars(y) for y in b.slots]
+
+
+@pytest.fixture
+def cuda_oracle():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    score.build()
+    oracle_greedy.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,t", [(1, 1), (1, 777), (1000, 1), (257, 129),
+                                 (3000, 168), (2500, 552)])
+def test_kernel_score_matches_plain(cuda_oracle, j, t):
+    """Equal exactly, on shapes no tile divides, windows past the end,
+    empty or reversed, and intensities at or below the 1e-9 floor."""
+    rng = np.random.default_rng(j + t)
+    marg = rng.uniform(0, 1, j).astype(np.float32)
+    ci = rng.uniform(20, 600, t).astype(np.float32)
+    ci[::4] = np.array([0.0, 1e-9, 1e-12, -3.0], np.float32)[np.arange(len(ci[::4])) % 4]
+    ts = rng.integers(0, t, j).astype(np.int32)
+    te = rng.integers(0, t + 5, j).astype(np.int32)
+    te[::3] = t + 40
+    ts[1::5] = te[1::5]
+    args = [torch.from_numpy(x).to(cuda_oracle) for x in (marg, ci, ts, te)]
+    score.reset_launches()
+    got = ops.score_matrix(*args)
+    torch.cuda.synchronize()
+    assert score.launches["score_matrix"] == 1
+    want = score.score_matrix_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (j, t)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), score.score_matrix_plain(*(a.cpu() for a in args)))
+
+
+@pytest.mark.cuda
+def test_kernel_score_checks(cuda_oracle):
+    marg, ci = torch.ones(3, device=cuda_oracle), torch.ones(5, device=cuda_oracle)
+    ts = torch.zeros(3, dtype=torch.int32, device=cuda_oracle)
+    te = torch.full((3,), 4, dtype=torch.int32, device=cuda_oracle)
+    with pytest.raises(TypeError, match="marginals"):
+        score.score_matrix(marg.double(), ci, ts, te)
+    with pytest.raises(TypeError, match="t_end"):
+        score.score_matrix(marg, ci, ts, te.long())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        score.score_matrix(marg, ci.cpu(), ts, te)
+    with pytest.raises(ValueError, match="must match"):
+        score.score_matrix(marg, ci, ts[:2], te)
+    with pytest.raises(ValueError, match="contiguous"):
+        score.score_matrix(torch.ones(6, device=cuda_oracle)[::2], ci, ts, te)
+    score.reset_launches()
+    assert score.score_matrix(marg[:0], ci, ts[:0], te[:0]).shape == (0, 5)
+    assert score.launches["score_matrix"] == 0
+
+
+def _greedy_inputs(device, capacity, cut=None):
+    """The entries of a learning window of a small scenario, as the device
+    pass casts them."""
+    from repro_torch.core import oracle
+
+    mat = Scenario(capacity=8, learn_weeks=1, family="alibaba", seed=101).materialize()
+    jobs = [j for j in mat.hist if j.arrival < WEEK][:cut]
+    j, t, k, g, _ = oracle._build_entries(jobs, mat.ci.trace[:WEEK], WEEK)
+    args = [torch.from_numpy(x.astype(np.int32)) for x in (j, t, k)] + [
+        torch.from_numpy(g.astype(np.float32)),
+        torch.tensor([x.k_min for x in jobs], dtype=torch.int32),
+        torch.tensor([x.length for x in jobs], dtype=torch.float32)]
+    return [a.to(device) for a in args], capacity, WEEK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,cut", [(8, None), (3, None), (40, 30)])
+def test_kernel_greedy_matches_plain(cuda_oracle, capacity, cut):
+    """Bit for bit against the plain pass: the full window, an overloaded
+    capacity, and few jobs on a large cluster, where every job finishes and
+    both stop early."""
+    args, cap, horizon = _greedy_inputs(cuda_oracle, capacity, cut)
+    oracle_greedy.reset_launches()
+    got = oracle_greedy.greedy_pass(*args, cap, horizon)
+    torch.cuda.synchronize()
+    assert oracle_greedy.launches["greedy_pass"] == 1
+    want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), cap, horizon)
+    for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+    if cut is not None:
+        assert 0 < want[3].item() < args[0].shape[0]
+
+
+@pytest.mark.cuda
+def test_kernel_greedy_checks(cuda_oracle):
+    args, cap, horizon = _greedy_inputs(cuda_oracle, 8, cut=20)
+    bad = list(args)
+    bad[3] = bad[3].double()
+    with pytest.raises(TypeError, match="gain"):
+        oracle_greedy.greedy_pass(*bad, cap, horizon)
+    bad = list(args)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError, match="same CUDA device"):
+        oracle_greedy.greedy_pass(*bad, cap, horizon)
+    bad = list(args)
+    bad[1] = bad[1][:-1]
+    with pytest.raises(ValueError, match="one length"):
+        oracle_greedy.greedy_pass(*bad, cap, horizon)
+    with pytest.raises(ValueError, match="shared memory"):
+        oracle_greedy.greedy_pass(*args, cap, 60_000)
+    bad = list(args)
+    bad[1] = bad[1].clone()
+    bad[1][0] = horizon                       # a slot index out of range
+    *_, walked = oracle_greedy.greedy_pass(*bad, cap, horizon)
+    assert walked.item() == -1
+
+
+@pytest.mark.cuda
+def test_solve_device_backend_on_cuda_equals_cpu(cuda_oracle):
+    """``oracle.solve(backend="device")`` on the card and on the CPU, with
+    deadline extensions: equal in every output, one launch per pass."""
+    from repro_torch.core import oracle
+
+    mat = Scenario(capacity=8, learn_weeks=1, family="alibaba", seed=101).materialize()
+    jobs = [j for j in mat.hist if j.arrival < WEEK]
+    ci = mat.ci.trace[:WEEK]
+    cpu = oracle.solve(jobs, ci, 3, backend="device", device="cpu")
+    oracle.reset_stats()
+    oracle_greedy.reset_launches()
+    card = oracle.solve(jobs, ci, 3, backend="device", device=cuda_oracle)
+    assert oracle_greedy.launches["greedy_pass"] == oracle.stats["device_passes"] > 1
+    assert card.schedule.extended.any()
+    for name in ("capacity_curve", "rho_curve", "work_done"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
+    np.testing.assert_array_equal(card.schedule.alloc, cpu.schedule.alloc)
+    np.testing.assert_array_equal(card.schedule.extended, cpu.schedule.extended)
+
+
+@pytest.mark.cuda
+def test_ops_on_cuda_launch_the_kernels(cuda_oracle):
+    knn.build()
+    rng = np.random.default_rng(3)
+    cases = torch.from_numpy(rng.normal(size=(500, 13)).astype(np.float32)).to(cuda_oracle)
+    qs = torch.from_numpy(rng.normal(size=(4, 13)).astype(np.float32)).to(cuda_oracle)
+    knn.reset_launches()
+    assert all(torch.equal(a, b) for a, b in zip(ops.knn_topk(cases, qs[0], 5),
+                                                 knn.knn_topk(cases, qs[0], 5)))
+    assert all(torch.equal(a, b) for a, b in zip(ops.knn_topk_batch(cases, qs, 5),
+                                                 knn.knn_topk_batch(cases, qs, 5)))
+    assert knn.launches == {"knn_topk": 2, "knn_topk_batch": 2}

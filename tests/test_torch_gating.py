@@ -90,7 +90,8 @@ def test_plain_forms_equal_reference(graph, seed):
         "plain": gating.dep_decrement_plain(t_fin, t_par, t_chd, N),
         "gather": gating.dep_decrement_gather_plain(
             t_fin, torch.from_numpy(_pred_rows(parents, children))),
-        "csr": gating.dep_decrement_csr(t_fin, gating.dep_graph(parents, children, N)),
+        "csr": gating.dep_decrement_csr(
+            t_fin, gating.dep_graph(parents, children, N, device="cpu")),
         "edges": gating.dep_decrement(t_fin, t_par.int(), t_chd.int(), N),
     }
     for name, got in forms.items():
@@ -113,14 +114,14 @@ def test_padding_self_loops_count_nothing(graph):
     np.testing.assert_array_equal(gating.dep_decrement_plain(
         t_fin, torch.from_numpy(pp), torch.from_numpy(pc), N).numpy(), scatter)
     np.testing.assert_array_equal(gating.dep_decrement_csr(
-        t_fin, gating.dep_graph(pp, pc, N)).numpy(), scatter)
+        t_fin, gating.dep_graph(pp, pc, N, device="cpu")).numpy(), scatter)
 
 
 @pytest.mark.parametrize("graph", GRAPHS)
 def test_batch_dim_equals_rows_one_by_one(graph):
     parents, children = _graph(5, **graph)
     fin = _fin(5, batch=6)
-    g = gating.dep_graph(parents, children, N)
+    g = gating.dep_graph(parents, children, N, device="cpu")
     t_par, t_chd = torch.from_numpy(parents), torch.from_numpy(children)
     batched = {
         "csr": gating.dep_decrement_csr(torch.from_numpy(fin), g),
@@ -140,32 +141,44 @@ def test_uint8_fin_counts_nonzero():
     fin = _fin(2)
     as_u8 = torch.from_numpy(fin.astype(np.uint8) * 3)       # nonzero = finished
     want = gating.dep_decrement_csr(torch.from_numpy(fin),
-                                    gating.dep_graph(parents, children, N))
+                                    gating.dep_graph(parents, children, N, device="cpu"))
     assert torch.equal(gating.dep_decrement_csr(
-        as_u8, gating.dep_graph(parents, children, N)), want)
+        as_u8, gating.dep_graph(parents, children, N, device="cpu")), want)
     assert torch.equal(gating.dep_decrement_plain(
         as_u8, torch.from_numpy(parents), torch.from_numpy(children), N), want)
 
 
 def test_dep_graph_layout_and_checks():
-    g = gating.dep_graph(np.array([0, 2, 1, 0]), np.array([3, 3, 1, 1]), 4)
+    g = gating.dep_graph(np.array([0, 2, 1, 0]), np.array([3, 3, 1, 1]), 4,
+                         device="cpu")
     assert g.n == 4 and g.n_edges == 4
     assert g.pred_ptr.tolist() == [0, 0, 2, 2, 4]
     assert g.pred_idx.tolist() == [1, 0, 0, 2]      # edge order within a row
     assert g.pred_ptr.dtype == g.pred_idx.dtype == torch.int32
     with pytest.raises(ValueError, match="endpoints"):
-        gating.dep_graph(np.array([0]), np.array([4]), 4)
+        gating.dep_graph(np.array([0]), np.array([4]), 4, device="cpu")
     with pytest.raises(ValueError, match="matching"):
-        gating.dep_graph(np.array([0, 1]), np.array([1]), 4)
-    empty = gating.dep_graph(np.zeros(0, np.int64), np.zeros(0, np.int64), 4)
+        gating.dep_graph(np.array([0, 1]), np.array([1]), 4, device="cpu")
+    empty = gating.dep_graph(np.zeros(0, np.int64), np.zeros(0, np.int64), 4,
+                             device="cpu")
     assert empty.pred_ptr.tolist() == [0] * 5 and empty.n_edges == 0
+
+
+def test_dep_graph_defaults_to_the_card():
+    """Like every entry point of the port, ``dep_graph`` puts the graph on
+    the card unless asked for the CPU, and raises without one."""
+    if torch.cuda.is_available():
+        assert gating.dep_graph(np.array([0]), np.array([1]), 2).pred_ptr.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gating.dep_graph(np.array([0]), np.array([1]), 2)
 
 
 def test_cpu_wrappers_launch_nothing():
     parents, children = _graph(4, n_edges=100)
     gating.reset_launches()
     gating.dep_decrement_csr(torch.from_numpy(_fin(4)),
-                             gating.dep_graph(parents, children, N))
+                             gating.dep_graph(parents, children, N, device="cpu"))
     gating.dep_decrement(torch.from_numpy(_fin(4)), torch.from_numpy(parents),
                          torch.from_numpy(children), N)
     assert gating.launches == {"dep_decrement": 0}

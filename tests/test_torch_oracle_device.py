@@ -1,0 +1,226 @@
+"""The oracle's device greedy pass (``backend="device"``) against the JAX
+package's ``backend="jax"``.
+
+On the CPU the port's device pass runs ``greedy_pass_plain``, the plain
+version of ``csrc/oracle_greedy.cu``: the host-sorted entries cast to
+int32/float32 and walked with float32 adds, as ``repro``'s jitted
+``fori_loop`` walks them.  ``solve``, ``learn_window`` and ``run`` with
+``backend="device", device="cpu"`` must equal ``repro`` with
+``backend="jax"`` bit for bit: allocation, capacity curve, rho curve,
+float32 work widened to float64, deadline extensions.  ``"numpy-ref"``
+must equal ``repro``'s ``"numpy-ref"``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.core import oracle as ref_oracle
+from repro.core.knowledge import KnowledgeBase as RefKB
+from repro.core.policy import learn_window as ref_learn_window
+from repro.core.profiles import amdahl_profile as ref_amdahl
+from repro.core.types import Job as RefJob
+from repro.experiment import Scenario as RefScenario
+from repro.experiment import run as ref_run
+from repro_torch.core import oracle
+from repro_torch.core.knowledge import KnowledgeBase
+from repro_torch.core.policy import learn_window
+from repro_torch.core.profiles import amdahl_profile
+from repro_torch.core.types import Job
+from repro_torch.experiment import Scenario, run
+from repro_torch.kernels import oracle_greedy
+
+WEEK = 24 * 7
+SMALL = dict(capacity=8, learn_weeks=1, family="alibaba", seed=101)
+MAIN = dict(region="south-australia", capacity=40, learn_weeks=3, seed=1)
+
+
+def _jobs(specs):
+    """The same jobs for both packages from (arrival, length, delay, k_max)."""
+    ref = [RefJob(job_id=i, arrival=a, length=ln, queue=0, delay=d,
+                  profile=ref_amdahl(1, km, 0.5), k_min=1)
+           for i, (a, ln, d, km) in enumerate(specs)]
+    port = [Job(job_id=i, arrival=a, length=ln, queue=0, delay=d,
+                profile=amdahl_profile(1, km, 0.5), k_min=1)
+            for i, (a, ln, d, km) in enumerate(specs)]
+    return ref, port
+
+
+def _assert_same(ref, res):
+    for name in ("capacity_curve", "rho_curve", "work_done"):
+        a, b = getattr(ref, name), getattr(res, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    np.testing.assert_array_equal(ref.schedule.alloc, res.schedule.alloc)
+    assert ref.schedule.alloc.dtype == res.schedule.alloc.dtype
+    np.testing.assert_array_equal(ref.schedule.extended, res.schedule.extended)
+    assert ref.schedule.feasible == res.schedule.feasible
+    assert [j.delay for j in ref.schedule.jobs] == [j.delay for j in res.schedule.jobs]
+
+
+def _both(ref_jobs, jobs, ci, capacity, horizon=None, backend=("jax", "device")):
+    kw = {} if backend[1] != "device" else dict(device="cpu")
+    ref = ref_oracle.solve(ref_jobs, ci, capacity, horizon=horizon,
+                           backend=backend[0])
+    res = oracle.solve(jobs, ci, capacity, horizon=horizon, backend=backend[1], **kw)
+    _assert_same(ref, res)
+    return res
+
+
+@given(seed=st.integers(0, 10_000))
+@settings(max_examples=15, deadline=None)
+def test_device_pass_matches_jax_random(seed):
+    """``tests/test_oracle.py::test_jax_matches_numpy``'s cases."""
+    rng = np.random.default_rng(seed)
+    ci = rng.uniform(50, 500, 16)
+    specs = [(int(rng.integers(0, 8)), float(rng.uniform(1, 3)),
+              int(rng.integers(0, 6)), 3) for _ in range(4)]
+    _both(*_jobs(specs), ci, 5)
+
+
+def test_device_pass_extends_deadlines_as_jax():
+    """``test_infeasible_extends_deadlines`` made larger: 6 jobs of length
+    10 on capacity 1 with CI noise, so the retries extend and reorder."""
+    rng = np.random.default_rng(5)
+    ci = rng.uniform(80, 120, 90)
+    ref_jobs, jobs = _jobs([(i, 10.0, 0, 1) for i in range(6)])
+    res = _both(ref_jobs, jobs, ci, 1)
+    assert res.schedule.extended.sum() > 0 and res.schedule.feasible
+
+
+def test_device_pass_empty_job_list():
+    res = _both([], [], np.full(10, 100.0), 4)
+    assert res.schedule.alloc.shape == (0, 10)
+    np.testing.assert_array_equal(res.rho_curve, np.ones(10))
+
+
+def test_device_pass_no_entries():
+    """Jobs whose window lies past the horizon give no entries: zeros, as
+    the reference returns for an empty entry list, and no device pass."""
+    ref_jobs, jobs = _jobs([(12, 2.0, 3, 2), (15, 1.0, 0, 1)])
+    oracle.reset_stats()
+    res = _both(ref_jobs, jobs, np.full(12, 50.0), 3, horizon=12)
+    assert res.work_done.tolist() == [0.0, 0.0]
+    assert oracle.stats["device_passes"] == 0
+
+
+def _window(mat, s0=0, horizon=WEEK):
+    return [dataclasses.replace(j, arrival=j.arrival - s0)
+            for j in mat.hist if s0 <= j.arrival < s0 + horizon]
+
+
+@pytest.mark.parametrize("capacity", [40, 3])
+def test_device_pass_main_scenario_window(capacity):
+    """The main scenario's first learning window (434 jobs, 205,872
+    entries), and overloaded at capacity 3, where extensions retry."""
+    ref_mat, mat = RefScenario(**MAIN).materialize(), Scenario(**MAIN).materialize()
+    if capacity == 3:      # the overloaded case on a day's arrivals
+        ref_jobs = [j for j in _window(ref_mat) if j.arrival < 24]
+        jobs = [j for j in _window(mat) if j.arrival < 24]
+    else:
+        ref_jobs, jobs = _window(ref_mat), _window(mat)
+    oracle.reset_stats()
+    res = _both(ref_jobs, jobs, mat.ci.trace[:WEEK], capacity, horizon=WEEK)
+    assert oracle.stats["device_passes"] >= 1
+    if capacity == 40:
+        assert len(jobs) == 434 and oracle.stats["entries"] == 205_872
+    else:
+        assert res.schedule.extended.any()
+
+
+@pytest.mark.parametrize("capacity,horizon", [(8, WEEK), (3, WEEK), (8, 2 * WEEK)])
+def test_numpy_ref_matches_reference(capacity, horizon):
+    ref_mat, mat = RefScenario(**SMALL, eval_weeks=2).materialize(), \
+        Scenario(**SMALL, eval_weeks=2).materialize()
+    ref_jobs = [j for j in ref_mat.jobs if j.arrival < horizon]
+    jobs = [j for j in mat.jobs if j.arrival < horizon]
+    ref_jobs, jobs = ref_jobs[::3], jobs[::3]      # the reference pass is slow
+    _both(ref_jobs, jobs, mat.ci.trace[:horizon], capacity, horizon=horizon,
+          backend=("numpy-ref", "numpy-ref"))
+
+
+def test_learn_window_device_matches_jax():
+    ref_mat, mat = RefScenario(**SMALL).materialize(), Scenario(**SMALL).materialize()
+    ref_kb, kb = RefKB(backend="numpy"), KnowledgeBase(device="cpu")
+    ro = ref_learn_window(ref_kb, ref_mat.hist, ref_mat.ci, 0, WEEK,
+                          ref_mat.cluster, backend="jax")
+    po = learn_window(kb, mat.hist, mat.ci, 0, WEEK, mat.cluster, backend="device")
+    _assert_same(ro.results[0], po.results[0])
+    for (rs, ry), (s, y) in zip(ref_kb._windows, kb._windows, strict=True):
+        np.testing.assert_array_equal(rs, s)
+        np.testing.assert_array_equal(ry, y)
+
+
+RUN_POLICIES = ("carbon-agnostic", "carbonflex", "oracle")
+
+
+@pytest.fixture(scope="module")
+def runs():
+    sc = dict(SMALL, eval_weeks=2)
+    ref = ref_run(RefScenario(**sc), RUN_POLICIES, backend="jax")
+    oracle.reset_stats()
+    oracle_greedy.reset_launches()
+    port = run(Scenario(**sc), RUN_POLICIES, backend="device", device="cpu")
+    return ref, port, dict(oracle.stats), dict(oracle_greedy.launches)
+
+
+@pytest.mark.parametrize("name", RUN_POLICIES)
+def test_run_device_backend_matches_jax(runs, name):
+    """Learning phase, weekly re-learning and the oracle policy through the
+    device pass: every weekly result and slot equal to ``repro``'s jax
+    backend."""
+    ref, port, stats, launches = runs
+    assert port.kb_size == ref.kb_size > 0
+    assert port.savings(name) == ref.savings(name)
+    for a, b in zip(ref.weekly[name], port.weekly[name], strict=True):
+        assert a.carbon_g == b.carbon_g and a.energy_kwh == b.energy_kwh
+        np.testing.assert_array_equal(a.violations, b.violations)
+        np.testing.assert_array_equal(a.wait_slots, b.wait_slots)
+        np.testing.assert_array_equal(a.completion, b.completion)
+        assert [(s.provisioned, s.used) for s in a.slots] == \
+            [(s.provisioned, s.used) for s in b.slots]
+    # 1 learning window + 1 re-learning + 2 oracle weeks, no launch on the CPU
+    assert stats["device_passes"] >= 4
+    assert launches == {"greedy_pass": 0}
+
+
+def test_backend_checks():
+    ci = np.full(8, 100.0)
+    with pytest.raises(ValueError, match="unknown oracle backend"):
+        oracle.solve([], ci, 4, backend="jax")
+    with pytest.raises(ValueError, match="unknown oracle backend"):
+        run(Scenario(**SMALL), ("oracle",), backend="gpu", device="cpu")
+    if torch.cuda.is_available():
+        assert oracle.solve([], ci, 4, backend="device").work_done.shape == (0,)
+    else:        # the device pass defaults to the card, like every entry point
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            oracle.solve([], ci, 4, backend="device")
+
+
+def test_plain_pass_stops_once_every_job_is_done():
+    """Short jobs over a long horizon all finish: the plain pass stops
+    early, reports the entries it walked, and still equals the JAX pass,
+    which walks every entry."""
+    rng = np.random.default_rng(2)
+    ci = rng.uniform(50, 500, 48)
+    ref_jobs, jobs = _jobs([(int(rng.integers(0, 10)), float(rng.uniform(1, 3)),
+                             20, 3) for _ in range(6)])
+    j, t, k, g, _ = oracle._build_entries(jobs, ci, 48)
+    args = [torch.from_numpy(x.astype(np.int32)) for x in (j, t, k)] + [
+        torch.from_numpy(g.astype(np.float32)),
+        torch.ones(6, dtype=torch.int32),
+        torch.tensor([x.length for x in jobs], dtype=torch.float32)]
+    alloc, used, work, walked = oracle_greedy.greedy_pass(*args, 5, 48)
+    assert 0 < walked.item() < len(j)
+    ref_alloc, ref_used, ref_work = ref_oracle._greedy_jax(
+        *(a.numpy() for a in args), 5, 6, 48)
+    np.testing.assert_array_equal(alloc.numpy(), np.asarray(ref_alloc))
+    np.testing.assert_array_equal(used.numpy(), np.asarray(ref_used))
+    np.testing.assert_array_equal(work.numpy(), np.asarray(ref_work))
+    bad = list(args)
+    bad[1] = bad[1].clone()
+    bad[1][0] = 48
+    with pytest.raises(IndexError, match="outside"):
+        oracle_greedy.greedy_pass(*bad, 5, 48)
