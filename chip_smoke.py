@@ -9,7 +9,10 @@ Phases, any failure exits non-zero:
    time each build;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with times from CUDA events beside the
-   bound, the plain version and one library call;
+   bound, the plain version and one library call; ``gqa_flash`` on each
+   shape's route (the Hopper kernel for bf16 at D 64 and 128), its launches
+   counted by route, and at the prefill's shape the Hopper kernel timed in
+   turns with the retained mma.sync kernel (at most half its time);
 3. the main path: ``repro_torch.experiment.run`` over the quickstart
    scenario with six evaluation weeks (the rolling knowledge base fills to
    its 8 windows = 1344 cases), knowledge base on the card, kernel launches
@@ -22,13 +25,14 @@ Phases, any failure exits non-zero:
    ``torch.profiler`` trace for the card's busy share;
 4. the serving path: llama3-8b at full width and depth (random weights
    from a seeded generator) prefills 4 prompts of 2048 tokens, attention
-   through the flash kernel (32 launches), then decodes 64 greedy tokens
-   (no flash launch); layer 0's real q/k/v through the kernel against the
-   plain version; each layer's attention through the kernel against the
-   chunked attention on the chunked path's own q/k/v, and the logits so fed
-   (the chained prefill logits of the two, and of two chunk sizes of the
-   chunked attention, as information); then a warm timed run and a
-   traced one;
+   through the Hopper flash kernel (32 launches, all on its route), then
+   decodes 64 greedy tokens (no flash launch); layer 0's real q/k/v
+   through the kernel against the plain version; each layer's attention
+   through the kernel against the chunked attention on the chunked path's
+   own q/k/v, and the logits so fed (the chained prefill logits of the two,
+   and of two chunk sizes of the chunked attention, as information); then
+   a warm timed run, the warm prefill in turns on the Hopper kernel and on
+   the mma.sync kernel, and a traced run;
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
    slot loop on the card and every slot's in-degree decrement through the
@@ -56,6 +60,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -465,11 +470,13 @@ def rel_l2(a, b) -> float:
     return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
 
-def flash_check(q, k, v, offset, what):
-    """The kernel against its plain version on the same inputs: elementwise
-    within FLASH_TOL and, as a whole, within FLASH_REL relative L2.
-    Returns (max abs difference, relative L2)."""
-    out = fa.gqa_flash(q, k, v, causal_offset=offset)
+def flash_check(q, k, v, offset, what, kernel=None):
+    """The kernel (``gqa_flash``'s route, or the one named) against its
+    plain version on the same inputs: elementwise within FLASH_TOL and, as a
+    whole, within FLASH_REL relative L2.  Returns (max abs difference,
+    relative L2)."""
+    out = fa.gqa_flash(q, k, v, causal_offset=offset) if kernel is None \
+        else fa.launch(q, k, v, offset, kernel)
     torch.cuda.synchronize()
     want = fa.gqa_flash_plain(q, k, v, causal_offset=offset)
     tol = FLASH_TOL[q.dtype]
@@ -485,29 +492,81 @@ def flash_check(q, k, v, offset, what):
     return err, rel
 
 
-def flash_kernel_phase():
+def ptxas_report(report, kernel):
+    """Registers, static shared memory and spill bytes that ptxas gave each
+    instantiation of ``kernel``, and its performance remarks."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                out.setdefault(name, dict(remarks=[]))
+            continue
+        m = re.search(r"\((C75\d\d)\).*'(\S+)'", line)
+        if m and kernel in m.group(2):
+            out.setdefault(m.group(2), dict(remarks=[]))["remarks"].append(m.group(1))
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             static_smem=int(s.group(1)) if s else 0)
+    return out
+
+
+def flash_kernel_phase(report):
     """Phase 2 for ``gqa_flash``: every check shape in fp32 and bf16 against
-    the plain version; times at the prefill's shape in bf16."""
+    the plain version, each on its route's kernel, and the prefill's shape
+    also on the retained mma.sync kernel; then, at the prefill's shape in
+    bf16 and in turns, the Hopper kernel, the mma.sync kernel, the plain
+    version and SDPA, by CUDA events and by profiler device time."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = np.random.default_rng(1)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fa.reset_launches()
+    expect = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
-            e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype}")
-            err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
-            log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
-                f"D={d} offset={off} {str(dtype)[6:]}: agrees with the plain "
-                f"version (max abs diff {e}, relative L2 {r}, limit "
-                f"{FLASH_REL[dtype]})")
+            kernels = [None] + (["mma_sync"] if name == "prefill" and dtype == torch.bfloat16
+                                else [])
+            for kern in kernels:
+                e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype} {kern}", kern)
+                route = kern or ("fp32" if dtype == torch.float32
+                                 else "wgmma" if d in (64, 128) else "mma_sync")
+                expect["gqa_flash"] += 1
+                expect[route] += 1
+                err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
+                log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+                    f"D={d} offset={off} {str(dtype)[6:]} on {route}: agrees with the "
+                    f"plain version (max abs diff {e}, relative L2 {r}, limit "
+                    f"{FLASH_REL[dtype]})")
+    if fa.launches != expect:
+        raise AssertionError(f"flash launches by route {fa.launches}, expected {expect}")
+
+    ptx = ptxas_report(report, "flash_wgmma_kernel")
+    for name, rep in ptx.items():
+        d = 128 if "ILi128E" in name else 64
+        log(f"flash_wgmma_kernel<{d}>: ptxas {rep}, dynamic shared memory "
+            f"{fa.wgmma_smem_bytes(d)} bytes, {fa.wgmma_stages(d)} stages")
+    if not ptx:
+        log("flash_wgmma_kernel: no ptxas report (the library was built before this run)")
 
     _, b, sq, sk, hq, hkv, d, off = FLASH_SHAPES[0]
     q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def kernel():
-        return fa.gqa_flash(q, k, v)
+        return fa.launch(q, k, v, off, "wgmma")
+
+    def previous():
+        return fa.launch(q, k, v, off, "mma_sync")
 
     def plain():
         return fa.gqa_flash_plain(q, k, v)
@@ -517,27 +576,39 @@ def flash_kernel_phase():
                                               enable_gqa=True)
 
     lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
-    t = dict(ms=time_ms(kernel, 50, warmup=5),
-             plain_ms=time_ms(plain, 10, warmup=3),
-             library_ms=time_ms(library, 50, warmup=5))
-    t.update(device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 10),
-             library_device_ms=device_ms(library, 20))
+    # In turns, there and back: Hopper, mma.sync, plain, SDPA, SDPA, ...
+    runs = dict(ms=(kernel, 50, 5), previous_ms=(previous, 50, 5),
+                plain_ms=(plain, 10, 3), library_ms=(library, 50, 5))
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        fn, iters, warmup = runs[key]
+        turns[key].append(time_ms(fn, iters, warmup=warmup))
+    t = {key: float(np.mean(v)) for key, v in turns.items()}
+    t.update(device_ms=device_ms(kernel, 20), previous_device_ms=device_ms(previous, 20),
+             plain_device_ms=device_ms(plain, 10), library_device_ms=device_ms(library, 20))
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
     bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    log(f"gqa_flash prefill shape bf16: {t['ms']:.6f} ms/call (plain "
-        f"{t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} "
-        f"by {by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); device time "
-        f"{t['device_ms']} ms/call (plain {t['plain_device_ms']}, SDPA "
-        f"{t['library_device_ms']}); {flops / t['ms'] / 1e9:.3f} TFLOP/s; SDPA "
-        f"differs from the kernel by up to {lib_diff}")
-    return dict(name="gqa_flash", route="cuda",
+    log(f"gqa_flash prefill shape bf16, in turns {turns}")
+    log(f"gqa_flash prefill shape bf16: Hopper kernel {t['ms']:.6f} ms/call "
+        f"({flops / t['ms'] / 1e9:.3f} TFLOP/s, {bound / t['ms']:.4f} of the bound), "
+        f"mma.sync kernel {t['previous_ms']:.6f} ({t['ms'] / t['previous_ms']:.4f} of it), "
+        f"plain {t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} by "
+        f"{by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; device time "
+        f"{t['device_ms']} ms/call (mma.sync {t['previous_device_ms']}, plain "
+        f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); SDPA differs from the "
+        f"kernel by up to {lib_diff}")
+    if not t["ms"] <= 0.5 * t["previous_ms"]:
+        raise AssertionError(f"the Hopper kernel takes {t['ms']} ms, more than half "
+                             f"the mma.sync kernel's {t['previous_ms']} ms")
+    return dict(name="gqa_flash", route="cuda", kernel="flash_wgmma_kernel",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
                 max_abs_err=err[torch.bfloat16], max_abs_err_f32=err[torch.float32],
                 rel_l2=rels[torch.bfloat16], rel_l2_f32=rels[torch.float32],
-                bound_ms=bound, bound_by=by,
+                bound_ms=bound, bound_by=by, tflops=flops / t["ms"] / 1e9,
+                bound_share=bound / t["ms"],
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, **t)
+                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, **t)
 
 
 def teacher_forced(params, prompts, cfg, chunked):
@@ -607,10 +678,11 @@ def serve_phase():
         f"launches {prefill_n} in prefill + {decode_n} in decode, peak "
         f"{peak / 2**30:.3f} GiB")
     if (prefill_n, decode_n) != (cfg.num_layers, 0) \
-            or launches["gqa_flash"] != cfg.num_layers:
+            or launches["gqa_flash"] != cfg.num_layers \
+            or launches["wgmma"] != cfg.num_layers:
         raise AssertionError(f"gqa_flash launched {prefill_n} times in prefill and "
                              f"{decode_n} in decode ({launches}); expected "
-                             f"{cfg.num_layers} and 0")
+                             f"{cfg.num_layers} and 0, all on the Hopper kernel")
     cache, toks = out["cache"], out["tokens"]
     max_seq = SERVE_PROMPT + SERVE_TOKENS
     if cache["length"] != max_seq or cache["k"].shape != (
@@ -680,6 +752,36 @@ def serve_phase():
         f"{warm_run['decode_s']:.6f} s ({warm_run['tokens_per_s']:.3f} tok/s); "
         f"same tokens as the first run: {same}")
     del warm
+
+    # What the Hopper kernel saves end to end: the warm prefill with its
+    # attention on its route and on the retained mma.sync kernel, in turns
+    # (there and back, twice).
+    def mma_sync(q, k, v, causal_offset=0):
+        return fa.launch(q, k, v, causal_offset, "mma_sync")
+
+    prefill = make_prefill(cfg, max_seq)
+    paired = {"wgmma": [], "mma_sync": []}
+    before = dict(fa.launches)
+    for name in ("wgmma", "mma_sync", "mma_sync", "wgmma") * 2:
+        fa.gqa_flash = kernel if name == "wgmma" else mma_sync
+        try:
+            t = time.perf_counter()
+            logits_p, cache_p = prefill(params, prompts)
+            torch.cuda.synchronize()
+            paired[name].append(time.perf_counter() - t)
+        finally:
+            fa.gqa_flash = kernel
+        del logits_p, cache_p
+    moved = {r: fa.launches[r] - before[r] for r in ("wgmma", "mma_sync")}
+    if moved != {"wgmma": 4 * cfg.num_layers, "mma_sync": 4 * cfg.num_layers}:
+        raise AssertionError(f"paired prefills launched {moved}, expected "
+                             f"{4 * cfg.num_layers} on each kernel")
+    paired_prefill = {f"{r}_s": float(np.mean(v)) for r, v in paired.items()}
+    paired_prefill.update(saved_s=paired_prefill["mma_sync_s"] - paired_prefill["wgmma_s"],
+                          turns=paired)
+    log(f"serve, warm prefill in turns: Hopper kernel {paired_prefill['wgmma_s']:.6f} s, "
+        f"mma.sync kernel {paired_prefill['mma_sync_s']:.6f} s, saved "
+        f"{paired_prefill['saved_s']:.6f} s ({paired})")
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1283,8 +1385,8 @@ def greedy_kernel_phase(path):
 
 
 def build_kernels():
-    """Build every kernel source at once (one nvcc each) and print each
-    build's time and the compiler's report."""
+    """Build every kernel source at once (one nvcc each), print each
+    build's time and the compiler's report, and return the reports."""
     def timed(mod):
         t = time.perf_counter()
         report = mod.build()
@@ -1295,6 +1397,7 @@ def build_kernels():
                ("src/repro_torch/csrc/gating.cu", gating),
                ("src/repro_torch/csrc/score.cu", score),
                ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy))
+    reports = {}
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
         for src, fut in futures:
@@ -1302,21 +1405,23 @@ def build_kernels():
             log(f"built {src} in {seconds:.3f} s")
             if report:
                 log(report.strip())
+            reports[src] = report
+    return reports
 
 
 def main():
     card = card_line()
     log(f"card: {card}")
-    build_kernels()
+    reports = build_kernels()
 
     kernels = kernel_phase()
-    kernels.append(flash_kernel_phase())
+    kernels.append(flash_kernel_phase(reports["src/repro_torch/csrc/flash_attention.cu"]))
     kernels.append(gating_kernel_phase())
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
     kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay")
     serve = serve_phase()
-    kernels[2].update(launches=serve["launches"]["gqa_flash"], path="serve-prefill")
+    kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()

@@ -2,49 +2,76 @@
 // softmax (flash attention, forward only), the attention of the LM prefill.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
-//   gqa_flash_fwd  <- _flash_kernel  (pallas_call at flash_attention.py:94,
-//                     called via gqa_flash, from models/common.py attention
-//                     when attention_backend="pallas")
+//   gqa_flash_fwd, gqa_flash_wgmma  <- _flash_kernel  (pallas_call at
+//       flash_attention.py:94, called via gqa_flash, from models/common.py
+//       attention when attention_backend="pallas")
 //
 // Semantics, as the TPU kernel and kernels/ref.py::flash_attention_ref:
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), query head h reads KV head
-// h / (Hq / Hkv); scores q.k / sqrt(D) in fp32, masked to -1e30 unless
+// h / (Hq / Hkv); scores q.k / sqrt(D) in fp32, masked unless
 // causal_offset + q_row >= k_row (and k_row < Sk); softmax over the keys;
 // out = acc / max(l, 1e-30) in the input dtype.
 //
-// Design.  The TPU kernel transposed q/k/v to (B, H, S, D), padded S to its
-// 128-row blocks and carried (m, l, acc) in scratch across a sequential KV
-// grid axis.  Here one block owns 64 query rows of one head (grid
-// (ceil(Sq/64), Hq, B)) and loops over 64-key tiles itself, with (m, l,
-// acc) in registers; q/k/v are read in the model's (B, S, H, D) layout
-// through their strides and the ragged tails are masked, not padded.  The
-// loop stops after the last tile any row of the block can see: the tiles
-// it skips would contribute exactly 0.
+// The TPU kernel transposed q/k/v to (B, H, S, D), padded S to its 128-row
+// blocks and carried (m, l, acc) in scratch across a sequential KV grid
+// axis.  Here each block owns a tile of query rows of one head and loops
+// over the key tiles itself, (m, l, acc) in registers, reading q/k/v in the
+// model's (B, S, H, D) layout through their strides.  The loop stops after
+// the last tile any row of the block can see: the tiles it skips would
+// contribute exactly 0.  Three kernels, routed by dtype and D alone (the
+// wrapper, kernels/flash_attention.py, picks one):
 //
-//   bf16: 4 warps, each owning 16 query rows, on the tensor cores with
-//         mma.sync m16n8k16 (bf16 in, fp32 accumulate).  Q fragments stay
-//         in registers.  K and V tiles stream into two shared-memory
-//         buffers with cp.async, the next tile loading while the block
-//         computes on the current one; ldmatrix reads K's fragments and,
-//         transposing, V's (rows padded by 8 elements, so each 8x8 read
-//         hits 32 distinct banks).  P is rounded to bf16 for the P.V
-//         product, as flash attention does.
-//   fp32: 16x16 threads, each owning a 4x4 block of scores and 4 rows x
-//         D/16 columns of the output, fp32 FMA on the CUDA cores (no TF32,
-//         so the result stays within 2e-5 of the fp32 reference).
+//   flash_wgmma_kernel (bf16, D in {64, 128}; every model config): the
+//     Hopper design.  One block owns 128 query rows of one head and runs
+//     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
+//     (setmaxnreg 40) and one thread issues TMA loads, 4-D tensor maps over
+//     (B, S, H, D) with 128-byte swizzle and boxes of 128 rows x 64 bf16
+//     (D = 128 takes two), which zero-fill rows past Sq and Sk: Q once, then
+//     K and V tiles of 128 keys into a ring of shared-memory stages (2 at
+//     D = 128, 3 at D = 64), each with full (K, V) and empty mbarriers.
+//     Warpgroups 1 and 2 are the consumers (setmaxnreg 232), 64 query rows
+//     each: S = Q K^T with wgmma m64n128k16 (Q and K from shared memory,
+//     both K-major), the online softmax in registers with scale * log2(e)
+//     folded into one FMA before ex2.approx.ftz, masking only tiles that
+//     cross the diagonal or the end of K, P rounded to bf16 in registers
+//     (the accumulator layout of a 64 x 16 slice of S is wgmma's register-A
+//     layout), O += P V with wgmma m64nDk16 (V from shared memory, MN-major
+//     through the transpose bit), then the stage is released.  The two
+//     consumers take turns to issue their S products (ping-pong on named
+//     barriers), so that one's softmax runs while the other's products hold
+//     the tensor cores.  Blocks take the heaviest query tiles first (grid
+//     (Hq, B, Sq tiles), the tile index reversed), so the light causal tiles
+//     fill the tail.
+//   flash_bf16_kernel (bf16, D = 32, which no model config uses): 4 warps,
+//     each owning 16 of 64 query rows, mma.sync m16n8k16; K and V tiles of
+//     64 keys stream into two shared-memory buffers with cp.async, the next
+//     tile loading while the block computes on the current one; ldmatrix
+//     reads K's fragments and, transposing, V's.  It takes D in {64, 128}
+//     as well, for comparison with the Hopper kernel.
+//   flash_f32_kernel (fp32): 16x16 threads, each owning a 4x4 block of
+//     scores and 4 rows x D/16 columns of the output, fp32 FMA on the CUDA
+//     cores (no TF32, so the result stays within 2e-5 of the fp32
+//     reference).
 //
 // What bounds it on an H100: at the prefill shape of llama3-8b (B=4,
 // S=2048, Hq=32, Hkv=8, D=128) one call does 4*B*Hq*D*(S(S+1)/2) = 137 GFLOP
 // and must move 168 MB, so it is bound by the tensor cores (0.139 ms at
-// 989 TFLOP/s) far above the bytes (0.050 ms at 3.35 TB/s).  mma.sync
-// reaches only part of that peak, and ptxas gives the D=128 kernel 171
-// registers, so 2 blocks (8 warps) share an SM; wgmma fed by TMA is the
-// later step.
+// 989 TFLOP/s) far above the bytes (0.050 ms at 3.35 TB/s).  Only wgmma
+// reaches the tensor cores' full rate; mma.sync reached 14 % of it.  In the
+// Hopper kernel the K/V tiles still cross from L2 once per 128 query rows
+// (1.1 GB per prefill call), and the softmax is not overlapped with the
+// same consumer's products: each consumer runs S, softmax and P V in
+// series, and only the other consumer's products fill the gap.  Issuing
+// tile j's S product before tile j-1's P V product (FlashAttention-3's
+// intra-warpgroup overlap) keeps S, O and P live at once, and ptxas then
+// spills P and serialises every wgmma, which made it slower.
 //
-// expf, not __expf, everywhere.  Plain C interface (loaded with ctypes);
-// gqa_flash_fwd returns the cudaError_t of its launch, 0 on success.
+// Plain C interface (loaded with ctypes); the entry points return the
+// cudaError_t of the launch, 0 on success (gqa_flash_wgmma: a negative
+// value is the CUresult of encoding a tensor map, negated).
 // Nothing here allocates or synchronises.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,12 +87,13 @@ struct Strides {                  // element strides of the B, S, H dims
   long long b, s, h;
 };
 
-// KV tiles the block starting at query row q0 needs: up to the last key
-// its last valid row can see.
+// Tiles of KEYS keys that the block of ROWS query rows starting at row q0
+// needs: up to the last key its last valid row can see.
+template <int ROWS = BQ, int KEYS = BK>
 __device__ __forceinline__ int kv_tiles(int q0, int sq, int sk, int offset) {
-  const long long last_row = min(q0 + BQ, sq) - 1;
+  const long long last_row = min(q0 + ROWS, sq) - 1;
   const long long visible = min(static_cast<long long>(sk), offset + last_row + 1);
-  return static_cast<int>((visible + BK - 1) / BK);
+  return static_cast<int>((visible + KEYS - 1) / KEYS);
 }
 
 // --- bf16: mma.sync on the tensor cores --------------------------------------
@@ -472,6 +500,450 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
+// --- bf16 on Hopper: wgmma fed by TMA, one producer and two consumers --------
+
+namespace hopper {
+
+constexpr int ROWS = 128;          // query rows per block, 64 per consumer warpgroup
+constexpr int KEYS = 128;          // keys per tile
+constexpr int BOX = 64;            // bf16 per 128-byte swizzled row: a box's inner extent
+constexpr int THREADS = 384;       // the producer warpgroup, then two consumers
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
+constexpr uint32_t ROW_BYTES = 128;
+constexpr uint32_t BOX_BYTES = 128 * ROW_BYTES;   // a box of 128 rows (ROWS == KEYS)
+constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;   // 8 rows, one swizzle atom: wgmma's SBO
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows): Q, the K ring, the V ring, then the mbarriers q_full,
+// k_full[STAGES], v_full[STAGES], empty[STAGES].
+template <int D>
+struct Layout {
+  static constexpr int BOXES = D / BOX;                // boxes per tile
+  static constexpr int STAGES = D == 128 ? 2 : 3;      // ring depth
+  static constexpr uint32_t TILE = BOXES * BOX_BYTES;  // a Q, K or V tile
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = Q + TILE;
+  static constexpr uint32_t V = K + STAGES * TILE;
+  static constexpr uint32_t BARS = V + STAGES * TILE;
+  static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive, and add `bytes` to what must land before the phase completes.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `bar` with this parity has completed.  Waiting
+// 2^34 cycles (seconds) means a deadlock: trap, so that the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_test(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_test(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// One box of a 4-D tensor map over (B, S, H, D), coordinates innermost
+// first, into shared memory; its bytes count against `bar`'s transaction.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                         int d0, int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(d0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// wgmma's descriptor of a 128-byte-swizzled matrix in shared memory: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// Named barriers 1 and 2 over the 256 consumer threads (0 is __syncthreads):
+// barrier 1 + c is consumer c's turn to issue its S product.
+__device__ __forceinline__ void bar_sync_consumers(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive_consumers(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {    // at most N groups still running
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an in-flight wgmma reads or writes: the empty asm keeps the
+// compiler from moving their other uses, or reusing them, across the
+// instructions that issue and retire it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128, fp32) = a (64 x 16) * b (16 x 128): the first step of a
+// product, which reads nothing of d (so d is dead before it).
+__device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 128, fp32) += a (64 x 16) * b (16 x 128), a and b in shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 128, shared
+// memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 64, shared
+// memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// S = Q K^T (issued, not waited for): D/16 steps of 16 along D, each 32
+// bytes into a swizzled row of Q's and K's boxes (the hardware applies the
+// swizzle); 8-row groups 1024 bytes apart (the SBO).
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k) {
+  wgmma_ss_n128_first(s, sw128_desc(q, 16, GROUP_BYTES), sw128_desc(k, 16, GROUP_BYTES));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss_n128(s, sw128_desc(q + off, 16, GROUP_BYTES), sw128_desc(k + off, 16, GROUP_BYTES));
+  }
+  wgmma_commit();
+}
+
+// O += P V (issued, not waited for): 8 steps of 16 keys, each 16 rows (2048
+// bytes) into V's boxes; N = D spans D/64 boxes, BOX_BYTES apart (the LBO).
+template <int D>
+__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[32], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    const uint64_t vd = sw128_desc(v + kk * 16 * ROW_BYTES, BOX_BYTES, GROUP_BYTES);
+    if constexpr (D == 128)
+      wgmma_rs_n128(acc, p + 4 * kk, vd);
+    else
+      wgmma_rs_n64(acc, p + 4 * kk, vd);
+  }
+  wgmma_commit();
+}
+
+// 2^x in one MUFU instruction, results below 2^-126 flushed to 0 (exp2f
+// adds a range check and two scalings for them; beside the row max's 1 they
+// add nothing).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Mask S (only tiles that cross the diagonal or the end of K), then the
+// online softmax in the log2 domain: s becomes 2^(s * scale_log2 - m *
+// scale_log2) with m the new row max, l the per-thread partial row sums
+// (summed at the end), corr what O must be scaled by.
+__device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                        float (&corr)[2], int k0, int sk, long long qpos,
+                                        long long first, int t, float scale_log2) {
+  if (!(k0 + KEYS <= sk && k0 + KEYS - 1 <= first)) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (!(key < sk && qpos + 8 * ((i >> 1) & 1) >= key)) s[i] = NEG;
+    }
+  }
+  float mx[2] = {m[0], m[1]}, ms[2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = exp2_ftz((m[r] - mx[r]) * scale_log2);
+    m[r] = mx[r];
+    ms[r] = mx[r] * scale_log2;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = exp2_ftz(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// Accumulator layout of wgmma m64nNk16 (warp w of the warpgroup, lane =
+// 4g + t): element i is row 16w + g + 8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2t + (i & 1).  Register-A layout of a 64 x 16 bf16 slice:
+// four pairs, (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8), which are
+// elements 8kk + 0..7 of the accumulator of S for key slice kk.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                   int sq, int sk, int hq, int group, int offset, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char hopper_smem[];
+  const uint32_t base = (smem_addr(hopper_smem) + 1023) & ~1023u;
+  const uint32_t bars = base + L::BARS;
+  const uint32_t q_full = bars;
+  auto k_full = [bars](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [bars](int s) { return bars + 8 * (1 + S + s); };
+  auto empty = [bars](int s) { return bars + 8 * (1 + 2 * S + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // heaviest query tiles first
+  const int n_tiles = kv_tiles<ROWS, KEYS>(q0, sq, sk, offset);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2 * 128);    // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps the ring full.  TMA counts the whole box,
+    // rows past Sq or Sk included (they land as zeros).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      const int hk = h / group;
+      mbar_expect(q_full, L::TILE);
+      for (int x = 0; x < L::BOXES; ++x)
+        tma_load(base + L::Q + x * BOX_BYTES, qmap, q_full, x * BOX, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        mbar_wait(empty(s), ((j / S) & 1) ^ 1);    // round 0 finds every stage free
+        mbar_expect(k_full(s), L::TILE);
+        for (int x = 0; x < L::BOXES; ++x)
+          tma_load(base + L::K + s * L::TILE + x * BOX_BYTES, kmap, k_full(s), x * BOX, hk,
+                   j * KEYS, b);
+        mbar_expect(v_full(s), L::TILE);
+        for (int x = 0; x < L::BOXES; ++x)
+          tma_load(base + L::V + s * L::TILE + x * BOX_BYTES, vmap, v_full(s), x * BOX, hk,
+                   j * KEYS, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;             // which 64 rows of the block
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row = q0 + 64 * c + 16 * warp + g;     // this thread's rows: row, row + 8
+    const long long qpos = static_cast<long long>(offset) + row;
+    const long long first = static_cast<long long>(offset) + q0 + 64 * c;
+    const uint32_t qa = base + L::Q + c * 64 * ROW_BYTES;
+
+    float s[64];          // S for 128 keys, then P in fp32
+    float acc[D / 2];     // O
+    uint32_t p[32];       // P in bf16 pairs: the A fragments of the 8 key slices
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+    // The two consumers take turns to issue their S products (ping-pong), so
+    // that one's softmax runs while the other's products hold the tensor
+    // cores.  Each has n_tiles turns; consumer 0 goes first.
+    float corr[2];
+    mbar_wait(q_full, 0);
+    if (c == 1) bar_arrive_consumers(1);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S;
+      const uint32_t parity = (j / S) & 1;
+      mbar_wait(k_full(st), parity);
+      bar_sync_consumers(1 + c);
+      wgmma_fence();
+      qk<D>(s, qa, base + L::K + st * L::TILE);
+      if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
+      wgmma_wait<0>();
+      pin(s);
+      softmax(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      mbar_wait(v_full(st), parity);
+      pin(acc);
+      pin(p);
+      wgmma_fence();
+      pv<D>(acc, p, base + L::V + st * L::TILE);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+      mbar_arrive(empty(st));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int orow = row + 8 * r;
+      if (orow < sq) {
+        const float inv = 1.f / fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda that the runtime has loaded, so
+// that the library needs no link to it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <int D>
+cudaError_t launch(const CUtensorMap (&maps)[3], void* o, int sq, int sk, int hq, int hkv,
+                   int offset, dim3 grid, size_t smem, cudaStream_t stream) {
+  if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
+  // setmaxnreg only moves registers between the warpgroups: the launch
+  // must hold what the consumers ask for, or their setmaxnreg would wait.
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D>);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 256)
+    return cudaErrorLaunchOutOfResources;
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  flash_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, hq, hq / hkv, offset,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 extern "C" {
@@ -500,6 +972,55 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
     case 128:
       return static_cast<int>(launch<128>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
                                           causal_offset, qs, ks, vs, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 q (b, sq, hq, d), k/v (b, sk, hkv, d), d in {64, 128}, through the
+// Hopper kernel; o (b, sq, hq, d) contiguous.  `maps` holds, for q, k and v
+// in turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
+// strides along h, s and b, and its box (64, 1, 128, 1).  The grid is
+// (hq, b, ceil(sq / 128)); `smem` the kernel's dynamic shared memory.
+int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, int b, int sq,
+                    int sk, int hq, int hkv, int d, int causal_offset,
+                    const unsigned long long* maps, int grid_x, int grid_y, int grid_z,
+                    long long smem, void* stream) {
+  using hopper::ROWS;
+  if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
+      grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
+      grid_z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap tm[3];
+  for (int i = 0; i < 3; ++i) {
+    const unsigned long long* m = maps + 11 * i;
+    const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
+    const cuuint64_t strides[3] = {m[4], m[5], m[6]};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(m[7]), static_cast<cuuint32_t>(m[8]),
+                               static_cast<cuuint32_t>(m[9]), static_cast<cuuint32_t>(m[10])};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    if (dims[0] != static_cast<cuuint64_t>(d) || box[0] != hopper::BOX || box[1] != 1 ||
+        box[2] != ROWS || box[3] != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const CUresult r = encode(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                              const_cast<void*>(ptrs[i]), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return static_cast<int>(hopper::launch<64>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
+                                                 static_cast<size_t>(smem), s));
+    case 128:
+      return static_cast<int>(hopper::launch<128>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
+                                                  static_cast<size_t>(smem), s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

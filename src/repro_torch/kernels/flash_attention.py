@@ -1,4 +1,4 @@
-"""Causal GQA flash attention: the hand-written CUDA kernel and its plain
+"""Causal GQA flash attention: the hand-written CUDA kernels and their plain
 PyTorch version (the counterpart of ``src/repro/kernels/flash_attention.py``
 ``gqa_flash``).
 
@@ -7,30 +7,48 @@ PyTorch version (the counterpart of ``src/repro/kernels/flash_attention.py``
 h // (Hq // Hkv), and returns (B, Sq, Hq, D) in q's dtype: softmax of
 q.k / sqrt(D), masked to ``causal_offset + q_row >= k_row``, times v, in
 fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
-launches the kernel of ``csrc/flash_attention.cu`` (float32 or bfloat16,
-D in {32, 64, 128}, unit stride along D) or raises.  Each launch adds one
-to ``launches["gqa_flash"]``.
+launches a kernel of ``csrc/flash_attention.cu`` (float32 or bfloat16,
+D in {32, 64, 128}, unit stride along D) or raises.  ``route`` picks the
+kernel from the dtype and D alone (``ROUTES``): bf16 at D in {64, 128}, the
+head dims of every model config, goes to the Hopper kernel (wgmma fed by
+TMA), bf16 at D = 32 to the ``mma.sync`` kernel, fp32 to the fp32 kernel.
+``plan`` does the shape and stride arithmetic of a launch (the route, the
+Hopper kernel's tensor maps, grid and shared memory) and runs on any
+tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to the
+count of its route.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
 from ._build import build_library
 
-#: Kernel launches since the last ``reset_launches()``.
-launches = {"gqa_flash": 0}
+#: Kernel launches since the last ``reset_launches()``: all of them under
+#: "gqa_flash", and each under its route.
+launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel of each (dtype, D).
+ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+          (torch.bfloat16, 32): "mma_sync", (torch.float32, 32): "fp32",
+          (torch.float32, 64): "fp32", (torch.float32, 128): "fp32"}
+
+# The Hopper kernel's tiling (csrc/flash_attention.cu, namespace hopper).
+WGMMA_ROWS = 128        # query rows per block
+WGMMA_KEYS = 128        # keys per tile; the K/V boxes' rows
+TMA_BOX_COLS = 64       # bf16 per 128-byte swizzled row: a box's inner extent
 
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    launches["gqa_flash"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def gqa_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,17 +77,58 @@ def build() -> str:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gqa_flash_fwd.argtypes = [i, p, p, p, p] + [i] * 7 + [ll] * 9 + [p]
     lib.gqa_flash_fwd.restype = i
+    lib.gqa_flash_wgmma.argtypes = [p] * 4 + [i] * 7 + [p] + [i] * 3 + [ll, p]
+    lib.gqa_flash_wgmma.restype = i
     _lib = lib
     return log
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal_offset: int) -> None:
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"q ({q.device}), k ({k.device}) and v ({v.device}) "
-                         "must lie on the same CUDA device")
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that ``gqa_flash`` launches for this dtype and head dim."""
+    try:
+        return ROUTES[(dtype, d)]
+    except KeyError:
+        raise ValueError(f"no kernel takes {dtype} at head dim {d}: dtypes "
+                         f"{list(_DTYPES)}, head dims {HEAD_DIMS}") from None
+
+
+def wgmma_stages(d: int) -> int:
+    """Depth of the Hopper kernel's K/V ring: what fits 227 KB."""
+    return 2 if d == 128 else 3
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """The Hopper kernel's dynamic shared memory: 1024 bytes of alignment
+    slack, the Q tile, a ring of K and V tiles, 8 bytes per mbarrier."""
+    tile = (d // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
+    stages = wgmma_stages(d)
+    return 1024 + tile * (1 + 2 * stages) + 8 * (1 + 3 * stages)
+
+
+def tensor_map(t: torch.Tensor) -> tuple[int, ...]:
+    """The 4-D TMA map over t (B, S, H, D), innermost first: dims
+    (D, H, S, B), byte strides along H, S and B, box (64, 1, 128, 1)."""
+    b, s, h, d = t.shape
+    e = t.element_size()
+    return (d, h, s, b, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e,
+            TMA_BOX_COLS, 1, WGMMA_ROWS, 1)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A launch: its route and, for the Hopper kernel, the tensor maps of
+    q, k and v (eleven numbers each, ``tensor_map``), the grid
+    (Hq, B, query tiles) and the dynamic shared memory."""
+    route: str
+    maps: tuple[int, ...] | None = None
+    grid: tuple[int, int, int] | None = None
+    smem: int | None = None
+
+
+def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal_offset: int) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 q/k/v of one "
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16 q/k/v of one "
                         f"dtype, got {q.dtype} / {k.dtype} / {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -85,7 +144,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"B={b} and Hq={hq} must be at most 65535")
     if causal_offset < 0 or causal_offset >= 2**31 - sq:
         raise ValueError(f"causal_offset {causal_offset} outside [0, 2^31 - Sq)")
-    align = 16 // q.element_size()      # the kernel loads 16-byte vectors
+    # 16-byte vectors (cp.async) and TMA's 16-byte strides and base.
+    align = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
@@ -94,22 +154,60 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"start; got strides {t.stride()}")
 
 
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
+         kernel: str | None = None) -> Plan:
+    """Check q/k/v's layout and plan the launch of ``kernel`` (default: the
+    route of q's dtype and D)."""
+    _check_layout(q, k, v, causal_offset)
+    d = q.shape[3]
+    name = route(q.dtype, d) if kernel is None else kernel
+    ok = {"wgmma": q.dtype == torch.bfloat16 and d in (64, 128),
+          "mma_sync": q.dtype == torch.bfloat16, "fp32": q.dtype == torch.float32}
+    if not ok.get(name, False):
+        raise ValueError(f"kernel {name!r} does not take {q.dtype} at head dim {d}")
+    if name != "wgmma":
+        return Plan(name)
+    b, sq, hq, _ = q.shape
+    return Plan(name, maps=tensor_map(q) + tensor_map(k) + tensor_map(v),
+                grid=(hq, b, -(-sq // WGMMA_ROWS)), smem=wgmma_smem_bytes(d))
+
+
 def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention, (B, Sq, Hq, D) in q's dtype."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return gqa_flash_plain(q, k, v, causal_offset)
-    _check(q, k, v, causal_offset)
+    return launch(q, k, v, causal_offset)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
+           kernel: str | None = None) -> torch.Tensor:
+    """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
+    "mma_sync" or "fp32"; default: its route), to hold one kernel against
+    another at one shape."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q ({q.device}), k ({k.device}) and v ({v.device}) "
+                         "must lie on the same CUDA device")
+    pl = plan(q, k, v, causal_offset, kernel)
     build()
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib.gqa_flash_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, hq, hkv, d, int(causal_offset),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+    if pl.route == "wgmma":
+        maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
+        err = _lib.gqa_flash_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv,
+            d, int(causal_offset), maps, *pl.grid, pl.smem, stream)
+    else:
+        err = _lib.gqa_flash_fwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, hq, hkv, d, int(causal_offset),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if err != 0:
-        raise RuntimeError(f"gqa_flash_fwd failed with cudaError_t {err}")
+        raise RuntimeError(f"the {pl.route} kernel of gqa_flash failed: "
+                           + (f"cudaError_t {err}" if err > 0
+                              else f"CUresult {-err} encoding a tensor map"))
     launches["gqa_flash"] += 1
+    launches[pl.route] += 1
     return out

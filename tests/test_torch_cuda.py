@@ -14,6 +14,8 @@ and 5e-2 in bf16, the JAX package's kernel tolerances, and the whole output
 within a relative L2 of 2e-5 (fp32) and 1e-2 (bf16) of the plain version:
 outputs of long causal rows are small beside the bf16 atol, and the
 relative L2 catches a kernel whose outputs are all off by a common factor.
+Each of the three flash kernels (Hopper wgmma, mma.sync, fp32) is held to
+these on the shapes its route gives it.
 DAG gating: integer counts, equal exactly.  Score matrix: one IEEE
 division per element in both versions, equal exactly.  Oracle greedy pass:
 the same float32 adds in the same order, equal bit for bit.
@@ -178,9 +180,71 @@ def test_kernel_flash_matches_plain(cuda_flash, dtype):
         out = fa.gqa_flash(q, k, v, causal_offset=extra)
         torch.cuda.synchronize()
         assert fa.launches["gqa_flash"] == 1
+        assert fa.launches[fa.route(dtype, d)] == 1
         assert out.dtype == dtype and out.shape == q.shape
         want = fa.gqa_flash_plain(q, k, v, causal_offset=extra)
         _assert_flash_close(out, want, str((sq, extra, hq, group, d, dtype)))
+
+
+def _flash_qkv(device, b, sq, sk, hq, hkv, d, seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
+                 .to(device, dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+
+
+# Rows and keys that are not multiples of the Hopper kernel's 128-row tiles,
+# Sk up to Sq + 200 (the offset), at both of its head dims.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,extra", [(1, 0), (1, 200), (17, 37), (130, 0), (130, 200),
+                                      (2047, 0), (2047, 131)])
+def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
+    q, k, v = _flash_qkv(cuda_flash, 2, sq, sq + extra, 8, 2, d, seed=sq + extra + d)
+    fa.reset_launches()
+    out = fa.gqa_flash(q, k, v, causal_offset=extra)
+    torch.cuda.synchronize()
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0}
+    _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
+                        f"Sq={sq} Sk={sq + extra} D={d}")
+
+
+# The serving path's shapes: the llama3-8b prefill (on the Hopper kernel and
+# on the retained mma.sync kernel) and a decode-like single row over a long
+# cache.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel", [
+    ((4, 2048, 2048, 32, 8, 128, 0), "wgmma"),
+    ((4, 2048, 2048, 32, 8, 128, 0), "mma_sync"),
+    ((4, 1, 2112, 32, 8, 128, 2111), "wgmma"),
+])
+def test_kernel_flash_serving_shapes(cuda_flash, shape, kernel):
+    b, sq, sk, hq, hkv, d, off = shape
+    q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, d, seed=sq)
+    fa.reset_launches()
+    out = fa.launch(q, k, v, off, kernel=kernel)
+    torch.cuda.synchronize()
+    assert fa.launches["gqa_flash"] == fa.launches[kernel] == 1
+    _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off),
+                        f"{shape} {kernel}")
+
+
+@pytest.mark.cuda
+def test_kernel_flash_routes(cuda_flash):
+    """The prefill's shape and D = 64 count under the Hopper kernel's
+    route; bf16 at D = 32 stays on the mma.sync kernel, fp32 on its own."""
+    cases = [((1, 256, 256, 32, 8, 128), torch.bfloat16, "wgmma"),
+             ((1, 256, 256, 8, 2, 64), torch.bfloat16, "wgmma"),
+             ((1, 256, 256, 8, 2, 32), torch.bfloat16, "mma_sync"),
+             ((1, 256, 256, 8, 2, 128), torch.float32, "fp32")]
+    for (b, sq, sk, hq, hkv, d), dtype, kernel in cases:
+        q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, d, seed=d, dtype=dtype)
+        fa.reset_launches()
+        out = fa.gqa_flash(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.launches["gqa_flash"] == fa.launches[kernel] == 1, (d, dtype, fa.launches)
+        _assert_flash_close(out, fa.gqa_flash_plain(q, k, v), f"D={d} {dtype}")
+    with pytest.raises(ValueError, match="does not take"):
+        fa.launch(q, k, v, kernel="wgmma")
 
 
 @pytest.mark.cuda
@@ -190,8 +254,15 @@ def test_kernel_flash_strided_and_checks(cuda_flash):
         .to(cuda_flash, torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1, :4], qkv[:, :, 2, :4]   # strided views
     want = fa.gqa_flash_plain(q, k, v, causal_offset=5)
+    fa.reset_launches()
     got = fa.gqa_flash(q, k, v, causal_offset=5)
+    assert fa.launches["wgmma"] == 1
     _assert_flash_close(got, want, "strided views")
+    wide = torch.from_numpy(rng.normal(size=(2, 150, 3, 8, 128)).astype(np.float32)) \
+        .to(cuda_flash, torch.bfloat16)                        # the same at D = 128
+    q, k, v = wide[:, :, 0], wide[:, :, 1, :2], wide[:, :, 2, 2:4]
+    _assert_flash_close(fa.gqa_flash(q, k, v, causal_offset=9),
+                        fa.gqa_flash_plain(q, k, v, causal_offset=9), "strided views D=128")
     ok = q.contiguous(), k.contiguous(), v.contiguous()
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros((1, 4, 2, 96), device=cuda_flash)

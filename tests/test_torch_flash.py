@@ -75,3 +75,110 @@ def test_chunked_attention_matches_reference(sq, extra, hq, group, d, chunk):
                                    torch.from_numpy(v), off, chunk)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
+
+
+# --- routing and launch arithmetic of the CUDA kernels (runs on any tensor) --
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fp32"),
+    (torch.float32, 64, "fp32"), (torch.float32, 32, "fp32")])
+def test_route_depends_on_dtype_and_head_dim(dtype, d, kernel):
+    assert fa.route(dtype, d) == kernel
+    q = torch.zeros((1, 3, 4, d), dtype=dtype)
+    k = torch.zeros((1, 5, 2, d), dtype=dtype)
+    assert fa.plan(q, k, k, causal_offset=2).route == kernel
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96),
+                                     (torch.float32, 256)])
+def test_route_rejects_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.route(dtype, d)
+
+
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+def test_plan_llama3_prefill():
+    """The prefill's shape: 4-D maps over (D, H, S, B) with byte strides,
+    two 64-column boxes per 128-row tile, grid (Hq, B, Sq / 128)."""
+    q, k, v = _bf16(4, 2048, 32, 128), _bf16(4, 2048, 8, 128), _bf16(4, 2048, 8, 128)
+    pl = fa.plan(q, k, v)
+    assert pl.route == "wgmma" and pl.grid == (32, 4, 16)
+    assert pl.maps == (128, 32, 2048, 4, 256, 8192, 16777216, 64, 1, 128, 1,
+                       128, 8, 2048, 4, 256, 2048, 4194304, 64, 1, 128, 1,
+                       128, 8, 2048, 4, 256, 2048, 4194304, 64, 1, 128, 1)
+    # Q tile 32 KB + 2 stages of K and V (64 KB each) + 7 mbarriers + 1 KB slack.
+    assert pl.smem == 1024 + 32768 + 2 * 65536 + 8 * 7 == 164920
+    assert pl.smem <= 232448                   # what a block may ask for
+
+
+@pytest.mark.parametrize("sq,d,grid_z,smem", [(1, 64, 1, 1024 + 16384 + 3 * 32768 + 80),
+                                              (128, 128, 1, 164920),
+                                              (129, 128, 2, 164920),
+                                              (2047, 64, 16, 115792)])
+def test_plan_grid_and_shared_memory(sq, d, grid_z, smem):
+    pl = fa.plan(_bf16(2, sq, 8, d), _bf16(2, sq + 200, 2, d), _bf16(2, sq + 200, 2, d),
+                 causal_offset=200)
+    assert pl.grid == (8, 2, grid_z) and pl.smem == smem
+    assert pl.maps[2] == sq and pl.maps[13] == pl.maps[24] == sq + 200
+
+
+def test_plan_strided_views():
+    """The card test's strided views: q, k and v cut out of one packed
+    (B, S, 3, H, D) tensor keep their strides in the maps, in bytes."""
+    qkv = _bf16(2, 70, 3, 8, 64)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :4], qkv[:, :, 2, :4]
+    pl = fa.plan(q, k, v, causal_offset=5)
+    row, batch = 3 * 8 * 64 * 2, 70 * 3 * 8 * 64 * 2
+    assert pl.maps[:11] == (64, 8, 70, 2, 128, row, batch, 64, 1, 128, 1)
+    assert pl.maps[11:22] == pl.maps[22:] == (64, 4, 70, 2, 128, row, batch, 64, 1, 128, 1)
+    assert pl.grid == (8, 2, 1)
+
+
+def test_plan_rejects_strides_and_starts_off_16_bytes():
+    q = _bf16(1, 10, 2, 132)[..., :128]        # rows 264 bytes apart
+    k = _bf16(1, 10, 2, 128)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.plan(q, k, k)
+    flat = torch.empty(10 * 2 * 128 + 4, dtype=torch.bfloat16)
+    shifted = flat[4:].view(1, 10, 2, 128)     # starts 8 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.plan(shifted, k, k)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.plan(k.transpose(1, 3).contiguous().transpose(1, 3), k, k)
+
+
+def test_plan_named_kernel():
+    q, k = _bf16(1, 8, 4, 128), _bf16(1, 8, 2, 128)
+    assert fa.plan(q, k, k, kernel="mma_sync") == fa.Plan("mma_sync")
+    with pytest.raises(ValueError, match="does not take"):
+        fa.plan(_bf16(1, 8, 4, 32), _bf16(1, 8, 2, 32), _bf16(1, 8, 2, 32), kernel="wgmma")
+    with pytest.raises(ValueError, match="does not take"):
+        fa.plan(q.float(), k.float(), k.float(), kernel="mma_sync")
+
+
+def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
+    q = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16)
+    fa.reset_launches()
+    fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
+    assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.launch(q, q, q)
+
+
+def test_tiling_constants_match_the_cuda_source():
+    """The wrapper's tiling and shared memory are those the kernel's source
+    declares (the launch also checks the shared memory on the card)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    hopper = src[src.index("namespace hopper {"):]
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", hopper)}
+    assert const["ROWS"] == fa.WGMMA_ROWS and const["KEYS"] == fa.WGMMA_KEYS
+    assert const["BOX"] == fa.TMA_BOX_COLS
+    assert "STAGES = D == 128 ? 2 : 3;" in hopper
+    assert (fa.wgmma_stages(128), fa.wgmma_stages(64)) == (2, 3)
