@@ -9,7 +9,10 @@ Phases, any failure exits non-zero:
    time each build;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with times from CUDA events beside the
-   bound, the plain version and one library call; ``gqa_flash`` on each
+   bound, the plain version and one library call (the single-query KNN
+   kernel through ``knn_lookup``, the per-slot lookup with the query as a
+   launch parameter and the neighbours written into pinned host memory,
+   equal bit for bit to ``knn_topk`` on a device query); ``gqa_flash`` on each
    shape's route (the Hopper kernel for bf16 at D 64 and 128), its launches
    counted by route, and at the prefill's shape the Hopper kernel timed in
    turns with the retained mma.sync kernel (at most half its time);
@@ -21,8 +24,12 @@ Phases, any failure exits non-zero:
    then the same states through the float64 CPU base, counting the slots
    whose ``m_t`` or ``rho`` would differ, and the whole scenario run on the
    CPU, counting the weekly results and slots that differ from the card's
-   (information, not a gate); last, the main path again under one
-   ``torch.profiler`` trace for the card's busy share;
+   (information, not a gate); the main path again under one
+   ``torch.profiler`` trace for the card's busy share; last, every queried
+   state through ``KnowledgeBase.query`` and through the device-query
+   protocol (query copied to the card, kernel, two copies back), equal,
+   timed in turns, and a traced stretch of queries that must show one
+   lookup kernel per call and no copy;
 4. the serving path: llama3-8b at full width and depth (random weights
    from a seeded generator) prefills 4 prompts of 2048 tokens, attention
    through the Hopper flash kernel (32 launches, all on its route), then
@@ -48,10 +55,17 @@ Phases, any failure exits non-zero:
    learning phase, the weekly re-learning and the oracle policy through the
    greedy kernel (launches == ``solve`` attempts with entries), every
    weekly result and slot equal to the same call on the CPU, and the weeks
-   and slots that differ from the ``backend="numpy"`` run counted; then
-   the kernel against ``greedy_pass_plain`` on every pass the path ran and
-   on a ``solve`` that extends deadlines, bit for bit, with times beside
-   the host numpy pass.
+   and slots that differ from the ``backend="numpy"`` run counted, the
+   168-slot windows on the shared-memory walker ("smem") and the 552-slot
+   spans on the L2 walker ("l2"); then the kernel against
+   ``greedy_pass_plain`` on every pass the path ran (on its route) and on a
+   ``solve`` that extends deadlines, bit for bit; the chain split: both
+   walkers on three synthetic streams whose every entry stops at one test
+   (done, consistency, capacity) and on learning window 0, bit for bit,
+   cycles per entry; learning window 0 on both walkers in turns (the smem
+   walker at most half the l2 walker's time); times beside the host numpy
+   pass.  Last, the main and oracle paths' wall, learning and execution
+   times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -201,10 +215,10 @@ def check_topk(dist, idx, dist_ref, idx_ref, cases, queries, what):
     return float(np.max(np.abs(d - dr)))
 
 
-def kernel_phase():
+def kernel_phase(report):
     """Phase 2: kernels against plain versions; times at the main path's
-    shapes (one query against the full 1344-case base; one week of 168
-    slot states as a batch)."""
+    shapes (one query against the full 1344-case base, through the
+    per-slot lookup; one week of 168 slot states as a batch)."""
     torch.backends.cuda.matmul.allow_tf32 = False      # plain batch in fp32
     gen = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -218,11 +232,18 @@ def kernel_phase():
     for n in (1, 255, 257, 1344, 4099):           # 4099: the two-pass merge
         k = min(K, n)
         cases, q = inputs(n)
+        if n > 8:                                  # a tie of four
+            cases[[n // 3, n // 2, n - 1]] = cases[1].clone()
         dist, idx = knn.knn_topk(cases, q, k)
         torch.cuda.synchronize()
         err1 = max(err1, check_topk(dist, idx, *knn.knn_topk_plain(cases, q, k),
                                     cases, q, f"knn_topk N={n}"))
-        log(f"knn_topk     N={n:5d} D={D} k={k}: agrees with the plain version")
+        ld, li = knn.knn_lookup(cases, q.cpu().numpy(), k)
+        if not (np.array_equal(ld, dist.double().cpu().numpy())
+                and np.array_equal(li, idx.cpu().numpy())):
+            raise AssertionError(f"knn_lookup N={n}: differs from knn_topk on a device query")
+        log(f"knn_topk     N={n:5d} D={D} k={k}: agrees with the plain version; "
+            f"knn_lookup (host query and record) equal to it bit for bit")
     err2 = 0.0
     for nq in (168, 1344):
         cases, qs = inputs(1344, nq)
@@ -234,8 +255,10 @@ def kernel_phase():
 
     cases, q = inputs(1344)
     n = cases.shape[0]
+    qh = q.cpu().numpy().astype(np.float64)
     t1 = dict(
-        ms=time_ms(lambda: knn.knn_topk(cases, q, K), 2000),
+        ms=time_ms(lambda: knn.knn_lookup(cases, qh, K), 2000),
+        device_query_ms=time_ms(lambda: knn.knn_topk(cases, q, K), 2000),
         plain_ms=time_ms(lambda: knn.knn_topk_plain(cases, q, K), 2000),
         library_ms=time_ms(lambda: torch.topk(torch.cdist(q[None], cases)[0], K,
                                               largest=False), 2000))
@@ -247,7 +270,7 @@ def kernel_phase():
         library_ms=time_ms(lambda: torch.topk(torch.cdist(qs, cases), K, dim=1,
                                               largest=False), 500))
     b2, by2 = bound_ms(4 * (n * D + 168 * D) + 168 * K * 12, 3 * 168 * n * D)
-    t1.update(device_ms=device_ms(lambda: knn.knn_topk(cases, q, K)),
+    t1.update(device_ms=device_ms(lambda: knn.knn_lookup(cases, qh, K)),
               plain_device_ms=device_ms(lambda: knn.knn_topk_plain(cases, q, K)),
               library_device_ms=device_ms(lambda: torch.topk(
                   torch.cdist(q[None], cases)[0], K, largest=False)))
@@ -255,13 +278,19 @@ def kernel_phase():
               plain_device_ms=device_ms(lambda: knn.knn_topk_batch_plain(cases, qs, K)),
               library_device_ms=device_ms(lambda: torch.topk(
                   torch.cdist(qs, cases), K, dim=1, largest=False)))
+    log(f"knn_topk: knn_lookup {t1['ms']:.6f} ms/call back to back (each waits for "
+        f"its stream), knn_topk on a device query {t1['device_query_ms']:.6f}")
     for name, t, b in (("knn_topk", t1, b1), ("knn_topk_batch", t2, b2)):
         log(f"{name}: {t['ms']:.6f} ms/call (plain {t['plain_ms']:.6f}, "
             f"cdist+topk {t['library_ms']:.6f}, bound {b:.9f}); device time "
             f"{t['device_ms']} ms/call (plain {t['plain_device_ms']}, "
             f"cdist+topk {t['library_device_ms']})")
+    ptx = {name: rep for name, rep in ptxas_report(report, "knn_query_kernel").items()
+           if "ILi5ELi13E" in name}            # the main path's k = 5, D = 13
+    log(f"knn_query_kernel<5, 13>, ptxas: {ptx}")
     return [
         dict(name="knn_topk", route="cuda", source="src/repro_torch/csrc/knn.cu",
+             kernel="knn_query_kernel<5, 13> via knn_lookup", ptxas=ptx,
              replaces="src/repro/kernels/knn.py:64", max_abs_err=err1,
              bound_ms=b1, bound_by=by1, shape=f"N={n} D={D} k={K}", **t1),
         dict(name="knn_topk_batch", route="cuda", source="src/repro_torch/csrc/knn.cu",
@@ -411,7 +440,9 @@ def main_path_phase():
         f"{100 * busy_ms / 1e3 / wall:.6f} % of the untraced run's wall")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  device {ms:.6f} ms  {name}")
+    lookup = knn_query_phase(kb, [c["state"] for c in calls])
     return dict(result=res, main=main_launches, batch=batch_launches, flips=flips,
+                lookup=lookup,
                 rho_moves=rho_moves,
                 provisions=len(calls), wall_s=wall, learn_s=res.learn_s,
                 execute_s=res.execute_s, provision_s=spent[0],
@@ -423,6 +454,66 @@ def main_path_phase():
                 cpu_savings={n: cpu_res.savings(n) for n in POLICIES},
                 traced_wall_s=traced_wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall)
+
+def copy_query(kb, state):
+    """``KnowledgeBase.query`` built from the public kernel wrapper on
+    device tensors (the device-query protocol): the query copied to the
+    card, ``knn_topk``, the indices and the float64 distances copied back
+    in turn."""
+    k, q = kb._prepare(state, None)
+    dist, idx = knn.knn_topk(kb.case_matrix(), torch.as_tensor(q, dtype=torch.float32)
+                             .to(kb.device), k)
+    idx = idx.cpu().numpy()
+    return kb._Y[idx, 0], kb._Y[idx, 1], dist.double().cpu().numpy()
+
+
+def knn_query_phase(kb, states):
+    """The per-slot lookup on the main path's last base (1344 cases): every
+    state carbonflex queried, through ``KnowledgeBase.query`` and through
+    the device-query protocol, equal; host time per call of each in turns
+    (new, old, old, new, twice); and one traced stretch of queries, whose
+    device events must be one lookup kernel per call and no copy."""
+    for s in states:
+        a, b = kb.query(s), copy_query(kb, s)
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("KnowledgeBase.query and the device-query protocol differ")
+
+    def loop(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for s in states:
+            fn(kb, s)
+        return 1e6 * (time.perf_counter() - t) / len(states)
+
+    runs = {"query_us": KnowledgeBase.query, "copy_us": copy_query}
+    turns = {key: [] for key in runs}
+    for key in ("query_us", "copy_us", "copy_us", "query_us") * 2:
+        turns[key].append(loop(runs[key]))
+    t = {key: float(np.mean(v)) for key, v in turns.items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = states[:200]
+    knn.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in traced:
+            kb.query(s)
+    events = device_events(prof)
+    kinds = {}
+    for e in events:
+        kind = "knn_query_kernel" if "knn_query_kernel" in e.name else \
+            "copy" if "memcpy" in e.name.lower() or "memset" in e.name.lower() else e.name
+        kinds[kind] = kinds.get(kind, 0) + 1
+    log(f"KnowledgeBase.query on {len(kb)} cases, {len(states)} states: {t['query_us']:.3f} "
+        f"us per call against {t['copy_us']:.3f} for the device-query protocol, ratio "
+        f"{t['query_us'] / t['copy_us']:.4f} (in turns {turns}); equal results; "
+        f"{len(traced)} traced calls: device events {kinds}, launches {dict(knn.launches)}")
+    # The launches count each call's kernel; the trace (which may drop an
+    # event) must hold that kernel and nothing else: no copy either way.
+    if set(kinds) != {"knn_query_kernel"} or knn.launches["knn_topk"] != len(traced):
+        raise AssertionError(f"KnowledgeBase.query: {kinds} on the card for {len(traced)} "
+                             "calls; expected one lookup kernel each and no copy")
+    return dict(turns=turns, ratio=t["query_us"] / t["copy_us"], traced_events=kinds, **t)
+
 
 # --- flash attention and the serving path ------------------------------------
 
@@ -1222,6 +1313,7 @@ def oracle_path_phase(numpy_res):
     finally:
         oracle_mod._build_entries = build_entries
     launches = oracle_greedy.launches["greedy_pass"]
+    by_route = {r: oracle_greedy.launches[r] for r in oracle_greedy.ROUTES}
     stats = dict(oracle_mod.stats)
     log(f"oracle path (backend=\"device\" on the card): {wall:.3f} s wall (learning "
         f"{res.learn_s:.3f} s against {numpy_res.learn_s:.3f} s with the host numpy "
@@ -1237,6 +1329,13 @@ def oracle_path_phase(numpy_res):
             MAIN["learn_weeks"] + MAIN["eval_weeks"] - 1:
         raise AssertionError(f"{len(attempts)} passes, {len(oracles)} of the oracle "
                              "policy: the path skipped a learning window or a week")
+    # 168-slot windows fit the shared-memory walker, the 552-slot spans not
+    if by_route != {"smem": len(attempts) - len(oracles), "l2": len(oracles)}:
+        raise AssertionError(f"greedy launches by route {by_route}: expected "
+                             f"{len(attempts) - len(oracles)} 168-slot windows on smem, "
+                             f"{len(oracles)} spans on l2")
+    log(f"greedy launches by route {by_route}: the {len(attempts) - len(oracles)} "
+        f"168-slot windows on smem, the {len(oracles)} oracle spans on l2")
     t = time.perf_counter()
     cpu = run(Scenario(**MAIN), POLICIES, backend="device", device="cpu")
     cpu_wall = time.perf_counter() - t
@@ -1254,7 +1353,8 @@ def oracle_path_phase(numpy_res):
     log(f"against the backend=\"numpy\" run of the main path: {nweeks} of "
         f"{len(POLICIES) * MAIN['eval_weeks']} weekly results and {nslots} slots differ "
         f"(float32 work against float64; information)")
-    return dict(attempts=attempts, launches=launches, stats=stats, wall_s=wall,
+    return dict(attempts=attempts, launches=launches, by_route=by_route, stats=stats,
+                wall_s=wall,
                 learn_s=res.learn_s, execute_s=res.execute_s,
                 numpy_learn_s=numpy_res.learn_s, cpu_wall_s=cpu_wall,
                 weeks_differ_cpu=weeks, slots_differ_cpu=slots,
@@ -1263,27 +1363,27 @@ def oracle_path_phase(numpy_res):
 
 
 def greedy_args(attempt, dev):
+    """A ``solve`` attempt's entries as the device pass hands them over:
+    packed, with kmin and lengths, on ``dev``; and the largest scale."""
     jobs = attempt["jobs"]
     j, t, k, g, _ = attempt["entries"]
-    return [torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(dev)
-            for x, dt in ((j, np.int32), (t, np.int32), (k, np.int32), (g, np.float32),
-                          ([x.k_min for x in jobs], np.int32),
-                          ([x.length for x in jobs], np.float32))]
+    return list(oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
+                                     [x.length for x in jobs], dev)), int(k.max())
 
 
-def greedy_check(args, capacity, horizon, what):
-    """The kernel against ``greedy_pass_plain``: alloc, used, work and the
-    entries walked equal bit for bit; returns the plain version's results
-    and its host seconds."""
-    got = oracle_greedy.greedy_pass(*args, capacity, horizon)
+def greedy_check(args, k_max, capacity, horizon, what, route=None):
+    """The kernel (``plan``'s route, or the one named) against
+    ``greedy_pass_plain``: alloc, used, work and the entries walked equal bit
+    for bit; returns the plain version's results and its host seconds."""
+    got = oracle_greedy.greedy_pass(*args, capacity, horizon, k_max, route=route)
     torch.cuda.synchronize()
     t = time.perf_counter()
     want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), capacity, horizon)
     plain_s = time.perf_counter() - t
     for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
         if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
-            raise AssertionError(f"greedy_pass {what}: {name} differs from the plain "
-                                 "version")
+            raise AssertionError(f"greedy_pass {what} on {route or 'its route'}: "
+                                 f"{name} differs from the plain version")
     return want, plain_s
 
 
@@ -1298,17 +1398,136 @@ def extension_jobs():
     return jobs, gen.uniform(50, 500, 400)
 
 
-def greedy_kernel_phase(path):
+def sm_clock_mhz():
+    """The SM clock and its maximum, in MHz, as ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [float(x) for x in out.stdout.strip().splitlines()[0].split(",")]
+
+
+def chain_streams(n=434, horizon=WEEK, n_entries=205_872, seed=16):
+    """Three synthetic entry streams at learning window 0's shape in which
+    every entry stops at one test of the walk: (a) the done test (every job
+    but job 0 done from the start, no entry on job 0, so the walk never
+    stops early), (b) the consistency test (non-base entries whose previous
+    scale was never taken), (c) the capacity test (base entries, capacity
+    0).  Each: (entries, kmin, lengths) on the card, capacity, k_max."""
+    gen = np.random.default_rng(seed)
+    j = gen.integers(0, n, n_entries)
+    t = gen.integers(0, horizon, n_entries)
+    g = gen.uniform(0.1, 0.9, n_entries)
+    ones = np.ones(n_entries, np.int64)
+    kmin, endless = np.ones(n, np.int64), np.full(n, 1e9)
+    done = np.where(np.arange(n) == 0, 1e9, 0.0)
+    dev = torch.device("cuda")
+    return {
+        "done test": (oracle_greedy.upload(np.maximum(j, 1), t, ones, g, kmin, done, dev),
+                      MAIN["capacity"], 1),
+        "consistency test": (oracle_greedy.upload(j, t, 2 * ones, g, kmin, endless, dev),
+                             MAIN["capacity"], 2),
+        "capacity test": (oracle_greedy.upload(j, t, ones, g, kmin, endless, dev), 0, 1),
+    }
+
+
+def greedy_split_phase(path):
+    """Where the walk's time goes: each route on the three chain streams and
+    on learning window 0, bit for bit against the plain pass, timed by CUDA
+    events; ns and cycles (at the SM clock read during the window's run) per
+    walked entry.  The l2 walker's links: the done test alone (a), the alloc
+    read (b - a), the used read and capacity test (c - b).  Then window 0 on
+    both routes in turns (smem, l2, l2, smem, twice)."""
+    window = [a for a in path["attempts"] if a["horizon"] == WEEK][0]
+    wargs, wk = greedy_args(window, torch.device("cuda"))
+    inputs = dict(chain_streams())
+    inputs["learn window 0"] = (wargs, MAIN["capacity"], wk)
+    split = {}
+    for name, (args, cap, k_max) in inputs.items():
+        want, _ = greedy_check(args, k_max, cap, WEEK, name, route="smem")
+        greedy_check(args, k_max, cap, WEEK, name, route="l2")
+        walked = want[3].item()
+        if name != "learn window 0" and (walked != args[0].shape[0]
+                                         or want[1].sum().item() != 0):
+            raise AssertionError(f"chain stream {name}: walked {walked}, took "
+                                 f"{want[1].sum().item()} servers")
+        km = args[1].cpu().numpy()[:, None]
+        taken = int(np.where(want[0].numpy() > 0, want[0].numpy() - km + 1, 0).sum())
+        row = dict(walked=walked, taken=taken)
+        for route in oracle_greedy.ROUTES:
+            row[f"{route}_ms"] = time_ms(lambda: oracle_greedy.greedy_pass(
+                *args, cap, WEEK, k_max, route=route), 10, warmup=2)
+        split[name] = row
+    clock = {}
+
+    def sample():
+        time.sleep(0.2)
+        clock["mhz"] = sm_clock_mhz()
+
+    with ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(sample)
+        time_ms(lambda: oracle_greedy.greedy_pass(*wargs, MAIN["capacity"], WEEK, wk,
+                                                  route="l2"), 40, warmup=2)
+        fut.result()
+    mhz, max_mhz = clock["mhz"]
+    for name, row in split.items():
+        for route in oracle_greedy.ROUTES:
+            ns = 1e6 * row[f"{route}_ms"] / row["walked"]
+            row[f"{route}_ns_per_entry"] = ns
+            row[f"{route}_cycles_per_entry"] = ns * mhz / 1e3
+        log(f"greedy chain split, {name}: {row['walked']} walked, {row['taken']} taken; l2 "
+            f"{row['l2_ms']:.6f} ms = {row['l2_ns_per_entry']:.3f} ns = "
+            f"{row['l2_cycles_per_entry']:.1f} cycles per entry; smem {row['smem_ms']:.6f} "
+            f"ms = {row['smem_ns_per_entry']:.3f} ns = {row['smem_cycles_per_entry']:.1f} "
+            f"cycles; equal to the plain pass on both routes")
+    a, b, c = (split[x]["l2_cycles_per_entry"] for x in
+               ("done test", "consistency test", "capacity test"))
+    links = {"done test": a, "alloc read": b - a, "used and capacity": c - b}
+    log(f"greedy chain split of the l2 walker at {mhz} MHz (max {max_mhz}): cycles per "
+        f"entry by link {links}; learning window 0 "
+        f"{split['learn window 0']['l2_cycles_per_entry']:.1f}")
+
+    def one(route):
+        return lambda: oracle_greedy.greedy_pass(*wargs, MAIN["capacity"], WEEK, wk,
+                                                 route=route)
+
+    turns = {r: [] for r in oracle_greedy.ROUTES}
+    for route in ("smem", "l2", "l2", "smem") * 2:
+        turns[route].append(time_ms(one(route), 10, warmup=2))
+    t = {r: float(np.mean(v)) for r, v in turns.items()}
+    ratio = t["smem"] / t["l2"]
+    # The smem walker's serial chain is its commits: a round of 32 entries
+    # costs what a stream without takes shows, each taken entry the rest.
+    w0 = split["learn window 0"]
+    round_ms = split["done test"]["smem_ms"] / math.ceil(split["done test"]["walked"] / 32)
+    commit_ns = 1e6 * (w0["smem_ms"] - round_ms * math.ceil(w0["walked"] / 32)) / w0["taken"]
+    log(f"greedy smem walker: {1e6 * round_ms:.3f} ns per round of 32 entries, "
+        f"{commit_ns:.3f} ns = {commit_ns * mhz / 1e3:.1f} cycles per taken entry "
+        f"({w0['taken']} taken in learning window 0)")
+    log(f"greedy learning window 0 in turns: smem {t['smem']:.6f} ms, l2 {t['l2']:.6f} ms "
+        f"per pass, ratio {ratio:.4f} ({turns})")
+    if not ratio <= 0.5:
+        raise AssertionError(f"the smem walker takes {t['smem']} ms, more than half the "
+                             f"l2 walker's {t['l2']} ms")
+    return dict(split=split, links_cycles=links, sm_mhz=mhz, sm_max_mhz=max_mhz,
+                round_ns=1e6 * round_ms, commit_ns=commit_ns,
+                turns=turns, smem_ms=t["smem"], l2_ms=t["l2"], ratio=ratio)
+
+
+def greedy_kernel_phase(path, report):
     """The greedy kernel against its plain version on every pass of the
-    oracle path and on a ``solve`` that extends deadlines; times on the
-    three learning windows and the oracle span of week 0."""
+    oracle path and on a ``solve`` that extends deadlines, each on the route
+    it takes; the chain split and the routes in turns; times on the three
+    learning windows and the oracle span of week 0."""
     dev = torch.device("cuda")
     cap = MAIN["capacity"]
     for i, att in enumerate(path["attempts"]):
-        want, _ = greedy_check(greedy_args(att, dev), cap, att["horizon"], f"pass {i}")
+        args, k_max = greedy_args(att, dev)
+        route = oracle_greedy.plan(len(att["jobs"]), att["horizon"], k_max)["route"]
+        want, _ = greedy_check(args, k_max, cap, att["horizon"], f"pass {i}")
         log(f"greedy_pass pass {i:2d}: {len(att['jobs'])} jobs x {att['horizon']} slots, "
-            f"{len(att['entries'][0])} entries, {want[3].item()} walked: equal to the "
-            f"plain version bit for bit")
+            f"{len(att['entries'][0])} entries, {want[3].item()} walked, on {route}: "
+            f"equal to the plain version bit for bit")
     jobs, ci = extension_jobs()
     cpu = oracle_mod.solve(jobs, ci, 2, backend="device", device="cpu")
     oracle_greedy.reset_launches()
@@ -1316,25 +1535,31 @@ def greedy_kernel_phase(path):
     card = oracle_mod.solve(jobs, ci, 2, backend="device")
     ext_launches = oracle_greedy.launches["greedy_pass"]
     if not (cpu.schedule.extended.any() and ext_launches == oracle_mod.stats["device_passes"] > 1
+            and oracle_greedy.launches["smem"] == ext_launches
             and np.array_equal(card.schedule.alloc, cpu.schedule.alloc)
             and np.array_equal(card.schedule.extended, cpu.schedule.extended)
             and all(np.array_equal(getattr(card, n), getattr(cpu, n))
                     for n in ("capacity_curve", "rho_curve", "work_done"))):
         raise AssertionError("solve with deadline extensions: the card and the CPU differ")
     log(f"solve with deadline extensions (48 jobs, capacity 2, 400 slots): {ext_launches} "
-        f"passes, {int(cpu.schedule.extended.sum())} slots of extensions, equal on the "
-        f"card and the CPU")
+        f"passes on smem, {int(cpu.schedule.extended.sum())} slots of extensions, equal on "
+        f"the card and the CPU")
+    ptx = {name: ptxas_report(report, name) for name in ("greedy_smem_kernel",
+                                                         "greedy_pass_kernel")}
+    log(f"greedy kernels, ptxas: {ptx}")
+    split = greedy_split_phase(path)
 
     learn = [a for a in path["attempts"] if a["horizon"] == WEEK][:MAIN["learn_weeks"]]
     span = [a for a in path["attempts"] if a["horizon"] > WEEK][:1]
     rows = []
     for name, att in zip([f"learn window {i}" for i in range(len(learn))]
                          + ["oracle span week 0"], learn + span):
-        args = greedy_args(att, dev)
+        args, k_max = greedy_args(att, dev)
         h, n = att["horizon"], len(att["jobs"])
-        want, plain_s = greedy_check(args, cap, h, name)
+        route = oracle_greedy.plan(n, h, k_max)["route"]
+        want, plain_s = greedy_check(args, k_max, cap, h, name)
         walked = want[3].item()
-        ms = time_ms(lambda: oracle_greedy.greedy_pass(*args, cap, h), 10, warmup=2)
+        ms = time_ms(lambda: oracle_greedy.greedy_pass(*args, cap, h, k_max), 10, warmup=2)
         lengths = np.array([j.length for j in att["jobs"]])
         t = time.perf_counter()
         oracle_mod._greedy_numpy(att["jobs"], att["ci"], cap, h, lengths)
@@ -1344,44 +1569,46 @@ def greedy_kernel_phase(path):
         entries_s = time.perf_counter() - t
         nbytes = 16 * walked + 8 * n + 4 * n * h + 4 * h + 4 * n
         b, by = bound_ms(nbytes, 8 * walked)
-        log(f"greedy_pass {name}: {len(att['entries'][0])} entries, {walked} walked, "
-            f"{ms:.6f} ms/pass = {1e6 * ms / walked:.3f} ns per walked entry (bound "
-            f"{b:.9f} by {by}: {nbytes} bytes); plain pass {1e3 * plain_s:.3f} ms; host "
-            f"numpy pass {1e3 * numpy_s:.3f} ms, of which building the entries "
+        log(f"greedy_pass {name} on {route}: {len(att['entries'][0])} entries, {walked} "
+            f"walked, {ms:.6f} ms/pass = {1e6 * ms / walked:.3f} ns per walked entry "
+            f"(bound {b:.9f} by {by}: {nbytes} bytes); plain pass {1e3 * plain_s:.3f} ms; "
+            f"host numpy pass {1e3 * numpy_s:.3f} ms, of which building the entries "
             f"{1e3 * entries_s:.3f} ms")
-        rows.append(dict(window=name, entries=len(att["entries"][0]), walked=walked,
-                         ms=ms, plain_ms=1e3 * plain_s, numpy_pass_ms=1e3 * numpy_s,
-                         build_entries_ms=1e3 * entries_s, bound_ms=b, bound_by=by,
-                         bytes=nbytes))
+        rows.append(dict(window=name, route=route, entries=len(att["entries"][0]),
+                         walked=walked, ms=ms, plain_ms=1e3 * plain_s,
+                         numpy_pass_ms=1e3 * numpy_s, build_entries_ms=1e3 * entries_s,
+                         bound_ms=b, bound_by=by, bytes=nbytes))
     # Device time from the kernel's own profiler events, with their count:
     # device_ms() averages the card's busy time over the calls, which
-    # undercounts when the trace drops events of this ~17 ms kernel.
+    # undercounts when the trace drops events of a long kernel.
     from torch.profiler import ProfilerActivity, profile
 
-    args = greedy_args(learn[0], dev)
+    args, k_max = greedy_args(learn[0], dev)
     for _ in range(3):
-        oracle_greedy.greedy_pass(*args, cap, WEEK)
+        oracle_greedy.greedy_pass(*args, cap, WEEK, k_max)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            oracle_greedy.greedy_pass(*args, cap, WEEK)
+            oracle_greedy.greedy_pass(*args, cap, WEEK, k_max)
         torch.cuda.synchronize()
-    events = [e for e in device_events(prof) if "greedy_pass_kernel" in e.name]
+    events = [e for e in device_events(prof) if "greedy_smem_kernel" in e.name]
     dms = (sum(e.time_range.elapsed_us() for e in events) / len(events) / 1e3
            if events else None)
-    log(f"greedy_pass learn window 0: device time {dms} ms/pass over the "
+    log(f"greedy_pass learn window 0 on smem: device time {dms} ms/pass over the "
         f"{len(events)} kernel events the trace recorded of 10 passes")
     first = rows[0]
     return dict(name="greedy_pass", route="cuda",
                 source="src/repro_torch/csrc/oracle_greedy.cu",
                 replaces="src/repro/core/oracle.py:177 (_greedy_jax, a jitted "
                          "lax.fori_loop; no Pallas kernel)",
-                launches=path["launches"], path="learn, oracle", max_abs_err=0.0,
+                launches=path["launches"], launches_by_route=path["by_route"],
+                path="learn, oracle", max_abs_err=0.0,
                 ms=first["ms"], device_ms=dms, plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
-                device_events=len(events),
+                previous_ms=split["l2_ms"], device_events=len(events),
                 numpy_pass_ms=first["numpy_pass_ms"], serial_chain=first["walked"],
-                extension_passes=ext_launches, windows=rows)
+                extension_passes=ext_launches, windows=rows, ptxas=ptx,
+                chain_split=split)
 
 
 def build_kernels():
@@ -1414,7 +1641,7 @@ def main():
     log(f"card: {card}")
     reports = build_kernels()
 
-    kernels = kernel_phase()
+    kernels = kernel_phase(reports["src/repro_torch/csrc/knn.cu"])
     kernels.append(flash_kernel_phase(reports["src/repro_torch/csrc/flash_attention.cu"]))
     kernels.append(gating_kernel_phase())
     path = main_path_phase()
@@ -1428,7 +1655,12 @@ def main():
     score_path = score_ops_phase(windows)
     kernels.append(score_kernel_phase(windows, score_path))
     device_path = oracle_path_phase(path["result"])
-    kernels.append(greedy_kernel_phase(device_path))
+    kernels.append(greedy_kernel_phase(
+        device_path, reports["src/repro_torch/csrc/oracle_greedy.cu"]))
+    log(f"wall / learning / execution (s): main path {path['wall_s']:.3f} / "
+        f"{path['learn_s']:.3f} / {path['execute_s']:.3f}; oracle path (backend=\"device\") "
+        f"{device_path['wall_s']:.3f} / {device_path['learn_s']:.3f} / "
+        f"{device_path['execute_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()

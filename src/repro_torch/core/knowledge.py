@@ -16,7 +16,9 @@ kept on ``device``: float32 on a CUDA device, where ``query`` /
 ``query_batch`` launch the hand-written kernels of ``kernels/knn.py``, and
 float64 on the CPU, where their plain versions reproduce the JAX package's
 numpy backend.  Featurisation and normalisation stay float64 numpy on the
-host; a per-slot query moves only the query vector to the device.
+host.  A per-slot ``query`` goes through ``kernels.knn.knn_lookup``: on the
+card one launch that takes the query as its parameter and one write of the
+k neighbours back into pinned host memory, with no copy to the card.
 """
 from __future__ import annotations
 
@@ -168,6 +170,7 @@ class KnowledgeBase:
         self._mu = None
         self._sigma = None
         self._Xn = None            # normalised, weighted case matrix on device
+        self._w = None             # feature weights of the case matrix's dim
 
     @classmethod
     def from_windows(cls, windows, device: str | torch.device = "cuda",
@@ -213,7 +216,7 @@ class KnowledgeBase:
         if len(self._X):
             self._mu = self._X.mean(axis=0)
             self._sigma = np.maximum(self._X.std(axis=0), 1e-9)
-            w = self._weights(self._X.shape[1])
+            w = self._w = self._weights(self._X.shape[1])
             xn = np.clip((self._X - self._mu) / self._sigma, -3.0, 3.0) * w[None, :]
             # one host->device transfer per rebuild, not per query
             self._Xn = torch.as_tensor(xn, dtype=self._dtype, device=self.device)
@@ -223,17 +226,17 @@ class KnowledgeBase:
     def _dtype(self) -> torch.dtype:
         return torch.float64 if self.device.type == "cpu" else torch.float32
 
-    def _normalize_query(self, state: np.ndarray) -> torch.Tensor:
+    def _normalize_query(self, state: np.ndarray) -> np.ndarray:
         """Z-score + clip + weight one state (or a (Q, D) batch of states)
-        on the host, then move it to the case matrix's device and dtype.
+        on the host, in float64.
 
         Clip z-scores: a low-variance feature (e.g. mean elasticity under a
         stable mix) must not dominate the metric when the runtime drifts
-        slightly out of the training distribution."""
-        w = self._weights(self._X.shape[1])
+        slightly out of the training distribution.  (``np.minimum`` of
+        ``np.maximum`` is ``np.clip``, NaN included, without its per-call
+        overhead, which a per-slot query pays.)"""
         q = self._transform(np.asarray(state, np.float64))
-        q = np.clip((q - self._mu) / self._sigma, -3.0, 3.0) * w
-        return torch.as_tensor(q, dtype=self._dtype).to(self.device)
+        return np.minimum(np.maximum((q - self._mu) / self._sigma, -3.0), 3.0) * self._w
 
     def case_matrix(self) -> torch.Tensor:
         """The normalised, weighted (N, D) case matrix on ``device``."""
@@ -263,10 +266,12 @@ class KnowledgeBase:
         return min(k or self.k, len(self._X)), self._normalize_query(state)
 
     def query(self, state: np.ndarray, k: int | None = None):
-        """Top-k nearest cases.  Returns (m_values, rho_values, distances)."""
+        """Top-k nearest cases.  Returns (m_values, rho_values, distances),
+        the distances in float64 whatever the device computed in: see
+        ``_decisions``."""
         k, q = self._prepare(state, k)
-        dist, idx = knn_kernel.knn_topk(self._Xn, q, k)
-        return self._decisions(dist, idx)
+        dist, idx = knn_kernel.knn_lookup(self._Xn, q, k)
+        return self._Y[idx, 0], self._Y[idx, 1], dist
 
     def query_batch(self, states: np.ndarray, k: int | None = None):
         """Top-k nearest cases for a (Q, D) batch of states in one dispatch.
@@ -277,6 +282,7 @@ class KnowledgeBase:
         final ulps (ties may reorder)."""
         states = np.atleast_2d(np.asarray(states, np.float64))
         k, qs = self._prepare(states, k)
+        qs = torch.as_tensor(qs, dtype=self._dtype).to(self.device)
         dist, idx = knn_kernel.knn_topk_batch(self._Xn, qs, k)
         return self._decisions(dist, idx)
 

@@ -22,7 +22,7 @@ over them has three implementations, selected by ``solve(backend=...)``:
 - ``"numpy-ref"`` — the readable reference pass;
 - ``"device"``    — the pass on ``device`` (the counterpart of the JAX
                     package's ``backend="jax"``): the sorted entries cast to
-                    int32/float32 and walked by the CUDA kernel of
+                    int32/float32, packed, and walked by a CUDA kernel of
                     ``kernels/oracle_greedy.py`` on a CUDA device, by its
                     plain version on the CPU.  ``work`` adds up in float32,
                     so it may differ from the float64 passes in the last
@@ -194,24 +194,22 @@ def _greedy_numpy_ref(jobs, ci, capacity, horizon, lengths):
 
 def _greedy_device(jobs, ci, capacity, horizon, lengths, device):
     """The pass on ``device`` over the host-sorted entries, cast to int32
-    and float32 as the JAX package's ``backend="jax"`` casts them."""
+    and float32 as the JAX package's ``backend="jax"`` casts them, packed
+    and uploaded in one copy (``oracle_greedy.upload``)."""
     j_idx, t_idx, k_val, gain, _ = _build_entries(jobs, ci, horizon)
     n = len(jobs)
     if len(j_idx) == 0:
         return (np.zeros((n, horizon), np.int64), np.zeros(horizon, np.int64),
                 np.zeros(n))
-
-    def put(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(device)
-
+    entries, kmin, lens = oracle_greedy.upload(
+        j_idx, t_idx, k_val, gain, [j.k_min for j in jobs], lengths, device)
     alloc, used, work, walked = oracle_greedy.greedy_pass(
-        put(j_idx, np.int32), put(t_idx, np.int32), put(k_val, np.int32),
-        put(gain, np.float32), put([j.k_min for j in jobs], np.int32),
-        put(lengths, np.float32), int(capacity), int(horizon))
+        entries, kmin, lens, int(capacity), int(horizon), int(k_val.max()))
     walked = int(walked.item())
     if walked < 0:
         raise RuntimeError(f"greedy pass: entry {-1 - walked} holds an index "
-                           f"outside {n} jobs x {horizon} slots")
+                           f"outside {n} jobs x {horizon} slots or a scale the "
+                           "route cannot hold")
     stats["device_passes"] += 1
     stats["entries"] += len(j_idx)
     stats["walked"] += walked

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernel for the greedy pass of the offline oracle
+// Hand-written Hopper kernels for the greedy pass of the offline oracle
 // (Algorithm 1, src/repro_torch/core/oracle.py, backend="device"): walk the
 // pre-sorted (job, slot, scale) entries in order and take each one that
 //
@@ -14,16 +14,34 @@
 // lengths, so its results equal that pass bit for bit.
 //
 // What bounds it on an H100: neither bytes nor operations but the serial
-// chain.  Entry i reads what entry i-1 wrote, so one thread walks the
-// entries in order, one dependent chain of loads and compares per entry.
-// The design shortens each link: used, kmin, the thresholds len - 1e-9f and
-// work live in shared memory; the other warps stage the next batch of
-// entries into shared memory while warp 0's first lane walks the current
-// one, so the walker never waits on device memory for an entry; only
-// alloc (n x horizon int32, up to ~1 MB on the oracle's paths) stays in
-// device memory, where it sits in L2.  Once every job is done, every later
-// entry fails its first test, so the walk stops there: the results are
-// identical, and the number of entries walked comes back to the caller.
+// chain.  Entry i reads what entry i-1 wrote, so warp 0 walks the entries
+// in order while warps 1..7 stage the next batch of STAGE entries into
+// shared memory; one barrier per batch.  The entries arrive packed, one
+// int4 (j, t, k, bits of the float32 gain) each.
+//
+// Two walkers, chosen by shape (kernels/oracle_greedy.py::plan):
+//
+// - greedy_smem_kernel ("smem"): the whole state in shared memory: alloc as
+//   uint8 (scales up to 255), per-job (threshold, work) as one float2, used.
+//   The stagers turn each entry into a 16-byte record of everything that
+//   does not depend on the walk (the alloc cell, j and t, k, add, the
+//   expected previous value, the gain to add), so the walk never reads
+//   kmin.  Most entries are not taken (a learning window takes ~2 % of
+//   them), and a serial loop pays its whole per-iteration latency for each
+//   of them.  So warp 0 decides 32 entries at once, each lane on the state
+//   as the round found it; only the entries that are taken go through a
+//   serial commit, which every lane applies to its own copy of the state
+//   before it decides again (see the walker).  alloc is written back to the
+//   int32 output once, at the end.
+// - greedy_pass_kernel ("l2"): a serial walker (lane 0 of warp 0 walks),
+//   for shapes whose alloc does not fit beside the stages (e.g. the
+//   552-slot oracle spans, which stop early): used, kmin, thresholds and
+//   work in shared memory, alloc (int32) in device memory, where it sits
+//   in L2, read and written in the middle of the chain.
+//
+// Once every job is done, every later entry fails its first test, so both
+// walks stop there: the results are identical, and the number of entries
+// walked comes back to the caller.
 //
 // Numerics: the add and the threshold are __fadd_rn / __fsub_rn, IEEE
 // round-to-nearest, never contracted or approximated (the build has no
@@ -35,12 +53,19 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int THREADS = 256;      // warp 0 walks (lane 0), warps 1..7 stage
 constexpr int STAGERS = THREADS - 32;
-constexpr int STAGE = 2048;       // entries per staged batch (32 KB)
+constexpr int STAGE = 2048;       // entries per staged batch
 constexpr int SMEM_MAX = 232448 - 64;  // a block's shared memory, less the statics
+constexpr int ROUTE_SMEM = 0;
+constexpr int ROUTE_L2 = 1;
+constexpr int SCALE_MAX = 255;    // the largest scale a uint8 alloc holds
+
+// --- "l2": alloc in device memory ---------------------------------------------
 
 struct Stage {
   int j[STAGE];
@@ -49,21 +74,30 @@ struct Stage {
   float g[STAGE];
 };
 
-constexpr int STATE_OFFSET = 2 * (int)sizeof(Stage);
+constexpr int L2_STATE_OFFSET = 2 * (int)sizeof(Stage);
+
+__device__ __forceinline__ void stage_l2(Stage& s, const int4* __restrict__ e,
+                                         int cnt, int first, int stride) {
+  for (int i = first; i < cnt; i += stride) {
+    const int4 v = e[i];
+    s.j[i] = v.x;
+    s.t[i] = v.y;
+    s.k[i] = v.z;
+    s.g[i] = __int_as_float(v.w);
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
-greedy_pass_kernel(const int* __restrict__ j_idx, const int* __restrict__ t_idx,
-                   const int* __restrict__ k_val, const float* __restrict__ gain,
-                   const int* __restrict__ kmin, const float* __restrict__ lengths,
-                   int n_entries, int n, int horizon, int capacity,
-                   int* alloc, int* __restrict__ used_out,
+greedy_pass_kernel(const int4* __restrict__ entries, const int* __restrict__ kmin,
+                   const float* __restrict__ lengths, int n_entries, int n,
+                   int horizon, int capacity, int* alloc, int* __restrict__ used_out,
                    float* __restrict__ work_out, int* __restrict__ walked_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   Stage* stage = reinterpret_cast<Stage*>(smem);
-  int* s_used = reinterpret_cast<int*>(smem + STATE_OFFSET);   // [horizon]
-  int* s_kmin = s_used + horizon;                              // [n]
-  float* s_thr = reinterpret_cast<float*>(s_kmin + n);         // [n]
-  float* s_work = s_thr + n;                                   // [n]
+  int* s_used = reinterpret_cast<int*>(smem + L2_STATE_OFFSET);  // [horizon]
+  int* s_kmin = s_used + horizon;                                // [n]
+  float* s_thr = reinterpret_cast<float*>(s_kmin + n);           // [n]
+  float* s_work = s_thr + n;                                     // [n]
   __shared__ int s_unfinished;
   __shared__ int s_walked;                   // < 0: entry -1 - s_walked is bad
 
@@ -85,12 +119,7 @@ greedy_pass_kernel(const int* __restrict__ j_idx, const int* __restrict__ t_idx,
   }
   __syncthreads();
   if (mine) atomicAdd(&s_unfinished, mine);
-  for (int i = tid; i < min(STAGE, n_entries); i += THREADS) {
-    stage[0].j[i] = j_idx[i];
-    stage[0].t[i] = t_idx[i];
-    stage[0].k[i] = k_val[i];
-    stage[0].g[i] = gain[i];
-  }
+  stage_l2(stage[0], entries, min(STAGE, n_entries), tid, THREADS);
   __syncthreads();
 
   const int batches = (n_entries + STAGE - 1) / STAGE;
@@ -131,15 +160,9 @@ greedy_pass_kernel(const int* __restrict__ j_idx, const int* __restrict__ t_idx,
       s_unfinished = unfinished;
       s_walked = walked;
     } else if (tid >= 32 && b + 1 < batches) {
-      Stage& s = stage[(b + 1) & 1];
       const int nlo = lo + STAGE;
-      const int cnt = min(STAGE, n_entries - nlo);
-      for (int i = tid - 32; i < cnt; i += STAGERS) {
-        s.j[i] = j_idx[nlo + i];
-        s.t[i] = t_idx[nlo + i];
-        s.k[i] = k_val[nlo + i];
-        s.g[i] = gain[nlo + i];
-      }
+      stage_l2(stage[(b + 1) & 1], entries + nlo, min(STAGE, n_entries - nlo),
+               tid - 32, STAGERS);
     }
     __syncthreads();
   }
@@ -149,29 +172,211 @@ greedy_pass_kernel(const int* __restrict__ j_idx, const int* __restrict__ t_idx,
   if (tid == 0) walked_out[0] = s_walked;
 }
 
+// --- "smem": the whole state in shared memory ---------------------------------
+
+// One staged record (int4): x = the alloc cell j * horizon + t, or INT_MIN
+// when the entry is out of range (then y = z = 0, a safe address); y = j |
+// t << 16; z = k | add << 8 | prev << 16 (prev signed: a non-base entry of
+// scale 0 expects -1, which no cell holds); w = the bits of the float32
+// added to work when the entry is taken (1.0f for a base entry).
+constexpr int SMEM_STAGE_BYTES = 2 * STAGE * 16;
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr int round16(long long x) { return (int)((x + 15) / 16 * 16); }
+
+// Shared memory of the smem route: two record stages, float2 (threshold,
+// work) per job, kmin per job, used per slot, uint8 alloc (n x horizon).
+__host__ __device__ constexpr long long smem_route_bytes(int n, int horizon) {
+  return (long long)SMEM_STAGE_BYTES + 12LL * n + 4LL * horizon +
+         round16((long long)n * horizon);
+}
+
+__device__ __forceinline__ int4 make_record(int4 e, const int* s_kmin, int n,
+                                            int horizon) {
+  const int j = e.x, t = e.y, k = e.z;
+  if ((unsigned)j >= (unsigned)n || (unsigned)t >= (unsigned)horizon ||
+      (unsigned)k > (unsigned)SCALE_MAX)
+    return make_int4(INT_MIN, 0, 0, 0);
+  const int km = s_kmin[j];
+  const bool base = k == km;
+  const int add = base ? km : 1;                   // <= k <= 255 when base
+  const unsigned prev = base ? 0u : (unsigned)(k - 1);
+  return make_int4(j * horizon + t, (int)((unsigned)j | (unsigned)t << 16),
+                   (int)((unsigned)k | (unsigned)add << 8 | prev << 16),
+                   base ? __float_as_int(1.0f) : e.w);
+}
+
+__device__ __forceinline__ void stage_records(int4* rec, const int4* __restrict__ e,
+                                              int cnt, int first, int stride,
+                                              const int* s_kmin, int n, int horizon) {
+  for (int i = first; i < cnt; i += stride)
+    rec[i] = make_record(e[i], s_kmin, n, horizon);
+}
+
+// Lanes above q.
+__device__ __forceinline__ unsigned above(int q) { return q >= 31 ? 0u : FULL << (q + 1); }
+
+__global__ void __launch_bounds__(THREADS)
+greedy_smem_kernel(const int4* __restrict__ entries, const int* __restrict__ kmin,
+                   const float* __restrict__ lengths, int n_entries, int n,
+                   int horizon, int capacity, int* __restrict__ alloc_out,
+                   int* __restrict__ used_out, float* __restrict__ work_out,
+                   int* __restrict__ walked_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* stage = reinterpret_cast<int4*>(smem);                   // 2 x STAGE records
+  float2* s_job = reinterpret_cast<float2*>(smem + SMEM_STAGE_BYTES);  // [n] (thr, work)
+  int* s_kmin = reinterpret_cast<int*>(s_job + n);               // [n]
+  int* s_used = s_kmin + n;                                      // [horizon]
+  unsigned char* s_alloc = reinterpret_cast<unsigned char*>(s_used + horizon);
+  __shared__ int s_unfinished;
+  __shared__ int s_walked;                   // < 0: entry -1 - s_walked is bad
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    s_unfinished = 0;
+    s_walked = 0;
+  }
+  const int cells = n * horizon;
+  for (int c = tid; c < round16(cells) / 4; c += THREADS)
+    reinterpret_cast<int*>(s_alloc)[c] = 0;
+  for (int t = tid; t < horizon; t += THREADS) s_used[t] = 0;
+  int mine = 0;
+  for (int j = tid; j < n; j += THREADS) {
+    const float thr = __fsub_rn(lengths[j], 1e-9f);
+    s_kmin[j] = kmin[j];
+    s_job[j] = make_float2(thr, 0.0f);
+    mine += 0.0f < thr;
+  }
+  __syncthreads();
+  if (mine) atomicAdd(&s_unfinished, mine);
+  stage_records(stage, entries, min(STAGE, n_entries), tid, THREADS, s_kmin, n, horizon);
+  __syncthreads();
+
+  const int batches = (n_entries + STAGE - 1) / STAGE;
+  for (int b = 0; b < batches; ++b) {
+    if (s_unfinished == 0 || s_walked < 0) break;    // uniform: read after a barrier
+    const int lo = b * STAGE;
+    if (tid < 32) {
+      // Warp 0 walks in rounds of 32 entries, one per lane; each lane loads
+      // its entry's state as the round finds it.  The first entry of the
+      // round that its lane would take (or that is out of range) is where
+      // the serial pass first writes: every entry before it fails a test on
+      // a state nothing changed.  That entry is committed; every lane then
+      // applies the commit to its own copy of the state (the work of the
+      // job, the cell, the used count of the slot), decides again, and the
+      // next entry to take is found the same way.  So only the entries
+      // that are taken stand on the serial chain.
+      const int4* rec = stage + (b & 1) * STAGE;
+      const int cnt = min(STAGE, n_entries - lo);
+      int unfinished = s_unfinished;
+      int walked = lo + cnt;
+      for (int pos = 0; pos < cnt; pos += 32) {
+        const bool live = pos + lane < cnt;
+        const int4 r = live ? rec[pos + lane] : make_int4(0, 0, 0, 0);
+        const int j = r.y & 0xFFFF;
+        const int t = (unsigned)r.y >> 16;
+        const float2 js = s_job[j];
+        float w = js.y;
+        int a = s_alloc[r.x & INT_MAX];
+        int u = s_used[t];
+        const int add = (r.z >> 8) & 0xFF;
+        const int prev = r.z >> 16;
+        const bool bad = live && r.x < 0;
+        const bool ok = live && !bad;
+        const unsigned bads = __ballot_sync(FULL, bad);
+        unsigned from = FULL;
+        bool stop = false;
+        for (;;) {
+          const bool take = ok && w < js.x && a == prev && u <= capacity - add;
+          const unsigned takes = __ballot_sync(FULL, take);
+          const unsigned cand = (takes | bads) & from;
+          if (!cand) break;
+          const int q = __ffs(cand) - 1;
+          if (!(takes >> q & 1)) {                     // out of range
+            walked = -1 - (lo + pos + q);
+            stop = true;
+            break;
+          }
+          const float nw = __fadd_rn(w, __int_as_float(r.w));
+          const int nu = u + add;
+          if (lane == q) {
+            s_alloc[r.x] = (unsigned char)(r.z & 0xFF);
+            s_used[t] = nu;
+            s_job[j].y = nw;
+          }
+          const int jtq = __shfl_sync(FULL, r.y, q);
+          const int kq = __shfl_sync(FULL, r.z & 0xFF, q);
+          const int nuq = __shfl_sync(FULL, nu, q);
+          const float nwq = __shfl_sync(FULL, nw, q);
+          const int done = __shfl_sync(FULL, (int)!(nw < js.x), q);
+          if (j == (jtq & 0xFFFF)) w = nwq;
+          if (r.y == jtq) a = kq;
+          if (t == (int)((unsigned)jtq >> 16)) u = nuq;
+          if (done && --unfinished == 0) {
+            walked = lo + pos + q + 1;                 // every job done
+            stop = true;
+            break;
+          }
+          from = above(q);
+        }
+        __syncwarp();                                  // commits seen by the next round
+        if (stop) break;
+      }
+      if (lane == 0) {
+        s_unfinished = unfinished;
+        s_walked = walked;
+      }
+    } else if (b + 1 < batches) {
+      const int nlo = lo + STAGE;
+      stage_records(stage + ((b + 1) & 1) * STAGE, entries + nlo,
+                    min(STAGE, n_entries - nlo), tid - 32, STAGERS, s_kmin, n, horizon);
+    }
+    __syncthreads();
+  }
+
+  for (int c = tid; c < cells; c += THREADS) alloc_out[c] = s_alloc[c];
+  for (int t = tid; t < horizon; t += THREADS) used_out[t] = s_used[t];
+  for (int j = tid; j < n; j += THREADS) work_out[j] = s_job[j].y;
+  if (tid == 0) walked_out[0] = s_walked;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The largest horizon + 3 * n the shared-memory state can hold.
-int greedy_pass_max_state() { return (SMEM_MAX - STATE_OFFSET) / 4; }
+int greedy_stage() { return STAGE; }
+int greedy_smem_max() { return SMEM_MAX; }
 
-// j_idx, t_idx, k_val (E,) int32 and gain (E,) float32 in greedy order;
-// kmin (n,) int32 and lengths (n,) float32; outputs alloc (n, horizon)
-// int32 row-major, used (horizon,) int32, work (n,) float32 and walked (1,)
-// int32: the entries walked before every job was done (E if some job never
-// was), or -1 - i when entry i holds an index out of range.
-int greedy_pass(const int* j_idx, const int* t_idx, const int* k_val,
-                const float* gain, const int* kmin, const float* lengths,
+// Dynamic shared memory a route needs for n jobs x horizon slots, or -1
+// when it does not fit a block.
+int greedy_smem_bytes(int route, int n, int horizon) {
+  const long long bytes = route == ROUTE_SMEM
+      ? smem_route_bytes(n, horizon)
+      : (long long)L2_STATE_OFFSET + 4LL * (horizon + 3LL * n);
+  return bytes <= SMEM_MAX && n >= 0 && horizon > 0 ? (int)bytes : -1;
+}
+
+// entries (E, 4) int32 rows (j, t, k, bits of the float32 gain) in greedy
+// order, 16-byte aligned; kmin (n,) int32 and lengths (n,) float32; outputs
+// alloc (n, horizon) int32 row-major, used (horizon,) int32, work (n,)
+// float32 and walked (1,) int32: the entries walked before every job was
+// done (E if some job never was), or -1 - i when entry i holds an index out
+// of range (on the smem route also a scale outside 0..255).  route 0 is
+// "smem", 1 "l2".
+int greedy_pass(int route, const int* entries, const int* kmin, const float* lengths,
                 int n_entries, int n, int horizon, int capacity, int* alloc,
                 int* used, float* work, int* walked, void* stream) {
-  if (horizon + 3LL * n > greedy_pass_max_state()) return (int)cudaErrorInvalidValue;
-  const int smem = STATE_OFFSET + 4 * (horizon + 3 * n);
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (route != ROUTE_SMEM && route != ROUTE_L2) return (int)cudaErrorInvalidValue;
+  const int smem = greedy_smem_bytes(route, n, horizon);
+  if (smem < 0 || n_entries < 0 || (reinterpret_cast<size_t>(entries) & 15))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = route == ROUTE_SMEM ? greedy_smem_kernel : greedy_pass_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  greedy_pass_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      j_idx, t_idx, k_val, gain, kmin, lengths, n_entries, n, horizon,
+  kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const int4*>(entries), kmin, lengths, n_entries, n, horizon,
       capacity, alloc, used, work, walked);
   return (int)cudaGetLastError();
 }

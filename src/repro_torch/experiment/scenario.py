@@ -22,6 +22,9 @@ WEEK = 24 * 7
 # CI margin past the nominal trace so run-to-completion overruns stay
 # on real (not padded) carbon data.
 CI_MARGIN_HOURS = 24 * 30
+# Fields of the reference's Scenario whose layers the port lacks.
+_UNPORTED = ("regions", "migration", "forecast", "faults", "ci_outage",
+             "serving", "mpc")
 
 
 @dataclasses.dataclass
@@ -64,9 +67,19 @@ class Scenario:
     predecessors complete, and the ``dag-*`` policy family applies.
     ``DagConfig(independent=True)`` generates the same tasks with the
     edges stripped — the independent-task upper-bound twin.
+
+    The fields are the JAX package's, in its order, so positional and
+    keyword calls bind alike in both packages.  The fields of layers not
+    ported yet (``regions``, ``migration``, ``forecast``, ``faults``,
+    ``ci_outage``, ``serving``, ``mpc``) keep the reference's defaults and
+    raise ``NotImplementedError`` when set to anything else.
     """
 
     region: str = "south-australia"
+    regions: tuple[str, ...] = ()       # not ported: geo scenarios
+    migration: object | None = None     # not ported: geo migration model
+    dag: DagConfig | None = None        # DAG workload (precedence gating)
+    forecast: object | None = None      # not ported: forecast models
     family: str = "azure"
     capacity: int = 60
     utilization: float = 0.5
@@ -80,10 +93,19 @@ class Scenario:
     rate_scale: float = 1.0
     delay_override: int | None = None   # uniform slack d (Fig. 9 / Fig. 14)
     eval_shift: float = 0.0             # Fig. 13 distribution shift
+    faults: object | None = None        # not ported: fault processes
+    ci_outage: object | None = None     # not ported: carbon-feed outages
+    serving: object | None = None       # not ported: the serving tier
     engine: str = "vector"
-    dag: DagConfig | None = None        # DAG workload (precedence gating)
+    mpc: object | None = None           # not ported: receding-horizon knobs
 
     def __post_init__(self) -> None:
+        object.__setattr__(self, "regions", tuple(self.regions))
+        for name in _UNPORTED:
+            value = getattr(self, name)
+            if value != () if name == "regions" else value is not None:
+                raise NotImplementedError(
+                    f"Scenario.{name} is not ported yet; leave it at its default")
         if self.region not in REGIONS:
             raise ValueError(f"unknown region {self.region!r}; available "
                              f"regions: {', '.join(sorted(REGIONS))}")

@@ -1,13 +1,15 @@
-"""The oracle's greedy pass on the device: the hand-written CUDA kernel and
-its plain version.
+"""The oracle's greedy pass on the device: the hand-written CUDA kernels and
+their plain version.
 
-``greedy_pass(j_idx, t_idx, k_val, gain, kmin, lengths, capacity, horizon)``
-walks the entries of Algorithm 1 in their sorted order (``core/oracle.py``
-builds and sorts them on the host) and allocates greedily under the cluster
-capacity.  It is the counterpart of the JAX package's ``_greedy_jax``
+``greedy_pass(entries, kmin, lengths, capacity, horizon, k_max)`` walks the
+entries of Algorithm 1 in their sorted order (``core/oracle.py`` builds and
+sorts them on the host) and allocates greedily under the cluster capacity.
+It is the counterpart of the JAX package's ``_greedy_jax``
 (``src/repro/core/oracle.py:177``, a jitted ``lax.fori_loop``), with its
 types: int32 entry indices, int32 ``alloc``/``used``, float32 ``gain``,
-``lengths`` and ``work``.  An entry ``(j, t, k)`` is taken when
+``lengths`` and ``work``.  ``entries`` is one (E, 4) int32 array, a row
+``(j, t, k, gain)`` per entry with the float32 gain's bits in the last
+column (``pack_entries``).  An entry is taken when
 
 - ``work[j] < lengths[j] - 1e-9`` in float32 (job ``j`` not yet done),
 - ``alloc[j, t]`` is 0 for the base entry ``k == kmin[j]`` and ``k - 1``
@@ -22,37 +24,125 @@ later entry fails, so both versions stop there.
 Returns ``(alloc (n, horizon), used (horizon,), work (n,), walked (1,))``
 on the inputs' device, ``walked`` being the number of entries walked (all
 of them when some job never finishes).  On CPU tensors it runs
-``greedy_pass_plain``; on CUDA tensors it launches the kernel of
-``csrc/oracle_greedy.cu`` or raises.  Each launch adds one to
-``launches["greedy_pass"]``.  Both versions do the same IEEE float32 adds
-in the same order, so they agree bit for bit.
+``greedy_pass_plain``; on CUDA tensors it launches a kernel of
+``csrc/oracle_greedy.cu`` or raises.  ``plan`` picks the kernel by shape:
+``"smem"`` keeps ``alloc`` in shared memory as uint8 where it fits beside
+the staged entries (scales up to 255), ``"l2"`` keeps it in device memory.
+Each launch adds one to ``launches["greedy_pass"]`` and to its route's
+count.  Every version does the same IEEE float32 adds in the same order, so
+they agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from ._build import build_library
 
-#: Kernel launches since the last ``reset_launches()``.
-launches = {"greedy_pass": 0}
+ROUTES = ("smem", "l2")
 
+#: Kernel launches since the last ``reset_launches()``: in all and by route.
+launches = {"greedy_pass": 0, "smem": 0, "l2": 0}
+
+# The kernels' constants (csrc/oracle_greedy.cu).
+STAGE = 2048                   # entries per staged batch
+SMEM_MAX = 232448 - 64         # a block's shared memory, less the statics
+SCALE_MAX = 255                # the largest scale the smem route's uint8 alloc holds
 _EPS = 1e-9
 
 _lib: ctypes.CDLL | None = None
+_staging: dict = {}             # per device: the pinned upload buffer, its last copy's event
+_staging_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    launches["greedy_pass"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
-def greedy_pass_plain(j_idx: torch.Tensor, t_idx: torch.Tensor,
-                      k_val: torch.Tensor, gain: torch.Tensor,
-                      kmin: torch.Tensor, lengths: torch.Tensor,
-                      capacity: int, horizon: int):
-    """The pass as a loop over the entries, in float32 numpy scalars."""
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(route: str, n: int, horizon: int) -> int:
+    """Dynamic shared memory of ``route`` for n jobs x horizon slots:
+    ``"smem"`` two stages of 16-byte records, (threshold, work) float2,
+    kmin and used int32, alloc uint8; ``"l2"`` two stages of four int32
+    arrays, used, kmin, thresholds and work."""
+    if route == "smem":
+        return 2 * STAGE * 16 + 12 * n + 4 * horizon + _round16(n * horizon)
+    if route == "l2":
+        return 2 * STAGE * 16 + 4 * (horizon + 3 * n)
+    raise ValueError(f"unknown greedy route {route!r}; use one of {ROUTES}")
+
+
+def plan(n: int, horizon: int, k_max: int) -> dict:
+    """The route for n jobs x horizon slots with scales up to ``k_max``:
+    ``"smem"`` where its state fits a block and every scale fits a byte,
+    else ``"l2"``; raises when neither fits.  Returns the route and its
+    dynamic shared memory in bytes."""
+    if n < 0 or horizon < 1:
+        raise ValueError(f"{n} jobs x {horizon} slots")
+    for route in ROUTES:
+        nbytes = smem_bytes(route, n, horizon)
+        if nbytes <= SMEM_MAX and (route == "l2" or k_max <= SCALE_MAX):
+            return dict(route=route, smem_bytes=nbytes)
+    raise ValueError(f"{n} jobs x {horizon} slots exceed the kernel's shared memory "
+                     f"({smem_bytes('l2', n, horizon)} > {SMEM_MAX} bytes)")
+
+
+def pack_entries(j_idx, t_idx, k_val, gain, out: np.ndarray | None = None) -> np.ndarray:
+    """The (E, 4) int32 layout both versions take: j, t, k and the bits of
+    the float32 gain."""
+    e = np.empty((len(j_idx), 4), np.int32) if out is None else out
+    e[:, 0] = j_idx
+    e[:, 1] = t_idx
+    e[:, 2] = k_val
+    e[:, 3] = np.asarray(gain, np.float32).view(np.int32)
+    return e
+
+
+def upload(j_idx, t_idx, k_val, gain, kmin, lengths, device):
+    """The packed entries, kmin (int32) and lengths (float32) on ``device``.
+
+    To a CUDA device in one copy: all three are written into one pinned
+    host buffer, reused from call to call, and copied at once; the results
+    are views of that one device tensor."""
+    device = torch.device(device)
+    e, n = len(j_idx), len(kmin)
+    size = 4 * e + 2 * n
+
+    def fill(host):
+        pack_entries(j_idx, t_idx, k_val, gain, out=host[:4 * e].reshape(e, 4))
+        host[4 * e:4 * e + n] = kmin
+        host[4 * e + n:] = np.asarray(lengths, np.float32).view(np.int32)
+
+    if device.type == "cpu":
+        host = np.empty(size, np.int32)
+        fill(host)
+        flat = torch.from_numpy(host)
+    else:
+        with _staging_lock:
+            buf, done = _staging.get(device, (None, None))
+            if buf is None or buf.numel() < size:
+                buf = torch.empty(max(size, 1 << 20), dtype=torch.int32, pin_memory=True)
+            elif done is not None:
+                done.synchronize()      # the last copy out of the buffer ended
+            fill(buf[:size].numpy())
+            flat = buf[:size].to(device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            _staging[device] = (buf, done)
+    return (flat[:4 * e].view(e, 4), flat[4 * e:4 * e + n],
+            flat[4 * e + n:].view(torch.float32))
+
+
+def greedy_pass_plain(entries: torch.Tensor, kmin: torch.Tensor,
+                      lengths: torch.Tensor, capacity: int, horizon: int):
+    """The pass as a loop over the packed entries, in float32 numpy scalars."""
     n = kmin.shape[0]
     thr = list(lengths.numpy().astype(np.float32) - np.float32(_EPS))
     km_l = kmin.tolist()
@@ -61,8 +151,9 @@ def greedy_pass_plain(j_idx: torch.Tensor, t_idx: torch.Tensor,
     alloc = [[0] * horizon for _ in range(n)]
     one = np.float32(1.0)
     unfinished = sum(1 for x in thr if np.float32(0.0) < x)
-    jl, tl, kl = j_idx.tolist(), t_idx.tolist(), k_val.tolist()
-    gl = gain.numpy().astype(np.float32)
+    e = entries.numpy()
+    jl, tl, kl = e[:, 0].tolist(), e[:, 1].tolist(), e[:, 2].tolist()
+    gl = np.ascontiguousarray(e[:, 3]).view(np.float32)
     walked = len(jl) if unfinished else 0
     for i in range(walked):
         j, t, k = jl[i], tl[i], kl[i]
@@ -106,10 +197,13 @@ def build() -> str:
         return ""
     lib, log = build_library("oracle_greedy")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.greedy_pass.argtypes = [p] * 6 + [i] * 4 + [p] * 5
+    lib.greedy_pass.argtypes = [i] + [p] * 3 + [i] * 4 + [p] * 5
     lib.greedy_pass.restype = i
-    lib.greedy_pass_max_state.argtypes = []
-    lib.greedy_pass_max_state.restype = i
+    lib.greedy_smem_bytes.argtypes = [i, i, i]
+    lib.greedy_smem_bytes.restype = i
+    for name in ("greedy_stage", "greedy_smem_max"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     _lib = lib
     return log
 
@@ -117,47 +211,54 @@ def build() -> str:
 # --- dispatch ---------------------------------------------------------------
 
 
-def greedy_pass(j_idx: torch.Tensor, t_idx: torch.Tensor, k_val: torch.Tensor,
-                gain: torch.Tensor, kmin: torch.Tensor, lengths: torch.Tensor,
-                capacity: int, horizon: int):
-    """The greedy pass over sorted entries; see the module docstring."""
-    args = (j_idx, t_idx, k_val, gain, kmin, lengths)
+def greedy_pass(entries: torch.Tensor, kmin: torch.Tensor, lengths: torch.Tensor,
+                capacity: int, horizon: int, k_max: int, route: str | None = None):
+    """The greedy pass over sorted, packed entries; see the module
+    docstring.  ``k_max`` bounds the entries' scales (it picks the route);
+    ``route`` names a kernel instead of ``plan``'s choice."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown greedy route {route!r}; use one of {ROUTES}")
+    args = (entries, kmin, lengths)
     if all(x.device.type == "cpu" for x in args):
         return greedy_pass_plain(*args, capacity, horizon)
-    dev = j_idx.device
+    dev = entries.device
     if dev.type != "cuda" or any(x.device != dev for x in args):
         raise ValueError("the entries, kmin and lengths must lie on the same "
                          f"CUDA device, got {[str(x.device) for x in args]}")
-    for name, x, dt in (("j_idx", j_idx, torch.int32), ("t_idx", t_idx, torch.int32),
-                        ("k_val", k_val, torch.int32), ("gain", gain, torch.float32),
-                        ("kmin", kmin, torch.int32), ("lengths", lengths, torch.float32)):
+    for name, x, dt, dim in (("entries", entries, torch.int32, 2),
+                             ("kmin", kmin, torch.int32, 1),
+                             ("lengths", lengths, torch.float32, 1)):
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
-        if x.dim() != 1 or not x.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous, got shape "
+        if x.dim() != dim or not x.is_contiguous():
+            raise ValueError(f"{name} must be {dim}-D and contiguous, got shape "
                              f"{tuple(x.shape)}, strides {x.stride()}")
-    n_entries, n = j_idx.shape[0], kmin.shape[0]
-    if not (t_idx.shape[0] == k_val.shape[0] == gain.shape[0] == n_entries
-            and lengths.shape[0] == n):
-        raise ValueError("the four entry arrays must share one length, and "
-                         "kmin and lengths another")
+    n_entries, n = entries.shape[0], kmin.shape[0]
+    if entries.shape[1] != 4 or lengths.shape[0] != n:
+        raise ValueError(f"entries must be (E, 4) and kmin and lengths share one "
+                         f"length, got {tuple(entries.shape)}, {n}, {lengths.shape[0]}")
+    if entries.data_ptr() % 16:
+        raise ValueError("entries must start on a 16-byte boundary")
     if not (0 < horizon and 0 <= capacity < 2 ** 31 and n_entries < 2 ** 31):
         raise ValueError(f"horizon {horizon}, capacity {capacity} or "
                          f"{n_entries} entries out of range")
+    route = route or plan(n, horizon, k_max)["route"]
     build()
-    if horizon + 3 * n > _lib.greedy_pass_max_state():
-        raise ValueError(f"{n} jobs x {horizon} slots exceed the kernel's shared "
-                         f"memory (horizon + 3 n <= {_lib.greedy_pass_max_state()})")
+    nbytes = _lib.greedy_smem_bytes(ROUTES.index(route), n, int(horizon))
+    if nbytes < 0:
+        raise ValueError(f"{n} jobs x {horizon} slots exceed the {route} route's "
+                         f"shared memory ({smem_bytes(route, n, horizon)} > {SMEM_MAX})")
     alloc = torch.empty((n, horizon), dtype=torch.int32, device=dev)
     used = torch.empty(horizon, dtype=torch.int32, device=dev)
     work = torch.empty(n, dtype=torch.float32, device=dev)
     walked = torch.empty(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.greedy_pass(*(x.data_ptr() for x in args), n_entries, n,
-                           int(horizon), int(capacity), alloc.data_ptr(),
-                           used.data_ptr(), work.data_ptr(), walked.data_ptr(),
-                           stream)
+    err = _lib.greedy_pass(ROUTES.index(route), entries.data_ptr(), kmin.data_ptr(),
+                           lengths.data_ptr(), n_entries, n, int(horizon),
+                           int(capacity), alloc.data_ptr(), used.data_ptr(),
+                           work.data_ptr(), walked.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"greedy_pass failed with cudaError_t {err}")
+        raise RuntimeError(f"greedy_pass ({route}) failed with cudaError_t {err}")
     launches["greedy_pass"] += 1
+    launches[route] += 1
     return alloc, used, work, walked

@@ -128,6 +128,63 @@ def test_kernel_ties_and_checks(cuda):
         knn.knn_topk(cases, q.cpu(), 3)
 
 
+def _device_query_lookup(cases, q, k):
+    """The per-slot lookup from device tensors: the query copied to the
+    card, the kernel, indices and float64 distances copied back one after
+    the other."""
+    dist, idx = knn.knn_topk(cases, torch.as_tensor(q, dtype=torch.float32).to(cases.device), k)
+    return dist.double().cpu().numpy(), idx.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 1344, 4099])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_lookup_matches_plain_and_device_query(cuda, n, k):
+    """``knn_lookup`` (query as the launch parameter, neighbours written into
+    pinned host memory): one launch per call, distances within the plain
+    version's tolerance and bit for bit those of the device-query protocol,
+    ties (duplicated rows) to the lower index."""
+    if k > n:
+        pytest.skip("k > N")
+    cases, q = _inputs(n, 13, seed=3 * n + k)
+    if n > 8:
+        cases[[n // 3, n // 2, n - 1]] = cases[1]          # a tie of four
+        q = cases[1] + np.float32(1e-3)
+    c = torch.from_numpy(cases).to(cuda)
+    knn.reset_launches()
+    dist, idx = knn.knn_lookup(c, q.astype(np.float64), k)
+    assert knn.launches == {"knn_topk": 1, "knn_topk_batch": 0}
+    assert dist.dtype == np.float64 and idx.dtype == np.int64 and dist.shape == (k,)
+    dp, ip = knn.knn_topk_plain(c, torch.from_numpy(q).to(cuda), k)
+    _assert_topk_close(dist, idx, dp.cpu(), ip.cpu(), cases, q[None])
+    dq, iq = _device_query_lookup(c, q, k)
+    np.testing.assert_array_equal(dist, dq)
+    np.testing.assert_array_equal(idx, iq)
+    if n > 8 and k >= 4:
+        assert idx[:4].tolist() == [1, n // 3, n // 2, n - 1]
+
+
+@pytest.mark.cuda
+def test_kernel_lookup_tiling_and_checks(cuda):
+    lib = knn._lib
+    for d in (1, 13, 64, 255, 256):
+        for n in (1, 2048, 2049, 4099, 50_000):
+            assert lib.knn_topk_blocks(n, d) == knn.query_blocks(n, d)
+    cases = torch.from_numpy(_inputs(3000, 256)[0]).to(cuda)
+    q = np.ones(256)
+    dist, idx = knn.knn_lookup(cases, q, 8)           # D = 256: 16 blocks and the merge
+    dr, ir = knn.knn_topk_plain(cases, torch.ones(256, device=cuda), 8)
+    np.testing.assert_allclose(dist, dr.double().cpu().numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="host memory"):
+        knn.knn_lookup(cases, torch.ones(256, device=cuda), 3)
+    with pytest.raises(ValueError):
+        knn.knn_lookup(cases, np.ones(255), 3)
+    with pytest.raises(ValueError):
+        knn.knn_lookup(cases, q, 9)
+    with pytest.raises(TypeError):
+        knn.knn_lookup(cases.double(), q, 3)
+
+
 @pytest.mark.cuda
 def test_kb_on_cuda_matches_cpu_neighbours(cuda):
     mat = Scenario(capacity=8, learn_weeks=3, family="alibaba",
@@ -150,7 +207,12 @@ def test_kb_on_cuda_matches_cpu_neighbours(cuda):
         np.testing.assert_allclose(d1, dc, rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(d1, d[i])
         np.testing.assert_array_equal(m1, m[i])
-    assert knn.launches == {"knn_topk": len(states), "knn_topk_batch": 1}
+        k, q = kb._prepare(s, None)
+        dq, iq = _device_query_lookup(kb.case_matrix(), q, k)
+        np.testing.assert_array_equal(d1, dq)
+        np.testing.assert_array_equal(m1, kb._Y[iq, 0])
+    # one lookup launch per query, one batch launch, and the protocol's launches
+    assert knn.launches == {"knn_topk": 2 * len(states), "knn_topk_batch": 1}
 
 
 @pytest.fixture
@@ -413,60 +475,131 @@ def test_kernel_score_checks(cuda_oracle):
 
 
 def _greedy_inputs(device, capacity, cut=None):
-    """The entries of a learning window of a small scenario, as the device
-    pass casts them."""
+    """The entries of a learning window of a small scenario, packed as the
+    device pass hands them over, with kmin, lengths and the largest scale."""
     from repro_torch.core import oracle
 
     mat = Scenario(capacity=8, learn_weeks=1, family="alibaba", seed=101).materialize()
     jobs = [j for j in mat.hist if j.arrival < WEEK][:cut]
     j, t, k, g, _ = oracle._build_entries(jobs, mat.ci.trace[:WEEK], WEEK)
-    args = [torch.from_numpy(x.astype(np.int32)) for x in (j, t, k)] + [
-        torch.from_numpy(g.astype(np.float32)),
-        torch.tensor([x.k_min for x in jobs], dtype=torch.int32),
-        torch.tensor([x.length for x in jobs], dtype=torch.float32)]
-    return [a.to(device) for a in args], capacity, WEEK
+    args = oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
+                                [x.length for x in jobs], device)
+    return list(args), capacity, WEEK, int(k.max())
+
+
+def _greedy_equal(got, want, what):
+    for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f"{what}: {name}"
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["smem", "l2"])
 @pytest.mark.parametrize("capacity,cut", [(8, None), (3, None), (40, 30)])
-def test_kernel_greedy_matches_plain(cuda_oracle, capacity, cut):
-    """Bit for bit against the plain pass: the full window, an overloaded
-    capacity, and few jobs on a large cluster, where every job finishes and
-    both stop early."""
-    args, cap, horizon = _greedy_inputs(cuda_oracle, capacity, cut)
+def test_kernel_greedy_matches_plain(cuda_oracle, capacity, cut, route):
+    """Bit for bit against the plain pass on each route: the full window, an
+    overloaded capacity, and few jobs on a large cluster, where every job
+    finishes and both stop early."""
+    args, cap, horizon, k_max = _greedy_inputs(cuda_oracle, capacity, cut)
     oracle_greedy.reset_launches()
-    got = oracle_greedy.greedy_pass(*args, cap, horizon)
+    got = oracle_greedy.greedy_pass(*args, cap, horizon, k_max, route=route)
     torch.cuda.synchronize()
-    assert oracle_greedy.launches["greedy_pass"] == 1
+    assert oracle_greedy.launches == {"greedy_pass": 1, "smem": route == "smem",
+                                      "l2": route == "l2"}
     want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), cap, horizon)
-    for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
-        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+    _greedy_equal(got, want, route)
     if cut is not None:
         assert 0 < want[3].item() < args[0].shape[0]
 
 
+def _synthetic_window(n, horizon, n_entries, seed, k_max=4, length=3.0):
+    """Seeded random entries over n jobs x horizon slots, mixed k_min."""
+    rng = np.random.default_rng(seed)
+    kmin = rng.integers(1, 3, n)
+    j = rng.integers(0, n, n_entries)
+    k = np.minimum(kmin[j] + rng.integers(0, 3, n_entries), k_max)
+    return oracle_greedy.upload(j, rng.integers(0, horizon, n_entries), k,
+                                rng.uniform(0.1, 0.9, n_entries), kmin,
+                                rng.uniform(0.5, length, n), "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,horizon", [(923, WEEK), (924, WEEK), (48, 400), (1, 1)])
+def test_kernel_greedy_route_boundary(cuda_oracle, n, horizon):
+    """At the largest window the smem route holds, one job more, the
+    extension solve's shape and the smallest: the planned route, its shared
+    memory equal to the library's, and both routes (where they fit) equal
+    to the plain pass, through an early exit on the last."""
+    args = list(_synthetic_window(n, horizon, 30_000, seed=n + horizon))
+    plan = oracle_greedy.plan(n, horizon, 4)
+    assert plan["route"] == ("smem" if n != 924 else "l2")
+    lib = oracle_greedy._lib
+    for i, route in enumerate(oracle_greedy.ROUTES):
+        fits = lib.greedy_smem_bytes(i, n, horizon)
+        assert fits == (oracle_greedy.smem_bytes(route, n, horizon)
+                        if oracle_greedy.smem_bytes(route, n, horizon)
+                        <= oracle_greedy.SMEM_MAX else -1)
+    want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), 5, horizon)
+    oracle_greedy.reset_launches()
+    got = oracle_greedy.greedy_pass(*args, 5, horizon, 4)
+    torch.cuda.synchronize()
+    assert oracle_greedy.launches[plan["route"]] == 1
+    _greedy_equal(got, want, f"{n} x {horizon} on {plan['route']}")
+    if plan["route"] == "smem":
+        _greedy_equal(oracle_greedy.greedy_pass(*args, 5, horizon, 4, route="l2"),
+                      want, f"{n} x {horizon} on l2")
+    if (n, horizon) == (1, 1):
+        assert want[3].item() < 30_000      # the one job finishes: early exit
+
+
+@pytest.mark.cuda
+def test_kernel_greedy_forwarding(cuda_oracle):
+    """Runs of entries on one job, one cell and one slot back to back, so
+    every entry's prefetched state must be forwarded from the one before:
+    equal to the plain pass on both routes."""
+    n, horizon, reps = 6, 5, 4000
+    rng = np.random.default_rng(11)
+    j = np.repeat(rng.integers(0, n, reps // 4), 4)
+    t = np.repeat(rng.integers(0, horizon, reps // 2), 2)
+    k = np.tile([1, 2, 3, 4], reps // 4)
+    args = oracle_greedy.upload(j, t, k, rng.uniform(0.2, 0.9, reps), np.ones(n, int),
+                                np.full(n, 400.0), "cuda")
+    want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), 7, horizon)
+    assert want[1].sum().item() > 0
+    for route in oracle_greedy.ROUTES:
+        _greedy_equal(oracle_greedy.greedy_pass(*args, 7, horizon, 4, route=route),
+                      want, route)
+
+
 @pytest.mark.cuda
 def test_kernel_greedy_checks(cuda_oracle):
-    args, cap, horizon = _greedy_inputs(cuda_oracle, 8, cut=20)
+    args, cap, horizon, k_max = _greedy_inputs(cuda_oracle, 8, cut=20)
     bad = list(args)
-    bad[3] = bad[3].double()
-    with pytest.raises(TypeError, match="gain"):
-        oracle_greedy.greedy_pass(*bad, cap, horizon)
+    bad[2] = bad[2].double()
+    with pytest.raises(TypeError, match="lengths"):
+        oracle_greedy.greedy_pass(*bad, cap, horizon, k_max)
     bad = list(args)
-    bad[4] = bad[4].cpu()
+    bad[1] = bad[1].cpu()
     with pytest.raises(ValueError, match="same CUDA device"):
-        oracle_greedy.greedy_pass(*bad, cap, horizon)
+        oracle_greedy.greedy_pass(*bad, cap, horizon, k_max)
     bad = list(args)
-    bad[1] = bad[1][:-1]
-    with pytest.raises(ValueError, match="one length"):
-        oracle_greedy.greedy_pass(*bad, cap, horizon)
+    bad[0] = bad[0][:, :3].contiguous()
+    with pytest.raises(ValueError, match=r"\(E, 4\)"):
+        oracle_greedy.greedy_pass(*bad, cap, horizon, k_max)
     with pytest.raises(ValueError, match="shared memory"):
-        oracle_greedy.greedy_pass(*args, cap, 60_000)
+        oracle_greedy.greedy_pass(*args, cap, 60_000, k_max)
+    with pytest.raises(ValueError, match="shared memory"):
+        oracle_greedy.greedy_pass(*args, cap, 10_000, k_max, route="smem")
+    for route in oracle_greedy.ROUTES:
+        bad = list(args)
+        bad[0] = bad[0].clone()
+        bad[0][0, 1] = horizon                # a slot index out of range
+        *_, walked = oracle_greedy.greedy_pass(*bad, cap, horizon, k_max, route=route)
+        assert walked.item() == -1
     bad = list(args)
-    bad[1] = bad[1].clone()
-    bad[1][0] = horizon                       # a slot index out of range
-    *_, walked = oracle_greedy.greedy_pass(*bad, cap, horizon)
-    assert walked.item() == -1
+    bad[0] = bad[0].clone()
+    bad[0][3, 2] = 256                        # a scale no byte holds
+    *_, walked = oracle_greedy.greedy_pass(*bad, cap, horizon, k_max, route="smem")
+    assert walked.item() == -4
 
 
 @pytest.mark.cuda
@@ -483,6 +616,7 @@ def test_solve_device_backend_on_cuda_equals_cpu(cuda_oracle):
     oracle_greedy.reset_launches()
     card = oracle.solve(jobs, ci, 3, backend="device", device=cuda_oracle)
     assert oracle_greedy.launches["greedy_pass"] == oracle.stats["device_passes"] > 1
+    assert oracle_greedy.launches["smem"] == oracle_greedy.launches["greedy_pass"]
     assert card.schedule.extended.any()
     for name in ("capacity_curve", "rho_curve", "work_done"):
         np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))

@@ -192,3 +192,68 @@ def test_kb_defaults_to_cuda_and_raises_without_it():
         KnowledgeBase()
     with pytest.raises(RuntimeError, match="empty"):
         KnowledgeBase(device="cpu").query(np.zeros(13))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_lookup_on_cpu_runs_the_plain_version(dtype, k):
+    """``knn_lookup`` on CPU cases: the plain version's neighbours, as numpy
+    float64 distances and int64 indices, ties to the lower index, and no
+    launch."""
+    cases, q = _inputs(300, 13, seed=k)
+    cases[[7, 40, 41]] = cases[3]               # ties at one distance
+    knn.reset_launches()
+    c = torch.from_numpy(cases).to(dtype)
+    dist, idx = knn.knn_lookup(c, q.astype(np.float64), k)
+    assert isinstance(dist, np.ndarray) and dist.dtype == np.float64 and dist.shape == (k,)
+    assert isinstance(idx, np.ndarray) and idx.dtype == np.int64 and idx.shape == (k,)
+    dp, ip = knn.knn_topk_plain(c, torch.from_numpy(q).to(dtype), k)
+    np.testing.assert_array_equal(dist, dp.double().numpy())
+    np.testing.assert_array_equal(idx, ip.numpy())
+    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 0}
+    q3 = cases[3].astype(np.float64)
+    _, idx3 = knn.knn_lookup(c, q3, 4)
+    assert idx3.tolist() == [3, 7, 40, 41]
+
+
+def test_kb_query_goes_through_lookup(bases, monkeypatch):
+    """``KnowledgeBase.query`` makes one ``knn_lookup`` per call with the
+    normalised host query, and returns its float64 distances as they are."""
+    ref_kb, kb, states = bases
+    seen = []
+    lookup = knn.knn_lookup
+
+    def counted(cases, query, k):
+        seen.append((type(query), np.asarray(query).dtype, k))
+        return lookup(cases, query, k)
+
+    monkeypatch.setattr(knn, "knn_lookup", counted)
+    for s in states[:5]:
+        m, r, d = kb.query(s, k=5)
+        assert d.dtype == np.float64 and m.dtype == np.float64
+        np.testing.assert_allclose(d, ref_kb.query(s, k=5)[2], rtol=1e-12, atol=0)
+    assert seen == [(np.ndarray, np.dtype(np.float64), 5)] * 5
+
+
+@pytest.mark.parametrize("n,d,rows,blocks", [(1, 13, 2048, 1), (1344, 13, 2048, 1),
+                                             (2048, 13, 2048, 1), (2049, 13, 2048, 2),
+                                             (4099, 13, 2048, 3), (700, 256, 192, 4),
+                                             (1000, 64, 768, 2)])
+def test_query_tiling(n, d, rows, blocks):
+    """Rows per block (the tile of rows in shared memory) and blocks of the
+    single-query kernel; the merge launch runs past one block."""
+    assert knn.query_rows(d) == rows and rows % 4 == 0
+    assert rows * d * 4 <= knn.QSMEM
+    assert knn.query_blocks(n, d) == blocks
+
+
+def test_query_constants_match_the_cuda_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(knn.__file__).resolve().parents[1] / "csrc" / "knn.cu").read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["QTHREADS"], const["QROWS"], const["QSMEM"]) == \
+        (knn.QTHREADS, knn.QROWS, knn.QSMEM)
+    assert (const["KMAX"], const["MAX_D"]) == (knn.KMAX, knn.MAX_D)
+    assert "return (r < QROWS ? r : QROWS) / 4 * 4;" in src

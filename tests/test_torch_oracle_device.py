@@ -183,7 +183,7 @@ def test_run_device_backend_matches_jax(runs, name):
             [(s.provisioned, s.used) for s in b.slots]
     # 1 learning window + 1 re-learning + 2 oracle weeks, no launch on the CPU
     assert stats["device_passes"] >= 4
-    assert launches == {"greedy_pass": 0}
+    assert launches == {"greedy_pass": 0, "smem": 0, "l2": 0}
 
 
 def test_backend_checks():
@@ -199,6 +199,14 @@ def test_backend_checks():
             oracle.solve([], ci, 4, backend="device")
 
 
+def _packed(jobs, ci, horizon):
+    """A window's entries as the device pass hands them over: packed, with
+    kmin and lengths, on the CPU (the plain version)."""
+    j, t, k, g, _ = oracle._build_entries(jobs, ci, horizon)
+    return oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
+                                [x.length for x in jobs], "cpu"), (j, t, k, g)
+
+
 def test_plain_pass_stops_once_every_job_is_done():
     """Short jobs over a long horizon all finish: the plain pass stops
     early, reports the entries it walked, and still equals the JAX pass,
@@ -207,20 +215,113 @@ def test_plain_pass_stops_once_every_job_is_done():
     ci = rng.uniform(50, 500, 48)
     ref_jobs, jobs = _jobs([(int(rng.integers(0, 10)), float(rng.uniform(1, 3)),
                              20, 3) for _ in range(6)])
-    j, t, k, g, _ = oracle._build_entries(jobs, ci, 48)
-    args = [torch.from_numpy(x.astype(np.int32)) for x in (j, t, k)] + [
-        torch.from_numpy(g.astype(np.float32)),
-        torch.ones(6, dtype=torch.int32),
-        torch.tensor([x.length for x in jobs], dtype=torch.float32)]
-    alloc, used, work, walked = oracle_greedy.greedy_pass(*args, 5, 48)
+    (entries, kmin, lengths), (j, t, k, g) = _packed(jobs, ci, 48)
+    alloc, used, work, walked = oracle_greedy.greedy_pass(entries, kmin, lengths,
+                                                          5, 48, int(k.max()))
     assert 0 < walked.item() < len(j)
     ref_alloc, ref_used, ref_work = ref_oracle._greedy_jax(
-        *(a.numpy() for a in args), 5, 6, 48)
+        j.astype(np.int32), t.astype(np.int32), k.astype(np.int32),
+        g.astype(np.float32), kmin.numpy(), lengths.numpy(), 5, 6, 48)
     np.testing.assert_array_equal(alloc.numpy(), np.asarray(ref_alloc))
     np.testing.assert_array_equal(used.numpy(), np.asarray(ref_used))
     np.testing.assert_array_equal(work.numpy(), np.asarray(ref_work))
-    bad = list(args)
-    bad[1] = bad[1].clone()
-    bad[1][0] = 48
+    bad = entries.clone()
+    bad[0, 1] = 48
     with pytest.raises(IndexError, match="outside"):
-        oracle_greedy.greedy_pass(*bad, 5, 48)
+        oracle_greedy.greedy_pass(bad, kmin, lengths, 5, 48, int(k.max()))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_pass_on_packed_entries_matches_jax(seed):
+    """The plain pass on the packed layout against ``_greedy_jax`` on the
+    unpacked arrays: random windows with mixed ``k_min``, capacities that
+    bind, and jobs that finish early and late."""
+    rng = np.random.default_rng(seed)
+    horizon = 40
+    ci = rng.uniform(50, 500, horizon)
+    ref_jobs = [RefJob(job_id=i, arrival=int(rng.integers(0, 30)),
+                       length=float(rng.uniform(1, 8)), queue=0,
+                       delay=int(rng.integers(0, 12)),
+                       profile=ref_amdahl(km, km + 3, 0.3), k_min=km)
+                for i, km in enumerate(rng.integers(1, 4, 12))]
+    jobs = [Job(job_id=r.job_id, arrival=r.arrival, length=r.length, queue=0,
+                delay=r.delay, profile=amdahl_profile(r.k_min, r.k_min + 3, 0.3),
+                k_min=r.k_min) for r in ref_jobs]
+    (entries, kmin, lengths), (j, t, k, g) = _packed(jobs, ci, horizon)
+    for cap in (2, 6, 40):
+        got = oracle_greedy.greedy_pass(entries, kmin, lengths, cap, horizon, int(k.max()))
+        want = ref_oracle._greedy_jax(j.astype(np.int32), t.astype(np.int32),
+                                      k.astype(np.int32), g.astype(np.float32),
+                                      kmin.numpy(), lengths.numpy(), cap, len(jobs),
+                                      horizon)
+        for a, b in zip(got[:3], want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_packed_layout_round_trips_gain_bits():
+    """Column 3 holds the float32 gain's bits: every value, subnormals,
+    signed zeros, infinities and a NaN payload come back bit for bit."""
+    g = np.array([0.1, 1.0, -0.0, 0.0, 1e-45, 3.4e38, np.inf, -np.inf, 0.7236],
+                 np.float64)
+    nan = np.array([0x7FC01234], np.int32).view(np.float32)
+    g32 = np.concatenate([g.astype(np.float32), nan])
+    n = len(g32)
+    e = oracle_greedy.pack_entries(np.arange(n), np.arange(n) % 7, np.arange(n) + 1, g32)
+    assert e.dtype == np.int32 and e.shape == (n, 4)
+    np.testing.assert_array_equal(e[:, 3], g32.view(np.int32))
+    np.testing.assert_array_equal(e[:, :3].T, [np.arange(n), np.arange(n) % 7,
+                                               np.arange(n) + 1])
+    entries, kmin, lengths = oracle_greedy.upload(
+        np.arange(n), np.zeros(n), np.ones(n), g32, np.ones(3), [1.5, 2.0, 1e-9], "cpu")
+    np.testing.assert_array_equal(entries.numpy()[:, 3], g32.view(np.int32))
+    # float64 gains are rounded to float32 as the JAX pass casts them
+    np.testing.assert_array_equal(oracle_greedy.pack_entries([0] * 9, [0] * 9, [1] * 9, g)[:, 3],
+                                  g.astype(np.float32).view(np.int32))
+    assert kmin.dtype == torch.int32 and kmin.tolist() == [1, 1, 1]
+    assert lengths.dtype == torch.float32
+    np.testing.assert_array_equal(lengths.numpy(), np.float32([1.5, 2.0, 1e-9]))
+
+
+@pytest.mark.parametrize("n,horizon,k_max,route,nbytes", [
+    (434, WEEK, 16, "smem", 144_328),          # learning window 0
+    (923, WEEK, 16, "smem", 232_356),          # the largest window that fits
+    (924, WEEK, 16, "l2", 65_536 + 4 * (WEEK + 3 * 924)),             # one more job
+    (434, WEEK, 256, "l2", 65_536 + 4 * (WEEK + 3 * 434)),  # a scale above a byte
+    (434, 552, 16, "l2", 65_536 + 4 * (552 + 3 * 434)),     # an oracle span
+    (48, 400, 3, "smem", 65_536 + 12 * 48 + 4 * 400 + 19_200),  # the extension solve
+])
+def test_plan_routes_by_shape(n, horizon, k_max, route, nbytes):
+    got = oracle_greedy.plan(n, horizon, k_max)
+    assert got == dict(route=route, smem_bytes=nbytes)
+    assert nbytes <= oracle_greedy.SMEM_MAX
+    if route == "smem" and (n, horizon) == (923, WEEK):
+        assert oracle_greedy.smem_bytes("smem", 924, WEEK) > oracle_greedy.SMEM_MAX
+
+
+def test_plan_rejects_what_no_route_holds():
+    with pytest.raises(ValueError, match="shared memory"):
+        oracle_greedy.plan(434, 60_000, 16)
+    with pytest.raises(ValueError, match="unknown greedy route"):
+        oracle_greedy.smem_bytes("hbm", 4, 4)
+    with pytest.raises(ValueError, match="unknown greedy route"):
+        oracle_greedy.greedy_pass(*_packed(*_jobs([(0, 1.0, 0, 1)])[1:], np.ones(4), 4)[0],
+                                  1, 4, 1, route="hbm")
+
+
+def test_kernel_constants_match_the_cuda_source():
+    """The plan's constants and byte counts are those the kernel's source
+    declares (the card test also compares the library's byte counts)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(oracle_greedy.__file__).resolve().parents[1] / "csrc"
+           / "oracle_greedy.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert int(const["STAGE"]) == oracle_greedy.STAGE
+    assert int(const["SCALE_MAX"]) == oracle_greedy.SCALE_MAX
+    assert const["SMEM_MAX"].split("//")[0].strip() == "232448 - 64"
+    assert oracle_greedy.SMEM_MAX == 232448 - 64
+    assert "12LL * n + 4LL * horizon +" in src and "round16((long long)n * horizon)" in src
+    assert "4LL * (horizon + 3LL * n)" in src
+    assert oracle_greedy.ROUTES.index("smem") == int(const["ROUTE_SMEM"])
+    assert oracle_greedy.ROUTES.index("l2") == int(const["ROUTE_L2"])

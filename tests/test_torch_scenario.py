@@ -1,0 +1,60 @@
+"""The port's ``Scenario`` takes the reference's fields in the reference's
+order: positional and keyword calls bind the same names in both packages,
+and a field whose layer the port lacks raises when set."""
+import dataclasses
+
+import pytest
+
+from repro.core.forecast import NoisyForecast
+from repro.experiment import Scenario as RefScenario
+from repro_torch.experiment import Scenario
+
+UNPORTED = {"regions": ("south-australia", "california"), "migration": object(),
+            "forecast": NoisyForecast(), "faults": object(), "ci_outage": object(),
+            "serving": object(), "mpc": object()}
+
+
+def test_field_names_in_the_reference_order():
+    assert [f.name for f in dataclasses.fields(Scenario)] == \
+        [f.name for f in dataclasses.fields(RefScenario)]
+
+
+def test_defaults_equal_the_reference():
+    ref, port = RefScenario(), Scenario()
+    for f in dataclasses.fields(Scenario):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+
+
+@pytest.mark.parametrize("args", [
+    ("california",),
+    ("california", ()),
+    ("poland", (), None, None, None, "alibaba", 12, 0.4, 2, 3, 5, "low", "gpu",
+     0.5, 1.5, 0.8, 3, 0.1),
+])
+def test_positional_call_binds_the_same_names(args):
+    ref, port = RefScenario(*args), Scenario(*args)
+    for f in dataclasses.fields(Scenario):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    kw = {f.name: getattr(port, f.name) for f in dataclasses.fields(Scenario)}
+    assert Scenario(**kw) == port
+
+
+def test_region_then_family_positionally_is_refused_in_both():
+    """``Scenario("california", "alibaba")`` is a geo call in the reference
+    (``regions="alibaba"``, refused there as an unknown region); it must
+    not quietly set ``family`` in the port."""
+    with pytest.raises(ValueError):
+        RefScenario("california", "alibaba")
+    with pytest.raises(NotImplementedError, match="regions"):
+        Scenario("california", "alibaba")
+    assert Scenario("california", family="alibaba").family == "alibaba"
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_setting_an_unported_field_raises(name):
+    with pytest.raises(NotImplementedError, match=name):
+        Scenario(**{name: UNPORTED[name]})
+
+
+def test_empty_regions_is_the_default():
+    assert Scenario(regions=[]).regions == ()
