@@ -42,12 +42,20 @@ Phases, any failure exits non-zero:
    the mma.sync kernel, and a traced run;
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
-   slot loop on the card and every slot's in-degree decrement through the
-   gating kernel, equal to the same scenario on the CPU's vector engine in
-   every weekly result and every slot; the independent twin (no edges, no
-   gating launch); then one full tile of 64 dag-carbon cells (8 regions x 8
-   CI seeds) through ``simulate_many``, each equal to its CPU vector run,
-   and one traced chunk of it for the card's busy share;
+   slot loop on the card and every slot's release (the in-degree decrement,
+   the new in-degrees and the rows they free) through one launch of the
+   release kernel ``dep_release_csr``, equal to the same scenario on the
+   CPU's vector engine in every weekly result and every slot; the
+   independent twin (no edges, no gating launch); then one full tile of 64
+   dag-carbon cells (8 regions x 8 CI seeds) through ``simulate_many``,
+   each equal to its CPU vector run, and one traced chunk of it for the
+   card's busy share.  In phase 2 the gating kernel is held against its
+   plain versions in both its modes, the decrement (``dep_decrement_csr``
+   and the edge-list ``dep_decrement``, the reference's
+   ``dep_decrement_pallas`` signature) and the release (also against the
+   unfused sequence it replaces, the decrement and four eager ops), and
+   the release is timed against that sequence in turns at B=1 and B=64 (at
+   most half its time; one device kernel per call);
 6. Algorithm 1 on the card: the kernel API path, ``kernels.ops.score_matrix``
    over the oracle's (job, scale) pair grid of each learning window and of
    the oracle policy's span, each equal to the plain version exactly, then
@@ -55,17 +63,17 @@ Phases, any failure exits non-zero:
    learning phase, the weekly re-learning and the oracle policy through the
    greedy kernel (launches == ``solve`` attempts with entries), every
    weekly result and slot equal to the same call on the CPU, and the weeks
-   and slots that differ from the ``backend="numpy"`` run counted, the
-   168-slot windows on the shared-memory walker ("smem") and the 552-slot
-   spans on the L2 walker ("l2"); then the kernel against
-   ``greedy_pass_plain`` on every pass the path ran (on its route) and on a
-   ``solve`` that extends deadlines, bit for bit; the chain split: both
-   walkers on three synthetic streams whose every entry stops at one test
-   (done, consistency, capacity) and on learning window 0, bit for bit,
-   cycles per entry; learning window 0 on both walkers in turns (the smem
-   walker at most half the l2 walker's time); times beside the host numpy
-   pass.  Last, the main and oracle paths' wall, learning and execution
-   times side by side.
+   and slots that differ from the ``backend="numpy"`` run counted, every
+   pass (the 168-slot windows and the 552-slot spans) on the shared-memory
+   walker ("smem") with alloc laid out by job window; then the kernel
+   against ``greedy_pass_plain`` and the L2 walker ("l2") on every pass
+   the path ran and on a ``solve`` that extends deadlines, bit for bit; the
+   chain split: both walkers on three synthetic streams whose every entry
+   stops at one test (done, consistency, capacity) and on learning window
+   0, bit for bit, cycles per entry; learning window 0 and week 0's span on
+   both walkers in turns (the smem walker at most half the l2 walker's
+   time on each); times beside the host numpy pass.  Last, the main and
+   oracle paths' wall, learning and execution times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -926,6 +934,54 @@ def gating_work(rows, graph):
     return nbytes, rows * graph.n_edges
 
 
+def release_work(rows, graph):
+    """(bytes, operations) of one ``dep_release_csr`` call: fin and arrived
+    read once (a byte a cell each), pred_left once (int32), the CSR once;
+    pred2 (int32) and pending (a byte) written once; one add per edge and
+    cell, and per cell the subtraction, two compares and two ands."""
+    elt = graph.pred_idx.element_size()
+    nbytes = 11 * rows * graph.n + elt * (graph.n + 1 + graph.n_edges)
+    return nbytes, rows * graph.n_edges + 5 * rows * graph.n
+
+
+def release_inputs(gen, rows, graph, n_real):
+    """fin and arrived (bool) and a live in-degree (int32) per cell on the
+    card: the in-degree less up to two predecessors finished before, so
+    rows of in-degree 0 and releases occur; padding rows never finish."""
+    dev = graph.pred_ptr.device
+    deg = torch.diff(graph.pred_ptr).cpu().numpy()
+    fin = gen.random((rows, graph.n)) < 0.05
+    fin[:, n_real:] = False
+    arrived = gen.random((rows, graph.n)) < 0.8
+    pred = (deg - np.minimum(gen.integers(0, 3, (rows, graph.n)), deg)).astype(np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (fin, arrived, pred)]
+
+
+def unfused_release(fin, arrived, pred, graph):
+    """The release as the engine wrote it before the fused kernel: the
+    decrement kernel, then four eager ops."""
+    dec = gating.dep_decrement_csr(fin, graph)
+    pred2 = pred - dec
+    return pred2, (dec > 0) & (pred2 == 0) & arrived
+
+
+def release_check(fin, arrived, pred, graph, what):
+    """``dep_release_csr`` against its plain version and the unfused
+    sequence on the same inputs, equal exactly; returns the largest
+    absolute difference of pred2 (0)."""
+    pred2, pending = gating.dep_release_csr(fin, arrived, pred, graph)
+    torch.cuda.synchronize()
+    if pred2.dtype != torch.int32 or pending.dtype != torch.bool or \
+            pred2.shape != fin.shape or pending.shape != fin.shape:
+        raise AssertionError(f"{what}: bad outputs {pred2.dtype} {pending.dtype}")
+    want = gating.dep_release_csr_plain(fin, arrived, pred, graph)
+    for name, (p2, pe) in (("plain", want),
+                           ("unfused", unfused_release(fin, arrived, pred, graph))):
+        if not (torch.equal(pred2, p2) and torch.equal(pending, pe)):
+            raise AssertionError(f"{what}: release kernel and {name} differ")
+    return (pred2 - want[0]).abs().max().item() if pred2.numel() else 0
+
+
 def gating_check(fin, graph, parents, children, what):
     """The kernel against its plain version (and the edge-list forms) on
     the same inputs, equal exactly; returns the largest absolute
@@ -945,11 +1001,33 @@ def gating_check(fin, graph, parents, children, what):
     return (got - want).abs().max().item() if got.numel() else 0
 
 
-def gating_kernel_phase():
-    """Phase 2 for the gating kernel: exact equality on the path's own
-    graph (the capacity-150 week padded to its 6144 rows, as the slot loop
-    lays it out, B=1 and B=64) and on an empty edge list, duplicate edges
-    and a row of in-degree above 64; times at the path's shape."""
+def kernels_per_call(fn, iters: int = 200) -> float:
+    """Device kernels per call of ``fn`` (copies and sets left out) in a
+    ``torch.profiler`` trace of ``iters`` calls: the dispatches that reach
+    the card, whatever the host's speed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(not e.name.startswith(("Memcpy", "Memset"))
+               for e in device_events(prof)) / iters
+
+
+def gating_kernel_phase(report):
+    """Phase 2 for the gating kernel, in both its modes: the decrement
+    (``dep_decrement_csr``, the kernel given no in-degrees) and the release
+    (``dep_release_csr``), each equal exactly to its plain versions on the
+    path's own graph (the capacity-150 week padded to its 6144 rows, as the
+    slot loop lays it out, B=1 and B=64) and on an empty edge list,
+    duplicate edges and a row of in-degree above 64; times at the path's
+    shape; the release against the unfused sequence it replaces (the
+    decrement and four eager ops), in turns, at most half its time, and its
+    device kernels per call (one; the sequence's six)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(2)
     _, ev = dag_week()
@@ -970,7 +1048,7 @@ def gating_kernel_phase():
         ("in-degree 200", np.concatenate([par, hub]),
          np.concatenate([chd, np.full(200, 5)])),
     ]
-    err = 0
+    err = rerr = 0
     for name, p, c in graphs:
         graph = (scan_engine._dep_graph(packed, n_pad, dev) if name == "path"
                  else gating.dep_graph(p, c, n_pad, device=dev))
@@ -979,8 +1057,13 @@ def gating_kernel_phase():
             fin = torch.from_numpy(gen.random((rows, n_pad)) < 0.05).to(dev)
             fin[:, n:] = False
             err = max(err, gating_check(fin, graph, pt, ct, f"gating {name} B={rows}"))
+            rel = release_inputs(gen, rows, graph, n)
+            rerr = max(rerr, release_check(*rel, graph, f"release {name} B={rows}"))
             log(f"gating {name:13s} B={rows:2d} n={n_pad} E={graph.n_edges}: equal "
-                f"to the plain version, index_add_ and the edge-list entry")
+                f"to the plain version, index_add_ and the edge-list entry; the release "
+                f"equal to its plain version and the unfused sequence "
+                f"({int(rel[0].sum())} finished, {int((rel[2] == 0).sum())} cells of "
+                f"live in-degree 0)")
 
     graph = scan_engine._dep_graph(packed, n_pad, dev)
     pt, ct = (torch.from_numpy(x).to(dev) for x in (par, chd))
@@ -1004,19 +1087,80 @@ def gating_kernel_phase():
                  library_device_ms=device_ms(library))
         nbytes, ops = gating_work(rows, graph)
         b, by = bound_ms(nbytes, ops)
-        log(f"dep_decrement_csr B={rows} n={n_pad} E={graph.n_edges}: {t['ms']:.6f} "
+        log(f"dep_decrement_csr (the kernel without in-degrees) B={rows} n={n_pad} "
+            f"E={graph.n_edges}: {t['ms']:.6f} "
             f"ms/call (plain {t['plain_ms']:.6f}, index_add_ {t['library_ms']:.6f}, "
             f"bound {b:.9f} by {by}: {nbytes} bytes); device time {t['device_ms']} "
             f"ms/call (plain {t['plain_device_ms']}, index_add_ "
             f"{t['library_device_ms']})")
         out[rows] = dict(bound_ms=b, bound_by=by, bytes=nbytes, **t)
-    return dict(name="dep_decrement_csr", route="cuda",
-                source="src/repro_torch/csrc/gating.cu",
-                replaces="src/repro/kernels/gating.py:90", max_abs_err=err,
-                shape=f"B=1 n={n_pad} E={graph.n_edges} int32 CSR",
-                library="fin[:, parents].int() then zeros.index_add_(1, children, .): "
-                        "two calls",
-                tile_B64=out[64], **out[1])
+
+    rout = {}
+    for rows in (1, 64):
+        rel = release_inputs(gen, rows, graph, n)
+
+        def fused():
+            return gating.dep_release_csr(*rel, graph)
+
+        def unfused():
+            return unfused_release(*rel, graph)
+
+        def plain():
+            return gating.dep_release_csr_plain(*rel, graph)
+
+        # The launch alone: the kernel's C entry on fixed buffers, no
+        # wrapper; what no wrapper can go below.
+        out2, pend = torch.empty_like(rel[2]), torch.empty_like(rel[1])
+        ptrs = ([x.data_ptr() for x in rel[:3]]
+                + [graph.pred_ptr.data_ptr(), graph.pred_idx.data_ptr(), rows, n_pad,
+                   out2.data_ptr(), pend.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream])
+
+        def launch():
+            return gating._lib.dep_release_csr(*ptrs)
+
+        turns = {"fused": [], "unfused": []}
+        for which in ("fused", "unfused", "unfused", "fused") * 3:
+            turns[which].append(time_ms(fused if which == "fused" else unfused, 2000))
+        t = {k: float(np.mean(v)) for k, v in turns.items()}
+        ratio = t["fused"] / t["unfused"]
+        r = dict(ms=t["fused"], unfused_ms=t["unfused"], ratio=ratio, turns=turns,
+                 launch_ms=time_ms(launch, 2000),
+                 plain_ms=time_ms(plain, 2000), library_ms=None,
+                 device_ms=device_ms(fused), unfused_device_ms=device_ms(unfused),
+                 plain_device_ms=device_ms(plain),
+                 kernels_per_call=kernels_per_call(fused),
+                 unfused_kernels_per_call=kernels_per_call(unfused))
+        nbytes, ops = release_work(rows, graph)
+        b, by = bound_ms(nbytes, ops)
+        log(f"dep_release_csr B={rows} n={n_pad} E={graph.n_edges}: {r['ms']:.6f} ms/call "
+            f"against the unfused sequence's {r['unfused_ms']:.6f} in turns, ratio "
+            f"{ratio:.4f} ({turns}); the launch alone {r['launch_ms']:.6f}; plain "
+            f"{r['plain_ms']:.6f}; bound {b:.9f} by {by}: {nbytes} bytes; device time "
+            f"{r['device_ms']} ms/call (unfused {r['unfused_device_ms']}, plain "
+            f"{r['plain_device_ms']}); device kernels per call {r['kernels_per_call']} "
+            f"(unfused {r['unfused_kernels_per_call']})")
+        if not ratio <= 0.5:
+            raise AssertionError(f"dep_release_csr B={rows}: {t['fused']} ms per call, "
+                                 f"more than half the unfused {t['unfused']} ms")
+        if not 0 < r["kernels_per_call"] <= 1:
+            raise AssertionError(f"dep_release_csr B={rows}: {r['kernels_per_call']} "
+                                 "device kernels per call, not one")
+        rout[rows] = dict(bound_ms=b, bound_by=by, bytes=nbytes, **r)
+    ptx = ptxas_report(report, "dep_release_csr_kernel")
+    log(f"gating kernel, ptxas: {ptx}")
+    return dict(name="dep_release_csr", route="cuda",
+                source="src/repro_torch/csrc/gating.cu", ptxas=ptx,
+                replaces="src/repro/kernels/gating.py:90 (with the release ops of "
+                         "src/repro/core/scan_engine.py:513-514)",
+                max_abs_err=max(err, rerr), shape=f"B=1 n={n_pad} E={graph.n_edges} int32 CSR",
+                library="none: no one PyTorch call computes the release (the unfused "
+                        "sequence is timed beside it)",
+                tile_B64=rout[64], **rout[1],
+                decrement=dict(wrapper="dep_decrement_csr (the kernel without in-degrees)",
+                               library="fin[:, parents].int() then "
+                                       "zeros.index_add_(1, children, .): two calls",
+                               tile_B64=out[64], **out[1]))
 
 
 def same_results(a_res, b_res, names):
@@ -1044,12 +1188,14 @@ def dag_path_phase():
     res = run(Scenario(dag=DagConfig(), engine="scan", **DAG), DEFAULT_DAG_POLICIES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = gating.launches["dep_decrement"]
+    launches = gating.launches["dep_release"]
+    decrements = gating.launches["dep_decrement"]
     stats = dict(scan_engine.stats)
     log(f"dag path (scan on the card): {wall:.3f} s wall, {stats['steps']} slot steps "
         f"({stats['loop_s']:.3f} s in the chunk loops, "
         f"{1e3 * stats['loop_s'] / stats['steps']:.6f} ms per step; host accounting "
-        f"{stats['account_s']:.3f} s), gating launches {launches}")
+        f"{stats['account_s']:.3f} s), release launches {launches}, decrement "
+        f"launches {decrements}")
     log(res.table())
     t = time.perf_counter()
     cpu = run(Scenario(dag=DagConfig(), engine="vector", **DAG), DEFAULT_DAG_POLICIES,
@@ -1062,8 +1208,9 @@ def dag_path_phase():
     if weeks or slots:
         raise AssertionError(f"dag path: {weeks} weekly results, {slots} slots differ")
     if not (launches == stats["dag_steps"] == stats["steps"] == stats["cell_steps"]
-            and launches >= 168 * n_cells and stats["delegated"] == 0):
-        raise AssertionError(f"dag path: {launches} gating launches for {stats}")
+            and launches >= 168 * n_cells and stats["delegated"] == 0 and decrements == 0):
+        raise AssertionError(f"dag path: {launches} release and {decrements} decrement "
+                             f"launches for {stats}")
     for name in DEFAULT_DAG_POLICIES:
         (r,) = res.weekly[name]
         if not (math.isfinite(r.carbon_g) and r.carbon_g > 0
@@ -1076,11 +1223,13 @@ def dag_path_phase():
     scan_engine.reset_stats()
     twin = run(Scenario(dag=DagConfig(independent=True), engine="scan", **DAG),
                DEFAULT_DAG_POLICIES)
-    twin_launches, twin_stats = gating.launches["dep_decrement"], dict(scan_engine.stats)
+    twin_launches = gating.launches["dep_release"] + gating.launches["dep_decrement"]
+    twin_stats = dict(scan_engine.stats)
     twin_cpu = run(Scenario(dag=DagConfig(independent=True), engine="vector", **DAG),
                    DEFAULT_DAG_POLICIES, device="cpu")
     tw, ts = same_results(twin.weekly, twin_cpu.weekly, DEFAULT_DAG_POLICIES)
-    log(f"independent twin: gating launches {twin_launches} in {twin_stats['steps']} "
+    log(f"independent twin: gating launches (release and decrement) {twin_launches} in "
+        f"{twin_stats['steps']} "
         f"slot steps; {tw} weekly results and {ts} slots differ from its CPU run")
     log(twin.table())
     if twin_launches or tw or ts or twin_stats["steps"] < 168 * n_cells:
@@ -1103,7 +1252,8 @@ def dag_path_phase():
     tile = simulate_many(cases("scan", "cuda"))
     torch.cuda.synchronize()
     tile_wall = time.perf_counter() - t
-    tile_launches, tile_stats = gating.launches["dep_decrement"], dict(scan_engine.stats)
+    tile_launches, tile_stats = gating.launches["dep_release"], dict(scan_engine.stats)
+    tile_decrements = gating.launches["dep_decrement"]
     t = time.perf_counter()
     tile_cpu = simulate_many(cases("vector", "cpu"))
     tile_cpu_wall = time.perf_counter() - t
@@ -1112,10 +1262,10 @@ def dag_path_phase():
         f"{tile_wall:.3f} s wall ({len(cis) / tile_wall:.3f} cells/s, "
         f"{tile_stats['cell_steps'] / tile_wall:.3f} cell slot steps/s; chunk loops "
         f"{tile_stats['loop_s']:.3f} s = {1e3 * tile_stats['loop_s'] / tile_stats['steps']:.6f}"
-        f" ms per batched step, host accounting {tile_stats['account_s']:.3f} s); gating "
+        f" ms per batched step, host accounting {tile_stats['account_s']:.3f} s); release "
         f"launches {tile_launches}; CPU vector engine {tile_cpu_wall:.3f} s: {tw} cells "
         f"and {ts} slots differ")
-    if (tw or ts or tile_launches != tile_stats["dag_steps"]
+    if (tw or ts or tile_launches != tile_stats["dag_steps"] or tile_decrements
             or tile_stats["cell_steps"] != len(cis) * tile_stats["steps"]):
         raise AssertionError(f"tile: {tw} cells / {ts} slots differ, {tile_launches} "
                              f"launches for {tile_stats}")
@@ -1329,13 +1479,13 @@ def oracle_path_phase(numpy_res):
             MAIN["learn_weeks"] + MAIN["eval_weeks"] - 1:
         raise AssertionError(f"{len(attempts)} passes, {len(oracles)} of the oracle "
                              "policy: the path skipped a learning window or a week")
-    # 168-slot windows fit the shared-memory walker, the 552-slot spans not
-    if by_route != {"smem": len(attempts) - len(oracles), "l2": len(oracles)}:
-        raise AssertionError(f"greedy launches by route {by_route}: expected "
-                             f"{len(attempts) - len(oracles)} 168-slot windows on smem, "
-                             f"{len(oracles)} spans on l2")
+    # alloc laid out by job window: every window and span fits the
+    # shared-memory walker
+    if by_route != {"smem": len(attempts), "l2": 0}:
+        raise AssertionError(f"greedy launches by route {by_route}: expected all "
+                             f"{len(attempts)} passes on smem")
     log(f"greedy launches by route {by_route}: the {len(attempts) - len(oracles)} "
-        f"168-slot windows on smem, the {len(oracles)} oracle spans on l2")
+        f"168-slot windows and the {len(oracles)} oracle spans on smem")
     t = time.perf_counter()
     cpu = run(Scenario(**MAIN), POLICIES, backend="device", device="cpu")
     cpu_wall = time.perf_counter() - t
@@ -1364,27 +1514,43 @@ def oracle_path_phase(numpy_res):
 
 def greedy_args(attempt, dev):
     """A ``solve`` attempt's entries as the device pass hands them over:
-    packed, with kmin and lengths, on ``dev``; and the largest scale."""
-    jobs = attempt["jobs"]
+    packed, with kmin and lengths, on ``dev``; the largest scale; and the
+    jobs' windows with their cells, as ``greedy_pass`` takes them."""
+    jobs, h = attempt["jobs"], attempt["horizon"]
     j, t, k, g, _ = attempt["entries"]
-    return list(oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
-                                     [x.length for x in jobs], dev)), int(k.max())
+    t0, t1, _ = oracle_mod._windows(jobs, h)
+    windows = np.stack([t0, t1], axis=1)
+    *args, win = oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
+                                      [x.length for x in jobs], dev, windows=windows)
+    return args, int(k.max()), dict(windows=win,
+                                    cells=oracle_greedy.ragged_layout(windows, h)[3])
 
 
-def greedy_check(args, k_max, capacity, horizon, what, route=None):
+def greedy_check(args, k_max, capacity, horizon, what, route=None, windows=None,
+                 cells=None):
     """The kernel (``plan``'s route, or the one named) against
     ``greedy_pass_plain``: alloc, used, work and the entries walked equal bit
     for bit; returns the plain version's results and its host seconds."""
-    got = oracle_greedy.greedy_pass(*args, capacity, horizon, k_max, route=route)
+    got = oracle_greedy.greedy_pass(*args, capacity, horizon, k_max, route=route,
+                                    windows=windows, cells=cells)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    want = oracle_greedy.greedy_pass_plain(*(a.cpu() for a in args), capacity, horizon)
+    want = oracle_greedy.greedy_pass_plain(
+        *(a.cpu() for a in args), capacity, horizon,
+        windows=None if windows is None else windows.cpu())
     plain_s = time.perf_counter() - t
     for name, a, b in zip(("alloc", "used", "work", "walked"), got, want):
         if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
             raise AssertionError(f"greedy_pass {what} on {route or 'its route'}: "
                                  f"{name} differs from the plain version")
     return want, plain_s
+
+
+def taken_entries(alloc, kmin):
+    """Entries a pass took: a job's base entry and each scale above it."""
+    km = kmin.cpu().numpy()[:, None]
+    a = alloc.cpu().numpy()
+    return int(np.where(a > 0, a - km + 1, 0).sum())
 
 
 def extension_jobs():
@@ -1439,24 +1605,22 @@ def greedy_split_phase(path):
     read (b - a), the used read and capacity test (c - b).  Then window 0 on
     both routes in turns (smem, l2, l2, smem, twice)."""
     window = [a for a in path["attempts"] if a["horizon"] == WEEK][0]
-    wargs, wk = greedy_args(window, torch.device("cuda"))
-    inputs = dict(chain_streams())
-    inputs["learn window 0"] = (wargs, MAIN["capacity"], wk)
+    wargs, wk, wkw = greedy_args(window, torch.device("cuda"))
+    inputs = {name: (*v, {}) for name, v in chain_streams().items()}
+    inputs["learn window 0"] = (wargs, MAIN["capacity"], wk, wkw)
     split = {}
-    for name, (args, cap, k_max) in inputs.items():
-        want, _ = greedy_check(args, k_max, cap, WEEK, name, route="smem")
-        greedy_check(args, k_max, cap, WEEK, name, route="l2")
+    for name, (args, cap, k_max, kw) in inputs.items():
+        want, _ = greedy_check(args, k_max, cap, WEEK, name, route="smem", **kw)
+        greedy_check(args, k_max, cap, WEEK, name, route="l2", **kw)
         walked = want[3].item()
         if name != "learn window 0" and (walked != args[0].shape[0]
                                          or want[1].sum().item() != 0):
             raise AssertionError(f"chain stream {name}: walked {walked}, took "
                                  f"{want[1].sum().item()} servers")
-        km = args[1].cpu().numpy()[:, None]
-        taken = int(np.where(want[0].numpy() > 0, want[0].numpy() - km + 1, 0).sum())
-        row = dict(walked=walked, taken=taken)
+        row = dict(walked=walked, taken=taken_entries(want[0], args[1]))
         for route in oracle_greedy.ROUTES:
             row[f"{route}_ms"] = time_ms(lambda: oracle_greedy.greedy_pass(
-                *args, cap, WEEK, k_max, route=route), 10, warmup=2)
+                *args, cap, WEEK, k_max, route=route, **kw), 10, warmup=2)
         split[name] = row
     clock = {}
 
@@ -1467,7 +1631,7 @@ def greedy_split_phase(path):
     with ThreadPoolExecutor(1) as ex:
         fut = ex.submit(sample)
         time_ms(lambda: oracle_greedy.greedy_pass(*wargs, MAIN["capacity"], WEEK, wk,
-                                                  route="l2"), 40, warmup=2)
+                                                  route="l2", **wkw), 40, warmup=2)
         fut.result()
     mhz, max_mhz = clock["mhz"]
     for name, row in split.items():
@@ -1489,7 +1653,7 @@ def greedy_split_phase(path):
 
     def one(route):
         return lambda: oracle_greedy.greedy_pass(*wargs, MAIN["capacity"], WEEK, wk,
-                                                 route=route)
+                                                 route=route, **wkw)
 
     turns = {r: [] for r in oracle_greedy.ROUTES}
     for route in ("smem", "l2", "l2", "smem") * 2:
@@ -1514,6 +1678,42 @@ def greedy_split_phase(path):
                 turns=turns, smem_ms=t["smem"], l2_ms=t["l2"], ratio=ratio)
 
 
+def greedy_span_phase(path, split):
+    """Week 0's 552-slot oracle span on both walkers in turns (smem, l2, l2,
+    smem, twice), with alloc laid out by window on smem: both times, their
+    ratio (at most 0.5), ns per walked entry, the rounds of 32 entries and
+    the taken entries, beside what the split's round and commit costs
+    predict for them."""
+    att = [a for a in path["attempts"] if a["horizon"] > WEEK][0]
+    args, k_max, kw = greedy_args(att, torch.device("cuda"))
+    cap, h = MAIN["capacity"], att["horizon"]
+    want, _ = greedy_check(args, k_max, cap, h, "span week 0", route="smem", **kw)
+    greedy_check(args, k_max, cap, h, "span week 0", route="l2", **kw)
+    walked, taken = want[3].item(), taken_entries(want[0], args[1])
+    rounds = math.ceil(walked / 32)
+
+    def one(route):
+        return lambda: oracle_greedy.greedy_pass(*args, cap, h, k_max, route=route, **kw)
+
+    turns = {r: [] for r in oracle_greedy.ROUTES}
+    for route in ("smem", "l2", "l2", "smem") * 2:
+        turns[route].append(time_ms(one(route), 10, warmup=2))
+    t = {r: float(np.mean(v)) for r, v in turns.items()}
+    ratio = t["smem"] / t["l2"]
+    model_ms = (rounds * split["round_ns"] + taken * split["commit_ns"]) / 1e6
+    log(f"greedy oracle span week 0 in turns ({len(att['jobs'])} jobs x {h} slots, alloc "
+        f"by window {kw['cells']} bytes): smem {t['smem']:.6f} ms, l2 {t['l2']:.6f} ms per "
+        f"pass, ratio {ratio:.4f} ({turns}); {walked} walked of {args[0].shape[0]}, "
+        f"{rounds} rounds, {taken} taken; smem {1e6 * t['smem'] / walked:.3f} ns, l2 "
+        f"{1e6 * t['l2'] / walked:.3f} ns per walked entry; the split's round and commit "
+        f"costs predict {model_ms:.6f} ms on smem")
+    if not ratio <= 0.5:
+        raise AssertionError(f"span week 0: the smem walker takes {t['smem']} ms, more "
+                             f"than half the l2 walker's {t['l2']} ms")
+    return dict(turns=turns, smem_ms=t["smem"], l2_ms=t["l2"], ratio=ratio, walked=walked,
+                rounds=rounds, taken=taken, cells=kw["cells"], model_ms=model_ms)
+
+
 def greedy_kernel_phase(path, report):
     """The greedy kernel against its plain version on every pass of the
     oracle path and on a ``solve`` that extends deadlines, each on the route
@@ -1522,12 +1722,15 @@ def greedy_kernel_phase(path, report):
     dev = torch.device("cuda")
     cap = MAIN["capacity"]
     for i, att in enumerate(path["attempts"]):
-        args, k_max = greedy_args(att, dev)
-        route = oracle_greedy.plan(len(att["jobs"]), att["horizon"], k_max)["route"]
-        want, _ = greedy_check(args, k_max, cap, att["horizon"], f"pass {i}")
+        args, k_max, kw = greedy_args(att, dev)
+        plan = oracle_greedy.plan(len(att["jobs"]), att["horizon"], k_max, kw["cells"])
+        want, _ = greedy_check(args, k_max, cap, att["horizon"], f"pass {i}", **kw)
+        greedy_check(args, k_max, cap, att["horizon"], f"pass {i}", route="l2", **kw)
         log(f"greedy_pass pass {i:2d}: {len(att['jobs'])} jobs x {att['horizon']} slots, "
-            f"{len(att['entries'][0])} entries, {want[3].item()} walked, on {route}: "
-            f"equal to the plain version bit for bit")
+            f"{len(att['entries'][0])} entries, {want[3].item()} walked, "
+            f"{taken_entries(want[0], args[1])} taken; alloc by window {kw['cells']} bytes, "
+            f"{plan['smem_bytes']} bytes of shared memory on {plan['route']}: equal to the "
+            f"plain version and to the l2 walker bit for bit")
     jobs, ci = extension_jobs()
     cpu = oracle_mod.solve(jobs, ci, 2, backend="device", device="cpu")
     oracle_greedy.reset_launches()
@@ -1548,18 +1751,21 @@ def greedy_kernel_phase(path, report):
                                                          "greedy_pass_kernel")}
     log(f"greedy kernels, ptxas: {ptx}")
     split = greedy_split_phase(path)
+    span_turns = greedy_span_phase(path, split)
 
     learn = [a for a in path["attempts"] if a["horizon"] == WEEK][:MAIN["learn_weeks"]]
     span = [a for a in path["attempts"] if a["horizon"] > WEEK][:1]
     rows = []
     for name, att in zip([f"learn window {i}" for i in range(len(learn))]
                          + ["oracle span week 0"], learn + span):
-        args, k_max = greedy_args(att, dev)
+        args, k_max, kw = greedy_args(att, dev)
         h, n = att["horizon"], len(att["jobs"])
-        route = oracle_greedy.plan(n, h, k_max)["route"]
-        want, plain_s = greedy_check(args, k_max, cap, h, name)
+        plan = oracle_greedy.plan(n, h, k_max, kw["cells"])
+        route = plan["route"]
+        want, plain_s = greedy_check(args, k_max, cap, h, name, **kw)
         walked = want[3].item()
-        ms = time_ms(lambda: oracle_greedy.greedy_pass(*args, cap, h, k_max), 10, warmup=2)
+        ms = time_ms(lambda: oracle_greedy.greedy_pass(*args, cap, h, k_max, **kw), 10,
+                     warmup=2)
         lengths = np.array([j.length for j in att["jobs"]])
         t = time.perf_counter()
         oracle_mod._greedy_numpy(att["jobs"], att["ci"], cap, h, lengths)
@@ -1567,14 +1773,16 @@ def greedy_kernel_phase(path, report):
         t = time.perf_counter()
         oracle_mod._build_entries(att["jobs"], att["ci"], h)
         entries_s = time.perf_counter() - t
-        nbytes = 16 * walked + 8 * n + 4 * n * h + 4 * h + 4 * n
+        nbytes = 16 * walked + 8 * n + 8 * n + 4 * n * h + 4 * h + 4 * n
         b, by = bound_ms(nbytes, 8 * walked)
-        log(f"greedy_pass {name} on {route}: {len(att['entries'][0])} entries, {walked} "
-            f"walked, {ms:.6f} ms/pass = {1e6 * ms / walked:.3f} ns per walked entry "
-            f"(bound {b:.9f} by {by}: {nbytes} bytes); plain pass {1e3 * plain_s:.3f} ms; "
-            f"host numpy pass {1e3 * numpy_s:.3f} ms, of which building the entries "
-            f"{1e3 * entries_s:.3f} ms")
-        rows.append(dict(window=name, route=route, entries=len(att["entries"][0]),
+        log(f"greedy_pass {name} on {route} ({plan['smem_bytes']} bytes of shared "
+            f"memory, alloc by window {kw['cells']} bytes): {len(att['entries'][0])} "
+            f"entries, {walked} walked, {ms:.6f} ms/pass = {1e6 * ms / walked:.3f} ns "
+            f"per walked entry (bound {b:.9f} by {by}: {nbytes} bytes); plain pass "
+            f"{1e3 * plain_s:.3f} ms; host numpy pass {1e3 * numpy_s:.3f} ms, of which "
+            f"building the entries {1e3 * entries_s:.3f} ms")
+        rows.append(dict(window=name, route=route, smem_bytes=plan["smem_bytes"],
+                         cells=kw["cells"], entries=len(att["entries"][0]),
                          walked=walked, ms=ms, plain_ms=1e3 * plain_s,
                          numpy_pass_ms=1e3 * numpy_s, build_entries_ms=1e3 * entries_s,
                          bound_ms=b, bound_by=by, bytes=nbytes))
@@ -1583,13 +1791,13 @@ def greedy_kernel_phase(path, report):
     # undercounts when the trace drops events of a long kernel.
     from torch.profiler import ProfilerActivity, profile
 
-    args, k_max = greedy_args(learn[0], dev)
+    args, k_max, kw = greedy_args(learn[0], dev)
     for _ in range(3):
-        oracle_greedy.greedy_pass(*args, cap, WEEK, k_max)
+        oracle_greedy.greedy_pass(*args, cap, WEEK, k_max, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            oracle_greedy.greedy_pass(*args, cap, WEEK, k_max)
+            oracle_greedy.greedy_pass(*args, cap, WEEK, k_max, **kw)
         torch.cuda.synchronize()
     events = [e for e in device_events(prof) if "greedy_smem_kernel" in e.name]
     dms = (sum(e.time_range.elapsed_us() for e in events) / len(events) / 1e3
@@ -1608,7 +1816,7 @@ def greedy_kernel_phase(path, report):
                 previous_ms=split["l2_ms"], device_events=len(events),
                 numpy_pass_ms=first["numpy_pass_ms"], serial_chain=first["walked"],
                 extension_passes=ext_launches, windows=rows, ptxas=ptx,
-                chain_split=split)
+                chain_split=split, span_turns=span_turns)
 
 
 def build_kernels():
@@ -1643,7 +1851,7 @@ def main():
 
     kernels = kernel_phase(reports["src/repro_torch/csrc/knn.cu"])
     kernels.append(flash_kernel_phase(reports["src/repro_torch/csrc/flash_attention.cu"]))
-    kernels.append(gating_kernel_phase())
+    kernels.append(gating_kernel_phase(reports["src/repro_torch/csrc/gating.cu"]))
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
     kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay")

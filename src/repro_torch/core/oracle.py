@@ -71,6 +71,14 @@ def _marginal_table(jobs: list[Job]) -> np.ndarray:
     return tab
 
 
+def _windows(jobs: list[Job], horizon: int):
+    """Each job's admissible window ``[t0, t1)``, empty where ``t1 <= t0``:
+    ``t0 = max(arrival, 0)``, ``t1 = min(horizon, deadline + 1)``."""
+    dl = np.array([j.deadline for j in jobs], dtype=np.int64)
+    t0 = np.maximum(np.array([j.arrival for j in jobs], dtype=np.int64), 0)
+    return t0, np.minimum(horizon, dl + 1), dl
+
+
 def _pairs(jobs: list[Job], horizon: int):
     """The (job, scale) pairs with a positive marginal and a non-empty
     admissible window, job-major and k ascending: job index, scale,
@@ -82,9 +90,7 @@ def _pairs(jobs: list[Job], horizon: int):
     marg = _marginal_table(jobs)                     # (n, K+1)
     kmin = np.array([j.k_min for j in jobs], dtype=np.int64)
     kmax = np.array([j.k_max for j in jobs], dtype=np.int64)
-    dl = np.array([j.deadline for j in jobs], dtype=np.int64)
-    t0 = np.maximum(np.array([j.arrival for j in jobs], dtype=np.int64), 0)
-    t1 = np.minimum(horizon, dl + 1)
+    t0, t1, dl = _windows(jobs, horizon)
     ks = np.arange(marg.shape[1], dtype=np.int64)   # scale meshgrid axis
     pair_ok = (ks[None, :] >= kmin[:, None]) & (ks[None, :] <= kmax[:, None]) \
         & (marg > 0) & (t1 > t0)[:, None]
@@ -195,21 +201,27 @@ def _greedy_numpy_ref(jobs, ci, capacity, horizon, lengths):
 def _greedy_device(jobs, ci, capacity, horizon, lengths, device):
     """The pass on ``device`` over the host-sorted entries, cast to int32
     and float32 as the JAX package's ``backend="jax"`` casts them, packed
-    and uploaded in one copy (``oracle_greedy.upload``)."""
+    with the jobs' windows and uploaded in one copy
+    (``oracle_greedy.upload``); the windows let the walk lay ``alloc`` out
+    by window."""
     j_idx, t_idx, k_val, gain, _ = _build_entries(jobs, ci, horizon)
     n = len(jobs)
     if len(j_idx) == 0:
         return (np.zeros((n, horizon), np.int64), np.zeros(horizon, np.int64),
                 np.zeros(n))
-    entries, kmin, lens = oracle_greedy.upload(
-        j_idx, t_idx, k_val, gain, [j.k_min for j in jobs], lengths, device)
+    t0, t1, _ = _windows(jobs, horizon)
+    windows = np.stack([t0, t1], axis=1)
+    entries, kmin, lens, win = oracle_greedy.upload(
+        j_idx, t_idx, k_val, gain, [j.k_min for j in jobs], lengths, device,
+        windows=windows)
     alloc, used, work, walked = oracle_greedy.greedy_pass(
-        entries, kmin, lens, int(capacity), int(horizon), int(k_val.max()))
+        entries, kmin, lens, int(capacity), int(horizon), int(k_val.max()),
+        windows=win, cells=oracle_greedy.ragged_layout(windows, horizon)[3])
     walked = int(walked.item())
     if walked < 0:
         raise RuntimeError(f"greedy pass: entry {-1 - walked} holds an index "
-                           f"outside {n} jobs x {horizon} slots or a scale the "
-                           "route cannot hold")
+                           f"outside {n} jobs x {horizon} slots, a slot outside "
+                           "its job's window or a scale the route cannot hold")
     stats["device_passes"] += 1
     stats["entries"] += len(j_idx)
     stats["walked"] += walked

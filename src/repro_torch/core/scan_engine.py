@@ -7,9 +7,11 @@ The counterpart of the single-region, non-MPC part of the JAX package's
 - the *decision* of every native policy is packed tensor ops inside the
   slot step (FCFS threshold-fill at ``k_min`` under an eligibility mask);
 - admission, dependency gating, release and deadline-from-release live in
-  the carried state; the in-degree decrement of DAG workloads goes through
-  the hand-written CUDA kernel of ``kernels/gating.py`` (its plain version
-  on the CPU), over a predecessor CSR built once per program;
+  the carried state; the release of DAG workloads (the in-degree decrement
+  and the rows it frees) goes through one launch of the hand-written CUDA
+  kernel of ``kernels/gating.py::dep_release_csr`` per slot step (its
+  plain version on the CPU), over a predecessor CSR built once per
+  program;
 - structurally identical cases run as one batched program: a leading
   batch dimension of up to ``BATCH_TILE`` cells takes the place of the
   reference's ``vmap``, and the reference's ``lax.scan`` becomes a Python
@@ -282,10 +284,8 @@ def _single_step(c: dict, s: dict, t: torch.Tensor, elig_t: torch.Tensor,
                  deadline_eff=dle, pred_left=pred, in_sys=in_sys & ~fin,
                  finished=fin_all | fin, pending=pending, ended=ended)
     if graph is not None:
-        dec = gating.dep_decrement_csr(fin, graph)
-        pred2 = pred - dec
-        carry["pred_left"] = pred2
-        carry["pending"] = (dec > 0) & (pred2 == 0) & arrived
+        carry["pred_left"], carry["pending"] = gating.dep_release_csr(
+            fin, arrived, pred, graph)
     ys = dict(take=take, fin=fin, viol=fin & (t > dle),
               waited_fin=torch.where(fin, waited2, 0), n_rows=n_in,
               ended=ended)

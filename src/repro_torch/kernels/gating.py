@@ -9,16 +9,21 @@ cell of its batch, ``dec[c] = #{edges (p, c) : fin[p]}``: how many of row
 - ``dep_decrement(fin, parents, children, n)`` — the reference's edge-list
   signature (``dep_decrement`` / ``dep_decrement_pallas`` there); on a CUDA
   tensor it builds the predecessor CSR and launches the kernel;
-- ``dep_decrement_csr(fin, graph)`` — the per-program entry point the
-  engine calls each slot, over a :class:`DepGraph` built once;
+- ``dep_decrement_csr(fin, graph)`` — the counts over a
+  :class:`DepGraph` built once per program;
+- ``dep_release_csr(fin, arrived, pred_left, graph)`` — the entry point
+  the engine calls each DAG slot step: the counts and what the step does
+  with them, ``pred2 = pred_left - dec`` and ``pending = (dec > 0) &
+  (pred2 == 0) & arrived``, in one launch;
 - the plain versions ``dep_decrement_plain`` (``index_add_``, the
   reference's scatter form), ``dep_decrement_gather_plain`` (its padded
-  gather form) and ``dep_decrement_csr_plain``.
+  gather form), ``dep_decrement_csr_plain`` and ``dep_release_csr_plain``.
 
 ``fin`` is (n,) or (B, n), bool or uint8 (nonzero counts as finished); the
 counts come back as int32 of the same shape.  On CPU tensors the wrappers
-run the plain version; on CUDA tensors they launch the kernel of
-``csrc/gating.cu`` or raise.  Each launch adds one to ``launches``.
+run the plain version; on CUDA tensors they launch the one kernel of
+``csrc/gating.cu`` (the decrement alone is that kernel given no in-degrees)
+or raise.  Each launch adds one to its entry's count in ``launches``.
 Integer counts, so every version agrees exactly.
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
@@ -37,9 +42,11 @@ from ..device import resolve_device
 from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``.
-launches = {"dep_decrement": 0}
+launches = {"dep_decrement": 0, "dep_release": 0}
 
 _lib: ctypes.CDLL | None = None
+_stream = None                  # device index -> the current stream's handle
+_FLAGS = (torch.bool, torch.uint8)
 
 
 def reset_launches() -> None:
@@ -55,6 +62,20 @@ class DepGraph:
 
     pred_ptr: torch.Tensor           # (n + 1,)
     pred_idx: torch.Tensor           # (E,)
+
+    def __post_init__(self):
+        # Checked once here, so the wrappers need only compare devices.
+        ptr, idx = self.pred_ptr, self.pred_idx
+        if ptr.dtype != torch.int32 or idx.dtype != torch.int32:
+            raise TypeError(f"the graph's indices must be int32, got "
+                            f"{ptr.dtype} / {idx.dtype}")
+        if ptr.dim() != 1 or idx.dim() != 1 or ptr.shape[0] < 1 \
+                or not (ptr.is_contiguous() and idx.is_contiguous()):
+            raise ValueError("pred_ptr (n + 1,) and pred_idx (E,) must be "
+                             "contiguous 1-D tensors")
+        if ptr.device != idx.device:
+            raise ValueError(f"pred_ptr ({ptr.device}) and pred_idx ({idx.device}) "
+                             "must lie on one device")
 
     @property
     def n(self) -> int:
@@ -119,6 +140,15 @@ def dep_decrement_csr_plain(fin: torch.Tensor, graph: DepGraph) -> torch.Tensor:
     return (run[..., ptr[1:]] - run[..., ptr[:-1]]).to(torch.int32)
 
 
+def dep_release_csr_plain(fin: torch.Tensor, arrived: torch.Tensor,
+                          pred_left: torch.Tensor, graph: DepGraph):
+    """The release in plain ops: the counts, then ``pred2 = pred_left -
+    dec`` and ``pending = (dec > 0) & (pred2 == 0) & arrived``."""
+    dec = dep_decrement_csr_plain(fin, graph)
+    pred2 = pred_left - dec
+    return pred2, (dec > 0) & (pred2 == 0) & arrived
+
+
 # --- build ------------------------------------------------------------------
 
 
@@ -127,14 +157,18 @@ def build() -> str:
 
     Returns the compiler's report (registers, shared memory, spills) when
     this call compiled, else an empty string."""
-    global _lib
+    global _lib, _stream
     if _lib is not None:
         return ""
     lib, log = build_library("gating")
     p = ctypes.c_void_p
-    lib.dep_decrement_csr.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
-                                      p, p]
-    lib.dep_decrement_csr.restype = ctypes.c_int
+    lib.dep_release_csr.argtypes = [p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                              p, p, p]
+    lib.dep_release_csr.restype = ctypes.c_int
+    # The raw handle where torch exposes it (a call per step costs less
+    # than building a Stream object).
+    _stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+        lambda dev: torch.cuda.current_stream(dev).cuda_stream)
     _lib = lib
     return log
 
@@ -142,40 +176,70 @@ def build() -> str:
 # --- dispatch ---------------------------------------------------------------
 
 
+def _launch(fin: torch.Tensor, arrived, pred_left, graph: DepGraph, what: str):
+    """One launch of the kernel on CUDA tensors: the release given
+    ``arrived`` and ``pred_left``, else (both None) the decrement alone.
+    The slot loop calls it every step, so the checks read device indices
+    and attributes, not device objects."""
+    ptr = graph.pred_ptr
+    dev = fin.get_device()                        # -1 on the CPU
+    n = ptr.shape[0] - 1
+    shape = fin.shape
+    release = pred_left is not None
+    if dev < 0 or ptr.get_device() != dev or (release and (
+            arrived.get_device() != dev or pred_left.get_device() != dev)):
+        raise ValueError(f"{what}: fin, arrived, pred_left and the graph must lie on "
+                         "the same CUDA device")
+    if fin.dtype not in _FLAGS or (release and arrived.dtype not in _FLAGS):
+        raise TypeError(f"{what}: fin and arrived must be bool or uint8")
+    if release and pred_left.dtype != torch.int32:
+        raise TypeError(f"{what}: pred_left must be int32, got {pred_left.dtype}")
+    if fin.dim() not in (1, 2) or shape[-1] != n or (release and (
+            arrived.shape != shape or pred_left.shape != shape)):
+        raise ValueError(f"{what}: fin {tuple(shape)} (and arrived and pred_left beside "
+                         f"it) must all be (n,) or (B, n) with n = {n}")
+    if not fin.is_contiguous() or (release and not (
+            arrived.is_contiguous() and pred_left.is_contiguous())):
+        raise ValueError(f"{what}: fin, arrived and pred_left must be contiguous")
+    build()
+    if release:
+        out = torch.empty_like(pred_left)
+        pending = torch.empty_like(arrived, dtype=torch.bool)
+        extra = (arrived.data_ptr(), pred_left.data_ptr(), pending.data_ptr())
+    else:
+        out = torch.empty(shape, dtype=torch.int32, device=fin.device)
+        pending, extra = None, (None, None, None)
+    err = _lib.dep_release_csr(fin.data_ptr(), extra[0], extra[1], ptr.data_ptr(),
+                               graph.pred_idx.data_ptr(), fin.numel() // n if n else 0,
+                               n, out.data_ptr(), extra[2], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+    return out, pending
+
+
 def dep_decrement_csr(fin: torch.Tensor, graph: DepGraph) -> torch.Tensor:
     """``dec[..., c]`` = finished predecessors of row ``c``, int32, the
-    shape of ``fin`` ((n,) or (B, n))."""
-    if fin.device.type == "cpu" and graph.pred_ptr.device.type == "cpu":
+    shape of ``fin`` ((n,) or (B, n)): on CUDA tensors one launch of the
+    release kernel with no in-degrees given."""
+    if fin.get_device() < 0 and graph.pred_ptr.get_device() < 0:
         return dep_decrement_csr_plain(fin, graph)
-    dev = fin.device
-    if dev.type != "cuda" or graph.pred_ptr.device != dev \
-            or graph.pred_idx.device != dev:
-        raise ValueError(f"fin ({fin.device}) and the graph "
-                         f"({graph.pred_ptr.device}, {graph.pred_idx.device}) "
-                         "must lie on the same CUDA device")
-    if fin.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"fin must be bool or uint8, got {fin.dtype}")
-    if graph.pred_ptr.dtype != torch.int32 or graph.pred_idx.dtype != torch.int32:
-        raise TypeError(f"the graph's indices must be int32, got "
-                        f"{graph.pred_ptr.dtype} / {graph.pred_idx.dtype}")
-    n = graph.n
-    if fin.dim() not in (1, 2) or fin.shape[-1] != n:
-        raise ValueError(f"fin {tuple(fin.shape)} must be (n,) or (B, n) "
-                         f"with n = {n}")
-    if not (fin.is_contiguous() and graph.pred_ptr.is_contiguous()
-            and graph.pred_idx.is_contiguous()):
-        raise ValueError("fin and the graph must be contiguous")
-    build()
-    rows = fin.numel() // n if n else 0
-    dec = torch.empty(fin.shape, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.dep_decrement_csr(fin.data_ptr(), graph.pred_ptr.data_ptr(),
-                                 graph.pred_idx.data_ptr(), rows, n,
-                                 dec.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"dep_decrement_csr failed with cudaError_t {err}")
+    dec, _ = _launch(fin, None, None, graph, "dep_decrement_csr")
     launches["dep_decrement"] += 1
     return dec
+
+
+def dep_release_csr(fin: torch.Tensor, arrived: torch.Tensor,
+                    pred_left: torch.Tensor, graph: DepGraph):
+    """One DAG slot step's release: ``(pred2, pending)``, ``pred2 =
+    pred_left - dec`` (int32) and ``pending = (dec > 0) & (pred2 == 0) &
+    arrived`` (bool), ``dec`` the finished predecessors of each row, for
+    ``fin`` and ``arrived`` (bool or uint8) and ``pred_left`` (int32), all
+    (n,) or (B, n).  On CUDA tensors one launch; ``dec`` is not kept."""
+    if fin.get_device() < 0 and graph.pred_ptr.get_device() < 0:
+        return dep_release_csr_plain(fin, arrived, pred_left, graph)
+    out = _launch(fin, arrived, pred_left, graph, "dep_release_csr")
+    launches["dep_release"] += 1
+    return out
 
 
 def dep_decrement(fin: torch.Tensor, parents: torch.Tensor,

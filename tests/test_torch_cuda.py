@@ -398,9 +398,49 @@ def test_kernel_gating_checks(cuda_gating):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,n_edges,batch", [(256, 0, 1), (256, 37, 64),
+                                             (1024, 3000, 1), (6144, 5924, 64)])
+def test_kernel_release_matches_plain(cuda_gating, n, n_edges, batch):
+    """``dep_release_csr`` against its plain version, exact: duplicate
+    edges, a row of in-degree 90, rows of in-degree 0 and (in a batch)
+    all-zero rows of fin and arrived; one launch, no ``dep_decrement``
+    launch."""
+    rng = np.random.default_rng(7 * n + n_edges + batch)
+    parents = np.concatenate([rng.integers(0, n - 1, n_edges), rng.integers(0, n - 1, 90)])
+    children = np.concatenate([rng.integers(0, n - 1, n_edges), np.full(90, 3)])
+    parents = np.concatenate([parents, parents[:n_edges // 3]])
+    children = np.concatenate([children, children[:n_edges // 3]])
+    deg = np.bincount(children, minlength=n)
+    assert (deg == 0).any()
+    fin = rng.random((batch, n)) < 0.3
+    arrived = rng.random((batch, n)) < 0.7
+    if batch > 1:
+        fin[0], arrived[-1] = False, False            # empty rows
+    pred = (deg - np.minimum(rng.integers(0, 3, (batch, n)), deg)).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_gating) for x in (fin, arrived, pred)]
+    graph = gating.dep_graph(parents, children, n, device=cuda_gating)
+    gating.reset_launches()
+    pred2, pending = gating.dep_release_csr(*args, graph)
+    torch.cuda.synchronize()
+    assert gating.launches == {"dep_decrement": 0, "dep_release": 1}
+    want = gating.dep_release_csr_plain(*args, graph)
+    assert pred2.dtype == torch.int32 and pending.dtype == torch.bool
+    assert torch.equal(pred2, want[0]) and torch.equal(pending, want[1])
+    assert (n_edges == 0 or pending.any()) and (batch == 1 or not pending[-1].any())
+    one = gating.dep_release_csr(*(a[0] for a in args), graph)     # (n,)
+    assert torch.equal(one[0], want[0][0]) and torch.equal(one[1], want[1][0])
+    with pytest.raises(TypeError, match="int32"):
+        gating.dep_release_csr(args[0], args[1], args[2].long(), graph)
+    with pytest.raises(ValueError, match="must all be"):
+        gating.dep_release_csr(args[0], args[1][:, :-1].contiguous(), args[2], graph)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        gating.dep_release_csr(args[0], args[1].cpu(), args[2], graph)
+
+
+@pytest.mark.cuda
 def test_dag_scan_on_cuda_equals_cpu(cuda_gating):
     """A small DAG week through the device slot loop on the card and on the
-    CPU: equal bit for bit, the gating kernel launched once per slot step."""
+    CPU: equal bit for bit, the release kernel launched once per slot step."""
     from repro_torch.core import scan_engine
     from repro_torch.experiment import run
     from repro_torch.traces import DagConfig
@@ -410,7 +450,8 @@ def test_dag_scan_on_cuda_equals_cpu(cuda_gating):
     scan_engine.reset_stats()
     gating.reset_launches()
     card = run(Scenario(**kw), device="cuda")
-    assert gating.launches["dep_decrement"] == scan_engine.stats["dag_steps"] >= 3 * WEEK
+    assert gating.launches["dep_release"] == scan_engine.stats["dag_steps"] >= 3 * WEEK
+    assert gating.launches["dep_decrement"] == 0
     for name in card.policies:
         for a, b in zip(cpu.weekly[name], card.weekly[name], strict=True):
             assert a.carbon_g == b.carbon_g and a.energy_kwh == b.energy_kwh
@@ -523,18 +564,20 @@ def _synthetic_window(n, horizon, n_entries, seed, k_max=4, length=3.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,horizon", [(923, WEEK), (924, WEEK), (48, 400), (1, 1)])
+@pytest.mark.parametrize("n,horizon", [(883, WEEK), (884, WEEK), (923, WEEK), (924, WEEK),
+                                       (48, 400), (1, 1)])
 def test_kernel_greedy_route_boundary(cuda_oracle, n, horizon):
-    """At the largest window the smem route holds, one job more, the
-    extension solve's shape and the smallest: the planned route, its shared
-    memory equal to the library's, and both routes (where they fit) equal
-    to the plain pass, through an early exit on the last."""
+    """At the largest window the smem route holds with every job's window
+    the whole horizon (883 jobs; the dense layout before it held 923), one
+    job more, the extension solve's shape and the smallest: the planned
+    route, its shared memory equal to the library's, and both routes (where
+    they fit) equal to the plain pass, through an early exit on the last."""
     args = list(_synthetic_window(n, horizon, 30_000, seed=n + horizon))
     plan = oracle_greedy.plan(n, horizon, 4)
-    assert plan["route"] == ("smem" if n != 924 else "l2")
+    assert plan["route"] == ("smem" if n <= 883 else "l2")
     lib = oracle_greedy._lib
     for i, route in enumerate(oracle_greedy.ROUTES):
-        fits = lib.greedy_smem_bytes(i, n, horizon)
+        fits = lib.greedy_smem_bytes(i, n, horizon, n * horizon)
         assert fits == (oracle_greedy.smem_bytes(route, n, horizon)
                         if oracle_greedy.smem_bytes(route, n, horizon)
                         <= oracle_greedy.SMEM_MAX else -1)
@@ -549,6 +592,127 @@ def test_kernel_greedy_route_boundary(cuda_oracle, n, horizon):
                       want, f"{n} x {horizon} on l2")
     if (n, horizon) == (1, 1):
         assert want[3].item() < 30_000      # the one job finishes: early exit
+
+
+def _synthetic_span(n, horizon, n_entries, seed, k_max=4, width=(8, 40), start=(-5, None)):
+    """Seeded random jobs with admissible windows of the given widths and
+    starts and entries only inside them, uploaded with the windows; and
+    their cells."""
+    rng = np.random.default_rng(seed)
+    kmin = rng.integers(1, 3, n)
+    t0 = rng.integers(start[0], start[1] or horizon, n)
+    t1 = t0 + rng.integers(*width, n)
+    windows = np.stack([t0, t1], 1)
+    lo, hi, _, cells = oracle_greedy.ragged_layout(windows, horizon)
+    j = rng.choice(np.nonzero(hi > lo)[0], n_entries)
+    t = lo[j] + (rng.random(n_entries) * (hi - lo)[j]).astype(np.int64)
+    k = np.minimum(kmin[j] + rng.integers(0, 3, n_entries), k_max)
+    args = oracle_greedy.upload(j, t, k, rng.uniform(0.1, 0.9, n_entries), kmin,
+                                rng.uniform(0.5, 6.0, n), "cuda", windows=windows)
+    return list(args), cells
+
+
+def _plain_with_windows(args, capacity, horizon):
+    """``greedy_pass_plain`` on the CPU copies of (entries, kmin, lengths,
+    windows)."""
+    entries, kmin, lengths, windows = (a.cpu() for a in args)
+    return oracle_greedy.greedy_pass_plain(entries, kmin, lengths, capacity, horizon,
+                                           windows=windows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,horizon,n_entries", [(425, 552, 227_568), (1500, WEEK, 120_000),
+                                                 (3, 9, 500)])
+def test_kernel_greedy_windows_match_plain_and_l2(cuda_oracle, n, horizon, n_entries):
+    """alloc laid out by window on the smem route, at a 552-slot span's
+    shape and at more jobs than whole-horizon 168-slot windows fit: bit for
+    bit with the plain pass and with the l2 walker given the same windows,
+    and with whole-horizon windows where those fit; windows without their
+    cells are refused."""
+    args, cells = _synthetic_span(n, horizon, n_entries, seed=n)
+    plan = oracle_greedy.plan(n, horizon, 4, cells)
+    assert plan["route"] == "smem" and oracle_greedy.plan(n, horizon, 4)["route"] == \
+        ("smem" if n == 3 else "l2")
+    assert oracle_greedy._lib.greedy_smem_bytes(0, n, horizon, cells) == plan["smem_bytes"]
+    want = _plain_with_windows(args, 5, horizon)
+    assert want[1].sum().item() > 0
+    oracle_greedy.reset_launches()
+    got = oracle_greedy.greedy_pass(*args[:3], 5, horizon, 4, windows=args[3],
+                                    cells=cells)
+    torch.cuda.synchronize()
+    assert oracle_greedy.launches == {"greedy_pass": 1, "smem": 1, "l2": 0}
+    _greedy_equal(got, want, f"{n} x {horizon} by window on smem")
+    with pytest.raises(ValueError, match="come together"):
+        oracle_greedy.greedy_pass(*args[:3], 5, horizon, 4, windows=args[3])
+    _greedy_equal(oracle_greedy.greedy_pass(*args[:3], 5, horizon, 4, route="l2",
+                                            windows=args[3], cells=cells),
+                  want, "l2 with windows")
+    if n == 3:
+        _greedy_equal(oracle_greedy.greedy_pass(*args[:3], 5, horizon, 4), want,
+                      "whole-horizon windows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,horizon,width", [(883, WEEK, WEEK), (884, WEEK, WEEK),
+                                             (2000, WEEK, 50)])
+def test_kernel_greedy_route_boundary_with_cells(cuda_oracle, n, horizon, width):
+    """Where windows laid out whole fit and one job more does not: the
+    library's byte count equals ``smem_bytes``, and the planned route
+    equals the plain pass."""
+    args, cells = _synthetic_span(n, horizon, 40_000, seed=width, width=(width, width + 1),
+                                  start=(0, 1) if width == horizon else (-5, None))
+    assert width != horizon or cells == n * horizon
+    plan = oracle_greedy.plan(n, horizon, 4, cells)
+    assert plan["route"] == ("l2" if n == 884 else "smem")
+    fits = oracle_greedy._lib.greedy_smem_bytes(0, n, horizon, cells)
+    nbytes = oracle_greedy.smem_bytes("smem", n, horizon, cells)
+    assert fits == (nbytes if nbytes <= oracle_greedy.SMEM_MAX else -1)
+    want = _plain_with_windows(args, 5, horizon)
+    oracle_greedy.reset_launches()
+    got = oracle_greedy.greedy_pass(*args[:3], 5, horizon, 4, windows=args[3], cells=cells)
+    torch.cuda.synchronize()
+    assert oracle_greedy.launches[plan["route"]] == 1
+    _greedy_equal(got, want, f"{n} x {horizon} on {plan['route']}")
+
+
+@pytest.mark.cuda
+def test_kernel_greedy_bad_window_entry(cuda_oracle, monkeypatch):
+    """An entry outside its job's window: walked = -1 - i on both routes, the
+    plain pass and ``solve``'s device pass raise."""
+    args, cells = _synthetic_span(40, 100, 5000, seed=3)
+    win = args[3].cpu().numpy()
+    lo, hi, _, _ = oracle_greedy.ragged_layout(win, 100)
+    bad = args[0].clone()
+    j = int(bad[6, 0])
+    bad[6, 1] = int(hi[j]) if hi[j] < 100 else int(lo[j]) - 1
+    for route in oracle_greedy.ROUTES:
+        *_, walked = oracle_greedy.greedy_pass(bad, *args[1:3], 5, 100, 4, route=route,
+                                               windows=args[3], cells=cells)
+        assert walked.item() == -7, route
+    with pytest.raises(IndexError, match="window"):
+        _plain_with_windows([bad] + args[1:], 5, 100)
+    *_, walked = oracle_greedy.greedy_pass(bad, *args[1:3], 5, 100, 4)   # whole horizon
+    assert walked.item() >= 0
+
+    from repro_torch.core import oracle
+
+    mat = Scenario(capacity=8, learn_weeks=1, family="alibaba", seed=101).materialize()
+    jobs = [x for x in mat.hist if x.arrival < WEEK][:30]
+    build_entries = oracle._build_entries
+
+    def moved(jobs, ci, horizon):
+        """The first entry of a job whose window leaves a slot free, moved
+        just outside that window."""
+        out = build_entries(jobs, ci, horizon)
+        t0, t1, _ = oracle._windows(jobs, horizon)
+        i = next(i for i, j in enumerate(out[0]) if t0[j] > 0 or t1[j] < horizon)
+        j = out[0][i]
+        out[1][i] = t0[j] - 1 if t0[j] > 0 else t1[j]
+        return out
+
+    monkeypatch.setattr(oracle, "_build_entries", moved)
+    with pytest.raises(RuntimeError, match="outside its job's window"):
+        oracle.solve(jobs, mat.ci.trace[:WEEK], 8, backend="device", device=cuda_oracle)
 
 
 @pytest.mark.cuda

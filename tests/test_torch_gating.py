@@ -177,8 +177,58 @@ def test_dep_graph_defaults_to_the_card():
 def test_cpu_wrappers_launch_nothing():
     parents, children = _graph(4, n_edges=100)
     gating.reset_launches()
-    gating.dep_decrement_csr(torch.from_numpy(_fin(4)),
-                             gating.dep_graph(parents, children, N, device="cpu"))
-    gating.dep_decrement(torch.from_numpy(_fin(4)), torch.from_numpy(parents),
-                         torch.from_numpy(children), N)
-    assert gating.launches == {"dep_decrement": 0}
+    graph = gating.dep_graph(parents, children, N, device="cpu")
+    fin = torch.from_numpy(_fin(4))
+    gating.dep_decrement_csr(fin, graph)
+    gating.dep_decrement(fin, torch.from_numpy(parents), torch.from_numpy(children), N)
+    gating.dep_release_csr(fin, fin, torch.zeros(N, dtype=torch.int32), graph)
+    assert gating.launches == {"dep_decrement": 0, "dep_release": 0}
+
+
+def _dag(seed, n_edges, batch):
+    """A random DAG over N rows (every edge from a lower row to a higher
+    one, duplicates kept; row N-1 padding), with fin, arrived and a live
+    in-degree per cell: the in-degree less the predecessors that finished
+    before, so that releases happen and rows of in-degree 0 are left."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, N - 1, (2, n_edges))
+    parents, children = np.minimum(a, b), np.maximum(a, b)
+    keep = parents != children
+    parents, children = parents[keep], children[keep]
+    shape = (N,) if batch is None else (batch, N)
+    fin = rng.random(shape) < 0.4
+    fin[..., N - 1] = False
+    deg = np.bincount(children, minlength=N)
+    before = np.minimum(rng.integers(0, 3, shape), deg)
+    return parents, children, fin, rng.random(shape) < 0.8, (deg - before).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_edges", [0, 40, 600])
+@pytest.mark.parametrize("batch", [None, 1, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_release_equals_engine_sequence_and_reference(seed, batch, n_edges):
+    """``dep_release_csr`` (its plain version here) against the three ops
+    the engine ran after the decrement, and against the JAX scan engine's
+    release (``repro/core/scan_engine.py:511-514``) on ``repro``'s
+    ``dep_decrement``, cell by cell: exact."""
+    parents, children, fin, arrived, pred = _dag(seed, n_edges, batch)
+    graph = gating.dep_graph(parents, children, N, device="cpu")
+    t_fin, t_arr, t_pred = (torch.from_numpy(x) for x in (fin, arrived, pred))
+    pred2, pending = gating.dep_release_csr(t_fin, t_arr, t_pred, graph)
+    assert pred2.dtype == torch.int32 and pending.dtype == torch.bool
+    assert pred2.shape == pending.shape == t_fin.shape
+    want = gating.dep_release_csr_plain(t_fin, t_arr, t_pred, graph)
+    assert torch.equal(pred2, want[0]) and torch.equal(pending, want[1])
+    dec = gating.dep_decrement_csr(t_fin, graph)           # the engine's sequence
+    assert torch.equal(pred2, t_pred - dec)
+    assert torch.equal(pending, (dec > 0) & (t_pred - dec == 0) & t_arr)
+    p, c = jnp.asarray(parents, dtype=jnp.int32), jnp.asarray(children, dtype=jnp.int32)
+    for row in np.ndindex(fin.shape[:-1]):
+        ref_dec = ref_gating.dep_decrement(jnp.asarray(fin[row]), p, c, N)
+        ref_pred2 = jnp.asarray(pred[row]) - ref_dec       # int32: x64 is off
+        ref_pending = (ref_dec > 0) & (ref_pred2 == 0) & jnp.asarray(arrived[row])
+        np.testing.assert_array_equal(pred2[row].numpy(), np.asarray(ref_pred2))
+        np.testing.assert_array_equal(pending[row].numpy(), np.asarray(ref_pending))
+    released = pending.sum().item()
+    assert (released > 0) == (n_edges > 0)
+

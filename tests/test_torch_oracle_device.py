@@ -282,20 +282,147 @@ def test_packed_layout_round_trips_gain_bits():
     np.testing.assert_array_equal(lengths.numpy(), np.float32([1.5, 2.0, 1e-9]))
 
 
-@pytest.mark.parametrize("n,horizon,k_max,route,nbytes", [
-    (434, WEEK, 16, "smem", 144_328),          # learning window 0
-    (923, WEEK, 16, "smem", 232_356),          # the largest window that fits
-    (924, WEEK, 16, "l2", 65_536 + 4 * (WEEK + 3 * 924)),             # one more job
-    (434, WEEK, 256, "l2", 65_536 + 4 * (WEEK + 3 * 434)),  # a scale above a byte
-    (434, 552, 16, "l2", 65_536 + 4 * (552 + 3 * 434)),     # an oracle span
-    (48, 400, 3, "smem", 65_536 + 12 * 48 + 4 * 400 + 19_200),  # the extension solve
-])
-def test_plan_routes_by_shape(n, horizon, k_max, route, nbytes):
-    got = oracle_greedy.plan(n, horizon, k_max)
+def _ragged(n, horizon, cells):
+    return 65_536 + 20 * n + 4 * horizon + (max(cells, 1) + 15) // 16 * 16
+
+
+# (n, horizon, k_max, cells, route, bytes): cells None is every job's
+# window the whole horizon.  A row's id is its values, except for three rows
+# of the table before alloc was laid out by window, whose ids (n, horizon,
+# k_max, route and bytes of that dense layout) they keep.
+ROUTE_TABLE = [
+    ("434-168-16-smem-144328", (434, WEEK, 16, None, "smem", 147_800)),  # learning window 0
+    # 923 jobs fitted the dense layout; whole-horizon windows take 8 B a job
+    # more, so 883 do (below)
+    ("923-168-16-smem-232356", (923, WEEK, 16, None, "l2", 65_536 + 4 * (WEEK + 3 * 923))),
+    (None, (924, WEEK, 16, None, "l2", 65_536 + 4 * (WEEK + 3 * 924))),
+    (None, (434, WEEK, 256, None, "l2", 65_536 + 4 * (WEEK + 3 * 434))),  # scale > a byte
+    (None, (434, 552, 16, None, "l2", 65_536 + 4 * (552 + 3 * 434))),     # a whole span
+    ("48-400-3-smem-86912", (48, 400, 3, None, "smem", _ragged(48, 400, 48 * 400))),
+    (None, (883, WEEK, 16, None, "smem", 232_220)),   # the most whole windows that fit
+    (None, (884, WEEK, 16, None, "l2", 65_536 + 4 * (WEEK + 3 * 884))),  # one job more
+    (None, (434, WEEK, 16, 12_867, "smem", 87_768)),  # learning window 0 by window
+    (None, (425, 552, 16, 14_223, "smem", _ragged(425, 552, 14_223))),  # week 0's span
+    (None, (434, 552, 16, 14_223, "smem", _ragged(434, 552, 14_223))),
+    (None, (1500, WEEK, 16, 40_000, "smem", _ragged(1500, WEEK, 40_000))),  # > 883 jobs
+    (None, (425, 552, 256, 14_223, "l2", 65_536 + 4 * (552 + 3 * 425))),
+    (None, (4, 10, 3, 0, "smem", _ragged(4, 10, 1))),   # no cell at all: one byte
+]
+
+
+@pytest.mark.parametrize("n,horizon,k_max,cells,route,nbytes", [
+    pytest.param(*row, id=name or "-".join(str(x) for x in row if x is not None))
+    for name, row in ROUTE_TABLE])
+def test_plan_routes_by_shape(n, horizon, k_max, cells, route, nbytes):
+    got = oracle_greedy.plan(n, horizon, k_max, cells)
     assert got == dict(route=route, smem_bytes=nbytes)
     assert nbytes <= oracle_greedy.SMEM_MAX
-    if route == "smem" and (n, horizon) == (923, WEEK):
-        assert oracle_greedy.smem_bytes("smem", 924, WEEK) > oracle_greedy.SMEM_MAX
+    assert oracle_greedy.smem_bytes("smem", n, horizon, cells) == \
+        oracle_greedy.smem_bytes("smem", n, horizon, n * horizon if cells is None else cells)
+    if route == "smem" and (n, horizon, cells) == (883, WEEK, None):
+        assert oracle_greedy.smem_bytes("smem", 884, WEEK) > oracle_greedy.SMEM_MAX
+
+
+def _layout_model(windows, horizon):
+    """alloc laid out by window, one job after another: the clamped window
+    and the position of each of its cells."""
+    pos, out = 0, []
+    for t0, t1 in windows:
+        t0 = min(max(t0, 0), horizon)
+        t1 = min(max(t1, t0), horizon)
+        out.append((t0, t1, {t: pos + t - t0 for t in range(t0, t1)}))
+        pos += t1 - t0
+    return out, pos
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ragged_layout_matches_a_python_model(seed):
+    """Bases and cells against a model that lays the windows out one after
+    another, with windows that start before 0, end past the horizon, are
+    empty, reversed or lie wholly past the horizon."""
+    rng = np.random.default_rng(seed)
+    horizon = 60
+    windows = np.sort(rng.integers(-10, 75, (40, 2)), axis=1)
+    windows[::7] = windows[::7, ::-1]               # reversed: empty
+    windows[3] = (70, 80)                           # past the horizon
+    windows[5] = (12, 12)
+    t0, t1, base, cells = oracle_greedy.ragged_layout(windows.astype(np.int32), horizon)
+    model, total = _layout_model(windows.tolist(), horizon)
+    assert cells == total
+    seen = set()
+    for j, (m0, m1, where) in enumerate(model):
+        assert (t0[j], t1[j]) == (m0, m1)
+        for t, at in where.items():
+            assert base[j] + t == at and 0 <= at < cells
+            seen.add(at)
+    assert seen == set(range(cells))                # every byte once
+
+
+def test_plain_pass_rejects_an_entry_outside_its_window():
+    """Given the windows, the plain pass raises on a walked entry whose slot
+    lies outside its job's window, as on one outside n x horizon; with the
+    true windows its results are those of the dense pass."""
+    rng = np.random.default_rng(2)
+    ci = rng.uniform(50, 500, 48)
+    _, jobs = _jobs([(int(rng.integers(0, 10)), float(rng.uniform(1, 3)), 20, 3)
+                     for _ in range(6)])
+    j, t, k, g, _ = oracle._build_entries(jobs, ci, 48)
+    t0, t1, _ = oracle._windows(jobs, 48)
+    args = oracle_greedy.upload(j, t, k, g, [x.k_min for x in jobs],
+                                [x.length for x in jobs], "cpu",
+                                windows=np.stack([t0, t1], 1))
+    assert len(args) == 4 and args[3].dtype == torch.int32 and args[3].shape == (6, 2)
+    cells = oracle_greedy.ragged_layout(args[3].numpy(), 48)[3]
+    whole = oracle_greedy.greedy_pass(*args[:3], 5, 48, int(k.max()))
+    ragged = oracle_greedy.greedy_pass(*args[:3], 5, 48, int(k.max()), windows=args[3],
+                                       cells=cells)
+    for a, b in zip(whole, ragged):
+        assert torch.equal(a, b)
+    bad = args[0].clone()
+    first = int(bad[0, 0])
+    bad[0, 1] = int(t1[first])                      # one past its job's window
+    with pytest.raises(IndexError, match="window"):
+        oracle_greedy.greedy_pass(bad, *args[1:3], 5, 48, int(k.max()), windows=args[3],
+                                  cells=cells)
+    oracle_greedy.greedy_pass(bad, *args[1:3], 5, 48, int(k.max()))   # whole horizon
+    with pytest.raises(ValueError, match="come together"):
+        oracle_greedy.greedy_pass(*args[:3], 5, 48, int(k.max()), windows=args[3])
+
+
+def test_upload_packs_the_span_windows_of_the_entries(monkeypatch):
+    """The oracle policy's span on the main scenario's evaluation week 0, as
+    ``OraclePolicy`` solves it: the windows ``upload`` packs are the min and
+    max + 1 of each job's entry slots, and with their cells the 552-slot
+    span plans the smem route (its dense alloc plans l2)."""
+    from repro_torch.core.policy import OraclePolicy
+    from repro_torch.core.simulator import pack
+
+    mat = Scenario(**MAIN, eval_weeks=6).materialize()
+    seen = []
+    upload = oracle_greedy.upload
+
+    def kept(j, t, k, g, kmin, lengths, device, windows=None):
+        seen.append((j, t, k, windows))
+        return upload(j, t, k, g, kmin, lengths, device, windows=windows)
+
+    monkeypatch.setattr(oracle_greedy, "upload", kept)
+    jobs = pack(mat.eval_week(0)).jobs
+    OraclePolicy(backend="device", device="cpu").on_window_start(
+        mat.ci, mat.t0, WEEK, jobs, mat.cluster)
+    j, t, k, windows = seen[0]
+    span = 552
+    assert len(jobs) == windows.shape[0] == 425 and len(j) == 227_568
+    lo = np.full(len(jobs), np.iinfo(np.int64).max)
+    hi = np.full(len(jobs), -1)
+    np.minimum.at(lo, j, t)
+    np.maximum.at(hi, j, t)
+    has = hi >= 0
+    np.testing.assert_array_equal(windows[has, 0], lo[has])
+    np.testing.assert_array_equal(windows[has, 1], hi[has] + 1)
+    cells = oracle_greedy.ragged_layout(windows, span)[3]
+    assert cells == 14_223
+    assert oracle_greedy.plan(len(jobs), span, int(k.max()), cells)["route"] == "smem"
+    assert oracle_greedy.plan(len(jobs), span, int(k.max()))["route"] == "l2"
 
 
 def test_plan_rejects_what_no_route_holds():
@@ -321,7 +448,7 @@ def test_kernel_constants_match_the_cuda_source():
     assert int(const["SCALE_MAX"]) == oracle_greedy.SCALE_MAX
     assert const["SMEM_MAX"].split("//")[0].strip() == "232448 - 64"
     assert oracle_greedy.SMEM_MAX == 232448 - 64
-    assert "12LL * n + 4LL * horizon +" in src and "round16((long long)n * horizon)" in src
+    assert "20LL * n + 4LL * horizon +" in src and "round16(cells > 0 ? cells : 1)" in src
     assert "4LL * (horizon + 3LL * n)" in src
     assert oracle_greedy.ROUTES.index("smem") == int(const["ROUTE_SMEM"])
     assert oracle_greedy.ROUTES.index("l2") == int(const["ROUTE_L2"])

@@ -139,6 +139,36 @@ def test_mixed_tiles_equal_per_case_runs(monkeypatch):
         _assert_identical(split[i], r, f"case {i} split tiles")
 
 
+def test_dag_tile_releases_once_per_step(monkeypatch):
+    """Four dag-carbon cells of one DAG week (four CI traces) as one batched
+    program: the release goes through ``gating.dep_release_csr`` once per
+    slot step, on (4, n_pad) tensors, and every cell equals its vector
+    engine run."""
+    cluster, _, jobs = _world(13, capacity=7)
+    cases = [SimCase(jobs=jobs, ci=CarbonService.synthetic("ontario", WEEK * 2 + 24 * 30,
+                                                            seed=s),
+                     cluster=cluster, policy=dag.DagCarbonPolicy(), horizon=WEEK,
+                     engine="scan", device="cpu") for s in range(4)]
+    shapes = []
+    release = scan_engine.gating.dep_release_csr
+
+    def counted(fin, arrived, pred_left, graph):
+        shapes.append(tuple(fin.shape))
+        return release(fin, arrived, pred_left, graph)
+
+    monkeypatch.setattr(scan_engine.gating, "dep_release_csr", counted)
+    scan_engine.reset_stats()
+    got = simulate_many(cases)
+    steps = dict(scan_engine.stats)
+    assert len(shapes) == steps["dag_steps"] == steps["steps"] >= WEEK
+    assert steps["cell_steps"] == 4 * steps["steps"]
+    assert set(shapes) == {(4, scan_engine._pad_rows(len(jobs)))}
+    for i, (case, r) in enumerate(zip(cases, got)):
+        want = simulate(case.jobs, case.ci, case.cluster, dag.DagCarbonPolicy(),
+                        horizon=WEEK)
+        _assert_identical(want, r, f"cell {i}")
+
+
 @dataclasses.dataclass
 class _Subclass(baselines.WaitAwhilePolicy):
     name: str = "wait-awhile-subclass"
