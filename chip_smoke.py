@@ -15,7 +15,11 @@ Phases, any failure exits non-zero:
    equal bit for bit to ``knn_topk`` on a device query); ``gqa_flash`` on each
    shape's route (the Hopper kernel for bf16 at D 64 and 128), its launches
    counted by route, and at the prefill's shape the Hopper kernel timed in
-   turns with the retained mma.sync kernel (at most half its time);
+   turns with the retained mma.sync kernel (at most half its time); the
+   batch KNN lookup on the cluster kernel equal bit for bit to the previous
+   (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
+   device time (the cluster kernel at most half), beside the floor (an empty
+   kernel launched the same way) and the share of the bound;
 3. the main path: ``repro_torch.experiment.run`` over the quickstart
    scenario with six evaluation weeks (the rolling knowledge base fills to
    its 8 windows = 1344 cases), knowledge base on the card, kernel launches
@@ -58,8 +62,12 @@ Phases, any failure exits non-zero:
    most half its time; one device kernel per call);
 6. Algorithm 1 on the card: the kernel API path, ``kernels.ops.score_matrix``
    over the oracle's (job, scale) pair grid of each learning window and of
-   the oracle policy's span, each equal to the plain version exactly, then
-   edge shapes; the main path again with ``backend="device"``, the
+   the oracle policy's span on the rows kernel (launches counted by route),
+   each equal to the plain version and the previous (flat) kernel exactly,
+   then edge shapes (the columns route where T is no multiple of 4); at
+   the first window's and the span's shapes the rows kernel and the flat
+   kernel in turns by profiler device time (the rows kernel at most 0.7 of
+   it), beside the floor; the main path again with ``backend="device"``, the
    learning phase, the weekly re-learning and the oracle policy through the
    greedy kernel (launches == ``solve`` attempts with entries), every
    weekly result and slot equal to the same call on the CPU, and the weeks
@@ -196,6 +204,24 @@ def device_ms(fn, iters: int = 200) -> float | None:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
+def in_turns(runs, rounds: int = 2) -> dict:
+    """``device_ms`` of each function of ``runs`` in turns, there and back
+    (a, b, b, a, ...) ``rounds`` times: per key the list of its turns.  A
+    turn whose trace holds no device time is taken again (at most twice)."""
+    turns = {key: [] for key in runs}
+    for _ in range(rounds):
+        for key in list(runs) + list(runs)[::-1]:
+            ms = None
+            for _ in range(3):
+                ms = device_ms(runs[key])
+                if ms is not None:
+                    break
+            if ms is None:
+                raise AssertionError(f"{key}: the profiler recorded no device time")
+            turns[key].append(ms)
+    return turns
+
+
 def bound_ms(nbytes: float, flops: float,
              flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
@@ -226,7 +252,8 @@ def check_topk(dist, idx, dist_ref, idx_ref, cases, queries, what):
 def kernel_phase(report):
     """Phase 2: kernels against plain versions; times at the main path's
     shapes (one query against the full 1344-case base, through the
-    per-slot lookup; one week of 168 slot states as a batch)."""
+    per-slot lookup; one week of 168 slot states as a batch, the cluster
+    kernel and the previous warp kernel in turns, ratio at most 0.5)."""
     torch.backends.cuda.matmul.allow_tf32 = False      # plain batch in fp32
     gen = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -256,10 +283,15 @@ def kernel_phase(report):
     for nq in (168, 1344):
         cases, qs = inputs(1344, nq)
         dist, idx = knn.knn_topk_batch(cases, qs, K)
+        prev = knn.knn_topk_batch(cases, qs, K, route="warp")
         torch.cuda.synchronize()
         err2 = max(err2, check_topk(dist, idx, *knn.knn_topk_batch_plain(cases, qs, K),
                                     cases, qs, f"knn_topk_batch Q={nq}"))
-        log(f"knn_topk_batch Q={nq:4d} N=1344 D={D} k={K}: agrees with the plain version")
+        if not (torch.equal(dist, prev[0]) and torch.equal(idx, prev[1])):
+            raise AssertionError(f"knn_topk_batch Q={nq}: the cluster and warp routes differ")
+        log(f"knn_topk_batch Q={nq:4d} N=1344 D={D} k={K}: agrees with the plain version; "
+            f"the cluster kernel ({knn.batch_plan(1344, D, nq, K)}) equal bit for bit to "
+            "the previous (warp) kernel")
 
     cases, q = inputs(1344)
     n = cases.shape[0]
@@ -274,6 +306,7 @@ def kernel_phase(report):
     _, qs = inputs(1344, 168)
     t2 = dict(
         ms=time_ms(lambda: knn.knn_topk_batch(cases, qs, K), 500),
+        previous_ms=time_ms(lambda: knn.knn_topk_batch(cases, qs, K, route="warp"), 500),
         plain_ms=time_ms(lambda: knn.knn_topk_batch_plain(cases, qs, K), 500),
         library_ms=time_ms(lambda: torch.topk(torch.cdist(qs, cases), K, dim=1,
                                               largest=False), 500))
@@ -282,10 +315,22 @@ def kernel_phase(report):
               plain_device_ms=device_ms(lambda: knn.knn_topk_plain(cases, q, K)),
               library_device_ms=device_ms(lambda: torch.topk(
                   torch.cdist(q[None], cases)[0], K, largest=False)))
-    t2.update(device_ms=device_ms(lambda: knn.knn_topk_batch(cases, qs, K)),
+    # The cluster kernel against the previous (warp) kernel in turns, each
+    # turn the mean device time of 200 calls; the floor: an empty kernel
+    # launched as the cluster kernel is.
+    pl = knn.batch_plan(n, D, 168, K)
+    stream = torch.cuda.current_stream().cuda_stream
+    turns = in_turns(dict(device_ms=lambda: knn.knn_topk_batch(cases, qs, K),
+                          previous_device_ms=lambda: knn.knn_topk_batch(cases, qs, K,
+                                                                        route="warp")))
+    t2.update({key: float(np.mean(v)) for key, v in turns.items()}, turns=turns,
+              floor_device_ms=device_ms(lambda: knn._lib.knn_batch_floor(
+                  pl["blocks"], pl["threads"], pl["slices"], pl["smem"], stream)),
               plain_device_ms=device_ms(lambda: knn.knn_topk_batch_plain(cases, qs, K)),
               library_device_ms=device_ms(lambda: torch.topk(
                   torch.cdist(qs, cases), K, dim=1, largest=False)))
+    t2.update(ratio=t2["device_ms"] / t2["previous_device_ms"],
+              bound_share=b2 / t2["device_ms"])
     log(f"knn_topk: knn_lookup {t1['ms']:.6f} ms/call back to back (each waits for "
         f"its stream), knn_topk on a device query {t1['device_query_ms']:.6f}")
     for name, t, b in (("knn_topk", t1, b1), ("knn_topk_batch", t2, b2)):
@@ -295,13 +340,24 @@ def kernel_phase(report):
             f"cdist+topk {t['library_device_ms']})")
     ptx = {name: rep for name, rep in ptxas_report(report, "knn_query_kernel").items()
            if "ILi5ELi13E" in name}            # the main path's k = 5, D = 13
+    ptx2 = {name: rep for name, rep in ptxas_report(report, "knn_cluster_kernel").items()
+            if "ILi5ELi13E" in name}
     log(f"knn_query_kernel<5, 13>, ptxas: {ptx}")
+    log(f"knn_topk_batch Q=168 N={n}: cluster kernel {pl}, ptxas {ptx2}; device time in "
+        f"turns {t2['device_ms']:.6f} against the warp kernel's {t2['previous_device_ms']:.6f} "
+        f"ms/call, ratio {t2['ratio']:.4f} ({turns}); events {t2['ms']:.6f} against "
+        f"{t2['previous_ms']:.6f}; the floor (an empty kernel launched the same way) "
+        f"{t2['floor_device_ms']} ms; {t2['bound_share']:.6f} of the bound {b2:.9f} ({by2})")
+    if not t2["ratio"] <= 0.5:
+        raise AssertionError(f"knn_topk_batch: the cluster kernel takes {t2['device_ms']} ms, "
+                             f"more than half the warp kernel's {t2['previous_device_ms']}")
     return [
         dict(name="knn_topk", route="cuda", source="src/repro_torch/csrc/knn.cu",
              kernel="knn_query_kernel<5, 13> via knn_lookup", ptxas=ptx,
              replaces="src/repro/kernels/knn.py:64", max_abs_err=err1,
              bound_ms=b1, bound_by=by1, shape=f"N={n} D={D} k={K}", **t1),
         dict(name="knn_topk_batch", route="cuda", source="src/repro_torch/csrc/knn.cu",
+             kernel="knn_cluster_kernel<5, 13>", plan=pl, ptxas=ptx2,
              replaces="src/repro/kernels/knn.py:115", max_abs_err=err2,
              bound_ms=b2, bound_by=by2, shape=f"Q=168 N={n} D={D} k={K}", **t2),
     ]
@@ -376,7 +432,8 @@ def main_path_phase():
     torch.cuda.synchronize()
     batch_wall = time.perf_counter() - t
     batch_launches = dict(knn.launches)
-    if batch_launches != {"knn_topk": 0, "knn_topk_batch": len(bases)}:
+    if batch_launches != {"knn_topk": 0, "knn_topk_batch": len(bases), "cluster": len(bases),
+                          "warp": 0}:
         raise AssertionError(f"batch path launches {batch_launches}")
     for (b, states, _), (m, r, d) in zip(bases, batched):
         for i, s in enumerate(states):
@@ -384,7 +441,8 @@ def main_path_phase():
             if not (np.array_equal(m1, m[i]) and np.array_equal(r1, r[i])
                     and np.array_equal(d1, d[i])):
                 raise AssertionError("query_batch and query disagree on a state")
-    log(f"batch path: {len(calls)} states in {len(bases)} query_batch calls, "
+    log(f"batch path: {len(calls)} states in {len(bases)} query_batch calls "
+        f"(launches {batch_launches}; Q x N {[(len(st), len(b)) for b, st, _ in bases]}), "
         f"{batch_wall:.3f} s wall; identical to the per-slot queries")
 
     # float32 on the card against the float64 CPU base: decision flips
@@ -1310,7 +1368,8 @@ def dag_path_phase():
 # Edge shapes of the score matrix: (name, J, T); the path's shapes come
 # from the main scenario's oracle windows.
 SCORE_EDGES = [("J=1 T=1", 1, 1), ("J=1 T=777", 1, 777), ("J=1000 T=1", 1000, 1),
-               ("J=257 T=129", 257, 129), ("J=3001 T=552", 3001, 552)]
+               ("J=257 T=129", 257, 129), ("J=3001 T=552", 3001, 552),
+               ("J=6945 T=168", 6945, 168), ("J=5 T=20001", 5, 20001)]
 
 
 def oracle_windows():
@@ -1352,18 +1411,19 @@ def score_ops_phase(windows):
     score.reset_launches()
     outs = [ops.score_matrix(*a) for a in args]
     torch.cuda.synchronize()
-    launches = score.launches["score_matrix"]
-    if launches != len(windows):
-        raise AssertionError(f"score_matrix launched {launches} times for "
-                             f"{len(windows)} calls")
-    return dict(launches=launches, args=args, outs=outs)
+    launches = dict(score.launches)
+    if launches != {"score_matrix": len(windows), "rows": len(windows), "columns": 0,
+                    "flat": 0}:
+        raise AssertionError(f"score_matrix launched {launches} for {len(windows)} calls")
+    return dict(launches=launches["score_matrix"], by_route=launches, args=args, outs=outs)
 
 
-def score_kernel_phase(windows, path):
-    """The score kernel against its plain version: exactly equal on the
-    path's outputs and on edge shapes; its nonzero cells are the oracle's
-    entries; times at the first learning window's and the oracle span's
-    shapes."""
+def score_kernel_phase(windows, path, report):
+    """The score kernel against its plain version and the flat kernel:
+    exactly equal on the path's outputs and on edge shapes; its nonzero
+    cells are the oracle's entries; times at the first learning window's and
+    the oracle span's shapes, the rows and flat kernels in turns (ratio at
+    most 0.7), and the floor."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(4)
     err = 0.0
@@ -1372,6 +1432,8 @@ def score_kernel_phase(windows, path):
         if out.dtype != torch.float32 or not torch.equal(out, want):
             raise AssertionError(f"score_matrix {name}: kernel and plain version differ "
                                  f"by up to {(out - want).abs().max().item()}")
+        if not torch.equal(out, score.score_matrix(*a, route="flat")):
+            raise AssertionError(f"score_matrix {name}: the rows and flat routes differ")
         entries = len(oracle_mod._build_entries(jobs, ci, h)[0])
         nonzero = int((out != 0).sum().item())
         if nonzero != entries:
@@ -1393,9 +1455,11 @@ def score_kernel_phase(windows, path):
         want = score.score_matrix_plain(*a)
         if not torch.equal(got, want):
             raise AssertionError(f"score_matrix {name}: differs from the plain version")
+        if not torch.equal(got, score.score_matrix(*a, route="flat")):
+            raise AssertionError(f"score_matrix {name}: differs from the flat route")
         err = max(err, (got - want).abs().max().item())
-        log(f"score_matrix {name} (windows past the end and empty, CI at and "
-            f"below 1e-9): equal to the plain version")
+        log(f"score_matrix {name} on {score.plan(j, t)} (windows past the end and empty, "
+            f"CI at and below 1e-9): equal to the plain version and the flat route")
 
     rows = {}
     for key, idx in (("first learning window", 0), ("oracle span", len(windows) - 1)):
@@ -1414,25 +1478,48 @@ def score_kernel_phase(windows, path):
             mask = (tt >= ts[:, None]) & (tt < te[:, None])
             return torch.where(mask, marg[:, None] / ci.clamp_min(1e-9), 0)
 
+        def previous():
+            return score.score_matrix(*a, route="flat")
+
         if not torch.equal(library(), kernel()):
             raise AssertionError("the composed library expression differs from the kernel")
-        tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 2000),
-                  library_ms=time_ms(library, 2000))
-        tm.update(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
-                  library_device_ms=device_ms(library))
+        pl = score.plan(j, t)
+        stream = torch.cuda.current_stream().cuda_stream
+        tm = dict(ms=time_ms(kernel, 2000), previous_ms=time_ms(previous, 2000),
+                  plain_ms=time_ms(plain, 2000), library_ms=time_ms(library, 2000))
+        # The rows kernel against the previous (flat) kernel in turns, each
+        # turn the mean device time of 200 calls; the floor: an empty kernel
+        # on the rows kernel's grid.
+        turns = in_turns(dict(device_ms=kernel, previous_device_ms=previous))
+        tm.update({k: float(np.mean(v)) for k, v in turns.items()}, turns=turns,
+                  floor_device_ms=device_ms(lambda: score._lib.score_floor(
+                      pl["blocks"], 1, pl["threads"], stream)),
+                  plain_device_ms=device_ms(plain), library_device_ms=device_ms(library))
         nbytes = 12 * j + 4 * t + 4 * j * t
         b, by = bound_ms(nbytes, j * t)
-        log(f"score_matrix {key} J={j} T={t}: {tm['ms']:.6f} ms/call (plain "
-            f"{tm['plain_ms']:.6f}, where/clamp_min expression {tm['library_ms']:.6f}, "
-            f"bound {b:.9f} by {by}: {nbytes} bytes); device time {tm['device_ms']} "
-            f"ms/call (plain {tm['plain_device_ms']}, expression "
-            f"{tm['library_device_ms']})")
-        rows[key] = dict(shape=f"J={j} T={t}", bound_ms=b, bound_by=by, bytes=nbytes,
-                         **tm)
+        tm.update(ratio=tm["device_ms"] / tm["previous_device_ms"],
+                  bound_share=b / tm["device_ms"])
+        log(f"score_matrix {key} J={j} T={t} on {pl}: {tm['ms']:.6f} ms/call (flat "
+            f"{tm['previous_ms']:.6f}, plain {tm['plain_ms']:.6f}, where/clamp_min "
+            f"expression {tm['library_ms']:.6f}, bound {b:.9f} by {by}: {nbytes} bytes); "
+            f"device time in turns {tm['device_ms']:.6f} against the flat kernel's "
+            f"{tm['previous_device_ms']:.6f}, ratio {tm['ratio']:.4f} ({turns}), "
+            f"{tm['bound_share']:.4f} of the bound; the floor (an empty kernel on the "
+            f"same grid) {tm['floor_device_ms']}; plain {tm['plain_device_ms']}, "
+            f"expression {tm['library_device_ms']}")
+        if not tm["ratio"] <= 0.7:
+            raise AssertionError(f"score_matrix {key}: the rows kernel takes "
+                                 f"{tm['device_ms']} ms, more than 0.7 of the flat "
+                                 f"kernel's {tm['previous_device_ms']}")
+        rows[key] = dict(shape=f"J={j} T={t}", plan=pl, bound_ms=b, bound_by=by,
+                         bytes=nbytes, **tm)
+    ptx = ptxas_report(report, "score_rows_kernel")
+    log(f"score_rows_kernel, ptxas: {ptx}")
     first = rows["first learning window"]
     return dict(name="score_matrix", route="cuda", source="src/repro_torch/csrc/score.cu",
+                kernel="score_rows_kernel", ptxas=ptx,
                 replaces="src/repro/kernels/score.py:46", max_abs_err=err,
-                launches=path["launches"], path="ops",
+                launches=path["launches"], launches_by_route=path["by_route"], path="ops",
                 library="torch.where(mask, marg[:, None] / ci.clamp_min(1e-9), 0) "
                         "with the mask from arange: five calls",
                 oracle_span=rows["oracle span"], **first)
@@ -1854,14 +1941,16 @@ def main():
     kernels.append(gating_kernel_phase(reports["src/repro_torch/csrc/gating.cu"]))
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
-    kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay")
+    kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay",
+                      launches_by_route={r: path["batch"][r] for r in knn.BATCH_ROUTES})
     serve = serve_phase()
     kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
     score_path = score_ops_phase(windows)
-    kernels.append(score_kernel_phase(windows, score_path))
+    kernels.append(score_kernel_phase(windows, score_path,
+                                      reports["src/repro_torch/csrc/score.cu"]))
     device_path = oracle_path_phase(path["result"])
     kernels.append(greedy_kernel_phase(
         device_path, reports["src/repro_torch/csrc/oracle_greedy.cu"]))

@@ -1,0 +1,285 @@
+"""Split the device time of two of the PyTorch port's kernels into phases on
+one NVIDIA GPU (built for an H100), with throwaway variants that this script
+builds (none of them is kept in the library):
+
+    python3 scripts/kernel_splits.py
+
+1. ``score_matrix`` at the oracle's two shapes (the first learning window's
+   pair grid, 6944 x 168, and evaluation week 0's span, 6800 x 552): a
+   memset of the output (``Tensor.zero_``), the flat kernel (PR 14,
+   ``route="flat"``), a tile design (a block computes whole rows into shared
+   memory, then one thread stores the tile with one bulk copy), the same
+   storing zeros, the shipped rows kernel (direct ``float4`` stores, 8 rows
+   and 128 threads a block) and its indexing storing zeros;
+2. ``knn_topk_batch`` at Q=168 N=1344 D=13 k=5 on its plan: an empty kernel
+   launched the same way, then ``csrc/knn.cu``'s cluster kernel cut after
+   each phase: the staging (queries, one bulk copy, the mbarrier) and the two
+   cluster barriers; with the distances and the lanes' lists; with each
+   warp's selection (no merge); the whole kernel.
+
+The variants that compute the output are first held equal to the shipped
+kernel; then every variant is timed in turns by profiler device time
+(``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
+power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).
+"""
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
+from repro_torch.kernels import knn, score  # noqa: E402
+from repro_torch.kernels._build import NVCC_FLAGS, _nvcc  # noqa: E402
+
+SCORE_VARIANTS = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+
+__device__ __forceinline__ float score(float marg, float c, int t, int t0, int t1) {
+  const float den = c < 1e-9f ? 1e-9f : c;
+  return (t >= t0 && t < t1) ? __fdiv_rn(marg, den) : 0.0f;
+}
+
+// The tile design: bj rows a block computed into shared memory, one bulk
+// store of the tile (the ragged last block by plain stores).
+template <bool COMPUTE>
+__global__ void tile_kernel(const float* marg, const float* ci, const int* ts, const int* te,
+                            int J, int T, int bj, float* out) {
+  extern __shared__ __align__(128) float tile[];
+  float* m_s = tile + bj * T;
+  int* ts_s = reinterpret_cast<int*>(m_s + bj);
+  int* te_s = ts_s + bj;
+  const int j0 = blockIdx.x * bj;
+  const int rows = min(bj, J - j0);
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    m_s[r] = marg[j0 + r];
+    ts_s[r] = ts[j0 + r];
+    te_s[r] = te[j0 + r];
+  }
+  __syncthreads();
+  float* dst = out + static_cast<size_t>(j0) * T;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    const float c = ci[t];
+    for (int r = 0; r < rows; ++r) {
+      const float v = COMPUTE ? score(m_s[r], c, t, ts_s[r], te_s[r]) : 0.f;
+      if (rows == bj) tile[r * T + t] = v;
+      else dst[static_cast<size_t>(r) * T + t] = v;
+    }
+  }
+  if (rows < bj) return;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(static_cast<uint32_t>(__cvta_generic_to_shared(tile))),
+                 "r"(static_cast<uint32_t>(4 * bj * T)) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// The rows kernel's indexing and float4 stores, storing zeros.
+__global__ void rows_zero_kernel(int J, int T, int bj, float* out) {
+  const int T4 = T >> 2;
+  const int j0 = blockIdx.x * bj;
+  const int total = min(bj, J - j0) * T4;
+  int e = threadIdx.x, r = e / T4, c = e - r * T4;
+  const int dr = blockDim.x / T4, dc = blockDim.x - dr * T4;
+  for (; e < total; e += blockDim.x) {
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(j0 + r) * T + 4 * c) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+    c += dc;
+    r += dr;
+    if (c >= T4) {
+      c -= T4;
+      ++r;
+    }
+  }
+}
+
+extern "C" int score_variant(int which, const float* marg, const float* ci, const int* ts,
+                             const int* te, int J, int T, int bj, int threads, float* out,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (J + bj - 1) / bj;
+  const int smem = bj * (4 * T + 12);
+  if (which == 2) {
+    rows_zero_kernel<<<blocks, threads, 0, s>>>(J, T, bj, out);
+  } else if (which == 1) {
+    tile_kernel<false><<<blocks, threads, smem, s>>>(marg, ci, ts, te, J, T, bj, out);
+  } else {
+    tile_kernel<true><<<blocks, threads, smem, s>>>(marg, ci, ts, te, J, T, bj, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# The cluster kernel of csrc/knn.cu with a STOP parameter: 1 staging and
+# barriers only, 2 with the distances, 3 with each warp's selection, 4 whole.
+# Each cut writes what it has (lane heads, the warp's candidates) so that
+# nothing before it is optimised away.
+KNN_CUTS = [
+    ("template <int K, int D>\n__global__ void __launch_bounds__(BATCH_GROUP_MAX * 32)\n"
+     "knn_cluster_kernel(",
+     "template <int K, int D, int STOP>\n__global__ void __launch_bounds__(BATCH_GROUP_MAX * 32)\n"
+     "split_kernel("),
+    ("    for (int r = lane; r < cnt; r += 32) {\n      const float* xv",
+     "    if (STOP == 1) continue;\n    for (int r = lane; r < cnt; r += 32) {\n      const float* xv"),
+    ("  float best_d;\n  int best_i;\n  warp_topk(ld, li, lane, best_d, best_i);",
+     "  float best_d = ld[0];\n  int best_i = li[0];\n"
+     "  if (STOP >= 3) warp_topk(ld, li, lane, best_d, best_i);"),
+    ("  if (rank == 0) {\n    list_init(ld, li);",
+     "  if (rank == 0 && STOP < 4) {\n    const int qi = q0 + warp;\n"
+     "    if (lane < K && qi < nq) {\n"
+     "      out_dist[static_cast<size_t>(qi) * K + lane] = best_d;\n"
+     "      out_idx[static_cast<size_t>(qi) * K + lane] = best_i;\n    }\n"
+     "  } else if (rank == 0) {\n    list_init(ld, li);"),
+]
+
+KNN_ENTRY = r"""
+extern "C" int knn_variant(int stop, const float* cases, const float* queries, int n, int d,
+                           int nq, int rows, int chunks, int blocks, int threads, int slices,
+                           int smem, float* out_dist, long long* out_idx, void* stream) {
+  const void* kernel = stop == 1 ? (const void*)split_kernel<5, 13, 1>
+                     : stop == 2 ? (const void*)split_kernel<5, 13, 2>
+                     : stop == 3 ? (const void*)split_kernel<5, 13, 3>
+                                 : (const void*)split_kernel<5, 13, 4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         BATCH_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&cases, &queries, &n, &d, &nq, &rows, &chunks, &out_dist, &out_idx};
+  return static_cast<int>(launch_cluster(kernel, args, blocks, threads, slices, smem,
+                                         static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
+def knn_variants_source() -> str:
+    """csrc/knn.cu with its cluster kernel copied under the cuts above (each
+    must apply exactly once) and an entry that launches a cut."""
+    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", "knn.cu")).read()
+    start = src.index("template <int K, int D>\n__global__ void __launch_bounds__(BATCH_GROUP_MAX")
+    end = src.index("// Launched as the cluster kernel is, doing nothing")
+    kernel = src[start:end]
+    for old, new in KNN_CUTS:
+        if kernel.count(old) != 1:
+            raise RuntimeError(f"the cluster kernel no longer reads {old!r}: update the cuts")
+        kernel = kernel.replace(old, new)
+    close = src.index("}  // namespace")
+    return src[:close] + kernel + src[close:] + KNN_ENTRY
+
+
+def build(name: str, source: str) -> ctypes.CDLL:
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cu = os.path.join(ROOT, "build", f"{name}.cu")
+    so = os.path.join(ROOT, "build", f"lib{name}.so")
+    with open(cu, "w") as f:
+        f.write(source)
+    subprocess.run([_nvcc(Path(cu)), *NVCC_FLAGS, "-o", so, cu], check=True, capture_output=True)
+    return ctypes.CDLL(so)
+
+
+def tile_rows(j: int, t: int) -> int:
+    """The tile design's rows a block: the largest multiple of 4 whose tile
+    fits 48 KB and that leaves at least 2 x 132 blocks (at least 4)."""
+    bj = 49152 // (4 * t + 12) // 4 * 4
+    while bj > 4 and -(-j // bj) < 264:
+        bj -= 4
+    return bj
+
+
+def report(title, turns, extra=lambda key, ms: ""):
+    log(title)
+    for key, v in turns.items():
+        ms = float(np.mean(v))
+        log(f"  {key:34s} {ms:.6f} ms (turns {[round(x, 6) for x in v]}){extra(key, ms)}")
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def score_split():
+    lib = build("score_splits", SCORE_VARIANTS)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.score_variant.argtypes = [i, p, p, p, p, i, i, i, i, p, p]
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    windows = cs.oracle_windows()
+    for name, jobs, ci, h in (windows[0], windows[-1]):
+        a = cs.score_args(jobs, ci, h, dev)
+        j, t = a[0].shape[0], a[1].shape[0]
+        out = torch.empty((j, t), device=dev)
+        bj = tile_rows(j, t)
+        threads = min(-(-t // 32) * 32, 1024)
+        want = score.score_matrix(*a)
+        rows_bj = score.plan(j, t)["bj"]
+
+        def variant(which, rows, th):
+            return lambda: lib.score_variant(which, *(x.data_ptr() for x in a), j, t, rows,
+                                             th, out.data_ptr(), stream)
+
+        variant(0, bj, threads)()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name}: the tile design differs from the shipped kernel")
+        runs = {"memset of the output": out.zero_,
+                "flat kernel (PR 14)": lambda: score.score_matrix(*a, route="flat"),
+                f"tile of {bj} rows, one bulk store": variant(0, bj, threads),
+                "the same storing zeros": variant(1, bj, threads),
+                f"rows kernel ({rows_bj} rows, float4 stores)": lambda: score.score_matrix(*a),
+                "its indexing storing zeros": variant(2, rows_bj, score.ROW_THREADS)}
+        bound, _ = cs.bound_ms(12 * j + 4 * t + 4 * j * t, j * t)
+        report(f"score_matrix {name}: J={j} T={t}, bound {bound:.9f} ms (bytes)",
+               cs.in_turns(runs), lambda key, ms: f", {bound / ms:.4f} of the bound")
+
+
+def knn_split():
+    lib = build("knn_splits", knn_variants_source())
+    knn.build()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.knn_variant.argtypes = [i, p, p] + [i] * 9 + [p, p, p]
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = np.random.default_rng(0)
+    n, d, nq, k = 1344, 13, 168, 5
+    cases = torch.from_numpy(gen.normal(size=(n, d)).astype(np.float32)).to(dev)
+    qs = torch.from_numpy(gen.normal(size=(nq, d)).astype(np.float32)).to(dev)
+    dist = torch.empty((nq, k), device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    pl = knn.batch_plan(n, d, nq, k)
+
+    def cut(stop):
+        return lambda: lib.knn_variant(
+            stop, cases.data_ptr(), qs.data_ptr(), n, d, nq, pl["rows"], pl["chunks"],
+            pl["blocks"], pl["threads"], pl["slices"], pl["smem"], dist.data_ptr(),
+            idx.data_ptr(), stream)
+
+    cut(4)()
+    want = knn.knn_topk_batch(cases, qs, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(dist, want[0]) and torch.equal(idx, want[1])):
+        raise AssertionError("the whole cut differs from the shipped cluster kernel")
+    runs = {"empty kernel, same launch": lambda: knn._lib.knn_batch_floor(
+                pl["blocks"], pl["threads"], pl["slices"], pl["smem"], stream),
+            "staging and the cluster barriers": cut(1), "+ distances and lane lists": cut(2),
+            "+ each warp's selection": cut(3), "+ block 0's merge (whole kernel)": cut(4),
+            "knn_topk_batch (the wrapper)": lambda: knn.knn_topk_batch(cases, qs, k)}
+    report(f"knn_topk_batch Q={nq} N={n} D={d} k={k} on {pl}", cs.in_turns(runs))
+
+
+def main():
+    log(f"card: {cs.card_line()}")
+    score_split()
+    knn_split()
+
+
+if __name__ == "__main__":
+    main()

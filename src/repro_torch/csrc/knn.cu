@@ -13,7 +13,8 @@
 // lower index (as lax.top_k breaks them).
 //   knn_topk_f32 and knn_lookup_f32 launch knn_query_kernel (and, past
 //   QROWS rows, knn_query_merge_kernel); knn_topk_batch_f32 launches
-//   knn_batch_kernel.
+//   knn_cluster_kernel, and knn_topk_batch_warp_f32 the previous batch
+//   kernel, knn_batch_kernel (kept as the yardstick of the same call).
 //
 // What bounds them on an H100: at the main path's shapes (N <= 8 windows x
 // 168 slots = 1344 cases, D = 13 features) the case matrix is 70 KB, about
@@ -29,32 +30,51 @@
 // a k-slot list (k is a template argument) of its rows, each warp selects
 // its k best by k warp_min rounds with no block barrier, and warp 0 merges
 // the warps' candidates: two barriers in all.  Larger bases take more
-// blocks and a merge launch.  The
-// batch kernel reuses each staged case tile across BATCH_WARPS queries.
+// blocks and a merge launch.
 //
-// fp32 with fmaf, never TF32: KnowledgeBase.query_batch promises agreement
-// with query to a few ulps.  Distances are computed directly as sum (x-q)^2,
-// so they differ from the norm-expansion (||q||^2 + ||x||^2 - 2 q.x) of the
-// plain batch version by that version's cancellation error, about
-// eps_f32 * (||q||^2 + ||x||^2) in d2.
+// A batch (Q = 168 queries of a week against the 1344 cases) is 2.9 M fmaf,
+// 0.13 us of the card's fp32 rate: below what any launch takes, so it too is
+// bound by latency, and the question is how short the chain of each SM is.
+// The previous kernel gave a block 8 queries and walked the whole base in
+// chunks of 256 rows staged by plain loads between two barriers: 21 blocks
+// on 132 SMs, 42 rows a lane, 26 us.  knn_cluster_kernel cuts the base into
+// slices instead: a block takes G queries (one warp each) and one slice of
+// rows, and the S blocks of a query group form a thread-block cluster that
+// covers the whole base (Q = 168: G = 8, S = 7, 147 blocks, 192 rows a
+// block, 6 a lane).  One thread stages the slice with one bulk copy
+// (cp.async.bulk, completion on an mbarrier); each warp keeps per-lane k
+// lists and selects its k best by k warp_min rounds; after cluster.sync()
+// block 0 of the cluster reads the S x k candidates of each query from its
+// peers' shared memory (distributed shared memory) and selects again.  One
+// launch, no atomics, no second pass.
+//
+// fp32 with fmaf, never TF32: every kernel here adds (x - q)^2 over the
+// features in order c = 0 .. D-1 with fmaf, so KnowledgeBase.query_batch
+// equals query bit for bit.  Distances are computed directly as sum
+// (x-q)^2, so they differ from the norm-expansion (||q||^2 + ||x||^2 -
+// 2 q.x) of the plain batch version by that version's cancellation error,
+// about eps_f32 * (||q||^2 + ||x||^2) in d2.
 //
 // Plain C interface (loaded with ctypes); every entry point returns the
 // cudaError_t of its launches, 0 on success.  Nothing here allocates, and
 // only knn_lookup_f32 synchronises (its stream, once): the caller owns
-// every buffer and the stream.
+// every buffer and the stream.  The batch kernels' launch arithmetic (group,
+// slices, rows, shared memory) comes from kernels/knn.py; the entries check
+// that it is consistent.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 #include <cmath>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int KMAX = 8;                 // largest k supported
-constexpr int THREADS = 256;              // the batch kernel
 constexpr int MAX_D = 256;
-constexpr int BATCH_WARPS = THREADS / 32;  // queries per block, batch (one per warp)
-constexpr int SMEM_BUDGET = 48 * 1024;     // static-launch shared-memory limit
 
 // (d, i) orders before (e, j): smaller distance, then lower index.
 __device__ __forceinline__ bool before(float d, int i, float e, int j) {
@@ -334,12 +354,254 @@ cudaError_t launch_one(const float* cases, const Query& q, const float* query, i
   return cudaErrorInvalidValue;
 }
 
-// Kernel 2: a block owns BATCH_WARPS queries, one per warp, and loops over
-// the case base in chunks of `chunk` rows staged in shared memory (coalesced
-// loads, each row reused by every warp of the block).  Lane j of a warp
-// takes rows j, j + 32, ... of the chunk and keeps a running top-KMAX in
-// registers; k rounds of warp_min then give the query's k nearest.  Rows
-// are stored with an odd stride so the 32 lanes read 32 distinct banks.
+// --- a batch of queries -----------------------------------------------------------
+
+constexpr int BATCH_GROUP_MAX = 8;     // queries (warps) of a cluster kernel's block at most
+constexpr int BATCH_CLUSTER_MAX = 8;   // blocks (slices) of a cluster at most
+constexpr int BATCH_SMEM = 106496;     // its dynamic shared memory at most: rows + queries
+constexpr int THREADS = 256;           // the previous batch kernel: threads,
+constexpr int BATCH_WARPS = THREADS / 32;  // queries per block (one per warp),
+constexpr int SMEM_BUDGET = 48 * 1024;     // shared memory at most (a static launch)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive, and add `bytes` to what must land before the phase completes.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `bar` with this parity has completed; 2^34 cycles
+// (seconds) means a deadlock: trap, so that the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_test(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_test(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into this block's shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The warp's K best of its lanes' lists, ascending: K warp_min rounds, lane
+// s keeps round s (fillers (INFINITY, INT_MAX) where the lists hold fewer).
+template <int K>
+__device__ __forceinline__ void warp_topk(float (&ld)[K], int (&li)[K], int lane, float& out_d,
+                                          int& out_i) {
+  out_d = INFINITY;
+  out_i = INT_MAX;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    float d = ld[0];
+    int i = li[0];
+    warp_min(d, i);
+    if (ld[0] == d && li[0] == i) list_pop(ld, li);
+    if (lane == s) {
+      out_d = d;
+      out_i = i;
+    }
+  }
+}
+
+// The cluster kernel.  Grid: (Q / G rounded up) groups x S slices, one
+// cluster of S blocks per group; a block is G warps, warp g taking query
+// q0 + g.  The base is cut into `chunks` chunks of `rows` rows (a multiple
+// of 4, so every chunk starts on a 16-byte boundary); block `rank` of the
+// cluster takes chunks rank, rank + S, ... (one, unless the base outgrows
+// the cluster's shared memory).  Each chunk: thread 0 bulk-copies its whole
+// 16-byte part into shared memory (the ragged tail of fewer than 4 floats,
+// and everything when `cases` is not 16-byte aligned, by plain loads), the
+// block waits on the mbarrier, and lane l of each warp takes rows l, l + 32,
+// ... into its K-list.  Then each warp's K best go to shared memory, and
+// after cluster.sync() block 0's warp g reads the S x K candidates of query
+// g from every block of the cluster and writes the K best.  The second
+// cluster.sync() keeps every block's candidates alive until block 0 has
+// read them.  D is the feature dim when known at compile time (13), 0 to
+// read it from d.
+template <int K, int D>
+__global__ void __launch_bounds__(BATCH_GROUP_MAX * 32)
+knn_cluster_kernel(const float* __restrict__ cases, const float* __restrict__ queries, int n,
+                   int d, int nq, int rows, int chunks, float* __restrict__ out_dist,
+                   long long* __restrict__ out_idx) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float cand_d[BATCH_GROUP_MAX * K];
+  __shared__ int cand_i[BATCH_GROUP_MAX * K];
+  __shared__ __align__(8) unsigned long long bar_s;
+  if (D) d = D;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slices = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int group = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = static_cast<int>(blockIdx.x) / slices * group;
+  float* x_s = smem;                      // rows x d
+  float* q_s = smem + rows * d;           // group x d
+  const uint32_t bar = smem_u32(&bar_s);
+
+  const size_t qbase = static_cast<size_t>(q0) * d;
+  const size_t qend = static_cast<size_t>(nq) * d;
+  for (int e = threadIdx.x; e < group * d; e += blockDim.x)
+    q_s[e] = qbase + e < qend ? queries[qbase + e] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const float* qs = q_s + warp * d;
+  float qv[D > 0 ? D : 1];
+  if (D) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) qv[c] = qs[c];
+  }
+  float ld[K];
+  int li[K];
+  list_init(ld, li);
+  const bool aligned = (reinterpret_cast<size_t>(cases) & 15) == 0;
+  uint32_t parity = 0;
+  for (int c = rank; c < chunks; c += slices) {
+    const int row0 = c * rows;
+    const int cnt = min(rows, n - row0);
+    const float* src = cases + static_cast<size_t>(row0) * d;
+    const int total = cnt * d;
+    const int bulk = aligned ? total & ~3 : 0;   // floats that the bulk copy brings
+    if (c != rank) __syncthreads();               // the previous chunk is consumed
+    if (threadIdx.x == 0 && bulk > 0) {
+      mbar_expect(bar, 4u * bulk);
+      bulk_load(smem_u32(x_s), src, 4u * bulk, bar);
+    }
+    for (int e = bulk + threadIdx.x; e < total; e += blockDim.x) x_s[e] = src[e];
+    if (bulk > 0) {
+      mbar_wait(bar, parity);
+      parity ^= 1;
+    }
+    __syncthreads();
+    for (int r = lane; r < cnt; r += 32) {
+      const float* xv = x_s + r * d;
+      float acc = 0.f;
+      if (D) {
+#pragma unroll
+        for (int c2 = 0; c2 < D; ++c2) {
+          const float diff = xv[c2] - qv[c2];
+          acc = fmaf(diff, diff, acc);
+        }
+      } else {
+        for (int c2 = 0; c2 < d; ++c2) {
+          const float diff = xv[c2] - qs[c2];
+          acc = fmaf(diff, diff, acc);
+        }
+      }
+      list_insert(ld, li, acc, row0 + r);
+    }
+  }
+
+  float best_d;
+  int best_i;
+  warp_topk(ld, li, lane, best_d, best_i);
+  if (lane < K) {
+    cand_d[warp * K + lane] = best_d;
+    cand_i[warp * K + lane] = best_i;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    list_init(ld, li);
+    for (int e = lane; e < slices * K; e += 32) {
+      const int r = e / K;
+      const int s = warp * K + e - r * K;
+      list_insert(ld, li, cluster.map_shared_rank(cand_d, r)[s],
+                  cluster.map_shared_rank(cand_i, r)[s]);
+    }
+    warp_topk(ld, li, lane, best_d, best_i);
+    const int qi = q0 + warp;
+    if (lane < K && qi < nq) {
+      out_dist[static_cast<size_t>(qi) * K + lane] = sqrtf(fmaxf(best_d, 0.f));
+      out_idx[static_cast<size_t>(qi) * K + lane] = best_i;
+    }
+  }
+  cluster.sync();
+}
+
+// Launched as the cluster kernel is, doing nothing: what a launch of that
+// shape costs the card.
+__global__ void knn_floor_kernel() {}
+
+cudaError_t launch_cluster(const void* kernel, void** args, int blocks, int threads, int slices,
+                           int smem, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kernel, args);
+}
+
+template <int K, int D>
+cudaError_t launch_batch(const float* cases, const float* queries, int n, int d, int nq,
+                         int group, int slices, int rows, int chunks, int blocks, int smem,
+                         float* out_dist, long long* out_idx, cudaStream_t s) {
+  static bool ready = false;             // its shared memory may reach BATCH_SMEM, set once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_cluster_kernel<K, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, BATCH_SMEM);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  void* args[] = {&cases, &queries, &n, &d, &nq, &rows, &chunks, &out_dist, &out_idx};
+  return launch_cluster(reinterpret_cast<const void*>(knn_cluster_kernel<K, D>), args, blocks,
+                        32 * group, slices, smem, s);
+}
+
+template <int K>
+cudaError_t launch_batch_k(const float* cases, const float* queries, int n, int d, int nq,
+                           int group, int slices, int rows, int chunks, int blocks, int smem,
+                           float* out_dist, long long* out_idx, cudaStream_t s) {
+  return d == 13 ? launch_batch<K, 13>(cases, queries, n, d, nq, group, slices, rows, chunks,
+                                       blocks, smem, out_dist, out_idx, s)
+                 : launch_batch<K, 0>(cases, queries, n, d, nq, group, slices, rows, chunks,
+                                      blocks, smem, out_dist, out_idx, s);
+}
+
+// The previous batch kernel (PR 11), kept as the yardstick: a block owns
+// BATCH_WARPS queries, one per warp, and loops over the case base in chunks
+// of `chunk` rows staged in shared memory (plain loads, each row reused by
+// every warp of the block).  Lane j of a warp takes rows j, j + 32, ... of
+// the chunk and keeps a running top-KMAX in registers; k rounds of
+// warp_min then give the query's k nearest.  Rows are stored with an odd
+// stride so the 32 lanes read 32 distinct banks.
 __global__ void __launch_bounds__(THREADS)
 knn_batch_kernel(const float* __restrict__ cases, const float* __restrict__ queries,
                  int n, int d, int nq, int k, int chunk,
@@ -396,13 +658,6 @@ knn_batch_kernel(const float* __restrict__ cases, const float* __restrict__ quer
   }
 }
 
-int batch_chunk(int d) {
-  const int ds = d | 1;
-  int chunk = SMEM_BUDGET / (4 * ds) - BATCH_WARPS;
-  chunk = chunk > 256 ? 256 : chunk;
-  return chunk - chunk % 32;
-}
-
 }  // namespace
 
 extern "C" {
@@ -449,18 +704,61 @@ int knn_device_pointer(void* host, void** device) {
 }
 
 // A batch: cases (n, d), queries (nq, d) -> out_dist (nq, k) float32,
-// out_idx (nq, k) int64, each row ascending.
-int knn_topk_batch_f32(const float* cases, const float* queries, int n, int d, int nq,
-                       int k, float* out_dist, long long* out_idx, void* stream) {
-  if (n < 1 || d < 1 || d > MAX_D || nq < 1 || k < 1 || k > KMAX || k > n)
+// out_idx (nq, k) int64, each row ascending, on the cluster kernel.  The
+// plan (kernels/knn.py::batch_plan): `group` queries a block, `slices`
+// blocks a cluster, chunks of `rows` rows, `blocks` blocks, `smem` bytes of
+// dynamic shared memory.
+int knn_topk_batch_f32(const float* cases, const float* queries, int n, int d, int nq, int k,
+                       int group, int slices, int rows, int chunks, int blocks, int smem,
+                       float* out_dist, long long* out_idx, void* stream) {
+  if (n < 1 || d < 1 || d > MAX_D || nq < 1 || k < 1 || k > KMAX || k > n || group < 1 ||
+      group > BATCH_GROUP_MAX || slices < 1 || slices > BATCH_CLUSTER_MAX || rows < 4 ||
+      rows % 4 != 0 || chunks != (n + rows - 1) / rows ||
+      blocks != (nq + group - 1) / group * slices ||
+      static_cast<long long>(smem) < 4ll * d * (rows + group) || smem > BATCH_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunk = batch_chunk(d);
-  const size_t smem = static_cast<size_t>(BATCH_WARPS + chunk) * (d | 1) * sizeof(float);
-  const int blocks = (nq + BATCH_WARPS - 1) / BATCH_WARPS;
-  knn_batch_kernel<<<blocks, THREADS, smem, s>>>(cases, queries, n, d, nq, k, chunk,
-                                                 out_dist, out_idx);
+  switch (k) {
+#define KNN_K(K) \
+    case K: return static_cast<int>(launch_batch_k<K>(cases, queries, n, d, nq, group, slices, \
+                                                      rows, chunks, blocks, smem, out_dist, \
+                                                      out_idx, s));
+    KNN_K(1) KNN_K(2) KNN_K(3) KNN_K(4) KNN_K(5) KNN_K(6) KNN_K(7) KNN_K(8)
+#undef KNN_K
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same on the previous batch kernel: `chunk` rows a stage (a multiple
+// of 32), `blocks` blocks of BATCH_WARPS queries, `smem` bytes.
+int knn_topk_batch_warp_f32(const float* cases, const float* queries, int n, int d, int nq,
+                            int k, int chunk, int blocks, int smem, float* out_dist,
+                            long long* out_idx, void* stream) {
+  if (n < 1 || d < 1 || d > MAX_D || nq < 1 || k < 1 || k > KMAX || k > n || chunk < 32 ||
+      chunk % 32 != 0 || blocks != (nq + BATCH_WARPS - 1) / BATCH_WARPS ||
+      smem != (BATCH_WARPS + chunk) * (d | 1) * 4 || smem > SMEM_BUDGET)
+    return static_cast<int>(cudaErrorInvalidValue);
+  knn_batch_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      cases, queries, n, d, nq, k, chunk, out_dist, out_idx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched as the cluster kernel is for a plan: `blocks`
+// blocks of `threads`, clusters of `slices`, `smem` bytes.
+int knn_batch_floor(int blocks, int threads, int slices, int smem, void* stream) {
+  if (blocks < 1 || threads < 32 || threads > 32 * BATCH_GROUP_MAX || slices < 1 ||
+      slices > BATCH_CLUSTER_MAX || blocks % slices != 0 || smem < 0 || smem > BATCH_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BATCH_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  return static_cast<int>(launch_cluster(reinterpret_cast<const void*>(knn_floor_kernel),
+                                         nullptr, blocks, threads, slices, smem,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

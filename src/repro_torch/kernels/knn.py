@@ -14,6 +14,14 @@ On a CPU tensor they run the plain version (``knn_topk_plain`` /
 launch the kernels of ``csrc/knn.cu`` (float32 only) or raise.  Each launch
 adds one to ``launches``.
 
+``knn_topk_batch`` takes a ``route``: ``"cluster"`` (the default) launches
+``knn_cluster_kernel``, a thread-block cluster per group of queries whose
+blocks split the base into slices (``batch_plan``); ``"warp"`` launches the
+previous kernel, a warp per query over the whole base (``batch_warp_plan``),
+kept as the yardstick of the same call.  Each launch also adds one to its
+route's count.  Every kernel adds the same fmaf chain in the same order, so
+all of them give ``knn_topk``'s neighbours and distances bit for bit.
+
 ``knn_lookup(cases, query, k)`` is the per-slot lookup of the knowledge
 base: the query is a host numpy array and the result comes back as numpy
 ``(float64 distances, int64 indices)``.  On CUDA cases it makes one round
@@ -47,8 +55,25 @@ QTHREADS = 512
 QROWS = 2048
 QSMEM = 196608
 
-#: Kernel launches per wrapper since the last ``reset_launches()``.
-launches = {"knn_topk": 0, "knn_topk_batch": 0}
+# The batch kernels (csrc/knn.cu).  The cluster kernel: queries (warps) a
+# block and blocks (slices) a cluster at most, and its dynamic shared memory
+# at most; of that, what the staged rows may take.  The plan launches at
+# least BATCH_TARGET blocks where Q allows: one per SM of an H100.
+BATCH_GROUP_MAX = 8
+BATCH_CLUSTER_MAX = 8
+BATCH_SMEM = 106496
+BATCH_TILE = 98304
+BATCH_TARGET = 132
+# The previous batch kernel: threads and queries a block, its shared memory
+# at most (a launch without the attribute).
+BATCH_THREADS = 256
+BATCH_WARPS = BATCH_THREADS // 32
+SMEM_BUDGET = 49152
+BATCH_ROUTES = ("cluster", "warp")
+
+#: Kernel launches per wrapper since the last ``reset_launches()``, and the
+#: batch's by route.
+launches = {"knn_topk": 0, "knn_topk_batch": 0, "cluster": 0, "warp": 0}
 
 _lib: ctypes.CDLL | None = None
 _record: dict = {}          # the pinned host record of knn_lookup and its device address
@@ -105,8 +130,12 @@ def build() -> str:
     lib.knn_topk_f32.restype = i
     lib.knn_lookup_f32.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.knn_lookup_f32.restype = i
-    lib.knn_topk_batch_f32.argtypes = [p, p, i, i, i, i, p, p, p]
+    lib.knn_topk_batch_f32.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.knn_topk_batch_f32.restype = i
+    lib.knn_topk_batch_warp_f32.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
+    lib.knn_topk_batch_warp_f32.restype = i
+    lib.knn_batch_floor.argtypes = [i, i, i, i, p]
+    lib.knn_batch_floor.restype = i
     lib.knn_device_pointer.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
     lib.knn_device_pointer.restype = i
     lib.knn_topk_blocks.argtypes = [i, i]
@@ -238,9 +267,49 @@ def knn_lookup(cases: torch.Tensor, query, k: int):
         return pairs[:, 0].view(np.float64).copy(), pairs[:, 1].copy()
 
 
-def knn_topk_batch(cases: torch.Tensor, queries: torch.Tensor, k: int):
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def batch_plan(n: int, d: int, nq: int, k: int) -> dict:
+    """The cluster kernel's launch for nq queries against n rows of d
+    features: ``group`` queries a block (one warp each; the largest of 8, 4,
+    2, 1 that still gives BATCH_TARGET blocks over clusters of 8, else 1),
+    ``slices`` blocks a cluster (the fewest that give BATCH_TARGET blocks, at
+    most 8), the base cut into ``chunks`` chunks of ``rows`` rows (a multiple
+    of 4, so each chunk's bytes start on a 16-byte boundary; the rows of one
+    slice, unless they outgrow BATCH_TILE), chunk c taken by block
+    ``c % slices`` of each cluster; ``blocks`` blocks of ``threads``,
+    ``smem`` bytes of dynamic shared memory (rows and queries)."""
+    if not (n >= 1 and 1 <= d <= MAX_D and nq >= 1 and 1 <= k <= min(n, KMAX)):
+        raise ValueError(f"no batch launch for N={n} D={d} Q={nq} k={k}")
+    group = next((g for g in (8, 4, 2) if _cdiv(nq, g) * BATCH_CLUSTER_MAX >= BATCH_TARGET), 1)
+    groups = _cdiv(nq, group)
+    slices = min(BATCH_CLUSTER_MAX, _cdiv(BATCH_TARGET, groups))
+    rows = min(_cdiv(_cdiv(n, slices), 4) * 4, BATCH_TILE // (4 * d) // 4 * 4)
+    return dict(group=group, slices=slices, rows=rows, chunks=_cdiv(n, rows),
+                blocks=groups * slices, threads=32 * group, smem=4 * d * (rows + group))
+
+
+def batch_warp_plan(n: int, d: int, nq: int) -> dict:
+    """The previous batch kernel's launch: BATCH_WARPS queries a block,
+    chunks of ``chunk`` rows (a multiple of 32) stored with an odd stride,
+    ``smem`` bytes."""
+    ds = d | 1
+    chunk = min(SMEM_BUDGET // (4 * ds) - BATCH_WARPS, 256)
+    chunk -= chunk % 32
+    return dict(chunk=chunk, blocks=_cdiv(nq, BATCH_WARPS), threads=BATCH_THREADS,
+                smem=(BATCH_WARPS + chunk) * ds * 4)
+
+
+def knn_topk_batch(cases: torch.Tensor, queries: torch.Tensor, k: int,
+                   route: str | None = None):
     """Top-k nearest cases of each of Q queries: ((Q, k) distances,
-    (Q, k) indices)."""
+    (Q, k) indices); on CUDA tensors through ``route`` (``"cluster"`` by
+    default, ``"warp"``: the previous kernel)."""
+    route = route or "cluster"
+    if route not in BATCH_ROUTES:
+        raise ValueError(f"unknown batch route {route!r}; use one of {BATCH_ROUTES}")
     if cases.device.type == "cpu" and queries.device.type == "cpu":
         return knn_topk_batch_plain(cases, queries, k)
     _check_queries(cases, queries)
@@ -253,8 +322,17 @@ def knn_topk_batch(cases: torch.Tensor, queries: torch.Tensor, k: int):
     dist = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.knn_topk_batch_f32(cases.data_ptr(), queries.data_ptr(), n, d, nq, k,
-                                 dist.data_ptr(), idx.data_ptr(), stream)
-    _raise_on(err, "knn_topk_batch_f32")
+    ptrs = (cases.data_ptr(), queries.data_ptr(), n, d, nq, k)
+    if route == "cluster":
+        pl = batch_plan(n, d, nq, k)
+        err = lib.knn_topk_batch_f32(*ptrs, pl["group"], pl["slices"], pl["rows"],
+                                     pl["chunks"], pl["blocks"], pl["smem"], dist.data_ptr(),
+                                     idx.data_ptr(), stream)
+    else:
+        pl = batch_warp_plan(n, d, nq)
+        err = lib.knn_topk_batch_warp_f32(*ptrs, pl["chunk"], pl["blocks"], pl["smem"],
+                                          dist.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, f"knn_topk_batch ({route})")
     launches["knn_topk_batch"] += 1
+    launches[route] += 1
     return dist, idx

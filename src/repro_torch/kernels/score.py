@@ -7,10 +7,15 @@ throughputs ``p_j(k)`` of (job, scale) entries, a (T,) carbon intensity and
 (J,) window bounds, and returns the (J, T) matrix
 ``marginals[j] / max(ci[t], 1e-9)`` inside ``t_start[j] <= t < t_end[j]``
 and 0 outside.  On CPU tensors it runs ``score_matrix_plain`` in the
-tensors' dtype; on CUDA tensors it launches the kernel of
-``csrc/score.cu`` (float32 values, int32 bounds) or raises.  Each launch
-adds one to ``launches["score_matrix"]``.  One IEEE division per element in
-both, so the kernel equals the plain version exactly.
+tensors' dtype; on CUDA tensors it launches a kernel of ``csrc/score.cu``
+(float32 values, int32 bounds) or raises.  ``plan`` picks the kernel by
+shape: ``"rows"`` (T a multiple of 4, at most ROW_FLOATS, ``ci`` 16-byte
+aligned) gives a block whole rows and stores four scores at a time;
+``"columns"`` takes every other shape, four columns a thread.
+``route="flat"`` launches the previous kernel (one thread per element), kept
+as the yardstick of the same call.  Each launch adds one to
+``launches["score_matrix"]`` and to its route's count.  One IEEE division per
+element in every version, so each kernel equals the plain version exactly.
 
 As in the JAX package, the oracle does not call it: ``oracle.solve``
 scores its ragged entry list in float64 on the host, since a float32 score
@@ -25,14 +30,25 @@ import torch
 
 from ._build import build_library
 
-#: Kernel launches since the last ``reset_launches()``.
-launches = {"score_matrix": 0}
+# The kernels' constants (csrc/score.cu): the rows kernel's threads and
+# longest row, the columns and flat kernels' threads.
+ROW_THREADS = 128
+ROW_FLOATS = 4096
+COLUMN_THREADS = 256
+FLAT_THREADS = 256
+#: Blocks the rows route aims for at least: two per SM of an H100.
+TARGET_BLOCKS = 2 * 132
+ROUTES = ("rows", "columns", "flat")
+
+#: Kernel launches since the last ``reset_launches()``: in all and by route.
+launches = {"score_matrix": 0, "rows": 0, "columns": 0, "flat": 0}
 
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    launches["score_matrix"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def score_matrix_plain(marginals: torch.Tensor, ci: torch.Tensor,
@@ -52,15 +68,50 @@ def build() -> str:
         return ""
     lib, log = build_library("score")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.score_matrix.argtypes = [p, p, p, p, i, i, p, p]
-    lib.score_matrix.restype = i
+    lib.score_rows.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.score_columns.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.score_flat.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, p, p]
+    lib.score_floor.argtypes = [i, i, i, p]
+    for fn in (lib.score_rows, lib.score_columns, lib.score_flat, lib.score_floor):
+        fn.restype = i
     _lib = lib
     return log
 
 
+def plan(j: int, t: int, route: str | None = None, aligned: bool = True) -> dict:
+    """The launch for a (j, t) matrix (``aligned``: ``ci`` starts on a
+    16-byte boundary).  Default route: ``"rows"`` where t is a multiple of
+    4, at most ROW_FLOATS, and ``ci`` aligned, else ``"columns"``.
+    ``"rows"``: ``bj`` rows a block (8, or the largest of 4, 2, 1 that still
+    gives TARGET_BLOCKS blocks; 1 if none does), ``blocks`` blocks of
+    ROW_THREADS.  ``"columns"``: a (j, ``tiles``) grid of COLUMN_THREADS,
+    4 columns a thread.  ``"flat"``: ``blocks`` of FLAT_THREADS over the
+    j t elements."""
+    if j < 1 or t < 1:
+        raise ValueError(f"no launch for an empty {j} x {t} matrix")
+    rows_fit = t % 4 == 0 and t <= ROW_FLOATS and aligned
+    route = route or ("rows" if rows_fit else "columns")
+    if route == "rows":
+        if not rows_fit:
+            raise ValueError(f"the rows route takes T a multiple of 4 up to {ROW_FLOATS} "
+                             f"and an aligned ci, got T={t}, aligned={aligned}")
+        bj = next((b for b in (8, 4, 2) if -(-j // b) >= TARGET_BLOCKS), 1)
+        return dict(route=route, bj=bj, blocks=-(-j // bj), threads=ROW_THREADS)
+    if route == "columns":
+        return dict(route=route, blocks=j, tiles=max(1, -(-(t // 4) // COLUMN_THREADS)),
+                    threads=COLUMN_THREADS)
+    if route == "flat":
+        return dict(route=route, blocks=-(-j * t // FLAT_THREADS), threads=FLAT_THREADS)
+    raise ValueError(f"unknown score route {route!r}; use one of {ROUTES}")
+
+
 def score_matrix(marginals: torch.Tensor, ci: torch.Tensor,
-                 t_start: torch.Tensor, t_end: torch.Tensor) -> torch.Tensor:
-    """(J,), (T,), (J,), (J,) -> (J, T) masked scores."""
+                 t_start: torch.Tensor, t_end: torch.Tensor,
+                 route: str | None = None) -> torch.Tensor:
+    """(J,), (T,), (J,), (J,) -> (J, T) masked scores; on CUDA tensors
+    through ``route`` (default: ``plan``'s)."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown score route {route!r}; use one of {ROUTES}")
     args = (marginals, ci, t_start, t_end)
     if all(x.device.type == "cpu" for x in args):
         return score_matrix_plain(*args)
@@ -86,10 +137,17 @@ def score_matrix(marginals: torch.Tensor, ci: torch.Tensor,
     if out.numel() == 0:
         return out
     build()
+    pl = plan(j, t, route, aligned=ci.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.score_matrix(*(x.data_ptr() for x in args), j, t, out.data_ptr(),
-                            stream)
+    ptrs = [x.data_ptr() for x in args]
+    if pl["route"] == "rows":
+        err = _lib.score_rows(*ptrs, j, t, pl["bj"], pl["blocks"], out.data_ptr(), stream)
+    elif pl["route"] == "columns":
+        err = _lib.score_columns(*ptrs, j, t, pl["tiles"], out.data_ptr(), stream)
+    else:
+        err = _lib.score_flat(*ptrs, j, t, pl["blocks"], out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"score_matrix failed with cudaError_t {err}")
+        raise RuntimeError(f"score_matrix ({pl['route']}) failed with cudaError_t {err}")
     launches["score_matrix"] += 1
+    launches[pl["route"]] += 1
     return out

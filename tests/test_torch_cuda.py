@@ -89,24 +89,72 @@ def test_kernel_topk_matches_plain(cuda, n, k):
     _assert_topk_close(dist.cpu(), idx.cpu(), dr.cpu(), ir.cpu(), cases, q[None])
 
 
+def _batch_inputs(q, n, d, seed):
+    """Queries and cases; past 8 rows a tie of four across the cluster
+    kernel's slices (rows 1, rows-1, rows and 2 rows of ``batch_plan``, or
+    the last rows where those pass the end), nearest to query 0 (0.05 off in every feature: away from
+    0, where the plain version's norm expansion loses ~1e-3 through the
+    sqrt), and a NaN row."""
+    cases, qs = _inputs(n, d, q=q, seed=seed)
+    if n > 8:
+        rows = knn.batch_plan(n, d, q, 1)["rows"]
+        tied = list(dict.fromkeys(min(r, n - 1) for r in (1, rows - 1, rows, 2 * rows,
+                                                           n - 1, n - 2, n - 3)))[:4]
+        cases[tied] = cases[1]
+        qs[0] = cases[1] + np.float32(0.05)
+        cases[n // 2 + 1] = np.nan
+    return cases, qs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,d", [(1, 5, 13), (168, 1344, 13), (1344, 1344, 13),
-                                   (37, 3000, 64), (9, 700, 256)])
-def test_kernel_topk_batch_matches_plain(cuda, q, n, d):
+@pytest.mark.parametrize("q,n,d", [(1, 5, 13), (3, 5, 13), (168, 1344, 13), (170, 1344, 13),
+                                   (1344, 1344, 13), (13, 4099, 13), (37, 3000, 64),
+                                   (9, 700, 256)])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_topk_batch_matches_plain(cuda, q, n, d, k):
+    """The cluster kernel against the plain version, and bit for bit against
+    ``knn_topk`` on every query: Q not a multiple of the group, N=5 against 8
+    slices (6 of them empty), a base that outgrows a block (3000 x 64: 8
+    chunks over 7 slices), a tie of four across slices and a NaN row."""
+    if k > n:
+        pytest.skip("k > N")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases, qs = _inputs(n, d, q=q, seed=q + n)
+    cases, qs = _batch_inputs(q, n, d, seed=q + n)
     c, qq = torch.from_numpy(cases).to(cuda), torch.from_numpy(qs).to(cuda)
     knn.reset_launches()
-    dist, idx = knn.knn_topk_batch(c, qq, 5)
+    dist, idx = knn.knn_topk_batch(c, qq, k)
     torch.cuda.synchronize()
-    assert knn.launches["knn_topk_batch"] == 1
-    dr, ir = knn.knn_topk_batch_plain(c, qq, 5)
+    assert knn.launches["knn_topk_batch"] == knn.launches["cluster"] == 1
+    dr, ir = knn.knn_topk_batch_plain(c, qq, k)
     _assert_topk_close(dist.cpu(), idx.cpu(), dr.cpu(), ir.cpu(), cases, qs,
                        rtol=1e-5, atol=1e-4)
+    if n > 8:                               # the tie, in index order
+        tied = np.flatnonzero((cases == cases[1]).all(axis=1))
+        assert len(tied) == 4 and idx[0, :min(k, 4)].tolist() == tied[:k].tolist()
     # the batch kernel adds the same fmaf chain as the single-query one
-    for i in range(0, q, max(1, q // 4)):
-        d1, i1 = knn.knn_topk(c, qq[i].contiguous(), 5)
-        assert torch.equal(d1, dist[i]) and torch.equal(i1, idx[i])
+    for i in range(q):
+        d1, i1 = knn.knn_topk(c, qq[i].contiguous(), k)
+        assert torch.equal(d1, dist[i]) and torch.equal(i1, idx[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d", [(1, 5, 13), (168, 1344, 13), (37, 3000, 64), (9, 700, 256)])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_kernel_topk_batch_routes_agree(cuda, q, n, d, k):
+    """The previous batch kernel (``route="warp"``) equals the cluster
+    kernel bit for bit; each launch counts on its route."""
+    if k > n:
+        pytest.skip("k > N")
+    cases, qs = _batch_inputs(q, n, d, seed=2 * q + n)
+    c, qq = torch.from_numpy(cases).to(cuda), torch.from_numpy(qs).to(cuda)
+    knn.reset_launches()
+    new = knn.knn_topk_batch(c, qq, k)
+    old = knn.knn_topk_batch(c, qq, k, route="warp")
+    torch.cuda.synchronize()
+    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 2, "cluster": 1, "warp": 1}
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+    with pytest.raises(ValueError, match="route"):
+        knn.knn_topk_batch(c, qq, k, route="tiles")
 
 
 @pytest.mark.cuda
@@ -153,7 +201,7 @@ def test_kernel_lookup_matches_plain_and_device_query(cuda, n, k):
     c = torch.from_numpy(cases).to(cuda)
     knn.reset_launches()
     dist, idx = knn.knn_lookup(c, q.astype(np.float64), k)
-    assert knn.launches == {"knn_topk": 1, "knn_topk_batch": 0}
+    assert knn.launches == {"knn_topk": 1, "knn_topk_batch": 0, "cluster": 0, "warp": 0}
     assert dist.dtype == np.float64 and idx.dtype == np.int64 and dist.shape == (k,)
     dp, ip = knn.knn_topk_plain(c, torch.from_numpy(q).to(cuda), k)
     _assert_topk_close(dist, idx, dp.cpu(), ip.cpu(), cases, q[None])
@@ -212,7 +260,8 @@ def test_kb_on_cuda_matches_cpu_neighbours(cuda):
         np.testing.assert_array_equal(d1, dq)
         np.testing.assert_array_equal(m1, kb._Y[iq, 0])
     # one lookup launch per query, one batch launch, and the protocol's launches
-    assert knn.launches == {"knn_topk": 2 * len(states), "knn_topk_batch": 1}
+    assert knn.launches == {"knn_topk": 2 * len(states), "knn_topk_batch": 1,
+                            "cluster": 1, "warp": 0}
 
 
 @pytest.fixture
@@ -470,29 +519,82 @@ def cuda_oracle():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("j,t", [(1, 1), (1, 777), (1000, 1), (257, 129),
-                                 (3000, 168), (2500, 552)])
-def test_kernel_score_matches_plain(cuda_oracle, j, t):
-    """Equal exactly, on shapes no tile divides, windows past the end,
-    empty or reversed, and intensities at or below the 1e-9 floor."""
-    rng = np.random.default_rng(j + t)
+def _same(a, b):
+    """Equal exactly, NaN where the other is NaN."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a.masked_fill(nan, 0),
+                                                       b.masked_fill(nan, 0))
+
+
+def _score_inputs(j, t, seed, device):
+    rng = np.random.default_rng(seed)
     marg = rng.uniform(0, 1, j).astype(np.float32)
     ci = rng.uniform(20, 600, t).astype(np.float32)
     ci[::4] = np.array([0.0, 1e-9, 1e-12, -3.0], np.float32)[np.arange(len(ci[::4])) % 4]
+    if t > 5:
+        ci[5] = np.nan                      # stays NaN inside a window
     ts = rng.integers(0, t, j).astype(np.int32)
     te = rng.integers(0, t + 5, j).astype(np.int32)
     te[::3] = t + 40
     ts[1::5] = te[1::5]
-    args = [torch.from_numpy(x).to(cuda_oracle) for x in (marg, ci, ts, te)]
+    ts[2::7], te[2::7] = te[2::7] + 1, ts[2::7].copy()    # start after end
+    return [torch.from_numpy(x).to(device) for x in (marg, ci, ts, te)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,t", [(1, 1), (1, 777), (1000, 1), (257, 129),
+                                 (3000, 168), (2500, 552), (6945, 168), (6801, 552),
+                                 (100, 168), (1000, 4096), (3, 3070), (5, 20001)])
+def test_kernel_score_matches_plain(cuda_oracle, j, t):
+    """Equal exactly, on shapes no tile divides (6945 and 6801 rows: a
+    ragged last block of 1), 1 and 2 rows a block, T no multiple of 4 or
+    above ROW_FLOATS (the columns route), windows past the end, empty or
+    reversed, and intensities at or below the 1e-9 floor or NaN."""
+    args = _score_inputs(j, t, j + t, cuda_oracle)
     score.reset_launches()
     got = ops.score_matrix(*args)
     torch.cuda.synchronize()
-    assert score.launches["score_matrix"] == 1
+    route = score.plan(j, t)["route"]
+    assert route == ("rows" if t % 4 == 0 and t <= score.ROW_FLOATS else "columns")
+    assert score.launches["score_matrix"] == score.launches[route] == 1
     want = score.score_matrix_plain(*args)
     assert got.dtype == torch.float32 and got.shape == (j, t)
-    assert torch.equal(got, want)
-    assert torch.equal(got.cpu(), score.score_matrix_plain(*(a.cpu() for a in args)))
+    assert _same(got, want)
+    assert _same(got.cpu(), score.score_matrix_plain(*(a.cpu() for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j,t", [(1, 1), (257, 129), (6945, 168), (6800, 552), (3, 3070),
+                                 (7, 777)])
+def test_kernel_score_routes_agree(cuda_oracle, j, t):
+    """The previous kernel (``route="flat"``) and the columns route equal the
+    default route bit for bit, NaN where it is NaN."""
+    args = _score_inputs(j, t, 3 * j + t, cuda_oracle)
+    score.reset_launches()
+    outs = {r: score.score_matrix(*args, route=r) for r in ("flat", "columns")}
+    outs["default"] = score.score_matrix(*args)
+    torch.cuda.synchronize()
+    assert score.launches["score_matrix"] == 3 and score.launches["flat"] == 1
+    for r, out in outs.items():
+        assert _same(out, outs["default"]), r
+
+
+@pytest.mark.cuda
+def test_kernel_score_unaligned_ci_takes_columns(cuda_oracle):
+    """A ``ci`` that starts off a 16-byte boundary (a view) cannot be read
+    as float4s: the wrapper takes the columns route, equal to the plain
+    version; the rows route refuses it."""
+    args = _score_inputs(300, 168, 5, cuda_oracle)
+    wide = torch.zeros(169, device=cuda_oracle)
+    wide[1:] = args[1]
+    args[1] = wide[1:]
+    score.reset_launches()
+    got = score.score_matrix(*args)
+    torch.cuda.synchronize()
+    assert score.launches["columns"] == 1
+    assert _same(got, score.score_matrix_plain(*args))
+    with pytest.raises(ValueError, match="aligned"):
+        score.score_matrix(*args, route="rows")
 
 
 @pytest.mark.cuda
@@ -799,4 +901,4 @@ def test_ops_on_cuda_launch_the_kernels(cuda_oracle):
                                                  knn.knn_topk(cases, qs[0], 5)))
     assert all(torch.equal(a, b) for a, b in zip(ops.knn_topk_batch(cases, qs, 5),
                                                  knn.knn_topk_batch(cases, qs, 5)))
-    assert knn.launches == {"knn_topk": 2, "knn_topk_batch": 2}
+    assert knn.launches == {"knn_topk": 2, "knn_topk_batch": 2, "cluster": 2, "warp": 0}

@@ -105,7 +105,7 @@ def test_cpu_dispatch_launches_no_kernel():
     knn.knn_topk(torch.from_numpy(cases).double(),
                  torch.from_numpy(q).double(), 5)
     knn.knn_topk_batch(torch.from_numpy(cases), torch.from_numpy(q[None]), 5)
-    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 0}
+    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 0, "cluster": 0, "warp": 0}
 
 
 @pytest.fixture(scope="module")
@@ -210,7 +210,7 @@ def test_lookup_on_cpu_runs_the_plain_version(dtype, k):
     dp, ip = knn.knn_topk_plain(c, torch.from_numpy(q).to(dtype), k)
     np.testing.assert_array_equal(dist, dp.double().numpy())
     np.testing.assert_array_equal(idx, ip.numpy())
-    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 0}
+    assert knn.launches == {"knn_topk": 0, "knn_topk_batch": 0, "cluster": 0, "warp": 0}
     q3 = cases[3].astype(np.float64)
     _, idx3 = knn.knn_lookup(c, q3, 4)
     assert idx3.tolist() == [3, 7, 40, 41]
@@ -257,3 +257,172 @@ def test_query_constants_match_the_cuda_source():
         (knn.QTHREADS, knn.QROWS, knn.QSMEM)
     assert (const["KMAX"], const["MAX_D"]) == (knn.KMAX, knn.MAX_D)
     assert "return (r < QROWS ? r : QROWS) / 4 * 4;" in src
+
+
+# --- the batch kernels' launch arithmetic and the cluster kernel's algorithm ----
+
+
+@pytest.mark.parametrize("n,d,nq,k", [(1, 13, 1, 1), (5, 13, 1, 5), (5, 13, 3, 5),
+                                      (39, 13, 2, 8), (504, 13, 210, 5),
+                                      (1344, 13, 168, 5), (1344, 13, 170, 5),
+                                      (1344, 13, 1344, 5), (4099, 13, 1, 5),
+                                      (4099, 13, 13, 8), (3000, 64, 37, 5),
+                                      (700, 256, 9, 5), (5000, 256, 16, 1),
+                                      (257, 11, 130, 5)])
+def test_batch_plan_covers_each_query_and_row_once(n, d, nq, k):
+    """The cluster kernel's grid, as ``csrc/knn.cu`` walks it, takes every
+    (query, row) pair exactly once; every bulk copy starts and ends on 16
+    bytes (the rest of a chunk, fewer than 4 floats, by plain loads);
+    shared memory and clusters stay within the card's limits; at least 132
+    blocks wherever 17 or more queries allow it."""
+    pl = knn.batch_plan(n, d, nq, k)
+    group, slices, rows, chunks = pl["group"], pl["slices"], pl["rows"], pl["chunks"]
+    assert group in (1, 2, 4, 8) and 1 <= slices <= knn.BATCH_CLUSTER_MAX
+    assert pl["threads"] == 32 * group and pl["blocks"] == -(-nq // group) * slices
+    assert pl["blocks"] >= knn.BATCH_TARGET or nq * knn.BATCH_CLUSTER_MAX < knn.BATCH_TARGET
+    assert rows % 4 == 0 and chunks == -(-n // rows) and 4 * rows * d <= knn.BATCH_TILE
+    assert pl["smem"] == 4 * d * (rows + group) <= knn.BATCH_SMEM
+    assert pl["smem"] + 8 * 8 * knn.KMAX + 16 <= 232_448     # and the static candidates
+    taken = np.zeros((nq, n), np.int64)
+    for b in range(pl["blocks"]):
+        q0, rank = b // slices * group, b % slices
+        for c in range(rank, chunks, slices):
+            row0, cnt = c * rows, min(rows, n - c * rows)
+            start, bulk = 4 * row0 * d, 4 * (cnt * d & ~3)
+            assert start % 16 == 0 and bulk % 16 == 0 and cnt * d - bulk // 4 < 4
+            taken[q0:q0 + group, row0:row0 + cnt] += 1
+    assert (taken == 1).all()
+
+
+def test_batch_warp_plan_is_the_previous_kernels_arithmetic():
+    """``batch_warp_plan`` does what ``batch_chunk`` and the launch did in
+    C before: chunks of a multiple of 32 rows within 48 KB at the odd
+    stride, 8 queries a block."""
+    for d, chunk in ((13, 256), (64, 160), (256, 32), (1, 256)):
+        pl = knn.batch_warp_plan(1000, d, 17)
+        assert pl["chunk"] == chunk and pl["blocks"] == 3
+        assert pl["smem"] == (8 + chunk) * (d | 1) * 4 <= knn.SMEM_BUDGET
+
+
+def test_batch_plan_and_routes_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        knn.batch_plan(4, 13, 1, 5)                # k > N
+    with pytest.raises(ValueError):
+        knn.batch_plan(10, 257, 1, 5)              # D > MAX_D
+    cases, qs = _inputs(40, 13, q=3)
+    with pytest.raises(ValueError, match="route"):
+        knn.knn_topk_batch(torch.from_numpy(cases), torch.from_numpy(qs), 5, route="tiles")
+    got = knn.knn_topk_batch(torch.from_numpy(cases), torch.from_numpy(qs), 5, route="warp")
+    want = knn.knn_topk_batch_plain(torch.from_numpy(cases), torch.from_numpy(qs), 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+_FILLER = (np.float32(np.inf), 2 ** 31 - 1)
+
+
+def _lane_insert(lst, cand, k):
+    """A lane's ascending k-list: (d, i) goes in before every pair it
+    precedes (smaller d, then lower i); a NaN precedes nothing."""
+    if np.isnan(cand[0]):
+        return
+    lst.append(cand)
+    lst.sort(key=lambda c: (c[0], c[1]))
+    del lst[k:]
+
+
+def _warp_select(lists, k):
+    """k rounds of the warp minimum over the lanes' heads, each round
+    popping the head from every lane that holds it, as ``warp_topk``."""
+    out = []
+    for _ in range(k):
+        heads = [lst[0] if lst else _FILLER for lst in lists]
+        m = min(heads, key=lambda c: (c[0], c[1]))
+        for lst in lists:
+            if lst and lst[0] == m:
+                lst.pop(0)
+        out.append(m)
+    return out
+
+
+def _cluster_model(cases, queries, k):
+    """The cluster kernel's algorithm in Python: per block (one slice of
+    chunks) lane l of query q's warp keeps rows l, l + 32, ... of each chunk
+    in its k-list, the warp selects its k best, and block 0 merges the
+    slices' candidates (lane l taking candidates l, l + 32, ... of the
+    slice-major list) by the same selection."""
+    n, d = cases.shape
+    pl = knn.batch_plan(n, d, len(queries), k)
+    rows, slices = pl["rows"], pl["slices"]
+    dist = np.empty((len(queries), k), np.float32)
+    idx = np.empty((len(queries), k), np.int64)
+    for qi, q in enumerate(queries):
+        d2 = np.zeros(n, np.float32)
+        for c in range(d):                       # the features in order
+            diff = cases[:, c] - q[c]
+            d2 = d2 + diff * diff
+        cands = []
+        for rank in range(slices):
+            lanes = [[] for _ in range(32)]
+            for ch in range(rank, pl["chunks"], slices):
+                for r in range(ch * rows, min(n, (ch + 1) * rows)):
+                    _lane_insert(lanes[(r - ch * rows) % 32], (d2[r], r), k)
+            cands += _warp_select(lanes, k)
+        lanes = [[] for _ in range(32)]
+        for e, cand in enumerate(cands):
+            if cand != _FILLER:
+                _lane_insert(lanes[e % 32], cand, k)
+        best = _warp_select(lanes, k)
+        dist[qi] = np.sqrt(np.maximum([b[0] for b in best], 0))
+        idx[qi] = [b[1] for b in best]
+    return dist, idx
+
+
+@pytest.mark.parametrize("q,n,d,k", [(1, 5, 13, 5), (3, 9, 13, 8), (168, 1344, 13, 5),
+                                     (13, 4099, 13, 8), (6, 400, 11, 4)])
+def test_cluster_model_matches_plain_and_pallas_on_ties_across_slices(q, n, d, k):
+    """The Python model of the slice top-k and the cluster merge against the
+    plain version and ``repro``'s batch kernel (Pallas, interpret mode): a
+    tie of four rows across slice boundaries nearest to query 0 comes out
+    in index order, and a NaN row is dropped.  N=5 and N=9 leave slices
+    empty or with fewer than k rows."""
+    cases, qs = _inputs(n, d, q=q, seed=n + q)
+    rows = knn.batch_plan(n, d, q, k)["rows"]
+    tied = list(dict.fromkeys(min(r, n - 1) for r in (1, rows - 1, rows, 2 * rows,
+                                                       n - 1, n - 2, n - 3)))[:4]
+    cases[tied] = cases[1]
+    qs[0] = cases[1] + np.float32(0.05)
+    if n > 8:
+        cases[n // 2 + 1] = np.nan
+    dist, idx = _cluster_model(cases, qs, k)
+    tied = np.flatnonzero((cases == cases[1]).all(axis=1))
+    assert idx[0, :min(k, len(tied))].tolist() == tied[:k].tolist()
+    assert not np.isin(idx, np.flatnonzero(np.isnan(cases).any(axis=1))).any()
+    ct, qt = torch.from_numpy(cases), torch.from_numpy(qs)
+    dp, ip = knn.knn_topk_batch_plain(ct, qt, k)
+    assert torch.equal(torch.from_numpy(idx[0, :len(tied)]), ip[0, :len(tied)])
+    _assert_topk_close(dist, idx, dp.numpy(), ip.numpy(), cases, qs, rtol=1e-5, atol=1e-4)
+    if n > 8:            # the Pallas kernel propagates NaN into every distance
+        live = ~np.isnan(cases).any(axis=1)
+        dr, ir = ref_knn.knn_topk_batch(jnp.asarray(cases[live]), jnp.asarray(qs), k,
+                                        interpret=True)
+        ir = np.flatnonzero(live)[np.asarray(ir)]
+    else:
+        dr, ir = ref_knn.knn_topk_batch(jnp.asarray(cases), jnp.asarray(qs), k,
+                                        interpret=True)
+    _assert_topk_close(dist, idx, np.asarray(dr), np.asarray(ir), cases, qs,
+                       rtol=1e-5, atol=1e-4)
+
+
+def test_batch_constants_match_the_cuda_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(knn.__file__).resolve().parents[1] / "csrc" / "knn.cu").read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["BATCH_GROUP_MAX"], const["BATCH_CLUSTER_MAX"], const["BATCH_SMEM"],
+            const["THREADS"]) == (knn.BATCH_GROUP_MAX, knn.BATCH_CLUSTER_MAX,
+                                  knn.BATCH_SMEM, knn.BATCH_THREADS)
+    assert "constexpr int SMEM_BUDGET = 48 * 1024;" in src and knn.SMEM_BUDGET == 48 * 1024
+    # the staged rows and the largest group's queries fill the dynamic budget
+    assert knn.BATCH_TILE + 4 * knn.BATCH_GROUP_MAX * knn.MAX_D == knn.BATCH_SMEM
+    assert "rows % 4 != 0 || chunks != (n + rows - 1) / rows" in src

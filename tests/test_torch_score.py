@@ -84,7 +84,7 @@ def test_plain_keeps_the_dtype_and_launches_nothing():
     out = ops.score_matrix(torch.from_numpy(marg).double(), torch.from_numpy(ci).double(),
                            torch.from_numpy(ts), torch.from_numpy(te))
     assert out.dtype == torch.float64
-    assert score.launches == {"score_matrix": 0}
+    assert score.launches == {"score_matrix": 0, "rows": 0, "columns": 0, "flat": 0}
     np.testing.assert_allclose(out.numpy(), _port(marg, ci, ts, te), rtol=1e-6)
 
 
@@ -147,3 +147,100 @@ def test_score_matrix_on_the_oracle_pair_grid():
     row = {(j, k): r for r, (j, k) in enumerate(zip(pj.tolist(), pk.tolist()))}
     rows = np.array([row[jk] for jk in zip(j_idx.tolist(), k_val.tolist())])
     np.testing.assert_allclose(out[rows, t_idx], score64, rtol=2e-7)
+
+
+# --- the kernels' launch arithmetic --------------------------------------------
+
+
+def _rows_walk(t4, bj, rows, threads):
+    """The float4s ``score_rows_kernel``'s threads visit in a block of
+    ``rows`` rows: (row, column) from one division, then stepped by
+    additions, as the kernel steps them."""
+    seen = []
+    dr, dc = threads // t4, threads % t4
+    for tid in range(threads):
+        r, c = divmod(tid, t4)
+        for _ in range(tid, rows * t4, threads):
+            seen.append((r, c))
+            c, r = c + dc, r + dr
+            if c >= t4:
+                c, r = c - t4, r + 1
+    return seen
+
+
+def _columns_walk(t, row_offset, tiles, threads):
+    """The columns ``score_columns_kernel`` stores in one row whose first
+    element lies ``row_offset`` floats past a 16-byte boundary: the float4s
+    (start column) and the plain head and tail columns."""
+    head = min((4 - row_offset) % 4, t)
+    vecs = (t - head) // 4
+    quads = [head + 4 * v for v in range(min(vecs, tiles * threads))]
+    singles = [c for c in range(head)] + [c for c in range(head + 4 * vecs, t)]
+    return head, vecs, quads, singles
+
+
+@pytest.mark.parametrize("j", [1, 257, 1000, 3001, 6944])
+@pytest.mark.parametrize("t", [1, 129, 168, 552, 777])
+def test_plan_covers_each_row_once(j, t):
+    """Each route's grid, as ``csrc/score.cu`` walks it, writes every
+    element once, and every float4 store starts on a 16-byte boundary of
+    the (16-byte aligned) output."""
+    pl = score.plan(j, t)
+    assert pl["route"] == ("rows" if t % 4 == 0 else "columns")
+    if pl["route"] == "rows":
+        bj = pl["bj"]
+        assert pl["blocks"] == -(-j // bj) and pl["threads"] == score.ROW_THREADS
+        assert pl["blocks"] >= score.TARGET_BLOCKS or bj == 1
+        assert bj == 8 or -(-j // (2 * bj)) < score.TARGET_BLOCKS
+        rows_seen = np.zeros(j, np.int64)
+        for b in range(pl["blocks"]):
+            rows_seen[b * bj:(b + 1) * bj] += 1
+        assert (rows_seen == 1).all()
+        t4 = t // 4
+        for rows in {bj, j - (pl["blocks"] - 1) * bj}:     # a full block, the last one
+            seen = _rows_walk(t4, bj, rows, score.ROW_THREADS)
+            assert sorted(seen) == [(r, c) for r in range(rows) for c in range(t4)]
+        # a row starts at 4 j t bytes: on 16 bytes for t a multiple of 4
+        assert (4 * t) % 16 == 0
+    else:
+        assert pl["blocks"] == j and pl["threads"] == score.COLUMN_THREADS
+        for row in range(min(j, 4)):
+            off = row * t % 4
+            head, vecs, quads, singles = _columns_walk(t, off, pl["tiles"], pl["threads"])
+            assert len(quads) == vecs                       # the tiles reach every float4
+            covered = sorted(singles + [q + i for q in quads for i in range(4)])
+            assert covered == list(range(t))
+            assert all((off + q) % 4 == 0 for q in quads)   # 16-byte aligned stores
+
+
+def test_plan_routes_and_refusals():
+    """The rows route takes T a multiple of 4 up to ROW_FLOATS with an
+    aligned ``ci``; the columns route every shape; the flat route is the
+    previous kernel's grid."""
+    assert score.plan(6944, 168) == dict(route="rows", bj=8, blocks=868, threads=128)
+    assert score.plan(6800, 552) == dict(route="rows", bj=8, blocks=850, threads=128)
+    assert score.plan(100, 168)["bj"] == 1 and score.plan(1000, 168)["bj"] == 2
+    assert score.plan(10, score.ROW_FLOATS + 4)["route"] == "columns"
+    assert score.plan(6944, 168, aligned=False)["route"] == "columns"
+    assert score.plan(5, 20001)["tiles"] == 20
+    assert score.plan(6944, 168, "flat") == dict(route="flat", blocks=4557, threads=256)
+    for bad in (dict(j=5, t=777, route="rows"), dict(j=5, t=168, route="rows", aligned=False),
+                dict(j=0, t=168), dict(j=5, t=168, route="tiles")):
+        with pytest.raises(ValueError):
+            score.plan(**bad)
+    marg, ci, ts, te = (torch.from_numpy(x) for x in _inputs(20, 12, seed=1))
+    with pytest.raises(ValueError, match="route"):
+        score.score_matrix(marg, ci, ts, te, route="tiles")
+    assert torch.equal(score.score_matrix(marg, ci, ts, te, route="flat"),
+                       score.score_matrix_plain(marg, ci, ts, te))
+
+
+def test_score_constants_match_the_cuda_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(score.__file__).resolve().parents[1] / "csrc" / "score.cu").read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const == dict(ROW_THREADS=score.ROW_THREADS, ROW_FLOATS=score.ROW_FLOATS,
+                         COLUMN_THREADS=score.COLUMN_THREADS, FLAT_THREADS=score.FLAT_THREADS)
+    assert "T % 4 != 0 || T > ROW_FLOATS" in src
