@@ -80,8 +80,26 @@ Phases, any failure exits non-zero:
    stops at one test (done, consistency, capacity) and on learning window
    0, bit for bit, cycles per entry; learning window 0 and week 0's span on
    both walkers in turns (the smem walker at most half the l2 walker's
-   time on each); times beside the host numpy pass.  Last, the main and
-   oracle paths' wall, learning and execution times side by side.
+   time on each); times beside the host numpy pass;
+7. sweeps, forecast models and receding-horizon execution: the four golden
+   grids of ``tests/data/`` (plain, DAG, forecast axis, MPC) rebuilt with
+   ``Sweep`` on the card, on the vector and scan engines with the oracle
+   passes on the greedy kernel, each byte for byte the fixture file (the
+   DAG grid's release launches == its DAG steps; on the MPC grid only the
+   oracle-estimated cells delegated, fill launches == fill steps); then
+   ``sweep-full``: the 150-server cluster in all ten regions x 2 seeds x
+   carbon-agnostic, wait-awhile, carbonflex, carbonflex-mpc,
+   carbonflex-scale and oracle-estimated (120 cells; each knowledge base
+   learned on the card, the slot loop on the card, carbonflex's lookups
+   through ``knn_query_kernel``, the oracle passes through the greedy
+   kernel, carbonflex-scale's fill through ``capacity_fill``), its JSON
+   byte for byte the same sweep on the CPU's vector engine with the numpy
+   pass, launches gated against provisioning calls, device passes and fill
+   steps; the fill kernel against its plain version (random inputs at B=1
+   and 64 and n_pad 256, 2048, 6144, edge cases, the mpc-scale tile's own
+   recorded chunk) and timed at B=64 beside its floor and bound; one traced
+   mpc-scale chunk for the card's busy share.  Last, the main, oracle and
+   sweep paths' wall, learning and execution times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -116,11 +134,14 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import scan_engine  # noqa: E402
 from repro_torch.core.carbon import CarbonService, REGIONS  # noqa: E402
 from repro_torch.core.dag import DagCarbonPolicy  # noqa: E402
+from repro_torch.core.forecast import NoisyForecast, QuantileForecast  # noqa: E402
+from repro_torch.core.mpc import CarbonFlexScalePolicy, MPCConfig  # noqa: E402
 from repro_torch.core.simulator import SimCase, pack, simulate_many  # noqa: E402
-from repro_torch.experiment import DEFAULT_DAG_POLICIES, Scenario, run  # noqa: E402
+from repro_torch.experiment import DEFAULT_DAG_POLICIES, Scenario, Sweep, run  # noqa: E402
+from repro_torch.experiment import sweep as sweep_mod  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import gating, knn, ops, oracle_greedy, score  # noqa: E402
+from repro_torch.kernels import fill, gating, knn, ops, oracle_greedy, score  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
@@ -1905,6 +1926,337 @@ def greedy_kernel_phase(path, report):
                 extension_passes=ext_launches, windows=rows, ptxas=ptx,
                 chain_split=split, span_turns=span_turns)
 
+# --- sweeps, forecast models and receding-horizon execution ----------------------
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+GOLDEN_BASE = dict(capacity=8, learn_weeks=1, family="alibaba", seed=101)
+SWEEP_POLICIES = ["carbon-agnostic", "wait-awhile", "carbonflex", "carbonflex-mpc",
+                  "carbonflex-scale", "oracle-estimated"]
+SWEEP_SEEDS = [1, 2]
+
+
+def golden_sweeps(device, engine, backend):
+    """``tests/test_golden_sweep.py``'s four batch grids: (fixture, Sweep)."""
+    def base(**kw):
+        return Scenario(**GOLDEN_BASE, engine=engine, **kw)
+
+    common = dict(device=device, backend=backend)
+    return [
+        ("golden_sweep", Sweep(base=base(), regions=["california", "ontario"],
+                               seeds=[11, 12],
+                               policies=["carbon-agnostic", "gaia", "wait-awhile"],
+                               **common)),
+        ("golden_sweep_dag", Sweep(base=base(dag=DagConfig(width=3, depth=3)),
+                                   seeds=[11, 12],
+                                   policies=["dag-fcfs", "dag-carbon", "dag-cap"],
+                                   **common)),
+        ("golden_sweep_forecast", Sweep(
+            base=base(), seeds=[11],
+            policies=["carbon-agnostic", "wait-awhile", "wait-awhile-robust"],
+            forecasts=[None, NoisyForecast(sigma=0.3, seed=5),
+                       QuantileForecast(sigma=0.2, seed=5, members=7)], **common)),
+        ("golden_sweep_mpc", Sweep(base=base(mpc=MPCConfig(scale_rho=0.3)),
+                                   seeds=[11, 12],
+                                   policies=["carbon-agnostic", "carbonflex-mpc",
+                                             "carbonflex-scale", "oracle-estimated"],
+                                   **common)),
+    ]
+
+
+def reset_counts():
+    for mod in (knn, gating, fill, oracle_greedy):
+        mod.reset_launches()
+    scan_engine.reset_stats()
+    oracle_mod.reset_stats()
+
+
+def sweep_full(device, engine, backend, record=None):
+    """``sweep-full``: the paper's 150-server cluster in all ten regions x
+    ``SWEEP_SEEDS``, the six policies; returns the result, the wall time
+    split into learning (``prepare_context``: each scenario's knowledge base)
+    and execution (the one ``simulate_many`` dispatch), and per tile of the
+    slot loop its kind, cells, steps and seconds."""
+    sw = Sweep(base=Scenario(capacity=150, learn_weeks=3, eval_weeks=1, seed=1,
+                             engine=engine, mpc=MPCConfig(scale_rho=0.3)),
+               regions=list(REGIONS), seeds=SWEEP_SEEDS, policies=SWEEP_POLICIES,
+               baseline="carbon-agnostic", backend=backend, device=device)
+    spent = {"learn_s": 0.0, "execute_s": 0.0}
+    tiles = []
+    prepare, simulate = sweep_mod.prepare_context, sweep_mod.simulate_many
+    run_tile, capacity_fill = scan_engine._run_single_tile, fill.capacity_fill
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def tile(members, graph, dev, results):
+        steps = scan_engine.stats["steps"]
+        t = time.perf_counter()
+        run_tile(members, graph, dev, results)
+        tiles.append(dict(kind=members[0].prog.kind, cells=len(members),
+                          steps=scan_engine.stats["steps"] - steps,
+                          seconds=time.perf_counter() - t))
+
+    def recorded(*args):
+        if len(record) < scan_engine.CHUNK:
+            record.append([x.clone() for x in args])
+        return capacity_fill(*args)
+
+    sweep_mod.prepare_context = timed(prepare, "learn_s")
+    sweep_mod.simulate_many = timed(simulate, "execute_s")
+    scan_engine._run_single_tile = tile
+    if record is not None:
+        fill.capacity_fill = recorded
+    try:
+        t = time.perf_counter()
+        res = sw.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        sweep_mod.prepare_context, sweep_mod.simulate_many = prepare, simulate
+        scan_engine._run_single_tile, fill.capacity_fill = run_tile, capacity_fill
+    return res, dict(wall_s=wall, tiles=tiles, **spent)
+
+
+
+def fill_work(cand, kreq):
+    """Bytes the fill must move for these inputs: cand and forced (a byte
+    per row each), the requests of the candidate rows, m_cap, take (a byte
+    per row); operations: an add and a compare per candidate."""
+    b, n = cand.shape
+    n_cand = int(cand.sum().item())
+    return 2 * b * n + 8 * n_cand + 8 * b + b * n, 2 * n_cand
+
+
+def fill_kernel_phase(record, report):
+    """The fill kernel against its plain version with ``torch.equal``: random
+    inputs at B=1 and 64 and n_pad 256, 2048, 6144, the edge cases, and the
+    mpc-scale tile's own inputs recorded from one chunk of ``sweep-full``;
+    then its time at B=64 and the sweep's n_pad (the tile's cells repeated
+    to 64), events and profiler device time, beside the floor (an empty
+    kernel on the same grid), the plain version and the bound."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(19)
+    checked = 0
+
+    def check(args, what):
+        nonlocal checked
+        want = fill.capacity_fill_plain(*(x.cpu() for x in args))
+        got = fill.capacity_fill(*args)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bool or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"capacity_fill {what}: the kernel and the plain version "
+                                 f"differ in {int((got.cpu() != want).sum())} rows")
+        checked += 1
+        return want
+
+    def random_args(b, n, p_cand=None, p_forced=None):
+        cand = gen.random((b, n)) < (gen.random() if p_cand is None else p_cand)
+        forced = gen.random((b, n)) < (gen.random() if p_forced is None else p_forced)
+        kreq = gen.integers(1, 9, (b, n))
+        m_cap = gen.integers(0, max(2, int(kreq.sum(1).max() * gen.random())) + 1, b)
+        return [torch.from_numpy(x).to(dev) for x in (cand, forced, kreq, m_cap)]
+
+    for b in (1, 64):
+        for n in (256, 2048, 6144):
+            for _ in range(3):
+                check(random_args(b, n), f"random B={b} n={n}")
+    for case in ("capacity 0", "everything fits", "nothing fits", "all forced",
+                 "one row"):
+        cand, forced, kreq, m_cap = random_args(64, 2048, 0.5, 0.2)
+        if case == "capacity 0":
+            m_cap.zero_()
+        elif case == "everything fits":
+            m_cap.fill_(int(kreq.sum(1).max()))
+        elif case == "nothing fits":
+            kreq.fill_(1000)
+            m_cap.clamp_(max=999)
+        elif case == "all forced":
+            forced.fill_(True)
+        else:
+            cand, forced, kreq = (x[:, :1].contiguous() for x in (cand, forced, kreq))
+            cand.fill_(True)
+        take = check([cand, forced, kreq, m_cap], case)
+        if case == "everything fits" and not torch.equal(take, cand.cpu()):
+            raise AssertionError("capacity_fill: not every row taken where all fit")
+        if case in ("capacity 0", "nothing fits") and take.any():
+            raise AssertionError(f"capacity_fill {case}: a row was taken")
+    log(f"capacity_fill: equal to the plain version on 18 random inputs (B=1/64, n_pad "
+        f"256/2048/6144) and 5 edge cases")
+    if not record:
+        raise AssertionError("capacity_fill: no mpc-scale step was recorded")
+    for i, args in enumerate(record):
+        check(args, f"recorded step {i}")
+    b_tile, n_pad = record[0][0].shape
+    cands = [int(r[0].sum()) for r in record]
+    log(f"capacity_fill: equal to the plain version on the mpc-scale tile's {len(record)} "
+        f"recorded steps (B={b_tile}, n_pad={n_pad}; {min(cands)}-{max(cands)} "
+        f"candidates a step)")
+
+    # B=64 at the sweep's n_pad: the busiest recorded step's cells repeated.
+    step = max(range(len(record)), key=lambda i: cands[i])
+    rows = [i % b_tile for i in range(64)]
+    args = [x[rows].contiguous() for x in record[step]]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        return fill.capacity_fill(*args)
+
+    def plain():
+        return fill.capacity_fill_plain(*args)
+
+    def floor():
+        return fill._lib.capacity_fill_floor(64, n_pad, stream)
+
+    if not torch.equal(kernel(), plain()):
+        raise AssertionError("capacity_fill at B=64: the kernel and the plain version differ")
+    tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 200, warmup=5),
+              floor_ms=time_ms(floor, 2000), device_ms=device_ms(kernel),
+              floor_device_ms=device_ms(floor), plain_device_ms=device_ms(plain, 50))
+    nbytes, ops = fill_work(args[0], args[2])
+    b, by = bound_ms(nbytes, ops)
+    ptx = ptxas_report(report, "capacity_fill_kernel")
+    log(f"capacity_fill B=64 n_pad={n_pad} ({int(args[0].sum())} candidates): "
+        f"{tm['ms']:.6f} ms/call (plain {tm['plain_ms']:.6f}; the floor, an empty kernel "
+        f"on the same grid, {tm['floor_ms']:.6f}); device time {tm['device_ms']} ms/call "
+        f"(floor {tm['floor_device_ms']}, plain {tm['plain_device_ms']}); bound "
+        f"{b:.9f} by {by}: {nbytes} bytes; no one PyTorch call computes it; ptxas {ptx}")
+    return dict(name="capacity_fill", route="cuda", source="src/repro_torch/csrc/fill.cu",
+                replaces="src/repro/core/scan_engine.py:469 (the variable-k fill, a "
+                         "lax.scan over rows; no Pallas kernel)",
+                max_abs_err=0.0, checked=checked, shape=f"B=64 n_pad={n_pad} int64",
+                bound_ms=b, bound_by=by, bytes=nbytes, library_ms=None,
+                library="none: no one PyTorch call computes the fill", ptxas=ptx,
+                recorded_steps=len(record), recorded_shape=[b_tile, n_pad], **tm)
+
+
+def sweep_phase(report):
+    """Phase 7: the four golden grids on the card, on the vector and scan
+    engines; ``sweep-full`` on the card against its CPU run; the fill kernel
+    against its plain version and timed; one traced mpc-scale chunk."""
+    goldens = {}
+    for engine in ("vector", "scan"):
+        for name, sw in golden_sweeps("cuda", engine, "device"):
+            with open(os.path.join(GOLDEN, f"{name}.json")) as f:
+                want = f.read()
+            reset_counts()
+            t = time.perf_counter()
+            got = sw.run().to_json() + "\n"
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            stats = dict(scan_engine.stats)
+            if got != want:
+                raise AssertionError(f"{name} on {engine}: differs from the fixture")
+            if engine == "scan" and name == "golden_sweep_dag" and not (
+                    gating.launches["dep_release"] == stats["dag_steps"] > 0):
+                raise AssertionError(f"{name}: {gating.launches} for {stats}")
+            if engine == "scan" and name == "golden_sweep_mpc" and not (
+                    stats["delegated"] == 2
+                    and fill.launches["capacity_fill"] == stats["fill_steps"] > 0):
+                raise AssertionError(f"{name}: {fill.launches} for {stats}")
+            goldens[f"{name}/{engine}"] = dict(
+                wall_s=wall, steps=stats["steps"], delegated=stats["delegated"],
+                fill_launches=fill.launches["capacity_fill"],
+                release_launches=gating.launches["dep_release"],
+                greedy_launches=oracle_greedy.launches["greedy_pass"])
+            log(f"{name} on the card, {engine} engine: byte for byte the fixture "
+                f"({wall:.3f} s; {goldens[f'{name}/{engine}']})")
+
+    record = []
+    reset_counts()
+    card, tc = sweep_full("cuda", "scan", "device", record)
+    counts = dict(knn=dict(knn.launches), greedy=dict(oracle_greedy.launches),
+                  fill=dict(fill.launches), stats=dict(scan_engine.stats),
+                  oracle=dict(oracle_mod.stats))
+    cpu, tcpu = sweep_full("cpu", "vector", "numpy")
+    log(f"sweep-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s (learning "
+        f"{tc['learn_s']:.3f}, execution {tc['execute_s']:.3f}); CPU vector engine, numpy "
+        f"pass {tcpu['wall_s']:.3f} s (learning {tcpu['learn_s']:.3f}, execution "
+        f"{tcpu['execute_s']:.3f})")
+    log(card.table())
+    log(f"  slot-loop tiles on the card {sum(tl['seconds'] for tl in tc['tiles']):.3f} s")
+    if card.to_json() != cpu.to_json():
+        diff = [(a["region"], a["seed"], a["policy"]) for a, b in
+                zip(card.rows(), cpu.rows()) if a != b]
+        raise AssertionError(f"sweep-full: the card and the CPU differ in {diff}")
+    flex_slots = sum(len(r.slots) for row, r in zip(card.rows(), card.results)
+                     if row["policy"] == "carbonflex")
+    stats = counts["stats"]
+    if not (counts["knn"]["knn_topk"] == flex_slots > 0):
+        raise AssertionError(f"sweep-full: {counts['knn']} knn launches for "
+                             f"{flex_slots} carbonflex slots")
+    if not (counts["greedy"]["greedy_pass"] == counts["oracle"]["device_passes"] > 0):
+        raise AssertionError(f"sweep-full: {counts['greedy']} greedy launches for "
+                             f"{counts['oracle']}")
+    if not (counts["fill"]["capacity_fill"] == stats["fill_steps"] > 0):
+        raise AssertionError(f"sweep-full: {counts['fill']} fill launches for {stats}")
+    n_scen = len(REGIONS) * len(SWEEP_SEEDS)
+    if stats["delegated"] != 2 * n_scen:
+        raise AssertionError(f"sweep-full: {stats['delegated']} cells delegated, not the "
+                             f"{2 * n_scen} carbonflex and oracle-estimated cells")
+    by_kind = {}
+    for tl in tc["tiles"]:
+        k = by_kind.setdefault(tl["kind"], dict(cells=0, steps=0, seconds=0.0))
+        for f in ("cells", "steps", "seconds"):
+            k[f] += tl[f]
+    for kind, k in by_kind.items():
+        k.update(cells_per_s=k["cells"] / k["seconds"],
+                 ms_per_step=1e3 * k["seconds"] / k["steps"])
+        log(f"  slot loop {kind:9s}: {k['cells']} cells, {k['steps']} batched steps, "
+            f"{k['seconds']:.3f} s: {k['cells_per_s']:.3f} cells/s, "
+            f"{k['ms_per_step']:.6f} ms per batched step")
+    if set(by_kind) != {"plain", "thresh", "mpc", "mpc-scale"}:
+        raise AssertionError(f"sweep-full: slot-loop kinds {sorted(by_kind)}")
+    log(f"sweep-full launches: knn_topk {counts['knn']['knn_topk']} (== carbonflex "
+        f"slots), greedy {counts['greedy']} (== device passes "
+        f"{counts['oracle']['device_passes']}), capacity_fill "
+        f"{counts['fill']['capacity_fill']} (== fill steps); {stats}")
+
+    fill_entry = fill_kernel_phase(record, report)
+    fill_entry.update(launches=counts["fill"]["capacity_fill"], path="sweep-full")
+
+    # One traced chunk of the mpc-scale tile: its cells alone, no overrun.
+    from torch.profiler import ProfilerActivity, profile
+
+    scen = Sweep(base=Scenario(capacity=150, learn_weeks=3, eval_weeks=1, seed=1),
+                 regions=list(REGIONS), seeds=SWEEP_SEEDS).scenarios()
+    mats = [sc.materialize() for sc in scen]
+
+    def cases():
+        out = []
+        for mat in mats:
+            pol = CarbonFlexScalePolicy(cfg=MPCConfig(scale_rho=0.3))
+            pol.warm_start(mat.hist)
+            out.append(SimCase(jobs=mat.eval_jobs, ci=mat.ci, cluster=mat.cluster,
+                               policy=pol, t0=mat.t0, horizon=WEEK, max_overrun=0,
+                               engine="scan", device="cuda"))
+        return out
+
+    simulate_many(cases())                      # warm
+    torch.cuda.synchronize()
+    scan_engine.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        simulate_many(cases())
+        torch.cuda.synchronize()
+    chunk_s = scan_engine.stats["loop_s"]
+    events = device_events(prof)
+    busy = busy_us(events) / 1e3
+    fill_ms = sum(e.time_range.elapsed_us() for e in events
+                  if "capacity_fill" in e.name) / 1e3
+    log(f"traced mpc-scale chunk ({scan_engine.stats['steps']} batched steps of "
+        f"{len(mats)} cells): chunk loop {chunk_s:.6f} s, card busy {busy:.6f} ms = "
+        f"{100 * busy / 1e3 / chunk_s:.6f} % of it; the fill kernel {fill_ms:.6f} ms")
+    return fill_entry, dict(
+        goldens=goldens, cells=len(card.rows()), card=tc, cpu=tcpu, by_kind=by_kind,
+        launches=counts, summary=card.summary(),
+        traced_chunk=dict(loop_s=chunk_s, busy_ms=busy, busy_share=busy / 1e3 / chunk_s,
+                          fill_ms=fill_ms, steps=scan_engine.stats["steps"]))
+
 
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
@@ -1918,7 +2270,8 @@ def build_kernels():
                ("src/repro_torch/csrc/flash_attention.cu", fa),
                ("src/repro_torch/csrc/gating.cu", gating),
                ("src/repro_torch/csrc/score.cu", score),
-               ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy))
+               ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy),
+               ("src/repro_torch/csrc/fill.cu", fill))
     reports = {}
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
@@ -1954,10 +2307,15 @@ def main():
     device_path = oracle_path_phase(path["result"])
     kernels.append(greedy_kernel_phase(
         device_path, reports["src/repro_torch/csrc/oracle_greedy.cu"]))
+    fill_entry, sweep = sweep_phase(reports["src/repro_torch/csrc/fill.cu"])
+    kernels.append(fill_entry)
     log(f"wall / learning / execution (s): main path {path['wall_s']:.3f} / "
         f"{path['learn_s']:.3f} / {path['execute_s']:.3f}; oracle path (backend=\"device\") "
         f"{device_path['wall_s']:.3f} / {device_path['learn_s']:.3f} / "
-        f"{device_path['execute_s']:.3f}")
+        f"{device_path['execute_s']:.3f}; sweep-full on the card {sweep['card']['wall_s']:.3f}"
+        f" / {sweep['card']['learn_s']:.3f} / {sweep['card']['execute_s']:.3f}, on the CPU "
+        f"{sweep['cpu']['wall_s']:.3f} / {sweep['cpu']['learn_s']:.3f} / "
+        f"{sweep['cpu']['execute_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
@@ -1967,6 +2325,7 @@ def main():
     log(json.dumps({"dag_path": dag}))
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()
                                     if k != "attempts"}}))
+    log(json.dumps({"sweep_path": sweep}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

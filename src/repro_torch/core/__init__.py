@@ -7,6 +7,10 @@ composable library.
 - ``provisioning.provision``       — Algorithm 2 (phi)
 - ``scheduling.schedule``          — Algorithm 3 (psi)
 - ``policy.CarbonFlexPolicy``      — the runtime resource manager
+- ``mpc.CarbonFlexMPCPolicy``      — receding-horizon execution planner
+                                     (+ ``CarbonFlexScalePolicy`` marginal-
+                                     capacity scale-up, ``oracle-estimated``
+                                     oracle on learned lengths)
 - ``policy.learn_window``          — the continuous-learning phase
 - ``simulator.simulate``           — the CarbonFlex-Simulator engine
                                      (vectorised; ``engine="scalar"`` for
@@ -18,11 +22,24 @@ composable library.
                                      dag-fcfs/dag-carbon/dag-cap policies
 - ``baselines``                    — §6 baselines (agnostic/GAIA/WaitAwhile/
                                      CarbonScaler/VCC)
+- ``forecast``                     — pluggable carbon-forecast models
+                                     (perfect / persistence / noisy AR(1)
+                                     / quantile ensemble) behind
+                                     ``CarbonService.forecast``, plus the
+                                     quantile view robust policies use
 - ``policy.Policy``                — the protocol every policy implements
 """
-from . import baselines, carbon, dag, emissions, forecast, knowledge, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
+from . import baselines, carbon, dag, emissions, forecast, knowledge, mpc, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
 from .carbon import CarbonService, synthesize_trace  # noqa: F401
+from .dag import (DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy, DagSpec,  # noqa: F401
+                  TaskNode, criticality_from_jobs, expand_dags)
+from .forecast import (ForecastModel, NoisyForecast, PerfectForecast,  # noqa: F401
+                       PersistenceForecast, QuantileForecast,
+                       StaticNoiseForecast, forecast_from_dict,
+                       forecast_label, forecast_to_dict)
 from .knowledge import KnowledgeBase  # noqa: F401
+from .mpc import (CarbonFlexMPCPolicy, CarbonFlexScalePolicy,  # noqa: F401
+                  EstimatedOraclePolicy, MPCConfig)
 from .policy import (CarbonFlexPolicy, LearnOutcome, OraclePolicy, Policy,  # noqa: F401
                      learn_window)
 from .simulator import SimCase, simulate, simulate_many  # noqa: F401

@@ -7,17 +7,20 @@ and the rank of the current slot against the next-24h forecast.
 ElectricityMaps traces are not bundled, so ``synthesize_trace`` generates
 seeded synthetic traces calibrated to the published per-region (mean, CoV)
 of Fig. 5 — daily + half-daily harmonics, a weekly component, and AR(1)
-noise.  The forecast is the true trace (:class:`PerfectForecast`).
+noise.  The forecast model is pluggable (``core/forecast.py``): the
+default :class:`~repro_torch.core.forecast.PerfectForecast` exposes the true
+trace, while persistence / noisy / quantile-ensemble models stress policies
+with realistic forecast error; ``model=StaticNoiseForecast(...)`` gives the
+old static-noise semantics.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import ClassVar
 
 import numpy as np
 
-from .forecast import ForecastFeatureMixin, PerfectForecast
+from .forecast import ForecastFeatureMixin, ForecastModel, PerfectForecast
 
 # (mean g CO2/kWh, daily CoV) per region, calibrated to Fig. 5's spread:
 # high-CoV renewable-heavy grids (South Australia) down to flat
@@ -76,16 +79,27 @@ def synthesize_trace(
 
 @dataclasses.dataclass
 class CarbonService(ForecastFeatureMixin):
-    """Day-ahead-capable CI service over a fixed hourly trace, read through
-    a perfect forecast."""
+    """Day-ahead-capable CI service over a fixed hourly trace.
+
+    ``model`` is the pluggable forecast model (``core/forecast.py``);
+    ``None`` resolves to :class:`PerfectForecast`.  The JAX package's
+    deprecated ``forecast_noise`` knob is not ported: pass
+    ``model=StaticNoiseForecast(sigma, seed)`` for its semantics, or
+    ``model=NoisyForecast(...)`` for lead-time-aware error.  Carbon-feed
+    outages are not ported: the policy stack reads the service itself
+    (``degraded()``)."""
 
     trace: np.ndarray
-    horizon: ClassVar[int] = 24              # day-ahead forecast window
-    model: ClassVar[PerfectForecast] = PerfectForecast()
+    horizon: int = 24
+    model: ForecastModel | None = None
+
+    def __post_init__(self) -> None:
+        if self.model is None:
+            self.model = PerfectForecast()
 
     @classmethod
-    def synthetic(cls, region: str, hours: int, seed: int = 0) -> "CarbonService":
-        return cls(trace=synthesize_trace(region, hours, seed=seed))
+    def synthetic(cls, region: str, hours: int, seed: int = 0, **kw) -> "CarbonService":
+        return cls(trace=synthesize_trace(region, hours, seed=seed), **kw)
 
     def __len__(self) -> int:
         return len(self.trace)
@@ -101,13 +115,18 @@ class CarbonService(ForecastFeatureMixin):
 
     def forecast(self, t: int, horizon: int | None = None) -> np.ndarray:
         """Day-ahead forecast starting at slot t (paper footnote 3),
-        delegated to the forecast model."""
+        delegated to the configured forecast model."""
         return self.model.predict(self.trace, t, horizon or self.horizon)
 
     def forecast_quantile(self, t: int, horizon: int | None = None,
                           q: float = 0.5) -> np.ndarray:
-        """Per-horizon ``q``-quantile band of the forecast."""
-        return self.model.quantile(self.trace, t, horizon or self.horizon, q)
+        """Per-horizon ``q``-quantile band of the forecast; models without
+        uncertainty bands fall back to their point forecast."""
+        h = horizon or self.horizon
+        quantile = getattr(self.model, "quantile", None)
+        if quantile is None:
+            return self.model.predict(self.trace, t, h)
+        return quantile(self.trace, t, h, q)
 
     # --- Table-2 features --------------------------------------------------
     # (forecast_extended / rank / percentile_threshold come from

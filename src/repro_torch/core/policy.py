@@ -265,3 +265,16 @@ class OraclePolicy:
 
     def on_completion(self, t, job, violated) -> None:
         pass
+
+
+# The receding-horizon execution phase (``carbonflex-mpc`` /
+# ``carbonflex-scale`` / ``oracle-estimated``) lives in ``core/mpc.py``;
+# re-exported here, where the JAX package's callers import it from.
+from .mpc import (CarbonFlexMPCPolicy, CarbonFlexScalePolicy,  # noqa: E402
+                  EstimatedOraclePolicy, MPCConfig)
+
+__all__ = [
+    "CarbonFlexMPCPolicy", "CarbonFlexPolicy", "CarbonFlexScalePolicy",
+    "EstimatedOraclePolicy", "LearnOutcome", "MPCConfig", "OraclePolicy",
+    "Policy", "learn_window",
+]

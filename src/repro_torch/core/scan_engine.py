@@ -1,11 +1,18 @@
 """The device slot loop (``engine="scan"``): the per-slot simulation loop
-of the threshold-fill policies as tensor ops on the device.
+of the threshold-fill and MPC policies as tensor ops on the device.
 
-The counterpart of the single-region, non-MPC part of the JAX package's
+The counterpart of the single-region part of the JAX package's
 ``core/scan_engine.py``, with PyTorch's idiom inside the reference's names:
 
 - the *decision* of every native policy is packed tensor ops inside the
-  slot step (FCFS threshold-fill at ``k_min`` under an eligibility mask);
+  slot step: FCFS threshold-fill at ``k_min`` under an eligibility mask, or
+  the MPC rule over the policy's precomputed tables (``rank``/``clean`` per
+  slot, the ``need`` LUT per row), forced rows first;
+- the capacity fill is a cumsum prefix where every request of a cell is one
+  ``k``; where requests differ (job lists whose ``k_min`` is not uniform,
+  and ``carbonflex-scale``'s clean-slot scale-up) it is one launch of the
+  hand-written CUDA kernel of ``kernels/fill.py::capacity_fill`` per slot
+  step (its plain version on the CPU);
 - admission, dependency gating, release and deadline-from-release live in
   the carried state; the release of DAG workloads (the in-degree decrement
   and the rows it frees) goes through one launch of the hand-written CUDA
@@ -20,21 +27,22 @@ The counterpart of the single-region, non-MPC part of the JAX package's
 
 Bit-parity contract: ``engine="scan"`` is bit-identical to the vector and
 scalar engines.  The device updates ``remaining`` in float64 with one
-subtraction per taken slot (``rem - thr``, the vector engine's IEEE op)
-and emits per-slot boolean grids (which rows ran, finished, violated)
-into preallocated (B, chunk, n_pad) tensors, copied to the host once per
-chunk.  The host replays fractional progress, energy and carbon from the
-``take`` grid with the vector engine's exact numpy expressions, in its
-order (``_active_energy``, ``_account_single``), and the threshold
-eligibility tables are computed on the host with the policies' own numpy
-expressions.
+subtraction per taken slot (``rem - thr``, the vector engine's IEEE op;
+``thr_up`` on the rows ``carbonflex-scale`` scaled) and emits per-slot
+boolean grids (which rows ran, were scaled, finished, violated) into
+preallocated (B, chunk, n_pad) tensors, copied to the host once per chunk.
+The host replays fractional progress, energy and carbon from the ``take``
+grid with the vector engine's exact numpy expressions, in its order
+(``_active_energy``, ``_account_single``), and
+the eligibility and MPC tables are computed on the host with the policies'
+own numpy expressions.
 
 Native policies (exact types): ``carbon-agnostic`` and ``dag-fcfs``
 (plain), ``wait-awhile``, ``wait-awhile-robust`` and ``dag-carbon``
-(thresh), ``dag-cap`` (cap).  Every other policy, and every job list
-whose ``k_min`` is not uniform (the reference's sequential fill), runs on
-the vector engine instead, which is bit-identical; ``stats["delegated"]``
-counts those cases.
+(thresh), ``dag-cap`` (cap), ``carbonflex-mpc`` (mpc) and
+``carbonflex-scale`` (mpc-scale).  Every other policy runs on the vector
+engine instead, which is bit-identical; ``stats["delegated"]`` counts those
+cases.
 """
 from __future__ import annotations
 
@@ -47,14 +55,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import gating
+from repro_torch.kernels import fill, gating
 
 from . import emissions
 from .baselines import (CarbonAgnosticPolicy, RobustWaitAwhilePolicy,
                         WaitAwhilePolicy)
 from .carbon import CarbonService
 from .dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
-from .forecast import QuantileCIView
+from .forecast import PerfectForecast, QuantileCIView
+from .mpc import CarbonFlexMPCPolicy, CarbonFlexScalePolicy
 from .simulator import PackedJobs, SimCase, _simulate_vector, packed_for
 from .types import SimResult, SlotLog
 
@@ -66,13 +75,15 @@ CHUNK = 168                    # slots per chunk (horizon region)
 OVERRUN_CHUNK = 24             # slots per chunk past the horizon
 BATCH_TILE = 64                # cells per batched program
 
+_MPC_KINDS = ("mpc", "mpc-scale")
+
 #: Since the last ``reset_stats()``: slot steps (one per batched step
 #: call), cell steps (steps times the cells of the batch), steps with DAG
-#: gating, cases delegated to the vector engine, and host seconds in the
-#: chunk loops (device steps, the per-chunk tables and copies) and in the
-#: host accounting.
-stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "delegated": 0,
-         "loop_s": 0.0, "account_s": 0.0}
+#: gating, steps through the variable-k fill, cases delegated to the vector
+#: engine, and host seconds in the chunk loops (device steps, the per-chunk
+#: tables and copies) and in the host accounting.
+stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "fill_steps": 0,
+         "delegated": 0, "loop_s": 0.0, "account_s": 0.0}
 
 
 def reset_stats() -> None:
@@ -84,7 +95,8 @@ def native_kind(policy) -> str | None:
     """The scan-native program family of ``policy``, or None to delegate.
 
     Exact ``type()`` checks: a subclass may override ``decide`` in ways the
-    packed decision tables cannot see."""
+    packed decision tables cannot see (``carbonflex-scale`` is checked
+    before its base MPC class for the same reason)."""
     tp = type(policy)
     if tp in (CarbonAgnosticPolicy, DagFcfsPolicy):
         return "plain"
@@ -92,6 +104,10 @@ def native_kind(policy) -> str | None:
         return "thresh"
     if tp is DagCapPolicy:
         return "cap"
+    if tp is CarbonFlexScalePolicy:
+        return "mpc-scale"
+    if tp is CarbonFlexMPCPolicy:
+        return "mpc"
     return None
 
 
@@ -124,10 +140,12 @@ def _single_elig_fn(policy, ci_pol, kind: str) -> Callable:
     pct = policy.percentile
 
     tr = pad_tr = None
-    if type(view) is CarbonService and np.asarray(view.trace).dtype == np.float64:
+    if (type(view) is CarbonService and type(view.model) is PerfectForecast
+            and np.asarray(view.trace).dtype == np.float64):
         # perfect-forecast fast path: whole-trace windows are the same
         # float64 elements the per-slot forecast() calls slice, so the
-        # batched percentile is bitwise equal
+        # batched percentile is bitwise equal; any other forecast model
+        # keeps the per-slot calls
         tr = np.asarray(view.trace)
         hor = int(view.horizon)
         pad_tr = np.concatenate([tr, np.full(hor - 1, tr[-1])])
@@ -165,9 +183,13 @@ class _SingleProgram:
     consts: dict                   # numpy arrays / 0-d scalars
     carry0: dict
     n_pad: int
-    xs_fn: Callable                # (ts: np.ndarray) -> per-slot eligibility
+    kind: str                      # plain | thresh | cap | mpc | mpc-scale
+    uniform: bool                  # one k per cell -> cumsum fill
+    xs_fn: Callable                # (ts: np.ndarray) -> per-slot host tables
+    xs_dims: tuple                 # their shapes (part of the tile key)
     power: np.ndarray
     m_t: int
+    k_up: np.ndarray | None = None     # mpc-scale: per-row clean-slot k
 
 
 def _build_single(packed, cluster, policy, ci_pol, kind: str,
@@ -193,15 +215,32 @@ def _build_single(packed, cluster, policy, ci_pol, kind: str,
         crit = policy._critical
         elig_row[:n] = [bool(crit.get(int(j), True))
                         for j in packed.job_ids.tolist()]
+    k_up = None
+    mpc_consts: dict = {}
+    if kind in _MPC_KINDS:
+        # the MPC rule's row constants: static job length (``remaining``
+        # in the carry decays, done-work needs the original), queue ids
+        # for the need-LUT gather, and the learned need LUT itself
+        mpc_consts["length_c"] = padded(packed.length, 0.0, f64)
+        mpc_consts["queue"] = padded(packed.queue, 0, i64)
+        mpc_consts["need_lut"] = np.asarray(policy.scan_tables()["need_lut"],
+                                            dtype=i64)
+        if kind == "mpc-scale":
+            k_up = np.asarray(policy._k_up, dtype=i64)
+            mpc_consts["k_scale"] = padded(k_up, 1, i64)
+            mpc_consts["thr_up"] = padded(
+                packed.thr_tab[np.arange(n), k_up], 1.0, f64)
     consts = dict(
         arrival=padded(packed.arrival, _BIG_T, i64),
+        kmin=padded(kmin, 1, i64),
+        k0=np.array([kmin[0] if n else 1], dtype=i64),
         thr=padded(thr, 1.0, f64),
         dl_span=padded(packed.dl_span, 0, i64),
         elig_row=elig_row,
-        k0=np.array([kmin[0]], dtype=i64),
         m_cap=np.array([cluster.capacity], dtype=i64),
         n_real=i64(n),
         t_end=i64(t0 + horizon),
+        **mpc_consts,
     )
     carry0 = dict(
         remaining=padded(packed.length, 0.0, f64),
@@ -214,10 +253,30 @@ def _build_single(packed, cluster, policy, ci_pol, kind: str,
         pending=np.zeros(n_pad, dtype=bool),
         ended=np.asarray(False),
     )
+    if kind in _MPC_KINDS:
+        # per-slot tables of the MPC rule, straight from the policy's own
+        # host-precomputed arrays (bit-parity by construction)
+        def xs_fn(ts: np.ndarray) -> dict:
+            xs = {"t": ts, "rank_t": policy.rank_rows(ts).astype(i64)}
+            if kind == "mpc-scale":
+                xs["clean_t"] = np.asarray(policy.clean_rows(ts), dtype=bool)
+            return xs
+
+        xs_dims = (int(policy.cfg.horizon), mpc_consts["need_lut"].shape)
+    else:
+        elig = _single_elig_fn(policy, ci_pol, kind)
+
+        def xs_fn(ts: np.ndarray) -> dict:
+            return {"t": ts, "elig_t": elig(ts)}
+
+        xs_dims = ()
+    # per-slot scale-up makes the requested k slot-varying -> the cumsum
+    # fill's uniform-k premise no longer holds
+    uniform = bool(n > 0 and (kmin == kmin[0]).all() and kind != "mpc-scale")
     return _SingleProgram(
-        consts=consts, carry0=carry0, n_pad=n_pad,
-        xs_fn=_single_elig_fn(policy, ci_pol, kind), power=power,
-        m_t=int(cluster.capacity))
+        consts=consts, carry0=carry0, n_pad=n_pad, kind=kind, uniform=uniform,
+        xs_fn=xs_fn, xs_dims=xs_dims, power=power, m_t=int(cluster.capacity),
+        k_up=k_up)
 
 
 def _dep_graph(packed: PackedJobs, n_pad: int,
@@ -230,11 +289,13 @@ def _dep_graph(packed: PackedJobs, n_pad: int,
     return gating.dep_graph(parents, children, n_pad, device=device)
 
 
-def _single_step(c: dict, s: dict, t: torch.Tensor, elig_t: torch.Tensor,
-                 graph: gating.DepGraph | None):
+def _single_step(c: dict, s: dict, x: dict, graph: gating.DepGraph | None,
+                 kind: str, uniform: bool):
     """One engine slot for a batch of B cells (mirrors the vector engine's
     loop body).  ``c`` and ``s`` hold (B, n_pad) rows, (B, 1) or (B,)
-    scalars; ``t`` and ``elig_t`` are (B, 1)."""
+    scalars; ``x`` the slot's tables: ``t`` (B, 1), and ``elig_t`` (B, 1),
+    or for the MPC kinds ``rank_t`` (B, H) and ``clean_t`` (B, 1)."""
+    t = x["t"]
     rem = s["remaining"]
     slack = s["slack"]
     waited = s["waited"]
@@ -261,22 +322,48 @@ def _single_step(c: dict, s: dict, t: torch.Tensor, elig_t: torch.Tensor,
     act = in_sys & ~ended[:, None]
 
     # decision: FCFS threshold-fill at k_min (rows are (arrival, job_id)-
-    # sorted, so forced-then-unforced in row order IS the FCFS key); with
-    # a uniform k the "continue" fill is a rank-prefix per group
+    # sorted, so forced-then-unforced in row order IS the FCFS key)
     forced = slack <= 0
     live = rem > _EPS
-    cand = act & live & (forced | elig_t | c["elig_row"])
-    k0, m_cap = c["k0"], c["m_cap"]
-    cf = cand & forced
-    cr = cand & ~forced
-    tf = cf & (torch.cumsum(cf, 1) * k0 <= m_cap)
-    used_f = k0 * tf.sum(1, keepdim=True)
-    tr = cr & (used_f + torch.cumsum(cr, 1) * k0 <= m_cap)
-    take = tf | tr
+    kmin, m_cap = c["kmin"], c["m_cap"]
+    if kind in _MPC_KINDS:
+        # MPC eligibility: current slot among the job's estimated-need
+        # cheapest within its feasible window (CarbonFlexMPCPolicy.decide
+        # — same tables, same integer logic)
+        lut = c["need_lut"]
+        dmax = lut.shape[2]
+        didx = torch.floor(c["length_c"] - rem).to(torch.int64).clamp(0, dmax - 1)
+        need = lut.reshape(lut.shape[0], -1).gather(1, c["queue"] * dmax + didx)
+        rank_t = x["rank_t"]
+        w = (slack + need).clamp(1, rank_t.shape[1])
+        cand = act & live & (forced | (rank_t.gather(1, w - 1) < need))
+    else:
+        cand = act & live & (forced | x["elig_t"] | c["elig_row"])
+    if kind == "mpc-scale":
+        # clean-window scale-up: unforced rows request the learned k_up
+        kreq = torch.where(forced | ~x["clean_t"], kmin, c["k_scale"])
+    else:
+        kreq = kmin
+    if uniform:
+        # one k per cell: the "continue" fill is a rank-prefix per group
+        k0 = c["k0"]
+        cf = cand & forced
+        cr = cand & ~forced
+        tf = cf & (torch.cumsum(cf, 1) * k0 <= m_cap)
+        used_f = k0 * tf.sum(1, keepdim=True)
+        tr = cr & (used_f + torch.cumsum(cr, 1) * k0 <= m_cap)
+        take = tf | tr
+    else:
+        take = fill.capacity_fill(cand, forced, kreq, m_cap.view(-1))
 
     # progress in float64, the vector engine's op (energy and frac are
     # replayed on the host from ``take``)
-    rem2 = torch.where(take, rem - c["thr"], rem)
+    if kind == "mpc-scale":
+        scaled = take & (kreq > kmin)
+        rem2 = torch.where(take, rem - torch.where(scaled, c["thr_up"], c["thr"]),
+                           rem)
+    else:
+        rem2 = torch.where(take, rem - c["thr"], rem)
     wmask = (act & live & ~take).to(torch.int64)
     fin = act & (rem2 <= _EPS)
     waited2 = waited + wmask
@@ -289,44 +376,53 @@ def _single_step(c: dict, s: dict, t: torch.Tensor, elig_t: torch.Tensor,
     ys = dict(take=take, fin=fin, viol=fin & (t > dle),
               waited_fin=torch.where(fin, waited2, 0), n_rows=n_in,
               ended=ended)
+    if kind == "mpc-scale":
+        ys["scaled"] = scaled
     return carry, ys
 
 
 _YS_TYPES = dict(take=torch.bool, fin=torch.bool, viol=torch.bool,
-                 waited_fin=torch.int32, n_rows=torch.int32, ended=torch.bool)
+                 waited_fin=torch.int32, n_rows=torch.int32, ended=torch.bool,
+                 scaled=torch.bool)
 
 
 def _collect_chunks(c, carry, graph, t0s: np.ndarray, xs_fns, n_pad: int,
-                    horizon: int, span: int, device) -> dict:
+                    horizon: int, span: int, device, kind: str,
+                    uniform: bool) -> dict:
     """Run the batch chunk by chunk until every cell has ended or ``span``
     slots are done; returns the per-slot outputs on the host, (B, S, ...).
 
     Inside the horizon no cell can end (the ended-check needs ``t >=
     t0 + horizon``), so full CHUNK chunks waste nothing; past it any slot
     may end a cell, so OVERRUN_CHUNK chunks bound the slots computed past
-    the last end.  Each chunk writes its steps into preallocated device
-    tensors, copies them to the host once and reads ``ended`` there."""
+    the last end.  Each chunk builds its slot tables on the host, writes its
+    steps into preallocated device tensors, copies them to the host once
+    and reads ``ended`` there."""
     b = len(t0s)
+    names = [k for k in _YS_TYPES if k != "scaled" or kind == "mpc-scale"]
     parts = []
     off = 0
     while off < span:
         size = min(CHUNK if off < horizon else OVERRUN_CHUNK, span - off)
         ts = t0s[:, None] + off + np.arange(size)[None, :]
-        elig = np.stack([fn(row) for fn, row in zip(xs_fns, ts)])
-        ts_d = torch.from_numpy(ts).to(device)
-        elig_d = torch.from_numpy(elig).to(device)
+        xs_host = [fn(row) for fn, row in zip(xs_fns, ts)]
+        xs = {k: torch.from_numpy(np.stack([d[k] for d in xs_host])).to(device)
+              for k in xs_host[0]}
         out = {k: torch.empty((b, size) if k in ("n_rows", "ended")
-                              else (b, size, n_pad), dtype=dt, device=device)
-               for k, dt in _YS_TYPES.items()}
+                              else (b, size, n_pad), dtype=_YS_TYPES[k],
+                              device=device)
+               for k in names}
         for i in range(size):
-            carry, ys = _single_step(c, carry, ts_d[:, i:i + 1],
-                                     elig_d[:, i:i + 1], graph)
+            x = {k: v[:, i] if v.dim() == 3 else v[:, i:i + 1] for k, v in xs.items()}
+            carry, ys = _single_step(c, carry, x, graph, kind, uniform)
             for k, v in ys.items():
                 out[k][:, i] = v
         stats["steps"] += size
         stats["cell_steps"] += size * b
         if graph is not None:
             stats["dag_steps"] += size
+        if not uniform:
+            stats["fill_steps"] += size
         parts.append({k: v.cpu().numpy() for k, v in out.items()})
         off += size
         if parts[-1]["ended"][:, -1].all():
@@ -337,31 +433,33 @@ def _collect_chunks(c, carry, graph, t0s: np.ndarray, xs_fns, n_pad: int,
 # --- host accounting ---------------------------------------------------------
 
 
-def _active_energy(packed, power, slot_h, eta, take_a):
+def _active_energy(packed, power, slot_h, eta, take_a, k_rows):
     """Replay fractional progress and the vector engine's exact energy
     expressions over the active (slot, row) cells of the take grid.
 
-    The device updates ``remaining`` with one subtraction per take slot
-    (``rem - thr``) and ``frac = min(1, rem / thr_guard)`` comes from the
-    pre-update value; replaying those row-wise here performs the identical
-    scalar arithmetic in the identical order — bitwise equal.  The nonzero
-    cells (row-major: each slot's segment in row order) are the per-slot
-    active sets; every energy operation is elementwise, so each cell sees
-    the arithmetic of a per-slot replay.  Returns per-slot segment bounds
-    plus row ids, allocations and energies of the active cells."""
-    n = take_a.shape[1]
+    ``k_rows`` is the (S, n) grid of the allocation each take cell ran at
+    (``k_min``, or ``k_up`` where carbonflex-scale scaled); throughput is
+    gathered per cell (``thr_tab[row, k]``).  The device updates
+    ``remaining`` with one subtraction per take slot (``rem - thr``) and
+    ``frac = min(1, rem / thr_guard)`` comes from the pre-update value;
+    replaying those row-wise here performs the identical scalar arithmetic
+    in the identical order — bitwise equal.  The nonzero cells (row-major:
+    each slot's segment in row order) are the per-slot active sets; every
+    energy operation is elementwise, so each cell sees the arithmetic of a
+    per-slot replay.  Returns per-slot segment bounds plus row ids,
+    allocations and energies of the active cells."""
     s_idx, r_idx = np.nonzero(take_a)
     bounds = np.searchsorted(s_idx, np.arange(take_a.shape[0] + 1))
-    thr = packed.thr_tab[np.arange(n), packed.k_min]
+    k = k_rows[s_idx, r_idx]
+    thr = packed.thr_tab[r_idx, k]
     thr_guard = np.maximum(thr, 1e-9)
     rem = packed.length.astype(np.float64, copy=True)
     frac = np.empty(len(r_idx))
     for i in range(take_a.shape[0]):
-        rows = r_idx[bounds[i]:bounds[i + 1]]
-        frac[bounds[i]:bounds[i + 1]] = np.minimum(
-            1.0, rem[rows] / thr_guard[rows])
-        rem[rows] -= thr[rows]
-    k = packed.k_min[r_idx]
+        lo, hi = bounds[i], bounds[i + 1]
+        rows = r_idx[lo:hi]
+        frac[lo:hi] = np.minimum(1.0, rem[rows] / thr_guard[lo:hi])
+        rem[rows] -= thr[lo:hi]
     e_comp = k * power[r_idx] * slot_h * frac
     ring = np.where(k <= 1, 0.0, 2.0 * (k - 1) / np.maximum(k, 1))
     gbits = packed.comm[r_idx] * 8.0 * ring * k * frac
@@ -381,8 +479,13 @@ def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
     total_energy = 0.0
     total_carbon = 0.0
     take_a = ys["take"][:n_valid, :n]
+    if prog.kind == "mpc-scale":
+        k_rows = np.where(ys["scaled"][:n_valid, :n], prog.k_up[None, :],
+                          packed.k_min[None, :])
+    else:
+        k_rows = np.broadcast_to(packed.k_min, take_a.shape)
     bounds, r_idx, k_act, e_act = _active_energy(packed, prog.power, slot_h,
-                                                 eta, take_a)
+                                                 eta, take_a, k_rows)
     fs, fr = np.nonzero(ys["fin"][:n_valid, :n])
     fbounds = np.searchsorted(fs, np.arange(n_valid + 1))
     wfin_f = ys["waited_fin"][:n_valid, :n][fs, fr]
@@ -453,11 +556,9 @@ def simulate_many_scan(cases: Sequence[SimCase],
         device = resolve_device(case.device)
         packed = packed_for(case.jobs, packs)
         kind = native_kind(case.policy)
-        uniform = bool((packed.k_min == packed.k_min[0]).all()) if packed.n else False
-        if kind is None or not uniform:
+        if kind is None or packed.n == 0:
             if packed.n > 0:
-                who = type(case.policy).__name__ if kind is None \
-                    else f"{type(case.policy).__name__} (non-uniform k_min)"
+                who = type(case.policy).__name__
                 delegated[who] = delegated.get(who, 0) + 1
             results[i] = _simulate_vector(
                 case.jobs, case.ci, case.cluster, case.policy, case.t0,
@@ -471,9 +572,9 @@ def simulate_many_scan(cases: Sequence[SimCase],
         prog = _build_single(packed, case.cluster, case.policy, ci_pol, kind,
                              case.t0, horizon)
         # cells of one tile share the predecessor graph, so DAG cells group
-        # by job list
-        key = (str(device), prog.n_pad, kind, horizon,
-               horizon + case.max_overrun,
+        # by job list; the MPC tables' shapes and the fill join the key
+        key = (str(device), prog.n_pad, kind, prog.xs_dims, prog.uniform,
+               horizon, horizon + case.max_overrun,
                id(packed) if packed.has_deps else None)
         groups.setdefault(key, []).append(_Member(i, case, packed, prog))
     for key, members in groups.items():
@@ -509,7 +610,7 @@ def _run_single_tile(members: list[_Member], graph, device, results) -> None:
     ys_all = _collect_chunks(
         c, carry, graph, np.array([m.case.t0 for m in members], dtype=np.int64),
         [p.xs_fn for p in progs], progs[0].n_pad, horizon,
-        horizon + case0.max_overrun, device)
+        horizon + case0.max_overrun, device, progs[0].kind, progs[0].uniform)
     t_acct = time.perf_counter()
     stats["loop_s"] += t_acct - t_loop
     for j, m in enumerate(members):

@@ -144,3 +144,41 @@ class SimResult:
     violations: np.ndarray          # per-job bool: finished after deadline
     completion: np.ndarray          # per-job completion slot (-1 = unfinished)
     num_jobs: int
+
+    @property
+    def mean_wait(self) -> float:
+        return float(np.mean(self.wait_slots)) if len(self.wait_slots) else 0.0
+
+    @property
+    def violation_rate(self) -> float:
+        return float(np.mean(self.violations)) if len(self.violations) else 0.0
+
+    def savings_vs(self, baseline: "SimResult") -> float:
+        """Carbon savings (%) relative to a baseline run."""
+        if baseline.carbon_g <= 0:
+            return 0.0
+        return 100.0 * (1.0 - self.carbon_g / baseline.carbon_g)
+
+    def to_dict(self, include_per_job: bool = False,
+                include_slots: bool = False) -> dict:
+        """JSON-serialisable summary (sweep rows), the JAX package's keys in
+        its order for a single-region batch run.
+
+        Aggregates only by default; ``include_per_job`` adds the per-job
+        wait/violation/completion arrays, ``include_slots`` the full
+        per-slot log."""
+        d = {
+            "policy": self.policy,
+            "carbon_g": float(self.carbon_g),
+            "energy_kwh": float(self.energy_kwh),
+            "num_jobs": int(self.num_jobs),
+            "mean_wait": self.mean_wait,
+            "violation_rate": self.violation_rate,
+        }
+        if include_per_job:
+            d["wait_slots"] = np.asarray(self.wait_slots, dtype=float).tolist()
+            d["violations"] = np.asarray(self.violations, dtype=bool).tolist()
+            d["completion"] = np.asarray(self.completion, dtype=np.int64).tolist()
+        if include_slots:
+            d["slots"] = [dataclasses.asdict(s) for s in self.slots]
+        return d

@@ -1,9 +1,10 @@
 """repro_torch.experiment — the declarative experiment API.
 
 - ``registry``   — ``register_policy`` / ``PolicySpec`` / ``make_policy``:
-                   the single-region and DAG policies behind deferred constructors
-                   that receive runtime context (knowledge base, mean
-                   length) from the driver;
+                   the single-region, MPC and DAG policies behind deferred
+                   constructors that receive runtime context (knowledge
+                   base, job history, mean length, oracle backend) from the
+                   driver;
 - ``Scenario``   — a declarative experiment point (region, trace family,
                    capacity, seed, weeks, queue scaling) with
                    ``materialize()`` resolving to (cluster, ci, jobs,
@@ -11,13 +12,23 @@
 - ``run``        — the continuous-learning driver (§4.2): weekly oracle
                    replay into a rolling KnowledgeBase on the device,
                    policy construction via the registry, evaluation
-                   through ``simulate_many``.
+                   through ``simulate_many``;
+- ``Sweep``      — cartesian (regions x seeds x forecasts x policies)
+                   grids dispatched as one ``simulate_many`` batch,
+                   aggregated by ``SweepResult`` (savings vs a named
+                   baseline, dispersion, JSON + CSV export).
 
 Quickstart::
 
-    from repro_torch.experiment import Scenario, run
+    from repro_torch.experiment import Scenario, Sweep, run
 
     print(run(Scenario(region="california", capacity=40)).table())
+
+    sweep = Sweep(base=Scenario(capacity=40),
+                  regions=["california", "ontario"], seeds=[1, 2],
+                  policies=["carbon-agnostic", "wait-awhile", "carbonflex",
+                            "oracle"])
+    print(sweep.run().table())
 """
 from . import registry  # noqa: F401
 from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_POLICIES,  # noqa: F401
@@ -25,3 +36,4 @@ from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_POLICIES,  # noqa: F401
 from .registry import (PolicyContext, PolicySpec, available_policies,  # noqa: F401
                        check_scenario_policies, make_policy, register_policy)
 from .scenario import WEEK, MaterializedScenario, Scenario  # noqa: F401
+from .sweep import Sweep, SweepResult  # noqa: F401

@@ -4,9 +4,9 @@
 weeks through the offline oracle into a rolling :class:`KnowledgeBase`
 (one replay offset per week), construct every requested policy through the
 registry, evaluate each week through ``simulate_many`` (jobs packed once
-per week), then re-learn on the week just evaluated before the next — the
-violation-feedback loop of Algorithm 2 running inside the policies across
-the whole span.
+per week), then re-learn on the week just evaluated and warm-start
+history-driven policies before the next — the violation-feedback loop of
+Algorithm 2 running inside the policies across the whole span.
 
 The knowledge base lives on ``device`` (``"cuda"`` by default), where the
 execution phase's lookups run as CUDA kernels, and so does the slot loop of
@@ -29,14 +29,14 @@ from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
 
-from .registry import (PolicyContext, check_scenario_policies, make_policy,
-                       needs_kb)
+from .registry import (PolicyContext, check_scenario_policies, get_spec,
+                       make_policy, needs_kb)
 from .scenario import WEEK, MaterializedScenario, Scenario
 
-#: The §6.1 comparison set of this package.
+#: The §6.1 comparison set (VCC joins only in the Fig. 14 interop study).
 DEFAULT_POLICIES: tuple[str, ...] = (
     "carbon-agnostic", "gaia", "wait-awhile", "carbonscaler",
-    "carbonflex", "oracle",
+    "carbonflex", "carbonflex-mpc", "oracle",
 )
 
 #: The precedence-aware comparison set (scenarios with a DAG workload).
@@ -64,9 +64,19 @@ def prepare_context(
         learn_window(kb, mat.hist, mat.ci, 0, WEEK, mat.cluster,
                      offsets=mat.scenario.learn_offsets(), backend=backend)
     return PolicyContext(
-        cluster=mat.cluster, ci=mat.ci, mean_length=mat.mean_length, utilization=mat.scenario.utilization,
+        cluster=mat.cluster, ci=mat.ci, history=list(mat.hist),
+        mean_length=mat.mean_length, utilization=mat.scenario.utilization,
         kb=kb, backend=backend, device=device,
-        forecast_quantile=forecast_quantile)
+        forecast_quantile=forecast_quantile, mpc=mat.scenario.mpc)
+
+
+def _fresh_faults(scenario: Scenario):
+    """The fault process of one simulation case.  Fault injection is not
+    ported: a scenario carries none (``Scenario.faults`` raises when set),
+    so every case runs fault-free."""
+    if scenario.faults is not None:
+        raise NotImplementedError("fault processes are not ported yet")
+    return None
 
 
 @dataclasses.dataclass
@@ -93,16 +103,29 @@ class ExperimentResult:
     def energy_kwh(self, policy: str) -> float:
         return float(sum(r.energy_kwh for r in self.weekly[policy]))
 
+    def _pooled(self, policy: str) -> SimResult:
+        """The evaluated weeks of ``policy`` as one result: totals summed,
+        per-job arrays concatenated in week order (no slot log), so the
+        aggregates below are ``SimResult``'s own accounting."""
+        rs = self.weekly[policy]
+
+        def cat(name, dtype):
+            return (np.concatenate([getattr(r, name) for r in rs]) if rs
+                    else np.zeros(0, dtype=dtype))
+
+        return SimResult(
+            policy=policy, carbon_g=self.carbon_g(policy),
+            energy_kwh=self.energy_kwh(policy), slots=[],
+            wait_slots=cat("wait_slots", np.float64),
+            violations=cat("violations", bool),
+            completion=cat("completion", np.int64),
+            num_jobs=sum(r.num_jobs for r in rs))
+
     def mean_wait(self, policy: str) -> float:
-        waits = np.concatenate([r.wait_slots for r in self.weekly[policy]]) \
-            if self.weekly[policy] else np.zeros(0)
-        return float(waits.mean()) if len(waits) else 0.0
+        return self._pooled(policy).mean_wait
 
     def violation_rate(self, policy: str) -> float:
-        rs = self.weekly[policy]
-        v = np.concatenate([r.violations for r in rs]) \
-            if rs else np.zeros(0, dtype=bool)
-        return float(v.mean()) if len(v) else 0.0
+        return self._pooled(policy).violation_rate
 
     def savings(self, policy: str, baseline: str | None = None) -> float:
         """Carbon savings (%) of ``policy`` vs ``baseline`` in this run
@@ -206,11 +229,16 @@ def run(
 
     for w in range(scenario.eval_weeks):
         t0 = mat.t0 + w * WEEK
-        if w > 0 and ctx.kb is not None:
+        if w > 0:
             # continuous learning: replay the week just evaluated
+            prev = [j for j in mat.jobs if t0 - WEEK <= j.arrival < t0]
             t_learn = time.perf_counter()
-            learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK, mat.cluster,
-                         offsets=(t0 - WEEK,), backend=backend)
+            if ctx.kb is not None:
+                learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK, mat.cluster,
+                             offsets=(t0 - WEEK,), backend=backend)
+            for n in names:
+                if get_spec(n).needs_history and prev:
+                    instances[n].warm_start(prev)
             learn_s += time.perf_counter() - t_learn
         ev = mat.eval_week(w)
         if not ev:

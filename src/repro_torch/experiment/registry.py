@@ -1,11 +1,12 @@
 """Policy registry: names -> deferred policy constructors.
 
-The single-region policies of the paper's evaluation (§6.1, §6.7) and the
-precedence-aware DAG family register here.  Construction is *deferred*: a
-builder receives a :class:`PolicyContext` carrying the runtime objects
-policies need — the
-learned :class:`KnowledgeBase` for CarbonFlex, the mean historical length
-the paper grants every baseline — so drivers resolve ``"carbonflex"`` to a
+The single-region policies of the paper's evaluation (§6.1, §6.7), the
+receding-horizon MPC variants and the precedence-aware DAG family register
+here.  Construction is *deferred*: a builder receives a
+:class:`PolicyContext` carrying the runtime objects policies need — the
+learned :class:`KnowledgeBase` for CarbonFlex, the completed-job history
+for the MPC warm start, the mean historical length the paper grants every
+baseline, the oracle backend — so drivers resolve ``"carbonflex"`` to a
 ready instance instead of hand-wiring each constructor.
 
 Register additional policies with :func:`register_policy`::
@@ -25,8 +26,12 @@ from repro_torch.core import baselines
 from repro_torch.core.carbon import CarbonService
 from repro_torch.core.dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
 from repro_torch.core.knowledge import KnowledgeBase
-from repro_torch.core.policy import CarbonFlexPolicy, OraclePolicy, Policy
-from repro_torch.core.types import ClusterConfig
+from repro_torch.core.mpc import MPCConfig
+from repro_torch.core.policy import (CarbonFlexMPCPolicy, CarbonFlexPolicy,
+                                     CarbonFlexScalePolicy,
+                                     EstimatedOraclePolicy, OraclePolicy,
+                                     Policy)
+from repro_torch.core.types import ClusterConfig, Job
 
 
 @dataclasses.dataclass
@@ -35,6 +40,7 @@ class PolicyContext:
 
     cluster: ClusterConfig
     ci: CarbonService
+    history: list[Job] = dataclasses.field(default_factory=list)
     mean_length: float = 4.0
     utilization: float = 0.5
     kb: KnowledgeBase | None = None
@@ -43,6 +49,8 @@ class PolicyContext:
     # quantile the `*-robust` policy variants threshold on (configurable
     # per experiment; 0.7 = mildly conservative upper band)
     forecast_quantile: float = 0.7
+    # MPC execution-phase knobs (Scenario.mpc); None = tuned defaults.
+    mpc: MPCConfig | None = None
 
     def require_kb(self) -> KnowledgeBase:
         if self.kb is None:
@@ -59,6 +67,7 @@ class PolicySpec:
     name: str
     builder: Callable[[PolicyContext], Policy]
     needs_kb: bool = False
+    needs_history: bool = False
     dag: bool = False                # runs on Scenario(dag=...) only
     description: str = ""
 
@@ -66,7 +75,8 @@ class PolicySpec:
 REGISTRY: dict[str, PolicySpec] = {}
 
 
-def register_policy(name: str, *, needs_kb: bool = False, dag: bool = False,
+def register_policy(name: str, *, needs_kb: bool = False,
+                    needs_history: bool = False, dag: bool = False,
                     description: str = ""):
     """Decorator registering a ``PolicyContext -> Policy`` builder.
 
@@ -78,7 +88,8 @@ def register_policy(name: str, *, needs_kb: bool = False, dag: bool = False,
         if name in REGISTRY:
             raise ValueError(f"policy {name!r} is already registered")
         REGISTRY[name] = PolicySpec(name=name, builder=builder,
-                                    needs_kb=needs_kb, dag=dag,
+                                    needs_kb=needs_kb,
+                                    needs_history=needs_history, dag=dag,
                                     description=description)
         return builder
 
@@ -185,10 +196,50 @@ def _carbonflex_robust(ctx: PolicyContext) -> Policy:
                             name="carbonflex-robust")
 
 
+@register_policy("carbonflex-mpc", needs_kb=True, needs_history=True,
+                 description="receding-horizon execution phase: run each "
+                             "job in its estimated-need cheapest forecast "
+                             "slots (beyond paper; core/mpc.py)")
+def _carbonflex_mpc(ctx: PolicyContext) -> Policy:
+    cfg = ctx.mpc or MPCConfig()
+    if cfg.horizon == 0:
+        # no look-ahead degenerates to the KNN execution phase exactly
+        return CarbonFlexPolicy(ctx.require_kb(), name="carbonflex-mpc")
+    pol = CarbonFlexMPCPolicy(cfg=cfg)
+    if ctx.history:
+        pol.warm_start(ctx.history)
+    return pol
+
+
+@register_policy("carbonflex-scale", needs_kb=True, needs_history=True,
+                 description="carbonflex-mpc + CarbonScaler marginal-"
+                             "capacity scale-up in clean forecast windows "
+                             "(rho learned from the KB's oracle curve)")
+def _carbonflex_scale(ctx: PolicyContext) -> Policy:
+    cfg = ctx.mpc or MPCConfig()
+    pol = CarbonFlexScalePolicy(cfg=cfg, kb=ctx.require_kb())
+    if ctx.history:
+        pol.warm_start(ctx.history)
+    return pol
+
+
 @register_policy("oracle",
                  description="Algorithm 1 with full future knowledge (upper bound)")
 def _oracle(ctx: PolicyContext) -> Policy:
     return OraclePolicy(backend=ctx.backend, device=ctx.device)
+
+
+@register_policy("oracle-estimated", needs_history=True,
+                 description="Algorithm 1 with perfect CI but learned "
+                             "per-queue length estimates — separates "
+                             "timing skill from length clairvoyance")
+def _oracle_estimated(ctx: PolicyContext) -> Policy:
+    cfg = ctx.mpc or MPCConfig()
+    pol = EstimatedOraclePolicy(cfg=cfg, backend=ctx.backend,
+                                device=ctx.device)
+    if ctx.history:
+        pol.warm_start(ctx.history)
+    return pol
 
 
 # --- precedence-aware DAG policies -------------------------------------------

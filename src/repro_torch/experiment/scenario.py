@@ -2,9 +2,9 @@
 
 A ``Scenario`` names what the paper's single-region sweeps vary — region,
 trace family, capacity, seed, learning/evaluation span, queue scaling,
-workload elasticity, distribution shift, a DAG workload — and
-``materialize()`` resolves it into the concrete ``(cluster, ci, jobs,
-hist/eval splits)``.
+workload elasticity, distribution shift, a DAG workload, the forecast
+model, the MPC knobs — and ``materialize()`` resolves it into the concrete
+``(cluster, ci, jobs, hist/eval splits)``.
 
 Materialization is cached on the instance: repeated calls return the *same*
 job-list objects.
@@ -12,8 +12,12 @@ job-list objects.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 from repro_torch.core.carbon import REGIONS, CarbonService
+from repro_torch.core.forecast import (ForecastModel, forecast_from_dict,
+                                       forecast_to_dict)
+from repro_torch.core.mpc import MPCConfig
 from repro_torch.core.types import ClusterConfig, Job, QueueConfig, default_queues
 from repro_torch.traces import (DagConfig, TraceSpec, dag_mean_task_length,
                                generate_dag_trace, generate_trace, mean_length)
@@ -23,8 +27,7 @@ WEEK = 24 * 7
 # on real (not padded) carbon data.
 CI_MARGIN_HOURS = 24 * 30
 # Fields of the reference's Scenario whose layers the port lacks.
-_UNPORTED = ("regions", "migration", "forecast", "faults", "ci_outage",
-             "serving", "mpc")
+_UNPORTED = ("regions", "migration", "faults", "ci_outage", "serving")
 
 
 @dataclasses.dataclass
@@ -79,7 +82,8 @@ class Scenario:
     regions: tuple[str, ...] = ()       # not ported: geo scenarios
     migration: object | None = None     # not ported: geo migration model
     dag: DagConfig | None = None        # DAG workload (precedence gating)
-    forecast: object | None = None      # not ported: forecast models
+    # Forecast model policies see (core/forecast.py); None = PerfectForecast.
+    forecast: ForecastModel | None = None
     family: str = "azure"
     capacity: int = 60
     utilization: float = 0.5
@@ -97,7 +101,8 @@ class Scenario:
     ci_outage: object | None = None     # not ported: carbon-feed outages
     serving: object | None = None       # not ported: the serving tier
     engine: str = "vector"
-    mpc: object | None = None           # not ported: receding-horizon knobs
+    # Receding-horizon execution-phase knobs (core/mpc.py); None = defaults.
+    mpc: MPCConfig | None = None
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "regions", tuple(self.regions))
@@ -161,7 +166,8 @@ class Scenario:
             return cached
         cluster = ClusterConfig(capacity=self.capacity, queues=self.queues())
         ci = CarbonService.synthetic(self.region,
-                                     self.hours + CI_MARGIN_HOURS, seed=self.seed)
+                                     self.hours + CI_MARGIN_HOURS, seed=self.seed,
+                                     model=self.forecast)
         spec = self.trace_spec()
 
         def _gen(s: TraceSpec) -> list[Job]:
@@ -187,3 +193,44 @@ class Scenario:
                          if self.dag is not None else mean_length(spec)))
         object.__setattr__(self, "_materialized", mat)
         return mat
+
+    # --- serialization ------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        """JSON-safe payload, the JAX package's keys in its order; the
+        unported fields emit their defaults as the reference does."""
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        d["regions"] = list(self.regions)
+        if self.dag is not None:
+            d["dag"] = {**dataclasses.asdict(self.dag),
+                        "shapes": list(self.dag.shapes)}
+        d["forecast"] = forecast_to_dict(self.forecast)
+        if self.mpc is not None:
+            d["mpc"] = self.mpc.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Scenario":
+        """Inverse of :meth:`to_dict`; a payload that sets an unported field
+        raises ``NotImplementedError``."""
+        d = dict(d)
+        d["regions"] = tuple(d.get("regions", ()))
+        for name in ("faults", "ci_outage", "mpc"):
+            if not d.get(name):
+                d.pop(name, None)
+        if d.get("dag"):
+            d["dag"] = DagConfig(**d["dag"])
+        if d.get("forecast"):
+            d["forecast"] = forecast_from_dict(d["forecast"])
+        if d.get("mpc"):
+            d["mpc"] = MPCConfig.from_dict(d["mpc"])
+        return cls(**d)
+
+    def to_json(self, indent: int | None = None) -> str:
+        """JSON form of :meth:`to_dict`."""
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, payload: str) -> "Scenario":
+        """Inverse of :meth:`to_json`."""
+        return cls.from_dict(json.loads(payload))

@@ -1,0 +1,258 @@
+"""Cartesian experiment sweeps over ``simulate_many`` (Fig. 6-14 style).
+
+A :class:`Sweep` expands a grid — (regions x seeds x forecasts x policies)
+around a base :class:`Scenario` — into :class:`SimCase` s and dispatches
+them through ``simulate_many`` in a single batch: each scenario's jobs are
+materialized and packed exactly once, and each scenario's knowledge base is
+learned exactly once (on ``device``) and shared read-only across its
+policies.  On ``engine="scan"`` the native cells of the whole grid run as
+batched programs on the device slot loop.
+
+:class:`SweepResult` aggregates the batch: per-case rows with carbon
+savings against a named baseline policy, per-policy summaries with
+cross-(region, seed) dispersion, and a JSON round-trip (``to_json`` /
+``from_json``) whose bytes equal the JAX package's for the same grid.
+
+Axes the port has no layer for raise ``NotImplementedError``: a fault
+process (the fault axis takes only ``None``, labelled ``"none"``), a geo or
+serving base scenario, and telemetry.
+"""
+from __future__ import annotations
+
+import csv
+import dataclasses
+import io
+import json
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.forecast import ForecastModel, forecast_labels
+from repro_torch.core.simulator import SimCase, simulate_many
+from repro_torch.core.types import SimResult
+from repro_torch.device import resolve_device
+
+from .driver import DEFAULT_POLICIES, _fresh_faults, prepare_context
+from .registry import check_scenario_policies, make_policy
+from .scenario import WEEK, Scenario
+
+
+def fault_label(fm) -> str:
+    """Sweep-row label of a fault process: ``"none"`` for no faults, the
+    only entry the port's fault axis takes."""
+    if fm is None:
+        return "none"
+    raise NotImplementedError("fault processes are not ported yet")
+
+
+@dataclasses.dataclass
+class Sweep:
+    """A cartesian grid of scenarios x policies, run as one batch.
+
+    ``regions`` / ``seeds`` default to the base scenario's single values;
+    ``faults`` is the fault axis (only ``None`` entries: fault-free).
+    ``forecasts`` is a forecast-model axis (``None`` entry = perfect
+    forecast); rows then carry a ``"forecast"`` label and savings compare
+    within the same forecast model.  ``baseline`` names the policy savings
+    are measured against — it is added to the run automatically if
+    missing.  The base scenario's ``engine`` selects the simulation engine
+    for every cell; ``backend`` is the oracle's greedy pass (learning and
+    the oracle policies) and ``device`` holds the knowledge bases, the
+    scan engine's slot loop and ``backend="device"``'s pass (``"cuda"`` by
+    default; without a card it raises, so host callers pass ``"cpu"``).
+
+    A sweep evaluates each scenario as a *single* window of ``eval_weeks``
+    weeks against the initially learned knowledge base — the weekly §4.2
+    re-learning loop is the driver's job (``run()``).
+    """
+
+    base: Scenario = dataclasses.field(default_factory=Scenario)
+    regions: Sequence[str] = ()
+    seeds: Sequence[int] = ()
+    policies: Sequence[str] = DEFAULT_POLICIES
+    faults: Sequence[None] | None = None
+    # Forecast-model grid axis: each entry replaces the base scenario's
+    # `forecast` (None = PerfectForecast).  Rows gain a "forecast" label
+    # column only when the axis is in play.
+    forecasts: Sequence[ForecastModel | None] | None = None
+    # quantile the *-robust policy variants threshold on
+    forecast_quantile: float = 0.7
+    baseline: str = "carbon-agnostic"
+    backend: str = "numpy"
+    kb_kwargs: dict | None = None
+    telemetry: None = None           # not ported: decision traces
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self) -> None:
+        # (a geo or serving base raises where the Scenario is built)
+        if self.telemetry is not None:
+            raise NotImplementedError("telemetry is not ported yet")
+
+    def fault_axis(self) -> tuple[None, ...]:
+        axis = (self.base.faults,) if self.faults is None else tuple(self.faults)
+        for fm in axis:
+            fault_label(fm)                  # raises on a fault process
+        return axis
+
+    def forecast_axis(self) -> tuple[ForecastModel | None, ...]:
+        if self.forecasts is None:
+            return (self.base.forecast,)
+        return tuple(self.forecasts)
+
+    def has_forecast_axis(self) -> bool:
+        return self.forecasts is not None or self.base.forecast is not None
+
+    def effective_baseline(self) -> str:
+        """dag-fcfs, the status quo of DAG grids, replaces the
+        single-region default there."""
+        if self.base.is_dag and self.baseline == "carbon-agnostic":
+            return "dag-fcfs"
+        return self.baseline
+
+    def scenarios(self) -> list[Scenario]:
+        seeds = tuple(self.seeds) or (self.base.seed,)
+        regions = tuple(self.regions) or (self.base.region,)
+        bases = [dataclasses.replace(self.base, region=r, seed=s)
+                 for r in regions for s in seeds]
+        return [dataclasses.replace(b, forecast=f)
+                for b in bases for f in self.forecast_axis()]
+
+    def _policy_names(self) -> tuple[str, ...]:
+        names = tuple(self.policies)
+        baseline = self.effective_baseline()
+        if baseline not in names:
+            names = (baseline,) + names
+        check_scenario_policies(names, self.base.is_dag)
+        return names
+
+    def run(self, progress: Callable[[str], None] | None = None) -> "SweepResult":
+        device = resolve_device(self.device)
+        names = self._policy_names()
+        baseline = self.effective_baseline()
+        with_forecast = self.has_forecast_axis()
+        fault_axis = self.fault_axis()
+        # Disambiguated per-axis-entry labels, so the per-cell savings
+        # grouping below cannot merge distinct models; scenarios() expands
+        # bases x forecast axis with the forecast innermost, so the labels
+        # tile in order.
+        axis_labels = forecast_labels(self.forecast_axis())
+        scenarios = self.scenarios()
+        assert not axis_labels or len(scenarios) % len(axis_labels) == 0
+        cases: list[SimCase] = []
+        meta: list[dict] = []
+        for i, sc in enumerate(scenarios):
+            mat = sc.materialize()
+            fc_label = axis_labels[i % len(axis_labels)]
+            ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
+                                  forecast_quantile=self.forecast_quantile,
+                                  device=device, backend=self.backend)
+            if progress is not None:
+                progress(f"prepared {sc.region}/seed{sc.seed}"
+                         + (f"/{fc_label}" if with_forecast else "")
+                         + f": {len(mat.eval_jobs)} eval jobs"
+                         + (f", kb={len(ctx.kb)}" if ctx.kb is not None else ""))
+            horizon = sc.eval_weeks * WEEK
+            for fm in fault_axis:
+                _fresh_faults(dataclasses.replace(sc, faults=fm))
+                for name in names:
+                    cases.append(SimCase(
+                        jobs=mat.eval_jobs, ci=mat.ci, cluster=mat.cluster,
+                        policy=make_policy(name, ctx), t0=mat.t0,
+                        horizon=horizon, engine=sc.engine, device=device))
+                    row = {"region": sc.region, "seed": sc.seed,
+                           "fault": fault_label(fm), "policy": name}
+                    if with_forecast:
+                        row["forecast"] = fc_label
+                    meta.append(row)
+        results = simulate_many(cases)       # one batched dispatch
+        rows = []
+        for m, r in zip(meta, results):
+            rows.append({**m, **r.to_dict()})
+        _attach_savings(rows, baseline)
+        return SweepResult(baseline=baseline, rows_=rows, results=results)
+
+    def to_csv(self) -> str:
+        """Run the sweep and export the rows as CSV
+        (:meth:`SweepResult.to_csv`)."""
+        return self.run().to_csv()
+
+
+def _attach_savings(rows: list[dict], baseline: str) -> None:
+    def key(r: dict):
+        # the "forecast" column exists only on forecast-axis sweeps;
+        # savings always compare within the same forecast model
+        return (r["region"], r["seed"], r["fault"], r.get("forecast", ""))
+
+    base_carbon = {key(r): r["carbon_g"]
+                   for r in rows if r["policy"] == baseline}
+    for r in rows:
+        base = base_carbon.get(key(r), 0.0)
+        r["savings_pct"] = round(100.0 * (1.0 - r["carbon_g"] / base), 3) \
+            if base > 0 else 0.0
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Flat per-case rows + per-policy aggregates of one sweep batch.
+
+    ``results`` holds the in-memory ``SimResult`` objects for the run that
+    produced this (dropped by the JSON round-trip — rows carry everything
+    the figures need)."""
+
+    baseline: str
+    rows_: list[dict]
+    results: list[SimResult] | None = None
+
+    def rows(self) -> list[dict]:
+        return self.rows_
+
+    def summary(self) -> dict[str, dict]:
+        """Per-policy aggregates with cross-(region, seed, fault)
+        dispersion of the savings."""
+        out: dict[str, dict] = {}
+        for name in dict.fromkeys(r["policy"] for r in self.rows_):
+            rs = [r for r in self.rows_ if r["policy"] == name]
+            sv = np.array([r["savings_pct"] for r in rs])
+            out[name] = {
+                "n_cases": len(rs),
+                "savings_mean_pct": round(float(sv.mean()), 3),
+                "savings_std_pct": round(float(sv.std()), 3),
+                "savings_min_pct": round(float(sv.min()), 3),
+                "savings_max_pct": round(float(sv.max()), 3),
+                "mean_wait_h": round(float(np.mean([r["mean_wait"] for r in rs])), 3),
+                "violation_rate": round(float(np.mean([r["violation_rate"] for r in rs])), 4),
+            }
+        return out
+
+    def table(self) -> str:
+        lines = [f"{'policy':18s} {'savings%':>9s} {'±std':>6s} "
+                 f"{'wait h':>7s} {'viol':>6s} {'cases':>6s}"]
+        for name, s in self.summary().items():
+            lines.append(f"{name:18s} {s['savings_mean_pct']:9.2f} "
+                         f"{s['savings_std_pct']:6.2f} {s['mean_wait_h']:7.1f} "
+                         f"{s['violation_rate']:6.3f} {s['n_cases']:6d}")
+        return "\n".join(lines)
+
+    def to_json(self, indent: int | None = 1) -> str:
+        return json.dumps({"baseline": self.baseline, "rows": self.rows_,
+                           "summary": self.summary()}, indent=indent)
+
+    def to_csv(self) -> str:
+        """Per-case rows as CSV text, one column per row key, in first-seen
+        order across rows (rows missing a column leave the cell empty)."""
+        cols: dict[str, None] = {}
+        for r in self.rows_:
+            for k in r:
+                cols.setdefault(k)
+        buf = io.StringIO()
+        writer = csv.DictWriter(buf, fieldnames=list(cols),
+                                restval="", lineterminator="\n")
+        writer.writeheader()
+        writer.writerows(self.rows_)
+        return buf.getvalue()
+
+    @classmethod
+    def from_json(cls, payload: str) -> "SweepResult":
+        d = json.loads(payload)
+        return cls(baseline=d["baseline"], rows_=d["rows"])

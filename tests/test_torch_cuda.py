@@ -18,7 +18,9 @@ Each of the three flash kernels (Hopper wgmma, mma.sync, fp32) is held to
 these on the shapes its route gives it.
 DAG gating: integer counts, equal exactly.  Score matrix: one IEEE
 division per element in both versions, equal exactly.  Oracle greedy pass:
-the same float32 adds in the same order, equal bit for bit.
+the same float32 adds in the same order, equal bit for bit.  Capacity fill:
+integer arithmetic, equal exactly; the golden MPC and DAG sweeps on the
+card reproduce their fixture files byte for byte.
 """
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.experiment import Scenario
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import gating, knn, oracle_greedy, ops, score
+from repro_torch.kernels import fill, gating, knn, oracle_greedy, ops, score
 
 WEEK = 24 * 7
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -902,3 +904,139 @@ def test_ops_on_cuda_launch_the_kernels(cuda_oracle):
     assert all(torch.equal(a, b) for a, b in zip(ops.knn_topk_batch(cases, qs, 5),
                                                  knn.knn_topk_batch(cases, qs, 5)))
     assert knn.launches == {"knn_topk": 2, "knn_topk_batch": 2, "cluster": 2, "warp": 0}
+
+
+# --- the variable-k capacity fill and the sweeps on the card -----------------
+
+
+@pytest.fixture
+def cuda_fill():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fill.build()
+    return torch.device("cuda")
+
+
+def _fill_inputs(seed, b, n, dev, p_cand=None, p_forced=None, k_hi=8):
+    g = np.random.default_rng(seed)
+    cand = g.random((b, n)) < (g.random() if p_cand is None else p_cand)
+    forced = g.random((b, n)) < (g.random() if p_forced is None else p_forced)
+    kreq = g.integers(1, k_hi + 1, (b, n))
+    m_cap = g.integers(0, max(2, int(kreq.sum(1).max() * g.random())) + 1, b)
+    return [torch.from_numpy(x).to(dev) for x in (cand, forced, kreq, m_cap)]
+
+
+def _fill_check(args):
+    want = fill.capacity_fill_plain(*(x.cpu() for x in args))
+    before = fill.launches["capacity_fill"]
+    got = fill.capacity_fill(*args)
+    torch.cuda.synchronize()
+    assert fill.launches["capacity_fill"] == before + 1
+    assert got.dtype == torch.bool and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("n", [256, 2048, 6144])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_fill_matches_plain(cuda_fill, b, n, seed):
+    _fill_check(_fill_inputs(seed, b, n, cuda_fill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["capacity 0", "everything fits", "nothing fits",
+                                  "all forced", "one row", "sparse candidates",
+                                  "requests of 0", "odd width", "one small request"])
+def test_kernel_fill_edge_cases(cuda_fill, case):
+    b, n = 64, 2048
+    cand, forced, kreq, m_cap = _fill_inputs(9, b, n, cuda_fill, 0.5, 0.2)
+    if case == "capacity 0":
+        m_cap.zero_()
+    elif case == "everything fits":
+        m_cap.fill_(int(kreq.sum(1).max()))
+    elif case == "nothing fits":
+        kreq.fill_(1000)
+        m_cap.clamp_(max=999)
+    elif case == "all forced":
+        forced.fill_(True)
+    elif case == "one row":
+        cand, forced, kreq = (x[:, :1].contiguous() for x in (cand, forced, kreq))
+        cand.fill_(True)
+    elif case == "sparse candidates":
+        cand &= torch.rand(cand.shape, device=cuda_fill) < 0.01
+    elif case == "requests of 0":
+        kreq[:, ::3] = 0
+    elif case == "odd width":
+        cand, forced, kreq = (x[:, :1999].contiguous() for x in (cand, forced, kreq))
+    elif case == "one small request":
+        # the last unforced candidate is the only one that fits: the walk
+        # must not stop on the forced rows' larger requests
+        kreq.fill_(50)
+        m_cap.fill_(49)
+        cand[:, -1], forced[:, -1], kreq[:, -1] = True, False, 1
+    take = _fill_check([cand, forced, kreq, m_cap])
+    if case == "everything fits":
+        assert torch.equal(take, cand.cpu())
+    if case in ("capacity 0", "nothing fits"):
+        assert not take.any()
+    if case == "one small request":
+        assert int(take.sum()) == b and take[:, -1].all()
+
+
+@pytest.mark.cuda
+def test_kernel_fill_checks(cuda_fill):
+    cand, forced, kreq, m_cap = _fill_inputs(1, 4, 64, cuda_fill)
+    with pytest.raises(TypeError):
+        fill.capacity_fill(cand, forced, kreq.int(), m_cap)
+    with pytest.raises(ValueError):
+        fill.capacity_fill(cand, forced, kreq, m_cap[:2])
+    with pytest.raises(ValueError):
+        fill.capacity_fill(cand, forced, kreq.cpu(), m_cap)
+    with pytest.raises(ValueError):
+        fill.capacity_fill(cand[:, ::2], forced[:, ::2], kreq[:, ::2], m_cap)
+
+
+def _golden_sweep(name, device, engine):
+    """The golden DAG or MPC grid, its oracle passes on the greedy kernel."""
+    from repro_torch.core.mpc import MPCConfig
+    from repro_torch.experiment import Sweep
+    from repro_torch.traces import DagConfig
+
+    base = dict(capacity=8, learn_weeks=1, family="alibaba", seed=101, engine=engine)
+    if name == "golden_sweep_dag":
+        return Sweep(base=Scenario(dag=DagConfig(width=3, depth=3), **base),
+                     seeds=[11, 12], policies=["dag-fcfs", "dag-carbon", "dag-cap"],
+                     device=device, backend="device")
+    return Sweep(base=Scenario(mpc=MPCConfig(scale_rho=0.3), **base), seeds=[11, 12],
+                 policies=["carbon-agnostic", "carbonflex-mpc", "carbonflex-scale",
+                           "oracle-estimated"], device=device, backend="device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["vector", "scan"])
+@pytest.mark.parametrize("name", ["golden_sweep_dag", "golden_sweep_mpc"])
+def test_golden_sweeps_on_the_card(cuda_fill, name, engine):
+    import os
+
+    from repro_torch.core import scan_engine
+
+    gating.build()
+    oracle_greedy.build()
+    path = os.path.join(os.path.dirname(__file__), "data", f"{name}.json")
+    with open(path) as f:
+        want = f.read()
+    scan_engine.reset_stats()
+    gating.reset_launches()
+    fill.reset_launches()
+    got = _golden_sweep(name, "cuda", engine).run().to_json() + "\n"
+    assert got == want
+    if engine == "scan":
+        stats = scan_engine.stats
+        if name == "golden_sweep_dag":
+            assert gating.launches["dep_release"] == stats["dag_steps"] > 0
+            assert stats["delegated"] == 0
+        else:
+            assert fill.launches["capacity_fill"] == stats["fill_steps"] > 0
+            assert stats["delegated"] == 2

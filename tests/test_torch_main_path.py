@@ -33,8 +33,9 @@ def results():
 
 
 def test_registry_covers_the_slice():
-    # the single-region policies of this slice, plus the DAG family
+    # the single-region policies, the MPC family and the DAG family
     assert set(available_policies()) == set(POLICIES) | {
+        "carbonflex-mpc", "carbonflex-scale", "oracle-estimated",
         "dag-fcfs", "dag-carbon", "dag-cap"}
 
 
@@ -80,7 +81,7 @@ def test_quickstart_tiny_table_matches_reference():
 
 def test_unknown_policy_raises_before_work():
     with pytest.raises(ValueError, match="registered policies"):
-        run(Scenario(**SCENARIO), ["carbonflex-mpc"], device="cpu")
+        run(Scenario(**SCENARIO), ["geo-flex"], device="cpu")
 
 
 def test_run_defaults_to_cuda_and_raises_without_it():

@@ -12,8 +12,9 @@ and every slot's log.
 - all six native policies on DAG and independent weeks;
 - tiles of mixed cells (policies, CI traces, job lists, start slots,
   capacities) equal to per-case runs, also when split into several tiles;
-- delegation to the vector engine: non-native policies, subclasses of
-  native ones, and job lists whose ``k_min`` is not uniform;
+- delegation to the vector engine: non-native policies and subclasses of
+  native ones; job lists whose ``k_min`` is not uniform run natively,
+  through the variable-k fill;
 - the gating semantics, the slot-step counts, and the default device,
   which raises without a card.
 """
@@ -189,7 +190,8 @@ def test_delegation_of_non_native_policies():
 
 def test_delegation_of_non_uniform_k_min():
     """The reference fills rows one by one where k_min differs between
-    jobs; the port runs such job lists on the vector engine."""
+    jobs; the port runs such job lists natively, through the variable-k
+    fill (``kernels/fill.py``) every slot step, none delegated."""
     cluster = ClusterConfig.default(12)
     ci = CarbonService.synthetic("germany", WEEK + 24 * 30, seed=3)
     jobs = generate_trace(TraceSpec(hours=WEEK, capacity=12, seed=4, k_min=1),
@@ -199,7 +201,8 @@ def test_delegation_of_non_uniform_k_min():
     for name in ("carbon-agnostic", "wait-awhile"):
         scan_engine.reset_stats()
         got = _scan(jobs, ci, cluster, NATIVE[name](), horizon=WEEK)
-        assert scan_engine.stats == {**scan_engine.stats, "delegated": 1, "steps": 0}
+        assert scan_engine.stats["delegated"] == 0
+        assert scan_engine.stats["fill_steps"] == scan_engine.stats["steps"] > 0
         _assert_identical(simulate(jobs, ci, cluster, NATIVE[name](), horizon=WEEK),
                           got, name)
     # a uniform k_min above 1 stays native
@@ -207,6 +210,7 @@ def test_delegation_of_non_uniform_k_min():
     scan_engine.reset_stats()
     got = _scan(jobs2, ci, cluster, baselines.WaitAwhilePolicy(), horizon=WEEK)
     assert scan_engine.stats["delegated"] == 0 and scan_engine.stats["steps"] > 0
+    assert scan_engine.stats["fill_steps"] == 0
     _assert_identical(simulate(jobs2, ci, cluster, baselines.WaitAwhilePolicy(),
                                horizon=WEEK), got, "k_min=2")
 

@@ -1,17 +1,24 @@
 """The port's ``Scenario`` takes the reference's fields in the reference's
 order: positional and keyword calls bind the same names in both packages,
-and a field whose layer the port lacks raises when set."""
+a field whose layer the port lacks raises when set, and the fields of the
+ported forecast and MPC layers reach the world and the serialization."""
 import dataclasses
 
 import pytest
 
-from repro.core.forecast import NoisyForecast
+from repro.core.forecast import NoisyForecast as RefNoisyForecast
+from repro.core.mpc import MPCConfig as RefMPCConfig
 from repro.experiment import Scenario as RefScenario
+from repro_torch.core.forecast import NoisyForecast
+from repro_torch.core.mpc import MPCConfig
 from repro_torch.experiment import Scenario
 
 UNPORTED = {"regions": ("south-australia", "california"), "migration": object(),
-            "forecast": NoisyForecast(), "faults": object(), "ci_outage": object(),
-            "serving": object(), "mpc": object()}
+            "faults": object(), "ci_outage": object(), "serving": object()}
+PORTED = {"forecast": (NoisyForecast(sigma=0.2, seed=3),
+                       RefNoisyForecast(sigma=0.2, seed=3)),
+          "mpc": (MPCConfig(horizon=24, scale_rho=0.3),
+                  RefMPCConfig(horizon=24, scale_rho=0.3))}
 
 
 def test_field_names_in_the_reference_order():
@@ -58,3 +65,24 @@ def test_setting_an_unported_field_raises(name):
 
 def test_empty_regions_is_the_default():
     assert Scenario(regions=[]).regions == ()
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_field_reaches_the_world_and_the_payload(name):
+    port_value, ref_value = PORTED[name]
+    port = Scenario(capacity=8, learn_weeks=1, **{name: port_value})
+    ref = RefScenario(capacity=8, learn_weeks=1, **{name: ref_value})
+    assert port.to_json() == ref.to_json()
+    assert Scenario.from_json(port.to_json()) == port
+    if name == "forecast":
+        assert port.materialize().ci.model is port_value
+        assert (port.materialize().ci.forecast(30)
+                == ref.materialize().ci.forecast(30)).all()
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_payload_setting_an_unported_field_raises(name):
+    payload = Scenario().to_dict()
+    payload[name] = ["california", "ontario"] if name == "regions" else {"kind": "x"}
+    with pytest.raises(NotImplementedError, match=name):
+        Scenario.from_dict(payload)
