@@ -98,8 +98,19 @@ Phases, any failure exits non-zero:
    steps; the fill kernel against its plain version (random inputs at B=1
    and 64 and n_pad 256, 2048, 6144, edge cases, the mpc-scale tile's own
    recorded chunk) and timed at B=64 beside its floor and bound; one traced
-   mpc-scale chunk for the card's busy share.  Last, the main, oracle and
-   sweep paths' wall, learning and execution times side by side.
+   mpc-scale chunk for the card's busy share;
+8. geo-distributed scheduling: ``geo-full``, the paper's 150-server cluster
+   split over south-australia and california, seeds 7, 8, 9 x geo-static,
+   geo-greedy and geo-flex through ``Sweep`` on the card's scan engine (one
+   tile per policy, each slot step's placement, migration and capacity walk
+   one launch of ``geo_walk``), its JSON byte for byte the same sweep on the
+   CPU's vector engine (launches == geo steps, nothing delegated); a
+   three-region world whose jobs take k_min in {1, 2, 4} under geo-greedy
+   and geo-flex, equal to the CPU's vector engine in every compared field;
+   the kernel against ``geo_resolve_plain`` on a recorded geo-flex step and
+   16 random inputs, exactly, timed beside its floor, plain version and
+   bound.  Last, the main, oracle, sweep and geo paths' wall times side by
+   side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -135,13 +146,15 @@ from repro_torch.core import scan_engine  # noqa: E402
 from repro_torch.core.carbon import CarbonService, REGIONS  # noqa: E402
 from repro_torch.core.dag import DagCarbonPolicy  # noqa: E402
 from repro_torch.core.forecast import NoisyForecast, QuantileForecast  # noqa: E402
+from repro_torch.core.geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy  # noqa: E402
 from repro_torch.core.mpc import CarbonFlexScalePolicy, MPCConfig  # noqa: E402
-from repro_torch.core.simulator import SimCase, pack, simulate_many  # noqa: E402
-from repro_torch.experiment import DEFAULT_DAG_POLICIES, Scenario, Sweep, run  # noqa: E402
+from repro_torch.core.simulator import SimCase, pack, simulate, simulate_many  # noqa: E402
+from repro_torch.experiment import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES,  # noqa: E402
+                                    Scenario, Sweep, run)
 from repro_torch.experiment import sweep as sweep_mod  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import fill, gating, knn, ops, oracle_greedy, score  # noqa: E402
+from repro_torch.kernels import fill, gating, geo_walk, knn, ops, oracle_greedy, score  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
@@ -1964,7 +1977,7 @@ def golden_sweeps(device, engine, backend):
 
 
 def reset_counts():
-    for mod in (knn, gating, fill, oracle_greedy):
+    for mod in (knn, gating, fill, geo_walk, oracle_greedy):
         mod.reset_launches()
     scan_engine.reset_stats()
     oracle_mod.reset_stats()
@@ -2258,6 +2271,322 @@ def sweep_phase(report):
                           fill_ms=fill_ms, steps=scan_engine.stats["steps"]))
 
 
+GEO_REGIONS = ("south-australia", "california")
+GEO_SEEDS = [7, 8, 9]
+GEO_MIXED_REGIONS = ("south-australia", "california", "ontario")
+GEO_OUTS = ("take", "placed", "pol_region", "eng_region", "mig_left", "moves", "mig_now")
+
+
+def geo_full(device, engine, record=None):
+    """``geo-full``: ``benchmarks/bench_engine.py::bench_geo``'s world, the
+    150-server cluster split over two regions, 3 seeds x the geo policies;
+    returns the result, the wall time, and per slot-loop tile its kind,
+    cells, steps and seconds.  ``record`` collects the geo-flex tile's
+    first chunk of walk inputs."""
+    sw = Sweep(base=Scenario(regions=GEO_REGIONS, capacity=150, learn_weeks=1, seed=7,
+                             engine=engine),
+               seeds=GEO_SEEDS, policies=list(DEFAULT_GEO_POLICIES), device=device)
+    tiles = []
+    run_tile, resolve = scan_engine._run_geo_tile, geo_walk.geo_resolve
+
+    def tile(members, dev, results):
+        steps = scan_engine.stats["steps"]
+        t = time.perf_counter()
+        run_tile(members, dev, results)
+        tiles.append(dict(kind=members[0].prog.kind, cells=len(members),
+                          n_pad=members[0].prog.n_pad,
+                          steps=scan_engine.stats["steps"] - steps,
+                          seconds=time.perf_counter() - t))
+
+    def recorded(kind, cand, forced, state, consts, tables):
+        if kind == "geo-flex" and len(record) < scan_engine.CHUNK:
+            record.append((cand.clone(), forced.clone(),
+                           {k: state[k].clone() for k in geo_walk._STATE},
+                           {k: consts[k].clone() for k in (*geo_walk._ROW_CONSTS,
+                                                           *geo_walk._CELL_CONSTS)},
+                           {k: tables[k].clone() for k in geo_walk._TABLES[kind]}))
+        return resolve(kind, cand, forced, state, consts, tables)
+
+    scan_engine._run_geo_tile = tile
+    if record is not None:
+        geo_walk.geo_resolve = recorded
+    try:
+        t = time.perf_counter()
+        res = sw.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        scan_engine._run_geo_tile, geo_walk.geo_resolve = run_tile, resolve
+    return res, dict(wall_s=wall, tiles=tiles)
+
+
+def mixed_k_jobs(jobs, seed):
+    """Each job's k_min drawn from {1, 2, 4} within its k_max (the profile
+    cut so that k_max stays)."""
+    gen = np.random.default_rng(seed)
+    out = []
+    for j in jobs:
+        k = int(gen.choice([k for k in (1, 2, 4) if j.k_min <= k <= j.k_max]))
+        out.append(dataclasses.replace(j, k_min=k, profile=j.profile[k - j.k_min:]))
+    return out
+
+
+def geo_fields_differ(a, b):
+    """The fields ``tests/test_geo.py::assert_geo_results_identical``
+    compares that differ between two results."""
+    diff = [f for f in ("carbon_g", "energy_kwh", "migrations", "migration_carbon_g")
+            if getattr(a, f) != getattr(b, f)]
+    diff += [f for f in ("completion", "violations", "wait_slots", "final_region",
+                         "region_carbon_g", "region_energy_kwh")
+             if not np.array_equal(getattr(a, f), getattr(b, f))]
+    if [vars(x) for x in a.slots] != [vars(y) for y in b.slots]:
+        diff.append("slots")
+    return diff
+
+
+def geo_inputs(gen, kind, b, n, regions, dev, mixed):
+    """Random ``geo_resolve`` inputs: candidates, forced, started, placed
+    and migrating rows, CI values and means with ties."""
+    bn = (b, n)
+    kmin = gen.choice([1, 2, 4], bn) if mixed else np.ones(bn, dtype=np.int64)
+    state = dict(
+        remaining=np.where(gen.random(bn) < 0.3, gen.integers(1, 40, bn).astype(float),
+                           gen.uniform(0.01, 40.0, bn)),
+        slack=gen.integers(-3, 30, bn), started=gen.random(bn) < 0.5,
+        placed=gen.random(bn) < 0.4, pol_region=gen.integers(0, regions, bn),
+        eng_region=gen.integers(0, regions, bn), mig_left=gen.integers(0, 2, bn),
+        moves=gen.integers(0, 2, bn))
+    consts = dict(kmin=kmin, ec=kmin * gen.choice([1.0, 0.3, 2.5], bn),
+                  mig_e=0.05 * np.maximum(1.0, gen.uniform(0, 8, bn)),
+                  mig_slots=gen.integers(1, 4, bn), mig_idx=gen.integers(0, 3, bn),
+                  caps=gen.integers(1, max(2, n // 4), (b, regions)),
+                  margin_c=np.full(b, 0.75), max_moves=gen.integers(1, 3, b))
+    ci = np.round(gen.uniform(10, 700, (b, regions)), -1)
+    tables = dict(ci_now=ci, clean_order=np.argsort(ci, axis=1, kind="stable"),
+                  thresh_eps=gen.uniform(10, 700, (b, regions)) + 1e-9,
+                  means=np.round(gen.uniform(10, 700, (b, regions, 24)), -1),
+                  movemeans=gen.uniform(10, 700, (b, 3, regions, 24)))
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return (t(gen.random(bn) < 0.6), t(gen.random(bn) < 0.3),
+            {k: t(v) for k, v in state.items()}, {k: t(v) for k, v in consts.items()},
+            {k: t(v) for k, v in tables.items() if k in geo_walk._TABLES[kind]})
+
+
+def geo_walk_work(kind, cand, forced, state, consts, tables):
+    """(bytes, operations) one call needs on these inputs: every row's
+    candidate flag and the state it copies (placed, regions, countdown,
+    moves), every output written once, the candidates' other row fields,
+    the cell constants and the slot's tables read once; a compare per
+    region and candidate, and the migration rule's four operations per
+    region of each started candidate."""
+    b, n = cand.shape
+    n_cand = int(cand.sum())
+    n_started = int((cand & state["started"]).sum())
+    regions = consts["caps"].shape[1]
+    cells = sum(x.numel() * x.element_size() for x in tables.values()) \
+        + sum(consts[k].numel() * consts[k].element_size() for k in geo_walk._CELL_CONSTS)
+    nbytes = b * n * (1 + 33 + 35) + n_cand * (2 + 7 * 8) + cells
+    return nbytes, n_cand * regions + 4 * regions * n_started
+
+
+def geo_kernel_phase(record, report):
+    """The geo walk against ``geo_resolve_plain`` with ``torch.equal`` on
+    every output: 16 random inputs (R 2-10, uniform and mixed k, three
+    kinds) and the geo-flex tile's recorded steps; then its time on the
+    busiest recorded step, events and profiler device time, beside the
+    floor (an empty kernel on the same grid), the plain version and the
+    bound."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(23)
+
+    def check(kind, args, what):
+        cpu = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict) else a.cpu()
+               for a in args]
+        want = geo_walk.geo_resolve_plain(kind, *cpu)
+        got = geo_walk.geo_resolve(kind, *args)
+        torch.cuda.synchronize()
+        for name, a, w in zip(GEO_OUTS, got, want):
+            if a.dtype != w.dtype or not torch.equal(a.cpu(), w):
+                raise AssertionError(f"geo_walk {what}: {name} differs from the plain "
+                                     f"version in {int((a.cpu() != w).sum())} rows")
+        return want
+
+    for i in range(16):
+        kind = geo_walk.KINDS[i % 3]
+        regions = (2, 3, 5, 10)[i % 4]
+        check(kind, geo_inputs(gen, kind, 4, 512, regions, dev, mixed=i % 2 == 1),
+              f"random {kind} R={regions}")
+    log("geo_walk: equal to the plain version on 16 random inputs (R 2/3/5/10, uniform "
+        "and mixed k, the three kinds, B=4 n=512)")
+    if not record:
+        raise AssertionError("geo_walk: no geo-flex step was recorded")
+    busiest, walked = 0, []
+    for i, args in enumerate(record):
+        want = check("geo-flex", args, f"recorded step {i}")
+        walked.append(int((args[0] & ~want[6].to(dev)).sum(1).max()))
+        if walked[-1] > walked[busiest]:
+            busiest = i
+    args = record[busiest]
+    b, n = args[0].shape
+    regions = args[3]["caps"].shape[1]
+    log(f"geo_walk: equal to the plain version on the geo-flex tile's {len(record)} "
+        f"recorded steps (B={b}, n_pad={n}); candidate rows walked a cell per step "
+        f"{min(walked)}-{max(walked)}")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        return geo_walk.geo_resolve("geo-flex", *args)
+
+    def plain():
+        return geo_walk.geo_resolve_plain(
+            "geo-flex", *[{k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+                          else a.cpu() for a in args])
+
+    def floor():
+        return geo_walk._lib.geo_walk_floor(b, n, regions, stream)
+
+    tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 20, warmup=2),
+              floor_ms=time_ms(floor, 2000), device_ms=device_ms(kernel),
+              floor_device_ms=device_ms(floor))
+    nbytes, ops_ = geo_walk_work("geo-flex", *args)
+    bound, by = bound_ms(nbytes, ops_)
+    ptx = ptxas_report(report, "geo_walk_kernel")
+    log(f"geo_walk B={b} n_pad={n} R={regions} (the busiest recorded step: "
+        f"{walked[busiest]} candidate rows walked in its busiest cell): {tm['ms']:.6f} "
+        f"ms/call (plain {tm['plain_ms']:.6f}; the floor, an empty kernel on the same "
+        f"grid, {tm['floor_ms']:.6f}); device time {tm['device_ms']} ms/call (floor "
+        f"{tm['floor_device_ms']}); bound {bound:.9f} by {by}: {nbytes} bytes; no one "
+        f"PyTorch call computes it; ptxas {ptx}")
+    return dict(name="geo_walk", route="cuda", source="src/repro_torch/csrc/geo_walk.cu",
+                replaces="src/repro/core/scan_engine.py:751 (_geo_resolve_uniform / "
+                         "_geo_resolve_walk :891, a lax.while_loop fixpoint and a "
+                         "lax.scan over rows; no Pallas kernel)",
+                max_abs_err=0.0, checked=16 + len(record),
+                shape=f"B={b} n_pad={n} R={regions} float64/int64",
+                bound_ms=bound, bound_by=by, bytes=nbytes, library_ms=None,
+                library="none: no one PyTorch call computes the walk", ptxas=ptx,
+                serial_chain=walked[busiest], recorded_steps=len(record), **tm)
+
+
+def geo_phase(report):
+    """Phase 8: ``geo-full`` on the card against the CPU; the mixed-k_min
+    world; the walk kernel against its plain version and timed."""
+    record = []
+    reset_counts()
+    card, tc = geo_full("cuda", "scan", record)
+    launches = geo_walk.launches["geo_walk"]
+    stats = dict(scan_engine.stats)
+    cpu, tcpu = geo_full("cpu", "vector")
+    log(f"geo-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s, CPU vector "
+        f"engine {tcpu['wall_s']:.3f} s")
+    log(card.table())
+    if card.to_json() != cpu.to_json():
+        diff = [(a["seed"], a["policy"]) for a, b in zip(card.rows(), cpu.rows()) if a != b]
+        raise AssertionError(f"geo-full: the card and the CPU differ in {diff}")
+    if not (launches == stats["geo_steps"] >= 1):
+        raise AssertionError(f"geo-full: {launches} geo_walk launches for {stats}")
+    if stats["delegated"] != 0:
+        raise AssertionError(f"geo-full: {stats['delegated']} cells delegated")
+    by_kind = {}
+    for tl in tc["tiles"]:
+        k = by_kind.setdefault(tl["kind"], dict(cells=0, steps=0, seconds=0.0,
+                                                n_pad=tl["n_pad"]))
+        for f in ("cells", "steps", "seconds"):
+            k[f] += tl[f]
+    if set(by_kind) != set(DEFAULT_GEO_POLICIES):
+        raise AssertionError(f"geo-full: slot-loop kinds {sorted(by_kind)}")
+    migrations = {}
+    for row in card.rows():
+        migrations[row["policy"]] = migrations.get(row["policy"], 0) + row["migrations"]
+    for kind, k in by_kind.items():
+        k["ms_per_step"] = 1e3 * k["seconds"] / k["steps"]
+        log(f"  slot loop {kind:10s}: {k['cells']} cells (n_pad {k['n_pad']}), "
+            f"{k['steps']} batched steps, {k['seconds']:.3f} s: {k['ms_per_step']:.6f} ms "
+            f"per batched step; migrations {migrations[kind]}")
+    log(f"geo-full launches: geo_walk {launches} (== geo steps); {stats}")
+
+    mat = Scenario(regions=GEO_MIXED_REGIONS, capacity=150, learn_weeks=1,
+                   seed=7).materialize()
+    jobs = mixed_k_jobs(mat.eval_jobs, 5)
+    mixed = {}
+    for pol in (GeoGreedyPolicy, GeoFlexPolicy):
+        reset_counts()
+        t = time.perf_counter()
+        got = simulate(jobs, mat.mci, mat.geo, pol(), t0=mat.t0, horizon=WEEK,
+                       engine="scan", device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_launch, steps = geo_walk.launches["geo_walk"], scan_engine.stats["geo_steps"]
+        want = simulate(jobs, mat.mci, mat.geo, pol(), t0=mat.t0, horizon=WEEK)
+        diff = geo_fields_differ(got, want)
+        if diff or not (n_launch == steps >= 1):
+            raise AssertionError(f"mixed k_min {pol().name}: fields {diff} differ; "
+                                 f"{n_launch} launches for {steps} geo steps")
+        mixed[pol().name] = dict(wall_s=wall, steps=steps, migrations=got.migrations,
+                                 carbon_g=got.carbon_g)
+    log(f"mixed k_min (3 regions, {len(jobs)} jobs, k_min "
+        f"{sorted({j.k_min for j in jobs})}): scan on the card equal to the CPU's vector "
+        f"engine in every compared field: {mixed}")
+
+    entry = geo_kernel_phase(record, report)
+    entry.update(launches=launches, path="geo-scan")
+    return entry, dict(cells=len(card.rows()), card=tc, cpu=tcpu, by_kind=by_kind,
+                       launches=launches, stats=stats, migrations=migrations,
+                       mixed_k=mixed, summary=card.summary(), **geo_split())
+
+
+def geo_split():
+    """Where a geo step's time goes: the host's per-chunk tables of each
+    kind (one 168-slot chunk of seed 7, mean of 5 builds), and one traced
+    chunk of the geo-flex tile (its 3 cells, no overrun) for the card's busy
+    share and the walk kernel's device time in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scen = [Scenario(regions=GEO_REGIONS, capacity=150, learn_weeks=1, seed=s)
+            for s in GEO_SEEDS]
+    mats = [sc.materialize() for sc in scen]
+    packed = pack(mats[0].eval_jobs)
+    ts = np.arange(mats[0].t0, mats[0].t0 + scan_engine.CHUNK)
+    tables_ms = {}
+    for name in DEFAULT_GEO_POLICIES:
+        pol = {"geo-static": GeoStaticPolicy, "geo-greedy": GeoGreedyPolicy,
+               "geo-flex": GeoFlexPolicy}[name]()
+        prog = scan_engine._build_geo(packed, mats[0].geo, pol, mats[0].mci, mats[0].t0,
+                                      WEEK, name)
+        t = time.perf_counter()
+        for _ in range(5):
+            prog.xs_fn(ts)
+        tables_ms[name] = 1e3 * (time.perf_counter() - t) / 5
+    log(f"geo host tables per {scan_engine.CHUNK}-slot chunk (ms): {tables_ms}")
+
+    def cases():
+        return [SimCase(jobs=m.eval_jobs, ci=m.mci, cluster=m.geo, policy=GeoFlexPolicy(),
+                        t0=m.t0, horizon=WEEK, max_overrun=0, engine="scan",
+                        device="cuda") for m in mats]
+
+    simulate_many(cases())                      # warm
+    torch.cuda.synchronize()
+    scan_engine.reset_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        simulate_many(cases())
+        torch.cuda.synchronize()
+    loop_s = scan_engine.stats["loop_s"]
+    events = device_events(prof)
+    busy = busy_us(events) / 1e3
+    walk_ms = sum(e.time_range.elapsed_us() for e in events if "geo_walk" in e.name) / 1e3
+    log(f"traced geo-flex chunk ({scan_engine.stats['steps']} batched steps of "
+        f"{len(mats)} cells): chunk loop {loop_s:.6f} s, card busy {busy:.6f} ms = "
+        f"{100 * busy / 1e3 / loop_s:.6f} % of it; the walk kernel {walk_ms:.6f} ms")
+    return dict(tables_ms=tables_ms,
+                traced_chunk=dict(loop_s=loop_s, busy_ms=busy,
+                                  busy_share=busy / 1e3 / loop_s, walk_ms=walk_ms,
+                                  steps=scan_engine.stats["steps"]))
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
@@ -2271,7 +2600,8 @@ def build_kernels():
                ("src/repro_torch/csrc/gating.cu", gating),
                ("src/repro_torch/csrc/score.cu", score),
                ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy),
-               ("src/repro_torch/csrc/fill.cu", fill))
+               ("src/repro_torch/csrc/fill.cu", fill),
+               ("src/repro_torch/csrc/geo_walk.cu", geo_walk))
     reports = {}
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
@@ -2309,13 +2639,16 @@ def main():
         device_path, reports["src/repro_torch/csrc/oracle_greedy.cu"]))
     fill_entry, sweep = sweep_phase(reports["src/repro_torch/csrc/fill.cu"])
     kernels.append(fill_entry)
+    geo_entry, geo = geo_phase(reports["src/repro_torch/csrc/geo_walk.cu"])
+    kernels.append(geo_entry)
     log(f"wall / learning / execution (s): main path {path['wall_s']:.3f} / "
         f"{path['learn_s']:.3f} / {path['execute_s']:.3f}; oracle path (backend=\"device\") "
         f"{device_path['wall_s']:.3f} / {device_path['learn_s']:.3f} / "
         f"{device_path['execute_s']:.3f}; sweep-full on the card {sweep['card']['wall_s']:.3f}"
         f" / {sweep['card']['learn_s']:.3f} / {sweep['card']['execute_s']:.3f}, on the CPU "
         f"{sweep['cpu']['wall_s']:.3f} / {sweep['cpu']['learn_s']:.3f} / "
-        f"{sweep['cpu']['execute_s']:.3f}")
+        f"{sweep['cpu']['execute_s']:.3f}; geo-full on the card {geo['card']['wall_s']:.3f}, "
+        f"on the CPU {geo['cpu']['wall_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
@@ -2326,6 +2659,7 @@ def main():
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()
                                     if k != "attempts"}}))
     log(json.dumps({"sweep_path": sweep}))
+    log(json.dumps({"geo_path": geo}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""CarbonFlex core, single-region slice: the paper's contribution as a
-composable library.
+"""CarbonFlex core: the paper's contribution as a composable library.
 
 - ``oracle.solve``                 — Algorithm 1 (offline optimal)
 - ``knowledge.KnowledgeBase``      — Table-2 state -> (m, rho) case base,
@@ -18,6 +17,10 @@ composable library.
 - ``simulator.simulate_many``      — batched sweeps through the engines
 - ``scan_engine``                  — ``engine="scan"``: the slot loop on the
                                      device, DAG gating through a CUDA kernel
+- ``geo``                          — geo-distributed placement policies
+                                     (``geo-static``/``geo-greedy``/
+                                     ``geo-flex``) over ``GeoCluster`` +
+                                     ``MultiRegionCarbonService`` worlds
 - ``dag``                          — DAG workloads, criticality and the
                                      dag-fcfs/dag-carbon/dag-cap policies
 - ``baselines``                    — §6 baselines (agnostic/GAIA/WaitAwhile/
@@ -29,18 +32,20 @@ composable library.
                                      quantile view robust policies use
 - ``policy.Policy``                — the protocol every policy implements
 """
-from . import baselines, carbon, dag, emissions, forecast, knowledge, mpc, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
-from .carbon import CarbonService, synthesize_trace  # noqa: F401
+from . import baselines, carbon, dag, emissions, forecast, geo, knowledge, mpc, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
+from .carbon import CarbonService, MultiRegionCarbonService, synthesize_trace  # noqa: F401
 from .dag import (DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy, DagSpec,  # noqa: F401
                   TaskNode, criticality_from_jobs, expand_dags)
 from .forecast import (ForecastModel, NoisyForecast, PerfectForecast,  # noqa: F401
                        PersistenceForecast, QuantileForecast,
                        StaticNoiseForecast, forecast_from_dict,
                        forecast_label, forecast_to_dict)
+from .geo import GeoFlexPolicy, GeoGreedyPolicy, GeoPolicy, GeoStaticPolicy  # noqa: F401
 from .knowledge import KnowledgeBase  # noqa: F401
 from .mpc import (CarbonFlexMPCPolicy, CarbonFlexScalePolicy,  # noqa: F401
                   EstimatedOraclePolicy, MPCConfig)
 from .policy import (CarbonFlexPolicy, LearnOutcome, OraclePolicy, Policy,  # noqa: F401
                      learn_window)
 from .simulator import SimCase, simulate, simulate_many  # noqa: F401
-from .types import ClusterConfig, Job, QueueConfig, SimResult  # noqa: F401
+from .types import (ClusterConfig, GeoCluster, Job, MigrationModel,  # noqa: F401
+                    QueueConfig, SimResult)

@@ -11,7 +11,8 @@ noise.  The forecast model is pluggable (``core/forecast.py``): the
 default :class:`~repro_torch.core.forecast.PerfectForecast` exposes the true
 trace, while persistence / noisy / quantile-ensemble models stress policies
 with realistic forecast error; ``model=StaticNoiseForecast(...)`` gives the
-old static-noise semantics.
+old static-noise semantics.  ``MultiRegionCarbonService`` aligns one
+service per region for the geo-distributed policies (``core/geo.py``).
 """
 from __future__ import annotations
 
@@ -138,3 +139,96 @@ class CarbonService(ForecastFeatureMixin):
             return 0.0
         prev, cur = self.trace[t - 1], self.trace[t]
         return float((cur - prev) / max(prev, 1e-9))
+
+
+@dataclasses.dataclass
+class MultiRegionCarbonService:
+    """Aligned per-region CI traces + forecasts for geo-distributed runs.
+
+    Wraps one :class:`CarbonService` per region over traces of identical
+    length and slot alignment (slot ``t`` is the same wall-clock hour in
+    every region), so a geo policy can compare regions at a glance:
+    ``ci_vec(t)`` is the current CI across regions, ``rank_vec(t)`` the
+    Table-2 day-ahead rank feature per region, ``cleanest(t)`` the index
+    of the currently lowest-CI region.
+    """
+
+    regions: tuple[str, ...]
+    services: tuple[CarbonService, ...]
+
+    def __post_init__(self) -> None:
+        self.regions = tuple(self.regions)
+        self.services = tuple(self.services)
+        if not self.regions:
+            raise ValueError("MultiRegionCarbonService needs >= 1 region")
+        if len(self.regions) != len(self.services):
+            raise ValueError("regions and services must align")
+        if len(set(self.regions)) != len(self.regions):
+            raise ValueError(f"duplicate regions: {self.regions}")
+        lengths = {len(s) for s in self.services}
+        if len(lengths) != 1:
+            raise ValueError(f"per-region traces must have equal length, "
+                             f"got {sorted(lengths)}")
+
+    @classmethod
+    def synthetic(cls, regions, hours: int, seed: int = 0,
+                  **kw) -> "MultiRegionCarbonService":
+        """Seeded aligned synthetic traces (one ``synthesize_trace`` per
+        region; the shared ``seed`` keeps the worlds reproducible while the
+        per-region CRC stream keeps the traces distinct)."""
+        return cls(tuple(regions),
+                   tuple(CarbonService.synthetic(r, hours, seed=seed, **kw)
+                         for r in regions))
+
+    @property
+    def n_regions(self) -> int:
+        return len(self.regions)
+
+    def __len__(self) -> int:
+        return len(self.services[0])
+
+    def index(self, region: str) -> int:
+        try:
+            return self.regions.index(region)
+        except ValueError:
+            raise ValueError(f"unknown region {region!r}; this service "
+                             f"covers: {', '.join(self.regions)}") from None
+
+    def service(self, region: int | str) -> CarbonService:
+        if isinstance(region, str):
+            region = self.index(region)
+        return self.services[region]
+
+    def ci(self, t: int, region: int | str = 0) -> float:
+        """Single-region CI accessor (defaults to region 0 so existing
+        single-region code paths can read a geo service unambiguously)."""
+        return self.service(region).ci(t)
+
+    def degraded(self) -> "MultiRegionCarbonService":
+        """Multi-region analogue of :meth:`CarbonService.degraded`.  This
+        slice injects no feed outages, so it is the service itself."""
+        return self
+
+    def ci_vec(self, t: int) -> np.ndarray:
+        return np.array([s.ci(t) for s in self.services])
+
+    def forecast_matrix(self, t: int, horizon: int | None = None) -> np.ndarray:
+        """(n_regions, horizon) day-ahead forecast block at slot t."""
+        return np.stack([s.forecast(t, horizon) for s in self.services])
+
+    def rank_vec(self, t: int) -> np.ndarray:
+        """Per-region day-ahead rank of slot t (1.0 = region's best slot)."""
+        return np.array([s.rank(t) for s in self.services])
+
+    def cleanest(self, t: int) -> int:
+        """Index of the currently lowest-CI region (ties -> lowest index)."""
+        return int(np.argmin(self.ci_vec(t)))
+
+
+class DegradedMultiRegionView:
+    """The reference's outage-degraded multi-region view.  Carbon-feed
+    outages are not ported, so it cannot be built."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        raise NotImplementedError("carbon-feed outages (DegradedMultiRegionView) "
+                                  "are not ported yet")

@@ -1,8 +1,8 @@
 """The device slot loop (``engine="scan"``): the per-slot simulation loop
-of the threshold-fill and MPC policies as tensor ops on the device.
+of the threshold-fill, MPC and geo policies as tensor ops on the device.
 
-The counterpart of the single-region part of the JAX package's
-``core/scan_engine.py``, with PyTorch's idiom inside the reference's names:
+The counterpart of the JAX package's ``core/scan_engine.py``, with
+PyTorch's idiom inside the reference's names:
 
 - the *decision* of every native policy is packed tensor ops inside the
   slot step: FCFS threshold-fill at ``k_min`` under an eligibility mask, or
@@ -19,6 +19,14 @@ The counterpart of the single-region part of the JAX package's
   kernel of ``kernels/gating.py::dep_release_csr`` per slot step (its
   plain version on the CPU), over a predecessor CSR built once per
   program;
+- the geo program (``geo-static``, ``geo-greedy``, ``geo-flex`` on a
+  ``GeoCluster``) keeps each row's region, placement and migration state in
+  the carry; each slot step's placement, migration and per-region capacity
+  walk is one launch of the hand-written CUDA kernel of
+  ``kernels/geo_walk.py::geo_resolve`` (its plain version on the CPU), for
+  uniform and mixed ``k_min`` alike; the CI, forecast-mean and threshold
+  tables it reads are computed per chunk on the host with the policies'
+  own numpy expressions;
 - structurally identical cases run as one batched program: a leading
   batch dimension of up to ``BATCH_TILE`` cells takes the place of the
   reference's ``vmap``, and the reference's ``lax.scan`` becomes a Python
@@ -33,16 +41,18 @@ boolean grids (which rows ran, were scaled, finished, violated) into
 preallocated (B, chunk, n_pad) tensors, copied to the host once per chunk.
 The host replays fractional progress, energy and carbon from the ``take``
 grid with the vector engine's exact numpy expressions, in its order
-(``_active_energy``, ``_account_single``), and
-the eligibility and MPC tables are computed on the host with the policies'
-own numpy expressions.
+(``_active_energy``, ``_account_single``, ``_account_geo``: per-region
+energy in row order, migration carbon at the destination's CI in row order),
+and the eligibility, MPC and geo tables are computed on the host with the
+policies' own numpy expressions.
 
 Native policies (exact types): ``carbon-agnostic`` and ``dag-fcfs``
 (plain), ``wait-awhile``, ``wait-awhile-robust`` and ``dag-carbon``
-(thresh), ``dag-cap`` (cap), ``carbonflex-mpc`` (mpc) and
-``carbonflex-scale`` (mpc-scale).  Every other policy runs on the vector
-engine instead, which is bit-identical; ``stats["delegated"]`` counts those
-cases.
+(thresh), ``dag-cap`` (cap), ``carbonflex-mpc`` (mpc),
+``carbonflex-scale`` (mpc-scale); on a ``GeoCluster`` ``geo-static``,
+``geo-greedy`` and ``geo-flex``.  Every other policy runs on the vector
+engine (the geo vector engine on a geo cluster) instead, which is
+bit-identical; ``stats["delegated"]`` counts those cases.
 """
 from __future__ import annotations
 
@@ -55,17 +65,19 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fill, gating
+from repro_torch.kernels import fill, gating, geo_walk
 
 from . import emissions
 from .baselines import (CarbonAgnosticPolicy, RobustWaitAwhilePolicy,
                         WaitAwhilePolicy)
-from .carbon import CarbonService
+from .carbon import CarbonService, MultiRegionCarbonService
 from .dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
 from .forecast import PerfectForecast, QuantileCIView
+from .geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from .mpc import CarbonFlexMPCPolicy, CarbonFlexScalePolicy
-from .simulator import PackedJobs, SimCase, _simulate_vector, packed_for
-from .types import SimResult, SlotLog
+from .simulator import (PackedJobs, SimCase, _accumulate_regions,
+                        _simulate_geo_vector, _simulate_vector, packed_for)
+from .types import GeoCluster, SimResult, SlotLog
 
 _EPS = 1e-9
 _log = logging.getLogger(__name__)
@@ -79,11 +91,12 @@ _MPC_KINDS = ("mpc", "mpc-scale")
 
 #: Since the last ``reset_stats()``: slot steps (one per batched step
 #: call), cell steps (steps times the cells of the batch), steps with DAG
-#: gating, steps through the variable-k fill, cases delegated to the vector
-#: engine, and host seconds in the chunk loops (device steps, the per-chunk
-#: tables and copies) and in the host accounting.
+#: gating, steps through the variable-k fill, geo steps (each one launch of
+#: the geo walk), cases delegated to the vector engine, and host seconds in
+#: the chunk loops (device steps, the per-chunk tables and copies) and in
+#: the host accounting.
 stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "fill_steps": 0,
-         "delegated": 0, "loop_s": 0.0, "account_s": 0.0}
+         "geo_steps": 0, "delegated": 0, "loop_s": 0.0, "account_s": 0.0}
 
 
 def reset_stats() -> None:
@@ -91,12 +104,19 @@ def reset_stats() -> None:
         stats[name] = 0.0 if name.endswith("_s") else 0
 
 
-def native_kind(policy) -> str | None:
-    """The scan-native program family of ``policy``, or None to delegate.
+_GEO_KINDS = {GeoStaticPolicy: "geo-static", GeoGreedyPolicy: "geo-greedy",
+              GeoFlexPolicy: "geo-flex"}
+
+
+def native_kind(policy, geo: bool = False) -> str | None:
+    """The scan-native program family of ``policy`` (on a ``GeoCluster``
+    when ``geo``), or None to delegate.
 
     Exact ``type()`` checks: a subclass may override ``decide`` in ways the
     packed decision tables cannot see (``carbonflex-scale`` is checked
     before its base MPC class for the same reason)."""
+    if geo:
+        return _GEO_KINDS.get(type(policy))
     tp = type(policy)
     if tp in (CarbonAgnosticPolicy, DagFcfsPolicy):
         return "plain"
@@ -118,6 +138,62 @@ def _pad_rows(n: int) -> int:
 
 
 # --- host tables -------------------------------------------------------------
+# The per-slot CI/forecast APIs (``ci_vec``/``forecast_matrix``/``ci``)
+# are Python calls; building a week of decision tables through them costs
+# more than the device program itself.  When the view is a plain
+# perfect-forecast service the same tables fall out of whole-trace
+# indexing — the gathered elements are the identical float64 values the
+# per-slot calls return, so the fast path is bitwise equal; any other
+# view (forecast models, subclasses) keeps the per-slot loop.
+
+
+def _perfect_traces(ci_pol) -> np.ndarray | None:
+    """(R, T) trace stack when every regional feed is a plain
+    perfect-forecast ``CarbonService``; None otherwise."""
+    if type(ci_pol) is not MultiRegionCarbonService:
+        return None
+    svs = ci_pol.services
+    if any(type(s) is not CarbonService or type(s.model) is not PerfectForecast
+           or np.asarray(s.trace).dtype != np.float64 for s in svs):
+        return None
+    if len({len(s.trace) for s in svs}) != 1:
+        return None
+    return np.stack([np.asarray(s.trace) for s in svs])
+
+
+def _ci_vec_block(ci_pol, ts: np.ndarray) -> np.ndarray:
+    """(S, R) stack of ``ci_vec`` over the slots ``ts``."""
+    tr = _perfect_traces(ci_pol)
+    if tr is not None and ts[0] >= 0:
+        return tr[:, np.minimum(ts, tr.shape[1] - 1)].T.copy()
+    return np.stack([ci_pol.ci_vec(int(t)) for t in ts])
+
+
+def _forecast_block(ci_pol, ts: np.ndarray, h: int) -> np.ndarray:
+    """(S, R, H) stack of ``forecast_matrix`` over the slots ``ts``.
+
+    The fast path mirrors ``forecast._truth_slice`` exactly: windows past
+    the trace end repeat the last known value (the padded-trace gather
+    reads that same element)."""
+    tr = _perfect_traces(ci_pol)
+    if tr is not None and ts[0] >= 0 and ts[-1] < tr.shape[1]:
+        pad = np.concatenate([tr, np.repeat(tr[:, -1:], h - 1, axis=1)],
+                             axis=1)
+        idx = ts[:, None] + np.arange(h)[None, :]
+        return pad[:, idx].transpose(1, 0, 2)
+    return np.stack([ci_pol.forecast_matrix(int(t), h) for t in ts])
+
+
+def _ci_vec_acct_block(mci, t0: int, n_valid: int) -> np.ndarray:
+    """(S, R) accounting CI vectors (the true multi-region service)."""
+    ts = np.arange(t0, t0 + n_valid)
+    if type(mci) is MultiRegionCarbonService:
+        return np.stack(
+            [np.asarray(s.trace, dtype=np.float64)[
+                np.minimum(ts, len(s.trace) - 1)] for s in mci.services],
+            axis=1)
+    return np.stack([mci.ci_vec(int(t)) for t in ts]) if n_valid \
+        else np.zeros((0, mci.n_regions))
 
 
 def _ci_block(ci, t0: int, n_valid: int) -> np.ndarray:
@@ -257,9 +333,9 @@ def _build_single(packed, cluster, policy, ci_pol, kind: str,
         # per-slot tables of the MPC rule, straight from the policy's own
         # host-precomputed arrays (bit-parity by construction)
         def xs_fn(ts: np.ndarray) -> dict:
-            xs = {"t": ts, "rank_t": policy.rank_rows(ts).astype(i64)}
+            xs = {"t": ts[:, None], "rank_t": policy.rank_rows(ts).astype(i64)}
             if kind == "mpc-scale":
-                xs["clean_t"] = np.asarray(policy.clean_rows(ts), dtype=bool)
+                xs["clean_t"] = np.asarray(policy.clean_rows(ts), dtype=bool)[:, None]
             return xs
 
         xs_dims = (int(policy.cfg.horizon), mpc_consts["need_lut"].shape)
@@ -267,7 +343,7 @@ def _build_single(packed, cluster, policy, ci_pol, kind: str,
         elig = _single_elig_fn(policy, ci_pol, kind)
 
         def xs_fn(ts: np.ndarray) -> dict:
-            return {"t": ts, "elig_t": elig(ts)}
+            return {"t": ts[:, None], "elig_t": elig(ts)[:, None]}
 
         xs_dims = ()
     # per-slot scale-up makes the requested k slot-varying -> the cumsum
@@ -382,15 +458,21 @@ def _single_step(c: dict, s: dict, x: dict, graph: gating.DepGraph | None,
 
 
 _YS_TYPES = dict(take=torch.bool, fin=torch.bool, viol=torch.bool,
-                 waited_fin=torch.int32, n_rows=torch.int32, ended=torch.bool,
-                 scaled=torch.bool)
+                 waited_fin=torch.int32, n_rows=torch.int32, ended=torch.bool)
 
 
-def _collect_chunks(c, carry, graph, t0s: np.ndarray, xs_fns, n_pad: int,
-                    horizon: int, span: int, device, kind: str,
-                    uniform: bool) -> dict:
+def _collect_chunks(c, carry, step, t0s: np.ndarray, xs_fns, n_pad: int,
+                    horizon: int, span: int, device, ys_types: dict,
+                    counters: tuple = ()) -> dict:
     """Run the batch chunk by chunk until every cell has ended or ``span``
     slots are done; returns the per-slot outputs on the host, (B, S, ...).
+
+    ``step(c, carry, x)`` is one batched slot step, returning the new carry
+    and the slot's outputs named in ``ys_types``; ``x`` holds the slot's
+    tables, (B, ...) each: every ``xs_fns`` entry returns a cell's tables
+    over the chunk's slots, (S, ...), stacked slot-major so that each
+    slot's slice is contiguous.  Each step adds to ``stats["steps"]`` and
+    to the entries named in ``counters``.
 
     Inside the horizon no cell can end (the ended-check needs ``t >=
     t0 + horizon``), so full CHUNK chunks waste nothing; past it any slot
@@ -399,35 +481,194 @@ def _collect_chunks(c, carry, graph, t0s: np.ndarray, xs_fns, n_pad: int,
     steps into preallocated device tensors, copies them to the host once
     and reads ``ended`` there."""
     b = len(t0s)
-    names = [k for k in _YS_TYPES if k != "scaled" or kind == "mpc-scale"]
     parts = []
     off = 0
     while off < span:
         size = min(CHUNK if off < horizon else OVERRUN_CHUNK, span - off)
         ts = t0s[:, None] + off + np.arange(size)[None, :]
         xs_host = [fn(row) for fn, row in zip(xs_fns, ts)]
-        xs = {k: torch.from_numpy(np.stack([d[k] for d in xs_host])).to(device)
+        xs = {k: torch.from_numpy(np.stack([d[k] for d in xs_host], axis=1)).to(device)
               for k in xs_host[0]}
         out = {k: torch.empty((b, size) if k in ("n_rows", "ended")
-                              else (b, size, n_pad), dtype=_YS_TYPES[k],
-                              device=device)
-               for k in names}
+                              else (b, size, n_pad), dtype=dtype, device=device)
+               for k, dtype in ys_types.items()}
         for i in range(size):
-            x = {k: v[:, i] if v.dim() == 3 else v[:, i:i + 1] for k, v in xs.items()}
-            carry, ys = _single_step(c, carry, x, graph, kind, uniform)
+            carry, ys = step(c, carry, {k: v[i] for k, v in xs.items()})
             for k, v in ys.items():
                 out[k][:, i] = v
         stats["steps"] += size
         stats["cell_steps"] += size * b
-        if graph is not None:
-            stats["dag_steps"] += size
-        if not uniform:
-            stats["fill_steps"] += size
+        for name in counters:
+            stats[name] += size
         parts.append({k: v.cpu().numpy() for k, v in out.items()})
         off += size
         if parts[-1]["ended"][:, -1].all():
             break
     return {k: np.concatenate([p[k] for p in parts], axis=1) for k in parts[0]}
+
+
+# --- geo program -------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _GeoProgram:
+    """Host constants and initial carry of one native geo case (stacked
+    across a tile and moved to the device there), with its accounting
+    mirrors."""
+
+    consts: dict
+    carry0: dict
+    n_pad: int
+    kind: str                      # geo-static | geo-greedy | geo-flex
+    lookahead: int
+    xs_fn: Callable                # (ts) -> per-slot host tables
+    power: np.ndarray
+    mig_e: np.ndarray              # host transfer energy per row
+    caps: np.ndarray
+    mig_vals: list
+
+
+def _build_geo(packed, geo: GeoCluster, policy, ci_pol,
+               t0: int, horizon: int, kind: str) -> _GeoProgram:
+    n = packed.n
+    n_pad = _pad_rows(n)
+    n_regions = geo.n_regions
+    caps = geo.capacity_vec()
+    power = np.where(packed.power > 0, packed.power, geo.power_per_server)
+    kmin = packed.k_min
+    thr = packed.thr_tab[np.arange(n), kmin]
+    i64, f64 = np.int64, np.float64
+
+    def padded(src, fill, dtype):
+        out = np.full(n_pad, fill, dtype=dtype)
+        out[:n] = src
+        return out
+
+    mig_slots = np.array([geo.migration.slots(j) for j in packed.jobs],
+                         dtype=i64)
+    mig_e = np.array([geo.migration.energy_kwh(j) for j in packed.jobs],
+                     dtype=f64)
+    mig_vals = sorted(set(mig_slots.tolist())) or [0]
+    val2idx = {v: i for i, v in enumerate(mig_vals)}
+    mig_idx = np.array([val2idx[int(v)] for v in mig_slots], dtype=i64)
+    home = np.array([geo.home_region(i) for i in range(n)], dtype=i64)
+    # e_run coefficient: ((k_min * power) * slot_hours), the first three
+    # factors of both the energy expression and the policies' e_run
+    ec = (kmin * power) * geo.slot_hours
+
+    lookahead = int(getattr(policy, "lookahead", 24))
+    percentile = getattr(policy, "percentile", 40.0)
+    margin_c = 1.0 - getattr(policy, "saving_margin", 0.0)
+    max_moves = int(getattr(policy, "max_migrations_per_job", 0))
+
+    consts = dict(
+        arrival=padded(packed.arrival, _BIG_T, i64),
+        kmin=padded(kmin, 1, i64),
+        thr=padded(thr, 1.0, f64),
+        deadline=padded(packed.deadline, 0, i64),
+        ec=padded(ec, 0.0, f64),
+        mig_e=padded(mig_e, 0.0, f64),
+        mig_slots=padded(mig_slots, 0, i64),
+        mig_idx=padded(mig_idx, 0, i64),
+        caps=caps.astype(i64),
+        margin_c=f64(margin_c),
+        max_moves=i64(max_moves),
+        n_real=i64(n),
+        t_end=i64(t0 + horizon),
+    )
+    carry0 = dict(
+        remaining=padded(packed.length, 0.0, f64),
+        slack=padded([j.delay for j in packed.jobs], 0, i64),
+        waited=np.zeros(n_pad, dtype=i64),
+        in_sys=np.zeros(n_pad, dtype=bool),
+        finished=np.zeros(n_pad, dtype=bool),
+        started=np.zeros(n_pad, dtype=bool),
+        placed=np.zeros(n_pad, dtype=bool),
+        pol_region=padded(home, 0, i64),
+        eng_region=padded(home, 0, i64),
+        mig_left=np.zeros(n_pad, dtype=i64),
+        moves=np.zeros(n_pad, dtype=i64),
+        ended=np.asarray(False),
+    )
+
+    # Per-chunk decision tables with the policies' own numpy expressions.
+    # The CI/forecast blocks go through the batched whole-trace fast paths
+    # above; the batched slice means are bitwise equal to the per-slot
+    # `fc[:, :h].mean(axis=1)` the policy computes (the same reduction over
+    # the same values).  They stay on the host: a sum in another order is
+    # not bitwise equal.
+    def xs_fn(ts: np.ndarray) -> dict:
+        s = len(ts)
+        xs = {"t": ts[:, None].astype(i64)}
+        if kind == "geo-static":
+            return xs
+        civ = _ci_vec_block(ci_pol, ts)                           # (S, R)
+        xs["ci_now"] = civ
+        if kind == "geo-greedy":
+            xs["clean_order"] = np.argsort(civ, axis=1,
+                                           kind="stable").astype(i64)
+            return xs
+        fc = np.ascontiguousarray(
+            _forecast_block(ci_pol, ts, lookahead))               # (S, R, H)
+        xs["thresh_eps"] = np.percentile(fc, percentile, axis=2) + _EPS
+        means = np.zeros((s, n_regions, lookahead))
+        for h in range(1, lookahead + 1):
+            means[:, :, h - 1] = fc[:, :, :h].mean(axis=2)
+        xs["means"] = means
+        movem = np.zeros((s, len(mig_vals), n_regions, lookahead))
+        for mi, ms in enumerate(mig_vals):
+            for h in range(1, lookahead - ms + 1):
+                movem[:, mi, :, h - 1] = fc[:, :, ms:ms + h].mean(axis=2)
+        xs["movemeans"] = movem
+        return xs
+
+    return _GeoProgram(consts=consts, carry0=carry0, n_pad=n_pad, kind=kind,
+                       lookahead=lookahead, xs_fn=xs_fn, power=power,
+                       mig_e=mig_e, caps=caps, mig_vals=mig_vals)
+
+
+def _geo_step(c: dict, s: dict, x: dict, kind: str):
+    """One geo engine slot for a batch of B cells (mirrors
+    ``_simulate_geo_vector`` + the geo policies' ``decide_geo`` +
+    ``_resolve_geo``): admission and the end test as tensor ops, then the
+    placement, migration and capacity walk in one launch of
+    ``geo_walk.geo_resolve``, then progress, waiting budgets and the
+    migration countdown.  ``x`` holds ``t`` (B, 1) and the kind's tables."""
+    t = x["t"]
+    rem = s["remaining"]
+    arrived = c["arrival"] <= t
+    in_sys = s["in_sys"] | (arrived & ~s["finished"])
+    n_in = in_sys.sum(1)
+    ended = s["ended"] | ((n_in == 0) & (arrived.sum(1) == c["n_real"])
+                          & (t[:, 0] >= c["t_end"]))
+    act = in_sys & ~ended[:, None]
+    forced = s["slack"] <= 0
+    live = rem > _EPS
+    cand = act & live & (s["mig_left"] == 0)
+    take, placed, polr, engr, migl, moves, mig_now = geo_walk.geo_resolve(
+        kind, cand, forced, s, c, x)
+
+    rem2 = torch.where(take, rem - c["thr"], rem)
+    wmask = act & live & ~take
+    wm = wmask.to(torch.int64)
+    waited2 = s["waited"] + wm
+    fin = act & (rem2 <= _EPS)
+    carry = dict(remaining=rem2, slack=s["slack"] - wm, waited=waited2,
+                 in_sys=in_sys & ~fin, finished=s["finished"] | fin,
+                 started=s["started"] | take, placed=placed, pol_region=polr,
+                 eng_region=engr,
+                 mig_left=migl - (wmask & (migl > 0)).to(torch.int64),
+                 moves=moves, ended=ended)
+    ys = dict(take=take, region=engr, mig_now=mig_now, fin=fin,
+              viol=fin & (t > c["deadline"]),
+              waited_fin=torch.where(fin, waited2, 0), n_rows=n_in,
+              ended=ended)
+    return carry, ys
+
+
+_GEO_YS_TYPES = dict(take=torch.bool, region=torch.int8, mig_now=torch.bool,
+                     fin=torch.bool, viol=torch.bool, waited_fin=torch.int32,
+                     n_rows=torch.int32, ended=torch.bool)
 
 
 # --- host accounting ---------------------------------------------------------
@@ -520,6 +761,86 @@ def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
         completion=completion, num_jobs=n)
 
 
+def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
+                 prog: _GeoProgram) -> SimResult:
+    """The geo engines' accounting over the emitted grids, in their float
+    order: per-region energy in row order, each migration's transfer
+    energy to its destination and its carbon at the destination's CI in
+    row (= decision) order, then ``_accumulate_regions``."""
+    n = packed.n
+    n_regions = geo.n_regions
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    final_region = np.full(n, -1, dtype=np.int64)
+    region_energy = np.zeros(n_regions)
+    region_carbon = np.zeros(n_regions)
+    migrations = 0
+    mig_carbon_total = 0.0
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    provisioned = int(prog.caps.sum())
+    take_a = ys["take"][:n_valid, :n]
+    reg_a = ys["region"][:n_valid, :n]
+    bounds, r_act, k_act, e_act = _active_energy(
+        packed, prog.power, geo.slot_hours, geo.eta_net, take_a,
+        np.broadcast_to(packed.k_min, take_a.shape))
+    areg_act = reg_a[np.repeat(np.arange(n_valid), np.diff(bounds)), r_act]
+    fs, fr = np.nonzero(ys["fin"][:n_valid, :n])
+    fbounds = np.searchsorted(fs, np.arange(n_valid + 1))
+    wfin_f = ys["waited_fin"][:n_valid, :n][fs, fr]
+    viol_f = ys["viol"][:n_valid, :n][fs, fr]
+    ms_idx, mr_idx = np.nonzero(ys["mig_now"][:n_valid, :n])
+    mbounds = np.searchsorted(ms_idx, np.arange(n_valid + 1))
+    n_rows_a = ys["n_rows"][:n_valid]
+    civ_a = _ci_vec_acct_block(mci, t0, n_valid)
+    for i in range(n_valid):
+        t = t0 + i
+        ci_vec = civ_a[i]
+        lo, hi = bounds[i], bounds[i + 1]
+        mrows = mr_idx[mbounds[i]:mbounds[i + 1]]
+        e_vec = e_act[lo:hi]
+        a_regions = areg_act[lo:hi]
+        energy_r = np.zeros(n_regions)
+        for r in range(n_regions):
+            for v in e_vec[a_regions == r].tolist():   # sequential, row order
+                energy_r[r] += v
+        mc = 0.0
+        for row in mrows.tolist():             # row order == decision order
+            e = prog.mig_e[row]
+            dest = int(reg_a[i, row])
+            energy_r[dest] += e
+            mc += e * ci_vec[dest]
+        mig_carbon_total += mc
+        migrations += len(mrows)
+        energy, carbon = _accumulate_regions(energy_r, ci_vec,
+                                             region_energy, region_carbon)
+        total_energy += energy
+        total_carbon += carbon
+        flo, fhi = fbounds[i], fbounds[i + 1]
+        frows = fr[flo:fhi]
+        if len(frows):
+            completion[frows] = t
+            wait[frows] = wfin_f[flo:fhi]
+            violations[frows] = viol_f[flo:fhi]
+            final_region[frows] = reg_a[i, frows]
+        used = int(k_act[lo:hi].sum())
+        running = int(hi - lo)
+        logs.append(SlotLog(slot=t, ci=float(np.mean(ci_vec)),
+                            provisioned=provisioned, used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=running,
+                            queued=int(n_rows_a[i]) - len(frows) - running))
+    return SimResult(
+        policy=policy.name, carbon_g=total_carbon, energy_kwh=total_energy,
+        slots=logs, wait_slots=wait, violations=violations,
+        completion=completion, num_jobs=n, regions=geo.regions,
+        region_carbon_g=region_carbon, region_energy_kwh=region_energy,
+        final_region=final_region, migrations=migrations,
+        migration_carbon_g=mig_carbon_total)
+
+
 # --- public API --------------------------------------------------------------
 
 
@@ -539,7 +860,7 @@ class _Member:
     index: int
     case: SimCase
     packed: PackedJobs
-    prog: _SingleProgram
+    prog: _SingleProgram | _GeoProgram
 
 
 def simulate_many_scan(cases: Sequence[SimCase],
@@ -551,24 +872,36 @@ def simulate_many_scan(cases: Sequence[SimCase],
     packs = {} if packs is None else packs
     results: list[SimResult | None] = [None] * len(cases)
     groups: dict[tuple, list[_Member]] = {}
+    geo_groups: dict[tuple, list[_Member]] = {}
     delegated: dict[str, int] = {}
     for i, case in enumerate(cases):
         device = resolve_device(case.device)
         packed = packed_for(case.jobs, packs)
-        kind = native_kind(case.policy)
-        if kind is None or packed.n == 0:
+        is_geo = isinstance(case.cluster, GeoCluster)
+        kind = native_kind(case.policy, is_geo)
+        if kind is None or packed.n == 0 or (is_geo and packed.has_deps):
             if packed.n > 0:
                 who = type(case.policy).__name__
                 delegated[who] = delegated.get(who, 0) + 1
-            results[i] = _simulate_vector(
-                case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                case.horizon, case.max_overrun, packed=packed)
+            # geo + deps runs the geo vector engine, which refuses DAG jobs
+            fn = _simulate_geo_vector if is_geo else _simulate_vector
+            results[i] = fn(case.jobs, case.ci, case.cluster, case.policy,
+                            case.t0, case.horizon, case.max_overrun,
+                            packed=packed)
             continue
         horizon = int(case.horizon if case.horizon is not None
                       else len(case.ci) - case.t0)
         ci_pol = case.ci.degraded()
         case.policy.on_window_start(ci_pol, case.t0, horizon, packed.jobs,
                                     case.cluster)
+        if is_geo:
+            prog = _build_geo(packed, case.cluster, case.policy, ci_pol,
+                              case.t0, horizon, kind)
+            key = (str(device), kind, prog.n_pad, case.cluster.n_regions,
+                   prog.lookahead, len(prog.mig_vals), horizon,
+                   horizon + case.max_overrun)
+            geo_groups.setdefault(key, []).append(_Member(i, case, packed, prog))
+            continue
         prog = _build_single(packed, case.cluster, case.policy, ci_pol, kind,
                              case.t0, horizon)
         # cells of one tile share the predecessor graph, so DAG cells group
@@ -585,6 +918,10 @@ def simulate_many_scan(cases: Sequence[SimCase],
         for lo in range(0, len(members), BATCH_TILE):
             _run_single_tile(members[lo:lo + BATCH_TILE], graph, device,
                              results)
+    for key, members in geo_groups.items():
+        for lo in range(0, len(members), BATCH_TILE):
+            _run_geo_tile(members[lo:lo + BATCH_TILE], torch.device(key[0]),
+                          results)
     if delegated:
         stats["delegated"] += sum(delegated.values())
         _log.info("scan batch: %d case(s) delegated to the vector engine "
@@ -596,21 +933,25 @@ def simulate_many_scan(cases: Sequence[SimCase],
 def _run_single_tile(members: list[_Member], graph, device, results) -> None:
     """One batched program over structurally identical cells."""
     progs = [m.prog for m in members]
-
-    def stacked(key: str, part: str) -> torch.Tensor:
-        return torch.from_numpy(np.stack(
-            [getattr(p, part)[key] for p in progs])).to(device)
-
-    c = {k: stacked(k, "consts") for k in progs[0].consts}
-    carry = {k: stacked(k, "carry0") for k in progs[0].carry0}
+    c = _stacked(progs, "consts", device)
+    carry = _stacked(progs, "carry0", device)
     case0 = members[0].case
     horizon = int(case0.horizon if case0.horizon is not None
                   else len(case0.ci) - case0.t0)
+    kind, uniform = progs[0].kind, progs[0].uniform
+    ys_types = dict(_YS_TYPES, **({"scaled": torch.bool}
+                                  if kind == "mpc-scale" else {}))
+    counters = (("dag_steps",) if graph is not None else ()) + (
+        ("fill_steps",) if not uniform else ())
+
+    def step(c, carry, x):
+        return _single_step(c, carry, x, graph, kind, uniform)
+
     t_loop = time.perf_counter()
     ys_all = _collect_chunks(
-        c, carry, graph, np.array([m.case.t0 for m in members], dtype=np.int64),
+        c, carry, step, np.array([m.case.t0 for m in members], dtype=np.int64),
         [p.xs_fn for p in progs], progs[0].n_pad, horizon,
-        horizon + case0.max_overrun, device, progs[0].kind, progs[0].uniform)
+        horizon + case0.max_overrun, device, ys_types, counters)
     t_acct = time.perf_counter()
     stats["loop_s"] += t_acct - t_loop
     for j, m in enumerate(members):
@@ -618,6 +959,43 @@ def _run_single_tile(members: list[_Member], graph, device, results) -> None:
         ended = ys["ended"]
         n_valid = int(np.argmax(ended)) if ended.any() else len(ended)
         results[m.index] = _account_single(
+            m.packed, m.case.ci, m.case.cluster, m.case.policy, m.case.t0, ys,
+            n_valid, m.prog)
+    stats["account_s"] += time.perf_counter() - t_acct
+
+
+def _stacked(progs, part: str, device) -> dict:
+    """A tile's constants or initial carry: each cell's arrays stacked
+    along a leading B axis, on ``device``."""
+    first = getattr(progs[0], part)
+    return {k: torch.from_numpy(np.stack([getattr(p, part)[k] for p in progs]))
+            .to(device) for k in first}
+
+
+def _run_geo_tile(members: list[_Member], device, results) -> None:
+    """One batched geo program over structurally identical cells."""
+    progs = [m.prog for m in members]
+    kind = progs[0].kind
+    case0 = members[0].case
+    horizon = int(case0.horizon if case0.horizon is not None
+                  else len(case0.ci) - case0.t0)
+
+    def step(c, carry, x):
+        return _geo_step(c, carry, x, kind)
+
+    t_loop = time.perf_counter()
+    ys_all = _collect_chunks(
+        _stacked(progs, "consts", device), _stacked(progs, "carry0", device),
+        step, np.array([m.case.t0 for m in members], dtype=np.int64),
+        [p.xs_fn for p in progs], progs[0].n_pad, horizon,
+        horizon + case0.max_overrun, device, _GEO_YS_TYPES, ("geo_steps",))
+    t_acct = time.perf_counter()
+    stats["loop_s"] += t_acct - t_loop
+    for j, m in enumerate(members):
+        ys = {k: v[j] for k, v in ys_all.items()}
+        ended = ys["ended"]
+        n_valid = int(np.argmax(ended)) if ended.any() else len(ended)
+        results[m.index] = _account_geo(
             m.packed, m.case.ci, m.case.cluster, m.case.policy, m.case.t0, ys,
             n_valid, m.prog)
     stats["account_s"] += time.perf_counter() - t_acct

@@ -40,9 +40,14 @@ Three engines, bit-for-bit identical outputs:
 ``simulate_many`` batches a (seeds x regions x policies) sweep through
 the engines, packing each distinct job list once.
 
-Single-region slice, no fault injection.  The accounting stays float64
-numpy on the host, operation for operation as in the JAX package, so both
-packages give bit-identical results.
+A ``GeoCluster`` with a ``MultiRegionCarbonService`` runs the
+multi-region engines (``_simulate_geo_vector`` / ``_simulate_geo_scalar``,
+bit-identical; ``engine="scan"`` puts their slot loop on the device): per
+slot the geo policy places, runs or migrates each job, and energy and
+carbon are accounted per region.  No fault injection, and no DAG jobs on a
+geo cluster.  The accounting stays float64 numpy on the host, operation
+for operation as in the JAX package, so both packages give bit-identical
+results.
 """
 from __future__ import annotations
 
@@ -53,10 +58,10 @@ import numpy as np
 import torch
 
 from . import emissions
-from .carbon import CarbonService
+from .carbon import CarbonService, MultiRegionCarbonService
 from .policy import Policy
 from .scheduling import ActiveJob, EntryBlocks, apply_slot
-from .types import ClusterConfig, Job, SimResult, SlotLog
+from .types import ClusterConfig, GeoCluster, Job, SimResult, SlotLog
 
 _EPS = 1e-9
 
@@ -226,28 +231,38 @@ class EngineState:
 
 def simulate(
     jobs: list[Job],
-    ci: CarbonService,
-    cluster: ClusterConfig,
+    ci: CarbonService | MultiRegionCarbonService,
+    cluster: ClusterConfig | GeoCluster,
     policy: Policy,
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
+    faults: None = None,
     engine: str = "vector",
     device: str | torch.device = "cuda",
 ) -> SimResult:
     """One window under one policy.  ``device`` is where the scan engine
-    runs its slot loop; the host engines ignore it."""
+    runs its slot loop; the host engines ignore it.  Fault processes are
+    not ported: ``faults`` must stay ``None``."""
+    if faults is not None:
+        raise NotImplementedError("fault processes are not ported yet")
+    if engine not in ("vector", "scalar", "scan"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if isinstance(cluster, GeoCluster) and not isinstance(
+            ci, MultiRegionCarbonService):
+        raise TypeError("a GeoCluster needs a MultiRegionCarbonService")
     if engine == "scan":
         from .scan_engine import simulate_scan
         return simulate_scan(jobs, ci, cluster, policy, t0, horizon,
                              max_overrun, device=device)
+    if isinstance(cluster, GeoCluster):
+        fn = _simulate_geo_scalar if engine == "scalar" else _simulate_geo_vector
+        return fn(jobs, ci, cluster, policy, t0, horizon, max_overrun)
     if engine == "scalar":
         return _simulate_scalar(jobs, ci, cluster, policy, t0, horizon,
                                 max_overrun)
-    if engine == "vector":
-        return _simulate_vector(jobs, ci, cluster, policy, t0, horizon,
-                                max_overrun)
-    raise ValueError(f"unknown engine {engine!r}")
+    return _simulate_vector(jobs, ci, cluster, policy, t0, horizon,
+                            max_overrun)
 
 
 # --- vector engine ----------------------------------------------------------
@@ -434,11 +449,13 @@ def _kvec_enforced(kvec: np.ndarray, eng: EngineState, m_t: int) -> np.ndarray:
 class SimCase:
     """One (trace, CI, cluster, policy) configuration of a sweep.
     ``device`` is where the scan engine runs its slot loop; the host
-    engines ignore it."""
+    engines ignore it.  A ``GeoCluster`` + ``MultiRegionCarbonService``
+    pair makes the case geo-distributed (multi-region engine, geo
+    policy)."""
 
     jobs: list[Job]
-    ci: CarbonService
-    cluster: ClusterConfig
+    ci: CarbonService | MultiRegionCarbonService
+    cluster: ClusterConfig | GeoCluster
     policy: Policy
     t0: int = 0
     horizon: int | None = None
@@ -453,9 +470,10 @@ def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResul
     Each distinct ``jobs`` list is packed into its struct-of-arrays form
     exactly once (sorting, throughput/marginal tables, scheduling entry
     blocks), so per-configuration cost is the slot loop itself rather
-    than per-configuration re-setup.  Cases with ``engine="scan"`` go
-    through ``scan_engine.simulate_many_scan``, which runs structurally
-    identical cases as one batched device program."""
+    than per-configuration re-setup.  Cases whose ``cluster`` is a
+    :class:`GeoCluster` run the multi-region engines.  Cases with
+    ``engine="scan"`` go through ``scan_engine.simulate_many_scan``, which
+    runs structurally identical cases as one batched device program."""
     cases = list(cases)
     for case in cases:
         if case.engine not in ("vector", "scalar", "scan"):
@@ -469,15 +487,18 @@ def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResul
                 [cases[i] for i in scan_idx], packs)):
             out[i] = res
     for i, case in enumerate(cases):
+        if case.engine == "scan":
+            continue
+        geo = isinstance(case.cluster, GeoCluster)
         if case.engine == "scalar":
-            out[i] = _simulate_scalar(
-                case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                case.horizon, case.max_overrun)
-        elif case.engine == "vector":
-            out[i] = _simulate_vector(
-                case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                case.horizon, case.max_overrun,
-                packed=packed_for(case.jobs, packs))
+            fn = _simulate_geo_scalar if geo else _simulate_scalar
+            out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                        case.horizon, case.max_overrun)
+        else:
+            fn = _simulate_geo_vector if geo else _simulate_vector
+            out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
+                        case.horizon, case.max_overrun,
+                        packed=packed_for(case.jobs, packs))
     return out
 
 
@@ -665,3 +686,414 @@ def _enforce_capacity(alloc: dict[int, int], active: list[ActiveJob], m_t: int) 
             total -= alloc[jid]
             del alloc[jid]
     return alloc
+
+
+# --- geo-distributed engines ------------------------------------------------
+#
+# The multi-region path generalises the slot loop in *space*: per-job state
+# gains a region axis (current region, migration countdown), provisioning
+# and capacity enforcement run per region, and energy turns into a
+# per-region vector multiplied by the aligned CI vector.  Semantics:
+#
+# - every job arrives in its home region (``GeoCluster.home_region`` over
+#   the (arrival, job_id)-sorted row index);
+# - a policy returning a different region for a job that has NOT started is
+#   a free *placement* (queued work has no state to move);
+# - for a started job it is a *migration*: the job suspends for
+#   ``MigrationModel.slots(job)`` slots (burning waiting budget like any
+#   pause), and the checkpoint-transfer energy is charged once, billed at
+#   the destination region's CI on the initiation slot;
+# - per-slot carbon is sum_r energy_r * CI_r(t); migration energy counts
+#   into the destination region's total.
+#
+# Both engines (vector = region-axis state arrays + vectorised accounting,
+# scalar = the readable per-GeoActiveJob reference) share the placement/
+# migration resolution and the per-region accumulation helpers, and are
+# bit-for-bit identical (tests/test_torch_geo.py).
+
+
+@dataclasses.dataclass
+class GeoActiveJob(ActiveJob):
+    """ActiveJob + the region axis (scalar geo reference engine)."""
+
+    region: int = 0
+    mig_left: int = 0               # remaining suspended migration slots
+
+    @property
+    def migrating(self) -> bool:
+        return self.mig_left > 0
+
+
+class _GeoPackedActiveJob(_PackedActiveJob):
+    """Packed view + the region axis (vector geo engine)."""
+
+    __slots__ = ()
+
+    @property
+    def region(self) -> int:
+        return int(self._eng.region[self.row])
+
+    @region.setter
+    def region(self, value: int) -> None:
+        self._eng.region[self.row] = value
+
+    @property
+    def mig_left(self) -> int:
+        return int(self._eng.mig_left[self.row])
+
+    @mig_left.setter
+    def mig_left(self, value: int) -> None:
+        self._eng.mig_left[self.row] = value
+
+    @property
+    def migrating(self) -> bool:
+        return self._eng.mig_left[self.row] > 0
+
+
+class GeoEngineState(EngineState):
+    """EngineState + per-job region / migration-countdown vectors."""
+
+    __slots__ = ("region", "mig_left")
+
+    def __init__(self, packed: PackedJobs, geo: GeoCluster) -> None:
+        super().__init__(packed)
+        self.region = np.array([geo.home_region(i) for i in range(packed.n)],
+                               dtype=np.int64)
+        self.mig_left = np.zeros(packed.n, dtype=np.int64)
+
+    def view(self, row: int) -> _GeoPackedActiveJob:
+        v = self._views.get(row)
+        if v is None:
+            v = self._views[row] = _GeoPackedActiveJob(self, row)
+        return v
+
+
+def _resolve_geo(active, alloc: dict[int, tuple[int, int]], geo: GeoCluster):
+    """Apply placement/migration semantics to a policy's raw decision.
+
+    Walks the active set in engine order, mutating each view's
+    ``region``/``mig_left`` (free placement for never-started jobs,
+    migration initiation for started ones) and splitting the surviving
+    allocations per region.  Returns ``(per_region_alloc, migrations)``
+    where ``migrations`` lists ``(view, dest_region)`` in decision order.
+    Shared verbatim by both geo engines so their state transitions are
+    identical."""
+    per_r: list[dict[int, int]] = [dict() for _ in range(geo.n_regions)]
+    migs = []
+    for a in active:
+        if a.done or a.migrating:
+            continue
+        entry = alloc.get(a.job.job_id)
+        if entry is None:
+            continue
+        r, k = int(entry[0]), int(entry[1])
+        if not 0 <= r < geo.n_regions:
+            raise ValueError(f"policy placed job {a.job.job_id} in region "
+                             f"{r}; cluster has {geo.n_regions} regions")
+        if r != a.region:
+            if a.started:
+                a.region = r
+                a.mig_left = geo.migration.slots(a.job)
+                migs.append((a, r))
+                continue               # suspended while state moves
+            a.region = r               # free placement before first start
+        if k > 0:
+            per_r[r][a.job.job_id] = k
+    return per_r, migs
+
+
+def _charge_migrations(migs, geo: GeoCluster, ci_vec: np.ndarray,
+                       energy_r: np.ndarray) -> float:
+    """Add each initiated migration's transfer energy to its destination
+    region (event order) and return the migration carbon charged."""
+    mig_carbon = 0.0
+    for a, dest in migs:
+        e = geo.migration.energy_kwh(a.job)
+        energy_r[dest] += e
+        mig_carbon += e * ci_vec[dest]
+    return mig_carbon
+
+
+def _accumulate_regions(energy_r: np.ndarray, ci_vec: np.ndarray,
+                        region_energy: np.ndarray,
+                        region_carbon: np.ndarray) -> tuple[float, float]:
+    """Fold one slot's per-region energy into the run totals; returns the
+    slot's (energy, carbon) scalars.  Sequential region order keeps the
+    float stream identical across engines."""
+    energy = 0.0
+    carbon = 0.0
+    for r in range(len(energy_r)):
+        c = energy_r[r] * ci_vec[r]
+        energy += energy_r[r]
+        carbon += c
+        region_energy[r] += energy_r[r]
+        region_carbon[r] += c
+    return energy, carbon
+
+
+def _simulate_geo_vector(
+    jobs: list[Job],
+    mci: MultiRegionCarbonService,
+    geo: GeoCluster,
+    policy,
+    t0: int = 0,
+    horizon: int | None = None,
+    max_overrun: int = 24 * 21,
+    packed: PackedJobs | None = None,
+) -> SimResult:
+    horizon = int(horizon if horizon is not None else len(mci) - t0)
+    if packed is None:
+        packed = pack(jobs)
+    if packed.has_deps:
+        raise ValueError("the geo engines do not support DAG jobs yet; "
+                         "run precedence-gated workloads single-region")
+    ci_pol = mci.degraded()             # the view policies read
+    policy.on_window_start(ci_pol, t0, horizon, packed.jobs, geo)
+
+    eng = GeoEngineState(packed, geo)
+    n = packed.n
+    n_regions = geo.n_regions
+    caps = geo.capacity_vec()
+    id2row = packed.id2row
+    power = np.where(packed.power > 0, packed.power, geo.power_per_server)
+    thr_tab = packed.thr_tab
+    slot_h = geo.slot_hours
+    eta = geo.eta_net
+
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    final_region = np.full(n, -1, dtype=np.int64)
+    region_energy = np.zeros(n_regions)
+    region_carbon = np.zeros(n_regions)
+    migrations = 0
+    mig_carbon_total = 0.0
+    arrival = packed.arrival
+
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    t = t0
+    t_end = t0 + horizon
+    rows_dirty = True
+    while t < t_end + max_overrun:
+        while eng.admitted < n and arrival[eng.admitted] <= t:
+            eng.in_system[eng.admitted] = True
+            eng.admitted += 1
+            rows_dirty = True
+        if rows_dirty:
+            eng.rows = np.flatnonzero(eng.in_system)
+            rows_dirty = False
+        rows = eng.rows
+        if not len(rows) and eng.admitted == n and t >= t_end:
+            break
+
+        active_views = eng.active_views()
+        m_vec, alloc = policy.decide_geo(t, active_views, ci_pol, geo)
+        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps)
+        per_r, migs = _resolve_geo(active_views, alloc, geo)
+        kvec = np.zeros(n, dtype=np.int64)
+        for r in range(n_regions):
+            for jid, k in _enforce_capacity(per_r[r], active_views,
+                                            int(m_vec[r])).items():
+                kvec[id2row[jid]] = k
+
+        ci_vec = mci.ci_vec(t)
+        k_rows = kvec[rows]
+        live = eng.remaining[rows] > _EPS
+        arows = rows[k_rows > 0]
+        k_a = kvec[arows]
+        thr_a = thr_tab[arows, k_a]
+        # Elementwise ops mirror the scalar ``emissions.slot_energy_kwh``
+        # expression order (see the single-region vector engine).
+        frac = np.minimum(1.0, eng.remaining[arows] / np.maximum(thr_a, 1e-9))
+        e_comp = k_a * power[arows] * slot_h * frac
+        ring = np.where(k_a <= 1, 0.0, 2.0 * (k_a - 1) / k_a)
+        gbits = packed.comm[arows] * 8.0 * ring * k_a * frac
+        e_vec = e_comp + eta * gbits / 3600.0 / 1000.0 * slot_h
+        a_regions = eng.region[arows]
+        energy_r = np.zeros(n_regions)
+        for r in range(n_regions):
+            for v in e_vec[a_regions == r].tolist():   # sequential, row order
+                energy_r[r] += v
+
+        prows = rows[(k_rows > 0) & live]
+        thr_p = thr_tab[prows, kvec[prows]]
+
+        mc = _charge_migrations(migs, geo, ci_vec, energy_r)
+        mig_carbon_total += mc
+        migrations += len(migs)
+        energy, carbon = _accumulate_regions(energy_r, ci_vec,
+                                             region_energy, region_carbon)
+        total_energy += energy
+        total_carbon += carbon
+
+        eng.remaining[prows] -= thr_p
+        eng.started[prows] = True
+        wrows = rows[(k_rows == 0) & live]
+        eng.slack_left[wrows] -= 1
+        eng.waited[wrows] += 1
+        mrows = wrows[eng.mig_left[wrows] > 0]
+        eng.mig_left[mrows] -= 1
+
+        fin = rows[eng.remaining[rows] <= _EPS]
+        if len(fin):
+            completion[fin] = t
+            wait[fin] = eng.waited[fin]
+            violations[fin] = t > packed.deadline[fin]
+            final_region[fin] = eng.region[fin]
+            for r in fin.tolist():
+                policy.on_completion(t, eng.view(r), bool(violations[r]))
+            eng.in_system[fin] = False
+            rows_dirty = True
+
+        used = int(k_a.sum())
+        running = len(arows)
+        logs.append(SlotLog(slot=t, ci=float(np.mean(ci_vec)),
+                            provisioned=int(m_vec.sum()), used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=running,
+                            queued=len(rows) - len(fin) - running))
+        t += 1
+
+    return SimResult(
+        policy=policy.name,
+        carbon_g=total_carbon,
+        energy_kwh=total_energy,
+        slots=logs,
+        wait_slots=wait,
+        violations=violations,
+        completion=completion,
+        num_jobs=n,
+        regions=geo.regions,
+        region_carbon_g=region_carbon,
+        region_energy_kwh=region_energy,
+        final_region=final_region,
+        migrations=migrations,
+        migration_carbon_g=mig_carbon_total,
+    )
+
+
+def _simulate_geo_scalar(
+    jobs: list[Job],
+    mci: MultiRegionCarbonService,
+    geo: GeoCluster,
+    policy,
+    t0: int = 0,
+    horizon: int | None = None,
+    max_overrun: int = 24 * 21,
+) -> SimResult:
+    horizon = int(horizon if horizon is not None else len(mci) - t0)
+    if any(j.deps for j in jobs):
+        raise ValueError("the geo engines do not support DAG jobs yet; "
+                         "run precedence-gated workloads single-region")
+    jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
+    ci_pol = mci.degraded()
+    policy.on_window_start(ci_pol, t0, horizon, jobs, geo)
+
+    n_regions = geo.n_regions
+    caps = geo.capacity_vec()
+    active: list[GeoActiveJob] = []
+    n = len(jobs)
+    next_arrival = 0
+    wait = np.zeros(n)
+    violations = np.zeros(n, dtype=bool)
+    completion = np.full(n, -1, dtype=np.int64)
+    final_region = np.full(n, -1, dtype=np.int64)
+    region_energy = np.zeros(n_regions)
+    region_carbon = np.zeros(n_regions)
+    migrations = 0
+    mig_carbon_total = 0.0
+    id2row = {j.job_id: i for i, j in enumerate(jobs)}
+
+    logs: list[SlotLog] = []
+    total_energy = 0.0
+    total_carbon = 0.0
+    t = t0
+    t_end = t0 + horizon
+    while t < t_end + max_overrun:
+        while next_arrival < n and jobs[next_arrival].arrival <= t:
+            j = jobs[next_arrival]
+            active.append(GeoActiveJob(
+                job=j, remaining=j.length, slack_left=j.delay,
+                region=geo.home_region(next_arrival)))
+            next_arrival += 1
+        if not active and next_arrival == n and t >= t_end:
+            break
+
+        m_vec, alloc = policy.decide_geo(t, active, ci_pol, geo)
+        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps)
+        per_r, migs = _resolve_geo(active, alloc, geo)
+        final: dict[int, tuple[int, int]] = {}
+        for r in range(n_regions):
+            for jid, k in _enforce_capacity(per_r[r], active,
+                                            int(m_vec[r])).items():
+                final[jid] = (r, k)
+
+        ci_vec = mci.ci_vec(t)
+        energy_r = np.zeros(n_regions)
+        for a in active:
+            entry = final.get(a.job.job_id)
+            if entry is None:
+                continue
+            r, k = entry
+            frac = min(1.0, a.remaining / max(a.job.throughput(k), 1e-9))
+            energy_r[r] += emissions.slot_energy_kwh(a.job, k, geo, frac)
+
+        mc = _charge_migrations(migs, geo, ci_vec, energy_r)
+        mig_carbon_total += mc
+        migrations += len(migs)
+        energy, carbon = _accumulate_regions(energy_r, ci_vec,
+                                             region_energy, region_carbon)
+        total_energy += energy
+        total_carbon += carbon
+
+        for a in active:
+            if a.done:
+                continue
+            entry = final.get(a.job.job_id)
+            if entry is not None:
+                r, k = entry
+                a.remaining -= a.job.throughput(k)
+                a.started = True
+            else:
+                a.slack_left -= 1
+                a.waited += 1
+                if a.mig_left > 0:
+                    a.mig_left -= 1
+
+        finished = [a for a in active if a.done]
+        for a in finished:
+            row = id2row[a.job.job_id]
+            completion[row] = t
+            wait[row] = a.waited
+            violations[row] = t > a.job.deadline
+            final_region[row] = a.region
+            policy.on_completion(t, a, bool(violations[row]))
+        active = [a for a in active if not a.done]
+
+        used = sum(k for _, k in final.values())
+        running = len(final)
+        logs.append(SlotLog(slot=t, ci=float(np.mean(ci_vec)),
+                            provisioned=int(m_vec.sum()), used=used,
+                            energy_kwh=energy, carbon_g=carbon,
+                            running=running,
+                            queued=len(active) - running))
+        t += 1
+
+    return SimResult(
+        policy=policy.name,
+        carbon_g=total_carbon,
+        energy_kwh=total_energy,
+        slots=logs,
+        wait_slots=wait,
+        violations=violations,
+        completion=completion,
+        num_jobs=n,
+        regions=geo.regions,
+        region_carbon_g=region_carbon,
+        region_energy_kwh=region_energy,
+        final_region=final_region,
+        migrations=migrations,
+        migration_carbon_g=mig_carbon_total,
+    )

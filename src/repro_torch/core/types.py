@@ -11,12 +11,14 @@ The unit model follows Section 3 of the paper:
   decreasing) marginal-throughput profile with ``p_j(k_min) = 1``.
 
 A job may be one task of a DAG: ``Job.deps`` names its predecessors (see
-``core/dag.py``).  Single-region only: no geo cluster and no migration
-model.
+``core/dag.py``).  A ``GeoCluster`` spreads the capacity over regions with
+aligned CI traces, and a ``MigrationModel`` prices moving a running job
+between them (``core/geo.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -108,6 +110,109 @@ class ClusterConfig:
         return ClusterConfig(capacity=capacity, queues=tuple(default_queues()))
 
 
+@dataclasses.dataclass(frozen=True)
+class MigrationModel:
+    """Cost of moving a running job between regions (checkpoint + WAN
+    transfer + restore).
+
+    A migration suspends the job for ``slots(job)`` slots — a fixed
+    checkpoint/restore overhead plus a term scaling with the job's size
+    (bigger jobs have more state to serialise) — during which the job
+    burns waiting budget like any paused job.  It also charges a one-off
+    transfer energy proportional to the job's state size (``comm_size``
+    stands in for the checkpoint payload, floored at ``min_gb``), billed
+    at the *destination* region's CI on the initiation slot (restore-side
+    accounting)."""
+
+    base_slots: int = 1                # fixed checkpoint+restore slots
+    slots_per_length: float = 0.02     # extra suspended slots per slot of work
+    energy_kwh_per_gb: float = 0.05    # WAN transfer + restore energy
+    min_gb: float = 1.0                # checkpoint payload floor
+
+    def slots(self, job: "Job") -> int:
+        return int(self.base_slots + np.ceil(self.slots_per_length * job.length))
+
+    def data_gb(self, job: "Job") -> float:
+        return float(max(self.min_gb, job.comm_size))
+
+    def energy_kwh(self, job: "Job") -> float:
+        return self.energy_kwh_per_gb * self.data_gb(job)
+
+    def carbon_g(self, job: "Job", ci_dest: float) -> float:
+        """Estimated migration carbon when the destination runs at
+        ``ci_dest`` (the break-even input of the geo-flex trigger)."""
+        return self.energy_kwh(job) * ci_dest
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoCluster:
+    """A geo-distributed cluster: per-region capacities over aligned CI
+    traces, with a migration cost model (Section 3 generalised in space).
+
+    The scalar knobs (``slot_hours``, ``power_per_server``, ``eta_net``)
+    are shared across regions — regions differ in carbon intensity and
+    capacity, not hardware — so the energy model (Eq. 2-3) applies
+    unchanged per region."""
+
+    regions: tuple[str, ...]
+    capacities: tuple[int, ...]
+    queues: tuple[QueueConfig, ...]
+    migration: MigrationModel = MigrationModel()
+    slot_hours: float = 1.0
+    power_per_server: float = 1.0
+    eta_net: float = 0.1
+
+    def __post_init__(self) -> None:
+        if len(self.regions) != len(self.capacities):
+            raise ValueError("regions and capacities must align")
+        if not self.regions:
+            raise ValueError("GeoCluster needs >= 1 region")
+        if any(c <= 0 for c in self.capacities):
+            raise ValueError(f"capacities must be positive: {self.capacities}")
+
+    @property
+    def n_regions(self) -> int:
+        return len(self.regions)
+
+    @property
+    def capacity(self) -> int:
+        """Total capacity across regions (M of the aggregate cluster)."""
+        return int(sum(self.capacities))
+
+    def capacity_vec(self) -> np.ndarray:
+        return np.array(self.capacities, dtype=np.int64)
+
+    def home_region(self, row: int) -> int:
+        """Arrival region of the job at (arrival, job_id)-sorted row
+        ``row``: deterministic round-robin, so every region sees a
+        balanced submission stream."""
+        return row % self.n_regions
+
+    def region_cluster(self, r: int) -> ClusterConfig:
+        """Single-region view (capacity of region ``r``, shared queues)."""
+        return ClusterConfig(capacity=self.capacities[r], queues=self.queues,
+                             slot_hours=self.slot_hours,
+                             power_per_server=self.power_per_server,
+                             eta_net=self.eta_net)
+
+    @staticmethod
+    def split(capacity: int, regions: Sequence[str],
+              queues: tuple[QueueConfig, ...] | None = None,
+              migration: MigrationModel | None = None,
+              **kw) -> "GeoCluster":
+        """Split a total capacity evenly across ``regions`` (remainder to
+        the first regions), the Scenario default."""
+        n = len(regions)
+        if n == 0:
+            raise ValueError("GeoCluster.split needs >= 1 region")
+        base, rem = divmod(int(capacity), n)
+        caps = tuple(base + (1 if i < rem else 0) for i in range(n))
+        return GeoCluster(regions=tuple(regions), capacities=caps,
+                          queues=queues if queues is not None
+                          else tuple(default_queues()),
+                          migration=migration or MigrationModel(), **kw)
+
+
 @dataclasses.dataclass
 class Schedule:
     """A full allocation matrix produced by the oracle: alloc[j, t] servers."""
@@ -144,6 +249,15 @@ class SimResult:
     violations: np.ndarray          # per-job bool: finished after deadline
     completion: np.ndarray          # per-job completion slot (-1 = unfinished)
     num_jobs: int
+    # Geo-engine extras (None/zero for single-region runs).  Migration
+    # carbon is included in carbon_g and attributed to the destination
+    # region in region_carbon_g; migration_carbon_g breaks it out.
+    regions: tuple[str, ...] | None = None
+    region_carbon_g: np.ndarray | None = None
+    region_energy_kwh: np.ndarray | None = None
+    final_region: np.ndarray | None = None   # per-job region at completion
+    migrations: int = 0
+    migration_carbon_g: float = 0.0
 
     @property
     def mean_wait(self) -> float:
@@ -162,7 +276,7 @@ class SimResult:
     def to_dict(self, include_per_job: bool = False,
                 include_slots: bool = False) -> dict:
         """JSON-serialisable summary (sweep rows), the JAX package's keys in
-        its order for a single-region batch run.
+        its order for a single-region or geo batch run.
 
         Aggregates only by default; ``include_per_job`` adds the per-job
         wait/violation/completion arrays, ``include_slots`` the full
@@ -175,10 +289,21 @@ class SimResult:
             "mean_wait": self.mean_wait,
             "violation_rate": self.violation_rate,
         }
+        if self.regions is not None:
+            d["regions"] = list(self.regions)
+            d["region_carbon_g"] = np.asarray(
+                self.region_carbon_g, dtype=float).tolist()
+            d["region_energy_kwh"] = np.asarray(
+                self.region_energy_kwh, dtype=float).tolist()
+            d["migrations"] = int(self.migrations)
+            d["migration_carbon_g"] = float(self.migration_carbon_g)
         if include_per_job:
             d["wait_slots"] = np.asarray(self.wait_slots, dtype=float).tolist()
             d["violations"] = np.asarray(self.violations, dtype=bool).tolist()
             d["completion"] = np.asarray(self.completion, dtype=np.int64).tolist()
+            if self.regions is not None:
+                d["final_region"] = np.asarray(self.final_region,
+                                               dtype=np.int64).tolist()
         if include_slots:
             d["slots"] = [dataclasses.asdict(s) for s in self.slots]
         return d

@@ -1,12 +1,12 @@
 """repro_torch.experiment — the declarative experiment API.
 
 - ``registry``   — ``register_policy`` / ``PolicySpec`` / ``make_policy``:
-                   the single-region, MPC and DAG policies behind deferred
+                   the single-region, MPC, geo and DAG policies behind deferred
                    constructors that receive runtime context (knowledge
                    base, job history, mean length, oracle backend) from the
                    driver;
-- ``Scenario``   — a declarative experiment point (region, trace family,
-                   capacity, seed, weeks, queue scaling) with
+- ``Scenario``   — a declarative experiment point (region or regions,
+                   trace family, capacity, seed, weeks, queue scaling) with
                    ``materialize()`` resolving to (cluster, ci, jobs,
                    hist/eval splits);
 - ``run``        — the continuous-learning driver (§4.2): weekly oracle
@@ -31,8 +31,8 @@ Quickstart::
     print(sweep.run().table())
 """
 from . import registry  # noqa: F401
-from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_POLICIES,  # noqa: F401
-                     ExperimentResult, prepare_context, run)
+from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES,  # noqa: F401
+                     DEFAULT_POLICIES, ExperimentResult, prepare_context, run)
 from .registry import (PolicyContext, PolicySpec, available_policies,  # noqa: F401
                        check_scenario_policies, make_policy, register_policy)
 from .scenario import WEEK, MaterializedScenario, Scenario  # noqa: F401

@@ -39,6 +39,11 @@ DEFAULT_POLICIES: tuple[str, ...] = (
     "carbonflex", "carbonflex-mpc", "oracle",
 )
 
+#: The geo-distributed comparison set (scenarios with a ``regions`` axis).
+DEFAULT_GEO_POLICIES: tuple[str, ...] = (
+    "geo-static", "geo-greedy", "geo-flex",
+)
+
 #: The precedence-aware comparison set (scenarios with a DAG workload).
 DEFAULT_DAG_POLICIES: tuple[str, ...] = (
     "dag-fcfs", "dag-carbon", "dag-cap",
@@ -66,7 +71,7 @@ def prepare_context(
     return PolicyContext(
         cluster=mat.cluster, ci=mat.ci, history=list(mat.hist),
         mean_length=mat.mean_length, utilization=mat.scenario.utilization,
-        kb=kb, backend=backend, device=device,
+        kb=kb, backend=backend, device=device, mci=mat.mci, geo=mat.geo,
         forecast_quantile=forecast_quantile, mpc=mat.scenario.mpc)
 
 
@@ -129,7 +134,7 @@ class ExperimentResult:
 
     def savings(self, policy: str, baseline: str | None = None) -> float:
         """Carbon savings (%) of ``policy`` vs ``baseline`` in this run
-        (default: carbon-agnostic)."""
+        (default: carbon-agnostic, or geo-static on geo runs)."""
         baseline = self._baseline(baseline)
         if baseline is None:
             return 0.0
@@ -142,15 +147,16 @@ class ExperimentResult:
 
     def _baseline(self, baseline: str | None) -> str | None:
         """Resolve the comparison baseline: an explicit name must be part
-        of the run (typos raise); the default is carbon-agnostic, or None
-        when it did not run (dag-fcfs on DAG runs)."""
+        of the run (typos raise); the default is the status-quo policy of
+        the run's kind (carbon-agnostic, geo-static, dag-fcfs), or None
+        when none of them ran."""
         if baseline is not None:
             if baseline not in self.weekly:
                 raise KeyError(
                     f"baseline {baseline!r} was not part of this run; "
                     f"policies: {', '.join(self.weekly)}")
             return baseline
-        for cand in ("carbon-agnostic", "dag-fcfs"):
+        for cand in ("carbon-agnostic", "geo-static", "dag-fcfs"):
             if cand in self.weekly:
                 return cand
         return None
@@ -206,16 +212,19 @@ def run(
     learning phase, the weekly re-learning and the oracle policy
     (``oracle.BACKENDS``; ``"device"`` runs it on ``device``, the port's
     name for the JAX package's ``backend="jax"``).  ``policies`` defaults
-    to the DAG family on DAG scenarios.
+    to the geo family on geo scenarios and the DAG family on DAG scenarios.
     """
     device = resolve_device(device)
     if backend not in oracle.BACKENDS:
         raise ValueError(f"unknown oracle backend {backend!r}; use one of "
                          f"{', '.join(oracle.BACKENDS)}")
     if policies is None:
-        policies = DEFAULT_DAG_POLICIES if scenario.is_dag else DEFAULT_POLICIES
+        policies = (DEFAULT_GEO_POLICIES if scenario.is_geo
+                    else DEFAULT_DAG_POLICIES if scenario.is_dag
+                    else DEFAULT_POLICIES)
     names = tuple(policies)
-    check_scenario_policies(names, scenario.is_dag)   # unknown names raise too
+    # unknown names raise too
+    check_scenario_policies(names, scenario.is_geo, scenario.is_dag)
     t_start = time.perf_counter()
     mat = scenario.materialize()
     t_learn = time.perf_counter()
@@ -243,7 +252,9 @@ def run(
         ev = mat.eval_week(w)
         if not ev:
             continue
-        cases = [SimCase(jobs=ev, ci=mat.ci, cluster=mat.cluster,
+        ci_w = mat.mci if mat.is_geo else mat.ci
+        cluster_w = mat.geo if mat.is_geo else mat.cluster
+        cases = [SimCase(jobs=ev, ci=ci_w, cluster=cluster_w,
                          policy=instances[n], t0=t0, horizon=WEEK,
                          engine=scenario.engine, device=device)
                  for n in names]

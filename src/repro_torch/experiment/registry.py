@@ -1,8 +1,8 @@
 """Policy registry: names -> deferred policy constructors.
 
 The single-region policies of the paper's evaluation (§6.1, §6.7), the
-receding-horizon MPC variants and the precedence-aware DAG family register
-here.  Construction is *deferred*: a builder receives a
+receding-horizon MPC variants, the geo-distributed family and the
+precedence-aware DAG family register here.  Construction is *deferred*: a builder receives a
 :class:`PolicyContext` carrying the runtime objects policies need — the
 learned :class:`KnowledgeBase` for CarbonFlex, the completed-job history
 for the MPC warm start, the mean historical length the paper grants every
@@ -23,15 +23,16 @@ from typing import Callable
 import torch
 
 from repro_torch.core import baselines
-from repro_torch.core.carbon import CarbonService
+from repro_torch.core.carbon import CarbonService, MultiRegionCarbonService
 from repro_torch.core.dag import DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy
+from repro_torch.core.geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.mpc import MPCConfig
 from repro_torch.core.policy import (CarbonFlexMPCPolicy, CarbonFlexPolicy,
                                      CarbonFlexScalePolicy,
                                      EstimatedOraclePolicy, OraclePolicy,
                                      Policy)
-from repro_torch.core.types import ClusterConfig, Job
+from repro_torch.core.types import ClusterConfig, GeoCluster, Job
 
 
 @dataclasses.dataclass
@@ -49,6 +50,9 @@ class PolicyContext:
     # quantile the `*-robust` policy variants threshold on (configurable
     # per experiment; 0.7 = mildly conservative upper band)
     forecast_quantile: float = 0.7
+    # Geo-scenario context (None for single-region scenarios).
+    mci: MultiRegionCarbonService | None = None
+    geo: GeoCluster | None = None
     # MPC execution-phase knobs (Scenario.mpc); None = tuned defaults.
     mpc: MPCConfig | None = None
 
@@ -68,6 +72,7 @@ class PolicySpec:
     builder: Callable[[PolicyContext], Policy]
     needs_kb: bool = False
     needs_history: bool = False
+    geo: bool = False                # runs on GeoCluster scenarios only
     dag: bool = False                # runs on Scenario(dag=...) only
     description: str = ""
 
@@ -76,20 +81,23 @@ REGISTRY: dict[str, PolicySpec] = {}
 
 
 def register_policy(name: str, *, needs_kb: bool = False,
-                    needs_history: bool = False, dag: bool = False,
-                    description: str = ""):
+                    needs_history: bool = False, geo: bool = False,
+                    dag: bool = False, description: str = ""):
     """Decorator registering a ``PolicyContext -> Policy`` builder.
 
-    ``dag=True`` marks a precedence-aware policy: it runs only on
-    ``Scenario(dag=...)`` workloads.  The driver rejects mixing scenario
-    kinds and policy families (:func:`check_scenario_policies`)."""
+    ``geo=True`` marks a policy implementing the ``GeoPolicy`` protocol:
+    it runs only on scenarios with a ``regions`` axis.  ``dag=True`` marks
+    a precedence-aware policy: it runs only on ``Scenario(dag=...)``
+    workloads.  ``run()`` and the sweep reject mixing scenario kinds and
+    policy families (:func:`check_scenario_policies`)."""
 
     def deco(builder: Callable[[PolicyContext], Policy]):
         if name in REGISTRY:
             raise ValueError(f"policy {name!r} is already registered")
         REGISTRY[name] = PolicySpec(name=name, builder=builder,
                                     needs_kb=needs_kb,
-                                    needs_history=needs_history, dag=dag,
+                                    needs_history=needs_history,
+                                    geo=geo, dag=dag,
                                     description=description)
         return builder
 
@@ -118,11 +126,22 @@ def needs_kb(names) -> bool:
     return any(get_spec(n).needs_kb for n in names)
 
 
-def check_scenario_policies(names, is_dag: bool = False) -> None:
+def check_scenario_policies(names, is_geo: bool = False,
+                            is_dag: bool = False) -> None:
     """Reject policies whose family does not match the scenario kind
-    (independent-job batch / DAG are mutually exclusive workload axes)."""
+    (single-region batch / geo / DAG are mutually exclusive workload
+    axes)."""
     for n in names:
         spec = get_spec(n)
+        if spec.geo and not is_geo:
+            raise ValueError(
+                f"policy {n!r} is geo-distributed; give the Scenario a "
+                f"regions axis (e.g. regions=('california', 'ontario'))")
+        if not spec.geo and is_geo:
+            raise ValueError(
+                f"policy {n!r} is single-region; a geo scenario runs geo "
+                f"policies (e.g. geo-static/geo-greedy/geo-flex) — drop "
+                f"Scenario.regions for single-region studies")
         if spec.dag and not is_dag:
             raise ValueError(
                 f"policy {n!r} is precedence-aware; give the Scenario a "
@@ -240,6 +259,31 @@ def _oracle_estimated(ctx: PolicyContext) -> Policy:
     if ctx.history:
         pol.warm_start(ctx.history)
     return pol
+
+
+# --- geo-distributed policies ------------------------------------------------
+
+
+@register_policy("geo-static", geo=True,
+                 description="jobs pinned to their arrival region, FCFS "
+                             "(the spatial status quo)")
+def _geo_static(ctx: PolicyContext) -> Policy:
+    return GeoStaticPolicy()
+
+
+@register_policy("geo-greedy", geo=True,
+                 description="admit each job to the currently cleanest "
+                             "region with free capacity; sticky placement")
+def _geo_greedy(ctx: PolicyContext) -> Policy:
+    return GeoGreedyPolicy()
+
+
+@register_policy("geo-flex", geo=True,
+                 description="per-region CI-rank suspend/resume + "
+                             "suspend-migrate-resume when the forecast gap "
+                             "beats the migration carbon cost")
+def _geo_flex(ctx: PolicyContext) -> Policy:
+    return GeoFlexPolicy()
 
 
 # --- precedence-aware DAG policies -------------------------------------------

@@ -13,8 +13,9 @@ savings against a named baseline policy, per-policy summaries with
 cross-(region, seed) dispersion, and a JSON round-trip (``to_json`` /
 ``from_json``) whose bytes equal the JAX package's for the same grid.
 
+A geo base scenario (``regions``) makes the whole grid geo-distributed.
 Axes the port has no layer for raise ``NotImplementedError``: a fault
-process (the fault axis takes only ``None``, labelled ``"none"``), a geo or
+process (the fault axis takes only ``None``, labelled ``"none"``), a
 serving base scenario, and telemetry.
 """
 from __future__ import annotations
@@ -62,6 +63,13 @@ class Sweep:
     scan engine's slot loop and ``backend="device"``'s pass (``"cuda"`` by
     default; without a card it raises, so host callers pass ``"cpu"``).
 
+    Geo sweeps: when the base scenario carries a ``regions`` tuple the
+    whole grid is geo-distributed — the sweep's own single-region
+    ``regions`` axis must stay empty (vary geo worlds via ``seeds`` or
+    several sweeps), the policies must be geo policies, and the default
+    baseline becomes ``geo-static``.  Row metadata joins the region tuple
+    as ``"a+b"``.
+
     A sweep evaluates each scenario as a *single* window of ``eval_weeks``
     weeks against the initially learned knowledge base — the weekly §4.2
     re-learning loop is the driver's job (``run()``).
@@ -85,7 +93,7 @@ class Sweep:
     device: str | torch.device = "cuda"
 
     def __post_init__(self) -> None:
-        # (a geo or serving base raises where the Scenario is built)
+        # (a serving base raises where the Scenario is built)
         if self.telemetry is not None:
             raise NotImplementedError("telemetry is not ported yet")
 
@@ -104,17 +112,27 @@ class Sweep:
         return self.forecasts is not None or self.base.forecast is not None
 
     def effective_baseline(self) -> str:
-        """dag-fcfs, the status quo of DAG grids, replaces the
-        single-region default there."""
+        """The status-quo policy of the grid's kind replaces the
+        single-region default on geo / DAG grids."""
+        if self.base.is_geo and self.baseline == "carbon-agnostic":
+            return "geo-static"
         if self.base.is_dag and self.baseline == "carbon-agnostic":
             return "dag-fcfs"
         return self.baseline
 
     def scenarios(self) -> list[Scenario]:
         seeds = tuple(self.seeds) or (self.base.seed,)
-        regions = tuple(self.regions) or (self.base.region,)
-        bases = [dataclasses.replace(self.base, region=r, seed=s)
-                 for r in regions for s in seeds]
+        if self.base.is_geo:
+            if tuple(self.regions):
+                raise ValueError(
+                    "a geo base scenario fixes the region tuple; sweep the "
+                    "seeds axis (or run one sweep per region tuple) instead "
+                    "of the single-region regions axis")
+            bases = [dataclasses.replace(self.base, seed=s) for s in seeds]
+        else:
+            regions = tuple(self.regions) or (self.base.region,)
+            bases = [dataclasses.replace(self.base, region=r, seed=s)
+                     for r in regions for s in seeds]
         return [dataclasses.replace(b, forecast=f)
                 for b in bases for f in self.forecast_axis()]
 
@@ -123,7 +141,7 @@ class Sweep:
         baseline = self.effective_baseline()
         if baseline not in names:
             names = (baseline,) + names
-        check_scenario_policies(names, self.base.is_dag)
+        check_scenario_policies(names, self.base.is_geo, self.base.is_dag)
         return names
 
     def run(self, progress: Callable[[str], None] | None = None) -> "SweepResult":
@@ -143,24 +161,27 @@ class Sweep:
         meta: list[dict] = []
         for i, sc in enumerate(scenarios):
             mat = sc.materialize()
+            region_label = "+".join(sc.regions) if sc.is_geo else sc.region
             fc_label = axis_labels[i % len(axis_labels)]
             ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
                                   forecast_quantile=self.forecast_quantile,
                                   device=device, backend=self.backend)
             if progress is not None:
-                progress(f"prepared {sc.region}/seed{sc.seed}"
+                progress(f"prepared {region_label}/seed{sc.seed}"
                          + (f"/{fc_label}" if with_forecast else "")
                          + f": {len(mat.eval_jobs)} eval jobs"
                          + (f", kb={len(ctx.kb)}" if ctx.kb is not None else ""))
             horizon = sc.eval_weeks * WEEK
+            ci_c = mat.mci if mat.is_geo else mat.ci
+            cluster_c = mat.geo if mat.is_geo else mat.cluster
             for fm in fault_axis:
                 _fresh_faults(dataclasses.replace(sc, faults=fm))
                 for name in names:
                     cases.append(SimCase(
-                        jobs=mat.eval_jobs, ci=mat.ci, cluster=mat.cluster,
+                        jobs=mat.eval_jobs, ci=ci_c, cluster=cluster_c,
                         policy=make_policy(name, ctx), t0=mat.t0,
                         horizon=horizon, engine=sc.engine, device=device))
-                    row = {"region": sc.region, "seed": sc.seed,
+                    row = {"region": region_label, "seed": sc.seed,
                            "fault": fault_label(fm), "policy": name}
                     if with_forecast:
                         row["forecast"] = fc_label
@@ -240,16 +261,20 @@ class SweepResult:
 
     def to_csv(self) -> str:
         """Per-case rows as CSV text, one column per row key, in first-seen
-        order across rows (rows missing a column leave the cell empty)."""
+        order across rows (rows missing a column leave the cell empty).
+        List values (a geo row's regions and per-region totals) join with
+        ``|`` so the payload stays one value per cell."""
+        flats = [{k: "|".join(str(x) for x in v) if isinstance(v, (list, tuple))
+                  else v for k, v in r.items()} for r in self.rows_]
         cols: dict[str, None] = {}
-        for r in self.rows_:
-            for k in r:
+        for f in flats:
+            for k in f:
                 cols.setdefault(k)
         buf = io.StringIO()
         writer = csv.DictWriter(buf, fieldnames=list(cols),
                                 restval="", lineterminator="\n")
         writer.writeheader()
-        writer.writerows(self.rows_)
+        writer.writerows(flats)
         return buf.getvalue()
 
     @classmethod

@@ -20,7 +20,10 @@ DAG gating: integer counts, equal exactly.  Score matrix: one IEEE
 division per element in both versions, equal exactly.  Oracle greedy pass:
 the same float32 adds in the same order, equal bit for bit.  Capacity fill:
 integer arithmetic, equal exactly; the golden MPC and DAG sweeps on the
-card reproduce their fixture files byte for byte.
+card reproduce their fixture files byte for byte.  Geo walk: every float64
+product and sum of the migration rule is one IEEE operation in the kernel
+and in the plain walk, so the two are equal exactly; a geo-flex week on the
+card's scan engine equals the CPU's vector engine in every compared field.
 """
 import numpy as np
 import pytest
@@ -30,7 +33,7 @@ from repro_torch.core.knowledge import KnowledgeBase
 from repro_torch.core.policy import learn_window
 from repro_torch.experiment import Scenario
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import fill, gating, knn, oracle_greedy, ops, score
+from repro_torch.kernels import fill, gating, geo_walk, knn, oracle_greedy, ops, score
 
 WEEK = 24 * 7
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -1040,3 +1043,139 @@ def test_golden_sweeps_on_the_card(cuda_fill, name, engine):
         else:
             assert fill.launches["capacity_fill"] == stats["fill_steps"] > 0
             assert stats["delegated"] == 2
+
+
+# --- the geo slot loop's placement and capacity walk -------------------------
+
+
+@pytest.fixture
+def cuda_geo():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    geo_walk.build()
+    return torch.device("cuda")
+
+
+def _geo_inputs(seed, kind, b, n, regions, dev, mixed=False, nothing_fits=False,
+                lookahead=24, mig_vals=3):
+    """Random inputs of ``geo_resolve`` on ``dev``: candidates, forced,
+    started, placed and migrating rows, CI values and means with ties."""
+    g = np.random.default_rng(seed)
+    bn = (b, n)
+    kmin = g.choice([1, 2, 4], bn) if mixed else np.ones(bn, dtype=np.int64)
+    if nothing_fits:
+        kmin = np.full(bn, 4)
+    state = dict(
+        remaining=np.where(g.random(bn) < 0.3, g.integers(1, 40, bn).astype(float),
+                           g.uniform(0.01, 40.0, bn)),
+        slack=g.integers(-3, 30, bn), started=g.random(bn) < 0.5,
+        placed=g.random(bn) < 0.4, pol_region=g.integers(0, regions, bn),
+        eng_region=g.integers(0, regions, bn), mig_left=g.integers(0, 2, bn),
+        moves=g.integers(0, 2, bn))
+    consts = dict(kmin=kmin, ec=kmin * g.choice([1.0, 0.3, 2.5], bn),
+                  mig_e=0.05 * np.maximum(1.0, g.uniform(0, 8, bn)),
+                  mig_slots=g.integers(1, 4, bn), mig_idx=g.integers(0, mig_vals, bn),
+                  caps=(np.ones((b, regions), dtype=np.int64) if nothing_fits
+                        else g.integers(1, max(2, n // 4), (b, regions))),
+                  margin_c=np.full(b, 0.75), max_moves=g.integers(1, 3, b))
+    ci = np.round(g.uniform(10, 700, (b, regions)), -1)
+    tables = dict(ci_now=ci, clean_order=np.argsort(ci, axis=1, kind="stable"),
+                  thresh_eps=g.uniform(10, 700, (b, regions)) + 1e-9,
+                  means=np.round(g.uniform(10, 700, (b, regions, lookahead)), -1),
+                  movemeans=g.uniform(10, 700, (b, mig_vals, regions, lookahead)))
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return (t(g.random(bn) < 0.6), t(g.random(bn) < 0.3),
+            {k: t(v) for k, v in state.items()}, {k: t(v) for k, v in consts.items()},
+            {k: t(v) for k, v in tables.items() if k in geo_walk._TABLES[kind]})
+
+
+def _geo_check(kind, args):
+    cpu = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict) else a.cpu()
+           for a in args]
+    want = geo_walk.geo_resolve_plain(kind, *cpu)
+    before = geo_walk.launches["geo_walk"]
+    got = geo_walk.geo_resolve(kind, *args)
+    torch.cuda.synchronize()
+    assert geo_walk.launches["geo_walk"] == before + 1
+    for name, a, w in zip(("take", "placed", "pol_region", "eng_region", "mig_left",
+                           "moves", "mig_now"), got, want):
+        assert a.is_cuda and a.dtype == w.dtype, name
+        assert torch.equal(a.cpu(), w), name
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", geo_walk.KINDS)
+@pytest.mark.parametrize("regions", [2, 3, 10])
+@pytest.mark.parametrize("mixed", [False, True], ids=["uniform-k", "mixed-k"])
+def test_kernel_geo_walk_matches_plain(cuda_geo, kind, regions, mixed):
+    for seed in range(3):
+        want = _geo_check(kind, _geo_inputs(seed, kind, 4, 300, regions, cuda_geo, mixed))
+        assert want[0].any()
+        if kind != "geo-static":
+            assert want[6].any()                # some rows migrate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", geo_walk.KINDS)
+@pytest.mark.parametrize("case", ["nothing fits", "all forced", "one row", "odd width",
+                                  "B=64 n_pad=1792"])
+def test_kernel_geo_walk_edge_cases(cuda_geo, kind, case):
+    b, n, kw = 3, 256, {}
+    if case == "nothing fits":
+        kw["nothing_fits"] = True
+    elif case == "one row":
+        n = 1
+    elif case == "odd width":
+        n = 333
+    elif case == "B=64 n_pad=1792":
+        b, n = 64, 1792
+    args = _geo_inputs(11, kind, b, n, 4, cuda_geo, mixed=True, **kw)
+    if case == "all forced":
+        args[1].fill_(True)
+    want = _geo_check(kind, args)
+    if case == "nothing fits":
+        assert not want[0].any()
+
+
+@pytest.mark.cuda
+def test_kernel_geo_walk_checks(cuda_geo):
+    cand, forced, state, consts, tables = _geo_inputs(1, "geo-flex", 2, 64, 3, cuda_geo)
+    with pytest.raises(TypeError):
+        geo_walk.geo_resolve("geo-flex", cand, forced, dict(state, slack=state["slack"].int()),
+                             consts, tables)
+    with pytest.raises(ValueError):
+        geo_walk.geo_resolve("geo-flex", cand[:, :10], forced, state, consts, tables)
+    with pytest.raises(ValueError):
+        geo_walk.geo_resolve("geo-flex", cand, forced, state, consts,
+                             dict(tables, means=tables["means"].transpose(1, 2)))
+    with pytest.raises(ValueError):
+        geo_walk.geo_resolve("geo-flex", cand, forced.cpu(), state, consts, tables)
+
+
+@pytest.mark.cuda
+def test_geo_flex_week_on_the_card_equals_the_cpu(cuda_geo):
+    from repro_torch.core import scan_engine
+    from repro_torch.core.carbon import MultiRegionCarbonService
+    from repro_torch.core.geo import GeoFlexPolicy
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.types import GeoCluster
+    from repro_torch.traces import TraceSpec, generate_trace
+
+    regions = ("south-australia", "california", "ontario")
+    geo = GeoCluster.split(20, regions)
+    mci = MultiRegionCarbonService.synthetic(regions, 24 * 7 * 2 + 24 * 30, seed=21)
+    jobs = generate_trace(TraceSpec(family="azure", hours=24 * 7, capacity=20, seed=22),
+                          geo.queues)
+    scan_engine.reset_stats()
+    geo_walk.reset_launches()
+    got = simulate(jobs, mci, geo, GeoFlexPolicy(), horizon=24 * 7, engine="scan",
+                   device="cuda")
+    want = simulate(jobs, mci, geo, GeoFlexPolicy(), horizon=24 * 7)
+    assert got.to_dict(include_per_job=True, include_slots=True) == \
+        want.to_dict(include_per_job=True, include_slots=True)
+    assert got.migrations > 0
+    assert geo_walk.launches["geo_walk"] == scan_engine.stats["geo_steps"] > 0

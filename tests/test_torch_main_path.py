@@ -33,9 +33,11 @@ def results():
 
 
 def test_registry_covers_the_slice():
-    # the single-region policies, the MPC family and the DAG family
+    # the single-region policies, the MPC family, the geo family and the
+    # DAG family
     assert set(available_policies()) == set(POLICIES) | {
         "carbonflex-mpc", "carbonflex-scale", "oracle-estimated",
+        "geo-static", "geo-greedy", "geo-flex",
         "dag-fcfs", "dag-carbon", "dag-cap"}
 
 
@@ -81,6 +83,8 @@ def test_quickstart_tiny_table_matches_reference():
 
 def test_unknown_policy_raises_before_work():
     with pytest.raises(ValueError, match="registered policies"):
+        run(Scenario(**SCENARIO), ["serve-flex"], device="cpu")
+    with pytest.raises(ValueError, match="geo-distributed"):
         run(Scenario(**SCENARIO), ["geo-flex"], device="cpu")
 
 

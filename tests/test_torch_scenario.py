@@ -1,24 +1,30 @@
 """The port's ``Scenario`` takes the reference's fields in the reference's
 order: positional and keyword calls bind the same names in both packages,
 a field whose layer the port lacks raises when set, and the fields of the
-ported forecast and MPC layers reach the world and the serialization."""
+ported forecast, MPC and geo layers reach the world and the
+serialization."""
 import dataclasses
 
 import pytest
 
 from repro.core.forecast import NoisyForecast as RefNoisyForecast
 from repro.core.mpc import MPCConfig as RefMPCConfig
+from repro.core.types import MigrationModel as RefMigrationModel
 from repro.experiment import Scenario as RefScenario
 from repro_torch.core.forecast import NoisyForecast
 from repro_torch.core.mpc import MPCConfig
+from repro_torch.core.types import MigrationModel
 from repro_torch.experiment import Scenario
 
-UNPORTED = {"regions": ("south-australia", "california"), "migration": object(),
-            "faults": object(), "ci_outage": object(), "serving": object()}
+UNPORTED = {"faults": object(), "ci_outage": object(), "serving": object()}
 PORTED = {"forecast": (NoisyForecast(sigma=0.2, seed=3),
                        RefNoisyForecast(sigma=0.2, seed=3)),
           "mpc": (MPCConfig(horizon=24, scale_rho=0.3),
-                  RefMPCConfig(horizon=24, scale_rho=0.3))}
+                  RefMPCConfig(horizon=24, scale_rho=0.3)),
+          "regions": (("south-australia", "california"),
+                      ("south-australia", "california")),
+          "migration": (MigrationModel(base_slots=2, energy_kwh_per_gb=0.07),
+                        RefMigrationModel(base_slots=2, energy_kwh_per_gb=0.07))}
 
 
 def test_field_names_in_the_reference_order():
@@ -47,13 +53,14 @@ def test_positional_call_binds_the_same_names(args):
 
 
 def test_region_then_family_positionally_is_refused_in_both():
-    """``Scenario("california", "alibaba")`` is a geo call in the reference
-    (``regions="alibaba"``, refused there as an unknown region); it must
-    not quietly set ``family`` in the port."""
-    with pytest.raises(ValueError):
+    """``Scenario("california", "alibaba")`` is a geo call in both packages
+    (``regions="alibaba"``, refused as an unknown region); it must not
+    quietly set ``family``."""
+    with pytest.raises(ValueError) as ref:
         RefScenario("california", "alibaba")
-    with pytest.raises(NotImplementedError, match="regions"):
+    with pytest.raises(ValueError) as port:
         Scenario("california", "alibaba")
+    assert str(port.value) == str(ref.value)
     assert Scenario("california", family="alibaba").family == "alibaba"
 
 
@@ -78,6 +85,12 @@ def test_ported_field_reaches_the_world_and_the_payload(name):
         assert port.materialize().ci.model is port_value
         assert (port.materialize().ci.forecast(30)
                 == ref.materialize().ci.forecast(30)).all()
+    if name == "regions":
+        assert port.materialize().geo.regions == ref.materialize().geo.regions
+        assert (port.materialize().mci.ci_vec(30)
+                == ref.materialize().mci.ci_vec(30)).all()
+    if name == "migration":
+        assert Scenario.from_json(port.to_json()).migration == port_value
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

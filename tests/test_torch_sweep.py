@@ -130,8 +130,8 @@ def test_unported_axes_raise():
               policies=["carbon-agnostic"], device="cpu").run()
     with pytest.raises(NotImplementedError, match="telemetry"):
         Sweep(base=Scenario(**BASE), telemetry=object())
-    with pytest.raises(NotImplementedError, match="regions"):
-        Sweep(base=Scenario(regions=("california", "ontario")))
+    with pytest.raises(NotImplementedError, match="ci_outage"):
+        Sweep(base=Scenario(ci_outage=object()))
     with pytest.raises(NotImplementedError, match="serving"):
         Sweep(base=Scenario(serving=object()))
 

@@ -93,7 +93,7 @@ def test_scenario_rejects_what_the_slice_lacks():
         Scenario(region="nowhere")
     with pytest.raises(ValueError, match="engine"):
         Scenario(engine="jit")             # "scan" is ported (DAG slice)
-    with pytest.raises(NotImplementedError, match="regions"):
-        Scenario(regions=("california", "ontario"))   # a field, not ported yet
+    with pytest.raises(NotImplementedError, match="faults"):
+        Scenario(faults=object())          # a field, not ported yet
     with pytest.raises(NotImplementedError):
         Scenario(elasticity="tpu", learn_weeks=1).materialize()
