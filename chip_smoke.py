@@ -109,8 +109,31 @@ Phases, any failure exits non-zero:
    and geo-flex, equal to the CPU's vector engine in every compared field;
    the kernel against ``geo_resolve_plain`` on a recorded geo-flex step and
    16 random inputs, exactly, timed beside its floor, plain version and
-   bound.  Last, the main, oracle, sweep and geo paths' wall times side by
-   side.
+   bound;
+9. resilience: ``chaos-full``, the 150-server cluster in south-australia
+   (3 learning weeks, ``MPCConfig(scale_rho=0.3)``) under a carbon-feed
+   outage (``CarbonDataOutage(rate=0.04, mean_duration=6, seed=1)``), seeds
+   1 and 2 x no faults, iid stragglers/failures, correlated failure domains
+   and preemption x carbon-agnostic, wait-awhile, carbonflex,
+   carbonflex-mpc and carbonflex-scale (40 cells) on the card's scan engine
+   with the oracle passes on the greedy kernel, its JSON byte for byte the
+   same sweep on the CPU's vector engine with the numpy pass: the 8
+   outage-only cells of the four native kinds on the card's slot loop (their
+   tables from the degraded view), the 30 faulted cells delegated on their
+   fault process and the 2 outage-only carbonflex cells on their policy;
+   ``knn_query_kernel`` launches == provisioning calls, fill launches ==
+   fill steps, greedy launches == device passes, every row with degraded
+   slots; ``geo-chaos``, ``geo-full``'s world under the same outage x no
+   faults and correlated failure domains (18 cells), byte for byte the CPU's
+   vector engine, ``geo_walk`` launches == geo steps of the 9 outage cells,
+   the 9 faulted ones delegated; the DAG path under the outage on the scan
+   engine, equal to the CPU's vector engine in every weekly result, slot
+   and resilience record, one release launch per DAG step; the golden
+   serving grid through the card's ``Sweep``, byte for byte the fixture;
+   the host tables of one 168-slot chunk (wait-awhile's eligibility,
+   geo-flex's tables) on the fresh feed and on the degraded view.
+   Last, the main, oracle, sweep, geo and resilience paths' wall times side
+   by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -144,13 +167,17 @@ from repro_torch.core.types import Job  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import scan_engine  # noqa: E402
 from repro_torch.core.carbon import CarbonService, REGIONS  # noqa: E402
+from repro_torch.core.baselines import WaitAwhilePolicy  # noqa: E402
 from repro_torch.core.dag import DagCarbonPolicy  # noqa: E402
+from repro_torch.core.faults import (CarbonDataOutage, CorrelatedFaults, IidFaults,  # noqa: E402
+                                     PreemptionFaults)
 from repro_torch.core.forecast import NoisyForecast, QuantileForecast  # noqa: E402
 from repro_torch.core.geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy  # noqa: E402
 from repro_torch.core.mpc import CarbonFlexScalePolicy, MPCConfig  # noqa: E402
 from repro_torch.core.simulator import SimCase, pack, simulate, simulate_many  # noqa: E402
 from repro_torch.experiment import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES,  # noqa: E402
-                                    Scenario, Sweep, run)
+                                    DEFAULT_SERVE_POLICIES, Scenario, ServingConfig,
+                                    Sweep, run)
 from repro_torch.experiment import sweep as sweep_mod  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -2587,6 +2614,269 @@ def geo_split():
                                   steps=scan_engine.stats["steps"]))
 
 
+# --- resilience: fault processes and carbon-feed outages ------------------------
+
+CHAOS_OUTAGE = dict(rate=0.04, mean_duration=6.0, seed=1)
+CHAOS_POLICIES = ("carbon-agnostic", "wait-awhile", "carbonflex", "carbonflex-mpc",
+                  "carbonflex-scale")
+CHAOS_SEEDS = (1, 2)
+CHAOS_KINDS = {"plain", "thresh", "mpc", "mpc-scale"}
+
+
+def chaos_faults():
+    """The fault axis of ``chaos-full``: none and one process of each kind."""
+    return [None, IidFaults(straggler_rate=0.15, failure_rate=0.05, seed=2),
+            CorrelatedFaults(n_domains=4, rate=0.05, seed=2),
+            PreemptionFaults(rate=0.05, checkpoint_every=4, seed=2)]
+
+
+def tiled_run(sw, device):
+    """Run a sweep; returns the result, its wall time split into learning
+    (``prepare_context``) and execution (the one ``simulate_many``
+    dispatch), and per slot-loop tile (single-region and geo) its kind,
+    cells, steps and seconds."""
+    tiles = []
+    spent = {"learn_s": 0.0, "execute_s": 0.0}
+    run_single, run_geo = scan_engine._run_single_tile, scan_engine._run_geo_tile
+    prepare, simulate = sweep_mod.prepare_context, sweep_mod.simulate_many
+
+    def spending(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def timed(fn):
+        def tile(members, *args):
+            steps = scan_engine.stats["steps"]
+            t = time.perf_counter()
+            fn(members, *args)
+            tiles.append(dict(kind=members[0].prog.kind, cells=len(members),
+                              steps=scan_engine.stats["steps"] - steps,
+                              seconds=time.perf_counter() - t))
+        return tile
+
+    scan_engine._run_single_tile = timed(run_single)
+    scan_engine._run_geo_tile = timed(run_geo)
+    sweep_mod.prepare_context = spending(prepare, "learn_s")
+    sweep_mod.simulate_many = spending(simulate, "execute_s")
+    try:
+        t = time.perf_counter()
+        res = sw.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        scan_engine._run_single_tile, scan_engine._run_geo_tile = run_single, run_geo
+        sweep_mod.prepare_context, sweep_mod.simulate_many = prepare, simulate
+    return res, dict(wall_s=wall, tiles=tiles, **spent)
+
+
+def outage_tables():
+    """What the outage costs the slot loop's host tables: one 168-slot chunk
+    of wait-awhile's eligibility and of geo-flex's tables (mean of 5
+    builds), on the fresh feed (the whole-trace fast path) and on the
+    degraded view (the per-slot calls)."""
+    out = {}
+    for outage in (None, CarbonDataOutage(**CHAOS_OUTAGE)):
+        mat = Scenario(region="south-australia", capacity=150, learn_weeks=1, seed=1,
+                       ci_outage=outage).materialize()
+        gmat = Scenario(regions=GEO_REGIONS, capacity=150, learn_weeks=1, seed=7,
+                        ci_outage=outage).materialize()
+        ts = np.arange(mat.t0, mat.t0 + scan_engine.CHUNK)
+        elig = scan_engine._single_elig_fn(WaitAwhilePolicy(), mat.ci.degraded(), "thresh")
+        prog = scan_engine._build_geo(pack(gmat.eval_jobs), gmat.geo, GeoFlexPolicy(),
+                                      gmat.mci.degraded(), gmat.t0, WEEK, "geo-flex")
+        label = "outage" if outage else "fresh"
+        for name, fn in (("wait-awhile", elig), ("geo-flex", prog.xs_fn)):
+            t = time.perf_counter()
+            for _ in range(5):
+                fn(ts)
+            out[f"{name} {label}"] = 1e3 * (time.perf_counter() - t) / 5
+    log(f"host tables per {scan_engine.CHUNK}-slot chunk (ms), fresh feed and outage: {out}")
+    return out
+
+
+def chaos_full(device, engine, backend):
+    """``chaos-full``: the 150-server cluster in south-australia under a
+    carbon-feed outage, seeds 1 and 2 x the fault axis x five policies (40
+    cells)."""
+    sw = Sweep(base=Scenario(region="south-australia", capacity=150, learn_weeks=3,
+                             eval_weeks=1, seed=1, engine=engine,
+                             mpc=MPCConfig(scale_rho=0.3),
+                             ci_outage=CarbonDataOutage(**CHAOS_OUTAGE)),
+               seeds=CHAOS_SEEDS, policies=CHAOS_POLICIES, faults=chaos_faults(),
+               backend=backend, device=device)
+    return tiled_run(sw, device)
+
+
+def geo_chaos(device, engine):
+    """``geo-chaos``: ``geo-full``'s world under the same outage, fault-free
+    and with correlated failure domains, the three geo policies (18 cells)."""
+    sw = Sweep(base=Scenario(regions=GEO_REGIONS, capacity=150, learn_weeks=1, seed=7,
+                             engine=engine, ci_outage=CarbonDataOutage(**CHAOS_OUTAGE)),
+               seeds=GEO_SEEDS, policies=list(DEFAULT_GEO_POLICIES),
+               faults=[None, CorrelatedFaults(n_domains=4, rate=0.05, seed=2)],
+               device=device)
+    return tiled_run(sw, device)
+
+
+def by_kind(tiles):
+    out = {}
+    for tl in tiles:
+        k = out.setdefault(tl["kind"], dict(cells=0, steps=0, seconds=0.0))
+        for f in ("cells", "steps", "seconds"):
+            k[f] += tl[f]
+    for k in out.values():
+        k["ms_per_step"] = 1e3 * k["seconds"] / k["steps"]
+    return out
+
+
+def chaos_phase():
+    """Phase 9: ``chaos-full`` and ``geo-chaos`` on the card against the CPU's
+    vector engine, the DAG path under a feed outage, and the golden serving
+    grid."""
+    # chaos-full: the outage-only cells of the four native kinds on the card's
+    # slot loop, every faulted cell (and carbonflex) on the vector engine
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return provision(*args, **kw)
+
+    reset_counts()
+    policy_mod.provision = counted
+    try:
+        card, tc = chaos_full("cuda", "scan", "device")
+    finally:
+        policy_mod.provision = provision
+    counts = dict(knn=dict(knn.launches), greedy=dict(oracle_greedy.launches),
+                  fill=dict(fill.launches), stats=dict(scan_engine.stats),
+                  oracle=dict(oracle_mod.stats), provision_calls=calls[0])
+    cpu, tcpu = chaos_full("cpu", "vector", "numpy")
+    n_faults = len(chaos_faults())
+    log(f"chaos-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s (learning "
+        f"{tc['learn_s']:.3f}, execution {tc['execute_s']:.3f}); CPU vector engine, numpy "
+        f"pass {tcpu['wall_s']:.3f} s (learning {tcpu['learn_s']:.3f}, execution "
+        f"{tcpu['execute_s']:.3f})")
+    log(card.table())
+    if card.to_json() != cpu.to_json():
+        diff = [(a["seed"], a["fault"], a["policy"]) for a, b in
+                zip(card.rows(), cpu.rows()) if a != b]
+        raise AssertionError(f"chaos-full: the card and the CPU differ in {diff}")
+    stats = counts["stats"]
+    kinds = by_kind(tc["tiles"])
+    native = sum(k["cells"] for k in kinds.values())
+    n_seeds = len(CHAOS_SEEDS)
+    if set(kinds) != CHAOS_KINDS or native != len(CHAOS_KINDS) * n_seeds:
+        raise AssertionError(f"chaos-full: slot-loop tiles {kinds}")
+    if (stats["fault_delegated"] != (n_faults - 1) * len(CHAOS_POLICIES) * n_seeds
+            or stats["delegated"] != n_seeds):
+        raise AssertionError(f"chaos-full: delegated cells {stats}")
+    if not (counts["knn"]["knn_topk"] == counts["provision_calls"] > 0):
+        raise AssertionError(f"chaos-full: {counts['knn']} knn launches for "
+                             f"{counts['provision_calls']} provisioning calls")
+    if not (counts["fill"]["capacity_fill"] == stats["fill_steps"] > 0):
+        raise AssertionError(f"chaos-full: {counts['fill']} fill launches for {stats}")
+    if not (counts["greedy"]["greedy_pass"] == counts["oracle"]["device_passes"] > 0):
+        raise AssertionError(f"chaos-full: {counts['greedy']} greedy launches for "
+                             f"{counts['oracle']}")
+    for row in card.rows():
+        if not (row.get("resilience", {}).get("degraded_slots", 0) > 0
+                and math.isfinite(row["carbon_g"]) and row["carbon_g"] > 0):
+            raise AssertionError(f"chaos-full: row without degraded slots: {row}")
+    for kind, k in sorted(kinds.items()):
+        log(f"  slot loop {kind:9s}: {k['cells']} outage cells, {k['steps']} batched steps, "
+            f"{k['seconds']:.3f} s: {k['ms_per_step']:.6f} ms per batched step")
+    log(f"chaos-full launches: knn_topk {counts['knn']['knn_topk']} (== provisioning calls), "
+        f"greedy {counts['greedy']['greedy_pass']} (== device passes "
+        f"{counts['oracle']['device_passes']}), capacity_fill "
+        f"{counts['fill']['capacity_fill']} (== fill steps); {stats}")
+
+    # geo-chaos: the 9 outage cells on the geo slot loop, the 9 faulted ones
+    # on the geo vector engine
+    reset_counts()
+    gcard, tgc = geo_chaos("cuda", "scan")
+    glaunch, gstats = geo_walk.launches["geo_walk"], dict(scan_engine.stats)
+    gcpu, tgcpu = geo_chaos("cpu", "vector")
+    log(f"geo-chaos ({len(gcard.rows())} cells): card {tgc['wall_s']:.3f} s (execution "
+        f"{tgc['execute_s']:.3f}), CPU vector engine {tgcpu['wall_s']:.3f} s (execution "
+        f"{tgcpu['execute_s']:.3f})")
+    log(gcard.table())
+    if gcard.to_json() != gcpu.to_json():
+        diff = [(a["seed"], a["fault"], a["policy"]) for a, b in
+                zip(gcard.rows(), gcpu.rows()) if a != b]
+        raise AssertionError(f"geo-chaos: the card and the CPU differ in {diff}")
+    gkinds = by_kind(tgc["tiles"])
+    n_geo = len(GEO_SEEDS) * len(DEFAULT_GEO_POLICIES)
+    if not (glaunch == gstats["geo_steps"] > 0 and gstats["fault_delegated"] == n_geo
+            and gstats["delegated"] == 0 and set(gkinds) == set(DEFAULT_GEO_POLICIES)
+            and sum(k["cells"] for k in gkinds.values()) == n_geo):
+        raise AssertionError(f"geo-chaos: {glaunch} geo_walk launches, tiles {gkinds}, "
+                             f"{gstats}")
+    if any(r["resilience"]["degraded_slots"] <= 0 for r in gcard.rows()):
+        raise AssertionError("geo-chaos: a row without degraded slots")
+    for kind, k in sorted(gkinds.items()):
+        log(f"  slot loop {kind:10s}: {k['cells']} outage cells, {k['steps']} batched "
+            f"steps, {k['seconds']:.3f} s: {k['ms_per_step']:.6f} ms per batched step")
+    log(f"geo-chaos launches: geo_walk {glaunch} (== geo steps); {gstats}")
+
+    # the DAG path under a feed outage: dag-carbon and dag-cap's tables from the
+    # degraded view, every step's release one launch
+    reset_counts()
+    outage = CarbonDataOutage(**CHAOS_OUTAGE)
+    t = time.perf_counter()
+    dres = run(Scenario(dag=DagConfig(), ci_outage=outage, engine="scan", **DAG),
+               DEFAULT_DAG_POLICIES)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t
+    dlaunch, dstats = gating.launches["dep_release"], dict(scan_engine.stats)
+    t = time.perf_counter()
+    dcpu = run(Scenario(dag=DagConfig(), ci_outage=outage, engine="vector", **DAG),
+               DEFAULT_DAG_POLICIES, device="cpu")
+    dcpu_wall = time.perf_counter() - t
+    weeks, slots = same_results(dres.weekly, dcpu.weekly, DEFAULT_DAG_POLICIES)
+    resil = [(a.resilience, b.resilience) for n in DEFAULT_DAG_POLICIES
+             for a, b in zip(dres.weekly[n], dcpu.weekly[n])]
+    log(f"dag path under the outage: card {dwall:.3f} s ({dstats['steps']} slot steps, "
+        f"{1e3 * dstats['loop_s'] / max(dstats['steps'], 1):.6f} ms per step), CPU vector "
+        f"engine {dcpu_wall:.3f} s: {weeks} weekly results and {slots} slots differ; "
+        f"release launches {dlaunch}; degraded slots "
+        f"{[a.degraded_slots for a, _ in resil]}")
+    log(dres.table())
+    if weeks or slots or any(a != b or a is None or a.degraded_slots <= 0
+                             for a, b in resil):
+        raise AssertionError(f"dag outage: {weeks} weeks, {slots} slots differ; {resil}")
+    if not (dlaunch == dstats["dag_steps"] == dstats["steps"] > 0
+            and dstats["delegated"] == dstats["fault_delegated"] == 0):
+        raise AssertionError(f"dag outage: {dlaunch} release launches for {dstats}")
+
+    # the golden serving grid: host numpy, through the card's Sweep
+    with open(os.path.join(GOLDEN, "golden_sweep_serving.json")) as f:
+        want = f.read()
+    t = time.perf_counter()
+    got = Sweep(base=Scenario(serving=ServingConfig(requests_per_day=2e5, servers=12),
+                              learn_weeks=1, eval_weeks=1, seed=101),
+                seeds=[11, 12], policies=list(DEFAULT_SERVE_POLICIES),
+                device="cuda").run().to_json() + "\n"
+    serve_wall = time.perf_counter() - t
+    if got != want:
+        raise AssertionError("golden_sweep_serving: differs from the fixture")
+    log(f"golden_sweep_serving through the card's Sweep: byte for byte the fixture "
+        f"({serve_wall:.3f} s)")
+    return dict(
+        chaos=dict(cells=len(card.rows()), card=tc, cpu=tcpu, by_kind=kinds,
+                   launches=counts, summary=card.summary()),
+        geo=dict(cells=len(gcard.rows()), card=tgc, cpu=tgcpu, by_kind=gkinds,
+                 launches=glaunch, stats=gstats, summary=gcard.summary()),
+        dag=dict(wall_s=dwall, cpu_wall_s=dcpu_wall, launches=dlaunch, stats=dstats,
+                 degraded_slots=[a.degraded_slots for a, _ in resil],
+                 savings={n: dres.savings(n) for n in DEFAULT_DAG_POLICIES}),
+        serving_golden_s=serve_wall, tables_ms=outage_tables())
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
@@ -2641,6 +2931,16 @@ def main():
     kernels.append(fill_entry)
     geo_entry, geo = geo_phase(reports["src/repro_torch/csrc/geo_walk.cu"])
     kernels.append(geo_entry)
+    chaos = chaos_phase()
+    # launches on the resilience paths, beside each kernel's own path
+    by_name = {kern["name"]: kern for kern in kernels}
+    by_name["knn_topk"]["chaos_launches"] = chaos["chaos"]["launches"]["knn"]["knn_topk"]
+    by_name["greedy_pass"]["chaos_launches"] = \
+        chaos["chaos"]["launches"]["greedy"]["greedy_pass"]
+    by_name["capacity_fill"]["chaos_launches"] = \
+        chaos["chaos"]["launches"]["fill"]["capacity_fill"]
+    by_name["geo_walk"]["chaos_launches"] = chaos["geo"]["launches"]
+    by_name["dep_release_csr"]["chaos_launches"] = chaos["dag"]["launches"]
     log(f"wall / learning / execution (s): main path {path['wall_s']:.3f} / "
         f"{path['learn_s']:.3f} / {path['execute_s']:.3f}; oracle path (backend=\"device\") "
         f"{device_path['wall_s']:.3f} / {device_path['learn_s']:.3f} / "
@@ -2648,7 +2948,12 @@ def main():
         f" / {sweep['card']['learn_s']:.3f} / {sweep['card']['execute_s']:.3f}, on the CPU "
         f"{sweep['cpu']['wall_s']:.3f} / {sweep['cpu']['learn_s']:.3f} / "
         f"{sweep['cpu']['execute_s']:.3f}; geo-full on the card {geo['card']['wall_s']:.3f}, "
-        f"on the CPU {geo['cpu']['wall_s']:.3f}")
+        f"on the CPU {geo['cpu']['wall_s']:.3f}; chaos-full on the card "
+        f"{chaos['chaos']['card']['wall_s']:.3f}, on the CPU "
+        f"{chaos['chaos']['cpu']['wall_s']:.3f}; geo-chaos on the card "
+        f"{chaos['geo']['card']['wall_s']:.3f}, on the CPU {chaos['geo']['cpu']['wall_s']:.3f}"
+        f"; the DAG path under the outage on the card {chaos['dag']['wall_s']:.3f}, on the "
+        f"CPU {chaos['dag']['cpu_wall_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
@@ -2660,6 +2965,7 @@ def main():
                                     if k != "attempts"}}))
     log(json.dumps({"sweep_path": sweep}))
     log(json.dumps({"geo_path": geo}))
+    log(json.dumps({"chaos_path": chaos}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -30,12 +30,22 @@
                                      / quantile ensemble) behind
                                      ``CarbonService.forecast``, plus the
                                      quantile view robust policies use
+- ``faults``                       — resilience layer: pluggable fault
+                                     processes (iid stragglers, correlated
+                                     failure-domain outages, preemption
+                                     with checkpoint/restore) and
+                                     carbon-feed outage injection with a
+                                     degraded policy-side CI view
 - ``policy.Policy``                — the protocol every policy implements
 """
-from . import baselines, carbon, dag, emissions, forecast, geo, knowledge, mpc, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
+from . import baselines, carbon, dag, emissions, faults, forecast, geo, knowledge, mpc, oracle, policy, profiles, provisioning, scan_engine, scheduling, simulator, types  # noqa: F401
 from .carbon import CarbonService, MultiRegionCarbonService, synthesize_trace  # noqa: F401
 from .dag import (DagCapPolicy, DagCarbonPolicy, DagFcfsPolicy, DagSpec,  # noqa: F401
                   TaskNode, criticality_from_jobs, expand_dags)
+from .faults import (CarbonDataOutage, CorrelatedFaults, FaultProcess,  # noqa: F401
+                     IidFaults, PreemptionFaults, fault_from_dict,
+                     fault_label, fault_to_dict, outage_from_dict,
+                     outage_to_dict)
 from .forecast import (ForecastModel, NoisyForecast, PerfectForecast,  # noqa: F401
                        PersistenceForecast, QuantileForecast,
                        StaticNoiseForecast, forecast_from_dict,
@@ -46,6 +56,6 @@ from .mpc import (CarbonFlexMPCPolicy, CarbonFlexScalePolicy,  # noqa: F401
                   EstimatedOraclePolicy, MPCConfig)
 from .policy import (CarbonFlexPolicy, LearnOutcome, OraclePolicy, Policy,  # noqa: F401
                      learn_window)
-from .simulator import SimCase, simulate, simulate_many  # noqa: F401
+from .simulator import FaultModel, SimCase, simulate, simulate_many  # noqa: F401
 from .types import (ClusterConfig, GeoCluster, Job, MigrationModel,  # noqa: F401
-                    QueueConfig, SimResult)
+                    QueueConfig, ResilienceMetrics, SimResult)

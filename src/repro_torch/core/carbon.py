@@ -21,6 +21,7 @@ import zlib
 
 import numpy as np
 
+from .faults import CarbonDataOutage, DegradedCIView, DegradedMultiRegionView
 from .forecast import ForecastFeatureMixin, ForecastModel, PerfectForecast
 
 # (mean g CO2/kWh, daily CoV) per region, calibrated to Fig. 5's spread:
@@ -86,13 +87,17 @@ class CarbonService(ForecastFeatureMixin):
     ``None`` resolves to :class:`PerfectForecast`.  The JAX package's
     deprecated ``forecast_noise`` knob is not ported: pass
     ``model=StaticNoiseForecast(sigma, seed)`` for its semantics, or
-    ``model=NoisyForecast(...)`` for lead-time-aware error.  Carbon-feed
-    outages are not ported: the policy stack reads the service itself
-    (``degraded()``)."""
+    ``model=NoisyForecast(...)`` for lead-time-aware error.  ``outage``
+    injects stale/gap windows into the feed the policy stack reads
+    (``degraded()``); accounting keeps reading the true trace."""
 
     trace: np.ndarray
     horizon: int = 24
     model: ForecastModel | None = None
+    # Feed-outage injection (core/faults.py): stale/gap windows the policy
+    # stack sees through ``degraded()``.  None = the feed is always fresh
+    # and ``degraded()`` returns the service itself.
+    outage: CarbonDataOutage | None = None
 
     def __post_init__(self) -> None:
         if self.model is None:
@@ -108,11 +113,18 @@ class CarbonService(ForecastFeatureMixin):
     def ci(self, t: int) -> float:
         return float(self.trace[min(t, len(self.trace) - 1)])
 
-    def degraded(self) -> "CarbonService":
-        """The view the *policy stack* reads.  This slice injects no feed
-        outages, so it is the service itself; the engines keep reading the
-        service for carbon accounting."""
-        return self
+    def degraded(self) -> "CarbonService | DegradedCIView":
+        """The view the *policy stack* reads: the service itself when the
+        feed has no outages, else a cached :class:`DegradedCIView`
+        (forward-filled observations, staged forecast fallback).  The
+        engines keep reading the true service for carbon accounting."""
+        if self.outage is None:
+            return self
+        cached = self.__dict__.get("_degraded")
+        if cached is None:
+            cached = DegradedCIView(self, self.outage)
+            self._degraded = cached
+        return cached
 
     def forecast(self, t: int, horizon: int | None = None) -> np.ndarray:
         """Day-ahead forecast starting at slot t (paper footnote 3),
@@ -204,10 +216,17 @@ class MultiRegionCarbonService:
         single-region code paths can read a geo service unambiguously)."""
         return self.service(region).ci(t)
 
-    def degraded(self) -> "MultiRegionCarbonService":
-        """Multi-region analogue of :meth:`CarbonService.degraded`.  This
-        slice injects no feed outages, so it is the service itself."""
-        return self
+    def degraded(self) -> "MultiRegionCarbonService | DegradedMultiRegionView":
+        """Multi-region analogue of :meth:`CarbonService.degraded`: the
+        service itself when every regional feed is outage-free, else a
+        cached view stitching the per-region degraded views."""
+        if all(s.outage is None for s in self.services):
+            return self
+        cached = self.__dict__.get("_degraded")
+        if cached is None:
+            cached = DegradedMultiRegionView(self)
+            self._degraded = cached
+        return cached
 
     def ci_vec(self, t: int) -> np.ndarray:
         return np.array([s.ci(t) for s in self.services])
@@ -224,11 +243,3 @@ class MultiRegionCarbonService:
         """Index of the currently lowest-CI region (ties -> lowest index)."""
         return int(np.argmin(self.ci_vec(t)))
 
-
-class DegradedMultiRegionView:
-    """The reference's outage-degraded multi-region view.  Carbon-feed
-    outages are not ported, so it cannot be built."""
-
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError("carbon-feed outages (DegradedMultiRegionView) "
-                                  "are not ported yet")

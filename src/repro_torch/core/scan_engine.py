@@ -46,13 +46,21 @@ energy in row order, migration carbon at the destination's CI in row order),
 and the eligibility, MPC and geo tables are computed on the host with the
 policies' own numpy expressions.
 
-Native policies (exact types): ``carbon-agnostic`` and ``dag-fcfs``
-(plain), ``wait-awhile``, ``wait-awhile-robust`` and ``dag-carbon``
-(thresh), ``dag-cap`` (cap), ``carbonflex-mpc`` (mpc),
+Native policies (exact types, no fault process): ``carbon-agnostic`` and
+``dag-fcfs`` (plain), ``wait-awhile``, ``wait-awhile-robust`` and
+``dag-carbon`` (thresh), ``dag-cap`` (cap), ``carbonflex-mpc`` (mpc),
 ``carbonflex-scale`` (mpc-scale); on a ``GeoCluster`` ``geo-static``,
 ``geo-greedy`` and ``geo-flex``.  Every other policy runs on the vector
 engine (the geo vector engine on a geo cluster) instead, which is
-bit-identical; ``stats["delegated"]`` counts those cases.
+bit-identical; ``stats["delegated"]`` counts those cases.  So does every
+case with a fault process, whatever its policy (``core/faults.py``: the
+processes draw host RNG mid-slot); ``stats["fault_delegated"]`` counts
+those apart.  A carbon-feed outage (``CarbonService(outage=...)``) is a
+pure per-slot function of the trace and runs natively: the eligibility,
+MPC and geo tables are built from the degraded view the policies read
+(``ci.degraded()``), the host accounting reads the true trace, and the
+result carries ``resilience`` with the degraded slots, as on the vector
+engine.
 """
 from __future__ import annotations
 
@@ -76,7 +84,8 @@ from .forecast import PerfectForecast, QuantileCIView
 from .geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from .mpc import CarbonFlexMPCPolicy, CarbonFlexScalePolicy
 from .simulator import (PackedJobs, SimCase, _accumulate_regions,
-                        _simulate_geo_vector, _simulate_vector, packed_for)
+                        _run_resilience, _simulate_geo_vector,
+                        _simulate_vector, packed_for)
 from .types import GeoCluster, SimResult, SlotLog
 
 _EPS = 1e-9
@@ -92,11 +101,12 @@ _MPC_KINDS = ("mpc", "mpc-scale")
 #: Since the last ``reset_stats()``: slot steps (one per batched step
 #: call), cell steps (steps times the cells of the batch), steps with DAG
 #: gating, steps through the variable-k fill, geo steps (each one launch of
-#: the geo walk), cases delegated to the vector engine, and host seconds in
-#: the chunk loops (device steps, the per-chunk tables and copies) and in
-#: the host accounting.
+#: the geo walk), cases delegated to the vector engine for their policy and
+#: for their fault process, and host seconds in the chunk loops (device
+#: steps, the per-chunk tables and copies) and in the host accounting.
 stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "fill_steps": 0,
-         "geo_steps": 0, "delegated": 0, "loop_s": 0.0, "account_s": 0.0}
+         "geo_steps": 0, "delegated": 0, "fault_delegated": 0,
+         "loop_s": 0.0, "account_s": 0.0}
 
 
 def reset_stats() -> None:
@@ -108,13 +118,16 @@ _GEO_KINDS = {GeoStaticPolicy: "geo-static", GeoGreedyPolicy: "geo-greedy",
               GeoFlexPolicy: "geo-flex"}
 
 
-def native_kind(policy, geo: bool = False) -> str | None:
+def native_kind(policy, geo: bool = False, faults=None) -> str | None:
     """The scan-native program family of ``policy`` (on a ``GeoCluster``
     when ``geo``), or None to delegate.
 
     Exact ``type()`` checks: a subclass may override ``decide`` in ways the
     packed decision tables cannot see (``carbonflex-scale`` is checked
-    before its base MPC class for the same reason)."""
+    before its base MPC class for the same reason).  Any fault process
+    delegates (host RNG mid-slot)."""
+    if faults is not None:
+        return None
     if geo:
         return _GEO_KINDS.get(type(policy))
     tp = type(policy)
@@ -144,17 +157,19 @@ def _pad_rows(n: int) -> int:
 # perfect-forecast service the same tables fall out of whole-trace
 # indexing — the gathered elements are the identical float64 values the
 # per-slot calls return, so the fast path is bitwise equal; any other
-# view (forecast models, subclasses) keeps the per-slot loop.
+# view (forecast models, outage-degraded, subclasses) keeps the per-slot
+# loop.
 
 
 def _perfect_traces(ci_pol) -> np.ndarray | None:
     """(R, T) trace stack when every regional feed is a plain
-    perfect-forecast ``CarbonService``; None otherwise."""
+    perfect-forecast ``CarbonService`` with no outage; None otherwise."""
     if type(ci_pol) is not MultiRegionCarbonService:
         return None
     svs = ci_pol.services
     if any(type(s) is not CarbonService or type(s.model) is not PerfectForecast
-           or np.asarray(s.trace).dtype != np.float64 for s in svs):
+           or s.outage is not None or np.asarray(s.trace).dtype != np.float64
+           for s in svs):
         return None
     if len({len(s.trace) for s in svs}) != 1:
         return None
@@ -185,7 +200,8 @@ def _forecast_block(ci_pol, ts: np.ndarray, h: int) -> np.ndarray:
 
 
 def _ci_vec_acct_block(mci, t0: int, n_valid: int) -> np.ndarray:
-    """(S, R) accounting CI vectors (the true multi-region service)."""
+    """(S, R) accounting CI vectors (the true multi-region service; outages
+    never apply here)."""
     ts = np.arange(t0, t0 + n_valid)
     if type(mci) is MultiRegionCarbonService:
         return np.stack(
@@ -197,7 +213,8 @@ def _ci_vec_acct_block(mci, t0: int, n_valid: int) -> np.ndarray:
 
 
 def _ci_block(ci, t0: int, n_valid: int) -> np.ndarray:
-    """Accounting CI per slot."""
+    """Accounting CI per slot (the true service; outages never apply
+    here)."""
     if type(ci) is CarbonService:
         # float64 widening is exact, matching the per-slot float() calls
         tr = np.asarray(ci.trace, dtype=np.float64)
@@ -217,11 +234,12 @@ def _single_elig_fn(policy, ci_pol, kind: str) -> Callable:
 
     tr = pad_tr = None
     if (type(view) is CarbonService and type(view.model) is PerfectForecast
+            and view.outage is None
             and np.asarray(view.trace).dtype == np.float64):
         # perfect-forecast fast path: whole-trace windows are the same
         # float64 elements the per-slot forecast() calls slice, so the
-        # batched percentile is bitwise equal; any other forecast model
-        # keeps the per-slot calls
+        # batched percentile is bitwise equal; any other forecast model,
+        # and a degraded feed, keeps the per-slot calls
         tr = np.asarray(view.trace)
         hor = int(view.horizon)
         pad_tr = np.concatenate([tr, np.full(hor - 1, tr[-1])])
@@ -758,7 +776,8 @@ def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
     return SimResult(
         policy=policy.name, carbon_g=total_carbon, energy_kwh=total_energy,
         slots=logs, wait_slots=wait, violations=violations,
-        completion=completion, num_jobs=n)
+        completion=completion, num_jobs=n,
+        resilience=_run_resilience(None, ci.degraded(), ci, t0, t0 + n_valid))
 
 
 def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
@@ -838,7 +857,9 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
         completion=completion, num_jobs=n, regions=geo.regions,
         region_carbon_g=region_carbon, region_energy_kwh=region_energy,
         final_region=final_region, migrations=migrations,
-        migration_carbon_g=mig_carbon_total)
+        migration_carbon_g=mig_carbon_total,
+        resilience=_run_resilience(None, mci.degraded(), mci, t0,
+                                   t0 + n_valid))
 
 
 # --- public API --------------------------------------------------------------
@@ -846,13 +867,14 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
 
 def simulate_scan(jobs, ci, cluster, policy, t0: int = 0,
                   horizon: int | None = None, max_overrun: int = 24 * 21,
+                  faults=None,
                   device: str | torch.device = "cuda") -> SimResult:
     """``simulate(..., engine="scan")``: the device slot loop for native
-    policies, the vector engine otherwise."""
+    policies, the vector engine otherwise (and for any fault process)."""
     return simulate_many_scan([SimCase(
         jobs=jobs, ci=ci, cluster=cluster, policy=policy, t0=t0,
-        horizon=horizon, max_overrun=max_overrun, engine="scan",
-        device=device)])[0]
+        horizon=horizon, max_overrun=max_overrun, faults=faults,
+        engine="scan", device=device)])[0]
 
 
 @dataclasses.dataclass
@@ -878,16 +900,19 @@ def simulate_many_scan(cases: Sequence[SimCase],
         device = resolve_device(case.device)
         packed = packed_for(case.jobs, packs)
         is_geo = isinstance(case.cluster, GeoCluster)
-        kind = native_kind(case.policy, is_geo)
+        kind = native_kind(case.policy, is_geo, case.faults)
         if kind is None or packed.n == 0 or (is_geo and packed.has_deps):
             if packed.n > 0:
-                who = type(case.policy).__name__
-                delegated[who] = delegated.get(who, 0) + 1
+                if case.faults is not None:
+                    stats["fault_delegated"] += 1
+                else:
+                    who = type(case.policy).__name__
+                    delegated[who] = delegated.get(who, 0) + 1
             # geo + deps runs the geo vector engine, which refuses DAG jobs
             fn = _simulate_geo_vector if is_geo else _simulate_vector
             results[i] = fn(case.jobs, case.ci, case.cluster, case.policy,
                             case.t0, case.horizon, case.max_overrun,
-                            packed=packed)
+                            case.faults, packed=packed)
             continue
         horizon = int(case.horizon if case.horizon is not None
                       else len(case.ci) - case.t0)

@@ -35,7 +35,15 @@ Three engines, bit-for-bit identical outputs:
   implementation, kept as the parity oracle;
 - ``engine="scan"`` — the slot loop on the device (``core/scan_engine.py``)
   for the threshold-fill policies, the DAG gating through a CUDA kernel;
-  every other policy delegates to the vector engine.
+  every other policy, and every case with a fault process, delegates to
+  the vector engine.
+
+A fault process (``core/faults.py``) disturbs the engines through the same
+calls in the same order: ``begin_slot`` and ``available_capacity`` before
+the decision, ``apply`` over the allocated live jobs in row order after
+the energy sum (its restore energy billed into the slot), then progress
+scaled by its factors.  A carbon-feed outage changes only the view the
+policies read (``ci.degraded()``); accounting reads the true trace.
 
 ``simulate_many`` batches a (seeds x regions x policies) sweep through
 the engines, packing each distinct job list once.
@@ -44,10 +52,10 @@ A ``GeoCluster`` with a ``MultiRegionCarbonService`` runs the
 multi-region engines (``_simulate_geo_vector`` / ``_simulate_geo_scalar``,
 bit-identical; ``engine="scan"`` puts their slot loop on the device): per
 slot the geo policy places, runs or migrates each job, and energy and
-carbon are accounted per region.  No fault injection, and no DAG jobs on a
-geo cluster.  The accounting stays float64 numpy on the host, operation
-for operation as in the JAX package, so both packages give bit-identical
-results.
+carbon are accounted per region (a fault process shrinks capacity per
+region, ``available_capacity_vec``).  No DAG jobs on a geo cluster.  The
+accounting stays float64 numpy on the host, operation for operation as in
+the JAX package, so both packages give bit-identical results.
 """
 from __future__ import annotations
 
@@ -59,11 +67,30 @@ import torch
 
 from . import emissions
 from .carbon import CarbonService, MultiRegionCarbonService
+from .faults import FaultModel, FaultProcess, ensure_fault_process  # noqa: F401
 from .policy import Policy
 from .scheduling import ActiveJob, EntryBlocks, apply_slot
-from .types import ClusterConfig, GeoCluster, Job, SimResult, SlotLog
+from .types import (ClusterConfig, GeoCluster, Job, ResilienceMetrics,
+                    SimResult, SlotLog)
 
 _EPS = 1e-9
+
+
+def _count_degraded(ci_pol, t0: int, t_end: int) -> int:
+    return sum(1 for t in range(t0, t_end) if ci_pol.staleness(t) > 0)
+
+
+def _run_resilience(faults, ci_pol, ci, t0: int,
+                    t_end: int) -> ResilienceMetrics | None:
+    """Fold fault-process metrics and feed-degradation time into the
+    ``SimResult.resilience`` record (None when neither is in play)."""
+    resil = faults.run_metrics() if faults is not None else None
+    if ci_pol is not ci:
+        if resil is None:
+            resil = ResilienceMetrics()
+        resil = dataclasses.replace(
+            resil, degraded_slots=_count_degraded(ci_pol, t0, t_end))
+    return resil
 
 
 # --- packed job tables ------------------------------------------------------
@@ -237,15 +264,14 @@ def simulate(
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
-    faults: None = None,
+    faults: FaultProcess | None = None,
     engine: str = "vector",
     device: str | torch.device = "cuda",
 ) -> SimResult:
-    """One window under one policy.  ``device`` is where the scan engine
-    runs its slot loop; the host engines ignore it.  Fault processes are
-    not ported: ``faults`` must stay ``None``."""
-    if faults is not None:
-        raise NotImplementedError("fault processes are not ported yet")
+    """One window under one policy.  ``faults`` is a fault process
+    (``core/faults.py``) disturbing every slot; ``device`` is where the scan
+    engine runs its slot loop (a faulted case runs on the vector engine
+    instead); the host engines ignore it."""
     if engine not in ("vector", "scalar", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     if isinstance(cluster, GeoCluster) and not isinstance(
@@ -254,15 +280,15 @@ def simulate(
     if engine == "scan":
         from .scan_engine import simulate_scan
         return simulate_scan(jobs, ci, cluster, policy, t0, horizon,
-                             max_overrun, device=device)
+                             max_overrun, faults, device=device)
     if isinstance(cluster, GeoCluster):
         fn = _simulate_geo_scalar if engine == "scalar" else _simulate_geo_vector
-        return fn(jobs, ci, cluster, policy, t0, horizon, max_overrun)
+        return fn(jobs, ci, cluster, policy, t0, horizon, max_overrun, faults)
     if engine == "scalar":
         return _simulate_scalar(jobs, ci, cluster, policy, t0, horizon,
-                                max_overrun)
+                                max_overrun, faults)
     return _simulate_vector(jobs, ci, cluster, policy, t0, horizon,
-                            max_overrun)
+                            max_overrun, faults)
 
 
 # --- vector engine ----------------------------------------------------------
@@ -276,12 +302,16 @@ def _simulate_vector(
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
+    faults: FaultProcess | None = None,
     packed: PackedJobs | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(ci) - t0)
     if packed is None:
         packed = pack(jobs)
-    ci_pol = ci.degraded()              # the view policies read
+    ci_pol = ci.degraded()              # policies read the (maybe degraded)
+    faults = ensure_fault_process(faults)  # view; accounting the true feed
+    if faults is not None:
+        faults.on_run_start(t0, cluster.capacity)
     policy.on_window_start(ci_pol, t0, horizon, packed.jobs, cluster)
     decide_packed = getattr(policy, "decide_packed", None)
     packed_safe = bool(getattr(policy, "packed_safe", False))
@@ -332,7 +362,11 @@ def _simulate_vector(
                 and t >= t_end):
             break
 
-        cap_t = cluster.capacity
+        if faults is not None:
+            faults.begin_slot(t)
+            cap_t = faults.available_capacity(cluster.capacity)
+        else:
+            cap_t = cluster.capacity
         if decide_packed is not None:
             m_pol, kvec = decide_packed(t, eng, ci_pol, cluster)
             m_t = int(min(m_pol, cap_t))
@@ -340,7 +374,8 @@ def _simulate_vector(
                 # Compliance is a class-level invariant of the decider
                 # (``packed_safe = True``: k in {0} | [k_min, k_max],
                 # active rows only, total within the m_t it was shown), so
-                # the per-slot guards reduce to one check.
+                # the per-slot guards reduce to one check that only fires
+                # when faults shrank capacity below what the policy saw.
                 bad = m_t < int(m_pol) and int(kvec.sum()) > m_t
             else:
                 # Defensive: the scalar engine unconditionally clips every
@@ -383,13 +418,32 @@ def _simulate_vector(
         energy = 0.0
         for v in e_vec.tolist():               # sequential sum, scalar order
             energy += v
+        # fault disturbance over the allocated live jobs, row order (the
+        # same sequence the scalar engine builds); restore/transfer energy
+        # is billed into this slot, at this CI
+        prows = rows[(k_rows > 0) & live]
+        thr_p = thr_tab[prows, kvec[prows]]
+        dist = None
+        if faults is not None:
+            dist = faults.apply(t, [packed.jobs[r] for r in prows.tolist()],
+                                kvec[prows], eng.remaining[prows], thr_p)
+            if dist.extra_energy is not None:
+                for v in dist.extra_energy.tolist():
+                    if v:
+                        energy += v
         carbon = emissions.slot_carbon_g(energy, civ)
         total_energy += energy
         total_carbon += carbon
 
-        # advance progress; unallocated live jobs spend waiting budget
-        prows = rows[(k_rows > 0) & live]
-        eng.remaining[prows] -= thr_tab[prows, kvec[prows]]
+        # advance progress; degraded slots scale each allocated job's
+        # progress (energy was already charged: a slow/failed host still
+        # burns power); unallocated live jobs spend waiting budget
+        if dist is None:
+            eng.remaining[prows] -= thr_p
+        else:
+            eng.remaining[prows] -= thr_p * dist.factors
+            if dist.lost is not None:
+                eng.remaining[prows] += dist.lost
         eng.started[prows] = True
         wrows = rows[(k_rows == 0) & live]
         eng.slack_left[wrows] -= 1
@@ -428,6 +482,7 @@ def _simulate_vector(
         violations=violations,
         completion=completion,
         num_jobs=n,
+        resilience=_run_resilience(faults, ci_pol, ci, t0, t),
     )
 
 
@@ -448,10 +503,11 @@ def _kvec_enforced(kvec: np.ndarray, eng: EngineState, m_t: int) -> np.ndarray:
 @dataclasses.dataclass
 class SimCase:
     """One (trace, CI, cluster, policy) configuration of a sweep.
-    ``device`` is where the scan engine runs its slot loop; the host
-    engines ignore it.  A ``GeoCluster`` + ``MultiRegionCarbonService``
-    pair makes the case geo-distributed (multi-region engine, geo
-    policy)."""
+    ``faults`` is the case's own fault process (a fresh instance per
+    case: its RNG stream is the case's).  ``device`` is where the scan
+    engine runs its slot loop; the host engines ignore it.  A
+    ``GeoCluster`` + ``MultiRegionCarbonService`` pair makes the case
+    geo-distributed (multi-region engine, geo policy)."""
 
     jobs: list[Job]
     ci: CarbonService | MultiRegionCarbonService
@@ -460,6 +516,8 @@ class SimCase:
     t0: int = 0
     horizon: int | None = None
     max_overrun: int = 24 * 21
+    faults: FaultProcess | None = None
+    label: str = ""
     engine: str = "vector"
     device: str | torch.device = "cuda"
 
@@ -493,11 +551,11 @@ def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResul
         if case.engine == "scalar":
             fn = _simulate_geo_scalar if geo else _simulate_scalar
             out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                        case.horizon, case.max_overrun)
+                        case.horizon, case.max_overrun, case.faults)
         else:
             fn = _simulate_geo_vector if geo else _simulate_vector
             out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                        case.horizon, case.max_overrun,
+                        case.horizon, case.max_overrun, case.faults,
                         packed=packed_for(case.jobs, packs))
     return out
 
@@ -521,10 +579,14 @@ def _simulate_scalar(
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
+    faults: FaultProcess | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(ci) - t0)
     jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
     ci_pol = ci.degraded()
+    faults = ensure_fault_process(faults)
+    if faults is not None:
+        faults.on_run_start(t0, cluster.capacity)
     policy.on_window_start(ci_pol, t0, horizon, jobs, cluster)
 
     active: list[ActiveJob] = []
@@ -601,8 +663,13 @@ def _simulate_scalar(
         if not active and next_arrival == n and not blocked and t >= t_end:
             break
 
+        if faults is not None:
+            faults.begin_slot(t)
+            cap_t = faults.available_capacity(cluster.capacity)
+        else:
+            cap_t = cluster.capacity
         m_t, alloc = policy.decide(t, active, ci_pol, cluster)
-        m_t = int(min(m_t, cluster.capacity))
+        m_t = int(min(m_t, cap_t))
         alloc = _enforce_capacity(alloc, active, m_t)
 
         civ = ci.ci(t)
@@ -614,11 +681,41 @@ def _simulate_scalar(
                 # actually needed is charged.
                 frac = min(1.0, a.remaining / max(a.job.throughput(k), 1e-9))
                 energy += emissions.slot_energy_kwh(a.job, k, cluster, frac)
+        # fault disturbance over the allocated live jobs in list order
+        # (= row order), through the same arrays the vector engine gathers
+        dist = None
+        run: list[ActiveJob] = []
+        if faults is not None:
+            run = [a for a in active
+                   if not a.done and alloc.get(a.job.job_id, 0) > 0]
+            ks = np.array([alloc[a.job.job_id] for a in run], dtype=np.int64)
+            rem = np.array([a.remaining for a in run], dtype=np.float64)
+            thr = np.array([a.job.throughput(int(k))
+                            for a, k in zip(run, ks)], dtype=np.float64)
+            dist = faults.apply(t, [a.job for a in run], ks, rem, thr)
+            if dist.extra_energy is not None:
+                for v in dist.extra_energy.tolist():
+                    if v:
+                        energy += v
         carbon = emissions.slot_carbon_g(energy, civ)
         total_energy += energy
         total_carbon += carbon
 
-        apply_slot(active, alloc)
+        if dist is None:
+            apply_slot(active, alloc)
+        else:
+            # degraded slots: scale each allocated job's progress; energy
+            # was already charged (a slow/failed host still burns power)
+            for i, a in enumerate(run):
+                a.remaining -= thr[i] * dist.factors[i]
+                if dist.lost is not None:
+                    a.remaining += dist.lost[i]
+                a.started = True
+            for a in active:
+                if a.done or alloc.get(a.job.job_id, 0) > 0:
+                    continue
+                a.slack_left -= 1
+                a.waited += 1
 
         finished = [a for a in active if a.done]
         for a in finished:
@@ -650,6 +747,7 @@ def _simulate_scalar(
         violations=violations,
         completion=completion,
         num_jobs=n,
+        resilience=_run_resilience(faults, ci_pol, ci, t0, t),
     )
 
 
@@ -839,6 +937,7 @@ def _simulate_geo_vector(
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
+    faults: FaultProcess | None = None,
     packed: PackedJobs | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(mci) - t0)
@@ -848,6 +947,9 @@ def _simulate_geo_vector(
         raise ValueError("the geo engines do not support DAG jobs yet; "
                          "run precedence-gated workloads single-region")
     ci_pol = mci.degraded()             # the view policies read
+    faults = ensure_fault_process(faults)
+    if faults is not None:
+        faults.on_run_start(t0, geo.capacity_vec())
     policy.on_window_start(ci_pol, t0, horizon, packed.jobs, geo)
 
     eng = GeoEngineState(packed, geo)
@@ -888,9 +990,14 @@ def _simulate_geo_vector(
         if not len(rows) and eng.admitted == n and t >= t_end:
             break
 
+        if faults is not None:
+            faults.begin_slot(t)
+            caps_t = faults.available_capacity_vec(caps)
+        else:
+            caps_t = caps
         active_views = eng.active_views()
         m_vec, alloc = policy.decide_geo(t, active_views, ci_pol, geo)
-        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps)
+        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps_t)
         per_r, migs = _resolve_geo(active_views, alloc, geo)
         kvec = np.zeros(n, dtype=np.int64)
         for r in range(n_regions):
@@ -919,6 +1026,16 @@ def _simulate_geo_vector(
 
         prows = rows[(k_rows > 0) & live]
         thr_p = thr_tab[prows, kvec[prows]]
+        dist = None
+        if faults is not None:
+            p_reg = eng.region[prows]
+            dist = faults.apply(t, [packed.jobs[r] for r in prows.tolist()],
+                                kvec[prows], eng.remaining[prows], thr_p,
+                                regions=p_reg)
+            if dist.extra_energy is not None:
+                for i, v in enumerate(dist.extra_energy.tolist()):
+                    if v:
+                        energy_r[int(p_reg[i])] += v
 
         mc = _charge_migrations(migs, geo, ci_vec, energy_r)
         mig_carbon_total += mc
@@ -928,7 +1045,12 @@ def _simulate_geo_vector(
         total_energy += energy
         total_carbon += carbon
 
-        eng.remaining[prows] -= thr_p
+        if dist is None:
+            eng.remaining[prows] -= thr_p
+        else:
+            eng.remaining[prows] -= thr_p * dist.factors
+            if dist.lost is not None:
+                eng.remaining[prows] += dist.lost
         eng.started[prows] = True
         wrows = rows[(k_rows == 0) & live]
         eng.slack_left[wrows] -= 1
@@ -971,6 +1093,7 @@ def _simulate_geo_vector(
         final_region=final_region,
         migrations=migrations,
         migration_carbon_g=mig_carbon_total,
+        resilience=_run_resilience(faults, ci_pol, mci, t0, t),
     )
 
 
@@ -982,6 +1105,7 @@ def _simulate_geo_scalar(
     t0: int = 0,
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
+    faults: FaultProcess | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(mci) - t0)
     if any(j.deps for j in jobs):
@@ -989,6 +1113,9 @@ def _simulate_geo_scalar(
                          "run precedence-gated workloads single-region")
     jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
     ci_pol = mci.degraded()
+    faults = ensure_fault_process(faults)
+    if faults is not None:
+        faults.on_run_start(t0, geo.capacity_vec())
     policy.on_window_start(ci_pol, t0, horizon, jobs, geo)
 
     n_regions = geo.n_regions
@@ -1021,8 +1148,13 @@ def _simulate_geo_scalar(
         if not active and next_arrival == n and t >= t_end:
             break
 
+        if faults is not None:
+            faults.begin_slot(t)
+            caps_t = faults.available_capacity_vec(caps)
+        else:
+            caps_t = caps
         m_vec, alloc = policy.decide_geo(t, active, ci_pol, geo)
-        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps)
+        m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps_t)
         per_r, migs = _resolve_geo(active, alloc, geo)
         final: dict[int, tuple[int, int]] = {}
         for r in range(n_regions):
@@ -1039,6 +1171,24 @@ def _simulate_geo_scalar(
             r, k = entry
             frac = min(1.0, a.remaining / max(a.job.throughput(k), 1e-9))
             energy_r[r] += emissions.slot_energy_kwh(a.job, k, geo, frac)
+        dist = None
+        run: list[GeoActiveJob] = []
+        if faults is not None:
+            run = [a for a in active
+                   if not a.done and final.get(a.job.job_id) is not None]
+            ks = np.array([final[a.job.job_id][1] for a in run],
+                          dtype=np.int64)
+            rem = np.array([a.remaining for a in run], dtype=np.float64)
+            thr = np.array([a.job.throughput(int(k))
+                            for a, k in zip(run, ks)], dtype=np.float64)
+            regs = np.array([final[a.job.job_id][0] for a in run],
+                            dtype=np.int64)
+            dist = faults.apply(t, [a.job for a in run], ks, rem, thr,
+                                regions=regs)
+            if dist.extra_energy is not None:
+                for i, v in enumerate(dist.extra_energy.tolist()):
+                    if v:
+                        energy_r[int(regs[i])] += v
 
         mc = _charge_migrations(migs, geo, ci_vec, energy_r)
         mig_carbon_total += mc
@@ -1048,15 +1198,29 @@ def _simulate_geo_scalar(
         total_energy += energy
         total_carbon += carbon
 
-        for a in active:
-            if a.done:
-                continue
-            entry = final.get(a.job.job_id)
-            if entry is not None:
-                r, k = entry
-                a.remaining -= a.job.throughput(k)
+        if dist is None:
+            for a in active:
+                if a.done:
+                    continue
+                entry = final.get(a.job.job_id)
+                if entry is not None:
+                    r, k = entry
+                    a.remaining -= a.job.throughput(k)
+                    a.started = True
+                else:
+                    a.slack_left -= 1
+                    a.waited += 1
+                    if a.mig_left > 0:
+                        a.mig_left -= 1
+        else:
+            for i, a in enumerate(run):
+                a.remaining -= thr[i] * dist.factors[i]
+                if dist.lost is not None:
+                    a.remaining += dist.lost[i]
                 a.started = True
-            else:
+            for a in active:
+                if a.done or final.get(a.job.job_id) is not None:
+                    continue
                 a.slack_left -= 1
                 a.waited += 1
                 if a.mig_left > 0:
@@ -1096,4 +1260,5 @@ def _simulate_geo_scalar(
         final_region=final_region,
         migrations=migrations,
         migration_carbon_g=mig_carbon_total,
+        resilience=_run_resilience(faults, ci_pol, mci, t0, t),
     )

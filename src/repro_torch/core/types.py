@@ -237,6 +237,84 @@ class SlotLog:
     queued: int
 
 
+@dataclasses.dataclass(frozen=True)
+class ResilienceMetrics:
+    """Recovery accounting of one simulated window (``core/faults.py``).
+
+    ``lost_work_slots`` counts progress destroyed by faults (evicted /
+    failed slots plus checkpoint rollbacks), in base-scale work slots.
+    ``mttr_slots`` is the mean duration of *recovered* capacity outages;
+    ``degraded_slots`` the slots the policy stack ran on a stale carbon
+    feed (:class:`~repro_torch.core.faults.DegradedCIView`)."""
+
+    evictions: int = 0
+    preemptions: int = 0
+    lost_work_slots: float = 0.0
+    restore_energy_kwh: float = 0.0
+    capacity_outages: int = 0
+    mttr_slots: float = 0.0
+    degraded_slots: int = 0
+
+    def to_dict(self) -> dict:
+        return {
+            "evictions": int(self.evictions),
+            "preemptions": int(self.preemptions),
+            "lost_work_slots": float(self.lost_work_slots),
+            "restore_energy_kwh": float(self.restore_energy_kwh),
+            "capacity_outages": int(self.capacity_outages),
+            "mttr_slots": float(self.mttr_slots),
+            "degraded_slots": int(self.degraded_slots),
+        }
+
+
+@dataclasses.dataclass
+class ServingMetrics:
+    """Request-serving accounting of one simulated window
+    (``serving/engine.py``) — the interactive-traffic counterpart of the
+    per-job arrays, which stay empty on serving runs.
+
+    Lives here (like :class:`ResilienceMetrics`) so :class:`SimResult`
+    never imports the serving package.  The trajectory arrays
+    (``balance`` / ``utilization`` / ``quality`` / ``violation_frac``,
+    one entry per slot) are in-memory extras for figures and tests and
+    are dropped by ``to_dict``."""
+
+    requests: float = 0.0
+    violated_requests: float = 0.0        # SLO-violating requests
+    quality_mean: float = 1.0             # request-weighted quality
+    ledger_final: float = 0.0
+    ledger_min: float = 0.0
+    ledger_max: float = 0.0
+    tier_names: tuple[str, ...] = ()
+    tier_requests: tuple[float, ...] = ()
+    balance: np.ndarray | None = None
+    utilization: np.ndarray | None = None
+    quality: np.ndarray | None = None
+    violation_frac: np.ndarray | None = None
+    energy: np.ndarray | None = None      # per-slot kWh (telemetry)
+    carbon: np.ndarray | None = None      # per-slot gCO2 at true CI
+
+    @property
+    def violation_rate(self) -> float:
+        """Fraction of requests that blew the latency SLO."""
+        if self.requests <= 0:
+            return 0.0
+        return float(self.violated_requests / self.requests)
+
+    def to_dict(self) -> dict:
+        return {
+            "requests": float(self.requests),
+            "violated_requests": float(self.violated_requests),
+            "violation_rate": self.violation_rate,
+            "quality_mean": float(self.quality_mean),
+            "ledger_final": float(self.ledger_final),
+            "ledger_min": float(self.ledger_min),
+            "ledger_max": float(self.ledger_max),
+            "tier_names": list(self.tier_names),
+            "tier_requests": [float(x) for x in self.tier_requests],
+        }
+
+
 @dataclasses.dataclass
 class SimResult:
     """Aggregate result of one simulated window under one policy."""
@@ -258,6 +336,13 @@ class SimResult:
     final_region: np.ndarray | None = None   # per-job region at completion
     migrations: int = 0
     migration_carbon_g: float = 0.0
+    # Recovery metrics (core/faults.py); None on fault-free, fresh-feed
+    # runs so pre-resilience payloads (and golden fixtures) are unchanged.
+    resilience: ResilienceMetrics | None = None
+    # Serving metrics (serving/engine.py); None on batch runs so batch
+    # payloads (and golden fixtures) are unchanged.  On serving runs the
+    # per-job arrays are empty and violation_rate is request-weighted.
+    serving: ServingMetrics | None = None
 
     @property
     def mean_wait(self) -> float:
@@ -265,6 +350,8 @@ class SimResult:
 
     @property
     def violation_rate(self) -> float:
+        if self.serving is not None:
+            return self.serving.violation_rate
         return float(np.mean(self.violations)) if len(self.violations) else 0.0
 
     def savings_vs(self, baseline: "SimResult") -> float:
@@ -276,7 +363,7 @@ class SimResult:
     def to_dict(self, include_per_job: bool = False,
                 include_slots: bool = False) -> dict:
         """JSON-serialisable summary (sweep rows), the JAX package's keys in
-        its order for a single-region or geo batch run.
+        its order.
 
         Aggregates only by default; ``include_per_job`` adds the per-job
         wait/violation/completion arrays, ``include_slots`` the full
@@ -297,6 +384,10 @@ class SimResult:
                 self.region_energy_kwh, dtype=float).tolist()
             d["migrations"] = int(self.migrations)
             d["migration_carbon_g"] = float(self.migration_carbon_g)
+        if self.resilience is not None:
+            d["resilience"] = self.resilience.to_dict()
+        if self.serving is not None:
+            d["serving"] = self.serving.to_dict()
         if include_per_job:
             d["wait_slots"] = np.asarray(self.wait_slots, dtype=float).tolist()
             d["violations"] = np.asarray(self.violations, dtype=bool).tolist()

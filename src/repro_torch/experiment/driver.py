@@ -28,6 +28,7 @@ from repro_torch.core.policy import learn_window
 from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
+from repro_torch.serving import ServeCase, simulate_serving_many
 
 from .registry import (PolicyContext, check_scenario_policies, get_spec,
                        make_policy, needs_kb)
@@ -47,6 +48,11 @@ DEFAULT_GEO_POLICIES: tuple[str, ...] = (
 #: The precedence-aware comparison set (scenarios with a DAG workload).
 DEFAULT_DAG_POLICIES: tuple[str, ...] = (
     "dag-fcfs", "dag-carbon", "dag-cap",
+)
+
+#: The request-serving comparison set (scenarios with a serving workload).
+DEFAULT_SERVE_POLICIES: tuple[str, ...] = (
+    "serve-static", "serve-greedy", "serve-flex",
 )
 
 
@@ -76,12 +82,11 @@ def prepare_context(
 
 
 def _fresh_faults(scenario: Scenario):
-    """The fault process of one simulation case.  Fault injection is not
-    ported: a scenario carries none (``Scenario.faults`` raises when set),
-    so every case runs fault-free."""
-    if scenario.faults is not None:
-        raise NotImplementedError("fault processes are not ported yet")
-    return None
+    """Fault injection is stateful (seeded RNG stream) — every simulation
+    case gets its own instance reset to the configured seed."""
+    if scenario.faults is None:
+        return None
+    return dataclasses.replace(scenario.faults)
 
 
 @dataclasses.dataclass
@@ -130,7 +135,25 @@ class ExperimentResult:
         return self._pooled(policy).mean_wait
 
     def violation_rate(self, policy: str) -> float:
+        rs = self.weekly[policy]
+        if rs and rs[0].serving is not None:
+            # serving runs: request-weighted SLO-violation rate
+            req = sum(r.serving.requests for r in rs)
+            if req <= 0:
+                return 0.0
+            return float(sum(r.serving.violated_requests for r in rs) / req)
         return self._pooled(policy).violation_rate
+
+    def quality_mean(self, policy: str) -> float:
+        """Request-weighted served quality (serving runs; 1.0 otherwise)."""
+        rs = self.weekly[policy]
+        if not rs or rs[0].serving is None:
+            return 1.0
+        req = sum(r.serving.requests for r in rs)
+        if req <= 0:
+            return 1.0
+        return float(sum(r.serving.quality_mean * r.serving.requests
+                         for r in rs) / req)
 
     def savings(self, policy: str, baseline: str | None = None) -> float:
         """Carbon savings (%) of ``policy`` vs ``baseline`` in this run
@@ -148,15 +171,16 @@ class ExperimentResult:
     def _baseline(self, baseline: str | None) -> str | None:
         """Resolve the comparison baseline: an explicit name must be part
         of the run (typos raise); the default is the status-quo policy of
-        the run's kind (carbon-agnostic, geo-static, dag-fcfs), or None
-        when none of them ran."""
+        the run's kind (carbon-agnostic, geo-static, dag-fcfs,
+        serve-static), or None when none of them ran."""
         if baseline is not None:
             if baseline not in self.weekly:
                 raise KeyError(
                     f"baseline {baseline!r} was not part of this run; "
                     f"policies: {', '.join(self.weekly)}")
             return baseline
-        for cand in ("carbon-agnostic", "geo-static", "dag-fcfs"):
+        for cand in ("carbon-agnostic", "geo-static", "dag-fcfs",
+                     "serve-static"):
             if cand in self.weekly:
                 return cand
         return None
@@ -172,6 +196,10 @@ class ExperimentResult:
                 "mean_wait_h": self.mean_wait(name),
                 "violation_rate": self.violation_rate(name),
             }
+            rs = self.weekly[name]
+            if rs and rs[0].serving is not None:
+                m["quality_mean"] = round(self.quality_mean(name), 5)
+                m["ledger_final"] = round(rs[-1].serving.ledger_final, 4)
             if base:
                 m["savings_pct"] = round(self.savings(name, base), 2)
             out[name] = m
@@ -212,7 +240,9 @@ def run(
     learning phase, the weekly re-learning and the oracle policy
     (``oracle.BACKENDS``; ``"device"`` runs it on ``device``, the port's
     name for the JAX package's ``backend="jax"``).  ``policies`` defaults
-    to the geo family on geo scenarios and the DAG family on DAG scenarios.
+    to the geo family on geo scenarios, the DAG family on DAG scenarios and
+    the serve family on serving scenarios.  A scenario's fault process runs
+    as a fresh copy in every case (its RNG stream re-seeded per case).
     """
     device = resolve_device(device)
     if backend not in oracle.BACKENDS:
@@ -221,10 +251,12 @@ def run(
     if policies is None:
         policies = (DEFAULT_GEO_POLICIES if scenario.is_geo
                     else DEFAULT_DAG_POLICIES if scenario.is_dag
+                    else DEFAULT_SERVE_POLICIES if scenario.is_serving
                     else DEFAULT_POLICIES)
     names = tuple(policies)
     # unknown names raise too
-    check_scenario_policies(names, scenario.is_geo, scenario.is_dag)
+    check_scenario_policies(names, scenario.is_geo, scenario.is_dag,
+                            scenario.is_serving)
     t_start = time.perf_counter()
     mat = scenario.materialize()
     t_learn = time.perf_counter()
@@ -235,6 +267,26 @@ def run(
     execute_s = 0.0
     instances = {n: make_policy(n, ctx) for n in names}
     weekly: dict[str, list[SimResult]] = {n: [] for n in names}
+
+    if scenario.is_serving:
+        # Serving evaluation: week-sliced demand through the serving
+        # engine (no learning loop — there is no knowledge base to roll;
+        # each week starts a fresh ledger, the debt/credit carry being a
+        # per-window contract).
+        t_exec = time.perf_counter()
+        for w in range(scenario.eval_weeks):
+            t0 = mat.t0 + w * WEEK
+            cases = [ServeCase(demand=mat.serving.demand[t0: t0 + WEEK],
+                               rate=mat.serving.rate, ci=mat.ci,
+                               config=mat.serving.config,
+                               policy=instances[n], t0=t0, label=n)
+                     for n in names]
+            for n, res in zip(names, simulate_serving_many(cases)):
+                weekly[n].append(res)
+        return ExperimentResult(
+            scenario=scenario, policies=names, weekly=weekly, kb_size=0,
+            runtime_s=time.perf_counter() - t_start, learn_s=learn_s,
+            execute_s=time.perf_counter() - t_exec)
 
     for w in range(scenario.eval_weeks):
         t0 = mat.t0 + w * WEEK
@@ -256,6 +308,7 @@ def run(
         cluster_w = mat.geo if mat.is_geo else mat.cluster
         cases = [SimCase(jobs=ev, ci=ci_w, cluster=cluster_w,
                          policy=instances[n], t0=t0, horizon=WEEK,
+                         faults=_fresh_faults(scenario), label=n,
                          engine=scenario.engine, device=device)
                  for n in names]
         t_exec = time.perf_counter()

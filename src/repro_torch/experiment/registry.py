@@ -1,11 +1,12 @@
 """Policy registry: names -> deferred policy constructors.
 
 The single-region policies of the paper's evaluation (§6.1, §6.7), the
-receding-horizon MPC variants, the geo-distributed family and the
-precedence-aware DAG family register here.  Construction is *deferred*: a builder receives a
-:class:`PolicyContext` carrying the runtime objects policies need — the
-learned :class:`KnowledgeBase` for CarbonFlex, the completed-job history
-for the MPC warm start, the mean historical length the paper grants every
+receding-horizon MPC variants, the geo-distributed family, the
+precedence-aware DAG family and the request-serving family register here.
+Construction is *deferred*: a builder receives a :class:`PolicyContext`
+carrying the runtime objects policies need — the learned
+:class:`KnowledgeBase` for CarbonFlex, the completed-job history for the
+MPC warm start, the mean historical length the paper grants every
 baseline, the oracle backend — so drivers resolve ``"carbonflex"`` to a
 ready instance instead of hand-wiring each constructor.
 
@@ -33,6 +34,8 @@ from repro_torch.core.policy import (CarbonFlexMPCPolicy, CarbonFlexPolicy,
                                      EstimatedOraclePolicy, OraclePolicy,
                                      Policy)
 from repro_torch.core.types import ClusterConfig, GeoCluster, Job
+from repro_torch.serving import (ServeFlexPolicy, ServeGreedyPolicy,
+                                 ServeStaticPolicy)
 
 
 @dataclasses.dataclass
@@ -74,6 +77,7 @@ class PolicySpec:
     needs_history: bool = False
     geo: bool = False                # runs on GeoCluster scenarios only
     dag: bool = False                # runs on Scenario(dag=...) only
+    serve: bool = False              # runs on Scenario(serving=...) only
     description: str = ""
 
 
@@ -82,12 +86,15 @@ REGISTRY: dict[str, PolicySpec] = {}
 
 def register_policy(name: str, *, needs_kb: bool = False,
                     needs_history: bool = False, geo: bool = False,
-                    dag: bool = False, description: str = ""):
+                    dag: bool = False, serve: bool = False,
+                    description: str = ""):
     """Decorator registering a ``PolicyContext -> Policy`` builder.
 
     ``geo=True`` marks a policy implementing the ``GeoPolicy`` protocol:
     it runs only on scenarios with a ``regions`` axis.  ``dag=True`` marks
     a precedence-aware policy: it runs only on ``Scenario(dag=...)``
+    workloads.  ``serve=True`` marks a request-serving policy
+    (``repro_torch.serving``): it runs only on ``Scenario(serving=...)``
     workloads.  ``run()`` and the sweep reject mixing scenario kinds and
     policy families (:func:`check_scenario_policies`)."""
 
@@ -97,7 +104,7 @@ def register_policy(name: str, *, needs_kb: bool = False,
         REGISTRY[name] = PolicySpec(name=name, builder=builder,
                                     needs_kb=needs_kb,
                                     needs_history=needs_history,
-                                    geo=geo, dag=dag,
+                                    geo=geo, dag=dag, serve=serve,
                                     description=description)
         return builder
 
@@ -127,12 +134,22 @@ def needs_kb(names) -> bool:
 
 
 def check_scenario_policies(names, is_geo: bool = False,
-                            is_dag: bool = False) -> None:
+                            is_dag: bool = False,
+                            is_serving: bool = False) -> None:
     """Reject policies whose family does not match the scenario kind
-    (single-region batch / geo / DAG are mutually exclusive workload
-    axes)."""
+    (single-region batch / geo / DAG / serving are mutually exclusive
+    workload axes)."""
     for n in names:
         spec = get_spec(n)
+        if spec.serve and not is_serving:
+            raise ValueError(
+                f"policy {n!r} routes interactive requests; give the "
+                f"Scenario a serving workload (serving=ServingConfig())")
+        if not spec.serve and is_serving:
+            raise ValueError(
+                f"policy {n!r} schedules batch jobs; a serving scenario "
+                f"runs the serve policy family (serve-static/serve-greedy/"
+                f"serve-flex) — drop Scenario.serving for batch studies")
         if spec.geo and not is_geo:
             raise ValueError(
                 f"policy {n!r} is geo-distributed; give the Scenario a "
@@ -310,3 +327,29 @@ def _dag_carbon(ctx: PolicyContext) -> Policy:
                              "into clean windows")
 def _dag_cap(ctx: PolicyContext) -> Policy:
     return DagCapPolicy()
+
+
+# --- request-serving policies (repro_torch.serving) ---------------------------
+
+
+@register_policy("serve-static", serve=True,
+                 description="all requests on the full-precision tier "
+                             "(the serving status quo)")
+def _serve_static(ctx: PolicyContext):
+    return ServeStaticPolicy()
+
+
+@register_policy("serve-greedy", serve=True,
+                 description="current-CI percentile threshold: degrade "
+                             "above p70 of the day-ahead forecast, repay "
+                             "below p30, ledger-bounded")
+def _serve_greedy(ctx: PolicyContext):
+    return ServeGreedyPolicy()
+
+
+@register_policy("serve-flex", serve=True,
+                 description="forecast-aware-global: CI trend + demand "
+                             "forecast + quantile look-ahead + emissions "
+                             "budget, weighted and ledger-scaled")
+def _serve_flex(ctx: PolicyContext):
+    return ServeFlexPolicy(quantile=ctx.forecast_quantile)

@@ -3,7 +3,8 @@
 A ``Scenario`` names what the paper's sweeps vary — region (or a tuple of
 regions for a geo-distributed cluster), trace family, capacity, seed,
 learning/evaluation span, queue scaling, workload elasticity, distribution
-shift, a DAG workload, the forecast model, the MPC knobs — and
+shift, a DAG workload, fault injection, carbon-feed outages, a serving
+workload, the forecast model, the MPC knobs — and
 ``materialize()`` resolves it into the concrete ``(cluster, ci, jobs,
 hist/eval splits)``, plus the ``GeoCluster`` / ``MultiRegionCarbonService``
 pair of a geo scenario.
@@ -18,20 +19,24 @@ import json
 
 from repro_torch.core.carbon import (REGIONS, CarbonService,
                                      MultiRegionCarbonService)
+from repro_torch.core.faults import (CarbonDataOutage, FaultProcess,
+                                     fault_from_dict, fault_to_dict,
+                                     outage_from_dict, outage_to_dict)
 from repro_torch.core.forecast import (ForecastModel, forecast_from_dict,
                                        forecast_to_dict)
 from repro_torch.core.mpc import MPCConfig
 from repro_torch.core.types import (ClusterConfig, GeoCluster, Job,
                                     MigrationModel, QueueConfig, default_queues)
+from repro_torch.serving import MaterializedServing, ServingConfig
 from repro_torch.traces import (DagConfig, TraceSpec, dag_mean_task_length,
-                               generate_dag_trace, generate_trace, mean_length)
+                               expected_request_rate, generate_dag_trace,
+                               generate_request_demand, generate_trace,
+                               mean_length)
 
 WEEK = 24 * 7
 # CI margin past the nominal trace so run-to-completion overruns stay
 # on real (not padded) carbon data.
 CI_MARGIN_HOURS = 24 * 30
-# Fields of the reference's Scenario whose layers the port lacks.
-_UNPORTED = ("faults", "ci_outage", "serving")
 
 
 @dataclasses.dataclass
@@ -52,10 +57,18 @@ class MaterializedScenario:
     # comparisons; ``cluster`` keeps the aggregate total capacity.
     mci: MultiRegionCarbonService | None = None
     geo: GeoCluster | None = None
+    # Serving-scenario extras (None for batch scenarios): the serving
+    # config + realized demand / expected-rate curves; the job lists are
+    # then empty (interactive requests are never materialized per-request).
+    serving: MaterializedServing | None = None
 
     @property
     def is_geo(self) -> bool:
         return self.geo is not None
+
+    @property
+    def is_serving(self) -> bool:
+        return self.serving is not None
 
     def eval_week(self, w: int) -> list[Job]:
         """Arrivals of evaluation week ``w`` (0-based)."""
@@ -92,11 +105,14 @@ class Scenario:
     is then ignored).  ``migration`` overrides the default
     :class:`MigrationModel` cost knobs.
 
+    ``faults`` injects a fault process into every batch run, and
+    ``ci_outage`` stale/gap windows into the carbon feed the policies read
+    (accounting stays on the true trace).  A non-``None`` ``serving``
+    (:class:`repro_torch.serving.ServingConfig`) makes it a request-serving
+    world run by the ``serve-*`` policies.
+
     The fields are the JAX package's, in its order, so positional and
-    keyword calls bind alike in both packages.  The fields of layers not
-    ported yet (``faults``, ``ci_outage``, ``serving``) keep the
-    reference's defaults and raise ``NotImplementedError`` when set to
-    anything else.
+    keyword calls bind alike in both packages.
     """
 
     region: str = "south-australia"
@@ -118,19 +134,25 @@ class Scenario:
     rate_scale: float = 1.0
     delay_override: int | None = None   # uniform slack d (Fig. 9 / Fig. 14)
     eval_shift: float = 0.0             # Fig. 13 distribution shift
-    faults: object | None = None        # not ported: fault processes
-    ci_outage: object | None = None     # not ported: carbon-feed outages
-    serving: object | None = None       # not ported: the serving tier
+    # Fault process injected into every run of the scenario (core/faults.py):
+    # IidFaults (the historical FaultModel), CorrelatedFaults, or
+    # PreemptionFaults.
+    faults: FaultProcess | None = None
+    # Carbon-feed outage injection (core/faults.py): the policies' CI view
+    # goes stale/ffilled during outage windows while accounting stays true.
+    ci_outage: CarbonDataOutage | None = None
+    # Serving workload (repro_torch.serving): a non-None ServingConfig turns
+    # the scenario into an interactive request-serving world — per-slot
+    # demand vectors routed across precision tiers by the serve-* policy
+    # family instead of batch jobs.  Serving composes with `forecast` and
+    # `ci_outage` but not with `dag`, `regions`, or `faults`.
+    serving: ServingConfig | None = None
     engine: str = "vector"
     # Receding-horizon execution-phase knobs (core/mpc.py); None = defaults.
     mpc: MPCConfig | None = None
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "regions", tuple(self.regions))
-        for name in _UNPORTED:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"Scenario.{name} is not ported yet; leave it at its default")
         if self.region not in REGIONS:
             raise ValueError(f"unknown region {self.region!r}; available "
                              f"regions: {', '.join(sorted(REGIONS))}")
@@ -145,6 +167,22 @@ class Scenario:
             raise ValueError("DAG scenarios are single-region (the geo "
                              "engines do not gate precedence yet); drop "
                              "either `dag` or `regions`")
+        if self.serving is not None:
+            if self.dag is not None:
+                raise ValueError(
+                    "serving scenarios carry no batch workload — a DAG has "
+                    "nothing to schedule there; drop either `serving` or "
+                    "`dag`")
+            if self.regions:
+                raise ValueError(
+                    "serving scenarios are single-region (the serving "
+                    "engine does not route across regions yet); drop "
+                    "either `serving` or `regions`")
+            if self.faults is not None:
+                raise ValueError(
+                    "serving scenarios do not take a batch fault process "
+                    "(requests are never suspended or evicted); carbon-"
+                    "feed outages via `ci_outage` are supported")
         if self.learn_weeks < 1 or self.eval_weeks < 1:
             raise ValueError("learn_weeks and eval_weeks must be >= 1")
         if self.engine not in ("scalar", "vector", "scan"):
@@ -158,6 +196,10 @@ class Scenario:
     @property
     def is_dag(self) -> bool:
         return self.dag is not None
+
+    @property
+    def is_serving(self) -> bool:
+        return self.serving is not None
 
     # --- derived geometry ---------------------------------------------------
 
@@ -204,7 +246,7 @@ class Scenario:
         if self.is_geo:
             mci = MultiRegionCarbonService.synthetic(
                 self.regions, self.hours + CI_MARGIN_HOURS, seed=self.seed,
-                model=self.forecast)
+                model=self.forecast, outage=self.ci_outage)
             geo = GeoCluster.split(self.capacity, self.regions,
                                    queues=self.queues(),
                                    migration=self.migration)
@@ -212,8 +254,33 @@ class Scenario:
         else:
             ci = CarbonService.synthetic(self.region,
                                          self.hours + CI_MARGIN_HOURS,
-                                         seed=self.seed, model=self.forecast)
+                                         seed=self.seed, model=self.forecast,
+                                         outage=self.ci_outage)
         spec = self.trace_spec()
+        if self.serving is not None:
+            # Serving worlds have no job trace: the workload is the
+            # per-slot demand vector (seed + 2 keeps the request stream
+            # independent of the CI trace (seed) and the batch-job stream
+            # (seed + 1)); `rate` extends a day past the nominal span so
+            # policy look-ahead near the window end stays on real data.
+            sv = self.serving
+            demand = generate_request_demand(
+                self.hours, sv.requests_per_day, seed=self.seed + 2,
+                diurnal=sv.diurnal, weekly=sv.weekly,
+                peak_hour=sv.peak_hour, burst_rate=sv.burst_rate,
+                burst_mult=sv.burst_mult,
+                burst_mean_slots=sv.burst_mean_slots)
+            rate = expected_request_rate(
+                self.hours + 24, sv.requests_per_day, diurnal=sv.diurnal,
+                weekly=sv.weekly, peak_hour=sv.peak_hour)
+            mat = MaterializedScenario(
+                scenario=self, cluster=cluster, ci=ci, spec=spec,
+                jobs=[], hist=[], eval_jobs=[], t0=self.t0,
+                mean_length=0.0,
+                serving=MaterializedServing(config=sv, demand=demand,
+                                            rate=rate))
+            object.__setattr__(self, "_materialized", mat)
+            return mat
 
         def _gen(s: TraceSpec) -> list[Job]:
             if self.dag is not None:
@@ -243,44 +310,56 @@ class Scenario:
     # --- serialization ------------------------------------------------------
 
     def to_dict(self) -> dict:
-        """JSON-safe payload, the JAX package's keys in its order; the
-        unported fields emit their defaults as the reference does."""
+        """JSON-safe payload, the JAX package's keys in its order."""
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         d["regions"] = list(self.regions)
+        d["faults"] = fault_to_dict(self.faults)
+        d["ci_outage"] = outage_to_dict(self.ci_outage)
         if self.migration is not None:
             d["migration"] = dataclasses.asdict(self.migration)
         if self.dag is not None:
             d["dag"] = {**dataclasses.asdict(self.dag),
                         "shapes": list(self.dag.shapes)}
         d["forecast"] = forecast_to_dict(self.forecast)
+        if self.serving is not None:
+            d["serving"] = dataclasses.asdict(self.serving)
         if self.mpc is not None:
             d["mpc"] = self.mpc.to_dict()
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Scenario":
-        """Inverse of :meth:`to_dict`; a payload that sets an unported field
-        raises ``NotImplementedError``."""
+        """Inverse of :meth:`to_dict`."""
         d = dict(d)
         d["regions"] = tuple(d.get("regions", ()))
-        for name in ("faults", "ci_outage", "mpc"):
-            if not d.get(name):
-                d.pop(name, None)
+        if d.get("faults"):
+            d["faults"] = fault_from_dict(d["faults"])
+        else:
+            d.pop("faults", None)
+        if d.get("ci_outage"):
+            d["ci_outage"] = outage_from_dict(d["ci_outage"])
+        else:
+            d.pop("ci_outage", None)
+        if not d.get("mpc"):
+            d.pop("mpc", None)
         if d.get("migration"):
             d["migration"] = MigrationModel(**d["migration"])
         if d.get("dag"):
             d["dag"] = DagConfig(**d["dag"])
         if d.get("forecast"):
             d["forecast"] = forecast_from_dict(d["forecast"])
+        if d.get("serving"):
+            d["serving"] = ServingConfig(**d["serving"])
         if d.get("mpc"):
             d["mpc"] = MPCConfig.from_dict(d["mpc"])
         return cls(**d)
 
     def to_json(self, indent: int | None = None) -> str:
-        """JSON form of :meth:`to_dict`."""
+        """JSON form of :meth:`to_dict` (round-trips every fault kind)."""
         return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
 
     @classmethod
     def from_json(cls, payload: str) -> "Scenario":
-        """Inverse of :meth:`to_json`."""
+        """Inverse of :meth:`to_json`; unknown fault kinds raise a
+        ``ValueError`` naming the registered kinds."""
         return cls.from_dict(json.loads(payload))

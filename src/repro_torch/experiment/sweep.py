@@ -1,22 +1,24 @@
 """Cartesian experiment sweeps over ``simulate_many`` (Fig. 6-14 style).
 
-A :class:`Sweep` expands a grid — (regions x seeds x forecasts x policies)
-around a base :class:`Scenario` — into :class:`SimCase` s and dispatches
-them through ``simulate_many`` in a single batch: each scenario's jobs are
-materialized and packed exactly once, and each scenario's knowledge base is
-learned exactly once (on ``device``) and shared read-only across its
-policies.  On ``engine="scan"`` the native cells of the whole grid run as
-batched programs on the device slot loop.
+A :class:`Sweep` expands a grid — (regions x seeds x faults x forecasts x
+policies) around a base :class:`Scenario` — into :class:`SimCase` s and
+dispatches them through ``simulate_many`` in a single batch: each
+scenario's jobs are materialized and packed exactly once, and each
+scenario's knowledge base is learned exactly once (on ``device``) and shared
+read-only across its policies and fault settings.  Every cell gets a fresh
+copy of its fault process, so its RNG stream is its own.  On
+``engine="scan"`` the native cells of the whole grid run as batched
+programs on the device slot loop; faulted cells run on the vector engine.
 
 :class:`SweepResult` aggregates the batch: per-case rows with carbon
 savings against a named baseline policy, per-policy summaries with
 cross-(region, seed) dispersion, and a JSON round-trip (``to_json`` /
 ``from_json``) whose bytes equal the JAX package's for the same grid.
 
-A geo base scenario (``regions``) makes the whole grid geo-distributed.
-Axes the port has no layer for raise ``NotImplementedError``: a fault
-process (the fault axis takes only ``None``, labelled ``"none"``), a
-serving base scenario, and telemetry.
+A geo base scenario (``regions``) makes the whole grid geo-distributed, a
+serving base scenario (``serving``) a grid of serving cells through
+``simulate_serving_many``.  Telemetry is not ported: setting it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,22 +31,16 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.faults import FaultProcess, fault_label  # noqa: F401  (re-export)
 from repro_torch.core.forecast import ForecastModel, forecast_labels
 from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
+from repro_torch.serving import ServeCase, simulate_serving_many
 
 from .driver import DEFAULT_POLICIES, _fresh_faults, prepare_context
 from .registry import check_scenario_policies, make_policy
 from .scenario import WEEK, Scenario
-
-
-def fault_label(fm) -> str:
-    """Sweep-row label of a fault process: ``"none"`` for no faults, the
-    only entry the port's fault axis takes."""
-    if fm is None:
-        return "none"
-    raise NotImplementedError("fault processes are not ported yet")
 
 
 @dataclasses.dataclass
@@ -52,7 +48,8 @@ class Sweep:
     """A cartesian grid of scenarios x policies, run as one batch.
 
     ``regions`` / ``seeds`` default to the base scenario's single values;
-    ``faults`` is the fault axis (only ``None`` entries: fault-free).
+    ``faults`` is an explicit fault axis (``None`` entry = fault-free) —
+    when omitted it defaults to the base scenario's own fault process.
     ``forecasts`` is a forecast-model axis (``None`` entry = perfect
     forecast); rows then carry a ``"forecast"`` label and savings compare
     within the same forecast model.  ``baseline`` names the policy savings
@@ -79,7 +76,7 @@ class Sweep:
     regions: Sequence[str] = ()
     seeds: Sequence[int] = ()
     policies: Sequence[str] = DEFAULT_POLICIES
-    faults: Sequence[None] | None = None
+    faults: Sequence[FaultProcess | None] | None = None
     # Forecast-model grid axis: each entry replaces the base scenario's
     # `forecast` (None = PerfectForecast).  Rows gain a "forecast" label
     # column only when the axis is in play.
@@ -93,15 +90,13 @@ class Sweep:
     device: str | torch.device = "cuda"
 
     def __post_init__(self) -> None:
-        # (a serving base raises where the Scenario is built)
         if self.telemetry is not None:
             raise NotImplementedError("telemetry is not ported yet")
 
-    def fault_axis(self) -> tuple[None, ...]:
-        axis = (self.base.faults,) if self.faults is None else tuple(self.faults)
-        for fm in axis:
-            fault_label(fm)                  # raises on a fault process
-        return axis
+    def fault_axis(self) -> tuple[FaultProcess | None, ...]:
+        if self.faults is None:
+            return (self.base.faults,)
+        return tuple(self.faults)
 
     def forecast_axis(self) -> tuple[ForecastModel | None, ...]:
         if self.forecasts is None:
@@ -113,11 +108,13 @@ class Sweep:
 
     def effective_baseline(self) -> str:
         """The status-quo policy of the grid's kind replaces the
-        single-region default on geo / DAG grids."""
+        single-region default on geo / DAG / serving grids."""
         if self.base.is_geo and self.baseline == "carbon-agnostic":
             return "geo-static"
         if self.base.is_dag and self.baseline == "carbon-agnostic":
             return "dag-fcfs"
+        if self.base.is_serving and self.baseline == "carbon-agnostic":
+            return "serve-static"
         return self.baseline
 
     def scenarios(self) -> list[Scenario]:
@@ -141,7 +138,8 @@ class Sweep:
         baseline = self.effective_baseline()
         if baseline not in names:
             names = (baseline,) + names
-        check_scenario_policies(names, self.base.is_geo, self.base.is_dag)
+        check_scenario_policies(names, self.base.is_geo, self.base.is_dag,
+                                self.base.is_serving)
         return names
 
     def run(self, progress: Callable[[str], None] | None = None) -> "SweepResult":
@@ -149,7 +147,9 @@ class Sweep:
         names = self._policy_names()
         baseline = self.effective_baseline()
         with_forecast = self.has_forecast_axis()
-        fault_axis = self.fault_axis()
+        if self.base.is_serving:
+            return self._run_serving(names, baseline, with_forecast, device,
+                                     progress)
         # Disambiguated per-axis-entry labels, so the per-cell savings
         # grouping below cannot merge distinct models; scenarios() expands
         # bases x forecast axis with the forecast innermost, so the labels
@@ -174,19 +174,73 @@ class Sweep:
             horizon = sc.eval_weeks * WEEK
             ci_c = mat.mci if mat.is_geo else mat.ci
             cluster_c = mat.geo if mat.is_geo else mat.cluster
-            for fm in fault_axis:
-                _fresh_faults(dataclasses.replace(sc, faults=fm))
+            for fm in self.fault_axis():
+                scf = dataclasses.replace(sc, faults=fm)
                 for name in names:
+                    label = (f"{region_label}/s{sc.seed}/{fault_label(fm)}"
+                             f"/{name}"
+                             + (f"/{fc_label}" if with_forecast else ""))
                     cases.append(SimCase(
                         jobs=mat.eval_jobs, ci=ci_c, cluster=cluster_c,
                         policy=make_policy(name, ctx), t0=mat.t0,
-                        horizon=horizon, engine=sc.engine, device=device))
+                        horizon=horizon, faults=_fresh_faults(scf),
+                        label=label, engine=sc.engine, device=device))
                     row = {"region": region_label, "seed": sc.seed,
                            "fault": fault_label(fm), "policy": name}
                     if with_forecast:
                         row["forecast"] = fc_label
                     meta.append(row)
         results = simulate_many(cases)       # one batched dispatch
+        rows = []
+        for m, r in zip(meta, results):
+            rows.append({**m, **r.to_dict()})
+        _attach_savings(rows, baseline)
+        return SweepResult(baseline=baseline, rows_=rows, results=results)
+
+    def _run_serving(self, names, baseline: str, with_forecast: bool, device,
+                     progress) -> "SweepResult":
+        """Serving grids: same (regions x seeds x forecasts x policies)
+        expansion, dispatched through ``simulate_serving_many`` instead of
+        the batch engines.  The fault axis stays batch-only (requests are
+        never suspended); Scenario validation already rejects base faults,
+        so only an explicit sweep axis needs rejecting here."""
+        if self.faults is not None and any(f is not None
+                                           for f in self.faults):
+            raise ValueError(
+                "serving sweeps take no fault axis (requests are never "
+                "suspended or evicted); use `forecasts` or a base "
+                "`ci_outage` to stress serving policies")
+        axis_labels = forecast_labels(self.forecast_axis())
+        scenarios = self.scenarios()
+        assert not axis_labels or len(scenarios) % len(axis_labels) == 0
+        cases: list[ServeCase] = []
+        meta: list[dict] = []
+        for i, sc in enumerate(scenarios):
+            mat = sc.materialize()
+            fc_label = axis_labels[i % len(axis_labels)]
+            ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
+                                  forecast_quantile=self.forecast_quantile,
+                                  device=device, backend=self.backend)
+            horizon = sc.eval_weeks * WEEK
+            demand = mat.serving.demand[mat.t0: mat.t0 + horizon]
+            if progress is not None:
+                progress(f"prepared {sc.region}/seed{sc.seed}"
+                         + (f"/{fc_label}" if with_forecast else "")
+                         + f": {len(demand)} slots, "
+                         f"{demand.sum() / 1e6:.2f}M requests")
+            for name in names:
+                label = (f"{sc.region}/s{sc.seed}/{name}"
+                         + (f"/{fc_label}" if with_forecast else ""))
+                cases.append(ServeCase(
+                    demand=demand, rate=mat.serving.rate, ci=mat.ci,
+                    config=mat.serving.config,
+                    policy=make_policy(name, ctx), t0=mat.t0, label=label))
+                row = {"region": sc.region, "seed": sc.seed,
+                       "fault": "none", "policy": name}
+                if with_forecast:
+                    row["forecast"] = fc_label
+                meta.append(row)
+        results = simulate_serving_many(cases)
         rows = []
         for m, r in zip(meta, results):
             rows.append({**m, **r.to_dict()})
@@ -260,12 +314,29 @@ class SweepResult:
                            "summary": self.summary()}, indent=indent)
 
     def to_csv(self) -> str:
-        """Per-case rows as CSV text, one column per row key, in first-seen
-        order across rows (rows missing a column leave the cell empty).
-        List values (a geo row's regions and per-region totals) join with
-        ``|`` so the payload stays one value per cell."""
-        flats = [{k: "|".join(str(x) for x in v) if isinstance(v, (list, tuple))
-                  else v for k, v in r.items()} for r in self.rows_]
+        """Per-case rows as CSV text, one column per row key.
+
+        Nested dicts (``resilience``, ``serving``) flatten to dotted
+        columns (``serving.violation_rate``); list values (a geo row's
+        regions and per-region totals, tier names and counts) join with
+        ``|`` so the payload stays one value per cell.  Columns appear in
+        first-seen order across rows; rows missing a column leave the cell
+        empty — so heterogeneous sweeps (a fault axis where only some rows
+        carry resilience metrics) still export as one rectangular table."""
+
+        def flat(row: dict) -> dict:
+            out: dict = {}
+            for k, v in row.items():
+                if isinstance(v, dict):
+                    for kk, vv in v.items():
+                        out[f"{k}.{kk}"] = vv
+                else:
+                    out[k] = v
+            return {k: "|".join(str(x) for x in v)
+                    if isinstance(v, (list, tuple)) else v
+                    for k, v in out.items()}
+
+        flats = [flat(r) for r in self.rows_]
         cols: dict[str, None] = {}
         for f in flats:
             for k in f:

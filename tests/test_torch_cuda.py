@@ -24,6 +24,9 @@ card reproduce their fixture files byte for byte.  Geo walk: every float64
 product and sum of the migration rule is one IEEE operation in the kernel
 and in the plain walk, so the two are equal exactly; a geo-flex week on the
 card's scan engine equals the CPU's vector engine in every compared field.
+Resilience: an outage week (single-region, DAG, geo) on the card's scan
+engine and a faulted week asked of it equal the CPU's vector engine in
+every field, ``resilience`` included.
 """
 import numpy as np
 import pytest
@@ -1179,3 +1182,81 @@ def test_geo_flex_week_on_the_card_equals_the_cpu(cuda_geo):
         want.to_dict(include_per_job=True, include_slots=True)
     assert got.migrations > 0
     assert geo_walk.launches["geo_walk"] == scan_engine.stats["geo_steps"] > 0
+
+
+# --- resilience: faulted and outage worlds on the card -------------------------
+
+
+def _resilience_world(kind):
+    """A capacity-20 week with a carbon-feed outage: single-region, DAG or
+    geo (cluster, ci, jobs)."""
+    from repro_torch.core.carbon import CarbonService, MultiRegionCarbonService
+    from repro_torch.core.faults import CarbonDataOutage
+    from repro_torch.core.types import ClusterConfig, GeoCluster
+    from repro_torch.traces import DagConfig, TraceSpec, generate_dag_trace, generate_trace
+
+    outage = CarbonDataOutage(rate=0.08, mean_duration=6.0, seed=2)
+    hours = WEEK * 2 + 24 * 30
+    spec = TraceSpec(family="azure", hours=WEEK, capacity=20, seed=32)
+    if kind == "geo":
+        regions = ("south-australia", "california")
+        geo = GeoCluster.split(20, regions)
+        mci = MultiRegionCarbonService.synthetic(regions, hours, seed=31, outage=outage)
+        return geo, mci, generate_trace(spec, geo.queues)
+    cluster = ClusterConfig.default(capacity=20)
+    ci = CarbonService.synthetic("south-australia", hours, seed=31, outage=outage)
+    if kind == "dag":
+        return cluster, ci, generate_dag_trace(spec, DagConfig(), cluster.queues)
+    return cluster, ci, generate_trace(spec, cluster.queues)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,policy", [("single", "WaitAwhilePolicy"),
+                                         ("dag", "DagCarbonPolicy"),
+                                         ("geo", "GeoFlexPolicy")])
+def test_outage_world_on_the_card_equals_the_cpu(cuda_geo, kind, policy):
+    """An outage cell runs natively on the card's slot loop (its tables from
+    the degraded view) and equals the port's CPU vector engine, resilience
+    included."""
+    from repro_torch.core import baselines, dag, geo, scan_engine
+    from repro_torch.core.simulator import simulate
+
+    gating.build()
+    cls = {"WaitAwhilePolicy": baselines.WaitAwhilePolicy,
+           "DagCarbonPolicy": dag.DagCarbonPolicy, "GeoFlexPolicy": geo.GeoFlexPolicy}[policy]
+    cluster, ci, jobs = _resilience_world(kind)
+    scan_engine.reset_stats()
+    gating.reset_launches()
+    geo_walk.reset_launches()
+    got = simulate(jobs, ci, cluster, cls(), horizon=WEEK, engine="scan", device="cuda")
+    stats = dict(scan_engine.stats)
+    want = simulate(jobs, ci, cluster, cls(), horizon=WEEK, device="cpu")
+    assert got.to_dict(include_per_job=True, include_slots=True) == \
+        want.to_dict(include_per_job=True, include_slots=True)
+    assert got.resilience.degraded_slots > 0
+    assert stats["delegated"] == stats["fault_delegated"] == 0 and stats["steps"] > 0
+    if kind == "dag":
+        assert gating.launches["dep_release"] == stats["dag_steps"] > 0
+    if kind == "geo":
+        assert geo_walk.launches["geo_walk"] == stats["geo_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_faulted_world_on_the_card_equals_the_cpu(cuda_geo):
+    """A faulted cell asked of the card's scan engine runs on the vector
+    engine (counted apart) and equals the CPU's, resilience included."""
+    from repro_torch.core import baselines, scan_engine
+    from repro_torch.core.faults import CorrelatedFaults, PreemptionFaults
+    from repro_torch.core.simulator import simulate
+
+    cluster, ci, jobs = _resilience_world("single")
+    for fm in (CorrelatedFaults(rate=0.06, seed=3), PreemptionFaults(rate=0.06, seed=3)):
+        scan_engine.reset_stats()
+        got = simulate(jobs, ci, cluster, baselines.WaitAwhilePolicy(), horizon=WEEK,
+                       faults=fm, engine="scan", device="cuda")
+        assert scan_engine.stats["fault_delegated"] == 1
+        assert scan_engine.stats["steps"] == 0
+        want = simulate(jobs, ci, cluster, baselines.WaitAwhilePolicy(), horizon=WEEK,
+                        faults=fm, device="cpu")
+        assert got.to_dict(include_per_job=True, include_slots=True) == \
+            want.to_dict(include_per_job=True, include_slots=True)

@@ -37,6 +37,7 @@ from repro.core import MultiRegionCarbonService as RefMRCS
 from repro.core import NoisyForecast as RefNoisyForecast
 from repro.core import simulate as ref_simulate
 from repro.core.carbon import CarbonService as RefCarbonService
+from repro.core.faults import CarbonDataOutage as RefCarbonDataOutage
 from repro.core.simulator import GeoActiveJob as RefGeoActiveJob
 from repro.core.types import ClusterConfig as RefClusterConfig
 from repro.core.types import Job as RefJob
@@ -49,6 +50,7 @@ from repro.traces import generate_trace as ref_generate_trace
 from repro_torch.core import scan_engine, simulator
 from repro_torch.core.carbon import (CarbonService, DegradedMultiRegionView,
                                      MultiRegionCarbonService)
+from repro_torch.core.faults import CarbonDataOutage
 from repro_torch.core.forecast import NoisyForecast
 from repro_torch.core.geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from repro_torch.core.simulator import GeoActiveJob, SimCase, simulate, simulate_many
@@ -199,8 +201,15 @@ def test_multi_region_service_validation():
                                             CarbonService.synthetic("sweden", 48)))
     with pytest.raises(ValueError, match="duplicate"):
         MultiRegionCarbonService.synthetic(("ontario", "ontario"), 24)
-    with pytest.raises(NotImplementedError, match="DegradedMultiRegionView"):
-        DegradedMultiRegionView(MultiRegionCarbonService.synthetic(REGIONS2, 48))
+    # a feed outage on every region makes the degraded view, as in the reference
+    out_mci = MultiRegionCarbonService.synthetic(REGIONS2, 48, seed=1,
+                                                 outage=CarbonDataOutage(rate=0.2))
+    ref_mci = RefMRCS.synthetic(REGIONS2, 48, seed=1,
+                                outage=RefCarbonDataOutage(rate=0.2))
+    view = out_mci.degraded()
+    assert isinstance(view, DegradedMultiRegionView) and out_mci.degraded() is view
+    assert [view.staleness(t) for t in range(48)] == \
+        [ref_mci.degraded().staleness(t) for t in range(48)]
 
 
 # --- the policies --------------------------------------------------------------
@@ -358,9 +367,17 @@ def test_plain_walk_matches_the_vector_engine_step_by_step(policy, monkeypatch):
 
 
 def test_engines_refuse_faults_and_dag_jobs():
+    """A foreign object as ``faults`` (neither a fault process nor the legacy
+    ``draw_factors`` surface) is refused with the reference's message; so
+    are DAG jobs and a single-region service."""
     geo, mci, jobs = world()[0]
-    with pytest.raises(NotImplementedError, match="fault"):
+    ref_geo, ref_mci, ref_jobs = world()[1]
+    with pytest.raises(TypeError, match="draw_factors") as got:
         simulate(jobs, mci, geo, GeoStaticPolicy(), horizon=WEEK, faults=object())
+    with pytest.raises(TypeError) as want:
+        ref_simulate(ref_jobs, ref_mci, ref_geo, RefGeoStaticPolicy(), horizon=WEEK,
+                     faults=object())
+    assert str(got.value) == str(want.value)
     dag_jobs = [dataclasses.replace(j, deps=(jobs[0].job_id,)) if i == 1 else j
                 for i, j in enumerate(jobs)]
     for engine in ("vector", "scalar", "scan"):

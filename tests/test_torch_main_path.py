@@ -14,6 +14,7 @@ import torch
 
 from repro.experiment import Scenario as RefScenario
 from repro.experiment import run as ref_run
+from repro.experiment.registry import available_policies as ref_available_policies
 from repro_torch.experiment import Scenario, available_policies, run
 
 POLICIES = ("carbon-agnostic", "gaia", "wait-awhile", "wait-awhile-robust",
@@ -33,12 +34,13 @@ def results():
 
 
 def test_registry_covers_the_slice():
-    # the single-region policies, the MPC family, the geo family and the
-    # DAG family
+    # the single-region policies, the MPC family, the geo family, the DAG
+    # family and the serve family: every policy of the reference's registry
     assert set(available_policies()) == set(POLICIES) | {
         "carbonflex-mpc", "carbonflex-scale", "oracle-estimated",
         "geo-static", "geo-greedy", "geo-flex",
-        "dag-fcfs", "dag-carbon", "dag-cap"}
+        "dag-fcfs", "dag-carbon", "dag-cap",
+        "serve-static", "serve-greedy", "serve-flex"} == set(ref_available_policies())
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -83,6 +85,8 @@ def test_quickstart_tiny_table_matches_reference():
 
 def test_unknown_policy_raises_before_work():
     with pytest.raises(ValueError, match="registered policies"):
+        run(Scenario(**SCENARIO), ["serve-turbo"], device="cpu")
+    with pytest.raises(ValueError, match="serving workload"):
         run(Scenario(**SCENARIO), ["serve-flex"], device="cpu")
     with pytest.raises(ValueError, match="geo-distributed"):
         run(Scenario(**SCENARIO), ["geo-flex"], device="cpu")

@@ -1,23 +1,35 @@
 """The port's ``Scenario`` takes the reference's fields in the reference's
 order: positional and keyword calls bind the same names in both packages,
-a field whose layer the port lacks raises when set, and the fields of the
-ported forecast, MPC and geo layers reach the world and the
-serialization."""
+and the fields of the ported forecast, MPC, geo, fault, feed-outage and
+serving layers reach the world and the serialization, byte for byte the
+reference's JSON."""
 import dataclasses
 
 import pytest
 
+from repro.core.faults import CarbonDataOutage as RefCarbonDataOutage
+from repro.core.faults import PreemptionFaults as RefPreemptionFaults
 from repro.core.forecast import NoisyForecast as RefNoisyForecast
 from repro.core.mpc import MPCConfig as RefMPCConfig
 from repro.core.types import MigrationModel as RefMigrationModel
 from repro.experiment import Scenario as RefScenario
+from repro.serving import ServingConfig as RefServingConfig
+from repro_torch.core.faults import CarbonDataOutage, PreemptionFaults
 from repro_torch.core.forecast import NoisyForecast
 from repro_torch.core.mpc import MPCConfig
 from repro_torch.core.types import MigrationModel
-from repro_torch.experiment import Scenario
+from repro_torch.experiment import Scenario, ServingConfig
 
-UNPORTED = {"faults": object(), "ci_outage": object(), "serving": object()}
-PORTED = {"forecast": (NoisyForecast(sigma=0.2, seed=3),
+# The fields whose layers the eleventh slice ported (faults, feed outages,
+# serving); each used to raise when set.
+FORMERLY_UNPORTED = ("faults", "ci_outage", "serving")
+PORTED = {"faults": (PreemptionFaults(rate=0.03, checkpoint_every=6, seed=5),
+                     RefPreemptionFaults(rate=0.03, checkpoint_every=6, seed=5)),
+          "ci_outage": (CarbonDataOutage(rate=0.05, seed=9, windows=((3, 7),)),
+                        RefCarbonDataOutage(rate=0.05, seed=9, windows=((3, 7),))),
+          "serving": (ServingConfig(requests_per_day=3e5, servers=16),
+                      RefServingConfig(requests_per_day=3e5, servers=16)),
+          "forecast": (NoisyForecast(sigma=0.2, seed=3),
                        RefNoisyForecast(sigma=0.2, seed=3)),
           "mpc": (MPCConfig(horizon=24, scale_rho=0.3),
                   RefMPCConfig(horizon=24, scale_rho=0.3)),
@@ -64,10 +76,17 @@ def test_region_then_family_positionally_is_refused_in_both():
     assert Scenario("california", family="alibaba").family == "alibaba"
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", sorted(FORMERLY_UNPORTED))
 def test_setting_an_unported_field_raises(name):
-    with pytest.raises(NotImplementedError, match=name):
-        Scenario(**{name: UNPORTED[name]})
+    """None of the reference's fields is unported any more: setting each of
+    the last three builds the reference's scenario, and a wrong value is
+    refused as the reference refuses it."""
+    port_value, ref_value = PORTED[name]
+    assert Scenario(**{name: port_value}).to_json() == \
+        RefScenario(**{name: ref_value}).to_json()
+    if name == "serving":
+        with pytest.raises(ValueError, match="ci_outage"):
+            Scenario(serving=port_value, faults=PORTED["faults"][0])
 
 
 def test_empty_regions_is_the_default():
@@ -91,11 +110,28 @@ def test_ported_field_reaches_the_world_and_the_payload(name):
                 == ref.materialize().mci.ci_vec(30)).all()
     if name == "migration":
         assert Scenario.from_json(port.to_json()).migration == port_value
+    if name == "faults":
+        assert port.materialize().eval_jobs and port.faults is port_value
+    if name == "ci_outage":
+        mat = port.materialize()
+        assert mat.ci.outage is port_value
+        assert [mat.ci.degraded().staleness(t) for t in range(12)] == \
+            [ref.materialize().ci.degraded().staleness(t) for t in range(12)]
+    if name == "serving":
+        assert (port.materialize().serving.demand
+                == ref.materialize().serving.demand).all()
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", sorted(FORMERLY_UNPORTED))
 def test_payload_setting_an_unported_field_raises(name):
-    payload = Scenario().to_dict()
-    payload[name] = ["california", "ontario"] if name == "regions" else {"kind": "x"}
-    with pytest.raises(NotImplementedError, match=name):
-        Scenario.from_dict(payload)
+    """The reference's payload of each formerly unported field reads back
+    into the port's value; an unknown fault or outage kind raises the
+    reference's error."""
+    port_value, ref_value = PORTED[name]
+    payload = RefScenario(**{name: ref_value}).to_dict()
+    assert Scenario.from_dict(payload) == Scenario(**{name: port_value})
+    if name != "serving":
+        bad = Scenario().to_dict()
+        bad[name] = {"kind": "x"}
+        with pytest.raises(ValueError, match="kind"):
+            Scenario.from_dict(bad)

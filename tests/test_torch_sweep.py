@@ -26,7 +26,8 @@ from repro.traces import DagConfig as RefDagConfig
 from repro_torch.core import scan_engine
 from repro_torch.core.forecast import NoisyForecast, QuantileForecast
 from repro_torch.core.mpc import MPCConfig
-from repro_torch.experiment import Scenario, Sweep, SweepResult
+from repro_torch.core.faults import CarbonDataOutage, CorrelatedFaults
+from repro_torch.experiment import Scenario, ServingConfig, Sweep, SweepResult
 from repro_torch.traces import DagConfig
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -125,15 +126,19 @@ def test_scenarios_and_labels_follow_the_reference():
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError, match="fault"):
-        Sweep(base=Scenario(**BASE), faults=[None, object()],
-              policies=["carbon-agnostic"], device="cpu").run()
+    """Telemetry is the one axis the port lacks; the fault axis, a base with
+    a feed outage and a serving base build as in the reference."""
     with pytest.raises(NotImplementedError, match="telemetry"):
         Sweep(base=Scenario(**BASE), telemetry=object())
-    with pytest.raises(NotImplementedError, match="ci_outage"):
-        Sweep(base=Scenario(ci_outage=object()))
-    with pytest.raises(NotImplementedError, match="serving"):
-        Sweep(base=Scenario(serving=object()))
+    fm = CorrelatedFaults(rate=0.06, seed=2)
+    sw = Sweep(base=Scenario(**BASE), faults=[None, fm],
+               policies=["carbon-agnostic"], device="cpu")
+    assert sw.fault_axis() == (None, fm)
+    assert Sweep(base=Scenario(**BASE, faults=fm)).fault_axis() == (fm,)
+    assert Sweep(base=Scenario(ci_outage=CarbonDataOutage())).scenarios()[0] \
+        .ci_outage == CarbonDataOutage()
+    assert Sweep(base=Scenario(serving=ServingConfig())).effective_baseline() \
+        == "serve-static"
 
 
 def test_fault_axis_of_none_is_labelled_none():

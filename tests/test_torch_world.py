@@ -12,7 +12,8 @@ import pytest
 
 from repro.experiment import Scenario as RefScenario
 from repro_torch.core.carbon import synthesize_trace
-from repro_torch.experiment import Scenario
+from repro_torch.core.faults import IidFaults
+from repro_torch.experiment import Scenario, ServingConfig
 from repro.core.carbon import synthesize_trace as ref_synthesize_trace
 
 SCENARIOS = {
@@ -93,7 +94,7 @@ def test_scenario_rejects_what_the_slice_lacks():
         Scenario(region="nowhere")
     with pytest.raises(ValueError, match="engine"):
         Scenario(engine="jit")             # "scan" is ported (DAG slice)
-    with pytest.raises(NotImplementedError, match="faults"):
-        Scenario(faults=object())          # a field, not ported yet
+    with pytest.raises(ValueError, match="ci_outage"):
+        Scenario(serving=ServingConfig(), faults=IidFaults(failure_rate=0.01))
     with pytest.raises(NotImplementedError):
         Scenario(elasticity="tpu", learn_weeks=1).materialize()
