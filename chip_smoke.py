@@ -132,8 +132,27 @@ Phases, any failure exits non-zero:
    serving grid through the card's ``Sweep``, byte for byte the fixture;
    the host tables of one 168-slot chunk (wait-awhile's eligibility,
    geo-flex's tables) on the fresh feed and on the degraded view.
-   Last, the main, oracle, sweep, geo and resilience paths' wall times side
-   by side.
+10. telemetry: every path again with a ``Telemetry(MemoryRecorder(),
+   PhaseProfiler())`` attached, on the card's scan engine and on the CPU's
+   vector engine: ``chaos-full`` (forecast reads, fault events; the two
+   recorded carbonflex-scale cells leave the slot loop,
+   ``stats["telemetry_delegated"]`` == 2, so no fill launch), ``geo-full``
+   (migrations decoded from the geo loop's grids), the DAG path's week
+   (admissions on release), the main path through ``run(...,
+   telemetry=)`` (the ``"{policy}/w{week}"`` labels, the four phases), the
+   golden serving grid (tier switches) and an ``OracleGap`` grid (capacity
+   40, one learning week, seed 1, a perfect and a sigma-0.2 forecast);
+   gates: the card's and the CPU's event streams equal event for event per
+   run label, each recorded JSON (or weekly result) equal to the
+   recorder-off run of the earlier phases, the attributions equal field for
+   field with ``check()`` passing, and each kernel's launches equal to its
+   count (knn == provisioning calls, greedy == device passes, release ==
+   DAG steps, ``geo_walk`` == geo steps, fill == fill steps); printed: each
+   path's phase table, the event counts by kind, and the recording overhead
+   on ``geo-full`` and the DAG path (the wall with the recorder over the
+   wall without, in turns: off, on, on, off, two rounds).
+   Last, the main, oracle, sweep, geo, resilience and telemetry paths' wall
+   times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -176,8 +195,8 @@ from repro_torch.core.geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from repro_torch.core.mpc import CarbonFlexScalePolicy, MPCConfig  # noqa: E402
 from repro_torch.core.simulator import SimCase, pack, simulate, simulate_many  # noqa: E402
 from repro_torch.experiment import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES,  # noqa: E402
-                                    DEFAULT_SERVE_POLICIES, Scenario, ServingConfig,
-                                    Sweep, run)
+                                    DEFAULT_SERVE_POLICIES, OracleGap, Scenario,
+                                    ServingConfig, Sweep, run, sigma_ladder)
 from repro_torch.experiment import sweep as sweep_mod  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -185,6 +204,7 @@ from repro_torch.kernels import fill, gating, geo_walk, knn, ops, oracle_greedy,
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
+from repro_torch.telemetry import MemoryRecorder, PhaseProfiler, Telemetry, attribute  # noqa: E402
 from repro_torch.traces import DagConfig  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
@@ -196,6 +216,10 @@ BF16_FLOP_PER_S = 989e12
 
 MAIN = dict(region="south-australia", capacity=40, learn_weeks=3, seed=1,
             eval_weeks=6)
+# What the earlier phases produced with no recorder attached (the main and
+# DAG paths' results, geo-full's and chaos-full's JSON on the card), for the
+# telemetry phase to hold its recorded runs against.
+RECORDER_OFF = {}
 POLICIES = ["carbon-agnostic", "wait-awhile", "carbonflex", "oracle"]
 D, K = 13, 5
 RTOL = ATOL = 1e-5
@@ -448,6 +472,7 @@ def main_path_phase():
     wall = time.perf_counter() - t
     main_launches = dict(knn.launches)
     policy_mod.provision = provision
+    RECORDER_OFF["main"] = res
 
     kb = calls[-1]["kb"]
     log(f"main path: {wall:.3f} s wall (learning {res.learn_s:.3f} s, "
@@ -1307,6 +1332,7 @@ def dag_path_phase():
     res = run(Scenario(dag=DagConfig(), engine="scan", **DAG), DEFAULT_DAG_POLICIES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    RECORDER_OFF["dag"] = res
     launches = gating.launches["dep_release"]
     decrements = gating.launches["dep_decrement"]
     stats = dict(scan_engine.stats)
@@ -2304,15 +2330,16 @@ GEO_MIXED_REGIONS = ("south-australia", "california", "ontario")
 GEO_OUTS = ("take", "placed", "pol_region", "eng_region", "mig_left", "moves", "mig_now")
 
 
-def geo_full(device, engine, record=None):
+def geo_full(device, engine, record=None, telemetry=None):
     """``geo-full``: ``benchmarks/bench_engine.py::bench_geo``'s world, the
     150-server cluster split over two regions, 3 seeds x the geo policies;
     returns the result, the wall time, and per slot-loop tile its kind,
     cells, steps and seconds.  ``record`` collects the geo-flex tile's
-    first chunk of walk inputs."""
+    first chunk of walk inputs; ``telemetry`` rides on the sweep."""
     sw = Sweep(base=Scenario(regions=GEO_REGIONS, capacity=150, learn_weeks=1, seed=7,
                              engine=engine),
-               seeds=GEO_SEEDS, policies=list(DEFAULT_GEO_POLICIES), device=device)
+               seeds=GEO_SEEDS, policies=list(DEFAULT_GEO_POLICIES), device=device,
+               telemetry=telemetry)
     tiles = []
     run_tile, resolve = scan_engine._run_geo_tile, geo_walk.geo_resolve
 
@@ -2511,6 +2538,7 @@ def geo_phase(report):
     log(f"geo-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s, CPU vector "
         f"engine {tcpu['wall_s']:.3f} s")
     log(card.table())
+    RECORDER_OFF["geo-full"] = card.to_json()
     if card.to_json() != cpu.to_json():
         diff = [(a["seed"], a["policy"]) for a, b in zip(card.rows(), cpu.rows()) if a != b]
         raise AssertionError(f"geo-full: the card and the CPU differ in {diff}")
@@ -2699,16 +2727,16 @@ def outage_tables():
     return out
 
 
-def chaos_full(device, engine, backend):
+def chaos_full(device, engine, backend, telemetry=None):
     """``chaos-full``: the 150-server cluster in south-australia under a
     carbon-feed outage, seeds 1 and 2 x the fault axis x five policies (40
-    cells)."""
+    cells); ``telemetry`` rides on the sweep."""
     sw = Sweep(base=Scenario(region="south-australia", capacity=150, learn_weeks=3,
                              eval_weeks=1, seed=1, engine=engine,
                              mpc=MPCConfig(scale_rho=0.3),
                              ci_outage=CarbonDataOutage(**CHAOS_OUTAGE)),
                seeds=CHAOS_SEEDS, policies=CHAOS_POLICIES, faults=chaos_faults(),
-               backend=backend, device=device)
+               backend=backend, device=device, telemetry=telemetry)
     return tiled_run(sw, device)
 
 
@@ -2762,6 +2790,7 @@ def chaos_phase():
         f"pass {tcpu['wall_s']:.3f} s (learning {tcpu['learn_s']:.3f}, execution "
         f"{tcpu['execute_s']:.3f})")
     log(card.table())
+    RECORDER_OFF["chaos-full"] = card.to_json()
     if card.to_json() != cpu.to_json():
         diff = [(a["seed"], a["fault"], a["policy"]) for a, b in
                 zip(card.rows(), cpu.rows()) if a != b]
@@ -2877,6 +2906,269 @@ def chaos_phase():
         serving_golden_s=serve_wall, tables_ms=outage_tables())
 
 
+# --- telemetry: decision traces, attribution and phase profiles -----------------
+
+GAP_BASE = dict(capacity=40, learn_weeks=1, eval_weeks=1, seed=1)
+
+
+def recording():
+    return Telemetry(recorder=MemoryRecorder(), profiler=PhaseProfiler())
+
+
+def by_run(tel):
+    """The recorded events per run label, in emission order.  The scan
+    engine runs a grid's delegated cells before its batched tiles, so the
+    order across labels is the engine's; within a label it is the run's."""
+    out = {}
+    for e in tel.recorder.events:
+        out.setdefault(e.run, []).append(e)
+    return out
+
+
+def same_streams(what, card, cpu):
+    """Gate: the card's and the CPU's events equal, event for event."""
+    a, b = by_run(card), by_run(cpu)
+    if a != b:
+        bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        first = next((i for i, (x, y) in enumerate(zip(a.get(bad[0], []),
+                                                         b.get(bad[0], [])))
+                      if x != y), None)
+        raise AssertionError(f"{what}: the event streams differ in {len(bad)} runs, "
+                             f"first {bad[0]!r} at event {first}")
+    if not a:
+        raise AssertionError(f"{what}: no event recorded")
+
+
+def same_attributions(what, card, cpu):
+    """Gate: attributions equal field for field (``check()`` runs inside
+    ``attributions()`` and here)."""
+    for a in card:
+        a.check()
+    if [a.to_dict() for a in card] != [b.to_dict() for b in cpu] or not card:
+        raise AssertionError(f"{what}: attributions differ between the card and the CPU")
+
+
+def week_attributions(res, baseline):
+    """Each evaluated week of each policy against the baseline's week."""
+    return [attribute(r, b) for n in res.policies if n != baseline
+            for r, b in zip(res.weekly[n], res.weekly[baseline], strict=True)]
+
+
+class RecordedGap(OracleGap):
+    """``OracleGap`` whose sweep carries a recorder (the harness takes no
+    telemetry of its own, in either package)."""
+
+    def __init__(self, telemetry, **kw):
+        super().__init__(**kw)
+        self.telemetry = telemetry
+
+    def sweep(self):
+        return dataclasses.replace(super().sweep(), telemetry=self.telemetry)
+
+
+def recorded_path(what, card_fn, cpu_fn):
+    """Run a path on the card and on the CPU, each with a fresh recorder;
+    gate the streams and the card's launches; returns both results, the
+    card's telemetry and the path's entry (walls, events, launches,
+    provisioning calls, phase summaries)."""
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return provision(*args, **kw)
+
+    reset_counts()
+    policy_mod.provision = counted
+    tel = recording()
+    try:
+        t = time.perf_counter()
+        card = card_fn(tel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        policy_mod.provision = provision
+    counts = dict(knn=knn.launches["knn_topk"], greedy=oracle_greedy.launches["greedy_pass"],
+                  fill=fill.launches["capacity_fill"], release=gating.launches["dep_release"],
+                  geo=geo_walk.launches["geo_walk"], stats=dict(scan_engine.stats),
+                  passes=oracle_mod.stats["device_passes"], provision_calls=calls[0])
+    cpu_tel = recording()
+    t = time.perf_counter()
+    cpu = cpu_fn(cpu_tel)
+    cpu_wall = time.perf_counter() - t
+    same_streams(what, tel, cpu_tel)
+    if counts["knn"] != counts["provision_calls"]:
+        raise AssertionError(f"{what}: {counts['knn']} knn launches for "
+                             f"{counts['provision_calls']} provisioning calls")
+    if counts["greedy"] != counts["passes"]:
+        raise AssertionError(f"{what}: {counts['greedy']} greedy launches for "
+                             f"{counts['passes']} device passes")
+    st = counts["stats"]
+    if not (counts["fill"] == st["fill_steps"] and counts["release"] == st["dag_steps"]
+            and counts["geo"] == st["geo_steps"]):
+        raise AssertionError(f"{what}: launches {counts} against the loop's steps")
+    log(f"telemetry {what}: card {wall:.3f} s, CPU {cpu_wall:.3f} s; events "
+        f"{tel.recorder.counts()} in {len(by_run(tel))} runs, card == CPU; launches "
+        f"knn {counts['knn']} (== provisioning calls), greedy {counts['greedy']} "
+        f"(== device passes), fill {counts['fill']} (== fill steps), release "
+        f"{counts['release']} (== DAG steps), geo_walk {counts['geo']} (== geo steps); "
+        f"delegated {st['delegated']}, fault_delegated {st['fault_delegated']}, "
+        f"telemetry_delegated {st['telemetry_delegated']}")
+    for line in tel.profiler.table().splitlines():
+        log(f"  card {line}")
+    for line in cpu_tel.profiler.table().splitlines():
+        log(f"  CPU  {line}")
+    entry = dict(wall_s=wall, cpu_wall_s=cpu_wall, events=tel.recorder.counts(),
+                 runs=len(by_run(tel)), launches=counts,
+                 phases=tel.profiler.summary(), cpu_phases=cpu_tel.profiler.summary())
+    return card, cpu, tel, entry
+
+
+def recording_overhead(what, fn, rounds=2):
+    """The wall with a recorder over the wall without, taken in turns
+    (off, on, on, off per round) on the card."""
+    walls = {"off": 0.0, "on": 0.0}
+    for _ in range(rounds):
+        for side in ("off", "on", "on", "off"):
+            t = time.perf_counter()
+            fn(recording() if side == "on" else None)
+            torch.cuda.synchronize()
+            walls[side] += time.perf_counter() - t
+    ratio = walls["on"] / walls["off"]
+    log(f"recording overhead {what}: {walls['on']:.3f} s with the recorder against "
+        f"{walls['off']:.3f} s without over {2 * rounds} runs each, ratio {ratio:.4f}")
+    return dict(on_s=walls["on"], off_s=walls["off"], ratio=ratio, runs=2 * rounds)
+
+
+def telemetry_phase():
+    """Phase 10: every path with a recorder and a phase profiler, on the card's
+    scan engine and on the CPU's vector engine: the event streams equal event
+    for event, the results equal the recorder-off runs of the earlier phases,
+    the attributions equal, the kernels' launches gated against their steps."""
+    t_phase = time.perf_counter()
+    out = {}
+
+    # chaos-full: forecast reads on the outage tiles, fault events on the
+    # delegated cells; the recorded carbonflex-scale cells leave the loop
+    card, cpu, tel, out["chaos"] = recorded_path(
+        "chaos-full", lambda tel: chaos_full("cuda", "scan", "device", tel)[0],
+        lambda tel: chaos_full("cpu", "vector", "numpy", tel)[0])
+    st = out["chaos"]["launches"]["stats"]
+    if card.to_json() != RECORDER_OFF["chaos-full"] or cpu.to_json() != card.to_json():
+        raise AssertionError("chaos-full: the recorded JSON differs from the recorder-off run")
+    if not (st["telemetry_delegated"] == len(CHAOS_SEEDS) and st["delegated"] == len(CHAOS_SEEDS)
+            and out["chaos"]["launches"]["fill"] == 0 and out["chaos"]["launches"]["greedy"] > 0
+            and out["chaos"]["launches"]["knn"] > 0):
+        raise AssertionError(f"chaos-full: {out['chaos']['launches']}")
+    kinds = tel.recorder.counts()
+    if not {"forecast-read", "evict", "preempt", "restore", "checkpoint", "scale",
+            "suspend", "resume"} <= set(kinds):
+        raise AssertionError(f"chaos-full: event kinds {kinds}")
+    same_attributions("chaos-full", card.attributions(), cpu.attributions())
+
+    # geo-full: migrations decoded from the geo loop's region and mig_now grids
+    card, cpu, tel, out["geo"] = recorded_path(
+        "geo-full", lambda tel: geo_full("cuda", "scan", telemetry=tel)[0],
+        lambda tel: geo_full("cpu", "vector", telemetry=tel)[0])
+    if card.to_json() != RECORDER_OFF["geo-full"] or cpu.to_json() != card.to_json():
+        raise AssertionError("geo-full: the recorded JSON differs from the recorder-off run")
+    migrations = sum(r["migrations"] for r in card.rows())
+    if not (out["geo"]["launches"]["geo"] > 0
+            and tel.recorder.counts().get("migrate") == migrations > 0):
+        raise AssertionError(f"geo-full: {tel.recorder.counts()}, {migrations} migrations")
+    same_attributions("geo-full", card.attributions(), cpu.attributions())
+
+    # the DAG path's week: admissions on release
+    dag_scenario = dict(dag=DagConfig(), **DAG)
+    card, cpu, tel, out["dag"] = recorded_path(
+        "dag path", lambda tel: run(Scenario(engine="scan", **dag_scenario),
+                                    DEFAULT_DAG_POLICIES, telemetry=tel),
+        lambda tel: run(Scenario(engine="vector", **dag_scenario), DEFAULT_DAG_POLICIES,
+                        device="cpu", telemetry=tel))
+    if same_results(card.weekly, RECORDER_OFF["dag"].weekly, DEFAULT_DAG_POLICIES) != (0, 0):
+        raise AssertionError("dag path: the recorded run differs from the recorder-off run")
+    if not out["dag"]["launches"]["release"] >= 168 * len(DEFAULT_DAG_POLICIES):
+        raise AssertionError(f"dag path: {out['dag']['launches']}")
+    mat = Scenario(**dag_scenario).materialize()
+    # rows sort by (arrival, job_id): the decode's suspend order is the
+    # tracker's job-id order whatever this count, which says whether the two
+    # orders part on this week
+    out["dag"]["ids_out_of_order"] = int((np.diff(pack(mat.eval_jobs).job_ids) < 0).sum())
+    arrival = {j.job_id: max(j.arrival, mat.t0) for j in mat.eval_jobs}
+    released = sum(e.t > arrival[e.job] for e in tel.recorder.by_kind("admit"))
+    if not released:
+        raise AssertionError("dag path: no admission on release")
+    out["dag"]["admitted_on_release"] = released
+    same_attributions("dag path", week_attributions(card, "dag-fcfs"),
+                      week_attributions(cpu, "dag-fcfs"))
+
+    # the main path through run(): the policy/week labels and the four phases
+    card, cpu, tel, out["main"] = recorded_path(
+        "main path", lambda tel: run(Scenario(**MAIN), POLICIES, telemetry=tel),
+        lambda tel: run(Scenario(**MAIN), POLICIES, device="cpu", telemetry=tel))
+    if same_results(card.weekly, RECORDER_OFF["main"].weekly, POLICIES) != (0, 0):
+        raise AssertionError("main path: the recorded run differs from the recorder-off run")
+    labels = {f"{n}/w{w}" for n in POLICIES for w in range(MAIN["eval_weeks"])}
+    if set(by_run(tel)) != labels or set(tel.profiler.seconds) != {
+            "provision", "learn", "decide", "execute"}:
+        raise AssertionError(f"main path: labels {sorted(by_run(tel))}, phases "
+                             f"{tel.profiler.seconds}")
+    if not out["main"]["launches"]["knn"] > 0:
+        raise AssertionError("main path: no lookup on the card")
+    same_attributions("main path", week_attributions(card, "carbon-agnostic"),
+                      week_attributions(cpu, "carbon-agnostic"))
+
+    # the golden serving grid: tier switches
+    with open(os.path.join(GOLDEN, "golden_sweep_serving.json")) as f:
+        want = f.read()
+
+    def serving(device, tel):
+        return Sweep(base=Scenario(serving=ServingConfig(requests_per_day=2e5, servers=12),
+                                   learn_weeks=1, eval_weeks=1, seed=101),
+                     seeds=[11, 12], policies=list(DEFAULT_SERVE_POLICIES),
+                     telemetry=tel, device=device).run()
+
+    card, cpu, tel, out["serving"] = recorded_path(
+        "golden serving grid", lambda tel: serving("cuda", tel),
+        lambda tel: serving("cpu", tel))
+    if card.to_json() + "\n" != want or cpu.to_json() + "\n" != want:
+        raise AssertionError("golden_sweep_serving: the recorded JSON differs from the fixture")
+    if not tel.recorder.counts().get("tier-switch"):
+        raise AssertionError("golden serving grid: no tier switch")
+    same_attributions("golden serving grid", card.attributions(), cpu.attributions())
+
+    # the oracle-gap harness: scan on the card against vector on the CPU
+    def gap(device, engine, tel):
+        return RecordedGap(tel, base=Scenario(**GAP_BASE), seeds=(1,),
+                           forecasts=sigma_ladder((0.0, 0.2)), engine=engine,
+                           device=device).run()
+
+    card, cpu, tel, out["oracle_gap"] = recorded_path(
+        "oracle gap", lambda tel: gap("cuda", "scan", tel),
+        lambda tel: gap("cpu", "vector", tel))
+    if card.to_json() != cpu.to_json():
+        raise AssertionError("oracle gap: the card's JSON differs from the CPU's")
+    st = out["oracle_gap"]["launches"]["stats"]
+    n_scale = sum(r["policy"] == "carbonflex-scale" for r in card.rows())
+    if not (st["telemetry_delegated"] == n_scale > 0 and st["steps"] > 0
+            and out["oracle_gap"]["launches"]["fill"] == 0):
+        raise AssertionError(f"oracle gap: {out['oracle_gap']['launches']}")
+    out["oracle_gap"].update(cells=out["oracle_gap"]["runs"],
+                             perfect_gap={p: card.perfect_gap(p) for p in card.policies()})
+    log(card.table())
+
+    # what the recorder costs the card's paths, in turns
+    out["overhead"] = dict(
+        geo_full=recording_overhead(
+            "geo-full (card)", lambda tel: geo_full("cuda", "scan", telemetry=tel)),
+        dag=recording_overhead(
+            "dag path (card)", lambda tel: run(Scenario(engine="scan", **dag_scenario),
+                                              DEFAULT_DAG_POLICIES, telemetry=tel)))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"telemetry phase: {out['wall_s']:.3f} s")
+    return out
+
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
@@ -2941,6 +3233,15 @@ def main():
         chaos["chaos"]["launches"]["fill"]["capacity_fill"]
     by_name["geo_walk"]["chaos_launches"] = chaos["geo"]["launches"]
     by_name["dep_release_csr"]["chaos_launches"] = chaos["dag"]["launches"]
+    tele = telemetry_phase()
+    # launches on the telemetry paths (0 for the kernels no such path runs)
+    counter = dict(knn_topk="knn", greedy_pass="greedy", capacity_fill="fill",
+                   geo_walk="geo", dep_release_csr="release")
+    paths = [v for k, v in tele.items() if isinstance(v, dict) and "launches" in v]
+    for kern in kernels:
+        key = counter.get(kern["name"])
+        kern["telemetry_launches"] = (sum(p["launches"][key] for p in paths)
+                                      if key else 0)
     log(f"wall / learning / execution (s): main path {path['wall_s']:.3f} / "
         f"{path['learn_s']:.3f} / {path['execute_s']:.3f}; oracle path (backend=\"device\") "
         f"{device_path['wall_s']:.3f} / {device_path['learn_s']:.3f} / "
@@ -2953,7 +3254,7 @@ def main():
         f"{chaos['chaos']['cpu']['wall_s']:.3f}; geo-chaos on the card "
         f"{chaos['geo']['card']['wall_s']:.3f}, on the CPU {chaos['geo']['cpu']['wall_s']:.3f}"
         f"; the DAG path under the outage on the card {chaos['dag']['wall_s']:.3f}, on the "
-        f"CPU {chaos['dag']['cpu_wall_s']:.3f}")
+        f"CPU {chaos['dag']['cpu_wall_s']:.3f}; the telemetry phase {tele['wall_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
@@ -2966,6 +3267,7 @@ def main():
     log(json.dumps({"sweep_path": sweep}))
     log(json.dumps({"geo_path": geo}))
     log(json.dumps({"chaos_path": chaos}))
+    log(json.dumps({"telemetry_path": tele}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

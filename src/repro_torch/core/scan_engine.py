@@ -61,6 +61,15 @@ MPC and geo tables are built from the degraded view the policies read
 (``ci.degraded()``), the host accounting reads the true trace, and the
 result carries ``resilience`` with the degraded slots, as on the vector
 engine.
+
+Telemetry (``SimCase.telemetry``): the decision events are decoded on the
+host from the grids the loop already copies per chunk (``take``, ``fin``,
+and on the geo loop ``region`` and ``mig_now``), in the vector engine's
+order; each cell's profiler gets ``decide`` += its tile's loop seconds
+over its cells and ``execute`` its accounting.  The decode assumes every
+taken row runs at ``k_min``, so a ``carbonflex-scale`` cell with a recorder
+runs on the vector engine, whose tracker sees its scale-ups;
+``stats["telemetry_delegated"]`` counts those cells.
 """
 from __future__ import annotations
 
@@ -85,8 +94,9 @@ from .geo import GeoFlexPolicy, GeoGreedyPolicy, GeoStaticPolicy
 from .mpc import CarbonFlexMPCPolicy, CarbonFlexScalePolicy
 from .simulator import (PackedJobs, SimCase, _accumulate_regions,
                         _run_resilience, _simulate_geo_vector,
-                        _simulate_vector, packed_for)
+                        _simulate_vector, _telemetry_hooks, packed_for)
 from .types import GeoCluster, SimResult, SlotLog
+from ..telemetry import Telemetry
 
 _EPS = 1e-9
 _log = logging.getLogger(__name__)
@@ -101,12 +111,13 @@ _MPC_KINDS = ("mpc", "mpc-scale")
 #: Since the last ``reset_stats()``: slot steps (one per batched step
 #: call), cell steps (steps times the cells of the batch), steps with DAG
 #: gating, steps through the variable-k fill, geo steps (each one launch of
-#: the geo walk), cases delegated to the vector engine for their policy and
-#: for their fault process, and host seconds in the chunk loops (device
-#: steps, the per-chunk tables and copies) and in the host accounting.
+#: the geo walk), cases delegated to the vector engine for their policy,
+#: for their fault process and for a recorder on a ``carbonflex-scale``
+#: cell, and host seconds in the chunk loops (device steps, the per-chunk
+#: tables and copies) and in the host accounting.
 stats = {"steps": 0, "cell_steps": 0, "dag_steps": 0, "fill_steps": 0,
          "geo_steps": 0, "delegated": 0, "fault_delegated": 0,
-         "loop_s": 0.0, "account_s": 0.0}
+         "telemetry_delegated": 0, "loop_s": 0.0, "account_s": 0.0}
 
 
 def reset_stats() -> None:
@@ -726,8 +737,70 @@ def _active_energy(packed, power, slot_h, eta, take_a, k_rows):
     return bounds, r_idx, k, e
 
 
+def _scan_admit_slots(packed, t0, n_valid, fs, fr) -> np.ndarray:
+    """Reconstruct each row's admission slot from the finish grid.
+
+    Mirrors the vector engine exactly: a row enters the system at
+    ``max(arrival, t0)``, except DAG rows wait for every predecessor and
+    release the slot *after* the last one finishes.  Rows whose
+    predecessors never finish (or that admit past the run) return -1."""
+    admit = np.maximum(packed.arrival, t0).astype(np.int64, copy=True)
+    if packed.has_deps:
+        comp = np.full(packed.n, -1, dtype=np.int64)
+        comp[fr] = t0 + fs
+        id2row = packed.id2row
+        for r, job in enumerate(packed.jobs):
+            for dep in job.deps:
+                c = comp[id2row[dep]]
+                if c < 0:
+                    admit[r] = -1
+                    break
+                admit[r] = max(admit[r], c + 1)
+    admit[admit - t0 >= n_valid] = -1
+    return admit
+
+
+def _scan_slot_events(take, fs, fr, n_valid, job_ids):
+    """Resume/suspend derivation from the dense take grid, in whole-run
+    numpy passes.
+
+    The same events as feeding ``SlotEventTracker.step`` the per-slot
+    allocation stream (a taken row always runs at ``k_min``, so no scale
+    event can fire).  Returns ``(resume_rows, resume_bounds, suspend_rows,
+    suspend_bounds)``: each slot's resumes in row order (the tracker's feed
+    order) and its suspends in job-id order (the tracker's order; rows are
+    sorted by (arrival, job_id), which is not job-id order where ids do not
+    rise with arrival)."""
+    m = np.asarray(take, dtype=bool)
+    n = m.shape[1]
+    # on/off transitions between consecutive slots (transition index i is
+    # slot i+1); slot 0 has no transitions — first activations there are
+    # starts, and nothing can switch off into it.
+    cs, cr = np.nonzero(m[1:] & ~m[:-1])
+    # a row's first switch-on is its start (admit covers it), unless the
+    # row was already running at slot 0 — then every switch-on resumes.
+    uniq, first = np.unique(cr, return_index=True)
+    keep = np.ones(len(cr), dtype=bool)
+    keep[first[~m[0][uniq]]] = False
+    rs, rr = cs[keep] + 1, cr[keep]
+    # a switch-off is a suspend unless the row finished at the prior slot
+    # (each row finishes at most once, so a per-row slot table suffices)
+    os_, orow = np.nonzero(m[:-1] & ~m[1:])
+    finslot = np.full(n, -2, dtype=np.int64)
+    if len(fs):
+        finslot[np.asarray(fr)] = fs
+    keep = os_ != finslot[orow]
+    ss, sr = os_[keep] + 1, orow[keep]
+    order = np.lexsort((job_ids[sr], ss))
+    ss, sr = ss[order], sr[order]
+    return (rr.tolist(), np.searchsorted(rs, np.arange(n_valid + 1)),
+            sr.tolist(), np.searchsorted(ss, np.arange(n_valid + 1)))
+
+
 def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
-                    prog) -> SimResult:
+                    prog, telemetry: Telemetry | None = None) -> SimResult:
+    tele, prof, _, _ = _telemetry_hooks(telemetry, None)
+    ci_pol = ci.degraded()
     n = packed.n
     slot_h = cluster.slot_hours
     eta = cluster.eta_net
@@ -751,10 +824,25 @@ def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
     viol_f = ys["viol"][:n_valid, :n][fs, fr]
     n_rows_a = ys["n_rows"][:n_valid]
     civ_a = _ci_block(ci, t0, n_valid)
+    if tele is not None:
+        admits_by, jids, kv, (rr, rb, sr, sb) = _event_tables(
+            packed, t0, n_valid, take_a, fs, fr)
+        emit = tele.emit
+    if prof is not None:
+        _pt = time.perf_counter()
     for i in range(n_valid):
         t = t0 + i
         civ = float(civ_a[i])
         lo, hi = bounds[i], bounds[i + 1]
+        if tele is not None:
+            for r in admits_by.get(t, ()):
+                emit(t, "admit", job=jids[r])
+            if ci_pol is not ci:
+                emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+            for r in rr[rb[i]:rb[i + 1]]:
+                emit(t, "resume", job=jids[r], value=kv[r])
+            for r in sr[sb[i]:sb[i + 1]]:
+                emit(t, "suspend", job=jids[r])
         energy = 0.0
         for v in e_act[lo:hi].tolist():        # sequential sum, scalar order
             energy += v
@@ -773,19 +861,40 @@ def _account_single(packed, ci, cluster, policy, t0, ys, n_valid,
                             energy_kwh=energy, carbon_g=carbon,
                             running=running,
                             queued=int(n_rows_a[i]) - len(frows) - running))
+    if prof is not None:
+        prof.add("execute", time.perf_counter() - _pt)
     return SimResult(
         policy=policy.name, carbon_g=total_carbon, energy_kwh=total_energy,
         slots=logs, wait_slots=wait, violations=violations,
         completion=completion, num_jobs=n,
-        resilience=_run_resilience(None, ci.degraded(), ci, t0, t0 + n_valid))
+        resilience=_run_resilience(None, ci_pol, ci, t0, t0 + n_valid))
+
+
+def _event_tables(packed, t0, n_valid, take_a, fs, fr):
+    """What the event decode reads per slot: the rows admitted at each slot
+    (row order, as the vector engine's sorted admissions), the job ids, the
+    rows' ``k_min`` as the resume value, and ``_scan_slot_events``."""
+    admits_by: dict[int, list[int]] = {}
+    for r, s in enumerate(_scan_admit_slots(packed, t0, n_valid, fs,
+                                            fr).tolist()):
+        if s >= 0:
+            admits_by.setdefault(s, []).append(r)
+    kv = [float(k) for k in packed.k_min.tolist()]
+    return (admits_by, packed.job_ids.tolist(), kv,
+            _scan_slot_events(take_a, fs, fr, n_valid, packed.job_ids))
 
 
 def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
-                 prog: _GeoProgram) -> SimResult:
+                 prog: _GeoProgram,
+                 telemetry: Telemetry | None = None) -> SimResult:
     """The geo engines' accounting over the emitted grids, in their float
     order: per-region energy in row order, each migration's transfer
     energy to its destination and its carbon at the destination's CI in
-    row (= decision) order, then ``_accumulate_regions``."""
+    row (= decision) order, then ``_accumulate_regions``.  Events in the
+    geo vector engine's order: admit, forecast-read, migrate (row order,
+    the decision order), resume, suspend."""
+    tele, prof, _, _ = _telemetry_hooks(telemetry, None)
+    ci_pol = mci.degraded()
     n = packed.n
     n_regions = geo.n_regions
     wait = np.zeros(n)
@@ -814,11 +923,31 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
     mbounds = np.searchsorted(ms_idx, np.arange(n_valid + 1))
     n_rows_a = ys["n_rows"][:n_valid]
     civ_a = _ci_vec_acct_block(mci, t0, n_valid)
+    if tele is not None:
+        admits_by, jids, kv, (rr, rb, sr, sb) = _event_tables(
+            packed, t0, n_valid, take_a, fs, fr)
+        emit = tele.emit
+    if prof is not None:
+        _pt = time.perf_counter()
     for i in range(n_valid):
         t = t0 + i
         ci_vec = civ_a[i]
         lo, hi = bounds[i], bounds[i + 1]
         mrows = mr_idx[mbounds[i]:mbounds[i + 1]]
+        if tele is not None:
+            for r in admits_by.get(t, ()):
+                emit(t, "admit", job=jids[r])
+            if ci_pol is not mci:
+                emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+            for row in mrows.tolist():             # decision order
+                src = (int(reg_a[i - 1, row]) if i > 0
+                       else geo.home_region(row))
+                emit(t, "migrate", job=jids[row],
+                     value=float(reg_a[i, row]), detail=f"from={src}")
+            for r in rr[rb[i]:rb[i + 1]]:
+                emit(t, "resume", job=jids[r], value=kv[r])
+            for r in sr[sb[i]:sb[i + 1]]:
+                emit(t, "suspend", job=jids[r])
         e_vec = e_act[lo:hi]
         a_regions = areg_act[lo:hi]
         energy_r = np.zeros(n_regions)
@@ -851,6 +980,8 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
                             energy_kwh=energy, carbon_g=carbon,
                             running=running,
                             queued=int(n_rows_a[i]) - len(frows) - running))
+    if prof is not None:
+        prof.add("execute", time.perf_counter() - _pt)
     return SimResult(
         policy=policy.name, carbon_g=total_carbon, energy_kwh=total_energy,
         slots=logs, wait_slots=wait, violations=violations,
@@ -858,8 +989,7 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
         region_carbon_g=region_carbon, region_energy_kwh=region_energy,
         final_region=final_region, migrations=migrations,
         migration_carbon_g=mig_carbon_total,
-        resilience=_run_resilience(None, mci.degraded(), mci, t0,
-                                   t0 + n_valid))
+        resilience=_run_resilience(None, ci_pol, mci, t0, t0 + n_valid))
 
 
 # --- public API --------------------------------------------------------------
@@ -867,14 +997,14 @@ def _account_geo(packed, mci, geo: GeoCluster, policy, t0, ys, n_valid,
 
 def simulate_scan(jobs, ci, cluster, policy, t0: int = 0,
                   horizon: int | None = None, max_overrun: int = 24 * 21,
-                  faults=None,
+                  faults=None, telemetry: Telemetry | None = None,
                   device: str | torch.device = "cuda") -> SimResult:
     """``simulate(..., engine="scan")``: the device slot loop for native
     policies, the vector engine otherwise (and for any fault process)."""
     return simulate_many_scan([SimCase(
         jobs=jobs, ci=ci, cluster=cluster, policy=policy, t0=t0,
         horizon=horizon, max_overrun=max_overrun, faults=faults,
-        engine="scan", device=device)])[0]
+        engine="scan", telemetry=telemetry, device=device)])[0]
 
 
 @dataclasses.dataclass
@@ -901,10 +1031,17 @@ def simulate_many_scan(cases: Sequence[SimCase],
         packed = packed_for(case.jobs, packs)
         is_geo = isinstance(case.cluster, GeoCluster)
         kind = native_kind(case.policy, is_geo, case.faults)
-        if kind is None or packed.n == 0 or (is_geo and packed.has_deps):
+        # the event decode assumes k == k_min: a recorded scale-up cell runs
+        # on the vector engine, whose tracker sees its scale events
+        scale_recorded = (kind == "mpc-scale" and case.telemetry is not None
+                          and case.telemetry.recorder is not None)
+        if (kind is None or scale_recorded or packed.n == 0
+                or (is_geo and packed.has_deps)):
             if packed.n > 0:
                 if case.faults is not None:
                     stats["fault_delegated"] += 1
+                elif scale_recorded:
+                    stats["telemetry_delegated"] += 1
                 else:
                     who = type(case.policy).__name__
                     delegated[who] = delegated.get(who, 0) + 1
@@ -912,7 +1049,8 @@ def simulate_many_scan(cases: Sequence[SimCase],
             fn = _simulate_geo_vector if is_geo else _simulate_vector
             results[i] = fn(case.jobs, case.ci, case.cluster, case.policy,
                             case.t0, case.horizon, case.max_overrun,
-                            case.faults, packed=packed)
+                            case.faults, packed=packed,
+                            telemetry=case.telemetry)
             continue
         horizon = int(case.horizon if case.horizon is not None
                       else len(case.ci) - case.t0)
@@ -979,14 +1117,25 @@ def _run_single_tile(members: list[_Member], graph, device, results) -> None:
         horizon + case0.max_overrun, device, ys_types, counters)
     t_acct = time.perf_counter()
     stats["loop_s"] += t_acct - t_loop
+    _profile_loop(members, t_acct - t_loop)
     for j, m in enumerate(members):
         ys = {k: v[j] for k, v in ys_all.items()}
         ended = ys["ended"]
         n_valid = int(np.argmax(ended)) if ended.any() else len(ended)
         results[m.index] = _account_single(
             m.packed, m.case.ci, m.case.cluster, m.case.policy, m.case.t0, ys,
-            n_valid, m.prog)
+            n_valid, m.prog, telemetry=m.case.telemetry)
     stats["account_s"] += time.perf_counter() - t_acct
+
+
+def _profile_loop(members: list[_Member], seconds: float) -> None:
+    """The tile's chunk loop is shared (its per-chunk copies wait for the
+    device): split its seconds evenly over the cells' ``decide`` phase, so
+    per-cell phase totals still sum to real time."""
+    for m in members:
+        tel = m.case.telemetry
+        if tel is not None and tel.profiler is not None:
+            tel.profiler.add("decide", seconds / len(members))
 
 
 def _stacked(progs, part: str, device) -> dict:
@@ -1016,11 +1165,12 @@ def _run_geo_tile(members: list[_Member], device, results) -> None:
         horizon + case0.max_overrun, device, _GEO_YS_TYPES, ("geo_steps",))
     t_acct = time.perf_counter()
     stats["loop_s"] += t_acct - t_loop
+    _profile_loop(members, t_acct - t_loop)
     for j, m in enumerate(members):
         ys = {k: v[j] for k, v in ys_all.items()}
         ended = ys["ended"]
         n_valid = int(np.argmax(ended)) if ended.any() else len(ended)
         results[m.index] = _account_geo(
             m.packed, m.case.ci, m.case.cluster, m.case.policy, m.case.t0, ys,
-            n_valid, m.prog)
+            n_valid, m.prog, telemetry=m.case.telemetry)
     stats["account_s"] += time.perf_counter() - t_acct

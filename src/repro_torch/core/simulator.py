@@ -60,6 +60,7 @@ the JAX package, so both packages give bit-identical results.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -72,6 +73,7 @@ from .policy import Policy
 from .scheduling import ActiveJob, EntryBlocks, apply_slot
 from .types import (ClusterConfig, GeoCluster, Job, ResilienceMetrics,
                     SimResult, SlotLog)
+from ..telemetry import SlotEventTracker, Telemetry, emit_fault_events
 
 _EPS = 1e-9
 
@@ -91,6 +93,18 @@ def _run_resilience(faults, ci_pol, ci, t0: int,
         resil = dataclasses.replace(
             resil, degraded_slots=_count_degraded(ci_pol, t0, t_end))
     return resil
+
+
+def _telemetry_hooks(telemetry: Telemetry | None, faults):
+    """(event facade, profiler, tracker, fault kind) for one engine run —
+    all None/"" when telemetry is off, so the hot-loop guards stay single
+    branches and the off path performs zero extra work."""
+    if telemetry is None:
+        return None, None, None, ""
+    tele = telemetry if telemetry.recorder is not None else None
+    tracker = SlotEventTracker(tele) if tele is not None else None
+    kind = getattr(faults, "kind", "") if faults is not None else ""
+    return tele, telemetry.profiler, tracker, kind
 
 
 # --- packed job tables ------------------------------------------------------
@@ -266,10 +280,13 @@ def simulate(
     max_overrun: int = 24 * 21,
     faults: FaultProcess | None = None,
     engine: str = "vector",
+    telemetry: Telemetry | None = None,
     device: str | torch.device = "cuda",
 ) -> SimResult:
     """One window under one policy.  ``faults`` is a fault process
-    (``core/faults.py``) disturbing every slot; ``device`` is where the scan
+    (``core/faults.py``) disturbing every slot; ``telemetry`` records the
+    run's decision events and phase times (``repro_torch.telemetry``; None
+    leaves every engine on its untouched path); ``device`` is where the scan
     engine runs its slot loop (a faulted case runs on the vector engine
     instead); the host engines ignore it."""
     if engine not in ("vector", "scalar", "scan"):
@@ -280,15 +297,17 @@ def simulate(
     if engine == "scan":
         from .scan_engine import simulate_scan
         return simulate_scan(jobs, ci, cluster, policy, t0, horizon,
-                             max_overrun, faults, device=device)
+                             max_overrun, faults, telemetry=telemetry,
+                             device=device)
     if isinstance(cluster, GeoCluster):
         fn = _simulate_geo_scalar if engine == "scalar" else _simulate_geo_vector
-        return fn(jobs, ci, cluster, policy, t0, horizon, max_overrun, faults)
+        return fn(jobs, ci, cluster, policy, t0, horizon, max_overrun, faults,
+                  telemetry=telemetry)
     if engine == "scalar":
         return _simulate_scalar(jobs, ci, cluster, policy, t0, horizon,
-                                max_overrun, faults)
+                                max_overrun, faults, telemetry=telemetry)
     return _simulate_vector(jobs, ci, cluster, policy, t0, horizon,
-                            max_overrun, faults)
+                            max_overrun, faults, telemetry=telemetry)
 
 
 # --- vector engine ----------------------------------------------------------
@@ -304,6 +323,7 @@ def _simulate_vector(
     max_overrun: int = 24 * 21,
     faults: FaultProcess | None = None,
     packed: PackedJobs | None = None,
+    telemetry: Telemetry | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(ci) - t0)
     if packed is None:
@@ -312,6 +332,7 @@ def _simulate_vector(
     faults = ensure_fault_process(faults)  # view; accounting the true feed
     if faults is not None:
         faults.on_run_start(t0, cluster.capacity)
+    tele, prof, tracker, fault_kind = _telemetry_hooks(telemetry, faults)
     policy.on_window_start(ci_pol, t0, horizon, packed.jobs, cluster)
     decide_packed = getattr(policy, "decide_packed", None)
     packed_safe = bool(getattr(policy, "packed_safe", False))
@@ -338,12 +359,15 @@ def _simulate_vector(
     t_end = t0 + horizon
     rows_dirty = True
     while t < t_end + max_overrun:
+        admits = [] if tracker is not None else None
         if has_deps and eng.pending_release:
             # Tasks whose last predecessor completed last slot: released
             # now, with slack/deadline counting from the release slot.
             for r in eng.pending_release:
                 eng.in_system[r] = True
                 eng.deadline_eff[r] = t + packed.dl_span[r]
+            if admits is not None:
+                admits.extend(eng.pending_release)
             eng.blocked -= len(eng.pending_release)
             eng.pending_release.clear()
             rows_dirty = True
@@ -352,8 +376,13 @@ def _simulate_vector(
                 eng.blocked += 1       # gated: enters via the release path
             else:
                 eng.in_system[eng.admitted] = True
+                if admits is not None:
+                    admits.append(eng.admitted)
                 rows_dirty = True
             eng.admitted += 1
+        if admits:
+            for r in sorted(admits):
+                tracker.admit(t, int(packed.job_ids[r]))
         if rows_dirty:
             eng.rows = np.flatnonzero(eng.in_system)
             rows_dirty = False
@@ -367,6 +396,11 @@ def _simulate_vector(
             cap_t = faults.available_capacity(cluster.capacity)
         else:
             cap_t = cluster.capacity
+        if tele is not None and ci_pol is not ci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+
+        if prof is not None:
+            _pt = time.perf_counter()
         if decide_packed is not None:
             m_pol, kvec = decide_packed(t, eng, ci_pol, cluster)
             m_t = int(min(m_pol, cap_t))
@@ -399,12 +433,18 @@ def _simulate_vector(
             kvec = np.zeros(n, dtype=np.int64)
             for jid, k in alloc.items():
                 kvec[id2row[jid]] = k
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
 
         civ = ci.ci(t)
         k_rows = kvec[rows]
         live = eng.remaining[rows] > _EPS      # "not done", pre-progress
         arows = rows[k_rows > 0]               # energy: done jobs included,
         k_a = kvec[arows]                      # matching the scalar loop
+        if tracker is not None:
+            tracker.step(t, packed.job_ids[arows].tolist(), k_a.tolist())
         thr_a = thr_tab[arows, k_a]
         # Fractional final slot (paper footnote 4): only the work actually
         # needed is charged.  Each elementwise op mirrors the scalar
@@ -431,6 +471,9 @@ def _simulate_vector(
                 for v in dist.extra_energy.tolist():
                     if v:
                         energy += v
+            if tele is not None:
+                emit_fault_events(tele, t, packed.job_ids[prows].tolist(),
+                                  dist, fault_kind)
         carbon = emissions.slot_carbon_g(energy, civ)
         total_energy += energy
         total_carbon += carbon
@@ -456,6 +499,8 @@ def _simulate_vector(
             violations[fin] = t > eng.deadline_eff[fin]
             for r in fin.tolist():
                 policy.on_completion(t, eng.view(r), bool(violations[r]))
+                if tracker is not None:
+                    tracker.finish(int(packed.job_ids[r]))
                 if has_deps:
                     for s in packed.succ_rows[
                             packed.succ_ptr[r]:packed.succ_ptr[r + 1]]:
@@ -471,6 +516,8 @@ def _simulate_vector(
                             energy_kwh=energy, carbon_g=carbon,
                             running=running,
                             queued=len(rows) - len(fin) - running))
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
         t += 1
 
     return SimResult(
@@ -504,8 +551,9 @@ def _kvec_enforced(kvec: np.ndarray, eng: EngineState, m_t: int) -> np.ndarray:
 class SimCase:
     """One (trace, CI, cluster, policy) configuration of a sweep.
     ``faults`` is the case's own fault process (a fresh instance per
-    case: its RNG stream is the case's).  ``device`` is where the scan
-    engine runs its slot loop; the host engines ignore it.  A
+    case: its RNG stream is the case's).  ``telemetry`` records the case's
+    events and phase times.  ``device`` is where the scan engine runs its
+    slot loop; the host engines ignore it.  A
     ``GeoCluster`` + ``MultiRegionCarbonService`` pair makes the case
     geo-distributed (multi-region engine, geo policy)."""
 
@@ -519,6 +567,7 @@ class SimCase:
     faults: FaultProcess | None = None
     label: str = ""
     engine: str = "vector"
+    telemetry: Telemetry | None = None
     device: str | torch.device = "cuda"
 
 
@@ -551,12 +600,14 @@ def simulate_many(cases: Iterable[SimCase] | Sequence[SimCase]) -> list[SimResul
         if case.engine == "scalar":
             fn = _simulate_geo_scalar if geo else _simulate_scalar
             out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
-                        case.horizon, case.max_overrun, case.faults)
+                        case.horizon, case.max_overrun, case.faults,
+                        telemetry=case.telemetry)
         else:
             fn = _simulate_geo_vector if geo else _simulate_vector
             out[i] = fn(case.jobs, case.ci, case.cluster, case.policy, case.t0,
                         case.horizon, case.max_overrun, case.faults,
-                        packed=packed_for(case.jobs, packs))
+                        packed=packed_for(case.jobs, packs),
+                        telemetry=case.telemetry)
     return out
 
 
@@ -580,6 +631,7 @@ def _simulate_scalar(
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
     faults: FaultProcess | None = None,
+    telemetry: Telemetry | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(ci) - t0)
     jobs = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
@@ -587,6 +639,7 @@ def _simulate_scalar(
     faults = ensure_fault_process(faults)
     if faults is not None:
         faults.on_run_start(t0, cluster.capacity)
+    tele, prof, tracker, fault_kind = _telemetry_hooks(telemetry, faults)
     policy.on_window_start(ci_pol, t0, horizon, jobs, cluster)
 
     active: list[ActiveJob] = []
@@ -641,10 +694,13 @@ def _simulate_scalar(
     t_end = t0 + horizon
     while t < t_end + max_overrun:
         released = False
+        admits = [] if tracker is not None else None
         if has_deps and pending_release:
             for j in pending_release:
                 active.append(ActiveJob(job=j, remaining=j.length,
                                         slack_left=j.delay))
+                if admits is not None:
+                    admits.append(id2row[j.job_id])
                 deadline_eff[j.job_id] = t + (j.deadline - j.arrival)
             blocked -= len(pending_release)
             pending_release = []
@@ -656,6 +712,11 @@ def _simulate_scalar(
                 blocked += 1          # gated: enters via the release path
                 continue
             active.append(ActiveJob(job=j, remaining=j.length, slack_left=j.delay))
+            if admits is not None:
+                admits.append(id2row[j.job_id])
+        if admits:
+            for r in sorted(admits):
+                tracker.admit(t, jobs[r].job_id)
         if released:
             # keep active in (arrival, job_id) row order, matching the
             # vector engine's sorted-row iteration (float-sum parity)
@@ -668,9 +729,22 @@ def _simulate_scalar(
             cap_t = faults.available_capacity(cluster.capacity)
         else:
             cap_t = cluster.capacity
+        if tele is not None and ci_pol is not ci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+
+        if prof is not None:
+            _pt = time.perf_counter()
         m_t, alloc = policy.decide(t, active, ci_pol, cluster)
         m_t = int(min(m_t, cap_t))
         alloc = _enforce_capacity(alloc, active, m_t)
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
+        if tracker is not None:
+            ids = [a.job.job_id for a in active
+                   if alloc.get(a.job.job_id, 0) > 0]
+            tracker.step(t, ids, [alloc[j] for j in ids])
 
         civ = ci.ci(t)
         energy = 0.0
@@ -697,6 +771,9 @@ def _simulate_scalar(
                 for v in dist.extra_energy.tolist():
                     if v:
                         energy += v
+            if tele is not None:
+                emit_fault_events(tele, t, [a.job.job_id for a in run],
+                                  dist, fault_kind)
         carbon = emissions.slot_carbon_g(energy, civ)
         total_energy += energy
         total_carbon += carbon
@@ -725,6 +802,8 @@ def _simulate_scalar(
             wait[row] = a.waited
             violations[row] = t > deadline_eff.get(jid, a.job.deadline)
             policy.on_completion(t, a, bool(violations[row]))
+            if tracker is not None:
+                tracker.finish(jid)
             if has_deps:
                 for child in succ[jid]:
                     pred_left[child.job_id] -= 1
@@ -736,6 +815,8 @@ def _simulate_scalar(
         logs.append(SlotLog(slot=t, ci=civ, provisioned=m_t, used=used,
                             energy_kwh=energy, carbon_g=carbon,
                             running=len(alloc), queued=len(active) - len(alloc)))
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
         t += 1
 
     return SimResult(
@@ -866,7 +947,8 @@ class GeoEngineState(EngineState):
         return v
 
 
-def _resolve_geo(active, alloc: dict[int, tuple[int, int]], geo: GeoCluster):
+def _resolve_geo(active, alloc: dict[int, tuple[int, int]], geo: GeoCluster,
+                 tele: Telemetry | None = None, t: int = 0):
     """Apply placement/migration semantics to a policy's raw decision.
 
     Walks the active set in engine order, mutating each view's
@@ -874,8 +956,8 @@ def _resolve_geo(active, alloc: dict[int, tuple[int, int]], geo: GeoCluster):
     migration initiation for started ones) and splitting the surviving
     allocations per region.  Returns ``(per_region_alloc, migrations)``
     where ``migrations`` lists ``(view, dest_region)`` in decision order.
-    Shared verbatim by both geo engines so their state transitions are
-    identical."""
+    Shared verbatim by both geo engines so their state transitions (and
+    the migrate events emitted here) are identical."""
     per_r: list[dict[int, int]] = [dict() for _ in range(geo.n_regions)]
     migs = []
     for a in active:
@@ -890,6 +972,9 @@ def _resolve_geo(active, alloc: dict[int, tuple[int, int]], geo: GeoCluster):
                              f"{r}; cluster has {geo.n_regions} regions")
         if r != a.region:
             if a.started:
+                if tele is not None:
+                    tele.emit(t, "migrate", job=a.job.job_id, value=float(r),
+                              detail=f"from={int(a.region)}")
                 a.region = r
                 a.mig_left = geo.migration.slots(a.job)
                 migs.append((a, r))
@@ -939,6 +1024,7 @@ def _simulate_geo_vector(
     max_overrun: int = 24 * 21,
     faults: FaultProcess | None = None,
     packed: PackedJobs | None = None,
+    telemetry: Telemetry | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(mci) - t0)
     if packed is None:
@@ -950,6 +1036,7 @@ def _simulate_geo_vector(
     faults = ensure_fault_process(faults)
     if faults is not None:
         faults.on_run_start(t0, geo.capacity_vec())
+    tele, prof, tracker, fault_kind = _telemetry_hooks(telemetry, faults)
     policy.on_window_start(ci_pol, t0, horizon, packed.jobs, geo)
 
     eng = GeoEngineState(packed, geo)
@@ -979,10 +1066,16 @@ def _simulate_geo_vector(
     t_end = t0 + horizon
     rows_dirty = True
     while t < t_end + max_overrun:
+        admits = [] if tracker is not None else None
         while eng.admitted < n and arrival[eng.admitted] <= t:
             eng.in_system[eng.admitted] = True
+            if admits is not None:
+                admits.append(eng.admitted)
             eng.admitted += 1
             rows_dirty = True
+        if admits:
+            for r in sorted(admits):
+                tracker.admit(t, int(packed.job_ids[r]))
         if rows_dirty:
             eng.rows = np.flatnonzero(eng.in_system)
             rows_dirty = False
@@ -995,21 +1088,32 @@ def _simulate_geo_vector(
             caps_t = faults.available_capacity_vec(caps)
         else:
             caps_t = caps
+        if tele is not None and ci_pol is not mci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+        if prof is not None:
+            _pt = time.perf_counter()
+
         active_views = eng.active_views()
         m_vec, alloc = policy.decide_geo(t, active_views, ci_pol, geo)
         m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps_t)
-        per_r, migs = _resolve_geo(active_views, alloc, geo)
+        per_r, migs = _resolve_geo(active_views, alloc, geo, tele, t)
         kvec = np.zeros(n, dtype=np.int64)
         for r in range(n_regions):
             for jid, k in _enforce_capacity(per_r[r], active_views,
                                             int(m_vec[r])).items():
                 kvec[id2row[jid]] = k
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
 
         ci_vec = mci.ci_vec(t)
         k_rows = kvec[rows]
         live = eng.remaining[rows] > _EPS
         arows = rows[k_rows > 0]
         k_a = kvec[arows]
+        if tracker is not None:
+            tracker.step(t, packed.job_ids[arows].tolist(), k_a.tolist())
         thr_a = thr_tab[arows, k_a]
         # Elementwise ops mirror the scalar ``emissions.slot_energy_kwh``
         # expression order (see the single-region vector engine).
@@ -1036,6 +1140,9 @@ def _simulate_geo_vector(
                 for i, v in enumerate(dist.extra_energy.tolist()):
                     if v:
                         energy_r[int(p_reg[i])] += v
+            if tele is not None:
+                emit_fault_events(tele, t, packed.job_ids[prows].tolist(),
+                                  dist, fault_kind)
 
         mc = _charge_migrations(migs, geo, ci_vec, energy_r)
         mig_carbon_total += mc
@@ -1066,6 +1173,8 @@ def _simulate_geo_vector(
             final_region[fin] = eng.region[fin]
             for r in fin.tolist():
                 policy.on_completion(t, eng.view(r), bool(violations[r]))
+                if tracker is not None:
+                    tracker.finish(int(packed.job_ids[r]))
             eng.in_system[fin] = False
             rows_dirty = True
 
@@ -1076,6 +1185,8 @@ def _simulate_geo_vector(
                             energy_kwh=energy, carbon_g=carbon,
                             running=running,
                             queued=len(rows) - len(fin) - running))
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
         t += 1
 
     return SimResult(
@@ -1106,6 +1217,7 @@ def _simulate_geo_scalar(
     horizon: int | None = None,
     max_overrun: int = 24 * 21,
     faults: FaultProcess | None = None,
+    telemetry: Telemetry | None = None,
 ) -> SimResult:
     horizon = int(horizon if horizon is not None else len(mci) - t0)
     if any(j.deps for j in jobs):
@@ -1116,6 +1228,7 @@ def _simulate_geo_scalar(
     faults = ensure_fault_process(faults)
     if faults is not None:
         faults.on_run_start(t0, geo.capacity_vec())
+    tele, prof, tracker, fault_kind = _telemetry_hooks(telemetry, faults)
     policy.on_window_start(ci_pol, t0, horizon, jobs, geo)
 
     n_regions = geo.n_regions
@@ -1139,12 +1252,18 @@ def _simulate_geo_scalar(
     t = t0
     t_end = t0 + horizon
     while t < t_end + max_overrun:
+        admits = [] if tracker is not None else None
         while next_arrival < n and jobs[next_arrival].arrival <= t:
             j = jobs[next_arrival]
+            if admits is not None:
+                admits.append(next_arrival)
             active.append(GeoActiveJob(
                 job=j, remaining=j.length, slack_left=j.delay,
                 region=geo.home_region(next_arrival)))
             next_arrival += 1
+        if admits:
+            for r in sorted(admits):
+                tracker.admit(t, jobs[r].job_id)
         if not active and next_arrival == n and t >= t_end:
             break
 
@@ -1153,14 +1272,27 @@ def _simulate_geo_scalar(
             caps_t = faults.available_capacity_vec(caps)
         else:
             caps_t = caps
+        if tele is not None and ci_pol is not mci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+        if prof is not None:
+            _pt = time.perf_counter()
+
         m_vec, alloc = policy.decide_geo(t, active, ci_pol, geo)
         m_vec = np.minimum(np.asarray(m_vec, dtype=np.int64), caps_t)
-        per_r, migs = _resolve_geo(active, alloc, geo)
+        per_r, migs = _resolve_geo(active, alloc, geo, tele, t)
         final: dict[int, tuple[int, int]] = {}
         for r in range(n_regions):
             for jid, k in _enforce_capacity(per_r[r], active,
                                             int(m_vec[r])).items():
                 final[jid] = (r, k)
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
+        if tracker is not None:
+            ids = [a.job.job_id for a in active
+                   if final.get(a.job.job_id, (0, 0))[1] > 0]
+            tracker.step(t, ids, [final[j][1] for j in ids])
 
         ci_vec = mci.ci_vec(t)
         energy_r = np.zeros(n_regions)
@@ -1189,6 +1321,9 @@ def _simulate_geo_scalar(
                 for i, v in enumerate(dist.extra_energy.tolist()):
                     if v:
                         energy_r[int(regs[i])] += v
+            if tele is not None:
+                emit_fault_events(tele, t, [a.job.job_id for a in run],
+                                  dist, fault_kind)
 
         mc = _charge_migrations(migs, geo, ci_vec, energy_r)
         mig_carbon_total += mc
@@ -1234,6 +1369,8 @@ def _simulate_geo_scalar(
             violations[row] = t > a.job.deadline
             final_region[row] = a.region
             policy.on_completion(t, a, bool(violations[row]))
+            if tracker is not None:
+                tracker.finish(a.job.job_id)
         active = [a for a in active if not a.done]
 
         used = sum(k for _, k in final.values())
@@ -1243,6 +1380,8 @@ def _simulate_geo_scalar(
                             energy_kwh=energy, carbon_g=carbon,
                             running=running,
                             queued=len(active) - running))
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
         t += 1
 
     return SimResult(

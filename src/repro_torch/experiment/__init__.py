@@ -19,7 +19,10 @@
                    batch, aggregated by ``SweepResult`` (savings vs a named
                    baseline, dispersion, JSON + CSV export); serving grids
                    (``Scenario(serving=...)``) dispatch through the
-                   request-serving engine instead.
+                   request-serving engine instead;
+- ``OracleGap``  — the forecast-error harness: per-cell savings-gap-to-
+                   oracle under a forecast-error ladder (``sigma_ladder``)
+                   and the degradation curve per policy.
 
 Quickstart::
 
@@ -37,6 +40,8 @@ from . import registry  # noqa: F401
 from .driver import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES,  # noqa: F401
                      DEFAULT_POLICIES, DEFAULT_SERVE_POLICIES,
                      ExperimentResult, prepare_context, run)
+from .oracle_gap import (DEFAULT_GAP_POLICIES, OracleGap,  # noqa: F401
+                         OracleGapResult, sigma_ladder)
 from .registry import (PolicyContext, PolicySpec, available_policies,  # noqa: F401
                        check_scenario_policies, make_policy, register_policy)
 from repro_torch.serving import ServingConfig  # noqa: F401  (scenario convenience)

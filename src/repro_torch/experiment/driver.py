@@ -15,9 +15,10 @@ greedy pass; everything else is host numpy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
 from repro_torch.serving import ServeCase, simulate_serving_many
+from repro_torch.telemetry import Telemetry
 
 from .registry import (PolicyContext, check_scenario_policies, get_spec,
                        make_policy, needs_kb)
@@ -217,6 +219,14 @@ class ExperimentResult:
                 f"{self.mean_wait(name):7.1f} {self.violation_rate(name):6.3f}")
         return "\n".join(lines)
 
+    def to_dict(self, baseline: str | None = None) -> dict:
+        return {
+            "scenario": self.scenario.to_dict(),
+            "kb_size": self.kb_size,
+            "runtime_s": round(self.runtime_s, 3),
+            "policies": self.metrics(baseline),
+        }
+
 
 def run(
     scenario: Scenario,
@@ -226,6 +236,8 @@ def run(
     forecast_quantile: float = 0.7,
     device: str | torch.device = "cuda",
     backend: str = "numpy",
+    progress: Callable[[str], None] | None = None,
+    telemetry: Telemetry | None = None,
 ) -> ExperimentResult:
     """Run ``scenario`` under the named policies (registry names).
 
@@ -243,6 +255,12 @@ def run(
     to the geo family on geo scenarios, the DAG family on DAG scenarios and
     the serve family on serving scenarios.  A scenario's fault process runs
     as a fresh copy in every case (its RNG stream re-seeded per case).
+    ``progress`` gets one line per evaluated week.  ``telemetry`` attaches
+    a decision-trace recorder and/or phase profiler: every engine dispatch
+    records under a ``"{policy}/w{week}"`` run label, and the learning and
+    materialisation here bracket the profiler's ``learn``/``provision``
+    phases.  The default ``None`` leaves every engine on its untouched
+    path.
     """
     device = resolve_device(device)
     if backend not in oracle.BACKENDS:
@@ -257,12 +275,23 @@ def run(
     # unknown names raise too
     check_scenario_policies(names, scenario.is_geo, scenario.is_dag,
                             scenario.is_serving)
+    prof = telemetry.profiler if telemetry is not None else None
+
+    def phase(name: str):
+        return prof.phase(name) if prof is not None else contextlib.nullcontext()
+
+    def label(name: str, week: int) -> Telemetry | None:
+        return (telemetry.for_run(f"{name}/w{week}") if telemetry is not None
+                else None)
+
     t_start = time.perf_counter()
-    mat = scenario.materialize()
+    with phase("provision"):
+        mat = scenario.materialize()
     t_learn = time.perf_counter()
-    ctx = prepare_context(mat, names, kb_kwargs=kb_kwargs,
-                          forecast_quantile=forecast_quantile, device=device,
-                          backend=backend)
+    with phase("learn"):
+        ctx = prepare_context(mat, names, kb_kwargs=kb_kwargs,
+                              forecast_quantile=forecast_quantile,
+                              device=device, backend=backend)
     learn_s = time.perf_counter() - t_learn
     execute_s = 0.0
     instances = {n: make_policy(n, ctx) for n in names}
@@ -279,10 +308,19 @@ def run(
             cases = [ServeCase(demand=mat.serving.demand[t0: t0 + WEEK],
                                rate=mat.serving.rate, ci=mat.ci,
                                config=mat.serving.config,
-                               policy=instances[n], t0=t0, label=n)
+                               policy=instances[n], t0=t0, label=n,
+                               telemetry=label(n, w))
                      for n in names]
             for n, res in zip(names, simulate_serving_many(cases)):
                 weekly[n].append(res)
+            if progress is not None:
+                agg = {n: sum(r.carbon_g for r in weekly[n]) for n in names}
+                base = agg.get("serve-static")
+                parts = [f"week {w + 1}/{scenario.eval_weeks}"]
+                if base:
+                    parts += [f"{n}={100 * (1 - c / base):.1f}%"
+                              for n, c in agg.items() if n != "serve-static"]
+                progress("  ".join(parts))
         return ExperimentResult(
             scenario=scenario, policies=names, weekly=weekly, kb_size=0,
             runtime_s=time.perf_counter() - t_start, learn_s=learn_s,
@@ -295,8 +333,10 @@ def run(
             prev = [j for j in mat.jobs if t0 - WEEK <= j.arrival < t0]
             t_learn = time.perf_counter()
             if ctx.kb is not None:
-                learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK, mat.cluster,
-                             offsets=(t0 - WEEK,), backend=backend)
+                with phase("learn"):
+                    learn_window(ctx.kb, mat.jobs, mat.ci, 0, WEEK,
+                                 mat.cluster, offsets=(t0 - WEEK,),
+                                 backend=backend)
             for n in names:
                 if get_spec(n).needs_history and prev:
                     instances[n].warm_start(prev)
@@ -309,12 +349,23 @@ def run(
         cases = [SimCase(jobs=ev, ci=ci_w, cluster=cluster_w,
                          policy=instances[n], t0=t0, horizon=WEEK,
                          faults=_fresh_faults(scenario), label=n,
-                         engine=scenario.engine, device=device)
+                         engine=scenario.engine, telemetry=label(n, w),
+                         device=device)
                  for n in names]
         t_exec = time.perf_counter()
         for n, res in zip(names, simulate_many(cases)):
             weekly[n].append(res)
         execute_s += time.perf_counter() - t_exec
+        if progress is not None:
+            agg = {n: sum(r.carbon_g for r in weekly[n]) for n in names}
+            base = agg.get("carbon-agnostic")
+            parts = [f"week {w + 1}/{scenario.eval_weeks}"]
+            if ctx.kb is not None:
+                parts.append(f"kb={len(ctx.kb)} cases")
+            if base:
+                parts += [f"{n}={100 * (1 - c / base):.1f}%"
+                          for n, c in agg.items() if n != "carbon-agnostic"]
+            progress("  ".join(parts))
 
     return ExperimentResult(
         scenario=scenario, policies=names, weekly=weekly,

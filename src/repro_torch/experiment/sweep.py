@@ -17,11 +17,12 @@ cross-(region, seed) dispersion, and a JSON round-trip (``to_json`` /
 
 A geo base scenario (``regions``) makes the whole grid geo-distributed, a
 serving base scenario (``serving``) a grid of serving cells through
-``simulate_serving_many``.  Telemetry is not ported: setting it raises
-``NotImplementedError``.
+``simulate_serving_many``.  ``telemetry`` records every cell's events under
+its case label and brackets the profiler's phases.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import io
@@ -37,6 +38,7 @@ from repro_torch.core.simulator import SimCase, simulate_many
 from repro_torch.core.types import SimResult
 from repro_torch.device import resolve_device
 from repro_torch.serving import ServeCase, simulate_serving_many
+from repro_torch.telemetry import Attribution, Telemetry, attribute
 
 from .driver import DEFAULT_POLICIES, _fresh_faults, prepare_context
 from .registry import check_scenario_policies, make_policy
@@ -86,12 +88,21 @@ class Sweep:
     baseline: str = "carbon-agnostic"
     backend: str = "numpy"
     kb_kwargs: dict | None = None
-    telemetry: None = None           # not ported: decision traces
+    # Observability: when set, every cell runs with this telemetry's
+    # recorder/profiler attached, each under its own run label (the case
+    # label), so one sweep yields one decision trace per cell plus
+    # learn/provision/decide/execute phase totals.  ``None`` (the default)
+    # keeps every engine on its untouched path.
+    telemetry: Telemetry | None = None
     device: str | torch.device = "cuda"
 
-    def __post_init__(self) -> None:
-        if self.telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet")
+    def _phase(self, name: str):
+        prof = self.telemetry.profiler if self.telemetry is not None else None
+        return prof.phase(name) if prof is not None else contextlib.nullcontext()
+
+    def _labelled(self, label: str) -> Telemetry | None:
+        return (self.telemetry.for_run(label) if self.telemetry is not None
+                else None)
 
     def fault_axis(self) -> tuple[FaultProcess | None, ...]:
         if self.faults is None:
@@ -160,12 +171,14 @@ class Sweep:
         cases: list[SimCase] = []
         meta: list[dict] = []
         for i, sc in enumerate(scenarios):
-            mat = sc.materialize()
+            with self._phase("provision"):
+                mat = sc.materialize()
             region_label = "+".join(sc.regions) if sc.is_geo else sc.region
             fc_label = axis_labels[i % len(axis_labels)]
-            ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
-                                  forecast_quantile=self.forecast_quantile,
-                                  device=device, backend=self.backend)
+            with self._phase("learn"):
+                ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
+                                      forecast_quantile=self.forecast_quantile,
+                                      device=device, backend=self.backend)
             if progress is not None:
                 progress(f"prepared {region_label}/seed{sc.seed}"
                          + (f"/{fc_label}" if with_forecast else "")
@@ -184,7 +197,8 @@ class Sweep:
                         jobs=mat.eval_jobs, ci=ci_c, cluster=cluster_c,
                         policy=make_policy(name, ctx), t0=mat.t0,
                         horizon=horizon, faults=_fresh_faults(scf),
-                        label=label, engine=sc.engine, device=device))
+                        label=label, engine=sc.engine,
+                        telemetry=self._labelled(label), device=device))
                     row = {"region": region_label, "seed": sc.seed,
                            "fault": fault_label(fm), "policy": name}
                     if with_forecast:
@@ -216,11 +230,13 @@ class Sweep:
         cases: list[ServeCase] = []
         meta: list[dict] = []
         for i, sc in enumerate(scenarios):
-            mat = sc.materialize()
+            with self._phase("provision"):
+                mat = sc.materialize()
             fc_label = axis_labels[i % len(axis_labels)]
-            ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
-                                  forecast_quantile=self.forecast_quantile,
-                                  device=device, backend=self.backend)
+            with self._phase("learn"):
+                ctx = prepare_context(mat, names, kb_kwargs=self.kb_kwargs,
+                                      forecast_quantile=self.forecast_quantile,
+                                      device=device, backend=self.backend)
             horizon = sc.eval_weeks * WEEK
             demand = mat.serving.demand[mat.t0: mat.t0 + horizon]
             if progress is not None:
@@ -234,7 +250,8 @@ class Sweep:
                 cases.append(ServeCase(
                     demand=demand, rate=mat.serving.rate, ci=mat.ci,
                     config=mat.serving.config,
-                    policy=make_policy(name, ctx), t0=mat.t0, label=label))
+                    policy=make_policy(name, ctx), t0=mat.t0, label=label,
+                    telemetry=self._labelled(label)))
                 row = {"region": sc.region, "seed": sc.seed,
                        "fault": "none", "policy": name}
                 if with_forecast:
@@ -308,6 +325,35 @@ class SweepResult:
                          f"{s['savings_std_pct']:6.2f} {s['mean_wait_h']:7.1f} "
                          f"{s['violation_rate']:6.3f} {s['n_cases']:6d}")
         return "\n".join(lines)
+
+    def attributions(self) -> list[Attribution]:
+        """Carbon-attribution of every non-baseline cell against its
+        cell's baseline run (same region/seed/fault/forecast), each
+        additive to the last bit (``Attribution.check`` passes by
+        construction).  Needs the in-memory ``results`` — a same-process
+        run, not a JSON round-trip."""
+        if self.results is None:
+            raise ValueError(
+                "attributions need the in-memory results; run the sweep "
+                "in-process (SweepResult.from_json drops them)")
+
+        def key(r: dict):
+            return (r["region"], r["seed"], r["fault"],
+                    r.get("forecast", ""))
+
+        base = {key(r): res for r, res in zip(self.rows_, self.results)
+                if r["policy"] == self.baseline}
+        out = []
+        for r, res in zip(self.rows_, self.results):
+            if r["policy"] == self.baseline:
+                continue
+            b = base.get(key(r))
+            if b is None:
+                continue
+            att = attribute(res, b)
+            att.check()
+            out.append(att)
+        return out
 
     def to_json(self, indent: int | None = 1) -> str:
         return json.dumps({"baseline": self.baseline, "rows": self.rows_,

@@ -20,17 +20,20 @@ and bit-identical to the JAX package's serving engine.
 Demand is *always* per-slot binned (``traces/requests.py``): a two-week,
 1.5M-requests/day trace is 336 float64 slots, so a sweep cell runs in
 milliseconds on the host with zero per-request Python; nothing here runs
-on the device.  Decision traces (``telemetry=``) are not ported: a case
-that sets one raises ``NotImplementedError``.
+on the device.  ``telemetry=`` records ``forecast-read`` and
+``tier-switch`` events and the ``decide``/``execute`` phases, as the JAX
+package's engine does.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
 from repro_torch.core.carbon import CarbonService
 from repro_torch.core.types import ServingMetrics, SimResult
+from repro_torch.telemetry import Telemetry
 
 from .policies import ServeWindow
 from .tiers import CreditLedger, ServingConfig
@@ -55,9 +58,7 @@ class ServeCase:
 
     ``demand`` is the evaluation window's slice (slot ``i`` is absolute
     slot ``t0 + i``); ``rate`` stays full-span and absolute-indexed so
-    policies can look ahead across the window boundary.  ``telemetry``
-    keeps the JAX package's field and default; decision traces are not
-    ported, so setting it raises."""
+    policies can look ahead across the window boundary."""
 
     demand: np.ndarray
     rate: np.ndarray
@@ -66,11 +67,9 @@ class ServeCase:
     policy: object                   # ServeStaticPolicy / ... (duck-typed)
     t0: int = 0
     label: str = ""
-    telemetry: None = None
+    telemetry: Telemetry | None = None
 
     def __post_init__(self) -> None:
-        if self.telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet")
         self.demand = np.asarray(self.demand, dtype=np.float64)
         if self.demand.ndim != 1 or len(self.demand) < 1:
             raise ValueError("demand must be a non-empty 1-D per-slot vector")
@@ -92,6 +91,16 @@ def _window(case: ServeCase, ci_pol) -> ServeWindow:
         inv_cap=np.array([1.0 / t.capacity_per_server for t in tiers]),
         slo=cfg.slo(), ci=ci_pol, rate=case.rate, t0=case.t0,
         servers=cfg.servers)
+
+
+def _serve_hooks(case: ServeCase):
+    """Split the case's telemetry into (event-emitter, profiler); both
+    None when telemetry is off so the hot loop pays a single branch."""
+    telemetry = case.telemetry
+    if telemetry is None:
+        return None, None
+    tele = telemetry if telemetry.recorder is not None else None
+    return tele, telemetry.profiler
 
 
 def _check_frac(frac: np.ndarray, policy_name: str) -> np.ndarray:
@@ -140,6 +149,8 @@ def _run_scalar(case: ServeCase) -> SimResult:
     ci_pol = case.ci.degraded()
     w = _window(case, ci_pol)
     case.policy.on_window_start(w)
+    tele, prof = _serve_hooks(case)
+    prev_tier = -1
     ledger = CreditLedger(gain=cfg.ledger_gain)
     T = len(case.demand)
     n = len(w.tiers)
@@ -151,10 +162,24 @@ def _run_scalar(case: ServeCase) -> SimResult:
     for i in range(T):
         t = case.t0 + i
         d = float(case.demand[i])
+        if tele is not None and ci_pol is not case.ci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+        if prof is not None:
+            _pt = time.perf_counter()
         frac = _check_frac(
             case.policy.decide(t, d, ledger.balance, cum_carbon,
                                cum_requests),
             getattr(case.policy, "name", "serve"))
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
+        if tele is not None:
+            tier = int(np.argmax(frac))
+            if tier != prev_tier and prev_tier >= 0:
+                tele.emit(t, "tier-switch", value=float(tier),
+                          detail=f"from={prev_tier}")
+            prev_tier = tier
         q_t = float(np.sum(frac * w.q_vec))
         e_t = float(np.sum(frac * w.e_vec)) * (d / 1000.0)
         u_t = float(np.sum(frac * w.inv_cap)) * (d / w.servers)
@@ -169,6 +194,8 @@ def _run_scalar(case: ServeCase) -> SimResult:
         # a policy must not learn the true CI through its budget signal
         cum_carbon = cum_carbon + e_t * ci_pol.ci(t)
         cum_requests = cum_requests + d
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
     return _finalize(case, w, fracs, energy, carbon, util, viol, quality,
                      balance)
 
@@ -180,6 +207,8 @@ def _run_vector(case: ServeCase) -> SimResult:
     ci_pol = case.ci.degraded()
     w = _window(case, ci_pol)
     case.policy.on_window_start(w)
+    tele, prof = _serve_hooks(case)
+    prev_tier = -1
     ledger = CreditLedger(gain=cfg.ledger_gain)
     T = len(case.demand)
     fracs = np.zeros((T, len(w.tiers)))
@@ -190,10 +219,24 @@ def _run_vector(case: ServeCase) -> SimResult:
     for i in range(T):
         t = case.t0 + i
         d = float(case.demand[i])
+        if tele is not None and ci_pol is not case.ci:
+            tele.emit(t, "forecast-read", value=float(ci_pol.staleness(t)))
+        if prof is not None:
+            _pt = time.perf_counter()
         frac = _check_frac(
             case.policy.decide(t, d, ledger.balance, cum_carbon,
                                cum_requests),
             getattr(case.policy, "name", "serve"))
+        if prof is not None:
+            _now = time.perf_counter()
+            prof.add("decide", _now - _pt)
+            _pt = _now
+        if tele is not None:
+            tier = int(np.argmax(frac))
+            if tier != prev_tier and prev_tier >= 0:
+                tele.emit(t, "tier-switch", value=float(tier),
+                          detail=f"from={prev_tier}")
+            prev_tier = tier
         fracs[i] = frac
         q_t = float(np.sum(frac * w.q_vec))
         quality[i] = q_t
@@ -201,24 +244,29 @@ def _run_vector(case: ServeCase) -> SimResult:
         cum_carbon = cum_carbon + \
             float(np.sum(frac * w.e_vec)) * (d / 1000.0) * ci_pol.ci(t)
         cum_requests = cum_requests + d
+        if prof is not None:
+            prof.add("execute", time.perf_counter() - _pt)
     demand = case.demand
+    if prof is not None:
+        _pt = time.perf_counter()
     energy = (fracs * w.e_vec).sum(axis=1) * (demand / 1000.0)
     ci_true = np.array([case.ci.ci(case.t0 + i) for i in range(T)])
     carbon = energy * ci_true
     util = (fracs * w.inv_cap).sum(axis=1) * (demand / w.servers)
     viol = w.slo.violation_frac(util)
+    if prof is not None:
+        prof.add("execute", time.perf_counter() - _pt)
     return _finalize(case, w, fracs, energy, carbon, util, viol, quality,
                      balance)
 
 
 def simulate_serving(case: ServeCase, engine: str = "vector",
-                     telemetry: None = None) -> SimResult:
+                     telemetry: Telemetry | None = None) -> SimResult:
     """Run one serving case; ``engine`` picks the vector path (default) or
     the scalar reference (bit-identical, for parity tests).  ``telemetry``
-    keeps the JAX package's argument; it is not ported and raises when
-    set."""
+    attaches a recorder/profiler without rebuilding the case."""
     if telemetry is not None:
-        raise NotImplementedError("telemetry is not ported yet")
+        case = dataclasses.replace(case, telemetry=telemetry)
     if engine == "vector":
         return _run_vector(case)
     if engine == "scalar":

@@ -26,7 +26,9 @@ and in the plain walk, so the two are equal exactly; a geo-flex week on the
 card's scan engine equals the CPU's vector engine in every compared field.
 Resilience: an outage week (single-region, DAG, geo) on the card's scan
 engine and a faulted week asked of it equal the CPU's vector engine in
-every field, ``resilience`` included.
+every field, ``resilience`` included.  Telemetry: the events the card's
+scan engine decodes from its grids equal the CPU vector engine's, tuple for
+tuple, on those outage weeks; ``PhaseProfiler.sync`` waits on the card.
 """
 import numpy as np
 import pytest
@@ -1260,3 +1262,69 @@ def test_faulted_world_on_the_card_equals_the_cpu(cuda_geo):
                         faults=fm, device="cpu")
         assert got.to_dict(include_per_job=True, include_slots=True) == \
             want.to_dict(include_per_job=True, include_slots=True)
+
+
+# --- telemetry: the card's slot loop decodes its events from its grids --------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,policy", [("single", "WaitAwhilePolicy"),
+                                         ("dag", "DagCarbonPolicy"),
+                                         ("geo", "GeoFlexPolicy")])
+def test_scan_stream_on_the_card_equals_the_cpu(cuda_geo, kind, policy):
+    """The card's scan engine with a recorder: the events decoded from the
+    copied grids equal the CPU vector engine's tracker, tuple for tuple, on
+    an outage world (forecast reads, releases, migrations), and the result
+    equals the run without a recorder."""
+    from repro_torch.core import baselines, dag, geo, scan_engine
+    from repro_torch.core.simulator import simulate
+    from repro_torch.telemetry import MemoryRecorder, PhaseProfiler, Telemetry
+
+    gating.build()
+    cls = {"WaitAwhilePolicy": baselines.WaitAwhilePolicy,
+           "DagCarbonPolicy": dag.DagCarbonPolicy, "GeoFlexPolicy": geo.GeoFlexPolicy}[policy]
+    cluster, ci, jobs = _resilience_world(kind)
+    tel = Telemetry(recorder=MemoryRecorder(), profiler=PhaseProfiler(), run_label="c")
+    scan_engine.reset_stats()
+    got = simulate(jobs, ci, cluster, cls(), horizon=WEEK, engine="scan",
+                   telemetry=tel, device="cuda")
+    assert scan_engine.stats["steps"] > 0 and scan_engine.stats["delegated"] == 0
+    plain = simulate(jobs, ci, cluster, cls(), horizon=WEEK, engine="scan", device="cuda")
+    cpu_tel = Telemetry(recorder=MemoryRecorder(), run_label="c")
+    want = simulate(jobs, ci, cluster, cls(), horizon=WEEK, telemetry=cpu_tel,
+                    device="cpu")
+    assert tel.recorder.events == cpu_tel.recorder.events
+    assert got.to_dict(include_per_job=True, include_slots=True) == \
+        plain.to_dict(include_per_job=True, include_slots=True) == \
+        want.to_dict(include_per_job=True, include_slots=True)
+    kinds = set(tel.recorder.counts())
+    assert {"admit", "forecast-read", "suspend"} <= kinds
+    if kind == "geo":
+        assert "migrate" in kinds
+    assert set(tel.profiler.seconds) == {"decide", "execute"}
+
+
+@pytest.mark.cuda
+def test_profiler_sync_waits_on_a_cuda_tensor():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.telemetry import PhaseProfiler
+
+    a = torch.randn(2048, 2048, device="cuda")
+    prof = PhaseProfiler()
+    for _ in range(2):
+        with prof.phase("decide", sync={"out": [a, np.zeros(1)]}):
+            b = a
+            for _ in range(50):
+                b = b @ a
+            done = torch.cuda.Event()
+            done.record()
+        assert done.query()             # the bracket waited for the queued work
+    b = a
+    for _ in range(50):
+        b = b @ a
+    done = torch.cuda.Event()
+    done.record()
+    PhaseProfiler.sync([b, None])
+    assert done.query()
+    assert prof.calls == {"decide": 2} and prof.seconds["decide"] > 0

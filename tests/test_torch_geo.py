@@ -332,8 +332,8 @@ def test_plain_walk_matches_the_vector_engine_step_by_step(policy, monkeypatch):
     vec_steps, scan_steps = [], []
     resolve = simulator._resolve_geo
 
-    def recorded_resolve(active, alloc, g):
-        per_r, migs = resolve(active, alloc, g)
+    def recorded_resolve(active, alloc, g, *telemetry_args):
+        per_r, migs = resolve(active, alloc, g, *telemetry_args)
         vec_steps.append(({jid: r for r in range(g.n_regions) for jid in per_r[r]},
                           {a.job.job_id: dest for a, dest in migs}))
         return per_r, migs

@@ -188,11 +188,25 @@ def test_engine_rejections_match_the_reference():
 
 
 def test_telemetry_is_not_ported():
-    case, _ = _cases("serve-static", "perfect", hours=48)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        simulate_serving(case, telemetry=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        dataclasses.replace(case, telemetry=object())
+    """The telemetry argument and field the JAX package takes: accepted, and
+    they record the reference's events (this test once pinned their raise;
+    ``tests/test_torch_telemetry.py`` holds the streams in full)."""
+    import repro.telemetry as rt
+    import repro_torch.telemetry as pt
+
+    case, ref = _cases("serve-flex", "outage", hours=96)
+    got = []
+    for sim, c, pkg in ((simulate_serving, case, pt),
+                        (ref_simulate_serving, ref, rt)):
+        tel = pkg.Telemetry(recorder=pkg.MemoryRecorder(), run_label="s")
+        sim(c, telemetry=tel)
+        tel2 = pkg.Telemetry(recorder=pkg.MemoryRecorder(), run_label="s")
+        sim(dataclasses.replace(c, telemetry=tel2))
+        got.append(([tuple(e) for e in tel.recorder.events],
+                    [tuple(e) for e in tel2.recorder.events]))
+    assert got[0] == got[1]
+    assert got[0][0] == got[0][1]
+    assert {e[1] for e in got[0][0]} >= {"forecast-read"}
 
 
 # --- Scenario, run and Sweep ------------------------------------------------------

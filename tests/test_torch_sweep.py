@@ -126,10 +126,18 @@ def test_scenarios_and_labels_follow_the_reference():
 
 
 def test_unported_axes_raise():
-    """Telemetry is the one axis the port lacks; the fault axis, a base with
-    a feed outage and a serving base build as in the reference."""
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Sweep(base=Scenario(**BASE), telemetry=object())
+    """Every axis of the reference's ``Sweep`` builds in the port (this test
+    once pinned the telemetry raise): telemetry records each cell under its
+    label, and the fault axis, a base with a feed outage and a serving base
+    build as in the reference."""
+    from repro_torch.telemetry import MemoryRecorder, Telemetry
+
+    tel = Telemetry(recorder=MemoryRecorder())
+    res = Sweep(base=Scenario(**BASE), policies=["wait-awhile"], telemetry=tel,
+                device="cpu").run()
+    assert {e.run for e in tel.recorder.events} == {
+        f"south-australia/s101/none/{p}" for p in ("carbon-agnostic", "wait-awhile")}
+    assert len(res.rows()) == 2
     fm = CorrelatedFaults(rate=0.06, seed=2)
     sw = Sweep(base=Scenario(**BASE), faults=[None, fm],
                policies=["carbon-agnostic"], device="cpu")
