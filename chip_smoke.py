@@ -43,7 +43,20 @@ Phases, any failure exits non-zero:
    own q/k/v, and the logits so fed (the chained prefill logits of the two,
    and of two chunk sizes of the chunked attention, as information); then
    a warm timed run, the warm prefill in turns on the Hopper kernel and on
-   the mma.sync kernel, and a traced run;
+   the mma.sync kernel, and a traced run; then the MoE serving path:
+   qwen3-moe-235b-a22b at full width with 8 of its 94 layers (bf16, random
+   weights from seed 0; ~41.7 GB) through ``greedy_generate`` at the same
+   sizes, gated on 8 flash launches in prefill, all on the Hopper kernel
+   (D 64, 16 query heads a KV head), 0 in decode; every dispatch of the run
+   (top-k ids, sort order, slots, kept pairs, source tokens at C = 640 in
+   prefill and C = 1 in decode) equal bit for bit to the plain dispatch on
+   the CPU on the card's own router probabilities; layer 0's MoE output
+   within 1e-2 relative L2 of an fp32 evaluation of the same routing;
+   layer 0's q/k/v through the kernel against the plain version (v, of std
+   ~20 under the reference init, divided by the power of two nearest its
+   std for the elementwise limits; unscaled within the relative L2 limit)
+   and timed beside SDPA; a warm run with the same tokens; finite logits,
+   ids in range, the cache (8, 4, 2112, 4, 64); a traced run;
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
    slot loop on the card and every slot's release (the in-degree decrement,
@@ -151,8 +164,15 @@ Phases, any failure exits non-zero:
    path's phase table, the event counts by kind, and the recording overhead
    on ``geo-full`` and the DAG path (the wall with the recorder over the
    wall without, in turns: off, on, on, off, two rounds).
-   Last, the main, oracle, sweep, geo, resilience and telemetry paths' wall
-   times side by side.
+11. the MPC knob tuner (``repro_torch.experiment.tune_policy``) at the
+   reference script's full settings: carbonflex-mpc (18 knob cells) and
+   carbonflex-scale (54) at seeds 1 and 3, capacity 40, 2 learning weeks,
+   on the card's scan engine against the port's vector engine on the CPU:
+   gap dicts float for float and the printed lines equal; ``knn_topk``
+   launches == the carbonflex row's provisioning calls, ``capacity_fill``
+   launches == fill steps (> 0 on the scale grid only), 2 rows delegated.
+   Last, the main, oracle, sweep, geo, resilience, telemetry, MoE serving
+   and tuner paths' wall times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -198,10 +218,11 @@ from repro_torch.experiment import (DEFAULT_DAG_POLICIES, DEFAULT_GEO_POLICIES, 
                                     DEFAULT_SERVE_POLICIES, OracleGap, Scenario,
                                     ServingConfig, Sweep, run, sigma_ladder)
 from repro_torch.experiment import sweep as sweep_mod  # noqa: E402
+from repro_torch.experiment import tune_policy  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fill, gating, geo_walk, knn, ops, oracle_greedy, score  # noqa: E402
-from repro_torch.models import init_params, transformer  # noqa: E402
+from repro_torch.models import init_params, param_count, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
 from repro_torch.telemetry import MemoryRecorder, PhaseProfiler, Telemetry, attribute  # noqa: E402
@@ -272,10 +293,10 @@ def busy_us(events) -> float:
     return total
 
 
-def device_ms(fn, iters: int = 200) -> float | None:
-    """Mean device milliseconds per call: the card's busy time that
-    ``torch.profiler`` records over ``iters`` calls (None when the profiler
-    records no device time)."""
+def device_trace(fn, iters: int = 200) -> tuple[float, int]:
+    """The card's busy microseconds that ``torch.profiler`` records over
+    ``iters`` calls of ``fn`` (after 20 warm-up calls), and the number of
+    device events it recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(20):
@@ -285,25 +306,47 @@ def device_ms(fn, iters: int = 200) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = busy_us(device_events(prof))
+    events = device_events(prof)
+    return busy_us(events), len(events)
+
+
+def device_ms(fn, iters: int = 200) -> float | None:
+    """Mean device milliseconds per call: the card's busy time that
+    ``torch.profiler`` records over ``iters`` calls (None when the profiler
+    records no device time)."""
+    total_us, _ = device_trace(fn, iters)
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
 def in_turns(runs, rounds: int = 2) -> dict:
     """``device_ms`` of each function of ``runs`` in turns, there and back
     (a, b, b, a, ...) ``rounds`` times: per key the list of its turns.  A
-    turn whose trace holds no device time is taken again (at most twice)."""
-    turns = {key: [] for key in runs}
+    turn whose trace holds no device time is taken again (at most twice).
+    The profiler loses some events of a long run of short calls (on an
+    H100, 1-7 of 200 calls of a 4 µs kernel, now and then most), and a turn's
+    busy time then undercounts by what it lost; so each turn's time per call
+    is its busy time per recorded event times the events a call makes (the
+    most any turn of its key recorded, over the calls, rounded).  With no
+    event lost that is the busy time over the calls."""
+    iters = 200
+    taken = []
     for _ in range(rounds):
         for key in list(runs) + list(runs)[::-1]:
-            ms = None
             for _ in range(3):
-                ms = device_ms(runs[key])
-                if ms is not None:
+                us, n = device_trace(runs[key], iters)
+                if us > 0:
                     break
-            if ms is None:
+            if us <= 0:
                 raise AssertionError(f"{key}: the profiler recorded no device time")
-            turns[key].append(ms)
+            taken.append((key, us, n))
+    per_call = {key: max(1, round(max(n for k, _, n in taken if k == key) / iters))
+                for key in runs}
+    turns = {key: [] for key in runs}
+    for i, (key, us, n) in enumerate(taken):
+        if n < per_call[key] * iters:
+            log(f"in turns: {key} turn {i} recorded {n} device events of "
+                f"{per_call[key] * iters}")
+        turns[key].append(us / n * per_call[key] / 1e3)
     return turns
 
 
@@ -1054,6 +1097,266 @@ def serve_phase():
                 chunked_prefill_s=chunked_s, traced_wall_s=traced_wall,
                 traced_busy_ms=busy_ms, traced_busy_share=busy_ms / 1e3 / traced_wall,
                 launches=launches)
+
+
+# --- the MoE serving path -----------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+# Depth cut from 94 to 8 layers, width kept: a layer holds 2.452e9 parameters
+# (4.90 GB in bf16), so 8 layers and embed/lm_head take ~41.7 GB, and drawing
+# the fp32 w_up leaf (8 x 128 x 4096 x 1536) beside embed, w_down, w_gate and
+# its bf16 cast peaks at ~65.7 GB; 10 layers would peak at ~81.8 GB.
+MOE_LAYERS = 8
+# Relative L2 of layer 0's MoE output (bf16 products, bf16 combine) against
+# an fp32 evaluation of the same routing on the same input.
+MOE_REL = 1e-2
+
+
+def moe_fp32(x, lp, li, r, cap, chunk=16):
+    """Layer ``li``'s MoE output in fp32 for the routing ``r``: the kept
+    tokens of x in an fp32 buffer, the experts' products in fp32 (16 experts
+    at a time), the combine with fp32 gates."""
+    b, s, d = x.shape
+    e = lp["router"].shape[-1]
+    xt = x.reshape(b * s, d).float()
+    buf = xt.new_zeros((e * cap + 1, d))
+    buf[r.slot] = xt[r.src_tok] * r.keep[:, None].float()
+    eb = buf[:e * cap].view(e, cap, d)
+    yb = torch.cat([transformer.moe_experts(
+        eb[e0:e0 + chunk], lp["w_gate"][li][e0:e0 + chunk].float(),
+        lp["w_up"][li][e0:e0 + chunk].float(), lp["w_down"][li][e0:e0 + chunk].float())
+        for e0 in range(0, e, chunk)])
+    return transformer.moe_combine(yb, r).view(b, s, d)
+
+
+def same_routing(got, want) -> bool:
+    return all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in ("eidx", "order", "slot", "keep", "src_tok"))
+
+
+def moe_serve_phase(device="cuda"):
+    """qwen3-moe-235b-a22b at full width, 8 of its 94 layers, through
+    ``greedy_generate`` (4 prompts of 2048 tokens, 64 greedy tokens), launch
+    counts reset just before and read just after; every dispatch of the run
+    (8 in prefill, 8 a decode step) held against the plain dispatch on the
+    CPU on the card's own router probabilities, bit for bit."""
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(x.numel() for x in torch.utils._pytree.tree_leaves(params))
+    if n_params != param_count(cfg):
+        raise AssertionError(f"{n_params} parameters, param_count says {param_count(cfg)}")
+    on_card = torch.cuda.memory_allocated()
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(device)
+    log(f"moe serve: {cfg.name} {cfg.num_layers} of 94 layers d={cfg.d_model} "
+        f"{cfg.num_experts} experts top {cfg.experts_per_token} d_ff {cfg.d_ff}: "
+        f"{n_params} parameters initialised in {init_s:.3f} s ({on_card / 2**30:.3f} "
+        f"GiB on the card, peak while drawing {init_peak / 2**30:.3f} GiB)")
+
+    routes, block_io, captured = [], [], []
+    route, block, kernel = transformer.moe_route, transformer.moe_block, fa.gqa_flash
+
+    def capture_route(probs, k, cap):
+        r = route(probs, k, cap)
+        routes.append((probs.cpu(), k, cap, transformer.Routing(*(x.cpu() for x in r))))
+        return r
+
+    def capture_block(x, lp, li, cfg):
+        y = block(x, lp, li, cfg)
+        if not block_io:
+            block_io.append((x, li, y, len(routes) - 1))
+        return y
+
+    def capture_flash(q, k, v, causal_offset=0):
+        if not captured:
+            captured.append((q, k, v, causal_offset))
+        return kernel(q, k, v, causal_offset=causal_offset)
+
+    transformer.moe_route, transformer.moe_block = capture_route, capture_block
+    fa.gqa_flash = capture_flash
+    fa.reset_launches()
+    try:
+        out = greedy_generate(params, prompts, cfg, SERVE_TOKENS)
+    finally:
+        transformer.moe_route, transformer.moe_block = route, block
+        fa.gqa_flash = kernel
+    launches = dict(fa.launches)
+    prefill_n, decode_n = out["prefill_flash_launches"], out["decode_flash_launches"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"moe serve, first run (each dispatch copied to the host): prefill "
+        f"{out['prefill_s']:.6f} s, decode {out['decode_s']:.6f} s, gqa_flash launches "
+        f"{prefill_n} in prefill + {decode_n} in decode ({launches}), peak "
+        f"{peak / 2**30:.3f} GiB")
+    if (prefill_n, decode_n) != (cfg.num_layers, 0) \
+            or launches["gqa_flash"] != cfg.num_layers \
+            or launches["wgmma"] != cfg.num_layers:
+        raise AssertionError(f"gqa_flash launched {prefill_n} times in prefill and "
+                             f"{decode_n} in decode ({launches}); expected "
+                             f"{cfg.num_layers} and 0, all on the Hopper kernel")
+    cache, toks = out["cache"], out["tokens"]
+    max_seq = SERVE_PROMPT + SERVE_TOKENS
+    want_shape = (cfg.num_layers, SERVE_BATCH, max_seq, cfg.num_kv_heads,
+                  cfg.resolved_head_dim)
+    if cache["length"] != max_seq or tuple(cache["k"].shape) != want_shape \
+            or want_shape != (8, 4, 2112, 4, 64):
+        raise AssertionError(f"cache length {cache['length']}, shape "
+                             f"{tuple(cache['k'].shape)}")
+    for name in ("prefill_logits", "last_logits"):
+        x = out[name]
+        if x.shape != (SERVE_BATCH, cfg.vocab_size) or not torch.isfinite(x).all():
+            raise AssertionError(f"{name}: shape {tuple(x.shape)} or non-finite")
+    if toks.shape != (SERVE_BATCH, SERVE_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated ids out of range: {toks.min()}..{toks.max()}")
+
+    # Every dispatch of the run against the plain dispatch on the CPU, on
+    # the card's own router probabilities.
+    n_prefill = cfg.num_layers
+    if len(routes) != n_prefill * (1 + SERVE_TOKENS):
+        raise AssertionError(f"{len(routes)} dispatches, expected "
+                             f"{n_prefill * (1 + SERVE_TOKENS)}")
+    t = time.perf_counter()
+    differ = [i for i, (probs, k, cap, r) in enumerate(routes)
+              if not same_routing(r, route(probs, k, cap))]
+    check_s = time.perf_counter() - t
+    caps = sorted({cap for _, _, cap, _ in routes})
+    drops = [int((~r.keep).sum()) for _, _, _, r in routes]
+    prefill_drops, decode_drops = drops[:n_prefill], drops[n_prefill:]
+    ties = sum(int((p.sort(dim=-1, descending=True).values[:, k - 1:k + 1].diff(dim=-1)
+                    == 0).sum()) for p, k, _, _ in routes)
+    log(f"moe serve: {len(routes)} dispatches ({n_prefill} prefill at C="
+        f"{routes[0][2]}, {len(routes) - n_prefill} decode at C={routes[-1][2]}; "
+        f"capacities {caps}) against the plain dispatch on the CPU: {len(differ)} "
+        f"differ ({check_s:.3f} s); dropped pairs per prefill layer {prefill_drops}, in "
+        f"decode {sum(decode_drops)} of {len(decode_drops) * SERVE_BATCH * cfg.experts_per_token}"
+        f" (first step {decode_drops[:n_prefill]}); ties at the top-k boundary {ties}")
+    if differ or caps != [1, 640]:
+        raise AssertionError(f"routing differs from the CPU's in dispatches {differ[:8]} "
+                             f"(capacities {caps})")
+
+    # Layer 0's MoE output on its real input against an fp32 evaluation of
+    # the same routing.
+    x0, li, y0, ri = block_io[0]
+    probs, k, cap, r = routes[ri]
+    dev_r = transformer.Routing(*(v.to(device) for v in r))
+    y32 = moe_fp32(x0, params["layers"], li, dev_r, cap)
+    moe_rel = rel_l2(y0, y32)
+    log(f"moe serve: layer {li}'s MoE output {tuple(y0.shape)} {y0.dtype} against an "
+        f"fp32 evaluation of the same routing: relative L2 {moe_rel} (limit {MOE_REL})")
+    if not moe_rel <= MOE_REL:
+        raise AssertionError(f"layer 0's MoE output: relative L2 {moe_rel}")
+    del block_io[:], x0, y0, y32, dev_r
+
+    # Layer 0's q/k/v (D = 64, 16 query heads a KV head) through the kernel
+    # against the plain version, then timed beside it and SDPA.  Under the
+    # reference init v has a std of ~20 here, and the output scales with v:
+    # FLASH_TOL's elementwise limits are stated for unit-scale v, so the gate
+    # runs on v divided by the power of two nearest its std (exact in bf16),
+    # and holds the unscaled output within FLASH_REL.  The unscaled elements
+    # outside FLASH_TOL are printed beside SDPA's on the same inputs.
+    q, kk, v, off = captured[0]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, v))
+    raw, want = fa.gqa_flash(q, kk, v, causal_offset=off), fa.gqa_flash_plain(q, kk, v, off)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+    tol = FLASH_TOL[q.dtype]
+
+    def outside(o):
+        return int((~torch.isclose(o.float(), want.float(), rtol=tol, atol=tol)).sum())
+
+    raw_rel, sdpa_rel = rel_l2(raw, want), rel_l2(sdpa, want)
+    raw_outside, sdpa_outside = outside(raw), outside(sdpa)
+    raw_err = (raw.float() - want.float()).abs().max().item()
+    del raw, want, sdpa
+    v_scale = 2.0 ** round(math.log2(v.float().std().item()))
+    layer0_err, layer0_rel = flash_check(q, kk, v / v_scale, off,
+                                         f"gqa_flash on layer 0's q, k and v / {v_scale:g}")
+    log(f"moe serve: layer 0's v has std {v.float().std().item():.3f}; unscaled, the "
+        f"kernel against the plain version: max abs diff {raw_err}, relative L2 {raw_rel} "
+        f"(limit {FLASH_REL[q.dtype]}), {raw_outside} of {q.numel()} elements outside "
+        f"{tol} (SDPA: relative L2 {sdpa_rel}, {sdpa_outside} outside)")
+    if not raw_rel <= FLASH_REL[q.dtype]:
+        raise AssertionError(f"gqa_flash on layer 0's q/k/v: relative L2 {raw_rel}")
+    flash_t = dict(
+        ms=time_ms(lambda: fa.launch(q, kk, v, off, "wgmma"), 50, warmup=5),
+        plain_ms=time_ms(lambda: fa.gqa_flash_plain(q, kk, v), 5, warmup=2),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50, warmup=5))
+    b, sq, hq, d = q.shape
+    nbytes, flops = flash_work(b, sq, kk.shape[1], hq, kk.shape[2], d, off, 2)
+    flash_t["bound_ms"], flash_t["bound_by"] = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"moe serve: layer 0's q {tuple(q.shape)} {q.dtype}, k {tuple(kk.shape)}, v / "
+        f"{v_scale:g}: kernel agrees with the plain version (max abs diff {layer0_err}, "
+        f"relative L2 {layer0_rel}); Hopper kernel {flash_t['ms']:.6f} ms, plain "
+        f"{flash_t['plain_ms']:.6f}, SDPA {flash_t['library_ms']:.6f}, bound "
+        f"{flash_t['bound_ms']:.6f} by {flash_t['bound_by']}")
+    del captured[:], q, kk, v, qt, kt, vt
+
+    first_run = dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                     tokens_per_s=SERVE_BATCH * SERVE_TOKENS / out["decode_s"])
+    first_logits = out["prefill_logits"]
+    gen = toks.cpu()
+    del out, cache, toks
+
+    # A warm run: the times, and the same tokens (the combine has no atomics).
+    warm = greedy_generate(params, prompts, cfg, SERVE_TOKENS)
+    same = torch.equal(warm["tokens"].cpu(), gen)
+    same_logits = torch.equal(warm["prefill_logits"], first_logits)
+    warm_run = dict(prefill_s=warm["prefill_s"], decode_s=warm["decode_s"],
+                    decode_ms_per_step=1e3 * warm["decode_s"] / SERVE_TOKENS,
+                    tokens_per_s=SERVE_BATCH * SERVE_TOKENS / warm["decode_s"])
+    log(f"moe serve, warm run: prefill {warm_run['prefill_s']:.6f} s, decode "
+        f"{warm_run['decode_s']:.6f} s ({warm_run['decode_ms_per_step']:.6f} ms a step, "
+        f"{warm_run['tokens_per_s']:.3f} tok/s); same tokens as the first run: {same}; "
+        f"bit-equal prefill logits: {same_logits}")
+    if not same:
+        raise AssertionError("the warm run's tokens differ from the first run's")
+    del warm, first_logits
+
+    # A traced prefill and 8 decode steps: where the card's time goes.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        traced = greedy_generate(params, prompts, cfg, 8)
+        traced_wall = time.perf_counter() - t
+    events = device_events(prof)
+    busy_ms = busy_us(events) / 1e3
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"moe serve, traced (prefill {traced['prefill_s']:.6f} s + 8 decode steps "
+        f"{traced['decode_s']:.6f} s): {traced_wall:.6f} s wall under the profiler, card "
+        f"busy {busy_ms:.6f} ms = {100 * busy_ms / 1e3 / traced_wall:.6f} %")
+    for name, ms in top:
+        log(f"  device {ms:.6f} ms  {name[:100]}")
+    del traced, params
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.num_layers, params=n_params, init_s=init_s,
+                gib_on_card=on_card / 2**30, init_peak_gib=init_peak / 2**30,
+                peak_gib=peak / 2**30, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                new_tokens=SERVE_TOKENS, first_run=first_run, warm_run=warm_run,
+                warm_same_tokens=same, warm_same_prefill_logits=same_logits,
+                dispatches=len(routes), routing_differ=len(differ),
+                prefill_capacity=routes[0][2], decode_capacity=routes[-1][2],
+                prefill_drops=prefill_drops, decode_drops=sum(decode_drops),
+                decode_pairs=len(decode_drops) * SERVE_BATCH * cfg.experts_per_token,
+                topk_boundary_ties=ties, moe_rel_l2=moe_rel, moe_rel_limit=MOE_REL,
+                prefill_flash_launches=prefill_n, decode_flash_launches=decode_n,
+                layer0_max_abs_err=layer0_err, layer0_rel_l2=layer0_rel,
+                layer0_v_scale=v_scale, layer0_unscaled=dict(
+                    max_abs_err=raw_err, rel_l2=raw_rel, outside=raw_outside,
+                    sdpa_rel_l2=sdpa_rel, sdpa_outside=sdpa_outside),
+                flash_d64=flash_t, traced_wall_s=traced_wall, traced_busy_ms=busy_ms,
+                traced_busy_share=busy_ms / 1e3 / traced_wall,
+                traced_top=[[n[:100], ms] for n, ms in top], launches=launches)
 
 
 # --- DAG gating and the device slot loop -------------------------------------
@@ -3169,6 +3472,87 @@ def telemetry_phase():
 
 
 
+# --- the MPC knob tuner ---------------------------------------------------------
+
+# The reference script's full settings: both seeds, capacity 40, 2 learning
+# weeks, the 18-cell (carbonflex-mpc) and 54-cell (carbonflex-scale) grids.
+TUNE_RUNS = [("carbonflex-mpc", False, 1), ("carbonflex-mpc", False, 3),
+             ("carbonflex-scale", True, 1), ("carbonflex-scale", True, 3)]
+
+
+def tuned(device, engine, policy, scale, seed):
+    """``tune_policy.tune`` at the full settings with its cases on ``engine``:
+    (gaps, printed lines, provisioning calls of the carbonflex cell, wall
+    seconds)."""
+    import contextlib
+    import io
+
+    simulate, results = tune_policy.simulate_many, []
+
+    def kept(cases):
+        cases = [dataclasses.replace(c, engine=engine) for c in cases]
+        out = simulate(cases)
+        results.extend(zip((c.label for c in cases), out))
+        return out
+
+    buf = io.StringIO()
+    tune_policy.simulate_many = kept
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            gaps = tune_policy.tune(policy, seed=seed, scale=scale, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        tune_policy.simulate_many = simulate
+    flex = sum(len(r.slots) for label, r in results if label == "carbonflex")
+    return gaps, buf.getvalue(), flex, wall
+
+
+def tune_phase():
+    """The tuner (``python -m repro_torch.experiment.tune_policy`` and its
+    ``--scale``) on the card's scan engine against the port's vector engine
+    on the CPU: gap dicts float for float, printed lines equal; launches read
+    per run."""
+    out, t0 = {}, time.perf_counter()
+    for policy, scale, seed in TUNE_RUNS:
+        reset_counts()
+        gaps, lines, flex, wall = tuned("cuda", "scan", policy, scale, seed)
+        counts = dict(knn=knn.launches["knn_topk"], fill=fill.launches["capacity_fill"],
+                      stats=dict(scan_engine.stats))
+        cpu_gaps, cpu_lines, cpu_flex, cpu_wall = tuned("cpu", "vector", policy, scale, seed)
+        stats = counts["stats"]
+        name = f"{policy}/seed={seed}"
+        log(f"tune {name}: {len(gaps)} rows, card scan engine {wall:.3f} s, CPU vector "
+            f"engine {cpu_wall:.3f} s; gaps equal {gaps == cpu_gaps}, printed lines equal "
+            f"{lines == cpu_lines}; knn_topk {counts['knn']} (carbonflex provisioning calls "
+            f"{flex}), capacity_fill {counts['fill']} (fill steps {stats['fill_steps']}), "
+            f"delegated {stats['delegated']}, {stats['steps']} batched steps")
+        log(lines.splitlines()[0] + " ... " + lines.splitlines()[-1].strip())
+        if gaps != cpu_gaps or list(gaps) != list(cpu_gaps) or lines != cpu_lines:
+            diff = [k for k in gaps if gaps[k] != cpu_gaps.get(k)]
+            raise AssertionError(f"tune {name}: the card and the CPU differ in {diff}")
+        if len(gaps) != len(tune_policy.REFS) + (54 if scale else 18):
+            raise AssertionError(f"tune {name}: {len(gaps)} rows")
+        if not (counts["knn"] == flex == cpu_flex > 0):
+            raise AssertionError(f"tune {name}: {counts['knn']} knn launches for {flex} "
+                                 f"carbonflex provisioning calls (CPU {cpu_flex})")
+        if counts["fill"] != stats["fill_steps"] or (stats["fill_steps"] > 0) != scale:
+            raise AssertionError(f"tune {name}: {counts['fill']} fill launches for "
+                                 f"{stats['fill_steps']} fill steps")
+        if stats["delegated"] != 2:
+            raise AssertionError(f"tune {name}: {stats['delegated']} cells delegated, not "
+                                 "the carbonflex and oracle rows")
+        best = min((k for k in gaps if k not in tune_policy.REFS), key=gaps.get)
+        out[name] = dict(card_s=wall, cpu_s=cpu_wall, rows=len(gaps), knn_launches=counts["knn"],
+                         fill_launches=counts["fill"], fill_steps=stats["fill_steps"],
+                         delegated=stats["delegated"], steps=stats["steps"],
+                         cell_steps=stats["cell_steps"], best=best, best_gap=gaps[best],
+                         carbonflex_gap=gaps["carbonflex"])
+    return dict(runs=out, wall_s=time.perf_counter() - t0)
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
@@ -3210,6 +3594,10 @@ def main():
                       launches_by_route={r: path["batch"][r] for r in knn.BATCH_ROUTES})
     serve = serve_phase()
     kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
+    t = time.perf_counter()
+    moe = moe_serve_phase()
+    moe["wall_s"] = time.perf_counter() - t
+    kernels[2].update(moe_launches=moe["launches"]["wgmma"], moe_flash_d64=moe["flash_d64"])
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -3234,6 +3622,11 @@ def main():
     by_name["geo_walk"]["chaos_launches"] = chaos["geo"]["launches"]
     by_name["dep_release_csr"]["chaos_launches"] = chaos["dag"]["launches"]
     tele = telemetry_phase()
+    tune = tune_phase()
+    by_name["knn_topk"]["tune_launches"] = sum(
+        v["knn_launches"] for v in tune["runs"].values())
+    by_name["capacity_fill"]["tune_launches"] = sum(
+        v["fill_launches"] for v in tune["runs"].values())
     # launches on the telemetry paths (0 for the kernels no such path runs)
     counter = dict(knn_topk="knn", greedy_pass="greedy", capacity_fill="fill",
                    geo_walk="geo", dep_release_csr="release")
@@ -3254,13 +3647,21 @@ def main():
         f"{chaos['chaos']['cpu']['wall_s']:.3f}; geo-chaos on the card "
         f"{chaos['geo']['card']['wall_s']:.3f}, on the CPU {chaos['geo']['cpu']['wall_s']:.3f}"
         f"; the DAG path under the outage on the card {chaos['dag']['wall_s']:.3f}, on the "
-        f"CPU {chaos['dag']['cpu_wall_s']:.3f}; the telemetry phase {tele['wall_s']:.3f}")
+        f"CPU {chaos['dag']['cpu_wall_s']:.3f}; the telemetry phase {tele['wall_s']:.3f}; "
+        f"MoE serving: warm prefill {moe['warm_run']['prefill_s']:.3f}, decode "
+        f"{moe['warm_run']['decode_s']:.3f}, the phase {moe['wall_s']:.3f}; the tuner on "
+        f"the card {sum(v['card_s'] for v in tune['runs'].values()):.3f}, on the CPU "
+        f"{sum(v['cpu_s'] for v in tune['runs'].values()):.3f}, the phase "
+        f"{tune['wall_s']:.3f}")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
                                   if k not in ("result", "main", "batch")}}))
     log(json.dumps({"serve_path": {k: v for k, v in serve.items()
                                    if k != "launches"}}))
+    log(json.dumps({"moe_serve_path": {k: v for k, v in moe.items()
+                                       if k != "launches"}}))
+    log(json.dumps({"tune_path": tune}))
     log(json.dumps({"dag_path": dag}))
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()
                                     if k != "attempts"}}))

@@ -1,4 +1,4 @@
-"""The LM stack's models: config, building blocks, the dense transformer."""
+"""The LM stack's models: config, building blocks, the dense and MoE transformer."""
 from .api import (FAMILIES, forward, init_params, module_for,  # noqa: F401
                   param_count, params_from_reference)
 from .common import ModelConfig  # noqa: F401

@@ -21,7 +21,7 @@ from .common import ModelConfig, dense_init
 
 FAMILIES = {
     "dense": transformer,
-    "moe": transformer,           # raises in transformer until moe_block is ported
+    "moe": transformer,
     "vlm": transformer,
     "audio": transformer,
 }

@@ -5,10 +5,11 @@ batched decode steps generate new tokens.  Weights are random, from seed
 
     python -m repro_torch.serve --arch llama3-8b --batch 4 --prompt-len 2048 --tokens 64
     python -m repro_torch.serve --reduced --device cpu
+    python -m repro_torch.serve --arch qwen3-moe-235b-a22b --reduced --device cpu
 
 Full width on the card by default (it raises without one); ``--reduced``
 takes the reference example's scale (``configs.reduced``, prompt 32, 32
-new tokens).
+new tokens).  The MoE configs at full depth do not fit one card.
 """
 from __future__ import annotations
 

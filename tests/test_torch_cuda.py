@@ -29,6 +29,11 @@ engine and a faulted week asked of it equal the CPU's vector engine in
 every field, ``resilience`` included.  Telemetry: the events the card's
 scan engine decodes from its grids equal the CPU vector engine's, tuple for
 tuple, on those outage weeks; ``PhaseProfiler.sync`` waits on the card.
+MoE: the card's dispatch (top-k ids, slots, kept pairs, source tokens)
+equals the plain dispatch on the CPU bit for bit on the card's own router
+probabilities; a bf16 block within 1e-2 relative L2 of fp32 on the same
+routing; a reduced MoE serve gives the same bits twice.  The knob tuner's
+quick grid on the card's scan engine equals the CPU's vector engine.
 """
 import numpy as np
 import pytest
@@ -330,13 +335,14 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
 
 
 # The serving path's shapes: the llama3-8b prefill (on the Hopper kernel and
-# on the retained mma.sync kernel) and a decode-like single row over a long
-# cache.
+# on the retained mma.sync kernel), a decode-like single row over a long
+# cache, and qwen3-moe's prefill (D = 64, 16 query heads a KV head).
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,kernel", [
     ((4, 2048, 2048, 32, 8, 128, 0), "wgmma"),
     ((4, 2048, 2048, 32, 8, 128, 0), "mma_sync"),
     ((4, 1, 2112, 32, 8, 128, 2111), "wgmma"),
+    ((4, 2048, 2048, 64, 4, 64, 0), "wgmma"),        # qwen3-moe's prefill
 ])
 def test_kernel_flash_serving_shapes(cuda_flash, shape, kernel):
     b, sq, sk, hq, hkv, d, off = shape
@@ -1328,3 +1334,146 @@ def test_profiler_sync_waits_on_a_cuda_tensor():
     PhaseProfiler.sync([b, None])
     assert done.query()
     assert prof.calls == {"decide": 2} and prof.seconds["decide"] > 0
+
+
+# --- the MoE block on the card -------------------------------------------------
+
+def _moe_cfg(**kw):
+    """Reduced qwen3-moe in bf16 with 16 experts, top 4."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(
+        configs.reduced(configs.ARCHS["qwen3-moe-235b-a22b"]), num_experts=16,
+        experts_per_token=4, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planted", ["none", "two-equal-columns", "all-equal-columns"])
+def test_moe_dispatch_on_card_equals_cpu(cuda_flash, planted):
+    """Every dispatch of a bf16 MoE forward on the card (top-k ids, sort
+    order, slots, kept pairs, source tokens) equals the plain dispatch on the
+    CPU on the card's own router probabilities, bit for bit, with capacity
+    drops (factor 1.25) and planted ties (equal router columns)."""
+    from repro_torch.models import api, transformer
+
+    cfg = _moe_cfg()
+    params = api.init_params(cfg, seed=0, device="cpu")
+    router = params["layers"]["router"]
+    if planted == "two-equal-columns":
+        router[..., 3] = router[..., 2]
+    elif planted == "all-equal-columns":
+        router[...] = router[..., :1]
+    params = {k: ({n: t.to(cuda_flash) for n, t in v.items()} if isinstance(v, dict)
+                  else v.to(cuda_flash)) for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 64))).to(cuda_flash)
+    routes = []
+    route = transformer.moe_route
+
+    def capture(probs, k, cap):
+        r = route(probs, k, cap)
+        routes.append((probs.cpu(), k, cap, transformer.Routing(*(x.cpu() for x in r))))
+        return r
+
+    transformer.moe_route = capture
+    try:
+        logits = api.forward(params, tokens, cfg)
+    finally:
+        transformer.moe_route = route
+    assert torch.isfinite(logits.float()).all()
+    assert len(routes) == cfg.num_layers
+    dropped = ties = 0
+    for probs, k, cap, r in routes:
+        assert cap == transformer.capacity(cfg, 4 * 64) == 80
+        want = route(probs, k, cap)
+        for name in ("eidx", "order", "slot", "keep", "src_tok"):
+            assert torch.equal(getattr(r, name), getattr(want, name)), name
+        dropped += int((~r.keep).sum())
+        top = probs.sort(dim=-1, descending=True).values
+        ties += int((top[:, k - 1] == top[:, k]).sum())
+    if planted == "none":
+        return
+    assert ties > 0
+    if planted == "all-equal-columns":
+        assert dropped == cfg.num_layers * 4 * (256 - 80)      # experts 0-3 overflow
+        assert all(torch.equal(r.eidx, torch.arange(4).expand(256, 4))
+                   for _, _, _, r in routes)
+
+
+@pytest.mark.cuda
+def test_moe_serve_on_card_is_deterministic(cuda_flash):
+    """Reduced qwen3-moe in bf16 served twice on the card: the same prefill
+    logits bit for bit and the same greedy tokens (the combine adds each
+    token's experts in a fixed order, without atomics)."""
+    from repro_torch.models import api
+    from repro_torch.serve import greedy_generate
+
+    cfg = _moe_cfg()
+    params = api.init_params(cfg, seed=0, device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64))).to(cuda_flash)
+    a = greedy_generate(params, prompts, cfg, 16)
+    b = greedy_generate(params, prompts, cfg, 16)
+    assert torch.equal(a["prefill_logits"], b["prefill_logits"])
+    assert torch.equal(a["tokens"], b["tokens"])
+    assert a["prefill_flash_launches"] == cfg.num_layers and a["decode_flash_launches"] == 0
+
+
+@pytest.mark.cuda
+def test_moe_block_on_card_close_to_fp32(cuda_flash):
+    """One bf16 MoE block on the card within 1e-2 relative L2 of the fp32
+    evaluation of the same routing."""
+    from repro_torch.models import api, transformer
+
+    cfg = _moe_cfg()
+    params = api.init_params(cfg, seed=2, device="cuda")
+    lp = params["layers"]
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 64, cfg.d_model))
+                         .astype(np.float32)).to(cuda_flash, torch.bfloat16)
+    y = transformer.moe_block(x, lp, 1, cfg)
+    xt = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax((xt @ lp["router"][1]).float(), dim=-1)
+    cap = transformer.capacity(cfg, xt.shape[0])
+    r = transformer.moe_route(probs, cfg.experts_per_token, cap)
+    buf = xt.float().new_zeros((cfg.num_experts * cap + 1, cfg.d_model))
+    buf[r.slot] = xt.float()[r.src_tok] * r.keep[:, None].float()
+    yb = transformer.moe_experts(buf[:-1].view(cfg.num_experts, cap, -1),
+                                 lp["w_gate"][1].float(), lp["w_up"][1].float(),
+                                 lp["w_down"][1].float())
+    want = transformer.moe_combine(yb, r).view_as(y)
+    rel = (torch.linalg.vector_norm(y.float() - want)
+           / torch.linalg.vector_norm(want)).item()
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [False, True], ids=["mpc", "scale"])
+def test_tune_on_card_equals_cpu_vector(scale):
+    """The knob tuner's quick grid on the card's scan engine equals the
+    port's vector engine on the CPU, gap for gap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.experiment import tune_policy
+
+    policy = "carbonflex-scale" if scale else "carbonflex-mpc"
+    kw = dict(grid=tune_policy.quick_grid(), seed=1, scale=scale, capacity=20,
+              learn_weeks=1)
+    simulate = tune_policy.simulate_many
+    outs = []
+    for device, engine in (("cuda", "scan"), ("cpu", "vector")):
+        buf = io.StringIO()
+        tune_policy.simulate_many = lambda cases: simulate(
+            [dataclasses.replace(c, engine=engine) for c in cases])
+        try:
+            with contextlib.redirect_stdout(buf):
+                outs.append((tune_policy.tune(policy, device=device, **kw), buf.getvalue()))
+        finally:
+            tune_policy.simulate_many = simulate
+    assert outs[0] == outs[1]

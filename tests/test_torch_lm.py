@@ -32,7 +32,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import api, common
 from repro_torch.serve import init_cache, make_prefill, make_serve_step
 
-ARCHS = ["llama3-8b", "stablelm-1.6b", "minicpm-2b"]
+ARCHS = ["llama3-8b", "stablelm-1.6b", "minicpm-2b", "qwen3-moe-235b-a22b", "dbrx-132b"]
 BACKENDS = [("flash", "pallas"), ("chunked", "xla")]
 TOL = 1e-4
 B, P, MAX, STEPS = 2, 10, 16, 4
@@ -108,11 +108,14 @@ def test_prefill_and_greedy_decode_match_reference(arch, backend, rules):
     assert cache["length"] == int(jcache["length"]) == P + STEPS
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "minicpm-2b", "qwen3-moe-235b-a22b"])
 def test_prefill_then_decode_matches_pure_decode(arch):
     """As the reference's tests/test_serve.py: a prefilled cache and one
-    built token by token give the same logits."""
+    built token by token give the same logits (MoE at capacity factor 8,
+    where neither path drops a token)."""
     cfg, _ = _pair(arch)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     params = api.init_params(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(_tokens(cfg, P + 4))
     step = make_serve_step(cfg)
@@ -140,7 +143,7 @@ def test_configs_and_param_counts_match_reference(arch):
     assert cfg.active_param_count() == jcfg.active_param_count()
     assert (cfg.resolved_head_dim, cfg.q_per_kv) == (jcfg.resolved_head_dim,
                                                       jcfg.q_per_kv)
-    if cfg.family in ("ssm", "hybrid") or cfg.num_experts:
+    if cfg.family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError):
             api.param_count(cfg)
     else:
@@ -172,7 +175,8 @@ def test_param_shapes_and_init_rules(arch):
     # storage dtypes at full width: matrices in compute dtype, norms in param dtype
     full = configs.ARCHS[arch]
     assert api._storage_dtype(full, "wq") == torch.bfloat16
-    assert api._storage_dtype(full, "ln1") == torch.float32
+    assert api._storage_dtype(full, "ln1") == (torch.bfloat16 if full.num_experts
+                                               else torch.float32)
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -190,15 +194,14 @@ def test_rms_norm_and_rope_match_reference():
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "dbrx-132b",
-                                  "rwkv6-7b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
 def test_unported_families_raise(arch):
     cfg = configs.reduced(configs.ARCHS[arch])
     for call in (lambda: api.init_params(cfg, device="cpu"),
                  lambda: api.forward({}, torch.zeros((1, 2), dtype=torch.long), cfg),
                  lambda: make_prefill(cfg, 8), lambda: make_serve_step(cfg),
                  lambda: init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="later slice|MoE slice"):
+        with pytest.raises(NotImplementedError, match="later slice"):
             call()
 
 
@@ -210,6 +213,17 @@ def test_serve_cli_runs_reduced_on_cpu():
         capture_output=True, text=True, timeout=300, env=env, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "prefill" in out.stdout and "tok/s" in out.stdout
+
+
+def test_serve_cli_runs_moe_reduced_on_cpu():
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(os.path.join(root, "src")))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve", "--arch", "qwen3-moe-235b-a22b",
+         "--reduced", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "arch qwen3-moe-235b-a22b-smoke" in out.stdout and "tok/s" in out.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
