@@ -13,9 +13,10 @@ Phases, any failure exits non-zero:
    kernel through ``knn_lookup``, the per-slot lookup with the query as a
    launch parameter and the neighbours written into pinned host memory,
    equal bit for bit to ``knn_topk`` on a device query); ``gqa_flash`` on each
-   shape's route (the Hopper kernel for bf16 at D 64 and 128), its launches
-   counted by route, and at the prefill's shape the Hopper kernel timed in
-   turns with the retained mma.sync kernel (at most half its time); the
+   shape's route (the Hopper kernel for bf16 at D 64, 112 and 128), its
+   launches counted by route, and at the prefill's shape the Hopper kernel
+   timed in turns with the retained mma.sync kernel (at most half its time),
+   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA; the
    batch KNN lookup on the cluster kernel equal bit for bit to the previous
    (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
    device time (the cluster kernel at most half), beside the floor (an empty
@@ -56,7 +57,22 @@ Phases, any failure exits non-zero:
    ~20 under the reference init, divided by the power of two nearest its
    std for the elementwise limits; unscaled within the relative L2 limit)
    and timed beside SDPA; a warm run with the same tokens; finite logits,
-   ids in range, the cache (8, 4, 2112, 4, 64); a traced run;
+   ids in range, the cache (8, 4, 2112, 4, 64); a traced run; then rwkv6-7b
+   and zamba2-7b at full width and full depth (bf16, random weights from
+   seed 0; 15.1 and 13.5 GB), one after the other, each freed before the
+   next: init (seconds, bytes, peak); the forward at 4 x 2048 (rwkv6: no
+   flash launch; zamba2: 13, one per shared-block application, all on the
+   Hopper kernel at D 112), every chunked recurrence's largest chunk decay
+   sum and exponent of k * exp(-cum) recorded, every non-finite value held
+   to the reference expression's fp32 overflow (rwkv6's forward overflows
+   in layer 1, zamba2's in layer 18); ``greedy_generate`` on 4 prompts of
+   64 tokens, 32 new ones (the prefill replays the prompt through the
+   decode step, as the reference does), twice, the same tokens, finite
+   logits, no flash launch; the first run's 96 steps of recurrence inputs
+   of the first, middle and
+   last layer (and the forward's first overflowing one) through the chunked
+   form against the sequential oracle in fp32 (relative L2 <= 1e-4 on the
+   (row, head) pairs that do not overflow); a traced short run;
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
    slot loop on the card and every slot's release (the in-degree decrement,
@@ -163,7 +179,7 @@ Phases, any failure exits non-zero:
    DAG steps, ``geo_walk`` == geo steps, fill == fill steps); printed: each
    path's phase table, the event counts by kind, and the recording overhead
    on ``geo-full`` and the DAG path (the wall with the recorder over the
-   wall without, in turns: off, on, on, off, two rounds).
+   wall without, in turns: off, on, on, off, one round).
 11. the MPC knob tuner (``repro_torch.experiment.tune_policy``) at the
    reference script's full settings: carbonflex-mpc (18 knob cells) and
    carbonflex-scale (54) at seeds 1 and 3, capacity 40, 2 learning weeks,
@@ -222,7 +238,8 @@ from repro_torch.experiment import tune_policy  # noqa: E402
 from repro_torch.experiment.scenario import CI_MARGIN_HOURS, WEEK  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fill, gating, geo_walk, knn, ops, oracle_greedy, score  # noqa: E402
-from repro_torch.models import init_params, param_count, transformer  # noqa: E402
+from repro_torch.models import forward as model_forward  # noqa: E402
+from repro_torch.models import init_params, param_count, ssm, transformer  # noqa: E402
 from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa: E402
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
 from repro_torch.telemetry import MemoryRecorder, PhaseProfiler, Telemetry, attribute  # noqa: E402
@@ -725,9 +742,11 @@ FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # against the chunked attention: near one-hot softmax under the reference
 # init leaves ~2e-4 (1.5e-4 median over llama3-8b's 32 layers on an H100).
 ATTN_REL = 1e-3
-# (name, B, Sq, Sk, Hq, Hkv, D, causal_offset): the prefill's shape first
+# (name, B, Sq, Sk, Hq, Hkv, D, causal_offset): the prefill's shape first,
+# then zamba2-7b's forward (its shared attention at head dim 112)
 FLASH_SHAPES = [
     ("prefill", 4, 2048, 2048, 32, 8, 128, 0),
+    ("zamba2", 4, 2048, 2048, 32, 32, 112, 0),
     ("decode-like", 4, 1, 2112, 32, 8, 128, 2111),
     ("ragged", 2, 130, 330, 8, 2, 64, 200),
     ("multi-head", 2, 300, 300, 4, 4, 32, 0),
@@ -807,28 +826,32 @@ def ptxas_report(report, kernel):
 
 def flash_kernel_phase(report):
     """Phase 2 for ``gqa_flash``: every check shape in fp32 and bf16 against
-    the plain version, each on its route's kernel, and the prefill's shape
-    also on the retained mma.sync kernel; then, at the prefill's shape in
-    bf16 and in turns, the Hopper kernel, the mma.sync kernel, the plain
-    version and SDPA, by CUDA events and by profiler device time."""
+    the plain version, each on its route's kernel, and the prefill's and
+    zamba2's shapes also on the retained mma.sync kernel; then, at the
+    prefill's shape in bf16 and in turns, the Hopper kernel, the mma.sync
+    kernel, the plain version and SDPA, by CUDA events and by profiler
+    device time; last, the same (without mma.sync) at zamba2's shape, head
+    dim 112.  Returns the kernel line's entry of each shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = np.random.default_rng(1)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    err112, rel112 = 0.0, 0.0
     fa.reset_launches()
     expect = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
-            kernels = [None] + (["mma_sync"] if name == "prefill" and dtype == torch.bfloat16
-                                else [])
+            kernels = [None] + (["mma_sync"] if name in ("prefill", "zamba2")
+                                and dtype == torch.bfloat16 else [])
             for kern in kernels:
                 e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype} {kern}", kern)
-                route = kern or ("fp32" if dtype == torch.float32
-                                 else "wgmma" if d in (64, 128) else "mma_sync")
+                route = kern or fa.route(dtype, d)
                 expect["gqa_flash"] += 1
                 expect[route] += 1
                 err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
+                if d == 112 and route == "wgmma":
+                    err112, rel112 = max(err112, e), max(rel112, r)
                 log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
                     f"D={d} offset={off} {str(dtype)[6:]} on {route}: agrees with the "
                     f"plain version (max abs diff {e}, relative L2 {r}, limit "
@@ -838,8 +861,8 @@ def flash_kernel_phase(report):
 
     ptx = ptxas_report(report, "flash_wgmma_kernel")
     for name, rep in ptx.items():
-        d = 128 if "ILi128E" in name else 64
-        log(f"flash_wgmma_kernel<{d}>: ptxas {rep}, dynamic shared memory "
+        tile, d = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", name).groups())
+        log(f"flash_wgmma_kernel<{tile}, {d}>: ptxas {rep}, dynamic shared memory "
             f"{fa.wgmma_smem_bytes(d)} bytes, {fa.wgmma_stages(d)} stages")
     if not ptx:
         log("flash_wgmma_kernel: no ptxas report (the library was built before this run)")
@@ -886,6 +909,7 @@ def flash_kernel_phase(report):
     if not t["ms"] <= 0.5 * t["previous_ms"]:
         raise AssertionError(f"the Hopper kernel takes {t['ms']} ms, more than half "
                              f"the mma.sync kernel's {t['previous_ms']} ms")
+    d112 = flash_d112_timing(gen, err112, rel112)
     return dict(name="gqa_flash", route="cuda", kernel="flash_wgmma_kernel",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
@@ -894,7 +918,51 @@ def flash_kernel_phase(report):
                 bound_ms=bound, bound_by=by, tflops=flops / t["ms"] / 1e9,
                 bound_share=bound / t["ms"],
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, **t)
+                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, **t), d112
+
+
+def flash_d112_timing(gen, err, rel):
+    """zamba2-7b's forward shape (head dim 112, on the Hopper kernel's
+    D = 128 tiles) in bf16: the kernel, the plain version and SDPA in turns
+    by CUDA events, and by profiler device time, beside the bound."""
+    _, b, sq, sk, hq, hkv, d, off = FLASH_SHAPES[1]
+    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kernel():
+        return fa.launch(q, k, v, off, "wgmma")
+
+    def plain():
+        return fa.gqa_flash_plain(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
+    runs = dict(ms=(kernel, 50, 5), plain_ms=(plain, 10, 3), library_ms=(library, 50, 5))
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        fn, iters, warmup = runs[key]
+        turns[key].append(time_ms(fn, iters, warmup=warmup))
+    t = {key: float(np.mean(v)) for key, v in turns.items()}
+    t.update(device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 10),
+             library_device_ms=device_ms(library, 20))
+    nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
+    bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"gqa_flash zamba2 shape bf16 D=112, in turns {turns}")
+    log(f"gqa_flash zamba2 shape bf16 D=112: Hopper kernel (D=128 tiles) {t['ms']:.6f} "
+        f"ms/call ({flops / t['ms'] / 1e9:.3f} TFLOP/s, {bound / t['ms']:.4f} of the "
+        f"bound), plain {t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} "
+        f"by {by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; device time "
+        f"{t['device_ms']} ms/call (plain {t['plain_device_ms']}, SDPA "
+        f"{t['library_device_ms']}); SDPA differs from the kernel by up to {lib_diff}")
+    return dict(name="gqa_flash_d112", route="cuda", kernel="flash_wgmma_kernel<128, 112>",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:94",
+                max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
+                tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                sdpa_max_abs_diff=lib_diff, turns=turns, **t)
 
 
 def teacher_forced(params, prompts, cfg, chunked):
@@ -1357,6 +1425,294 @@ def moe_serve_phase(device="cuda"):
                 flash_d64=flash_t, traced_wall_s=traced_wall, traced_busy_ms=busy_ms,
                 traced_busy_share=busy_ms / 1e3 / traced_wall,
                 traced_top=[[n[:100], ms] for n, ms in top], launches=launches)
+
+
+# --- the rwkv6 and zamba2 families: the chunked linear recurrence --------------
+
+SSM_ARCHS = ("rwkv6-7b", "zamba2-7b")
+# The forward at the serving path's batch and prompt length; the replay
+# prefill (one decode step a prompt token, as the reference prefills these
+# families) on prompts of 64 tokens with 32 new ones: 96 decode steps of
+# host dispatch, 53-200 ms each on H100 hosts (PERF.md), run twice, which
+# keeps the phase inside its 90 s budget on the slowest host seen.
+SSM_BATCH, SSM_SEQ = 4, 2048
+SSM_PROMPT, SSM_TOKENS = 64, 32
+# The per-layer check: the first, middle and last layer's recurrence inputs
+# of the serving run's 96 decode steps (one chunk; the decode path holds one
+# token a chunk, so its inputs stay finite), through the chunked
+# form against the sequential oracle in fp32, relative L2 of the outputs and
+# final states over the (row, head) pairs whose chunks stay inside fp32's
+# exp range.
+SSM_CHECK_TOKENS = SSM_PROMPT + SSM_TOKENS
+SSM_REL = 1e-4
+# ln of fp32's largest value: the chunked form's k * exp(-cum) overflows
+# where log|k| - cum passes it (the reference's expression, reproduced
+# unguarded; PERF.md §6, ROADMAP queue 3).
+LOG_FP32_MAX = math.log(torch.finfo(torch.float32).max)
+
+
+def chunk_exponents(k, log_w, chunk):
+    """Per (row, head): the largest exponent log|k_j| - cum_j that the
+    chunked form's k * exp(-cum) reaches, and the largest chunk decay sum
+    -sum(log_w) over channels.  NaN where the inputs are."""
+    b, s, h, _ = k.shape
+    nchunk = -(-s // chunk)
+
+    def chunks(x):
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, nchunk * chunk - s))
+        return x.reshape(b, nchunk, chunk, h, x.shape[-1])
+
+    cum = chunks(log_w).cumsum(2)
+    exponent = (torch.log(chunks(k).abs()) - cum).amax(dim=(1, 2, 4))
+    return exponent, (-cum[:, :, -1]).amax(dim=(1, 3))
+
+
+def ssm_serve_phase(cfgs=None, device="cuda"):
+    """Phase 4c: rwkv6-7b and zamba2-7b at full width and full depth, one
+    after the other, each freed before the next (``ssm_family_run``)."""
+    out = {}
+    for cfg in cfgs or [ARCHS[a] for a in SSM_ARCHS]:
+        t = time.perf_counter()
+        out[cfg.name] = ssm_family_run(cfg, device)
+        out[cfg.name]["wall_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrence_check(inputs, u, chunk):
+    """One layer's recorded recurrence inputs (B, T, H, .) in fp32 through
+    the chunked form and the sequential oracle.  The (row, head) pairs whose
+    chunks overflow (``chunk_exponents`` past LOG_FP32_MAX) are counted
+    apart; the gate holds the others."""
+    q, k, v, log_w = inputs
+    y, st = ssm.chunked_linear_attention(q, k, v, log_w, u=u, chunk=chunk,
+                                         return_state=True)
+    y_ref, st_ref = ssm.reference_scan(q, k, v, log_w, u=u)
+    exponent, decay = chunk_exponents(k, log_w, chunk)
+    over = exponent > LOG_FP32_MAX                                   # (B, H)
+    bad = ~(torch.isfinite(y).all(dim=(1, 3)) & torch.isfinite(st).all(dim=(2, 3)))
+    ok = ~over
+    out = dict(pairs=int(ok.numel()), overflow_pairs=int(over.sum()),
+               nonfinite_pairs=int(bad.sum()), unexplained=int((bad & ok).sum()),
+               oracle_nonfinite=int((~torch.isfinite(y_ref)).sum()),
+               y_rel_l2=None, state_rel_l2=None, y_max_abs_diff=None,
+               max_exponent=float(exponent.max()), max_decay=float(decay.max()))
+    if ok.any():
+        yo, yr = y.transpose(1, 2)[ok], y_ref.transpose(1, 2)[ok]
+        out.update(y_rel_l2=rel_l2(yo, yr), state_rel_l2=rel_l2(st[ok], st_ref[ok]),
+                   y_max_abs_diff=(yo - yr).abs().max().item())
+    return out
+
+
+def ssm_family_run(cfg, device="cuda"):
+    """One family: init (seconds, bytes on the card, peak); the forward at
+    B=4 x S=2048 through ``models.forward``, every chunked recurrence
+    recorded (finite inputs and output, its largest exponent of k * exp(-cum)
+    and chunk decay sum), gated on its flash launches (zamba2: one per
+    shared-block application, all on the Hopper kernel at D 112; rwkv6:
+    none) and on every non-finite value being the reference expression's
+    fp32 overflow, then a warm forward for the time; ``greedy_generate``
+    twice on the same prompts (equal tokens, finite logits, no flash launch:
+    the replay prefill and decode attend through the plain chunked
+    attention), the first run's recurrence inputs of three layers recorded
+    and checked (``recurrence_check``); a traced short run for the card's
+    busy share."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in torch.utils._pytree.tree_leaves(params))
+    on_card, init_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    log(f"ssm serve: {cfg.name} [{cfg.family}] {cfg.num_layers} layers d={cfg.d_model} "
+        f"{n_params} parameters initialised in {init_s:.3f} s ({on_card / 2**30:.3f} GiB "
+        f"on the card, peak {init_peak / 2**30:.3f} GiB)")
+    if n_params != param_count(cfg):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, param_count says "
+                             f"{param_count(cfg)}")
+    hybrid = cfg.family == "hybrid"
+    groups = cfg.num_layers // cfg.shared_attn_every if hybrid else 0
+    L = cfg.num_layers
+
+    # The forward, every chunked recurrence recorded (calls run in layer order).
+    calls = []
+    recurrence = ssm.chunked_linear_attention
+
+    def recording(q, k, v, log_w, u=None, chunk=128, initial_state=None,
+                  return_state=False):
+        out = recurrence(q, k, v, log_w, u=u, chunk=chunk, initial_state=initial_state,
+                         return_state=return_state)
+        exponent, decay = chunk_exponents(k, log_w, chunk)
+        y = out[0] if return_state else out
+        calls.append(dict(finite_in=all(bool(torch.isfinite(x).all())
+                                        for x in (q, k, v, log_w)),
+                          finite_out=bool(torch.isfinite(y).all()),
+                          exponent=float(exponent.max()), decay=float(decay.max())))
+        return out
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_SEQ))).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    ssm.chunked_linear_attention = recording
+    fa.reset_launches()
+    try:
+        logits = model_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+    finally:
+        ssm.chunked_linear_attention = recurrence
+    launches = dict(fa.launches)
+    nonfinite = int((~torch.isfinite(logits)).sum())
+    shape = tuple(logits.shape)
+    del logits
+    overflow = [li for li, c in enumerate(calls)
+                if c["finite_in"] and c["exponent"] > LOG_FP32_MAX]
+    first_bad = next((li for li, c in enumerate(calls) if not c["finite_out"]), None)
+    finite_calls = [c for c in calls if c["finite_in"]]
+    decay_max = max(c["decay"] for c in finite_calls)
+    want = ({"gqa_flash": groups, "wgmma": groups, "mma_sync": 0, "fp32": 0} if hybrid
+            else {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0})
+    if device != "cuda":
+        want = {k: 0 for k in want}                 # a CPU rehearsal: the plain version
+    log(f"ssm serve: {cfg.name} forward B={SSM_BATCH} S={SSM_SEQ}: logits {shape}, "
+        f"{nonfinite} non-finite; {len(calls)} chunked recurrences, {len(finite_calls)} on "
+        f"finite inputs; largest chunk decay sum {decay_max}, largest exponent of "
+        f"k * exp(-cum) {max(c['exponent'] for c in finite_calls)} (fp32 overflows past "
+        f"{LOG_FP32_MAX}); layers whose recurrence overflows {overflow}, first non-finite "
+        f"output at layer {first_bad}; per layer (decay, exponent) "
+        f"{[(round(c['decay'], 3), round(c['exponent'], 3)) for c in calls]}; gqa_flash "
+        f"launches {launches}")
+    if shape != (SSM_BATCH, SSM_SEQ, cfg.vocab_size) or len(calls) != L:
+        raise AssertionError(f"{cfg.name}: logits {shape}, {len(calls)} recurrences")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} forward: flash launches {launches}, expected {want}")
+    # Every non-finite value is the reference expression's overflow: the first
+    # non-finite recurrence output comes from finite inputs that overflow, a
+    # recurrence on finite inputs that does not overflow gives finite outputs,
+    # and without an overflow the logits are finite.
+    unexplained = [li for li, c in enumerate(calls) if c["finite_in"] and not
+                   c["finite_out"] and li not in overflow]
+    if unexplained or (first_bad is not None and first_bad not in overflow) \
+            or (not overflow and nonfinite):
+        raise AssertionError(f"{cfg.name} forward: non-finite values not explained by an "
+                             f"overflow: layers {unexplained}, first {first_bad}, overflow "
+                             f"{overflow}, {nonfinite} non-finite logits")
+    fa.reset_launches()
+    t = time.perf_counter()
+    warm = model_forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t
+    forward_peak = torch.cuda.max_memory_allocated()
+    if dict(fa.launches) != want:
+        raise AssertionError(f"{cfg.name} warm forward: flash launches {fa.launches}")
+    del warm, tokens
+
+    # Serving: the replay prefill and greedy decode, twice; the first run's
+    # recurrence inputs of the first, middle and last layer (and of the
+    # forward's first overflowing one) recorded (each decode step runs one
+    # recurrence a layer, in layer order: rwkv6 through the chunked form on
+    # its one token, zamba2 through ``recurrence_step``).
+    check_layers = sorted({0, L // 2, L - 1, *overflow[:1]})
+    captured = {li: [] for li in check_layers}
+    step_fn = "recurrence_step" if hybrid else "chunked_linear_attention"
+    step_recurrence = getattr(ssm, step_fn)
+    n_calls = [0]
+
+    def capture(q, k, v, log_w, *args, **kw):
+        li = n_calls[0] % L
+        n_calls[0] += 1
+        if li in captured:
+            one = (lambda x: x[:, None]) if hybrid else (lambda x: x)
+            captured[li].append(tuple(one(x).float().clone() for x in (q, k, v, log_w)))
+        return step_recurrence(q, k, v, log_w, *args, **kw)
+
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))).to(device)
+    fa.reset_launches()
+    setattr(ssm, step_fn, capture)
+    try:
+        runs = [greedy_generate(params, prompts, cfg, SSM_TOKENS)]
+    finally:
+        setattr(ssm, step_fn, step_recurrence)
+    runs.append(greedy_generate(params, prompts, cfg, SSM_TOKENS))
+    if fa.launches["gqa_flash"] or any(r["prefill_flash_launches"] or
+                                       r["decode_flash_launches"] for r in runs):
+        raise AssertionError(f"{cfg.name} serving launched gqa_flash: {fa.launches}")
+    same = torch.equal(runs[0]["tokens"], runs[1]["tokens"])
+    serve_nonfinite = sum(int((~torch.isfinite(r[k])).sum()) for r in runs
+                          for k in ("prefill_logits", "last_logits"))
+    toks = runs[1]["tokens"]
+    cache = runs[1]["cache"]
+    steps = SSM_PROMPT + SSM_TOKENS
+    timing = [dict(prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                   prefill_ms_per_token=1e3 * r["prefill_s"] / SSM_PROMPT,
+                   decode_ms_per_step=1e3 * r["decode_s"] / SSM_TOKENS,
+                   tokens_per_s=SSM_BATCH * SSM_TOKENS / r["decode_s"]) for r in runs]
+    log(f"ssm serve: {cfg.name} replay prefill {SSM_BATCH} x {SSM_PROMPT} + {SSM_TOKENS} "
+        f"greedy tokens, twice: {timing}; same tokens {same}; {serve_nonfinite} non-finite "
+        "logits; no flash launch")
+    if hybrid:
+        cache_ok = cache["length"] == steps and tuple(cache["k"].shape) == (
+            groups, SSM_BATCH, steps, cfg.num_kv_heads, cfg.resolved_head_dim)
+    else:
+        cache_ok = tuple(cache["state"].shape) == (L, SSM_BATCH, cfg.d_model // 64, 64, 64)
+    if not (same and cache_ok) or serve_nonfinite or toks.shape != (SSM_BATCH, SSM_TOKENS) \
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} serving: same tokens {same}, cache ok {cache_ok}, "
+                             f"{serve_nonfinite} non-finite, ids {toks.min()}..{toks.max()}")
+    del runs, cache
+    if n_calls[0] != L * SSM_CHECK_TOKENS:
+        raise AssertionError(f"{cfg.name}: {n_calls[0]} recurrences in the first serving "
+                             f"run, expected {L} x {SSM_CHECK_TOKENS}")
+    chunk = cfg.attention_chunk // 8 or 128
+    layer_check = {}
+    for li, steps_in in captured.items():
+        inputs = tuple(torch.cat(xs, dim=1) for xs in zip(*steps_in))
+        u = None if hybrid else params["layers"]["u"][li].float()
+        layer_check[li] = recurrence_check(inputs, u, chunk)
+    del captured
+    log(f"ssm serve: {cfg.name} the serving run's recurrence inputs ({SSM_CHECK_TOKENS} "
+        f"tokens) of layers {check_layers}, chunked form vs reference_scan in fp32: "
+        f"{layer_check} (limit {SSM_REL} over the (row, head) pairs that do not overflow)")
+    for li, c in layer_check.items():
+        if c["unexplained"] or c["oracle_nonfinite"] or c["overflow_pairs"] == c["pairs"] \
+                or not (c["y_rel_l2"] <= SSM_REL and c["state_rel_l2"] <= SSM_REL):
+            raise AssertionError(f"{cfg.name} layer {li}: chunked recurrence vs the "
+                                 f"sequential oracle {c}")
+
+    # A traced short run (1 replayed prompt token and 1 new one, both decode
+    # steps) for the card's busy share: the profiler takes ~0.4 ms of host
+    # time to read back each of the ~3,700 (rwkv6) to ~5,700 (zamba2) device
+    # events of a step.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        greedy_generate(params, prompts[:, :1], cfg, 1)
+        traced_wall = time.perf_counter() - t
+    events = device_events(prof)
+    busy_ms = busy_us(events) / 1e3
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"ssm serve: {cfg.name} traced 2 decode steps: {traced_wall:.6f} s wall under "
+        f"the profiler, {len(events)} device events, card busy {busy_ms:.6f} ms = "
+        f"{100 * busy_ms / 1e3 / traced_wall:.6f} %")
+    for name, ms in top:
+        log(f"  device {ms:.6f} ms  {name[:100]}")
+    del params, prompts
+    return dict(arch=cfg.name, family=cfg.family, layers=L, params=n_params, init_s=init_s,
+                gib_on_card=on_card / 2**30, init_peak_gib=init_peak / 2**30,
+                forward_peak_gib=forward_peak / 2**30, forward_s=forward_s,
+                forward_shape=list(shape), forward_nonfinite=nonfinite,
+                chunk_decay_max=decay_max, overflow_layers=overflow,
+                first_nonfinite_layer=first_bad, forward_calls=calls,
+                forward_flash=launches, layer_check=layer_check, serve=timing,
+                same_tokens=same, serve_nonfinite=serve_nonfinite,
+                prompt=SSM_PROMPT, new_tokens=SSM_TOKENS, traced_wall_s=traced_wall,
+                traced_busy_ms=busy_ms, traced_busy_share=busy_ms / 1e3 / traced_wall,
+                traced_events=len(events), traced_top=[[n[:100], ms] for n, ms in top])
 
 
 # --- DAG gating and the device slot loop -------------------------------------
@@ -3326,9 +3682,11 @@ def recorded_path(what, card_fn, cpu_fn):
     return card, cpu, tel, entry
 
 
-def recording_overhead(what, fn, rounds=2):
+def recording_overhead(what, fn, rounds=1):
     """The wall with a recorder over the wall without, taken in turns
-    (off, on, on, off per round) on the card."""
+    (off, on, on, off per round) on the card.  One round: host spread
+    exceeds what the recorder costs (PERF.md), and the whole script stays
+    inside half its time limit."""
     walls = {"off": 0.0, "on": 0.0}
     for _ in range(rounds):
         for side in ("off", "on", "on", "off"):
@@ -3586,7 +3944,9 @@ def main():
     reports = build_kernels()
 
     kernels = kernel_phase(reports["src/repro_torch/csrc/knn.cu"])
-    kernels.append(flash_kernel_phase(reports["src/repro_torch/csrc/flash_attention.cu"]))
+    flash_entry, d112_entry = flash_kernel_phase(
+        reports["src/repro_torch/csrc/flash_attention.cu"])
+    kernels.append(flash_entry)
     kernels.append(gating_kernel_phase(reports["src/repro_torch/csrc/gating.cu"]))
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
@@ -3598,6 +3958,11 @@ def main():
     moe = moe_serve_phase()
     moe["wall_s"] = time.perf_counter() - t
     kernels[2].update(moe_launches=moe["launches"]["wgmma"], moe_flash_d64=moe["flash_d64"])
+    t = time.perf_counter()
+    ssm_path = ssm_serve_phase()
+    ssm_path["wall_s"] = time.perf_counter() - t
+    d112_entry.update(launches=ssm_path["zamba2-7b"]["forward_flash"]["wgmma"],
+                      path="zamba2-forward")
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -3611,6 +3976,7 @@ def main():
     kernels.append(fill_entry)
     geo_entry, geo = geo_phase(reports["src/repro_torch/csrc/geo_walk.cu"])
     kernels.append(geo_entry)
+    kernels.append(d112_entry)
     chaos = chaos_phase()
     # launches on the resilience paths, beside each kernel's own path
     by_name = {kern["name"]: kern for kern in kernels}
@@ -3649,7 +4015,9 @@ def main():
         f"; the DAG path under the outage on the card {chaos['dag']['wall_s']:.3f}, on the "
         f"CPU {chaos['dag']['cpu_wall_s']:.3f}; the telemetry phase {tele['wall_s']:.3f}; "
         f"MoE serving: warm prefill {moe['warm_run']['prefill_s']:.3f}, decode "
-        f"{moe['warm_run']['decode_s']:.3f}, the phase {moe['wall_s']:.3f}; the tuner on "
+        f"{moe['warm_run']['decode_s']:.3f}, the phase {moe['wall_s']:.3f}; rwkv6 / zamba2 "
+        f"{ssm_path['rwkv6-7b']['wall_s']:.3f} / {ssm_path['zamba2-7b']['wall_s']:.3f}, the "
+        f"phase {ssm_path['wall_s']:.3f}; the tuner on "
         f"the card {sum(v['card_s'] for v in tune['runs'].values()):.3f}, on the CPU "
         f"{sum(v['cpu_s'] for v in tune['runs'].values()):.3f}, the phase "
         f"{tune['wall_s']:.3f}")
@@ -3661,6 +4029,7 @@ def main():
                                    if k != "launches"}}))
     log(json.dumps({"moe_serve_path": {k: v for k, v in moe.items()
                                        if k != "launches"}}))
+    log(json.dumps({"ssm_serve_path": ssm_path}))
     log(json.dumps({"tune_path": tune}))
     log(json.dumps({"dag_path": dag}))
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()

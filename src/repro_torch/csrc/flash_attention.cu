@@ -21,7 +21,7 @@
 // contribute exactly 0.  Three kernels, routed by dtype and D alone (the
 // wrapper, kernels/flash_attention.py, picks one):
 //
-//   flash_wgmma_kernel (bf16, D in {64, 128}; every model config): the
+//   flash_wgmma_kernel (bf16, D in {64, 112, 128}; every model config): the
 //     Hopper design.  One block owns 128 query rows of one head and runs
 //     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
 //     (setmaxnreg 40) and one thread issues TMA loads, 4-D tensor maps over
@@ -41,13 +41,20 @@
 //     barriers), so that one's softmax runs while the other's products hold
 //     the tensor cores.  Blocks take the heaviest query tiles first (grid
 //     (Hq, B, Sq tiles), the tile index reversed), so the light causal tiles
-//     fill the tail.
+//     fill the tail.  D = 112 (zamba2-7b's shared attention: d_model 3584
+//     over 32 heads) runs the D = 128 instantiation: the tensor maps keep D
+//     = 112 as their innermost extent, so the second box of each row reaches
+//     past it and TMA fills its columns 112..127 with zeros (they add
+//     nothing to q.k, and V's give output columns that are not stored); the
+//     softmax scale is 1/sqrt(112), and the epilogue stores 112 columns a
+//     row, so no store reaches the next head.  The products do 128/112 =
+//     1.14x the work the function needs.
 //   flash_bf16_kernel (bf16, D = 32, which no model config uses): 4 warps,
 //     each owning 16 of 64 query rows, mma.sync m16n8k16; K and V tiles of
 //     64 keys stream into two shared-memory buffers with cp.async, the next
 //     tile loading while the block computes on the current one; ldmatrix
 //     reads K's fragments and, transposing, V's.  It takes D in {64, 128}
-//     as well, for comparison with the Hopper kernel.
+//     as well (and D = 112), for comparison with the Hopper kernel.
 //   flash_f32_kernel (fp32): 16x16 threads, each owning a 4x4 block of
 //     scores and 4 rows x D/16 columns of the output, fp32 FMA on the CUDA
 //     cores (no TF32, so the result stays within 2e-5 of the fp32
@@ -56,7 +63,9 @@
 // What bounds it on an H100: at the prefill shape of llama3-8b (B=4,
 // S=2048, Hq=32, Hkv=8, D=128) one call does 4*B*Hq*D*(S(S+1)/2) = 137 GFLOP
 // and must move 168 MB, so it is bound by the tensor cores (0.139 ms at
-// 989 TFLOP/s) far above the bytes (0.050 ms at 3.35 TB/s).  Only wgmma
+// 989 TFLOP/s) far above the bytes (0.050 ms at 3.35 TB/s); at zamba2-7b's
+// forward (B=4, S=2048, Hq=Hkv=32, D=112) 120.3 GFLOP (0.122 ms), for which
+// the D = 128 tiles run 137.4 GFLOP of products.  Only wgmma
 // reaches the tensor cores' full rate; mma.sync reached 14 % of it.  In the
 // Hopper kernel the K/V tiles still cross from L2 once per 128 query rows
 // (1.1 GB per prefill call), and the softmax is not overlapped with the
@@ -776,8 +785,10 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l
 // 4g + t): element i is row 16w + g + 8 * ((i >> 1) & 1), column
 // 8 * (i >> 2) + 2t + (i & 1).  Register-A layout of a 64 x 16 bf16 slice:
 // four pairs, (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8), which are
-// elements 8kk + 0..7 of the accumulator of S for key slice kk.
-template <int D>
+// elements 8kk + 0..7 of the accumulator of S for key slice kk.  D is the
+// tiles' width, DO <= D the head dim: the output's row length and the
+// columns stored.
+template <int D, int DO = D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -886,9 +897,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const int orow = row + 8 * r;
       if (orow < sq) {
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * D + 2 * t;
+        __nv_bfloat16* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * DO + 2 * t;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
+        for (int n = 0; n < DO / 8; ++n)    // columns 8n + 2t, +1 < DO
           *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
               __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
       }
@@ -921,22 +932,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int D>
+// The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D = 128).
+template <int D, int DO = D>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, int sq, int sk, int hq, int hkv,
                    int offset, dim3 grid, size_t smem, cudaStream_t stream) {
+  static_assert(DO <= D && DO % 16 == 0 && D - DO < BOX, "DO: the head dim in D's last box");
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
   // setmaxnreg only moves registers between the warpgroups: the launch
   // must hold what the consumers ask for, or their setmaxnreg would wait.
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO>);
   if (err != cudaSuccess) return err;
   if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 256)
     return cudaErrorLaunchOutOfResources;
-  err = cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  flash_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DO));
+  flash_wgmma_kernel<D, DO><<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, hq, hq / hkv, offset,
       scale_log2);
   return cudaGetLastError();
@@ -950,7 +963,7 @@ extern "C" {
 
 // dtype 0 = float32, 1 = bfloat16.  q (b, sq, hq, d), k/v (b, sk, hkv, d)
 // with unit stride along d and the given element strides along b, s, h;
-// o (b, sq, hq, d) contiguous.  d in {32, 64, 128}, hq a multiple of hkv,
+// o (b, sq, hq, d) contiguous.  d in {32, 64, 112, 128}, hq a multiple of hkv,
 // causal_offset >= 0.
 int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
@@ -969,6 +982,9 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
     case 64:
       return static_cast<int>(launch<64>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
                                          causal_offset, qs, ks, vs, s));
+    case 112:
+      return static_cast<int>(launch<112>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
+                                          causal_offset, qs, ks, vs, s));
     case 128:
       return static_cast<int>(launch<128>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
                                           causal_offset, qs, ks, vs, s));
@@ -977,11 +993,12 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
   }
 }
 
-// bf16 q (b, sq, hq, d), k/v (b, sk, hkv, d), d in {64, 128}, through the
-// Hopper kernel; o (b, sq, hq, d) contiguous.  `maps` holds, for q, k and v
-// in turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
-// strides along h, s and b, and its box (64, 1, 128, 1).  The grid is
-// (hq, b, ceil(sq / 128)); `smem` the kernel's dynamic shared memory.
+// bf16 q (b, sq, hq, d), k/v (b, sk, hkv, d), d in {64, 112, 128}, through
+// the Hopper kernel (d = 112 on the d = 128 tiles); o (b, sq, hq, d)
+// contiguous.  `maps` holds, for q, k and v in turn, eleven numbers: the
+// tensor map's dims (d, h, s, b), its byte strides along h, s and b, and its
+// box (64, 1, 128, 1).  The grid is (hq, b, ceil(sq / 128)); `smem` the
+// kernel's dynamic shared memory.
 int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, int b, int sq,
                     int sk, int hq, int hkv, int d, int causal_offset,
                     const unsigned long long* maps, int grid_x, int grid_y, int grid_z,
@@ -1018,6 +1035,9 @@ int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, int b,
     case 64:
       return static_cast<int>(hopper::launch<64>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
                                                  static_cast<size_t>(smem), s));
+    case 112:
+      return static_cast<int>(hopper::launch<128, 112>(tm, o, sq, sk, hq, hkv, causal_offset,
+                                                       grid, static_cast<size_t>(smem), s));
     case 128:
       return static_cast<int>(hopper::launch<128>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
                                                   static_cast<size_t>(smem), s));

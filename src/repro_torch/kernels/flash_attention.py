@@ -8,10 +8,13 @@ h // (Hq // Hkv), and returns (B, Sq, Hq, D) in q's dtype: softmax of
 q.k / sqrt(D), masked to ``causal_offset + q_row >= k_row``, times v, in
 fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
 launches a kernel of ``csrc/flash_attention.cu`` (float32 or bfloat16,
-D in {32, 64, 128}, unit stride along D) or raises.  ``route`` picks the
-kernel from the dtype and D alone (``ROUTES``): bf16 at D in {64, 128}, the
-head dims of every model config, goes to the Hopper kernel (wgmma fed by
-TMA), bf16 at D = 32 to the ``mma.sync`` kernel, fp32 to the fp32 kernel.
+D in {32, 64, 112, 128}, unit stride along D) or raises.  ``route`` picks
+the kernel from the dtype and D alone (``ROUTES``): bf16 at D in {64, 112,
+128} goes to the Hopper kernel (wgmma fed by TMA; llama3-8b and the MoE
+configs take 64 or 128, zamba2-7b's shared attention 112, which runs on
+the D = 128 instantiation over tiles whose columns 112..127 TMA fills with
+zeros, storing 112 columns), bf16 at D = 32 to the ``mma.sync`` kernel,
+fp32 to the fp32 kernel.
 ``plan`` does the shape and stride arithmetic of a launch (the route, the
 Hopper kernel's tensor maps, grid and shared memory) and runs on any
 tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to the
@@ -31,12 +34,15 @@ from ._build import build_library
 #: "gqa_flash", and each under its route.
 launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The kernel of each (dtype, D).
-ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
-          (torch.bfloat16, 32): "mma_sync", (torch.float32, 32): "fp32",
-          (torch.float32, 64): "fp32", (torch.float32, 128): "fp32"}
+ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
+          (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 32): "mma_sync",
+          (torch.float32, 32): "fp32", (torch.float32, 64): "fp32",
+          (torch.float32, 112): "fp32", (torch.float32, 128): "fp32"}
+#: Head dims of the Hopper kernel, and the width of the tiles each runs on.
+WGMMA_TILE_DIM = {64: 64, 112: 128, 128: 128}
 
 # The Hopper kernel's tiling (csrc/flash_attention.cu, namespace hopper).
 WGMMA_ROWS = 128        # query rows per block
@@ -93,21 +99,24 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 
 def wgmma_stages(d: int) -> int:
-    """Depth of the Hopper kernel's K/V ring: what fits 227 KB."""
-    return 2 if d == 128 else 3
+    """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB."""
+    return 2 if WGMMA_TILE_DIM[d] == 128 else 3
 
 
 def wgmma_smem_bytes(d: int) -> int:
-    """The Hopper kernel's dynamic shared memory: 1024 bytes of alignment
-    slack, the Q tile, a ring of K and V tiles, 8 bytes per mbarrier."""
-    tile = (d // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
+    """The Hopper kernel's dynamic shared memory at head dim d: 1024 bytes
+    of alignment slack, the Q tile, a ring of K and V tiles (each
+    ``WGMMA_TILE_DIM[d]`` columns wide), 8 bytes per mbarrier."""
+    tile = (WGMMA_TILE_DIM[d] // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
     stages = wgmma_stages(d)
     return 1024 + tile * (1 + 2 * stages) + 8 * (1 + 3 * stages)
 
 
 def tensor_map(t: torch.Tensor) -> tuple[int, ...]:
     """The 4-D TMA map over t (B, S, H, D), innermost first: dims
-    (D, H, S, B), byte strides along H, S and B, box (64, 1, 128, 1)."""
+    (D, H, S, B), byte strides along H, S and B, box (64, 1, 128, 1).  At
+    D = 112 the second box of a row reaches past D: TMA fills its columns
+    112..127 with zeros."""
     b, s, h, d = t.shape
     e = t.element_size()
     return (d, h, s, b, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e,
@@ -161,7 +170,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     _check_layout(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
-    ok = {"wgmma": q.dtype == torch.bfloat16 and d in (64, 128),
+    ok = {"wgmma": q.dtype == torch.bfloat16 and d in WGMMA_TILE_DIM,
           "mma_sync": q.dtype == torch.bfloat16, "fp32": q.dtype == torch.float32}
     if not ok.get(name, False):
         raise ValueError(f"kernel {name!r} does not take {q.dtype} at head dim {d}")

@@ -2,10 +2,14 @@
 the bridge that carries the reference's weights across (the counterpart of
 ``repro/models/api.py``).
 
-Weights are stored as they are used: every matrix in the config's
-``compute_dtype`` (the reference keeps ``param_dtype`` and casts at every
-use; casting once gives the same values), the norm scales (``ln*``) in
-``param_dtype``, since ``rms_norm`` reads them in fp32.
+Weights are stored as they are used: every matrix, and the leaves that the
+reference casts to the activations' dtype at use (``mix``, ``mix_c``,
+``conv``, ``d_skip``), in the config's ``compute_dtype`` (the reference
+keeps ``param_dtype`` and casts at every use; casting once gives the same
+values); the leaves that it reads in fp32 in ``param_dtype``: the norm
+scales (``ln*``, read by ``rms_norm``), rwkv6's decay base ``w0`` and bonus
+``u``, zamba2's ``a_log`` and ``dt_bias``.  Stored in bf16, those four
+would change the decay at full width.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import transformer
+from . import rwkv6, transformer, zamba2
 from .common import ModelConfig, dense_init
 
 FAMILIES = {
@@ -24,15 +28,18 @@ FAMILIES = {
     "moe": transformer,
     "vlm": transformer,
     "audio": transformer,
+    "ssm": rwkv6,
+    "hybrid": zamba2,
 }
+
+#: Leaves that the reference reads in fp32 (beside the norm scales).
+FP32_LEAVES = ("w0", "u", "a_log", "dt_bias")
+#: Leaves that the reference initialises to a constant, and the constant.
+CONST_LEAVES = {"d_skip": 1.0, "mix": 0.5, "mix_c": 0.5, "w0": -1.0,
+                "a_log": 0.0, "dt_bias": -1.0}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "rwkv6, ssm and zamba2 families come with a later slice of the LM "
-            "stack")
     return FAMILIES[cfg.family]
 
 
@@ -45,7 +52,9 @@ def _walk_flat(node, prefix=()):
 
 
 def _storage_dtype(cfg: ModelConfig, leaf: str) -> torch.dtype:
-    return cfg.param_dtype if leaf.startswith("ln") else cfg.compute_dtype
+    if leaf.startswith("ln") or leaf in FP32_LEAVES:
+        return cfg.param_dtype
+    return cfg.compute_dtype
 
 
 def _set(out: dict, path: tuple, value) -> None:
@@ -56,8 +65,10 @@ def _set(out: dict, path: tuple, value) -> None:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random weights by the reference's rules: norm scales one, every other
-    leaf ``dense_init`` with ``in_axis = max(ndim - 2, 0)``, drawn from one
+    """Random weights by the reference's rules: norm scales one, the
+    constants of ``CONST_LEAVES`` (``d_skip`` 1, ``mix``/``mix_c`` 0.5,
+    ``w0`` -1, ``a_log`` 0, ``dt_bias`` -1), every other leaf
+    ``dense_init`` with ``in_axis = max(ndim - 2, 0)``, drawn from one
     ``torch.Generator`` seeded with ``seed`` on ``device``, one leaf at a
     time in sorted path order (so fp32 never holds more than one leaf)."""
     dev = resolve_device(device)
@@ -70,6 +81,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         dtype = _storage_dtype(cfg, leaf)
         if leaf.startswith("ln"):
             value = torch.ones(shape, dtype=dtype, device=dev)
+        elif leaf in CONST_LEAVES:
+            value = torch.full(shape, CONST_LEAVES[leaf], dtype=dtype, device=dev)
         else:
             value = dense_init(shape, dtype, gen, in_axis=max(len(shape) - 2, 0))
         _set(out, path, value)

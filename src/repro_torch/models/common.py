@@ -179,6 +179,22 @@ def attention(q, k, v, causal_offset: int, cfg: ModelConfig) -> torch.Tensor:
                      "'flash' or 'chunked'")
 
 
+def layer(stacked: dict, *index) -> dict:
+    """One layer's slice (views) of params stacked on leading layer axes."""
+    return {name: t[index] for name, t in stacked.items()}
+
+
+def heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) @ (d, H, hd) -> (B, S, H, hd), w cast to x's dtype."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1).to(x.dtype)).view(b, s, w.shape[1], w.shape[2])
+
+
+def merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) @ (H, hd, d) -> (B, S, d), w cast to o's dtype."""
+    return o.flatten(2) @ w.reshape(-1, w.shape[-1]).to(o.dtype)
+
+
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     h = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)

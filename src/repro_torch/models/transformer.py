@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, attention, rms_norm, rope, swiglu
+from .common import ModelConfig, attention, heads, merge_heads, rms_norm, rope, swiglu
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -45,19 +45,12 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 def qkv(h: torch.Tensor, lp: dict, li: int):
     """Layer ``li``'s q (B, S, H, hd) and k/v (B, S, KV, hd) of h (B, S, d)."""
-    b, s, d = h.shape
-
-    def proj(w):
-        w = w[li]
-        return (h @ w.reshape(d, -1).to(h.dtype)).view(b, s, w.shape[1], w.shape[2])
-
-    return proj(lp["wq"]), proj(lp["wk"]), proj(lp["wv"])
+    return heads(h, lp["wq"][li]), heads(h, lp["wk"][li]), heads(h, lp["wv"][li])
 
 
 def attn_out(o: torch.Tensor, lp: dict, li: int) -> torch.Tensor:
     """(B, S, H, hd) @ wo[li] (H, hd, d) -> (B, S, d)."""
-    wo = lp["wo"][li]
-    return o.flatten(2) @ wo.reshape(-1, wo.shape[-1]).to(o.dtype)
+    return merge_heads(o, lp["wo"][li])
 
 
 # --------------------------------------------------------------------------

@@ -1,15 +1,21 @@
 """Serve a batch of random prompts with greedy decode (the counterpart of
-``examples/serve_elastic.py``): one prefill pass builds the KV cache, then
-batched decode steps generate new tokens.  Weights are random, from seed
-0; prompts are drawn with numpy from seed 0.
+``examples/serve_elastic.py``): a prefill builds the cache, then batched
+decode steps generate new tokens.  Weights are random, from seed 0;
+prompts are drawn with numpy from seed 0.
 
     python -m repro_torch.serve --arch llama3-8b --batch 4 --prompt-len 2048 --tokens 64
+    python -m repro_torch.serve --arch rwkv6-7b
+    python -m repro_torch.serve --arch zamba2-7b
     python -m repro_torch.serve --reduced --device cpu
     python -m repro_torch.serve --arch qwen3-moe-235b-a22b --reduced --device cpu
 
 Full width on the card by default (it raises without one); ``--reduced``
 takes the reference example's scale (``configs.reduced``, prompt 32, 32
-new tokens).  The MoE configs at full depth do not fit one card.
+new tokens).  The transformer families prefill in one forward pass
+(default prompt 2048, 64 new tokens); rwkv6 and zamba2 replay the prompt
+through their decode step one token at a time, as the reference does
+(default prompt 128, 32 new tokens).  The MoE configs at full depth do not
+fit one card.
 """
 from __future__ import annotations
 
@@ -29,18 +35,19 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=None,
-                    help="default 2048, or 32 with --reduced")
+                    help="default 2048 (rwkv6, zamba2: 128), or 32 with --reduced")
     ap.add_argument("--tokens", type=int, default=None,
-                    help="default 64, or 32 with --reduced")
+                    help="default 64 (rwkv6, zamba2: 32), or 32 with --reduced")
     ap.add_argument("--reduced", action="store_true",
                     help="the small same-family config of the CPU tests")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    prompt_len = args.prompt_len or (32 if args.reduced else 2048)
-    new_tokens = args.tokens or (32 if args.reduced else 64)
-
     cfg = reduced(ARCHS[args.arch]) if args.reduced else ARCHS[args.arch]
+    replay = cfg.family in ("ssm", "hybrid")
+    prompt_len = args.prompt_len or (32 if args.reduced else 128 if replay else 2048)
+    new_tokens = args.tokens or (32 if args.reduced or replay else 64)
+
     params = init_params(cfg, seed=0, device=device)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(

@@ -1,16 +1,23 @@
-"""Serving layer: prefill a batch of prompts into a KV cache, then decode one
+"""Serving layer: prefill a batch of prompts into a cache, then decode one
 new token per sequence per step (the counterpart of
-``repro/serve/decode.py``, transformer families on one device).
+``repro/serve/decode.py`` on one device).
 
-The cache is ``{"k", "v": (L, B, max_seq, KV, hd) in compute_dtype,
-"length": int}``.  Prefill runs the prompt through ``forward`` (attention
-through the flash kernel) and keeps each layer's K/V; each decode step
-writes the new token's K/V at ``length`` and attends over the cache with
-the plain chunked attention, as the reference's single-device branch.
-Unlike the reference, which returns a new cache, the step writes the
-cache's K/V in place (an index write where the reference blends a one-hot
-mask: equal for finite values) and returns the same tensors, so a 1 GB
-cache is not copied every step.
+Transformer families: the cache is ``{"k", "v": (L, B, max_seq, KV, hd) in
+compute_dtype, "length": int}``.  Prefill runs the prompt through
+``forward`` (attention through the flash kernel) and keeps each layer's
+K/V; each decode step writes the new token's K/V at ``length`` and attends
+over the cache with the plain chunked attention, as the reference's
+single-device branch.
+
+SSM/hybrid families dispatch to their O(1)-state decode (``rwkv6``:
+``{"state", "tok1", "tok2"}``; ``zamba2``: ``{"ssm", "conv", "k", "v",
+"length"}``), and their prefill replays the prompt through that decode
+step token by token, as the reference does: their state is the cache.
+
+Unlike the reference, which returns a new cache, every step writes the
+cache's tensors in place (an index write where the reference blends a
+one-hot mask into the K/V cache: equal for finite values) and returns the
+same tensors, so a 1 GB cache is not copied every step.
 """
 from __future__ import annotations
 
@@ -20,19 +27,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention
-from repro_torch.models import api, transformer
+from repro_torch.models import api, rwkv6, transformer, zamba2
 from repro_torch.models.common import ModelConfig, chunked_attention, rms_norm, rope
 
 DECODE_CHUNK = 2048
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    api.module_for(cfg)                  # ssm / hybrid raise
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
-    _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return rwkv6.init_cache(cfg, batch, dev)
+    if cfg.family == "hybrid":
+        return zamba2.init_cache(cfg, batch, max_seq, dev)
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
@@ -74,9 +80,22 @@ def _tf_decode_step(params: dict, token: torch.Tensor, cache: dict,
 
 def make_prefill(cfg: ModelConfig, max_seq: int):
     """prefill(params, tokens) -> (last-position logits, cache): one
-    forward pass over the prompt; its per-layer K/V fill a ``max_seq``
-    cache."""
-    _check_family(cfg)
+    forward pass over the prompt, whose per-layer K/V fill a ``max_seq``
+    cache (transformer families); SSM/hybrid families replay the prompt
+    through their decode step, one token at a time."""
+    if cfg.family in ("ssm", "hybrid"):
+        step = make_serve_step(cfg)
+
+        def prefill_ssm(params: dict, tokens: torch.Tensor):
+            b, s = tokens.shape
+            if s < 1:
+                raise ValueError("an empty prompt has no last-position logits")
+            cache = init_cache(cfg, b, max_seq, device=tokens.device)
+            for t in range(s):
+                logits, cache = step(params, cache, tokens[:, t])
+            return logits, cache
+
+        return prefill_ssm
 
     def prefill(params: dict, tokens: torch.Tensor):
         b, s = tokens.shape
@@ -96,10 +115,11 @@ def make_prefill(cfg: ModelConfig, max_seq: int):
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
     per sequence against the cached context."""
-    _check_family(cfg)
+    decode = {"ssm": rwkv6.decode_step, "hybrid": zamba2.decode_step}.get(
+        cfg.family, _tf_decode_step)
 
     def step(params: dict, cache: dict, tokens: torch.Tensor):
-        return _tf_decode_step(params, tokens, cache, cfg)
+        return decode(params, tokens, cache, cfg)
 
     return step
 

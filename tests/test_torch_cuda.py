@@ -34,6 +34,12 @@ equals the plain dispatch on the CPU bit for bit on the card's own router
 probabilities; a bf16 block within 1e-2 relative L2 of fp32 on the same
 routing; a reduced MoE serve gives the same bits twice.  The knob tuner's
 quick grid on the card's scan engine equals the CPU's vector engine.
+rwkv6 and zamba2: the flash kernels at zamba2-7b's head dim 112 (the
+Hopper route at its forward's shape and a ragged one, mma.sync and fp32 on
+the ragged one) within the flash limits; the reduced configs (fp32)
+served on the card within rtol = atol = 1e-3 of the same on the CPU (fp32
+products in another order, chained through the recurrence and, in zamba2,
+the attention), with the same greedy tokens.
 """
 import numpy as np
 import pytest
@@ -316,6 +322,30 @@ def _flash_qkv(device, b, sq, sk, hq, hkv, d, seed, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32))
                  .to(device, dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+
+
+# zamba2-7b's head dim 112: the Hopper kernel on the D = 128 tiles at its
+# forward's shape (B=4, S=2048, 32 heads, no GQA) and a ragged GQA shape;
+# the mma.sync and fp32 kernels take D = 112 too.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,kernel", [
+    ((4, 2048, 2048, 32, 32, 0), torch.bfloat16, "wgmma"),
+    ((2, 130, 167, 4, 2, 37), torch.bfloat16, "wgmma"),
+    ((2, 1, 300, 4, 4, 299), torch.bfloat16, "wgmma"),
+    ((2, 130, 167, 4, 2, 37), torch.bfloat16, "mma_sync"),
+    ((2, 130, 167, 4, 2, 37), torch.float32, "fp32"),
+], ids=str)
+def test_kernel_flash_head_dim_112(cuda_flash, shape, dtype, kernel):
+    b, sq, sk, hq, hkv, off = shape
+    q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, 112, seed=sq + sk, dtype=dtype)
+    fa.reset_launches()
+    out = fa.launch(q, k, v, off, kernel=kernel) if kernel == "mma_sync" \
+        else fa.gqa_flash(q, k, v, causal_offset=off)
+    torch.cuda.synchronize()
+    assert fa.launches["gqa_flash"] == fa.launches[kernel] == 1, fa.launches
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off),
+                        f"{shape} {dtype} {kernel}")
 
 
 # Rows and keys that are not multiples of the Hopper kernel's 128-row tiles,
@@ -1477,3 +1507,37 @@ def test_tune_on_card_equals_cpu_vector(scale):
         finally:
             tune_policy.simulate_many = simulate
     assert outs[0] == outs[1]
+
+
+# --- rwkv6 and zamba2 on the card ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_reduced_ssm_families_served_on_card_equal_cpu(cuda_flash, arch):
+    """The reduced config (fp32) served on the card and on the CPU from the
+    same weights: prefill (the replay through the decode step) and greedy
+    decode give logits within 1e-3 and the same tokens; the forward's
+    logits too, zamba2's attention through the fp32 flash kernel."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import greedy_generate
+
+    cfg = configs.reduced(configs.ARCHS[arch])
+    params = api.init_params(cfg, seed=0, device="cpu")
+    card = {k: ({n: t.to(cuda_flash) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(cuda_flash)) for k, v in params.items()}
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)))
+    fa.reset_launches()
+    got = api.forward(card, prompts.to(cuda_flash), cfg)
+    torch.cuda.synchronize()
+    groups = cfg.num_layers // cfg.shared_attn_every if arch == "zamba2-7b" else 0
+    assert fa.launches["gqa_flash"] == fa.launches["fp32"] == groups
+    want = api.forward(params, prompts, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
+    a = greedy_generate(card, prompts.to(cuda_flash), cfg, 8)
+    b = greedy_generate(params, prompts, cfg, 8)
+    assert a["prefill_flash_launches"] == a["decode_flash_launches"] == 0
+    assert torch.equal(a["tokens"].cpu(), b["tokens"])
+    for name in ("prefill_logits", "last_logits"):
+        np.testing.assert_allclose(a[name].cpu().numpy(), b[name].numpy(),
+                                   rtol=1e-3, atol=1e-3)

@@ -21,14 +21,16 @@ from repro_torch.models import common
 # (sq, extra keys, hq, group, d): every sq and every offset of the grid
 # sq in {1, 17, 64, 130}, sk = sq + {0, 37, 200}, (hq, group) in
 # {(2, 1), (4, 2), (8, 4)}, d in {32, 64, 128}, each head layout and head
-# dim four times.
+# dim four times; then zamba2-7b's head dim 112.
 CASES = [
     (1, 0, 2, 1, 32), (1, 37, 4, 2, 64), (1, 200, 8, 4, 128),
     (17, 0, 4, 2, 128), (17, 37, 8, 4, 32), (17, 200, 2, 1, 64),
     (64, 0, 8, 4, 64), (64, 37, 2, 1, 128), (64, 200, 4, 2, 32),
     (130, 0, 2, 1, 128), (130, 37, 4, 2, 32), (130, 200, 8, 4, 64),
+    (130, 0, 4, 1, 112), (17, 37, 4, 2, 112),
 ]
-BF16_CASES = [(1, 200, 8, 4, 128), (64, 0, 4, 2, 64), (130, 37, 2, 1, 32)]
+BF16_CASES = [(1, 200, 8, 4, 128), (64, 0, 4, 2, 64), (130, 37, 2, 1, 32),
+              (130, 0, 4, 1, 112)]
 
 
 def _qkv(sq, extra, hq, group, d, seed):
@@ -80,8 +82,9 @@ def test_chunked_attention_matches_reference(sq, extra, hq, group, d, chunk):
 # --- routing and launch arithmetic of the CUDA kernels (runs on any tensor) --
 
 @pytest.mark.parametrize("dtype,d,kernel", [
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fp32"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 112, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.float32, 128, "fp32"), (torch.float32, 112, "fp32"),
     (torch.float32, 64, "fp32"), (torch.float32, 32, "fp32")])
 def test_route_depends_on_dtype_and_head_dim(dtype, d, kernel):
     assert fa.route(dtype, d) == kernel
@@ -124,6 +127,52 @@ def test_plan_grid_and_shared_memory(sq, d, grid_z, smem):
                  causal_offset=200)
     assert pl.grid == (8, 2, grid_z) and pl.smem == smem
     assert pl.maps[2] == sq and pl.maps[13] == pl.maps[24] == sq + 200
+
+
+def test_plan_zamba2_forward_at_head_dim_112():
+    """zamba2-7b's shared attention (d_model 3584 over 32 heads): D = 112
+    stays the maps' innermost extent (H stride 224 bytes, a multiple of 16,
+    as TMA requires), on the D = 128 kernel's tiles, ring and shared
+    memory."""
+    q, k, v = (_bf16(4, 2048, 32, 112) for _ in range(3))
+    pl = fa.plan(q, k, v)
+    assert pl.route == "wgmma" and pl.grid == (32, 4, 16)
+    one = (112, 32, 2048, 4, 224, 32 * 224, 2048 * 32 * 224, 64, 1, 128, 1)
+    assert pl.maps == one * 3
+    assert all(s % 16 == 0 for s in one[4:7])
+    assert fa.WGMMA_TILE_DIM[112] == 128 and fa.wgmma_stages(112) == 2
+    assert pl.smem == fa.wgmma_smem_bytes(128) == 164920
+
+
+@pytest.mark.parametrize("b,sq,hq", [(4, 2048, 32), (2, 130, 3), (1, 1, 2)])
+def test_wgmma_head_dim_112_walk_covers_each_output_once(b, sq, hq):
+    """The D = 112 launch walked as the kernel walks it: each block (h, b,
+    z) owns query rows q0 = (Z - 1 - z) * 128 onward; its two consumer
+    warpgroups' threads (warp w, lane 4g + t) store rows q0 + 64c + 16w + g
+    (+ 8) below Sq, columns 8n + 2t and 8n + 2t + 1 for n < 112 / 8.  Every
+    output element is stored once and no column at or past 112; the two
+    64-column boxes of a tile load columns 0..127, of which TMA fills those
+    at or past the maps' extent 112 with zeros."""
+    d = 112
+    q = _bf16(b, sq, hq, d)
+    pl = fa.plan(q, q, q)
+    hits = np.zeros((b, sq, hq, 128), dtype=np.int64)
+    gx, gy, gz = pl.grid
+    c, w, g, t, r, n = np.meshgrid(np.arange(2), np.arange(4), np.arange(8), np.arange(4),
+                                   np.arange(2), np.arange(d // 8), indexing="ij")
+    for z in range(gz):
+        q0 = (gz - 1 - z) * fa.WGMMA_ROWS
+        rows = (q0 + 64 * c + 16 * w + g + 8 * r).ravel()
+        cols = (8 * n + 2 * t).ravel()
+        keep = rows < sq
+        for h in range(gx):
+            for bb in range(gy):
+                for col in (cols[keep], cols[keep] + 1):
+                    np.add.at(hits, (bb, rows[keep], h, col), 1)
+    assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
+    extent, box = pl.maps[0], pl.maps[7]
+    loaded = np.arange(fa.WGMMA_TILE_DIM[d] // box * box)
+    assert extent == d and set(loaded[loaded < extent]) == set(range(d))
 
 
 def test_plan_strided_views():
@@ -182,3 +231,6 @@ def test_tiling_constants_match_the_cuda_source():
     assert const["BOX"] == fa.TMA_BOX_COLS
     assert "STAGES = D == 128 ? 2 : 3;" in hopper
     assert (fa.wgmma_stages(128), fa.wgmma_stages(64)) == (2, 3)
+    # the Hopper entry point runs D = 112 on the D = 128 tiles
+    assert "case 112:\n      return static_cast<int>(hopper::launch<128, 112>(" in src
+    assert fa.WGMMA_TILE_DIM == {64: 64, 112: 128, 128: 128}

@@ -143,11 +143,7 @@ def test_configs_and_param_counts_match_reference(arch):
     assert cfg.active_param_count() == jcfg.active_param_count()
     assert (cfg.resolved_head_dim, cfg.q_per_kv) == (jcfg.resolved_head_dim,
                                                       jcfg.q_per_kv)
-    if cfg.family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            api.param_count(cfg)
-    else:
-        assert api.param_count(cfg) == japi.param_count(jcfg)
+    assert api.param_count(cfg) == japi.param_count(jcfg)
     red, jred = configs.reduced(cfg), jconfigs.reduced(jcfg)
     assert (red.num_layers, red.d_model, red.num_heads, red.num_kv_heads,
             red.vocab_size, red.attention_chunk) == \
@@ -192,17 +188,6 @@ def test_rms_norm_and_rope_match_reference():
         common.rope(torch.from_numpy(x), torch.from_numpy(pos), 500000.0).numpy(),
         np.asarray(jcommon.rope(jnp.asarray(x), jnp.asarray(pos), 500000.0)),
         rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
-def test_unported_families_raise(arch):
-    cfg = configs.reduced(configs.ARCHS[arch])
-    for call in (lambda: api.init_params(cfg, device="cpu"),
-                 lambda: api.forward({}, torch.zeros((1, 2), dtype=torch.long), cfg),
-                 lambda: make_prefill(cfg, 8), lambda: make_serve_step(cfg),
-                 lambda: init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
 
 
 def test_serve_cli_runs_reduced_on_cpu():
