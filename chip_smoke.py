@@ -16,7 +16,11 @@ Phases, any failure exits non-zero:
    shape's route (the Hopper kernel for bf16 at D 64, 112 and 128), its
    launches counted by route, and at the prefill's shape the Hopper kernel
    timed in turns with the retained mma.sync kernel (at most half its time),
-   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA; the
+   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA;
+   ``gqa_flash``'s backward (the stats, dK/dV and dQ kernels) against the
+   plain backward at the train step's shape (bf16, S 2304, Hq 16, Hkv 8,
+   D 128) and at the launcher's fp32 D-32 shape, twice with equal bits, each
+   kernel timed beside its bound, the plain backward and SDPA's backward; the
    batch KNN lookup on the cluster kernel equal bit for bit to the previous
    (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
    device time (the cluster kernel at most half), beside the floor (an empty
@@ -66,13 +70,26 @@ Phases, any failure exits non-zero:
    sum and exponent of k * exp(-cum) recorded, every non-finite value held
    to the reference expression's fp32 overflow (rwkv6's forward overflows
    in layer 1, zamba2's in layer 18); ``greedy_generate`` on 4 prompts of
-   64 tokens, 32 new ones (the prefill replays the prompt through the
+   32 tokens, 16 new ones (the prefill replays the prompt through the
    decode step, as the reference does), twice, the same tokens, finite
-   logits, no flash launch; the first run's 96 steps of recurrence inputs
+   logits, no flash launch; the first run's 48 steps of recurrence inputs
    of the first, middle and
    last layer (and the forward's first overflowing one) through the chunked
    form against the sequential oracle in fp32 (relative L2 <= 1e-4 on the
-   (row, head) pairs that do not overflow); a traced short run;
+   (row, head) pairs that do not overflow); a traced short run; then
+   training: internvl2-2b at full width and depth (1,889,146,880 params;
+   fp32 master weights and AdamW moments, 21.1 GiB; bf16 compute) on
+   ``PrefetchLoader`` batches of 4 x 2048 tokens behind the 256-position
+   prefix: the chunked attention's forward and backward (loss and gradient
+   norm printed beside the flash step's, and layers 0, 12 and 23's q/k/v/dO,
+   on which the backward kernels are held against the plain backward), the
+   flash train step twice from one state (equal bits; 48 flash launches, all
+   on the Hopper kernel, and 24 of each backward kernel; every leaf moved),
+   3 timed steps split into forward + backward and optimizer, and a traced
+   one; then ``python -m repro_torch.launch.train --arch stablelm-1.6b
+   --reduced`` in its own process, the elastic trainer's plan of k 1, 0, 1
+   with a fault, a second trainer resuming from its checkpoint and the
+   launcher with ``--compress`` (launches against the steps taken);
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
    slot loop on the card and every slot's release (the in-degree decrement,
@@ -116,9 +133,9 @@ Phases, any failure exits non-zero:
    passes on the greedy kernel, each byte for byte the fixture file (the
    DAG grid's release launches == its DAG steps; on the MPC grid only the
    oracle-estimated cells delegated, fill launches == fill steps); then
-   ``sweep-full``: the 150-server cluster in all ten regions x 2 seeds x
+   ``sweep-full``: the 150-server cluster in all ten regions x seed 1 x
    carbon-agnostic, wait-awhile, carbonflex, carbonflex-mpc,
-   carbonflex-scale and oracle-estimated (120 cells; each knowledge base
+   carbonflex-scale and oracle-estimated (60 cells; each knowledge base
    learned on the card, the slot loop on the card, carbonflex's lookups
    through ``knn_query_kernel``, the oracle passes through the greedy
    kernel, carbonflex-scale's fill through ``capacity_fill``), its JSON
@@ -743,10 +760,12 @@ FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # init leaves ~2e-4 (1.5e-4 median over llama3-8b's 32 layers on an H100).
 ATTN_REL = 1e-3
 # (name, B, Sq, Sk, Hq, Hkv, D, causal_offset): the prefill's shape first,
-# then zamba2-7b's forward (its shared attention at head dim 112)
+# then zamba2-7b's forward (its shared attention at head dim 112), then the
+# train step's (internvl2-2b, 2048 tokens behind its 256-position prefix)
 FLASH_SHAPES = [
     ("prefill", 4, 2048, 2048, 32, 8, 128, 0),
     ("zamba2", 4, 2048, 2048, 32, 32, 112, 0),
+    ("train", 4, 2304, 2304, 16, 8, 128, 0),
     ("decode-like", 4, 1, 2112, 32, 8, 128, 2111),
     ("ragged", 2, 130, 330, 8, 2, 64, 200),
     ("multi-head", 2, 300, 300, 4, 4, 32, 0),
@@ -838,7 +857,7 @@ def flash_kernel_phase(report):
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
     err112, rel112 = 0.0, 0.0
     fa.reset_launches()
-    expect = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
+    expect = dict.fromkeys(fa.launches, 0)
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
@@ -1432,13 +1451,14 @@ def moe_serve_phase(device="cuda"):
 SSM_ARCHS = ("rwkv6-7b", "zamba2-7b")
 # The forward at the serving path's batch and prompt length; the replay
 # prefill (one decode step a prompt token, as the reference prefills these
-# families) on prompts of 64 tokens with 32 new ones: 96 decode steps of
-# host dispatch, 53-200 ms each on H100 hosts (PERF.md), run twice, which
-# keeps the phase inside its 90 s budget on the slowest host seen.
+# families) on prompts of 32 tokens with 16 new ones: 48 decode steps of
+# host dispatch, 53-200 ms each on H100 hosts (PERF.md), run twice.  (64 + 32
+# until the training phase needed the room: 48 steps fewer, ~21 s on a mid
+# host, ~40 s on the slowest seen.)
 SSM_BATCH, SSM_SEQ = 4, 2048
-SSM_PROMPT, SSM_TOKENS = 64, 32
+SSM_PROMPT, SSM_TOKENS = 32, 16
 # The per-layer check: the first, middle and last layer's recurrence inputs
-# of the serving run's 96 decode steps (one chunk; the decode path holds one
+# of the serving run's 48 decode steps (one chunk; the decode path holds one
 # token a chunk, so its inputs stay finite), through the chunked
 # form against the sequential oracle in fp32, relative L2 of the outputs and
 # final states over the (row, head) pairs whose chunks stay inside fp32's
@@ -1570,8 +1590,9 @@ def ssm_family_run(cfg, device="cuda"):
     first_bad = next((li for li, c in enumerate(calls) if not c["finite_out"]), None)
     finite_calls = [c for c in calls if c["finite_in"]]
     decay_max = max(c["decay"] for c in finite_calls)
-    want = ({"gqa_flash": groups, "wgmma": groups, "mma_sync": 0, "fp32": 0} if hybrid
-            else {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0})
+    want = dict.fromkeys(fa.launches, 0)            # no backward launch when serving
+    if hybrid:
+        want.update(gqa_flash=groups, wgmma=groups)
     if device != "cuda":
         want = {k: 0 for k in want}                 # a CPU rehearsal: the plain version
     log(f"ssm serve: {cfg.name} forward B={SSM_BATCH} S={SSM_SEQ}: logits {shape}, "
@@ -1713,6 +1734,508 @@ def ssm_family_run(cfg, device="cuda"):
                 prompt=SSM_PROMPT, new_tokens=SSM_TOKENS, traced_wall_s=traced_wall,
                 traced_busy_ms=busy_ms, traced_busy_share=busy_ms / 1e3 / traced_wall,
                 traced_events=len(events), traced_top=[[n[:100], ms] for n, ms in top])
+
+
+# --- training: the backward kernels, the train step, the elastic trainer ------
+
+TRAIN_ARCH = "internvl2-2b"
+TRAIN_PARAMS = 1_889_146_880
+# Four sequences of 2048 text tokens behind the config's 256-position
+# prefix: attention at S 2304, Hq 16, Hkv 8, D 128 in bf16.
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_TIMED = 3
+TRAIN_CHECK_LAYERS = (0, 12, 23)
+# The backward kernels against the plain backward (both fp32 inside, one
+# rounding to the inputs' dtype): elementwise as the card tests
+# (tests/test_torch_cuda.py BWD_TOL) and as a whole by relative L2.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# Relative L2 limits set from readings on an H100 80GB HBM3 (bf16 5.2e-5 at
+# the train shape, fp32 2.3e-7 at D 32), with headroom for a later redesign
+# that rounds P or dS to bf16.
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-4}
+# The same on the model's own layers (0, 12, 23 of the chunked attention's
+# q/k/v/dO at the first step; readings 2.5e-4, 3.1e-4, 7.6e-4): gradients
+# there span many decades under the reference init (dO std 5e9 at layer 0,
+# 3e-8 at layer 23), so the whole output's relative L2 is the measure.
+TRAIN_LAYER_REL = 3e-3
+# The whole model's first-step gradient through the backward kernels on the
+# chunked path's own forward against that path's autodiff: the norm and
+# each layer's within 10 % (readings on an H100 80GB HBM3: 3.4 % and 2.3 %,
+# largest at the first layers: the layers' ~5e-4 accumulate through depth,
+# over which the gradient grows ~1e17-fold under the reference init).
+TRAIN_GRAD_REL = 0.1
+# (name, B, Sq, Sk, Hq, Hkv, D, causal_offset, dtype): the train step's
+# attention, and the fp32 D-32 shape of the launcher's reduced stablelm.
+BWD_SHAPES = [("train", 4, 2304, 2304, 16, 8, 128, 0, torch.bfloat16),
+              ("fp32-d32", 4, 128, 128, 4, 4, 32, 0, torch.float32)]
+ELASTIC_ARCH = "stablelm-1.6b"
+
+
+def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
+    """(bytes, FLOPs) of each backward kernel and of the whole backward:
+    each input read once, each output written once; a product over the
+    unmasked (row, key) pairs is 2·D FLOPs a pair per head.  The stats pass
+    does Q K^T, dK/dV four products (S, dP, dV, dK), dQ three (S, dP, dQ);
+    the function needs five (S, dP, dV, dK, dQ): the stats pass's Q K^T and
+    the second S and dP are this design's cost, not the bound's."""
+    pairs = sum(min(sk, offset + r + 1) for r in range(sq))
+    product = 2.0 * b * hq * d * pairs
+    qs, ks, stats = elt * b * sq * hq * d, elt * b * sk * hkv * d, 4.0 * b * hq * sq
+    return {"bwd_stats": (3 * qs + ks + 2 * stats, product),
+            "bwd_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
+            "bwd_dq": (3 * qs + 2 * ks + 2 * stats, 3 * product),
+            "gqa_flash_bwd": (4 * qs + 4 * ks, 5 * product)}
+
+
+def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None):
+    """The three kernels against ``gqa_flash_bwd_plain`` on the same inputs:
+    each output within BWD_REL relative L2 and, on unit-normal inputs
+    (``elementwise``), elementwise within BWD_TOL; a model layer's
+    gradients span many decades under the reference init, so there the
+    whole output's relative L2 is the measure.  Returns (max abs
+    difference, largest relative L2)."""
+    got = fa.launch_bwd(q, k, v, o, do, offset)
+    torch.cuda.synchronize()
+    want = fa.gqa_flash_bwd_plain(q, k, v, o, do, offset)
+    err = rel = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{what} {name}: bad output {tuple(g.shape)} {g.dtype}")
+        e, r = (g.float() - w.float()).abs().max().item(), rel_l2(g, w)
+        tol = BWD_TOL[w.dtype]
+        if (elementwise and not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)) \
+                or not r <= (rel_limit or BWD_REL[w.dtype]):
+            raise AssertionError(f"{what} {name}: kernels and plain version differ by up "
+                                 f"to {e}, relative L2 {r}")
+        err, rel = max(err, e), max(rel, r)
+    return err, rel
+
+
+def flash_bwd_kernel_phase(report):
+    """Phase 2 for the backward of ``gqa_flash``: the three kernels against
+    the plain backward at the train step's shape (bf16) and the launcher's
+    fp32 D-32 shape, twice (equal bits); at the train shape each kernel
+    timed by CUDA events and by profiler device time beside its bound, the
+    plain backward, and SDPA's backward (its forward + backward less its
+    forward, for timing only).  Returns the three kernels' entries."""
+    gen = np.random.default_rng(11)
+    ptx = ptxas_report(report, "flash_bwd_")
+    for name, rep in ptx.items():
+        log(f"{name}: ptxas {rep}")
+    checks, inputs = {}, {}
+    for what, b, sq, sk, hq, hkv, d, off, dtype in BWD_SHAPES:
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+        do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)) \
+            .to("cuda", dtype)
+        o = fa.launch(q, k, v, off)
+        inputs[what] = q, k, v, o, do
+        checks[what] = bwd_check(q, k, v, o, do, off, f"gqa_flash_bwd {what}")
+        again = fa.launch_bwd(q, k, v, o, do, off)
+        if not all(torch.equal(a, c) for a, c in zip(again, fa.launch_bwd(q, k, v, o, do, off))):
+            raise AssertionError(f"gqa_flash_bwd {what}: two runs differ")
+        log(f"gqa_flash_bwd {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+            f"{str(dtype)[6:]}: agrees with the plain backward (max abs diff "
+            f"{checks[what][0]}, largest relative L2 {checks[what][1]}); two runs equal")
+
+    what, b, sq, sk, hq, hkv, d, off, dtype = BWD_SHAPES[0]
+    q, k, v, o, do = inputs[what]
+    pl = fa.plan_bwd(q, k, v, o, do, off)
+    bufs = fa.bwd_buffers(q, k)
+    for which in range(3):                 # LSE and D_i in place for the others
+        fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, off, pl)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    runs = {name: (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, off, pl))
+            for which, name in enumerate(fa.BWD_KERNELS)}
+    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, off),
+                plain=lambda: fa.gqa_flash_bwd_plain(q, k, v, o, do, off),
+                sdpa_fwd=sdpa_fwd, sdpa_fwd_bwd=sdpa_fwd_bwd)
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        turns[key].append(time_ms(runs[key], 5, warmup=2))
+    t = {key: float(np.mean(val)) for key, val in turns.items()}
+    # profiler device ms per call; a kernel run makes one device event a
+    # call, so its busy time per recorded event (the profiler drops events
+    # now and then: 4 of 5 recorded in some turns on an H100)
+    dev = {}
+    for key in runs:
+        us, n = device_trace(runs[key], 5)
+        dev[key] = (us / n if key in fa.BWD_KERNELS else us / 5) / 1e3 if us > 0 else None
+    sdpa_bwd = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
+    sdpa_bwd_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
+                    if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
+    work = bwd_work(b, sq, sk, hq, hkv, d, off, 2)
+    whole_bound, whole_by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
+    log(f"gqa_flash_bwd train shape, in turns {turns}")
+    done = sum(work[name][1] for name in fa.BWD_KERNELS)
+    log(f"gqa_flash_bwd train shape: the three kernels {t['whole']:.6f} ms/call (device "
+        f"{dev['whole']}), bound {whole_bound:.6f} by {whole_by} "
+        f"({work['gqa_flash_bwd'][1] / 1e9:.3f} GFLOP; the kernels do {done / 1e9:.3f}, "
+        f"{done / work['gqa_flash_bwd'][1]:.2f} times it), plain {t['plain']:.6f} (device "
+        f"{dev['plain']}), SDPA's backward {sdpa_bwd:.6f} (device {sdpa_bwd_dev}; forward "
+        f"{t['sdpa_fwd']:.6f}, forward + backward {t['sdpa_fwd_bwd']:.6f})")
+    entries = []
+    for name in fa.BWD_KERNELS:
+        bound, by = bound_ms(*work[name], BF16_FLOP_PER_S)
+        log(f"{name}: {t[name]:.6f} ms/call (device {dev[name]}), "
+            f"{work[name][1] / t[name] / 1e9:.3f} TFLOP/s, bound {bound:.6f} by {by} "
+            f"({bound / t[name]:.4f} of it)")
+        entries.append(dict(
+            name=f"gqa_flash_{name}", route="cuda", kernel=f"flash_{name}_kernel",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                     "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                     "no gradient)",
+            max_abs_err=checks["train"][0], rel_l2=checks["train"][1],
+            max_abs_err_f32=checks["fp32-d32"][0], rel_l2_f32=checks["fp32-d32"][1],
+            ms=t[name], device_ms=dev[name], plain_ms=t["plain"],
+            plain_device_ms=dev["plain"], plain_of="the whole backward",
+            bound_ms=bound, bound_by=by, bound_share=bound / t[name],
+            library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
+            library_of="the whole backward: SDPA forward + backward less forward",
+            whole_ms=t["whole"], whole_device_ms=dev["whole"], whole_bound_ms=whole_bound,
+            whole_gflop=work["gqa_flash_bwd"][1] / 1e9, kernels_gflop=done / 1e9,
+            shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+            ptxas={n: r for n, r in ptx.items() if f"flash_{name}_kernel" in n},
+            turns={key: turns[key] for key in (name, "whole", "plain")}))
+    return entries
+
+
+def traced_step(fn):
+    """The card's busy microseconds and device events that ``torch.profiler``
+    records over one call of ``fn``, and the 8 names that took the most
+    device milliseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    by_name = {}
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy_us(events), len(events), top
+
+
+def train_model_flops(cfg, b, s):
+    """Model FLOPs of one step (forward and backward, no recompute): 6 per
+    weight of every matrix (the embedding is a gather) per position, and
+    the causal attention's two products, three times over."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    weights = param_count(cfg) - cfg.vocab_size * d
+    attention = 3 * 2 * 2.0 * b * cfg.num_heads * hd * (s * (s + 1) / 2) * cfg.num_layers
+    return 6.0 * weights * b * s + attention
+
+
+def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=False):
+    """Loss, gradient norm and each layer's gradient norm of one forward and
+    backward (no update) on ``backend``'s attention; ``forward`` and
+    ``backward`` stand in for the flash route's forward (q, k, v, offset)
+    and backward (q, k, v, o, do, offset) in this call.  With ``capture``
+    (the chunked attention), also layers TRAIN_CHECK_LAYERS' attention
+    inputs (q, k, v), output and output gradient."""
+    from repro_torch.models import common
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import chunked_cross_entropy, leaves, unflatten
+    cfg = dataclasses.replace(cfg, attention_backend=backend)
+    taken, calls = {}, [0]
+    inner = common.chunked_attention
+    saved = fa._forward, fa.launch_bwd
+
+    def capture_attention(q, k, v, offset, chunk):
+        out = inner(q, k, v, offset, chunk)
+        li = calls[0]
+        calls[0] += 1
+        if li in TRAIN_CHECK_LAYERS:       # the forward's call (recompute comes later)
+            taken[li] = [q.detach(), k.detach(), v.detach(), out.detach()]
+            out.register_hook(lambda g, li=li: taken[li].append(g.detach()))
+        return out
+
+    flat = leaves(state.params)
+    live = [t.detach().requires_grad_() for _, t in flat]
+    if capture:
+        common.chunked_attention = capture_attention
+    fa._forward, fa.launch_bwd = forward or fa._forward, backward or fa.launch_bwd
+    try:
+        x, head = model_forward(unflatten([p for p, _ in flat], live), batch["tokens"],
+                                cfg, return_hidden=True,
+                                prefix_embeds=batch["prefix_embeds"])
+        loss = chunked_cross_entropy(x, head, batch["tokens"], prefix=cfg.prefix_len)
+        grads = torch.autograd.grad(loss, live)
+    finally:
+        common.chunked_attention = inner
+        fa._forward, fa.launch_bwd = saved
+    layers = [g for (path, _), g in zip(flat, grads) if path[0] == "layers"]
+    per_layer = [global_norm([g[li] for g in layers]).item() for li in range(cfg.num_layers)]
+    return loss.item(), global_norm(grads).item(), per_layer, taken
+
+
+def train_phase(device="cuda"):
+    """internvl2-2b trained at full width and depth on the card (seed-0
+    fp32 master weights, AdamW moments in fp32): ``PrefetchLoader`` batches
+    of 4 x 2048 tokens behind the 256-position prefix; the chunked
+    attention's forward and backward first (loss, gradient norm, and the
+    check layers' attention inputs and output gradients, on which the
+    forward kernel and the backward kernels are held against their plain
+    versions); the first step's gradient on each pairing of forward and
+    backward (``grad_probe``; the backward kernels under the chunked forward
+    held against the chunked path's autodiff); then the flash
+    train step on the first batch twice from one state (equal bits; launch
+    gates), 3 timed steps (forward + backward and optimizer split by CUDA
+    events around ``adamw_update``) and a traced one; then the elastic
+    trainer and the launcher on reduced stablelm-1.6b."""
+    from repro_torch.train import (DataConfig, OptimizerConfig, PrefetchLoader, SyntheticLM,
+                                   init_state, make_train_step)
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import leaves
+
+    cfg = ARCHS[TRAIN_ARCH]
+    if param_count(cfg) != TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name}: {param_count(cfg)} params")
+    torch.cuda.empty_cache()               # the serving phases' blocks
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state_gib = sum(x.numel() * x.element_size() for tree in (state.params, state.m, state.v)
+                    for _, x in leaves(tree)) / 2**30
+    log(f"train: {cfg.name} init {init_s:.3f} s, {param_count(cfg)} params, state "
+        f"{state_gib:.3f} GiB (fp32 params and both moments), allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    loader = PrefetchLoader(SyntheticLM(DataConfig(
+        batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size, seed=0)),
+        device=device, model_cfg=cfg)
+    batches = [next(loader) for _ in range(2 + TRAIN_TIMED)]
+    loader.close()
+    s = TRAIN_SEQ + cfg.prefix_len
+
+    # The chunked attention's gradient, and the kernels on its own inputs.
+    t = time.perf_counter()
+    loss_c, gnorm_c, layers_c, taken = grad_probe(cfg, state, batches[0], "chunked",
+                                                  capture=True)
+    chunked_s = time.perf_counter() - t
+    layer_checks = {}
+    for li in TRAIN_CHECK_LAYERS:
+        q, k, v, o, do = taken[li]
+        out = fa.launch(q, k, v, 0)        # the step's forward kernel (its route: wgmma)
+        fwd = dict(plain=rel_l2(out, fa.gqa_flash_plain(q, k, v)), chunked=rel_l2(out, o))
+        if not max(fwd.values()) <= ATTN_REL:
+            raise AssertionError(f"train layer {li}: the forward kernel differs from the "
+                                 f"plain version and the chunked attention by relative L2 "
+                                 f"{fwd} (limit {ATTN_REL})")
+        err, rel = bwd_check(q, k, v, o, do, 0, f"train layer {li}", elementwise=False,
+                             rel_limit=TRAIN_LAYER_REL)
+        layer_checks[li] = dict(fwd_rel_l2=fwd, max_abs_err=err, rel_l2=rel,
+                                do_std=float(do.float().std()))
+    del taken, out
+    log(f"train: chunked attention forward + backward {chunked_s:.3f} s, loss {loss_c}, "
+        f"gradient norm {gnorm_c}; on its layers' q/k/v the forward kernel (relative L2 "
+        f"against the plain version and the chunked attention, limit {ATTN_REL}) and, on "
+        f"their dO, the backward kernels {layer_checks}")
+
+    # The first step's gradient on each pairing of forward and backward, from
+    # one state on one batch.  Printed only where the forwards differ: under
+    # the reference init the gradient moves 3x with the KV chunk size alone.
+    # The chunked forward under the backward kernels sees the chunked path's
+    # own activations, so only the backward differs: that pairing is gated.
+    from repro_torch.models import common
+
+    def chunked_forward(q, k, v, offset):
+        return common.chunked_attention(q, k, v, offset, cfg.attention_chunk)
+
+    def plain_backward(q, k, v, o, do, offset=0):
+        return fa.gqa_flash_bwd_plain(q, k, v, o, do, offset)
+
+    probes = {"chunked": (loss_c, gnorm_c, layers_c)}
+    for name, pcfg, backend, kw in (
+            ("chunked, KV chunks of 512", dataclasses.replace(cfg, attention_chunk=512),
+             "chunked", {}),
+            ("chunked forward, backward kernels", cfg, "flash", dict(forward=chunked_forward)),
+            ("flash kernels", cfg, "flash", {}),
+            ("forward kernel, plain backward", cfg, "flash", dict(backward=plain_backward))):
+        probes[name] = grad_probe(pcfg, state, batches[0], backend, **kw)[:3]
+    for name, (loss, gnorm, per_layer) in probes.items():
+        log(f"train probe {name}: loss {loss}, gradient norm {gnorm} ({gnorm / gnorm_c} of "
+            f"the chunked one); each layer's over the chunked one's "
+            f"{[a / b for a, b in zip(per_layer, layers_c)]}")
+    loss_k, gnorm_k, layers_k = probes["chunked forward, backward kernels"]
+    grad_off = max(abs(a / b - 1) for a, b in zip([gnorm_k] + layers_k, [gnorm_c] + layers_c))
+    if not (loss_k == loss_c and grad_off <= TRAIN_GRAD_REL):
+        raise AssertionError(f"train: under the chunked forward the backward kernels give loss "
+                             f"{loss_k} (chunked {loss_c}) and gradient norms up to {grad_off} "
+                             f"from the chunked path's (limit {TRAIN_GRAD_REL})")
+
+    opt = OptimizerConfig(warmup_steps=1, total_steps=2 + TRAIN_TIMED)
+    step = make_train_step(cfg, opt)
+    marks = []
+    adamw = step_mod.adamw_update
+
+    def timed_adamw(*args, **kw):          # events around the optimizer
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = adamw(*args, **kw)
+        z.record()
+        marks.append((a, z))
+        return out
+
+    step_mod.adamw_update = timed_adamw
+    try:
+        fa.reset_launches()
+        t = time.perf_counter()
+        s1, m1 = step(state, batches[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        launches = dict(fa.launches)
+        L = cfg.num_layers
+        want = dict.fromkeys(fa.launches, 0)
+        if device == "cuda":
+            want.update(gqa_flash=2 * L, wgmma=2 * L, gqa_flash_bwd=L,
+                        **{n: L for n in fa.BWD_KERNELS})
+        if launches != want:
+            raise AssertionError(f"train step: flash launches {launches}, expected {want}")
+        moved = [p for (p, a), (_, b) in zip(leaves(state.params), leaves(s1.params))
+                 if torch.equal(a, b)]
+        if moved:
+            raise AssertionError(f"train step: leaves that did not move {moved}")
+        host = [x.cpu() for _, x in leaves(s1.params)]
+        mv_bits = [int(x.view(torch.int32).sum(dtype=torch.int64))
+                   for tree in (s1.m, s1.v) for _, x in leaves(tree)]
+        del s1
+        s1, m1b = step(state, batches[0])
+        torch.cuda.synchronize()
+        same = (all(float(m1[k]) == float(m1b[k]) for k in m1)
+                and all(torch.equal(a, x.cpu()) for a, (_, x) in zip(host, leaves(s1.params)))
+                and mv_bits == [int(x.view(torch.int32).sum(dtype=torch.int64))
+                                for tree in (s1.m, s1.v) for _, x in leaves(tree)])
+        del host, state
+        if not same:
+            raise AssertionError("two train steps from one state differ")
+        metrics = [{k: float(v) for k, v in m1.items()}]
+        log(f"train: first step {first_s:.3f} s, loss {metrics[0]['loss']} (chunked "
+            f"{loss_c}), gradient norm {metrics[0]['grad_norm']} (chunked {gnorm_c}); flash "
+            f"launches {launches}; every leaf moved; the step again from the same state: "
+            f"params bit for bit, moments' bit sums and metrics equal")
+
+        state = s1
+        torch.cuda.reset_peak_memory_stats()
+        timed = []
+        for i in range(1, 1 + TRAIN_TIMED):
+            marks.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            state, m = step(state, batches[i])
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            a, z = marks[0]
+            timed.append(dict(wall_s=wall, step_ms=start.elapsed_time(end),
+                              fwd_bwd_ms=start.elapsed_time(a), optimizer_ms=a.elapsed_time(z)))
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+        busy_us, n_events, top = traced_step(lambda: step(state, batches[-1]))
+    finally:
+        step_mod.adamw_update = adamw
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"train: non-finite metrics {metrics}")
+    wall = float(np.mean([x["wall_s"] for x in timed]))
+    flops = train_model_flops(cfg, TRAIN_BATCH, s)
+    out = dict(arch=cfg.name, params=param_count(cfg), state_gib=state_gib, init_s=init_s,
+               busy_share=busy_us / 1e3 / (wall * 1e3), traced_events=n_events,
+               traced_top_ms=top,
+               batch=TRAIN_BATCH, text_tokens=TRAIN_SEQ, positions=s, first_step_s=first_s,
+               metrics=metrics, steps=timed, step_s=wall,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall, positions_per_s=TRAIN_BATCH * s / wall,
+               model_tflop=flops / 1e12, mfu=flops / wall / BF16_FLOP_PER_S,
+               peak_gib=peak / 2**30, launches=launches, chunked=dict(
+                   loss=loss_c, grad_norm=gnorm_c, wall_s=chunked_s), layer_checks=layer_checks,
+               probes={name: dict(loss=v[0], grad_norm=v[1], layers=v[2])
+                       for name, v in probes.items()}, grad_off=grad_off)
+    log(f"train: {TRAIN_TIMED} timed steps {timed}; {wall:.3f} s a step, "
+        f"{out['tokens_per_s']:.1f} text tokens/s ({out['positions_per_s']:.1f} positions/s), "
+        f"{flops / 1e12:.2f} model TFLOP a step, {out['mfu']:.4f} of 989 TFLOP/s; peak "
+        f"{out['peak_gib']:.3f} GiB; traced step busy {out['busy_share']} of the mean "
+        f"step, top device ms {top}; losses "
+        f"{[m['loss'] for m in metrics]}")
+    del state, batches
+    out["elastic"] = elastic_phase(device)
+    return out
+
+
+def elastic_phase(device="cuda"):
+    """``python -m repro_torch.launch.train --arch stablelm-1.6b --reduced``
+    in its own process, then in this one the elastic trainer's plan of
+    k 1, 0, 1 with a fault, a second trainer resuming from its checkpoint,
+    and the launcher with ``--compress``: launch counts against the steps
+    taken (the fp32 D-32 route: two forwards and a backward a layer)."""
+    import tempfile
+
+    from repro_torch.configs import reduced
+    from repro_torch.elastic import ElasticTrainer, RescalePlan
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import DataConfig, OptimizerConfig, SyntheticLM
+
+    cfg = reduced(ARCHS[ELASTIC_ARCH])
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                               ELASTIC_ARCH, "--reduced", "--steps", "6", "--device", device,
+                               "--ckpt",
+                               os.path.join(tmp, "cli")], capture_output=True, text=True,
+                              env=env, cwd=root, timeout=300)
+        cli_s = time.perf_counter() - t
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) != 2 \
+                or not lines[1].endswith("resumed_from_ckpt=False"):
+            raise AssertionError(f"launch.train exited {proc.returncode}: {proc.stdout}"
+                                 f"{proc.stderr[-2000:]}")
+        log(f"elastic: python -m repro_torch.launch.train --arch {ELASTIC_ARCH} --reduced "
+            f"({cli_s:.3f} s): {lines}")
+
+        data = SyntheticLM(DataConfig(batch=4, seq_len=32, vocab_size=cfg.vocab_size, seed=3))
+        fa.reset_launches()
+        tr = ElasticTrainer(cfg, data, OptimizerConfig(total_steps=60), os.path.join(tmp, "el"),
+                            device=device)
+        plan = tr.run([RescalePlan(k=1, steps=3), RescalePlan(k=0, steps=5),
+                       RescalePlan(k=1, steps=3)], checkpoint_every=2, fault_at=4)
+        launches = dict(fa.launches)
+        tr2 = ElasticTrainer(cfg, data, OptimizerConfig(total_steps=60),
+                             os.path.join(tmp, "el"), device=device)
+        resumed = tr2.run([RescalePlan(k=1, steps=2)])
+        comp = launch_train.main(["--arch", ELASTIC_ARCH, "--reduced", "--steps", "4",
+                                  "--compress", "--device", device, "--ckpt",
+                                  os.path.join(tmp, "comp")])
+    L, n = cfg.num_layers, len(plan["losses"])
+    want = dict.fromkeys(fa.launches, 0)
+    if device == "cuda":
+        want.update(gqa_flash=2 * L * n, fp32=2 * L * n, gqa_flash_bwd=L * n,
+                    **{k: L * n for k in fa.BWD_KERNELS})
+    ok = (plan["final_step"] == 6 and plan["recoveries"] >= 1
+          and resumed["final_step"] == 8 and tr2.recoveries >= 1
+          and all(math.isfinite(x) for x in plan["losses"] + resumed["losses"]
+                  + comp["losses"]) and launches == want)
+    log(f"elastic: plan k 1, 0, 1 with a fault at step 4: {plan}; flash launches "
+        f"{launches}; resumed: {resumed}; --compress losses {comp['losses']}")
+    if not ok:
+        raise AssertionError(f"elastic: plan {plan}, resumed {resumed}, launches {launches} "
+                             f"(expected {want})")
+    return dict(cli=lines, cli_s=cli_s, plan=plan, launches=launches, resumed=resumed,
+                compress_losses=comp["losses"])
 
 
 # --- DAG gating and the device slot loop -------------------------------------
@@ -2657,7 +3180,9 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data
 GOLDEN_BASE = dict(capacity=8, learn_weeks=1, family="alibaba", seed=101)
 SWEEP_POLICIES = ["carbon-agnostic", "wait-awhile", "carbonflex", "carbonflex-mpc",
                   "carbonflex-scale", "oracle-estimated"]
-SWEEP_SEEDS = [1, 2]
+# sweep-full's seeds: one (seeds 1 and 2 until the training phase needed the
+# room; the second seed repeated all 60 cells, ~40 s of card and host time).
+SWEEP_SEEDS = [1]
 
 
 def golden_sweeps(device, engine, backend):
@@ -3914,21 +4439,22 @@ def tune_phase():
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
-    def timed(mod):
+    def timed(build):
         t = time.perf_counter()
-        report = mod.build()
+        report = build()
         return time.perf_counter() - t, report
 
-    sources = (("src/repro_torch/csrc/knn.cu", knn),
-               ("src/repro_torch/csrc/flash_attention.cu", fa),
-               ("src/repro_torch/csrc/gating.cu", gating),
-               ("src/repro_torch/csrc/score.cu", score),
-               ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy),
-               ("src/repro_torch/csrc/fill.cu", fill),
-               ("src/repro_torch/csrc/geo_walk.cu", geo_walk))
+    sources = (("src/repro_torch/csrc/knn.cu", knn.build),
+               ("src/repro_torch/csrc/flash_attention.cu", fa.build),
+               ("src/repro_torch/csrc/flash_attention_bwd.cu", fa.build_bwd),
+               ("src/repro_torch/csrc/gating.cu", gating.build),
+               ("src/repro_torch/csrc/score.cu", score.build),
+               ("src/repro_torch/csrc/oracle_greedy.cu", oracle_greedy.build),
+               ("src/repro_torch/csrc/fill.cu", fill.build),
+               ("src/repro_torch/csrc/geo_walk.cu", geo_walk.build))
     reports = {}
     with ThreadPoolExecutor(len(sources)) as ex:
-        futures = [(src, ex.submit(timed, mod)) for src, mod in sources]
+        futures = [(src, ex.submit(timed, build)) for src, build in sources]
         for src, fut in futures:
             seconds, report = fut.result()
             log(f"built {src} in {seconds:.3f} s")
@@ -3947,6 +4473,7 @@ def main():
     flash_entry, d112_entry = flash_kernel_phase(
         reports["src/repro_torch/csrc/flash_attention.cu"])
     kernels.append(flash_entry)
+    bwd_entries = flash_bwd_kernel_phase(reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
     kernels.append(gating_kernel_phase(reports["src/repro_torch/csrc/gating.cu"]))
     path = main_path_phase()
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
@@ -3963,6 +4490,18 @@ def main():
     ssm_path["wall_s"] = time.perf_counter() - t
     d112_entry.update(launches=ssm_path["zamba2-7b"]["forward_flash"]["wgmma"],
                       path="zamba2-forward")
+    # the serving paths launch no backward
+    for what, counts in (("serve", serve["launches"]), ("moe serve", moe["launches"])):
+        if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS):
+            raise AssertionError(f"the {what} path launched the backward: {counts}")
+    t = time.perf_counter()
+    train = train_phase()
+    train["wall_s"] = time.perf_counter() - t
+    for entry in bwd_entries:
+        name = entry["name"][len("gqa_flash_"):]
+        entry.update(launches=train["launches"][name], path="train-step",
+                     elastic_launches=train["elastic"]["launches"][name])
+    kernels[2].update(train_launches=train["launches"]["wgmma"])
     dag = dag_path_phase()
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -3977,6 +4516,7 @@ def main():
     geo_entry, geo = geo_phase(reports["src/repro_torch/csrc/geo_walk.cu"])
     kernels.append(geo_entry)
     kernels.append(d112_entry)
+    kernels.extend(bwd_entries)
     chaos = chaos_phase()
     # launches on the resilience paths, beside each kernel's own path
     by_name = {kern["name"]: kern for kern in kernels}
@@ -4017,7 +4557,8 @@ def main():
         f"MoE serving: warm prefill {moe['warm_run']['prefill_s']:.3f}, decode "
         f"{moe['warm_run']['decode_s']:.3f}, the phase {moe['wall_s']:.3f}; rwkv6 / zamba2 "
         f"{ssm_path['rwkv6-7b']['wall_s']:.3f} / {ssm_path['zamba2-7b']['wall_s']:.3f}, the "
-        f"phase {ssm_path['wall_s']:.3f}; the tuner on "
+        f"phase {ssm_path['wall_s']:.3f}; training {train['wall_s']:.3f} (a step "
+        f"{train['step_s']:.3f}); the tuner on "
         f"the card {sum(v['card_s'] for v in tune['runs'].values()):.3f}, on the CPU "
         f"{sum(v['cpu_s'] for v in tune['runs'].values()):.3f}, the phase "
         f"{tune['wall_s']:.3f}")
@@ -4030,6 +4571,7 @@ def main():
     log(json.dumps({"moe_serve_path": {k: v for k, v in moe.items()
                                        if k != "launches"}}))
     log(json.dumps({"ssm_serve_path": ssm_path}))
+    log(json.dumps({"train_path": train}, default=str))
     log(json.dumps({"tune_path": tune}))
     log(json.dumps({"dag_path": dag}))
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()

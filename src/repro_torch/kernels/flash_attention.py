@@ -19,6 +19,17 @@ fp32 to the fp32 kernel.
 Hopper kernel's tensor maps, grid and shared memory) and runs on any
 tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to the
 count of its route.
+
+The gradient: when grad mode is on and q, k or v requires grad,
+``gqa_flash`` runs through ``FlashAttention`` (a ``torch.autograd.Function``)
+and saves q, k, v and the output.  Its backward is ``gqa_flash_bwd``: on
+CPU tensors ``gqa_flash_bwd_plain``, the explicit fp32 gradient of
+``gqa_flash_plain``; on CUDA tensors the three kernels of
+``csrc/flash_attention_bwd.cu`` (the row statistics, dK/dV, dQ; the same
+dtypes and head dims as the forward), planned by ``plan_bwd``.  Each
+backward adds one to ``launches["gqa_flash_bwd"]`` and one to each
+kernel's count.  Under ``no_grad``, or on tensors that need no grad,
+``gqa_flash`` is the serving path above, unchanged.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``: all of them under
 #: "gqa_flash", and each under its route.
-launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
+launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
+            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0}
 
 HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,7 +61,15 @@ WGMMA_ROWS = 128        # query rows per block
 WGMMA_KEYS = 128        # keys per tile; the K/V boxes' rows
 TMA_BOX_COLS = 64       # bf16 per 128-byte swizzled row: a box's inner extent
 
+# The backward kernels' tiling (csrc/flash_attention_bwd.cu).
+BWD_ROWS = 64           # query rows per tile
+BWD_KEYS = 64           # keys per tile
+BWD_THREADS = 256
+#: The backward's kernels in launch order, by their ``which`` in the C entry.
+BWD_KERNELS = ("bwd_stats", "bwd_dkdv", "bwd_dq")
+
 _lib: ctypes.CDLL | None = None
+_bwd_lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
@@ -73,6 +93,34 @@ def gqa_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def gqa_flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, causal_offset: int = 0):
+    """The explicit fp32 gradient of ``gqa_flash_plain``: (dq, dk, dv) in the
+    dtypes of q, k and v.  P is the forward's softmax; with D_i = dO_i . O_i
+    (o, the forward's output, as the kernels read it), dS = P (dO V^T - D),
+    dq = dS K / sqrt(D), dk = dS^T Q / sqrt(D) and dv = P^T dO, dk and dv
+    summed over each KV head's query heads."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    dog = do.reshape(b, sq, hkv, g, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    qpos = causal_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    dvec = (dog * o.reshape(b, sq, hkv, g, d).float()).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (dp - dvec[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
 def build() -> str:
     """Compile ``csrc/flash_attention.cu`` (once per source version) and
     load it.  Returns the compiler's report when this call compiled."""
@@ -86,6 +134,20 @@ def build() -> str:
     lib.gqa_flash_wgmma.argtypes = [p] * 4 + [i] * 7 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
     _lib = lib
+    return log
+
+
+def build_bwd() -> str:
+    """Compile ``csrc/flash_attention_bwd.cu`` (once per source version) and
+    load it.  Returns the compiler's report when this call compiled."""
+    global _bwd_lib
+    if _bwd_lib is not None:
+        return ""
+    lib, log = build_library("flash_attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gqa_flash_bwd.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
+    lib.gqa_flash_bwd.restype = i
+    _bwd_lib = lib
     return log
 
 
@@ -181,12 +243,85 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
                 grid=(hq, b, -(-sq // WGMMA_ROWS)), smem=wgmma_smem_bytes(d))
 
 
-def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal_offset: int = 0) -> torch.Tensor:
-    """Causal GQA attention, (B, Sq, Hq, D) in q's dtype."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward's three launches: grid (x, y, z) and dynamic shared
+    memory of each kernel of ``BWD_KERNELS``, in that order."""
+    grids: tuple[tuple[int, int, int], ...]
+    smem: tuple[int, ...]
+
+
+def bwd_smem_bytes(d: int) -> tuple[int, int, int]:
+    """Dynamic shared memory of the stats, dK/dV and dQ kernels at head dim
+    d: fp32 tiles of 64 rows with row stride d + 1, score tiles 64 x 65."""
+    tile = 64 * (d + 1)
+    ps = BWD_KEYS + 1
+    return (4 * 2 * tile, 4 * (4 * tile + 2 * BWD_KEYS * ps + 2 * BWD_ROWS),
+            4 * (4 * tile + BWD_ROWS * ps))
+
+
+def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+             do: torch.Tensor, causal_offset: int = 0) -> BwdPlan:
+    """Check the backward's inputs (the forward's dtypes and head dims; o and
+    do shaped as q, in its dtype) and plan its three launches: stats and dQ
+    over (query tiles, Hq, B), dK/dV over (key tiles, Hkv, B)."""
+    _check_layout(q, k, v, causal_offset)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be shaped as q "
+                             f"{tuple(q.shape)} in {q.dtype}")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    q_tiles = -(-sq // BWD_ROWS)
+    k_tiles = -(-sk // BWD_KEYS)
+    return BwdPlan(grids=((q_tiles, hq, b), (k_tiles, hkv, b), (q_tiles, hq, b)),
+                   smem=bwd_smem_bytes(d))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``gqa_flash`` with its gradient: the forward saves q, k, v and the
+    output; the backward is ``gqa_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal_offset: int):
+        o = _forward(q, k, v, causal_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal_offset = causal_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = gqa_flash_bwd(q, k, v, o, do, ctx.causal_offset)
+        return dq, dk, dv, None
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _forward(q, k, v, causal_offset: int) -> torch.Tensor:
+    if _on_cpu(q, k, v):
         return gqa_flash_plain(q, k, v, causal_offset)
     return launch(q, k, v, causal_offset)
+
+
+def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal_offset: int = 0) -> torch.Tensor:
+    """Causal GQA attention, (B, Sq, Hq, D) in q's dtype; differentiable
+    through ``FlashAttention`` when grad mode is on and an input needs it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal_offset)
+    return _forward(q, k, v, causal_offset)
+
+
+def gqa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  do: torch.Tensor, causal_offset: int = 0):
+    """(dq, dk, dv) of ``gqa_flash``: the plain version on CPU tensors, the
+    kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors."""
+    if _on_cpu(q, k, v, o, do):
+        return gqa_flash_bwd_plain(q, k, v, o, do, causal_offset)
+    return launch_bwd(q, k, v, o, do, causal_offset)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
@@ -220,3 +355,45 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
     launches["gqa_flash"] += 1
     launches[pl.route] += 1
     return out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, causal_offset: int = 0):
+    """``gqa_flash_bwd`` on CUDA tensors: the stats kernel (LSE and D_i into
+    fp32 scratch), then dK/dV and dQ.  The inputs are made contiguous."""
+    ts = [t.contiguous() for t in (q, k, v, o, do)]
+    if any(t.device.type != "cuda" or t.device != q.device for t in ts):
+        raise ValueError("q, k, v, o and do must lie on the same CUDA device")
+    pl = plan_bwd(*ts, causal_offset)
+    bufs = bwd_buffers(ts[0], ts[1])
+    for which in range(len(BWD_KERNELS)):
+        launch_bwd_kernel(which, *ts, bufs, causal_offset, pl)
+    launches["gqa_flash_bwd"] += 1
+    return bufs[2:]
+
+
+def bwd_buffers(q: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The backward's scratch and outputs: LSE and D_i (B, Hq, Sq) fp32, then
+    dq, dk, dv shaped and typed as q, k, k."""
+    b, sq, hq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    return lse, torch.empty_like(lse), torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(k)
+
+
+def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
+                      pl: BwdPlan) -> None:
+    """One launch of the backward's kernel ``BWD_KERNELS[which]`` on
+    contiguous CUDA inputs, into ``bufs`` (``bwd_buffers``), as ``pl``
+    plans it; adds one to that kernel's count."""
+    build_bwd()
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, *bufs)]
+    err = _bwd_lib.gqa_flash_bwd(which, _DTYPES[q.dtype], *ptrs, b, sq, sk, hq, hkv, d,
+                                 int(causal_offset), *pl.grids[which], pl.smem[which], stream)
+    if err != 0:
+        raise RuntimeError(f"the {BWD_KERNELS[which]} kernel of gqa_flash's backward "
+                           f"failed: cudaError_t {err}")
+    launches[BWD_KERNELS[which]] += 1

@@ -9,7 +9,9 @@ keeps ``param_dtype`` and casts at every use; casting once gives the same
 values); the leaves that it reads in fp32 in ``param_dtype``: the norm
 scales (``ln*``, read by ``rms_norm``), rwkv6's decay base ``w0`` and bonus
 ``u``, zamba2's ``a_log`` and ``dt_bias``.  Stored in bf16, those four
-would change the decay at full width.
+would change the decay at full width.  Training keeps master weights:
+with ``master=True`` every leaf is stored in ``param_dtype``, as the
+reference stores them, and the forward casts at use.
 """
 from __future__ import annotations
 
@@ -51,8 +53,8 @@ def _walk_flat(node, prefix=()):
             yield prefix + (name,), v
 
 
-def _storage_dtype(cfg: ModelConfig, leaf: str) -> torch.dtype:
-    if leaf.startswith("ln") or leaf in FP32_LEAVES:
+def _storage_dtype(cfg: ModelConfig, leaf: str, master: bool = False) -> torch.dtype:
+    if master or leaf.startswith("ln") or leaf in FP32_LEAVES:
         return cfg.param_dtype
     return cfg.compute_dtype
 
@@ -64,13 +66,14 @@ def _set(out: dict, path: tuple, value) -> None:
     node[path[-1]] = value
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", master: bool = False) -> dict:
     """Random weights by the reference's rules: norm scales one, the
     constants of ``CONST_LEAVES`` (``d_skip`` 1, ``mix``/``mix_c`` 0.5,
     ``w0`` -1, ``a_log`` 0, ``dt_bias`` -1), every other leaf
     ``dense_init`` with ``in_axis = max(ndim - 2, 0)``, drawn from one
     ``torch.Generator`` seeded with ``seed`` on ``device``, one leaf at a
-    time in sorted path order (so fp32 never holds more than one leaf)."""
+    time in sorted path order (so fp32 never holds more than one leaf).
+    ``master``: every leaf in ``param_dtype`` (the train state's weights)."""
     dev = resolve_device(device)
     shapes = module_for(cfg).param_shapes(cfg)
     gen = torch.Generator(device=dev)
@@ -78,7 +81,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     out: dict = {}
     for path, shape in sorted(_walk_flat(shapes)):
         leaf = path[-1]
-        dtype = _storage_dtype(cfg, leaf)
+        dtype = _storage_dtype(cfg, leaf, master)
         if leaf.startswith("ln"):
             value = torch.ones(shape, dtype=dtype, device=dev)
         elif leaf in CONST_LEAVES:
@@ -89,9 +92,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return out
 
 
-def params_from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+def params_from_reference(cfg: ModelConfig, tree: dict, device="cuda",
+                          master: bool = False) -> dict:
     """The port's params from the reference's param dict given as numpy
-    arrays (same keys and shapes), stored as ``init_params`` stores them."""
+    arrays (same keys and shapes), stored as ``init_params`` stores them
+    (with ``master``: every leaf in ``param_dtype``)."""
     dev = resolve_device(device)
     shapes = dict(_walk_flat(module_for(cfg).param_shapes(cfg)))
     given = dict(_walk_flat(tree))
@@ -104,7 +109,7 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, expected "
                              f"{shapes[path]}")
         value = torch.tensor(np.asarray(arr, dtype=np.float32))
-        _set(out, path, value.to(device=dev, dtype=_storage_dtype(cfg, path[-1])))
+        _set(out, path, value.to(device=dev, dtype=_storage_dtype(cfg, path[-1], master)))
     return out
 
 

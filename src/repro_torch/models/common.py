@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import flash_attention
 
@@ -177,6 +178,25 @@ def attention(q, k, v, causal_offset: int, cfg: ModelConfig) -> torch.Tensor:
         return chunked_attention(q, k, v, causal_offset, cfg.attention_chunk)
     raise ValueError(f"attention_backend {cfg.attention_backend!r}: use "
                      "'flash' or 'chunked'")
+
+
+def remat_mode(cfg: ModelConfig) -> str:
+    """What a forward checkpoints under ``cfg.remat`` (the reference's
+    ``_remat``): "none" when grad mode is off or ``cfg.remat`` is "none"
+    (every activation kept); "sublayers" for "collectives" (each sublayer
+    under its own checkpoint, so only its output, the reference's
+    ``attn_out``/``mlp_out``, is kept); "layer" for "full" and "dots" (the
+    whole layer under one).  Recompute runs the same ops on the same
+    inputs, so no bit moves."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return "none"
+    return "sublayers" if cfg.remat == "collectives" else "layer"
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def layer(stacked: dict, *index) -> dict:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import ssm
-from .common import ModelConfig, heads, layer, merge_heads, rms_norm
+from .common import ModelConfig, checkpoint, heads, layer, merge_heads, remat_mode, rms_norm
 
 LORA_RANK = 64
 HEAD_DIM = 64
@@ -94,18 +94,37 @@ def channel_mix(x, lp, cfg: ModelConfig, prev_tok=None):
     return rr * (kk @ lp["cv"].to(x.dtype))
 
 
+def _time_block(x, lp, cfg: ModelConfig):
+    return time_mix(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
+
+
+def _channel_block(x, lp, cfg: ModelConfig):
+    return channel_mix(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg)
+
+
+def _layer(x, lp, cfg: ModelConfig):
+    x = x + _time_block(x, lp, cfg)
+    return x + _channel_block(x, lp, cfg)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            return_hidden: bool = False):
+            return_hidden: bool = False, **_):
     """Token logits (B, S, V); ``return_hidden`` returns (final hidden
-    states, output head) instead."""
+    states, output head) instead.  Other keywords (``prefix_embeds``) are
+    ignored, as the reference ignores them.  Layers run as ``remat_mode``
+    says: its "sublayers" are the time mix and the channel mix."""
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     layers = params["layers"]
+    mode = remat_mode(cfg)
     for li in range(cfg.num_layers):
         lp = layer(layers, li)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + time_mix(h, lp, cfg)
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + channel_mix(h2, lp, cfg)
+        if mode == "none":
+            x = _layer(x, lp, cfg)
+        elif mode == "sublayers":
+            x = x + checkpoint(_time_block, x, lp, cfg)
+            x = x + checkpoint(_channel_block, x, lp, cfg)
+        else:
+            x = checkpoint(_layer, x, lp, cfg)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if return_hidden:
         return x, params["lm_head"]

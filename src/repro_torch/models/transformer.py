@@ -18,7 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, attention, heads, merge_heads, rms_norm, rope, swiglu
+from .common import (ModelConfig, attention, checkpoint, heads, merge_heads, remat_mode, rms_norm,
+                     rope, swiglu)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -165,17 +166,36 @@ def mlp(x: torch.Tensor, lp: dict, li: int, cfg: ModelConfig) -> torch.Tensor:
     return swiglu(h2, lp["w_gate"][li], lp["w_up"][li], lp["w_down"][li])
 
 
-def decoder_layer(x, lp: dict, li: int, cfg: ModelConfig, positions):
-    """Layer ``li`` of the stacked params.  Returns (out, (k, v)): the fresh
-    K/V (after rope on k) build the prefill cache."""
+def attention_block(x, lp: dict, li: int, cfg: ModelConfig, positions):
+    """Layer ``li``'s attention sublayer: (its output (B, S, d), (k, v)), the
+    fresh K/V after rope on k."""
     h = rms_norm(x, lp["ln1"][li], cfg.norm_eps)
     q, k, v = qkv(h, lp, li)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, 0, cfg)
-    x = x + attn_out(o, lp, li)
+    return attn_out(o, lp, li), (k, v)
+
+
+def decoder_layer(x, lp: dict, li: int, cfg: ModelConfig, positions):
+    """Layer ``li`` of the stacked params.  Returns (out, (k, v)): the fresh
+    K/V (after rope on k) build the prefill cache."""
+    a, kv = attention_block(x, lp, li, cfg, positions)
+    x = x + a
     x = x + mlp(x, lp, li, cfg)
-    return x, (k, v)
+    return x, kv
+
+
+def remat_layer(x, lp: dict, li: int, cfg: ModelConfig, positions, mode: str):
+    """``decoder_layer`` as ``remat_mode`` says: "sublayers" checkpoints the
+    attention and the MLP sublayers apart, "layer" the whole layer."""
+    if mode == "none":
+        return decoder_layer(x, lp, li, cfg, positions)
+    if mode == "sublayers":
+        a, kv = checkpoint(attention_block, x, lp, li, cfg, positions)
+        x = x + a
+        return x + checkpoint(mlp, x, lp, li, cfg), kv
+    return checkpoint(decoder_layer, x, lp, li, cfg, positions)
 
 
 def output_head(params: dict) -> torch.Tensor:
@@ -184,16 +204,23 @@ def output_head(params: dict) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            return_kv: bool = False, return_hidden: bool = False):
-    """Token logits (B, S, V).  ``return_kv`` also returns the stacked
+            prefix_embeds: torch.Tensor | None = None, return_kv: bool = False,
+            return_hidden: bool = False):
+    """Token logits (B, S, V).  ``prefix_embeds`` (B, P, d): the modality
+    frontend stub's precomputed embeddings (vlm/audio), cast to
+    ``compute_dtype`` and prepended.  ``return_kv`` also returns the stacked
     (L, B, S, KV, hd) k and v; ``return_hidden`` returns (final hidden
-    states, output head) instead."""
+    states, output head) instead.  Each layer runs as ``remat_mode`` says
+    (``remat_layer``)."""
     x = params["embed"].to(cfg.compute_dtype)[tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     lp = params["layers"]
+    mode = remat_mode(cfg)
     ks, vs = [], []
     for li in range(cfg.num_layers):
-        x, (k, v) = decoder_layer(x, lp, li, cfg, positions)
+        x, (k, v) = remat_layer(x, lp, li, cfg, positions, mode)
         if return_kv:
             ks.append(k)
             vs.append(v)

@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from . import ssm
-from .common import (ModelConfig, attention, chunked_attention, heads, layer, merge_heads,
-                     rms_norm, rope, swiglu)
+from .common import (ModelConfig, attention, checkpoint, chunked_attention, heads, layer,
+                     merge_heads, remat_mode, rms_norm, rope, swiglu)
 
 CONV_WIDTH = 4
 MAMBA_HEAD = 64
@@ -132,24 +132,37 @@ def _split_groups(layers: dict, L: int, period: int):
     return grouped, rest, G, R
 
 
+def _mamba_sublayer(x, lp, cfg: ModelConfig):
+    return mamba_block(rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            return_hidden: bool = False):
+            return_hidden: bool = False, **_):
     """Token logits (B, S, V); ``return_hidden`` returns (final hidden
-    states, output head) instead."""
+    states, output head) instead.  Other keywords (``prefix_embeds``) are
+    ignored, as the reference ignores them.  Unless ``remat_mode`` is
+    "none", each Mamba block and each application
+    of the shared block runs under a checkpoint, keeping their outputs (the
+    reference's ``mlp_out``/``attn_out``); the reference's "full" also
+    recomputes a group's blocks inside the group's own checkpoint, which
+    changes what is kept, not a value."""
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     positions = torch.arange(x.shape[1], device=x.device)
     sp = params["shared"]
     grouped, rest, G, R = _split_groups(params["layers"], cfg.num_layers,
                                         cfg.shared_attn_every)
+    remat = remat_mode(cfg) != "none"
 
     def mamba_layer(x, lp):
-        h = rms_norm(x, lp["ln"], cfg.norm_eps)
-        return x + mamba_block(h, lp, cfg)
+        if remat:
+            return x + checkpoint(_mamba_sublayer, x, lp, cfg)
+        return x + _mamba_sublayer(x, lp, cfg)
 
     for g in range(G):
         for j in range(cfg.shared_attn_every):
             x = mamba_layer(x, layer(grouped, g, j))
-        x = shared_block(x, sp, cfg, positions)
+        x = (checkpoint(shared_block, x, sp, cfg, positions) if remat
+             else shared_block(x, sp, cfg, positions))
     for j in range(R):
         x = mamba_layer(x, layer(rest, j))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)

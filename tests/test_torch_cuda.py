@@ -294,6 +294,148 @@ def cuda_flash():
     return torch.device("cuda")
 
 
+# The backward: both versions compute in fp32 from the same inputs and round
+# once to the inputs' dtype, so bf16 differs by at most an ulp of the result
+# plus fp32 sums taken in another order; fp32 elementwise 1e-4 (dK and dV
+# sum dS Q and P dO over up to ~1000 rows and a group of heads, whose
+# cancellations leave absolute errors ~1e-6 of terms of order 1).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda_flash_bwd(cuda_flash):
+    fa.build_bwd()
+    return cuda_flash
+
+
+def _bwd_inputs(device, b, sq, sk, hq, hkv, d, seed, dtype):
+    q, k, v = _flash_qkv(device, b, sq, sk, hq, hkv, d, seed, dtype)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(b, sq, hq, d))
+                          .astype(np.float32)).to(device, dtype)
+    return q, k, v, do
+
+
+def _assert_bwd_close(got, want, what):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tol, rel_tol = BWD_TOL[w.dtype], BWD_REL[w.dtype]
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        g, w = g.float().cpu(), w.float().cpu()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"{what} {name}")
+        norm = torch.linalg.vector_norm(w).item()
+        if norm <= 1e-3 * w.numel() ** 0.5:
+            continue    # a vanishing gradient (one visible key: dq is rounding
+            #             residue of ~1e-7 in both): the elementwise test holds it
+        rel = torch.linalg.vector_norm(g - w).item() / norm
+        assert rel <= rel_tol, f"{what} {name}: relative L2 {rel}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
+def test_kernel_flash_bwd_matches_plain(cuda_flash_bwd, dtype, d):
+    for sq, extra, hq, group in [(1, 0, 2, 1), (17, 37, 4, 2), (64, 0, 8, 4),
+                                 (130, 0, 4, 2), (130, 200, 8, 4), (70, 3, 2, 2)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sq + extra, hq, hq // group, d,
+                                  seed=sq + extra + d, dtype=dtype)
+        o = fa.gqa_flash_plain(q, k, v, causal_offset=extra)
+        fa.reset_launches()
+        got = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=extra)
+        torch.cuda.synchronize()
+        assert fa.launches["gqa_flash_bwd"] == 1 and all(
+            fa.launches[n] == 1 for n in fa.BWD_KERNELS), fa.launches
+        want = fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=extra)
+        _assert_bwd_close(got, want, str((sq, extra, hq, group, d, dtype)))
+        again = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=extra)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.cuda
+def test_kernel_flash_bwd_offsets_and_tails(cuda_flash_bwd):
+    """Keys no row sees (Sk past offset + Sq), Sq > Sk, one key."""
+    for b, sq, sk, off in [(1, 5, 300, 3), (2, 200, 65, 0), (1, 1, 1, 0), (1, 3, 1, 7)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, 4, 2, 64, seed=sq * sk,
+                                  dtype=torch.float32)
+        o = fa.gqa_flash_plain(q, k, v, causal_offset=off)
+        _assert_bwd_close(fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off),
+                          fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off),
+                          str((b, sq, sk, off)))
+
+
+@pytest.mark.cuda
+def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
+    """The Function launches the forward route and the three backward
+    kernels; its gradients are the kernels' own; a train-shaped call
+    (internvl2-2b's heads, a shorter sequence) holds the limits; under
+    no_grad nothing is saved and no backward exists."""
+    q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, 300, 300, 16, 8, 128, seed=1,
+                              dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    o = fa.gqa_flash(*leaves)
+    o.backward(do.transpose(1, 2).contiguous().transpose(1, 2))   # a strided dO
+    torch.cuda.synchronize()
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
+                           "gqa_flash_bwd": 1, "bwd_stats": 1, "bwd_dkdv": 1, "bwd_dq": 1}
+    direct = fa.launch_bwd(q, k, v, o.detach(), do)
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, direct))
+    _assert_bwd_close(direct, fa.gqa_flash_bwd_plain(q, k, v, o.detach(), do), "train heads")
+    with torch.no_grad():
+        assert fa.gqa_flash(*leaves).grad_fn is None
+    with pytest.raises(TypeError):
+        fa.gqa_flash_bwd(*(t.half() for t in (q, k, v, o, do)))
+    with pytest.raises(ValueError, match="shaped as q"):
+        fa.gqa_flash_bwd(q, k, v, o[:, :-1], do[:, :-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-2b", "stablelm-1.6b"])
+def test_train_step_on_the_card(cuda_flash_bwd, arch):
+    """A reduced config's train step (fp32, D 32: the fp32 forward and
+    backward kernels) on the card against the same step on the CPU (the
+    plain versions): loss rtol 1e-5, grad norm rtol 2e-3 and every leaf's
+    update within 5e-2 relative L2 (fp32 sums in another order; the same
+    limits as against the reference, tests/test_torch_train.py); launches
+    two forwards (remat) and one backward a layer; two runs equal bits."""
+    from repro_torch import configs, train
+    from repro_torch.train.step import leaves
+    cfg = configs.reduced(configs.ARCHS[arch])
+    opt = train.OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    loader = train.PrefetchLoader(train.SyntheticLM(train.DataConfig(
+        batch=2, seq_len=80, vocab_size=cfg.vocab_size, seed=1)), device="cpu", model_cfg=cfg)
+    batch = next(loader)
+    loader.close()
+    step = train.make_train_step(cfg, opt, ce_chunk=32)
+    cpu0 = train.init_state(cfg, seed=0, device="cpu")
+    want_state, want = step(cpu0, batch)
+    card0 = train.TrainState(**{k: (_to_device(v, cuda_flash_bwd) if k != "step" else v)
+                                for k, v in vars(cpu0).items()})
+    on_card = {k: v.to(cuda_flash_bwd) for k, v in batch.items()}
+    fa.reset_launches()
+    got_state, got = step(card0, on_card)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
+                           "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L}
+    np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
+    old = dict(leaves(cpu0.params))
+    for (path, a), (_, w) in zip(leaves(got_state.params), leaves(want_state.params)):
+        delta, ref = a.cpu() - old[path], w - old[path]
+        assert (torch.linalg.vector_norm(delta - ref) / torch.linalg.vector_norm(ref)) <= 5e-2
+    again_state, again = step(card0, on_card)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(leaves(got_state.params), leaves(again_state.params)))
+
+
+def _to_device(tree, device):
+    """A nested dict of tensors moved to ``device``."""
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()} if tree is not None else None
+
+
 FLASH_GRID = [(sq, extra, hq, group, d)
               for sq in (1, 17, 64, 130) for extra in (0, 37, 200)
               for hq, group in ((2, 1), (4, 2), (8, 4)) for d in (32, 64, 128)]
@@ -359,7 +501,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     fa.reset_launches()
     out = fa.gqa_flash(q, k, v, causal_offset=extra)
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0}
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
+                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 

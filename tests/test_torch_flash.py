@@ -213,7 +213,8 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     q = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16)
     fa.reset_launches()
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
-    assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0}
+    assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
+                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 
