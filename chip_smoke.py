@@ -877,6 +877,7 @@ def flash_kernel_phase(report):
                     f"{FLASH_REL[dtype]})")
     if fa.launches != expect:
         raise AssertionError(f"flash launches by route {fa.launches}, expected {expect}")
+    lse_check = flash_lse_check()
 
     ptx = ptxas_report(report, "flash_wgmma_kernel")
     for name, rep in ptx.items():
@@ -937,7 +938,36 @@ def flash_kernel_phase(report):
                 bound_ms=bound, bound_by=by, tflops=flops / t["ms"] / 1e9,
                 bound_share=bound / t["ms"],
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, **t), d112
+                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, lse=lse_check, **t), d112
+
+
+# The forward's LSE against the plain one: fp32 sums of up to ~2000
+# exponentials in another order, ex2.approx, on values of ~10 (readings
+# 9.5e-7 to 1.9e-6 on an H100 80GB HBM3).
+LSE_TOL = 1e-4
+
+
+def flash_lse_check():
+    """The Hopper forward with and without its LSE at the prefill's (D 128),
+    zamba2's (D 112) and the ragged (D 64) shapes: the output equal bit for
+    bit (the serving path asks for none), the LSE within LSE_TOL of
+    ``gqa_flash_lse_plain``.  Returns each shape's largest LSE difference."""
+    gen = np.random.default_rng(2)
+    out = {}
+    for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
+        if name not in ("prefill", "zamba2", "ragged"):
+            continue
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
+        got, lse = fa.launch(q, k, v, off, with_lse=True)
+        same = torch.equal(got, fa.launch(q, k, v, off))
+        err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
+        if not (same and err <= LSE_TOL):
+            raise AssertionError(f"gqa_flash {name} with the LSE: output equal {same}, LSE "
+                                 f"off by up to {err} (limit {LSE_TOL})")
+        out[name] = err
+        log(f"gqa_flash {name} D={d}: the output with and without the LSE equal bit for bit; "
+            f"LSE within {err} of the plain one")
+    return out
 
 
 def flash_d112_timing(gen, err, rel):
@@ -1745,16 +1775,22 @@ TRAIN_PARAMS = 1_889_146_880
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_TIMED = 3
 TRAIN_CHECK_LAYERS = (0, 12, 23)
-# The backward kernels against the plain backward (both fp32 inside, one
-# rounding to the inputs' dtype): elementwise as the card tests
-# (tests/test_torch_cuda.py BWD_TOL) and as a whole by relative L2.
+# The backward kernels against the plain backward, elementwise as the card
+# tests (tests/test_torch_cuda.py BWD_TOL) and as a whole by relative L2.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-# Relative L2 limits set from readings on an H100 80GB HBM3 (bf16 5.2e-5 at
-# the train shape, fp32 2.3e-7 at D 32), with headroom for a later redesign
-# that rounds P or dS to bf16.
+# The fma route computes in fp32 and rounds once to the inputs' dtype:
+# limits set from readings on an H100 80GB HBM3 (bf16 5.2e-5 at the train
+# shape, fp32 2.3e-7 at D 32).
 BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-4}
+# The wgmma route rounds P and dS to bf16 before their products, as the
+# forward rounds P: against the fp32 plain backward the forward's bf16
+# FLASH_REL; against the plain version that rounds where it rounds
+# (``gqa_flash_bwd_lse_plain(round_bf16=True)``), where only roundings that
+# fall the other way differ, BWD_ROUNDED_REL.
+BWD_WGMMA_REL = FLASH_REL[torch.bfloat16]
+BWD_ROUNDED_REL = 1e-3
 # The same on the model's own layers (0, 12, 23 of the chunked attention's
-# q/k/v/dO at the first step; readings 2.5e-4, 3.1e-4, 7.6e-4): gradients
+# q/k/v/dO at the first step; fma readings 2.5e-4, 3.1e-4, 7.6e-4): gradients
 # there span many decades under the reference init (dO std 5e9 at layer 0,
 # 3e-8 at layer 23), so the whole output's relative L2 is the measure.
 TRAIN_LAYER_REL = 3e-3
@@ -1768,81 +1804,121 @@ TRAIN_GRAD_REL = 0.1
 # attention, and the fp32 D-32 shape of the launcher's reduced stablelm.
 BWD_SHAPES = [("train", 4, 2304, 2304, 16, 8, 128, 0, torch.bfloat16),
               ("fp32-d32", 4, 128, 128, 4, 4, 32, 0, torch.float32)]
+# The largest share of the fma route's time that the wgmma route's whole
+# backward may take at the train shape, in turns (readings ~0.04 on an H100
+# 80GB HBM3; the forward's Hopper kernel is held to 0.5 of mma.sync's).
+BWD_RATIO = 0.2
 ELASTIC_ARCH = "stablelm-1.6b"
+BWD_ROUTE_KERNELS = {"fma": fa.BWD_KERNELS, "wgmma": fa.BWD_WGMMA_KERNELS}
 
 
 def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
-    """(bytes, FLOPs) of each backward kernel and of the whole backward:
-    each input read once, each output written once; a product over the
-    unmasked (row, key) pairs is 2·D FLOPs a pair per head.  The stats pass
-    does Q K^T, dK/dV four products (S, dP, dV, dK), dQ three (S, dP, dQ);
-    the function needs five (S, dP, dV, dK, dQ): the stats pass's Q K^T and
-    the second S and dP are this design's cost, not the bound's."""
+    """(bytes, FLOPs) of each backward kernel, of the function and of the
+    wgmma route: each input read once, each output written once; a product
+    over the unmasked (row, key) pairs is 2·D FLOPs a pair per head.  The
+    function needs five products (S, dP, dV, dK, dQ).  The fma route's
+    stats pass does Q K^T, its dK/dV four products (S, dP, dV, dK), its dQ
+    three (S, dP, dQ); the wgmma route takes the LSE from the forward and
+    runs seven: dQ (S, dP, dQ; it reads o and writes D_i) and dK/dV (S, dP,
+    dV, dK).  The second S and dP are the price of determinism, not the
+    bound's."""
     pairs = sum(min(sk, offset + r + 1) for r in range(sq))
     product = 2.0 * b * hq * d * pairs
     qs, ks, stats = elt * b * sq * hq * d, elt * b * sk * hkv * d, 4.0 * b * hq * sq
     return {"bwd_stats": (3 * qs + ks + 2 * stats, product),
             "bwd_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
             "bwd_dq": (3 * qs + 2 * ks + 2 * stats, 3 * product),
-            "gqa_flash_bwd": (4 * qs + 4 * ks, 5 * product)}
+            "bwd_wgmma_dq": (4 * qs + 2 * ks + 2 * stats, 3 * product),
+            "bwd_wgmma_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
+            "gqa_flash_bwd": (4 * qs + 4 * ks, 5 * product),
+            "gqa_flash_bwd_wgmma": (4 * qs + 4 * ks + stats, 7 * product)}
 
 
-def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None):
-    """The three kernels against ``gqa_flash_bwd_plain`` on the same inputs:
-    each output within BWD_REL relative L2 and, on unit-normal inputs
-    (``elementwise``), elementwise within BWD_TOL; a model layer's
-    gradients span many decades under the reference init, so there the
-    whole output's relative L2 is the measure.  Returns (max abs
-    difference, largest relative L2)."""
-    got = fa.launch_bwd(q, k, v, o, do, offset)
+def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None, route=None,
+              lse=None):
+    """The kernels of ``route`` (default: the inputs' ``bwd_route``; wgmma
+    reads ``lse``) against ``gqa_flash_bwd_plain`` on the same inputs: each
+    output within ``rel_limit`` relative L2 (default BWD_REL for fma,
+    BWD_WGMMA_REL for wgmma) and, on unit-normal inputs (``elementwise``),
+    elementwise within BWD_TOL; a model layer's gradients span many decades
+    under the reference init, so there the whole output's relative L2 is the
+    measure.  The wgmma route is also held against the plain version that
+    rounds P and dS to bf16 where it does, within BWD_ROUNDED_REL (and
+    BWD_TOL elementwise) when ``elementwise``, printed otherwise.  Returns
+    (max abs difference, largest relative L2, largest relative L2 against
+    the rounding plain version or None)."""
+    route = route or fa.bwd_route(q.dtype, q.shape[-1])
+    got = fa.launch_bwd(q, k, v, o, do, offset, lse=lse, route=route)
     torch.cuda.synchronize()
-    want = fa.gqa_flash_bwd_plain(q, k, v, o, do, offset)
-    err = rel = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g.float()).all():
-            raise AssertionError(f"{what} {name}: bad output {tuple(g.shape)} {g.dtype}")
-        e, r = (g.float() - w.float()).abs().max().item(), rel_l2(g, w)
-        tol = BWD_TOL[w.dtype]
-        if (elementwise and not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)) \
-                or not r <= (rel_limit or BWD_REL[w.dtype]):
-            raise AssertionError(f"{what} {name}: kernels and plain version differ by up "
-                                 f"to {e}, relative L2 {r}")
-        err, rel = max(err, e), max(rel, r)
-    return err, rel
+    wants = [(fa.gqa_flash_bwd_plain(q, k, v, o, do, offset),
+              rel_limit or (BWD_REL[q.dtype] if route == "fma" else BWD_WGMMA_REL))]
+    if route == "wgmma":
+        wants.append((fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, offset, round_bf16=True),
+                      BWD_ROUNDED_REL if elementwise else math.inf))
+    err, rels = 0.0, [0.0] * len(wants)
+    for i, (want, limit) in enumerate(wants):
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{what} {name}: bad output {tuple(g.shape)} {g.dtype}")
+            e, r = (g.float() - w.float()).abs().max().item(), rel_l2(g, w)
+            tol = BWD_TOL[w.dtype]
+            if (elementwise and not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)) \
+                    or not r <= limit:
+                raise AssertionError(f"{what} {name} on {route}: kernels and plain version "
+                                     f"{'(rounding) ' if i else ''}differ by up to {e}, "
+                                     f"relative L2 {r} (limit {limit})")
+            if i == 0:
+                err = max(err, e)
+            rels[i] = max(rels[i], r)
+    return err, rels[0], rels[1] if route == "wgmma" else None
 
 
 def flash_bwd_kernel_phase(report):
-    """Phase 2 for the backward of ``gqa_flash``: the three kernels against
-    the plain backward at the train step's shape (bf16) and the launcher's
-    fp32 D-32 shape, twice (equal bits); at the train shape each kernel
-    timed by CUDA events and by profiler device time beside its bound, the
-    plain backward, and SDPA's backward (its forward + backward less its
-    forward, for timing only).  Returns the three kernels' entries."""
+    """Phase 2 for the backward of ``gqa_flash``: each route against the
+    plain backward, twice (equal bits), at the train step's shape (bf16, on
+    both routes: the wgmma route on the forward kernel's LSE) and the
+    launcher's fp32 D-32 shape (fma, its route); at the train shape each
+    kernel and each route's whole backward timed in turns by CUDA events and
+    by profiler device time beside their bounds, the plain backward, and
+    SDPA's backward (its forward + backward less its forward, for timing
+    only); the wgmma route's whole backward at most BWD_RATIO of the fma
+    route's.  Returns the five kernels' entries."""
     gen = np.random.default_rng(11)
     ptx = ptxas_report(report, "flash_bwd_")
     for name, rep in ptx.items():
         log(f"{name}: ptxas {rep}")
+    spilled = {n: r for n, r in ptx.items() if "wgmma" in n and
+               (r.get("spill_stores", 0) or r.get("spill_loads", 0) or r["remarks"])}
+    if spilled:
+        raise AssertionError(f"the wgmma backward kernels spill or serialise: {spilled}")
     checks, inputs = {}, {}
     for what, b, sq, sk, hq, hkv, d, off, dtype in BWD_SHAPES:
         q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
         do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)) \
             .to("cuda", dtype)
-        o = fa.launch(q, k, v, off)
-        inputs[what] = q, k, v, o, do
-        checks[what] = bwd_check(q, k, v, o, do, off, f"gqa_flash_bwd {what}")
-        again = fa.launch_bwd(q, k, v, o, do, off)
-        if not all(torch.equal(a, c) for a, c in zip(again, fa.launch_bwd(q, k, v, o, do, off))):
-            raise AssertionError(f"gqa_flash_bwd {what}: two runs differ")
-        log(f"gqa_flash_bwd {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
-            f"{str(dtype)[6:]}: agrees with the plain backward (max abs diff "
-            f"{checks[what][0]}, largest relative L2 {checks[what][1]}); two runs equal")
+        routes = ["fma", "wgmma"] if fa.bwd_route(dtype, d) == "wgmma" else ["fma"]
+        o, lse = fa.launch(q, k, v, off, with_lse=True) if "wgmma" in routes \
+            else (fa.launch(q, k, v, off), None)
+        inputs[what] = q, k, v, o, do, lse
+        for route in routes:
+            checks[what, route] = bwd_check(q, k, v, o, do, off,
+                                            f"gqa_flash_bwd {what} {route}", route=route, lse=lse)
+            again = fa.launch_bwd(q, k, v, o, do, off, lse=lse, route=route)
+            if not all(torch.equal(a, c) for a, c in
+                       zip(again, fa.launch_bwd(q, k, v, o, do, off, lse=lse, route=route))):
+                raise AssertionError(f"gqa_flash_bwd {what} {route}: two runs differ")
+            log(f"gqa_flash_bwd {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+                f"{str(dtype)[6:]} on {route}: agrees with the plain backward (max abs diff "
+                f"{checks[what, route][0]}, largest relative L2 {checks[what, route][1]}, "
+                f"against the rounding plain version {checks[what, route][2]}); two runs equal")
 
     what, b, sq, sk, hq, hkv, d, off, dtype = BWD_SHAPES[0]
-    q, k, v, o, do = inputs[what]
-    pl = fa.plan_bwd(q, k, v, o, do, off)
-    bufs = fa.bwd_buffers(q, k)
-    for which in range(3):                 # LSE and D_i in place for the others
-        fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, off, pl)
+    q, k, v, o, do, lse = inputs[what]
+    plans = {route: fa.plan_bwd(q, k, v, o, do, off, route=route) for route in BWD_ROUTE_KERNELS}
+    bufs = {"fma": fa.bwd_buffers(q, k), "wgmma": fa.bwd_buffers(q, k, lse)}
+    for route, names in BWD_ROUTE_KERNELS.items():   # LSE and D_i in place for the others
+        for which in range(len(names)):
+            fa.launch_bwd_kernel(which, q, k, v, o, do, bufs[route], off, plans[route])
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -1854,10 +1930,16 @@ def flash_bwd_kernel_phase(report):
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
-    runs = {name: (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, off, pl))
-            for which, name in enumerate(fa.BWD_KERNELS)}
-    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, off),
+    runs = {}
+    for route, names in BWD_ROUTE_KERNELS.items():
+        for which, name in enumerate(names):
+            runs[name] = (lambda w=which, r=route: fa.launch_bwd_kernel(
+                w, q, k, v, o, do, bufs[r], off, plans[r]))
+    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, off, route="fma"),
+                whole_wgmma=lambda: fa.launch_bwd(q, k, v, o, do, off, lse=lse),
                 plain=lambda: fa.gqa_flash_bwd_plain(q, k, v, o, do, off),
+                plain_lse=lambda: fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, off,
+                                                             round_bf16=True),
                 sdpa_fwd=sdpa_fwd, sdpa_fwd_bwd=sdpa_fwd_bwd)
     turns = {key: [] for key in runs}
     for key in list(runs) + list(runs)[::-1]:
@@ -1866,47 +1948,68 @@ def flash_bwd_kernel_phase(report):
     # profiler device ms per call; a kernel run makes one device event a
     # call, so its busy time per recorded event (the profiler drops events
     # now and then: 4 of 5 recorded in some turns on an H100)
+    kernel_names = fa.BWD_KERNELS + fa.BWD_WGMMA_KERNELS
     dev = {}
     for key in runs:
         us, n = device_trace(runs[key], 5)
-        dev[key] = (us / n if key in fa.BWD_KERNELS else us / 5) / 1e3 if us > 0 else None
+        dev[key] = (us / n if key in kernel_names else us / 5) / 1e3 if us > 0 else None
     sdpa_bwd = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     sdpa_bwd_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                     if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
     work = bwd_work(b, sq, sk, hq, hkv, d, off, 2)
     whole_bound, whole_by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
+    route_bound, route_by = bound_ms(*work["gqa_flash_bwd_wgmma"], BF16_FLOP_PER_S)
+    ratio = t["whole_wgmma"] / t["whole"]
     log(f"gqa_flash_bwd train shape, in turns {turns}")
-    done = sum(work[name][1] for name in fa.BWD_KERNELS)
-    log(f"gqa_flash_bwd train shape: the three kernels {t['whole']:.6f} ms/call (device "
-        f"{dev['whole']}), bound {whole_bound:.6f} by {whole_by} "
-        f"({work['gqa_flash_bwd'][1] / 1e9:.3f} GFLOP; the kernels do {done / 1e9:.3f}, "
-        f"{done / work['gqa_flash_bwd'][1]:.2f} times it), plain {t['plain']:.6f} (device "
-        f"{dev['plain']}), SDPA's backward {sdpa_bwd:.6f} (device {sdpa_bwd_dev}; forward "
-        f"{t['sdpa_fwd']:.6f}, forward + backward {t['sdpa_fwd_bwd']:.6f})")
+    done = {route: sum(work[name][1] for name in names)
+            for route, names in BWD_ROUTE_KERNELS.items()}
+    log(f"gqa_flash_bwd train shape: wgmma route {t['whole_wgmma']:.6f} ms/call (device "
+        f"{dev['whole_wgmma']}; {ratio:.4f} of the fma route, limit {BWD_RATIO}), fma route "
+        f"{t['whole']:.6f} (device {dev['whole']}); the function's bound {whole_bound:.6f} by "
+        f"{whole_by} ({work['gqa_flash_bwd'][1] / 1e9:.3f} GFLOP), the wgmma route's seven "
+        f"products {route_bound:.6f} by {route_by} ({done['wgmma'] / 1e9:.3f} GFLOP; the fma "
+        f"route does {done['fma'] / 1e9:.3f}); plain {t['plain']:.6f} (device {dev['plain']}), "
+        f"the rounding plain version {t['plain_lse']:.6f}; SDPA's backward {sdpa_bwd:.6f} "
+        f"(device {sdpa_bwd_dev}; forward {t['sdpa_fwd']:.6f}, forward + backward "
+        f"{t['sdpa_fwd_bwd']:.6f})")
+    if not ratio <= BWD_RATIO:
+        raise AssertionError(f"the wgmma backward takes {t['whole_wgmma']} ms, more than "
+                             f"{BWD_RATIO} of the fma route's {t['whole']} ms")
     entries = []
-    for name in fa.BWD_KERNELS:
-        bound, by = bound_ms(*work[name], BF16_FLOP_PER_S)
-        log(f"{name}: {t[name]:.6f} ms/call (device {dev[name]}), "
-            f"{work[name][1] / t[name] / 1e9:.3f} TFLOP/s, bound {bound:.6f} by {by} "
-            f"({bound / t[name]:.4f} of it)")
-        entries.append(dict(
-            name=f"gqa_flash_{name}", route="cuda", kernel=f"flash_{name}_kernel",
-            source="src/repro_torch/csrc/flash_attention_bwd.cu",
-            replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
-                     "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
-                     "no gradient)",
-            max_abs_err=checks["train"][0], rel_l2=checks["train"][1],
-            max_abs_err_f32=checks["fp32-d32"][0], rel_l2_f32=checks["fp32-d32"][1],
-            ms=t[name], device_ms=dev[name], plain_ms=t["plain"],
-            plain_device_ms=dev["plain"], plain_of="the whole backward",
-            bound_ms=bound, bound_by=by, bound_share=bound / t[name],
-            library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
-            library_of="the whole backward: SDPA forward + backward less forward",
-            whole_ms=t["whole"], whole_device_ms=dev["whole"], whole_bound_ms=whole_bound,
-            whole_gflop=work["gqa_flash_bwd"][1] / 1e9, kernels_gflop=done / 1e9,
-            shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-            ptxas={n: r for n, r in ptx.items() if f"flash_{name}_kernel" in n},
-            turns={key: turns[key] for key in (name, "whole", "plain")}))
+    for route, names in BWD_ROUTE_KERNELS.items():
+        whole = "whole" if route == "fma" else "whole_wgmma"
+        err, rel, rel_rounded = checks["train", route]
+        for name in names:
+            bound, by = bound_ms(*work[name], BF16_FLOP_PER_S)
+            log(f"{name}: {t[name]:.6f} ms/call (device {dev[name]}), "
+                f"{work[name][1] / t[name] / 1e9:.3f} TFLOP/s, bound {bound:.6f} by {by} "
+                f"({bound / t[name]:.4f} of it)")
+            kernel = (f"flash_{name}_kernel" if route == "fma"
+                      else f"flash_bwd_{name[len('bwd_wgmma_'):]}_wgmma_kernel")
+            entries.append(dict(
+                name=f"gqa_flash_{name}", route="cuda", kernel=kernel, bwd_route=route,
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                         "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                         "no gradient)",
+                max_abs_err=err, rel_l2=rel, rel_l2_rounded=rel_rounded,
+                **({"max_abs_err_f32": checks["fp32-d32", "fma"][0],
+                    "rel_l2_f32": checks["fp32-d32", "fma"][1]} if route == "fma" else {}),
+                ms=t[name], device_ms=dev[name],
+                plain_ms=t["plain"] if route == "fma" else t["plain_lse"],
+                plain_device_ms=dev["plain"] if route == "fma" else dev["plain_lse"],
+                plain_of="the whole backward" + ("" if route == "fma" else
+                                                 ", from the LSE, rounding as the kernels"),
+                bound_ms=bound, bound_by=by, bound_share=bound / t[name],
+                library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
+                library_of="the whole backward: SDPA forward + backward less forward",
+                whole_ms=t[whole], whole_device_ms=dev[whole], whole_bound_ms=whole_bound,
+                whole_gflop=work["gqa_flash_bwd"][1] / 1e9, kernels_gflop=done[route] / 1e9,
+                **({"route_bound_ms": route_bound, "wgmma_over_fma": ratio}
+                   if route == "wgmma" else {}),
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                ptxas={n: r for n, r in ptx.items() if kernel in n},
+                turns={key: turns[key] for key in (name, whole, "plain", "plain_lse")}))
     return entries
 
 
@@ -1942,8 +2045,9 @@ def train_model_flops(cfg, b, s):
 def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=False):
     """Loss, gradient norm and each layer's gradient norm of one forward and
     backward (no update) on ``backend``'s attention; ``forward`` and
-    ``backward`` stand in for the flash route's forward (q, k, v, offset)
-    and backward (q, k, v, o, do, offset) in this call.  With ``capture``
+    ``backward`` stand in for the flash route's forward (q, k, v, offset,
+    with_lse) -> (o, lse) and backward (q, k, v, o, do, offset, lse, route)
+    in this call.  With ``capture``
     (the chunked attention), also layers TRAIN_CHECK_LAYERS' attention
     inputs (q, k, v), output and output gradient."""
     from repro_torch.models import common
@@ -2030,17 +2134,21 @@ def train_phase(device="cuda"):
     layer_checks = {}
     for li in TRAIN_CHECK_LAYERS:
         q, k, v, o, do = taken[li]
-        out = fa.launch(q, k, v, 0)        # the step's forward kernel (its route: wgmma)
+        # the step's forward kernel (its route: wgmma) and the LSE it saves
+        out, lse = fa.launch(q, k, v, 0, with_lse=True)
         fwd = dict(plain=rel_l2(out, fa.gqa_flash_plain(q, k, v)), chunked=rel_l2(out, o))
         if not max(fwd.values()) <= ATTN_REL:
             raise AssertionError(f"train layer {li}: the forward kernel differs from the "
                                  f"plain version and the chunked attention by relative L2 "
                                  f"{fwd} (limit {ATTN_REL})")
-        err, rel = bwd_check(q, k, v, o, do, 0, f"train layer {li}", elementwise=False,
-                             rel_limit=TRAIN_LAYER_REL)
-        layer_checks[li] = dict(fwd_rel_l2=fwd, max_abs_err=err, rel_l2=rel,
-                                do_std=float(do.float().std()))
-    del taken, out
+        layer_checks[li] = dict(fwd_rel_l2=fwd, do_std=float(do.float().std()))
+        for route in ("wgmma", "fma"):     # the step's route, and the earlier one beside it
+            err, rel, rel_rounded = bwd_check(q, k, v, o, do, 0, f"train layer {li}",
+                                              elementwise=False, rel_limit=TRAIN_LAYER_REL,
+                                              route=route, lse=lse)
+            layer_checks[li][route] = dict(max_abs_err=err, rel_l2=rel,
+                                           rel_l2_rounded=rel_rounded)
+    del taken, out, lse
     log(f"train: chunked attention forward + backward {chunked_s:.3f} s, loss {loss_c}, "
         f"gradient norm {gnorm_c}; on its layers' q/k/v the forward kernel (relative L2 "
         f"against the plain version and the chunked attention, limit {ATTN_REL}) and, on "
@@ -2053,10 +2161,12 @@ def train_phase(device="cuda"):
     # own activations, so only the backward differs: that pairing is gated.
     from repro_torch.models import common
 
-    def chunked_forward(q, k, v, offset):
-        return common.chunked_attention(q, k, v, offset, cfg.attention_chunk)
+    def chunked_forward(q, k, v, offset, with_lse=False):
+        # the backward kernels read the LSE of this forward's own q and k
+        return (common.chunked_attention(q, k, v, offset, cfg.attention_chunk),
+                fa.gqa_flash_lse_plain(q, k, offset) if with_lse else None)
 
-    def plain_backward(q, k, v, o, do, offset=0):
+    def plain_backward(q, k, v, o, do, offset=0, lse=None, route=None):
         return fa.gqa_flash_bwd_plain(q, k, v, o, do, offset)
 
     probes = {"chunked": (loss_c, gnorm_c, layers_c)}
@@ -2103,7 +2213,7 @@ def train_phase(device="cuda"):
         want = dict.fromkeys(fa.launches, 0)
         if device == "cuda":
             want.update(gqa_flash=2 * L, wgmma=2 * L, gqa_flash_bwd=L,
-                        **{n: L for n in fa.BWD_KERNELS})
+                        **{n: L for n in fa.BWD_WGMMA_KERNELS})
         if launches != want:
             raise AssertionError(f"train step: flash launches {launches}, expected {want}")
         moved = [p for (p, a), (_, b) in zip(leaves(state.params), leaves(s1.params))
@@ -4492,14 +4602,20 @@ def main():
                       path="zamba2-forward")
     # the serving paths launch no backward
     for what, counts in (("serve", serve["launches"]), ("moe serve", moe["launches"])):
-        if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS):
+        if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS
+               + fa.BWD_WGMMA_KERNELS):
             raise AssertionError(f"the {what} path launched the backward: {counts}")
     t = time.perf_counter()
     train = train_phase()
     train["wall_s"] = time.perf_counter() - t
+    # the wgmma kernels run on the train step; the fma kernels on the elastic
+    # path (fp32, D 32), their route there
     for entry in bwd_entries:
         name = entry["name"][len("gqa_flash_"):]
-        entry.update(launches=train["launches"][name], path="train-step",
+        wgmma = entry["bwd_route"] == "wgmma"
+        entry.update(launches=(train if wgmma else train["elastic"])["launches"][name],
+                     path="train-step" if wgmma else "elastic",
+                     train_launches=train["launches"][name],
                      elastic_launches=train["elastic"]["launches"][name])
     kernels[2].update(train_launches=train["launches"]["wgmma"])
     dag = dag_path_phase()

@@ -39,7 +39,10 @@
 //     through the transpose bit), then the stage is released.  The two
 //     consumers take turns to issue their S products (ping-pong on named
 //     barriers), so that one's softmax runs while the other's products hold
-//     the tensor cores.  Blocks take the heaviest query tiles first (grid
+//     the tensor cores.  Given an lse pointer, the epilogue also stores each
+//     row's log-sum-exp, which the backward's wgmma route reads (the serving
+//     path passes none; the output is the same).  Blocks take the heaviest
+//     query tiles first (grid
 //     (Hq, B, Sq tiles), the tile index reversed), so the light causal tiles
 //     fill the tail.  D = 112 (zamba2-7b's shared attention: d_model 3584
 //     over 32 heads) runs the D = 128 instantiation: the tensor maps keep D
@@ -86,6 +89,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 64;            // query rows per block
@@ -118,15 +123,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 bytes global -> shared without passing through registers; when `in`
@@ -515,12 +511,9 @@ namespace hopper {
 
 constexpr int ROWS = 128;          // query rows per block, 64 per consumer warpgroup
 constexpr int KEYS = 128;          // keys per tile
-constexpr int BOX = 64;            // bf16 per 128-byte swizzled row: a box's inner extent
 constexpr int THREADS = 384;       // the producer warpgroup, then two consumers
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
-constexpr uint32_t ROW_BYTES = 128;
 constexpr uint32_t BOX_BYTES = 128 * ROW_BYTES;   // a box of 128 rows (ROWS == KEYS)
-constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;   // 8 rows, one swizzle atom: wgmma's SBO
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
 // every 8 rows): Q, the K ring, the V ring, then the mbarriers q_full,
@@ -536,179 +529,6 @@ struct Layout {
   static constexpr uint32_t BARS = V + STAGES * TILE;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Arrive, and add `bytes` to what must land before the phase completes.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of `bar` with this parity has completed.  Waiting
-// 2^34 cycles (seconds) means a deadlock: trap, so that the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_test(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_test(bar, parity))
-    if (clock64() - start > (1ll << 34)) __trap();
-}
-
-// One box of a 4-D tensor map over (B, S, H, D), coordinates innermost
-// first, into shared memory; its bytes count against `bar`'s transaction.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
-                                         int d0, int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(d0), "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// wgmma's descriptor of a 128-byte-swizzled matrix in shared memory: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// Named barriers 1 and 2 over the 256 consumer threads (0 is __syncthreads):
-// barrier 1 + c is consumer c's turn to issue its S product.
-__device__ __forceinline__ void bar_sync_consumers(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive_consumers(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {    // at most N groups still running
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Registers an in-flight wgmma reads or writes: the empty asm keeps the
-// compiler from moving their other uses, or reusing them, across the
-// instructions that issue and retire it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (64 x 128, fp32) = a (64 x 16) * b (16 x 128): the first step of a
-// product, which reads nothing of d (so d is dead before it).
-__device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(a), "l"(b), "r"(0));
-}
-
-// d (64 x 128, fp32) += a (64 x 16) * b (16 x 128), a and b in shared memory,
-// both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 128, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 128, shared
-// memory, MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 64, shared
-// memory, MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 
 // S = Q K^T (issued, not waited for): D/16 steps of 16 along D, each 32
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
@@ -737,15 +557,6 @@ __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[32],
       wgmma_rs_n64(acc, p + 4 * kk, vd);
   }
   wgmma_commit();
-}
-
-// 2^x in one MUFU instruction, results below 2^-126 flushed to 0 (exp2f
-// adds a range check and two scalings for them; beside the row max's 1 they
-// add nothing).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Mask S (only tiles that cross the diagonal or the end of K), then the
@@ -787,13 +598,16 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l
 // four pairs, (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8), which are
 // elements 8kk + 0..7 of the accumulator of S for key slice kk.  D is the
 // tiles' width, DO <= D the head dim: the output's row length and the
-// columns stored.
+// columns stored.  With `lse` each row's log-sum-exp of its scaled scores,
+// m * scale + ln(l), goes to lse (B, Hq, Sq) in fp32 for the backward;
+// nullptr stores nothing, and the output is the same either way.
 template <int D, int DO = D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                   int sq, int sk, int hq, int group, int offset, float scale_log2) {
+                   float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
+                   float scale_log2) {
   using L = Layout<D>;
   constexpr int S = L::STAGES;
   extern __shared__ unsigned char hopper_smem[];
@@ -858,9 +672,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
-    // The two consumers take turns to issue their S products (ping-pong), so
-    // that one's softmax runs while the other's products hold the tensor
-    // cores.  Each has n_tiles turns; consumer 0 goes first.
+    // The two consumers take turns to issue their S products (ping-pong, on
+    // named barrier 1 + c: consumer c's turn), so that one's softmax runs
+    // while the other's products hold the tensor cores.  Each has n_tiles
+    // turns; consumer 0 goes first.
     float corr[2];
     mbar_wait(q_full, 0);
     if (c == 1) bar_arrive_consumers(1);
@@ -902,40 +717,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int n = 0; n < DO / 8; ++n)    // columns 8n + 2t, +1 < DO
           *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
               __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+        // m is the row's max of the unscaled scores and l its sum of
+        // 2^((s - m) * scale_log2) = e^((s - m) * scale), so the natural
+        // LSE of s * scale is (m * scale_log2 + log2(l)) * ln 2.
+        if (lse != nullptr && t == 0)
+          lse[(static_cast<long long>(b) * hq + h) * sq + orow] =
+              (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f;
       }
     }
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda that the runtime has loaded, so
-// that the library needs no link to it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D = 128).
 template <int D, int DO = D>
-cudaError_t launch(const CUtensorMap (&maps)[3], void* o, int sq, int sk, int hq, int hkv,
-                   int offset, dim3 grid, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
+                   int hkv, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
   static_assert(DO <= D && DO % 16 == 0 && D - DO < BOX, "DO: the head dim in D's last box");
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
   // setmaxnreg only moves registers between the warpgroups: the launch
@@ -950,8 +746,8 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, int sq, int sk, int hq
   if (err != cudaSuccess) return err;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DO));
   flash_wgmma_kernel<D, DO><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, hq, hq / hkv, offset,
-      scale_log2);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, sq, sk, hq, hq / hkv,
+      offset, scale_log2);
   return cudaGetLastError();
 }
 
@@ -995,12 +791,13 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
 
 // bf16 q (b, sq, hq, d), k/v (b, sk, hkv, d), d in {64, 112, 128}, through
 // the Hopper kernel (d = 112 on the d = 128 tiles); o (b, sq, hq, d)
-// contiguous.  `maps` holds, for q, k and v in turn, eleven numbers: the
-// tensor map's dims (d, h, s, b), its byte strides along h, s and b, and its
-// box (64, 1, 128, 1).  The grid is (hq, b, ceil(sq / 128)); `smem` the
-// kernel's dynamic shared memory.
-int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, int b, int sq,
-                    int sk, int hq, int hkv, int d, int causal_offset,
+// contiguous; lse, when not null, (b, hq, sq) float32: each row's
+// log-sum-exp for the backward.  `maps` holds, for q, k and v in turn,
+// eleven numbers: the tensor map's dims (d, h, s, b), its byte strides
+// along h, s and b, and its box (64, 1, 128, 1).  The grid is (hq, b,
+// ceil(sq / 128)); `smem` the kernel's dynamic shared memory.
+int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                    int sq, int sk, int hq, int hkv, int d, int causal_offset,
                     const unsigned long long* maps, int grid_x, int grid_y, int grid_z,
                     long long smem, void* stream) {
   using hopper::ROWS;
@@ -1008,39 +805,23 @@ int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, int b,
       grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
       grid_z > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const hopper::EncodeTiled encode = hopper::encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
-  for (int i = 0; i < 3; ++i) {
-    const unsigned long long* m = maps + 11 * i;
-    const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
-    const cuuint64_t strides[3] = {m[4], m[5], m[6]};
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(m[7]), static_cast<cuuint32_t>(m[8]),
-                               static_cast<cuuint32_t>(m[9]), static_cast<cuuint32_t>(m[10])};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (dims[0] != static_cast<cuuint64_t>(d) || box[0] != hopper::BOX || box[1] != 1 ||
-        box[2] != ROWS || box[3] != 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const CUresult r = encode(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                              const_cast<void*>(ptrs[i]), dims, strides, box, unit,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-  }
+  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, ROWS);
+  if (err != 0) return err;
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return static_cast<int>(hopper::launch<64>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
-                                                 static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, causal_offset,
+                                                 grid, static_cast<size_t>(smem), s));
     case 112:
-      return static_cast<int>(hopper::launch<128, 112>(tm, o, sq, sk, hq, hkv, causal_offset,
-                                                       grid, static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv,
+                                                       causal_offset, grid,
+                                                       static_cast<size_t>(smem), s));
     case 128:
-      return static_cast<int>(hopper::launch<128>(tm, o, sq, sk, hq, hkv, causal_offset, grid,
-                                                  static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, causal_offset,
+                                                  grid, static_cast<size_t>(smem), s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,9 +2,10 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a plain-C shared
 library under ``build/`` at the root of the checkout, once per version of
-the source and flags (the file name carries their hash), and loaded with
-``ctypes``.  The library is written under a temporary name and renamed,
-so concurrent builds agree; a failed build raises.
+the source, the headers of ``csrc/`` and the flags (the file name carries
+their hash), and loaded with ``ctypes``.  The library is written under a
+temporary name and renamed, so concurrent builds agree; a failed build
+raises.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def build_library(name: str) -> tuple[ctypes.CDLL, str]:
     Returns the library and the compiler's report (registers, shared
     memory, spills) when this call compiled, else an empty string."""
     src_path = CSRC / f"{name}.cu"
-    src = src_path.read_bytes()
+    src = src_path.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{name}_{tag}.so"

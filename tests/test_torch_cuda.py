@@ -294,13 +294,19 @@ def cuda_flash():
     return torch.device("cuda")
 
 
-# The backward: both versions compute in fp32 from the same inputs and round
-# once to the inputs' dtype, so bf16 differs by at most an ulp of the result
-# plus fp32 sums taken in another order; fp32 elementwise 1e-4 (dK and dV
-# sum dS Q and P dO over up to ~1000 rows and a group of heads, whose
-# cancellations leave absolute errors ~1e-6 of terms of order 1).
+# The backward: the fma route and the plain version compute in fp32 from the
+# same inputs and round once to the inputs' dtype, so bf16 differs by at most
+# an ulp of the result plus fp32 sums taken in another order; fp32
+# elementwise 1e-4 (dK and dV sum dS Q and P dO over up to ~1000 rows and a
+# group of heads, whose cancellations leave absolute errors ~1e-6 of terms of
+# order 1).  The wgmma route rounds P and dS to bf16 as well: against the
+# fp32 plain version the same limits (bf16's relative 1e-2 is what a bf16 P
+# costs, as in the forward); against the plain version that rounds where it
+# rounds, within BWD_ROUNDED_REL (only roundings that fall the other way
+# differ, by an ulp).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+BWD_ROUNDED_REL = 1e-3
 
 
 @pytest.fixture
@@ -316,9 +322,9 @@ def _bwd_inputs(device, b, sq, sk, hq, hkv, d, seed, dtype):
     return q, k, v, do
 
 
-def _assert_bwd_close(got, want, what):
+def _assert_bwd_close(got, want, what, rel_limit=None):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        tol, rel_tol = BWD_TOL[w.dtype], BWD_REL[w.dtype]
+        tol, rel_tol = BWD_TOL[w.dtype], rel_limit or BWD_REL[w.dtype]
         assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
         g, w = g.float().cpu(), w.float().cpu()
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol,
@@ -331,24 +337,83 @@ def _assert_bwd_close(got, want, what):
         assert rel <= rel_tol, f"{what} {name}: relative L2 {rel}"
 
 
+BWD_CASES = [(1, 0, 2, 1), (17, 37, 4, 2), (64, 0, 8, 4), (130, 0, 4, 2), (130, 200, 8, 4),
+             (70, 3, 2, 2), (300, 0, 16, 2), (257, 129, 4, 4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("d", [32, 64, 112, 128])
 def test_kernel_flash_bwd_matches_plain(cuda_flash_bwd, dtype, d):
-    for sq, extra, hq, group in [(1, 0, 2, 1), (17, 37, 4, 2), (64, 0, 8, 4),
-                                 (130, 0, 4, 2), (130, 200, 8, 4), (70, 3, 2, 2)]:
+    """The fma route at every dtype and head dim (its own route for fp32 and
+    bf16 D 32; the yardstick of the wgmma route elsewhere)."""
+    for sq, extra, hq, group in BWD_CASES[:6]:
         q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sq + extra, hq, hq // group, d,
                                   seed=sq + extra + d, dtype=dtype)
         o = fa.gqa_flash_plain(q, k, v, causal_offset=extra)
         fa.reset_launches()
-        got = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=extra)
+        got = fa.launch_bwd(q, k, v, o, do, causal_offset=extra, route="fma")
         torch.cuda.synchronize()
         assert fa.launches["gqa_flash_bwd"] == 1 and all(
             fa.launches[n] == 1 for n in fa.BWD_KERNELS), fa.launches
         want = fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=extra)
         _assert_bwd_close(got, want, str((sq, extra, hq, group, d, dtype)))
-        again = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=extra)
+        again = fa.launch_bwd(q, k, v, o, do, causal_offset=extra, route="fma")
         assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_kernel_flash_bwd_wgmma_matches_plain(cuda_flash_bwd, d):
+    """The wgmma route (bf16, the LSE from the forward kernel) against the
+    fp32 plain backward and against the plain version that rounds P and dS
+    to bf16 where the kernels do, on offsets, ragged tails, Sq past Sk, keys
+    no row sees and one key; launches one of each kernel; two runs equal."""
+    # (Sq, Sk, offset, Hq, group): the fma cases, then keys no row sees, Sq
+    # past Sk and one key
+    cases = [(sq, sq + extra, extra, hq, group) for sq, extra, hq, group in BWD_CASES] + \
+        [(5, 300, 3, 4, 2), (200, 65, 0, 4, 2), (3, 1, 7, 2, 1)]
+    for sq, sk, off, hq, group in cases:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sk, hq, hq // group, d,
+                                  seed=sq + sk + d, dtype=torch.bfloat16)
+        o, lse = fa.launch(q, k, v, off, with_lse=True)
+        what = str((sq, sk, off, hq, group, d))
+        fa.reset_launches()
+        got = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        torch.cuda.synchronize()
+        assert fa.launches["gqa_flash_bwd"] == 1 and all(
+            fa.launches[n] == 1 for n in fa.BWD_WGMMA_KERNELS) and not any(
+            fa.launches[n] for n in fa.BWD_KERNELS), fa.launches
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off), what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, off,
+                                                          round_bf16=True),
+                          what + " rounded", rel_limit=BWD_ROUNDED_REL)
+        again = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_kernel_flash_lse_leaves_the_output_unchanged(cuda_flash, d):
+    """The Hopper forward with and without its LSE: the output bit for bit,
+    the LSE against ``gqa_flash_lse_plain`` (fp32 sums in another order:
+    rtol = atol = 1e-4); the other routes write none."""
+    for b, sq, sk, hq, hkv, off in [(2, 300, 300, 16, 8, 0), (2, 130, 330, 8, 2, 200),
+                                    (1, 1, 2112, 8, 2, 2111), (2, 2048, 2048, 4, 4, 0)]:
+        q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, d, seed=sq + d)
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        plain_out = fa.gqa_flash(q, k, v, causal_offset=off)
+        torch.cuda.synchronize()
+        assert fa.launches["wgmma"] == 2 and torch.equal(out, plain_out)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="writes the LSE"):
+        fa.launch(q, k, v, kernel="mma_sync", with_lse=True)
+    with pytest.raises(ValueError, match="LSE"):
+        fa.launch_bwd(q, k, v, out, out)     # the wgmma route needs the forward's LSE
 
 
 @pytest.mark.cuda
@@ -365,10 +430,11 @@ def test_kernel_flash_bwd_offsets_and_tails(cuda_flash_bwd):
 
 @pytest.mark.cuda
 def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
-    """The Function launches the forward route and the three backward
-    kernels; its gradients are the kernels' own; a train-shaped call
-    (internvl2-2b's heads, a shorter sequence) holds the limits; under
-    no_grad nothing is saved and no backward exists."""
+    """The Function launches the forward route with its LSE and the wgmma
+    route's two backward kernels; its gradients are the kernels' own on the
+    forward's LSE; a train-shaped call (internvl2-2b's heads, a shorter
+    sequence) holds the limits; under no_grad nothing is saved and no
+    backward exists."""
     q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, 300, 300, 16, 8, 128, seed=1,
                               dtype=torch.bfloat16)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -377,10 +443,13 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     o.backward(do.transpose(1, 2).contiguous().transpose(1, 2))   # a strided dO
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 1, "bwd_stats": 1, "bwd_dkdv": 1, "bwd_dq": 1}
-    direct = fa.launch_bwd(q, k, v, o.detach(), do)
+                           "gqa_flash_bwd": 1, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
+                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1}
+    out, lse = fa.launch(q, k, v, with_lse=True)
+    assert torch.equal(out, o.detach())
+    direct = fa.launch_bwd(q, k, v, out, do, lse=lse)
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, direct))
-    _assert_bwd_close(direct, fa.gqa_flash_bwd_plain(q, k, v, o.detach(), do), "train heads")
+    _assert_bwd_close(direct, fa.gqa_flash_bwd_plain(q, k, v, out, do), "train heads")
     with torch.no_grad():
         assert fa.gqa_flash(*leaves).grad_fn is None
     with pytest.raises(TypeError):
@@ -417,7 +486,8 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
     torch.cuda.synchronize()
     L = cfg.num_layers
     assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
-                           "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L}
+                           "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L,
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
     np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
     old = dict(leaves(cpu0.params))
@@ -502,7 +572,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     out = fa.gqa_flash(q, k, v, causal_offset=extra)
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 

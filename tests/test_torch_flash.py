@@ -214,7 +214,8 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     fa.reset_launches()
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
     assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 
@@ -225,7 +226,9 @@ def test_tiling_constants_match_the_cuda_source():
     import re
     from pathlib import Path
 
-    src = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    csrc = Path(fa.__file__).resolve().parents[1] / "csrc"
+    # the kernel's source, then the Hopper building blocks it includes
+    src = (csrc / "flash_attention.cu").read_text() + (csrc / "hopper.cuh").read_text()
     hopper = src[src.index("namespace hopper {"):]
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", hopper)}
     assert const["ROWS"] == fa.WGMMA_ROWS and const["KEYS"] == fa.WGMMA_KEYS
