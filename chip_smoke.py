@@ -141,21 +141,25 @@ Phases, any failure exits non-zero:
    kernel, carbonflex-scale's fill through ``capacity_fill``), its JSON
    byte for byte the same sweep on the CPU's vector engine with the numpy
    pass, launches gated against provisioning calls, device passes and fill
-   steps; the fill kernel against its plain version (random inputs at B=1
-   and 64 and n_pad 256, 2048, 6144, edge cases, the mpc-scale tile's own
-   recorded chunk) and timed at B=64 beside its floor and bound; one traced
-   mpc-scale chunk for the card's busy share;
+   steps, every fill launch of a path on the compact route; both fill routes
+   against the plain version (random inputs at B=1 and 64 and n_pad 256,
+   2048, 6144, edge cases, the mpc-scale tile's own recorded chunk), then at
+   B=64 the compact kernel against the chunked one in turns (device time at
+   most ``WALK_RATIO`` of it, no ptxas spill) beside its floor and bound;
+   one traced mpc-scale chunk for the card's busy share;
 8. geo-distributed scheduling: ``geo-full``, the paper's 150-server cluster
    split over south-australia and california, seeds 7, 8, 9 x geo-static,
    geo-greedy and geo-flex through ``Sweep`` on the card's scan engine (one
    tile per policy, each slot step's placement, migration and capacity walk
    one launch of ``geo_walk``), its JSON byte for byte the same sweep on the
-   CPU's vector engine (launches == geo steps, nothing delegated); a
-   three-region world whose jobs take k_min in {1, 2, 4} under geo-greedy
-   and geo-flex, equal to the CPU's vector engine in every compared field;
-   the kernel against ``geo_resolve_plain`` on a recorded geo-flex step and
-   16 random inputs, exactly, timed beside its floor, plain version and
-   bound;
+   CPU's vector engine (launches == geo steps, all on the compact route,
+   nothing delegated); a three-region world whose jobs take k_min in {1, 2,
+   4} under geo-greedy and geo-flex, equal to the CPU's vector engine in
+   every compared field; both routes against ``geo_resolve_plain`` on the
+   recorded geo-flex steps, 16 random inputs and 3 edge cases, exactly; on
+   the busiest recorded step the compact kernel against the chunked one in
+   turns (device time at most ``WALK_RATIO`` of it, no ptxas spill) beside
+   its floor, plain version and bound;
 9. resilience: ``chaos-full``, the 150-server cluster in south-australia
    (3 learning weeks, ``MPCConfig(scale_rho=0.3)``) under a carbon-feed
    outage (``CarbonDataOutage(rate=0.04, mean_duration=6, seed=1)``), seeds
@@ -168,11 +172,11 @@ Phases, any failure exits non-zero:
    tables from the degraded view), the 30 faulted cells delegated on their
    fault process and the 2 outage-only carbonflex cells on their policy;
    ``knn_query_kernel`` launches == provisioning calls, fill launches ==
-   fill steps, greedy launches == device passes, every row with degraded
-   slots; ``geo-chaos``, ``geo-full``'s world under the same outage x no
+   fill steps (all compact), greedy launches == device passes, every row
+   with degraded slots; ``geo-chaos``, ``geo-full``'s world under the same outage x no
    faults and correlated failure domains (18 cells), byte for byte the CPU's
-   vector engine, ``geo_walk`` launches == geo steps of the 9 outage cells,
-   the 9 faulted ones delegated; the DAG path under the outage on the scan
+   vector engine, ``geo_walk`` launches == geo steps of the 9 outage cells
+   (all compact), the 9 faulted ones delegated; the DAG path under the outage on the scan
    engine, equal to the CPU's vector engine in every weekly result, slot
    and resilience record, one release launch per DAG step; the golden
    serving grid through the card's ``Sweep``, byte for byte the fixture;
@@ -193,7 +197,8 @@ Phases, any failure exits non-zero:
    recorder-off run of the earlier phases, the attributions equal field for
    field with ``check()`` passing, and each kernel's launches equal to its
    count (knn == provisioning calls, greedy == device passes, release ==
-   DAG steps, ``geo_walk`` == geo steps, fill == fill steps); printed: each
+   DAG steps, ``geo_walk`` == geo steps, fill == fill steps; the geo walk's
+   and the fill's all compact); printed: each
    path's phase table, the event counts by kind, and the recording overhead
    on ``geo-full`` and the DAG path (the wall with the recorder over the
    wall without, in turns: off, on, on, off, one round).
@@ -203,7 +208,8 @@ Phases, any failure exits non-zero:
    on the card's scan engine against the port's vector engine on the CPU:
    gap dicts float for float and the printed lines equal; ``knn_topk``
    launches == the carbonflex row's provisioning calls, ``capacity_fill``
-   launches == fill steps (> 0 on the scale grid only), 2 rows delegated.
+   launches == fill steps (> 0 on the scale grid only, all compact), 2 rows
+   delegated.
    Last, the main, oracle, sweep, geo, resilience, telemetry, MoE serving
    and tuner paths' wall times side by side.
 
@@ -3384,6 +3390,45 @@ def sweep_full(device, engine, backend, record=None):
 
 
 
+# A redesign pays on its path: its device time in turns over the route it
+# replaced, at most this (the geo walk on the busiest recorded geo-flex
+# step, the fill at B=64 on the mpc-scale tile's busiest step).
+WALK_RATIO = 0.5
+
+
+def redesign_timing(what, kernel, previous, floor, plain, report, names, plain_iters):
+    """A redesigned kernel beside the route it replaced: events ms of each,
+    of the floor and of the plain version; profiler device time of both
+    routes in turns (new, old, old, new, twice), gated at WALK_RATIO; the
+    floor's and the plain version's device time; ptxas for both kernels,
+    gated at no spill in the new one."""
+    tm = dict(ms=time_ms(kernel, 2000), previous_ms=time_ms(previous, 2000),
+              plain_ms=time_ms(plain, plain_iters, warmup=2), floor_ms=time_ms(floor, 2000))
+    turns = in_turns(dict(device_ms=kernel, previous_device_ms=previous))
+    tm.update({k: float(np.mean(v)) for k, v in turns.items()})
+    tm.update(turns=turns, ratio=tm["device_ms"] / tm["previous_device_ms"],
+              floor_device_ms=device_ms(floor))
+    ptx = {name: ptxas_report(report, name) for name in names}
+    spilled = {n: r for n, r in ptx[names[0]].items()
+               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    if report and not ptx[names[0]]:
+        raise AssertionError(f"{what}: ptxas reported nothing for {names[0]}")
+    if spilled:
+        raise AssertionError(f"{what}: {names[0]} spills: {spilled}")
+    if not tm["ratio"] <= WALK_RATIO:
+        raise AssertionError(f"{what}: the compact kernel takes {tm['device_ms']} ms of device "
+                             f"time, more than {WALK_RATIO} of the chunked kernel's "
+                             f"{tm['previous_device_ms']} ({turns})")
+    return tm, ptx
+
+
+def all_compact(what, launches, total):
+    """Every launch a path made went to the compact route, none to the
+    chunked one."""
+    if not (launches["compact"] == launches[total] > 0 and launches["chunked"] == 0):
+        raise AssertionError(f"{what}: launches by route {launches}")
+
+
 def fill_work(cand, kreq):
     """Bytes the fill must move for these inputs: cand and forced (a byte
     per row each), the requests of the candidate rows, m_cap, take (a byte
@@ -3394,12 +3439,13 @@ def fill_work(cand, kreq):
 
 
 def fill_kernel_phase(record, report):
-    """The fill kernel against its plain version with ``torch.equal``: random
-    inputs at B=1 and 64 and n_pad 256, 2048, 6144, the edge cases, and the
-    mpc-scale tile's own inputs recorded from one chunk of ``sweep-full``;
-    then its time at B=64 and the sweep's n_pad (the tile's cells repeated
-    to 64), events and profiler device time, beside the floor (an empty
-    kernel on the same grid), the plain version and the bound."""
+    """Both fill routes against the plain version with ``torch.equal``:
+    random inputs at B=1 and 64 and n_pad 256, 2048, 6144, the edge cases,
+    and the mpc-scale tile's own inputs recorded from one chunk of
+    ``sweep-full``; then at B=64 and the sweep's n_pad (the busiest step's
+    cells repeated to 64) the compact kernel against the chunked one in
+    turns (``redesign_timing``), beside the floor (an empty kernel on the
+    compact grid), the plain version and the bound."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(19)
     checked = 0
@@ -3407,12 +3453,14 @@ def fill_kernel_phase(record, report):
     def check(args, what):
         nonlocal checked
         want = fill.capacity_fill_plain(*(x.cpu() for x in args))
-        got = fill.capacity_fill(*args)
-        torch.cuda.synchronize()
-        if got.dtype != torch.bool or not torch.equal(got.cpu(), want):
-            raise AssertionError(f"capacity_fill {what}: the kernel and the plain version "
-                                 f"differ in {int((got.cpu() != want).sum())} rows")
-        checked += 1
+        for route in fill.ROUTES:
+            got = fill.capacity_fill(*args, route=route)
+            torch.cuda.synchronize()
+            if got.dtype != torch.bool or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"capacity_fill {what} ({route}): the kernel and the "
+                                     f"plain version differ in {int((got.cpu() != want).sum())}"
+                                     " rows")
+            checked += 1
         return want
 
     def random_args(b, n, p_cand=None, p_forced=None):
@@ -3446,47 +3494,43 @@ def fill_kernel_phase(record, report):
             raise AssertionError("capacity_fill: not every row taken where all fit")
         if case in ("capacity 0", "nothing fits") and take.any():
             raise AssertionError(f"capacity_fill {case}: a row was taken")
-    log(f"capacity_fill: equal to the plain version on 18 random inputs (B=1/64, n_pad "
-        f"256/2048/6144) and 5 edge cases")
+    log("capacity_fill: both routes equal to the plain version on 18 random inputs (B=1/64, "
+        "n_pad 256/2048/6144) and 5 edge cases")
     if not record:
         raise AssertionError("capacity_fill: no mpc-scale step was recorded")
     for i, args in enumerate(record):
         check(args, f"recorded step {i}")
     b_tile, n_pad = record[0][0].shape
     cands = [int(r[0].sum()) for r in record]
-    log(f"capacity_fill: equal to the plain version on the mpc-scale tile's {len(record)} "
-        f"recorded steps (B={b_tile}, n_pad={n_pad}; {min(cands)}-{max(cands)} "
+    log(f"capacity_fill: both routes equal to the plain version on the mpc-scale tile's "
+        f"{len(record)} recorded steps (B={b_tile}, n_pad={n_pad}; {min(cands)}-{max(cands)} "
         f"candidates a step)")
 
     # B=64 at the sweep's n_pad: the busiest recorded step's cells repeated.
     step = max(range(len(record)), key=lambda i: cands[i])
     rows = [i % b_tile for i in range(64)]
     args = [x[rows].contiguous() for x in record[step]]
+    check(args, "B=64")
+    smem = fill.plan(64, n_pad)["smem_bytes"]
     stream = torch.cuda.current_stream().cuda_stream
-
-    def kernel():
-        return fill.capacity_fill(*args)
-
-    def plain():
-        return fill.capacity_fill_plain(*args)
-
-    def floor():
-        return fill._lib.capacity_fill_floor(64, n_pad, stream)
-
-    if not torch.equal(kernel(), plain()):
-        raise AssertionError("capacity_fill at B=64: the kernel and the plain version differ")
-    tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 200, warmup=5),
-              floor_ms=time_ms(floor, 2000), device_ms=device_ms(kernel),
-              floor_device_ms=device_ms(floor), plain_device_ms=device_ms(plain, 50))
+    tm, ptx = redesign_timing(
+        f"capacity_fill B=64 n_pad={n_pad}", lambda: fill.capacity_fill(*args),
+        lambda: fill.capacity_fill(*args, route="chunked"),
+        lambda: fill._lib.capacity_fill_floor(0, 64, smem, stream),
+        lambda: fill.capacity_fill_plain(*args), report,
+        ("capacity_fill_compact_kernel", "capacity_fill_kernel"), 200)
+    tm["plain_device_ms"] = device_ms(lambda: fill.capacity_fill_plain(*args), 50)
     nbytes, ops = fill_work(args[0], args[2])
     b, by = bound_ms(nbytes, ops)
-    ptx = ptxas_report(report, "capacity_fill_kernel")
-    log(f"capacity_fill B=64 n_pad={n_pad} ({int(args[0].sum())} candidates): "
-        f"{tm['ms']:.6f} ms/call (plain {tm['plain_ms']:.6f}; the floor, an empty kernel "
-        f"on the same grid, {tm['floor_ms']:.6f}); device time {tm['device_ms']} ms/call "
-        f"(floor {tm['floor_device_ms']}, plain {tm['plain_device_ms']}); bound "
-        f"{b:.9f} by {by}: {nbytes} bytes; no one PyTorch call computes it; ptxas {ptx}")
+    log(f"capacity_fill B=64 n_pad={n_pad} ({int(args[0].sum())} candidates): compact "
+        f"{tm['ms']:.6f} ms/call, chunked {tm['previous_ms']:.6f} (plain {tm['plain_ms']:.6f}; "
+        f"the floor, an empty kernel on the same grid, {tm['floor_ms']:.6f}); device time in "
+        f"turns compact {tm['device_ms']:.6f}, chunked {tm['previous_device_ms']:.6f}: ratio "
+        f"{tm['ratio']:.4f} (gate {WALK_RATIO}; {tm['turns']}); floor "
+        f"{tm['floor_device_ms']}, plain {tm['plain_device_ms']}; bound {b:.9f} by {by}: "
+        f"{nbytes} bytes; no one PyTorch call computes it; ptxas {ptx}")
     return dict(name="capacity_fill", route="cuda", source="src/repro_torch/csrc/fill.cu",
+                kernel="capacity_fill_compact_kernel", previous_kernel="capacity_fill_kernel",
                 replaces="src/repro/core/scan_engine.py:469 (the variable-k fill, a "
                          "lax.scan over rows; no Pallas kernel)",
                 max_abs_err=0.0, checked=checked, shape=f"B=64 n_pad={n_pad} int64",
@@ -3515,10 +3559,11 @@ def sweep_phase(report):
             if engine == "scan" and name == "golden_sweep_dag" and not (
                     gating.launches["dep_release"] == stats["dag_steps"] > 0):
                 raise AssertionError(f"{name}: {gating.launches} for {stats}")
-            if engine == "scan" and name == "golden_sweep_mpc" and not (
-                    stats["delegated"] == 2
-                    and fill.launches["capacity_fill"] == stats["fill_steps"] > 0):
-                raise AssertionError(f"{name}: {fill.launches} for {stats}")
+            if engine == "scan" and name == "golden_sweep_mpc":
+                if not (stats["delegated"] == 2
+                        and fill.launches["capacity_fill"] == stats["fill_steps"] > 0):
+                    raise AssertionError(f"{name}: {fill.launches} for {stats}")
+                all_compact(name, fill.launches, "capacity_fill")
             goldens[f"{name}/{engine}"] = dict(
                 wall_s=wall, steps=stats["steps"], delegated=stats["delegated"],
                 fill_launches=fill.launches["capacity_fill"],
@@ -3555,6 +3600,7 @@ def sweep_phase(report):
                              f"{counts['oracle']}")
     if not (counts["fill"]["capacity_fill"] == stats["fill_steps"] > 0):
         raise AssertionError(f"sweep-full: {counts['fill']} fill launches for {stats}")
+    all_compact("sweep-full", counts["fill"], "capacity_fill")
     n_scen = len(REGIONS) * len(SWEEP_SEEDS)
     if stats["delegated"] != 2 * n_scen:
         raise AssertionError(f"sweep-full: {stats['delegated']} cells delegated, not the "
@@ -3578,7 +3624,8 @@ def sweep_phase(report):
         f"{counts['fill']['capacity_fill']} (== fill steps); {stats}")
 
     fill_entry = fill_kernel_phase(record, report)
-    fill_entry.update(launches=counts["fill"]["capacity_fill"], path="sweep-full")
+    fill_entry.update(launches=counts["fill"]["capacity_fill"], path="sweep-full",
+                      launches_by_route={r: counts["fill"][r] for r in fill.ROUTES})
 
     # One traced chunk of the mpc-scale tile: its cells alone, no overrun.
     from torch.profiler import ProfilerActivity, profile
@@ -3742,34 +3789,51 @@ def geo_walk_work(kind, cand, forced, state, consts, tables):
 
 
 def geo_kernel_phase(record, report):
-    """The geo walk against ``geo_resolve_plain`` with ``torch.equal`` on
-    every output: 16 random inputs (R 2-10, uniform and mixed k, three
-    kinds) and the geo-flex tile's recorded steps; then its time on the
-    busiest recorded step, events and profiler device time, beside the
-    floor (an empty kernel on the same grid), the plain version and the
-    bound."""
+    """Both geo walk routes against ``geo_resolve_plain`` with ``torch.equal``
+    on every output: 16 random inputs (R 2-16, uniform and mixed k, three
+    kinds), the edge cases (nothing fits, all forced, one row) and the
+    geo-flex tile's recorded steps; then on the busiest recorded step the
+    compact kernel against the chunked one in turns (``redesign_timing``),
+    beside the floor (an empty kernel on the compact grid), the plain
+    version and the bound."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(23)
+    checked = 0
 
     def check(kind, args, what):
+        nonlocal checked
         cpu = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict) else a.cpu()
                for a in args]
         want = geo_walk.geo_resolve_plain(kind, *cpu)
-        got = geo_walk.geo_resolve(kind, *args)
-        torch.cuda.synchronize()
-        for name, a, w in zip(GEO_OUTS, got, want):
-            if a.dtype != w.dtype or not torch.equal(a.cpu(), w):
-                raise AssertionError(f"geo_walk {what}: {name} differs from the plain "
-                                     f"version in {int((a.cpu() != w).sum())} rows")
+        for route in geo_walk.ROUTES:
+            got = geo_walk.geo_resolve(kind, *args, route=route)
+            torch.cuda.synchronize()
+            for name, a, w in zip(GEO_OUTS, got, want):
+                if a.dtype != w.dtype or not torch.equal(a.cpu(), w):
+                    raise AssertionError(f"geo_walk {what} ({route}): {name} differs from the "
+                                         f"plain version in {int((a.cpu() != w).sum())} rows")
+            checked += 1
         return want
 
     for i in range(16):
         kind = geo_walk.KINDS[i % 3]
-        regions = (2, 3, 5, 10)[i % 4]
+        regions = (2, 3, 10, 16)[i % 4]
         check(kind, geo_inputs(gen, kind, 4, 512, regions, dev, mixed=i % 2 == 1),
               f"random {kind} R={regions}")
-    log("geo_walk: equal to the plain version on 16 random inputs (R 2/3/5/10, uniform "
-        "and mixed k, the three kinds, B=4 n=512)")
+    for i, case in enumerate(("nothing fits", "all forced", "one row")):
+        kind = geo_walk.KINDS[i]
+        cand, forced, state, consts, tables = geo_inputs(
+            gen, kind, 3, 1 if case == "one row" else 256, 4, dev, mixed=True)
+        if case == "nothing fits":
+            consts["kmin"].fill_(4)
+            consts["caps"].fill_(1)
+        elif case == "all forced":
+            forced.fill_(True)
+        want = check(kind, (cand, forced, state, consts, tables), case)
+        if case == "nothing fits" and want[0].any():
+            raise AssertionError("geo_walk: a row ran where nothing fits")
+    log("geo_walk: both routes equal to the plain version on 16 random inputs (R 2/3/10/16, "
+        "uniform and mixed k, the three kinds, B=4 n=512) and 3 edge cases")
     if not record:
         raise AssertionError("geo_walk: no geo-flex step was recorded")
     busiest, walked = 0, []
@@ -3781,39 +3845,35 @@ def geo_kernel_phase(record, report):
     args = record[busiest]
     b, n = args[0].shape
     regions = args[3]["caps"].shape[1]
-    log(f"geo_walk: equal to the plain version on the geo-flex tile's {len(record)} "
-        f"recorded steps (B={b}, n_pad={n}); candidate rows walked a cell per step "
-        f"{min(walked)}-{max(walked)}")
+    log(f"geo_walk: both routes equal to the plain version on the geo-flex tile's "
+        f"{len(record)} recorded steps (B={b}, n_pad={n}); candidate rows walked a cell per "
+        f"step {min(walked)}-{max(walked)}")
+    smem = geo_walk.plan(b, n, regions)["smem_bytes"]
     stream = torch.cuda.current_stream().cuda_stream
-
-    def kernel():
-        return geo_walk.geo_resolve("geo-flex", *args)
-
-    def plain():
-        return geo_walk.geo_resolve_plain(
-            "geo-flex", *[{k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
-                          else a.cpu() for a in args])
-
-    def floor():
-        return geo_walk._lib.geo_walk_floor(b, n, regions, stream)
-
-    tm = dict(ms=time_ms(kernel, 2000), plain_ms=time_ms(plain, 20, warmup=2),
-              floor_ms=time_ms(floor, 2000), device_ms=device_ms(kernel),
-              floor_device_ms=device_ms(floor))
+    cpu_args = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict) else a.cpu()
+                for a in args]
+    tm, ptx = redesign_timing(
+        f"geo_walk B={b} n_pad={n} R={regions}", lambda: geo_walk.geo_resolve("geo-flex", *args),
+        lambda: geo_walk.geo_resolve("geo-flex", *args, route="chunked"),
+        lambda: geo_walk._lib.geo_walk_floor(0, b, smem, stream),
+        lambda: geo_walk.geo_resolve_plain("geo-flex", *cpu_args), report,
+        ("geo_walk_compact_kernel", "geo_walk_kernel"), 20)
     nbytes, ops_ = geo_walk_work("geo-flex", *args)
     bound, by = bound_ms(nbytes, ops_)
-    ptx = ptxas_report(report, "geo_walk_kernel")
     log(f"geo_walk B={b} n_pad={n} R={regions} (the busiest recorded step: "
-        f"{walked[busiest]} candidate rows walked in its busiest cell): {tm['ms']:.6f} "
-        f"ms/call (plain {tm['plain_ms']:.6f}; the floor, an empty kernel on the same "
-        f"grid, {tm['floor_ms']:.6f}); device time {tm['device_ms']} ms/call (floor "
-        f"{tm['floor_device_ms']}); bound {bound:.9f} by {by}: {nbytes} bytes; no one "
-        f"PyTorch call computes it; ptxas {ptx}")
+        f"{walked[busiest]} candidate rows walked in its busiest cell): compact "
+        f"{tm['ms']:.6f} ms/call, chunked {tm['previous_ms']:.6f} (plain {tm['plain_ms']:.6f}; "
+        f"the floor, an empty kernel on the same grid, {tm['floor_ms']:.6f}); device time in "
+        f"turns compact {tm['device_ms']:.6f}, chunked {tm['previous_device_ms']:.6f}: ratio "
+        f"{tm['ratio']:.4f} (gate {WALK_RATIO}; {tm['turns']}); floor {tm['floor_device_ms']}; "
+        f"compact {1e6 * tm['device_ms'] / walked[busiest]:.3f} ns a walked candidate; bound "
+        f"{bound:.9f} by {by}: {nbytes} bytes; no one PyTorch call computes it; ptxas {ptx}")
     return dict(name="geo_walk", route="cuda", source="src/repro_torch/csrc/geo_walk.cu",
+                kernel="geo_walk_compact_kernel", previous_kernel="geo_walk_kernel",
                 replaces="src/repro/core/scan_engine.py:751 (_geo_resolve_uniform / "
                          "_geo_resolve_walk :891, a lax.while_loop fixpoint and a "
                          "lax.scan over rows; no Pallas kernel)",
-                max_abs_err=0.0, checked=16 + len(record),
+                max_abs_err=0.0, checked=checked,
                 shape=f"B={b} n_pad={n} R={regions} float64/int64",
                 bound_ms=bound, bound_by=by, bytes=nbytes, library_ms=None,
                 library="none: no one PyTorch call computes the walk", ptxas=ptx,
@@ -3827,6 +3887,8 @@ def geo_phase(report):
     reset_counts()
     card, tc = geo_full("cuda", "scan", record)
     launches = geo_walk.launches["geo_walk"]
+    by_route = {r: geo_walk.launches[r] for r in geo_walk.ROUTES}
+    all_compact("geo-full", geo_walk.launches, "geo_walk")
     stats = dict(scan_engine.stats)
     cpu, tcpu = geo_full("cpu", "vector")
     log(f"geo-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s, CPU vector "
@@ -3856,7 +3918,7 @@ def geo_phase(report):
         log(f"  slot loop {kind:10s}: {k['cells']} cells (n_pad {k['n_pad']}), "
             f"{k['steps']} batched steps, {k['seconds']:.3f} s: {k['ms_per_step']:.6f} ms "
             f"per batched step; migrations {migrations[kind]}")
-    log(f"geo-full launches: geo_walk {launches} (== geo steps); {stats}")
+    log(f"geo-full launches: geo_walk {launches} (== geo steps; by route {by_route}); {stats}")
 
     mat = Scenario(regions=GEO_MIXED_REGIONS, capacity=150, learn_weeks=1,
                    seed=7).materialize()
@@ -3870,6 +3932,7 @@ def geo_phase(report):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         n_launch, steps = geo_walk.launches["geo_walk"], scan_engine.stats["geo_steps"]
+        all_compact(f"mixed k_min {pol().name}", geo_walk.launches, "geo_walk")
         want = simulate(jobs, mat.mci, mat.geo, pol(), t0=mat.t0, horizon=WEEK)
         diff = geo_fields_differ(got, want)
         if diff or not (n_launch == steps >= 1):
@@ -3882,7 +3945,7 @@ def geo_phase(report):
         f"engine in every compared field: {mixed}")
 
     entry = geo_kernel_phase(record, report)
-    entry.update(launches=launches, path="geo-scan")
+    entry.update(launches=launches, path="geo-scan", launches_by_route=by_route)
     return entry, dict(cells=len(card.rows()), card=tc, cpu=tcpu, by_kind=by_kind,
                        launches=launches, stats=stats, migrations=migrations,
                        mixed_k=mixed, summary=card.summary(), **geo_split())
@@ -4103,6 +4166,7 @@ def chaos_phase():
                              f"{counts['provision_calls']} provisioning calls")
     if not (counts["fill"]["capacity_fill"] == stats["fill_steps"] > 0):
         raise AssertionError(f"chaos-full: {counts['fill']} fill launches for {stats}")
+    all_compact("chaos-full", counts["fill"], "capacity_fill")
     if not (counts["greedy"]["greedy_pass"] == counts["oracle"]["device_passes"] > 0):
         raise AssertionError(f"chaos-full: {counts['greedy']} greedy launches for "
                              f"{counts['oracle']}")
@@ -4123,6 +4187,7 @@ def chaos_phase():
     reset_counts()
     gcard, tgc = geo_chaos("cuda", "scan")
     glaunch, gstats = geo_walk.launches["geo_walk"], dict(scan_engine.stats)
+    all_compact("geo-chaos", geo_walk.launches, "geo_walk")
     gcpu, tgcpu = geo_chaos("cpu", "vector")
     log(f"geo-chaos ({len(gcard.rows())} cells): card {tgc['wall_s']:.3f} s (execution "
         f"{tgc['execute_s']:.3f}), CPU vector engine {tgcpu['wall_s']:.3f} s (execution "
@@ -4285,6 +4350,9 @@ def recorded_path(what, card_fn, cpu_fn):
                   fill=fill.launches["capacity_fill"], release=gating.launches["dep_release"],
                   geo=geo_walk.launches["geo_walk"], stats=dict(scan_engine.stats),
                   passes=oracle_mod.stats["device_passes"], provision_calls=calls[0])
+    for mod, total in ((fill, "capacity_fill"), (geo_walk, "geo_walk")):
+        if mod.launches[total]:
+            all_compact(f"{what} ({total})", mod.launches, total)
     cpu_tel = recording()
     t = time.perf_counter()
     cpu = cpu_fn(cpu_tel)
@@ -4513,7 +4581,7 @@ def tune_phase():
         reset_counts()
         gaps, lines, flex, wall = tuned("cuda", "scan", policy, scale, seed)
         counts = dict(knn=knn.launches["knn_topk"], fill=fill.launches["capacity_fill"],
-                      stats=dict(scan_engine.stats))
+                      routes=dict(fill.launches), stats=dict(scan_engine.stats))
         cpu_gaps, cpu_lines, cpu_flex, cpu_wall = tuned("cpu", "vector", policy, scale, seed)
         stats = counts["stats"]
         name = f"{policy}/seed={seed}"
@@ -4534,6 +4602,8 @@ def tune_phase():
         if counts["fill"] != stats["fill_steps"] or (stats["fill_steps"] > 0) != scale:
             raise AssertionError(f"tune {name}: {counts['fill']} fill launches for "
                                  f"{stats['fill_steps']} fill steps")
+        if scale:
+            all_compact(f"tune {name}", counts["routes"], "capacity_fill")
         if stats["delegated"] != 2:
             raise AssertionError(f"tune {name}: {stats['delegated']} cells delegated, not "
                                  "the carbonflex and oracle rows")

@@ -17,10 +17,25 @@ builds (none of them is kept in the library):
    cluster barriers; with the distances and the lanes' lists; with each
    warp's selection (no merge); the whole kernel.
 
+3. ``geo_resolve`` on the busiest recorded geo-flex step of ``geo-full``
+   (B=3, n_pad 1792, R=2), each route of ``csrc/geo_walk.cu`` cut by a STOP
+   parameter: an empty kernel on the same grid; ``"chunked"`` (the first
+   kernel) with phase 1 alone (state copied, migration rule settled, chunk
+   masks), with phase 2's chunk loop loading each lane's row but taking no
+   turns, whole; ``"compact"`` with its staging alone (phase 1, the block
+   scan and the compacted index list), with staging and the write-out but
+   no walk, whole;
+4. ``capacity_fill`` at B=64 on the mpc-scale tile's busiest recorded step
+   of ``sweep-full`` (n_pad 1792), each route of ``csrc/fill.cu`` cut the
+   same way: an empty kernel, the staging pass alone, the whole kernel.
+
 The variants that compute the output are first held equal to the shipped
 kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
-power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).
+power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
+splits to run only those (``score``, ``knn``, ``geo``, ``fill``):
+
+    python3 scripts/kernel_splits.py geo fill
 """
 import ctypes
 import os
@@ -35,7 +50,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
-from repro_torch.kernels import knn, score  # noqa: E402
+from repro_torch.kernels import fill, geo_walk, knn, score  # noqa: E402
 from repro_torch.kernels._build import NVCC_FLAGS, _nvcc  # noqa: E402
 
 SCORE_VARIANTS = r"""
@@ -275,10 +290,230 @@ def knn_split():
     report(f"knn_topk_batch Q={nq} N={n} D={d} k={k} on {pl}", cs.in_turns(runs))
 
 
+# Each route's kernel of csrc/geo_walk.cu and csrc/fill.cu copied under a
+# STOP parameter: (first line of the kernel, the text that follows it, the
+# cuts, each applied exactly once, the variant's name and its stops).
+GEO_SPLITS = {
+    "compact": dict(
+        start="__global__ void __launch_bounds__(COMPACT_THREADS) geo_walk_compact_kernel(",
+        end="// The floor of a call",
+        name="geo_compact_split", stops=("staging alone (the pass, the scan, the list)",
+                                         "+ the write-out, no walk", "whole kernel"),
+        cuts=[
+            ("__global__ void __launch_bounds__(COMPACT_THREADS) geo_walk_compact_kernel(",
+             "template <int STOP>\n"
+             "__global__ void __launch_bounds__(COMPACT_THREADS) geo_compact_split("),
+            ("  __syncthreads();\n\n  if (warp == 0) {\n    // Walk:",
+             "  __syncthreads();\n  if (STOP == 1) return;\n\n"
+             "  if (warp == 0 && STOP == 3) {\n    // Walk:"),
+        ]),
+    "chunked": dict(
+        start="__global__ void __launch_bounds__(THREADS) geo_walk_kernel(const GeoArgs a) {",
+        end="// A geo-flex row's preference",
+        name="geo_chunked_split", stops=("phase 1 alone", "+ the chunk loop, no turns",
+                                         "whole kernel"),
+        cuts=[
+            ("__global__ void __launch_bounds__(THREADS) geo_walk_kernel(const GeoArgs a) {",
+             "template <int STOP>\n"
+             "__global__ void __launch_bounds__(THREADS) geo_chunked_split(const GeoArgs a) {"),
+            ("  __syncthreads();\n  if (warp != 0) return;\n",
+             "  __syncthreads();\n  if (warp != 0 || STOP == 1) return;\n"),
+            ("    for (unsigned int turn = live; turn; turn &= turn - 1) {",
+             "    if (STOP == 2) {   // keep the lane's loads, take no turn\n"
+             "      if (mine && k + polr + engr + (long long)pref + strt + placed + forced +\n"
+             "          search == -987654321LL) a.take[row] = 2;\n"
+             "      continue;\n    }\n"
+             "    for (unsigned int turn = live; turn; turn &= turn - 1) {"),
+        ]),
+}
+
+FILL_SPLITS = {
+    "compact": dict(
+        start="__global__ void __launch_bounds__(COMPACT_THREADS)\ncapacity_fill_compact_kernel(",
+        end="// The floor of a call",
+        name="fill_compact_split", stops=("staging alone (the pass, the scan, the list)",
+                                          "whole kernel"),
+        cuts=[
+            ("__global__ void __launch_bounds__(COMPACT_THREADS)\ncapacity_fill_compact_kernel(",
+             "template <int STOP>\n__global__ void __launch_bounds__(COMPACT_THREADS)\n"
+             "fill_compact_split("),
+            ("  __syncthreads();\n  if (warp != 0) return;\n",
+             "  __syncthreads();\n  if (warp != 0 || STOP == 1) return;\n"),
+        ]),
+    "chunked": dict(
+        start="__global__ void __launch_bounds__(THREADS)\ncapacity_fill_kernel(",
+        end="// Warp 0: exclusive offsets",
+        name="fill_chunked_split", stops=("staging pass alone", "whole kernel"),
+        cuts=[
+            ("__global__ void __launch_bounds__(THREADS)\ncapacity_fill_kernel(",
+             "template <int STOP>\n__global__ void __launch_bounds__(THREADS)\n"
+             "fill_chunked_split("),
+            ("  __syncthreads();\n  if (warp != 0) return;\n",
+             "  __syncthreads();\n"
+             "  if (STOP == 1) {   // keep the masks and the floor\n"
+             "    if (threadIdx.x == 0 && masks[0] + masks[chunks] == 0x7fffffffu &&\n"
+             "        warp_floor[0] == -3) out[0] = 2;\n"
+             "    return;\n  }\n"
+             "  if (warp != 0) return;\n"),
+        ]),
+}
+
+GEO_ENTRY = r"""
+extern "C" int geo_split(int route, int stop, const GeoArgs* a, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)a->cells;
+  if (route == 0) {
+    const size_t smem = (size_t)smem_bytes(COMPACT, a->n);
+    cudaError_t err = opt_in(geo_compact_split<1>, smem);
+    if (err == cudaSuccess) err = opt_in(geo_compact_split<2>, smem);
+    if (err == cudaSuccess) err = opt_in(geo_compact_split<3>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (stop == 1) geo_compact_split<1><<<blocks, COMPACT_THREADS, smem, s>>>(*a);
+    else if (stop == 2) geo_compact_split<2><<<blocks, COMPACT_THREADS, smem, s>>>(*a);
+    else geo_compact_split<3><<<blocks, COMPACT_THREADS, smem, s>>>(*a);
+  } else {
+    const size_t smem = (size_t)smem_bytes(CHUNKED, a->n);
+    if (stop == 1) geo_chunked_split<1><<<blocks, THREADS, smem, s>>>(*a);
+    else if (stop == 2) geo_chunked_split<2><<<blocks, THREADS, smem, s>>>(*a);
+    else geo_chunked_split<3><<<blocks, THREADS, smem, s>>>(*a);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+FILL_ENTRY = r"""
+extern "C" int fill_split(int route, int stop, const unsigned char* cand,
+                          const unsigned char* forced, const long long* kreq,
+                          const long long* m_cap, long long rows, int n,
+                          unsigned char* take, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)rows;
+  if (route == 0) {
+    const size_t smem = (size_t)smem_bytes(COMPACT, n);
+    cudaError_t err = opt_in(fill_compact_split<1>, smem);
+    if (err == cudaSuccess) err = opt_in(fill_compact_split<2>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (stop == 1) fill_compact_split<1><<<blocks, COMPACT_THREADS, smem, s>>>(
+        cand, forced, kreq, m_cap, n, take);
+    else fill_compact_split<2><<<blocks, COMPACT_THREADS, smem, s>>>(
+        cand, forced, kreq, m_cap, n, take);
+  } else {
+    const size_t smem = (size_t)smem_bytes(CHUNKED, n);
+    if (stop == 1) fill_chunked_split<1><<<blocks, THREADS, smem, s>>>(
+        cand, forced, kreq, m_cap, n, take);
+    else fill_chunked_split<2><<<blocks, THREADS, smem, s>>>(
+        cand, forced, kreq, m_cap, n, take);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def split_source(cu: str, splits: dict, entry: str) -> str:
+    """``csrc/<cu>`` with each route's kernel copied under its cuts (each
+    must apply exactly once) into the anonymous namespace, and ``entry``."""
+    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", cu)).read()
+    copies = ""
+    for route, sp in splits.items():
+        start = src.index(sp["start"])
+        kernel = src[start:src.index(sp["end"], start)]
+        for old, new in sp["cuts"]:
+            if kernel.count(old) != 1:
+                raise RuntimeError(f"{cu}'s {route} kernel no longer reads {old!r}: "
+                                   "update the cuts")
+            kernel = kernel.replace(old, new)
+        copies += kernel
+    close = src.rindex("}  // namespace")
+    return src[:close] + copies + src[close:] + entry
+
+
+def split_runs(splits, variant, floor, wrapper, equal):
+    """The runs to time in turns: the floor, then per route each stop (the
+    last, the whole kernel, first held equal to the wrapper's output on
+    that route) and the wrapper."""
+    runs = {"empty kernel, same grid": floor}
+    for ri, (route, sp) in enumerate(splits.items()):
+        equal(route, variant(ri, len(sp["stops"])))
+        for stop, what in enumerate(sp["stops"], 1):
+            runs[f"{route}: {what}"] = variant(ri, stop)
+        runs[f"{route}: the wrapper"] = wrapper(route)
+    return runs
+
+
+def geo_split():
+    record = []
+    cs.geo_full("cuda", "scan", record)
+    walked = [int((a[0] & ~geo_walk.geo_resolve("geo-flex", *a, route="chunked")[6])
+                  .sum(1).max())
+              for a in record]
+    step = max(range(len(record)), key=walked.__getitem__)
+    args = record[step]
+    b, n = args[0].shape
+    regions = args[3]["caps"].shape[1]
+    lib = build("geo_splits", split_source("geo_walk.cu", GEO_SPLITS, GEO_ENTRY))
+    lib.geo_split.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(geo_walk._Args),
+                              ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    smem = geo_walk.plan(b, n, regions)["smem_bytes"]
+    outs = [o.clone() for o in geo_walk.geo_resolve("geo-flex", *args, route="chunked")]
+    c_args = geo_walk.pack_args("geo-flex", args[0], args[1],
+                                {**args[2], **args[3], **args[4]}, outs)
+
+    def variant(route, stop):
+        return lambda: lib.geo_split(route, stop, ctypes.byref(c_args), stream)
+
+    def equal(route, run):
+        want = [o.clone() for o in geo_walk.geo_resolve("geo-flex", *args, route=route)]
+        run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(outs, want)):
+            raise AssertionError(f"geo {route}: the whole cut differs from the route")
+
+    runs = split_runs(
+        GEO_SPLITS, variant,
+        lambda: geo_walk._lib.geo_walk_floor(0, b, smem, stream),
+        lambda route: lambda: geo_walk.geo_resolve("geo-flex", *args, route=route), equal)
+    report(f"geo_resolve geo-flex B={b} n_pad={n} R={regions}, the busiest recorded step "
+           f"of geo-full ({walked[step]} candidates walked in its busiest cell)",
+           cs.in_turns(runs))
+
+
+def fill_split():
+    record = []
+    cs.sweep_full("cuda", "scan", "device", record)
+    cands = [int(r[0].sum()) for r in record]
+    step = max(range(len(record)), key=cands.__getitem__)
+    b_tile, n = record[step][0].shape
+    args = [x[[i % b_tile for i in range(64)]].contiguous() for x in record[step]]
+    lib = build("fill_splits", split_source("fill.cu", FILL_SPLITS, FILL_ENTRY))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fill_split.argtypes = [i, i, p, p, p, p, ctypes.c_longlong, i, p, p]
+    stream = torch.cuda.current_stream().cuda_stream
+    take = torch.empty((64, n), dtype=torch.bool, device=args[0].device)
+    smem = fill.plan(64, n)["smem_bytes"]
+
+    def variant(route, stop):
+        return lambda: lib.fill_split(route, stop, *(x.data_ptr() for x in args), 64, n,
+                                      take.data_ptr(), stream)
+
+    def equal(route, run):
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(take, fill.capacity_fill(*args, route=route)):
+            raise AssertionError(f"fill {route}: the whole cut differs from the route")
+
+    runs = split_runs(FILL_SPLITS, variant,
+                      lambda: fill._lib.capacity_fill_floor(0, 64, smem, stream),
+                      lambda route: lambda: fill.capacity_fill(*args, route=route), equal)
+    report(f"capacity_fill B=64 n_pad={n}, the mpc-scale tile's busiest recorded step "
+           f"({b_tile} cells repeated; {int(args[0].sum())} candidates)", cs.in_turns(runs))
+
+
 def main():
     log(f"card: {cs.card_line()}")
-    score_split()
-    knn_split()
+    splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split)
+    for name in sys.argv[1:] or splits:
+        splits[name]()
 
 
 if __name__ == "__main__":

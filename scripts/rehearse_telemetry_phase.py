@@ -37,20 +37,23 @@ for name in ("repro_torch.experiment.driver", "repro_torch.experiment.sweep",
 from repro_torch.kernels import fill, gating, geo_walk, knn, oracle_greedy  # noqa: E402
 
 
-def counting(mod, fn_name, key):
+def counting(mod, fn_name, *keys):
+    """Each call of ``mod.fn_name`` counts as a launch under ``keys`` (the
+    wrapper's count and, where it has routes, its default route's)."""
     fn = getattr(mod, fn_name)
 
     def wrapper(*args, **kw):
-        mod.launches[key] += 1
+        for key in keys:
+            mod.launches[key] += 1
         return fn(*args, **kw)
 
     setattr(mod, fn_name, wrapper)
 
 
 counting(knn, "knn_lookup", "knn_topk")
-counting(fill, "capacity_fill", "capacity_fill")
+counting(fill, "capacity_fill", "capacity_fill", "compact")
 counting(gating, "dep_release_csr", "dep_release")
-counting(geo_walk, "geo_resolve", "geo_walk")
+counting(geo_walk, "geo_resolve", "geo_walk", "compact")
 counting(oracle_greedy, "greedy_pass", "greedy_pass")
 
 import chip_smoke as cs  # noqa: E402

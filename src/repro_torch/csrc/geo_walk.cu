@@ -22,13 +22,34 @@
 // around a serial scan; here one warp walks instead, for uniform and mixed
 // k_min alike.
 //
-// Design.  One block per cell.  Phase 1, all threads, one row at a time:
-// copy the row's state to the outputs, and for a started candidate compute
-// the migration rule, which reads only the row (its region is fixed once it
-// has started): `can`, `stay`, `move` per region, `best`, `do_mig`.  A
-// migrating row is finished there.  Each 32-row chunk records the ballot of
-// its forced and of its unforced candidates that did not migrate.  Phase 2,
-// warp 0 walks those chunks, forced pass first: each lane loads its row and
+// Design: two routes, one block per cell each (kernels/geo_walk.py::plan).
+//
+// "compact" (geo_walk_compact_kernel, the default).  Stage, all threads,
+// one row a thread at a time: copy the row's state to the outputs and
+// settle the migration rule, which reads only the row (its region is fixed
+// once it has started): `can`, `stay`, `move` per region, `best`,
+// `do_mig`; a migrating row is finished there.  Each row still to be walked
+// leaves a record in shared memory at its row: its k_min, a word (its fixed
+// region, or for a geo-flex row to be placed each region's rank in its
+// preference order, 4 bits a region, from a stable sort of the means column
+// by its owner thread) and its flags.  Each 32-row chunk's forced and
+// unforced ballots go to shared memory; warp 0 scans their counts into
+// offsets, and every warp writes each walked row's index at its place in
+// the walk order (forced by row, then unforced by row).  Walk, warp 0:
+// lane r holds region r's capacity left, its eligibility this slot and
+// (geo-greedy) its rank in the cell's CI order, in registers.  Per
+// candidate of the list (its record read a candidate ahead, the list two
+// ahead), each lane tests `k <= left`; a row to be placed goes to the lane
+// with room of the lowest rank (one __reduce_min_sync), any other row to
+// the lane of its fixed region; that lane decides `run` (room, and geo-flex
+// eligibility or forced), subtracts k and stores the result (run, newly
+// placed, the region) into the row's flags.  No ballot, shuffle or
+// shared-memory round trip stays in the chain.  After the walk every warp
+// writes its rows' take, placement and regions.
+//
+// "chunked" (geo_walk_kernel, the first design).  Phase 1 as above,
+// without records; each chunk records its two ballots.  Phase 2, warp 0
+// visits every chunk, forced pass first: each lane loads its row and
 // (geo-flex) sorts its own preference order in registers, then the lanes
 // take turns in row order to decide placement and fit against `used` in
 // shared memory and write the row's results.
@@ -52,8 +73,11 @@
 // bytes a row (flags, remaining, slack, regions, counters and the row
 // constants) and writes ~35, and the slot's tables (R regions x lookahead
 // means, one block per migration length): tens of KB a call.  The walk is
-// serial within a cell, a few dependent shared-memory reads per candidate,
-// so its time is latency and the launch.
+// serial within a cell, so its time is the latency of one candidate's
+// chain times the candidates, and the launch: the chunked kernel's chain
+// is ~10 dependent shared-memory reads and a lane's turn (186 ns a
+// candidate on an H100), the compact kernel's one warp reduction and a few
+// integer operations.
 //
 // Plain C interface (loaded with ctypes); each entry point returns the
 // cudaError_t of its launch, 0 on success.  Nothing here allocates or
@@ -65,11 +89,26 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;           // the chunked kernel's block
 constexpr int WARPS = THREADS / 32;
+constexpr int COMPACT_THREADS = 1024;  // the compact kernel's block
+constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
+// The compact kernel's shared memory a row (request, region or order word,
+// list entry, flags) and a chunk (two ballots, two offsets): plan's
+// ROW_BYTES and CHUNK_BYTES.
+constexpr int ROW_BYTES = 20;
+constexpr int CHUNK_BYTES = 16;
+constexpr int SMEM_LIMIT = 48 * 1024;   // above it a launch opts in
+// A compact record's flags: a row to be placed; eligible whatever the slot
+// (not geo-flex, or forced); eng_region follows the region when it runs
+// (not started, not geo-static).  The walk adds: it runs; it was placed now;
+// the region it was placed in (bits 8-11).
+constexpr unsigned int F_SEARCH = 1, F_ELIG = 2, F_ENG = 4, F_RUN = 8, F_NEWLY = 16;
+constexpr unsigned int NO_RANK = 16;   // a region the walk cannot place the row in
 constexpr int MAX_REGIONS = 16;
 constexpr unsigned int FULL = 0xffffffffu;
 constexpr int STATIC = 0, GREEDY = 1, FLEX = 2;
+constexpr int COMPACT = 0, CHUNKED = 1;   // kernels/geo_walk.py::ROUTES
 
 }  // namespace
 
@@ -305,37 +344,258 @@ __global__ void __launch_bounds__(THREADS) geo_walk_kernel(const GeoArgs a) {
   }
 }
 
+// A geo-flex row's preference: the regions sorted stably by the means
+// column of its estimated run (the order the reference's stable sort
+// gives), returned as each region's rank in that order, 4 bits a region
+// (region r's rank in bits 4r..4r+3).
+__device__ unsigned long long flex_ranks(const GeoArgs& a, long long cell, long long row) {
+  const int R = a.regions, H = a.lookahead;
+  const double h = fmin((double)H, fmax(1.0, ceil(a.rem[row])));
+  const long long h1 = (long long)h - 1;
+  const int col = (int)(h1 < 0 ? 0 : (h1 > H - 1 ? H - 1 : h1));
+  const double* m = a.means + cell * R * H + col;
+  unsigned long long order = 0;   // the order itself, first preferred lowest
+  for (int q = 0; q < R; ++q) {   // insertion sort on the packed order
+    const double mq = m[q * H];
+    int p = q;
+    while (p > 0 && m[((order >> (4 * (p - 1))) & 15u) * H] > mq) --p;
+    const unsigned long long low = order & ((1ull << (4 * p)) - 1);
+    const unsigned long long high = p < 15 ? (order >> (4 * p)) << (4 * (p + 1)) : 0;
+    order = low | high | ((unsigned long long)q << (4 * p));
+  }
+  unsigned long long ranks = 0;
+  for (int q = 0; q < R; ++q) ranks |= (unsigned long long)q << (4 * ((order >> (4 * q)) & 15u));
+  return ranks;
+}
+
+// Warp 0: exclusive offsets of the `count` chunk ballots' set bits, in
+// order (each lane sums a segment, one warp scan), and their total.
+__device__ void scan_ballots(const unsigned int* masks, int count, unsigned int* offs,
+                             int* total, int lane) {
+  const int per = (count + 31) >> 5;
+  const int lo = min(lane * per, count), hi = min(lo + per, count);
+  int sum = 0;
+  for (int j = lo; j < hi; ++j) sum += __popc(masks[j]);
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += t;
+  }
+  int run = incl - sum;
+  for (int j = lo; j < hi; ++j) {
+    offs[j] = run;
+    run += __popc(masks[j]);
+  }
+  if (lane == 31) *total = incl;
+}
+
+// Dynamic shared memory: k[n], word[n] (8 bytes each), masks[2 * chunks],
+// offs[2 * chunks] (4), list[n], flags[n] (2); ROW_BYTES * n + CHUNK_BYTES
+// * chunks bytes.
+__global__ void __launch_bounds__(COMPACT_THREADS) geo_walk_compact_kernel(const GeoArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_ci[MAX_REGIONS];
+  __shared__ int s_total;
+  const long long cell = blockIdx.x;
+  const int n = a.n, R = a.regions;
+  const int chunks = (n + 31) >> 5;
+  long long* s_k = reinterpret_cast<long long*>(smem);
+  unsigned long long* s_word = reinterpret_cast<unsigned long long*>(s_k + n);
+  unsigned int* masks = reinterpret_cast<unsigned int*>(s_word + n);
+  unsigned int* offs = masks + 2 * chunks;
+  unsigned short* s_list = reinterpret_cast<unsigned short*>(offs + 2 * chunks);
+  unsigned short* s_flags = s_list + n;
+  const long long base = cell * n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if ((int)threadIdx.x < R) s_ci[threadIdx.x] = a.ci_now ? a.ci_now[cell * R + threadIdx.x] : 0.0;
+  __syncthreads();
+
+  // Stage: copy the state, settle the migrating rows, record the others.
+  for (int ch = warp; ch < chunks; ch += COMPACT_WARPS) {
+    const int i = (ch << 5) + lane;
+    const long long row = base + i;
+    bool walk = false, is_forced = false;
+    if (i < n) {
+      const bool c = a.cand[row] != 0;
+      const bool strt = a.started[row] != 0;
+      const bool placed = a.placed[row] != 0;
+      const long long polr = a.pol_region[row], engr = a.eng_region[row];
+      int best = 0;
+      const bool mig = c && strt && a.kind != STATIC &&
+                       migrates(a, cell, row, (int)(a.kind == GREEDY && placed ? polr : engr),
+                                s_ci, &best);
+      is_forced = a.forced[row] != 0;
+      walk = c && !mig;
+      a.mig_now[row] = mig;
+      a.mig_left_out[row] = mig ? a.mig_slots[row] : a.mig_left[row];
+      a.moves_out[row] = a.moves[row] + (mig ? 1 : 0);
+      // greedy: a started row the policy has not placed adopts its region
+      const bool adopt = walk && a.kind == GREEDY && strt && !placed;
+      a.placed_out[row] = placed || mig || adopt;
+      a.pol_out[row] = mig ? best : (adopt ? engr : polr);
+      a.eng_out[row] = mig ? best : engr;
+      if (walk) {
+        const bool search = a.kind != STATIC && !strt && !placed;
+        s_k[i] = a.kmin[row];
+        s_word[i] = search ? (a.kind == FLEX ? flex_ranks(a, cell, row) : 0ull)
+                           : (unsigned long long)(a.kind == STATIC || (a.kind == FLEX && strt) ||
+                                                          adopt ? engr : polr);
+        s_flags[i] = (unsigned short)((search ? F_SEARCH : 0u) |
+                                      (a.kind != FLEX || is_forced ? F_ELIG : 0u) |
+                                      (a.kind != STATIC && !strt ? F_ENG : 0u));
+      } else {
+        a.take[row] = 0;
+      }
+    }
+    const unsigned int m_forced = __ballot_sync(FULL, walk && is_forced);
+    const unsigned int m_free = __ballot_sync(FULL, walk && !is_forced);
+    if (lane == 0) {
+      masks[ch] = m_forced;
+      masks[chunks + ch] = m_free;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) scan_ballots(masks, 2 * chunks, offs, &s_total, lane);
+  __syncthreads();
+  // The walk list: each walked row's index at its place in the walk order.
+  for (int j = warp; j < 2 * chunks; j += COMPACT_WARPS) {
+    const unsigned int m = masks[j];
+    if ((m >> lane) & 1u)
+      s_list[offs[j] + __popc(m & ((1u << lane) - 1u))] =
+          (unsigned short)(((j < chunks ? j : j - chunks) << 5) + lane);
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // Walk: lane r holds region r's capacity left, its eligibility this
+    // slot and (geo-greedy) its rank in the cell's CI order.
+    const bool in_r = lane < R;
+    long long left = in_r ? a.caps[cell * R + lane] : 0;
+    const bool elig = a.kind != FLEX || (in_r && s_ci[lane] <= a.thresh_eps[cell * R + lane]);
+    unsigned int greedy_rank = NO_RANK;
+    if (a.kind == GREEDY) {
+      const long long ord = in_r ? a.clean_order[cell * R + lane] : -1;
+      for (int q = R - 1; q >= 0; --q)   // the first place region `lane` holds
+        if (__shfl_sync(FULL, ord, q) == lane) greedy_rank = q;
+    }
+    const int total = s_total;
+    // The list read two ahead, its records one ahead of the candidate.
+    int row = total > 0 ? s_list[0] : 0;
+    int row_next = total > 1 ? s_list[1] : 0;
+    long long k = s_k[row];
+    unsigned long long w = s_word[row];
+    unsigned int fl = s_flags[row];
+    // Branch-free, so that the next candidates' loads and ranks fill the
+    // chain's latency: a row to be placed goes to the lane with room of the
+    // lowest rank, any other row to its region's lane if that has room.
+#pragma unroll 4
+    for (int i = 0; i < total; ++i) {
+      const int row_after = i + 2 < total ? s_list[i + 2] : 0;
+      const long long k_next = s_k[row_next];
+      const unsigned long long w_next = s_word[row_next];
+      const unsigned int fl_next = s_flags[row_next];
+      const bool search = fl & F_SEARCH;
+      const unsigned int rank =
+          a.kind == GREEDY ? greedy_rank : (unsigned int)((w >> (4 * (lane & 15))) & 15u);
+      const bool may_run = elig || (fl & F_ELIG);
+      const bool fits = in_r && k <= left;
+      const unsigned int key = search && fits ? rank : NO_RANK;
+      const unsigned int least = __reduce_min_sync(FULL, key);   // every lane
+      const bool mine = search ? key < NO_RANK && key == least
+                               : fits && (long long)lane == (long long)w;
+      const bool run = mine && may_run;
+      if (mine)
+        s_flags[row] = (unsigned short)(fl | (search ? F_NEWLY | ((unsigned int)lane << 8) : 0u) |
+                                        (run ? F_RUN : 0u));
+      if (run) left -= k;
+      row = row_next;
+      row_next = row_after;
+      k = k_next;
+      w = w_next;
+      fl = fl_next;
+    }
+  }
+  __syncthreads();
+
+  // Write-out: the walked rows' take, and what the walk placed or ran.
+  for (int ch = warp; ch < chunks; ch += COMPACT_WARPS) {
+    const int i = (ch << 5) + lane;
+    if (((masks[ch] | masks[chunks + ch]) >> lane) & 1u) {
+      const long long row = base + i;
+      const unsigned int fl = s_flags[i];
+      const int r = (fl >> 8) & 15u;
+      a.take[row] = (fl & F_RUN) != 0;
+      if (fl & F_NEWLY) {
+        a.placed_out[row] = 1;
+        a.pol_out[row] = r;
+      }
+      if ((fl & F_RUN) && (fl & F_ENG))
+        a.eng_out[row] = (fl & F_SEARCH) ? (long long)r : (long long)s_word[i];
+    }
+  }
+}
+
 // The floor of a call: an empty kernel on the same grid and shared memory.
 __global__ void __launch_bounds__(THREADS) geo_walk_floor_kernel() {}
+__global__ void __launch_bounds__(COMPACT_THREADS) geo_walk_compact_floor_kernel() {}
 
-int launch_config(long long cells, int n, int regions, unsigned int* blocks,
-                  size_t* smem) {
-  if (cells <= 0 || n <= 0) return 0;
-  if (regions < 1 || regions > MAX_REGIONS) return -1;
-  *blocks = (unsigned int)cells;
-  *smem = 2 * (size_t)((n + 31) / 32) * sizeof(unsigned int);
-  return 1;
+// Dynamic shared memory of a route for n rows (kernels/geo_walk.py::plan):
+// the compact kernel's records, the chunked kernel's two ballot masks a
+// chunk; -1 for an unknown route.
+long long smem_bytes(int route, int n) {
+  const long long chunks = (n + 31) / 32;
+  if (route == COMPACT) return (long long)ROW_BYTES * n + CHUNK_BYTES * chunks;
+  if (route == CHUNKED) return 2 * chunks * (long long)sizeof(unsigned int);
+  return -1;
+}
+
+// Above 48 KB a kernel's dynamic shared memory needs the opt-in.
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem) {
+  if (smem <= SMEM_LIMIT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-int geo_walk(const GeoArgs* args, void* stream) {
-  unsigned int blocks;
-  size_t smem;
-  const int ok = launch_config(args->cells, args->n, args->regions, &blocks, &smem);
-  if (ok <= 0) return ok < 0 ? (int)cudaErrorInvalidValue : 0;
-  geo_walk_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(*args);
+long long geo_walk_smem(int route, int n) { return smem_bytes(route, n); }
+
+// One launch of route's kernel, one block per cell, with `smem` bytes of
+// dynamic shared memory as kernels/geo_walk.py::plan sizes it.
+int geo_walk(int route, const GeoArgs* args, size_t smem, void* stream) {
+  if (args->cells <= 0 || args->n <= 0) return 0;
+  const long long need = smem_bytes(route, args->n);
+  if (args->regions < 1 || args->regions > MAX_REGIONS || need < 0 || (long long)smem < need)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)args->cells;
+  if (route == COMPACT) {
+    const cudaError_t err = opt_in(geo_walk_compact_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    geo_walk_compact_kernel<<<blocks, COMPACT_THREADS, smem, s>>>(*args);
+  } else {
+    geo_walk_kernel<<<blocks, THREADS, smem, s>>>(*args);
+  }
   return (int)cudaGetLastError();
 }
 
-int geo_walk_floor(long long cells, int n, int regions, void* stream) {
-  unsigned int blocks;
-  size_t smem;
-  const int ok = launch_config(cells, n, regions, &blocks, &smem);
-  if (ok <= 0) return ok < 0 ? (int)cudaErrorInvalidValue : 0;
-  geo_walk_floor_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>();
+// An empty kernel launched as route's kernel is: the floor of a call.
+int geo_walk_floor(int route, long long cells, size_t smem, void* stream) {
+  if (cells <= 0) return 0;
+  if (smem_bytes(route, 1) < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (route == COMPACT) {
+    const cudaError_t err = opt_in(geo_walk_compact_floor_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    geo_walk_compact_floor_kernel<<<(unsigned int)cells, COMPACT_THREADS, smem, s>>>();
+  } else {
+    geo_walk_floor_kernel<<<(unsigned int)cells, THREADS, smem, s>>>();
+  }
   return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,8 @@ count depends on the data; it is the TPU's way around a serial scan and has
 no counterpart here: on the card one warp walks, whether ``k_min`` is
 uniform or not.
 
-``geo_resolve(kind, cand, forced, state, consts, tables)`` takes ``kind``
-(``"geo-static"``, ``"geo-greedy"`` or ``"geo-flex"``), (B, n) bool
+``geo_resolve(kind, cand, forced, state, consts, tables, route=None)`` takes
+``kind`` (``"geo-static"``, ``"geo-greedy"`` or ``"geo-flex"``), (B, n) bool
 ``cand`` and ``forced``, and three dicts of tensors:
 
 - ``state`` — the carry of the geo program, (B, n): ``remaining``
@@ -36,13 +36,31 @@ uniform or not.
 
 It returns ``(take, placed, pol_region, eng_region, mig_left, moves,
 mig_now)``, (B, n) each, new tensors.  On CPU tensors it runs
-``geo_resolve_plain``; on CUDA tensors it launches the kernel of
-``csrc/geo_walk.cu`` (one block per cell, ``plan``) or raises.  Each launch
-adds one to ``launches["geo_walk"]``.  The float64 products and sums of the
-migration rule are single IEEE operations on both sides (the kernel writes
-them with ``__dmul_rn``/``__dadd_rn``), so the two agree exactly.
+``geo_resolve_plain``; on CUDA tensors it launches a kernel of
+``csrc/geo_walk.cu`` (one block per cell, ``plan``) or raises:
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
+- ``"compact"`` (the default): ``geo_walk_compact_kernel``.  All threads
+  settle the migration rule and write each row still to be walked as a
+  record in shared memory (its ``k_min``, its fixed region or, for a
+  geo-flex row to be placed, each region's rank in its preference order,
+  4 bits a region; its flags); a scan of the chunk ballots lists those
+  rows in walk order; warp 0 then walks the list with each region's
+  capacity left (and geo-greedy's rank in the CI order) in the registers
+  of the lane of that index: a row to be placed goes to the lane with room
+  of the lowest rank (one warp min), any other row to its region's lane,
+  and the block writes the results out after the walk;
+- ``"chunked"``: ``geo_walk_kernel``, the first design (warp 0 visits
+  every 32-row chunk, its lanes taking turns against ``used`` in shared
+  memory), kept as the yardstick of the same call.
+
+Each launch adds one to ``launches["geo_walk"]`` and to its route's count.
+The float64 products and sums of the migration rule are single IEEE
+operations on both sides (the kernels write them with
+``__dmul_rn``/``__dadd_rn``), so the two agree exactly.  No input is
+narrowed: requests and regions keep their int64 values in shared memory,
+and only row indices (16 bits) are, which ``plan`` bounds by ``n``.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` at the root of the checkout and loaded through ``ctypes``; a
 failed build raises.
 """
@@ -55,17 +73,28 @@ import torch
 
 from ._build import build_library
 
-# The kernel's constants (csrc/geo_walk.cu): threads a block, the rows of a
-# chunk (one warp's ballot), the most regions its shared tables hold, and
-# the shared memory a block may use without opting in.
+# The kernels' constants (csrc/geo_walk.cu): threads a block (chunked,
+# compact), the rows of a chunk (one warp's ballot), the most regions a
+# kernel holds (one lane or one 4-bit index each), the shared memory a
+# block may use without opting in, and the most dynamic shared memory it
+# takes (an H100's 227 KB a block less 1 KB for the static tables).
 THREADS = 256
+COMPACT_THREADS = 1024
 CHUNK = 32
 MAX_REGIONS = 16
 SMEM_LIMIT = 48 * 1024
+SMEM_MAX = 231_424
 KINDS = ("geo-static", "geo-greedy", "geo-flex")
+ROUTES = ("compact", "chunked")
+# The compact kernel's shared memory a row: its request and its region or
+# ranks word (8 bytes each), its place in the walk list and its flags (2
+# bytes each); and a chunk: two ballots and their two offsets (4 bytes
+# each).
+ROW_BYTES = 8 + 8 + 2 + 2
+CHUNK_BYTES = 4 * 4
 
-#: Kernel launches since the last ``reset_launches()``.
-launches = {"geo_walk": 0}
+#: Kernel launches since the last ``reset_launches()``: in all and by route.
+launches = {"geo_walk": 0, "compact": 0, "chunked": 0}
 
 _lib: ctypes.CDLL | None = None
 _stream = None                  # device index -> the current stream's handle
@@ -87,14 +116,17 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def plan(cells: int, n: int, regions: int) -> dict:
-    """The launch for ``cells`` cells of ``n`` rows over ``regions``
-    regions: one block of THREADS per cell (block ``b`` walks cell ``b``);
-    ``chunks`` chunks of CHUNK rows, whose two ballot masks (forced and
-    unforced candidates left to walk) take ``smem_bytes`` of dynamic shared
-    memory, beside the static per-region tables (used, capacity, CI,
-    threshold, CI order) of MAX_REGIONS entries.  Warp ``w`` copies and
-    settles chunks ``w, w + THREADS / 32, ...``; warp 0 walks them."""
+def plan(cells: int, n: int, regions: int, route: str = "compact") -> dict:
+    """The launch of ``route`` for ``cells`` cells of ``n`` rows over
+    ``regions`` regions: one block of ``threads`` (THREADS chunked,
+    COMPACT_THREADS compact) per cell (block ``b`` walks cell ``b``);
+    ``chunks`` chunks of CHUNK rows; warp ``w`` settles chunks ``w, w +
+    threads / 32, ...`` and warp 0 walks.  ``smem_bytes`` of
+    dynamic shared memory: the chunked kernel's two ballot masks a chunk;
+    the compact kernel's records (ROW_BYTES a row) and the masks and their
+    offsets (CHUNK_BYTES a chunk), with ``opt_in`` above SMEM_LIMIT."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown geo route {route!r}; use one of {ROUTES}")
     if cells < 0 or n < 0:
         raise ValueError(f"no launch for {cells} cells of {n} rows")
     if not 1 <= regions <= MAX_REGIONS:
@@ -102,11 +134,19 @@ def plan(cells: int, n: int, regions: int) -> dict:
     if cells >= 2 ** 31:
         raise ValueError(f"{cells} cells exceed the grid")
     chunks = -(-n // CHUNK)
-    smem = 2 * 4 * chunks
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{n} rows need {smem} bytes of chunk masks, more than "
-                         f"{SMEM_LIMIT}")
-    return dict(blocks=cells, threads=THREADS, chunks=chunks, smem_bytes=smem)
+    if route == "chunked":
+        smem = 2 * 4 * chunks
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{n} rows need {smem} bytes of chunk masks, more than "
+                             f"{SMEM_LIMIT}")
+    else:
+        smem = ROW_BYTES * n + CHUNK_BYTES * chunks
+        if smem > SMEM_MAX:
+            raise ValueError(f"{n} rows need {smem} bytes of records, more than the "
+                             f"{SMEM_MAX} a block holds")
+    return dict(route=route, blocks=cells,
+                threads=THREADS if route == "chunked" else COMPACT_THREADS, chunks=chunks,
+                smem_bytes=smem, opt_in=smem > SMEM_LIMIT)
 
 
 def geo_resolve_plain(kind: str, cand: torch.Tensor, forced: torch.Tensor,
@@ -231,15 +271,39 @@ def build() -> str:
     if _lib is not None:
         return ""
     lib, log = build_library("geo_walk")
-    lib.geo_walk.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.geo_walk_floor.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.geo_walk.argtypes = [i, ctypes.POINTER(_Args), ctypes.c_size_t, p]
+    lib.geo_walk_floor.argtypes = [i, ctypes.c_longlong, ctypes.c_size_t, p]
+    lib.geo_walk_smem.argtypes = [i, i]
+    lib.geo_walk_smem.restype = ctypes.c_longlong
     for fn in (lib.geo_walk, lib.geo_walk_floor):
         fn.restype = ctypes.c_int
     _stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
         lambda dev: torch.cuda.current_stream(dev).cuda_stream)
     _lib = lib
     return log
+
+
+def pack_args(kind: str, cand: torch.Tensor, forced: torch.Tensor, need: dict,
+              outs) -> _Args:
+    """``GeoArgs`` for one call: ``need`` maps the state, constants and the
+    kind's tables to checked tensors (a table the kind does not read is left
+    out and passed as null); ``outs`` are the seven outputs."""
+    b, n = cand.shape
+    h = need["means"].shape[-1] if "means" in need else 1
+    m = need["movemeans"].shape[1] if "movemeans" in need else 1
+
+    def ptr(name):
+        x = need.get(name)
+        return x.data_ptr() if x is not None else None
+
+    return _Args(cand.data_ptr(), forced.data_ptr(), ptr("remaining"), ptr("slack"),
+                 ptr("started"), ptr("placed"), ptr("pol_region"), ptr("eng_region"),
+                 ptr("mig_left"), ptr("moves"), ptr("kmin"), ptr("ec"), ptr("mig_e"),
+                 ptr("mig_slots"), ptr("mig_idx"), ptr("caps"), ptr("margin_c"),
+                 ptr("max_moves"), ptr("ci_now"), ptr("clean_order"), ptr("thresh_eps"),
+                 ptr("means"), ptr("movemeans"), *(o.data_ptr() for o in outs),
+                 b, n, need["caps"].shape[-1], h, m, KINDS.index(kind))
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape, dev: int) -> None:
@@ -254,10 +318,14 @@ def _check(name: str, x: torch.Tensor, dtype, shape, dev: int) -> None:
 
 
 def geo_resolve(kind: str, cand: torch.Tensor, forced: torch.Tensor,
-                state: dict, consts: dict, tables: dict) -> tuple:
-    """See the module docstring; on CUDA tensors one launch of the kernel."""
+                state: dict, consts: dict, tables: dict, route: str | None = None) -> tuple:
+    """See the module docstring; on CUDA tensors one launch of ``route``'s
+    kernel (``"compact"`` by default)."""
     if kind not in KINDS:
         raise ValueError(f"unknown geo kind {kind!r}; use one of {KINDS}")
+    route = route or "compact"
+    if route not in ROUTES:
+        raise ValueError(f"unknown geo route {route!r}; use one of {ROUTES}")
     need = {**{k: state[k] for k in _STATE},
             **{k: consts[k] for k in (*_ROW_CONSTS, *_CELL_CONSTS)},
             **{k: tables[k] for k in _TABLES[kind]}}
@@ -282,28 +350,19 @@ def geo_resolve(kind: str, cand: torch.Tensor, forced: torch.Tensor,
                   means=(b, n_r, h), movemeans=(b, m, n_r, h))
     for name, dtype in _TABLES[kind].items():
         _check(name, need[name], dtype, shapes[name], dev)
-    plan(b, n, n_r)
+    p = plan(b, n, n_r, route)
     outs = [torch.empty((b, n), dtype=dt, device=cand.device) for dt in (
         torch.bool, torch.bool, torch.int64, torch.int64, torch.int64, torch.int64,
         torch.bool)]
     if b * n == 0:
         return tuple(outs)
     build()
-
-    def ptr(name):
-        x = need.get(name)
-        return x.data_ptr() if x is not None else None
-
-    args = _Args(cand.data_ptr(), forced.data_ptr(), ptr("remaining"), ptr("slack"),
-                 ptr("started"), ptr("placed"), ptr("pol_region"), ptr("eng_region"),
-                 ptr("mig_left"), ptr("moves"), ptr("kmin"), ptr("ec"), ptr("mig_e"),
-                 ptr("mig_slots"), ptr("mig_idx"), ptr("caps"), ptr("margin_c"),
-                 ptr("max_moves"), ptr("ci_now"), ptr("clean_order"), ptr("thresh_eps"),
-                 ptr("means"), ptr("movemeans"), *(o.data_ptr() for o in outs),
-                 b, n, n_r, h, m, KINDS.index(kind))
-    err = _lib.geo_walk(ctypes.byref(args), _stream(dev))
+    args = pack_args(kind, cand, forced, need, outs)
+    err = _lib.geo_walk(ROUTES.index(route), ctypes.byref(args), p["smem_bytes"],
+                        _stream(dev))
     if err != 0:
-        raise RuntimeError(f"geo_walk failed with cudaError_t {err}")
+        raise RuntimeError(f"geo_walk ({route}) failed with cudaError_t {err}")
     launches["geo_walk"] += 1
+    launches[route] += 1
     take, placed, pol_region, eng_region, mig_left, moves, mig_now = outs
     return take, placed, pol_region, eng_region, mig_left, moves, mig_now

@@ -1184,30 +1184,43 @@ def _fill_inputs(seed, b, n, dev, p_cand=None, p_forced=None, k_hi=8):
     return [torch.from_numpy(x).to(dev) for x in (cand, forced, kreq, m_cap)]
 
 
-def _fill_check(args):
+def _fill_check(args, route=None):
+    """The kernel of ``route`` (the default when None) against the plain
+    version; one launch, counted in all and on its route alone."""
     want = fill.capacity_fill_plain(*(x.cpu() for x in args))
-    before = fill.launches["capacity_fill"]
-    got = fill.capacity_fill(*args)
+    before = dict(fill.launches)
+    got = fill.capacity_fill(*args, route=route)
     torch.cuda.synchronize()
-    assert fill.launches["capacity_fill"] == before + 1
+    counted = route or "compact"
+    assert fill.launches == {k: v + (k in ("capacity_fill", counted)) for k, v in before.items()}
     assert got.dtype == torch.bool and got.is_cuda
     assert torch.equal(got.cpu(), want)
     return want
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "chunked"], ids=["compact", "chunked"])
 @pytest.mark.parametrize("b", [1, 64])
 @pytest.mark.parametrize("n", [256, 2048, 6144])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_kernel_fill_matches_plain(cuda_fill, b, n, seed):
-    _fill_check(_fill_inputs(seed, b, n, cuda_fill))
+def test_kernel_fill_matches_plain(cuda_fill, b, n, seed, route):
+    _fill_check(_fill_inputs(seed, b, n, cuda_fill), route)
 
 
 @pytest.mark.cuda
+def test_kernel_fill_smem_matches_the_plan(cuda_fill):
+    for route in fill.ROUTES:
+        for n in (1, 33, 1792, 6144):
+            assert fill._lib.capacity_fill_smem(fill.ROUTES.index(route), n) == \
+                fill.plan(1, n, route)["smem_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "chunked"], ids=["compact", "chunked"])
 @pytest.mark.parametrize("case", ["capacity 0", "everything fits", "nothing fits",
                                   "all forced", "one row", "sparse candidates",
                                   "requests of 0", "odd width", "one small request"])
-def test_kernel_fill_edge_cases(cuda_fill, case):
+def test_kernel_fill_edge_cases(cuda_fill, case, route):
     b, n = 64, 2048
     cand, forced, kreq, m_cap = _fill_inputs(9, b, n, cuda_fill, 0.5, 0.2)
     if case == "capacity 0":
@@ -1234,7 +1247,7 @@ def test_kernel_fill_edge_cases(cuda_fill, case):
         kreq.fill_(50)
         m_cap.fill_(49)
         cand[:, -1], forced[:, -1], kreq[:, -1] = True, False, 1
-    take = _fill_check([cand, forced, kreq, m_cap])
+    take = _fill_check([cand, forced, kreq, m_cap], route)
     if case == "everything fits":
         assert torch.equal(take, cand.cpu())
     if case in ("capacity 0", "nothing fits"):
@@ -1254,6 +1267,8 @@ def test_kernel_fill_checks(cuda_fill):
         fill.capacity_fill(cand, forced, kreq.cpu(), m_cap)
     with pytest.raises(ValueError):
         fill.capacity_fill(cand[:, ::2], forced[:, ::2], kreq[:, ::2], m_cap)
+    with pytest.raises(ValueError, match="route"):
+        fill.capacity_fill(cand, forced, kreq, m_cap, route="other")
 
 
 def _golden_sweep(name, device, engine):
@@ -1297,6 +1312,8 @@ def test_golden_sweeps_on_the_card(cuda_fill, name, engine):
             assert stats["delegated"] == 0
         else:
             assert fill.launches["capacity_fill"] == stats["fill_steps"] > 0
+            assert fill.launches["compact"] == stats["fill_steps"]
+            assert fill.launches["chunked"] == 0
             assert stats["delegated"] == 2
 
 
@@ -1347,14 +1364,18 @@ def _geo_inputs(seed, kind, b, n, regions, dev, mixed=False, nothing_fits=False,
             {k: t(v) for k, v in tables.items() if k in geo_walk._TABLES[kind]})
 
 
-def _geo_check(kind, args):
+def _geo_check(kind, args, route=None):
+    """The kernel of ``route`` (the default when None) against the plain
+    walk on every output; one launch, counted in all and on its route."""
     cpu = [{k: v.cpu() for k, v in a.items()} if isinstance(a, dict) else a.cpu()
            for a in args]
     want = geo_walk.geo_resolve_plain(kind, *cpu)
-    before = geo_walk.launches["geo_walk"]
-    got = geo_walk.geo_resolve(kind, *args)
+    before = dict(geo_walk.launches)
+    got = geo_walk.geo_resolve(kind, *args, route=route)
     torch.cuda.synchronize()
-    assert geo_walk.launches["geo_walk"] == before + 1
+    counted = route or "compact"
+    assert geo_walk.launches == {k: v + (k in ("geo_walk", counted))
+                                 for k, v in before.items()}
     for name, a, w in zip(("take", "placed", "pol_region", "eng_region", "mig_left",
                            "moves", "mig_now"), got, want):
         assert a.is_cuda and a.dtype == w.dtype, name
@@ -1363,22 +1384,33 @@ def _geo_check(kind, args):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "chunked"], ids=["compact", "chunked"])
 @pytest.mark.parametrize("kind", geo_walk.KINDS)
-@pytest.mark.parametrize("regions", [2, 3, 10])
+@pytest.mark.parametrize("regions", [2, 3, 10, 16])
 @pytest.mark.parametrize("mixed", [False, True], ids=["uniform-k", "mixed-k"])
-def test_kernel_geo_walk_matches_plain(cuda_geo, kind, regions, mixed):
+def test_kernel_geo_walk_matches_plain(cuda_geo, kind, regions, mixed, route):
     for seed in range(3):
-        want = _geo_check(kind, _geo_inputs(seed, kind, 4, 300, regions, cuda_geo, mixed))
+        want = _geo_check(kind, _geo_inputs(seed, kind, 4, 300, regions, cuda_geo, mixed),
+                          route)
         assert want[0].any()
         if kind != "geo-static":
             assert want[6].any()                # some rows migrate
 
 
 @pytest.mark.cuda
+def test_kernel_geo_walk_smem_matches_the_plan(cuda_geo):
+    for route in geo_walk.ROUTES:
+        for n in (1, 33, 1792, 6144):
+            assert geo_walk._lib.geo_walk_smem(geo_walk.ROUTES.index(route), n) == \
+                geo_walk.plan(1, n, 2, route)["smem_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "chunked"], ids=["compact", "chunked"])
 @pytest.mark.parametrize("kind", geo_walk.KINDS)
 @pytest.mark.parametrize("case", ["nothing fits", "all forced", "one row", "odd width",
-                                  "B=64 n_pad=1792"])
-def test_kernel_geo_walk_edge_cases(cuda_geo, kind, case):
+                                  "B=64 n_pad=1792", "n_pad=6144 (opt-in)"])
+def test_kernel_geo_walk_edge_cases(cuda_geo, kind, case, route):
     b, n, kw = 3, 256, {}
     if case == "nothing fits":
         kw["nothing_fits"] = True
@@ -1388,10 +1420,12 @@ def test_kernel_geo_walk_edge_cases(cuda_geo, kind, case):
         n = 333
     elif case == "B=64 n_pad=1792":
         b, n = 64, 1792
+    elif case == "n_pad=6144 (opt-in)":
+        b, n = 2, 6144
     args = _geo_inputs(11, kind, b, n, 4, cuda_geo, mixed=True, **kw)
     if case == "all forced":
         args[1].fill_(True)
-    want = _geo_check(kind, args)
+    want = _geo_check(kind, args, route)
     if case == "nothing fits":
         assert not want[0].any()
 
@@ -1409,6 +1443,8 @@ def test_kernel_geo_walk_checks(cuda_geo):
                              dict(tables, means=tables["means"].transpose(1, 2)))
     with pytest.raises(ValueError):
         geo_walk.geo_resolve("geo-flex", cand, forced.cpu(), state, consts, tables)
+    with pytest.raises(ValueError, match="route"):
+        geo_walk.geo_resolve("geo-flex", cand, forced, state, consts, tables, route="other")
 
 
 @pytest.mark.cuda
@@ -1434,6 +1470,8 @@ def test_geo_flex_week_on_the_card_equals_the_cpu(cuda_geo):
         want.to_dict(include_per_job=True, include_slots=True)
     assert got.migrations > 0
     assert geo_walk.launches["geo_walk"] == scan_engine.stats["geo_steps"] > 0
+    assert geo_walk.launches["compact"] == geo_walk.launches["geo_walk"]
+    assert geo_walk.launches["chunked"] == 0
 
 
 # --- resilience: faulted and outage worlds on the card -------------------------

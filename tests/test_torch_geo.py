@@ -60,6 +60,7 @@ from repro_torch.experiment import (DEFAULT_GEO_POLICIES, Scenario, Sweep,
 from repro_torch.kernels import geo_walk
 from repro_torch.traces import TraceSpec, generate_trace
 from test_torch_cuda import _geo_inputs
+from test_torch_fill import walk_list
 
 WEEK = 24 * 7
 REGIONS2 = ("south-australia", "california")
@@ -474,7 +475,7 @@ def test_geo_sweep_refuses_a_regions_axis():
 @pytest.mark.parametrize("cells,n,regions", [(1, 1, 2), (3, 256, 3), (64, 1792, 10),
                                              (5, 6145, 16)])
 def test_plan_covers_every_cell_once(cells, n, regions):
-    p = geo_walk.plan(cells, n, regions)
+    p = geo_walk.plan(cells, n, regions, route="chunked")
     walked = np.zeros(cells, dtype=int)
     for block in range(p["blocks"]):
         walked[block] += 1
@@ -484,27 +485,105 @@ def test_plan_covers_every_cell_once(cells, n, regions):
         for ch in range(warp, p["chunks"], p["threads"] // 32):
             rows[ch * 32:(ch + 1) * 32] += 1
     assert (rows == 1).all()
-    assert p["smem_bytes"] == 8 * p["chunks"] <= geo_walk.SMEM_LIMIT
+    assert p["smem_bytes"] == 8 * p["chunks"] <= geo_walk.SMEM_LIMIT and not p["opt_in"]
+
+
+@pytest.mark.parametrize("cells,n,regions,smem", [(1, 1, 2, 36), (3, 1792, 2, 36_736),
+                                                  (64, 333, 10, 6_836),
+                                                  (2, 6144, 16, 125_952),
+                                                  (1, 11_200, 3, 229_600)])
+def test_compact_plan_covers_every_row_once(cells, n, regions, smem):
+    """Walk the compact kernel's grid: one block a cell; warps stride the
+    chunks in the stage and again in the write-out (each row once); every
+    walked row lands in one slot of the walk list, which warp 0 reads in
+    order.  The records, the masks and offsets make the shared memory; 6144
+    rows need the opt-in above 48 KB."""
+    p = geo_walk.plan(cells, n, regions)
+    assert p["route"] == "compact" and p["blocks"] == cells
+    assert p["threads"] == geo_walk.COMPACT_THREADS
+    assert p["smem_bytes"] == smem == (geo_walk.ROW_BYTES * n
+                                       + geo_walk.CHUNK_BYTES * p["chunks"])
+    assert p["opt_in"] == (smem > geo_walk.SMEM_LIMIT) and smem <= geo_walk.SMEM_MAX
+    rows = np.zeros(n, dtype=int)
+    warps = p["threads"] // 32
+    for warp in range(warps):
+        for ch in range(warp, p["chunks"], warps):
+            rows[ch * 32:min(n, (ch + 1) * 32)] += 1
+    assert (rows == 1).all()
+    g = np.random.default_rng(n)
+    cand, forced = g.random(n) < 0.6, g.random(n) < 0.3
+    masks = [sum(1 << ln for ln in range(32) if ch * 32 + ln < n and sel[ch * 32 + ln])
+             for sel in (cand & forced, cand & ~forced) for ch in range(p["chunks"])]
+    assert walk_list(masks, p["chunks"]) == (list(np.flatnonzero(cand & forced))
+                                             + list(np.flatnonzero(cand & ~forced)))
 
 
 def test_plan_refuses_what_the_kernel_cannot_hold():
-    with pytest.raises(ValueError, match="regions"):
-        geo_walk.plan(1, 10, geo_walk.MAX_REGIONS + 1)
-    with pytest.raises(ValueError, match="regions"):
-        geo_walk.plan(1, 10, 0)
+    for route in geo_walk.ROUTES:
+        with pytest.raises(ValueError, match="regions"):
+            geo_walk.plan(1, 10, geo_walk.MAX_REGIONS + 1, route)
+        with pytest.raises(ValueError, match="regions"):
+            geo_walk.plan(1, 10, 0, route)
     with pytest.raises(ValueError, match="chunk masks"):
-        geo_walk.plan(1, 32 * 6145, 2)
+        geo_walk.plan(1, 32 * 6145, 2, route="chunked")
+    with pytest.raises(ValueError, match="a block holds"):
+        geo_walk.plan(1, 11_400, 2)
+    with pytest.raises(ValueError, match="route"):
+        geo_walk.plan(1, 10, 2, route="other")
 
 
 def test_constants_match_the_kernel_source():
     src = CU.read_text()
-    for name in ("THREADS", "MAX_REGIONS"):
+    for name in ("THREADS", "MAX_REGIONS", "COMPACT_THREADS", "ROW_BYTES", "CHUNK_BYTES"):
         assert re.search(rf"constexpr int {name} = {getattr(geo_walk, name)};", src), name
     assert "STATIC = 0, GREEDY = 1, FLEX = 2" in src
+    assert "constexpr int COMPACT = 0, CHUNKED = 1;" in src
+    assert geo_walk.ROUTES == ("compact", "chunked")
+    assert "(long long)ROW_BYTES * n + CHUNK_BYTES * chunks" in src
+    assert "constexpr int SMEM_LIMIT = 48 * 1024;" in src and geo_walk.SMEM_LIMIT == 48 * 1024
+    flags = dict(re.findall(r"(F_[A-Z]+) = (\d+)", src))
+    assert {k: int(v) for k, v in flags.items()} == dict(
+        F_SEARCH=F_SEARCH, F_ELIG=F_ELIG, F_ENG=F_ENG, F_RUN=F_RUN, F_NEWLY=F_NEWLY)
+    assert f"constexpr unsigned int NO_RANK = {NO_RANK};" in src
     assert geo_walk.KINDS == ("geo-static", "geo-greedy", "geo-flex")
     fields = re.search(r"struct GeoArgs \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"(\w+);", fields)
     assert names == [f[0] for f in geo_walk._Args._fields_]
+
+
+def _migrates(kind, st, c, tb, cell, row, ci):
+    """The kernels' migration rule for a candidate row, from the row alone:
+    the region it moves to, or None."""
+    strt, placed = st["started"][cell][row], st["placed"][cell][row]
+    if not strt or kind == "geo-static":
+        return None
+    greedy = kind == "geo-greedy"
+    regions = len(c["caps"][cell])
+    r = st["pol_region"][cell][row] if greedy and placed else st["eng_region"][cell][row]
+    ms, rv = c["mig_slots"][cell][row], st["remaining"][cell][row]
+    can = (st["moves"][cell][row] < c["max_moves"][cell]
+           and st["slack"][cell][row] > ms + 1 and rv > ms)
+    if greedy:
+        e_run = c["ec"][cell][row] * max(1.0, math.ceil(rv))
+        stay = ci[r] * e_run
+        unit = ci
+    else:
+        h_lut = len(tb["means"][cell][0])
+        hm = min(float(h_lut - ms), max(1.0, math.ceil(rv)))
+        can = can and hm >= 1.0
+        hi = min(max(int(hm) - 1, 0), h_lut - 1)
+        e_run = c["ec"][cell][row] * hm
+        stay = tb["means"][cell][r][hi] * e_run
+        mm = tb["movemeans"][cell][c["mig_idx"][cell][row]]
+        unit = [mm[i][hi] for i in range(regions)]
+    if not can:
+        return None
+    best, best_v = 0, math.inf
+    for i in range(regions):
+        v = math.inf if i == r else unit[i] * e_run + c["mig_e"][cell][row] * ci[i]
+        if i == 0 or v < best_v:
+            best, best_v = i, v
+    return best if best_v < stay * c["margin_c"][cell] else None
 
 
 def kernel_model(kind, cand, forced, state, consts, tables):
@@ -532,39 +611,13 @@ def kernel_model(kind, cand, forced, state, consts, tables):
         h_lut = len(tb["means"][cell][0]) if flex else 1
         walk = [[], []]
         for row in range(n):                                    # phase 1
-            strt, placed = st["started"][cell][row], st["placed"][cell][row]
-            mig = False
-            if cand[cell][row] and strt and kind != "geo-static":
-                r = st["pol_region"][cell][row] if greedy and placed \
-                    else st["eng_region"][cell][row]
-                ms, rv = c["mig_slots"][cell][row], st["remaining"][cell][row]
-                can = (st["moves"][cell][row] < c["max_moves"][cell]
-                       and st["slack"][cell][row] > ms + 1 and rv > ms)
-                if greedy:
-                    e_run = c["ec"][cell][row] * max(1.0, math.ceil(rv))
-                    stay = ci[r] * e_run
-                    unit = ci
-                else:
-                    hm = min(float(h_lut - ms), max(1.0, math.ceil(rv)))
-                    can = can and hm >= 1.0
-                    hi = min(max(int(hm) - 1, 0), h_lut - 1)
-                    e_run = c["ec"][cell][row] * hm
-                    stay = tb["means"][cell][r][hi] * e_run
-                    mm = tb["movemeans"][cell][c["mig_idx"][cell][row]]
-                    unit = [mm[i][hi] for i in range(regions)]
-                if can:
-                    best, best_v = 0, math.inf
-                    for i in range(regions):
-                        v = math.inf if i == r else \
-                            unit[i] * e_run + c["mig_e"][cell][row] * ci[i]
-                        if i == 0 or v < best_v:
-                            best, best_v = i, v
-                    if best_v < stay * c["margin_c"][cell]:
-                        mig = True
-                        out["placed"][cell][row] = True
-                        out["pol"][cell][row] = out["eng"][cell][row] = best
-                        out["migl"][cell][row] = ms
-                        out["moves"][cell][row] += 1
+            best = _migrates(kind, st, c, tb, cell, row, ci) if cand[cell][row] else None
+            mig = best is not None
+            if mig:
+                out["placed"][cell][row] = True
+                out["pol"][cell][row] = out["eng"][cell][row] = best
+                out["migl"][cell][row] = c["mig_slots"][cell][row]
+                out["moves"][cell][row] += 1
             out["mig"][cell][row] = mig
             if cand[cell][row] and not mig:
                 walk[0 if forced[cell][row] else 1].append(row)
@@ -611,6 +664,132 @@ def kernel_model(kind, cand, forced, state, consts, tables):
                                                  "moves", "mig"))
 
 
+# The compact kernel's record flags and its "no region" rank (csrc/geo_walk.cu).
+F_SEARCH, F_ELIG, F_ENG, F_RUN, F_NEWLY = 1, 2, 4, 8, 16
+NO_RANK = 16
+MASK64 = (1 << 64) - 1
+
+
+def flex_ranks(means_col):
+    """``flex_ranks``: the regions sorted stably by ``means_col`` by
+    insertion into a packed word of 4-bit indices (the first preferred
+    lowest), returned as each region's rank, 4 bits a region."""
+    order = 0
+    for q, mq in enumerate(means_col):
+        p = q
+        while p > 0 and means_col[(order >> (4 * (p - 1))) & 15] > mq:
+            p -= 1
+        low = order & ((1 << (4 * p)) - 1)
+        high = ((order >> (4 * p)) << (4 * (p + 1))) & MASK64 if p < 15 else 0
+        order = low | high | (q << (4 * p))
+    ranks = 0
+    for q in range(len(means_col)):
+        ranks |= q << (4 * ((order >> (4 * q)) & 15))
+    return ranks
+
+
+def compact_model(kind, cand, forced, state, consts, tables):
+    """``geo_walk_compact_kernel`` in Python: the stage settles the
+    migration rule and records each row to walk (k_min, its region or its
+    regions' packed ranks, flags); the walk list comes from the chunk
+    ballots' scan; warp 0's walk keeps each region's capacity left,
+    eligibility and (geo-greedy) CI rank in its lane, gives a row to be
+    placed to the lane with room of the lowest rank (the warp min) and any
+    other row to its region's lane, which stores the result in the row's
+    flags; the write-out applies it."""
+    st = {k: v.tolist() for k, v in state.items()}
+    c = {k: v.tolist() for k, v in consts.items()}
+    tb = {k: v.tolist() for k, v in tables.items()}
+    b, n = cand.shape
+    cand, forced = cand.tolist(), forced.tolist()
+    out = dict(take=[[False] * n for _ in range(b)],
+               placed=[list(x) for x in st["placed"]],
+               pol=[list(x) for x in st["pol_region"]],
+               eng=[list(x) for x in st["eng_region"]],
+               migl=[list(x) for x in st["mig_left"]],
+               moves=[list(x) for x in st["moves"]],
+               mig=[[False] * n for _ in range(b)])
+    static, greedy, flex = (kind == k for k in geo_walk.KINDS)
+    chunks = -(-n // 32)
+    for cell in range(b):
+        regions = len(c["caps"][cell])
+        ci = tb["ci_now"][cell] if "ci_now" in tb else [0.0] * regions
+        s_k, s_word, s_flags = [0] * n, [0] * n, [0] * n
+        walk = [False] * n
+        for row in range(n):                                    # stage
+            strt, placed = st["started"][cell][row], st["placed"][cell][row]
+            polr, engr = st["pol_region"][cell][row], st["eng_region"][cell][row]
+            best = _migrates(kind, st, c, tb, cell, row, ci) if cand[cell][row] else None
+            walk[row] = cand[cell][row] and best is None
+            if best is not None:
+                out["mig"][cell][row] = True
+                out["migl"][cell][row] = c["mig_slots"][cell][row]
+                out["moves"][cell][row] += 1
+            adopt = walk[row] and greedy and strt and not placed
+            out["placed"][cell][row] = placed or best is not None or adopt
+            out["pol"][cell][row] = best if best is not None else (engr if adopt else polr)
+            out["eng"][cell][row] = best if best is not None else engr
+            if walk[row]:
+                search = not static and not strt and not placed
+                s_k[row] = c["kmin"][cell][row]
+                if search and flex:
+                    h_lut = len(tb["means"][cell][0])
+                    h = min(float(h_lut), max(1.0, math.ceil(st["remaining"][cell][row])))
+                    col = min(max(int(h) - 1, 0), h_lut - 1)
+                    s_word[row] = flex_ranks([tb["means"][cell][q][col]
+                                              for q in range(regions)])
+                elif not search:
+                    s_word[row] = engr if static or (flex and strt) or adopt else polr
+                s_flags[row] = ((F_SEARCH if search else 0)
+                                | (F_ELIG if not flex or forced[cell][row] else 0)
+                                | (F_ENG if not static and not strt else 0))
+        masks = [sum(1 << lane for lane in range(32) if ch * 32 + lane < n
+                     and walk[ch * 32 + lane] and forced[cell][ch * 32 + lane] == want)
+                 for want in (True, False) for ch in range(chunks)]
+        lanes = range(32)                                       # walk
+        in_r = [lane < regions for lane in lanes]
+        left = [c["caps"][cell][lane] if in_r[lane] else 0 for lane in lanes]
+        elig = [not flex or (in_r[lane] and ci[lane] <= tb["thresh_eps"][cell][lane])
+                for lane in lanes]
+        greedy_rank = [NO_RANK] * 32
+        if greedy:
+            order = tb["clean_order"][cell]
+            for q in range(regions - 1, -1, -1):
+                if 0 <= order[q] < 32:
+                    greedy_rank[order[q]] = q
+        for row in walk_list(masks, chunks):
+            k, w, fl = s_k[row], s_word[row], s_flags[row]
+            fits = [in_r[lane] and k <= left[lane] for lane in lanes]
+            may_run = [elig[lane] or bool(fl & F_ELIG) for lane in lanes]
+            if fl & F_SEARCH:
+                key = [(greedy_rank[lane] if greedy else (w >> (4 * (lane & 15))) & 15)
+                       if fits[lane] else NO_RANK for lane in lanes]
+                least = min(key)
+                run = [False] * 32
+                for lane in lanes:
+                    if key[lane] < NO_RANK and key[lane] == least:
+                        run[lane] = may_run[lane]
+                        s_flags[row] = fl | F_NEWLY | (lane << 8) | (F_RUN if run[lane] else 0)
+            else:
+                run = [lane == w and fits[lane] and may_run[lane] for lane in lanes]
+                if any(run):
+                    s_flags[row] = fl | F_RUN
+            for lane in lanes:
+                if run[lane]:
+                    left[lane] -= k
+        for row in range(n):                                    # write-out
+            if not walk[row]:
+                continue
+            fl, r = s_flags[row], s_flags[row] >> 8 & 15
+            out["take"][cell][row] = bool(fl & F_RUN)
+            if fl & F_NEWLY:
+                out["placed"][cell][row], out["pol"][cell][row] = True, r
+            if fl & F_RUN and fl & F_ENG:
+                out["eng"][cell][row] = r if fl & F_SEARCH else s_word[row]
+    return tuple(torch.tensor(out[k]) for k in ("take", "placed", "pol", "eng", "migl",
+                                                 "moves", "mig"))
+
+
 @pytest.mark.parametrize("kind", geo_walk.KINDS)
 @pytest.mark.parametrize("regions", [2, 3, 10])
 @pytest.mark.parametrize("mixed", [False, True], ids=["uniform-k", "mixed-k"])
@@ -629,6 +808,55 @@ def test_kernel_model_matches_the_plain_walk(kind, regions, mixed):
     assert hits["take"] > 0
     if kind != "geo-static":
         assert hits["mig"] > 0 and hits["newly"] > 0
+
+
+@pytest.mark.parametrize("kind", geo_walk.KINDS)
+@pytest.mark.parametrize("regions", [2, 3, 10, 16])
+@pytest.mark.parametrize("mixed", [False, True], ids=["uniform-k", "mixed-k"])
+def test_compact_model_matches_the_plain_walk(kind, regions, mixed):
+    hits = dict(mig=0, newly=0, take=0)
+    for seed in range(3):
+        args = _geo_inputs(seed, kind, 3, 200, regions, "cpu", mixed)
+        want = geo_walk.geo_resolve(kind, *args)
+        got = compact_model(kind, *args)
+        for name, a, w in zip(("take", "placed", "pol_region", "eng_region",
+                               "mig_left", "moves", "mig_now"), got, want):
+            assert torch.equal(a.to(w.dtype), w), (name, seed)
+        hits["mig"] += int(want[6].sum())
+        hits["newly"] += int((want[1] & ~args[2]["placed"]).sum())
+        hits["take"] += int(want[0].sum())
+    assert hits["take"] > 0
+    if kind != "geo-static":
+        assert hits["mig"] > 0 and hits["newly"] > 0
+
+
+@pytest.mark.parametrize("kind", geo_walk.KINDS)
+@pytest.mark.parametrize("case", ["nothing fits", "all forced", "one row", "odd width"])
+def test_compact_model_edge_cases(kind, case):
+    b, n, kw = 3, 256, {}
+    if case == "nothing fits":
+        kw["nothing_fits"] = True
+    elif case == "one row":
+        n = 1
+    elif case == "odd width":
+        n = 333
+    args = _geo_inputs(11, kind, b, n, 4, "cpu", mixed=True, **kw)
+    if case == "all forced":
+        args[1].fill_(True)
+    want = geo_walk.geo_resolve(kind, *args)
+    for a, w in zip(compact_model(kind, *args), want):
+        assert torch.equal(a.to(w.dtype), w)
+    if case == "nothing fits":
+        assert not want[0].any()
+
+
+@pytest.mark.parametrize("means", [[3.0, 1.0, 2.0], [5.0] * 16, list(range(16, 0, -1)),
+                                   [2.0, 1.0, 2.0, 1.0, 0.5], [7.0]])
+def test_flex_ranks_are_the_stable_sort(means):
+    ranks = flex_ranks(means)
+    got = [(ranks >> (4 * r)) & 15 for r in range(len(means))]
+    order = sorted(range(len(means)), key=means.__getitem__)
+    assert got == [order.index(r) for r in range(len(means))]
 
 
 @pytest.mark.parametrize("kind", geo_walk.KINDS)
