@@ -210,8 +210,23 @@ Phases, any failure exits non-zero:
    launches == the carbonflex row's provisioning calls, ``capacity_fill``
    launches == fill steps (> 0 on the scale grid only, all compact), 2 rows
    delegated.
-   Last, the main, oracle, sweep, geo, resilience, telemetry, MoE serving
-   and tuner paths' wall times side by side.
+12. the dry-run and the roofline profiles: ``repro_torch.launch.dryrun``
+   counts all 32 live (architecture x shape) cells' steps on the ``meta``
+   device in ``DRYRUN_WORKERS`` spawned processes into a temporary
+   ``results/dryrun_opt`` (each cell's FLOPs and bytes per device of the
+   16x16 mesh, its compute, memory and collective terms, the dominant one,
+   the elasticity of its profile and its counting seconds printed); the
+   count of internvl2-2b at the training phase's shape (4 x 2048 tokens
+   behind the 256-position prefix, one device), as the card ran it (the
+   flash kernels' work) and as the cells count it (the chunked attention),
+   against the step the training phase measured (gates: counted FLOPs at
+   least the step's model FLOPs; the flash count's roofline no more than
+   the measured step); then ``Scenario(**MAIN, elasticity="tpu")`` from
+   that directory through ``run()`` on the card and on the CPU (gates: 0
+   weekly results and 0 slots differ, ``knn_topk`` launches == provisioning
+   calls, every job one of the ten architectures).
+   Last, the main, oracle, sweep, geo, resilience, telemetry, MoE serving,
+   tuner and dry-run paths' wall times side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -267,6 +282,7 @@ from repro_torch.models.common import chunked_attention, rms_norm, rope  # noqa:
 from repro_torch.serve import greedy_generate, make_prefill  # noqa: E402
 from repro_torch.telemetry import MemoryRecorder, PhaseProfiler, Telemetry, attribute  # noqa: E402
 from repro_torch.traces import DagConfig  # noqa: E402
+from repro_torch.traces import workloads  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
 # sheet): HBM3 bandwidth, fp32 outside the tensor cores, bf16 dense on the
@@ -4616,6 +4632,158 @@ def tune_phase():
     return dict(runs=out, wall_s=time.perf_counter() - t0)
 
 
+# The dry-run's cells counted in this many processes (host CPU only: meta
+# tensors), and the cells the "tpu" world reads.
+DRYRUN_WORKERS = min(8, os.cpu_count() or 1)
+DRYRUN_REQUIRED = [(arch, "train_4k") for arch in workloads.TPU_ARCHS] + [
+    ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"), ("zamba2-7b", "long_500k")]
+
+
+def dryrun_phase(train):
+    """Phase 12 in a temporary working directory, removed after it (see
+    ``dryrun_in``)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="dryrun_phase_") as tmp:
+        return dryrun_in(train, tmp)
+
+
+def dryrun_in(train, tmp):
+    """Phase 12: the dry-run (``repro_torch.launch.dryrun``) counts every
+    live (arch x shape) cell's step on the ``meta`` device in
+    ``DRYRUN_WORKERS`` processes into a temporary ``results/dryrun_opt``, each
+    cell's roofline terms and profile printed; the count of internvl2-2b at
+    ``train_phase``'s shape (one device) against the step ``train_phase``
+    measured; then ``Scenario(**MAIN, elasticity="tpu")`` run from that
+    directory on the card and on the CPU: the LM-training jobs' profiles from
+    the counted cells, equal results, knn launches == provisioning calls,
+    every job one of the ten architectures."""
+    import collections
+
+    from repro_torch.core.profiles import elasticity_of, profile_from_dryrun
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models import SHAPES, ShapeConfig
+
+    t0 = time.perf_counter()
+    cells = [(a, s) for a in ARCHS for s in SHAPES if dryrun.runnable(a, SHAPES[s])]
+    if not set(DRYRUN_REQUIRED) <= set(cells) or len(cells) != 32:
+        raise AssertionError(f"dry-run: {len(cells)} live cells")
+    out = {}
+    cell_dir = os.path.join(tmp, "results", "dryrun_opt")
+    os.makedirs(cell_dir)
+    t = time.perf_counter()
+    counted = dryrun.count_cells([(ARCHS[a], SHAPES[s]) for a, s in cells],
+                                 workers=DRYRUN_WORKERS)
+    count_wall = time.perf_counter() - t
+    mesh = make_production_mesh()
+    for (arch, shape), (stats, secs) in zip(cells, counted):
+        rec = dryrun.cell_record(arch, ARCHS[arch], SHAPES[shape], mesh, stats, secs)
+        with open(dryrun.cell_path(cell_dir, arch, shape, rec["mesh"]), "w") as f:
+            json.dump(rec, f, indent=1)
+        r = rec["roofline"]
+        prof = profile_from_dryrun(arch, dryrun_dir=cell_dir, shape=shape)
+        per_dev = rec["hlo_stats"]
+        if not (per_dev["flops"] > 0 and per_dev["hbm_bytes"] > 0
+                and all(math.isfinite(r[k]) for k in ("compute_s", "memory_s", "collective_s"))):
+            raise AssertionError(f"dry-run {arch} x {shape}: counts {per_dev}, terms {r}")
+        out[f"{arch}__{shape}"] = dict(
+            flops_per_dev=per_dev["flops"], bytes_per_dev=per_dev["hbm_bytes"],
+            compute_s=r["compute_s"], memory_s=r["memory_s"], collective_s=r["collective_s"],
+            dominant=r["dominant"], useful_flops_ratio=r["useful_flops_ratio"],
+            elasticity=elasticity_of(prof), ops=stats.ops, count_s=secs)
+        log(f"dry-run {arch} x {shape}: {per_dev['flops']:.6e} FLOPs and "
+            f"{per_dev['hbm_bytes']:.6e} bytes per device (of 256), compute "
+            f"{r['compute_s']:.6e} s, memory {r['memory_s']:.6e} s, collective "
+            f"{r['collective_s']:.6e} s -> {r['dominant']}; elasticity "
+            f"{elasticity_of(prof):.6f}; {stats.ops} ops counted in {secs:.3f} s")
+    log(f"dry-run: {len(cells)} cells counted in {count_wall:.3f} s wall on "
+        f"{DRYRUN_WORKERS} processes ({sum(s for _, s in counted):.3f} s of counting)")
+
+    # The count against the card: internvl2-2b at train_phase's shape on one
+    # device, as the card ran it (flash kernels) and as the cells count it
+    # (the chunked attention), against the step train_phase measured.
+    cfg = ARCHS[TRAIN_ARCH]
+    shape = ShapeConfig("train_step", TRAIN_SEQ + cfg.prefix_len, TRAIN_BATCH, "train")
+    one = make_mesh((1,), ("data",))
+    model = train_model_flops(cfg, TRAIN_BATCH, shape.seq_len)
+    anchor = {}
+    for attention in ("flash", "chunked"):
+        t = time.perf_counter()
+        stats = dryrun.count_cell(cfg, shape, attention=attention)
+        rec = dryrun.cell_record(TRAIN_ARCH, cfg, shape, one, stats, time.perf_counter() - t)
+        r = rec["roofline"]
+        roof = max(r["compute_s"], r["memory_s"])
+        anchor[attention] = dict(flops=stats.flops, bytes=stats.bytes,
+                                 compute_s=r["compute_s"], memory_s=r["memory_s"],
+                                 roofline_s=roof, measured_over_roofline=train["step_s"] / roof,
+                                 count_s=rec["count_s"])
+        log(f"dry-run anchor ({attention} attention): {TRAIN_ARCH} at {TRAIN_BATCH} x "
+            f"{shape.seq_len}, one device: {stats.flops:.6e} FLOPs (model FLOPs "
+            f"{model:.6e}), {stats.bytes:.6e} bytes; compute {r['compute_s']:.6f} s, memory "
+            f"{r['memory_s']:.6f} s; the measured step {train['step_s']:.6f} s is "
+            f"{train['step_s'] / roof:.6f} x the roofline")
+        if stats.flops < model:
+            raise AssertionError(f"dry-run anchor ({attention}): {stats.flops} counted FLOPs "
+                                 f"below the step's {model} model FLOPs")
+    if not anchor["flash"]["roofline_s"] <= train["step_s"]:
+        raise AssertionError(f"dry-run anchor: the count says the card beat its peaks "
+                             f"({anchor['flash']['roofline_s']} s of roofline against a "
+                             f"measured {train['step_s']} s step)")
+
+    # The "tpu" world from the counted cells, on the card and on the CPU.
+    workloads._TPU_PROFILE_CACHE.clear()
+    calls = [0]
+
+    def counted_provision(*args, **kw):
+        calls[0] += 1
+        return provision(*args, **kw)
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        sc = Scenario(**MAIN, elasticity="tpu")
+        mat = sc.materialize()
+        drawn = collections.Counter(j.arch for j in mat.jobs)
+        if not set(drawn) <= set(workloads.TPU_ARCHS):
+            raise AssertionError(f"tpu world: jobs fell back to the mix: {drawn}")
+        policy_mod.provision = counted_provision
+        knn.reset_launches()
+        t = time.perf_counter()
+        res = run(sc, POLICIES)
+        torch.cuda.synchronize()
+        card_wall = time.perf_counter() - t
+        launches = knn.launches["knn_topk"]
+        policy_mod.provision = provision
+        t = time.perf_counter()
+        cpu_res = run(sc, POLICIES, device="cpu")
+        cpu_wall = time.perf_counter() - t
+    finally:
+        policy_mod.provision = provision
+        os.chdir(cwd)
+    weeks_differ, slots_differ = same_results(res.weekly, cpu_res.weekly, POLICIES)
+    elasticity = {a: elasticity_of(p) for a, p in sorted(workloads._TPU_PROFILE_CACHE.items())}
+    savings = {n: res.savings(n) for n in POLICIES}
+    log(f"tpu world: {len(mat.jobs)} jobs, archs drawn {dict(sorted(drawn.items()))}; each "
+        f"arch's elasticity {elasticity}; card {card_wall:.3f} s, CPU {cpu_wall:.3f} s; "
+        f"{weeks_differ} weekly results and {slots_differ} slots differ; knn_topk launches "
+        f"{launches}, provisioning calls {calls[0]}; savings {savings}")
+    log(res.table())
+    if weeks_differ or slots_differ:
+        raise AssertionError(f"tpu world: {weeks_differ} weeks and {slots_differ} slots "
+                             "differ from the CPU run")
+    if not launches == calls[0] > 0:
+        raise AssertionError(f"tpu world: {launches} knn launches for {calls[0]} "
+                             "provisioning calls")
+    return dict(cells=out, count_wall_s=count_wall, workers=DRYRUN_WORKERS, anchor=anchor,
+                train_step_s=train["step_s"], model_flops=model,
+                world=dict(jobs=len(mat.jobs), drawn=dict(drawn), elasticity=elasticity,
+                           card_s=card_wall, cpu_s=cpu_wall, knn_launches=launches,
+                           provisions=calls[0], savings=savings,
+                           cpu_savings={n: cpu_res.savings(n) for n in POLICIES}),
+                wall_s=time.perf_counter() - t0)
+
+
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports."""
@@ -4717,6 +4885,8 @@ def main():
     tune = tune_phase()
     by_name["knn_topk"]["tune_launches"] = sum(
         v["knn_launches"] for v in tune["runs"].values())
+    dry = dryrun_phase(train)
+    by_name["knn_topk"]["tpu_world_launches"] = dry["world"]["knn_launches"]
     by_name["capacity_fill"]["tune_launches"] = sum(
         v["fill_launches"] for v in tune["runs"].values())
     # launches on the telemetry paths (0 for the kernels no such path runs)
@@ -4747,7 +4917,9 @@ def main():
         f"{train['step_s']:.3f}); the tuner on "
         f"the card {sum(v['card_s'] for v in tune['runs'].values()):.3f}, on the CPU "
         f"{sum(v['cpu_s'] for v in tune['runs'].values()):.3f}, the phase "
-        f"{tune['wall_s']:.3f}")
+        f"{tune['wall_s']:.3f}; the dry-run {dry['wall_s']:.3f} (counting "
+        f"{dry['count_wall_s']:.3f}, the tpu world on the card {dry['world']['card_s']:.3f}, on "
+        f"the CPU {dry['world']['cpu_s']:.3f})")
     if any(kern["launches"] < 1 for kern in kernels):
         raise AssertionError("a kernel of a path was never launched")
     log(json.dumps({"main_path": {k: v for k, v in path.items()
@@ -4759,6 +4931,7 @@ def main():
     log(json.dumps({"ssm_serve_path": ssm_path}))
     log(json.dumps({"train_path": train}, default=str))
     log(json.dumps({"tune_path": tune}))
+    log(json.dumps({"dryrun_path": dry}))
     log(json.dumps({"dag_path": dag}))
     log(json.dumps({"oracle_path": {k: v for k, v in device_path.items()
                                     if k != "attempts"}}))

@@ -32,6 +32,10 @@ ARCHS: dict[str, ModelConfig] = {
     ]
 }
 
+# long_500k needs sub-quadratic attention: only the SSM/hybrid archs run it
+# (the full-attention archs skip it, as in the JAX package).
+LONG_CONTEXT_ARCHS = {"rwkv6-7b", "zamba2-7b"}
+
 
 def get(name: str) -> ModelConfig:
     return ARCHS[name]

@@ -1,8 +1,24 @@
 """Elastic scaling profiles (paper §2.3 / §3).
 
-Parametric families (Amdahl-style) mirroring the paper's Table 3
-High/Moderate/Low scalability classes: the marginal-throughput profiles
-``p_j(k)`` behind every job of the synthetic traces.
+Two sources of profiles:
+
+1. Parametric families (Amdahl-style) mirroring the paper's Table 3
+   High/Moderate/Low scalability classes: the marginal-throughput profiles
+   ``p_j(k)`` behind every job of the synthetic traces.
+
+2. Roofline-derived profiles: given a model's per-slice step FLOPs, HBM
+   bytes and DP gradient bytes (a dry-run cell, ``launch/dryrun.py``),
+   derive the step time at DP degree k
+
+       tau(k) = max(compute / k, memory / k) + collective(k)
+
+   with ring-all-reduce collective time 2*(k-1)/k * grad_bytes / link_bw,
+   then the normalised marginal throughput
+
+       T(k) = tau(k_min) / tau(k) * k_min,  p(k) = T(k) - T(k-1),
+       p(k_min) = 1 by construction.
+
+Both are host float64 numpy, expression for expression the JAX package's.
 """
 from __future__ import annotations
 
@@ -75,3 +91,104 @@ TABLE3_WORKLOADS: tuple[WorkloadSpec, ...] = (
     WorkloadSpec("vit-b32", "Pytorch", 336.6, "moderate", 0.85),
 )
 
+
+# --- roofline-derived profiles -------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    """Per-slice step roofline inputs (seconds are derived).
+
+    The rate defaults are the ones the reference assumes for its own
+    dry-run cells (a TPU v5e chip: bf16 peak, HBM bandwidth, one ICI
+    link), kept so that a reference cell gives the reference's terms.  They
+    are not the H100's rates: a cell counted by this package carries its
+    device's rates, and ``terms_from_dryrun`` passes them in."""
+
+    flops: float                 # FLOPs per step per slice
+    hbm_bytes: float             # bytes accessed per step per slice
+    grad_bytes: float            # DP all-reduce payload per step (model grads)
+    peak_flops: float = 197e12   # the reference's rate (TPU v5e bf16)
+    hbm_bw: float = 819e9        # the reference's rate (TPU v5e HBM), bytes/s
+    link_bw: float = 50e9        # the reference's rate (one ICI link), bytes/s
+
+    def step_time(self, k: int) -> float:
+        """Roofline step time when the job's work is split over k slices."""
+        compute = self.flops / k / self.peak_flops
+        memory = self.hbm_bytes / k / self.hbm_bw
+        if k == 1:
+            coll = 0.0
+        else:
+            coll = 2.0 * (k - 1) / k * self.grad_bytes / self.link_bw
+        return max(compute, memory) + coll
+
+
+def roofline_profile(terms: RooflineTerms, k_min: int = 1, k_max: int = 16) -> np.ndarray:
+    """Marginal-throughput profile from roofline terms.
+
+    Strong scaling of a fixed per-step workload: throughput at k slices is
+    T(k) = tau(k_min) / tau(k) * k_min; marginals are the discrete
+    derivative, normalised to p(k_min) = 1 per the paper's §3 convention."""
+    ks = np.arange(k_min - 1, k_max + 1)
+    t = np.zeros(len(ks))
+    base = terms.step_time(max(k_min, 1))
+    for i, k in enumerate(ks):
+        t[i] = 0.0 if k <= 0 else base / terms.step_time(int(k)) * max(k_min, 1)
+    marg = np.diff(t)
+    base_m = marg[0]
+    if base_m <= 0:
+        raise ValueError("degenerate roofline profile")
+    p = np.maximum(marg / base_m, 0.0)
+    return np.minimum.accumulate(p)
+
+
+def elasticity_of(profile: np.ndarray) -> float:
+    return float(np.mean(profile))
+
+
+#: The keys of a dry-run cell's ``rates`` that name ``RooflineTerms`` fields.
+RATE_FIELDS = ("peak_flops", "hbm_bw", "link_bw")
+
+
+def terms_from_dryrun(arch: str, dryrun_dir: str = "results/dryrun_opt",
+                      shape: str = "train_4k", mesh: str = "16x16",
+                      tokens_per_step: int = 65_536) -> RooflineTerms:
+    """RooflineTerms of an architecture from its dry-run cell file
+    ``{dryrun_dir}/{arch}__{shape}__{mesh}.json`` (the reference's layout).
+
+    Unit convention (per device, the job on k fixed-size DP slices of
+    ``slice_chips`` devices): the cell was counted with the job spread over
+    ``chips/slice_chips`` slices, so the per-device work at k=1 is the
+    cell's per-device FLOPs and bytes scaled back up; the DP all-reduce
+    payload per device is the slice's shard of the gradients (2 bytes x
+    active params / slice_chips), the ring factor applied inside
+    ``RooflineTerms.step_time``.  A cell that carries ``rates`` (one counted
+    by ``repro_torch.launch.dryrun``) gives its device's rates; a reference
+    cell carries none and keeps the reference's defaults."""
+    import json
+    import os
+
+    slice_chips = 16
+    path = os.path.join(dryrun_dir, f"{arch}__{shape}__{mesh}.json")
+    with open(path) as f:
+        d = json.load(f)
+    slices_measured = max(d["chips"] // slice_chips, 1)
+    # The cell was counted at train_4k's 1M-token global batch; a cluster
+    # job's per-step batch (tokens_per_step) scales the compute/memory
+    # terms while the gradient-sync payload stays fixed: the monotone-
+    # decreasing marginal throughput, and why bigger models (more compute
+    # per sync byte) are more elastic (the paper's §2.3).
+    cell_tokens = 256 * 4096 if shape == "train_4k" else 32 * 32_768
+    scale = tokens_per_step / cell_tokens
+    rates = {k: float(v) for k, v in (d.get("rates") or {}).items() if k in RATE_FIELDS}
+    return RooflineTerms(
+        flops=float(d["hlo_stats"]["flops"]) * slices_measured * scale,
+        hbm_bytes=float(d["hlo_stats"]["hbm_bytes"]) * slices_measured * scale,
+        grad_bytes=2.0 * float(d["params_active"]) / slice_chips,
+        **rates,
+    )
+
+
+def profile_from_dryrun(arch: str, k_min: int = 1, k_max: int = 16,
+                        **kw) -> np.ndarray:
+    return roofline_profile(terms_from_dryrun(arch, **kw), k_min, k_max)

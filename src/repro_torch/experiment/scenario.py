@@ -127,7 +127,7 @@ class Scenario:
     learn_weeks: int = 3
     eval_weeks: int = 1
     seed: int = 7
-    elasticity: str = "mix"          # "mix" | "high" | "moderate" | "low" | "none"
+    elasticity: str = "mix"          # "mix" | "high" | "moderate" | "low" | "none" | "tpu"
     mode: str = "cpu"                # "cpu" | "gpu"
     delay_scale: float = 1.0         # queue-slack scaling (Section 6.1 queues)
     length_scale: float = 1.0

@@ -35,6 +35,11 @@ version is ``gqa_flash_bwd_lse_plain``), "fma" for fp32 and bf16 D = 32
 one to each of its kernels' counts.  Under ``no_grad``, or on tensors that
 need no grad, ``gqa_flash`` is the serving path above, unchanged: it asks
 for no LSE, and the output's bits do not depend on it.
+
+On ``meta`` tensors (the dry-run's op counting, ``launch/dryrun.py``) the
+forward and the backward return their outputs' shapes and dtypes, launch
+nothing, and report the work of the kernels their route would launch to
+``launch/op_analysis.py::record_kernel`` (``kernel_work``).
 """
 from __future__ import annotations
 
@@ -412,11 +417,48 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _on_meta(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "meta" for t in ts)
+
+
+def kernel_work(q: torch.Tensor, k: torch.Tensor, causal_offset: int, backward: bool,
+                lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of the kernels of one forward (``backward`` False) or
+    backward on these shapes: 2·D FLOPs per unmasked (row, key) pair per
+    query head for each product (the forward's 2; the backward's 7 on the
+    "wgmma" route, S and dP twice beside dV, dK and dQ, and 8 on "fma",
+    whose stats pass adds one S); each input read once and each output
+    written once: q, k, v in and o (and the LSE, with ``lse``) out; q, k, v,
+    o, dO and the LSE in, dq, dk, dv and D_i out."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    pairs = sum(min(max(i + causal_offset + 1, 0), sk) for i in range(sq))
+    products = 2 if not backward else (7 if bwd_route(q.dtype, d) == "wgmma" else 8)
+    flops = products * 2 * d * hq * b * pairs
+    qkv = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    rows = 4 * b * hq * sq                          # one fp32 per query row and head
+    nbytes = qkv + (rows if lse else 0) if not backward else \
+        2 * qkv + 2 * k.numel() * k.element_size() + 2 * rows
+    return flops, nbytes
+
+
+def _meta_forward(q, k, v, causal_offset: int, with_lse: bool):
+    from repro_torch.launch.op_analysis import record_kernel
+
+    b, sq, hq, d = q.shape
+    lse = with_lse and ROUTES.get((q.dtype, d)) == "wgmma"
+    record_kernel("gqa_flash", *kernel_work(q, k, causal_offset, False, lse))
+    return (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device),
+            torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if lse else None)
+
+
 def _forward(q, k, v, causal_offset: int, with_lse: bool = False):
     """(output, LSE): the LSE (B, Hq, Sq) fp32 when ``with_lse`` asks for it
     and the Hopper kernel runs (the wgmma backward reads it), else None."""
     if _on_cpu(q, k, v):
         return gqa_flash_plain(q, k, v, causal_offset), None
+    if _on_meta(q, k, v):
+        return _meta_forward(q, k, v, causal_offset, with_lse)
     if with_lse and ROUTES.get((q.dtype, q.shape[-1])) == "wgmma":
         return launch(q, k, v, causal_offset, with_lse=True)
     return launch(q, k, v, causal_offset), None
@@ -438,6 +480,11 @@ def gqa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     route reads ``lse``, the forward's)."""
     if _on_cpu(q, k, v, o, do):
         return gqa_flash_bwd_plain(q, k, v, o, do, causal_offset)
+    if _on_meta(q, k, v, o, do):
+        from repro_torch.launch.op_analysis import record_kernel
+
+        record_kernel("gqa_flash_bwd", *kernel_work(q, k, causal_offset, True))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return launch_bwd(q, k, v, o, do, causal_offset, lse=lse)
 
 

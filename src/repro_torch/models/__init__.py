@@ -2,4 +2,4 @@
 rwkv6 and zamba2 on the chunked linear recurrence."""
 from .api import (FAMILIES, forward, init_params, module_for,  # noqa: F401
                   param_count, params_from_reference)
-from .common import ModelConfig  # noqa: F401
+from .common import SHAPES, ModelConfig, ShapeConfig  # noqa: F401

@@ -101,6 +101,24 @@ class ModelConfig:
         return dense + self.num_layers * 3 * d * self.d_ff * self.experts_per_token
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the assigned grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 # --------------------------------------------------------------------------
 # initializer
 

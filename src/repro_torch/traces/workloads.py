@@ -49,6 +49,7 @@ class TraceSpec:
     k_min: int = 1
     k_max: int = 16
     elasticity: str = "mix"          # "mix" | "high" | "moderate" | "low" | "none"
+                                     # | "tpu" (roofline-derived per-arch profiles)
     mode: str = "cpu"                # "cpu" fixed power | "gpu" heterogeneous
     seed: int = 0
     length_scale: float = 1.0        # Fig. 13 distribution-shift knobs
@@ -61,14 +62,49 @@ def mean_length(spec: TraceSpec) -> float:
     return max(1.0, raw)
 
 
+#: Each architecture's roofline profile, keyed by arch name only (the first
+#: spec's ``k_min``/``k_max`` serve every later one, as in the JAX package).
+_TPU_PROFILE_CACHE: dict[str, np.ndarray] = {}
+
+#: The LM-training jobs of ``elasticity="tpu"``, in the JAX package's order
+#: (a job draws its index into this list).
+TPU_ARCHS = ("stablelm-1.6b", "minicpm-2b", "internvl2-2b", "llama3-8b",
+             "rwkv6-7b", "zamba2-7b", "musicgen-large", "dbrx-132b",
+             "qwen3-moe-235b-a22b", "command-r-plus-104b")
+
+
+def _tpu_profile(rng: np.random.Generator, spec: TraceSpec):
+    """Draw an assigned-architecture job whose scaling profile comes from
+    its dry-run roofline terms (``results/dryrun_opt/{arch}__train_4k__16x16.json``,
+    relative to the working directory).  None when that file is missing: the
+    caller falls back to the parametric mix, and the next job of that arch
+    tries the file again (a miss is not cached)."""
+    from repro_torch.core.profiles import profile_from_dryrun
+
+    name = TPU_ARCHS[rng.integers(len(TPU_ARCHS))]
+    if name not in _TPU_PROFILE_CACHE:
+        try:
+            _TPU_PROFILE_CACHE[name] = profile_from_dryrun(
+                name, k_min=spec.k_min, k_max=spec.k_max)
+        except (FileNotFoundError, OSError):
+            return None
+    prof = _TPU_PROFILE_CACHE[name]
+    # comm volume per slot ~ gradient payload (GB) for Eq. 3 accounting
+    from repro_torch.configs import ARCHS
+
+    comm_gb = 2.0 * ARCHS[name].active_param_count() / 16 / 1e9
+    return prof, comm_gb, 1.0, name
+
+
 def _pick_profile(rng: np.random.Generator, spec: TraceSpec) -> tuple[np.ndarray, float, float, str]:
     if spec.elasticity == "none":
         return np.ones(1), 0.0, 1.0, "rigid"
     if spec.elasticity == "tpu":
-        raise NotImplementedError(
-            "elasticity='tpu' derives profiles from compiled model dry-runs, "
-            "which this package does not carry yet")
-    if spec.elasticity == "mix":
+        out = _tpu_profile(rng, spec)
+        if out is not None:
+            return out
+        # fall through to the parametric mix when the dry-run cell is absent
+    if spec.elasticity in ("mix", "tpu"):
         w: WorkloadSpec = TABLE3_WORKLOADS[rng.integers(len(TABLE3_WORKLOADS))]
         prof = w.profile(spec.k_min, spec.k_max)
         power = w.power_kw if spec.mode == "gpu" else 1.0

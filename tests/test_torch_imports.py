@@ -26,3 +26,25 @@ def test_repro_torch_imports_neither_jax_nor_repro():
         else (out.stdout.strip(), "")
     assert int(count) >= 20, out.stdout
     assert bad == "", f"repro_torch loaded {bad}"
+
+
+_DRYRUN_SCRIPT = r"""
+import sys
+import repro_torch.launch.dryrun, repro_torch.launch.op_analysis, repro_torch.launch.mesh
+import repro_torch.core.profiles, repro_torch.traces.workloads
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print(",".join(bad), "XLA_FLAGS" in __import__("os").environ)
+"""
+
+
+def test_dryrun_modules_import_neither_jax_nor_repro():
+    """The dry-run, its op counter and mesh, the roofline profiles and the
+    "tpu" trace branch: no JAX, no ``repro``, no XLA flag set at import."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"], out.stdout
