@@ -8,8 +8,12 @@ Both keep a bf16 error-feedback residual, so the quantisation error is fed
 back into the next step's gradient.  Each step is the reference's float32
 expression; ``torch.round`` rounds half to even, as ``jnp.round`` does, and
 ``torch.topk`` picks the same threshold, so the results equal the
-reference's bit for bit.  On one device nothing crosses a wire: compress
-and decompress run back to back, as in the reference's jitted step.
+reference's bit for bit.  Compress and decompress run back to back, as in
+the reference's jitted step.  On a mesh the train step
+(``train/step.py::make_train_step``) hands the compressor the whole reduced
+gradient of each leaf (gathered from the ranks' blocks) and keeps this
+rank's block of what it returns, as the reference compresses its global
+gradient: a per-tensor scale or top-k threshold is the whole leaf's.
 """
 from __future__ import annotations
 

@@ -2,23 +2,28 @@
 ``repro/elastic/rescale.py``).
 
 The resource manager (CarbonFlexPolicy, MPC, any Policy) grants the job a
-data-parallel degree ``k`` per interval; ``k = 0`` suspends it.  When ``k``
-changes, the trainer checkpoints and restores its state (the paper's
-scancel, checkpoint and resubmit, §5); any step failure, or an injected
-fault, rolls back to the last checkpoint.  A step slower than
+data-parallel degree ``k`` per interval; ``k = 0`` suspends it.  The
+trainer runs the train step on a mesh (k, ``model_axis``), axes ("data",
+"model"); when ``k`` changes it checkpoints, builds the new mesh and
+restores the state under the new shardings (the paper's scancel,
+checkpoint and resubmit, §5); any step failure, or an injected fault,
+rolls back to the last checkpoint.  A step slower than
 ``straggler_factor`` times the rolling median marks a straggler.
 
-The port runs the step on one device.  A ``k`` above the number of visible
-devices raises, as the reference's ``make_mesh`` does; a ``k`` within it
-runs the same step on the trainer's device (data parallelism across cards
-waits for the sharding work, and changes no value: the reference's sharded
-step computes the same loss), so a rescale between two such ``k`` is the
-checkpoint round trip alone.  ``model_axis`` above 1 raises.
+The trainer runs in every rank of the caller's process group (a world of
+one without one).  A phase at scale k builds its mesh over the first
+k * model_axis ranks (``launch.mesh.DistMesh``: every rank builds each
+mesh, as ``new_group`` is collective over the world); the other ranks sit
+the phase out.  k * model_axis above the world size raises ``ValueError``,
+as the reference's ``make_mesh`` does.  Each rank holds its blocks of the
+state; a checkpoint gathers them and the first rank writes the reference's
+files.  ``run`` returns the same dict on every rank (the first rank's).
 
 A step that fails rolls back and retries as in the reference, but a failure
 that ``MAX_RETRIES`` rollbacks in a row do not cure (a kernel that fails
 every launch, memory that is never freed) is raised, where the reference
-would retry for ever.
+would retry for ever.  The ranks of a mesh roll back to the step its first
+rank agrees on; a failure on one rank alone is not handled.
 """
 from __future__ import annotations
 
@@ -28,11 +33,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import distributed as D
 from repro_torch.device import resolve_device
-from repro_torch.models.common import ModelConfig
+from repro_torch.launch.mesh import DistMesh, make_mesh
+from repro_torch.models.common import LogicalRules, ModelConfig
 from repro_torch.train import (CheckpointManager, OptimizerConfig, SyntheticLM,
-                               TrainState, init_state, make_train_step, state_template)
+                               TrainState, init_state, make_train_step, state_shardings,
+                               state_template)
 
 
 MAX_RETRIES = 3
@@ -46,9 +55,9 @@ class RescalePlan:
     steps: int             # train steps to run at this scale
 
 
-def visible_devices(device: torch.device) -> int:
-    """Devices a data-parallel mesh could span: the CUDA devices, or one host."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def world_size() -> int:
+    """The ranks of the caller's process group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class ElasticTrainer:
@@ -57,9 +66,6 @@ class ElasticTrainer:
                  model_axis: int = 1, seed: int = 0,
                  compression: Optional[Callable] = None,
                  straggler_factor: float = 3.0, device="cuda"):
-        if model_axis != 1:
-            raise NotImplementedError(
-                f"model_axis={model_axis}: tensor parallelism waits for the sharding work")
         self.cfg = cfg
         self.data = data
         self.opt = opt
@@ -71,6 +77,8 @@ class ElasticTrainer:
         self.seed = seed
         self._state: Optional[TrainState] = None
         self._k = 0
+        self._built = False
+        self._rules: Optional[LogicalRules] = None
         self._step_fn = None
         self.step_times: list[float] = []
         self.stragglers = 0
@@ -79,27 +87,58 @@ class ElasticTrainer:
 
     # ----- scale management -------------------------------------------------
 
+    @property
+    def member(self) -> bool:
+        """Whether this rank is in the current phase's mesh."""
+        return self._rules is not None and self._rules.mesh.member
+
+    def _shardings(self):
+        return state_shardings(self.cfg, self._rules, self.compression is not None)
+
+    def _save(self, step: int, blocking: bool = False) -> None:
+        self.ckpt.save(step, self._state, blocking=blocking, shardings=self._shardings())
+
+    def _restore(self, step: Optional[int] = None) -> TrainState:
+        return self.ckpt.restore(state_template(self.cfg, self.compression is not None),
+                                 step=step, device=self.device, shardings=self._shardings())
+
+    def _agree(self, value: int) -> int:
+        """The mesh's first rank's ``value``, on every rank of the mesh."""
+        rules = self._rules
+        first = all(rules.coords[a] == 0 for a in rules.mesh.axes)
+        t = torch.tensor(value if first else 0, dtype=torch.int64, device=self.device)
+        return int(D.all_reduce(t, rules, rules.mesh.axes))
+
     def _build(self, k: int) -> None:
-        n = visible_devices(self.device)
-        if k > n:
+        n = world_size()
+        if k * self.model_axis > n:
             raise ValueError(f"Number of devices {n} must be >= the product of "
                              f"mesh_shape ({k}, {self.model_axis})")
+        if self._built:
+            # live rescale: the old mesh checkpoints, the new one restores
+            if self.member:
+                self._save(self._state.step, blocking=True)
+            if n > 1:
+                dist.barrier()
+        backend = dist.get_backend() if n > 1 or dist.is_initialized() else None
+        mesh = DistMesh(make_mesh((k, self.model_axis), ("data", "model")),
+                        device_type="cuda" if backend == "nccl" else "cpu")
+        self._rules = LogicalRules(mesh)
         self._step_fn = make_train_step(self.cfg, self.opt, compression=self.compression,
-                                        ce_chunk=128)
+                                        ce_chunk=128, rules=self._rules)
         compressed = self.compression is not None
-        if self._state is None:
-            if self.ckpt.latest_step() is not None:
-                self._state = self.ckpt.restore(state_template(self.cfg, compressed),
-                                                device=self.device)
-                self.recoveries += 1
-            else:
-                self._state = init_state(self.cfg, self.seed, self.device,
-                                         compression=compressed)
-        else:
-            # live rescale: checkpoint -> restore at the new scale
-            self.ckpt.save(self._state.step, self._state, blocking=True)
-            self._state = self.ckpt.restore(self._state)
+        if not self.member:
+            self._state = None
+        elif self._built:
+            self._state = self._restore()
             self.rescales += 1
+        elif self.ckpt.latest_step() is not None:
+            self._state = self._restore()
+            self.recoveries += 1
+        else:
+            self._state = init_state(self.cfg, self.seed, self.device,
+                                     compression=compressed, rules=self._rules)
+        self._built = True
         self._k = k
 
     def set_scale(self, k: int) -> None:
@@ -119,13 +158,17 @@ class ElasticTrainer:
             if phase.k <= 0:       # suspended (paper: job paused at high CI)
                 continue
             self.set_scale(phase.k)
+            if not self.member:
+                continue
             # a phase advances state.step by phase.steps: after a fault
             # rollback the re-done steps are not counted twice
             target = self._state.step + phase.steps
             while self._state.step < target:
                 step_no = self._state.step
-                batch = {"tokens": torch.from_numpy(self.data.batch_at(step_no))
-                         .to(self.device)}
+                tokens = torch.from_numpy(self.data.batch_at(step_no))
+                tokens = self._rules.sharding("batch", "seq", dims=tuple(tokens.shape)
+                                              ).local(tokens)
+                batch = {"tokens": tokens.to(self.device)}
                 t0 = time.time()
                 try:
                     if fault_at is not None and step_no == fault_at and not faulted:
@@ -139,8 +182,11 @@ class ElasticTrainer:
                     failures += 1
                     if failures > MAX_RETRIES:
                         raise
-                    if self.ckpt.latest_step() is not None:
-                        self._state = self.ckpt.restore(self._state)
+                    self.ckpt.wait()
+                    latest = self._agree(-1 if self.ckpt.latest_step() is None
+                                         else self.ckpt.latest_step())
+                    if latest >= 0:
+                        self._state = self._restore(latest)
                     self.recoveries += 1
                     continue
                 failures = 0
@@ -151,13 +197,19 @@ class ElasticTrainer:
                     self.stragglers += 1
                 losses.append(loss)
                 if step_no and step_no % checkpoint_every == 0:
-                    self.ckpt.save(step_no, self._state)
+                    self._save(step_no)
         self.ckpt.wait()
-        self.ckpt.save(self._state.step, self._state, blocking=True)
-        return {
+        if self.member:
+            self._save(self._state.step, blocking=True)
+        out = {
             "losses": losses,
-            "final_step": self._state.step,
+            "final_step": None if self._state is None else self._state.step,
             "rescales": self.rescales,
             "recoveries": self.recoveries,
             "stragglers": self.stragglers,
         }
+        if world_size() > 1:
+            box = [out]
+            dist.broadcast_object_list(box, src=0)
+            out = box[0]
+        return out

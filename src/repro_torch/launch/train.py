@@ -2,22 +2,33 @@
 (the counterpart of ``repro/launch/train.py``).
 
 Runs the training loop of any assigned architecture through
-``ElasticTrainer``: ``--reduced`` for the small same-family config.
-Resumes from ``--ckpt`` when it holds a checkpoint; ``--compress`` adds
-int8 gradient compression with error feedback.  Runs on the card unless
-``--device cpu``.  ``--dp`` above the visible devices and ``--tp`` above 1
-raise, as in ``ElasticTrainer``; ``--host-devices`` (an XLA flag of the
-reference) has no counterpart and raises when set.
+``ElasticTrainer`` on a mesh (``--dp``, ``--tp``): ``--reduced`` for the
+small same-family config.  Resumes from ``--ckpt`` when it holds a
+checkpoint; ``--compress`` adds int8 gradient compression with error
+feedback.  Runs on the card unless ``--device cpu``.
+
+The ranks are the caller's:
+
+- one process: a world of one, ``--dp`` and ``--tp`` 1;
+- ``torchrun --nproc-per-node N -m repro_torch.launch.train ...``: the
+  process group is read from torchrun's environment, ``nccl`` on cards
+  (one card a rank), ``gloo`` with ``--device cpu``;
+- ``--host-devices N`` (the reference's forced host devices): N CPU ranks
+  over gloo, spawned here, with ``--device cpu``.
+
+``--dp`` times ``--tp`` above the ranks raises ``ValueError``, as the
+reference's mesh does.  The printed lines are the reference's.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import tempfile
 import time
 
 
-def main(argv=None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -31,25 +42,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="the reference's forced host device count: raises when set")
+                    help="spawn N CPU ranks over gloo (the reference's forced host devices)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
 
-    if args.host_devices:
-        raise NotImplementedError("--host-devices sets an XLA flag of the JAX package; "
-                                  "the port has no counterpart")
 
+def _config(args):
     from repro_torch.configs import ARCHS, reduced
-    from repro_torch.elastic import ElasticTrainer, RescalePlan, make_compressor
-    from repro_torch.models import param_count
-    from repro_torch.train import DataConfig, OptimizerConfig, SyntheticLM
 
     cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = reduced(cfg)
-    print(f"arch {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
-          f"dp={args.dp} tp={args.tp}", flush=True)
+    return reduced(cfg) if args.reduced else cfg
 
+
+def _train(args) -> tuple[dict, float]:
+    """This rank's trainer; returns (its result, wall seconds)."""
+    from repro_torch.elastic import ElasticTrainer, RescalePlan, make_compressor
+    from repro_torch.train import DataConfig, OptimizerConfig, SyntheticLM
+
+    cfg = _config(args)
     data = SyntheticLM(DataConfig(batch=args.batch, seq_len=args.seq,
                                   vocab_size=cfg.vocab_size, seed=0))
     opt = OptimizerConfig(
@@ -63,12 +73,81 @@ def main(argv=None) -> dict:
     t0 = time.time()
     out = trainer.run([RescalePlan(k=args.dp, steps=args.steps)],
                       checkpoint_every=args.checkpoint_every)
-    dt = time.time() - t0
+    return out, time.time() - t0
+
+
+def _summary(out: dict, dt: float) -> str:
     losses = out["losses"]
-    print(f"{len(losses)} steps in {dt:.1f}s "
-          f"({dt / max(len(losses), 1):.2f}s/step); "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
-          f"resumed_from_ckpt={trainer.recoveries > 0}")
+    return (f"{len(losses)} steps in {dt:.1f}s "
+            f"({dt / max(len(losses), 1):.2f}s/step); "
+            f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+            f"resumed_from_ckpt={out['recoveries'] > 0}")
+
+
+def _host_rank(rank: int, argv: list, n: int, init: str, result: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=n)
+    try:
+        out, dt = _train(_parser().parse_args(argv))
+        if rank == 0:
+            with open(result, "w") as f:
+                json.dump({"out": out, "dt": dt}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_host_ranks(args, argv: list) -> tuple[dict, float]:
+    import torch.multiprocessing as mp
+
+    if args.device != "cpu":
+        raise ValueError("--host-devices runs CPU ranks: pass --device cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        result = os.path.join(tmp, "result.json")
+        mp.start_processes(_host_rank, args=(argv, args.host_devices, init, result),
+                           nprocs=args.host_devices, join=True, start_method="spawn")
+        with open(result) as f:
+            got = json.load(f)
+    return got["out"], got["dt"]
+
+
+def main(argv=None) -> dict:
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+
+    from repro_torch.models import param_count
+
+    cfg = _config(args)
+    rank = 0
+    if args.host_devices:
+        print(f"arch {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
+              f"dp={args.dp} tp={args.tp}", flush=True)
+        out, dt = _spawn_host_ranks(args, argv)
+    else:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:          # under torchrun
+            import torch
+            import torch.distributed as dist
+
+            if not dist.is_initialized():
+                if args.device == "cpu":
+                    dist.init_process_group("gloo")
+                else:
+                    local = int(os.environ.get("LOCAL_RANK", "0"))
+                    torch.cuda.set_device(local)
+                    args.device = f"cuda:{local}"
+                    dist.init_process_group("nccl")
+            rank = dist.get_rank()
+        if rank == 0:
+            print(f"arch {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
+                  f"dp={args.dp} tp={args.tp}", flush=True)
+        out, dt = _train(args)
+    if rank == 0:
+        print(_summary(out, dt), flush=True)
     return out
 
 

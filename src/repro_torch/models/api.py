@@ -12,6 +12,13 @@ scales (``ln*``, read by ``rms_norm``), rwkv6's decay base ``w0`` and bonus
 would change the decay at full width.  Training keeps master weights:
 with ``master=True`` every leaf is stored in ``param_dtype``, as the
 reference stores them, and the forward casts at use.
+
+On a mesh (``rules``, ``models/common.py::LogicalRules``) each rank holds
+its block of every leaf as ``param_specs`` places it: ``shard_params``
+takes a whole tree to the rank's tree, ``gather_params`` takes it back;
+``param_shardings`` and ``abstract_params`` are the reference's trees of
+shardings and of shape/dtype/sharding stand-ins (``meta`` tensors with a
+``sharding`` attribute).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import rwkv6, transformer, zamba2
-from .common import ModelConfig, dense_init
+from .common import LogicalRules, ModelConfig, Sharding, dense_init
 
 FAMILIES = {
     "dense": transformer,
@@ -93,10 +100,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", master: bool = F
 
 
 def params_from_reference(cfg: ModelConfig, tree: dict, device="cuda",
-                          master: bool = False) -> dict:
+                          master: bool = False, rules: LogicalRules | None = None) -> dict:
     """The port's params from the reference's param dict given as numpy
     arrays (same keys and shapes), stored as ``init_params`` stores them
-    (with ``master``: every leaf in ``param_dtype``)."""
+    (with ``master``: every leaf in ``param_dtype``); with ``rules``, each
+    leaf's block for this rank (``shard_params``)."""
     dev = resolve_device(device)
     shapes = dict(_walk_flat(module_for(cfg).param_shapes(cfg)))
     given = dict(_walk_flat(tree))
@@ -110,11 +118,60 @@ def params_from_reference(cfg: ModelConfig, tree: dict, device="cuda",
                              f"{shapes[path]}")
         value = torch.tensor(np.asarray(arr, dtype=np.float32))
         _set(out, path, value.to(device=dev, dtype=_storage_dtype(cfg, path[-1], master)))
-    return out
+    return out if rules is None else shard_params(out, cfg, rules)
 
 
-def forward(params, tokens, cfg: ModelConfig, **kw):
-    return module_for(cfg).forward(params, tokens, cfg, **kw)
+def _map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def param_shardings(cfg: ModelConfig, rules: LogicalRules) -> dict:
+    """Each leaf's ``Sharding`` under ``rules`` (the reference's
+    ``param_shardings``): its logical names, replication where a dim does
+    not divide."""
+    key = ("params", cfg)
+    cache = rules.__dict__.setdefault("_trees", {})
+    if key not in cache:
+        mod = module_for(cfg)
+        cache[key] = _map(lambda sh, sp: rules.sharding(*sp, dims=sh),
+                          mod.param_shapes(cfg), mod.param_specs(cfg))
+    return cache[key]
+
+
+def abstract_params(cfg: ModelConfig, rules: LogicalRules) -> dict:
+    """``meta`` tensors of the whole leaves' shapes in ``param_dtype``, each
+    carrying its ``Sharding`` as ``.sharding`` (the reference's
+    ``ShapeDtypeStruct(..., sharding=)``)."""
+    def leaf(shape, sharding: Sharding):
+        t = torch.empty(shape, dtype=cfg.param_dtype, device="meta")
+        t.sharding = sharding
+        return t
+
+    return _map(leaf, module_for(cfg).param_shapes(cfg), param_shardings(cfg, rules))
+
+
+def shard_params(params: dict, cfg: ModelConfig, rules: LogicalRules) -> dict:
+    """A whole param tree to this rank's blocks (copies)."""
+    return _map(lambda t, sh: sh.local(t), params, param_shardings(cfg, rules))
+
+
+def gather_params(params: dict, cfg: ModelConfig, rules: LogicalRules) -> dict:
+    """This rank's blocks made whole again (every rank gets every leaf).
+    Autograd-aware
+    (``distributed.gather_leaf``): the gradient reaches the blocks."""
+    from repro_torch.distributed import gather_leaf
+
+    return _map(lambda t, sh: gather_leaf(t, sh.dims(t.dim()), rules),
+                params, param_shardings(cfg, rules))
+
+
+def forward(params, tokens, cfg: ModelConfig, rules: LogicalRules | None = None, **kw):
+    """The family's forward.  With ``rules`` bound to ranks, ``params`` are
+    the rank's blocks and ``tokens`` its slice of the batch."""
+    return module_for(cfg).forward(params, tokens, cfg, rules=rules, **kw)
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -1,10 +1,15 @@
 """Shared model substrate: the config, norms, rotary embedding, attention
-and the MLP, as pure functions over tensors (the counterpart of
-``repro/models/common.py``).
+and the MLP, as pure functions over tensors, and the logical sharding
+rules (the counterpart of ``repro/models/common.py``).
 
-The port runs on one device, so the reference's logical sharding rules
-(``LogicalRules``, ``constrain``) have no counterpart: on a 1×1 mesh they
-are identities.  Dtype promotion follows the reference step by step:
+Sharding follows the reference's logical-axis rules: every tensor dimension
+carries a logical name, and ``LogicalRules`` maps it to mesh axes with the
+reference's ``spec`` semantics.  The reference hands the specs to GSPMD
+through ``constrain``; here they place tensors explicitly: each rank holds
+its shard of a leaf (``Sharding.local``), and the model code calls the
+collectives of ``repro_torch/distributed.py`` where the layout needs them
+(explicit SPMD), so ``constrain`` has no counterpart.  Dtype promotion
+follows the reference step by step:
 ``rms_norm`` works in fp32 and returns the input dtype, ``rope`` mixes the
 input with fp32 cos/sin and casts back, attention accumulates in fp32.
 """
@@ -12,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -117,6 +123,142 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+# --------------------------------------------------------------------------
+# logical sharding rules
+
+
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,          # activation d_model
+    "fsdp": "data",         # weight contracting / largest dim (ZeRO-3 style)
+    "vocab": "model",
+    "heads": "model",
+    "kv": None,             # GQA kv heads usually < model axis -> replicate
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "layers": None,
+    "seq_sp": "model",      # sequence-parallel residual stream (opt-in)
+    "cache_seq": "model",   # decode: sequence-sharded KV cache
+    "cache_batch": ("pod", "data"),
+    "ssm_state": None,
+}
+
+#: The mesh axes a batch is split over; every other axis holds replicas
+#: of a rank's batch slice.
+BATCH_AXES = ("pod", "data")
+
+
+def axes_of(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None, an axis, or a tuple of axes)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class LogicalRules:
+    """Maps logical axis names to mesh axes, validated against the mesh.
+
+    ``mesh`` is a ``launch.mesh.Mesh`` (a description: specs only) or a
+    ``launch.mesh.DistMesh`` (bound to ranks: specs, local slices and the
+    collectives)."""
+
+    def __init__(self, mesh, overrides: dict[str, Any] | None = None):
+        self.mesh = mesh
+        self.rules = dict(DEFAULT_RULES)
+        if overrides:
+            self.rules.update(overrides)
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return self.mesh.sizes
+
+    def size(self, axes) -> int:
+        """The product of the extents of ``axes`` (an entry of a spec)."""
+        return math.prod(self.sizes.get(a, 1) for a in axes_of(axes))
+
+    @property
+    def coords(self) -> dict:
+        """This rank's coordinate on each axis (0 everywhere on a mesh of one
+        device with no process group)."""
+        coords = getattr(self.mesh, "coords", None)
+        if coords is not None:
+            return coords
+        if self.mesh.devices != 1:
+            raise ValueError(f"mesh {self.mesh.shape} spans {self.mesh.devices} devices: "
+                             "bind it to the caller's process group (launch.mesh.DistMesh)")
+        return {a: 0 for a in self.mesh.axes}
+
+    def index(self, axes) -> int:
+        """This rank's position along ``axes`` taken row-major, major axis
+        first (the shard of a dim split over them)."""
+        i = 0
+        for a in axes_of(axes):
+            i = i * self.sizes.get(a, 1) + (self.coords.get(a) or 0)
+        return i
+
+    def spec(self, *logical: Optional[str], dims: Sequence[int] | None = None) -> tuple:
+        """The reference's PartitionSpec entries for the given logical dims:
+        axes missing from the mesh dropped, replication where a dim size
+        does not divide the mesh extent (minicpm's 36 heads on 16),
+        trailing Nones stripped."""
+        out = []
+        for i, name in enumerate(logical):
+            axes = axes_of(self.rules.get(name)) if name is not None else ()
+            axes = tuple(a for a in axes if a in self.sizes)
+            if not axes or (dims is not None and dims[i] % self.size(axes) != 0):
+                out.append(None)
+                continue
+            out.append(axes[0] if len(axes) == 1 else axes)
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+    def sharding(self, *logical: Optional[str], dims: Sequence[int] | None = None
+                 ) -> "Sharding":
+        return Sharding(self, self.spec(*logical, dims=dims))
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in BATCH_AXES if a in self.sizes)
+
+    @property
+    def tp(self) -> int:
+        """The ``model`` axis' extent."""
+        return self.sizes.get("model", 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec under a set of rules (the counterpart of ``NamedSharding``):
+    ``spec[i]`` names the mesh axes dim i is split over."""
+
+    rules: LogicalRules
+    spec: tuple
+
+    def dims(self, ndim: int) -> tuple[tuple[str, ...], ...]:
+        """The mesh axes of each of ``ndim`` dims (the spec padded)."""
+        return tuple(axes_of(e) for e in self.spec) + ((),) * (ndim - len(self.spec))
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        return tuple(n // self.rules.size(a) for n, a in zip(shape, self.dims(len(shape))))
+
+    def slices(self, shape) -> tuple[slice, ...]:
+        """This rank's block of a leaf of ``shape``."""
+        out = []
+        for n, axes in zip(shape, self.dims(len(shape))):
+            c = n // self.rules.size(axes)
+            i = self.rules.index(axes)
+            out.append(slice(i * c, (i + 1) * c))
+        return tuple(out)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``full`` (a copy)."""
+        return full[self.slices(full.shape)].clone()
 
 
 # --------------------------------------------------------------------------

@@ -45,6 +45,40 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names per parameter (the reference's, leaf for leaf)."""
+    return {
+        "embed": ("vocab", "fsdp"),
+        "layers": {
+            "ln1": ("layers", "fsdp"), "ln2": ("layers", "fsdp"),
+            "mix": ("layers", None, "fsdp"),
+            "wr": ("layers", "fsdp", "heads", "head_dim"),
+            "wk": ("layers", "fsdp", "heads", "head_dim"),
+            "wv": ("layers", "fsdp", "heads", "head_dim"),
+            "wg": ("layers", "fsdp", "heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "fsdp"),
+            "w0": ("layers", "fsdp"),
+            "w1": ("layers", "fsdp", None),
+            "w2": ("layers", None, "fsdp"),
+            "u": ("layers", "heads", "head_dim"),
+            "mix_c": ("layers", None, "fsdp"),
+            "ck": ("layers", "fsdp", "mlp"),
+            "cv": ("layers", "mlp", "fsdp"),
+            "cr": ("layers", "fsdp", None),
+        },
+        "ln_f": ("fsdp",),
+        "lm_head": ("fsdp", "vocab"),
+    }
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    return {
+        "state": ("layers", "cache_batch", "heads", None, None),
+        "tok1": ("layers", "cache_batch", "embed"),
+        "tok2": ("layers", "cache_batch", "embed"),
+    }
+
+
 def _shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
     """Token shift: x_{t-1} (zeros / carried ``prev`` at t=0)."""
     first = prev[:, None] if prev is not None else torch.zeros_like(x[:, :1])
@@ -107,12 +141,18 @@ def _layer(x, lp, cfg: ModelConfig):
     return x + _channel_block(x, lp, cfg)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
             return_hidden: bool = False, **_):
     """Token logits (B, S, V); ``return_hidden`` returns (final hidden
     states, output head) instead.  Other keywords (``prefix_embeds``) are
     ignored, as the reference ignores them.  Layers run as ``remat_mode``
     says: its "sublayers" are the time mix and the channel mix."""
+    if rules is not None:
+        # on a mesh: every leaf gathered whole and the compute replicated
+        # over ``model`` (the batch stays split over the batch axes)
+        from .api import gather_params
+
+        params = gather_params(params, cfg, rules)
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     layers = params["layers"]
     mode = remat_mode(cfg)

@@ -62,6 +62,43 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names per parameter (the reference's, leaf for leaf)."""
+    return {
+        "embed": ("vocab", "fsdp"),
+        "layers": {
+            "ln": ("layers", "fsdp"),
+            "in_z": ("layers", "fsdp", "mlp"), "in_x": ("layers", "fsdp", "mlp"),
+            "in_b": ("layers", "fsdp", "ssm_state"),
+            "in_c": ("layers", "fsdp", "ssm_state"),
+            "in_dt": ("layers", "fsdp", "heads"),
+            "conv": ("layers", None, "mlp"),
+            "a_log": ("layers", "heads"), "dt_bias": ("layers", "heads"),
+            "d_skip": ("layers", "heads"),
+            "out": ("layers", "mlp", "fsdp"),
+        },
+        "shared": {
+            "ln1": ("fsdp",), "ln2": ("fsdp",),
+            "wq": ("fsdp", "heads", "head_dim"), "wk": ("fsdp", "kv", "head_dim"),
+            "wv": ("fsdp", "kv", "head_dim"), "wo": ("heads", "head_dim", "fsdp"),
+            "w_gate": ("fsdp", "mlp"), "w_up": ("fsdp", "mlp"),
+            "w_down": ("mlp", "fsdp"),
+        },
+        "ln_f": ("fsdp",),
+        "lm_head": ("fsdp", "vocab"),
+    }
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ssm": ("layers", "cache_batch", "heads", "ssm_state", None),
+        "conv": ("layers", "cache_batch", None, "mlp"),
+        "k": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "v": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "length": (),
+    }
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, carry: torch.Tensor | None = None):
     """Depthwise causal conv, width CONV_WIDTH.  x: (B, S, di), w: (W, di).
     ``carry``: (B, W-1, di) previous tokens (decode).  Returns (silu of the
@@ -136,7 +173,7 @@ def _mamba_sublayer(x, lp, cfg: ModelConfig):
     return mamba_block(rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
             return_hidden: bool = False, **_):
     """Token logits (B, S, V); ``return_hidden`` returns (final hidden
     states, output head) instead.  Other keywords (``prefix_embeds``) are
@@ -146,6 +183,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     reference's ``mlp_out``/``attn_out``); the reference's "full" also
     recomputes a group's blocks inside the group's own checkpoint, which
     changes what is kept, not a value."""
+    if rules is not None:
+        # on a mesh: every leaf gathered whole and the compute replicated
+        # over ``model`` (the batch stays split over the batch axes)
+        from .api import gather_params
+
+        params = gather_params(params, cfg, rules)
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     positions = torch.arange(x.shape[1], device=x.device)
     sp = params["shared"]

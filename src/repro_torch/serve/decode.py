@@ -18,23 +18,103 @@ Unlike the reference, which returns a new cache, every step writes the
 cache's tensors in place (an index write where the reference blends a
 one-hot mask into the K/V cache: equal for finite values) and returns the
 same tensors, so a 1 GB cache is not copied every step.
+
+On a mesh (``rules`` bound to ranks) each rank holds its block of the cache
+as ``cache_specs`` places it: batch over (pod, data), the transformer's
+sequence dim over ``model`` (``cache_seq``).  Decode attention is then the
+reference's ``sharded_decode_attention``: the rank writes the new K/V only
+if ``length`` falls in its slice, computes partial (m, l, o) over its
+slice, and a ``pmax`` and a renormalised ``psum`` combine them; q is
+gathered over ``model`` first, and the output sliced back to the rank's
+heads for the row-parallel ``wo``.  A ``model`` axis of 1, or one that
+does not divide the cache length, takes the plain path, as the
+reference's.  rwkv6 and zamba2 gather their cache and params at use and
+compute replicated over ``model``, writing their blocks back.  A cache on a
+mesh records its whole ``max_seq``; its batch must divide the batch axes.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention
 from repro_torch.models import api, rwkv6, transformer, zamba2
-from repro_torch.models.common import ModelConfig, chunked_attention, rms_norm, rope
+from repro_torch.models.common import (LogicalRules, ModelConfig, chunked_attention,
+                                       rms_norm, rope)
 
 DECODE_CHUNK = 2048
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
-    dev = resolve_device(device)
+def _tf_cache_specs(cfg: ModelConfig) -> dict:
+    kv = ("layers", "cache_batch", "cache_seq", "kv", "head_dim")
+    return {"k": kv, "v": kv, "length": ()}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    if cfg.family == "ssm":
+        return rwkv6.cache_specs(cfg)
+    if cfg.family == "hybrid":
+        return zamba2.cache_specs(cfg)
+    return _tf_cache_specs(cfg)
+
+
+def _cache_leaves(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The whole cache's leaves as (shape, dtype); ``length`` as ((), None)."""
+    cache = init_cache(cfg, batch, max_seq, device="meta")
+    return {k: (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else ((), None)
+            for k, v in cache.items()}
+
+
+def cache_shardings(cfg: ModelConfig, rules: LogicalRules, batch: int, max_seq: int) -> dict:
+    """Each cache leaf's ``Sharding`` for a whole batch and ``max_seq``."""
+    specs = cache_specs(cfg)
+    return {k: rules.sharding(*specs[k], dims=shape)
+            for k, (shape, _) in _cache_leaves(cfg, batch, max_seq).items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, rules: LogicalRules) -> dict:
+    """``meta`` tensors of the whole cache, each with its ``.sharding``
+    (``length`` an int32 scalar)."""
+    out = {}
+    for k, v in init_cache(cfg, batch, max_seq, device="meta").items():
+        t = v if isinstance(v, torch.Tensor) else torch.empty((), dtype=torch.int32,
+                                                               device="meta")
+        t.sharding = rules.sharding(*cache_specs(cfg)[k], dims=tuple(t.shape))
+        out[k] = t
+    return out
+
+
+def serve_input_specs(cfg: ModelConfig, batch: int, rules: LogicalRules) -> torch.Tensor:
+    """The (batch,) int32 tokens of a decode step, split over the batch axes."""
+    t = torch.empty((batch,), dtype=torch.int32, device="meta")
+    t.sharding = rules.sharding("batch", dims=(batch,))
+    return t
+
+
+def _local_batch(rules: LogicalRules, batch: int) -> int:
+    n = rules.size(rules.batch_axes)
+    if batch % n:
+        raise ValueError(f"batch {batch} does not divide the batch axes' {n} ranks")
+    return batch // n
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
+               rules: LogicalRules | None = None) -> dict:
+    """A zero cache for ``batch`` sequences of ``max_seq``; with ``rules``
+    this rank's blocks and the whole ``max_seq``."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    if rules is not None:
+        _local_batch(rules, batch)
+        shard = cache_shardings(cfg, rules, batch, max_seq)
+        out = {k: (torch.zeros(shard[k].local_shape(shape), dtype=dt, device=dev) if dt else 0)
+               for k, (shape, dt) in _cache_leaves(cfg, batch, max_seq).items()}
+        if "k" in out:
+            out["max_seq"] = max_seq
+        return out
     if cfg.family == "ssm":
         return rwkv6.init_cache(cfg, batch, dev)
     if cfg.family == "hybrid":
@@ -45,6 +125,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
         "length": 0,
     }
+
+
+def seq_split(cache: dict, rules: LogicalRules | None) -> bool:
+    """Whether the cache's sequence dim is split over ``model``: an axis
+    above 1 that divides the whole ``max_seq``."""
+    return (rules is not None and rules.tp > 1 and "max_seq" in cache
+            and cache["max_seq"] % rules.tp == 0)
 
 
 def decode_attention(q, kc, vc, kn, vn, length: int) -> torch.Tensor:
@@ -59,38 +146,122 @@ def decode_attention(q, kc, vc, kn, vn, length: int) -> torch.Tensor:
     return chunked_attention(q, kc, vc, causal_offset=length, chunk=DECODE_CHUNK)
 
 
+def sharded_decode_attention(q, kc, vc, kn, vn, length: int, rules: LogicalRules | None,
+                             split: bool):
+    """The reference's ``sharded_decode_attention``.  q (B, 1, H, hd) and
+    kn/vn (B, 1, KV, hd) replicated over ``model``; kc/vc (B, S_loc, KV, hd)
+    the rank's block of the layer's cache (``split``: the sequence split
+    over ``model``; else the whole cache and ``decode_attention``).  Each
+    rank writes kn/vn at ``length`` if it falls in its slice, computes the
+    partial (m, l, o) of its slice in fp32 (``_decode_attn_local``), and a
+    ``pmax`` and a renormalised ``psum`` over ``model`` combine them."""
+    if not split:
+        return decode_attention(q, kc, vc, kn, vn, length)
+    b, s_loc, hkv, dh = kc.shape
+    hq = q.shape[2]
+    group = hq // hkv
+    off = rules.coords["model"] * s_loc
+    pos = length - off
+    if 0 <= pos < s_loc:
+        kc[:, pos] = kn[:, 0]
+        vc[:, pos] = vn[:, 0]
+    qg = q.reshape(b, 1, hkv, group, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) / math.sqrt(dh)
+    kpos = off + torch.arange(s_loc, device=q.device)
+    s = torch.where(kpos <= length, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    denom = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.float())
+    m_glob = D.pmax(m, rules, "model")
+    corr = torch.exp(m - m_glob)
+    l_glob = D.all_reduce(denom * corr, rules, "model")
+    o_glob = D.all_reduce(o * corr[..., None], rules, "model")
+    out = o_glob / torch.clamp(l_glob, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, dh).to(vn.dtype)
+
+
+def _vocab_logits(x, params, cfg, rules):
+    """The logits of x (B, 1, d) over the whole vocabulary."""
+    head = transformer.output_head(params, cfg, rules)
+    logits = x @ head.to(x.dtype)
+    if transformer.split(cfg, rules, "", "embed", 0):
+        logits = D.all_gather(logits, -1, rules, "model")
+    return logits
+
+
 def _tf_decode_step(params: dict, token: torch.Tensor, cache: dict,
-                    cfg: ModelConfig):
-    x = params["embed"].to(cfg.compute_dtype)[token][:, None]      # (B, 1, d)
+                    cfg: ModelConfig, rules: LogicalRules | None = None):
+    x = transformer.embed(params, token, cfg, rules)[:, None]       # (B, 1, d)
     length = cache["length"]
+    max_seq = cache.get("max_seq", cache["k"].shape[2])
+    if not 0 <= length < max_seq:
+        raise ValueError(f"cache full: position {length} of max_seq {max_seq}")
     pos = torch.arange(length, length + 1, device=x.device)
     lp = params["layers"]
+    split = seq_split(cache, rules)
+    heads_split = transformer.split(cfg, rules, "layers", "wq", 2)
     for li in range(cfg.num_layers):
-        h = rms_norm(x, lp["ln1"][li], cfg.norm_eps)
-        q, k, v = transformer.qkv(h, lp, li)
+        h = rms_norm(x, transformer.weight(lp, "ln1", li, cfg, rules), cfg.norm_eps)
+        q, k, v = transformer.qkv(h, lp, li, cfg, rules)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-        o = decode_attention(q, cache["k"][li], cache["v"][li], k, v, length)
-        x = x + transformer.attn_out(o, lp, li)
-        x = x + transformer.mlp(x, lp, li, cfg)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x @ transformer.output_head(params).to(x.dtype)
-    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "length": length + 1}
+        if heads_split:
+            q = D.all_gather(q, 2, rules, "model")
+        o = sharded_decode_attention(q, cache["k"][li], cache["v"][li], k, v, length,
+                                     rules, split)
+        if heads_split:
+            o = D.block(o, 2, rules, "model")
+        x = x + transformer.attn_out(o, lp, li, cfg, rules)
+        x = x + transformer.mlp(x, lp, li, cfg, rules)
+    x = rms_norm(x, transformer.top(params, "ln_f", cfg, rules), cfg.norm_eps)
+    logits = _vocab_logits(x, params, cfg, rules)
+    return logits[:, 0], dict(cache, length=length + 1)
 
 
-def make_prefill(cfg: ModelConfig, max_seq: int):
+def _replicated_decode(decode, params, token, cache, cfg, rules):
+    """rwkv6/zamba2 on a mesh: params and cache gathered whole, the step
+    run as on one device, the rank's blocks written back into its cache."""
+    from repro_torch.models.api import gather_params
+
+    b = token.shape[0] * rules.size(rules.batch_axes)
+    max_seq = cache.get("max_seq", 0)
+    shard = cache_shardings(cfg, rules, b, max_seq)
+    full = {k: v if not isinstance(v, torch.Tensor) else
+            D.gather_leaf(v, shard[k].dims(v.dim()), rules, keep=rules.batch_axes)
+            for k, v in cache.items() if k != "max_seq"}
+    logits, new = decode(gather_params(params, cfg, rules), token, full, cfg)
+    out = dict(cache)
+    for k, v in new.items():
+        if isinstance(v, torch.Tensor):
+            t = v
+            for d, axes in enumerate(shard[k].dims(v.dim())):
+                axes = tuple(a for a in axes if a not in rules.batch_axes)
+                t = D.block(t, d, rules, axes)
+            out[k].copy_(t)
+        else:
+            out[k] = v
+    return logits, out
+
+
+def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = None):
     """prefill(params, tokens) -> (last-position logits, cache): one
     forward pass over the prompt, whose per-layer K/V fill a ``max_seq``
     cache (transformer families); SSM/hybrid families replay the prompt
-    through their decode step, one token at a time."""
+    through their decode step, one token at a time.  With ``rules``:
+    this rank's params, its batch slice of the prompts, its cache blocks."""
+    def new_cache(tokens):
+        b = tokens.shape[0] * (1 if rules is None else rules.size(rules.batch_axes))
+        return init_cache(cfg, b, max_seq, device=tokens.device, rules=rules)
+
     if cfg.family in ("ssm", "hybrid"):
-        step = make_serve_step(cfg)
+        step = make_serve_step(cfg, rules)
 
         def prefill_ssm(params: dict, tokens: torch.Tensor):
             b, s = tokens.shape
             if s < 1:
                 raise ValueError("an empty prompt has no last-position logits")
-            cache = init_cache(cfg, b, max_seq, device=tokens.device)
+            cache = new_cache(tokens)
             for t in range(s):
                 logits, cache = step(params, cache, tokens[:, t])
             return logits, cache
@@ -101,25 +272,43 @@ def make_prefill(cfg: ModelConfig, max_seq: int):
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
-        logits, (k, v) = api.forward(params, tokens, cfg, return_kv=True)
-        cache = init_cache(cfg, b, max_seq, device=tokens.device)
-        cache["k"][:, :, :s] = k
-        cache["v"][:, :, :s] = v
+        logits, (k, v) = api.forward(params, tokens, cfg, rules=rules, return_kv=True)
+        cache = new_cache(tokens)
+        if seq_split(cache, rules):
+            s_loc = cache["k"].shape[2]
+            off = rules.coords["model"] * s_loc
+            n = max(min(s - off, s_loc), 0)
+            cache["k"][:, :, :n] = k[:, :, off:off + n]
+            cache["v"][:, :, :n] = v[:, :, off:off + n]
+        else:
+            cache["k"][:, :, :s] = k
+            cache["v"][:, :, :s] = v
         cache["length"] = s
         # a copy, so the (B, S, V) logits are freed with the prefill
-        return logits[:, -1].contiguous(), cache
+        last = logits[:, -1].contiguous()
+        if transformer.split(cfg, rules, "", "embed", 0):
+            last = D.all_gather(last, -1, rules, "model")
+        return last, cache
 
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, rules: LogicalRules | None = None):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
-    per sequence against the cached context."""
-    decode = {"ssm": rwkv6.decode_step, "hybrid": zamba2.decode_step}.get(
-        cfg.family, _tf_decode_step)
+    per sequence against the cached context (with ``rules``: this rank's
+    params, cache blocks and batch slice; logits over the whole
+    vocabulary)."""
+    if cfg.family in ("ssm", "hybrid"):
+        decode = rwkv6.decode_step if cfg.family == "ssm" else zamba2.decode_step
+
+        def step(params: dict, cache: dict, tokens: torch.Tensor):
+            if rules is None:
+                return decode(params, tokens, cache, cfg)
+            return _replicated_decode(decode, params, tokens, cache, cfg, rules)
+        return step
 
     def step(params: dict, cache: dict, tokens: torch.Tensor):
-        return decode(params, tokens, cache, cfg)
+        return _tf_decode_step(params, tokens, cache, cfg, rules)
 
     return step
 

@@ -13,7 +13,12 @@
   order ``jax.tree_util`` flattens the reference's TrainState (its fields in
   order, dict keys sorted), and a ``meta.json``; bf16 leaves are stored as
   the reference's numpy gives them (``V2``, their 16 bits), ``step`` as int32.
-  A checkpoint written by either package restores into the other.
+  A checkpoint written by either package restores into the other;
+- **sharded state**: ``save(..., shardings=)`` gathers each leaf of a state
+  held as the ranks' blocks (every rank of the mesh takes part) and the
+  mesh's first rank writes the same ``leaves.npz``; ``restore(...,
+  shardings=)`` gives each rank its block of every leaf, under any mesh
+  (the reference's elastic re-shard).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .step import TrainState, from_numpy
+from .step import TrainState, from_numpy, gather_whole
 
 _SEP = "__"
 
@@ -53,20 +58,30 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf, dtype=np.int32)        # TrainState.step
 
 
-def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {_SEP.join(path): _host(leaf) for path, leaf in _walk(tree)}
+def _flatten(tree: Any, shardings: Any = None) -> dict[str, np.ndarray]:
+    if shardings is None:
+        return {_SEP.join(path): _host(leaf) for path, leaf in _walk(tree)}
+    sh = dict(_walk(shardings))
+    return {_SEP.join(path): _host(gather_whole(leaf, sh[path])
+                                   if isinstance(leaf, torch.Tensor) else leaf)
+            for path, leaf in _walk(tree)}
 
 
-def _rebuild(template: Any, load, prefix: tuple = ()):
+def _rebuild(template: Any, load, prefix: tuple = (), shardings: Any = None):
+    def sub(name, node):
+        return None if shardings is None else (
+            getattr(shardings, name) if isinstance(shardings, TrainState) else shardings[name])
+
     if isinstance(template, TrainState):
         return TrainState(**{f.name: _rebuild(getattr(template, f.name), load,
-                                              prefix + (f.name,))
+                                              prefix + (f.name,), sub(f.name, template))
                              for f in dataclasses.fields(template)})
     if isinstance(template, dict):
-        return {k: _rebuild(v, load, prefix + (str(k),)) for k, v in template.items()}
+        return {k: _rebuild(v, load, prefix + (str(k),), sub(k, template))
+                for k, v in template.items()}
     if template is None:
         return None
-    return load(prefix, template)
+    return load(prefix, template, shardings)
 
 
 class CheckpointManager:
@@ -79,8 +94,17 @@ class CheckpointManager:
 
     # --- write ------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        host = _flatten(tree)          # device->host happens here
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             shardings: Any = None) -> None:
+        """Write ``tree`` as step ``step`` (in a background thread unless
+        ``blocking``).  ``shardings`` (a tree of ``Sharding`` shaped as
+        ``tree``): the tree holds this rank's blocks; every rank of the mesh
+        calls ``save``, the leaves are gathered, the first rank writes."""
+        host = _flatten(tree, shardings)          # device->host happens here
+        if shardings is not None:
+            rules = next(sh for _, sh in _walk(shardings)).rules
+            if any(rules.coords[a] for a in rules.mesh.axes):
+                return
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, host), daemon=True)
@@ -123,24 +147,29 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template: Any, step: Optional[int] = None, device=None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None, device=None,
+                shardings: Any = None) -> Any:
         """Load into the structure of ``template`` (a TrainState or nested
         dict; tensors give each leaf's dtype and, unless ``device`` is given,
-        its device: a ``meta`` template needs ``device``)."""
+        its device: a ``meta`` template needs ``device``).  ``shardings``:
+        a tree of ``Sharding`` shaped as ``template``, whose leaves are then
+        the whole leaves' shapes; each rank gets its block of every leaf."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = os.path.join(self.dir, f"step_{step:09d}", "leaves.npz")
 
-        def load(pth, leaf):
+        def load(pth, leaf, sharding):
             arr = data[_SEP.join(pth)]
-            if isinstance(leaf, torch.Tensor):
-                return from_numpy(arr, leaf.dtype).to(device if device is not None
-                                                      else leaf.device)
+            if isinstance(leaf, torch.Tensor) and pth != ("step",):
+                t = from_numpy(arr, leaf.dtype)
+                if sharding is not None:
+                    t = sharding.local(t)
+                return t.to(device if device is not None else leaf.device)
             return int(arr)                # TrainState.step
 
         with np.load(path) as data:
-            return _rebuild(template, load)
+            return _rebuild(template, load, shardings=shardings)
 
     # --- hygiene ----------------------------------------------------------
 

@@ -53,11 +53,15 @@ class PrefetchLoader:
     """A host thread keeps ``prefetch`` batches ready; ``next`` places one on
     ``device`` (through pinned memory on a CUDA device).  For a config with
     ``prefix_len`` each batch carries ``prefix_embeds`` (B, P, d) float32,
-    drawn from ``SeedSequence([seed, step, 7])`` as the reference draws them."""
+    drawn from ``SeedSequence([seed, step, 7])`` as the reference draws them.
+    ``sharding``: a ``Sharding`` (or a dict of them by key, as
+    ``train.batch_specs`` gives) placing this rank's block of each batch,
+    the reference's device placement under a ``NamedSharding``."""
 
     def __init__(self, source: SyntheticLM, start_step: int = 0, device="cuda",
-                 model_cfg: Optional[ModelConfig] = None):
+                 model_cfg: Optional[ModelConfig] = None, sharding=None):
         self.source = source
+        self.sharding = sharding
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self._q: queue.Queue = queue.Queue(maxsize=source.cfg.prefetch)
@@ -93,6 +97,10 @@ class PrefetchLoader:
         out = {}
         for k, v in host.items():
             t = torch.from_numpy(v)
+            sh = self.sharding.get(k) if isinstance(self.sharding, dict) else self.sharding
+            if sh is not None:
+                sh = getattr(sh, "sharding", sh)       # a batch_specs stand-in
+                t = sh.local(t)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t

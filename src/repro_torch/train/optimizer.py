@@ -52,22 +52,29 @@ def lr_at(step, cfg: OptimizerConfig, device="cpu") -> torch.Tensor:
     return cfg.lr * warm * (0.5 * (1.0 + torch.cos(math.pi * prog)))
 
 
-def global_norm(leaves) -> torch.Tensor:
+def global_norm(leaves, rules=None, norm_axes=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in float32, the
-    leaves added left to right."""
+    leaves added left to right.  On a mesh (``rules``) each leaf is the
+    rank's block: its sum of squares is summed over the axes its blocks
+    are split on (``norm_axes[i]``), so each leaf counts once whether split
+    or replicated."""
     total = None
-    for x in leaves:
+    for i, x in enumerate(leaves):
         sq = torch.sum(torch.square(x.to(F32)))
+        if rules is not None:
+            from repro_torch.distributed import all_reduce
+
+            sq = all_reduce(sq, rules, norm_axes[i])
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
+def clip_by_global_norm(grads: list, max_norm: float, rules=None, norm_axes=None):
     """Scale the leaves of ``grads`` to ``max_norm`` where their global norm
     exceeds it, as ``(g.f32 * scale).astype(g.dtype)``.  Returns (grads,
     norm).  The list's entries are replaced one by one, so no second copy
     of the gradients is ever whole."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, rules, norm_axes)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for i, g in enumerate(grads):
         grads[i] = (g.to(F32) * scale).to(g.dtype)
@@ -85,7 +92,8 @@ def init_moments(params: dict, moment_dtype: torch.dtype) -> tuple[dict, dict]:
     return zeros_like_tree(params, moment_dtype), zeros_like_tree(params, moment_dtype)
 
 
-def adamw_update(params, grads, m, v, step, opt: OptimizerConfig, moment_dtype):
+def adamw_update(params, grads, m, v, step, opt: OptimizerConfig, moment_dtype,
+                 rules=None, norm_axes=None):
     """One AdamW step over parallel lists of leaves, the gradients clipped
     to ``opt.grad_clip`` by their global norm.  Returns (params, m, v, lr,
     grad_norm), the first three as new lists.  Each leaf's arithmetic is
@@ -93,8 +101,10 @@ def adamw_update(params, grads, m, v, step, opt: OptimizerConfig, moment_dtype):
     leaf's fresh temporaries, and each entry of the list ``grads`` is
     clipped in place and set to None once used, so the gradients are freed
     as the new state grows and at most a few leaf-sized tensors are live
-    beside the two states (at internvl2-2b's largest leaf, 1.6 GB each)."""
-    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip)
+    beside the two states (at internvl2-2b's largest leaf, 1.6 GB each).
+    On a mesh each rank updates its blocks; only the norm crosses ranks
+    (``global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, opt.grad_clip, rules, norm_axes)
     dev = gnorm.device
     lr = lr_at(step, opt, dev)
     t = torch.as_tensor(step, device=dev).to(F32) + 1.0

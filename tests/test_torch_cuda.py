@@ -1793,3 +1793,26 @@ def test_reduced_ssm_families_served_on_card_equal_cpu(cuda_flash, arch):
     for name in ("prefill_logits", "last_logits"):
         np.testing.assert_allclose(a[name].cpu().numpy(), b[name].numpy(),
                                    rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_row_parallel_product_keeps_fp32_sums_on_card(cuda):
+    """The tensor-parallel layer's row-parallel product on 16-bit inputs:
+    the fp32 sums of the bf16 products (cuBLAS's ``out_dtype``), against the
+    product of the inputs cast to fp32; its gradients are the bf16
+    products a bf16 ``a @ b`` would give."""
+    from repro_torch.models.transformer import _MatmulF32
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    a = torch.randn(256, 512, generator=gen, device=cuda).bfloat16().requires_grad_()
+    b = torch.randn(512, 384, generator=gen, device=cuda).bfloat16().requires_grad_()
+    y = _MatmulF32.apply(a, b)
+    assert y.dtype == torch.float32
+    want = a.detach().float() @ b.detach().float()
+    np.testing.assert_allclose(y.detach().cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    g = torch.randn(256, 384, generator=gen, device=cuda)
+    ga, gb = torch.autograd.grad(y, (a, b), g)
+    gbf = g.bfloat16()
+    assert torch.equal(ga, gbf @ b.detach().T) and torch.equal(gb, a.detach().T @ gbf)

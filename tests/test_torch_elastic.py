@@ -195,6 +195,74 @@ class TestCheckpointManager:
 # the elastic trainer
 
 
+def _two_rank_trainers(rank: int, init: str, root: str, out: str) -> None:
+    """Two gloo ranks: a plan that rescales 1 -> 2, the unbroken k = 1 run
+    it is compared with, and a run at model_axis 2."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+    cfg = configs.reduced(configs.ARCHS["stablelm-1.6b"])
+    data = train.SyntheticLM(train.DataConfig(batch=4, seq_len=32,
+                                              vocab_size=cfg.vocab_size, seed=3))
+
+    def mk(name, **kw):
+        return elastic.ElasticTrainer(cfg, data, train.OptimizerConfig(total_steps=60),
+                                      os.path.join(root, name), device="cpu", **kw)
+
+    res = {"rescaled": mk("a").run([elastic.RescalePlan(k=1, steps=2),
+                                    elastic.RescalePlan(k=2, steps=2)]),
+           "whole": mk("b").run([elastic.RescalePlan(k=1, steps=4)]),
+           "axis2": mk("c", model_axis=2).run([elastic.RescalePlan(k=1, steps=2)]),
+           "restored": _sharded_checkpoints(rank, cfg, root)}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _sharded_checkpoints(rank, cfg, root):
+    """A state held as blocks over (1, 2) and over (2, 1) saved through the
+    shardings, and each file restored under the other mesh: whether each
+    rank's restored blocks equal that mesh's blocks of the state."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import DistMesh, make_mesh
+    from repro_torch.models.common import LogicalRules
+
+    if rank == 0:
+        train.CheckpointManager(os.path.join(root, "whole")).save(
+            0, train.init_state(cfg, 0, "cpu"), blocking=True)
+    meshes = {s: LogicalRules(DistMesh(make_mesh(s, ("data", "model"))))
+              for s in ((1, 2), (2, 1))}
+    out = {}
+    for shape, rules in meshes.items():
+        ckpt = train.CheckpointManager(os.path.join(root, f"sharded{shape[0]}{shape[1]}"))
+        ckpt.save(0, train.init_state(cfg, 0, "cpu", rules=rules), blocking=True,
+                  shardings=train.state_shardings(cfg, rules))
+        dist.barrier()
+        other = meshes[shape[::-1]]
+        back = ckpt.restore(train.state_template(cfg), device="cpu",
+                            shardings=train.state_shardings(cfg, other))
+        want = train.init_state(cfg, 0, "cpu", rules=other)
+        out[f"{shape[0]}x{shape[1]}"] = all(
+            torch.equal(a, b) for tree in ("params", "m", "v")
+            for (_, a), (_, b) in zip(leaves(getattr(back, tree)), leaves(getattr(want, tree))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    from test_torch_elastic_mesh import spawn
+
+    root = str(tmp_path_factory.mktemp("two_ranks"))
+    out = os.path.join(root, "out.json")
+    spawn(_two_rank_trainers, 2, ("file://" + os.path.join(root, "rdzv"), root, out),
+          timeout=120)
+    with open(out) as f:
+        return dict(json.load(f), root=root)
+
+
 class TestElasticTrainer:
     def _mk(self, tmp_path, **kw):
         cfg = configs.reduced(configs.ARCHS["stablelm-1.6b"])
@@ -233,15 +301,16 @@ class TestElasticTrainer:
         out = tr.run([elastic.RescalePlan(k=1, steps=4)])
         assert np.isfinite(out["losses"]).all()
 
-    def test_rescale_goes_through_the_checkpoint(self, tmp_path, monkeypatch):
-        """A change of k within the visible devices checkpoints and
-        restores; the trajectory is the unbroken run's."""
-        monkeypatch.setattr(rescale, "visible_devices", lambda device: 2)
-        tr = self._mk(tmp_path / "a")
-        out = tr.run([elastic.RescalePlan(k=1, steps=2), elastic.RescalePlan(k=2, steps=2)])
+    def test_rescale_goes_through_the_checkpoint(self, two_ranks):
+        """A change of k within the world (two gloo ranks) checkpoints, builds
+        the new mesh and restores under its shardings; the trajectory is the
+        unbroken k = 1 run's: the k = 2 steps split the batch over the two
+        ranks, so their losses are the same global mean summed in another
+        order (within rtol 1e-6)."""
+        out, whole = two_ranks["rescaled"], two_ranks["whole"]
         assert out["rescales"] == 1 and out["final_step"] == 4
-        whole = self._mk(tmp_path / "b").run([elastic.RescalePlan(k=1, steps=4)])
-        assert out["losses"] == whole["losses"]
+        assert out["losses"][:2] == whole["losses"][:2]
+        np.testing.assert_allclose(out["losses"], whole["losses"], rtol=1e-6)
 
     @pytest.mark.parametrize("checkpointed", [False, True])
     def test_failure_that_rollback_does_not_cure_raises(self, tmp_path, monkeypatch,
@@ -265,11 +334,32 @@ class TestElasticTrainer:
         assert len(calls) == rescale.MAX_RETRIES + 1
         assert tr.recoveries == rescale.MAX_RETRIES
 
-    def test_scale_and_axis_limits(self, tmp_path):
+    def test_sharded_checkpoints_are_the_reference_files_and_restore_across_meshes(
+            self, two_ranks):
+        """A checkpoint saved from blocks over (1, 2) or (2, 1) is the same
+        ``leaves.npz`` as the unsharded save, key for key and bit for bit,
+        and restores under the other mesh to that mesh's blocks."""
+        root = two_ranks["root"]
+        with np.load(os.path.join(root, "whole", "step_000000000", "leaves.npz")) as whole:
+            for name in ("sharded12", "sharded21"):
+                path = os.path.join(root, name, "step_000000000", "leaves.npz")
+                with np.load(path) as got:
+                    assert list(got.keys()) == list(whole.keys())
+                    for key in whole.keys():
+                        a, b = got[key], whole[key]
+                        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (name, key)
+        assert two_ranks["restored"] == {"1x2": True, "2x1": True}
+
+    def test_scale_and_axis_limits(self, tmp_path, two_ranks):
+        """k * model_axis above the world raises, as the reference's mesh
+        does; model_axis 2 on a world of two ranks trains."""
         with pytest.raises(ValueError, match="devices"):
             self._mk(tmp_path).run([elastic.RescalePlan(k=2, steps=1)])
-        with pytest.raises(NotImplementedError):
-            self._mk(tmp_path, model_axis=2)
+        with pytest.raises(ValueError, match="devices"):
+            self._mk(tmp_path, model_axis=2).run([elastic.RescalePlan(k=1, steps=1)])
+        axis2, whole = two_ranks["axis2"], two_ranks["whole"]
+        assert axis2["final_step"] == 2
+        np.testing.assert_allclose(axis2["losses"], whole["losses"][:2], rtol=1e-5)
 
 
 def test_prefix_config_trainer_raises_in_both_packages(tmp_path):
@@ -308,10 +398,37 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
     assert np.isfinite(comp["losses"]).all()
 
 
-@pytest.mark.parametrize("flag,err", [(["--host-devices", "4"], NotImplementedError),
-                                      (["--tp", "2"], NotImplementedError),
-                                      (["--dp", "2"], ValueError)])
+@pytest.mark.parametrize("flag,err", [(["--tp", "2"], ValueError),
+                                      (["--dp", "2"], ValueError),
+                                      (["--host-devices", "2"], ValueError)])
 def test_launcher_refuses_what_it_cannot_run(tmp_path, flag, err):
+    """A mesh above the ranks (one process: a world of one), and host
+    devices on the card (they are CPU ranks)."""
+    device = "cuda" if "--host-devices" in flag else "cpu"
     with pytest.raises(err):
         launch_train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1",
-                           "--ckpt", str(tmp_path), "--device", "cpu"] + flag)
+                           "--ckpt", str(tmp_path), "--device", device] + flag)
+
+
+def test_launcher_host_devices_trains_and_resumes(tmp_path):
+    """``--host-devices 4 --dp 2 --tp 2``: four gloo CPU ranks train on a
+    2 x 2 mesh, then a second launch resumes from the checkpoint.  Each
+    launch runs as a user runs it, in its own process, within 120 s."""
+    import subprocess
+    import sys
+
+    ckpt = str(tmp_path / "c")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-1.6b",
+           "--reduced", "--steps", "3", "--batch", "2", "--seq", "16", "--ckpt", ckpt,
+           "--device", "cpu", "--host-devices", "4", "--dp", "2", "--tp", "2"]
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([src, os.environ.get("PYTHONPATH", "")]))
+    runs = [subprocess.run(cmd, capture_output=True, text=True, timeout=120, env=env)
+            for _ in range(2)]
+    for run in runs:
+        assert run.returncode == 0, run.stderr[-2000:]
+    first, again = (run.stdout.strip().splitlines() for run in runs)
+    assert first[0] == again[0] == "arch stablelm-1.6b-smoke: 0.6M params, dp=2 tp=2"
+    assert first[1].startswith("3 steps in ") and first[1].endswith("resumed_from_ckpt=False")
+    assert again[1].startswith("3 steps in ") and again[1].endswith("resumed_from_ckpt=True")
+    assert train.CheckpointManager(ckpt).latest_step() == 6
