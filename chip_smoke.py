@@ -49,9 +49,9 @@ Phases, any failure exits non-zero:
    and of two chunk sizes of the chunked attention, as information); then
    a warm timed run, the warm prefill in turns on the Hopper kernel and on
    the mma.sync kernel, and a traced run; then the MoE serving path:
-   qwen3-moe-235b-a22b at full width with 4 of its 94 layers (bf16, random
-   weights from seed 0; ~22.1 GB) through ``greedy_generate`` at the same
-   sizes, gated on 4 flash launches in prefill, all on the Hopper kernel
+   qwen3-moe-235b-a22b at full width with 2 of its 94 layers (bf16, random
+   weights from seed 0; ~12.3 GB) through ``greedy_generate`` at the same
+   sizes, gated on 2 flash launches in prefill, all on the Hopper kernel
    (D 64, 16 query heads a KV head), 0 in decode; every dispatch of the run
    (top-k ids, sort order, slots, kept pairs, source tokens at C = 640 in
    prefill and C = 1 in decode) equal bit for bit to the plain dispatch on
@@ -61,7 +61,7 @@ Phases, any failure exits non-zero:
    ~20 under the reference init, divided by the power of two nearest its
    std for the elementwise limits; unscaled within the relative L2 limit)
    and timed beside SDPA; a warm run with the same tokens; finite logits,
-   ids in range, the cache (4, 4, 2112, 4, 64); a traced run; then rwkv6-7b
+   ids in range, the cache (2, 4, 2112, 4, 64); a traced run; then rwkv6-7b
    and zamba2-7b at full width and full depth (bf16, random weights from
    seed 0; 15.1 and 13.5 GB), one after the other, each freed before the
    next: init (seconds, bytes, peak); the forward at 4 x 2048 (rwkv6: no
@@ -223,11 +223,15 @@ Phases, any failure exits non-zero:
    launches == fill steps (> 0 on the scale grid only, all compact), 2 rows
    delegated.
 12. the dry-run and the roofline profiles: ``repro_torch.launch.dryrun``
-   counts all 32 live (architecture x shape) cells' steps on the ``meta``
-   device in ``DRYRUN_WORKERS`` spawned processes into a temporary
-   ``results/dryrun_opt`` (each cell's FLOPs and bytes per device of the
-   16x16 mesh, its compute, memory and collective terms, the dominant one,
-   the elasticity of its profile and its counting seconds printed); the
+   counts all 32 live (architecture x shape) cells' sharded steps on the
+   ``meta`` device, rank 0's program on a stand-in of the 16x16 mesh, in
+   ``DRYRUN_WORKERS`` spawned processes into a temporary
+   ``results/dryrun_opt`` (each cell's FLOPs, bytes and collectives per
+   device, its compute, memory and collective terms, the dominant one, the
+   elasticity of its profile and its counting seconds printed; gated on
+   every cell's positive collective payload, rwkv6's and zamba2's
+   ``long_500k`` at batch 1 included; the train cells' collective term
+   printed beside the analytic data-parallel term the profiles use); the
    count of internvl2-2b at the training phase's shape (4 x 2048 tokens
    behind the 256-position prefix, one device), as the card ran it (the
    flash kernels' work) and as the cells count it (the chunked attention),
@@ -1254,12 +1258,12 @@ def serve_phase():
 # --- the MoE serving path -----------------------------------------------------
 
 MOE_ARCH = "qwen3-moe-235b-a22b"
-# Depth cut from 94 to 4 layers, width kept: a layer holds 2.452e9 parameters
-# (4.90 GB in bf16), so 4 layers and embed/lm_head take ~22.1 GB (8 layers,
-# ~41.7 GB, until the shard phase needed the script's time); drawing the
-# fp32 w_up leaf beside the rest peaks at ~33 GB; 10 layers would peak at
-# ~81.8 GB.
-MOE_LAYERS = 4
+# Depth cut from 94 to 2 layers, width kept: a layer holds 2.452e9 parameters
+# (4.90 GB in bf16), so 2 layers and embed/lm_head take ~12.3 GB (8 layers,
+# ~41.7 GB, until the shard phase needed the script's time, then 4, ~22.1 GB,
+# until the shard phase's cell (f) did); drawing the fp32 w_up leaf beside
+# the rest peaks at ~33 GB at 4 layers; 10 layers would peak at ~81.8 GB.
+MOE_LAYERS = 2
 # Relative L2 of layer 0's MoE output (bf16 products, bf16 combine) against
 # an fp32 evaluation of the same routing on the same input.
 MOE_REL = 1e-2
@@ -1288,7 +1292,7 @@ def same_routing(got, want) -> bool:
 
 
 def moe_serve_phase(device="cuda"):
-    """qwen3-moe-235b-a22b at full width, 4 of its 94 layers, through
+    """qwen3-moe-235b-a22b at full width, 2 of its 94 layers, through
     ``greedy_generate`` (4 prompts of 2048 tokens, 64 greedy tokens), launch
     counts reset just before and read just after; every dispatch of the run
     (4 in prefill, 4 a decode step) held against the plain dispatch on the
@@ -2078,12 +2082,11 @@ def train_model_flops(cfg, b, s):
     return 6.0 * weights * b * s + attention
 
 
-def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=False):
+def grad_probe(cfg, state, batch, backend, forward=None, capture=False):
     """Loss, gradient norm and each layer's gradient norm of one forward and
-    backward (no update) on ``backend``'s attention; ``forward`` and
-    ``backward`` stand in for the flash route's forward (q, k, v, offset,
-    with_lse) -> (o, lse) and backward (q, k, v, o, do, offset, lse, route)
-    in this call.  With ``capture``
+    backward (no update) on ``backend``'s attention; ``forward`` stands in
+    for the flash route's forward (q, k, v, offset, with_lse) -> (o, lse) in
+    this call.  With ``capture``
     (the chunked attention), also layers TRAIN_CHECK_LAYERS' attention
     inputs (q, k, v), output and output gradient."""
     from repro_torch.models import common
@@ -2092,7 +2095,7 @@ def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=
     cfg = dataclasses.replace(cfg, attention_backend=backend)
     taken, calls = {}, [0]
     inner = common.chunked_attention
-    saved = fa._forward, fa.launch_bwd
+    saved = fa._forward
 
     def capture_attention(q, k, v, offset, chunk):
         out = inner(q, k, v, offset, chunk)
@@ -2107,7 +2110,7 @@ def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=
     live = [t.detach().requires_grad_() for _, t in flat]
     if capture:
         common.chunked_attention = capture_attention
-    fa._forward, fa.launch_bwd = forward or fa._forward, backward or fa.launch_bwd
+    fa._forward = forward or fa._forward
     try:
         x, head = model_forward(unflatten([p for p, _ in flat], live), batch["tokens"],
                                 cfg, return_hidden=True,
@@ -2116,7 +2119,7 @@ def grad_probe(cfg, state, batch, backend, forward=None, backward=None, capture=
         grads = torch.autograd.grad(loss, live)
     finally:
         common.chunked_attention = inner
-        fa._forward, fa.launch_bwd = saved
+        fa._forward = saved
     layers = [g for (path, _), g in zip(flat, grads) if path[0] == "layers"]
     per_layer = [global_norm([g[li] for g in layers]).item() for li in range(cfg.num_layers)]
     return loss.item(), global_norm(grads).item(), per_layer, taken
@@ -2129,9 +2132,9 @@ def train_phase(device="cuda"):
     attention's forward and backward first (loss, gradient norm, and the
     check layers' attention inputs and output gradients, on which the
     forward kernel and the backward kernels are held against their plain
-    versions); the first step's gradient on each pairing of forward and
-    backward (``grad_probe``; the backward kernels under the chunked forward
-    held against the chunked path's autodiff); then the flash
+    versions); the first step's gradient through the backward kernels
+    under the chunked forward (``grad_probe``) held against the chunked
+    path's autodiff; then the flash
     train step on the first batch twice from one state (equal bits; launch
     gates), 3 timed steps (forward + backward and optimizer split by CUDA
     events around ``adamw_update``) and a traced one; then the elastic
@@ -2190,11 +2193,12 @@ def train_phase(device="cuda"):
         f"against the plain version and the chunked attention, limit {ATTN_REL}) and, on "
         f"their dO, the backward kernels {layer_checks}")
 
-    # The first step's gradient on each pairing of forward and backward, from
-    # one state on one batch.  Printed only where the forwards differ: under
-    # the reference init the gradient moves 3x with the KV chunk size alone.
-    # The chunked forward under the backward kernels sees the chunked path's
-    # own activations, so only the backward differs: that pairing is gated.
+    # The first step's gradient through the backward kernels under the
+    # chunked forward, from one state on one batch: that pairing sees the
+    # chunked path's own activations, so only the backward differs, and it is
+    # gated.  (The pairings whose forwards differ were printed only until the
+    # shard phase's cell (f) needed their time: under the reference init the
+    # gradient moves 3x with the KV chunk size alone.)
     from repro_torch.models import common
 
     def chunked_forward(q, k, v, offset, with_lse=False):
@@ -2202,17 +2206,9 @@ def train_phase(device="cuda"):
         return (common.chunked_attention(q, k, v, offset, cfg.attention_chunk),
                 fa.gqa_flash_lse_plain(q, k, offset) if with_lse else None)
 
-    def plain_backward(q, k, v, o, do, offset=0, lse=None, route=None):
-        return fa.gqa_flash_bwd_plain(q, k, v, o, do, offset)
-
-    probes = {"chunked": (loss_c, gnorm_c, layers_c)}
-    for name, pcfg, backend, kw in (
-            ("chunked, KV chunks of 512", dataclasses.replace(cfg, attention_chunk=512),
-             "chunked", {}),
-            ("chunked forward, backward kernels", cfg, "flash", dict(forward=chunked_forward)),
-            ("flash kernels", cfg, "flash", {}),
-            ("forward kernel, plain backward", cfg, "flash", dict(backward=plain_backward))):
-        probes[name] = grad_probe(pcfg, state, batches[0], backend, **kw)[:3]
+    probes = {"chunked": (loss_c, gnorm_c, layers_c),
+              "chunked forward, backward kernels": grad_probe(
+                  cfg, state, batches[0], "flash", forward=chunked_forward)[:3]}
     for name, (loss, gnorm, per_layer) in probes.items():
         log(f"train probe {name}: loss {loss}, gradient norm {gnorm} ({gnorm / gnorm_c} of "
             f"the chunked one); each layer's over the chunked one's "
@@ -2465,6 +2461,42 @@ SHARD_ELASTIC_RTOL = 1e-5
 SHARD_ONE_RTOL = 1e-5
 SHARD_PLAN = ((1, 2), (2, 2), (1, 2))
 SHARD_RESUME = ((2, 2),)
+# (f) rwkv6-7b and zamba2-7b on their own tensor-parallel layers at full
+# width, depth cut to 2 and 6 layers (zamba2's: one group and its shared-block
+# application), on prompts of 4 x 512: gloo carries each fp32 psum through
+# the host at ~0.15 GB/s, and 4 x 2048 would take ~0.9 s a psum.  Each layer
+# is held as (c)'s, at SHARD_LAYER_REL on its finite entries, its non-finite
+# ones (the reference recurrence's fp32 overflow) at the same positions as
+# the one-rank layer's.  Then the replay of a 4 x 16 prompt and 8 greedy
+# decode steps on the one-rank path, and each of its 24 steps again, block by
+# block, as tensor-parallel blocks on the one-rank blocks' own inputs and on
+# that path's cache, sharded: each block and each cache block it writes
+# within SHARD_SSM_DECODE_REL (one token a row: two bf16 roundings of one
+# value differ by ~1.6e-3 relative L2 where they fall independently, u /
+# sqrt(12) * sqrt(2) with u = 2^-8; the forward's layers round most values
+# alike); the vocabulary-parallel head on the one-rank's last
+# hidden state within SHARD_SSM_STEP_REL, its greedy token equal wherever the
+# one-rank's top two logits lie further apart than twice the largest logit
+# difference on that row (closer ones, near ties, counted and printed).  Then
+# the chained run on the sharded caches through the entry points
+# (``make_prefill``, ``make_serve_step``), fed the one-rank path's tokens,
+# held at SHARD_SSM_LOGITS_REL only: under the reference init one token's
+# pass through zamba2's Mamba layers amplifies a difference layer by layer
+# (``scripts/shard_decode_drift.py``: 1.1e-5 after the first layer, 0.103
+# after the sixth, in bf16 on CPU ranks), so its chained logits sat 0.085
+# from the one-rank path's after the replay and 0.22 over the steps, and a
+# token that flips at a near tie sends two greedy runs down different texts
+# (rwkv6's, in an earlier form of this check).
+SHARD_SSM = (("rwkv6-7b", 2), ("zamba2-7b", 6))
+SHARD_SSM_PROMPT = 512
+SHARD_SSM_REPLAY, SHARD_SSM_DECODE = 16, 8
+# The first readings (chip run 7, NVIDIA H100 80GB HBM3, 700.00 W): decode
+# blocks and written cache up to 1.67e-3 (zamba2's shared block; rwkv6's
+# layers 1.40e-3), the head 0.0 (bit for bit), the chained logits 6.8e-3
+# (rwkv6) and 0.223 (zamba2).
+SHARD_SSM_DECODE_REL = 3e-3
+SHARD_SSM_STEP_REL = 1e-3
+SHARD_SSM_LOGITS_REL = 0.5
 
 
 def start_shard_ranks():
@@ -2699,6 +2731,296 @@ def shard_prefill(rank):
                 finite=bool(torch.isfinite(last).all()))
 
 
+def ssm_blocks(cfg, params, positions, rules=None):
+    """The family's blocks in order as (name, fn(x) -> x) on ``params`` (a
+    rank's blocks under ``rules``, else the whole leaves): rwkv6's layers;
+    zamba2's Mamba layers and its shared-block applications."""
+    from repro_torch.models import rwkv6, zamba2
+    from repro_torch.models.common import layer
+
+    if cfg.family == "ssm":
+        return [(f"layer {li}", lambda x, lp=layer(params["layers"], li):
+                 rwkv6._layer(x, lp, cfg, rules)) for li in range(cfg.num_layers)]
+    p = cfg.shared_attn_every
+    out = []
+    for li in range(cfg.num_layers):
+        out.append((f"mamba {li}", lambda x, lp=layer(params["layers"], li):
+                    x + zamba2._mamba_sublayer(x, lp, cfg, rules)))
+        if (li + 1) % p == 0:
+            out.append((f"shared after {li}", lambda x: zamba2.shared_block(
+                x, params["shared"], cfg, positions, rules)))
+    return out
+
+
+def ssm_serve(cfg, params, prompts, rules=None, feed=None):
+    """The replay prefill of ``prompts`` and SHARD_SSM_DECODE decode steps
+    through the entry points, each fed the last step's greedy token or, with
+    ``feed``, that step's token of ``feed``: (every output's logits over the
+    whole vocabulary, the greedy tokens)."""
+    from repro_torch.serve import make_serve_step
+
+    p = prompts.shape[1]
+    with torch.no_grad():
+        logits, cache = make_prefill(cfg, p + SHARD_SSM_DECODE, rules)(params, prompts)
+        step = make_serve_step(cfg, rules)
+        outs, toks = [logits], [logits.argmax(-1)]
+        for i in range(SHARD_SSM_DECODE):
+            logits, cache = step(params, cache, toks[-1] if feed is None else feed[i])
+            outs.append(logits)
+            toks.append(logits.argmax(-1))
+    return torch.stack(outs), torch.stack(toks)
+
+
+def ssm_steps(cfg, params, prompts):
+    """The one-rank replay of ``prompts`` and SHARD_SSM_DECODE greedy steps
+    (the loop ``make_prefill`` runs, then ``make_serve_step``'s): each
+    step's (cache before it, its token, its logits)."""
+    from repro_torch.serve import make_serve_step
+    from repro_torch.serve.decode import rank_cache
+
+    p = prompts.shape[1]
+    step = make_serve_step(cfg)
+    out = []
+    with torch.no_grad():
+        cache = rank_cache(cfg, prompts, p + SHARD_SSM_DECODE)
+        tok = prompts[:, 0]
+        for i in range(p + SHARD_SSM_DECODE):
+            logits, new = step(params, copy_cache(cache), tok)
+            out.append((cache, tok, logits))
+            cache = new
+            tok = prompts[:, i + 1] if i + 1 < p else logits.argmax(-1)
+    return out
+
+
+def copy_cache(cache):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+
+
+def cache_blocks(cfg, rules, cache):
+    """This rank's blocks of a whole decode cache (``cache_shardings``)."""
+    from repro_torch.serve.decode import cache_shardings
+
+    b = cache["tok1" if cfg.family == "ssm" else "conv"].shape[1]
+    max_seq = cache["k"].shape[2] if "k" in cache else 1
+    shard = cache_shardings(cfg, rules, b, max_seq)
+    out = {k: shard[k].local(v) if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+    if "k" in cache:
+        out["max_seq"] = max_seq
+    return out
+
+
+def decode_blocks(cfg, params, cache, rules=None, attend=None):
+    """One decode step's blocks in order as (name, fn(x) -> x) on ``params``
+    and ``cache`` (a rank's blocks under ``rules``), each writing its part of
+    the cache in place: rwkv6's layers; zamba2's Mamba layers and its
+    shared-block applications (``attend`` as ``zamba2.decode_step`` takes
+    it)."""
+    from repro_torch.models import rwkv6, zamba2
+    from repro_torch.models.common import layer
+
+    layers = params["layers"]
+    if cfg.family == "ssm":
+        return [(f"layer {li}", lambda x, li=li: rwkv6.decode_layer(
+            x, layer(layers, li), li, cache, cfg, rules)) for li in range(cfg.num_layers)]
+    p = cfg.shared_attn_every
+    out = []
+    for li in range(cfg.num_layers):
+        out.append((f"mamba {li}", lambda x, li=li: zamba2.mamba_decode_layer(
+            x, layer(layers, li), li, cache, cfg, rules)))
+        if (li + 1) % p == 0:
+            out.append((f"shared {li // p}", lambda x, g=li // p: zamba2._shared_decode(
+                x, params["shared"], cfg, cache["k"][g], cache["v"][g], cache["length"],
+                rules, attend)))
+    return out
+
+
+def block_rel(a, b) -> float:
+    """Relative L2 of ``a`` against ``b``; the largest difference where
+    ``b`` is all zeros (a cache block no rank has written)."""
+    n = torch.linalg.vector_norm(b.float()).item()
+    return rel_l2(a, b) if n else (a.float() - b.float()).abs().max().item()
+
+
+def sharded_steps(cfg, params, local, rules, steps):
+    """Each one-rank step of ``steps`` again, block by block, as the rank's
+    tensor-parallel blocks on the one-rank blocks' inputs and on the rank's
+    blocks of that step's cache: each block's and each written cache leaf's
+    largest relative L2 over the steps, and the vocabulary-parallel head's
+    logits on the one-rank's last hidden state, step by step."""
+    from repro_torch import distributed as D
+    from repro_torch.serve.decode import seq_split, sharded_decode_attention
+
+    blocks, written, logits = {}, {}, []
+    with torch.no_grad():
+        for cache, tok, _ in steps:
+            whole, mine = copy_cache(cache), cache_blocks(cfg, rules, cache)
+            attend = None
+            if seq_split(mine, rules):
+                def attend(q, kc, vc, kn, vn, length):
+                    return sharded_decode_attention(q, kc, vc, kn, vn, length, rules, True)
+            x = transformer.embed(params, tok, cfg)[:, None]
+            for (name, one), (_, tp) in zip(decode_blocks(cfg, params, whole),
+                                            decode_blocks(cfg, local, mine, rules, attend)):
+                y, got = one(x), tp(x)
+                blocks[name] = max(blocks.get(name, 0.0), rel_l2(got, y))
+                x = y
+            for k, v in cache_blocks(cfg, rules, whole).items():
+                if isinstance(v, torch.Tensor):
+                    written[k] = max(written.get(k, 0.0), block_rel(mine[k], v))
+            h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+            logits.append(D.all_gather(transformer.lm_logits(h, local, cfg, rules), -1, rules,
+                                       "model")[:, 0])
+    return blocks, written, torch.stack(logits)
+
+
+def shard_ssm(rank, cfgs=None, device="cuda"):
+    """(f) rwkv6-7b and zamba2-7b at full width on (1, 2), seed-0 bf16
+    weights, depth cut (SHARD_SSM): the tensor-parallel forward through
+    ``models.forward`` on 4 x 512 prompts (zamba2: ``gqa_flash`` launches
+    counted, 1 a rank, ``wgmma``, on its 16 local query heads and the 16 KV
+    heads they read; the kernel on those heads against its plain version);
+    each block on the one-rank path's own input against that path's output
+    of the block; the replay prefill and decode on the sharded caches
+    against the one-rank path; on rank 0 the local-heads kernel timed
+    against SDPA (the other rank waiting).  ``cfgs`` and ``device``: other
+    configs, and the CPU, for a rehearsal (the plain versions, nothing
+    timed)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.api import shard_params
+
+    rules = shard_rules()
+    out = {}
+    for cfg in cfgs or [dataclasses.replace(ARCHS[a], num_layers=n) for a, n in SHARD_SSM]:
+        arch, layers = cfg.name, cfg.num_layers
+        params = init_params(cfg, seed=0, device=device)
+        local = shard_params(params, cfg, rules)
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SHARD_SSM_PROMPT))).to(device)
+        heads, first, kernel = [], [], fa.gqa_flash
+
+        def counted_flash(q, k, v, causal_offset=0):
+            heads.append((q.shape[2], k.shape[2]))
+            if not first:
+                first.append((q.clone(), k.clone(), v.clone(), causal_offset))
+            return kernel(q, k, v, causal_offset=causal_offset)
+
+        fa.gqa_flash = counted_flash
+        fa.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits = model_forward(local, prompts, cfg, rules=rules)
+            torch.cuda.synchronize()
+            forward_s = time.perf_counter() - t
+            launches = dict(fa.launches)
+        finally:
+            fa.gqa_flash = kernel
+        groups = layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        want = dict.fromkeys(fa.launches, 0)
+        if device == "cuda":
+            want.update(gqa_flash=groups, wgmma=groups)
+        local_heads = cfg.num_heads // rules.tp
+        if launches != want or heads != [(local_heads, local_heads)] * groups \
+                or tuple(logits.shape) != (SERVE_BATCH, SHARD_SSM_PROMPT,
+                                           cfg.vocab_size // rules.tp):
+            raise AssertionError(f"shard ssm {arch}, rank {rank}: flash launches {launches} on "
+                                 f"heads {heads}, logits {tuple(logits.shape)}; expected "
+                                 f"{want} on {local_heads} query and KV heads")
+        row = dict(layers=layers, forward_s=forward_s, launches=launches, heads=heads,
+                   logits_nonfinite=int((~torch.isfinite(logits)).sum()))
+        del logits
+        if first:
+            q, k, v, offset = first.pop()
+            row["flash_max_abs_err"], row["flash_rel_l2"] = flash_check(
+                q, k, v, offset, f"shard ssm {arch}, rank {rank}: gqa_flash on the local heads")
+            dist.barrier()              # the other rank waits while rank 0 times
+            if rank == 0 and device == "cuda":
+                row["flash_timing"] = local_heads_timing(q, k, v)
+            dist.barrier()
+            del q, k, v
+        # each block on the one-rank path's own input
+        positions = torch.arange(SHARD_SSM_PROMPT, device=device)
+        blocks = []
+        with torch.no_grad():
+            x = transformer.embed(params, prompts, cfg)
+            for (name, one), (_, tp) in zip(ssm_blocks(cfg, params, positions),
+                                            ssm_blocks(cfg, local, positions, rules)):
+                y, got = one(x), tp(x)
+                fin = torch.isfinite(y)
+                same = torch.equal(fin, torch.isfinite(got))
+                rel = rel_l2(got[fin], y[fin]) if same and fin.any() else math.inf
+                blocks.append(dict(block=name, nonfinite=int((~fin).sum()),
+                                   same_nonfinite=same, rel_l2=rel))
+                x = y
+        del x, y, got
+        if not all(b["same_nonfinite"] and b["rel_l2"] <= SHARD_LAYER_REL for b in blocks):
+            raise AssertionError(f"shard ssm {arch}, rank {rank}: blocks against the one-rank "
+                                 f"path {blocks} (limit {SHARD_LAYER_REL} on finite entries)")
+        # each replay and decode step, block by block, on the one-rank
+        # path's own inputs and cache
+        short = prompts[:, :SHARD_SSM_REPLAY]
+        steps = ssm_steps(cfg, params, short)
+        t = time.perf_counter()
+        step_blocks, written, got = sharded_steps(cfg, params, local, rules, steps)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t
+        want = torch.stack([lg for _, _, lg in steps])
+        del steps
+        diff = (got.float() - want.float()).abs().amax(-1)
+        top2 = want.float().topk(2, dim=-1).values
+        clear = top2[..., 0] - top2[..., 1] > 2 * diff
+        differ = got.argmax(-1) != want.argmax(-1)
+        # the chained run on the sharded caches, fed the one-rank's tokens
+        want_logits, want_tokens = ssm_serve(cfg, params, short)
+        t = time.perf_counter()
+        got_logits, _ = ssm_serve(cfg, local, short, rules, feed=want_tokens[:-1])
+        torch.cuda.synchronize()
+        decode = dict(steps=len(want), steps_s=steps_s, block_rel_l2=step_blocks,
+                      cache_rel_l2=written, logits_rel_l2=rel_l2(got, want),
+                      tokens_equal=not bool(differ[clear].any()),
+                      tokens_differing=int(differ.sum()), near_ties=int((~clear).sum()),
+                      finite=bool(torch.isfinite(got_logits).all()),
+                      chained_s=time.perf_counter() - t,
+                      chained_rel_l2=rel_l2(got_logits, want_logits),
+                      chained_step_rel_l2=[rel_l2(a, b) for a, b in
+                                           zip(got_logits, want_logits)])
+        if not (decode["tokens_equal"] and decode["finite"]
+                and max(list(step_blocks.values()) + list(written.values()))
+                <= SHARD_SSM_DECODE_REL
+                and decode["logits_rel_l2"] <= SHARD_SSM_STEP_REL
+                and decode["chained_rel_l2"] <= SHARD_SSM_LOGITS_REL):
+            raise AssertionError(f"shard ssm {arch}, rank {rank}: sharded decode against the "
+                                 f"one-rank decode {decode} (limits {SHARD_SSM_DECODE_REL} a "
+                                 "block, "
+                                 f"{SHARD_SSM_STEP_REL} the head, {SHARD_SSM_LOGITS_REL} "
+                                 "chained)")
+        row.update(blocks=blocks, decode=decode)
+        out[arch] = row
+        del params, local, prompts, got_logits, want_logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_heads_timing(q, k, v):
+    """``gqa_flash`` on one rank's heads (zamba2's 16 of 32 at D 112, B 4,
+    S 512) against SDPA on the same inputs, in turns by CUDA events, beside
+    the bound."""
+    b, sq, hq, d = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    runs = dict(ms=lambda: fa.launch(q, k, v, 0, "wgmma"),
+                library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        turns[key].append(time_ms(runs[key], 50, warmup=5))
+    nbytes, flops = flash_work(b, sq, sq, hq, k.shape[2], d, 0, 2)
+    bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    return dict(shape=f"B={b} Sq=Sk={sq} Hq={hq} Hkv={k.shape[2]} D={d} bf16 causal",
+                turns=turns, ms=float(np.mean(turns["ms"])),
+                library_ms=float(np.mean(turns["library_ms"])), bound_ms=bound, bound_by=by)
+
+
 def shard_elastic(rank, root):
     """(d) ``ElasticTrainer`` in both ranks on reduced stablelm-1.6b (fp32,
     the D-32 flash route): the plan k 1, 2, 1 with a fault at step 4 and a
@@ -2798,8 +3120,8 @@ def shard_elastic(rank, root):
 def shard_rank(rank, init, root, parent):
     """One of the two ranks of ``shard_phase``: warm up on the host, wait
     for the phase's ``go`` file in ``root`` (or return if the parent
-    process ``parent`` is gone), then (a)-(d), each rank's record written
-    to ``root``."""
+    process ``parent`` is gone), then (a)-(c), (f) and (d), each rank's
+    record written to ``root``."""
     import torch.distributed as dist
 
     torch.set_num_threads(max(1, (os.cpu_count() or SHARD_WORLD) // SHARD_WORLD))
@@ -2815,7 +3137,7 @@ def shard_rank(rank, init, root, parent):
     try:
         res = dict(rank=rank, warm_s=warm_s, startup_s=time.perf_counter() - t)
         for name, fn in (("moe", shard_moe), ("decode", shard_decode),
-                         ("prefill", shard_prefill)):
+                         ("prefill", shard_prefill), ("ssm", shard_ssm)):
             t = time.perf_counter()
             res[name] = fn(rank)
             res[name]["wall_s"] = time.perf_counter() - t
@@ -2832,8 +3154,9 @@ def shard_rank(rank, init, root, parent):
 def shard_phase(handle):
     """The sharding layer on two ranks sharing the card over gloo, started
     once (``start_shard_ranks``): (a) the expert-parallel MoE layer, (b) the
-    sequence-sharded decode attention, (c) the tensor-parallel prefill, (d)
-    the elastic trainer at k 1, 2, 1 (``shard_rank``).  The ranks are joined
+    sequence-sharded decode attention, (c) the tensor-parallel prefill, (f)
+    rwkv6's and zamba2's tensor-parallel layers and decode, (d) the elastic
+    trainer at k 1, 2, 1 (``shard_rank``).  The ranks are joined
     within SHARD_TIMEOUT: a rank that raises on a failed gate, or hangs,
     fails the phase."""
     torch.cuda.empty_cache()
@@ -2854,6 +3177,7 @@ def shard_phase(handle):
     log(f"shard (a) moe, experts over 2 ranks: {[{k: r[k] for k in ('moe',)} for r in ranks]}")
     log(f"shard (b) decode: {[r['decode'] for r in ranks]}")
     log(f"shard (c) tensor-parallel prefill: {[r['prefill'] for r in ranks]}")
+    log(f"shard (f) rwkv6 / zamba2 tensor-parallel: {[r['ssm'] for r in ranks]}")
     keys = ("loss_rel_off", "one_rel_off", "walls")
     log(f"shard (d) elastic: {[{k: r['elastic'][k] for k in keys} for r in ranks]}"
         f"; rank 0 {r0['elastic']['card']}")
@@ -2864,7 +3188,7 @@ def shard_phase(handle):
                 startup_s=[r["startup_s"] for r in ranks],
                 moe=[r["moe"] for r in ranks],
                 decode=[r["decode"] for r in ranks], prefill=[r["prefill"] for r in ranks],
-                elastic=[r["elastic"] for r in ranks])
+                ssm=[r["ssm"] for r in ranks], elastic=[r["elastic"] for r in ranks])
 
 
 # --- DAG gating and the device slot loop -------------------------------------
@@ -5170,30 +5494,42 @@ def dryrun_in(train, tmp):
     cell_dir = os.path.join(tmp, "results", "dryrun_opt")
     os.makedirs(cell_dir)
     t = time.perf_counter()
-    counted = dryrun.count_cells([(ARCHS[a], SHAPES[s]) for a, s in cells],
-                                 workers=DRYRUN_WORKERS)
-    count_wall = time.perf_counter() - t
     mesh = make_production_mesh()
+    counted = dryrun.count_cells([(ARCHS[a], SHAPES[s]) for a, s in cells],
+                                 workers=DRYRUN_WORKERS, mesh=mesh)
+    count_wall = time.perf_counter() - t
     for (arch, shape), (stats, secs) in zip(cells, counted):
         rec = dryrun.cell_record(arch, ARCHS[arch], SHAPES[shape], mesh, stats, secs)
         with open(dryrun.cell_path(cell_dir, arch, shape, rec["mesh"]), "w") as f:
             json.dump(rec, f, indent=1)
         r = rec["roofline"]
         prof = profile_from_dryrun(arch, dryrun_dir=cell_dir, shape=shape)
-        per_dev = rec["hlo_stats"]
+        per_dev, coll = rec["hlo_stats"], rec["collectives"]
         if not (per_dev["flops"] > 0 and per_dev["hbm_bytes"] > 0
+                and coll["payload_bytes"] > 0 and coll["count"] > 0
                 and all(math.isfinite(r[k]) for k in ("compute_s", "memory_s", "collective_s"))):
-            raise AssertionError(f"dry-run {arch} x {shape}: counts {per_dev}, terms {r}")
+            raise AssertionError(f"dry-run {arch} x {shape}: counts {per_dev}, collectives "
+                                 f"{coll}, terms {r}")
+        # the analytic data-parallel term the cells carried before the
+        # sharded count: bf16 gradients, each device's 1/16, ring factor 2
+        analytic_s = 2.0 * (2.0 * ARCHS[arch].param_count() / 16) / dryrun.LINK_BW
         out[f"{arch}__{shape}"] = dict(
             flops_per_dev=per_dev["flops"], bytes_per_dev=per_dev["hbm_bytes"],
             compute_s=r["compute_s"], memory_s=r["memory_s"], collective_s=r["collective_s"],
             dominant=r["dominant"], useful_flops_ratio=r["useful_flops_ratio"],
+            payload_bytes=coll["payload_bytes"], wire_bytes=coll["wire_bytes"],
+            collectives=coll["count"], by_type=coll["by_type"],
+            analytic_dp_s=analytic_s if shape == "train_4k" else None,
             elasticity=elasticity_of(prof), ops=stats.ops, count_s=secs)
         log(f"dry-run {arch} x {shape}: {per_dev['flops']:.6e} FLOPs and "
-            f"{per_dev['hbm_bytes']:.6e} bytes per device (of 256), compute "
-            f"{r['compute_s']:.6e} s, memory {r['memory_s']:.6e} s, collective "
-            f"{r['collective_s']:.6e} s -> {r['dominant']}; elasticity "
-            f"{elasticity_of(prof):.6f}; {stats.ops} ops counted in {secs:.3f} s")
+            f"{per_dev['hbm_bytes']:.6e} bytes per device (rank 0 of 256), "
+            f"{coll['count']} collectives, {coll['payload_bytes']:.6e} bytes of payload "
+            f"{coll['by_type']}; compute {r['compute_s']:.6e} s, memory {r['memory_s']:.6e} "
+            f"s, collective {r['collective_s']:.6e} s -> {r['dominant']}"
+            + (f" (the analytic DP all-reduce's term {analytic_s:.6e} s)"
+               if shape == "train_4k" else "")
+            + f"; elasticity {elasticity_of(prof):.6f}; {stats.ops} ops counted in "
+            f"{secs:.3f} s")
     log(f"dry-run: {len(cells)} cells counted in {count_wall:.3f} s wall on "
         f"{DRYRUN_WORKERS} processes ({sum(s for _, s in counted):.3f} s of counting)")
 
@@ -5381,6 +5717,10 @@ def phases(card, reports, shard_ranks):
     kernels[2].update(shard_tp_prefill_launches=[r["launches"]["wgmma"]
                                                  for r in shard["prefill"]],
                       shard_tp_prefill_heads=prefill0["heads"])
+    zamba0 = shard["ssm"][0]["zamba2-7b"]
+    d112_entry.update(shard_tp_launches=[r["zamba2-7b"]["launches"]["wgmma"]
+                                         for r in shard["ssm"]],
+                      shard_tp_heads=zamba0["heads"], shard_tp_timing=zamba0["flash_timing"])
     for entry in bwd_entries:
         if entry["bwd_route"] == "fma":
             name = entry["name"][len("gqa_flash_"):]

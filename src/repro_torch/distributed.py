@@ -31,10 +31,38 @@ path.  A multi-axis collective runs one axis at a time, minor axis first.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.models.common import LogicalRules, axes_of
+
+
+class Collective(NamedTuple):
+    """One collective a rank runs: ``op`` ("all-reduce" or "all-gather", the
+    reference's HLO names; ``reduce`` "sum" or "max" for an all-reduce),
+    the mesh ``axis`` and its ``group`` size, the ``dtype`` on the wire and
+    the payload: the elements and bytes of its output, as the reference's
+    ``hlo_analysis`` counts a collective's payload."""
+
+    op: str
+    reduce: str | None
+    axis: str
+    group: int
+    dtype: torch.dtype
+    numel: int
+    nbytes: int
+
+
+def _group(rules: LogicalRules, op: str, axis: str, out: torch.Tensor, reduce=None):
+    """The process group of ``axis`` (None on a stand-in mesh), the
+    collective of output ``out`` first appended to the mesh's ``log``."""
+    log = getattr(rules.mesh, "log", None)
+    if log is not None:
+        log.append(Collective(op, reduce, axis, rules.sizes[axis], out.dtype, out.numel(),
+                              out.numel() * out.element_size()))
+    return rules.mesh.group(axis)
 
 
 def _live(rules: LogicalRules, axes) -> tuple[str, ...]:
@@ -58,7 +86,9 @@ def all_reduce(x: torch.Tensor, rules: LogicalRules, axes) -> torch.Tensor:
         return x
     y = _wire(x)
     for a in live:
-        dist.all_reduce(y, group=rules.mesh.group(a))
+        group = _group(rules, "all-reduce", a, y, "sum")
+        if group is not None:
+            dist.all_reduce(y, group=group)
     return y.to(x.dtype)
 
 
@@ -71,7 +101,9 @@ def _gather_axis(x: torch.Tensor, dim: int, rules: LogicalRules, axis: str) -> t
     their coordinate on the axis (``DistMesh`` lays them out row-major)."""
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((rules.sizes[axis] * src.shape[0],) + src.shape[1:])
-    _all_gather_single(out, src, group=rules.mesh.group(axis))
+    group = _group(rules, "all-gather", axis, out)
+    if group is not None:
+        _all_gather_single(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -98,7 +130,9 @@ def pmax(x: torch.Tensor, rules: LogicalRules, axes) -> torch.Tensor:
         return x
     y = x.detach().clone()
     for a in live:
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=rules.mesh.group(a))
+        group = _group(rules, "all-reduce", a, y, "max")
+        if group is not None:
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
 

@@ -1,11 +1,12 @@
 """Dry-run: count every (architecture x input shape) cell's step on the
-``meta`` device and record its FLOPs, bytes, analytic gradient all-reduce
-and roofline terms (the counterpart of ``repro/launch/dryrun.py``, which
-lowers and compiles each cell on 512 placeholder TPU devices).
+``meta`` device and record one device's FLOPs, bytes, collectives and
+roofline terms (the counterpart of ``repro/launch/dryrun.py``, which lowers
+and compiles each cell on 512 placeholder TPU devices and reads the
+partitioned per-device HLO).
 
 Usage (no card needed: ``meta`` tensors hold shapes and no storage):
   PYTHONPATH=src python -m repro_torch.launch.dryrun                    # all cells
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod        # 2x16x16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --out DIR
 
@@ -15,20 +16,30 @@ The default ``--out`` is ``results/dryrun_torch``: the reference's
 ``elasticity="tpu"`` reads ``results/dryrun_opt``, and no cell of this
 package lands there unless a caller names it.
 
-What a cell counts (``count_cell``, as ``lower_cell`` lowers):
+What a cell counts (``count_cell``, as ``lower_cell`` lowers), on the
+production mesh: rank 0's program of the sharded step, run under
+``LogicalRules`` on a ``launch.mesh.StandInMesh`` with the rank's blocks
+of the state, params and cache and its slice of the batch:
 
-- train: one step of ``train/step.py::make_train_step`` (forward, chunked
-  cross-entropy, ``torch.autograd.grad`` with every checkpoint recomputed,
-  AdamW) on the whole global batch;
-- prefill: the forward over the prompt and the last position's logits;
-- decode: one new token per sequence against a ``seq_len`` cache.
+- train: one step of ``train/step.py::make_train_step(cfg, rules=)``
+  (forward, chunked cross-entropy, ``torch.autograd.grad`` with every
+  checkpoint recomputed, the gradient's reduction, AdamW);
+- prefill: the forward over the prompt and the last position's logits,
+  as the reference's ``lower_cell`` counts a prefill (not ``make_prefill``,
+  which for rwkv6 and zamba2 replays the prompt one decode step a token);
+- decode: ``make_serve_step(cfg, rules)``, one new token per sequence
+  against a ``seq_len`` cache.
 
+Its FLOPs and bytes are that rank's (``OpCounter``), and its
+``collectives`` every collective the rank's program asks for, recorded by
+the stand-in (``repro_torch/distributed.py``) in the reference's fields:
+payload (each collective's output bytes), wire bytes (ring factors: an
+all-reduce 2(n-1)/n, an all-gather (n-1)/n of a group of n), by type, count.
+A sum of 16-bit floats crosses in fp32 in the port, where XLA's HLO would
+carry bf16.  A one-device mesh counts the whole step with no collective.
 Attention is counted on the ``"chunked"`` backend, the counterpart of the
-reference's ``"xla"`` default that its dry-run lowers (the flash kernel has
-no ``meta`` route), with ``_adapted_cfg``'s chunk.  The per-device counts
-are the whole step over ``chips``: an ideal split that shards every op's
-work evenly and adds no tensor-parallel traffic.  ``collectives`` holds only
-the analytic data-parallel gradient all-reduce of a train step.
+reference's ``"xla"`` default that its dry-run lowers, with
+``_adapted_cfg``'s chunk.
 """
 from __future__ import annotations
 
@@ -42,12 +53,14 @@ import traceback
 import torch
 
 from repro_torch.configs import ARCHS, LONG_CONTEXT_ARCHS
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, StandInMesh, make_production_mesh
 from repro_torch.launch.op_analysis import OpStats, count
 from repro_torch.models import api
-from repro_torch.models.common import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.models.common import SHAPES, LogicalRules, ModelConfig, ShapeConfig
 from repro_torch.models import rwkv6, zamba2
+from repro_torch.serve import decode
 from repro_torch.serve.decode import make_serve_step
+from repro_torch.train import step as train_step
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import TrainState, leaves, make_train_step, state_template, unflatten
 
@@ -55,18 +68,16 @@ META = torch.device("meta")
 
 # One H100 SXM at its full 700 W limit (NVIDIA's H100 data sheet): dense
 # bf16 on the tensor cores and HBM3 bandwidth, the rates PERF.md's bounds
-# use.  The link: a 16-GPU slice spans two 8-GPU nodes, so the DP all-reduce
-# between slices crosses the inter-node fabric, one 400 Gb/s ConnectX-7 port
-# per GPU on a DGX H100 (NVIDIA DGX H100 data sheet): 50e9 bytes/s each way.
+# use.  The link: every collective is charged at the inter-node rate, since
+# a ring over the 16 devices of a mesh axis spans two 8-GPU nodes: one
+# 400 Gb/s ConnectX-7 port per GPU on a DGX H100 (NVIDIA DGX H100 data
+# sheet), 50e9 bytes/s each way.
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 LINK_BW = 50e9
 RATES = {"peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW, "link_bw": LINK_BW}
 RATES_SOURCE = ("NVIDIA H100 SXM data sheet (989 TFLOP/s dense bf16, 3.35 TB/s HBM3); "
                 "NVIDIA DGX H100 data sheet (one 400 Gb/s ConnectX-7 port per GPU)")
-#: Devices of one DP slice: gradients are all-reduced between slices, each
-#: device holding 1/SLICE of them (the reference's ``slice_chips``).
-SLICE = 16
 DEFAULT_OUT = "results/dryrun_torch"
 
 
@@ -148,38 +159,71 @@ def input_specs(arch: str, shape_name: str):
 # counting
 
 
-def count_step(cfg: ModelConfig, shape: ShapeConfig, attention: str = "chunked") -> OpStats:
-    """The op counts of one whole step of the cell (see the module
-    docstring) at ``cfg``'s depth, on ``meta``.  ``attention="flash"``
-    counts the step as the card runs it: each ``gqa_flash`` forward and
-    backward one kernel of the work ``flash_attention.kernel_work`` gives."""
+def local_meta(tree):
+    """A rank's blocks of ``meta`` stand-ins (whole shapes, each with its
+    ``.sharding``): of a tensor, or of each tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: local_meta(v) for k, v in tree.items()}
+    return torch.empty(tree.sharding.local_shape(tuple(tree.shape)), dtype=tree.dtype,
+                       device=META)
+
+
+def step_program(cfg: ModelConfig, shape: ShapeConfig, rules: LogicalRules | None = None):
+    """(fn, args): the cell's step at ``cfg`` (as ``count_step`` adapts it)
+    and its ``meta`` inputs; with ``rules`` the sharded step and the rank's
+    blocks of its inputs and batch slice."""
+    if shape.kind == "train":
+        opt = OptimizerConfig(schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine")
+        if rules is None:
+            return make_train_step(cfg, opt), (abstract_state(cfg), batch_specs(cfg, shape))
+        st = train_step.abstract_state(cfg, rules)
+        state = TrainState(params=local_meta(st.params), m=local_meta(st.m),
+                           v=local_meta(st.v), step=0)
+        return (make_train_step(cfg, opt, rules=rules),
+                (state, local_meta(train_step.batch_specs(cfg, shape, rules))))
+    params = (abstract_params(cfg) if rules is None
+              else local_meta(api.abstract_params(cfg, rules)))
+    if shape.kind == "prefill":
+        @torch.no_grad()
+        def prefill(params, batch):
+            x, head = api.forward(params, batch["tokens"], cfg, rules=rules,
+                                  return_hidden=True, prefix_embeds=batch.get("prefix_embeds"))
+            return x[:, -1] @ head.to(x.dtype)
+
+        batch = (batch_specs(cfg, shape) if rules is None
+                 else local_meta(train_step.batch_specs(cfg, shape, rules)))
+        return prefill, (params, batch)
+    # decode: one new token against a seq_len context, the cache filled up
+    # to its last position (the chunked attention reads every position of
+    # the cache whatever its length, as the reference's)
+    b = shape.global_batch
+    if rules is None:
+        cache, tokens = abstract_cache(cfg, b, shape.seq_len), serve_input_specs(cfg, b)
+    else:
+        cache = decode.init_cache(cfg, b, shape.seq_len, device="meta", rules=rules)
+        tokens = local_meta(decode.serve_input_specs(cfg, b, rules))
+    if "length" in cache:
+        cache["length"] = shape.seq_len - 1
+    return torch.no_grad()(make_serve_step(cfg, rules)), (params, cache, tokens)
+
+
+def count_step(cfg: ModelConfig, shape: ShapeConfig, attention: str = "chunked",
+               mesh: Mesh | None = None) -> OpStats:
+    """The op counts of one step of the cell (see the module docstring) at
+    ``cfg``'s depth, on ``meta``: with a ``mesh`` of more than one device,
+    rank 0's program of the sharded step and its collectives
+    (``OpStats.comm``); else the whole step.  ``attention="flash"`` counts
+    the step as the card runs it: each ``gqa_flash`` forward and backward
+    one kernel of the work ``flash_attention.kernel_work`` gives."""
     if attention not in ("chunked", "flash"):
         raise ValueError(f"attention {attention!r}: use 'chunked' or 'flash'")
     cfg = dataclasses.replace(_adapted_cfg(cfg, shape), attention_backend=attention)
-    if shape.kind == "train":
-        opt = OptimizerConfig(schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine")
-        step = make_train_step(cfg, opt)
-        _, stats = count(step, abstract_state(cfg), batch_specs(cfg, shape))
-        return stats
-    params = abstract_params(cfg)
-    with torch.no_grad():
-        if shape.kind == "prefill":
-            def prefill(params, batch):
-                x, head = api.forward(params, batch["tokens"], cfg, return_hidden=True,
-                                      prefix_embeds=batch.get("prefix_embeds"))
-                return x[:, -1] @ head.to(x.dtype)
-
-            _, stats = count(prefill, params, batch_specs(cfg, shape))
-            return stats
-        # decode: one new token against a seq_len context, the cache filled
-        # up to its last position (the chunked attention reads every
-        # position of the cache whatever its length, as the reference's)
-        cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
-        if "length" in cache:
-            cache["length"] = shape.seq_len - 1
-        step = make_serve_step(cfg)
-        _, stats = count(step, params, cache, serve_input_specs(cfg, shape.global_batch))
-        return stats
+    rules = None if mesh is None or mesh.devices == 1 else LogicalRules(StandInMesh(mesh))
+    fn, args = step_program(cfg, shape, rules)
+    _, stats = count(fn, *args)
+    if rules is not None:
+        stats.add_collectives(rules.mesh.log)
+    return stats
 
 
 #: The repeat counts a cell is counted at before ``count_cell`` extrapolates.
@@ -222,27 +266,30 @@ def extrapolate(parts: list[OpStats], n: int) -> OpStats:
     return OpStats.combine(parts, w, divisor=2)
 
 
-def count_cell(cfg: ModelConfig, shape: ShapeConfig, attention: str = "chunked") -> OpStats:
-    """The op counts of one whole step of the cell: each config of
-    ``fit_tasks`` counted, then ``extrapolate``d to ``cfg``'s depth."""
-    return extrapolate([count_step(c, shape, attention) for c in fit_tasks(cfg)],
+def count_cell(cfg: ModelConfig, shape: ShapeConfig, attention: str = "chunked",
+               mesh: Mesh | None = None) -> OpStats:
+    """The op counts of one step of the cell (``count_step`` on ``mesh``):
+    each config of ``fit_tasks`` counted, then ``extrapolate``d to
+    ``cfg``'s depth, the collectives with the rest."""
+    return extrapolate([count_step(c, shape, attention, mesh) for c in fit_tasks(cfg)],
                        repeats(cfg)[0])
 
 
-def _timed_count(cfg: ModelConfig, shape: ShapeConfig) -> tuple[OpStats, float]:
+def _timed_count(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh | None
+                 ) -> tuple[OpStats, float]:
     t0 = time.perf_counter()
-    stats = count_step(cfg, shape)
+    stats = count_step(cfg, shape, mesh=mesh)
     return stats, time.perf_counter() - t0
 
 
-def count_cells(cells: list[tuple[ModelConfig, ShapeConfig]], workers: int = 1
-                ) -> list[tuple[OpStats, float]]:
-    """``count_cell`` of every (cfg, shape), with each cell's counting
-    seconds (the sum of its fit configs'); with ``workers`` > 1 the fit
-    configs are counted in that many spawned processes (each imports the
+def count_cells(cells: list[tuple[ModelConfig, ShapeConfig]], workers: int = 1,
+                mesh: Mesh | None = None) -> list[tuple[OpStats, float]]:
+    """``count_cell`` of every (cfg, shape) on ``mesh``, with each cell's
+    counting seconds (the sum of its fit configs'); with ``workers`` > 1 the
+    fit configs are counted in that many spawned processes (each imports the
     caller's ``__main__`` again, so a script keeps its work under ``if
     __name__ == "__main__"``)."""
-    tasks = [(c, shape) for cfg, shape in cells for c in fit_tasks(cfg)]
+    tasks = [(c, shape, mesh) for cfg, shape in cells for c in fit_tasks(cfg)]
     if workers > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -278,39 +325,52 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n_active * tokens
 
 
-def grad_allreduce(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """The analytic DP gradient all-reduce of a train step, per device:
-    bf16 gradients of every parameter, each device's 1/``SLICE`` shard,
-    the ring factor 2 of the reference's wire count.  Nothing for serving
-    shapes; tensor-parallel traffic is not counted."""
-    payload = 2.0 * cfg.param_count() / SLICE if shape.kind == "train" else 0.0
-    return {"payload_bytes": payload, "wire_bytes": 2.0 * payload,
-            "by_type": {"all-reduce": payload} if payload else {},
-            "count": int(payload > 0), "analytic": True}
+#: Bytes on the wire per payload byte of a ring collective over a group of
+#: n (the reference's ``hlo_analysis`` wire-cost model).
+RING = {"all-reduce": lambda n: 2.0 * (n - 1) / n, "all-gather": lambda n: (n - 1) / n}
+
+
+def collectives(stats: OpStats) -> dict:
+    """A count's collectives in the reference's fields (``hlo_analysis``'s
+    ``CollectiveStats``): payload bytes, ring-weighted wire bytes, payload
+    by type, count; and each (type, group size)'s [count, payload]."""
+    payload = wire = 0.0
+    by_type: dict = {}
+    count_ = 0
+    for key, (n, nbytes) in sorted(stats.comm.items()):
+        op, group = key.rsplit("/", 1)
+        payload += nbytes
+        wire += nbytes * RING[op](int(group))
+        by_type[op] = by_type.get(op, 0.0) + nbytes
+        count_ += n
+    return {"payload_bytes": payload, "wire_bytes": wire, "by_type": by_type,
+            "count": count_, "by_group": {k: list(v) for k, v in sorted(stats.comm.items())}}
 
 
 def cell_record(arch: str, cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                 stats: OpStats, count_s: float) -> dict:
-    """One cell's JSON record from its counts (the reference's fields)."""
+    """One cell's JSON record from one device's counts (``count_cell`` on
+    ``mesh``; the reference's fields)."""
     chips = mesh.devices
-    coll = grad_allreduce(cfg, shape)
-    flops_per_dev = stats.flops / chips
-    bytes_per_dev = stats.bytes / chips
+    coll = collectives(stats)
+    flops_per_dev, bytes_per_dev = stats.flops, stats.bytes
     compute_s = flops_per_dev / PEAK_FLOPS
     memory_s = bytes_per_dev / HBM_BW
     collective_s = coll["wire_bytes"] / LINK_BW
     model_flops_per_dev = model_flops(cfg, shape) / chips
+    mesh_name = "x".join(str(n) for n in mesh.shape)
     return {
         "arch": arch,
         "shape": shape.name,
         "kind": shape.kind,
-        "mesh": "x".join(str(n) for n in mesh.shape),
+        "mesh": mesh_name,
         "chips": chips,
         "count_s": count_s,
         "ops": stats.ops,
         "hlo_stats": {"flops": flops_per_dev, "hbm_bytes": bytes_per_dev},
         "counted": {"flops": stats.flops, "bytes": stats.bytes,
-                    "split": "ideal: the whole step's counts over chips"},
+                    "split": (f"rank 0's program of the sharded step on the {mesh_name} mesh"
+                              if chips > 1 else "the whole step on one device")},
         "collectives": coll,
         "rates": dict(RATES),
         "rates_source": RATES_SOURCE,
@@ -334,7 +394,7 @@ def analyze_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     """One cell's record on the production mesh."""
     cfg, shape = ARCHS[arch], SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
-    [(stats, count_s)] = count_cells([(cfg, shape)])
+    [(stats, count_s)] = count_cells([(cfg, shape)], mesh=mesh)
     return cell_record(arch, cfg, shape, mesh, stats, count_s)
 
 

@@ -16,6 +16,10 @@ over the world) and get no coordinate.  With no process group a mesh of
 one device is the world of one: no group, coordinate 0 on every axis.  A
 mesh above one device with no process group raises.
 
+``StandInMesh`` is a ``Mesh`` seen from rank 0 with no process group: the
+dry-run counts a cell's sharded step on it (``launch/dryrun.py``), each
+collective recorded in its ``log`` and not run (``distributed.py``).
+
 The production meshes are the JAX package's: one pod of 16 x 16 devices,
 axes ("data", "model"), and two such pods, axes ("pod", "data", "model").
 """
@@ -110,3 +114,29 @@ class DistMesh:
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
+
+
+class StandInMesh:
+    """``mesh`` as its rank 0 sees it, with no process group: coordinate 0
+    on every axis, ``group`` None, and ``log``, the ``distributed.Collective``
+    of every collective the rank's program asks for, in order.  The tensors
+    of such a program are ``meta`` tensors: a collective is recorded and its
+    output left as its shape."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.coords: dict = {a: 0 for a in mesh.axes}
+        self.log: list = []
+
+    member = True
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return self.mesh.axes
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return self.mesh.sizes
+
+    def group(self, axis: str):
+        return None

@@ -65,13 +65,23 @@ def _tensors(tree) -> list[torch.Tensor]:
 
 @dataclasses.dataclass
 class OpStats:
-    """Counts of one program: FLOPs, bytes and ops dispatched, and per op
-    name [ops, FLOPs, bytes]; all integers, so counts combine exactly."""
+    """Counts of one program: FLOPs, bytes and ops dispatched, per op name
+    [ops, FLOPs, bytes], and per collective kind ``"{op}/{group size}"``
+    [collectives, payload bytes] (``add_collectives``); all integers, so
+    counts combine exactly."""
 
     flops: int = 0
     bytes: int = 0
     ops: int = 0
     by_op: dict = dataclasses.field(default_factory=dict)
+    comm: dict = dataclasses.field(default_factory=dict)
+
+    def add_collectives(self, log) -> None:
+        """Count each ``distributed.Collective`` of ``log``."""
+        for c in log:
+            row = self.comm.setdefault(f"{c.op}/{c.group}", [0, 0])
+            row[0] += 1
+            row[1] += c.nbytes
 
     @staticmethod
     def combine(parts: list["OpStats"], weights: list[int], divisor: int = 1) -> "OpStats":
@@ -82,13 +92,14 @@ class OpStats:
                 raise ValueError(f"counts {values} do not combine to integers")
             return total // divisor
 
-        names = sorted(set().union(*(p.by_op for p in parts)))
-        zero = [0, 0, 0]
+        def rows(field, width):
+            names = sorted(set().union(*(getattr(p, field) for p in parts)))
+            return {name: [mix([getattr(p, field).get(name, [0] * width)[i] for p in parts])
+                           for i in range(width)] for name in names}
+
         return OpStats(
             flops=mix([p.flops for p in parts]), bytes=mix([p.bytes for p in parts]),
-            ops=mix([p.ops for p in parts]),
-            by_op={name: [mix([p.by_op.get(name, zero)[i] for p in parts]) for i in range(3)]
-                   for name in names})
+            ops=mix([p.ops for p in parts]), by_op=rows("by_op", 3), comm=rows("comm", 2))
 
 
 #: The counters whose context is open, innermost last.

@@ -163,9 +163,10 @@ def axes_of(entry) -> tuple[str, ...]:
 class LogicalRules:
     """Maps logical axis names to mesh axes, validated against the mesh.
 
-    ``mesh`` is a ``launch.mesh.Mesh`` (a description: specs only) or a
+    ``mesh`` is a ``launch.mesh.Mesh`` (a description: specs only), a
     ``launch.mesh.DistMesh`` (bound to ranks: specs, local slices and the
-    collectives)."""
+    collectives) or a ``launch.mesh.StandInMesh`` (rank 0's view with no
+    process group: the collectives recorded, not run)."""
 
     def __init__(self, mesh, overrides: dict[str, Any] | None = None):
         self.mesh = mesh

@@ -103,23 +103,31 @@ def param_shapes(cfg: ModelConfig) -> dict:
 # the layout on a mesh
 
 
+def leaf(lp: dict, name: str, cfg: ModelConfig, rules=None, group: str = "layers",
+         keep=("model",)) -> torch.Tensor:
+    """Leaf ``name`` of one layer's slice ``lp`` of the stacked ``group``
+    ("layers"), of an unstacked group ("shared": zamba2's block) or, with
+    ``group`` "", of the top of the tree; gathered over every axis but those
+    of ``keep`` (by default every axis but ``model``: ZeRO-3 at use;
+    ``keep=()`` makes it whole)."""
+    t = lp[name]
+    if rules is None:
+        return t
+    sh = api.param_shardings(cfg, rules)
+    stacked = int(group == "layers")
+    dims = (sh[group] if group else sh)[name].dims(t.dim() + stacked)[stacked:]
+    return D.gather_leaf(t, dims, rules, keep=keep)
+
+
 def weight(lp: dict, name: str, li: int, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """Layer ``li``'s slice of the stacked leaf ``name``, gathered over every
     axis but ``model`` (ZeRO-3 at use)."""
-    t = lp[name][li]
-    if rules is None:
-        return t
-    dims = api.param_shardings(cfg, rules)["layers"][name].dims(t.dim() + 1)[1:]
-    return D.gather_leaf(t, dims, rules, keep=("model",))
+    return leaf({name: lp[name][li]}, name, cfg, rules)
 
 
 def top(params: dict, name: str, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """A leaf outside the layer stack, gathered over every axis but ``model``."""
-    t = params[name]
-    if rules is None:
-        return t
-    return D.gather_leaf(t, api.param_shardings(cfg, rules)[name].dims(t.dim()), rules,
-                         keep=("model",))
+    return leaf(params, name, cfg, rules, group="")
 
 
 def split(cfg: ModelConfig, rules, group: str, name: str, dim: int) -> bool:
@@ -444,6 +452,16 @@ def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig, rules=None) -> t
     return D.psum(rows, rules, "model")
 
 
+def lm_logits(x: torch.Tensor, params: dict, cfg: ModelConfig, rules=None) -> torch.Tensor:
+    """x (B, S, d) through the output head; on a mesh that splits the
+    vocabulary, the rank's block (x entering the column-parallel product
+    through ``copy``)."""
+    head = output_head(params, cfg, rules)
+    if split(cfg, rules, "", "embed", 0):
+        x = D.copy(x, rules, "model")
+    return x @ head.to(x.dtype)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
             prefix_embeds: torch.Tensor | None = None, return_kv: bool = False,
             return_hidden: bool = False):
@@ -468,12 +486,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, rules=None,
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, top(params, "ln_f", cfg, rules), cfg.norm_eps)
-    head = output_head(params, cfg, rules)
     if return_hidden:
-        return x, head
-    if split(cfg, rules, "", "embed", 0):
-        x = D.copy(x, rules, "model")
-    logits = x @ head.to(x.dtype)
+        return x, output_head(params, cfg, rules)
+    logits = lm_logits(x, params, cfg, rules)
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits

@@ -28,9 +28,13 @@ slice, and a ``pmax`` and a renormalised ``psum`` combine them; q is
 gathered over ``model`` first, and the output sliced back to the rank's
 heads for the row-parallel ``wo``.  A ``model`` axis of 1, or one that
 does not divide the cache length, takes the plain path, as the
-reference's.  rwkv6 and zamba2 gather their cache and params at use and
-compute replicated over ``model``, writing their blocks back.  A cache on a
-mesh records its whole ``max_seq``; its batch must divide the batch axes.
+reference's.  rwkv6 and zamba2 decode tensor-parallel on their blocks of
+the cache (``rwkv6.decode_step``, ``zamba2.decode_step``: the recurrent
+state on the rank's heads, zamba2's conv carry on its channels, its shared
+block's K/V cache along the sequence through ``sharded_decode_attention``).
+A cache on a mesh records its whole ``max_seq``.  A batch that does not
+divide the batch axes is replicated over them, as the reference's spec
+falls back: every rank then holds and computes the whole batch.
 """
 from __future__ import annotations
 
@@ -95,20 +99,13 @@ def serve_input_specs(cfg: ModelConfig, batch: int, rules: LogicalRules) -> torc
     return t
 
 
-def _local_batch(rules: LogicalRules, batch: int) -> int:
-    n = rules.size(rules.batch_axes)
-    if batch % n:
-        raise ValueError(f"batch {batch} does not divide the batch axes' {n} ranks")
-    return batch // n
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
                rules: LogicalRules | None = None) -> dict:
     """A zero cache for ``batch`` sequences of ``max_seq``; with ``rules``
-    this rank's blocks and the whole ``max_seq``."""
+    this rank's blocks (``cache_shardings``: a batch that does not divide
+    the batch axes replicated over them) and the whole ``max_seq``."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     if rules is not None:
-        _local_batch(rules, batch)
         shard = cache_shardings(cfg, rules, batch, max_seq)
         out = {k: (torch.zeros(shard[k].local_shape(shape), dtype=dt, device=dev) if dt else 0)
                for k, (shape, dt) in _cache_leaves(cfg, batch, max_seq).items()}
@@ -125,6 +122,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
         "length": 0,
     }
+
+
+def rank_cache(cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
+               rules: LogicalRules | None = None) -> dict:
+    """A zero cache for the prompts ``tokens`` (B, S) a rank holds: on a
+    mesh its slice of the batch (the whole batch where the batch is
+    replicated), so its cache's batch dim is ``tokens``'s either way: the
+    blocks of a batch that ``tokens.shape[0]`` times the batch axes' ranks
+    split evenly."""
+    b = tokens.shape[0] * (1 if rules is None else rules.size(rules.batch_axes))
+    return init_cache(cfg, b, max_seq, device=tokens.device, rules=rules)
 
 
 def seq_split(cache: dict, rules: LogicalRules | None) -> bool:
@@ -181,10 +189,8 @@ def sharded_decode_attention(q, kc, vc, kn, vn, length: int, rules: LogicalRules
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, dh).to(vn.dtype)
 
 
-def _vocab_logits(x, params, cfg, rules):
-    """The logits of x (B, 1, d) over the whole vocabulary."""
-    head = transformer.output_head(params, cfg, rules)
-    logits = x @ head.to(x.dtype)
+def _whole_vocab(logits, cfg, rules):
+    """Logits over the rank's block of the vocabulary made whole."""
     if transformer.split(cfg, rules, "", "embed", 0):
         logits = D.all_gather(logits, -1, rules, "model")
     return logits
@@ -215,33 +221,8 @@ def _tf_decode_step(params: dict, token: torch.Tensor, cache: dict,
         x = x + transformer.attn_out(o, lp, li, cfg, rules)
         x = x + transformer.mlp(x, lp, li, cfg, rules)
     x = rms_norm(x, transformer.top(params, "ln_f", cfg, rules), cfg.norm_eps)
-    logits = _vocab_logits(x, params, cfg, rules)
+    logits = _whole_vocab(transformer.lm_logits(x, params, cfg, rules), cfg, rules)
     return logits[:, 0], dict(cache, length=length + 1)
-
-
-def _replicated_decode(decode, params, token, cache, cfg, rules):
-    """rwkv6/zamba2 on a mesh: params and cache gathered whole, the step
-    run as on one device, the rank's blocks written back into its cache."""
-    from repro_torch.models.api import gather_params
-
-    b = token.shape[0] * rules.size(rules.batch_axes)
-    max_seq = cache.get("max_seq", 0)
-    shard = cache_shardings(cfg, rules, b, max_seq)
-    full = {k: v if not isinstance(v, torch.Tensor) else
-            D.gather_leaf(v, shard[k].dims(v.dim()), rules, keep=rules.batch_axes)
-            for k, v in cache.items() if k != "max_seq"}
-    logits, new = decode(gather_params(params, cfg, rules), token, full, cfg)
-    out = dict(cache)
-    for k, v in new.items():
-        if isinstance(v, torch.Tensor):
-            t = v
-            for d, axes in enumerate(shard[k].dims(v.dim())):
-                axes = tuple(a for a in axes if a not in rules.batch_axes)
-                t = D.block(t, d, rules, axes)
-            out[k].copy_(t)
-        else:
-            out[k] = v
-    return logits, out
 
 
 def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = None):
@@ -250,10 +231,6 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
     cache (transformer families); SSM/hybrid families replay the prompt
     through their decode step, one token at a time.  With ``rules``:
     this rank's params, its batch slice of the prompts, its cache blocks."""
-    def new_cache(tokens):
-        b = tokens.shape[0] * (1 if rules is None else rules.size(rules.batch_axes))
-        return init_cache(cfg, b, max_seq, device=tokens.device, rules=rules)
-
     if cfg.family in ("ssm", "hybrid"):
         step = make_serve_step(cfg, rules)
 
@@ -261,7 +238,7 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
             b, s = tokens.shape
             if s < 1:
                 raise ValueError("an empty prompt has no last-position logits")
-            cache = new_cache(tokens)
+            cache = rank_cache(cfg, tokens, max_seq, rules)
             for t in range(s):
                 logits, cache = step(params, cache, tokens[:, t])
             return logits, cache
@@ -273,7 +250,7 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
         logits, (k, v) = api.forward(params, tokens, cfg, rules=rules, return_kv=True)
-        cache = new_cache(tokens)
+        cache = rank_cache(cfg, tokens, max_seq, rules)
         if seq_split(cache, rules):
             s_loc = cache["k"].shape[2]
             off = rules.coords["model"] * s_loc
@@ -285,10 +262,7 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
             cache["v"][:, :, :s] = v
         cache["length"] = s
         # a copy, so the (B, S, V) logits are freed with the prefill
-        last = logits[:, -1].contiguous()
-        if transformer.split(cfg, rules, "", "embed", 0):
-            last = D.all_gather(last, -1, rules, "model")
-        return last, cache
+        return _whole_vocab(logits[:, -1].contiguous(), cfg, rules), cache
 
     return prefill
 
@@ -298,13 +272,20 @@ def make_serve_step(cfg: ModelConfig, rules: LogicalRules | None = None):
     per sequence against the cached context (with ``rules``: this rank's
     params, cache blocks and batch slice; logits over the whole
     vocabulary)."""
-    if cfg.family in ("ssm", "hybrid"):
-        decode = rwkv6.decode_step if cfg.family == "ssm" else zamba2.decode_step
-
+    if cfg.family == "ssm":
         def step(params: dict, cache: dict, tokens: torch.Tensor):
-            if rules is None:
-                return decode(params, tokens, cache, cfg)
-            return _replicated_decode(decode, params, tokens, cache, cfg, rules)
+            logits, cache = rwkv6.decode_step(params, tokens, cache, cfg, rules)
+            return _whole_vocab(logits, cfg, rules), cache
+        return step
+
+    if cfg.family == "hybrid":
+        def step(params: dict, cache: dict, tokens: torch.Tensor):
+            attend = None
+            if seq_split(cache, rules):
+                def attend(q, kc, vc, kn, vn, length):
+                    return sharded_decode_attention(q, kc, vc, kn, vn, length, rules, True)
+            logits, cache = zamba2.decode_step(params, tokens, cache, cfg, rules, attend)
+            return _whole_vocab(logits, cfg, rules), cache
         return step
 
     def step(params: dict, cache: dict, tokens: torch.Tensor):

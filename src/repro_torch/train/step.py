@@ -262,8 +262,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig = OptimizerConfig(),
     the whole reduced gradient, as the reference's on its global gradient."""
     from repro_torch.models import transformer
 
-    vocab_split = (cfg.family not in ("ssm", "hybrid")
-                   and transformer.split(cfg, rules, "", "embed", 0))
+    vocab_split = transformer.split(cfg, rules, "", "embed", 0)
     shards = [sh for _, sh in leaves(api.param_shardings(cfg, rules))] if rules else None
 
     def loss_fn(params, batch):

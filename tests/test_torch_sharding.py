@@ -14,7 +14,12 @@
   qwen3-moe-235b-a22b, internvl2-2b (through ``make_train_step`` and
   ``PrefetchLoader``), rwkv6-7b and zamba2-7b, from the same weights:
   forward logits, three chained train steps (loss, grad norm, every
-  leaf), prefill and four greedy decode steps (logits and tokens).
+  leaf), prefill and four greedy decode steps (logits and tokens); rwkv6
+  and zamba2 on their own tensor-parallel layers, as the transformer
+  families, each returning the rank's block of the vocabulary.  And a
+  batch of one sequence on (2, 2), which does not divide the batch axes:
+  the reference's spec replicates it, and so does the port's (reduced
+  llama3-8b and rwkv6-7b, prefill and four decode steps).
 - **The MoE's kept pairs, exactly.**  The reference's expert-parallel
   ``moe_block`` runs on weights that make expert e write a one-hot row e
   weighted by the token's gate (constant SwiGLU on a constant feature),
@@ -30,10 +35,9 @@ Tolerances are the one-device tests' (``tests/test_torch_lm.py``,
   rtol = atol = 5e-4; greedy tokens equal.  rwkv6 and zamba2: rtol 1e-4
   and an atol of 2e-4 times the largest logit, twice the one-device
   test's atol, as the reading needs: reduced zamba2's logits (largest
-  4.78) sit 7.4e-4 from the reference at (2, 1) and 5.2e-4 at (1, 2) and
-  (2, 2), while the reference's own logits move 2.2e-4 between its (1, 2)
-  and (2, 1) meshes (the port's are the same at every mesh: zamba2 and
-  rwkv6 gather their weights and compute replicated).
+  4.78) sat 7.4e-4 from the reference at (2, 1) and 5.2e-4 at (1, 2) and
+  (2, 2) when the port computed them replicated over ``model``, while the
+  reference's own logits move 2.2e-4 between its (1, 2) and (2, 1) meshes.
 - The train step from the reference's state: loss rtol 1e-5, grad norm
   2e-3, every leaf's update within 5e-2 relative L2.  The two chained
   steps after it: losses within 2e-2, as the one-device test's chained
@@ -64,7 +68,17 @@ ARCHS5 = ["llama3-8b", "qwen3-moe-235b-a22b", "internvl2-2b", "rwkv6-7b", "zamba
 MESHES = [(1, 2), (2, 1), (2, 2)]
 WORLD = 4
 B, S, P, MAX, STEPS, DECODE, CE_CHUNK = 4, 16, 8, 16, 3, 4, 8
-TIMEOUT = 150
+# a batch of one sequence, on a mesh whose batch axes it does not divide;
+# the reference's serving of it, at (2, 2) where the reference runs it: its
+# sequence-sharded decode attention (a shard_map whose in_specs split the
+# batch over ``data``) refuses a batch of 1 at (2, 2), so llama3's is taken
+# at (1, 2), the same split over ``model``
+ONE_ARCHS, ONE_MESH = ["llama3-8b", "rwkv6-7b"], (2, 2)
+ONE_REF_MESH = {"llama3-8b": (1, 2), "rwkv6-7b": (2, 2)}
+# the ranks' join and the reference's wait, in seconds: the ranks alone take
+# ~65 s on an 8-core host (~2.5 ms a gloo collective, ~10k of them), and the
+# driver's parallel workers share the host
+TIMEOUT = 300
 
 
 def _cfg(pkg, arch):
@@ -157,18 +171,25 @@ def reference_main(inputs: str, out: str, arch: str) -> None:
             if jcfg.prefix_len:
                 continue                      # serving takes no prefix
             sparams = jax.tree.map(lambda a: a.astype(jcfg.param_dtype), params)
-            prompt = toks[:, :P]
-            logits, cache = jax.jit(make_prefill(jcfg, rules, MAX))(sparams, prompt)
-            serve = jax.jit(make_serve_step(jcfg, rules))
-            outs, tok, gen = [logits], jnp.argmax(logits, -1), []
-            for _ in range(DECODE):
+
+            def serve_run(prompt):
+                logits, cache = jax.jit(make_prefill(jcfg, rules, MAX))(sparams, prompt)
+                serve = jax.jit(make_serve_step(jcfg, rules))
+                outs, tok, gen = [logits], jnp.argmax(logits, -1), []
+                for _ in range(DECODE):
+                    gen.append(tok)
+                    logits, cache = serve(sparams, cache, tok.astype(jnp.int32))
+                    outs.append(logits)
+                    tok = jnp.argmax(logits, -1)
                 gen.append(tok)
-                logits, cache = serve(sparams, cache, tok.astype(jnp.int32))
-                outs.append(logits)
-                tok = jnp.argmax(logits, -1)
-            gen.append(tok)
-            res[_key(arch, mesh, "serve_logits")] = np.stack([np.asarray(o) for o in outs])
-            res[_key(arch, mesh, "serve_tokens")] = np.stack([np.asarray(t) for t in gen])
+                return (np.stack([np.asarray(o) for o in outs]),
+                        np.stack([np.asarray(t) for t in gen]))
+
+            res[_key(arch, mesh, "serve_logits")], res[_key(arch, mesh, "serve_tokens")] = \
+                serve_run(toks[:, :P])
+            if mesh == ONE_REF_MESH.get(arch):
+                res[_key(arch, mesh, "one_logits")], res[_key(arch, mesh, "one_tokens")] = \
+                    serve_run(toks[:1, :P])
     jcfg = _cfg("repro", "qwen3-moe-235b-a22b")
     x, w = _moe_probe((jcfg.d_model, jcfg.d_ff), jcfg.num_experts, np.random.default_rng(5))
     for mesh in [(1, 2), (2, 2)] if arch == "qwen3-moe-235b-a22b" else []:
@@ -222,8 +243,7 @@ def _port_rank(rank: int, init: str, inputs: str, out: str) -> None:
                 kw["prefix_embeds"] = bsh.local(torch.from_numpy(data[f"{arch}|prefix"]))
             with torch.no_grad():
                 logits = api.forward(params, bsh.local(toks), cfg, rules=rules, **kw)
-                if cfg.family not in ("ssm", "hybrid") and transformer.split(
-                        cfg, rules, "", "embed", 0):
+                if transformer.split(cfg, rules, "", "embed", 0):
                     logits = D.all_gather(logits, 2, rules, "model")
                 logits = gathered_batch(logits, rules)
             if first:
@@ -266,8 +286,10 @@ def _port_rank(rank: int, init: str, inputs: str, out: str) -> None:
             if prefix_len:
                 continue
             sparams = api.params_from_reference(cfg, tree, device="cpu", rules=rules)
-            with torch.no_grad():
-                logits, cache = make_prefill(cfg, MAX, rules)(sparams, bsh.local(toks[:, :P]))
+
+            @torch.no_grad()
+            def serve_run(prompt):
+                logits, cache = make_prefill(cfg, MAX, rules)(sparams, prompt)
                 serve = make_serve_step(cfg, rules)
                 outs, tok, gen = [logits], logits.argmax(-1), []
                 for _ in range(DECODE):
@@ -276,11 +298,22 @@ def _port_rank(rank: int, init: str, inputs: str, out: str) -> None:
                     outs.append(logits)
                     tok = logits.argmax(-1)
                 gen.append(tok)
-                outs = D.all_gather(torch.stack(outs), 1, rules, rules.batch_axes)
-                gen = D.all_gather(torch.stack(gen), 1, rules, rules.batch_axes)
+                return torch.stack(outs), torch.stack(gen)
+
+            outs, gen = serve_run(bsh.local(toks[:, :P]))
+            outs = D.all_gather(outs, 1, rules, rules.batch_axes)
+            gen = D.all_gather(gen, 1, rules, rules.batch_axes)
             if first:
                 res[_key(arch, mesh, "serve_logits")] = outs.numpy()
                 res[_key(arch, mesh, "serve_tokens")] = gen.numpy()
+            if arch in ONE_ARCHS and mesh == ONE_MESH:
+                # one sequence: the batch axes' spec falls back, every rank
+                # serves the whole batch
+                one = rules.sharding("batch", dims=(1,))
+                assert one.spec == ()
+                outs, gen = serve_run(one.local(toks[:1, :P]))
+                res[_key(arch, mesh, f"one_logits{rank}")] = outs.numpy()
+                res[_key(arch, mesh, f"one_tokens{rank}")] = gen.numpy()
     cfg = _cfg("repro_torch", "qwen3-moe-235b-a22b")
     x, w = _moe_probe((cfg.d_model, cfg.d_ff), cfg.num_experts, np.random.default_rng(5))
     for mesh in [(1, 2), (2, 2)]:
@@ -303,8 +336,10 @@ def _port_rank(rank: int, init: str, inputs: str, out: str) -> None:
         pairs = torch.stack([tok + t0, ex], dim=1)
         assert ((ex >= e0) & (ex < e0 + cfg.num_experts // rules.tp)).all()
         res[_key("moe-probe", mesh, f"pairs{rank}")] = pairs.numpy()
-    # every rank's pairs reach the first rank through a file of its own
-    np.savez(out + f".{rank}.npz", **{k: v for k, v in res.items() if "moe-probe" in k})
+    # every rank's pairs and batch-of-one serving reach the first rank
+    # through a file of its own
+    np.savez(out + f".{rank}.npz", **{k: v for k, v in res.items()
+                                      if "moe-probe" in k or "|one_" in k})
     if rank == 0:
         np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
     dist.barrier()
@@ -652,6 +687,22 @@ def test_prefill_and_decode_match_reference(results, arch, mesh):
     _logits_close(arch, port[k], ref[k], k)
     k = _key(arch, mesh, "serve_tokens")
     np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ONE_ARCHS)
+def test_batch_of_one_serves_as_reference(results, arch):
+    """One sequence on (2, 2): the batch is replicated over ``data``, and
+    every rank's prefill and decode give the reference's logits and tokens
+    (``ONE_REF_MESH``)."""
+    ref, port, _ = results
+    want = ONE_REF_MESH[arch]
+    for r in range(ONE_MESH[0] * ONE_MESH[1]):
+        k = _key(arch, ONE_MESH, f"one_logits{r}")
+        assert port[k].shape[1] == 1
+        _logits_close(arch, port[k], ref[_key(arch, want, "one_logits")], k)
+        k = _key(arch, ONE_MESH, f"one_tokens{r}")
+        np.testing.assert_array_equal(port[k], ref[_key(arch, want, "one_tokens")],
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=lambda m: f"{m[0]}x{m[1]}")
