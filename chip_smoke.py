@@ -6,7 +6,11 @@ Phases, any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    of ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once) and
-   time each build;
+   time each build; then spawn the shard phase's two ranks and the CPU twin
+   (``cpu_twin``: the host-only runs that later gates compare with, in a
+   process of their own beside the card's phases: the DAG tile and
+   ``sweep-full`` on the CPU's vector engine, the examples with
+   ``--device cpu``);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with times from CUDA events beside the
    bound, the plain version and one library call (the single-query KNN
@@ -16,7 +20,10 @@ Phases, any failure exits non-zero:
    shape's route (the Hopper kernel for bf16 at D 64, 112 and 128), its
    launches counted by route, and at the prefill's shape the Hopper kernel
    timed in turns with the retained mma.sync kernel (at most half its time),
-   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA;
+   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA,
+   and at ``train_carbon_aware``'s tiny preset (bf16 D 16 on the mma.sync
+   kernel, forward and fma backward, also at a rank's batch and an edge
+   shape) beside the plain versions and SDPA;
    ``gqa_flash``'s backward (the stats, dK/dV and dQ kernels) against the
    plain backward at the train step's shape (bf16, S 2304, Hq 16, Hkv 8,
    D 128) and at the launcher's fp32 D-32 shape, twice with equal bits, each
@@ -31,9 +38,7 @@ Phases, any failure exits non-zero:
    counted against the provisioning calls; then the batch path: every
    state carbonflex queried, replayed through ``KnowledgeBase.query_batch``;
    then the same states through the float64 CPU base, counting the slots
-   whose ``m_t`` or ``rho`` would differ, and the whole scenario run on the
-   CPU, counting the weekly results and slots that differ from the card's
-   (information, not a gate); the main path again under one
+   whose ``m_t`` or ``rho`` would differ; the main path again under one
    ``torch.profiler`` trace for the card's busy share; last, every queried
    state through ``KnowledgeBase.query`` and through the device-query
    protocol (query copied to the card, kernel, two copies back), equal,
@@ -101,7 +106,10 @@ Phases, any failure exits non-zero:
    prefill at full width with 2 layers (2 ``wgmma`` launches on 16 local
    heads a rank, each layer within 1e-3 of the one-rank layer) and the
    elastic trainer at k 1, 2, 1 with a fault and a resume (launches equal
-   the steps each rank took, losses within 1e-3 of two CPU ranks);
+   the steps each rank took, losses within 1e-3 of two CPU ranks), and (g)
+   ``repro_torch.examples.train_carbon_aware --preset tiny --max-dp 2
+   --fault-at 6`` (the plan the host computes, its steps and rescales, one
+   recovery, the D-16 route's launches against the steps each rank took);
 5. the DAG path: ``run(Scenario(dag=DagConfig(), engine="scan"))`` on the
    paper's 150-server cluster (one week of 5962 tasks and 5924 edges), the
    slot loop on the card and every slot's release (the in-degree decrement,
@@ -110,7 +118,7 @@ Phases, any failure exits non-zero:
    CPU's vector engine in every weekly result and every slot; the
    independent twin (no edges, no gating launch); then one full tile of 64
    dag-carbon cells (8 regions x 8 CI seeds) through ``simulate_many``,
-   each equal to its CPU vector run, and one traced chunk of it for the
+   each equal to its CPU vector run (the CPU twin's), and one traced chunk of it for the
    card's busy share.  In phase 2 the gating kernel is held against its
    plain versions in both its modes, the decrement (``dep_decrement_csr``
    and the edge-list ``dep_decrement``, the reference's
@@ -152,7 +160,7 @@ Phases, any failure exits non-zero:
    through ``knn_query_kernel``, the oracle passes through the greedy
    kernel, carbonflex-scale's fill through ``capacity_fill``), its JSON
    byte for byte the same sweep on the CPU's vector engine with the numpy
-   pass, launches gated against provisioning calls, device passes and fill
+   pass (the CPU twin's), launches gated against provisioning calls, device passes and fill
    steps, every fill launch of a path on the compact route; both fill routes
    against the plain version (random inputs at B=1 and 64 and n_pad 256,
    2048, 6144, edge cases, the mpc-scale tile's own recorded chunk), then at
@@ -211,9 +219,7 @@ Phases, any failure exits non-zero:
    count (knn == provisioning calls, greedy == device passes, release ==
    DAG steps, ``geo_walk`` == geo steps, fill == fill steps; the geo walk's
    and the fill's all compact); printed: each
-   path's phase table, the event counts by kind, and the recording overhead
-   on ``geo-full`` and the DAG path (the wall with the recorder over the
-   wall without, in turns: off, on, on, off, one round).
+   path's phase table and the event counts by kind.
 11. the MPC knob tuner (``repro_torch.experiment.tune_policy``) at the
    reference script's full settings: carbonflex-mpc (18 knob cells) and
    carbonflex-scale (54) at seeds 1 and 3, capacity 40, 2 learning weeks,
@@ -222,7 +228,18 @@ Phases, any failure exits non-zero:
    launches == the carbonflex row's provisioning calls, ``capacity_fill``
    launches == fill steps (> 0 on the scale grid only, all compact), 2 rows
    delegated.
-12. the dry-run and the roofline profiles: ``repro_torch.launch.dryrun``
+12. the examples (``repro_torch.examples``): the eight batch examples at
+   the reference's CI settings (``--tiny``; ``cluster_sim_year --weeks 1
+   --capacity 10``) on the card, each one's printed lines (less telemetry's
+   phase seconds) and returned study equal to the same example on the CPU
+   (the CPU twin's), knn launches == provisioning calls and every other
+   kernel's launches == its loop's steps; ``serve_elastic`` at its defaults
+   (one fp32 flash launch a layer in prefill, none in decode, ids in range,
+   finite logits; the greedy tokens beside the CPU run's, printed); and
+   ``train_carbon_aware --preset 100m --max-dp 1`` in this process (the
+   plan the host computes, its steps, no rescale or recovery, finite
+   losses, the wgmma forward and backward launches its steps imply).
+13. the dry-run and the roofline profiles: ``repro_torch.launch.dryrun``
    counts all 32 live (architecture x shape) cells' sharded steps on the
    ``meta`` device, rank 0's program on a stand-in of the 16x16 mesh, in
    ``DRYRUN_WORKERS`` spawned processes into a temporary
@@ -242,7 +259,7 @@ Phases, any failure exits non-zero:
    weekly results and 0 slots differ, ``knn_topk`` launches == provisioning
    calls, every job one of the ten architectures).
    Last, the main, oracle, sweep, geo, resilience, telemetry, MoE serving,
-   tuner and dry-run paths' wall times side by side.
+   tuner and dry-run paths' wall times side by side, and each phase's wall.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -664,26 +681,6 @@ def main_path_phase():
     log(f"float64 CPU replay: {flips} of {len(calls)} slots would take a "
         f"different m_t, {rho_moves} a rho more than 1e-9 away")
 
-    # The whole scenario on the CPU (float64 base, host only): which weekly
-    # results and which slots' provisioned/used differ from the card's run.
-    t = time.perf_counter()
-    cpu_res = run(Scenario(**MAIN), POLICIES, device="cpu")
-    cpu_wall = time.perf_counter() - t
-    weeks_differ = slots_differ = 0
-    for name in POLICIES:
-        for a, b in zip(res.weekly[name], cpu_res.weekly[name], strict=True):
-            weeks_differ += not (
-                a.carbon_g == b.carbon_g and a.energy_kwh == b.energy_kwh
-                and np.array_equal(a.violations, b.violations)
-                and np.array_equal(a.wait_slots, b.wait_slots))
-            slots_differ += abs(len(a.slots) - len(b.slots)) + sum(
-                (x.provisioned, x.used) != (y.provisioned, y.used)
-                for x, y in zip(a.slots, b.slots))
-    log(f"CPU run of the same scenario ({cpu_wall:.3f} s wall): "
-        f"{weeks_differ} of {len(POLICIES) * MAIN['eval_weeks']} weekly results "
-        f"and {slots_differ} slots' provisioned/used differ from the card's run")
-    log(cpu_res.table())
-
     # The card's share of the main path: the same run again under one
     # profiler trace (the counted run above stays untraced, so its wall
     # times carry no profiler cost).
@@ -717,9 +714,6 @@ def main_path_phase():
                 batch_wall_s=batch_wall,
                 kb_size=res.kb_size,
                 savings={n: res.savings(n) for n in POLICIES},
-                cpu_wall_s=cpu_wall, cpu_weeks_differ=weeks_differ,
-                cpu_slots_differ=slots_differ,
-                cpu_savings={n: cpu_res.savings(n) for n in POLICIES},
                 traced_wall_s=traced_wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall)
 
@@ -800,7 +794,9 @@ FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 ATTN_REL = 1e-3
 # (name, B, Sq, Sk, Hq, Hkv, D, causal_offset): the prefill's shape first,
 # then zamba2-7b's forward (its shared attention at head dim 112), then the
-# train step's (internvl2-2b, 2048 tokens behind its 256-position prefix)
+# train step's (internvl2-2b, 2048 tokens behind its 256-position prefix);
+# last, train_carbon_aware's tiny preset (head dim 16: its batch of 4 and a
+# rank's 2 at S 128) and an edge shape of that head dim
 FLASH_SHAPES = [
     ("prefill", 4, 2048, 2048, 32, 8, 128, 0),
     ("zamba2", 4, 2048, 2048, 32, 32, 112, 0),
@@ -808,6 +804,9 @@ FLASH_SHAPES = [
     ("decode-like", 4, 1, 2112, 32, 8, 128, 2111),
     ("ragged", 2, 130, 330, 8, 2, 64, 200),
     ("multi-head", 2, 300, 300, 4, 4, 32, 0),
+    ("tiny", 4, 128, 128, 4, 2, 16, 0),
+    ("tiny-rank", 2, 128, 128, 4, 2, 16, 0),
+    ("tiny-edge", 2, 130, 167, 4, 2, 16, 37),
 ]
 
 
@@ -895,6 +894,7 @@ def flash_kernel_phase(report):
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
     err112, rel112 = 0.0, 0.0
+    err16, rel16 = 0.0, 0.0
     fa.reset_launches()
     expect = dict.fromkeys(fa.launches, 0)
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
@@ -910,6 +910,8 @@ def flash_kernel_phase(report):
                 err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
                 if d == 112 and route == "wgmma":
                     err112, rel112 = max(err112, e), max(rel112, r)
+                if d == 16 and route == "mma_sync":
+                    err16, rel16 = max(err16, e), max(rel16, r)
                 log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
                     f"D={d} offset={off} {str(dtype)[6:]} on {route}: agrees with the "
                     f"plain version (max abs diff {e}, relative L2 {r}, limit "
@@ -969,6 +971,7 @@ def flash_kernel_phase(report):
         raise AssertionError(f"the Hopper kernel takes {t['ms']} ms, more than half "
                              f"the mma.sync kernel's {t['previous_ms']} ms")
     d112 = flash_d112_timing(gen, err112, rel112)
+    d16 = flash_d16_timing(gen, err16, rel16)
     return dict(name="gqa_flash", route="cuda", kernel="flash_wgmma_kernel",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
@@ -977,7 +980,7 @@ def flash_kernel_phase(report):
                 bound_ms=bound, bound_by=by, tflops=flops / t["ms"] / 1e9,
                 bound_share=bound / t["ms"],
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, lse=lse_check, **t), d112
+                sdpa_max_abs_diff=lib_diff, ptxas=ptx, turns=turns, lse=lse_check, **t), d112, d16
 
 
 # The forward's LSE against the plain one: fp32 sums of up to ~2000
@@ -1049,6 +1052,50 @@ def flash_d112_timing(gen, err, rel):
                 replaces="src/repro/kernels/flash_attention.py:94",
                 max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
                 tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                sdpa_max_abs_diff=lib_diff, turns=turns, **t)
+
+
+def flash_d16_timing(gen, err, rel):
+    """train_carbon_aware's tiny preset (head dim 16, bf16 on the mma.sync
+    kernel) at its batch of 4, S 128: the kernel, the plain version and SDPA
+    in turns by CUDA events, and by profiler device time, beside the bound."""
+    _, b, sq, sk, hq, hkv, d, off = next(x for x in FLASH_SHAPES if x[0] == "tiny")
+    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kernel():
+        return fa.launch(q, k, v, off, "mma_sync")
+
+    def plain():
+        return fa.gqa_flash_plain(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
+    runs = dict(ms=(kernel, 200, 20), plain_ms=(plain, 50, 5), library_ms=(library, 200, 20))
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        fn, iters, warmup = runs[key]
+        turns[key].append(time_ms(fn, iters, warmup=warmup))
+    t = {key: float(np.mean(v)) for key, v in turns.items()}
+    t.update(device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 20),
+             library_device_ms=device_ms(library, 50))
+    nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
+    bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"gqa_flash tiny shape bf16 D=16, in turns {turns}")
+    log(f"gqa_flash tiny shape bf16 D=16: mma.sync kernel {t['ms']:.6f} ms/call "
+        f"({bound / t['ms']:.4f} of the bound), plain {t['plain_ms']:.6f}, SDPA "
+        f"{t['library_ms']:.6f}, bound {bound:.6f} by {by}: {flops / 1e9:.6f} GFLOP, "
+        f"{nbytes / 1e6:.6f} MB; device time {t['device_ms']} ms/call (plain "
+        f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); SDPA differs from the "
+        f"kernel by up to {lib_diff}")
+    return dict(name="gqa_flash_d16", route="cuda", kernel="flash_bf16_kernel<16> (mma.sync)",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:94",
+                max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
+                bound_share=bound / t["ms"],
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
                 sdpa_max_abs_diff=lib_diff, turns=turns, **t)
 
@@ -1843,7 +1890,10 @@ TRAIN_GRAD_REL = 0.1
 # (name, B, Sq, Sk, Hq, Hkv, D, causal_offset, dtype): the train step's
 # attention, and the fp32 D-32 shape of the launcher's reduced stablelm.
 BWD_SHAPES = [("train", 4, 2304, 2304, 16, 8, 128, 0, torch.bfloat16),
-              ("fp32-d32", 4, 128, 128, 4, 4, 32, 0, torch.float32)]
+              ("fp32-d32", 4, 128, 128, 4, 4, 32, 0, torch.float32),
+              ("tiny", 4, 128, 128, 4, 2, 16, 0, torch.bfloat16),
+              ("tiny-rank", 2, 128, 128, 4, 2, 16, 0, torch.bfloat16),
+              ("tiny-edge", 2, 130, 167, 4, 2, 16, 37, torch.bfloat16)]
 # The largest share of the fma route's time that the wgmma route's whole
 # backward may take at the train shape, in turns (readings ~0.04 on an H100
 # 80GB HBM3; the forward's Hopper kernel is held to 0.5 of mma.sync's).
@@ -2050,7 +2100,74 @@ def flash_bwd_kernel_phase(report):
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
                 ptxas={n: r for n, r in ptx.items() if kernel in n},
                 turns={key: turns[key] for key in (name, whole, "plain", "plain_lse")}))
-    return entries
+    d16 = [checks[w, "fma"] for w in ("tiny", "tiny-rank", "tiny-edge")]
+    return entries, flash_bwd_d16_timing(inputs["tiny"], max(c[0] for c in d16),
+                                         max(c[1] for c in d16))
+
+
+def flash_bwd_d16_timing(inputs, err, rel):
+    """The backward at train_carbon_aware's tiny preset (bf16, D 16, the fma
+    route): each kernel and the whole route in turns by CUDA events and by
+    profiler device time, beside the function's bound, the plain backward
+    and SDPA's backward (forward + backward less forward)."""
+    q, k, v, o, do, _ = inputs
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pl = fa.plan_bwd(q, k, v, o, do)
+    bufs = fa.bwd_buffers(q, k)
+    for which in range(len(fa.BWD_KERNELS)):      # LSE and D_i in place for dK/dV, dQ
+        fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, 0, pl)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    runs = {name: (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, 0, pl))
+            for which, name in enumerate(fa.BWD_KERNELS)}
+    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, 0),
+                plain=lambda: fa.gqa_flash_bwd_plain(q, k, v, o, do, 0),
+                sdpa_fwd=sdpa_fwd, sdpa_fwd_bwd=sdpa_fwd_bwd)
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        turns[key].append(time_ms(runs[key], 100, warmup=10))
+    t = {key: float(np.mean(val)) for key, val in turns.items()}
+    dev = {}
+    for key in runs:
+        us, n = device_trace(runs[key], 20)
+        dev[key] = (us / n if key in fa.BWD_KERNELS else us / 20) / 1e3 if us > 0 else None
+    sdpa_bwd = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
+    sdpa_bwd_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
+                    if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
+    work = bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
+    kernels = {name: dict(ms=t[name], device_ms=dev[name],
+                          bound_ms=bound_ms(*work[name], BF16_FLOP_PER_S)[0])
+               for name in fa.BWD_KERNELS}
+    log(f"gqa_flash_bwd tiny shape bf16 D=16 (fma), in turns {turns}")
+    log(f"gqa_flash_bwd tiny shape bf16 D=16: the fma route {t['whole']:.6f} ms/call (device "
+        f"{dev['whole']}), kernels {kernels}; the function's bound {bound:.6f} by {by} "
+        f"({work['gqa_flash_bwd'][1] / 1e9:.6f} GFLOP); plain {t['plain']:.6f} (device "
+        f"{dev['plain']}); SDPA's backward {sdpa_bwd:.6f} (device {sdpa_bwd_dev})")
+    return dict(name="gqa_flash_bwd_d16", route="cuda",
+                kernel="flash_bwd_{stats,dkdv,dq}_kernel<bf16, 16> (the fma route)",
+                bwd_route="fma", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                         "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                         "no gradient)",
+                max_abs_err=err, rel_l2=rel, ms=t["whole"], device_ms=dev["whole"],
+                plain_ms=t["plain"], plain_device_ms=dev["plain"],
+                plain_of="the whole backward", bound_ms=bound, bound_by=by,
+                bound_share=bound / t["whole"], library_ms=sdpa_bwd,
+                library_device_ms=sdpa_bwd_dev,
+                library_of="the whole backward: SDPA forward + backward less forward",
+                kernels=kernels, shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 "
+                "causal", turns=turns)
 
 
 def traced_step(fn):
@@ -3117,6 +3234,62 @@ def shard_elastic(rank, root):
                 step_s={d: r["step_s"] for d, r in runs.items() if "step_s" in r})
 
 
+def shard_tiny(rank, root):
+    """(g) ``train_carbon_aware --preset tiny --max-dp 2 --fault-at 6`` in
+    both ranks on the card (bf16, head dim 16: the mma.sync forward and the
+    fma backward): the plan the host computes, its steps and rescales, one
+    recovery, finite losses; the steps each rank took counted at the step
+    function, and the D-16 route's launches against them."""
+    import contextlib
+    import io
+
+    from repro_torch.elastic import rescale
+
+    tca = example_module("train_carbon_aware")
+    made = rescale.make_train_step
+    taken = [0]
+
+    def counting(*args, **kw):
+        fn = made(*args, **kw)
+
+        def step(state, batch):
+            out = fn(state, batch)
+            taken[0] += 1
+            return out
+        return step
+
+    argv = ["--preset", "tiny", "--max-dp", str(SHARD_WORLD), "--fault-at",
+            str(EXAMPLE_TINY_FAULT), "--device", "cuda", "--ckpt", os.path.join(root, "tiny")]
+    text = io.StringIO()
+    fa.reset_launches()
+    rescale.make_train_step = counting
+    try:
+        with contextlib.redirect_stdout(text):
+            res = tca.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        rescale.make_train_step = made
+    launches = dict(fa.launches)
+    ks, steps, rescales = example_plan(argv)
+    cfg = tca.PRESETS["tiny"]
+    want = train_launch_counts(fa.route(cfg.compute_dtype, cfg.resolved_head_dim),
+                               cfg.num_layers, taken[0])
+    # rank 0 takes every step, a failed one re-taken after the rollback
+    own = len(res["losses"]) if rank == 0 else None
+    if not (res["plan"] == ks and res["final_step"] == steps and res["rescales"] == rescales
+            and res["recoveries"] == 1 and len(res["losses"]) == steps + 1
+            and all(map(math.isfinite, res["losses"])) and launches == want
+            and launches["mma_sync"] > 0 and (own is None or taken[0] == own)
+            and 0 < taken[0] <= len(res["losses"])):
+        raise AssertionError(f"shard tiny, rank {rank}: plan {res['plan']} (host {ks}), "
+                             f"{res['final_step']} steps ({steps}), {res['rescales']} rescales "
+                             f"({rescales}), {res['recoveries']} recoveries, {taken[0]} taken, "
+                             f"losses {res['losses']}, launches {launches} (expected {want})")
+    return dict(text=text.getvalue(), plan=res["plan"], final_step=res["final_step"],
+                rescales=res["rescales"], recoveries=res["recoveries"], losses=res["losses"],
+                taken=taken[0], launches=launches)
+
+
 def shard_rank(rank, init, root, parent):
     """One of the two ranks of ``shard_phase``: warm up on the host, wait
     for the phase's ``go`` file in ``root`` (or return if the parent
@@ -3141,9 +3314,10 @@ def shard_rank(rank, init, root, parent):
             t = time.perf_counter()
             res[name] = fn(rank)
             res[name]["wall_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        res["elastic"] = shard_elastic(rank, root)
-        res["elastic"]["wall_s"] = time.perf_counter() - t
+        for name, fn in (("elastic", shard_elastic), ("tiny", shard_tiny)):
+            t = time.perf_counter()
+            res[name] = fn(rank, root)
+            res[name]["wall_s"] = time.perf_counter() - t
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(res, f, default=str)
         dist.barrier()
@@ -3181,6 +3355,10 @@ def shard_phase(handle):
     keys = ("loss_rel_off", "one_rel_off", "walls")
     log(f"shard (d) elastic: {[{k: r['elastic'][k] for k in keys} for r in ranks]}"
         f"; rank 0 {r0['elastic']['card']}")
+    log(f"shard (g) train_carbon_aware --preset tiny --max-dp {SHARD_WORLD} --fault-at "
+        f"{EXAMPLE_TINY_FAULT}: {r0['tiny']['text'].strip()}; steps taken "
+        f"{[r['tiny']['taken'] for r in ranks]}, launches {[r['tiny']['launches'] for r in ranks]}"
+        f", walls {[round(r['tiny']['wall_s'], 3) for r in ranks]} s")
     log(f"shard phase: {wall:.3f} s wall (two ranks spawned once; warmed up before it in "
         f"{[round(r['warm_s'], 3) for r in ranks]} s, then started in "
         f"{[round(r['startup_s'], 3) for r in ranks]} s)")
@@ -3188,7 +3366,8 @@ def shard_phase(handle):
                 startup_s=[r["startup_s"] for r in ranks],
                 moe=[r["moe"] for r in ranks],
                 decode=[r["decode"] for r in ranks], prefill=[r["prefill"] for r in ranks],
-                ssm=[r["ssm"] for r in ranks], elastic=[r["elastic"] for r in ranks])
+                ssm=[r["ssm"] for r in ranks], elastic=[r["elastic"] for r in ranks],
+                tiny=[r["tiny"] for r in ranks])
 
 
 # --- DAG gating and the device slot loop -------------------------------------
@@ -3202,6 +3381,25 @@ TILE_SEEDS = range(8)
 def dag_week():
     mat = Scenario(dag=DagConfig(), **DAG).materialize()
     return mat, mat.eval_week(0)
+
+
+def tile_cases(engine, device, **kw):
+    """One full tile: 64 dag-carbon cells on the DAG path's week, 8 regions
+    x 8 CI seeds."""
+    mat, ev = dag_week()
+    cis = [CarbonService.synthetic(r, mat.scenario.hours + CI_MARGIN_HOURS, seed=s)
+           for r in TILE_REGIONS for s in TILE_SEEDS]
+    return [SimCase(jobs=ev, ci=ci, cluster=mat.cluster, policy=DagCarbonPolicy(),
+                    t0=mat.t0, horizon=WEEK, engine=engine, device=device, **kw)
+            for ci in cis]
+
+
+def tile_cpu():
+    """The tile on the CPU's vector engine (a CPU twin): its results and wall."""
+    cases = tile_cases("vector", "cpu")
+    t = time.perf_counter()
+    res = simulate_many(cases)
+    return dict(results=res, wall_s=time.perf_counter() - t)
 
 
 def gating_work(rows, graph):
@@ -3458,7 +3656,7 @@ def same_results(a_res, b_res, names):
     return weeks, slots
 
 
-def dag_path_phase():
+def dag_path_phase(twins=None):
     """Phase 5: the DAG path through ``run(..., engine="scan")`` on the
     card, its CPU vector twin, the independent twin, and one full tile."""
     gating.reset_launches()
@@ -3516,37 +3714,28 @@ def dag_path_phase():
         raise AssertionError("independent twin: launched the gating or differs")
 
     # One full tile: 64 dag-carbon cells on the same week, 8 regions x 8 CI
-    # seeds, one batched program on the card.
-    mat, ev = dag_week()
-    cis = [CarbonService.synthetic(r, mat.scenario.hours + CI_MARGIN_HOURS, seed=s)
-           for r in TILE_REGIONS for s in TILE_SEEDS]
-
-    def cases(engine, device, **kw):
-        return [SimCase(jobs=ev, ci=ci, cluster=mat.cluster, policy=DagCarbonPolicy(),
-                        t0=mat.t0, horizon=WEEK, engine=engine, device=device, **kw)
-                for ci in cis]
-
+    # seeds, one batched program on the card; its CPU run is a twin's.
+    cases = tile_cases("scan", "cuda")
     gating.reset_launches()
     scan_engine.reset_stats()
     t = time.perf_counter()
-    tile = simulate_many(cases("scan", "cuda"))
+    tile = simulate_many(cases)
     torch.cuda.synchronize()
     tile_wall = time.perf_counter() - t
     tile_launches, tile_stats = gating.launches["dep_release"], dict(scan_engine.stats)
     tile_decrements = gating.launches["dep_decrement"]
-    t = time.perf_counter()
-    tile_cpu = simulate_many(cases("vector", "cpu"))
-    tile_cpu_wall = time.perf_counter() - t
-    tw, ts = same_results({"c": tile}, {"c": tile_cpu}, ["c"])
-    log(f"tile: {len(cis)} dag-carbon cells in {tile_stats['steps']} batched slot steps, "
-        f"{tile_wall:.3f} s wall ({len(cis) / tile_wall:.3f} cells/s, "
+    cpu_tile = twin_result(twins, "tile")
+    tile_cpu_wall = cpu_tile["wall_s"]
+    tw, ts = same_results({"c": tile}, {"c": cpu_tile["results"]}, ["c"])
+    log(f"tile: {len(cases)} dag-carbon cells in {tile_stats['steps']} batched slot steps, "
+        f"{tile_wall:.3f} s wall ({len(cases) / tile_wall:.3f} cells/s, "
         f"{tile_stats['cell_steps'] / tile_wall:.3f} cell slot steps/s; chunk loops "
         f"{tile_stats['loop_s']:.3f} s = {1e3 * tile_stats['loop_s'] / tile_stats['steps']:.6f}"
         f" ms per batched step, host accounting {tile_stats['account_s']:.3f} s); release "
-        f"launches {tile_launches}; CPU vector engine {tile_cpu_wall:.3f} s: {tw} cells "
-        f"and {ts} slots differ")
+        f"launches {tile_launches}; CPU vector engine {tile_cpu_wall:.3f} s (a CPU twin, "
+        f"beside the earlier phases): {tw} cells and {ts} slots differ")
     if (tw or ts or tile_launches != tile_stats["dag_steps"] or tile_decrements
-            or tile_stats["cell_steps"] != len(cis) * tile_stats["steps"]):
+            or tile_stats["cell_steps"] != len(cases) * tile_stats["steps"]):
         raise AssertionError(f"tile: {tw} cells / {ts} slots differ, {tile_launches} "
                              f"launches for {tile_stats}")
 
@@ -3555,7 +3744,7 @@ def dag_path_phase():
 
     scan_engine.reset_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        simulate_many(cases("scan", "cuda", max_overrun=0))
+        simulate_many(tile_cases("scan", "cuda", max_overrun=0))
         torch.cuda.synchronize()
     chunk_s = scan_engine.stats["loop_s"]
     events = device_events(prof)
@@ -3564,7 +3753,7 @@ def dag_path_phase():
     per_name = {}
     for e in events:
         per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    log(f"traced chunk ({scan_engine.stats['steps']} batched steps of {len(cis)} cells): "
+    log(f"traced chunk ({scan_engine.stats['steps']} batched steps of {len(cases)} cells): "
         f"chunk loop {chunk_s:.6f} s under the profiler, card busy {busy_ms:.6f} ms = "
         f"{100 * busy_ms / 1e3 / chunk_s:.6f} % of it, {kernels_ms:.6f} ms = "
         f"{100 * kernels_ms / 1e3 / chunk_s:.6f} % in kernels (copies left out); "
@@ -3575,9 +3764,9 @@ def dag_path_phase():
                 weeks_differ=weeks, slots_differ=slots,
                 savings={n: res.savings(n) for n in DEFAULT_DAG_POLICIES},
                 twin_launches=twin_launches, twin_steps=twin_stats["steps"],
-                tile_cells=len(cis), tile_wall_s=tile_wall, tile_stats=tile_stats,
+                tile_cells=len(cases), tile_wall_s=tile_wall, tile_stats=tile_stats,
                 tile_launches=tile_launches, tile_cpu_wall_s=tile_cpu_wall,
-                tile_cells_per_s=len(cis) / tile_wall,
+                tile_cells_per_s=len(cases) / tile_wall,
                 tile_cell_steps_per_s=tile_stats["cell_steps"] / tile_wall,
                 traced_chunk_loop_s=chunk_s, traced_chunk_busy_ms=busy_ms,
                 traced_chunk_busy_share=busy_ms / 1e3 / chunk_s,
@@ -4376,7 +4565,7 @@ def fill_kernel_phase(record, report):
                 recorded_steps=len(record), recorded_shape=[b_tile, n_pad], **tm)
 
 
-def sweep_phase(report):
+def sweep_phase(report, twins=None):
     """Phase 7: the four golden grids on the card, on the vector and scan
     engines; ``sweep-full`` on the card against its CPU run; the fill kernel
     against its plain version and timed; one traced mpc-scale chunk."""
@@ -4415,16 +4604,17 @@ def sweep_phase(report):
     counts = dict(knn=dict(knn.launches), greedy=dict(oracle_greedy.launches),
                   fill=dict(fill.launches), stats=dict(scan_engine.stats),
                   oracle=dict(oracle_mod.stats))
-    cpu, tcpu = sweep_full("cpu", "vector", "numpy")
+    cpu = twin_result(twins, "sweep_full")
+    tcpu = cpu["timing"]
     log(f"sweep-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s (learning "
         f"{tc['learn_s']:.3f}, execution {tc['execute_s']:.3f}); CPU vector engine, numpy "
         f"pass {tcpu['wall_s']:.3f} s (learning {tcpu['learn_s']:.3f}, execution "
         f"{tcpu['execute_s']:.3f})")
     log(card.table())
     log(f"  slot-loop tiles on the card {sum(tl['seconds'] for tl in tc['tiles']):.3f} s")
-    if card.to_json() != cpu.to_json():
+    if card.to_json() != cpu["json"]:
         diff = [(a["region"], a["seed"], a["policy"]) for a, b in
-                zip(card.rows(), cpu.rows()) if a != b]
+                zip(card.rows(), cpu["rows"]) if a != b]
         raise AssertionError(f"sweep-full: the card and the CPU differ in {diff}")
     flex_slots = sum(len(r.slots) for row, r in zip(card.rows(), card.results)
                      if row["policy"] == "carbonflex")
@@ -5222,24 +5412,6 @@ def recorded_path(what, card_fn, cpu_fn):
     return card, cpu, tel, entry
 
 
-def recording_overhead(what, fn, rounds=1):
-    """The wall with a recorder over the wall without, taken in turns
-    (off, on, on, off per round) on the card.  One round: host spread
-    exceeds what the recorder costs (PERF.md), and the whole script stays
-    inside half its time limit."""
-    walls = {"off": 0.0, "on": 0.0}
-    for _ in range(rounds):
-        for side in ("off", "on", "on", "off"):
-            t = time.perf_counter()
-            fn(recording() if side == "on" else None)
-            torch.cuda.synchronize()
-            walls[side] += time.perf_counter() - t
-    ratio = walls["on"] / walls["off"]
-    log(f"recording overhead {what}: {walls['on']:.3f} s with the recorder against "
-        f"{walls['off']:.3f} s without over {2 * rounds} runs each, ratio {ratio:.4f}")
-    return dict(on_s=walls["on"], off_s=walls["off"], ratio=ratio, runs=2 * rounds)
-
-
 def telemetry_phase():
     """Phase 10: every path with a recorder and a phase profiler, on the card's
     scan engine and on the CPU's vector engine: the event streams equal event
@@ -5356,14 +5528,6 @@ def telemetry_phase():
     out["oracle_gap"].update(cells=out["oracle_gap"]["runs"],
                              perfect_gap={p: card.perfect_gap(p) for p in card.policies()})
     log(card.table())
-
-    # what the recorder costs the card's paths, in turns
-    out["overhead"] = dict(
-        geo_full=recording_overhead(
-            "geo-full (card)", lambda tel: geo_full("cuda", "scan", telemetry=tel)),
-        dag=recording_overhead(
-            "dag path (card)", lambda tel: run(Scenario(engine="scan", **dag_scenario),
-                                              DEFAULT_DAG_POLICIES, telemetry=tel)))
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"telemetry phase: {out['wall_s']:.3f} s")
     return out
@@ -5455,6 +5619,225 @@ def tune_phase():
 
 # The dry-run's cells counted in this many processes (host CPU only: meta
 # tensors), and the cells the "tpu" world reads.
+# --- the examples -------------------------------------------------------------
+
+# The eight batch examples at the reference's CI settings, on the card; each
+# is held against the same example on the CPU (a CPU twin, run beside the
+# earlier phases).
+EXAMPLE_ARGS = {"quickstart": ["--tiny"], "cluster_sim_year": ["--weeks", "1", "--capacity", "10"],
+                "dag_quickstart": ["--tiny"], "geo_quickstart": ["--tiny"],
+                "forecast_quickstart": ["--tiny"], "resilience_quickstart": ["--tiny"],
+                "serving_quickstart": ["--tiny"], "telemetry_quickstart": ["--tiny"]}
+# telemetry's phase table: a phase, its wall seconds, share and brackets
+EXAMPLE_WALL_LINE = re.compile(r"^\s+(learn|provision|decide|execute)\s+[\d.]+\s+[\d.]+%")
+# serve_elastic at its defaults; train_carbon_aware's 100m preset on the card
+# in this process, and its tiny preset on the two shard ranks with a fault
+# (the step after an asynchronous save: the rollback re-takes one step)
+EXAMPLE_SERVE_ARGS = []
+EXAMPLE_100M_ARGS = ["--preset", "100m", "--max-dp", "1"]
+EXAMPLE_TINY_FAULT = 6
+
+
+def example_module(name):
+    from importlib import import_module
+
+    return import_module(f"repro_torch.examples.{name}")
+
+
+def example_lines(text):
+    """An example's printed lines, less the ones that carry wall time."""
+    return [ln for ln in text.splitlines() if not EXAMPLE_WALL_LINE.match(ln)]
+
+
+def example_figures(name, res):
+    """What an example's study returned, as plain data to compare: a
+    ``run()``'s table and metrics, a sweep's JSON, the dag stretches,
+    telemetry's attributions, the oracle gap's JSON and curves."""
+    if name in ("quickstart", "cluster_sim_year", "serving_quickstart"):
+        return dict(table=res.table(), metrics=res.metrics(), kb_size=res.kb_size)
+    if name == "dag_quickstart":
+        return dict(sweep=res["sweep"].to_json(), twin=res["twin"].to_json(),
+                    stretch=res["stretch"])
+    if name == "resilience_quickstart":
+        return dict(faults=res["faults"].to_json(), outage=res["outage"].to_json())
+    if name == "telemetry_quickstart":
+        sw = res["sweep"]
+        return dict(sweep=sw.to_json(), attributions=[dataclasses.asdict(a)
+                                                      for a in sw.attributions()],
+                    events=res["telemetry"].recorder.counts(run=res["label"]))
+    if name == "forecast_quickstart":
+        return dict(json=res.to_json(), curves={p: res.degradation_curve(p)
+                                                for p in ("carbonflex", "carbonflex-robust")})
+    return dict(json=res.to_json())
+
+
+def run_example(name, argv):
+    """``repro_torch.examples.<name>.main(argv)`` with its stdout kept:
+    (printed text, returned study, wall seconds)."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        res = example_module(name).main(argv)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return text.getvalue(), res, time.perf_counter() - t
+
+
+def examples_cpu():
+    """The CPU twins of the examples phase: each batch example and
+    serve_elastic with ``--device cpu``."""
+    out = {}
+    for name, args in EXAMPLE_ARGS.items():
+        text, res, wall = run_example(name, args + ["--device", "cpu"])
+        out[name] = dict(lines=example_lines(text), figures=example_figures(name, res),
+                         wall_s=wall)
+    text, res, wall = run_example("serve_elastic", EXAMPLE_SERVE_ARGS + ["--device", "cpu"])
+    out["serve_elastic"] = dict(tokens=res["tokens"], lines=text.splitlines(), wall_s=wall)
+    return out
+
+
+def example_plan(argv):
+    """The elastic plan ``train_carbon_aware`` computes for ``argv``, on the
+    host: (k per hour, steps the plan implies, rescales it implies)."""
+    tca = example_module("train_carbon_aware")
+    plan, _ = tca.elastic_plan(tca.parser().parse_args(argv))
+    ks = [p.k for p in plan]
+    live = [k for k in ks if k]
+    return ks, sum(p.steps for p in plan if p.k), sum(a != b for a, b in zip(live, live[1:]))
+
+
+def train_launch_counts(route, layers, steps):
+    """``gqa_flash``'s launches for ``steps`` train steps of a model of
+    ``layers`` layers whose attention takes forward route ``route``: two
+    forwards a layer (the sublayer recompute) and one backward, on the
+    backward route that pairs with it."""
+    want = dict.fromkeys(fa.launches, 0)
+    bwd = fa.BWD_WGMMA_KERNELS if route == "wgmma" else fa.BWD_KERNELS
+    want.update(gqa_flash=2 * layers * steps, gqa_flash_bwd=layers * steps,
+                **{route: 2 * layers * steps}, **{k: layers * steps for k in bwd})
+    return want
+
+
+def examples_phase(twins=None):
+    """The ten examples on the card.  The eight batch examples at their CI
+    settings: printed lines (less telemetry's wall seconds) and returned
+    studies equal to the same example on the CPU, knn launches ==
+    provisioning calls and every other kernel's launches == its loop's steps.
+    serve_elastic at its defaults: one fp32 ``gqa_flash`` launch a layer in
+    prefill, none in decode, ids in range, finite logits; the greedy tokens
+    beside the CPU run's (printed: fp32 near-ties may flip).
+    train_carbon_aware --preset 100m --max-dp 1: the plan the host computes,
+    its steps and rescales, no recovery, finite losses, the wgmma forward
+    and backward launches its steps imply.  (Its tiny preset runs on the
+    shard ranks: ``shard_tiny``.)"""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cpu = twin_result(twins, "examples")
+    out = {}
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return provision(*args, **kw)
+
+    for name, args in EXAMPLE_ARGS.items():
+        reset_counts()
+        calls[0] = 0
+        policy_mod.provision = counted
+        try:
+            text, res, wall = run_example(name, args + ["--device", "cuda"])
+        finally:
+            policy_mod.provision = provision
+        st = dict(scan_engine.stats)
+        counts = dict(knn=knn.launches["knn_topk"], provisions=calls[0],
+                      greedy=oracle_greedy.launches["greedy_pass"],
+                      passes=oracle_mod.stats["device_passes"],
+                      fill=fill.launches["capacity_fill"], fill_steps=st["fill_steps"],
+                      release=gating.launches["dep_release"], dag_steps=st["dag_steps"],
+                      geo=geo_walk.launches["geo_walk"], geo_steps=st["geo_steps"],
+                      steps=st["steps"])
+        lines, want = example_lines(text), cpu[name]
+        same_lines = lines == want["lines"]
+        same_figures = example_figures(name, res) == want["figures"]
+        log(f"example {name} {' '.join(args)}: card {wall:.3f} s, CPU {want['wall_s']:.3f} s; "
+            f"printed lines equal {same_lines} ({len(lines)}), studies equal {same_figures}; "
+            f"launches {counts}")
+        if not (same_lines and same_figures):
+            diff = [(a, b) for a, b in zip(lines, want["lines"]) if a != b][:5]
+            raise AssertionError(f"example {name}: the card's study differs from the CPU's: "
+                                 f"{diff or (len(lines), len(want['lines']))}")
+        if not (counts["knn"] == counts["provisions"] and counts["greedy"] == counts["passes"]
+                and counts["fill"] == counts["fill_steps"]
+                and counts["release"] == counts["dag_steps"]
+                and counts["geo"] == counts["geo_steps"]):
+            raise AssertionError(f"example {name}: launches {counts}")
+        for mod, total in ((fill, "capacity_fill"), (geo_walk, "geo_walk")):
+            if mod.launches[total]:
+                all_compact(f"example {name} ({total})", mod.launches, total)
+        out[name] = dict(wall_s=wall, cpu_wall_s=want["wall_s"], launches=counts)
+    if not out["forecast_quickstart"]["launches"]["steps"] > 0:
+        raise AssertionError("forecast_quickstart ran no step of the card's slot loop")
+
+    # serve_elastic: reduced llama3-8b (fp32, D 32) on the (1, 1) mesh
+    fa.reset_launches()
+    text, res, wall = run_example("serve_elastic", EXAMPLE_SERVE_ARGS + ["--device", "cuda"])
+    launches = dict(fa.launches)
+    cfg = res["cfg"]
+    want = dict.fromkeys(fa.launches, 0)
+    want.update(gqa_flash=cfg.num_layers, fp32=cfg.num_layers)
+    toks, cpu_toks = res["tokens"], cpu["serve_elastic"]["tokens"]
+    differ = int((toks != cpu_toks).sum())
+    finite = bool(torch.isfinite(res["prefill_logits"]).all()
+                  and torch.isfinite(res["last_logits"]).all())
+    log(f"example serve_elastic: card {wall:.3f} s; {text.strip()}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }, in prefill "
+        f"{res['prefill_flash_launches']}, in decode {res['decode_flash_launches']}; greedy "
+        f"tokens against the CPU run's: "
+        f"{differ} of {toks.size} positions differ (information: fp32 near-ties may flip); "
+        f"CPU run: {cpu['serve_elastic']['lines']}")
+    if launches != want or res["prefill_flash_launches"] != cfg.num_layers \
+            or res["decode_flash_launches"] or not finite or toks.shape != cpu_toks.shape \
+            or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_elastic: launches {launches} (expected {want}), in "
+                             f"prefill {res['prefill_flash_launches']}, in decode "
+                             f"{res['decode_flash_launches']}, finite {finite}, tokens "
+                             f"{toks.shape}")
+    out["serve_elastic"] = dict(wall_s=wall, prefill_s=res["prefill_s"],
+                                decode_s=res["decode_s"], launches=launches,
+                                tokens_differ=differ, tokens=int(toks.size))
+
+    # train_carbon_aware --preset 100m --max-dp 1 in this process
+    with tempfile.TemporaryDirectory(prefix="example_100m_") as tmp:
+        argv = EXAMPLE_100M_ARGS + ["--device", "cuda", "--ckpt", tmp]
+        fa.reset_launches()
+        text, res, wall = run_example("train_carbon_aware", argv)
+        launches = dict(fa.launches)
+    ks, steps, rescales = example_plan(argv)
+    tca = example_module("train_carbon_aware")
+    cfg = tca.PRESETS[argv[argv.index("--preset") + 1]]
+    route = fa.route(cfg.compute_dtype, cfg.resolved_head_dim)
+    want = train_launch_counts(route, cfg.num_layers, len(res["losses"]))
+    log(f"example train_carbon_aware {' '.join(EXAMPLE_100M_ARGS)}: {wall:.3f} s; "
+        f"{text.strip()}; launches {launches}; losses {res['losses']}")
+    if not (res["plan"] == ks and res["final_step"] == steps == len(res["losses"])
+            and res["rescales"] == rescales and res["recoveries"] == 0
+            and all(map(math.isfinite, res["losses"])) and launches == want
+            and launches[route] > 0):
+        raise AssertionError(f"train_carbon_aware 100m: plan {res['plan']} (host {ks}), "
+                             f"{res['final_step']} steps ({steps}), {res['rescales']} "
+                             f"rescales ({rescales}), {res['recoveries']} recoveries, "
+                             f"launches {launches} (expected {want})")
+    out["train_100m"] = dict(wall_s=wall, plan=res["plan"], final_step=res["final_step"],
+                             losses=res["losses"], launches=launches, params=res["params"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"examples phase: {out['wall_s']:.3f} s")
+    return out
+
+
 DRYRUN_WORKERS = min(8, os.cpu_count() or 1)
 DRYRUN_REQUIRED = [(arch, "train_4k") for arch in workloads.TPU_ARCHS] + [
     ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"), ("zamba2-7b", "long_500k")]
@@ -5470,7 +5853,7 @@ def dryrun_phase(train):
 
 
 def dryrun_in(train, tmp):
-    """Phase 12: the dry-run (``repro_torch.launch.dryrun``) counts every
+    """Phase 13: the dry-run (``repro_torch.launch.dryrun``) counts every
     live (arch x shape) cell's step on the ``meta`` device in
     ``DRYRUN_WORKERS`` processes into a temporary ``results/dryrun_opt``, each
     cell's roofline terms and profile printed; the count of internvl2-2b at
@@ -5617,6 +6000,91 @@ def dryrun_in(train, tmp):
                 wall_s=time.perf_counter() - t0)
 
 
+# --- the CPU twins --------------------------------------------------------------
+
+# Host-only runs that gated comparisons need, computed in a spawned process
+# beside the card's phases, in this order: the DAG tile on the CPU's vector
+# engine, sweep-full on it with the numpy pass, the examples with --device
+# cpu.  (On an H100 host the first two take ~20 s and ~30 s, which this
+# process no longer waits for.)  TWIN_WAIT bounds a wait for one result.
+TWIN_WAIT = 900
+
+
+def sweep_full_cpu():
+    res, timing = sweep_full("cpu", "vector", "numpy")
+    return dict(json=res.to_json(), rows=res.rows(), timing=timing)
+
+
+TWIN_JOBS = {"tile": tile_cpu, "sweep_full": sweep_full_cpu, "examples": examples_cpu}
+
+
+def cpu_twin(_, root, parent):
+    """The twin process: each of TWIN_JOBS in turn, its result pickled to
+    ``root/<name>.pkl`` (or its traceback to ``root/<name>.err``)."""
+    import pickle
+    import traceback
+
+    torch.set_num_threads(2)
+    for name, job in TWIN_JOBS.items():
+        if os.getppid() != parent:
+            return
+        try:
+            data, suffix = pickle.dumps(job()), ".pkl"
+        except Exception:
+            data, suffix = traceback.format_exc().encode(), ".err"
+        tmp = os.path.join(root, name + ".tmp")
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.rename(tmp, os.path.join(root, name + suffix))
+
+
+def start_cpu_twin():
+    """Spawn the twin process (``cpu_twin``); returns the handle that
+    ``twin_result`` and ``stop_cpu_twin`` take."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="cpu_twin_")
+    ctx = mp.start_processes(cpu_twin, args=(root, os.getpid()), nprocs=1, join=False,
+                             start_method="spawn")
+    return dict(ctx=ctx, root=root)
+
+
+def twin_result(twins, name):
+    """The twin's result ``name``, waited for; with no twin process (a phase
+    run alone) the job runs here."""
+    import pickle
+
+    if twins is None:
+        return TWIN_JOBS[name]()
+    base = os.path.join(twins["root"], name)
+    deadline = time.perf_counter() + TWIN_WAIT
+    t = time.perf_counter()
+    while not (os.path.exists(base + ".pkl") or os.path.exists(base + ".err")):
+        if not twins["ctx"].processes[0].is_alive() or time.perf_counter() > deadline:
+            raise AssertionError(f"the CPU twin gave no {name!r} (alive "
+                                 f"{twins['ctx'].processes[0].is_alive()})")
+        time.sleep(0.05)
+    if os.path.exists(base + ".err"):
+        with open(base + ".err") as f:
+            raise AssertionError(f"the CPU twin's {name!r} failed:\n{f.read()}")
+    with open(base + ".pkl", "rb") as f:
+        out = pickle.load(f)
+    log(f"CPU twin {name!r}: waited {time.perf_counter() - t:.3f} s for it")
+    return out
+
+
+def stop_cpu_twin(twins):
+    import shutil
+
+    for proc in twins["ctx"].processes:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+    shutil.rmtree(twins["root"], ignore_errors=True)
+
+
 def warm_checkpoint() -> float:
     """Call ``torch.utils.checkpoint`` once on the host and return the
     seconds it took: its first call imports ``torch._dynamo`` (8.5-9.4 s a
@@ -5660,38 +6128,53 @@ def build_kernels():
     return reports
 
 
+T_START = time.perf_counter()
+
+
 def main():
     card = card_line()
     log(f"card: {card}")
     reports = build_kernels()
     ranks = start_shard_ranks()
+    twins = start_cpu_twin()
     try:
-        phases(card, reports, ranks)
+        phases(card, reports, ranks, twins)
     finally:
+        stop_cpu_twin(twins)
         stop_shard_ranks(ranks)
 
 
-def phases(card, reports, shard_ranks):
+def phases(card, reports, shard_ranks, twins):
     """Every phase after the build, in order; the last lines printed."""
-    kernels = kernel_phase(reports["src/repro_torch/csrc/knn.cu"])
-    flash_entry, d112_entry = flash_kernel_phase(
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    kernels = timed("kernel (knn)", kernel_phase, reports["src/repro_torch/csrc/knn.cu"])
+    flash_entry, d112_entry, d16_entry = timed(
+        "kernel (gqa_flash)", flash_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention.cu"])
     kernels.append(flash_entry)
-    bwd_entries = flash_bwd_kernel_phase(reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
-    kernels.append(gating_kernel_phase(reports["src/repro_torch/csrc/gating.cu"]))
-    path = main_path_phase()
+    bwd_entries, bwd_d16_entry = timed(
+        "kernel (gqa_flash backward)", flash_bwd_kernel_phase,
+        reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
+    kernels.append(timed("kernel (gating)", gating_kernel_phase,
+                         reports["src/repro_torch/csrc/gating.cu"]))
+    path = timed("main path", main_path_phase)
     kernels[0].update(launches=path["main"]["knn_topk"], path="main")
     kernels[1].update(launches=path["batch"]["knn_topk_batch"], path="batch-replay",
                       launches_by_route={r: path["batch"][r] for r in knn.BATCH_ROUTES})
-    serve = serve_phase()
+    serve = timed("serving", serve_phase)
     kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
-    t = time.perf_counter()
-    moe = moe_serve_phase()
-    moe["wall_s"] = time.perf_counter() - t
+    moe = timed("moe serving", moe_serve_phase)
+    moe["wall_s"] = walls["moe serving"]
     kernels[2].update(moe_launches=moe["launches"]["wgmma"], moe_flash_d64=moe["flash_d64"])
-    t = time.perf_counter()
-    ssm_path = ssm_serve_phase()
-    ssm_path["wall_s"] = time.perf_counter() - t
+    ssm_path = timed("rwkv6 / zamba2", ssm_serve_phase)
+    ssm_path["wall_s"] = walls["rwkv6 / zamba2"]
     d112_entry.update(launches=ssm_path["zamba2-7b"]["forward_flash"]["wgmma"],
                       path="zamba2-forward")
     # the serving paths launch no backward
@@ -5699,9 +6182,8 @@ def phases(card, reports, shard_ranks):
         if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS
                + fa.BWD_WGMMA_KERNELS):
             raise AssertionError(f"the {what} path launched the backward: {counts}")
-    t = time.perf_counter()
-    train = train_phase()
-    train["wall_s"] = time.perf_counter() - t
+    train = timed("training", train_phase)
+    train["wall_s"] = walls["training"]
     # the wgmma kernels run on the train step; the fma kernels on the elastic
     # path (fp32, D 32), their route there
     for entry in bwd_entries:
@@ -5712,7 +6194,7 @@ def phases(card, reports, shard_ranks):
                      train_launches=train["launches"][name],
                      elastic_launches=train["elastic"]["launches"][name])
     kernels[2].update(train_launches=train["launches"]["wgmma"])
-    shard = shard_phase(shard_ranks)
+    shard = timed("shard", shard_phase, shard_ranks)
     prefill0 = shard["prefill"][0]
     kernels[2].update(shard_tp_prefill_launches=[r["launches"]["wgmma"]
                                                  for r in shard["prefill"]],
@@ -5721,27 +6203,36 @@ def phases(card, reports, shard_ranks):
     d112_entry.update(shard_tp_launches=[r["zamba2-7b"]["launches"]["wgmma"]
                                          for r in shard["ssm"]],
                       shard_tp_heads=zamba0["heads"], shard_tp_timing=zamba0["flash_timing"])
+    # the D-16 route runs on train_carbon_aware's tiny preset (shard cell (g))
+    tiny = [r["launches"] for r in shard["tiny"]]
+    d16_entry.update(launches=tiny[0]["mma_sync"], path="train_carbon_aware --preset tiny",
+                     rank_launches=[r["mma_sync"] for r in tiny])
+    bwd_d16_entry.update(launches=tiny[0]["bwd_stats"], path="train_carbon_aware --preset tiny",
+                         rank_launches={k: [r[k] for r in tiny] for k in fa.BWD_KERNELS})
     for entry in bwd_entries:
         if entry["bwd_route"] == "fma":
             name = entry["name"][len("gqa_flash_"):]
             entry["shard_elastic_launches"] = [r["card"]["launches"][name]
                                                for r in shard["elastic"]]
-    dag = dag_path_phase()
+            entry["launches_by_route"] = {"fma_d32": entry["launches"],
+                                          "fma_d16": tiny[0][name]}
+    dag = timed("dag", dag_path_phase, twins)
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
-    score_path = score_ops_phase(windows)
-    kernels.append(score_kernel_phase(windows, score_path,
-                                      reports["src/repro_torch/csrc/score.cu"]))
-    device_path = oracle_path_phase(path["result"])
-    kernels.append(greedy_kernel_phase(
-        device_path, reports["src/repro_torch/csrc/oracle_greedy.cu"]))
-    fill_entry, sweep = sweep_phase(reports["src/repro_torch/csrc/fill.cu"])
+    score_path = timed("score (ops)", score_ops_phase, windows)
+    kernels.append(timed("kernel (score)", score_kernel_phase, windows, score_path,
+                         reports["src/repro_torch/csrc/score.cu"]))
+    device_path = timed("oracle path", oracle_path_phase, path["result"])
+    kernels.append(timed("kernel (greedy)", greedy_kernel_phase, device_path,
+                         reports["src/repro_torch/csrc/oracle_greedy.cu"]))
+    fill_entry, sweep = timed("sweep", sweep_phase, reports["src/repro_torch/csrc/fill.cu"], twins)
     kernels.append(fill_entry)
-    geo_entry, geo = geo_phase(reports["src/repro_torch/csrc/geo_walk.cu"])
+    geo_entry, geo = timed("geo", geo_phase, reports["src/repro_torch/csrc/geo_walk.cu"])
     kernels.append(geo_entry)
     kernels.append(d112_entry)
     kernels.extend(bwd_entries)
-    chaos = chaos_phase()
+    kernels.extend([d16_entry, bwd_d16_entry])
+    chaos = timed("resilience", chaos_phase)
     # launches on the resilience paths, beside each kernel's own path
     by_name = {kern["name"]: kern for kern in kernels}
     by_name["knn_topk"]["chaos_launches"] = chaos["chaos"]["launches"]["knn"]["knn_topk"]
@@ -5751,11 +6242,19 @@ def phases(card, reports, shard_ranks):
         chaos["chaos"]["launches"]["fill"]["capacity_fill"]
     by_name["geo_walk"]["chaos_launches"] = chaos["geo"]["launches"]
     by_name["dep_release_csr"]["chaos_launches"] = chaos["dag"]["launches"]
-    tele = telemetry_phase()
-    tune = tune_phase()
+    tele = timed("telemetry", telemetry_phase)
+    tune = timed("tuner", tune_phase)
     by_name["knn_topk"]["tune_launches"] = sum(
         v["knn_launches"] for v in tune["runs"].values())
-    dry = dryrun_phase(train)
+    examples = timed("examples", examples_phase, twins)
+    kernels[2].update(launches_by_route={
+        "wgmma": serve["launches"]["wgmma"], "mma_sync": d16_entry["launches"],
+        "fp32": examples["serve_elastic"]["launches"]["fp32"]},
+        launches_by_route_paths={"wgmma": "serve-prefill",
+                                 "mma_sync": "train_carbon_aware --preset tiny (D 16)",
+                                 "fp32": "serve_elastic prefill (D 32)"},
+        example_100m_launches=examples["train_100m"]["launches"])
+    dry = timed("dry-run", dryrun_phase, train)
     by_name["knn_topk"]["tpu_world_launches"] = dry["world"]["knn_launches"]
     by_name["capacity_fill"]["tune_launches"] = sum(
         v["fill_launches"] for v in tune["runs"].values())
@@ -5810,6 +6309,9 @@ def phases(card, reports, shard_ranks):
     log(json.dumps({"geo_path": geo}))
     log(json.dumps({"chaos_path": chaos}))
     log(json.dumps({"telemetry_path": tele}))
+    log(json.dumps({"examples_path": examples}, default=str))
+    log("phase walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; the whole script so far {time.perf_counter() - T_START:.3f}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -52,12 +52,17 @@
 //     softmax scale is 1/sqrt(112), and the epilogue stores 112 columns a
 //     row, so no store reaches the next head.  The products do 128/112 =
 //     1.14x the work the function needs.
-//   flash_bf16_kernel (bf16, D = 32, which no model config uses): 4 warps,
-//     each owning 16 of 64 query rows, mma.sync m16n8k16; K and V tiles of
-//     64 keys stream into two shared-memory buffers with cp.async, the next
-//     tile loading while the block computes on the current one; ldmatrix
-//     reads K's fragments and, transposing, V's.  It takes D in {64, 128}
-//     as well (and D = 112), for comparison with the Hopper kernel.
+//   flash_bf16_kernel (bf16, D in {16, 32}: the small trainers of
+//     repro_torch.examples.train_carbon_aware, head dim 16 at its tiny preset
+//     and 32 at 10m): 4 warps, each owning 16 of 64 query rows, mma.sync
+//     m16n8k16; K and V tiles of 64 keys stream into two shared-memory
+//     buffers with cp.async, the next tile loading while the block computes
+//     on the current one; ldmatrix reads K's fragments and, transposing, V's.
+//     Its loops step over D in slices of 16 (Q K^T's k-steps, P V's column
+//     pairs), so D = 16 is one slice of each; the tile rows of D + 8 = 24
+//     elements (48 bytes) keep each 8 x 8 matrix's rows 16-byte aligned and
+//     in distinct banks.  It takes D in {64, 128} as well (and D = 112), for
+//     comparison with the Hopper kernel.
 //   flash_f32_kernel (fp32): 16x16 threads, each owning a 4x4 block of
 //     scores and 4 rows x D/16 columns of the output, fp32 FMA on the CUDA
 //     cores (no TF32, so the result stays within 2e-5 of the fp32
@@ -759,19 +764,24 @@ extern "C" {
 
 // dtype 0 = float32, 1 = bfloat16.  q (b, sq, hq, d), k/v (b, sk, hkv, d)
 // with unit stride along d and the given element strides along b, s, h;
-// o (b, sq, hq, d) contiguous.  d in {32, 64, 112, 128}, hq a multiple of hkv,
-// causal_offset >= 0.
+// o (b, sq, hq, d) contiguous.  d in {16, 32, 64, 112, 128}, hq a multiple of
+// hkv, causal_offset >= 0.  The grid must be the kernels' (ceil(sq / 64), hq,
+// b), as the wrapper plans it.
 int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
                   long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                   long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                  long long v_sh, void* stream) {
+                  long long v_sh, int grid_x, int grid_y, int grid_z, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
-      b > 65535 || hq > 65535 || (dtype != 0 && dtype != 1))
+      b > 65535 || hq > 65535 || (dtype != 0 && dtype != 1) ||
+      grid_x != (sq + BQ - 1) / BQ || grid_y != hq || grid_z != b)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return static_cast<int>(launch<16>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
+                                         causal_offset, qs, ks, vs, s));
     case 32:
       return static_cast<int>(launch<32>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
                                          causal_offset, qs, ks, vs, s));

@@ -51,7 +51,7 @@
 // and dO land as zeros and their LSE and D_i are taken as 0, so dS and P^T
 // dO vanish there; tiles that cross the diagonal or the end of K are masked.
 //
-// "fma" (fp32 at any D; bf16 at D = 32; and, on request, any shape as the
+// "fma" (fp32 at any D; bf16 at D in {16, 32}; and, on request, any shape as the
 // yardstick of the wgmma route): the first design's three kernels, in this order:
 //   flash_bwd_stats_kernel: one block per (query tile, query head, batch):
 //     each row's log-sum-exp LSE = m + log(l), streamed over the row's live
@@ -544,6 +544,7 @@ template <typename T>
 cudaError_t dispatch(int which, int d, const Args& a, Dims dm, dim3 grid, size_t smem,
                      cudaStream_t stream) {
   switch (d) {
+    case 16: return launch<T, 16>(which, a, dm, grid, smem, stream);
     case 32: return launch<T, 32>(which, a, dm, grid, smem, stream);
     case 64: return launch<T, 64>(which, a, dm, grid, smem, stream);
     case 112: return launch<T, 112>(which, a, dm, grid, smem, stream);
@@ -1071,7 +1072,7 @@ extern "C" {
 // The fma route.  which: 0 = stats, 1 = dK/dV, 2 = dQ; dtype 0 = float32,
 // 1 = bfloat16.
 // q, o, dout, dq (b, sq, hq, d) and k, v, dk, dv (b, sk, hkv, d) contiguous;
-// lse, dvec float32 (b, hq, sq).  d in {32, 64, 112, 128}, hq a multiple of
+// lse, dvec float32 (b, hq, sq).  d in {16, 32, 64, 112, 128}, hq a multiple of
 // hkv, causal_offset >= 0.  The grid must be the kernel's: (ceil(sq / 64),
 // hq, b) for stats and dQ, (ceil(sk / 64), hkv, b) for dK/dV; `smem` its
 // dynamic shared memory.

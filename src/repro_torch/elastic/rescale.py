@@ -166,9 +166,10 @@ class ElasticTrainer:
             while self._state.step < target:
                 step_no = self._state.step
                 tokens = torch.from_numpy(self.data.batch_at(step_no))
-                tokens = self._rules.sharding("batch", "seq", dims=tuple(tokens.shape)
-                                              ).local(tokens)
-                batch = {"tokens": tokens.to(self.device)}
+                sharding = self._rules.sharding("batch", "seq", dims=tuple(tokens.shape))
+                tokens = sharding.local(tokens).to(self.device)
+                tokens.sharding = sharding      # a batch k does not divide: replicated
+                batch = {"tokens": tokens}
                 t0 = time.time()
                 try:
                     if fault_at is not None and step_no == fault_at and not faulted:

@@ -8,15 +8,16 @@ h // (Hq // Hkv), and returns (B, Sq, Hq, D) in q's dtype: softmax of
 q.k / sqrt(D), masked to ``causal_offset + q_row >= k_row``, times v, in
 fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
 launches a kernel of ``csrc/flash_attention.cu`` (float32 or bfloat16,
-D in {32, 64, 112, 128}, unit stride along D) or raises.  ``route`` picks
+D in {16, 32, 64, 112, 128}, unit stride along D) or raises.  ``route`` picks
 the kernel from the dtype and D alone (``ROUTES``): bf16 at D in {64, 112,
 128} goes to the Hopper kernel (wgmma fed by TMA; llama3-8b and the MoE
 configs take 64 or 128, zamba2-7b's shared attention 112, which runs on
 the D = 128 instantiation over tiles whose columns 112..127 TMA fills with
-zeros, storing 112 columns), bf16 at D = 32 to the ``mma.sync`` kernel,
-fp32 to the fp32 kernel.
+zeros, storing 112 columns), bf16 at D in {16, 32} to the ``mma.sync``
+kernel (the example trainers' heads: ``repro_torch.examples.
+train_carbon_aware``'s tiny preset has D 16), fp32 to the fp32 kernel.
 ``plan`` does the shape and stride arithmetic of a launch (the route, the
-Hopper kernel's tensor maps, grid and shared memory) and runs on any
+grid, and the Hopper kernel's tensor maps and shared memory) and runs on any
 tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to the
 count of its route.
 
@@ -29,8 +30,8 @@ fp32 gradient of ``gqa_flash_plain``; on CUDA tensors the kernels of
 ``csrc/flash_attention_bwd.cu`` on the route ``bwd_route`` picks from the
 dtype and D alone (``BWD_ROUTES``): "wgmma" for bf16 at D in {64, 112, 128}
 (two Hopper kernels, dQ then dK/dV, reading the forward's LSE; their plain
-version is ``gqa_flash_bwd_lse_plain``), "fma" for fp32 and bf16 D = 32
-(three fp32 FMA kernels: row statistics, dK/dV, dQ), planned by
+version is ``gqa_flash_bwd_lse_plain``), "fma" for fp32 and bf16 D in {16,
+32} (three fp32 FMA kernels: row statistics, dK/dV, dQ), planned by
 ``plan_bwd``.  Each backward adds one to ``launches["gqa_flash_bwd"]`` and
 one to each of its kernels' counts.  Under ``no_grad``, or on tensors that
 need no grad, ``gqa_flash`` is the serving path above, unchanged: it asks
@@ -57,11 +58,12 @@ launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
             "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
             "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
 
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The kernel of each (dtype, D).
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
-          (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 32): "mma_sync",
+          (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 16): "mma_sync",
+          (torch.bfloat16, 32): "mma_sync", (torch.float32, 16): "fp32",
           (torch.float32, 32): "fp32", (torch.float32, 64): "fp32",
           (torch.float32, 112): "fp32", (torch.float32, 128): "fp32"}
 #: Head dims of the Hopper kernel, and the width of the tiles each runs on.
@@ -71,6 +73,9 @@ WGMMA_TILE_DIM = {64: 64, 112: 128, 128: 128}
 WGMMA_ROWS = 128        # query rows per block
 WGMMA_KEYS = 128        # keys per tile; the K/V boxes' rows
 TMA_BOX_COLS = 64       # bf16 per 128-byte swizzled row: a box's inner extent
+# The mma.sync and fp32 kernels' tiling: query rows per block (grid
+# (ceil(Sq / 64), Hq, B)).
+FWD_ROWS = 64
 
 #: The backward's route of each (dtype, D): the Hopper kernels where the
 #: forward's route writes the LSE, the fp32 FMA kernels elsewhere.
@@ -196,7 +201,7 @@ def build() -> str:
         return ""
     lib, log = build_library("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gqa_flash_fwd.argtypes = [i, p, p, p, p] + [i] * 7 + [ll] * 9 + [p]
+    lib.gqa_flash_fwd.argtypes = [i, p, p, p, p] + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
     lib.gqa_flash_fwd.restype = i
     lib.gqa_flash_wgmma.argtypes = [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
@@ -266,9 +271,10 @@ def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
 
 @dataclass(frozen=True)
 class Plan:
-    """A launch: its route and, for the Hopper kernel, the tensor maps of
-    q, k and v (eleven numbers each, ``tensor_map``), the grid
-    (Hq, B, query tiles) and the dynamic shared memory."""
+    """A launch: its route, its grid ((Hq, B, query tiles of 128) for the
+    Hopper kernel, (query tiles of 64, Hq, B) for the others) and, for the
+    Hopper kernel, the tensor maps of q, k and v (eleven numbers each,
+    ``tensor_map``) and the dynamic shared memory."""
     route: str
     maps: tuple[int, ...] | None = None
     grid: tuple[int, int, int] | None = None
@@ -315,9 +321,9 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
           "mma_sync": q.dtype == torch.bfloat16, "fp32": q.dtype == torch.float32}
     if not ok.get(name, False):
         raise ValueError(f"kernel {name!r} does not take {q.dtype} at head dim {d}")
-    if name != "wgmma":
-        return Plan(name)
     b, sq, hq, _ = q.shape
+    if name != "wgmma":
+        return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
     return Plan(name, maps=tensor_map(q) + tensor_map(k) + tensor_map(v),
                 grid=(hq, b, -(-sq // WGMMA_ROWS)), smem=wgmma_smem_bytes(d))
 
@@ -516,7 +522,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
         err = _lib.gqa_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, sk, hq, hkv, d, int(causal_offset),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pl.grid, stream)
     if err != 0:
         raise RuntimeError(f"the {pl.route} kernel of gqa_flash failed: "
                            + (f"cudaError_t {err}" if err > 0

@@ -84,34 +84,61 @@ def _summary(out: dict, dt: float) -> str:
             f"resumed_from_ckpt={out['recoveries'] > 0}")
 
 
-def _host_rank(rank: int, argv: list, n: int, init: str, result: str) -> None:
+def _host_rank(rank: int, run, argv: list, n: int, init: str, result: str) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=n)
     try:
-        out, dt = _train(_parser().parse_args(argv))
+        out = run(argv)
         if rank == 0:
             with open(result, "w") as f:
-                json.dump({"out": out, "dt": dt}, f)
+                json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_host_ranks(args, argv: list) -> tuple[dict, float]:
+def spawn_host_ranks(run, argv: list, n: int, device: str):
+    """``run(argv)`` in ``n`` spawned CPU ranks over gloo (the reference's
+    forced host devices); returns rank 0's result, which ``run`` (a
+    module-level function) returns as JSON data."""
     import torch.multiprocessing as mp
 
-    if args.device != "cpu":
+    if device != "cpu":
         raise ValueError("--host-devices runs CPU ranks: pass --device cpu")
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         result = os.path.join(tmp, "result.json")
-        mp.start_processes(_host_rank, args=(argv, args.host_devices, init, result),
-                           nprocs=args.host_devices, join=True, start_method="spawn")
+        mp.start_processes(_host_rank, args=(run, argv, n, init, result),
+                           nprocs=n, join=True, start_method="spawn")
         with open(result) as f:
-            got = json.load(f)
-    return got["out"], got["dt"]
+            return json.load(f)
+
+
+def join_ranks(args) -> int:
+    """This process's rank.  Under torchrun (``WORLD_SIZE`` above 1) it
+    joins the process group first: ``nccl`` on cards, one a rank
+    (``args.device`` becomes ``cuda:LOCAL_RANK``), ``gloo`` with ``--device
+    cpu``.  In a process group the caller initialised it keeps that group;
+    alone it is rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.device == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            torch.cuda.set_device(local)
+            args.device = f"cuda:{local}"
+            dist.init_process_group("nccl")
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _run(argv: list) -> dict:
+    out, dt = _train(_parser().parse_args(argv))
+    return {"out": out, "dt": dt}
 
 
 def main(argv=None) -> dict:
@@ -127,21 +154,10 @@ def main(argv=None) -> dict:
     if args.host_devices:
         print(f"arch {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
               f"dp={args.dp} tp={args.tp}", flush=True)
-        out, dt = _spawn_host_ranks(args, argv)
+        got = spawn_host_ranks(_run, argv, args.host_devices, args.device)
+        out, dt = got["out"], got["dt"]
     else:
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:          # under torchrun
-            import torch
-            import torch.distributed as dist
-
-            if not dist.is_initialized():
-                if args.device == "cpu":
-                    dist.init_process_group("gloo")
-                else:
-                    local = int(os.environ.get("LOCAL_RANK", "0"))
-                    torch.cuda.set_device(local)
-                    args.device = f"cuda:{local}"
-                    dist.init_process_group("nccl")
-            rank = dist.get_rank()
+        rank = join_ranks(args)
         if rank == 0:
             print(f"arch {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
                   f"dp={args.dp} tp={args.tp}", flush=True)

@@ -148,10 +148,6 @@ DEFAULT_RULES: dict[str, Any] = {
     "ssm_state": None,
 }
 
-#: The mesh axes a batch is split over; every other axis holds replicas
-#: of a rank's batch slice.
-BATCH_AXES = ("pod", "data")
-
 
 def axes_of(entry) -> tuple[str, ...]:
     """The mesh axes of one spec entry (None, an axis, or a tuple of axes)."""
@@ -225,7 +221,18 @@ class LogicalRules:
 
     @property
     def batch_axes(self) -> tuple[str, ...]:
-        return tuple(a for a in BATCH_AXES if a in self.sizes)
+        """The mesh axes a batch is split over: the "batch" rule's axes in
+        the mesh (("pod", "data") by default; none under
+        ``replicating_batch``).  Every other axis holds replicas of a rank's
+        batch slice."""
+        return tuple(a for a in axes_of(self.rules.get("batch")) if a in self.sizes)
+
+    def replicating_batch(self) -> "LogicalRules":
+        """These rules with the batch replicated over the mesh, as the
+        reference's spec falls back for a batch that does not divide the
+        batch axes: every rank holds and computes all of it, so nothing is
+        gathered or summed over the batch axes."""
+        return LogicalRules(self.mesh, {**self.rules, "batch": None})
 
     @property
     def tp(self) -> int:

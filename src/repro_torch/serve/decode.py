@@ -300,16 +300,16 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_generate(params: dict, prompts: torch.Tensor, cfg: ModelConfig,
-                    new_tokens: int) -> dict:
+                    new_tokens: int, rules: LogicalRules | None = None) -> dict:
     """Prefill ``prompts`` (B, P), then ``new_tokens`` greedy decode steps,
-    as the reference's serving example does.  Returns the prefill's
-    last-position logits, the (B, new_tokens) generated ids (the argmax of
-    the prefill logits first), the last step's logits, the cache, the
-    prefill and decode wall seconds (each ended by a device synchronise)
-    and the flash kernel's launches in each phase."""
+    as the reference's serving example does (with ``rules``, on its mesh).
+    Returns the prefill's last-position logits, the (B, new_tokens)
+    generated ids (the argmax of the prefill logits first), the last step's
+    logits, the cache, the prefill and decode wall seconds (each ended by a
+    device synchronise) and the flash kernel's launches in each phase."""
     b, p = prompts.shape
-    prefill = make_prefill(cfg, p + new_tokens)
-    step = make_serve_step(cfg)
+    prefill = make_prefill(cfg, p + new_tokens, rules)
+    step = make_serve_step(cfg, rules)
     launched = flash_attention.launches["gqa_flash"]
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompts)

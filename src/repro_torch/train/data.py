@@ -56,7 +56,9 @@ class PrefetchLoader:
     drawn from ``SeedSequence([seed, step, 7])`` as the reference draws them.
     ``sharding``: a ``Sharding`` (or a dict of them by key, as
     ``train.batch_specs`` gives) placing this rank's block of each batch,
-    the reference's device placement under a ``NamedSharding``."""
+    the reference's device placement under a ``NamedSharding``; each placed
+    tensor carries its ``Sharding`` as ``.sharding`` (a batch replicated over
+    the batch axes is the whole batch on every rank, ``train.step.batch_rules``)."""
 
     def __init__(self, source: SyntheticLM, start_step: int = 0, device="cuda",
                  model_cfg: Optional[ModelConfig] = None, sharding=None):
@@ -103,6 +105,8 @@ class PrefetchLoader:
                 t = sh.local(t)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
+            if sh is not None:
+                t.sharding = sh                        # the train step reads it
             out[k] = t
         return out
 

@@ -14,6 +14,13 @@ over the batch axes its blocks are not split on (a split leaf's gather
 already summed it), and no leaf needs a sum over ``model``: the
 tensor-parallel layer's ``copy``/``psum`` pairs leave every replicated
 leaf with its whole gradient on every rank (``repro_torch/distributed.py``).
+A batch that does not divide the batch axes is replicated over them, as
+the reference's spec falls back (``batch_specs``, ``PrefetchLoader``,
+``ElasticTrainer``): its tokens carry that ``Sharding`` as ``.sharding``,
+and the step then runs under ``rules.replicating_batch()``: every rank
+computes the whole batch and nothing is summed or gathered over the batch
+axes, so the loss, the gradient and an MoE layer's global dispatch are the
+one-device step's.
 
 Parameters, moments and the error-feedback residual are nested dicts of
 tensors; the optimizer walks their leaves in sorted key order, the order of
@@ -249,6 +256,17 @@ def gather_whole(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     return D.gather_leaf(t, sharding.dims(t.dim()), sharding.rules)
 
 
+def batch_rules(rules: LogicalRules | None, tokens: torch.Tensor) -> LogicalRules | None:
+    """The rules a step on ``tokens`` runs under: ``rules``, or
+    ``rules.replicating_batch()`` where the tokens' ``.sharding`` (set by
+    ``PrefetchLoader`` and ``ElasticTrainer``) splits their batch over none of
+    the batch axes.  Tokens without one are taken as split."""
+    sh = getattr(tokens, "sharding", None)
+    if rules is None or sh is None or not rules.batch_axes or sh.dims(tokens.dim())[0]:
+        return rules
+    return rules.replicating_batch()
+
+
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig = OptimizerConfig(),
                     compression: Optional[Callable] = None, ce_chunk: int = 512,
                     rules: LogicalRules | None = None):
@@ -259,20 +277,22 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig = OptimizerConfig(),
     (bound to ranks): the state is this rank's blocks (``state_shardings``),
     the batch its slice over (pod, data) (``batch_specs``), and the
     metrics are the global ones, equal on every rank; compression runs on
-    the whole reduced gradient, as the reference's on its global gradient."""
+    the whole reduced gradient, as the reference's on its global gradient.
+    Tokens whose ``.sharding`` replicates the batch run under
+    ``batch_rules``."""
     from repro_torch.models import transformer
 
     vocab_split = transformer.split(cfg, rules, "", "embed", 0)
     shards = [sh for _, sh in leaves(api.param_shardings(cfg, rules))] if rules else None
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, rules):
         x, head = api.forward(params, batch["tokens"], cfg, rules=rules, return_hidden=True,
                               prefix_embeds=batch.get("prefix_embeds"))
         return chunked_cross_entropy(x, head, batch["tokens"], chunk=ce_chunk,
                                      prefix=cfg.prefix_len, rules=rules,
                                      vocab_split=vocab_split)
 
-    def reduce(grads, flat):
+    def reduce(grads, flat, rules):
         """Each leaf's gradient summed over the batch axes its blocks are
         not split on."""
         for i, ((_, t), sh) in enumerate(zip(flat, shards)):
@@ -298,16 +318,17 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig = OptimizerConfig(),
         flat = leaves(state.params)
         paths = [p for p, _ in flat]
         live = [t.detach().requires_grad_() for _, t in flat]
+        step_rules = batch_rules(rules, batch["tokens"])
         with torch.enable_grad():
-            loss = loss_fn(unflatten(paths, live), batch)
+            loss = loss_fn(unflatten(paths, live), batch, step_rules)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
         del live
         loss = loss.detach()
         norm_axes = None
         if rules is not None:
-            grads = reduce(grads, flat)
-            loss = D.all_reduce(loss, rules, rules.batch_axes)
+            grads = reduce(grads, flat, step_rules)
+            loss = D.all_reduce(loss, step_rules, step_rules.batch_axes)
             norm_axes = [_axes(sh, t.dim()) for (_, t), sh in zip(flat, shards)]
         ef = state.ef
         if compression is not None:

@@ -343,10 +343,10 @@ BWD_CASES = [(1, 0, 2, 1), (17, 37, 4, 2), (64, 0, 8, 4), (130, 0, 4, 2), (130, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [32, 64, 112, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 def test_kernel_flash_bwd_matches_plain(cuda_flash_bwd, dtype, d):
     """The fma route at every dtype and head dim (its own route for fp32 and
-    bf16 D 32; the yardstick of the wgmma route elsewhere)."""
+    bf16 D 16 and 32; the yardstick of the wgmma route elsewhere)."""
     for sq, extra, hq, group in BWD_CASES[:6]:
         q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sq + extra, hq, hq // group, d,
                                   seed=sq + extra + d, dtype=dtype)
@@ -560,6 +560,42 @@ def test_kernel_flash_head_dim_112(cuda_flash, shape, dtype, kernel):
                         f"{shape} {dtype} {kernel}")
 
 
+# Head dim 16, the tiny trainer of repro_torch.examples.train_carbon_aware
+# (d_model 64 over 4 heads, 2 KV heads, bf16): its batch of 4 and a rank's 2
+# at S 128, then edge shapes (one row, ragged tails past the 64-row tiles,
+# keys no row sees); bf16 on the mma.sync kernel and fp32 on its own, each
+# forward and its fma backward against the plain versions.
+D16_SHAPES = [(4, 128, 128, 4, 2, 0), (2, 128, 128, 4, 2, 0), (1, 1, 300, 4, 1, 299),
+              (2, 130, 167, 4, 2, 37), (1, 70, 70, 2, 2, 0), (2, 5, 300, 4, 2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", D16_SHAPES, ids=str)
+def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
+    b, sq, sk, hq, hkv, off = shape
+    q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, 16, seed=sq + sk,
+                              dtype=dtype)
+    route = "mma_sync" if dtype == torch.bfloat16 else "fp32"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    out = fa.gqa_flash(*leaves, causal_offset=off)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": int(route == "mma_sync"),
+                           "fp32": int(route == "fp32"), "gqa_flash_bwd": 1,
+                           "bwd_stats": 1, "bwd_dkdv": 1, "bwd_dq": 1,
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}, fa.launches
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
+                        f"{shape} {dtype}")
+    o = out.detach()
+    want = fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off)
+    _assert_bwd_close([t.grad for t in leaves], want, f"{shape} {dtype} backward")
+    again = fa.launch_bwd(q, k, v, o, do, causal_offset=off)
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, again))   # no atomics
+
+
 # Rows and keys that are not multiples of the Hopper kernel's 128-row tiles,
 # Sk up to Sq + 200 (the offset), at both of its head dims.
 @pytest.mark.cuda
@@ -602,10 +638,13 @@ def test_kernel_flash_serving_shapes(cuda_flash, shape, kernel):
 @pytest.mark.cuda
 def test_kernel_flash_routes(cuda_flash):
     """The prefill's shape and D = 64 count under the Hopper kernel's
-    route; bf16 at D = 32 stays on the mma.sync kernel, fp32 on its own."""
+    route; bf16 at D = 32 and 16 stays on the mma.sync kernel, fp32 on its
+    own."""
     cases = [((1, 256, 256, 32, 8, 128), torch.bfloat16, "wgmma"),
              ((1, 256, 256, 8, 2, 64), torch.bfloat16, "wgmma"),
              ((1, 256, 256, 8, 2, 32), torch.bfloat16, "mma_sync"),
+             ((1, 256, 256, 8, 2, 16), torch.bfloat16, "mma_sync"),
+             ((1, 256, 256, 8, 2, 16), torch.float32, "fp32"),
              ((1, 256, 256, 8, 2, 128), torch.float32, "fp32")]
     for (b, sq, sk, hq, hkv, d), dtype, kernel in cases:
         q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, d, seed=d, dtype=dtype)

@@ -21,16 +21,18 @@ from repro_torch.models import common
 # (sq, extra keys, hq, group, d): every sq and every offset of the grid
 # sq in {1, 17, 64, 130}, sk = sq + {0, 37, 200}, (hq, group) in
 # {(2, 1), (4, 2), (8, 4)}, d in {32, 64, 128}, each head layout and head
-# dim four times; then zamba2-7b's head dim 112.
+# dim four times; then zamba2-7b's head dim 112, and 16 (the tiny trainer of
+# repro_torch.examples.train_carbon_aware).
 CASES = [
     (1, 0, 2, 1, 32), (1, 37, 4, 2, 64), (1, 200, 8, 4, 128),
     (17, 0, 4, 2, 128), (17, 37, 8, 4, 32), (17, 200, 2, 1, 64),
     (64, 0, 8, 4, 64), (64, 37, 2, 1, 128), (64, 200, 4, 2, 32),
     (130, 0, 2, 1, 128), (130, 37, 4, 2, 32), (130, 200, 8, 4, 64),
     (130, 0, 4, 1, 112), (17, 37, 4, 2, 112),
+    (1, 200, 4, 2, 16), (130, 37, 4, 2, 16), (64, 0, 2, 1, 16),
 ]
 BF16_CASES = [(1, 200, 8, 4, 128), (64, 0, 4, 2, 64), (130, 37, 2, 1, 32),
-              (130, 0, 4, 1, 112)]
+              (130, 0, 4, 1, 112), (128, 0, 4, 2, 16), (17, 200, 2, 1, 16)]
 
 
 def _qkv(sq, extra, hq, group, d, seed):
@@ -84,8 +86,9 @@ def test_chunked_attention_matches_reference(sq, extra, hq, group, d, chunk):
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 112, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 16, "mma_sync"),
     (torch.float32, 128, "fp32"), (torch.float32, 112, "fp32"),
-    (torch.float32, 64, "fp32"), (torch.float32, 32, "fp32")])
+    (torch.float32, 64, "fp32"), (torch.float32, 32, "fp32"), (torch.float32, 16, "fp32")])
 def test_route_depends_on_dtype_and_head_dim(dtype, d, kernel):
     assert fa.route(dtype, d) == kernel
     q = torch.zeros((1, 3, 4, d), dtype=dtype)
@@ -175,6 +178,43 @@ def test_wgmma_head_dim_112_walk_covers_each_output_once(b, sq, hq):
     assert extent == d and set(loaded[loaded < extent]) == set(range(d))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,hq,d", [(4, 128, 4, 16), (2, 130, 3, 16), (1, 1, 2, 16),
+                                       (2, 65, 4, 32)])
+def test_mma_sync_and_fp32_walk_covers_each_output_once(dtype, b, sq, hq, d):
+    """The mma.sync (bf16) and fp32 launches walked as the kernels walk
+    them, at the tiny trainer's head dim 16 and at 32: the grid (ceil(Sq /
+    64), Hq, B); mma.sync: block (x, h, b) owns rows 64x + 16w + g (+ 8) of
+    warp w < 4, lane 4g + t, each storing columns 8n + 2t and 8n + 2t + 1 for
+    n < D / 8; fp32: thread (ty, tx) of 16 x 16 owns rows 64x + ty + 16i
+    (i < 4) and columns tx + 16j (j < D / 16).  Each stores only rows below
+    Sq; every output element is stored once."""
+    q = torch.zeros((b, sq, hq, d), dtype=dtype)
+    k = torch.zeros((b, 3, 1, d), dtype=dtype)
+    pl = fa.plan(q, k, k)
+    assert pl.route == ("mma_sync" if dtype == torch.bfloat16 else "fp32")
+    assert pl.grid == (-(-sq // fa.FWD_ROWS), hq, b) and pl.maps is None
+    gx, gy, gz = pl.grid
+    if pl.route == "mma_sync":
+        w, g, t, r, n = np.meshgrid(np.arange(4), np.arange(8), np.arange(4), np.arange(2),
+                                    np.arange(d // 8), indexing="ij")
+        rows = (16 * w + g + 8 * r).ravel()
+        cols = [(8 * n + 2 * t).ravel(), (8 * n + 2 * t + 1).ravel()]
+    else:
+        ty, tx, i, j = np.meshgrid(np.arange(16), np.arange(16), np.arange(4),
+                                   np.arange(d // 16), indexing="ij")
+        rows, cols = (ty + 16 * i).ravel(), [(tx + 16 * j).ravel()]
+    hits = np.zeros((b, sq, hq, d), dtype=np.int64)
+    for x in range(gx):
+        r = x * fa.FWD_ROWS + rows
+        keep = r < sq
+        for h in range(gy):
+            for bb in range(gz):
+                for c in cols:
+                    np.add.at(hits, (bb, r[keep], h, c[keep]), 1)
+    assert (hits == 1).all()
+
+
 def test_plan_strided_views():
     """The card test's strided views: q, k and v cut out of one packed
     (B, S, 3, H, D) tensor keep their strides in the maps, in bytes."""
@@ -202,7 +242,7 @@ def test_plan_rejects_strides_and_starts_off_16_bytes():
 
 def test_plan_named_kernel():
     q, k = _bf16(1, 8, 4, 128), _bf16(1, 8, 2, 128)
-    assert fa.plan(q, k, k, kernel="mma_sync") == fa.Plan("mma_sync")
+    assert fa.plan(q, k, k, kernel="mma_sync") == fa.Plan("mma_sync", grid=(1, 4, 1))
     with pytest.raises(ValueError, match="does not take"):
         fa.plan(_bf16(1, 8, 4, 32), _bf16(1, 8, 2, 32), _bf16(1, 8, 2, 32), kernel="wgmma")
     with pytest.raises(ValueError, match="does not take"):

@@ -31,7 +31,7 @@ TOL = 2e-5
 # (B, Sq, Sk, Hq, Hkv, D, causal_offset): groups 1/2/4, offsets 0 and > 0,
 # tails shorter than a chunk or tile.
 SHAPES = [(2, 9, 9, 2, 2, 32, 0), (1, 13, 20, 4, 2, 32, 7), (2, 17, 17, 8, 2, 16, 0),
-          (1, 5, 37, 4, 1, 64, 32), (2, 70, 70, 4, 2, 32, 0)]
+          (1, 5, 37, 4, 1, 64, 32), (2, 70, 70, 4, 2, 32, 0), (2, 70, 90, 4, 2, 16, 20)]
 
 
 def _inputs(shape, seed=0):
@@ -116,7 +116,7 @@ def test_bf16_function_keeps_dtypes():
 
 def _grid_shapes():
     return [(1, 1, 1, 2, 2, 32, 0), (2, 63, 65, 4, 2, 64, 0), (1, 130, 200, 8, 4, 128, 70),
-            (3, 200, 65, 4, 1, 112, 0), (1, 64, 64, 16, 8, 128, 0)]
+            (3, 200, 65, 4, 1, 112, 0), (1, 64, 64, 16, 8, 128, 0), (4, 128, 128, 4, 2, 16, 0)]
 
 
 def _tensors(shape, dtype=torch.float32):
@@ -147,6 +147,29 @@ def test_plan_bwd_grids_cover_every_output_once(shape):
                 for bi in range(gz):
                     count[bi, r0:r0 + rows, h] += 1
         assert (count == 1).all(), which
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv", [(4, 128, 128, 4, 2), (2, 128, 128, 4, 2),
+                                             (1, 65, 130, 2, 1)])
+def test_bf16_head_dim_16_runs_the_fma_kernels_over_every_column_once(b, sq, sk, hq, hkv):
+    """The tiny trainer's backward (bf16, D 16: B 4 and a rank's 2, S 128, Hq
+    4, Hkv 2) runs the fma route: its plan's grids and shared memory are
+    those of ``bwd_smem_bytes(16)``; each kernel's thread (ty, tx) writes
+    columns tx + 16j for j < D / 16 of its rows (dQ) or keys (dK, dV), so at
+    D 16 the 16 lanes of a half warp cover the row's columns once."""
+    d = 16
+    q, k, v, o, do = (t.bfloat16() for t in _tensors((b, sq, sk, hq, hkv, d, 0)))
+    assert fa.bwd_route(torch.bfloat16, d) == "fma"
+    pl = fa.plan_bwd(q, k, v, o, do)
+    tiles_q, tiles_k = -(-sq // fa.BWD_ROWS), -(-sk // fa.BWD_KEYS)
+    assert pl.route == "fma" and pl.maps is None
+    assert pl.grids == ((tiles_q, hq, b), (tiles_k, hkv, b), (tiles_q, hq, b))
+    assert pl.smem == fa.bwd_smem_bytes(d) == (4 * 2 * 64 * 17,
+                                              4 * (4 * 64 * 17 + 2 * 64 * 65 + 2 * 64),
+                                              4 * (4 * 64 * 17 + 64 * 65))
+    tx, j = np.meshgrid(np.arange(16), np.arange(d // 16), indexing="ij")
+    cols = np.bincount((tx + 16 * j).ravel(), minlength=d)
+    assert (cols == 1).all()
 
 
 def test_plan_bwd_checks():
