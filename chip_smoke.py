@@ -781,13 +781,17 @@ def knn_query_phase(kb, states):
 
 SERVE_ARCH = "llama3-8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 64
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2, torch.float16: 1e-2,
+             torch.float64: 2e-5}
 # Relative L2 of the whole output against the plain version.  At these key
 # counts unit-normal inputs give outputs of std ~sqrt(e/Sk) = 0.04, below
 # the bf16 atol, so the elementwise test alone would pass a kernel whose
 # outputs were all 30 % too small; bf16 rounding of P and of the output
-# leaves a few 1e-3.
-FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# leaves a few 1e-3.  fp16 rounds P and the output to 11 significant bits
+# where bf16 keeps 8, so its limits are bf16's over 5 (an eighth of the step,
+# with room); float64 runs the fp32 kernel on fp32 copies, held as fp32.
+FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3,
+             torch.float64: 2e-5}
 # The same, for each layer's attention output on the model's own q/k/v
 # against the chunked attention: near one-hot softmax under the reference
 # init leaves ~2e-4 (1.5e-4 median over llama3-8b's 32 layers on an H100).
@@ -852,6 +856,18 @@ def flash_check(q, k, v, offset, what, kernel=None):
         raise AssertionError(f"{what}: kernel and plain version differ by up to "
                              f"{err}, relative L2 {rel}")
     return err, rel
+
+
+def elt_type(name: str) -> str:
+    """The element type a mangled kernel name was instantiated for."""
+    return "fp16" if "6__half" in name else "bf16" if "__nv_bfloat16" in name else "fp32"
+
+
+def pinned_wgmma(name: str) -> bool:
+    """Whether a mangled Hopper kernel name is one of the pinned bf16
+    instantiations (D 64, 112 or 128 at compile time)."""
+    m = re.search(r"ILi(\d+)ELi(\d+)E", name)
+    return bool(m) and int(m.group(2)) > 0 and "__nv_bfloat16" in name
 
 
 def ptxas_report(report, kernel):
@@ -923,8 +939,9 @@ def flash_kernel_phase(report):
     ptx = ptxas_report(report, "flash_wgmma_kernel")
     for name, rep in ptx.items():
         tile, d = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", name).groups())
-        log(f"flash_wgmma_kernel<{tile}, {d}>: ptxas {rep}, dynamic shared memory "
-            f"{fa.wgmma_smem_bytes(d)} bytes, {fa.wgmma_stages(d)} stages")
+        log(f"flash_wgmma_kernel<{tile}, {d or 'run-time D'}, {elt_type(name)}>: ptxas {rep}, "
+            f"dynamic shared memory {fa.wgmma_smem_bytes(tile)} bytes, "
+            f"{fa.wgmma_stages(tile)} stages")
     if not ptx:
         log("flash_wgmma_kernel: no ptxas report (the library was built before this run)")
 
@@ -1091,7 +1108,7 @@ def flash_d16_timing(gen, err, rel):
         f"{nbytes / 1e6:.6f} MB; device time {t['device_ms']} ms/call (plain "
         f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); SDPA differs from the "
         f"kernel by up to {lib_diff}")
-    return dict(name="gqa_flash_d16", route="cuda", kernel="flash_bf16_kernel<16> (mma.sync)",
+    return dict(name="gqa_flash_d16", route="cuda", kernel="flash_mma_kernel<__nv_bfloat16, 16>",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
                 max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
@@ -1100,19 +1117,301 @@ def flash_d16_timing(gen, err, rel):
                 sdpa_max_abs_diff=lib_diff, turns=turns, **t)
 
 
-def teacher_forced(params, prompts, cfg, chunked):
+# --- gqa_flash at every head dim and float dtype ------------------------------
+
+# Head dims of the sweep, none of them a pinned route's: below 16, between
+# the wgmma tiles' widths, not a multiple of 8 (33, 100), past 128 (160, 192,
+# 256); each in fp32, bf16 and fp16, then fp16 at the pinned head dims and
+# float64 (the fp32 kernels on copies) at two.
+FLASH_DIMS = (8, 24, 33, 40, 72, 80, 96, 100, 120, 160, 192, 256)
+FLASH_DIMS_CASES = ([(d, dt) for d in FLASH_DIMS
+                     for dt in (torch.float32, torch.bfloat16, torch.float16)]
+                    + [(d, torch.float16) for d in fa.HEAD_DIMS]
+                    + [(33, torch.float64), (256, torch.float64)])
+# B, Sq, Sk, Hq, Hkv, causal offset: no dimension a multiple of a tile
+FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
+# (name, B, Sq, Sk, Hq, Hkv, D, dtype) of the timed forwards: bf16 at D 96
+# and 256 at a prefill of 4 x 2048, fp16 at llama3-8b's prefill shape; and
+# of the timed backwards, at internvl2-2b's train shape
+DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
+                  ("bf16-d256", 4, 2048, 2048, 16, 8, 256, torch.bfloat16),
+                  ("fp16-d128", 4, 2048, 2048, 32, 8, 128, torch.float16)]
+DIMS_BWD_TIMED = [("bf16-d96", 4, 2304, 2304, 16, 8, 96, torch.bfloat16),
+                  ("bf16-d256", 4, 2304, 2304, 16, 8, 256, torch.bfloat16)]
+# The head-dim path: one train step of reduced llama3-8b at these head dims
+# and compute dtypes through make_train_step (the forward and backward
+# kernels of each route on a user's entry point), 2 x 256 tokens.
+DIMS_PATH = [(96, torch.bfloat16), (256, torch.bfloat16), (24, torch.float16),
+             (80, torch.float16), (100, torch.float32)]
+DIMS_PATH_BATCH, DIMS_PATH_SEQ = 2, 256
+
+
+def fwd_instance(dtype, d) -> str:
+    """The forward kernel instantiation of (dtype, D)."""
+    route = fa.route(dtype, d)
+    t = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}.get(dtype)
+    if route == "wgmma":
+        tile = fa.wgmma_tile_dim(d)
+        pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
+        return f"flash_wgmma_kernel<{tile}, {d if pinned else 0}, {t}>"
+    if route == "mma_sync":
+        return f"flash_mma_kernel<{t}, {fa.padded_dim(d)}>"
+    return f"flash_f32_kernel<{fa.padded_dim(d)}>" + (" on fp32 copies"
+                                                       if dtype == torch.float64 else "")
+
+
+def bwd_instance(dtype, d) -> str:
+    if fa.bwd_route(dtype, d) == "wgmma":
+        pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
+        return (f"flash_bwd_{{dq,dkdv}}_wgmma_kernel<{fa.wgmma_tile_dim(d)}, "
+                f"{d if pinned else 0}, {str(dtype)[6:]}>")
+    t = {torch.float64: "float (fp32 copies)"}.get(dtype, str(dtype)[6:])
+    return f"flash_bwd_{{stats,dkdv,dq}}_kernel<{t}, {fa.padded_dim(d)}>"
+
+
+def flash_dims_phase(reports):
+    """``gqa_flash`` and its backward at every sweep case
+    (``FLASH_DIMS_CASES`` at ``FLASH_DIMS_SHAPE``): the forward against the
+    plain version (FLASH_TOL, FLASH_REL by dtype), on the wgmma route also
+    with its LSE (the output equal bit for bit, the LSE within LSE_TOL), the
+    backward on its route against the plain backward (``bwd_check``); the
+    launches by route equal to those the cases make; the ptxas report of
+    every flash instantiation (registers, spills); then the timed shapes.
+    Returns the sweep's readings and the kernel line's new entries."""
+    gen = np.random.default_rng(21)
+    b, sq, sk, hq, hkv, off = FLASH_DIMS_SHAPE
+    fa.reset_launches()
+    expect = dict.fromkeys(fa.launches, 0)
+    sweep = {}
+    for d, dtype in FLASH_DIMS_CASES:
+        what = f"D={d} {str(dtype)[6:]}"
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+        do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)) \
+            .to("cuda", dtype)
+        route, broute = fa.route(dtype, d), fa.bwd_route(dtype, d)
+        err, rel = flash_check(q, k, v, off, f"gqa_flash sweep {what}")
+        lse, lse_err = None, None
+        if route == "wgmma":
+            o, lse = fa.launch(q, k, v, off, with_lse=True)
+            same = torch.equal(o, fa.gqa_flash(q, k, v, off))
+            lse_err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
+            if not (same and lse_err <= LSE_TOL):
+                raise AssertionError(f"gqa_flash sweep {what} with the LSE: output equal "
+                                     f"{same}, LSE off by up to {lse_err} (limit {LSE_TOL})")
+        else:
+            o = fa.gqa_flash(q, k, v, off)
+        expect["gqa_flash"] += 3 if route == "wgmma" else 2
+        expect[route] += 3 if route == "wgmma" else 2
+        berr, brel, brounded = bwd_check(q, k, v, o, do, off, f"gqa_flash_bwd sweep {what}",
+                                         route=broute, lse=lse)
+        expect["gqa_flash_bwd"] += 1
+        for name in BWD_ROUTE_KERNELS[broute]:
+            expect[name] += 1
+        sweep[what] = dict(route=route, kernel=fwd_instance(dtype, d), max_abs_err=err,
+                           rel_l2=rel, lse_err=lse_err, bwd_route=broute,
+                           bwd_kernel=bwd_instance(dtype, d), bwd_max_abs_err=berr,
+                           bwd_rel_l2=brel, bwd_rel_l2_rounded=brounded)
+        log(f"gqa_flash sweep {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} offset={off}: "
+            f"forward on {route} ({fwd_instance(dtype, d)}) max abs diff {err}, relative L2 "
+            f"{rel} (limit {FLASH_REL[dtype]}), LSE {lse_err}; backward on {broute} max abs "
+            f"diff {berr}, relative L2 {brel}, against the rounding plain version {brounded}")
+    if fa.launches != expect:
+        raise AssertionError(f"sweep launches by route {fa.launches}, expected {expect}")
+    log(f"gqa_flash sweep: {len(FLASH_DIMS_CASES)} cases agree with the plain versions; "
+        f"launches by route {dict(fa.launches)}, as expected")
+    ptx = {}
+    for src, kernel in (("flash_attention.cu", "flash_"), ("flash_attention_bwd.cu", "flash_")):
+        for name, rep in ptxas_report(reports[f"src/repro_torch/csrc/{src}"], kernel).items():
+            ptx[name] = rep
+    spills = {n: r for n, r in ptx.items() if r.get("spill_stores") or r.get("spill_loads")}
+    log(f"flash ptxas: {len(ptx)} instantiations, {len(spills)} with spills: "
+        + "; ".join(f"{n}: {r}" for n, r in spills.items()))
+    fwd = [flash_dims_fwd_timing(gen, *shape) for shape in DIMS_FWD_TIMED]
+    bwd = [flash_dims_bwd_timing(gen, *shape) for shape in DIMS_BWD_TIMED]
+    return dict(sweep=sweep, ptxas=ptx, spilled=sorted(spills)), fwd, bwd
+
+
+def in_turns_ms(runs):
+    """{key: (fn, iters, warmup)} timed there and back (each key twice, in
+    turns) by CUDA events: (turns, mean ms of each key)."""
+    turns = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        fn, iters, warmup = runs[key]
+        turns[key].append(time_ms(fn, iters, warmup=warmup))
+    return turns, {key: float(np.mean(v)) for key, v in turns.items()}
+
+
+def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
+    """One timed forward of the sweep's routes: the kernel (its route), the
+    plain version and SDPA in turns by CUDA events, and by profiler device
+    time, beside the bound (16-bit tensor-core peak)."""
+    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    route = fa.route(dtype, d)
+
+    def kernel():
+        return fa.launch(q, k, v, 0)
+
+    def plain():
+        return fa.gqa_flash_plain(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    got, want = kernel(), plain()
+    err, rel = (got.float() - want.float()).abs().max().item(), rel_l2(got, want)
+    if not rel <= FLASH_REL[dtype]:
+        raise AssertionError(f"gqa_flash {tag}: relative L2 {rel} to the plain version")
+    lib_diff = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+    del got, want
+    turns, t = in_turns_ms(dict(ms=(kernel, 20, 3), plain_ms=(plain, 3, 1),
+                                library_ms=(library, 20, 3)))
+    t.update(device_ms=device_ms(kernel, 10), plain_device_ms=device_ms(plain, 3),
+             library_device_ms=device_ms(library, 10))
+    nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]}, "
+        f"{route}), in turns {turns}")
+    log(f"gqa_flash {tag}: kernel {t['ms']:.6f} ms/call ({flops / t['ms'] / 1e9:.3f} TFLOP/s, "
+        f"{bound / t['ms']:.4f} of the bound), plain {t['plain_ms']:.6f}, SDPA "
+        f"{t['library_ms']:.6f} (kernel / SDPA {t['ms'] / t['library_ms']:.3f}), bound "
+        f"{bound:.6f} by {by}; device time {t['device_ms']} ms/call (plain "
+        f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); max abs diff {err}, "
+        f"relative L2 {rel}; SDPA differs by up to {lib_diff}")
+    return dict(name=f"gqa_flash_{tag.replace('-', '_')}", route="cuda",
+                kernel=fwd_instance(dtype, d), flash_route=route,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:94",
+                max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
+                tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
+                over_sdpa=t["ms"] / t["library_ms"],
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal",
+                sdpa_max_abs_diff=lib_diff, turns=turns, **t)
+
+
+def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
+    """One timed backward: the whole route (``launch_bwd``), the plain
+    backward and SDPA's backward (its forward + backward less its forward)
+    in turns by CUDA events, and by profiler device time, beside the
+    function's bound (five products)."""
+    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+    do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)).to("cuda", dtype)
+    route = fa.bwd_route(dtype, d)
+    o, lse = fa.launch(q, k, v, 0, with_lse=True) if route == "wgmma" \
+        else (fa.launch(q, k, v, 0), None)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def kernels():
+        return fa.launch_bwd(q, k, v, o, do, 0, lse=lse)
+
+    def plain():
+        return fa.gqa_flash_bwd_plain(q, k, v, o, do, 0)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    err, rel = 0.0, 0.0
+    for g, w in zip(kernels(), plain()):
+        err, rel = max(err, (g.float() - w.float()).abs().max().item()), max(rel, rel_l2(g, w))
+    limit = BWD_REL[dtype] if route == "fma" else BWD_WGMMA_REL
+    if not rel <= limit:
+        raise AssertionError(f"gqa_flash_bwd {tag}: relative L2 {rel} (limit {limit})")
+    iters = 3 if route == "fma" else 10
+    turns, t = in_turns_ms(dict(ms=(kernels, iters, 1), plain_ms=(plain, 2, 1),
+                                sdpa_fwd=(sdpa_fwd, 10, 2), sdpa_fwd_bwd=(sdpa_fwd_bwd, 10, 2)))
+    dev = {key: device_ms(fn, n) for key, fn, n in (
+        ("device_ms", kernels, iters), ("plain_device_ms", plain, 2),
+        ("sdpa_fwd", sdpa_fwd, 10), ("sdpa_fwd_bwd", sdpa_fwd_bwd, 10))}
+    library = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
+    library_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
+                   if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
+    over = t["ms"] / library if library > 0 else None
+    work = bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
+    log(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]}, "
+        f"{route}), in turns {turns}")
+    log(f"gqa_flash_bwd {tag}: the {route} route {t['ms']:.6f} ms/call (device "
+        f"{dev['device_ms']}; {bound / t['ms']:.4f} of the bound), plain {t['plain_ms']:.6f} "
+        f"(device {dev['plain_device_ms']}), SDPA's backward {library:.6f} (device "
+        f"{library_dev}; route / SDPA {over}), bound {bound:.6f} by {by}; "
+        f"max abs diff {err}, relative L2 {rel} (limit {limit})")
+    return dict(name=f"gqa_flash_bwd_{tag.replace('-', '_')}", route="cuda",
+                kernel=bwd_instance(dtype, d), bwd_route=route,
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                         "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                         "no gradient)",
+                max_abs_err=err, rel_l2=rel, ms=t["ms"], device_ms=dev["device_ms"],
+                plain_ms=t["plain_ms"], plain_device_ms=dev["plain_device_ms"],
+                plain_of="the whole backward", bound_ms=bound, bound_by=by,
+                bound_share=bound / t["ms"], library_ms=library, library_device_ms=library_dev,
+                library_of="the whole backward: SDPA forward + backward less forward",
+                over_sdpa=over,
+                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal",
+                turns=turns)
+
+
+def dims_path_phase(device="cuda"):
+    """The head-dim path: for each (D, dtype) of ``DIMS_PATH`` one train
+    step of reduced llama3-8b at that head dim and compute dtype through
+    ``make_train_step``, launch counts reset just before and read just
+    after: two forwards a layer (the recompute) on its route and one
+    backward on the route that pairs with it (``train_launch_counts``).
+    Returns each case's launches, loss and grad norm."""
+    from repro_torch.configs import reduced
+    from repro_torch.train import (DataConfig, OptimizerConfig, SyntheticLM, init_state,
+                                   make_train_step)
+
+    out = {}
+    for d, dtype in DIMS_PATH:
+        cfg = dataclasses.replace(reduced(ARCHS[SERVE_ARCH]), head_dim=d, compute_dtype=dtype,
+                                  name=f"llama3-8b-smoke-d{d}-{str(dtype)[6:]}")
+        state = init_state(cfg, seed=0, device=device)
+        src = SyntheticLM(DataConfig(batch=DIMS_PATH_BATCH, seq_len=DIMS_PATH_SEQ,
+                                     vocab_size=cfg.vocab_size, seed=0))
+        batch = {"tokens": torch.from_numpy(src.batch_at(0)).to(device)}
+        step = make_train_step(cfg, OptimizerConfig(warmup_steps=1, total_steps=2))
+        fa.reset_launches()
+        _, met = step(state, batch)
+        torch.cuda.synchronize()
+        counts = dict(fa.launches)
+        want = train_launch_counts(fa.route(dtype, d), cfg.num_layers, 1)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        if counts != want or not math.isfinite(loss) or not math.isfinite(gnorm):
+            raise AssertionError(f"head-dim path D={d} {dtype}: launches {counts} (expected "
+                                 f"{want}), loss {loss}, grad norm {gnorm}")
+        out[f"D={d} {str(dtype)[6:]}"] = dict(launches=counts, loss=loss, grad_norm=gnorm,
+                                              kernel=fwd_instance(dtype, d),
+                                              bwd_kernel=bwd_instance(dtype, d))
+        log(f"head-dim path: {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads} x {d} heads), one train step of {DIMS_PATH_BATCH} x "
+            f"{DIMS_PATH_SEQ}: loss {loss}, grad norm {gnorm}, launches {counts}")
+    return out
+
+
+def teacher_forced(params, prompts, cfg, chunked, finite=None):
     """Layer by layer on the chunked model's input to each layer: the
     relative L2 of the kernel's attention output against the chunked
     attention's on that layer's own q/k/v, and of the last-position logits
-    of the flash model's last layer so fed against the chunked model's."""
+    of the flash model's last layer so fed against the chunked model's.
+    With a list ``finite``, each layer's input and q/k/v are checked and
+    whether all are finite appended to it."""
     lp = params["layers"]
-    x = params["embed"][prompts]
+    x = params["embed"][prompts].to(cfg.compute_dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     rels = []
     for li in range(cfg.num_layers):
         h = rms_norm(x, lp["ln1"][li], cfg.norm_eps)
         q, k, v = transformer.qkv(h, lp, li)
         q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        if finite is not None:
+            finite.append(all(bool(torch.isfinite(t).all()) for t in (x, q, k, v)))
         rels.append(rel_l2(fa.gqa_flash(q, k, v),
                            chunked_attention(q, k, v, 0, chunked.attention_chunk)))
         del h, q, k, v
@@ -1122,9 +1421,48 @@ def teacher_forced(params, prompts, cfg, chunked):
 
     def logits(h):
         return rms_norm(h[:, -1], params["ln_f"], cfg.norm_eps) \
-            @ transformer.output_head(params)
+            @ transformer.output_head(params).to(h.dtype)
 
     return rels, rel_l2(logits(got), logits(x))
+
+
+def fp16_prefill(params, prompts, cfg, max_seq):
+    """llama3-8b's prefill at ``compute_dtype=torch.float16`` on the serving
+    phase's weights, counts reset just before and read just after: one
+    launch a layer, all on the Hopper kernel's fp16 instantiation; then each
+    layer's attention on the chunked path's own input within ATTN_REL of the
+    chunked attention (``teacher_forced``), every non-finite value traced to
+    the first layer whose input or q/k/v holds one (those layers printed,
+    not gated: fp16 tops out at 65504)."""
+    cfg16 = dataclasses.replace(cfg, compute_dtype=torch.float16)
+    fa.reset_launches()
+    t = time.perf_counter()
+    logits, cache = make_prefill(cfg16, max_seq)(params, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    counts = dict(fa.launches)
+    finite_logits = bool(torch.isfinite(logits).all())
+    del logits, cache
+    if counts["gqa_flash"] != cfg.num_layers or counts["wgmma"] != cfg.num_layers:
+        raise AssertionError(f"fp16 prefill: launches {counts}, expected {cfg.num_layers} "
+                             f"on the Hopper kernel")
+    finite = []
+    rels, forced = teacher_forced(params, prompts, cfg16,
+                                  dataclasses.replace(cfg16, attention_backend="chunked"),
+                                  finite)
+    held = [r for r, ok in zip(rels, finite) if ok]
+    first_bad = finite.index(False) if False in finite else None
+    log(f"serve fp16: prefill {prefill_s:.6f} s, {counts['wgmma']} launches on "
+        f"{fwd_instance(torch.float16, cfg.resolved_head_dim)}, logits finite "
+        f"{finite_logits}; each layer's attention on the chunked path's input, kernel vs "
+        f"chunked: relative L2 max {max(held) if held else None} over {len(held)} layers "
+        f"with finite inputs (limit {ATTN_REL}), first layer with a non-finite input or "
+        f"q/k/v {first_bad}; last-position logits so fed {forced}")
+    if not held or max(held) > ATTN_REL:
+        raise AssertionError(f"fp16 prefill: attention relative L2 {rels} (finite {finite})")
+    return dict(prefill_s=prefill_s, launches=counts, logits_finite=finite_logits,
+                attn_rel_l2=rels, layers_finite=finite, first_nonfinite_layer=first_bad,
+                forced_logits_rel_l2=forced)
 
 
 def serve_phase():
@@ -1231,6 +1569,7 @@ def serve_phase():
     if not (max(attn_rel) <= ATTN_REL and forced <= 2e-2):
         raise AssertionError(f"flash vs chunked: attention relative L2 up to "
                              f"{max(attn_rel)}, logits {forced}")
+    fp16 = fp16_prefill(params, prompts, cfg, max_seq)
 
     # A warm run for the times, then a traced one for the device's share.
     warm = greedy_generate(params, prompts, cfg, SERVE_TOKENS)
@@ -1299,7 +1638,7 @@ def serve_phase():
                 first_token_agree=agree,
                 chunked_prefill_s=chunked_s, traced_wall_s=traced_wall,
                 traced_busy_ms=busy_ms, traced_busy_share=busy_ms / 1e3 / traced_wall,
-                launches=launches)
+                launches=launches, fp16_prefill=fp16)
 
 
 # --- the MoE serving path -----------------------------------------------------
@@ -1864,16 +2203,20 @@ TRAIN_TIMED = 3
 TRAIN_CHECK_LAYERS = (0, 12, 23)
 # The backward kernels against the plain backward, elementwise as the card
 # tests (tests/test_torch_cuda.py BWD_TOL) and as a whole by relative L2.
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, torch.float16: 2e-2,
+           torch.float64: 1e-4}
 # The fma route computes in fp32 and rounds once to the inputs' dtype:
 # limits set from readings on an H100 80GB HBM3 (bf16 5.2e-5 at the train
-# shape, fp32 2.3e-7 at D 32).
-BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-4}
-# The wgmma route rounds P and dS to bf16 before their products, as the
-# forward rounds P: against the fp32 plain backward the forward's bf16
-# FLASH_REL; against the plain version that rounds where it rounds
-# (``gqa_flash_bwd_lse_plain(round_bf16=True)``), where only roundings that
-# fall the other way differ, BWD_ROUNDED_REL.
+# shape, fp32 2.3e-7 at D 32); fp16, rounded once to 11 bits, held to bf16's
+# limit; float64 (the fp32 kernels on copies) to fp32's.
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-4, torch.float16: 2.5e-4,
+           torch.float64: 2e-5}
+# The wgmma route rounds P and dS to bf16 (fp16 for fp16 inputs) before
+# their products, as the forward rounds P: against the fp32 plain backward
+# the forward's bf16 FLASH_REL, for either type; against the plain version
+# that rounds where it rounds (``gqa_flash_bwd_lse_plain(round_bf16=True)``,
+# which rounds to the inputs' 16-bit type), where only roundings that fall
+# the other way differ, BWD_ROUNDED_REL.
 BWD_WGMMA_REL = FLASH_REL[torch.bfloat16]
 BWD_ROUNDED_REL = 1e-3
 # The same on the model's own layers (0, 12, 23 of the chunked attention's
@@ -1977,7 +2320,9 @@ def flash_bwd_kernel_phase(report):
     ptx = ptxas_report(report, "flash_bwd_")
     for name, rep in ptx.items():
         log(f"{name}: ptxas {rep}")
-    spilled = {n: r for n, r in ptx.items() if "wgmma" in n and
+    # the gate holds the pinned bf16 instantiations (D 64, 112, 128); the
+    # others' spills are reported (flash_dims_phase)
+    spilled = {n: r for n, r in ptx.items() if "wgmma" in n and pinned_wgmma(n) and
                (r.get("spill_stores", 0) or r.get("spill_loads", 0) or r["remarks"])}
     if spilled:
         raise AssertionError(f"the wgmma backward kernels spill or serialise: {spilled}")
@@ -6162,6 +6507,8 @@ def phases(card, reports, shard_ranks, twins):
     bwd_entries, bwd_d16_entry = timed(
         "kernel (gqa_flash backward)", flash_bwd_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
+    dims, dims_fwd, dims_bwd = timed("kernel (gqa_flash head dims and dtypes)",
+                                     flash_dims_phase, reports)
     kernels.append(timed("kernel (gating)", gating_kernel_phase,
                          reports["src/repro_torch/csrc/gating.cu"]))
     path = timed("main path", main_path_phase)
@@ -6170,6 +6517,17 @@ def phases(card, reports, shard_ranks, twins):
                       launches_by_route={r: path["batch"][r] for r in knn.BATCH_ROUTES})
     serve = timed("serving", serve_phase)
     kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
+    dims_path = timed("head-dim path", dims_path_phase)
+    by_tag = {e["name"]: e for e in dims_fwd + dims_bwd}
+    by_tag["gqa_flash_fp16_d128"].update(
+        launches=serve["fp16_prefill"]["launches"]["wgmma"], path="serve-prefill fp16")
+    for d, name, fwd_key, bwd_key in ((96, "d96", "wgmma", "bwd_wgmma_dq"),
+                                      (256, "d256", "mma_sync", "bwd_stats")):
+        counts = dims_path[f"D={d} bfloat16"]["launches"]
+        by_tag[f"gqa_flash_bf16_{name}"].update(launches=counts[fwd_key],
+                                                path="head-dim path train step")
+        by_tag[f"gqa_flash_bwd_bf16_{name}"].update(launches=counts[bwd_key],
+                                                    path="head-dim path train step")
     moe = timed("moe serving", moe_serve_phase)
     moe["wall_s"] = walls["moe serving"]
     kernels[2].update(moe_launches=moe["launches"]["wgmma"], moe_flash_d64=moe["flash_d64"])
@@ -6232,6 +6590,7 @@ def phases(card, reports, shard_ranks, twins):
     kernels.append(d112_entry)
     kernels.extend(bwd_entries)
     kernels.extend([d16_entry, bwd_d16_entry])
+    kernels.extend(dims_fwd + dims_bwd)
     chaos = timed("resilience", chaos_phase)
     # launches on the resilience paths, beside each kernel's own path
     by_name = {kern["name"]: kern for kern in kernels}
@@ -6310,6 +6669,7 @@ def phases(card, reports, shard_ranks, twins):
     log(json.dumps({"chaos_path": chaos}))
     log(json.dumps({"telemetry_path": tele}))
     log(json.dumps({"examples_path": examples}, default=str))
+    log(json.dumps({"flash_dims": dims, "dims_path": dims_path}, default=str))
     log("phase walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
         + f"; the whole script so far {time.perf_counter() - T_START:.3f}")
     log(card)

@@ -17,12 +17,14 @@ service per region for the geo-distributed policies (``core/geo.py``).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import zlib
 
 import numpy as np
 
 from .faults import CarbonDataOutage, DegradedCIView, DegradedMultiRegionView
-from .forecast import ForecastFeatureMixin, ForecastModel, PerfectForecast
+from .forecast import (ForecastFeatureMixin, ForecastModel, PerfectForecast,
+                       StaticNoiseForecast)
 
 # (mean g CO2/kWh, daily CoV) per region, calibrated to Fig. 5's spread:
 # high-CoV renewable-heavy grids (South Australia) down to flat
@@ -83,16 +85,21 @@ def synthesize_trace(
 class CarbonService(ForecastFeatureMixin):
     """Day-ahead-capable CI service over a fixed hourly trace.
 
-    ``model`` is the pluggable forecast model (``core/forecast.py``);
-    ``None`` resolves to :class:`PerfectForecast`.  The JAX package's
-    deprecated ``forecast_noise`` knob is not ported: pass
-    ``model=StaticNoiseForecast(sigma, seed)`` for its semantics, or
-    ``model=NoisyForecast(...)`` for lead-time-aware error.  ``outage``
-    injects stale/gap windows into the feed the policy stack reads
-    (``degraded()``); accounting keeps reading the true trace."""
+    The fields are the JAX package's, in its order, with its defaults, so a
+    positional call means the same in both.  ``model`` is the pluggable
+    forecast model (``core/forecast.py``); ``None`` resolves to
+    :class:`PerfectForecast`.  ``forecast_noise`` is the deprecated static
+    noise knob: it still works (as a :class:`StaticNoiseForecast` shim of
+    ``sigma=forecast_noise, seed=seed``, the reference's outputs bit for
+    bit) but warns; pass ``model=NoisyForecast(...)`` for lead-time-aware
+    error.  ``outage`` injects stale/gap windows into the feed the policy
+    stack reads (``degraded()``); accounting keeps reading the true
+    trace."""
 
     trace: np.ndarray
+    forecast_noise: float = 0.0
     horizon: int = 24
+    seed: int = 0
     model: ForecastModel | None = None
     # Feed-outage injection (core/faults.py): stale/gap windows the policy
     # stack sees through ``degraded()``.  None = the feed is always fresh
@@ -100,12 +107,29 @@ class CarbonService(ForecastFeatureMixin):
     outage: CarbonDataOutage | None = None
 
     def __post_init__(self) -> None:
-        if self.model is None:
+        if self.forecast_noise > 0:
+            if self.model is not None:
+                raise ValueError("pass either model= or the deprecated "
+                                 "forecast_noise=, not both")
+            warnings.warn(
+                "CarbonService(forecast_noise=...) is deprecated: it draws "
+                "one static noise realization over the whole trace, so the "
+                "realized error of a future slot never shrinks as it "
+                "approaches; pass model=NoisyForecast(sigma=...) for "
+                "lead-time-aware error (or model=StaticNoiseForecast(...) "
+                "to keep the old semantics explicitly)",
+                DeprecationWarning, stacklevel=2)
+            self.model = StaticNoiseForecast(sigma=self.forecast_noise, seed=self.seed)
+            # the knob is consumed into the model; zeroed, so that
+            # dataclasses.replace(svc, ...) on a shim-built service does not
+            # trip the model-xor-knob check above
+            self.forecast_noise = 0.0
+        elif self.model is None:
             self.model = PerfectForecast()
 
     @classmethod
     def synthetic(cls, region: str, hours: int, seed: int = 0, **kw) -> "CarbonService":
-        return cls(trace=synthesize_trace(region, hours, seed=seed), **kw)
+        return cls(trace=synthesize_trace(region, hours, seed=seed), seed=seed, **kw)
 
     def __len__(self) -> int:
         return len(self.trace)

@@ -10,7 +10,9 @@
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), query head h reads KV head
 // h / (Hq / Hkv); scores q.k / sqrt(D) in fp32, masked unless
 // causal_offset + q_row >= k_row (and k_row < Sk); softmax over the keys;
-// out = acc / max(l, 1e-30) in the input dtype.
+// out = acc / max(l, 1e-30) in the input dtype.  As the TPU kernel, which
+// casts to fp32 in its body, they take any head dim (here 1 <= D <= 256)
+// and bf16, fp16 or fp32 (the wrapper runs fp64 on fp32 copies).
 //
 // The TPU kernel transposed q/k/v to (B, H, S, D), padded S to its 128-row
 // blocks and carried (m, l, acc) in scratch across a sequential KV grid
@@ -21,8 +23,9 @@
 // contribute exactly 0.  Three kernels, routed by dtype and D alone (the
 // wrapper, kernels/flash_attention.py, picks one):
 //
-//   flash_wgmma_kernel (bf16, D in {64, 112, 128}; every model config): the
-//     Hopper design.  One block owns 128 query rows of one head and runs
+//   flash_wgmma_kernel (bf16 and fp16, D a multiple of 8 in (32, 128]; every
+//     model config's 16-bit head dim but the example trainers'): the Hopper
+//     design.  One block owns 128 query rows of one head and runs
 //     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
 //     (setmaxnreg 40) and one thread issues TMA loads, 4-D tensor maps over
 //     (B, S, H, D) with 128-byte swizzle and boxes of 128 rows x 64 bf16
@@ -51,22 +54,31 @@
 //     nothing to q.k, and V's give output columns that are not stored); the
 //     softmax scale is 1/sqrt(112), and the epilogue stores 112 columns a
 //     row, so no store reaches the next head.  The products do 128/112 =
-//     1.14x the work the function needs.
-//   flash_bf16_kernel (bf16, D in {16, 32}: the small trainers of
-//     repro_torch.examples.train_carbon_aware, head dim 16 at its tiny preset
-//     and 32 at 10m): 4 warps, each owning 16 of 64 query rows, mma.sync
-//     m16n8k16; K and V tiles of 64 keys stream into two shared-memory
-//     buffers with cp.async, the next tile loading while the block computes
-//     on the current one; ldmatrix reads K's fragments and, transposing, V's.
-//     Its loops step over D in slices of 16 (Q K^T's k-steps, P V's column
-//     pairs), so D = 16 is one slice of each; the tile rows of D + 8 = 24
-//     elements (48 bytes) keep each 8 x 8 matrix's rows 16-byte aligned and
-//     in distinct banks.  It takes D in {64, 128} as well (and D = 112), for
-//     comparison with the Hopper kernel.
-//   flash_f32_kernel (fp32): 16x16 threads, each owning a 4x4 block of
-//     scores and 4 rows x D/16 columns of the output, fp32 FMA on the CUDA
-//     cores (no TF32, so the result stays within 2e-5 of the fp32
-//     reference).
+//     1.14x the work the function needs.  Every other head dim of the route
+//     runs the same way with D taken at run time (instantiations <64, 0, T>
+//     for D in (32, 64] and <128, 0, T>; bf16 at 64, 112 and 128 keep their
+//     own), fp16 through the .f16 forms of wgmma and FLOAT16 tensor maps.
+//   flash_mma_kernel<T, DP> (bf16 and fp16 at every other D: below 40, not
+//     a multiple of 8, or past 128; the small trainers of
+//     repro_torch.examples.train_carbon_aware take D 16 and 32): 4 warps,
+//     each owning 16 of 64 query rows, mma.sync m16n8k16 (.bf16 or .f16);
+//     K and V tiles of 64 keys stream into two shared-memory buffers, the
+//     next tile loading while the block computes on the current one;
+//     ldmatrix reads K's fragments and, transposing, V's.  D runs on the
+//     least padded width DP of 16, 32, 64, 128, 256 that holds it, tile
+//     columns D..DP-1 zero; its loops step over DP in slices of 16.  Where D
+//     and the strides are multiples of 8 elements the tiles come by 16-byte
+//     cp.async (zero-filled past D), else element by element.  Tile rows of
+//     DP + 8 elements keep each 8 x 8 matrix's rows 16-byte aligned and in
+//     distinct banks.  At DP 256, Q's fragments (64 registers) beside the
+//     128-float output would pass 255 registers a thread, so Q stays in
+//     shared memory (169 KB in all) and is read at each product.  It takes
+//     D in {64, 112, 128} as well, for comparison with the Hopper kernel.
+//   flash_f32_kernel<DP> (fp32, every D, on the same padded widths): 16x16
+//     threads, each owning a 4x4 block of scores and 4 rows x DP/16 columns
+//     of the output, fp32 FMA on the CUDA cores (no TF32, so the result
+//     stays within 2e-5 of the fp32 reference); element loads, so any
+//     stride; 214 KB of shared memory at DP 256.
 //
 // What bounds it on an H100: at the prefill shape of llama3-8b (B=4,
 // S=2048, Hq=32, Hkv=8, D=128) one call does 4*B*Hq*D*(S(S+1)/2) = 137 GFLOP
@@ -78,7 +90,9 @@
 // Hopper kernel the K/V tiles still cross from L2 once per 128 query rows
 // (1.1 GB per prefill call), and the softmax is not overlapped with the
 // same consumer's products: each consumer runs S, softmax and P V in
-// series, and only the other consumer's products fill the gap.  Issuing
+// series, and only the other consumer's products fill the gap.  At D 256
+// the mma.sync kernel reached 10 % of the bound on an H100 80GB HBM3 at
+// 700 W (1.33 ms at B 4, S 2048, Hq 16, Hkv 8; SDPA 0.25 ms).  Issuing
 // tile j's S product before tile j-1's P V product (FlashAttention-3's
 // intra-warpgroup overlap) keeps S, O and P live at once, and ptxas then
 // spills P and serialises every wgmma, which made it slower.
@@ -115,18 +129,28 @@ __device__ __forceinline__ int kv_tiles(int q0, int sq, int sk, int offset) {
   return static_cast<int>((visible + KEYS - 1) / KEYS);
 }
 
-// --- bf16: mma.sync on the tensor cores --------------------------------------
+// --- bf16 and fp16: mma.sync on the tensor cores ---------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a b on one m16n8k16 tile, T bf16 or fp16, fp32 accumulation.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (is_f16<T>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -147,7 +171,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// Four 8x8 16-bit matrices from shared memory, lanes 8i..8i+7 giving the row
 // addresses of matrix i; plain: lane 4g + t gets row g, columns 2t, 2t + 1
 // of each; .trans: rows 2t, 2t + 1 of column g.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -164,9 +188,49 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
-template <int D>
-constexpr size_t bf16_smem_bytes() {         // K and V, two buffers each
-  return sizeof(__nv_bfloat16) * 4 * BK * (D + 8);
+// The padded widths of the mma.sync and fp32 kernels: a head dim d runs on
+// the least DP >= d (a multiple of 16), its columns d..DP-1 loaded as zeros.
+__host__ __device__ constexpr int padded_dim(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// At DP <= 128 Q lives in registers as A fragments (DP/16 x 4 a thread); at
+// DP 256 that and the 128-float output would pass the 255 registers a
+// thread may hold, so Q stays in shared memory and its fragments are read
+// from there at each product.
+template <int DP>
+__host__ __device__ constexpr bool q_in_registers() {
+  return DP <= 128;
+}
+
+template <int DP>
+constexpr size_t mma_smem_bytes() {          // K and V, two buffers each (and Q at DP 256)
+  return sizeof(uint16_t) * (4 + (q_in_registers<DP>() ? 0 : 1)) * BK * (DP + 8);
+}
+
+// Rows [r0, r0 + rows) of one head (row stride `rs` elements) into a tile
+// of rows x DP with row stride DP + 8, zero past `valid` rows and past
+// column d.  `vec`: d and every stride multiples of 8 elements and the base
+// 16-byte aligned, so 16-byte cp.async copies (zero-filled past d in whole
+// chunks, asynchronous: the caller commits and waits); else 2-byte loads
+// through registers, stored at once.
+template <typename T, int DP>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int rows, int valid,
+                                          long long rs, int d, bool vec) {
+  constexpr int KS = DP + 8;
+  if (vec) {
+    constexpr int DV = DP / 8;
+    for (int e = threadIdx.x; e < rows * DV; e += blockDim.x) {
+      const int r = e / DV, c = (e % DV) * 8;
+      const bool in = r0 + r < valid && c < d;
+      cp_async16(dst + r * KS + c, src + (in ? (r0 + r) * rs + c : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += blockDim.x) {
+      const int r = e / DP, c = e % DP;
+      dst[r * KS + c] = r0 + r < valid && c < d ? src[(r0 + r) * rs + c] : from_f<T>(0.f);
+    }
+  }
 }
 
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A holds rows g and g + 8,
@@ -174,68 +238,58 @@ constexpr size_t bf16_smem_bytes() {         // K and V, two buffers each
 // 2t + 8, 2t + 9 of column g; C holds rows g (c0, c1) and g + 8 (c2, c3),
 // columns 2t, 2t + 1.  K and V tiles are both stored row-major (key, d):
 // plain ldmatrix gives K's B fragments for S = Q K^T, .trans gives V's for
-// O = P V.  Tile rows are padded to D + 8 elements, so the eight 16-byte
-// rows of each 8x8 matrix fall in distinct banks.
-template <int D>
+// O = P V.  Tile rows are padded to DP + 8 elements, so the eight 16-byte
+// rows of each 8x8 matrix fall in distinct banks.  T is bf16 or fp16; the
+// head dim d <= DP, columns d..DP-1 of every tile zero (they add nothing to
+// q.k, and give output columns that are not stored).
+template <typename T, int DP>
 __global__ void __launch_bounds__(128)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                  int sq, int sk, int hq, int group, int offset, Strides qs, Strides ks,
-                  Strides vs, float scale) {
-  constexpr int KS = D + 8;        // row stride of every tile, in elements
-  constexpr int VEC = 8;           // bf16 per 16-byte copy
-  constexpr int DV = D / VEC;
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, int sq, int sk, int hq, int group, int offset, int d,
+                 bool vec, Strides qs, Strides ks, Strides vs, float scale) {
+  constexpr int KS = DP + 8;       // row stride of every tile, in elements
+  constexpr bool QREG = q_in_registers<DP>();
   extern __shared__ __align__(16) unsigned char flash_smem[];
-  __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(flash_smem);  // 2 x BK x KS
-  __nv_bfloat16* vbuf = kbuf + 2 * BK * KS;                            // 2 x BK x KS
+  T* kbuf = reinterpret_cast<T*>(flash_smem);     // 2 x BK x KS
+  T* vbuf = kbuf + 2 * BK * KS;                   // 2 x BK x KS
+  T* qbuf = QREG ? kbuf : vbuf + 2 * BK * KS;     // BQ x KS
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + (h / group) * ks.h;
+  const T* vb = v + b * vs.b + (h / group) * vs.h;
 
-  // Q tile -> shared memory (rows past Sq are zero) -> A fragments.
-  for (int e = tid; e < BQ * DV; e += blockDim.x) {
-    const int r = e / DV, c = (e % DV) * VEC;
-    const bool in = q0 + r < sq;
-    cp_async16(kbuf + r * KS + c, qb + (in ? q0 + r : 0) * qs.s + c, in);
-  }
+  // Q tile -> shared memory (rows past Sq and columns past d are zero) ->
+  // A fragments, or (DP 256) kept there.
+  load_rows<T, DP>(qbuf, qb, q0, BQ, sq, qs.s, d, vec);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* base = kbuf + (warp * 16 + g) * KS + 2 * t;
+  const T* qrow = qbuf + (warp * 16 + g) * KS + 2 * t;
+  uint32_t qa[QREG ? DP / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = ld32(base + kk * 16);
-      qa[kk][1] = ld32(base + 8 * KS + kk * 16);
-      qa[kk][2] = ld32(base + kk * 16 + 8);
-      qa[kk][3] = ld32(base + 8 * KS + kk * 16 + 8);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      qa[kk][0] = ld32(qrow + kk * 16);
+      qa[kk][1] = ld32(qrow + 8 * KS + kk * 16);
+      qa[kk][2] = ld32(qrow + kk * 16 + 8);
+      qa[kk][3] = ld32(qrow + 8 * KS + kk * 16 + 8);
     }
+    __syncthreads();               // Q is in registers; its buffer is free
   }
-  __syncthreads();                 // Q is in registers; its buffer is free
 
   // Rows [64 tile, 64 tile + 64) of K and V into buffer `buf`, zero past Sk.
   auto load_tile = [&](int tile, int buf) {
-    const int k0 = tile * BK;
-    __nv_bfloat16* kd = kbuf + buf * BK * KS;
-    __nv_bfloat16* vd = vbuf + buf * BK * KS;
-    for (int e = tid; e < BK * DV; e += blockDim.x) {
-      const int r = e / DV, c = (e % DV) * VEC;
-      const bool in = k0 + r < sk;
-      const long long row = in ? k0 + r : 0;
-      cp_async16(kd + r * KS + c, kb + row * ks.s + c, in);
-      cp_async16(vd + r * KS + c, vb + row * vs.s + c, in);
-    }
+    load_rows<T, DP>(kbuf + buf * BK * KS, kb, tile * BK, BK, sk, ks.s, d, vec);
+    load_rows<T, DP>(vbuf + buf * BK * KS, vb, tile * BK, BK, sk, vs.s, d, vec);
     cp_async_commit();
   };
 
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   const int row = q0 + warp * 16 + g;                  // rows row and row + 8
   const long long qpos = static_cast<long long>(offset) + row;
@@ -256,21 +310,31 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* kt = kbuf + buf * BK * KS;
-    const __nv_bfloat16* vt = vbuf + buf * BK * KS;
+    const T* kt = kbuf + buf * BK * KS;
+    const T* vt = vbuf + buf * BK * KS;
 
     // S = Q K^T for this warp's 16 rows x 64 keys.
     float s[BK / 8][4];
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+      } else {
+        a[0] = ld32(qrow + kk * 16);
+        a[1] = ld32(qrow + 8 * KS + kk * 16);
+        a[2] = ld32(qrow + kk * 16 + 8);
+        a[3] = ld32(qrow + 8 * KS + kk * 16 + 8);
+      }
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, kt + (np * 16 + k_row) * KS + kk * 16 + k_col);
-        mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
+        mma_16816<T>(s[2 * np], a, kf[0], kf[1]);
+        mma_16816<T>(s[2 * np + 1], a, kf[2], kf[3]);
       }
     }
 
@@ -308,7 +372,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       }
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -318,16 +382,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     // O += P V: two adjacent C fragments of S are one A fragment of P.
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, vt + (kk * 16 + v_row) * KS + dp * 16 + v_col);
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+        mma_16816<T>(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_16816<T>(acc[2 * dp + 1], pa, vf[2], vf[3]);
       }
     }
     __syncthreads();               // every warp is done with this buffer
@@ -340,11 +404,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     const int orow = row + 8 * r;
     if (orow < sq) {
       const float den = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * D + 2 * t;
+      T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * d;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      for (int n = 0; n < DP / 8; ++n)
+        if (8 * n < d)
+          store2<T>(op, 8 * n + 2 * t, d, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
     }
   }
 }
@@ -353,23 +417,25 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 constexpr int F32_THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
 
-template <int D>
+template <int DP>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
+  return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DP + 1) + BQ * (BK + 1));
 }
 
 // Thread (ty, tx) owns score rows ty + 16i and keys tx + 16j (i, j < 4), and
-// output rows ty + 16i, columns tx + 16j (j < D/16).  Tiles are stored with
+// output rows ty + 16i, columns tx + 16j (j < DP/16).  Tiles are stored with
 // odd row strides, so the column reads of 16 lanes hit 16 distinct banks.
-template <int D>
+// The head dim d <= DP: tile columns d..DP-1 are zeros, and the loads read
+// one element each, so no stride or start need be aligned.
+template <int DP>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-                 int hq, int group, int offset, Strides qs, Strides ks, Strides vs,
+                 int hq, int group, int offset, int d, Strides qs, Strides ks, Strides vs,
                  float scale) {
-  constexpr int DS = D + 1;
+  constexpr int DS = DP + 1;
   constexpr int PS = BK + 1;
-  constexpr int DJ = D / 16;
+  constexpr int DJ = DP / 16;
   extern __shared__ float smem[];
   float* qt = smem;                // BQ x DS
   float* kt = qt + BQ * DS;        // BK x DS
@@ -382,9 +448,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + (h / group) * ks.h;
   const float* vb = v + b * vs.b + (h / group) * vs.h;
 
-  for (int e = tid; e < BQ * D; e += F32_THREADS) {
-    const int r = e / D, c = e % D;
-    qt[r * DS + c] = q0 + r < sq ? qb[(q0 + r) * qs.s + c] : 0.f;
+  for (int e = tid; e < BQ * DP; e += F32_THREADS) {
+    const int r = e / DP, c = e % DP;
+    qt[r * DS + c] = q0 + r < sq && c < d ? qb[(q0 + r) * qs.s + c] : 0.f;
   }
 
   float acc[4][DJ];
@@ -398,9 +464,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();               // the last tile is consumed (and Q is staged)
-    for (int e = tid; e < BK * D; e += F32_THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < sk;
+    for (int e = tid; e < BK * DP; e += F32_THREADS) {
+      const int r = e / DP, c = e % DP;
+      const bool in = k0 + r < sk && c < d;
       kt[r * DS + c] = in ? kb[(k0 + r) * ks.s + c] : 0.f;
       vt[r * DS + c] = in ? vb[(k0 + r) * vs.s + c] : 0.f;
     }
@@ -412,7 +478,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < d; ++c) {
       float a[4], bk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qt[(ty + 16 * i) * DS + c];
@@ -474,38 +540,50 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int orow = q0 + ty + 16 * i;
     if (orow < sq) {
       const float den = fmaxf(l[i], 1e-30f);
-      float* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * D;
+      float* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * d;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) op[tx + 16 * j] = acc[i][j] / den;
+      for (int j = 0; j < DJ; ++j)
+        if (tx + 16 * j < d) op[tx + 16 * j] = acc[i][j] / den;
     }
   }
 }
 
-template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int hq, int hkv, int offset, Strides qs,
+template <typename T, int DP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, dim3 grid, int sq,
+                       int sk, int hq, int group, int offset, int d, bool vec, Strides qs,
+                       Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_mma_kernel<T, DP><<<grid, 128, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), sq, sk, hq, group, offset, d, vec, qs, ks, vs, scale);
+  return cudaGetLastError();
+}
+
+// The mma.sync kernel (dtype 1 bf16, 2 fp16) or the fp32 kernel (dtype 0)
+// on tiles DP wide for head dim d <= DP.
+template <int DP>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int b,
+                   int sq, int sk, int hq, int hkv, int d, int offset, bool vec, Strides qs,
                    Strides ks, Strides vs, cudaStream_t stream) {
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
   const int group = hq / hkv;
-  if (dtype == 1) {
-    const size_t smem = bf16_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_bf16_kernel<D><<<grid, 128, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, hq,
-        group, offset, qs, ks, vs, scale);
-    return cudaGetLastError();
-  }
-  const size_t smem = f32_smem_bytes<D>();
+  if (dtype == 1)
+    return launch_mma<__nv_bfloat16, DP>(q, k, v, o, grid, sq, sk, hq, group, offset, d, vec,
+                                         qs, ks, vs, scale, stream);
+  if (dtype == 2)
+    return launch_mma<__half, DP>(q, k, v, o, grid, sq, sk, hq, group, offset, d, vec, qs, ks,
+                                  vs, scale, stream);
+  const size_t smem = f32_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+  flash_f32_kernel<DP><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq, group, offset, qs,
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq, group, offset, d, qs,
       ks, vs, scale);
   return cudaGetLastError();
 }
@@ -538,28 +616,29 @@ struct Layout {
 // S = Q K^T (issued, not waited for): D/16 steps of 16 along D, each 32
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
 // swizzle); 8-row groups 1024 bytes apart (the SBO).
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k) {
-  wgmma_ss_n128_first(s, sw128_desc(q, 16, GROUP_BYTES), sw128_desc(k, 16, GROUP_BYTES));
+  wgmma_ss_n128_first<T>(s, sw128_desc(q, 16, GROUP_BYTES), sw128_desc(k, 16, GROUP_BYTES));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(q + off, 16, GROUP_BYTES), sw128_desc(k + off, 16, GROUP_BYTES));
+    wgmma_ss_n128<T>(s, sw128_desc(q + off, 16, GROUP_BYTES),
+                     sw128_desc(k + off, 16, GROUP_BYTES));
   }
   wgmma_commit();
 }
 
 // O += P V (issued, not waited for): 8 steps of 16 keys, each 16 rows (2048
 // bytes) into V's boxes; N = D spans D/64 boxes, BOX_BYTES apart (the LBO).
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[32], uint32_t v) {
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
     const uint64_t vd = sw128_desc(v + kk * 16 * ROW_BYTES, BOX_BYTES, GROUP_BYTES);
     if constexpr (D == 128)
-      wgmma_rs_n128(acc, p + 4 * kk, vd);
+      wgmma_rs_n128<T>(acc, p + 4 * kk, vd);
     else
-      wgmma_rs_n64(acc, p + 4 * kk, vd);
+      wgmma_rs_n64<T>(acc, p + 4 * kk, vd);
   }
   wgmma_commit();
 }
@@ -603,16 +682,18 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l
 // four pairs, (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8), which are
 // elements 8kk + 0..7 of the accumulator of S for key slice kk.  D is the
 // tiles' width, DO <= D the head dim: the output's row length and the
-// columns stored.  With `lse` each row's log-sum-exp of its scaled scores,
-// m * scale + ln(l), goes to lse (B, Hq, Sq) in fp32 for the backward;
-// nullptr stores nothing, and the output is the same either way.
-template <int D, int DO = D>
+// columns stored; DO = 0 takes the head dim from `dh` at run time (a
+// multiple of 8 in (D - 64, D]).  T is bf16 or fp16.  With `lse` each row's
+// log-sum-exp of its scaled scores, m * scale + ln(l), goes to lse (B, Hq,
+// Sq) in fp32 for the backward; nullptr stores nothing, and the output is
+// the same either way.
+template <int D, int DO = D, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                   const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                    float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
-                   float scale_log2) {
+                   int dh, float scale_log2) {
   using L = Layout<D>;
   constexpr int S = L::STAGES;
   extern __shared__ unsigned char hopper_smem[];
@@ -690,7 +771,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(k_full(st), parity);
       bar_sync_consumers(1 + c);
       wgmma_fence();
-      qk<D>(s, qa, base + L::K + st * L::TILE);
+      qk<D, T>(s, qa, base + L::K + st * L::TILE);
       if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
       wgmma_wait<0>();
       pin(s);
@@ -698,12 +779,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < 32; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
       mbar_wait(v_full(st), parity);
       pin(acc);
       pin(p);
       wgmma_fence();
-      pv<D>(acc, p, base + L::V + st * L::TILE);
+      pv<D, T>(acc, p, base + L::V + st * L::TILE);
       wgmma_wait<0>();
       pin(acc);
       pin(p);
@@ -717,11 +798,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const int orow = row + 8 * r;
       if (orow < sq) {
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * DO + 2 * t;
+        const int dcols = DO > 0 ? DO : dh;
+        T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
 #pragma unroll
-        for (int n = 0; n < DO / 8; ++n)    // columns 8n + 2t, +1 < DO
-          *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
-              __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+        for (int n = 0; n < D / 8; ++n)     // columns 8n + 2t, +1 < the head dim
+          if (8 * n < dcols)
+            *reinterpret_cast<uint32_t*>(op + n * 8) =
+                pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
         // m is the row's max of the unscaled scores and l its sum of
         // 2^((s - m) * scale_log2) = e^((s - m) * scale), so the natural
         // LSE of s * scale is (m * scale_log2 + log2(l)) * ln 2.
@@ -733,26 +816,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D = 128).
-template <int D, int DO = D>
+// The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D =
+// 128; DO = 0: the head dim dh, a multiple of 8 in (D - 64, D]), T bf16 or
+// fp16.
+template <int D, int DO = D, typename T = __nv_bfloat16>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
-                   int hkv, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
-  static_assert(DO <= D && DO % 16 == 0 && D - DO < BOX, "DO: the head dim in D's last box");
+                   int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
+  static_assert(DO == 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
+                "DO: the head dim in D's last box");
+  if (DO > 0 ? dh != DO : (dh % 8 != 0 || dh > D || D - dh >= BOX))
+    return cudaErrorInvalidValue;
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
   // setmaxnreg only moves registers between the warpgroups: the launch
   // must hold what the consumers ask for, or their setmaxnreg would wait.
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T>);
   if (err != cudaSuccess) return err;
   if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 256)
     return cudaErrorLaunchOutOfResources;
-  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO>,
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DO));
-  flash_wgmma_kernel<D, DO><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, sq, sk, hq, hq / hkv,
-      offset, scale_log2);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(dh));
+  flash_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<T*>(o), lse, sq, sk, hq, hq / hkv, offset, dh,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -762,78 +850,96 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
 
 extern "C" {
 
-// dtype 0 = float32, 1 = bfloat16.  q (b, sq, hq, d), k/v (b, sk, hkv, d)
-// with unit stride along d and the given element strides along b, s, h;
-// o (b, sq, hq, d) contiguous.  d in {16, 32, 64, 112, 128}, hq a multiple of
-// hkv, causal_offset >= 0.  The grid must be the kernels' (ceil(sq / 64), hq,
-// b), as the wrapper plans it.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b,
+// sk, hkv, d) with unit stride along d and the given element strides along
+// b, s, h; o (b, sq, hq, d) contiguous.  1 <= d <= 256, on the least padded
+// width of 16, 32, 64, 128, 256 that holds it; hq a multiple of hkv,
+// causal_offset >= 0.  The grid must be the kernels' (ceil(sq / 64), hq, b),
+// as the wrapper plans it.  The 16-bit kernels copy 16 bytes at a time where
+// d, the strides and the starts allow it, else element by element.
 int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
                   long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                   long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                   long long v_sh, int grid_x, int grid_y, int grid_z, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
-      b > 65535 || hq > 65535 || (dtype != 0 && dtype != 1) ||
+      b > 65535 || hq > 65535 || dtype < 0 || dtype > 2 || d < 1 || d > 256 ||
       grid_x != (sq + BQ - 1) / BQ || grid_y != hq || grid_z != b)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
+  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  bool vec = d % 8 == 0;
+  for (long long st : strides) vec = vec && st % 8 == 0;
+  for (const void* ptr : {q, k, v}) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  switch (padded_dim(d)) {
     case 16:
-      return static_cast<int>(launch<16>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
-                                         causal_offset, qs, ks, vs, s));
+      return static_cast<int>(launch<16>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+                                         causal_offset, vec, qs, ks, vs, s));
     case 32:
-      return static_cast<int>(launch<32>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
-                                         causal_offset, qs, ks, vs, s));
+      return static_cast<int>(launch<32>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+                                         causal_offset, vec, qs, ks, vs, s));
     case 64:
-      return static_cast<int>(launch<64>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
-                                         causal_offset, qs, ks, vs, s));
-    case 112:
-      return static_cast<int>(launch<112>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
-                                          causal_offset, qs, ks, vs, s));
+      return static_cast<int>(launch<64>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+                                         causal_offset, vec, qs, ks, vs, s));
     case 128:
-      return static_cast<int>(launch<128>(dtype, q, k, v, o, b, sq, sk, hq, hkv,
-                                          causal_offset, qs, ks, vs, s));
+      return static_cast<int>(launch<128>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+                                          causal_offset, vec, qs, ks, vs, s));
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch<256>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+                                          causal_offset, vec, qs, ks, vs, s));
   }
 }
 
-// bf16 q (b, sq, hq, d), k/v (b, sk, hkv, d), d in {64, 112, 128}, through
-// the Hopper kernel (d = 112 on the d = 128 tiles); o (b, sq, hq, d)
-// contiguous; lse, when not null, (b, hq, sq) float32: each row's
-// log-sum-exp for the backward.  `maps` holds, for q, k and v in turn,
-// eleven numbers: the tensor map's dims (d, h, s, b), its byte strides
-// along h, s and b, and its box (64, 1, 128, 1).  The grid is (hq, b,
-// ceil(sq / 128)); `smem` the kernel's dynamic shared memory.
-int gqa_flash_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                    int sq, int sk, int hq, int hkv, int d, int causal_offset,
-                    const unsigned long long* maps, int grid_x, int grid_y, int grid_z,
-                    long long smem, void* stream) {
+// dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),
+// d a multiple of 8 in (32, 128], through the Hopper kernel: bf16 at d 64,
+// 112 and 128 on instantiations of their own (d = 112 on the d = 128
+// tiles), every other d on the 64-wide (d <= 64) or 128-wide tiles with
+// the head dim taken at run time; o (b, sq, hq, d) contiguous; lse, when not
+// null, (b, hq, sq) float32: each row's log-sum-exp for the backward.
+// `maps` holds, for q, k and v in turn, eleven numbers: the tensor map's
+// dims (d, h, s, b), its byte strides along h, s and b, and its box (64,
+// 1, 128, 1).  The grid is (hq, b, ceil(sq / 128)); `smem` the kernel's
+// dynamic shared memory.
+int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void* o,
+                    float* lse, int b, int sq, int sk, int hq, int hkv, int d,
+                    int causal_offset, const unsigned long long* maps, int grid_x, int grid_y,
+                    int grid_z, long long smem, void* stream) {
   using hopper::ROWS;
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
-      grid_z > 65535)
+      grid_z > 65535 || (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
-  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, ROWS);
+  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, ROWS, dtype == 2);
   if (err != 0) return err;
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  if (dtype == 2)
+    return static_cast<int>(d <= 64 ? hopper::launch<64, 0, __half>(tm, o, lse, sq, sk, hq, hkv,
+                                                                      d, causal_offset, grid,
+                                                                      sm, s)
+                                    : hopper::launch<128, 0, __half>(tm, o, lse, sq, sk, hq,
+                                                                       hkv, d, causal_offset,
+                                                                       grid, sm, s));
   switch (d) {
     case 64:
-      return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, causal_offset,
-                                                 grid, static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
+                                                 grid, sm, s));
     case 112:
-      return static_cast<int>(hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv,
-                                                       causal_offset, grid,
-                                                       static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                       causal_offset, grid, sm, s));
     case 128:
-      return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, causal_offset,
-                                                  grid, static_cast<size_t>(smem), s));
+      return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
+                                                  grid, sm, s));
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(
+          d <= 64 ? hopper::launch<64, 0>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset, grid,
+                                          sm, s)
+                  : hopper::launch<128, 0>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset, grid,
+                                           sm, s));
   }
 }
 

@@ -7,19 +7,27 @@ PyTorch version (the counterpart of ``src/repro/kernels/flash_attention.py``
 h // (Hq // Hkv), and returns (B, Sq, Hq, D) in q's dtype: softmax of
 q.k / sqrt(D), masked to ``causal_offset + q_row >= k_row``, times v, in
 fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
-launches a kernel of ``csrc/flash_attention.cu`` (float32 or bfloat16,
-D in {16, 32, 64, 112, 128}, unit stride along D) or raises.  ``route`` picks
-the kernel from the dtype and D alone (``ROUTES``): bf16 at D in {64, 112,
-128} goes to the Hopper kernel (wgmma fed by TMA; llama3-8b and the MoE
-configs take 64 or 128, zamba2-7b's shared attention 112, which runs on
-the D = 128 instantiation over tiles whose columns 112..127 TMA fills with
-zeros, storing 112 columns), bf16 at D in {16, 32} to the ``mma.sync``
-kernel (the example trainers' heads: ``repro_torch.examples.
-train_carbon_aware``'s tiny preset has D 16), fp32 to the fp32 kernel.
-``plan`` does the shape and stride arithmetic of a launch (the route, the
-grid, and the Hopper kernel's tensor maps and shared memory) and runs on any
-tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to the
-count of its route.
+launches a kernel of ``csrc/flash_attention.cu`` (float16, bfloat16, float32
+or float64 at any head dim 1 <= D <= 256, as the reference's Pallas kernel
+takes any) or raises.  ``route`` picks the kernel from the dtype and D alone:
+bf16 and fp16 at a D that is a multiple of 8 in (32, 128] go to the Hopper
+kernel (wgmma fed by TMA over tiles 64 columns wide for D <= 64, else 128,
+whose columns past D TMA fills with zeros, storing D columns; bf16 at D 64,
+112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own: llama3-8b
+and the MoE configs take 64 or 128, zamba2-7b's shared attention 112), bf16
+and fp16 at every other D to the ``mma.sync`` kernel (the example trainers'
+heads: ``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16),
+fp32 to the fp32 kernel, and fp64 to the fp32 kernel on fp32 copies, the
+output cast back, as the reference's kernel body computes in fp32.  The
+mma.sync and fp32 kernels run on the least padded width of 16, 32, 64, 128,
+256 that holds D (``padded_dim``), their loads zero past D.  An input whose
+layout the route cannot read (a stride along D other than 1; for the Hopper
+kernel also other strides or a start off 16 bytes) is copied to a
+contiguous tensor first, and each such copy adds one to
+``launches["layout_copy"]``.  ``plan`` does the shape and stride arithmetic
+of a launch (the route, the grid, and the Hopper kernel's tensor maps and
+shared memory) and runs on any tensors.  Each launch adds one to
+``launches["gqa_flash"]`` and one to the count of its route.
 
 The gradient: when grad mode is on and q, k or v requires grad,
 ``gqa_flash`` runs through ``FlashAttention`` (a ``torch.autograd.Function``)
@@ -28,14 +36,16 @@ log-sum-exp that the forward kernel wrote beside it.  Its backward is
 ``gqa_flash_bwd``: on CPU tensors ``gqa_flash_bwd_plain``, the explicit
 fp32 gradient of ``gqa_flash_plain``; on CUDA tensors the kernels of
 ``csrc/flash_attention_bwd.cu`` on the route ``bwd_route`` picks from the
-dtype and D alone (``BWD_ROUTES``): "wgmma" for bf16 at D in {64, 112, 128}
-(two Hopper kernels, dQ then dK/dV, reading the forward's LSE; their plain
-version is ``gqa_flash_bwd_lse_plain``), "fma" for fp32 and bf16 D in {16,
-32} (three fp32 FMA kernels: row statistics, dK/dV, dQ), planned by
-``plan_bwd``.  Each backward adds one to ``launches["gqa_flash_bwd"]`` and
-one to each of its kernels' counts.  Under ``no_grad``, or on tensors that
-need no grad, ``gqa_flash`` is the serving path above, unchanged: it asks
-for no LSE, and the output's bits do not depend on it.
+dtype and D alone: "wgmma" where the forward's route is "wgmma" (two Hopper
+kernels, dQ then dK/dV, on the forward's tiles, reading the forward's LSE;
+their plain version is ``gqa_flash_bwd_lse_plain``), "fma" everywhere else
+(three fp32 FMA kernels: row statistics, dK/dV, dQ, on the forward's padded
+widths, with tiles of 32 rows at width 256; fp64 on fp32 copies, the
+gradients cast back), planned by ``plan_bwd``.  Each backward adds one to
+``launches["gqa_flash_bwd"]`` and one to each of its kernels' counts.  Under
+``no_grad``, or on tensors that need no grad, ``gqa_flash`` is the serving
+path above, unchanged: it asks for no LSE, and the output's bits do not
+depend on it.
 
 On ``meta`` tensors (the dry-run's op counting, ``launch/dryrun.py``) the
 forward and the backward return their outputs' shapes and dtypes, launch
@@ -56,35 +66,42 @@ from ._build import build_library
 #: "gqa_flash", and each under its route.
 launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
             "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
+            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "layout_copy": 0}
 
+#: The head dims of the pinned routes (``ROUTES``).
 HEAD_DIMS = (16, 32, 64, 112, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: The kernel of each (dtype, D).
+#: The largest head dim a kernel takes.
+MAX_HEAD_DIM = 256
+#: The C entry points' dtype codes; float64 runs the float32 kernels on copies.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
+_FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+#: The routes of the model configs' (dtype, D) pairs, pinned.
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
           (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 16): "mma_sync",
           (torch.bfloat16, 32): "mma_sync", (torch.float32, 16): "fp32",
           (torch.float32, 32): "fp32", (torch.float32, 64): "fp32",
           (torch.float32, 112): "fp32", (torch.float32, 128): "fp32"}
-#: Head dims of the Hopper kernel, and the width of the tiles each runs on.
+#: The bf16 head dims with a Hopper instantiation of their own, and the
+#: width of the tiles each runs on; every other D of the Hopper route runs
+#: on ``wgmma_tile_dim(D)`` with the head dim taken at run time.
 WGMMA_TILE_DIM = {64: 64, 112: 128, 128: 128}
+#: The padded widths of the mma.sync, fp32 and fma kernels.
+PADDED_DIMS = (16, 32, 64, 128, 256)
 
 # The Hopper kernel's tiling (csrc/flash_attention.cu, namespace hopper).
 WGMMA_ROWS = 128        # query rows per block
 WGMMA_KEYS = 128        # keys per tile; the K/V boxes' rows
-TMA_BOX_COLS = 64       # bf16 per 128-byte swizzled row: a box's inner extent
+TMA_BOX_COLS = 64       # 16-bit elements per 128-byte swizzled row: a box's inner extent
 # The mma.sync and fp32 kernels' tiling: query rows per block (grid
 # (ceil(Sq / 64), Hq, B)).
 FWD_ROWS = 64
 
-#: The backward's route of each (dtype, D): the Hopper kernels where the
-#: forward's route writes the LSE, the fp32 FMA kernels elsewhere.
-BWD_ROUTES = {(dtype, d): "wgmma" if ROUTES[(dtype, d)] == "wgmma" else "fma"
-              for dtype, d in ROUTES}
-
-# The fma route's tiling (csrc/flash_attention_bwd.cu).
+# The fma route's tiling (csrc/flash_attention_bwd.cu): tiles of 64 rows and
+# keys, of 32 at padded width 256 (``bwd_tile_rows``).
 BWD_ROWS = 64           # query rows per tile
 BWD_KEYS = 64           # keys per tile
+BWD_WIDE_ROWS = 32      # rows and keys per tile at padded width 256
 BWD_THREADS = 256
 #: The fma route's kernels in launch order, by their ``which`` in the C entry.
 BWD_KERNELS = ("bwd_stats", "bwd_dkdv", "bwd_dq")
@@ -140,7 +157,8 @@ def _bwd_from_p(p, qg, q, k, v, o, do, round_bf16: bool = False):
     """(dq, dk, dv) from the probabilities p (B, Hkv, G, Sq, Sk), in fp32:
     D_i = dO_i . O_i, dS = P (dO V^T - D), dq = dS K / sqrt(D),
     dk = dS^T Q / sqrt(D), dv = P^T dO; with ``round_bf16`` P and dS are
-    rounded to bf16 before the products that read them."""
+    rounded to bf16 (to fp16 for fp16 inputs, as the wgmma kernels round
+    them) before the products that read them."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -151,7 +169,8 @@ def _bwd_from_p(p, qg, q, k, v, o, do, round_bf16: bool = False):
     dvec = (dog * o.reshape(b, sq, hkv, g, d).float()).sum(-1).permute(0, 2, 3, 1)
     ds = p * (dp - dvec[..., None])
     if round_bf16:
-        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+        half = torch.float16 if q.dtype == torch.float16 else torch.bfloat16
+        p, ds = p.to(half).float(), ds.to(half).float()
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
@@ -184,7 +203,8 @@ def gqa_flash_bwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain version of the wgmma route's two kernels: P = exp(S / sqrt(D)
     - LSE) from the given LSE (B, Hq, Sq), 0 where masked, then the gradient
     as ``gqa_flash_bwd_plain``; with ``round_bf16`` P and dS are rounded to
-    bf16 where the kernels round them (P for dv, dS for dq and dk)."""
+    bf16 (fp16 for fp16 inputs) where the kernels round them (P for dv, dS
+    for dq and dk)."""
     b, sq, hq, _ = q.shape
     hkv = k.shape[2]
     s, qg = _masked_scores(q, k, causal_offset)
@@ -203,7 +223,7 @@ def build() -> str:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gqa_flash_fwd.argtypes = [i, p, p, p, p] + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
     lib.gqa_flash_fwd.restype = i
-    lib.gqa_flash_wgmma.argtypes = [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
+    lib.gqa_flash_wgmma.argtypes = [i] + [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
     _lib = lib
     return log
@@ -219,50 +239,84 @@ def build_bwd() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gqa_flash_bwd.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
     lib.gqa_flash_bwd.restype = i
-    lib.gqa_flash_bwd_wgmma.argtypes = [i] + [p] * 10 + [i] * 7 + [p] + [i] * 3 + \
+    lib.gqa_flash_bwd_wgmma.argtypes = [i, i] + [p] * 10 + [i] * 7 + [p] + [i] * 3 + \
         [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_wgmma.restype = i
     _bwd_lib = lib
     return log
 
 
+def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
+    if dtype not in _FLOATS or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"no {what} takes {dtype} at head dim {d}: dtypes "
+                         f"{list(_FLOATS)}, head dims 1..{MAX_HEAD_DIM}")
+
+
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel that ``gqa_flash`` launches for this dtype and head dim."""
-    try:
-        return ROUTES[(dtype, d)]
-    except KeyError:
-        raise ValueError(f"no kernel takes {dtype} at head dim {d}: dtypes "
-                         f"{list(_DTYPES)}, head dims {HEAD_DIMS}") from None
+    """The kernel that ``gqa_flash`` launches for this dtype and head dim:
+    "wgmma" for bf16 and fp16 at a multiple of 8 in (32, 128], "mma_sync"
+    for them at every other D, "fp32" for fp32 and fp64."""
+    _check_dtype_and_dim(dtype, d, "kernel")
+    if dtype in _HALF:
+        return "wgmma" if d % 8 == 0 and 32 < d <= 128 else "mma_sync"
+    return "fp32"
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward's route for this dtype and head dim: "wgmma" or "fma"."""
-    try:
-        return BWD_ROUTES[(dtype, d)]
-    except KeyError:
-        raise ValueError(f"no backward kernel takes {dtype} at head dim {d}: dtypes "
-                         f"{list(_DTYPES)}, head dims {HEAD_DIMS}") from None
+    """The backward's route for this dtype and head dim: "wgmma" where the
+    forward's route is (it writes the LSE the wgmma backward reads), else
+    "fma"."""
+    _check_dtype_and_dim(dtype, d, "backward kernel")
+    return "wgmma" if route(dtype, d) == "wgmma" else "fma"
+
+
+def padded_dim(d: int) -> int:
+    """The width of the tiles the mma.sync, fp32 and fma kernels run head
+    dim d on: the least of ``PADDED_DIMS`` that holds it."""
+    return next(p for p in PADDED_DIMS if d <= p)
+
+
+def wgmma_tile_dim(d: int) -> int:
+    """The width of the Hopper kernels' tiles at head dim d (a multiple of 8
+    in (32, 128]): 64 up to 64, else 128; TMA fills columns d.. with zeros."""
+    return 64 if d <= 64 else 128
 
 
 def wgmma_stages(d: int) -> int:
     """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB."""
-    return 2 if WGMMA_TILE_DIM[d] == 128 else 3
+    return 2 if wgmma_tile_dim(d) == 128 else 3
 
 
 def wgmma_smem_bytes(d: int) -> int:
     """The Hopper kernel's dynamic shared memory at head dim d: 1024 bytes
     of alignment slack, the Q tile, a ring of K and V tiles (each
-    ``WGMMA_TILE_DIM[d]`` columns wide), 8 bytes per mbarrier."""
-    tile = (WGMMA_TILE_DIM[d] // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
+    ``wgmma_tile_dim(d)`` columns wide), 8 bytes per mbarrier."""
+    tile = (wgmma_tile_dim(d) // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
     stages = wgmma_stages(d)
     return 1024 + tile * (1 + 2 * stages) + 8 * (1 + 3 * stages)
 
 
+def mma_smem_bytes(d: int) -> int:
+    """The mma.sync kernel's dynamic shared memory at head dim d: two
+    buffers each of K and V tiles of 64 keys with rows of DP + 8 16-bit
+    elements (DP = ``padded_dim(d)``), and at DP 256 the Q tile, which there
+    stays in shared memory."""
+    dp = padded_dim(d)
+    return 2 * (4 + (dp > 128)) * 64 * (dp + 8)
+
+
+def f32_smem_bytes(d: int) -> int:
+    """The fp32 kernel's: fp32 Q, K and V tiles of 64 rows with row stride
+    DP + 1, and a 64 x 65 tile of P."""
+    dp = padded_dim(d)
+    return 4 * ((FWD_ROWS + 2 * 64) * (dp + 1) + FWD_ROWS * 65)
+
+
 def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
     """The 4-D TMA map over t (B, S, H, D), innermost first: dims
-    (D, H, S, B), byte strides along H, S and B, box (64, 1, rows, 1).  At
-    D = 112 the second box of a row reaches past D: TMA fills its columns
-    112..127 with zeros."""
+    (D, H, S, B), byte strides along H, S and B, box (64, 1, rows, 1).
+    Where D is not a multiple of 64 (112, 40, 72 ...) the last box of a row
+    reaches past D: TMA fills its columns D.. with zeros."""
     b, s, h, d = t.shape
     e = t.element_size()
     return (d, h, s, b, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e,
@@ -274,18 +328,20 @@ class Plan:
     """A launch: its route, its grid ((Hq, B, query tiles of 128) for the
     Hopper kernel, (query tiles of 64, Hq, B) for the others) and, for the
     Hopper kernel, the tensor maps of q, k and v (eleven numbers each,
-    ``tensor_map``) and the dynamic shared memory."""
+    ``tensor_map``) and the dynamic shared memory (the others' is fixed by
+    the padded width: ``mma_smem_bytes``, ``f32_smem_bytes``).  float64
+    inputs are planned as the float32 copies the launch runs on."""
     route: str
     maps: tuple[int, ...] | None = None
     grid: tuple[int, int, int] | None = None
     smem: int | None = None
 
 
-def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal_offset: int) -> None:
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype} / {k.dtype} / {v.dtype}")
+    if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the CUDA kernels take float16, bfloat16, float32 or float64 "
+                        f"q/k/v of one dtype, got {q.dtype} / {k.dtype} / {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} are not (B, Sq, Hq, D), (B, Sk, Hkv, D) x2")
@@ -294,33 +350,56 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or 0 in k.shape:
         raise ValueError(f"shapes {tuple(q.shape)} and {tuple(k.shape)} do not "
                          "match: same B and D, Hq a multiple of Hkv, no empty dim")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above {MAX_HEAD_DIM}, the largest a kernel takes")
     if b > 65535 or hq > 65535:
         raise ValueError(f"B={b} and Hq={hq} must be at most 65535")
     if causal_offset < 0 or causal_offset >= 2**31 - sq:
         raise ValueError(f"causal_offset {causal_offset} outside [0, 2^31 - Sq)")
-    # 16-byte vectors (cp.async) and TMA's 16-byte strides and base.
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read t: unit stride along D, the other strides and
+    the start 16-byte aligned."""
+    align = 16 // t.element_size()
+    return t.stride(3) == 1 and not any(s % align for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def _readable(t: torch.Tensor, name: str) -> bool:
+    """Whether the kernels of route ``name`` read t as it lies."""
+    return _tma_ready(t) if name == "wgmma" else t.stride(3) == 1
+
+
+def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int,
+                  name: str) -> None:
+    """The shapes, and a layout the kernels of route ``name`` read: unit
+    stride along D; for "wgmma" (TMA) also the other strides multiples of
+    16 bytes and a 16-byte aligned start."""
+    _check_shapes(q, k, v, causal_offset)
     align = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs unit stride along D, the other strides "
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if name == "wgmma" and not _tma_ready(t):
+            raise ValueError(f"{nm} needs unit stride along D, the other strides "
                              f"multiples of {align} elements and a 16-byte aligned "
                              f"start; got strides {t.stride()}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{nm} needs unit stride along D; got strides {t.stride()}")
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
          kernel: str | None = None) -> Plan:
     """Check q/k/v's layout and plan the launch of ``kernel`` (default: the
     route of q's dtype and D)."""
-    _check_layout(q, k, v, causal_offset)
+    _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
-    ok = {"wgmma": q.dtype == torch.bfloat16 and d in WGMMA_TILE_DIM,
-          "mma_sync": q.dtype == torch.bfloat16, "fp32": q.dtype == torch.float32}
+    ok = {"wgmma": q.dtype in _HALF and d % 8 == 0 and 32 < d <= 128,
+          "mma_sync": q.dtype in _HALF,
+          "fp32": q.dtype in (torch.float32, torch.float64)}
     if not ok.get(name, False):
         raise ValueError(f"kernel {name!r} does not take {q.dtype} at head dim {d}")
+    _check_layout(q, k, v, causal_offset, name)
     b, sq, hq, _ = q.shape
     if name != "wgmma":
         return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
@@ -340,13 +419,21 @@ class BwdPlan:
     maps: tuple[int, ...] | None = None
 
 
+def bwd_tile_rows(d: int) -> int:
+    """Rows and keys of the fma kernels' tiles at head dim d: 64, or 32 at
+    padded width 256 (fp32 tiles of 64 x 257 would not fit the dK/dV
+    kernel's shared memory)."""
+    return BWD_WIDE_ROWS if padded_dim(d) > 128 else BWD_ROWS
+
+
 def bwd_smem_bytes(d: int) -> tuple[int, int, int]:
     """Dynamic shared memory of the stats, dK/dV and dQ kernels at head dim
-    d: fp32 tiles of 64 rows with row stride d + 1, score tiles 64 x 65."""
-    tile = 64 * (d + 1)
-    ps = BWD_KEYS + 1
-    return (4 * 2 * tile, 4 * (4 * tile + 2 * BWD_KEYS * ps + 2 * BWD_ROWS),
-            4 * (4 * tile + BWD_ROWS * ps))
+    d: fp32 tiles of R = ``bwd_tile_rows(d)`` rows with row stride DP + 1
+    (DP = ``padded_dim(d)``), score tiles R x (R + 1)."""
+    r, dp = bwd_tile_rows(d), padded_dim(d)
+    tile = r * (dp + 1)
+    ps = r + 1
+    return (4 * 2 * tile, 4 * (4 * tile + 2 * r * ps + 2 * r), 4 * (4 * tile + r * ps))
 
 
 def bwd_wgmma_smem_bytes(d: int) -> tuple[int, int]:
@@ -354,9 +441,9 @@ def bwd_wgmma_smem_bytes(d: int) -> tuple[int, int]:
     head dim d: 1024 bytes of alignment slack; dQ: Q and dO (128 rows) and a
     ring of K and V tiles (64 keys); dK/dV: K and V (64 keys), a ring of Q
     and dO tiles (64 rows) with each stage's 64 LSEs and D_i in fp32, and two
-    64 x 64 fp32 buffers of P^T; tiles ``WGMMA_TILE_DIM[d]`` columns wide, 8
+    64 x 64 fp32 buffers of P^T; tiles ``wgmma_tile_dim(d)`` columns wide, 8
     bytes per mbarrier."""
-    cols = WGMMA_TILE_DIM[d] * 2
+    cols = wgmma_tile_dim(d) * 2
     stages = BWD_WGMMA_STAGES
     bars = 8 * (1 + 2 * stages)
     dq = 2 * BWD_WGMMA_DQ_ROWS * cols + 2 * stages * BWD_WGMMA_DQ_KEYS * cols
@@ -368,13 +455,15 @@ def bwd_wgmma_smem_bytes(d: int) -> tuple[int, int]:
 
 def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
              do: torch.Tensor, causal_offset: int = 0, route: str | None = None) -> BwdPlan:
-    """Check the backward's inputs (the forward's dtypes and head dims; o and
-    do shaped as q, in its dtype) and plan the launches of ``route``
-    (default: ``bwd_route`` of q's dtype and D).  "fma": stats and dQ over
-    (query tiles of 64, Hq, B), dK/dV over (key tiles of 64, Hkv, B);
-    "wgmma" (bf16 at D 64, 112, 128): dQ over (Hq, B, query tiles of 128),
-    dK/dV over (Hkv, B, key tiles of 64)."""
-    _check_layout(q, k, v, causal_offset)
+    """Check the backward's inputs (the forward's dtypes and head dims, unit
+    stride along D; o and do shaped as q, in its dtype) and plan the
+    launches of ``route`` (default: ``bwd_route`` of q's dtype and D).
+    "fma": stats and dQ over (query tiles, Hq, B), dK/dV over (key tiles,
+    Hkv, B), tiles of ``bwd_tile_rows(D)``; "wgmma" (bf16 and fp16 at a
+    multiple of 8 in (32, 128]): dQ over (Hq, B, query tiles of 128), dK/dV
+    over (Hkv, B, key tiles of 64).  float64 inputs are planned as the
+    float32 copies the launch runs on."""
+    _check_shapes(q, k, v, causal_offset)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be shaped as q "
@@ -383,13 +472,16 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     sk, hkv = k.shape[1], k.shape[2]
     name = bwd_route(q.dtype, d) if route is None else route
     if name == "fma":
-        q_tiles = -(-sq // BWD_ROWS)
-        k_tiles = -(-sk // BWD_KEYS)
+        _check_layout(q, k, v, causal_offset, name)
+        r = bwd_tile_rows(d)
+        q_tiles = -(-sq // r)
+        k_tiles = -(-sk // r)
         return BwdPlan("fma", grids=((q_tiles, hq, b), (k_tiles, hkv, b), (q_tiles, hq, b)),
                        smem=bwd_smem_bytes(d))
-    if name != "wgmma" or q.dtype != torch.bfloat16 or d not in WGMMA_TILE_DIM:
+    if name != "wgmma" or q.dtype not in _HALF or d % 8 or not 32 < d <= 128:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
-    if do.stride(3) != 1 or any(st % 8 for st in do.stride()[:3]) or do.data_ptr() % 16:
+    _check_layout(q, k, v, causal_offset, name)
+    if not _tma_ready(do):
         raise ValueError(f"do needs q's layout rules for its tensor map; got strides "
                          f"{do.stride()}")
     rows = BWD_WGMMA_BOX_ROWS
@@ -452,7 +544,7 @@ def _meta_forward(q, k, v, causal_offset: int, with_lse: bool):
     from repro_torch.launch.op_analysis import record_kernel
 
     b, sq, hq, d = q.shape
-    lse = with_lse and ROUTES.get((q.dtype, d)) == "wgmma"
+    lse = with_lse and route(q.dtype, d) == "wgmma"
     record_kernel("gqa_flash", *kernel_work(q, k, causal_offset, False, lse))
     return (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device),
             torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if lse else None)
@@ -465,7 +557,7 @@ def _forward(q, k, v, causal_offset: int, with_lse: bool = False):
         return gqa_flash_plain(q, k, v, causal_offset), None
     if _on_meta(q, k, v):
         return _meta_forward(q, k, v, causal_offset, with_lse)
-    if with_lse and ROUTES.get((q.dtype, q.shape[-1])) == "wgmma":
+    if with_lse and route(q.dtype, q.shape[-1]) == "wgmma":
         return launch(q, k, v, causal_offset, with_lse=True)
     return launch(q, k, v, causal_offset), None
 
@@ -494,15 +586,33 @@ def gqa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     return launch_bwd(q, k, v, o, do, causal_offset, lse=lse)
 
 
+def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
+    """t, or a contiguous copy of it where route ``name`` cannot read its
+    layout (each copy counted under "layout_copy")."""
+    if _readable(t, name):
+        return t
+    launches["layout_copy"] += 1
+    return t.contiguous()
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
            kernel: str | None = None, with_lse: bool = False):
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
     "mma_sync" or "fp32"; default: its route), to hold one kernel against
     another at one shape.  With ``with_lse`` (the Hopper kernel only)
-    returns (output, LSE (B, Hq, Sq) fp32)."""
+    returns (output, LSE (B, Hq, Sq) fp32).  float64 runs the fp32 kernel on
+    fp32 copies, the output cast back; an input whose layout the kernel
+    cannot read is copied first (``_readable_copy``)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"q ({q.device}), k ({k.device}) and v ({v.device}) "
                          "must lie on the same CUDA device")
+    _check_shapes(q, k, v, causal_offset)
+    if q.dtype == torch.float64:
+        if with_lse:
+            raise ValueError("only the wgmma kernel writes the LSE, not fp32")
+        return launch(q.float(), k.float(), v.float(), causal_offset, kernel).double()
+    name = route(q.dtype, q.shape[3]) if kernel is None else kernel
+    q, k, v = (_readable_copy(t, name) for t in (q, k, v))
     pl = plan(q, k, v, causal_offset, kernel)
     if with_lse and pl.route != "wgmma":
         raise ValueError(f"only the wgmma kernel writes the LSE, not {pl.route}")
@@ -515,7 +625,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
     if pl.route == "wgmma":
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
         err = _lib.gqa_flash_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, d,
             int(causal_offset), maps, *pl.grid, pl.smem, stream)
     else:
@@ -539,10 +649,15 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     "wgmma" launches dQ (which writes D_i) then dK/dV and needs ``lse``, the
     forward's (B, Hq, Sq) fp32; "fma" launches the stats kernel (LSE and D_i
     into fp32 scratch), then dK/dV and dQ, and ignores ``lse``.  The inputs
-    are made contiguous."""
-    ts = [t.contiguous() for t in (q, k, v, o, do)]
-    if any(t.device.type != "cuda" or t.device != q.device for t in ts):
+    are made contiguous; float64 runs the fma kernels on fp32 copies, the
+    gradients cast back."""
+    if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must lie on the same CUDA device")
+    if q.dtype == torch.float64:
+        grads = launch_bwd(*(t.float() for t in (q, k, v, o, do)), causal_offset,
+                           route=route)
+        return tuple(g.double() for g in grads)
+    ts = [t.contiguous() for t in (q, k, v, o, do)]
     pl = plan_bwd(*ts, causal_offset, route)
     if pl.route == "wgmma":
         b, sq, hq, _ = q.shape
@@ -584,8 +699,8 @@ def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
     if pl.route == "wgmma":
         name = BWD_WGMMA_KERNELS[which]
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
-        err = _bwd_lib.gqa_flash_bwd_wgmma(which, *ptrs, b, sq, sk, hq, hkv, d,
-                                           int(causal_offset), maps, *pl.grids[which],
+        err = _bwd_lib.gqa_flash_bwd_wgmma(which, _DTYPES[q.dtype], *ptrs, b, sq, sk, hq, hkv,
+                                           d, int(causal_offset), maps, *pl.grids[which],
                                            pl.smem[which], stream)
     else:
         name = BWD_KERNELS[which]

@@ -269,6 +269,19 @@ class Sharding:
         return full[self.slices(full.shape)].clone()
 
 
+def batch_rules(rules: LogicalRules | None, tokens: torch.Tensor) -> LogicalRules | None:
+    """The rules a step on ``tokens`` runs under: ``rules``, or
+    ``rules.replicating_batch()`` where the tokens' ``.sharding`` (set by
+    ``PrefetchLoader``, ``ElasticTrainer`` and ``serve.greedy_generate``)
+    splits their batch over none of the batch axes.  Tokens without one are
+    taken as split.  The train step, the prefill and the decode step read
+    it."""
+    sh = getattr(tokens, "sharding", None)
+    if rules is None or sh is None or not rules.batch_axes or sh.dims(tokens.dim())[0]:
+        return rules
+    return rules.replicating_batch()
+
+
 # --------------------------------------------------------------------------
 # initializer
 

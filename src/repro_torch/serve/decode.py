@@ -47,7 +47,7 @@ from repro_torch import distributed as D
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention
 from repro_torch.models import api, rwkv6, transformer, zamba2
-from repro_torch.models.common import (LogicalRules, ModelConfig, chunked_attention,
+from repro_torch.models.common import (LogicalRules, ModelConfig, batch_rules, chunked_attention,
                                        rms_norm, rope)
 
 DECODE_CHUNK = 2048
@@ -230,7 +230,11 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
     forward pass over the prompt, whose per-layer K/V fill a ``max_seq``
     cache (transformer families); SSM/hybrid families replay the prompt
     through their decode step, one token at a time.  With ``rules``:
-    this rank's params, its batch slice of the prompts, its cache blocks."""
+    this rank's params, its batch slice of the prompts, its cache blocks;
+    prompts whose ``.sharding`` replicates the batch (one that does not
+    divide the batch axes) run under ``batch_rules``: every rank serves the
+    whole batch, and an MoE block routes its B rows, not the gathered
+    copies of every rank."""
     if cfg.family in ("ssm", "hybrid"):
         step = make_serve_step(cfg, rules)
 
@@ -238,9 +242,12 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
             b, s = tokens.shape
             if s < 1:
                 raise ValueError("an empty prompt has no last-position logits")
-            cache = rank_cache(cfg, tokens, max_seq, rules)
+            cache = rank_cache(cfg, tokens, max_seq, batch_rules(rules, tokens))
             for t in range(s):
-                logits, cache = step(params, cache, tokens[:, t])
+                tok = tokens[:, t]
+                if hasattr(tokens, "sharding"):
+                    tok.sharding = tokens.sharding
+                logits, cache = step(params, cache, tok)
             return logits, cache
 
         return prefill_ssm
@@ -249,11 +256,12 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
         b, s = tokens.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq {max_seq}")
-        logits, (k, v) = api.forward(params, tokens, cfg, rules=rules, return_kv=True)
-        cache = rank_cache(cfg, tokens, max_seq, rules)
-        if seq_split(cache, rules):
+        r = batch_rules(rules, tokens)
+        logits, (k, v) = api.forward(params, tokens, cfg, rules=r, return_kv=True)
+        cache = rank_cache(cfg, tokens, max_seq, r)
+        if seq_split(cache, r):
             s_loc = cache["k"].shape[2]
-            off = rules.coords["model"] * s_loc
+            off = r.coords["model"] * s_loc
             n = max(min(s - off, s_loc), 0)
             cache["k"][:, :, :n] = k[:, :, off:off + n]
             cache["v"][:, :, :n] = v[:, :, off:off + n]
@@ -262,7 +270,7 @@ def make_prefill(cfg: ModelConfig, max_seq: int, rules: LogicalRules | None = No
             cache["v"][:, :, :s] = v
         cache["length"] = s
         # a copy, so the (B, S, V) logits are freed with the prefill
-        return _whole_vocab(logits[:, -1].contiguous(), cfg, rules), cache
+        return _whole_vocab(logits[:, -1].contiguous(), cfg, r), cache
 
     return prefill
 
@@ -271,25 +279,28 @@ def make_serve_step(cfg: ModelConfig, rules: LogicalRules | None = None):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
     per sequence against the cached context (with ``rules``: this rank's
     params, cache blocks and batch slice; logits over the whole
-    vocabulary)."""
+    vocabulary).  Tokens whose ``.sharding`` replicates the batch run under
+    ``batch_rules``, as the prefill's prompts."""
     if cfg.family == "ssm":
         def step(params: dict, cache: dict, tokens: torch.Tensor):
-            logits, cache = rwkv6.decode_step(params, tokens, cache, cfg, rules)
-            return _whole_vocab(logits, cfg, rules), cache
+            r = batch_rules(rules, tokens)
+            logits, cache = rwkv6.decode_step(params, tokens, cache, cfg, r)
+            return _whole_vocab(logits, cfg, r), cache
         return step
 
     if cfg.family == "hybrid":
         def step(params: dict, cache: dict, tokens: torch.Tensor):
+            r = batch_rules(rules, tokens)
             attend = None
-            if seq_split(cache, rules):
+            if seq_split(cache, r):
                 def attend(q, kc, vc, kn, vn, length):
-                    return sharded_decode_attention(q, kc, vc, kn, vn, length, rules, True)
-            logits, cache = zamba2.decode_step(params, tokens, cache, cfg, rules, attend)
-            return _whole_vocab(logits, cfg, rules), cache
+                    return sharded_decode_attention(q, kc, vc, kn, vn, length, r, True)
+            logits, cache = zamba2.decode_step(params, tokens, cache, cfg, r, attend)
+            return _whole_vocab(logits, cfg, r), cache
         return step
 
     def step(params: dict, cache: dict, tokens: torch.Tensor):
-        return _tf_decode_step(params, tokens, cache, cfg, rules)
+        return _tf_decode_step(params, tokens, cache, cfg, batch_rules(rules, tokens))
 
     return step
 
@@ -302,7 +313,8 @@ def _sync(device: torch.device) -> None:
 def greedy_generate(params: dict, prompts: torch.Tensor, cfg: ModelConfig,
                     new_tokens: int, rules: LogicalRules | None = None) -> dict:
     """Prefill ``prompts`` (B, P), then ``new_tokens`` greedy decode steps,
-    as the reference's serving example does (with ``rules``, on its mesh).
+    as the reference's serving example does (with ``rules``, on its mesh;
+    the prompts' ``.sharding``, where set, goes with every decode token).
     Returns the prefill's last-position logits, the (B, new_tokens)
     generated ids (the argmax of the prefill logits first), the last step's
     logits, the cache, the prefill and decode wall seconds (each ended by a
@@ -318,12 +330,20 @@ def greedy_generate(params: dict, prompts: torch.Tensor, cfg: ModelConfig,
     prefill_launches = flash_attention.launches["gqa_flash"] - launched
     first = logits
     generated = []
-    tok = torch.argmax(logits, dim=-1)
+    sharding = getattr(prompts, "sharding", None)
+
+    def next_token(logits):
+        tok = torch.argmax(logits, dim=-1)
+        if sharding is not None:
+            tok.sharding = sharding       # the decode step reads the prompts' split
+        return tok
+
+    tok = next_token(logits)
     t0 = time.perf_counter()
     for _ in range(new_tokens):
         generated.append(tok)
         logits, cache = step(params, cache, tok)
-        tok = torch.argmax(logits, dim=-1)
+        tok = next_token(logits)
     _sync(prompts.device)
     decode_s = time.perf_counter() - t0
     return dict(prefill_logits=first, tokens=torch.stack(generated, dim=1),

@@ -58,7 +58,7 @@ class PrefetchLoader:
     ``train.batch_specs`` gives) placing this rank's block of each batch,
     the reference's device placement under a ``NamedSharding``; each placed
     tensor carries its ``Sharding`` as ``.sharding`` (a batch replicated over
-    the batch axes is the whole batch on every rank, ``train.step.batch_rules``)."""
+    the batch axes is the whole batch on every rank, ``models.common.batch_rules``)."""
 
     def __init__(self, source: SyntheticLM, start_step: int = 0, device="cuda",
                  model_cfg: Optional[ModelConfig] = None, sharding=None):

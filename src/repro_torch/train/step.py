@@ -38,7 +38,8 @@ import torch
 from repro_torch import distributed as D
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.models.common import LogicalRules, ModelConfig, Sharding, checkpoint
+from repro_torch.models.common import (LogicalRules, ModelConfig, Sharding, batch_rules,
+                                      checkpoint)
 
 from .optimizer import OptimizerConfig, adamw_update, init_moments, zeros_like_tree
 
@@ -254,17 +255,6 @@ def _axes(sharding: Sharding, ndim: int) -> tuple[str, ...]:
 def gather_whole(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     """A leaf's block made whole on every rank of its mesh."""
     return D.gather_leaf(t, sharding.dims(t.dim()), sharding.rules)
-
-
-def batch_rules(rules: LogicalRules | None, tokens: torch.Tensor) -> LogicalRules | None:
-    """The rules a step on ``tokens`` runs under: ``rules``, or
-    ``rules.replicating_batch()`` where the tokens' ``.sharding`` (set by
-    ``PrefetchLoader`` and ``ElasticTrainer``) splits their batch over none of
-    the batch axes.  Tokens without one are taken as split."""
-    sh = getattr(tokens, "sharding", None)
-    if rules is None or sh is None or not rules.batch_axes or sh.dims(tokens.dim())[0]:
-        return rules
-    return rules.replicating_batch()
 
 
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig = OptimizerConfig(),

@@ -15,7 +15,9 @@ within a relative L2 of 2e-5 (fp32) and 1e-2 (bf16) of the plain version:
 outputs of long causal rows are small beside the bf16 atol, and the
 relative L2 catches a kernel whose outputs are all off by a common factor.
 Each of the three flash kernels (Hopper wgmma, mma.sync, fp32) is held to
-these on the shapes its route gives it.
+these on the shapes its route gives it; fp16 (P and the output rounded to
+11 significant bits, bf16's 8) to 1e-2 elementwise and 2e-3 relative L2,
+float64 (the fp32 kernels on copies) to fp32's, at every head dim 1..256.
 DAG gating: integer counts, equal exactly.  Score matrix: one IEEE
 division per element in both versions, equal exactly.  Oracle greedy pass:
 the same float32 adds in the same order, equal bit for bit.  Capacity fill:
@@ -52,8 +54,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fill, gating, geo_walk, knn, oracle_greedy, ops, score
 
 WEEK = 24 * 7
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
-FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2, torch.float16: 1e-2,
+             torch.float64: 2e-5}
+FLASH_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3,
+             torch.float64: 2e-5}
 
 
 def _inputs(n, d, q=None, seed=0):
@@ -304,8 +308,10 @@ def cuda_flash():
 # costs, as in the forward); against the plain version that rounds where it
 # rounds, within BWD_ROUNDED_REL (only roundings that fall the other way
 # differ, by an ulp).
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, torch.float16: 2e-2,
+           torch.float64: 1e-4}
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2,
+           torch.float64: 2e-5}
 BWD_ROUNDED_REL = 1e-3
 
 
@@ -444,7 +450,8 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 1, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1}
+                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1,
+                           "layout_copy": 0}
     out, lse = fa.launch(q, k, v, with_lse=True)
     assert torch.equal(out, o.detach())
     direct = fa.launch_bwd(q, k, v, out, do, lse=lse)
@@ -453,7 +460,7 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     with torch.no_grad():
         assert fa.gqa_flash(*leaves).grad_fn is None
     with pytest.raises(TypeError):
-        fa.gqa_flash_bwd(*(t.half() for t in (q, k, v, o, do)))
+        fa.gqa_flash_bwd(*(t.int() for t in (q, k, v, o, do)))
     with pytest.raises(ValueError, match="shaped as q"):
         fa.gqa_flash_bwd(q, k, v, o[:, :-1], do[:, :-1])
 
@@ -487,7 +494,8 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
     L = cfg.num_layers
     assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
                            "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "layout_copy": 0}
     np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
     old = dict(leaves(cpu0.params))
@@ -585,7 +593,8 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
     assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": int(route == "mma_sync"),
                            "fp32": int(route == "fp32"), "gqa_flash_bwd": 1,
                            "bwd_stats": 1, "bwd_dkdv": 1, "bwd_dq": 1,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}, fa.launches
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "layout_copy": 0}, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype}")
@@ -609,7 +618,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "layout_copy": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 
@@ -675,18 +685,77 @@ def test_kernel_flash_strided_and_checks(cuda_flash):
                         fa.gqa_flash_plain(q, k, v, causal_offset=9), "strided views D=128")
     ok = q.contiguous(), k.contiguous(), v.contiguous()
     with pytest.raises(ValueError, match="head dim"):
-        x = torch.zeros((1, 4, 2, 96), device=cuda_flash)
+        x = torch.zeros((1, 4, 2, 257), device=cuda_flash)
         fa.gqa_flash(x, x, x)
     with pytest.raises(TypeError):
-        fa.gqa_flash(*(t.half() for t in ok))
+        fa.gqa_flash(*(t.int() for t in ok))
     with pytest.raises(TypeError):
         fa.gqa_flash(ok[0].float(), ok[1], ok[2])
-    with pytest.raises(ValueError, match="unit stride"):
-        fa.gqa_flash(ok[0].transpose(1, 3).contiguous().transpose(1, 3), ok[1], ok[2])
+    # a stride along D other than 1: copied, counted, not refused
+    fa.reset_launches()
+    strided = ok[0].transpose(1, 3).contiguous().transpose(1, 3)
+    _assert_flash_close(fa.gqa_flash(strided, ok[1], ok[2]),
+                        fa.gqa_flash_plain(*ok), "a D stride other than 1")
+    assert fa.launches["layout_copy"] == 1 and fa.launches["wgmma"] == 1
     with pytest.raises(ValueError, match="CUDA device"):
         fa.gqa_flash(ok[0], ok[1].cpu(), ok[2])
     with pytest.raises(ValueError, match="causal_offset"):
         fa.gqa_flash(*ok, causal_offset=-1)
+
+
+# Every float dtype at head dims off the pinned routes: each route's edges
+# (D 8, 24 and 33 on mma.sync with and without 16-byte copies; 40 and 72 on
+# the Hopper kernel's 64- and 128-wide tiles; 100 unaligned; 160 and 256 past
+# the tensor cores' 128) on a ragged GQA shape, forward and backward.
+DIMS_SHAPES = [(2, 130, 167, 4, 2, 37), (1, 1, 300, 4, 1, 299), (2, 200, 333, 8, 2, 133)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32,
+                                   torch.float64], ids=str)
+@pytest.mark.parametrize("d", [8, 24, 33, 40, 72, 100, 160, 256])
+def test_kernel_flash_every_head_dim(cuda_flash_bwd, d, dtype):
+    for b, sq, sk, hq, hkv, off in DIMS_SHAPES:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        route, broute = fa.route(dtype, d), fa.bwd_route(dtype, d)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launches()
+        out = fa.gqa_flash(*leaves, causal_offset=off)
+        out.backward(do)
+        torch.cuda.synchronize()
+        kernels = fa.BWD_WGMMA_KERNELS if broute == "wgmma" else fa.BWD_KERNELS
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 1, route: 1, "gqa_flash_bwd": 1, **dict.fromkeys(kernels, 1)}, \
+            (what, fa.launches)
+        assert out.dtype == dtype and out.shape == q.shape
+        o = out.detach()
+        _assert_flash_close(o, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
+        _assert_bwd_close([t.grad for t in leaves],
+                          fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off),
+                          what + " backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16), (40, torch.float16),
+                                     (33, torch.bfloat16), (100, torch.float32)], ids=str)
+def test_kernel_flash_layout_copies(cuda_flash, d, dtype):
+    """Views the route cannot read are copied and counted, not refused: a
+    D stride other than 1, and for the Hopper kernel a head stride off 16
+    bytes; a view it reads is not copied."""
+    base = torch.from_numpy(np.random.default_rng(d).normal(size=(2, 70, 3, 4, d + 1))
+                            .astype(np.float32)).to(cuda_flash, dtype)
+    q, k, v = base[:, :, 0, :, :d], base[:, :, 1, :2, :d], base[:, :, 2, 2:, :d]
+    want = fa.gqa_flash_plain(q, k, v, causal_offset=5)
+    fa.reset_launches()
+    _assert_flash_close(fa.gqa_flash(q, k, v, causal_offset=5), want, "odd strides")
+    copies = 3 if fa.route(dtype, d) == "wgmma" else 0    # rows (d + 1) elements apart
+    assert fa.launches["layout_copy"] == copies, fa.launches
+    flipped = [t.transpose(1, 3).contiguous().transpose(1, 3) for t in (q, k, v)]
+    fa.reset_launches()
+    _assert_flash_close(fa.gqa_flash(*flipped, causal_offset=5), want, "D stride")
+    assert fa.launches["layout_copy"] == 3 and fa.launches["gqa_flash"] == 1
 
 
 @pytest.fixture

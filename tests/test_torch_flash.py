@@ -96,9 +96,11 @@ def test_route_depends_on_dtype_and_head_dim(dtype, d, kernel):
     assert fa.plan(q, k, k, causal_offset=2).route == kernel
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96),
-                                     (torch.float32, 256)])
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 257), (torch.bfloat16, 0),
+                                     (torch.int32, 64)])
 def test_route_rejects_what_no_kernel_takes(dtype, d):
+    """Every float dtype at every head dim 1..256 has a kernel; a head dim
+    past 256, an empty one or an integer dtype has none."""
     with pytest.raises(ValueError, match="no kernel"):
         fa.route(dtype, d)
 
@@ -255,7 +257,7 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
     assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "layout_copy": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 

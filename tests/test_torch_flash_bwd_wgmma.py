@@ -104,7 +104,7 @@ def test_bwd_route_table():
         # the backward reads the LSE exactly where the forward's route writes it
         assert (fa.bwd_route(torch.bfloat16, d) == "wgmma") == \
             (fa.route(torch.bfloat16, d) == "wgmma")
-    for dtype, d in ((torch.float16, 64), (torch.bfloat16, 96)):
+    for dtype, d in ((torch.float16, 257), (torch.bfloat16, 0)):
         with pytest.raises(ValueError, match="no backward kernel"):
             fa.bwd_route(dtype, d)
 

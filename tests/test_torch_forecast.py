@@ -5,14 +5,17 @@ Every RNG stream is numpy and seeded as the reference seeds it, so each
 model's ``predict`` and ``quantile`` must equal the reference's exactly over
 seeds, query slots and horizons; the dict round trip and the sweep labels
 equal; ``CarbonService(model=...)``'s forecast features equal; the port's
-``model=StaticNoiseForecast(...)`` gives the reference's deprecated
-``forecast_noise`` shim's output.  Last, the
+``model=StaticNoiseForecast(...)`` and its ``forecast_noise`` shim give the
+reference's deprecated knob's output, and ``CarbonService``'s fields follow
+the reference's order and defaults.  Last, the
 scan engine's perfect-forecast fast path reads the service's forecast
 model: a noisy-forecast scenario under ``wait-awhile`` on the scan engine
 equals the vector engine.
 """
+import contextlib
 import dataclasses
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -136,8 +139,65 @@ def test_static_noise_model_equals_the_reference_noise_knob():
     for t in (0, 30, 110):
         np.testing.assert_array_equal(port.forecast(t), ref.forecast(t))
         assert port.rank(t) == ref.rank(t)
-    with pytest.raises(TypeError):
-        CarbonService(trace=trace, forecast_noise=0.2)
+    with pytest.warns(DeprecationWarning):
+        knob = CarbonService(trace=trace, forecast_noise=0.2, seed=9)
+    for t in (0, 30, 110):
+        np.testing.assert_array_equal(knob.forecast(t), ref.forecast(t))
+
+
+def _forecasts(svc):
+    return [svc.forecast(t) for t in (0, 17, 90)] + [svc.forecast(40, 6)]
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((), {}), ((0.0,), {}), ((0.0, 12), {}), ((0.0, 24, 4), {}),
+    ((0.25,), {}), ((0.25, 12, 4), {}), ((), {"forecast_noise": 0.1, "seed": 2}),
+    ((), {"horizon": 8, "seed": 3}), ((0.3,), {"horizon": 6, "seed": 11})], ids=str)
+def test_carbon_service_fields_follow_the_reference(args, kw):
+    """The fields in the reference's order with its defaults: the same
+    positional or keyword call builds the same service (``CarbonService(
+    trace, 24)`` is a noise sigma of 24 in both), with the deprecated
+    knob's warning, its forecasts equal bit for bit; the knob is zeroed
+    after use, so ``dataclasses.replace`` round-trips."""
+    trace = synthesize_trace("germany", 24 * 6, seed=4)
+    noisy = (args[0] if args else kw.get("forecast_noise", 0.0)) > 0
+    with pytest.warns(DeprecationWarning) if noisy else _no_warning():
+        port = CarbonService(trace, *args, **kw)
+    with pytest.warns(DeprecationWarning) if noisy else _no_warning():
+        ref = RefCarbonService(trace, *args, **kw)
+    names = [f.name for f in dataclasses.fields(RefCarbonService)]
+    assert [f.name for f in dataclasses.fields(CarbonService)] == names
+    for name in ("forecast_noise", "horizon", "seed"):
+        assert getattr(port, name) == getattr(ref, name)
+    assert type(port.model).__name__ == type(ref.model).__name__
+    for a, b in zip(_forecasts(port), _forecasts(ref)):
+        np.testing.assert_array_equal(a, b)
+    again = dataclasses.replace(port, horizon=port.horizon)
+    assert again.forecast_noise == 0.0 and again.model == port.model
+    for a, b in zip(_forecasts(again), _forecasts(ref)):
+        np.testing.assert_array_equal(a, b)
+
+
+@contextlib.contextmanager
+def _no_warning():
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        yield
+
+
+def test_carbon_service_knob_beside_a_model_raises_and_synthetic_keeps_its_seed():
+    trace = synthesize_trace("texas", 48, seed=1)
+    for cls in (CarbonService, RefCarbonService):
+        with pytest.raises(ValueError, match="not both"):
+            cls(trace, 0.2, model=fc.PerfectForecast() if cls is CarbonService
+                else ref_fc.PerfectForecast())
+    with pytest.warns(DeprecationWarning):
+        port = CarbonService.synthetic("texas", 72, seed=5, forecast_noise=0.2)
+    with pytest.warns(DeprecationWarning):
+        ref = RefCarbonService.synthetic("texas", 72, seed=5, forecast_noise=0.2)
+    assert port.seed == ref.seed == 5
+    for a, b in zip(_forecasts(port), _forecasts(ref)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("model", [fc.NoisyForecast(sigma=0.3, seed=5),

@@ -19,7 +19,12 @@
   families, each returning the rank's block of the vocabulary.  And a
   batch of one sequence on (2, 2), which does not divide the batch axes:
   the reference's spec replicates it, and so does the port's (reduced
-  llama3-8b and rwkv6-7b, prefill and four decode steps).
+  llama3-8b and rwkv6-7b, prefill and four decode steps).  And a batch
+  of three sequences through reduced qwen3-moe-235b-a22b at (2, 1), at a
+  capacity factor under which experts drop tokens: every rank serves the
+  whole batch, and its MoE routes the batch's rows, as the reference's
+  global dispatch does, not the gathered copies of both ranks (a separate
+  reference subprocess on 2 forced host devices, and 2 gloo ranks).
 - **The MoE's kept pairs, exactly.**  The reference's expert-parallel
   ``moe_block`` runs on weights that make expert e write a one-hot row e
   weighted by the token's gate (constant SwiGLU on a constant feature),
@@ -75,6 +80,11 @@ B, S, P, MAX, STEPS, DECODE, CE_CHUNK = 4, 16, 8, 16, 3, 4, 8
 # at (1, 2), the same split over ``model``
 ONE_ARCHS, ONE_MESH = ["llama3-8b", "rwkv6-7b"], (2, 2)
 ONE_REF_MESH = {"llama3-8b": (1, 2), "rwkv6-7b": (2, 2)}
+# an MoE batch that the batch axes do not divide: three sequences at (2, 1)
+# (``data`` 2), and a capacity factor at which the dispatch drops tokens,
+# so routing the 3 rows' or the gathered 6 rows' at their capacity keeps
+# different (token, expert) pairs
+MOE_ARCH, MOE_BATCH, MOE_MESH, MOE_CAPACITY = "qwen3-moe-235b-a22b", 3, (2, 1), 0.5
 # the ranks' join and the reference's wait, in seconds: the ranks alone take
 # ~65 s on an 8-core host (~2.5 ms a gloo collective, ~10k of them), and the
 # driver's parallel workers share the host
@@ -198,6 +208,88 @@ def reference_main(inputs: str, out: str, arch: str) -> None:
         res[_key("moe-probe", mesh, "y")] = np.asarray(
             fn(jnp.asarray(x), {k: jnp.asarray(v) for k, v in w.items()}))
     np.savez(out, **res)
+
+
+def _moe_cfg(pkg):
+    return dataclasses.replace(_cfg(pkg, MOE_ARCH), capacity_factor=MOE_CAPACITY)
+
+
+def moe_serve_reference(inputs: str, out: str) -> None:
+    """The reference's prefill and greedy decode of the MoE batch at
+    ``MOE_MESH`` on 2 forced host devices."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.mesh import make_mesh
+    from repro.models import LogicalRules
+    from repro.serve.decode import make_prefill, make_serve_step
+
+    data = np.load(inputs)
+    jcfg = _moe_cfg("repro")
+    params = {}
+    for key in data.files:
+        if key.startswith("params|"):
+            node = params
+            parts = key.split("|", 1)[1].split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = jnp.asarray(data[key]).astype(jcfg.param_dtype)
+    rules = LogicalRules(make_mesh(MOE_MESH, ("data", "model")))
+    logits, cache = jax.jit(make_prefill(jcfg, rules, MAX))(params, jnp.asarray(data["tokens"]))
+    serve = jax.jit(make_serve_step(jcfg, rules))
+    outs, tok, gen = [logits], jnp.argmax(logits, -1), []
+    for _ in range(DECODE):
+        gen.append(tok)
+        logits, cache = serve(params, cache, tok.astype(jnp.int32))
+        outs.append(logits)
+        tok = jnp.argmax(logits, -1)
+    gen.append(tok)
+    np.savez(out, logits=np.stack([np.asarray(o) for o in outs]),
+             tokens=np.stack([np.asarray(t) for t in gen]))
+
+
+def _moe_serve_rank(rank: int, init: str, inputs: str, out: str) -> None:
+    """The port's ``greedy_generate`` of the MoE batch on one of 2 gloo
+    ranks: the prompts' ``.sharding`` replicates the batch (3 on ``data``
+    2), which the prefill and every decode step read."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+    from repro_torch.launch.mesh import DistMesh, make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import LogicalRules
+    from repro_torch.serve.decode import greedy_generate, make_prefill, make_serve_step
+    from repro_torch.train.step import unflatten
+
+    data = np.load(inputs)
+    cfg = _moe_cfg("repro_torch")
+    names = [k.split("|", 1)[1] for k in data.files if k.startswith("params|")]
+    tree = unflatten([tuple(n.split("/")) for n in names],
+                     [data[f"params|{n}"] for n in names])
+    rules = LogicalRules(DistMesh(make_mesh(MOE_MESH, ("data", "model"))))
+    params = api.params_from_reference(cfg, tree, device="cpu", rules=rules)
+    prompts = torch.from_numpy(data["tokens"]).long()
+    prompts.sharding = rules.sharding("batch", dims=(MOE_BATCH,))
+    assert prompts.sharding.spec == ()             # 3 on ``data`` 2: replicated
+    with torch.no_grad():
+        run = greedy_generate(params, prompts, cfg, DECODE, rules)
+        # the decode steps' logits, as the reference's loop records them
+        prefill, step = make_prefill(cfg, MAX, rules), make_serve_step(cfg, rules)
+        logits, cache = prefill(params, prompts)
+        outs, tok = [logits], logits.argmax(-1)
+        for _ in range(DECODE):
+            tok.sharding = prompts.sharding
+            logits, cache = step(params, cache, tok)
+            outs.append(logits)
+            tok = logits.argmax(-1)
+    gen = torch.cat([run["tokens"], tok[:, None]], dim=1).T
+    np.savez(f"{out}.{rank}.npz", logits=torch.stack(outs).numpy(), tokens=gen.numpy(),
+             prefill=run["prefill_logits"].numpy())
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +542,56 @@ def results():
             port.update(np.load(port_out + f".{r}.npz"))
         init = {k: v for k, v in np.load(inputs).items() if "|params|" in k}
     return ref, port, init
+
+
+@pytest.fixture(scope="module")
+def moe_batch():
+    """(reference's serving, each port rank's) of the MoE batch of three
+    at (2, 1), from the port's init (seed 0) and numpy prompts."""
+    from repro_torch.models import api
+    from repro_torch.train.step import leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        cfg = _moe_cfg("repro_torch")
+        np.savez(inputs, tokens=np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (MOE_BATCH, P), dtype=np.int32),
+            **{"params|" + "/".join(leaf): t.numpy()
+               for leaf, t in leaves(api.init_params(cfg, 0, "cpu", master=True))})
+        ref_out = os.path.join(tmp, "reference.npz")
+        env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
+                   JAX_PLATFORMS="cpu")
+        with open(os.path.join(tmp, "reference.log"), "w+") as log:
+            proc = subprocess.Popen([sys.executable, __file__, "--moe-reference", inputs,
+                                     ref_out], env=env, stdout=log, stderr=subprocess.STDOUT)
+            try:
+                port_out = os.path.join(tmp, "port")
+                spawn(_moe_serve_rank, 2, ("file://" + os.path.join(tmp, "rdzv"), inputs,
+                                           port_out))
+                proc.wait(timeout=TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.seek(0)
+                text = log.read()
+            assert proc.returncode == 0, text[-3000:]
+        ref = dict(np.load(ref_out))
+        port = [dict(np.load(f"{port_out}.{r}.npz")) for r in range(2)]
+    return ref, port
+
+
+def test_moe_serves_an_undivided_batch_as_reference(moe_batch):
+    """Three sequences through reduced qwen3-moe at (2, 1), capacity factor
+    0.5: each rank's prefill and four greedy decode steps give the
+    reference's logits and tokens (``greedy_generate`` carrying the
+    prompts' split to the decode tokens, as the hand-driven steps do)."""
+    ref, port = moe_batch
+    assert ref["logits"].shape == (DECODE + 1, MOE_BATCH, _moe_cfg("repro_torch").vocab_size)
+    for r, got in enumerate(port):
+        _close(got["logits"], ref["logits"], 5e-4, 5e-4, f"rank {r} logits")
+        np.testing.assert_array_equal(got["prefill"], got["logits"][0])
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"], err_msg=f"rank {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -728,3 +870,5 @@ def test_moe_ranks_keep_the_reference_pairs(results, mesh):
 if __name__ == "__main__":
     if sys.argv[1] == "--reference":
         reference_main(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif sys.argv[1] == "--moe-reference":
+        moe_serve_reference(sys.argv[2], sys.argv[3])
