@@ -23,7 +23,7 @@
 // contribute exactly 0.  Three kernels, routed by dtype and D alone (the
 // wrapper, kernels/flash_attention.py, picks one):
 //
-//   flash_wgmma_kernel (bf16 and fp16, D a multiple of 8 in (32, 128]; every
+//   flash_wgmma_kernel (bf16 and fp16, D a multiple of 8 in (32, 256]; every
 //     model config's 16-bit head dim but the example trainers'): the Hopper
 //     design.  One block owns 128 query rows of one head and runs
 //     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
@@ -55,12 +55,30 @@
 //     softmax scale is 1/sqrt(112), and the epilogue stores 112 columns a
 //     row, so no store reaches the next head.  The products do 128/112 =
 //     1.14x the work the function needs.  Every other head dim of the route
-//     runs the same way with D taken at run time (instantiations <64, 0, T>
-//     for D in (32, 64] and <128, 0, T>; bf16 at 64, 112 and 128 keep their
+//     runs the same way with D taken at run time on tiles as wide as the
+//     least multiple of 64 that holds it (instantiations <64, 0, T>, <128,
+//     0, T>, <192, 0, T>, <256, 0, T>; bf16 at 64, 112 and 128 keep their
 //     own), fp16 through the .f16 forms of wgmma and FLOAT16 tensor maps.
-//   flash_mma_kernel<T, DP> (bf16 and fp16 at every other D: below 40, not
-//     a multiple of 8, or past 128; the small trainers of
-//     repro_torch.examples.train_carbon_aware take D 16 and 32): 4 warps,
+//     Past width 128 (D in (128, 256], Gemma-2-9B's 256 among them) O takes
+//     D/2 = 96 or 128 fp32 registers a thread, so the K/V tiles hold 64 keys
+//     (S 32 floats, P 16 registers): S = Q K^T is m64n64k16 over D/16 steps,
+//     O += P V m64nDk16 (n192 or n256) over 4 steps, V read MN-major across
+//     its 3 or 4 column boxes, and every TMA box is 64 rows (Q takes two a
+//     column box).  Shared memory: Q 48 or 64 KiB, stages of 48 or 64 KiB, 3
+//     stages at 192 and 2 at 256 (197,712 and 197,688 bytes).  Registers:
+//     ptxas gives each thread only what the launch does, 168 at 384 threads
+//     (three warps on each SM sub-partition), whatever setmaxnreg adds later,
+//     and at width 256 O, S and P need ~190: that instantiation runs the two
+//     consumer warpgroups alone (256 threads, 188 registers, no spill), and
+//     consumer 1's first thread issues the TMA loads, Q and the first
+//     stages before the loop and tile j + 1 into tile j - 1's stage in its
+//     turn j, which the ping-pong order puts after both consumers released
+//     tile j - 1 (hopper.cuh, Roles).  Width 192 fits 168 registers and
+//     keeps the producer warpgroup.
+//   flash_mma_kernel<T, DP> (bf16 and fp16 at every other D: below 40 or
+//     not a multiple of 8; the small trainers of
+//     repro_torch.examples.train_carbon_aware take D 16 and 32; on request
+//     any D, the yardstick of the Hopper kernel): 4 warps,
 //     each owning 16 of 64 query rows, mma.sync m16n8k16 (.bf16 or .f16);
 //     K and V tiles of 64 keys stream into two shared-memory buffers, the
 //     next tile loading while the block computes on the current one;
@@ -72,8 +90,7 @@
 //     DP + 8 elements keep each 8 x 8 matrix's rows 16-byte aligned and in
 //     distinct banks.  At DP 256, Q's fragments (64 registers) beside the
 //     128-float output would pass 255 registers a thread, so Q stays in
-//     shared memory (169 KB in all) and is read at each product.  It takes
-//     D in {64, 112, 128} as well, for comparison with the Hopper kernel.
+//     shared memory (169 KB in all) and is read at each product.
 //   flash_f32_kernel<DP> (fp32, every D, on the same padded widths): 16x16
 //     threads, each owning a 4x4 block of scores and 4 rows x DP/16 columns
 //     of the output, fp32 FMA on the CUDA cores (no TF32, so the result
@@ -91,8 +108,11 @@
 // (1.1 GB per prefill call), and the softmax is not overlapped with the
 // same consumer's products: each consumer runs S, softmax and P V in
 // series, and only the other consumer's products fill the gap.  At D 256
-// the mma.sync kernel reached 10 % of the bound on an H100 80GB HBM3 at
-// 700 W (1.33 ms at B 4, S 2048, Hq 16, Hkv 8; SDPA 0.25 ms).  Issuing
+// (B 4, S 2048, Hq 16, Hkv 8: 137.5 GFLOP, 0.139 ms at 989 TFLOP/s) the
+// mma.sync kernel reached 10 % of that bound on an H100 80GB HBM3 at 700 W
+// (1.33 ms; SDPA 0.25 ms), the 256-wide Hopper kernel 46 % (0.300 ms): its
+// tiles of 64 keys halve the product per barrier and per softmax pass.  The
+// fp32 kernel is bound by the 67 TFLOP/s of fp32 FMA.  Issuing
 // tile j's S product before tile j-1's P V product (FlashAttention-3's
 // intra-warpgroup overlap) keeps S, O and P live at once, and ptxas then
 // spills P and serialises every wgmma, which made it slower.
@@ -593,23 +613,31 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 namespace hopper {
 
 constexpr int ROWS = 128;          // query rows per block, 64 per consumer warpgroup
-constexpr int KEYS = 128;          // keys per tile
-constexpr int THREADS = 384;       // the producer warpgroup, then two consumers
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
-constexpr uint32_t BOX_BYTES = 128 * ROW_BYTES;   // a box of 128 rows (ROWS == KEYS)
+
+constexpr int KEYS = 128;          // keys per K/V tile up to width 128
+constexpr int WIDE_KEYS = 64;      // past it, where O takes D/2 = 96 or 128 floats a thread
+// and S (64 floats at 128 keys) and P (32 registers) would not fit beside it
+// in a wide consumer's 224 registers.  The keys of a K/V tile at tile width d:
+__host__ __device__ constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : KEYS; }
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
-// every 8 rows): Q, the K ring, the V ring, then the mbarriers q_full,
-// k_full[STAGES], v_full[STAGES], empty[STAGES].
+// every 8 rows): Q (ROWS rows), the K ring, the V ring (KEYS rows a stage),
+// then the mbarriers q_full, k_full[STAGES], v_full[STAGES], empty[STAGES].
+// A tile's D / 64 column boxes lie one after another, each its rows of 128
+// swizzled bytes; TMA fills them by boxes of KEYS rows (Q by ROWS / KEYS).
 template <int D>
 struct Layout {
-  static constexpr int BOXES = D / BOX;                // boxes per tile
-  static constexpr int STAGES = D == 128 ? 2 : 3;      // ring depth
-  static constexpr uint32_t TILE = BOXES * BOX_BYTES;  // a Q, K or V tile
+  static constexpr int KEYS = keys_of(D);
+  static constexpr int BOXES = D / BOX;                // column boxes per tile
+  static constexpr int STAGES = D == 64 || D == 192 ? 3 : 2;   // ring depth: what fits
+  static constexpr uint32_t Q_BOX = ROWS * ROW_BYTES;  // Q: from one column box to the next
+  static constexpr uint32_t KV_BOX = KEYS * ROW_BYTES; // K and V: the same
+  static constexpr uint32_t Q_TILE = BOXES * Q_BOX;
+  static constexpr uint32_t KV_TILE = BOXES * KV_BOX;
   static constexpr uint32_t Q = 0;
-  static constexpr uint32_t K = Q + TILE;
-  static constexpr uint32_t V = K + STAGES * TILE;
-  static constexpr uint32_t BARS = V + STAGES * TILE;
+  static constexpr uint32_t K = Q + Q_TILE;
+  static constexpr uint32_t V = K + STAGES * KV_TILE;
+  static constexpr uint32_t BARS = V + STAGES * KV_TILE;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
 };
 
@@ -617,49 +645,50 @@ struct Layout {
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
 // swizzle); 8-row groups 1024 bytes apart (the SBO).
 template <int D, typename T>
-__device__ __forceinline__ void qk(float (&s)[64], uint32_t q, uint32_t k) {
-  wgmma_ss_n128_first<T>(s, sw128_desc(q, 16, GROUP_BYTES), sw128_desc(k, 16, GROUP_BYTES));
+__device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint32_t k) {
+  using L = Layout<D>;
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n128<T>(s, sw128_desc(q + off, 16, GROUP_BYTES),
-                     sw128_desc(k + off, 16, GROUP_BYTES));
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t a = sw128_desc(q + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, GROUP_BYTES);
+    const uint64_t b = sw128_desc(k + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, GROUP_BYTES);
+    if (kk == 0)
+      wgmma_ss<L::KEYS, true, T>(s, a, b);
+    else
+      wgmma_ss<L::KEYS, false, T>(s, a, b);
   }
   wgmma_commit();
 }
 
-// O += P V (issued, not waited for): 8 steps of 16 keys, each 16 rows (2048
-// bytes) into V's boxes; N = D spans D/64 boxes, BOX_BYTES apart (the LBO).
+// O += P V (issued, not waited for): KEYS/16 steps of 16 keys, each 16 rows
+// (2048 bytes) into V's boxes; N = D spans D/64 boxes, KV_BOX apart (the LBO).
 template <int D, typename T>
-__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[32], uint32_t v) {
+__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[keys_of(D) / 4],
+                                   uint32_t v) {
+  using L = Layout<D>;
 #pragma unroll
-  for (int kk = 0; kk < KEYS / 16; ++kk) {
-    const uint64_t vd = sw128_desc(v + kk * 16 * ROW_BYTES, BOX_BYTES, GROUP_BYTES);
-    if constexpr (D == 128)
-      wgmma_rs_n128<T>(acc, p + 4 * kk, vd);
-    else
-      wgmma_rs_n64<T>(acc, p + 4 * kk, vd);
-  }
+  for (int kk = 0; kk < L::KEYS / 16; ++kk)
+    wgmma_rs<D, T>(acc, p + 4 * kk, sw128_desc(v + kk * 16 * ROW_BYTES, L::KV_BOX, GROUP_BYTES));
   wgmma_commit();
 }
 
 // Mask S (only tiles that cross the diagonal or the end of K), then the
 // online softmax in the log2 domain: s becomes 2^(s * scale_log2 - m *
 // scale_log2) with m the new row max, l the per-thread partial row sums
-// (summed at the end), corr what O must be scaled by.
-__device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+// (summed at the end), corr what O must be scaled by.  KEYS keys a tile.
+template <int KEYS>
+__device__ __forceinline__ void softmax(float (&s)[KEYS / 2], float (&m)[2], float (&l)[2],
                                         float (&corr)[2], int k0, int sk, long long qpos,
                                         long long first, int t, float scale_log2) {
   if (!(k0 + KEYS <= sk && k0 + KEYS - 1 <= first)) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < KEYS / 2; ++i) {
       const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       if (!(key < sk && qpos + 8 * ((i >> 1) & 1) >= key)) s[i] = NEG;
     }
   }
   float mx[2] = {m[0], m[1]}, ms[2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  for (int i = 0; i < KEYS / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -670,7 +699,7 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < KEYS / 2; ++i) {
     s[i] = exp2_ftz(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
     l[(i >> 1) & 1] += s[i];
   }
@@ -688,14 +717,15 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2], float (&l
 // Sq) in fp32 for the backward; nullptr stores nothing, and the output is
 // the same either way.
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                    float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
                    int dh, float scale_log2) {
   using L = Layout<D>;
-  constexpr int S = L::STAGES;
+  using R = Roles<(D > 192)>;
+  constexpr int S = L::STAGES, KEYS = L::KEYS;
   extern __shared__ unsigned char hopper_smem[];
   const uint32_t base = (smem_addr(hopper_smem) + 1023) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -719,31 +749,42 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    // Producer: one thread keeps the ring full.  TMA counts the whole box,
-    // rows past Sq or Sk included (they land as zeros).
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  // Q, then tile j's K and V into its stage once the stage is free: TMA
+  // counts the whole box, rows past Sq or Sk included (they land as zeros).
+  const int hk = h / group;
+  auto load_q = [&] {
+    mbar_expect(q_full, L::Q_TILE);
+    for (int x = 0; x < L::BOXES; ++x)
+      for (int y = 0; y < ROWS / KEYS; ++y)      // boxes of KEYS rows
+        tma_load(base + L::Q + x * L::Q_BOX + y * KEYS * ROW_BYTES, qmap, q_full, x * BOX, h,
+                 q0 + y * KEYS, b);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j % S;
+    mbar_wait(empty(s), ((j / S) & 1) ^ 1);    // round 0 finds every stage free
+    mbar_expect(k_full(s), L::KV_TILE);
+    for (int x = 0; x < L::BOXES; ++x)
+      tma_load(base + L::K + s * L::KV_TILE + x * L::KV_BOX, kmap, k_full(s), x * BOX, hk,
+               j * KEYS, b);
+    mbar_expect(v_full(s), L::KV_TILE);
+    for (int x = 0; x < L::BOXES; ++x)
+      tma_load(base + L::V + s * L::KV_TILE + x * L::KV_BOX, vmap, v_full(s), x * BOX, hk,
+               j * KEYS, b);
+  };
+  // The wide kernels' loader: consumer 1's first thread, which loads Q and
+  // the first S tiles here and tile j + S - 1 in its turn j (below).
+  constexpr int LOADER = 128;
+
+  if (R::producer()) {
+    // Producer: one thread keeps the ring full.
+    R::producer_regs();
     if (threadIdx.x == 0) {
-      const int hk = h / group;
-      mbar_expect(q_full, L::TILE);
-      for (int x = 0; x < L::BOXES; ++x)
-        tma_load(base + L::Q + x * BOX_BYTES, qmap, q_full, x * BOX, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % S;
-        mbar_wait(empty(s), ((j / S) & 1) ^ 1);    // round 0 finds every stage free
-        mbar_expect(k_full(s), L::TILE);
-        for (int x = 0; x < L::BOXES; ++x)
-          tma_load(base + L::K + s * L::TILE + x * BOX_BYTES, kmap, k_full(s), x * BOX, hk,
-                   j * KEYS, b);
-        mbar_expect(v_full(s), L::TILE);
-        for (int x = 0; x < L::BOXES; ++x)
-          tma_load(base + L::V + s * L::TILE + x * BOX_BYTES, vmap, v_full(s), x * BOX, hk,
-                   j * KEYS, b);
-      }
+      load_q();
+      for (int j = 0; j < n_tiles; ++j) load_kv(j);
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int c = threadIdx.x / 128 - 1;             // which 64 rows of the block
+    R::consumer_regs();
+    const int c = R::consumer();                     // which 64 rows of the block
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int row = q0 + 64 * c + 16 * warp + g;     // this thread's rows: row, row + 8
@@ -751,9 +792,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const long long first = static_cast<long long>(offset) + q0 + 64 * c;
     const uint32_t qa = base + L::Q + c * 64 * ROW_BYTES;
 
-    float s[64];          // S for 128 keys, then P in fp32
+    float s[KEYS / 2];    // S for KEYS keys, then P in fp32
     float acc[D / 2];     // O
-    uint32_t p[32];       // P in bf16 pairs: the A fragments of the 8 key slices
+    uint32_t p[KEYS / 4]; // P in bf16 pairs: the A fragments of the KEYS / 16 key slices
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
@@ -763,6 +804,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // while the other's products hold the tensor cores.  Each has n_tiles
     // turns; consumer 0 goes first.
     float corr[2];
+    if (R::WIDE && threadIdx.x == LOADER) {
+      load_q();
+      for (int j = 0; j < min(S, n_tiles); ++j) load_kv(j);
+    }
+    if constexpr (R::WIDE) __syncwarp();   // the loader's warp, converged for wgmma
     mbar_wait(q_full, 0);
     if (c == 1) bar_arrive_consumers(1);
     for (int j = 0; j < n_tiles; ++j) {
@@ -770,21 +816,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t parity = (j / S) & 1;
       mbar_wait(k_full(st), parity);
       bar_sync_consumers(1 + c);
+      // Consumer 1's turn j comes after consumer 0 issued its S of tile j,
+      // so after both released tile j - 1: its stage takes tile j + S - 1.
+      if (R::WIDE && threadIdx.x == LOADER && j >= 1 && j + S - 1 < n_tiles)
+        load_kv(j + S - 1);
+      if constexpr (R::WIDE) __syncwarp();
       wgmma_fence();
-      qk<D, T>(s, qa, base + L::K + st * L::TILE);
+      qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);
       if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
       wgmma_wait<0>();
       pin(s);
-      softmax(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
+      softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < KEYS / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
       mbar_wait(v_full(st), parity);
       pin(acc);
       pin(p);
       wgmma_fence();
-      pv<D, T>(acc, p, base + L::V + st * L::TILE);
+      pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);
       wgmma_wait<0>();
       pin(acc);
       pin(p);
@@ -827,18 +878,16 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
   if (DO > 0 ? dh != DO : (dh % 8 != 0 || dh > D || D - dh >= BOX))
     return cudaErrorInvalidValue;
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
-  // setmaxnreg only moves registers between the warpgroups: the launch
-  // must hold what the consumers ask for, or their setmaxnreg would wait.
+  using R = Roles<(D > 192)>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T>);
   if (err != cudaSuccess) return err;
-  if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 256)
-    return cudaErrorLaunchOutOfResources;
+  if (!R::launchable(attr.numRegs)) return cudaErrorLaunchOutOfResources;
   err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(dh));
-  flash_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
+  flash_wgmma_kernel<D, DO, T><<<grid, R::THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<T*>(o), lse, sq, sk, hq, hq / hkv, offset, dh,
       scale_log2);
   return cudaGetLastError();
@@ -892,15 +941,16 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
 }
 
 // dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),
-// d a multiple of 8 in (32, 128], through the Hopper kernel: bf16 at d 64,
+// d a multiple of 8 in (32, 256], through the Hopper kernel: bf16 at d 64,
 // 112 and 128 on instantiations of their own (d = 112 on the d = 128
-// tiles), every other d on the 64-wide (d <= 64) or 128-wide tiles with
-// the head dim taken at run time; o (b, sq, hq, d) contiguous; lse, when not
-// null, (b, hq, sq) float32: each row's log-sum-exp for the backward.
-// `maps` holds, for q, k and v in turn, eleven numbers: the tensor map's
-// dims (d, h, s, b), its byte strides along h, s and b, and its box (64,
-// 1, 128, 1).  The grid is (hq, b, ceil(sq / 128)); `smem` the kernel's
-// dynamic shared memory.
+// tiles), every other d on the tiles 64, 128, 192 or 256 wide (the least
+// multiple of 64 that holds d) with the head dim taken at run time; o (b,
+// sq, hq, d) contiguous; lse, when not null, (b, hq, sq) float32: each
+// row's log-sum-exp for the backward.  `maps` holds, for q, k and v in
+// turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
+// strides along h, s and b, and its box (64, 1, R, 1), R the keys of a K/V
+// tile (128 up to d 128, else 64).  The grid is (hq, b, ceil(sq / 128));
+// `smem` the kernel's dynamic shared memory.
 int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void* o,
                     float* lse, int b, int sq, int sk, int hq, int hkv, int d,
                     int causal_offset, const unsigned long long* maps, int grid_x, int grid_y,
@@ -908,22 +958,32 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   using hopper::ROWS;
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
-      grid_z > 65535 || (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 128)
+      grid_z > 65535 || (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
-  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, ROWS, dtype == 2);
+  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, hopper::keys_of(d), dtype == 2);
   if (err != 0) return err;
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
-  if (dtype == 2)
-    return static_cast<int>(d <= 64 ? hopper::launch<64, 0, __half>(tm, o, lse, sq, sk, hq, hkv,
-                                                                      d, causal_offset, grid,
-                                                                      sm, s)
-                                    : hopper::launch<128, 0, __half>(tm, o, lse, sq, sk, hq,
-                                                                       hkv, d, causal_offset,
-                                                                       grid, sm, s));
+  const int tile = (d + 63) / 64 * 64;
+  if (dtype == 2) {
+    switch (tile) {
+      case 64:
+        return static_cast<int>(hopper::launch<64, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                              causal_offset, grid, sm, s));
+      case 128:
+        return static_cast<int>(hopper::launch<128, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                               causal_offset, grid, sm, s));
+      case 192:
+        return static_cast<int>(hopper::launch<192, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                               causal_offset, grid, sm, s));
+      default:
+        return static_cast<int>(hopper::launch<256, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                               causal_offset, grid, sm, s));
+    }
+  }
   switch (d) {
     case 64:
       return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
@@ -934,12 +994,20 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
     case 128:
       return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
                                                   grid, sm, s));
+  }
+  switch (tile) {
+    case 64:
+      return static_cast<int>(hopper::launch<64, 0>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                    causal_offset, grid, sm, s));
+    case 128:
+      return static_cast<int>(hopper::launch<128, 0>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                     causal_offset, grid, sm, s));
+    case 192:
+      return static_cast<int>(hopper::launch<192, 0>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                     causal_offset, grid, sm, s));
     default:
-      return static_cast<int>(
-          d <= 64 ? hopper::launch<64, 0>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset, grid,
-                                          sm, s)
-                  : hopper::launch<128, 0>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset, grid,
-                                           sm, s));
+      return static_cast<int>(hopper::launch<256, 0>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                     causal_offset, grid, sm, s));
   }
 }
 

@@ -21,7 +21,7 @@
 // Two routes, picked by dtype and D alone
 // (kernels/flash_attention.py::bwd_route):
 //
-// "wgmma" (bf16 and fp16 at D a multiple of 8 in (32, 128], where the
+// "wgmma" (bf16 and fp16 at D a multiple of 8 in (32, 256], where the
 // forward's route is the Hopper kernel; every model config that trains in
 // bf16), namespace wg.  The forward's flash_wgmma_kernel writes each row's
 // LSE, so P = exp(S * scale - LSE) needs no statistics pass.  Two kernels,
@@ -31,10 +31,10 @@
 //   flash_bwd_dq_wgmma_kernel: one block per (128 query rows, query head,
 //     batch), heaviest tiles first.  It first takes D_i of its rows from
 //     device memory (written to fp32 scratch for the next kernel); then per
-//     ring stage of 64 keys S = Q K^T and dP = dO V^T (m64n64k16, both
-//     operands in shared memory), P and dS = P (dP - D_i) in registers, dS
-//     rounded to bf16 as wgmma's register-A operand, dQ += dS K (K read
-//     MN-major); dQ * scale stored once in bf16.
+//     ring stage of 64 keys (32 past width 128) S = Q K^T and dP = dO V^T
+//     (m64n64k16 or m64n32k16, both operands in shared memory), P and dS =
+//     P (dP - D_i) in registers, dS rounded to bf16 as wgmma's register-A
+//     operand, dQ += dS K (K read MN-major); dQ * scale stored once in bf16.
 //   flash_bwd_dkdv_wgmma_kernel: one block per (64 keys, KV head, batch); K
 //     and V loaded once; the ring brings Q and dO of every 64-row query tile
 //     of the group's heads that sees the block's keys, with those rows' LSE
@@ -50,9 +50,33 @@
 //     free of atomics: each output element has one writer and each sum one
 //     order, so two runs give equal bits.
 // D = 112 runs the D = 128 kernels: TMA fills columns 112..127 of every tile
-// with zeros and 112 columns are stored; every other D of the route runs the
-// 64-wide (D <= 64) or 128-wide kernels the same way with D taken at run time
-// (instantiations <64, 0, T> and <128, 0, T>; fp16 through .f16 wgmma).
+// with zeros and 112 columns are stored; every other D of the route runs on
+// tiles as wide as the least multiple of 64 that holds it, the same way with
+// D taken at run time (instantiations <64, 0, T>, <128, 0, T>, <192, 0, T>
+// and <256, 0, T>; fp16 through .f16 wgmma).  Past width 128 (D in (128,
+// 256]) each consumer's dQ, dK or dV takes 96 or 128 fp32 registers a
+// thread, and Q and dO of the dQ kernel's 128 rows take 96 or 128 KiB:
+//   dQ keeps its 128 rows a block (two consumers of 64, Q and dO resident)
+//     and takes K/V tiles of 32 keys (S and dP m64n32k16, dQ += dS K over 2
+//     steps of 16 keys), 4 stages at 192 and 3 at 256 (197,704 and 230,456
+//     bytes).  64 query rows a block with two 64-key stages would have left
+//     one consumer per block idle or split the keys between the two and
+//     summed dQ across them, and would have read K and V from L2 twice as
+//     often.
+//   dK/dV keeps its 64 keys a block and 64-row Q/dO tiles, with 3 stages at
+//     192 and 2 at 256 (231,992 and 231,464 bytes, the P^T buffers in fp32
+//     as the narrow kernels').
+// Every TMA box is then 32 rows.  At width 256 the consumers need ~200-225
+// registers, more than the 168 a thread ptxas allocates at 384 threads
+// whatever setmaxnreg adds later, so both kernels run the two consumer
+// warpgroups alone (256 threads; 196 and 225 registers, no spill): in dQ,
+// consumer 0's first thread issues the loads, tile j + STAGES - 1 at the
+// top of its turn j once consumer 1 has released tile j - 1 (consumer 0's
+// rows see fewer keys and run ahead); in dK/dV, consumer 1's first warp
+// (lane 0 the TMA loads, every lane the LSE and D_i) fills tile j - 1's
+// stage once consumer 0's P^T of tile j is in, which it wrote after
+// releasing tile j - 1.  Width 192 fits 168 registers and keeps the
+// producer warpgroup (hopper.cuh, Roles).
 // Rows past Sq add nothing: their Q and dO land as zeros and their LSE and
 // D_i are taken as 0, so dS and P^T dO vanish there; tiles that cross the
 // diagonal or the end of K are masked.
@@ -80,16 +104,19 @@
 // are widened on load).  At DP 256 the tiles are 32 x 32 (2 x 2 scores a
 // thread): 64-row fp32 tiles of 257 floats would take the dK/dV kernel to 297
 // KB of shared memory; this halves the reuse of every shared-memory read, and
-// at internvl2-2b's train shape the route took 55.7 ms on an H100 80GB HBM3
-// at 700 W, against SDPA's backward's 1.46 ms.  Rows past Sq and keys past Sk load as zeros and
-// are masked; nothing past them is stored.
+// at internvl2-2b's train shape at D 256 the route took 55.7 ms on an H100
+// 80GB HBM3 at 700 W, against SDPA's backward's 1.46 ms and the wgmma
+// route's 1.67 ms.  Rows past Sq and keys past Sk load as zeros and are
+// masked; nothing past them is stored.
 //
 // What bounds it on an H100: at internvl2-2b's training shape (B=4,
 // Sq=Sk=2304, Hq=16, Hkv=8, D=128, bf16) the function needs five products,
 // 5 * 2*B*Hq*D*(S(S+1)/2) = 217.5 GFLOP: 0.220 ms at the tensor cores' 989
 // TFLOP/s, far above its bytes (~0.03 ms).  The wgmma route runs seven
 // (dQ: S, dP, dQ; dK/dV: S, dP, dV, dK), 304.5 GFLOP, 0.308 ms: the two
-// recomputed products are the price of determinism.  One kernel over key
+// recomputed products are the price of determinism.  At D 256 the
+// function's five products are 435.1 GFLOP (0.440 ms) and the route's seven
+// 609.1.  One kernel over key
 // tiles would need dQ summed across blocks: fp32 atomics (runs would
 // differ) or per-key-tile partials, sum_j (2304 - 128j) * B*Hq*D*4 bytes =
 // 717 MB a call, whose write and read (~0.43 ms at 3.35 TB/s) cost twice
@@ -584,18 +611,31 @@ namespace wg {
 
 using namespace hopper;
 
-constexpr int THREADS = 384;       // the producer warpgroup, then two consumers
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
 constexpr int BOX_ROWS = 64;       // rows of a TMA box; a dQ consumer's rows
 constexpr int DQ_ROWS = 128;       // dQ: query rows per block, 64 per consumer
 constexpr int DQ_KEYS = 64;        // dQ: keys per tile
 constexpr int KV_KEYS = 64;        // dK/dV: keys per block
 constexpr int KV_ROWS = 64;        // dK/dV: query rows per tile
 constexpr int STAGES = 4;          // depth of either kernel's ring
+// Past width 128 (tiles 192 and 256 wide): dQ's K/V tiles of 32 keys, so
+// that Q and dO of 128 rows (128 KiB at 256) leave room for three stages,
+// and every TMA box 32 rows high.
+constexpr int WIDE_DQ_KEYS = 32;
+constexpr int WIDE_BOX_ROWS = 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The tiling of the kernels on tiles D wide: TMA boxes' rows, dQ's keys per
+// tile, and each ring's depth, what fits 227 KB (at most STAGES).
+template <int D>
+struct Tiling {
+  static constexpr int BOX_ROWS = D > 128 ? WIDE_BOX_ROWS : wg::BOX_ROWS;
+  static constexpr int DQ_KEYS = D > 128 ? WIDE_DQ_KEYS : wg::DQ_KEYS;
+  static constexpr int DQ_STAGES = D == 256 ? 3 : STAGES;
+  static constexpr int KV_STAGES = D == 256 ? 2 : D == 192 ? 3 : STAGES;
+};
+
 // A tile of R rows by D columns in shared memory: D / 64 column boxes, each R
-// rows of 128 swizzled bytes, filled by boxes of BOX_ROWS rows.
+// rows of 128 swizzled bytes, filled by boxes of Tiling<D>::BOX_ROWS rows.
 template <int D, int R>
 struct Tile {
   static constexpr uint32_t BOX_STRIDE = R * ROW_BYTES;   // from one column box to the next
@@ -603,12 +643,14 @@ struct Tile {
 };
 
 // Shared memory of the dQ kernel, from a 1024-byte aligned base: Q and dO
-// (128 rows), the K ring and the V ring (64 keys a stage), then the
+// (128 rows), the K ring and the V ring (KEYS keys a stage), then the
 // mbarriers q_full, kv_full[STAGES], empty[STAGES].
 template <int D>
 struct DqLayout {
+  static constexpr int KEYS = Tiling<D>::DQ_KEYS;
+  static constexpr int STAGES = Tiling<D>::DQ_STAGES;
   using Rows = Tile<D, DQ_ROWS>;
-  using Keys = Tile<D, DQ_KEYS>;
+  using Keys = Tile<D, KEYS>;
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t DOUT = Q + Rows::BYTES;
   static constexpr uint32_t K = DOUT + Rows::BYTES;
@@ -623,6 +665,7 @@ struct DqLayout {
 // q_full[STAGES], empty[STAGES].
 template <int D>
 struct KvLayout {
+  static constexpr int STAGES = Tiling<D>::KV_STAGES;
   using Keys = Tile<D, KV_KEYS>;
   using Rows = Tile<D, KV_ROWS>;
   static constexpr uint32_t K = 0;
@@ -638,47 +681,44 @@ struct KvLayout {
 };
 
 // Rows [r0, r0 + R) of head h of batch b into a tile at `dst`: one TMA box
-// per 64 rows and column box, all counted against `bar`.  Rows past S and
-// columns past the head dim land as zeros.
+// per BOX_ROWS rows and column box, all counted against `bar`.  Rows past S
+// and columns past the head dim land as zeros.
 template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, uint32_t bar,
                                           int h, int r0, int b) {
+  constexpr int BR = Tiling<D>::BOX_ROWS;
 #pragma unroll
   for (int x = 0; x < D / BOX; ++x)
 #pragma unroll
-    for (int y = 0; y < R / BOX_ROWS; ++y)
-      tma_load(dst + x * Tile<D, R>::BOX_STRIDE + y * BOX_ROWS * ROW_BYTES, map, bar, x * BOX,
-               h, r0 + y * BOX_ROWS, b);
+    for (int y = 0; y < R / BR; ++y)
+      tma_load(dst + x * Tile<D, R>::BOX_STRIDE + y * BR * ROW_BYTES, map, bar, x * BOX, h,
+               r0 + y * BR, b);
 }
 
-// acc (64 x 64, fp32) = A B^T over D (issued, not committed): A's 64 rows at
-// `a` and B's 64 rows at `b`, both K-major in tiles whose column boxes are
+// acc (64 x N, fp32) = A B^T over D (issued, not committed): A's 64 rows at
+// `a` and B's N rows at `b`, both K-major in tiles whose column boxes are
 // A_STRIDE and B_STRIDE bytes apart; D/16 steps of 16 columns, each 32 bytes
 // into a swizzled row (the qk pattern of the forward).
-template <int D, uint32_t A_STRIDE, uint32_t B_STRIDE, typename T>
-__device__ __forceinline__ void ss_product(float (&acc)[32], uint32_t a, uint32_t b) {
-  wgmma_ss_n64_first<T>(acc, sw128_desc(a, 16, GROUP_BYTES), sw128_desc(b, 16, GROUP_BYTES));
+template <int D, uint32_t A_STRIDE, uint32_t B_STRIDE, typename T, int N = 64>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+  wgmma_ss<N, true, T>(acc, sw128_desc(a, 16, GROUP_BYTES), sw128_desc(b, 16, GROUP_BYTES));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss_n64<T>(acc, sw128_desc(a + (kk / 4) * A_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES),
-                    sw128_desc(b + (kk / 4) * B_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES));
+    wgmma_ss<N, false, T>(acc,
+                          sw128_desc(a + (kk / 4) * A_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES),
+                          sw128_desc(b + (kk / 4) * B_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES));
 }
 
-// acc (64 x D, fp32) += A B (issued, not committed): A 64 x 64 in registers
-// (four bf16x2 a slice of 16 along the product), B the 64 rows at `b` of a
+// acc (64 x D, fp32) += A B (issued, not committed): A 64 x K in registers
+// (four bf16x2 a slice of 16 along the product), B the K rows at `b` of a
 // tile whose column boxes are B_STRIDE apart, read MN-major through the
 // transpose bit (the pv pattern of the forward).
-template <int D, uint32_t B_STRIDE, typename T>
-__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&a)[16],
+template <int D, uint32_t B_STRIDE, typename T, int K = 64>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
                                            uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t bd = sw128_desc(b + kk * 16 * ROW_BYTES, B_STRIDE, GROUP_BYTES);
-    if constexpr (D == 128)
-      wgmma_rs_n128<T>(acc, a + 4 * kk, bd);
-    else
-      wgmma_rs_n64<T>(acc, a + 4 * kk, bd);
-  }
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<D, T>(acc, a + 4 * kk, sw128_desc(b + kk * 16 * ROW_BYTES, B_STRIDE, GROUP_BYTES));
 }
 
 // 4 bytes global -> shared, asynchronously; when `in` is false nothing is
@@ -695,6 +735,7 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
+template <int STAGES>
 __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, uint32_t bars) {
   mbar_init(first, 1);
   for (int s = 0; s < STAGES; ++s) {
@@ -712,14 +753,15 @@ __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, u
 // batch), heaviest tiles first.  The consumers first take D_i = dO_i . O_i
 // of their rows from device memory (fp32, written to `dvec` for the dK/dV
 // kernel) while TMA brings Q, dO and the first K/V tiles; then per tile of
-// 64 keys S = Q K^T and dP = dO V^T from shared memory, P = 2^(S scale_log2
+// KEYS keys (64, or 32 past width 128) S = Q K^T and dP = dO V^T from shared
+// memory, P = 2^(S scale_log2
 // - LSE log2 e) and dS = P (dP - D_i) in registers, dS rounded to bf16,
 // dQ += dS K with K read MN-major.  D is the tiles' width, DO <= D the head
 // dim (columns 112..127 of every tile are zeros at DO = 112); DO = 0 takes
 // it from `dh` at run time (a multiple of 8 in (D - 64, D]).  T is bf16 or
 // fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
@@ -728,6 +770,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk, int hq,
                           int group, int offset, int dh, float scale_log2, float scale) {
   using L = DqLayout<D>;
+  using R = Roles<(D > 192)>;
+  constexpr int KEYS = L::KEYS, STAGES = L::STAGES;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -737,57 +781,75 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_ROWS;   // heaviest query tiles first
-  const int n_tiles = kv_tiles<DQ_ROWS, DQ_KEYS>(q0, sq, sk, offset);
-  if (threadIdx.x == 0) init_ring(q_full, 1, bars);
+  const int n_tiles = kv_tiles<DQ_ROWS, KEYS>(q0, sq, sk, offset);
+  if (threadIdx.x == 0) init_ring<STAGES>(q_full, 1, bars);
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  // Q and dO, then tile j's K and V into its stage once the stage is free.
+  const int hk = h / group;
+  auto load_rows = [&] {
+    mbar_expect(q_full, 2 * L::Rows::BYTES);
+    load_tile<D, DQ_ROWS>(base + L::Q, qmap, q_full, h, q0, b);
+    load_tile<D, DQ_ROWS>(base + L::DOUT, domap, q_full, h, q0, b);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j % STAGES;
+    mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);     // round 0 finds every stage free
+    mbar_expect(kv_full(s), 2 * L::Keys::BYTES);
+    load_tile<D, KEYS>(base + L::K + s * L::Keys::BYTES, kmap, kv_full(s), hk, j * KEYS, b);
+    load_tile<D, KEYS>(base + L::V + s * L::Keys::BYTES, vmap, kv_full(s), hk, j * KEYS, b);
+  };
+  if (R::WIDE && threadIdx.x == 0) {      // the wide kernels' loader: consumer 0's first thread
+    load_rows();
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) load_kv(j);
+  }
+  if constexpr (R::WIDE) __syncwarp();
+
+  if (R::producer()) {
+    R::producer_regs();
     if (threadIdx.x == 0) {
-      const int hk = h / group;
-      mbar_expect(q_full, 2 * L::Rows::BYTES);
-      load_tile<D, DQ_ROWS>(base + L::Q, qmap, q_full, h, q0, b);
-      load_tile<D, DQ_ROWS>(base + L::DOUT, domap, q_full, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
-        mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);     // round 0 finds every stage free
-        mbar_expect(kv_full(s), 2 * L::Keys::BYTES);
-        load_tile<D, DQ_KEYS>(base + L::K + s * L::Keys::BYTES, kmap, kv_full(s), hk,
-                              j * DQ_KEYS, b);
-        load_tile<D, DQ_KEYS>(base + L::V + s * L::Keys::BYTES, vmap, kv_full(s), hk,
-                              j * DQ_KEYS, b);
-      }
+      load_rows();
+      for (int j = 0; j < n_tiles; ++j) load_kv(j);
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int c = threadIdx.x / 128 - 1;             // which 64 rows of the block
+    R::consumer_regs();
+    const int c = R::consumer();                     // which 64 rows of the block
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int row0 = q0 + 64 * c + 16 * warp;        // this warp's 16 rows
     const int row = row0 + g;                        // this thread's rows: row, row + 8
     const long long stat = (static_cast<long long>(b) * hq + h) * sq;
 
-    // D_i of the warp's 16 rows: lane l holds columns 4l..4l + 3 of a row (8
-    // bytes of o and of dO).  The loads take no branch, so all 16 rows' issue
-    // before the sums: rows past Sq re-read the last row, lanes past the head
-    // dim its last columns, and both add 0.
+    // D_i of the warp's 16 rows, 128 columns at a time: lane l holds columns
+    // c0 + 4l..c0 + 4l + 3 of a row (8 bytes of o and of dO).  The loads take
+    // no branch, so all 16 rows' issue before the sums: rows past Sq re-read
+    // the last row, lanes past the head dim its last columns, and both add 0.
     const int dcols = DO > 0 ? DO : dh;
-    float di[2] = {0.f, 0.f};
-    uint2 ov[16], dov[16];
-    const int col = min(4 * lane, dcols - 4);
+    float di[2] = {0.f, 0.f}, part[16];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const long long at =
-          ((static_cast<long long>(b) * sq + min(row0 + r, sq - 1)) * hq + h) * dcols + col;
-      ov[r] = *reinterpret_cast<const uint2*>(o + at);
-      dov[r] = *reinterpret_cast<const uint2*>(dout + at);
+    for (int r = 0; r < 16; ++r) part[r] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 128) {
+      uint2 ov[16], dov[16];
+      const int col = c0 + min(4 * lane, dcols - c0 - 4);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const long long at =
+            ((static_cast<long long>(b) * sq + min(row0 + r, sq - 1)) * hq + h) * dcols + col;
+        ov[r] = *reinterpret_cast<const uint2*>(o + at);
+        dov[r] = *reinterpret_cast<const uint2*>(dout + at);
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float2 u0 = unpack2<T>(ov[r].x), u1 = unpack2<T>(ov[r].y);
+        const float2 w0 = unpack2<T>(dov[r].x), w1 = unpack2<T>(dov[r].y);
+        const float sum = fmaf(u0.x, w0.x, fmaf(u0.y, w0.y, fmaf(u1.x, w1.x, u1.y * w1.y)));
+        if (row0 + r < sq && c0 + 4 * lane < dcols) part[r] += sum;
+      }
     }
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      const float2 u0 = unpack2<T>(ov[r].x), u1 = unpack2<T>(ov[r].y);
-      const float2 w0 = unpack2<T>(dov[r].x), w1 = unpack2<T>(dov[r].y);
-      float sum = fmaf(u0.x, w0.x, fmaf(u0.y, w0.y, fmaf(u1.x, w1.x, u1.y * w1.y)));
-      if (row0 + r >= sq || 4 * lane >= dcols) sum = 0.f;
+      float sum = part[r];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (r == g) di[0] = sum;
@@ -809,27 +871,33 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
-      const int k0 = j * DQ_KEYS;
+      const int k0 = j * KEYS;
+      // The wide kernels' loader fills the stage of tile j - 1 with tile j +
+      // STAGES - 1 once consumer 1 has released it too (consumer 0, whose
+      // rows see fewer keys, runs ahead, so it waits rather than consumer 1).
+      if (R::WIDE && threadIdx.x == 0 && j >= 1 && j + STAGES - 1 < n_tiles)
+        load_kv(j + STAGES - 1);
+      if constexpr (R::WIDE) __syncwarp();   // the loader's warp, converged for wgmma
       mbar_wait(kv_full(st), (j / STAGES) & 1);
       if (k0 > first + 63) {          // no row of this consumer sees a key of the tile
         mbar_arrive(empty(st));
         continue;
       }
       const uint32_t kt = base + L::K + st * L::Keys::BYTES;
-      float s[32], dp[32];
+      float s[KEYS / 2], dp[KEYS / 2];
       wgmma_fence();
-      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T>(s, qa, kt);
-      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T>(
+      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS>(s, qa, kt);
+      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS>(
           dp, da, base + L::V + st * L::Keys::BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       pin(s);
       pin(dp);
       // Only tiles that cross the diagonal or the end of K are masked.
-      const bool masked = !(k0 + DQ_KEYS <= sk && k0 + DQ_KEYS - 1 <= first);
-      uint32_t ds[16];
+      const bool masked = !(k0 + KEYS <= sk && k0 + KEYS - 1 <= first);
+      uint32_t ds[KEYS / 4];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < KEYS / 4; ++i) {
         const int r = i & 1;
         float p0 = exp2_ftz(fmaf(s[2 * i], scale_log2, -lse2[r]));
         float p1 = exp2_ftz(fmaf(s[2 * i + 1], scale_log2, -lse2[r]));
@@ -844,7 +912,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       pin(acc);
       pin(ds);
       wgmma_fence();
-      rs_product<D, L::Keys::BOX_STRIDE, T>(acc, ds, kt);
+      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);
       wgmma_commit();
       wgmma_wait<0>();
       pin(acc);
@@ -871,8 +939,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // the most rows see) first.  K and V come once by TMA; the ring brings, for
 // each query head of the group and each 64-row query tile that sees the
 // block's first key, Q and dO by TMA, and its rows' LSE and D_i, which
-// producer warp 1 copies with cp.async (rows past Sq as zeros: their Q and
-// dO are zeros too, so P^T dO and dS^T = P^T (dP^T - D_i) vanish there).
+// producer warp 1 (at width 256 consumer 1's first warp) copies with
+// cp.async (rows past Sq as zeros: their Q and dO are zeros too, so P^T dO
+// and dS^T = P^T (dP^T - D_i) vanish there).
 // The two consumers split the outputs, so each holds one 64 x D accumulator:
 // consumer 0 takes S^T = K Q^T, P^T in registers (masked where the tile
 // crosses the diagonal), hands P^T in fp32 to consumer 1 through shared
@@ -883,7 +952,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // MN-major.  Each dK/dV element has one writer and its sum one order.  D,
 // DO (0: `dh` at run time) and T as in the dQ kernel.
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -892,6 +961,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int hq,
                             int group, int offset, int dh, float scale_log2, float scale) {
   using L = KvLayout<D>;
+  using R = Roles<(D > 192)>;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
   unsigned char* const aligned = bwd_smem + (base - smem_addr(bwd_smem));
@@ -911,43 +982,60 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int t0 = first_row >= sq ? n_q : static_cast<int>(first_row / KV_ROWS);
   const int per_head = n_q - t0;
   const int n_tiles = group * per_head;
-  if (threadIdx.x == 0) init_ring(kv_full, 1 + 32, bars);   // q_full: TMA and warp 1's lanes
+  if (threadIdx.x == 0) init_ring<STAGES>(kv_full, 1 + 32, bars);   // q_full: TMA, 32 lanes
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  // K and V; then stage j's Q and dO (one thread) and its rows' LSE and D_i
+  // (a warp's lanes) once the stage is free.
+  auto load_kv = [&] {
+    mbar_expect(kv_full, 2 * L::Keys::BYTES);
+    load_tile<D, KV_KEYS>(base + L::K, kmap, kv_full, hk, k0, b);
+    load_tile<D, KV_KEYS>(base + L::V, vmap, kv_full, hk, k0, b);
+  };
+  auto load_rows = [&](int j, bool tma, int lane) {
+    const int s = j % STAGES;
+    const int h = hk * group + j / per_head, r0 = (t0 + j % per_head) * KV_ROWS;
+    mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
+    if (tma) {
+      mbar_expect(q_full(s), 2 * L::Rows::BYTES);
+      load_tile<D, KV_ROWS>(base + L::Q + s * L::Rows::BYTES, qmap, q_full(s), h, r0, b);
+      load_tile<D, KV_ROWS>(base + L::DOUT + s * L::Rows::BYTES, domap, q_full(s), h, r0, b);
+    }
+    if (lane >= 0) {
+      const long long stat = (static_cast<long long>(b) * hq + h) * sq;
+      const uint32_t st = smem_addr(stats + s * L::STAT_FLOATS);
+      for (int i = lane; i < KV_ROWS; i += 32) {
+        const bool in = r0 + i < sq;    // rows past Sq land as zeros
+        const long long at = stat + (in ? r0 + i : 0);
+        cp_async4(st + 4 * i, lse + at, in);
+        cp_async4(st + 4 * (KV_ROWS + i), dvec + at, in);
+      }
+      cp_async_arrive(q_full(s));  // q_full counts this lane once its copies land
+    }
+  };
+  // The wide kernels' loader: consumer 1's first warp (its lane 0 the TMA
+  // loads), which fills the first stages here and stage j - 1 in its turn j.
+  constexpr int LOADER = 128;
+  const bool loader = R::WIDE && threadIdx.x >= LOADER && threadIdx.x < LOADER + 32;
+  if (loader) {
+    if (threadIdx.x == LOADER) load_kv();
+    for (int j = 0; j < min(STAGES, n_tiles); ++j)
+      load_rows(j, threadIdx.x == LOADER, threadIdx.x - LOADER);
+  }
+  if constexpr (R::WIDE) __syncwarp();
+
+  if (R::producer()) {
+    // Thread 0 issues the TMA loads, warp 1 copies the LSE and D_i.
+    R::producer_regs();
     if (threadIdx.x == 0) {
-      mbar_expect(kv_full, 2 * L::Keys::BYTES);
-      load_tile<D, KV_KEYS>(base + L::K, kmap, kv_full, hk, k0, b);
-      load_tile<D, KV_KEYS>(base + L::V, vmap, kv_full, hk, k0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
-        const int h = hk * group + j / per_head, r0 = (t0 + j % per_head) * KV_ROWS;
-        mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
-        mbar_expect(q_full(s), 2 * L::Rows::BYTES);
-        load_tile<D, KV_ROWS>(base + L::Q + s * L::Rows::BYTES, qmap, q_full(s), h, r0, b);
-        load_tile<D, KV_ROWS>(base + L::DOUT + s * L::Rows::BYTES, domap, q_full(s), h, r0, b);
-      }
+      load_kv();
+      for (int j = 0; j < n_tiles; ++j) load_rows(j, true, -1);
     } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
-      const int lane = threadIdx.x - 32;
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
-        const int h = hk * group + j / per_head, r0 = (t0 + j % per_head) * KV_ROWS;
-        const long long stat = (static_cast<long long>(b) * hq + h) * sq;
-        const uint32_t st = smem_addr(stats + s * L::STAT_FLOATS);
-        mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
-        for (int i = lane; i < KV_ROWS; i += 32) {
-          const bool in = r0 + i < sq;    // rows past Sq land as zeros
-          const long long at = stat + (in ? r0 + i : 0);
-          cp_async4(st + 4 * i, lse + at, in);
-          cp_async4(st + 4 * (KV_ROWS + i), dvec + at, in);
-        }
-        cp_async_arrive(q_full(s));  // q_full counts this lane once its copies land
-      }
+      for (int j = 0; j < n_tiles; ++j) load_rows(j, false, threadIdx.x - 32);
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int c = threadIdx.x / 128 - 1;             // 0: P^T and dV; 1: dS^T and dK
+    R::consumer_regs();
+    const int c = R::consumer();                     // 0: P^T and dV; 1: dS^T and dK
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -1006,6 +1094,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           a[2 * m + 1] = pack2<T>(p.z * (s[4 * m + 2] - d0.x), p.w * (s[4 * m + 3] - d0.y));
         }
         if (j + 2 < n_tiles) bar_arrive_consumers(3 + buf);
+        // Consumer 0 wrote this P^T after it released tile j - 1, and so
+        // did this consumer: that stage takes tile j + STAGES - 1.
+        if (loader && j >= 1 && j + STAGES - 1 < n_tiles)
+          load_rows(j + STAGES - 1, threadIdx.x == LOADER, threadIdx.x - LOADER);
+        if constexpr (R::WIDE) __syncwarp();   // the loader's warp, converged for wgmma
       }
       pin(acc);
       pin(a);
@@ -1044,15 +1137,12 @@ size_t smem_bytes(int which) {
   return which == DQ ? DqLayout<D>::SMEM : KvLayout<D>::SMEM;
 }
 
-// setmaxnreg only moves registers between the warpgroups: the launch must
-// hold what the consumers ask for, or their setmaxnreg would wait.
-template <typename Fn>
+template <bool WIDE, typename Fn>
 cudaError_t prepare(Fn kernel, size_t smem) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 256)
-    return cudaErrorLaunchOutOfResources;
+  if (!Roles<WIDE>::launchable(attr.numRegs)) return cudaErrorLaunchOutOfResources;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -1077,15 +1167,19 @@ cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int s
   if (smem != smem_bytes<D>(which)) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   const float scale_log2 = scale * LOG2E;
+  constexpr bool WIDE = D > 192;
+  constexpr int THREADS = Roles<WIDE>::THREADS;
   cudaError_t err;
   if (which == DQ) {
-    if ((err = prepare(flash_bwd_dq_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess) return err;
+    if ((err = prepare<WIDE>(flash_bwd_dq_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+      return err;
     flash_bwd_dq_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(a.o),
         static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(a.dq), sq, sk, hq,
         hq / hkv, offset, dh, scale_log2, scale);
   } else {
-    if ((err = prepare(flash_bwd_dkdv_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess) return err;
+    if ((err = prepare<WIDE>(flash_bwd_dkdv_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+      return err;
     flash_bwd_dkdv_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], a.lse, a.dvec, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), sq, sk, hq, hq / hkv, offset, dh, scale_log2, scale);
@@ -1133,12 +1227,13 @@ int gqa_flash_bwd(int which, int dtype, const void* q, const void* k, const void
 // bfloat16, 2 = float16.  q, o, dout, dq (b, sq, hq, d) and k, v, dk, dv
 // (b, sk, hkv, d) contiguous; lse, the forward's (b, hq, sq), and dvec (b,
 // hq, sq) float32: the dQ kernel writes D_i there, the dK/dV kernel reads
-// it.  d a multiple of 8 in (32, 128]: bf16 at d 64, 112 and 128 on
+// it.  d a multiple of 8 in (32, 256]: bf16 at d 64, 112 and 128 on
 // instantiations of their own (d = 112 on the d = 128 tiles), every other
-// d on the 64-wide (d <= 64) or 128-wide tiles with the head dim taken at
-// run time; hq a multiple of hkv, causal_offset >= 0.  `maps` holds, for q,
-// k, v and dout in turn, eleven numbers (gqa_flash_wgmma's, with box (64,
-// 1, 64, 1)).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
+// d on the tiles 64, 128, 192 or 256 wide (the least multiple of 64 that
+// holds d) with the head dim taken at run time; hq a multiple of hkv,
+// causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn, eleven
+// numbers (gqa_flash_wgmma's, with box (64, 1, R, 1): R 64 up to d 128,
+// else 32).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
 // dQ, (hkv, b, ceil(sk / 64)) for dK/dV; `smem` its dynamic shared memory.
 int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse, float* dvec,
@@ -1147,7 +1242,7 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
                         int grid_y, int grid_z, long long smem, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || (which != wg::DQ && which != wg::DKDV) ||
-      (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 128)
+      (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
   const int tiles = ((which == wg::DQ ? sq : sk) + rows - 1) / rows;
@@ -1155,18 +1250,30 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[4] = {q, k, v, dout};
   CUtensorMap tm[4];
-  const int err = hopper::encode_maps(tm, ptrs, 4, maps, d, wg::BOX_ROWS, dtype == 2);
+  const int err = hopper::encode_maps(tm, ptrs, 4, maps, d,
+                                      d > 128 ? wg::WIDE_BOX_ROWS : wg::BOX_ROWS, dtype == 2);
   if (err != 0) return err;
   const wg::Args a{o, dout, lse, dvec, dq, dk, dv};
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
-  if (dtype == 2)
-    return static_cast<int>(
-        d <= 64 ? wg::launch<64, 0, __half>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
-                                            grid, sm, s)
-                : wg::launch<128, 0, __half>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
-                                             grid, sm, s));
+  const int tile = (d + 63) / 64 * 64;
+  if (dtype == 2) {
+    switch (tile) {
+      case 64:
+        return static_cast<int>(wg::launch<64, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                          causal_offset, grid, sm, s));
+      case 128:
+        return static_cast<int>(wg::launch<128, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                           causal_offset, grid, sm, s));
+      case 192:
+        return static_cast<int>(wg::launch<192, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                           causal_offset, grid, sm, s));
+      default:
+        return static_cast<int>(wg::launch<256, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                           causal_offset, grid, sm, s));
+    }
+  }
   switch (d) {
     case 64:
       return static_cast<int>(wg::launch<64>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
@@ -1177,12 +1284,20 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
     case 128:
       return static_cast<int>(wg::launch<128>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
                                               grid, sm, s));
+  }
+  switch (tile) {
+    case 64:
+      return static_cast<int>(wg::launch<64, 0>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
+                                                grid, sm, s));
+    case 128:
+      return static_cast<int>(wg::launch<128, 0>(which, tm, a, sq, sk, hq, hkv, d,
+                                                 causal_offset, grid, sm, s));
+    case 192:
+      return static_cast<int>(wg::launch<192, 0>(which, tm, a, sq, sk, hq, hkv, d,
+                                                 causal_offset, grid, sm, s));
     default:
-      return static_cast<int>(
-          d <= 64 ? wg::launch<64, 0>(which, tm, a, sq, sk, hq, hkv, d, causal_offset, grid, sm,
-                                      s)
-                  : wg::launch<128, 0>(which, tm, a, sq, sk, hq, hkv, d, causal_offset, grid,
-                                       sm, s));
+      return static_cast<int>(wg::launch<256, 0>(which, tm, a, sq, sk, hq, hkv, d,
+                                                 causal_offset, grid, sm, s));
   }
 }
 

@@ -3,7 +3,10 @@
 // kernels): the two 16-bit element types (bf16 and fp16) as pairs, mbarriers,
 // TMA loads through 4-D tensor maps over (B, S, H, D) 16-bit elements with
 // 128-byte swizzle, wgmma descriptors and products (each for either element
-// type, bf16 by default), and the encoding of the tensor maps on the host.
+// type, bf16 by default: S-like products K-major from shared memory at N 32,
+// 64 and 128; O-like products with A in registers and B MN-major at N 64,
+// 128, 192 and 256, the tiles' widths), and the encoding of the tensor maps
+// on the host.
 // Everything has internal linkage: each library that includes it gets its
 // own copy.
 #pragma once
@@ -140,6 +143,44 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
+
+// The roles of the threads of a block of two consumer warpgroups (the
+// forward's and the backward's wgmma kernels).  Up to tile width 128 (WIDE
+// false) a producer warpgroup 0 issues the TMA loads and gives registers to
+// the consumers, warpgroups 1 and 2, by setmaxnreg: 384 threads, 168
+// registers a thread at launch, 40 and 232 after.  ptxas allocates each
+// kernel only what the launch gives a thread, whatever setmaxnreg asks for
+// later: an SM sub-partition's 16,384 registers over its three warps, 168
+// (kernels built for 168, 232 and 240 after setmaxnreg spill alike, and so
+// does a block of 288 threads).  A consumer whose output takes 128 floats
+// (tiles 256 wide) spills there, so the 256-wide kernels (WIDE) run the two
+// consumer warpgroups alone, 256 threads of up to 255 registers, and a
+// consumer thread (LOADER) issues the loads at a point of its loop where the
+// stage it fills is known to be free.  Tiles 192 wide fit 168 registers and
+// keep the producer, which timed faster there than the consumers alone (trial
+// builds with Roles<true> at 192); chip_smoke.py times the bf16 D 192
+// forward and backward on this layout, the yardstick for a re-check.
+template <bool W>
+struct Roles {
+  static constexpr bool WIDE = W;
+  static constexpr int THREADS = WIDE ? 256 : 384;
+  static constexpr int CONSUMER = WIDE ? 0 : 128;      // consumer 0's first thread
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
+  __device__ static bool producer() { return !WIDE && threadIdx.x < 128; }
+  __device__ static int consumer() { return (threadIdx.x - CONSUMER) / 128; }
+  // Hand the producer's registers to the consumers (narrow kernels only).
+  __device__ static void producer_regs() {
+    if constexpr (!WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+  }
+  __device__ static void consumer_regs() {
+    if constexpr (!WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  }
+  // setmaxnreg only moves registers between the warpgroups: the launch must
+  // hold what the consumers ask for, or their setmaxnreg would wait.
+  static bool launchable(int regs) {
+    return WIDE || regs * THREADS >= PRODUCER_REGS * 128 + CONSUMER_REGS * 256;
+  }
+};
 
 // Named barrier `id` over the 256 threads of the two consumer warpgroups (0
 // is __syncthreads): wait for all 256, or arrive without waiting.
@@ -323,6 +364,145 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
     WGMMA_SS_N64_ASM("f16");
   else
     WGMMA_SS_N64_ASM("bf16");
+}
+
+// d (64 x 32, fp32) = a (64 x 16) * b (16 x 32), a and b in shared memory,
+// both K-major: the first step of a product, which reads nothing of d.
+#define WGMMA_SS_N32_FIRST_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]) \
+      : "l"(a), "l"(b), "r"(0))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N32_FIRST_ASM("f16");
+  else
+    WGMMA_SS_N32_FIRST_ASM("bf16");
+}
+
+// d (64 x 32, fp32) += a (64 x 16) * b (16 x 32), a and b in shared memory,
+// both K-major.
+#define WGMMA_SS_N32_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(a), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N32_ASM("f16");
+  else
+    WGMMA_SS_N32_ASM("bf16");
+}
+
+// d (64 x 192, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 192, shared
+// memory, MN-major: the transpose bit is set).
+#define WGMMA_RS_N192_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N192_ASM("f16");
+  else
+    WGMMA_RS_N192_ASM("bf16");
+}
+
+// d (64 x 256, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 256, shared
+// memory, MN-major: the transpose bit is set).
+#define WGMMA_RS_N256_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N256_ASM("f16");
+  else
+    WGMMA_RS_N256_ASM("bf16");
+}
+
+// The product of each width: d (64 x N, fp32) += a (64 x 16, registers) *
+// b (16 x N, MN-major) at N 64, 128, 192 or 256; and d (64 x N) = a b
+// (FIRST) or += a b, both K-major in shared memory, at N 32, 64 or 128.
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "a tile width");
+  if constexpr (N == 256)
+    wgmma_rs_n256<T>(d, a, b);
+  else if constexpr (N == 192)
+    wgmma_rs_n192<T>(d, a, b);
+  else if constexpr (N == 128)
+    wgmma_rs_n128<T>(d, a, b);
+  else
+    wgmma_rs_n64<T>(d, a, b);
+}
+template <int N, bool FIRST, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 128, "a score tile's keys");
+  if constexpr (N == 128) {
+    if constexpr (FIRST) wgmma_ss_n128_first<T>(d, a, b); else wgmma_ss_n128<T>(d, a, b);
+  } else if constexpr (N == 64) {
+    if constexpr (FIRST) wgmma_ss_n64_first<T>(d, a, b); else wgmma_ss_n64<T>(d, a, b);
+  } else {
+    if constexpr (FIRST) wgmma_ss_n32_first<T>(d, a, b); else wgmma_ss_n32<T>(d, a, b);
+  }
 }
 
 // 2^x in one MUFU instruction, results below 2^-126 flushed to 0 (exp2f

@@ -10,13 +10,15 @@ fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
 launches a kernel of ``csrc/flash_attention.cu`` (float16, bfloat16, float32
 or float64 at any head dim 1 <= D <= 256, as the reference's Pallas kernel
 takes any) or raises.  ``route`` picks the kernel from the dtype and D alone:
-bf16 and fp16 at a D that is a multiple of 8 in (32, 128] go to the Hopper
-kernel (wgmma fed by TMA over tiles 64 columns wide for D <= 64, else 128,
-whose columns past D TMA fills with zeros, storing D columns; bf16 at D 64,
-112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own: llama3-8b
-and the MoE configs take 64 or 128, zamba2-7b's shared attention 112), bf16
-and fp16 at every other D to the ``mma.sync`` kernel (the example trainers'
-heads: ``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16),
+bf16 and fp16 at a D that is a multiple of 8 in (32, 256] go to the Hopper
+kernel (wgmma fed by TMA over tiles 64, 128, 192 or 256 columns wide, the
+least multiple of 64 that holds D, whose columns past D TMA fills with
+zeros, storing D columns; key tiles of 128 up to width 128, of 64 past it;
+bf16 at D 64, 112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their
+own: llama3-8b and the MoE configs take 64 or 128, zamba2-7b's shared
+attention 112), bf16 and fp16 at every other D (off a multiple of 8, or at
+most 32) to the ``mma.sync`` kernel (the example trainers' heads:
+``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16),
 fp32 to the fp32 kernel, and fp64 to the fp32 kernel on fp32 copies, the
 output cast back, as the reference's kernel body computes in fp32.  The
 mma.sync and fp32 kernels run on the least padded width of 16, 32, 64, 128,
@@ -38,8 +40,9 @@ fp32 gradient of ``gqa_flash_plain``; on CUDA tensors the kernels of
 ``csrc/flash_attention_bwd.cu`` on the route ``bwd_route`` picks from the
 dtype and D alone: "wgmma" where the forward's route is "wgmma" (two Hopper
 kernels, dQ then dK/dV, on the forward's tiles, reading the forward's LSE;
-their plain version is ``gqa_flash_bwd_lse_plain``), "fma" everywhere else
-(three fp32 FMA kernels: row statistics, dK/dV, dQ, on the forward's padded
+their plain version is ``gqa_flash_bwd_lse_plain``; past width 128 dQ's
+key tiles are 32 and every TMA box 32 rows), "fma" everywhere else (three
+fp32 FMA kernels: row statistics, dK/dV, dQ, on the forward's padded
 widths, with tiles of 32 rows at width 256; fp64 on fp32 copies, the
 gradients cast back), planned by ``plan_bwd``.  Each backward adds one to
 ``launches["gqa_flash_bwd"]`` and one to each of its kernels' counts.  Under
@@ -91,7 +94,8 @@ PADDED_DIMS = (16, 32, 64, 128, 256)
 
 # The Hopper kernel's tiling (csrc/flash_attention.cu, namespace hopper).
 WGMMA_ROWS = 128        # query rows per block
-WGMMA_KEYS = 128        # keys per tile; the K/V boxes' rows
+WGMMA_KEYS = 128        # keys per tile and the boxes' rows, up to width 128
+WGMMA_WIDE_KEYS = 64    # the same past width 128 (``wgmma_keys``)
 TMA_BOX_COLS = 64       # 16-bit elements per 128-byte swizzled row: a box's inner extent
 # The mma.sync and fp32 kernels' tiling: query rows per block (grid
 # (ceil(Sq / 64), Hq, B)).
@@ -112,7 +116,9 @@ BWD_WGMMA_DQ_ROWS = 128     # dQ: query rows per block
 BWD_WGMMA_DQ_KEYS = 64      # dQ: keys per tile
 BWD_WGMMA_KV_KEYS = 64      # dK/dV: keys per block
 BWD_WGMMA_KV_ROWS = 64      # dK/dV: query rows per tile
-BWD_WGMMA_STAGES = 4        # ring depth of either kernel
+BWD_WGMMA_STAGES = 4        # ring depth of either kernel up to width 128
+BWD_WGMMA_WIDE_DQ_KEYS = 32     # dQ's keys per tile past width 128
+BWD_WGMMA_WIDE_BOX_ROWS = 32    # every box's rows past width 128
 #: The wgmma route's kernels in launch order, by their ``which`` in the C entry.
 BWD_WGMMA_KERNELS = ("bwd_wgmma_dq", "bwd_wgmma_dkdv")
 
@@ -254,11 +260,11 @@ def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
-    "wgmma" for bf16 and fp16 at a multiple of 8 in (32, 128], "mma_sync"
+    "wgmma" for bf16 and fp16 at a multiple of 8 in (32, 256], "mma_sync"
     for them at every other D, "fp32" for fp32 and fp64."""
     _check_dtype_and_dim(dtype, d, "kernel")
     if dtype in _HALF:
-        return "wgmma" if d % 8 == 0 and 32 < d <= 128 else "mma_sync"
+        return "wgmma" if _wgmma_dim(d) else "mma_sync"
     return "fp32"
 
 
@@ -276,24 +282,39 @@ def padded_dim(d: int) -> int:
     return next(p for p in PADDED_DIMS if d <= p)
 
 
+def _wgmma_dim(d: int) -> bool:
+    """Whether the wgmma kernels take head dim d: a multiple of 8 in (32, 256]."""
+    return d % 8 == 0 and 32 < d <= MAX_HEAD_DIM
+
+
 def wgmma_tile_dim(d: int) -> int:
     """The width of the Hopper kernels' tiles at head dim d (a multiple of 8
-    in (32, 128]): 64 up to 64, else 128; TMA fills columns d.. with zeros."""
-    return 64 if d <= 64 else 128
+    in (32, 256]): the least multiple of 64 that holds it, 64, 128, 192 or
+    256; TMA fills columns d.. with zeros."""
+    return -(-d // TMA_BOX_COLS) * TMA_BOX_COLS
+
+
+def wgmma_keys(d: int) -> int:
+    """Keys per K/V tile of the Hopper forward at head dim d, and the rows
+    of its tensor maps' boxes (Q comes in 128 / that boxes a column box):
+    128 up to width 128, 64 past it, where the output's D/2 floats a thread
+    leave room for only 64 keys of S and P."""
+    return WGMMA_KEYS if wgmma_tile_dim(d) <= 128 else WGMMA_WIDE_KEYS
 
 
 def wgmma_stages(d: int) -> int:
     """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB."""
-    return 2 if wgmma_tile_dim(d) == 128 else 3
+    return 3 if wgmma_tile_dim(d) in (64, 192) else 2
 
 
 def wgmma_smem_bytes(d: int) -> int:
     """The Hopper kernel's dynamic shared memory at head dim d: 1024 bytes
-    of alignment slack, the Q tile, a ring of K and V tiles (each
-    ``wgmma_tile_dim(d)`` columns wide), 8 bytes per mbarrier."""
-    tile = (wgmma_tile_dim(d) // TMA_BOX_COLS) * WGMMA_KEYS * TMA_BOX_COLS * 2
+    of alignment slack, the Q tile (128 rows), a ring of K and V tiles
+    (``wgmma_keys(d)`` rows), each ``wgmma_tile_dim(d)`` columns wide, 8
+    bytes per mbarrier."""
+    row = wgmma_tile_dim(d) * 2
     stages = wgmma_stages(d)
-    return 1024 + tile * (1 + 2 * stages) + 8 * (1 + 3 * stages)
+    return 1024 + WGMMA_ROWS * row + 2 * stages * wgmma_keys(d) * row + 8 * (1 + 3 * stages)
 
 
 def mma_smem_bytes(d: int) -> int:
@@ -394,7 +415,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
-    ok = {"wgmma": q.dtype in _HALF and d % 8 == 0 and 32 < d <= 128,
+    ok = {"wgmma": q.dtype in _HALF and _wgmma_dim(d),
           "mma_sync": q.dtype in _HALF,
           "fp32": q.dtype in (torch.float32, torch.float64)}
     if not ok.get(name, False):
@@ -403,7 +424,8 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     b, sq, hq, _ = q.shape
     if name != "wgmma":
         return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
-    return Plan(name, maps=tensor_map(q) + tensor_map(k) + tensor_map(v),
+    rows = wgmma_keys(d)
+    return Plan(name, maps=tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows),
                 grid=(hq, b, -(-sq // WGMMA_ROWS)), smem=wgmma_smem_bytes(d))
 
 
@@ -436,21 +458,41 @@ def bwd_smem_bytes(d: int) -> tuple[int, int, int]:
     return (4 * 2 * tile, 4 * (4 * tile + 2 * r * ps + 2 * r), 4 * (4 * tile + r * ps))
 
 
+def bwd_wgmma_box_rows(d: int) -> int:
+    """Rows of the wgmma backward's TMA boxes at head dim d: 64, or 32 past
+    width 128."""
+    return BWD_WGMMA_BOX_ROWS if wgmma_tile_dim(d) <= 128 else BWD_WGMMA_WIDE_BOX_ROWS
+
+
+def bwd_wgmma_dq_keys(d: int) -> int:
+    """Keys per K/V tile of the wgmma route's dQ kernel at head dim d: 64,
+    or 32 past width 128, where Q and dO of 128 rows (128 KiB at 256) leave
+    room for three stages of 32 keys and one of 64."""
+    return BWD_WGMMA_DQ_KEYS if wgmma_tile_dim(d) <= 128 else BWD_WGMMA_WIDE_DQ_KEYS
+
+
+def bwd_wgmma_stages(d: int) -> tuple[int, int]:
+    """Ring depths of the wgmma route's dQ and dK/dV kernels at head dim d:
+    what fits 227 KB, at most ``BWD_WGMMA_STAGES``."""
+    tile = wgmma_tile_dim(d)
+    return (3 if tile == 256 else BWD_WGMMA_STAGES,
+            {256: 2, 192: 3}.get(tile, BWD_WGMMA_STAGES))
+
+
 def bwd_wgmma_smem_bytes(d: int) -> tuple[int, int]:
     """Dynamic shared memory of the wgmma route's dQ and dK/dV kernels at
     head dim d: 1024 bytes of alignment slack; dQ: Q and dO (128 rows) and a
-    ring of K and V tiles (64 keys); dK/dV: K and V (64 keys), a ring of Q
-    and dO tiles (64 rows) with each stage's 64 LSEs and D_i in fp32, and two
-    64 x 64 fp32 buffers of P^T; tiles ``wgmma_tile_dim(d)`` columns wide, 8
-    bytes per mbarrier."""
+    ring of K and V tiles (``bwd_wgmma_dq_keys(d)`` keys); dK/dV: K and V (64
+    keys), a ring of Q and dO tiles (64 rows) with each stage's 64 LSEs and
+    D_i in fp32, and two 64 x 64 fp32 buffers of P^T; tiles
+    ``wgmma_tile_dim(d)`` columns wide, 8 bytes per mbarrier of each ring."""
     cols = wgmma_tile_dim(d) * 2
-    stages = BWD_WGMMA_STAGES
-    bars = 8 * (1 + 2 * stages)
-    dq = 2 * BWD_WGMMA_DQ_ROWS * cols + 2 * stages * BWD_WGMMA_DQ_KEYS * cols
-    dkdv = 2 * BWD_WGMMA_KV_KEYS * cols + stages * (2 * BWD_WGMMA_KV_ROWS * cols
-                                                    + 2 * BWD_WGMMA_KV_ROWS * 4) \
+    s_dq, s_kv = bwd_wgmma_stages(d)
+    dq = 2 * BWD_WGMMA_DQ_ROWS * cols + 2 * s_dq * bwd_wgmma_dq_keys(d) * cols
+    dkdv = 2 * BWD_WGMMA_KV_KEYS * cols + s_kv * (2 * BWD_WGMMA_KV_ROWS * cols
+                                                  + 2 * BWD_WGMMA_KV_ROWS * 4) \
         + 2 * BWD_WGMMA_KV_KEYS * BWD_WGMMA_KV_ROWS * 4
-    return 1024 + dq + bars, 1024 + dkdv + bars
+    return 1024 + dq + 8 * (1 + 2 * s_dq), 1024 + dkdv + 8 * (1 + 2 * s_kv)
 
 
 def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -460,8 +502,8 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     launches of ``route`` (default: ``bwd_route`` of q's dtype and D).
     "fma": stats and dQ over (query tiles, Hq, B), dK/dV over (key tiles,
     Hkv, B), tiles of ``bwd_tile_rows(D)``; "wgmma" (bf16 and fp16 at a
-    multiple of 8 in (32, 128]): dQ over (Hq, B, query tiles of 128), dK/dV
-    over (Hkv, B, key tiles of 64).  float64 inputs are planned as the
+    multiple of 8 in (32, 256]): dQ over (Hq, B, query tiles of 128), dK/dV
+    over (Hkv, B, key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows.  float64 inputs are planned as the
     float32 copies the launch runs on."""
     _check_shapes(q, k, v, causal_offset)
     for name, t in (("o", o), ("do", do)):
@@ -478,13 +520,13 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         k_tiles = -(-sk // r)
         return BwdPlan("fma", grids=((q_tiles, hq, b), (k_tiles, hkv, b), (q_tiles, hq, b)),
                        smem=bwd_smem_bytes(d))
-    if name != "wgmma" or q.dtype not in _HALF or d % 8 or not 32 < d <= 128:
+    if name != "wgmma" or q.dtype not in _HALF or not _wgmma_dim(d):
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
     _check_layout(q, k, v, causal_offset, name)
     if not _tma_ready(do):
         raise ValueError(f"do needs q's layout rules for its tensor map; got strides "
                          f"{do.stride()}")
-    rows = BWD_WGMMA_BOX_ROWS
+    rows = bwd_wgmma_box_rows(d)
     return BwdPlan("wgmma", grids=((hq, b, -(-sq // BWD_WGMMA_DQ_ROWS)),
                                    (hkv, b, -(-sk // BWD_WGMMA_KV_KEYS))),
                    smem=bwd_wgmma_smem_bytes(d),

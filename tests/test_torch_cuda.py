@@ -737,6 +737,53 @@ def test_kernel_flash_every_head_dim(cuda_flash_bwd, d, dtype):
                           what + " backward")
 
 
+# The wgmma route past width 128, on tiles 192 and 256 wide: D 136 and 200
+# off the tiles' edges (TMA zero-fills the rest), 192 and 256 on them.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+def test_kernel_flash_wgmma_wide(cuda_flash_bwd, d, dtype):
+    """Forward, LSE and backward of the wide tiles on ragged GQA shapes with
+    causal offsets (keys no row sees; one row over 300 keys): the output bit
+    for bit with and without the LSE and within the flash limits; the LSE
+    within 1e-4 of ``gqa_flash_lse_plain``; the backward within the limits of
+    the fp32 plain backward and BWD_ROUNDED_REL of the plain version that
+    rounds where the kernels round; two backward runs equal bit for bit.  At
+    D 256 the previous routes still launch on request."""
+    for b, sq, sk, hq, hkv, off in DIMS_SHAPES + [(2, 300, 300, 16, 8, 0)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        bare = fa.gqa_flash(q, k, v, causal_offset=off)
+        got = fa.gqa_flash_bwd(q, k, v, out, do, causal_offset=off, lse=lse)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 2, "wgmma": 2, "gqa_flash_bwd": 1, "bwd_wgmma_dq": 1,
+            "bwd_wgmma_dkdv": 1}, (what, fa.launches)
+        assert torch.equal(out, bare), what
+        _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, out, do, lse, off,
+                                                          round_bf16=True),
+                          what + " rounded", rel_limit=BWD_ROUNDED_REL)
+        again = fa.gqa_flash_bwd(q, k, v, out, do, causal_offset=off, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what   # no atomics
+    if d == 256:
+        fa.reset_launches()
+        _assert_flash_close(fa.launch(q, k, v, off, kernel="mma_sync"),
+                            fa.gqa_flash_plain(q, k, v, causal_offset=off), "mma_sync")
+        _assert_bwd_close(fa.launch_bwd(q, k, v, out, do, off, route="fma"),
+                          fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off), "fma")
+        assert fa.launches["mma_sync"] == 1 and all(fa.launches[n] == 1
+                                                    for n in fa.BWD_KERNELS), fa.launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16), (40, torch.float16),
                                      (33, torch.bfloat16), (100, torch.float32)], ids=str)

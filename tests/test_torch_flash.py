@@ -275,7 +275,7 @@ def test_tiling_constants_match_the_cuda_source():
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", hopper)}
     assert const["ROWS"] == fa.WGMMA_ROWS and const["KEYS"] == fa.WGMMA_KEYS
     assert const["BOX"] == fa.TMA_BOX_COLS
-    assert "STAGES = D == 128 ? 2 : 3;" in hopper
+    assert "STAGES = D == 64 || D == 192 ? 3 : 2;" in hopper
     assert (fa.wgmma_stages(128), fa.wgmma_stages(64)) == (2, 3)
     # the Hopper entry point runs D = 112 on the D = 128 tiles
     assert "case 112:\n      return static_cast<int>(hopper::launch<128, 112>(" in src

@@ -41,6 +41,8 @@ ROUNDED_REL, ROUNDED_TOL = 1e-2, 5e-2
 SHAPES = [(2, 9, 9, 2, 2, 32, 0), (1, 13, 20, 4, 2, 32, 7), (2, 17, 17, 8, 2, 16, 0),
           (1, 5, 37, 4, 1, 64, 32), (2, 70, 70, 4, 2, 32, 0)]
 TRAIN = (4, 2304, 2304, 16, 8, 128, 0)       # internvl2-2b's train step
+# Head dims past 128, on the wide tiles (192 and 256)
+WIDE_SHAPES = [(1, 13, 20, 4, 2, 256, 7), (2, 17, 17, 8, 2, 136, 0)]
 
 
 def _inputs(shape, seed=0):
@@ -58,7 +60,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES, ids=str)
 def test_lse_plain_matches_jax_logsumexp(shape):
     q, k, _, _ = _inputs(shape)
     b, sq, sk, hq, hkv, d, off = shape
@@ -77,7 +79,7 @@ def _rel_l2(a, b):
 
 
 @pytest.mark.parametrize("round_bf16", [False, True], ids=["fp32", "bf16-rounded"])
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES, ids=str)
 def test_lse_backward_matches_jax_vjp(shape, round_bf16):
     q, k, v, do = _inputs(shape, seed=2)
     off = shape[-1]
@@ -118,9 +120,10 @@ def _bf16_tensors(shape):
 
 def _wgmma_shapes():
     """The CPU shapes' B, S, heads and offsets at the wgmma route's head dims,
-    and the train step's tiling."""
+    two of them past 128 (the wide tiles), and the train step's tiling."""
     dims = (64, 112, 128)
-    return [s[:5] + (dims[i % 3], s[6]) for i, s in enumerate(SHAPES)] + [TRAIN]
+    return [s[:5] + (dims[i % 3], s[6]) for i, s in enumerate(SHAPES)] + [TRAIN] + \
+        [SHAPES[1][:5] + (160, SHAPES[1][6]), TRAIN[:5] + (256, 0)]
 
 
 @pytest.mark.parametrize("shape", _wgmma_shapes(), ids=str)
@@ -129,7 +132,7 @@ def test_plan_bwd_wgmma_grids_cover_every_output_once(shape):
     pl = fa.plan_bwd(*_bf16_tensors(shape), causal_offset=off)
     assert pl.route == "wgmma"
     assert pl.smem == fa.bwd_wgmma_smem_bytes(d) and max(pl.smem) <= 232_448
-    rows = fa.BWD_WGMMA_BOX_ROWS
+    rows = fa.BWD_WGMMA_BOX_ROWS if d <= 128 else fa.BWD_WGMMA_WIDE_BOX_ROWS
     assert len(pl.maps) == 4 * 11 and all(pl.maps[11 * i + 9] == rows for i in range(4))
     # dQ: block (h, b, z) owns query rows of tile gz - 1 - z (heaviest first)
     # of head h; dK/dV: block (hk, b, z) owns keys of tile z of KV head hk.
@@ -178,6 +181,13 @@ def test_wgmma_tiling_constants_match_the_cuda_source():
     # which both consumers share; the forward's box width
     assert const("DQ_ROWS") == 2 * const("BOX_ROWS")
     assert const("KV_KEYS") == const("DQ_KEYS") == const("KV_ROWS") == const("BOX_ROWS") == 64
+    # past width 128: dQ's key tiles and every box 32 rows; the rings' depths
+    assert (const("WIDE_DQ_KEYS"), const("WIDE_BOX_ROWS")) == (
+        fa.BWD_WGMMA_WIDE_DQ_KEYS, fa.BWD_WGMMA_WIDE_BOX_ROWS) == (32, 32)
+    assert "static constexpr int DQ_STAGES = D == 256 ? 3 : STAGES;" in wg
+    assert "static constexpr int KV_STAGES = D == 256 ? 2 : D == 192 ? 3 : STAGES;" in wg
+    assert [fa.bwd_wgmma_stages(t) for t in (64, 128, 192, 256)] == [(4, 4), (4, 4), (4, 3),
+                                                                      (3, 2)]
     hopper = (Path(fa.__file__).resolve().parents[1] / "csrc" / "hopper.cuh").read_text()
     assert f"constexpr int BOX = {fa.TMA_BOX_COLS};" in hopper
 
@@ -227,8 +237,9 @@ def _tile(t, h, r0, rows, n):
 
 def _wgmma_model(q, k, v, o, do, lse, off):
     """The two kernels' loops in float64: the dQ kernel's blocks of 128 rows
-    (heaviest first), each consumer's 64 rows over key tiles of 64 up to the
-    block's last visible key, skipping tiles none of its rows sees, masking
+    (heaviest first), each consumer's 64 rows over key tiles of
+    ``bwd_wgmma_dq_keys(D)`` (64, or 32 past width 128) up to the block's
+    last visible key, skipping tiles none of its rows sees, masking
     tiles that cross the diagonal or Sk; D_i from o and do; then the dK/dV
     kernel's blocks of 64 keys over the group's heads and the 64-row query
     tiles from the one holding the first row that sees the block's first key
@@ -242,7 +253,7 @@ def _wgmma_model(q, k, v, o, do, lse, off):
     di = torch.cat([(do.double() * o.double()).sum(-1).permute(0, 2, 1),
                     torch.zeros((b, hq, 256), dtype=torch.float64)], -1)
     dq, dk, dv = (torch.zeros(t.shape, dtype=torch.float64) for t in (q, k, v))
-    rows_dq, keys_dq = fa.BWD_WGMMA_DQ_ROWS, fa.BWD_WGMMA_DQ_KEYS
+    rows_dq, keys_dq = fa.BWD_WGMMA_DQ_ROWS, fa.bwd_wgmma_dq_keys(d)
     gz = -(-sq // rows_dq)
     for h in range(hq):
         for z in range(gz):
@@ -258,11 +269,12 @@ def _wgmma_model(q, k, v, o, do, lse, off):
                     k0 = j * keys_dq
                     if k0 > first + 63:
                         continue
-                    kt, vt = _tile(k, h // g, k0, 64, sk), _tile(v, h // g, k0, 64, sk)
+                    kt = _tile(k, h // g, k0, keys_dq, sk)
+                    vt = _tile(v, h // g, k0, keys_dq, sk)
                     p = torch.exp(torch.einsum("brd,bkd->brk", qt, kt) * scale
                                   - lse[:, h, r0:r0 + 64, None])
-                    if not (k0 + 64 <= sk and k0 + 63 <= first):
-                        key = k0 + torch.arange(64)[None, :]
+                    if not (k0 + keys_dq <= sk and k0 + keys_dq - 1 <= first):
+                        key = k0 + torch.arange(keys_dq)[None, :]
                         p = torch.where((key < sk) & (pos >= key), p, 0.0)
                     ds = p * (torch.einsum("brd,bkd->brk", dot, vt) - di[:, h, r0:r0 + 64, None])
                     acc += torch.einsum("brk,bkd->brd", ds, kt)
@@ -302,7 +314,8 @@ def _wgmma_model(q, k, v, o, do, lse, off):
 
 @pytest.mark.parametrize("shape", [(1, 200, 200, 4, 2, 16, 0), (1, 5, 300, 2, 1, 16, 290),
                                    (1, 130, 65, 2, 2, 16, 0), (1, 3, 200, 2, 2, 16, 3),
-                                   (2, 260, 300, 4, 1, 16, 40)], ids=str)
+                                   (2, 260, 300, 4, 1, 16, 40), (1, 200, 235, 4, 2, 200, 35),
+                                   (1, 130, 130, 2, 1, 256, 0)], ids=str)
 def test_wgmma_loops_model_matches_plain(shape):
     q, k, v, do = map(torch.from_numpy, _inputs(shape, seed=5))
     off = shape[-1]

@@ -4,7 +4,7 @@ JAX package, on the CPU.
 The reference's Pallas ``gqa_flash`` takes any dtype and any head dim (its
 body casts to fp32 and back); the port routes each (dtype, D) to a
 hand-written kernel: "wgmma" for bf16 and fp16 at a multiple of 8 in (32,
-128], "mma_sync" for them elsewhere, "fp32" for fp32 and fp64 (fp64 on
+256], "mma_sync" for them elsewhere, "fp32" for fp32 and fp64 (fp64 on
 fp32 copies).  Here, without a card:
 
 - the plain forward against the Pallas kernel in interpret mode and
@@ -159,7 +159,7 @@ def test_route_at_every_head_dim_and_dtype():
     for dtype in FLOATS:
         for d in range(1, 257):
             half = dtype in (torch.float16, torch.bfloat16)
-            want = ("wgmma" if d % 8 == 0 and 32 < d <= 128 else "mma_sync") if half \
+            want = ("wgmma" if d % 8 == 0 and 32 < d <= 256 else "mma_sync") if half \
                 else "fp32"
             assert fa.route(dtype, d) == want, (dtype, d)
             assert fa.bwd_route(dtype, d) == ("wgmma" if want == "wgmma" else "fma")
@@ -223,7 +223,8 @@ def _walk_forward(pl, b, sq, hq, d, dp):
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 40), (torch.float16, 72), (torch.bfloat16, 96), (torch.float16, 120),
     (torch.float16, 8), (torch.bfloat16, 33), (torch.float16, 100), (torch.bfloat16, 256),
-    (torch.float32, 1), (torch.float32, 33), (torch.float32, 160), (torch.float64, 256)],
+    (torch.float32, 1), (torch.float32, 33), (torch.float32, 160), (torch.float64, 256),
+    (torch.float16, 136), (torch.bfloat16, 192), (torch.bfloat16, 200), (torch.float16, 256)],
     ids=str)
 def test_forward_grid_stores_each_output_once(dtype, d):
     b, sq, hq = 2, 130, 3
@@ -239,7 +240,11 @@ def test_forward_grid_stores_each_output_once(dtype, d):
         loaded = np.arange(fa.wgmma_tile_dim(d) // box * box)
         assert extent == d and set(loaded[loaded < extent]) == set(range(d))
         assert fa.wgmma_tile_dim(d) - d < box and pl.smem == fa.wgmma_smem_bytes(d)
+        assert pl.smem <= SMEM_LIMIT and fa.wgmma_tile_dim(d) % box == 0
         assert all(s % 16 == 0 for s in pl.maps[4:7])     # TMA's byte strides
+        # boxes of the K/V tiles' keys: 128 up to width 128, 64 past it
+        rows = 128 if d <= 128 else 64
+        assert fa.wgmma_keys(d) == rows and all(pl.maps[11 * i + 9] == rows for i in range(3))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float16, 160),
@@ -253,7 +258,7 @@ def test_fma_grids_cover_each_gradient_once(dtype, d):
     b, sq, sk, hq, hkv = 2, 75, 101, 4, 2
     q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
     k = torch.empty((b, sk, hkv, d), dtype=dtype, device="meta")
-    pl = fa.plan_bwd(q, k, k, q, q, causal_offset=26)
+    pl = fa.plan_bwd(q, k, k, q, q, causal_offset=26, route="fma")
     r, dp = fa.bwd_tile_rows(d), fa.padded_dim(d)
     assert pl.route == "fma" and r == (32 if dp == 256 else 64)
     assert pl.smem == fa.bwd_smem_bytes(d) and max(pl.smem) <= SMEM_LIMIT
@@ -275,7 +280,8 @@ def test_fma_grids_cover_each_gradient_once(dtype, d):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40), (torch.float16, 72),
-                                     (torch.bfloat16, 96), (torch.float16, 128)], ids=str)
+                                     (torch.bfloat16, 96), (torch.float16, 128),
+                                     (torch.bfloat16, 200), (torch.float16, 256)], ids=str)
 def test_wgmma_backward_plan_at_a_run_time_head_dim(dtype, d):
     b, sq, sk, hq, hkv = 2, 130, 200, 4, 2
     q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
@@ -286,16 +292,24 @@ def test_wgmma_backward_plan_at_a_run_time_head_dim(dtype, d):
                         (hkv, b, -(-sk // fa.BWD_WGMMA_KV_KEYS)))
     assert pl.smem == fa.bwd_wgmma_smem_bytes(d) and max(pl.smem) <= SMEM_LIMIT
     assert [pl.maps[11 * i] for i in range(4)] == [d] * 4      # each map's extent: d
-    assert all(pl.maps[11 * i + 9] == fa.BWD_WGMMA_BOX_ROWS for i in range(4))
+    rows = fa.BWD_WGMMA_BOX_ROWS if d <= 128 else fa.BWD_WGMMA_WIDE_BOX_ROWS
+    assert all(pl.maps[11 * i + 9] == rows == fa.bwd_wgmma_box_rows(d) for i in range(4))
 
 
 def test_every_instantiation_fits_a_block():
     for d in fa.PADDED_DIMS:
         assert fa.mma_smem_bytes(d) <= SMEM_LIMIT and fa.f32_smem_bytes(d) <= SMEM_LIMIT
         assert max(fa.bwd_smem_bytes(d)) <= SMEM_LIMIT
-    for tile in (64, 128):
+    for tile in (64, 128, 192, 256):
         assert fa.wgmma_smem_bytes(tile) <= SMEM_LIMIT
         assert max(fa.bwd_wgmma_smem_bytes(tile)) <= SMEM_LIMIT
+    # width 256: Q (128 rows, 64 KiB) and two stages of K and V tiles of 64
+    # keys; the backward's dQ: Q and dO (128 KiB) and three stages of 32
+    # keys, its dK/dV: K and V, two stages of Q and dO, two fp32 P^T buffers
+    assert fa.wgmma_smem_bytes(256) == 1024 + 65536 + 2 * 2 * 32768 + 8 * 7 == 197_688
+    assert fa.bwd_wgmma_smem_bytes(256) == (1024 + 131072 + 3 * 32768 + 8 * 7,
+                                            1024 + 65536 + 2 * (65536 + 512) + 32768 + 8 * 5)
+    assert fa.bwd_wgmma_stages(192) == (4, 3) and fa.wgmma_stages(192) == 3
     # width 256: Q stays in shared memory beside two buffers each of K and V
     # (rows of 264 16-bit elements); fp32 tiles of 32 rows in the backward
     assert fa.mma_smem_bytes(256) == 2 * 5 * 64 * 264 == 168_960
@@ -319,8 +333,12 @@ def test_source_constants_and_routes():
     assert fa.PADDED_DIMS == (16, 32, 64, 128, 256)
     assert "return DP > 128 ? 32 : BQ;" in bwd and fa.BWD_WIDE_ROWS == 32
     for src in (fwd, bwd):
-        assert "d % 8 != 0 || d <= 32 || d > 128" in src        # the wgmma entries
+        assert "d % 8 != 0 || d <= 32 || d > 256" in src        # the wgmma entries
         assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" not in src      # in hopper.cuh
+    assert "constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : KEYS; }" in fwd
+    assert "constexpr int WIDE_KEYS = 64;" in fwd and fa.WGMMA_WIDE_KEYS == 64
+    assert "static constexpr int STAGES = D == 64 || D == 192 ? 3 : 2;" in fwd
+    assert [fa.wgmma_stages(t) for t in (64, 128, 192, 256)] == [3, 2, 3, 2]
     assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in (csrc / "hopper.cuh").read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in fwd
 
