@@ -22,12 +22,16 @@ Phases, any failure exits non-zero:
    timed in turns with the retained mma.sync kernel (at most half its time),
    at zamba2-7b's forward shape (D 112) beside the plain version and SDPA,
    and at ``train_carbon_aware``'s tiny preset (bf16 D 16 on the mma.sync
-   kernel, forward and fma backward, also at a rank's batch and an edge
-   shape) beside the plain versions and SDPA;
-   ``gqa_flash``'s backward (the stats, dK/dV and dQ kernels) against the
-   plain backward at the train step's shape (bf16, S 2304, Hq 16, Hkv 8,
-   D 128) and at the launcher's fp32 D-32 shape, twice with equal bits, each
-   kernel timed beside its bound, the plain backward and SDPA's backward; the
+   kernel, forward with its LSE and the mma backward pair, the fma route
+   beside it, also at a rank's batch and an edge shape) beside the plain
+   versions and SDPA; ``gqa_flash``'s backward (the wgmma pair and the fma
+   route's stats, dK/dV and dQ kernels) against the plain backward at the
+   train step's shape (bf16, S 2304, Hq 16, Hkv 8, D 128) and at the
+   launcher's fp32 D-32 shape, twice with equal bits, each kernel timed
+   beside its bound, the plain backward and SDPA's backward; every head
+   dim and dtype (the head-dim sweep: the staged Hopper route off a
+   multiple of 8, the mma backward at D <= 32) against the plain versions,
+   the new routes timed in turns against the routes they replaced; the
    batch KNN lookup on the cluster kernel equal bit for bit to the previous
    (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
    device time (the cluster kernel at most half), beside the floor (an empty
@@ -383,13 +387,13 @@ def busy_us(events) -> float:
     return total
 
 
-def device_trace(fn, iters: int = 200) -> tuple[float, int]:
+def device_trace(fn, iters: int = 200, warmup: int = 20) -> tuple[float, int]:
     """The card's busy microseconds that ``torch.profiler`` records over
-    ``iters`` calls of ``fn`` (after 20 warm-up calls), and the number of
+    ``iters`` calls of ``fn`` (after ``warmup`` calls), and the number of
     device events it recorded."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -400,11 +404,11 @@ def device_trace(fn, iters: int = 200) -> tuple[float, int]:
     return busy_us(events), len(events)
 
 
-def device_ms(fn, iters: int = 200) -> float | None:
+def device_ms(fn, iters: int = 200, warmup: int = 20) -> float | None:
     """Mean device milliseconds per call: the card's busy time that
-    ``torch.profiler`` records over ``iters`` calls (None when the profiler
-    records no device time)."""
-    total_us, _ = device_trace(fn, iters)
+    ``torch.profiler`` records over ``iters`` calls after ``warmup`` (None
+    when the profiler records no device time)."""
+    total_us, _ = device_trace(fn, iters, warmup)
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -831,6 +835,16 @@ def flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype):
     return one(sq, hq), one(sk, hkv), one(sk, hkv)
 
 
+def card_normal(gen, *shapes, dtype=torch.bfloat16):
+    """Unit-normal tensors of ``shapes`` drawn on the card by a CUDA
+    generator seeded from ``gen`` (numpy), rounded to ``dtype``: the timed
+    shapes' hundreds of millions of values, which numpy would draw on the
+    host for seconds."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(gen.integers(2**62)))
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype) for shape in shapes]
+
+
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
@@ -863,11 +877,19 @@ def elt_type(name: str) -> str:
     return "fp16" if "6__half" in name else "bf16" if "__nv_bfloat16" in name else "fp32"
 
 
+def wgmma_template(name: str) -> tuple[int, int]:
+    """(tile width, DO) of a mangled Hopper kernel name: DO the head dim of a
+    pinned instantiation, 0 (a run-time multiple of 8) or -1 (any run-time
+    head dim, mangled ``Lin1``)."""
+    tile, do = re.search(r"ILi(\d+)ELi(n?\d+)E", name).groups()
+    return int(tile), -int(do[1:]) if do.startswith("n") else int(do)
+
+
 def pinned_wgmma(name: str) -> bool:
     """Whether a mangled Hopper kernel name is one of the pinned bf16
     instantiations (D 64, 112 or 128 at compile time)."""
-    m = re.search(r"ILi(\d+)ELi(\d+)E", name)
-    return bool(m) and int(m.group(2)) > 0 and "__nv_bfloat16" in name
+    return re.search(r"ILi(\d+)ELi(n?\d+)E", name) is not None \
+        and wgmma_template(name)[1] > 0 and "__nv_bfloat16" in name
 
 
 def ptxas_report(report, kernel):
@@ -938,8 +960,9 @@ def flash_kernel_phase(report):
 
     ptx = ptxas_report(report, "flash_wgmma_kernel")
     for name, rep in ptx.items():
-        tile, d = (int(x) for x in re.search(r"ILi(\d+)ELi(\d+)E", name).groups())
-        log(f"flash_wgmma_kernel<{tile}, {d or 'run-time D'}, {elt_type(name)}>: ptxas {rep}, "
+        tile, d = wgmma_template(name)
+        what = {0: "run-time D", -1: "any run-time D"}.get(d, d)
+        log(f"flash_wgmma_kernel<{tile}, {what}, {elt_type(name)}>: ptxas {rep}, "
             f"dynamic shared memory {fa.wgmma_smem_bytes(tile)} bytes, "
             f"{fa.wgmma_stages(tile)} stages")
     if not ptx:
@@ -1007,25 +1030,30 @@ LSE_TOL = 1e-4
 
 
 def flash_lse_check():
-    """The Hopper forward with and without its LSE at the prefill's (D 128),
-    zamba2's (D 112) and the ragged (D 64) shapes: the output equal bit for
-    bit (the serving path asks for none), the LSE within LSE_TOL of
-    ``gqa_flash_lse_plain``.  Returns each shape's largest LSE difference."""
+    """The Hopper forward and the mma.sync forward, each with and without
+    its LSE, at the prefill's (D 128), zamba2's (D 112) and the ragged (D
+    64) shapes, and the mma.sync forward (its route) at the tiny preset's
+    and the multi-head shape (D 16 and 32): the output equal bit for bit
+    (the serving path asks for none), the LSE within LSE_TOL of
+    ``gqa_flash_lse_plain``.  Returns each (shape, kernel)'s largest LSE
+    difference."""
     gen = np.random.default_rng(2)
     out = {}
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
-        if name not in ("prefill", "zamba2", "ragged"):
+        if name not in ("prefill", "zamba2", "ragged", "tiny", "multi-head"):
             continue
         q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
-        got, lse = fa.launch(q, k, v, off, with_lse=True)
-        same = torch.equal(got, fa.launch(q, k, v, off))
-        err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
-        if not (same and err <= LSE_TOL):
-            raise AssertionError(f"gqa_flash {name} with the LSE: output equal {same}, LSE "
-                                 f"off by up to {err} (limit {LSE_TOL})")
-        out[name] = err
-        log(f"gqa_flash {name} D={d}: the output with and without the LSE equal bit for bit; "
-            f"LSE within {err} of the plain one")
+        want = fa.gqa_flash_lse_plain(q, k, off)
+        for kernel in ("wgmma", "mma_sync") if d > 32 else ("mma_sync",):
+            got, lse = fa.launch(q, k, v, off, kernel, with_lse=True)
+            same = torch.equal(got, fa.launch(q, k, v, off, kernel))
+            err = (lse - want).abs().max().item()
+            if not (same and err <= LSE_TOL):
+                raise AssertionError(f"gqa_flash {name} on {kernel} with the LSE: output equal "
+                                     f"{same}, LSE off by up to {err} (limit {LSE_TOL})")
+            out[f"{name} {kernel}"] = err
+            log(f"gqa_flash {name} D={d} on {kernel}: the output with and without the LSE "
+                f"equal bit for bit; LSE within {err} of the plain one")
     return out
 
 
@@ -1119,12 +1147,14 @@ def flash_d16_timing(gen, err, rel):
 
 # --- gqa_flash at every head dim and float dtype ------------------------------
 
-# Head dims of the sweep, none of them a pinned route's: below 16, between
-# the wgmma tiles' widths, not a multiple of 8 (33, 100), past 128 (160, 192,
-# 256: the wide tiles); each in fp32, bf16 and fp16, then in bf16 and fp16
-# 136 and 200 (the wide tiles 192 and 256 off their edges) and 250 (past
-# 128 off a multiple of 8: mma.sync and the fma backward at width 256),
-# fp16 at the pinned head dims and float64 (the fp32 kernels on copies) at two.
+# Head dims of the sweep, none of them a pinned route's: below 16 and 24
+# (the mma.sync forward and the mma backward), between the wgmma tiles'
+# widths, not a multiple of 8 (33, 100: the wgmma route on staged copies),
+# past 128 (160, 192, 256: the wide tiles); each in fp32, bf16 and fp16,
+# then in bf16 and fp16 136 and 200 (the wide tiles 192 and 256 off their
+# edges) and 250 (past 128 off a multiple of 8: staged, on the 256-wide
+# tiles), fp16 at the pinned head dims and float64 (the fp32 kernels on
+# copies) at two.
 FLASH_DIMS = (8, 24, 33, 40, 72, 80, 96, 100, 120, 160, 192, 256)
 FLASH_DIMS_CASES = ([(d, dt) for d in FLASH_DIMS
                      for dt in (torch.float32, torch.bfloat16, torch.float16)]
@@ -1134,20 +1164,29 @@ FLASH_DIMS_CASES = ([(d, dt) for d in FLASH_DIMS
                     + [(33, torch.float64), (256, torch.float64)])
 # B, Sq, Sk, Hq, Hkv, causal offset: no dimension a multiple of a tile
 FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
-# (name, B, Sq, Sk, Hq, Hkv, D, dtype) of the timed forwards: bf16 at D 96
-# and 256 (Gemma-2-9B's heads) at a prefill of 4 x 2048, fp16 at llama3-8b's
-# prefill shape, fp32 at the head-dim path's D 100 scaled to that prefill;
-# and of the timed backwards, at internvl2-2b's train shape.  Past D 128 the
-# previous route (mma.sync, fma) runs in the same turns, gated.
+# (name, B, Sq, Sk, Hq, Hkv, D, dtype) of the timed forwards: bf16 at D 96,
+# 256 (Gemma-2-9B's heads, on the 256-wide tiles) and 250 (the same tiles,
+# staged) at a prefill of 4 x 2048, fp16 at llama3-8b's prefill shape, fp32
+# at the head-dim path's D 100 scaled to that prefill; and of the timed
+# backwards: bf16 D 96, 256 and 250 and fp32 D 100 at internvl2-2b's train
+# shape, bf16 D 32 (the mma route's widest) at the forward's prefill.  At
+# D 250 and on the mma route the route they replaced (mma.sync, fma) runs in
+# the same turns, gated.
 DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
                   ("bf16-d256", 4, 2048, 2048, 16, 8, 256, torch.bfloat16),
+                  ("bf16-d250", 4, 2048, 2048, 16, 8, 250, torch.bfloat16),
                   ("fp16-d128", 4, 2048, 2048, 32, 8, 128, torch.float16),
                   ("fp32-d100", 4, 2048, 2048, 16, 8, 100, torch.float32)]
-# The wgmma route past D 128 against the route it replaced, in turns: at
-# most this share of its time (forward, backward)
+# The staged wgmma route past D 128 against the route it replaced, in
+# turns: at most this share of its time (forward, backward); the mma
+# backward against the fma route at most MMA_BWD_RATIO of it
 WIDE_FWD_RATIO, WIDE_BWD_RATIO = 0.4, 0.1
+MMA_BWD_RATIO = 0.25
 DIMS_BWD_TIMED = [("bf16-d96", 4, 2304, 2304, 16, 8, 96, torch.bfloat16),
-                  ("bf16-d256", 4, 2304, 2304, 16, 8, 256, torch.bfloat16)]
+                  ("bf16-d256", 4, 2304, 2304, 16, 8, 256, torch.bfloat16),
+                  ("bf16-d250", 4, 2304, 2304, 16, 8, 250, torch.bfloat16),
+                  ("bf16-d32", 4, 2048, 2048, 16, 8, 32, torch.bfloat16),
+                  ("fp32-d100", 4, 2304, 2304, 16, 8, 100, torch.float32)]
 # bf16 D 192 forward and backward at the same shapes: the widest tiles that
 # keep the producer warpgroup (hopper.cuh::Roles), timed for the record of
 # that choice, outside the kernel line (no path of the script runs D 192)
@@ -1156,8 +1195,9 @@ DIMS_D192_TIMED = (("bf16-d192", 4, 2048, 2048, 16, 8, 192, torch.bfloat16),
 # The head-dim path: one train step of reduced llama3-8b at these head dims
 # and compute dtypes through make_train_step (the forward and backward
 # kernels of each route on a user's entry point), 2 x 256 tokens.
-DIMS_PATH = [(96, torch.bfloat16), (256, torch.bfloat16), (24, torch.float16),
-             (80, torch.float16), (100, torch.float32)]
+DIMS_PATH = [(96, torch.bfloat16), (256, torch.bfloat16), (250, torch.bfloat16),
+             (24, torch.float16), (80, torch.float16), (100, torch.float16),
+             (32, torch.bfloat16), (100, torch.float32)]
 DIMS_PATH_BATCH, DIMS_PATH_SEQ = 2, 256
 
 
@@ -1168,7 +1208,7 @@ def fwd_instance(dtype, d) -> str:
     if route == "wgmma":
         tile = fa.wgmma_tile_dim(d)
         pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
-        return f"flash_wgmma_kernel<{tile}, {d if pinned else 0}, {t}>"
+        return f"flash_wgmma_kernel<{tile}, {d if pinned else 0 if d % 8 == 0 else -1}, {t}>"
     if route == "mma_sync":
         return f"flash_mma_kernel<{t}, {fa.padded_dim(d)}>"
     return f"flash_f32_kernel<{fa.padded_dim(d)}>" + (" on fp32 copies"
@@ -1179,7 +1219,9 @@ def bwd_instance(dtype, d) -> str:
     if fa.bwd_route(dtype, d) == "wgmma":
         pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
         return (f"flash_bwd_{{dq,dkdv}}_wgmma_kernel<{fa.wgmma_tile_dim(d)}, "
-                f"{d if pinned else 0}, {str(dtype)[6:]}>")
+                f"{d if pinned else 0 if d % 8 == 0 else -1}, {str(dtype)[6:]}>")
+    if fa.bwd_route(dtype, d) == "mma":
+        return f"flash_bwd_{{dq,dkdv}}_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}>"
     t = {torch.float64: "float (fp32 copies)"}.get(dtype, str(dtype)[6:])
     return f"flash_bwd_{{stats,dkdv,dq}}_kernel<{t}, {fa.padded_dim(d)}>"
 
@@ -1187,14 +1229,16 @@ def bwd_instance(dtype, d) -> str:
 def flash_dims_phase(reports):
     """``gqa_flash`` and its backward at every sweep case
     (``FLASH_DIMS_CASES`` at ``FLASH_DIMS_SHAPE``): the forward against the
-    plain version (FLASH_TOL, FLASH_REL by dtype), on the wgmma route also
+    plain version (FLASH_TOL, FLASH_REL by dtype), on the 16-bit routes also
     with its LSE (the output equal bit for bit, the LSE within LSE_TOL), the
     backward on its route against the plain backward (``bwd_check``); the
-    launches by route equal to those the cases make; the ptxas report of
-    every flash instantiation (registers, spills); then the timed shapes.
-    Returns the sweep's readings and the kernel line's new entries."""
+    launches by route, and the staged copies, equal to those the cases make;
+    the ptxas report of every flash instantiation (registers, spills); then
+    the timed shapes.  Returns the sweep's readings and the kernel line's
+    new entries."""
     gen = np.random.default_rng(21)
     b, sq, sk, hq, hkv, off = FLASH_DIMS_SHAPE
+    start = time.perf_counter()
     fa.reset_launches()
     expect = dict.fromkeys(fa.launches, 0)
     sweep = {}
@@ -1206,7 +1250,7 @@ def flash_dims_phase(reports):
         route, broute = fa.route(dtype, d), fa.bwd_route(dtype, d)
         err, rel = flash_check(q, k, v, off, f"gqa_flash sweep {what}")
         lse, lse_err = None, None
-        if route == "wgmma":
+        if route != "fp32":
             o, lse = fa.launch(q, k, v, off, with_lse=True)
             same = torch.equal(o, fa.gqa_flash(q, k, v, off))
             lse_err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
@@ -1215,11 +1259,14 @@ def flash_dims_phase(reports):
                                      f"{same}, LSE off by up to {lse_err} (limit {LSE_TOL})")
         else:
             o = fa.gqa_flash(q, k, v, off)
-        expect["gqa_flash"] += 3 if route == "wgmma" else 2
-        expect[route] += 3 if route == "wgmma" else 2
+        calls = 3 if route != "fp32" else 2
+        expect["gqa_flash"] += calls
+        expect[route] += calls
         berr, brel, brounded = bwd_check(q, k, v, o, do, off, f"gqa_flash_bwd sweep {what}",
                                          route=broute, lse=lse)
         expect["gqa_flash_bwd"] += 1
+        if route == "wgmma" and fa.tma_width(d) != d:    # q, k, v a forward; and dO
+            expect["layout_copy"] += 3 * calls + 4
         for name in BWD_ROUTE_KERNELS[broute]:
             expect[name] += 1
         sweep[what] = dict(route=route, kernel=fwd_instance(dtype, d), max_abs_err=err,
@@ -1235,35 +1282,57 @@ def flash_dims_phase(reports):
     log(f"gqa_flash sweep: {len(FLASH_DIMS_CASES)} cases agree with the plain versions; "
         f"launches by route {dict(fa.launches)}, as expected")
     # the wgmma kernels on the tiles past 128 (192 and 256 wide, bf16 and
-    # fp16): four in the forward's report, eight (dQ's and dK/dV's) in the
-    # backward's, none of which may spill or serialise its wgmma
-    ptx, wide = {}, {}
-    for src, count in (("flash_attention.cu", 4), ("flash_attention_bwd.cu", 8)):
+    # fp16, head dims a multiple of 8 and any): eight in the forward's
+    # report, sixteen (dQ's and dK/dV's) in the backward's; the guarded
+    # instantiations of the narrower tiles (64 and 128 wide: four and eight);
+    # the mma route's kernels (dQ and dK/dV, bf16 and fp16, widths 16 and 32):
+    # eight in the backward's; and the forward that writes their LSE
+    # (flash_mma_kernel at widths 16 and 32): four; none of which may spill or
+    # serialise its products
+    ptx, gated = {}, {}
+    for src, pattern, count in (
+            ("flash_attention.cu", r"wgmma_kernelILi(192|256)E", 8),
+            ("flash_attention_bwd.cu", r"wgmma_kernelILi(192|256)E", 16),
+            ("flash_attention.cu", r"wgmma_kernelILi(64|128)ELin1E", 4),
+            ("flash_attention_bwd.cu", r"wgmma_kernelILi(64|128)ELin1E", 8),
+            ("flash_attention.cu", r"flash_mma_kernelI\w+Li(16|32)EE", 4),
+            ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_mma_kernel", 8)):
         rep = ptxas_report(reports[f"src/repro_torch/csrc/{src}"], "flash_")
         if not rep:
             log(f"{src}: no ptxas report (the library was built before this run)")
             continue
         ptx.update(rep)
-        found = {n: r for n, r in rep.items() if re.search(r"wgmma_kernelILi(192|256)E", n)}
+        found = {n: r for n, r in rep.items() if re.search(pattern, n)}
         if len(found) != count:
-            raise AssertionError(f"{src}: {len(found)} wide wgmma instantiations reported, "
+            raise AssertionError(f"{src}: {len(found)} instantiations of {pattern} reported, "
                                  f"expected {count}: {sorted(found)}")
-        wide.update(found)
+        gated.update(found)
     spills = {n: r for n, r in ptx.items() if r.get("spill_stores") or r.get("spill_loads")}
     log(f"flash ptxas: {len(ptx)} instantiations, {len(spills)} with spills: "
         + "; ".join(f"{n}: {r}" for n, r in spills.items()))
-    bad = {n: r for n, r in wide.items()
+    bad = {n: r for n, r in gated.items()
            if r.get("spill_stores") or r.get("spill_loads") or r["remarks"]}
     if bad:
-        raise AssertionError(f"the wide wgmma instantiations spill or serialise: {bad}")
-    log("wide wgmma instantiations, ptxas: " + "; ".join(
+        raise AssertionError(f"the wide wgmma or the mma backward instantiations spill or "
+                             f"serialise: {bad}")
+    log("wide wgmma and mma backward instantiations, ptxas: " + "; ".join(
         f"{n}: {r.get('registers')} registers, spills {r.get('spill_stores', 0)}/"
-        f"{r.get('spill_loads', 0)}" for n, r in wide.items()))
-    fwd = [flash_dims_fwd_timing(gen, *shape) for shape in DIMS_FWD_TIMED]
-    bwd = [flash_dims_bwd_timing(gen, *shape) for shape in DIMS_BWD_TIMED]
-    d192 = dict(forward=flash_dims_fwd_timing(gen, *DIMS_D192_TIMED[0]),
-                backward=flash_dims_bwd_timing(gen, *DIMS_D192_TIMED[1]))
-    return dict(sweep=sweep, ptxas=ptx, spilled=sorted(spills), d192=d192), fwd, bwd
+        f"{r.get('spill_loads', 0)}" for n, r in gated.items()))
+    walls = {"sweep and ptxas": time.perf_counter() - start}
+
+    def timed(fn, shape):
+        start = time.perf_counter()
+        out = fn(gen, *shape)
+        walls[out["name"]] = time.perf_counter() - start
+        return out
+
+    fwd = [timed(flash_dims_fwd_timing, shape) for shape in DIMS_FWD_TIMED]
+    bwd = [timed(flash_dims_bwd_timing, shape) for shape in DIMS_BWD_TIMED]
+    d192 = dict(forward=timed(flash_dims_fwd_timing, DIMS_D192_TIMED[0]),
+                backward=timed(flash_dims_bwd_timing, DIMS_D192_TIMED[1]))
+    log("head-dim phase walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return dict(sweep=sweep, ptxas=ptx, spilled=sorted(spills), d192=d192, walls=walls), \
+        fwd, bwd
 
 
 def in_turns_ms(runs):
@@ -1280,12 +1349,13 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     """One timed forward of the sweep's routes: the kernel (its route), the
     plain version and SDPA in turns by CUDA events, and by profiler device
     time, beside the bound (16-bit tensor-core peak; fp32's 67 TFLOP/s for
-    fp32).  Past D 128 the route it replaced (mma.sync) runs in the same
-    turns, and the kernel must take at most WIDE_FWD_RATIO of its time."""
-    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+    fp32).  At a D past 128 off a multiple of 8 (staged) the route it
+    replaced (mma.sync) runs in the same turns, and the kernel must take at
+    most WIDE_FWD_RATIO of its time."""
+    q, k, v = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), dtype=dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     route = fa.route(dtype, d)
-    wide = route == "wgmma" and d > 128
+    wide = route == "wgmma" and d > 128 and fa.tma_width(d) != d
 
     def kernel():
         return fa.launch(q, k, v, 0)
@@ -1317,12 +1387,19 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     del got, want
     n = 20 if dtype != torch.float32 else 5
     runs = dict(ms=(kernel, n, 3))
+    if route == "wgmma" and fa.tma_width(d) != d:
+        # the call's split: the three staging copies, and the kernel on
+        # inputs staged beforehand
+        tq, tk, tv = (fa.stage(t) for t in (q, k, v))
+        runs.update(stage_ms=(lambda: [fa.stage(t) for t in (q, k, v)], n, 3),
+                    prestaged_ms=(lambda: fa.launch(tq, tk, tv, 0), n, 3))
     if wide:
         runs["previous_ms"] = (previous, 10, 2)
     runs.update(plain_ms=(plain, 3, 1), library_ms=(library, n, 3))
     turns, t = in_turns_ms(runs)
-    t.update(device_ms=device_ms(kernel, n // 2), plain_device_ms=device_ms(plain, 3),
-             library_device_ms=device_ms(library, n // 2))
+    # each function warmed by its turns
+    t.update(device_ms=device_ms(kernel, n // 2, 1), plain_device_ms=device_ms(plain, 3, 1),
+             library_device_ms=device_ms(library, n // 2, 1))
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, 0, q.element_size())
     bound, by = bound_ms(nbytes, flops,
                          FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
@@ -1334,6 +1411,8 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         f"{bound:.6f} by {by}; device time {t['device_ms']} ms/call (plain "
         f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); max abs diff {err}, "
         f"relative L2 {rel}; SDPA differs by up to {lib_diff}"
+        + (f"; staging q, k, v {t['stage_ms']:.6f}, the kernel on staged inputs "
+           f"{t['prestaged_ms']:.6f}" if "stage_ms" in t else "")
         + (f"; the mma.sync kernel {t['previous_ms']:.6f} (kernel / it "
            f"{t['ms'] / t['previous_ms']:.4f}, limit {WIDE_FWD_RATIO}; max abs diff "
            f"{checked['previous_max_abs_err']}, relative L2 {checked['previous_rel_l2']})"
@@ -1354,22 +1433,27 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
 
 
 def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
-    """One timed backward: the whole route (``launch_bwd``), the plain
-    backward and SDPA's backward (its forward + backward less its forward)
-    in turns by CUDA events, and by profiler device time, beside the
-    function's bound (five products).  Past D 128 the route it replaced
-    (fma) runs in the same turns, and the wgmma route must take at most
-    WIDE_BWD_RATIO of its time."""
-    q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
-    do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)).to("cuda", dtype)
+    """One timed backward: the whole route (``launch_bwd`` as the Function
+    calls it: on the wgmma route with q, k, v as the forward staged them, so
+    that a D off a multiple of 8 stages dO alone), the plain backward and
+    SDPA's backward (its forward + backward less its forward) in turns by
+    CUDA events, and by profiler device time, beside the function's bound
+    (five products; fp32's 67 TFLOP/s for fp32).  On the wgmma route at a D
+    past 128 off a multiple of 8 (staged), and on the mma route, the route
+    it replaced (fma) runs in the same turns: the wgmma route must take at
+    most WIDE_BWD_RATIO of its time, the mma route MMA_BWD_RATIO."""
+    q, k, v, do = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                              (b, sq, hq, d), dtype=dtype)
     route = fa.bwd_route(dtype, d)
-    o, lse = fa.launch(q, k, v, 0, with_lse=True) if route == "wgmma" \
+    o, lse = fa.launch(q, k, v, 0, with_lse=True) if route != "fma" \
         else (fa.launch(q, k, v, 0), None)
+    tq, tk, tv = (fa._readable_copy(t, "wgmma") for t in (q, k, v)) if route == "wgmma" \
+        else (q, k, v)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
     def kernels():
-        return fa.launch_bwd(q, k, v, o, do, 0, lse=lse)
+        return fa.launch_bwd(tq, tk, tv, o, do, 0, lse=lse)
 
     def previous():
         return fa.launch_bwd(q, k, v, o, do, 0, route="fma")
@@ -1397,29 +1481,33 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
                                  f"(limit {limit})")
         return err, rel
 
-    wide = route == "wgmma" and d > 128
+    wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route == "mma"
+    ratio_limit = MMA_BWD_RATIO if route == "mma" else WIDE_BWD_RATIO
     want = plain()
     limit = BWD_REL[dtype] if route == "fma" else BWD_WGMMA_REL
     err, rel = held(kernels(), want, route, limit)
-    # past D 128 the yardstick is held to the plain backward too before it is timed
+    # the yardstick is held to the plain backward too before it is timed
     prev_err, prev_rel = held(previous(), want, "fma", BWD_REL[dtype]) if wide else (None, None)
     del want
     iters = 3 if route == "fma" else 10
     runs = dict(ms=(kernels, iters, 1))
+    if route == "wgmma" and fa.tma_width(d) != d:
+        runs["stage_ms"] = (lambda: fa.stage(do), iters, 1)    # the call's dO copy
     if wide:
         runs["previous_ms"] = (previous, 2, 1)
     runs.update(plain_ms=(plain, 2, 1), sdpa_fwd=(sdpa_fwd, 10, 2),
                 sdpa_fwd_bwd=(sdpa_fwd_bwd, 10, 2))
     turns, t = in_turns_ms(runs)
-    dev = {key: device_ms(fn, n) for key, fn, n in (
+    dev = {key: device_ms(fn, n, 1) for key, fn, n in (    # each warmed by its turns
         ("device_ms", kernels, iters), ("plain_device_ms", plain, 2),
         ("sdpa_fwd", sdpa_fwd, 10), ("sdpa_fwd_bwd", sdpa_fwd_bwd, 10))}
     library = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     library_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                    if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
     over = t["ms"] / library if library > 0 else None
-    work = bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
-    bound, by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
+    work = bwd_work(b, sq, sk, hq, hkv, d, 0, q.element_size())
+    bound, by = bound_ms(*work["gqa_flash_bwd"],
+                         FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
     log(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]}, "
         f"{route}), in turns {turns}")
     log(f"gqa_flash_bwd {tag}: the {route} route {t['ms']:.6f} ms/call (device "
@@ -1427,14 +1515,17 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         f"(device {dev['plain_device_ms']}), SDPA's backward {library:.6f} (device "
         f"{library_dev}; route / SDPA {over}), bound {bound:.6f} by {by}; "
         f"max abs diff {err}, relative L2 {rel} (limit {limit})"
+        + (f"; staging dO {t['stage_ms']:.6f}" if "stage_ms" in t else "")
         + (f"; the fma route {t['previous_ms']:.6f} (route / it "
-           f"{t['ms'] / t['previous_ms']:.4f}, limit {WIDE_BWD_RATIO}; max abs diff "
+           f"{t['ms'] / t['previous_ms']:.4f}, limit {ratio_limit}; max abs diff "
            f"{prev_err}, relative L2 {prev_rel} (limit {BWD_REL[dtype]}))" if wide else ""))
-    if wide and not t["ms"] <= WIDE_BWD_RATIO * t["previous_ms"]:
-        raise AssertionError(f"gqa_flash_bwd {tag}: the wgmma route takes {t['ms']} ms, more "
-                             f"than {WIDE_BWD_RATIO} of the fma route's {t['previous_ms']} ms")
+    if wide and not t["ms"] <= ratio_limit * t["previous_ms"]:
+        raise AssertionError(f"gqa_flash_bwd {tag}: the {route} route takes {t['ms']} ms, more "
+                             f"than {ratio_limit} of the fma route's {t['previous_ms']} ms")
     extra = dict(previous_ms=t["previous_ms"], previous="the fma route",
                  previous_max_abs_err=prev_err, previous_rel_l2=prev_rel) if wide else {}
+    if "stage_ms" in t:
+        extra["stage_ms"] = t["stage_ms"]
     return dict(name=f"gqa_flash_bwd_{tag.replace('-', '_')}", route="cuda",
                 kernel=bwd_instance(dtype, d), bwd_route=route,
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1475,7 +1566,7 @@ def dims_path_phase(device="cuda"):
         _, met = step(state, batch)
         torch.cuda.synchronize()
         counts = dict(fa.launches)
-        want = train_launch_counts(fa.route(dtype, d), cfg.num_layers, 1)
+        want = train_launch_counts(dtype, d, cfg.num_layers, 1)
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         if counts != want or not math.isfinite(loss) or not math.isfinite(gnorm):
             raise AssertionError(f"head-dim path D={d} {dtype}: launches {counts} (expected "
@@ -2305,8 +2396,8 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, torch.float16: 2e-2,
 # limit; float64 (the fp32 kernels on copies) to fp32's.
 BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-4, torch.float16: 2.5e-4,
            torch.float64: 2e-5}
-# The wgmma route rounds P and dS to bf16 (fp16 for fp16 inputs) before
-# their products, as the forward rounds P: against the fp32 plain backward
+# The wgmma and mma routes round P and dS to bf16 (fp16 for fp16 inputs)
+# before their products, as the forward rounds P: against the fp32 plain backward
 # the forward's bf16 FLASH_REL, for either type; against the plain version
 # that rounds where it rounds (``gqa_flash_bwd_lse_plain(round_bf16=True)``,
 # which rounds to the inputs' 16-bit type), where only roundings that fall
@@ -2336,19 +2427,19 @@ BWD_SHAPES = [("train", 4, 2304, 2304, 16, 8, 128, 0, torch.bfloat16),
 # 80GB HBM3; the forward's Hopper kernel is held to 0.5 of mma.sync's).
 BWD_RATIO = 0.2
 ELASTIC_ARCH = "stablelm-1.6b"
-BWD_ROUTE_KERNELS = {"fma": fa.BWD_KERNELS, "wgmma": fa.BWD_WGMMA_KERNELS}
+BWD_ROUTE_KERNELS = fa.BWD_ROUTE_KERNELS
 
 
 def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
     """(bytes, FLOPs) of each backward kernel, of the function and of the
-    wgmma route: each input read once, each output written once; a product
-    over the unmasked (row, key) pairs is 2·D FLOPs a pair per head.  The
-    function needs five products (S, dP, dV, dK, dQ).  The fma route's
-    stats pass does Q K^T, its dK/dV four products (S, dP, dV, dK), its dQ
-    three (S, dP, dQ); the wgmma route takes the LSE from the forward and
-    runs seven: dQ (S, dP, dQ; it reads o and writes D_i) and dK/dV (S, dP,
-    dV, dK).  The second S and dP are the price of determinism, not the
-    bound's."""
+    wgmma (and mma) route: each input read once, each output written once;
+    a product over the unmasked (row, key) pairs is 2·D FLOPs a pair per
+    head.  The function needs five products (S, dP, dV, dK, dQ).  The fma
+    route's stats pass does Q K^T, its dK/dV four products (S, dP, dV,
+    dK), its dQ three (S, dP, dQ); the wgmma and mma routes take the LSE
+    from the forward and run seven: dQ (S, dP, dQ; it reads o and writes
+    D_i) and dK/dV (S, dP, dV, dK).  The second S and dP are the price of
+    determinism, not the bound's."""
     pairs = sum(min(sk, offset + r + 1) for r in range(sq))
     product = 2.0 * b * hq * d * pairs
     qs, ks, stats = elt * b * sq * hq * d, elt * b * sk * hkv * d, 4.0 * b * hq * sq
@@ -2357,6 +2448,8 @@ def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
             "bwd_dq": (3 * qs + 2 * ks + 2 * stats, 3 * product),
             "bwd_wgmma_dq": (4 * qs + 2 * ks + 2 * stats, 3 * product),
             "bwd_wgmma_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
+            "bwd_mma_dq": (4 * qs + 2 * ks + 2 * stats, 3 * product),
+            "bwd_mma_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
             "gqa_flash_bwd": (4 * qs + 4 * ks, 5 * product),
             "gqa_flash_bwd_wgmma": (4 * qs + 4 * ks + stats, 7 * product)}
 
@@ -2364,22 +2457,22 @@ def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
 def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None, route=None,
               lse=None):
     """The kernels of ``route`` (default: the inputs' ``bwd_route``; wgmma
-    reads ``lse``) against ``gqa_flash_bwd_plain`` on the same inputs: each
-    output within ``rel_limit`` relative L2 (default BWD_REL for fma,
-    BWD_WGMMA_REL for wgmma) and, on unit-normal inputs (``elementwise``),
-    elementwise within BWD_TOL; a model layer's gradients span many decades
-    under the reference init, so there the whole output's relative L2 is the
-    measure.  The wgmma route is also held against the plain version that
-    rounds P and dS to bf16 where it does, within BWD_ROUNDED_REL (and
-    BWD_TOL elementwise) when ``elementwise``, printed otherwise.  Returns
-    (max abs difference, largest relative L2, largest relative L2 against
-    the rounding plain version or None)."""
+    and mma read ``lse``) against ``gqa_flash_bwd_plain`` on the same
+    inputs: each output within ``rel_limit`` relative L2 (default BWD_REL
+    for fma, BWD_WGMMA_REL for wgmma and mma) and, on unit-normal inputs
+    (``elementwise``), elementwise within BWD_TOL; a model layer's gradients
+    span many decades under the reference init, so there the whole output's
+    relative L2 is the measure.  The wgmma and mma routes are also held
+    against the plain version that rounds P and dS to bf16 where they do,
+    within BWD_ROUNDED_REL (and BWD_TOL elementwise) when ``elementwise``,
+    printed otherwise.  Returns (max abs difference, largest relative L2,
+    largest relative L2 against the rounding plain version or None)."""
     route = route or fa.bwd_route(q.dtype, q.shape[-1])
     got = fa.launch_bwd(q, k, v, o, do, offset, lse=lse, route=route)
     torch.cuda.synchronize()
     wants = [(fa.gqa_flash_bwd_plain(q, k, v, o, do, offset),
               rel_limit or (BWD_REL[q.dtype] if route == "fma" else BWD_WGMMA_REL))]
-    if route == "wgmma":
+    if route != "fma":
         wants.append((fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, offset, round_bf16=True),
                       BWD_ROUNDED_REL if elementwise else math.inf))
     err, rels = 0.0, [0.0] * len(wants)
@@ -2397,14 +2490,16 @@ def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None, ro
             if i == 0:
                 err = max(err, e)
             rels[i] = max(rels[i], r)
-    return err, rels[0], rels[1] if route == "wgmma" else None
+    return err, rels[0], rels[1] if route != "fma" else None
 
 
 def flash_bwd_kernel_phase(report):
     """Phase 2 for the backward of ``gqa_flash``: each route against the
     plain backward, twice (equal bits), at the train step's shape (bf16, on
-    both routes: the wgmma route on the forward kernel's LSE) and the
-    launcher's fp32 D-32 shape (fma, its route); at the train shape each
+    both routes: the wgmma route on the forward kernel's LSE), the
+    launcher's fp32 D-32 shape (fma, its route) and the tiny preset's
+    shapes (bf16 D 16: the mma route on the mma.sync forward's LSE, and fma
+    beside it); at the train shape each
     kernel and each route's whole backward timed in turns by CUDA events and
     by profiler device time beside their bounds, the plain backward, and
     SDPA's backward (its forward + backward less its forward, for timing
@@ -2414,19 +2509,25 @@ def flash_bwd_kernel_phase(report):
     ptx = ptxas_report(report, "flash_bwd_")
     for name, rep in ptx.items():
         log(f"{name}: ptxas {rep}")
-    # the gate holds the pinned bf16 instantiations (D 64, 112, 128); the
-    # others' spills are reported (flash_dims_phase)
-    spilled = {n: r for n, r in ptx.items() if "wgmma" in n and pinned_wgmma(n) and
-               (r.get("spill_stores", 0) or r.get("spill_loads", 0) or r["remarks"])}
+    # the gate holds the pinned bf16 instantiations (D 64, 112, 128) and the
+    # mma route's kernels; the others' spills are reported (flash_dims_phase)
+    gated = {n: r for n, r in ptx.items()
+             if ("wgmma" in n and pinned_wgmma(n)) or ("_mma_kernel" in n and "wgmma" not in n)}
+    spilled = {n: r for n, r in gated.items()
+               if r.get("spill_stores", 0) or r.get("spill_loads", 0) or r["remarks"]}
+    if ptx and sum("_mma_kernel" in n and "wgmma" not in n for n in gated) != 8:
+        raise AssertionError(f"expected 8 mma backward instantiations in the ptxas report: "
+                             f"{sorted(gated)}")
     if spilled:
-        raise AssertionError(f"the wgmma backward kernels spill or serialise: {spilled}")
+        raise AssertionError(f"the wgmma and mma backward kernels spill or serialise: {spilled}")
     checks, inputs = {}, {}
     for what, b, sq, sk, hq, hkv, d, off, dtype in BWD_SHAPES:
         q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
         do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)) \
             .to("cuda", dtype)
-        routes = ["fma", "wgmma"] if fa.bwd_route(dtype, d) == "wgmma" else ["fma"]
-        o, lse = fa.launch(q, k, v, off, with_lse=True) if "wgmma" in routes \
+        broute = fa.bwd_route(dtype, d)
+        routes = ["fma"] + ([broute] if broute != "fma" else [])
+        o, lse = fa.launch(q, k, v, off, with_lse=True) if broute != "fma" \
             else (fa.launch(q, k, v, off), None)
         inputs[what] = q, k, v, o, do, lse
         for route in routes:
@@ -2443,9 +2544,10 @@ def flash_bwd_kernel_phase(report):
 
     what, b, sq, sk, hq, hkv, d, off, dtype = BWD_SHAPES[0]
     q, k, v, o, do, lse = inputs[what]
-    plans = {route: fa.plan_bwd(q, k, v, o, do, off, route=route) for route in BWD_ROUTE_KERNELS}
+    train_routes = {r: BWD_ROUTE_KERNELS[r] for r in ("fma", "wgmma")}
+    plans = {route: fa.plan_bwd(q, k, v, o, do, off, route=route) for route in train_routes}
     bufs = {"fma": fa.bwd_buffers(q, k), "wgmma": fa.bwd_buffers(q, k, lse)}
-    for route, names in BWD_ROUTE_KERNELS.items():   # LSE and D_i in place for the others
+    for route, names in train_routes.items():   # LSE and D_i in place for the others
         for which in range(len(names)):
             fa.launch_bwd_kernel(which, q, k, v, o, do, bufs[route], off, plans[route])
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -2460,7 +2562,7 @@ def flash_bwd_kernel_phase(report):
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
     runs = {}
-    for route, names in BWD_ROUTE_KERNELS.items():
+    for route, names in train_routes.items():
         for which, name in enumerate(names):
             runs[name] = (lambda w=which, r=route: fa.launch_bwd_kernel(
                 w, q, k, v, o, do, bufs[r], off, plans[r]))
@@ -2491,7 +2593,7 @@ def flash_bwd_kernel_phase(report):
     ratio = t["whole_wgmma"] / t["whole"]
     log(f"gqa_flash_bwd train shape, in turns {turns}")
     done = {route: sum(work[name][1] for name in names)
-            for route, names in BWD_ROUTE_KERNELS.items()}
+            for route, names in train_routes.items()}
     log(f"gqa_flash_bwd train shape: wgmma route {t['whole_wgmma']:.6f} ms/call (device "
         f"{dev['whole_wgmma']}; {ratio:.4f} of the fma route, limit {BWD_RATIO}), fma route "
         f"{t['whole']:.6f} (device {dev['whole']}); the function's bound {whole_bound:.6f} by "
@@ -2505,7 +2607,7 @@ def flash_bwd_kernel_phase(report):
         raise AssertionError(f"the wgmma backward takes {t['whole_wgmma']} ms, more than "
                              f"{BWD_RATIO} of the fma route's {t['whole']} ms")
     entries = []
-    for route, names in BWD_ROUTE_KERNELS.items():
+    for route, names in train_routes.items():
         whole = "whole" if route == "fma" else "whole_wgmma"
         err, rel, rel_rounded = checks["train", route]
         for name in names:
@@ -2539,22 +2641,24 @@ def flash_bwd_kernel_phase(report):
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
                 ptxas={n: r for n, r in ptx.items() if kernel in n},
                 turns={key: turns[key] for key in (name, whole, "plain", "plain_lse")}))
-    d16 = [checks[w, "fma"] for w in ("tiny", "tiny-rank", "tiny-edge")]
+    d16 = [checks[w, "mma"] for w in ("tiny", "tiny-rank", "tiny-edge")]
     return entries, flash_bwd_d16_timing(inputs["tiny"], max(c[0] for c in d16),
-                                         max(c[1] for c in d16))
+                                         max(c[1] for c in d16), max(c[2] for c in d16))
 
 
-def flash_bwd_d16_timing(inputs, err, rel):
-    """The backward at train_carbon_aware's tiny preset (bf16, D 16, the fma
-    route): each kernel and the whole route in turns by CUDA events and by
-    profiler device time, beside the function's bound, the plain backward
-    and SDPA's backward (forward + backward less forward)."""
-    q, k, v, o, do, _ = inputs
+def flash_bwd_d16_timing(inputs, err, rel, rel_rounded):
+    """The backward at train_carbon_aware's tiny preset (bf16, D 16): the
+    mma route's two kernels and the whole route, and the fma route it
+    replaced, in turns by CUDA events and by profiler device time, beside
+    the function's bound, the plain backward from the LSE (rounding as the
+    kernels) and SDPA's backward (forward + backward less forward).
+    Returns the whole route's entry and one entry per mma kernel."""
+    q, k, v, o, do, lse = inputs
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     pl = fa.plan_bwd(q, k, v, o, do)
-    bufs = fa.bwd_buffers(q, k)
-    for which in range(len(fa.BWD_KERNELS)):      # LSE and D_i in place for dK/dV, dQ
+    bufs = fa.bwd_buffers(q, k, lse)
+    for which in range(len(fa.BWD_MMA_KERNELS)):      # D_i in place for dK/dV
         fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, 0, pl)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -2568,9 +2672,11 @@ def flash_bwd_d16_timing(inputs, err, rel):
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
     runs = {name: (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, 0, pl))
-            for which, name in enumerate(fa.BWD_KERNELS)}
-    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, 0),
-                plain=lambda: fa.gqa_flash_bwd_plain(q, k, v, o, do, 0),
+            for which, name in enumerate(fa.BWD_MMA_KERNELS)}
+    runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse),
+                previous=lambda: fa.launch_bwd(q, k, v, o, do, 0, route="fma"),
+                plain=lambda: fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, 0,
+                                                         round_bf16=True),
                 sdpa_fwd=sdpa_fwd, sdpa_fwd_bwd=sdpa_fwd_bwd)
     turns = {key: [] for key in runs}
     for key in list(runs) + list(runs)[::-1]:
@@ -2579,34 +2685,48 @@ def flash_bwd_d16_timing(inputs, err, rel):
     dev = {}
     for key in runs:
         us, n = device_trace(runs[key], 20)
-        dev[key] = (us / n if key in fa.BWD_KERNELS else us / 20) / 1e3 if us > 0 else None
+        dev[key] = (us / n if key in fa.BWD_MMA_KERNELS else us / 20) / 1e3 if us > 0 else None
     sdpa_bwd = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     sdpa_bwd_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                     if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
     work = bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
     bound, by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
-    kernels = {name: dict(ms=t[name], device_ms=dev[name],
-                          bound_ms=bound_ms(*work[name], BF16_FLOP_PER_S)[0])
-               for name in fa.BWD_KERNELS}
-    log(f"gqa_flash_bwd tiny shape bf16 D=16 (fma), in turns {turns}")
-    log(f"gqa_flash_bwd tiny shape bf16 D=16: the fma route {t['whole']:.6f} ms/call (device "
-        f"{dev['whole']}), kernels {kernels}; the function's bound {bound:.6f} by {by} "
-        f"({work['gqa_flash_bwd'][1] / 1e9:.6f} GFLOP); plain {t['plain']:.6f} (device "
-        f"{dev['plain']}); SDPA's backward {sdpa_bwd:.6f} (device {sdpa_bwd_dev})")
-    return dict(name="gqa_flash_bwd_d16", route="cuda",
-                kernel="flash_bwd_{stats,dkdv,dq}_kernel<bf16, 16> (the fma route)",
-                bwd_route="fma", source="src/repro_torch/csrc/flash_attention_bwd.cu",
-                replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
-                         "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
-                         "no gradient)",
-                max_abs_err=err, rel_l2=rel, ms=t["whole"], device_ms=dev["whole"],
-                plain_ms=t["plain"], plain_device_ms=dev["plain"],
-                plain_of="the whole backward", bound_ms=bound, bound_by=by,
-                bound_share=bound / t["whole"], library_ms=sdpa_bwd,
-                library_device_ms=sdpa_bwd_dev,
-                library_of="the whole backward: SDPA forward + backward less forward",
-                kernels=kernels, shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 "
-                "causal", turns=turns)
+    ratio_dev = dev["whole"] / dev["previous"] if dev["whole"] and dev["previous"] else None
+    log(f"gqa_flash_bwd tiny shape bf16 D=16 (mma; fma beside it), in turns {turns}")
+    log(f"gqa_flash_bwd tiny shape bf16 D=16: the mma route {t['whole']:.6f} ms/call (device "
+        f"{dev['whole']}; kernels {[dev[n] for n in fa.BWD_MMA_KERNELS]}), the fma route "
+        f"{t['previous']:.6f} (device {dev['previous']}; mma / fma by device time "
+        f"{ratio_dev}); the function's bound {bound:.6f} by {by} "
+        f"({work['gqa_flash_bwd'][1] / 1e9:.6f} GFLOP); the rounding plain version "
+        f"{t['plain']:.6f} (device {dev['plain']}); SDPA's backward {sdpa_bwd:.6f} (device "
+        f"{sdpa_bwd_dev})")
+    common = dict(route="cuda", bwd_route="mma",
+                  source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                  replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                           "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                           "no gradient)",
+                  max_abs_err=err, rel_l2=rel, rel_l2_rounded=rel_rounded,
+                  plain_ms=t["plain"], plain_device_ms=dev["plain"],
+                  plain_of="the whole backward, from the LSE, rounding as the kernels",
+                  library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
+                  library_of="the whole backward: SDPA forward + backward less forward",
+                  shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal")
+    whole = dict(name="gqa_flash_bwd_d16",
+                 kernel="flash_bwd_{dq,dkdv}_mma_kernel<bf16, 16> (the mma route)",
+                 ms=t["whole"], device_ms=dev["whole"], bound_ms=bound, bound_by=by,
+                 bound_share=bound / t["whole"], previous="the fma route",
+                 previous_ms=t["previous"], previous_device_ms=dev["previous"],
+                 over_previous_device=ratio_dev, turns=turns, **common)
+    kernels = []
+    for name in fa.BWD_MMA_KERNELS:
+        kb, kby = bound_ms(*work[name], BF16_FLOP_PER_S)
+        kernels.append(dict(name=f"gqa_flash_{name}",
+                            kernel=f"flash_bwd_{name[len('bwd_mma_'):]}_mma_kernel<bf16, 16>",
+                            ms=t[name], device_ms=dev[name], bound_ms=kb, bound_by=kby,
+                            bound_share=kb / t[name], whole_ms=t["whole"],
+                            turns={key: turns[key] for key in (name, "whole", "plain")},
+                            **common))
+    return whole, kernels
 
 
 def traced_step(fn):
@@ -3676,7 +3796,7 @@ def shard_elastic(rank, root):
 def shard_tiny(rank, root):
     """(g) ``train_carbon_aware --preset tiny --max-dp 2 --fault-at 6`` in
     both ranks on the card (bf16, head dim 16: the mma.sync forward and the
-    fma backward): the plan the host computes, its steps and rescales, one
+    mma backward, no fma kernel): the plan the host computes, its steps and rescales, one
     recovery, finite losses; the steps each rank took counted at the step
     function, and the D-16 route's launches against them."""
     import contextlib
@@ -3711,8 +3831,8 @@ def shard_tiny(rank, root):
     launches = dict(fa.launches)
     ks, steps, rescales = example_plan(argv)
     cfg = tca.PRESETS["tiny"]
-    want = train_launch_counts(fa.route(cfg.compute_dtype, cfg.resolved_head_dim),
-                               cfg.num_layers, taken[0])
+    want = train_launch_counts(cfg.compute_dtype, cfg.resolved_head_dim, cfg.num_layers,
+                               taken[0])
     # rank 0 takes every step, a failed one re-taken after the rollback
     own = len(res["losses"]) if rank == 0 else None
     if not (res["plan"] == ks and res["final_step"] == steps and res["rescales"] == rescales
@@ -6148,15 +6268,20 @@ def example_plan(argv):
     return ks, sum(p.steps for p in plan if p.k), sum(a != b for a, b in zip(live, live[1:]))
 
 
-def train_launch_counts(route, layers, steps):
+def train_launch_counts(dtype, d, layers, steps):
     """``gqa_flash``'s launches for ``steps`` train steps of a model of
-    ``layers`` layers whose attention takes forward route ``route``: two
-    forwards a layer (the sublayer recompute) and one backward, on the
-    backward route that pairs with it."""
+    ``layers`` layers whose attention runs in ``dtype`` at head dim ``d``:
+    two forwards a layer (the sublayer recompute) on its route and one
+    backward on the backward route that pairs with it; on the Hopper route
+    at a head dim off a multiple of 8, seven staged copies a layer (q, k, v
+    in each forward, dO in the backward, which reads the recompute's staged
+    q, k, v)."""
+    route, bwd = fa.route(dtype, d), fa.BWD_ROUTE_KERNELS[fa.bwd_route(dtype, d)]
     want = dict.fromkeys(fa.launches, 0)
-    bwd = fa.BWD_WGMMA_KERNELS if route == "wgmma" else fa.BWD_KERNELS
     want.update(gqa_flash=2 * layers * steps, gqa_flash_bwd=layers * steps,
                 **{route: 2 * layers * steps}, **{k: layers * steps for k in bwd})
+    if route == "wgmma" and fa.tma_width(d) != d:
+        want["layout_copy"] = 7 * layers * steps
     return want
 
 
@@ -6259,7 +6384,8 @@ def examples_phase(twins=None):
     tca = example_module("train_carbon_aware")
     cfg = tca.PRESETS[argv[argv.index("--preset") + 1]]
     route = fa.route(cfg.compute_dtype, cfg.resolved_head_dim)
-    want = train_launch_counts(route, cfg.num_layers, len(res["losses"]))
+    want = train_launch_counts(cfg.compute_dtype, cfg.resolved_head_dim, cfg.num_layers,
+                               len(res["losses"]))
     log(f"example train_carbon_aware {' '.join(EXAMPLE_100M_ARGS)}: {wall:.3f} s; "
         f"{text.strip()}; launches {launches}; losses {res['losses']}")
     if not (res["plan"] == ks and res["final_step"] == steps == len(res["losses"])
@@ -6622,7 +6748,7 @@ def phases(card, reports, shard_ranks, twins):
         "kernel (gqa_flash)", flash_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention.cu"])
     kernels.append(flash_entry)
-    bwd_entries, bwd_d16_entry = timed(
+    bwd_entries, (bwd_d16_entry, bwd_mma_entries) = timed(
         "kernel (gqa_flash backward)", flash_bwd_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
     dims, dims_fwd, dims_bwd = timed("kernel (gqa_flash head dims and dtypes)",
@@ -6639,13 +6765,15 @@ def phases(card, reports, shard_ranks, twins):
     by_tag = {e["name"]: e for e in dims_fwd + dims_bwd}
     by_tag["gqa_flash_fp16_d128"].update(
         launches=serve["fp16_prefill"]["launches"]["wgmma"], path="serve-prefill fp16")
-    for d, dtype in ((96, torch.bfloat16), (256, torch.bfloat16), (100, torch.float32)):
+    for d, dtype in ((96, torch.bfloat16), (256, torch.bfloat16), (250, torch.bfloat16),
+                     (32, torch.bfloat16), (100, torch.float32)):
         counts = dims_path[f"D={d} {str(dtype)[6:]}"]["launches"]
         name = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}_d{d}"
-        by_tag[f"gqa_flash_{name}"].update(launches=counts[fa.route(dtype, d)],
-                                           path="head-dim path train step")
+        if f"gqa_flash_{name}" in by_tag:
+            by_tag[f"gqa_flash_{name}"].update(launches=counts[fa.route(dtype, d)],
+                                               path="head-dim path train step")
         if f"gqa_flash_bwd_{name}" in by_tag:
-            first = "bwd_wgmma_dq" if fa.bwd_route(dtype, d) == "wgmma" else "bwd_stats"
+            first = BWD_ROUTE_KERNELS[fa.bwd_route(dtype, d)][0]
             by_tag[f"gqa_flash_bwd_{name}"].update(launches=counts[first],
                                                    path="head-dim path train step")
     moe = timed("moe serving", moe_serve_phase)
@@ -6658,7 +6786,7 @@ def phases(card, reports, shard_ranks, twins):
     # the serving paths launch no backward
     for what, counts in (("serve", serve["launches"]), ("moe serve", moe["launches"])):
         if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS
-               + fa.BWD_WGMMA_KERNELS):
+               + fa.BWD_WGMMA_KERNELS + fa.BWD_MMA_KERNELS):
             raise AssertionError(f"the {what} path launched the backward: {counts}")
     train = timed("training", train_phase)
     train["wall_s"] = walls["training"]
@@ -6685,15 +6813,17 @@ def phases(card, reports, shard_ranks, twins):
     tiny = [r["launches"] for r in shard["tiny"]]
     d16_entry.update(launches=tiny[0]["mma_sync"], path="train_carbon_aware --preset tiny",
                      rank_launches=[r["mma_sync"] for r in tiny])
-    bwd_d16_entry.update(launches=tiny[0]["bwd_stats"], path="train_carbon_aware --preset tiny",
-                         rank_launches={k: [r[k] for r in tiny] for k in fa.BWD_KERNELS})
+    bwd_d16_entry.update(launches=tiny[0]["bwd_mma_dq"], path="train_carbon_aware --preset tiny",
+                         rank_launches={k: [r[k] for r in tiny] for k in fa.BWD_MMA_KERNELS})
+    for entry in bwd_mma_entries:
+        name = entry["name"][len("gqa_flash_"):]
+        entry.update(launches=tiny[0][name], path="train_carbon_aware --preset tiny",
+                     rank_launches=[r[name] for r in tiny])
     for entry in bwd_entries:
         if entry["bwd_route"] == "fma":
             name = entry["name"][len("gqa_flash_"):]
             entry["shard_elastic_launches"] = [r["card"]["launches"][name]
                                                for r in shard["elastic"]]
-            entry["launches_by_route"] = {"fma_d32": entry["launches"],
-                                          "fma_d16": tiny[0][name]}
     dag = timed("dag", dag_path_phase, twins)
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -6709,7 +6839,7 @@ def phases(card, reports, shard_ranks, twins):
     kernels.append(geo_entry)
     kernels.append(d112_entry)
     kernels.extend(bwd_entries)
-    kernels.extend([d16_entry, bwd_d16_entry])
+    kernels.extend([d16_entry, bwd_d16_entry, *bwd_mma_entries])
     kernels.extend(dims_fwd + dims_bwd)
     chaos = timed("resilience", chaos_phase)
     # launches on the resilience paths, beside each kernel's own path

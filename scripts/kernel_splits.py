@@ -28,16 +28,28 @@ builds (none of them is kept in the library):
 4. ``capacity_fill`` at B=64 on the mpc-scale tile's busiest recorded step
    of ``sweep-full`` (n_pad 1792), each route of ``csrc/fill.cu`` cut the
    same way: an empty kernel, the staging pass alone, the whole kernel.
+5. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
+   forward and backward on this checkout's wrappers and kernels against
+   those of the checkout at ROOT (say the parent commit, unpacked there by
+   ``git archive``; its sources built into its own ``build/``), at every
+   timed shape of ``chip_smoke.py`` (``DIMS_FWD_TIMED``, ``DIMS_BWD_TIMED``,
+   ``DIMS_D192_TIMED``) on which both take the same route: the outputs
+   compared, then each timed by CUDA events in turns (ROOT's, this one's,
+   this one's, ROOT's), the call as a user makes it (``launch``; the
+   backward ``launch_bwd`` on the forward's LSE).
 
 The variants that compute the output are first held equal to the shipped
 kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
 power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
-splits to run only those (``score``, ``knn``, ``geo``, ``fill``):
+splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``flash``):
 
     python3 scripts/kernel_splits.py geo fill
+    python3 scripts/kernel_splits.py flash --against build/parent
 """
+import argparse
 import ctypes
+import importlib
 import os
 import subprocess
 import sys
@@ -509,10 +521,77 @@ def fill_split():
            f"({b_tile} cells repeated; {int(args[0].sum())} candidates)", cs.in_turns(runs))
 
 
+def checkout_flash(root: str):
+    """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
+    imported beside this checkout's: the package's modules leave
+    ``sys.modules`` for the import and come back after it, so each module
+    keeps its own ``_build``, which builds its own checkout's sources into
+    that checkout's ``build/``."""
+    def package():
+        return [n for n in sys.modules if n == "repro_torch" or n.startswith("repro_torch.")]
+
+    saved = {n: sys.modules.pop(n) for n in package()}
+    sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
+    try:
+        return importlib.import_module("repro_torch.kernels.flash_attention")
+    finally:
+        sys.path.pop(0)
+        for n in package():
+            del sys.modules[n]
+        sys.modules.update(saved)
+
+
+def flash_split(against: str):
+    theirs = checkout_flash(against)
+    mods = {"against": theirs, "this": cs.fa}
+    for m in mods.values():
+        m.build()
+        m.build_bwd()
+    gen = np.random.default_rng(0)
+    shapes = [(s, False) for s in [*cs.DIMS_FWD_TIMED, cs.DIMS_D192_TIMED[0]]] \
+        + [(s, True) for s in [*cs.DIMS_BWD_TIMED, cs.DIMS_D192_TIMED[1]]]
+    for (tag, b, sq, sk, hq, hkv, d, dtype), backward in shapes:
+        what = f"gqa_flash{'_bwd' if backward else ''} {tag} (B={b} S={sq} Hq={hq} Hkv={hkv})"
+        routes = {key: (m.bwd_route if backward else m.route)(dtype, d)
+                  for key, m in mods.items()}
+        if routes["against"] != routes["this"]:
+            log(f"{what}: routes differ {routes}, not compared")
+            continue
+        q, k, v = cs.flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+        do = torch.from_numpy(gen.normal(size=q.shape).astype(np.float32)).to("cuda", dtype)
+        half = dtype in (torch.bfloat16, torch.float16)
+
+        def call(m):
+            if not backward:
+                return lambda: m.launch(q, k, v, 0)
+            o, lse = m.launch(q, k, v, 0, with_lse=True) if half else (m.launch(q, k, v, 0), None)
+            return lambda: m.launch_bwd(q, k, v, o, do, 0, lse=lse)
+
+        fns = {key: call(m) for key, m in mods.items()}
+        outs = {key: fn() for key, fn in fns.items()}
+        outs = {key: out if backward else (out,) for key, out in outs.items()}
+        diff = max((a.float() - t.float()).abs().max().item()
+                   for a, t in zip(outs["against"], outs["this"]))
+        del outs
+        iters = 3 if routes["this"] == "fma" else 10 if backward or not half else 20
+        turns, _ = cs.in_turns_ms({key: (fn, iters, 2) for key, fn in fns.items()})
+        report(f"{what} on {routes['this']}: ms a call, CUDA events, {iters} calls a turn; "
+               f"outputs differ by up to {diff}", turns)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("splits", nargs="*", help="score, knn, geo, fill (the default), flash")
+    ap.add_argument("--against", help="the root of the checkout the flash split compares")
+    args = ap.parse_args()
+    splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
+                  flash=lambda: flash_split(args.against))
+    if set(args.splits) - set(splits):
+        ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")
+    if "flash" in args.splits and not args.against:
+        ap.error("the flash split needs --against ROOT")
     log(f"card: {cs.card_line()}")
-    splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split)
-    for name in sys.argv[1:] or splits:
+    for name in args.splits or ["score", "knn", "geo", "fill"]:
         splits[name]()
 
 

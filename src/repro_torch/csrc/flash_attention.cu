@@ -23,8 +23,8 @@
 // contribute exactly 0.  Three kernels, routed by dtype and D alone (the
 // wrapper, kernels/flash_attention.py, picks one):
 //
-//   flash_wgmma_kernel (bf16 and fp16, D a multiple of 8 in (32, 256]; every
-//     model config's 16-bit head dim but the example trainers'): the Hopper
+//   flash_wgmma_kernel (bf16 and fp16, every D in (32, 256]; every model
+//     config's 16-bit head dim but the example trainers'): the Hopper
 //     design.  One block owns 128 query rows of one head and runs
 //     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
 //     (setmaxnreg 40) and one thread issues TMA loads, 4-D tensor maps over
@@ -59,7 +59,12 @@
 //     least multiple of 64 that holds it (instantiations <64, 0, T>, <128,
 //     0, T>, <192, 0, T>, <256, 0, T>; bf16 at 64, 112 and 128 keep their
 //     own), fp16 through the .f16 forms of wgmma and FLOAT16 tensor maps.
-//     Past width 128 (D in (128, 256], Gemma-2-9B's 256 among them) O takes
+//     At a D off a multiple of 8 (33, 100, 250) a contiguous 16-bit tensor
+//     has rows whose byte stride TMA refuses (not a multiple of 16): the
+//     wrapper copies each such input into a buffer of rows ceil(D / 8) * 8
+//     wide and hands in its [..., :D] view, whose maps keep extent D, so TMA
+//     zero-fills columns D.. as at D 112; the epilogue guards every store by
+//     column.  Past width 128 (D in (128, 256], Gemma-2-9B's 256 among them) O takes
 //     D/2 = 96 or 128 fp32 registers a thread, so the K/V tiles hold 64 keys
 //     (S 32 floats, P 16 registers): S = Q K^T is m64n64k16 over D/16 steps,
 //     O += P V m64nDk16 (n192 or n256) over 4 steps, V read MN-major across
@@ -75,8 +80,8 @@
 //     turn j, which the ping-pong order puts after both consumers released
 //     tile j - 1 (hopper.cuh, Roles).  Width 192 fits 168 registers and
 //     keeps the producer warpgroup.
-//   flash_mma_kernel<T, DP> (bf16 and fp16 at every other D: below 40 or
-//     not a multiple of 8; the small trainers of
+//   flash_mma_kernel<T, DP> (bf16 and fp16 at D <= 32, where a wgmma tile
+//     of 64 columns would be mostly zeros; the small trainers of
 //     repro_torch.examples.train_carbon_aware take D 16 and 32; on request
 //     any D, the yardstick of the Hopper kernel): 4 warps,
 //     each owning 16 of 64 query rows, mma.sync m16n8k16 (.bf16 or .f16);
@@ -90,7 +95,9 @@
 //     DP + 8 elements keep each 8 x 8 matrix's rows 16-byte aligned and in
 //     distinct banks.  At DP 256, Q's fragments (64 registers) beside the
 //     128-float output would pass 255 registers a thread, so Q stays in
-//     shared memory (169 KB in all) and is read at each product.
+//     shared memory (169 KB in all) and is read at each product.  Given an
+//     lse pointer it stores each row's log-sum-exp (m + ln l), which the
+//     backward's "mma" route reads; the output is the same either way.
 //   flash_f32_kernel<DP> (fp32, every D, on the same padded widths): 16x16
 //     threads, each owning a 4x4 block of scores and 4 rows x DP/16 columns
 //     of the output, fp32 FMA on the CUDA cores (no TF32, so the result
@@ -151,63 +158,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int sq, int sk, int offset) {
 
 // --- bf16 and fp16: mma.sync on the tensor cores ---------------------------
 
-// c += a b on one m16n8k16 tile, T bf16 or fp16, fp32 accumulation.
-template <typename T>
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  if constexpr (is_f16<T>)
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16 bytes global -> shared without passing through registers; when `in`
-// is false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 16-bit matrices from shared memory, lanes 8i..8i+7 giving the row
-// addresses of matrix i; plain: lane 4g + t gets row g, columns 2t, 2t + 1
-// of each; .trans: rows 2t, 2t + 1 of column g.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
 // The padded widths of the mma.sync and fp32 kernels: a head dim d runs on
 // the least DP >= d (a multiple of 16), its columns d..DP-1 loaded as zeros.
 __host__ __device__ constexpr int padded_dim(int d) {
@@ -228,31 +178,6 @@ constexpr size_t mma_smem_bytes() {          // K and V, two buffers each (and Q
   return sizeof(uint16_t) * (4 + (q_in_registers<DP>() ? 0 : 1)) * BK * (DP + 8);
 }
 
-// Rows [r0, r0 + rows) of one head (row stride `rs` elements) into a tile
-// of rows x DP with row stride DP + 8, zero past `valid` rows and past
-// column d.  `vec`: d and every stride multiples of 8 elements and the base
-// 16-byte aligned, so 16-byte cp.async copies (zero-filled past d in whole
-// chunks, asynchronous: the caller commits and waits); else 2-byte loads
-// through registers, stored at once.
-template <typename T, int DP>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int rows, int valid,
-                                          long long rs, int d, bool vec) {
-  constexpr int KS = DP + 8;
-  if (vec) {
-    constexpr int DV = DP / 8;
-    for (int e = threadIdx.x; e < rows * DV; e += blockDim.x) {
-      const int r = e / DV, c = (e % DV) * 8;
-      const bool in = r0 + r < valid && c < d;
-      cp_async16(dst + r * KS + c, src + (in ? (r0 + r) * rs + c : 0), in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * DP; e += blockDim.x) {
-      const int r = e / DP, c = e % DP;
-      dst[r * KS + c] = r0 + r < valid && c < d ? src[(r0 + r) * rs + c] : from_f<T>(0.f);
-    }
-  }
-}
-
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A holds rows g and g + 8,
 // columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds k rows 2t, 2t + 1 and
 // 2t + 8, 2t + 9 of column g; C holds rows g (c0, c1) and g + 8 (c2, c3),
@@ -261,12 +186,15 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int rows
 // O = P V.  Tile rows are padded to DP + 8 elements, so the eight 16-byte
 // rows of each 8x8 matrix fall in distinct banks.  T is bf16 or fp16; the
 // head dim d <= DP, columns d..DP-1 of every tile zero (they add nothing to
-// q.k, and give output columns that are not stored).
+// q.k, and give output columns that are not stored).  With `lse` each
+// row's log-sum-exp of its scaled scores, m + ln(l), goes to lse (B, Hq, Sq)
+// in fp32 for the backward's "mma" route; nullptr stores nothing, and the
+// output is the same either way.
 template <typename T, int DP>
 __global__ void __launch_bounds__(128)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, int hq, int group, int offset, int d,
-                 bool vec, Strides qs, Strides ks, Strides vs, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int hq, int group,
+                 int offset, int d, bool vec, Strides qs, Strides ks, Strides vs, float scale) {
   constexpr int KS = DP + 8;       // row stride of every tile, in elements
   constexpr bool QREG = q_in_registers<DP>();
   extern __shared__ __align__(16) unsigned char flash_smem[];
@@ -429,6 +357,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int n = 0; n < DP / 8; ++n)
         if (8 * n < d)
           store2<T>(op, 8 * n + 2 * t, d, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<long long>(b) * hq + h) * sq + orow] = m[r] + logf(l[r]);
     }
   }
 }
@@ -569,34 +499,35 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <typename T, int DP>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, dim3 grid, int sq,
-                       int sk, int hq, int group, int offset, int d, bool vec, Strides qs,
-                       Strides ks, Strides vs, float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       dim3 grid, int sq, int sk, int hq, int group, int offset, int d, bool vec,
+                       Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   flash_mma_kernel<T, DP><<<grid, 128, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, hq, group, offset, d, vec, qs, ks, vs, scale);
+      static_cast<T*>(o), lse, sq, sk, hq, group, offset, d, vec, qs, ks, vs, scale);
   return cudaGetLastError();
 }
 
-// The mma.sync kernel (dtype 1 bf16, 2 fp16) or the fp32 kernel (dtype 0)
-// on tiles DP wide for head dim d <= DP.
+// The mma.sync kernel (dtype 1 bf16, 2 fp16; each row's LSE into `lse`
+// unless null) or the fp32 kernel (dtype 0) on tiles DP wide for head dim
+// d <= DP.
 template <int DP>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int b,
-                   int sq, int sk, int hq, int hkv, int d, int offset, bool vec, Strides qs,
-                   Strides ks, Strides vs, cudaStream_t stream) {
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                   int b, int sq, int sk, int hq, int hkv, int d, int offset, bool vec,
+                   Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
   const int group = hq / hkv;
   if (dtype == 1)
-    return launch_mma<__nv_bfloat16, DP>(q, k, v, o, grid, sq, sk, hq, group, offset, d, vec,
-                                         qs, ks, vs, scale, stream);
+    return launch_mma<__nv_bfloat16, DP>(q, k, v, o, lse, grid, sq, sk, hq, group, offset, d,
+                                         vec, qs, ks, vs, scale, stream);
   if (dtype == 2)
-    return launch_mma<__half, DP>(q, k, v, o, grid, sq, sk, hq, group, offset, d, vec, qs, ks,
-                                  vs, scale, stream);
+    return launch_mma<__half, DP>(q, k, v, o, lse, grid, sq, sk, hq, group, offset, d, vec, qs,
+                                  ks, vs, scale, stream);
   const size_t smem = f32_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -715,7 +646,13 @@ __device__ __forceinline__ void softmax(float (&s)[KEYS / 2], float (&m)[2], flo
 // multiple of 8 in (D - 64, D]).  T is bf16 or fp16.  With `lse` each row's
 // log-sum-exp of its scaled scores, m * scale + ln(l), goes to lse (B, Hq,
 // Sq) in fp32 for the backward; nullptr stores nothing, and the output is
-// the same either way.
+// the same either way.  DO = -1 takes any head dim in (D - 64, D] (the
+// wrapper's staged inputs at a head dim off a multiple of 8: 33, 100, 250)
+// and guards every store by column (hopper.cuh, store2): the last chunk of
+// 8 columns is then partial, and at an odd head dim the pairs are not
+// 4-byte aligned.  The multiples of 8 keep instantiations without those
+// guards (a separate instantiation: the guards, compiled into them, cost
+// 3-6 % of their time on an H100).
 template <int D, int DO = D, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -850,12 +787,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (orow < sq) {
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         const int dcols = DO > 0 ? DO : dh;
-        T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
+        if constexpr (DO < 0) {             // any head dim: each column guarded
+          T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)     // columns 8n + 2t, +1 < the head dim
-          if (8 * n < dcols)
-            *reinterpret_cast<uint32_t*>(op + n * 8) =
-                pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+          for (int n = 0; n < D / 8; ++n)
+            if (8 * n < dcols)
+              store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * inv,
+                        acc[4 * n + 2 * r + 1] * inv);
+        } else {
+          T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+            if (8 * n < dcols)
+              *reinterpret_cast<uint32_t*>(op + n * 8) =
+                  pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+        }
         // m is the row's max of the unscaled scores and l its sum of
         // 2^((s - m) * scale_log2) = e^((s - m) * scale), so the natural
         // LSE of s * scale is (m * scale_log2 + log2(l)) * ln 2.
@@ -868,14 +814,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D =
-// 128; DO = 0: the head dim dh, a multiple of 8 in (D - 64, D]), T bf16 or
-// fp16.
+// 128; DO = 0: the head dim dh, a multiple of 8, in (D - 64, D]; DO = -1:
+// any dh there), T bf16 or fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
                    int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
-  static_assert(DO == 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
+  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
                 "DO: the head dim in D's last box");
-  if (DO > 0 ? dh != DO : (dh % 8 != 0 || dh > D || D - dh >= BOX))
+  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || D - dh >= BOX))
     return cudaErrorInvalidValue;
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
   using R = Roles<(D > 192)>;
@@ -893,6 +839,28 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
   return cudaGetLastError();
 }
 
+// The run-time head dim's instantiations: tiles as wide as the least
+// multiple of 64 that holds d (64, 128, 192 or 256), DO 0 (d a multiple of
+// 8) or -1 (any d: the guarded stores).
+template <int DO, typename T>
+int by_tile(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, int hq, int hkv,
+            int d, int offset, dim3 grid, size_t smem, cudaStream_t s) {
+  switch ((d + 63) / 64 * 64) {
+    case 64:
+      return static_cast<int>(launch<64, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
+    case 128:
+      return static_cast<int>(launch<128, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                 smem, s));
+    case 192:
+      return static_cast<int>(launch<192, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                 smem, s));
+    default:
+      return static_cast<int>(launch<256, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                 smem, s));
+  }
+}
+
 }  // namespace hopper
 
 }  // namespace
@@ -905,15 +873,18 @@ extern "C" {
 // width of 16, 32, 64, 128, 256 that holds it; hq a multiple of hkv,
 // causal_offset >= 0.  The grid must be the kernels' (ceil(sq / 64), hq, b),
 // as the wrapper plans it.  The 16-bit kernels copy 16 bytes at a time where
-// d, the strides and the starts allow it, else element by element.
-int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+// d, the strides and the starts allow it, else element by element; given
+// `lse` ((b, hq, sq) float32), they also store each row's log-sum-exp for
+// the backward's "mma" route (the fp32 kernel takes none).
+int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
                   long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                   long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                   long long v_sh, int grid_x, int grid_y, int grid_z, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || dtype < 0 || dtype > 2 || d < 1 || d > 256 ||
-      grid_x != (sq + BQ - 1) / BQ || grid_y != hq || grid_z != b)
+      grid_x != (sq + BQ - 1) / BQ || grid_y != hq || grid_z != b ||
+      (dtype == 0 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
@@ -923,30 +894,32 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (padded_dim(d)) {
     case 16:
-      return static_cast<int>(launch<16>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+      return static_cast<int>(launch<16>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                          causal_offset, vec, qs, ks, vs, s));
     case 32:
-      return static_cast<int>(launch<32>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+      return static_cast<int>(launch<32>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                          causal_offset, vec, qs, ks, vs, s));
     case 64:
-      return static_cast<int>(launch<64>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+      return static_cast<int>(launch<64>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                          causal_offset, vec, qs, ks, vs, s));
     case 128:
-      return static_cast<int>(launch<128>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+      return static_cast<int>(launch<128>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                           causal_offset, vec, qs, ks, vs, s));
     default:
-      return static_cast<int>(launch<256>(dtype, q, k, v, o, b, sq, sk, hq, hkv, d,
+      return static_cast<int>(launch<256>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                           causal_offset, vec, qs, ks, vs, s));
   }
 }
 
 // dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),
-// d a multiple of 8 in (32, 256], through the Hopper kernel: bf16 at d 64,
+// 32 < d <= 256, through the Hopper kernel: bf16 at d 64,
 // 112 and 128 on instantiations of their own (d = 112 on the d = 128
 // tiles), every other d on the tiles 64, 128, 192 or 256 wide (the least
 // multiple of 64 that holds d) with the head dim taken at run time; o (b,
 // sq, hq, d) contiguous; lse, when not null, (b, hq, sq) float32: each
-// row's log-sum-exp for the backward.  `maps` holds, for q, k and v in
+// row's log-sum-exp for the backward.  TMA needs byte strides that are
+// multiples of 16, so at a d off a multiple of 8 the wrapper hands in views
+// of copies whose rows are ceil(d / 8) * 8 wide.  `maps` holds, for q, k and v in
 // turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
 // strides along h, s and b, and its box (64, 1, R, 1), R the keys of a K/V
 // tile (128 up to d 128, else 64).  The grid is (hq, b, ceil(sq / 128));
@@ -958,7 +931,7 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   using hopper::ROWS;
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
-      grid_z > 65535 || (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 256)
+      grid_z > 65535 || (dtype != 1 && dtype != 2) || d <= 32 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
@@ -967,23 +940,11 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
-  const int tile = (d + 63) / 64 * 64;
-  if (dtype == 2) {
-    switch (tile) {
-      case 64:
-        return static_cast<int>(hopper::launch<64, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                              causal_offset, grid, sm, s));
-      case 128:
-        return static_cast<int>(hopper::launch<128, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                               causal_offset, grid, sm, s));
-      case 192:
-        return static_cast<int>(hopper::launch<192, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                               causal_offset, grid, sm, s));
-      default:
-        return static_cast<int>(hopper::launch<256, 0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                               causal_offset, grid, sm, s));
-    }
-  }
+  if (dtype == 2)
+    return d % 8 != 0 ? hopper::by_tile<-1, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                   causal_offset, grid, sm, s)
+                      : hopper::by_tile<0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                  causal_offset, grid, sm, s);
   switch (d) {
     case 64:
       return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
@@ -995,20 +956,10 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
       return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
                                                   grid, sm, s));
   }
-  switch (tile) {
-    case 64:
-      return static_cast<int>(hopper::launch<64, 0>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                    causal_offset, grid, sm, s));
-    case 128:
-      return static_cast<int>(hopper::launch<128, 0>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                     causal_offset, grid, sm, s));
-    case 192:
-      return static_cast<int>(hopper::launch<192, 0>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                     causal_offset, grid, sm, s));
-    default:
-      return static_cast<int>(hopper::launch<256, 0>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                     causal_offset, grid, sm, s));
-  }
+  return d % 8 != 0 ? hopper::by_tile<-1, __nv_bfloat16>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                        causal_offset, grid, sm, s)
+                    : hopper::by_tile<0, __nv_bfloat16>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                       causal_offset, grid, sm, s);
 }
 
 }  // extern "C"

@@ -18,12 +18,12 @@
 // dK and dV summed over the Hq / Hkv query heads of their KV head.
 // Outputs are written in the inputs' dtype (float32, bfloat16 or float16;
 // the wrapper runs float64 on fp32 copies), at any head dim 1 <= D <= 256.
-// Two routes, picked by dtype and D alone
+// Three routes, picked by dtype and D alone
 // (kernels/flash_attention.py::bwd_route):
 //
-// "wgmma" (bf16 and fp16 at D a multiple of 8 in (32, 256], where the
-// forward's route is the Hopper kernel; every model config that trains in
-// bf16), namespace wg.  The forward's flash_wgmma_kernel writes each row's
+// "wgmma" (bf16 and fp16 at every D in (32, 256], where the forward's route
+// is the Hopper kernel; every model config that trains in bf16), namespace
+// wg.  The forward's flash_wgmma_kernel writes each row's
 // LSE, so P = exp(S * scale - LSE) needs no statistics pass.  Two kernels,
 // each a TMA producer warpgroup (one thread issuing 4-D tensor-map loads
 // with 128-byte swizzle, boxes of 64 rows x 64 bf16) and two wgmma consumer
@@ -50,10 +50,14 @@
 //     free of atomics: each output element has one writer and each sum one
 //     order, so two runs give equal bits.
 // D = 112 runs the D = 128 kernels: TMA fills columns 112..127 of every tile
-// with zeros and 112 columns are stored; every other D of the route runs on
-// tiles as wide as the least multiple of 64 that holds it, the same way with
-// D taken at run time (instantiations <64, 0, T>, <128, 0, T>, <192, 0, T>
-// and <256, 0, T>; fp16 through .f16 wgmma).  Past width 128 (D in (128,
+// with zeros and 112 columns are stored.  At a D off a multiple of 8 the
+// tensor maps read views of copies of q, k, v and dO whose rows are
+// ceil(D / 8) * 8 wide (a contiguous 16-bit row of D elements has a byte
+// stride TMA refuses), the D_i pass o and the staged dO element by
+// element, and every store is guarded by column.  Every other D of the
+// route runs on tiles as wide as the least multiple of 64 that holds it, the
+// same way with D taken at run time (instantiations <64, 0, T>, <128, 0,
+// T>, <192, 0, T> and <256, 0, T>; fp16 through .f16 wgmma).  Past width 128 (D in (128,
 // 256]) each consumer's dQ, dK or dV takes 96 or 128 fp32 registers a
 // thread, and Q and dO of the dQ kernel's 128 rows take 96 or 128 KiB:
 //   dQ keeps its 128 rows a block (two consumers of 64, Q and dO resident)
@@ -81,8 +85,29 @@
 // D_i are taken as 0, so dS and P^T dO vanish there; tiles that cross the
 // diagonal or the end of K are masked.
 //
-// "fma" (fp32 at any D; bf16 and fp16 at every D off the wgmma route; and, on
-// request, any shape as the yardstick of the wgmma route): the first design's
+// "mma" (bf16 and fp16 at D <= 32, where the forward is flash_mma_kernel;
+// the example trainers' heads, train_carbon_aware's tiny preset at D 16),
+// namespace mm.  flash_mma_kernel writes each row's LSE, so no statistics
+// pass: two kernels of 4 warps on mma.sync m16n8k16 (.bf16 or .f16), tiles
+// of 64 rows and 64 keys with rows of DP + 8 elements (DP 16 or 32, the
+// columns past D zero), launched in this order:
+//   flash_bwd_dq_mma_kernel: one block per (64 query rows, query head,
+//     batch), heaviest tiles first; D_i of its rows (written to fp32 scratch
+//     for the next kernel); Q as A fragments in registers, dO's read from
+//     shared memory; per K/V tile of 64 keys (double-buffered cp.async) S =
+//     Q K^T and dP = dO V^T,
+//     P and dS in registers, dQ += dS K (K read by ldmatrix .trans).
+//   flash_bwd_dkdv_mma_kernel: one block per (64 keys, KV head, batch); K
+//     and V as A fragments; per 64-row query tile of the group's heads that
+//     sees its keys (double-buffered, with the rows' LSE and D_i) S^T = K
+//     Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, the group summed in
+//     the block (no atomics: equal bits run to run).
+// P and dS are rounded to the inputs' type where the wgmma kernels round
+// them.  Seven products on the tensor cores where the fma route runs eight
+// on the CUDA cores' fp32 FMA, in two launches instead of three.
+//
+// "fma" (fp32 and fp64 at any D; and, on request, any shape as the
+// yardstick of the other routes): the first design's
 // three kernels, on the forward's padded widths DP of 16, 32, 64, 128, 256
 // (tile columns past D zero), in this order:
 //   flash_bwd_stats_kernel: one block per (query tile, query head, batch):
@@ -106,7 +131,7 @@
 // KB of shared memory; this halves the reuse of every shared-memory read, and
 // at internvl2-2b's train shape at D 256 the route took 55.7 ms on an H100
 // 80GB HBM3 at 700 W, against SDPA's backward's 1.46 ms and the wgmma
-// route's 1.67 ms.  Rows past Sq and keys past Sk load as zeros and are
+// route's 1.67 ms (the route no 16-bit call takes by default any more).  Rows past Sq and keys past Sk load as zeros and are
 // masked; nothing past them is stored.
 //
 // What bounds it on an H100: at internvl2-2b's training shape (B=4,
@@ -199,6 +224,14 @@ __device__ __forceinline__ float max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+// 4 bytes global -> shared, asynchronously; when `in` is false nothing is
+// read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
 }
 
 // --- (a) row statistics ------------------------------------------------------
@@ -721,14 +754,6 @@ __device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (
     wgmma_rs<D, T>(acc, a + 4 * kk, sw128_desc(b + kk * 16 * ROW_BYTES, B_STRIDE, GROUP_BYTES));
 }
 
-// 4 bytes global -> shared, asynchronously; when `in` is false nothing is
-// read and the 4 bytes are zero-filled.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
 // Arrive on `bar` once this thread's earlier cp.async copies have landed
 // (the barrier's count already holds this arrival).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -758,8 +783,10 @@ __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, u
 // - LSE log2 e) and dS = P (dP - D_i) in registers, dS rounded to bf16,
 // dQ += dS K with K read MN-major.  D is the tiles' width, DO <= D the head
 // dim (columns 112..127 of every tile are zeros at DO = 112); DO = 0 takes
-// it from `dh` at run time (a multiple of 8 in (D - 64, D]).  T is bf16 or
-// fp16.
+// it from `dh` at run time (a multiple of 8 in (D - 64, D]), DO = -1 any dh
+// there (TMA reads the staged copies of q, k, v and dO, the D_i pass o and
+// the staged dO element by element, and every store is guarded by column: hopper.cuh, store2; separate instantiations, so that the
+// multiples of 8 keep their unguarded code).  T is bf16 or fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -821,30 +848,55 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const long long stat = (static_cast<long long>(b) * hq + h) * sq;
 
     // D_i of the warp's 16 rows, 128 columns at a time: lane l holds columns
-    // c0 + 4l..c0 + 4l + 3 of a row (8 bytes of o and of dO).  The loads take
-    // no branch, so all 16 rows' issue before the sums: rows past Sq re-read
-    // the last row, lanes past the head dim its last columns, and both add 0.
+    // c0 + 4l..c0 + 4l + 3 of a row.  o is contiguous (rows of the head dim);
+    // dO is what its tensor map reads, rows ceil(dh / 8) * 8 wide.  At a head
+    // dim that is a multiple of 8 both are dh wide and a row's 4 columns are
+    // 8 bytes of o and of dO, loaded without a branch, so all 16 rows' issue
+    // before the sums: rows past Sq re-read the last row, lanes past the
+    // head dim its last columns, and both add 0.  At any head dim (DO = -1:
+    // 33, 250) o's rows may start off 8 bytes: one element at a time,
+    // columns past the head dim skipped.
     const int dcols = DO > 0 ? DO : dh;
     float di[2] = {0.f, 0.f}, part[16];
 #pragma unroll
     for (int r = 0; r < 16; ++r) part[r] = 0.f;
+    if constexpr (DO >= 0) {
 #pragma unroll
-    for (int c0 = 0; c0 < D; c0 += 128) {
-      uint2 ov[16], dov[16];
-      const int col = c0 + min(4 * lane, dcols - c0 - 4);
+      for (int c0 = 0; c0 < D; c0 += 128) {
+        uint2 ov[16], dov[16];
+        const int col = c0 + min(4 * lane, dcols - c0 - 4);
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const long long at =
-            ((static_cast<long long>(b) * sq + min(row0 + r, sq - 1)) * hq + h) * dcols + col;
-        ov[r] = *reinterpret_cast<const uint2*>(o + at);
-        dov[r] = *reinterpret_cast<const uint2*>(dout + at);
+        for (int r = 0; r < 16; ++r) {
+          const long long at =
+              ((static_cast<long long>(b) * sq + min(row0 + r, sq - 1)) * hq + h) * dcols + col;
+          ov[r] = *reinterpret_cast<const uint2*>(o + at);
+          dov[r] = *reinterpret_cast<const uint2*>(dout + at);
+        }
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float2 u0 = unpack2<T>(ov[r].x), u1 = unpack2<T>(ov[r].y);
+          const float2 w0 = unpack2<T>(dov[r].x), w1 = unpack2<T>(dov[r].y);
+          const float sum = fmaf(u0.x, w0.x, fmaf(u0.y, w0.y, fmaf(u1.x, w1.x, u1.y * w1.y)));
+          if (row0 + r < sq && c0 + 4 * lane < dcols) part[r] += sum;
+        }
       }
+    } else {
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float2 u0 = unpack2<T>(ov[r].x), u1 = unpack2<T>(ov[r].y);
-        const float2 w0 = unpack2<T>(dov[r].x), w1 = unpack2<T>(dov[r].y);
-        const float sum = fmaf(u0.x, w0.x, fmaf(u0.y, w0.y, fmaf(u1.x, w1.x, u1.y * w1.y)));
-        if (row0 + r < sq && c0 + 4 * lane < dcols) part[r] += sum;
+      for (int c0 = 0; c0 < D; c0 += 128) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const long long at =
+              (static_cast<long long>(b) * sq + min(row0 + r, sq - 1)) * hq + h;
+          float sum = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 4 * lane + e;
+            if (col < dcols)
+              sum = fmaf(to_f(o[at * dcols + col]), to_f(dout[at * ((dcols + 7) & ~7) + col]),
+                         sum);
+          }
+          if (row0 + r < sq) part[r] += sum;
+        }
       }
     }
 #pragma unroll
@@ -924,12 +976,21 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int r = 0; r < 2; ++r) {
       const int orow = row + 8 * r;
       if (orow < sq) {
-        T* op = dq + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
+        if constexpr (DO < 0) {           // any head dim: each column guarded
+          T* op = dq + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)     // columns 8n + 2t, +1 < the head dim
-          if (8 * n < dcols)
-            *reinterpret_cast<uint32_t*>(op + n * 8) =
-                pack2<T>(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
+          for (int n = 0; n < D / 8; ++n)
+            if (8 * n < dcols)
+              store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * scale,
+                        acc[4 * n + 2 * r + 1] * scale);
+        } else {
+          T* op = dq + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+            if (8 * n < dcols)
+              *reinterpret_cast<uint32_t*>(op + n * 8) =
+                  pack2<T>(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
+        }
       }
     }
   }
@@ -1119,12 +1180,21 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int r = 0; r < 2; ++r) {
       const int kr = key + 8 * r;
       if (kr < sk) {
-        T* op = out + ((static_cast<long long>(b) * sk + kr) * hkv + hk) * dcols + 2 * t;
+        if constexpr (DO < 0) {           // any head dim: each column guarded
+          T* op = out + ((static_cast<long long>(b) * sk + kr) * hkv + hk) * dcols;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)     // columns 8n + 2t, +1 < the head dim
-          if (8 * n < dcols)
-            *reinterpret_cast<uint32_t*>(op + n * 8) =
-                pack2<T>(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+          for (int n = 0; n < D / 8; ++n)
+            if (8 * n < dcols)
+              store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * mul,
+                        acc[4 * n + 2 * r + 1] * mul);
+        } else {
+          T* op = out + ((static_cast<long long>(b) * sk + kr) * hkv + hk) * dcols + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+            if (8 * n < dcols)
+              *reinterpret_cast<uint32_t*>(op + n * 8) =
+                  pack2<T>(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+        }
       }
     }
   }
@@ -1155,14 +1225,14 @@ struct Args {
 };
 
 // The kernel `which` on tiles D wide for head dim DO (DO = 0: dh, a
-// multiple of 8 in (D - 64, D]), T bf16 or fp16.
+// multiple of 8, in (D - 64, D]; DO = -1: any dh there), T bf16 or fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
 cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int sq, int sk,
                    int hq, int hkv, int dh, int offset, dim3 grid, size_t smem,
                    cudaStream_t stream) {
-  static_assert(DO == 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
+  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
                 "DO: the head dim in D's last box");
-  if (DO > 0 ? dh != DO : (dh % 8 != 0 || dh > D || D - dh >= BOX))
+  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || D - dh >= BOX))
     return cudaErrorInvalidValue;
   if (smem != smem_bytes<D>(which)) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
@@ -1187,7 +1257,393 @@ cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int s
   return cudaGetLastError();
 }
 
+// The run-time head dim's instantiations: tiles as wide as the least
+// multiple of 64 that holds d (64, 128, 192 or 256), DO 0 (d a multiple of
+// 8) or -1 (any d: the guarded stores, element loads in D_i).
+template <int DO, typename T>
+int by_tile(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int sk, int hq,
+            int hkv, int d, int offset, dim3 grid, size_t smem, cudaStream_t s) {
+  switch ((d + 63) / 64 * 64) {
+    case 64:
+      return static_cast<int>(launch<64, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
+    case 128:
+      return static_cast<int>(launch<128, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset,
+                                                 grid, smem, s));
+    case 192:
+      return static_cast<int>(launch<192, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset,
+                                                 grid, smem, s));
+    default:
+      return static_cast<int>(launch<256, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset,
+                                                 grid, smem, s));
+  }
+}
+
 }  // namespace wg
+
+// --- bf16 and fp16 at D <= 32: mma.sync, the LSE from flash_mma_kernel -------
+
+namespace mm {
+
+constexpr int ROWS = 64;           // dQ: query rows per block; dK/dV: query rows per tile
+constexpr int KEYS = 64;           // dQ: keys per tile; dK/dV: keys per block
+constexpr int WARPS = 4;           // 16 rows (dQ) or 16 keys (dK/dV) a warp
+constexpr float LOG2E = 1.4426950408889634f;
+using hopper::exp2_ftz;
+
+// Shared memory: tiles of 64 rows of DP + 8 16-bit elements (as the
+// forward's flash_mma_kernel: each 8 x 8 matrix's rows 16-byte aligned and
+// in distinct banks).  dQ: Q, dO, two buffers each of K and V; dK/dV: K, V,
+// two buffers each of Q and dO, then each buffer's 64 LSEs and 64 D_i.
+template <int DP>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return sizeof(uint16_t) * 6 * ROWS * (DP + 8);
+}
+template <int DP>
+__host__ __device__ constexpr size_t dkdv_smem_bytes() {
+  return dq_smem_bytes<DP>() + sizeof(float) * 2 * 2 * ROWS;
+}
+
+// The A fragments (m16n8k16) of rows r0..r0 + 15 of a tile: DP / 16 slices
+// of 16 columns, lane 4g + t holding rows g, g + 8 and columns 2t, 2t + 1,
+// 2t + 8, 2t + 9 of each.
+template <typename T, int DP>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[DP / 16][4], const T* tile, int r0,
+                                        int lane) {
+  constexpr int KS = DP + 8;
+  const T* p = tile + (r0 + (lane >> 2)) * KS + 2 * (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    a[kk][0] = ld32(p + kk * 16);
+    a[kk][1] = ld32(p + 8 * KS + kk * 16);
+    a[kk][2] = ld32(p + kk * 16 + 8);
+    a[kk][3] = ld32(p + 8 * KS + kk * 16 + 8);
+  }
+}
+
+// c (16 x 64, fp32 C fragments: c[n] the 8 columns 8n..8n + 7) = A B^T over
+// DP: A in fragments, B the 64 rows of `tile` read by plain ldmatrix (the
+// forward's S = Q K^T).
+template <typename T, int DP>
+__device__ __forceinline__ void abt(float (&c)[8][4], const uint32_t (&a)[DP / 16][4],
+                                    const T* tile, int lane) {
+  constexpr int KS = DP + 8;
+  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t f[4];
+      ldmatrix_x4(f, tile + (np * 16 + row) * KS + kk * 16 + col);
+      mma_16816<T>(c[2 * np], a[kk], f[0], f[1]);
+      mma_16816<T>(c[2 * np + 1], a[kk], f[2], f[3]);
+    }
+  }
+}
+
+// acc (16 x DP) += X B: X (16 x 64) the C fragments x rounded to T (two
+// adjacent C fragments are one A fragment), B the 64 rows of `tile` along
+// the product, read by ldmatrix .trans (the forward's O += P V).
+template <typename T, int DP>
+__device__ __forceinline__ void xb(float (&acc)[DP / 8][4], const float (&x)[8][4],
+                                   const T* tile, int lane) {
+  constexpr int KS = DP + 8;
+  const int row = (lane & 7) + (((lane >> 3) & 1) << 3), col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t xa[4] = {pack2<T>(x[2 * kk][0], x[2 * kk][1]),
+                            pack2<T>(x[2 * kk][2], x[2 * kk][3]),
+                            pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                            pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DP / 16; ++dp) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, tile + (kk * 16 + row) * KS + dp * 16 + col);
+      mma_16816<T>(acc[2 * dp], xa, f[0], f[1]);
+      mma_16816<T>(acc[2 * dp + 1], xa, f[2], f[3]);
+    }
+  }
+}
+
+// dQ: one block per (64 query rows, query head, batch), heaviest tiles
+// first; warp w owns rows 16w..16w + 15.  D_i = dO_i . O_i of its rows from
+// device memory (fp32, written to `dvec` for the dK/dV kernel) while Q, dO
+// and the first K/V tile come by cp.async; Q then stays in registers as A
+// fragments, dO's are read from shared memory at each tile (held beside Q,
+// S, dP and dQ they took ptxas to 128 registers and a 12-byte spill at DP
+// 32).  Per tile of 64 keys (the next one loading into the other
+// buffer): S = Q K^T and dP = dO V^T, P = 2^(S scale_log2 - LSE log2 e), 0
+// where masked, dS = P (dP - D_i) rounded to T, dQ += dS K.  A warp skips a
+// tile none of its rows sees.  Element e of a C fragment n is row g + 8 (e
+// >> 1), key 8n + 2t + (e & 1) of the tile.
+template <typename T, int DP>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ dvec, T* __restrict__ dq, Dims dm, bool vec) {
+  constexpr int KS = DP + 8;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* qbuf = reinterpret_cast<T*>(mma_smem);      // ROWS x KS
+  T* dobuf = qbuf + ROWS * KS;                    // ROWS x KS
+  T* kbuf = dobuf + ROWS * KS;                    // 2 x KEYS x KS
+  T* vbuf = kbuf + 2 * KEYS * KS;                 // 2 x KEYS x KS
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hkv = dm.hq / dm.group, d = dm.d;
+  const long long q_rs = static_cast<long long>(dm.hq) * d, k_rs = static_cast<long long>(hkv) * d;
+  const long long q_off = static_cast<long long>(b) * dm.sq * q_rs + h * d;
+  const long long kv_off = static_cast<long long>(b) * dm.sk * k_rs + (h / dm.group) * d;
+  const int n_tiles = kv_tiles<ROWS, KEYS>(q0, dm.sq, dm.sk, dm.offset);
+  auto load_kv = [&](int tile, int buf) {
+    load_rows<T, DP>(kbuf + buf * KEYS * KS, k + kv_off, tile * KEYS, KEYS, dm.sk, k_rs, d, vec);
+    load_rows<T, DP>(vbuf + buf * KEYS * KS, v + kv_off, tile * KEYS, KEYS, dm.sk, k_rs, d, vec);
+  };
+  load_rows<T, DP>(qbuf, q + q_off, q0, ROWS, dm.sq, q_rs, d, vec);
+  load_rows<T, DP>(dobuf, dout + q_off, q0, ROWS, dm.sq, q_rs, d, vec);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // D_i: lane l sums columns 16 (l & 1) .. + 15 (below d) of row l >> 1 of
+  // the warp's 16, the lane pair's sums added; lanes 2g and 2g + 16 hold rows
+  // g and g + 8.
+  const long long stat = (static_cast<long long>(b) * dm.hq + h) * dm.sq;
+  const int row0 = q0 + 16 * warp;
+  float part = 0.f;
+  const int rr = row0 + (lane >> 1);
+  if (rr < dm.sq) {
+    const long long at = q_off + rr * q_rs;
+    for (int c = 16 * (lane & 1); c < min(d, 16 * (lane & 1) + 16); ++c)
+      part = fmaf(to_f(o[at + c]), to_f(dout[at + c]), part);
+  }
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  if ((lane & 1) == 0 && rr < dm.sq) dvec[stat + rr] = part;
+  const float di[2] = {__shfl_sync(0xffffffffu, part, 2 * g),
+                       __shfl_sync(0xffffffffu, part, 2 * g + 16)};
+  const int row = row0 + g;                         // this thread's rows: row, row + 8
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lse2[r] = row + 8 * r < dm.sq ? lse[stat + row + 8 * r] * LOG2E : 0.f;
+  const float scale_log2 = dm.scale * LOG2E;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[DP / 16][4];       // Q's fragments stay in registers; dO's are read at each tile
+  a_frags<T, DP>(qa, qbuf, 16 * warp, lane);
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const long long qpos = static_cast<long long>(dm.offset) + row;
+  const long long first = static_cast<long long>(dm.offset) + row0;   // the warp's first row
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * KEYS, buf = tile & 1;
+    if (tile + 1 < n_tiles) {      // the next tile streams in under this one
+      load_kv(tile + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (k0 <= first + 15) {        // some row of this warp sees a key of the tile
+      const T* kt = kbuf + buf * KEYS * KS;
+      float s[8][4], dp[8][4];
+      abt<T, DP>(s, qa, kt, lane);
+      uint32_t da[DP / 16][4];
+      a_frags<T, DP>(da, dobuf, 16 * warp, lane);
+      abt<T, DP>(dp, da, vbuf + buf * KEYS * KS, lane);
+      const bool full = k0 + KEYS <= dm.sk && k0 + KEYS - 1 <= first;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const bool live = full || (key < dm.sk && qpos + 8 * (e >> 1) >= key);
+          const float p = live ? exp2_ftz(fmaf(s[n][e], scale_log2, -lse2[e >> 1])) : 0.f;
+          s[n][e] = p * (dp[n][e] - di[e >> 1]);     // dS
+        }
+      }
+      xb<T, DP>(acc, s, kt, lane);
+    }
+    __syncthreads();               // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int orow = row + 8 * r;
+    if (orow < dm.sq) {
+      T* op = dq + q_off + orow * q_rs;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        if (8 * n < d)
+          store2<T>(op, 8 * n + 2 * t, d, acc[n][2 * r] * dm.scale, acc[n][2 * r + 1] * dm.scale);
+    }
+  }
+}
+
+// dK/dV: one block per (64 keys, KV head, batch), the first key tiles
+// (which the most rows see) first; warp w owns keys 16w..16w + 15, K and V
+// of them in registers as A fragments.  For each query head of the group
+// and each 64-row query tile that sees the block's first key, Q, dO and the
+// rows' LSE and D_i come by cp.async into one of two buffers (the next tile
+// loading under this one): S^T = K Q^T and dP^T = V dO^T, P^T = 2^(S^T
+// scale_log2 - LSE log2 e), 0 where masked, dS^T = P^T (dP^T - D_i); dV +=
+// P^T dO and dK += dS^T Q with P^T and dS^T rounded to T.  The group is
+// summed inside the block: no atomics, so two runs give equal bits.
+// Element e of a C fragment n is key g + 8 (e >> 1), query row 8n + 2t +
+// (e & 1) of the tile.
+template <typename T, int DP>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          T* __restrict__ dk, T* __restrict__ dv, Dims dm, bool vec) {
+  constexpr int KS = DP + 8;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* kbuf = reinterpret_cast<T*>(mma_smem);      // KEYS x KS
+  T* vbuf = kbuf + KEYS * KS;                     // KEYS x KS
+  T* qbuf = vbuf + KEYS * KS;                     // 2 x ROWS x KS
+  T* dobuf = qbuf + 2 * ROWS * KS;                // 2 x ROWS x KS
+  float* stats = reinterpret_cast<float*>(mma_smem + dq_smem_bytes<DP>());   // 2 x (LSE, D_i)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * KEYS, hk = blockIdx.y, b = blockIdx.z;
+  const int hkv = dm.hq / dm.group, d = dm.d;
+  const long long q_rs = static_cast<long long>(dm.hq) * d, k_rs = static_cast<long long>(hkv) * d;
+  const long long kv_off = static_cast<long long>(b) * dm.sk * k_rs + hk * d;
+  // Query tiles from the one holding the first row that sees key k0
+  // (offset + row >= k0): every one of them sees it.
+  const long long first_row = max(0LL, static_cast<long long>(k0) - dm.offset);
+  const int n_q = (dm.sq + ROWS - 1) / ROWS;
+  const int t0 = first_row >= dm.sq ? n_q : static_cast<int>(first_row / ROWS);
+  const int per_head = n_q - t0;
+  const int n_tiles = dm.group * per_head;
+  auto head = [&](int j) { return hk * dm.group + j / per_head; };
+  auto rows_of = [&](int j) { return (t0 + j % per_head) * ROWS; };
+  auto load_q = [&](int j, int buf) {
+    const int h = head(j), r0 = rows_of(j);
+    const long long q_off = static_cast<long long>(b) * dm.sq * q_rs + h * d;
+    load_rows<T, DP>(qbuf + buf * ROWS * KS, q + q_off, r0, ROWS, dm.sq, q_rs, d, vec);
+    load_rows<T, DP>(dobuf + buf * ROWS * KS, dout + q_off, r0, ROWS, dm.sq, q_rs, d, vec);
+    const long long stat = (static_cast<long long>(b) * dm.hq + h) * dm.sq;
+    const uint32_t st = smem_addr(stats + buf * 2 * ROWS);
+    for (int i = threadIdx.x; i < ROWS; i += blockDim.x) {
+      const bool in = r0 + i < dm.sq;      // rows past Sq land as zeros
+      const long long at = stat + (in ? r0 + i : 0);
+      cp_async4(st + 4 * i, lse + at, in);
+      cp_async4(st + 4 * (ROWS + i), dvec + at, in);
+    }
+  };
+  load_rows<T, DP>(kbuf, k + kv_off, k0, KEYS, dm.sk, k_rs, d, vec);
+  load_rows<T, DP>(vbuf, v + kv_off, k0, KEYS, dm.sk, k_rs, d, vec);
+  if (n_tiles > 0) load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t ka[DP / 16][4], va[DP / 16][4];
+  a_frags<T, DP>(ka, kbuf, 16 * warp, lane);
+  a_frags<T, DP>(va, vbuf, 16 * warp, lane);
+
+  float acc_k[DP / 8][4], acc_v[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const int key = k0 + 16 * warp + g;              // this thread's keys: key, key + 8
+  const int last_key = k0 + 16 * warp + 15;        // the warp's last key
+  const float scale_log2 = dm.scale * LOG2E;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1, r0 = rows_of(j);
+    if (j + 1 < n_tiles) {
+      load_q(j + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long first = static_cast<long long>(dm.offset) + r0;   // the tile's first row
+    // skip the tile where no row sees a key of this warp, or its keys are past Sk
+    if (first + ROWS - 1 >= k0 + 16 * warp && k0 + 16 * warp < dm.sk) {
+      const T* qt = qbuf + buf * ROWS * KS;
+      const T* dot = dobuf + buf * ROWS * KS;
+      const float* lse_t = stats + buf * 2 * ROWS;
+      float st[8][4], dpt[8][4];
+      abt<T, DP>(st, ka, qt, lane);
+      abt<T, DP>(dpt, va, dot, lane);
+      const bool full = r0 + ROWS <= dm.sq && last_key < dm.sk && first >= last_key;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = 8 * n + 2 * t;                 // rows c, c + 1 of the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(lse_t + ROWS + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = key + 8 * (e >> 1), rr = r0 + c + (e & 1);
+          const bool live = full || (kr < dm.sk && rr < dm.sq && first + c + (e & 1) >= kr);
+          const float p = live ? exp2_ftz(fmaf(st[n][e], scale_log2,
+                                               -LOG2E * ((e & 1) ? l2.y : l2.x)))
+                               : 0.f;
+          st[n][e] = p;                                            // P^T
+          dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? d2.y : d2.x));   // dS^T
+        }
+      }
+      xb<T, DP>(acc_v, st, dot, lane);
+      xb<T, DP>(acc_k, dpt, qt, lane);
+    }
+    __syncthreads();               // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key + 8 * r;
+    if (kr < dm.sk) {
+      const long long at = kv_off + kr * k_rs;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        if (8 * n < d) {
+          store2<T>(dk + at, 8 * n + 2 * t, d, acc_k[n][2 * r] * dm.scale,
+                    acc_k[n][2 * r + 1] * dm.scale);
+          store2<T>(dv + at, 8 * n + 2 * t, d, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+enum Kernel { DQ = 0, DKDV = 1 };
+
+template <typename T, int DP>
+cudaError_t launch(int which, const Args& a, Dims dm, bool vec, dim3 grid, size_t smem,
+                   cudaStream_t stream) {
+  if (smem != (which == DQ ? dq_smem_bytes<DP>() : dkdv_smem_bytes<DP>()))
+    return cudaErrorInvalidValue;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  cudaError_t err;
+  if (which == DQ) {
+    if ((err = prepare(flash_bwd_dq_mma_kernel<T, DP>, smem)) != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<T, DP><<<grid, WARPS * 32, smem, stream>>>(
+        q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.dvec, static_cast<T*>(a.dq), dm,
+        vec);
+  } else {
+    if ((err = prepare(flash_bwd_dkdv_mma_kernel<T, DP>, smem)) != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<T, DP><<<grid, WARPS * 32, smem, stream>>>(
+        q, k, v, dout, a.lse, a.dvec, static_cast<T*>(a.dk), static_cast<T*>(a.dv), dm, vec);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace mm
 
 }  // namespace
 
@@ -1224,14 +1680,17 @@ int gqa_flash_bwd(int which, int dtype, const void* q, const void* k, const void
 }
 
 // which: 0 = dQ (and D_i), 1 = dK/dV, launched in that order; dtype 1 =
-// bfloat16, 2 = float16.  q, o, dout, dq (b, sq, hq, d) and k, v, dk, dv
-// (b, sk, hkv, d) contiguous; lse, the forward's (b, hq, sq), and dvec (b,
-// hq, sq) float32: the dQ kernel writes D_i there, the dK/dV kernel reads
-// it.  d a multiple of 8 in (32, 256]: bf16 at d 64, 112 and 128 on
-// instantiations of their own (d = 112 on the d = 128 tiles), every other
-// d on the tiles 64, 128, 192 or 256 wide (the least multiple of 64 that
-// holds d) with the head dim taken at run time; hq a multiple of hkv,
-// causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn, eleven
+// bfloat16, 2 = float16.  o, dq (b, sq, hq, d) and dk, dv (b, sk, hkv, d)
+// contiguous; lse, the forward's (b, hq, sq), and dvec (b, hq, sq) float32:
+// the dQ kernel writes D_i there, the dK/dV kernel reads it.  q, k, v and
+// dout are what the tensor maps read: the inputs, or at a d off a multiple
+// of 8 views of copies with rows ceil(d / 8) * 8 wide (TMA's byte strides
+// are multiples of 16); dout's rows are ceil(d / 8) * 8 wide in any case
+// (the D_i pass reads it so, beside o).  32 < d <= 256: bf16 at d 64, 112
+// and 128 on instantiations of their own (d = 112 on the d = 128 tiles),
+// every other d on the tiles 64, 128, 192 or 256 wide (the least multiple
+// of 64 that holds d) with the head dim taken at run time; hq a multiple of
+// hkv, causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn, eleven
 // numbers (gqa_flash_wgmma's, with box (64, 1, R, 1): R 64 up to d 128,
 // else 32).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
 // dQ, (hkv, b, ceil(sk / 64)) for dK/dV; `smem` its dynamic shared memory.
@@ -1242,7 +1701,7 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
                         int grid_y, int grid_z, long long smem, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || (which != wg::DQ && which != wg::DKDV) ||
-      (dtype != 1 && dtype != 2) || d % 8 != 0 || d <= 32 || d > 256)
+      (dtype != 1 && dtype != 2) || d <= 32 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
   const int tiles = ((which == wg::DQ ? sq : sk) + rows - 1) / rows;
@@ -1257,23 +1716,11 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
-  const int tile = (d + 63) / 64 * 64;
-  if (dtype == 2) {
-    switch (tile) {
-      case 64:
-        return static_cast<int>(wg::launch<64, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
-                                                          causal_offset, grid, sm, s));
-      case 128:
-        return static_cast<int>(wg::launch<128, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
-                                                           causal_offset, grid, sm, s));
-      case 192:
-        return static_cast<int>(wg::launch<192, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
-                                                           causal_offset, grid, sm, s));
-      default:
-        return static_cast<int>(wg::launch<256, 0, __half>(which, tm, a, sq, sk, hq, hkv, d,
-                                                           causal_offset, grid, sm, s));
-    }
-  }
+  if (dtype == 2)
+    return d % 8 != 0 ? wg::by_tile<-1, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                               causal_offset, grid, sm, s)
+                      : wg::by_tile<0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                              causal_offset, grid, sm, s);
   switch (d) {
     case 64:
       return static_cast<int>(wg::launch<64>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
@@ -1285,20 +1732,47 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
       return static_cast<int>(wg::launch<128>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
                                               grid, sm, s));
   }
-  switch (tile) {
-    case 64:
-      return static_cast<int>(wg::launch<64, 0>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
-                                                grid, sm, s));
-    case 128:
-      return static_cast<int>(wg::launch<128, 0>(which, tm, a, sq, sk, hq, hkv, d,
-                                                 causal_offset, grid, sm, s));
-    case 192:
-      return static_cast<int>(wg::launch<192, 0>(which, tm, a, sq, sk, hq, hkv, d,
-                                                 causal_offset, grid, sm, s));
-    default:
-      return static_cast<int>(wg::launch<256, 0>(which, tm, a, sq, sk, hq, hkv, d,
-                                                 causal_offset, grid, sm, s));
-  }
+  return d % 8 != 0 ? wg::by_tile<-1, __nv_bfloat16>(which, tm, a, sq, sk, hq, hkv, d,
+                                                    causal_offset, grid, sm, s)
+                    : wg::by_tile<0, __nv_bfloat16>(which, tm, a, sq, sk, hq, hkv, d,
+                                                   causal_offset, grid, sm, s);
+}
+
+// The "mma" route.  which: 0 = dQ (and D_i), 1 = dK/dV, launched in that
+// order; dtype 1 = bfloat16, 2 = float16.  q, o, dout, dq (b, sq, hq, d) and
+// k, v, dk, dv (b, sk, hkv, d) contiguous; lse, the forward's (b, hq, sq)
+// (flash_mma_kernel's), and dvec (b, hq, sq) float32: the dQ kernel writes
+// D_i there, the dK/dV kernel reads it.  1 <= d <= 32, on padded width 16 or
+// 32; hq a multiple of hkv, causal_offset >= 0.  The grid must be the
+// kernel's: (ceil(sq / 64), hq, b) for dQ, (ceil(sk / 64), hkv, b) for
+// dK/dV; `smem` its dynamic shared memory.  Tiles come by 16-byte cp.async
+// where d is a multiple of 8 and the starts 16-byte aligned, else element by
+// element.
+int gqa_flash_bwd_mma(int which, int dtype, const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse, float* dvec, void* dq,
+                      void* dk, void* dv, int b, int sq, int sk, int hq, int hkv, int d,
+                      int causal_offset, int grid_x, int grid_y, int grid_z, long long smem,
+                      void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
+      b > 65535 || hq > 65535 || (which != mm::DQ && which != mm::DKDV) ||
+      (dtype != 1 && dtype != 2) || d < 1 || d > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = which == mm::DQ ? (sq + mm::ROWS - 1) / mm::ROWS
+                                    : (sk + mm::KEYS - 1) / mm::KEYS;
+  if (grid_x != tiles || grid_y != (which == mm::DQ ? hq : hkv) || grid_z != b)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool vec = d % 8 == 0;
+  for (const void* ptr : {q, k, v, dout}) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const Args a{q, k, v, o, dout, const_cast<float*>(lse), dvec, dq, dk, dv};
+  const Dims dm{sq, sk, hq, hq / hkv, causal_offset, d, 1.0f / sqrtf(static_cast<float>(d))};
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  if (dtype == 2)
+    return static_cast<int>(d <= 16 ? mm::launch<__half, 16>(which, a, dm, vec, grid, sm, s)
+                                    : mm::launch<__half, 32>(which, a, dm, vec, grid, sm, s));
+  return static_cast<int>(d <= 16 ? mm::launch<__nv_bfloat16, 16>(which, a, dm, vec, grid, sm, s)
+                                  : mm::launch<__nv_bfloat16, 32>(which, a, dm, vec, grid, sm, s));
 }
 
 }  // extern "C"

@@ -1,6 +1,9 @@
-// Hopper building blocks shared by csrc/flash_attention.cu (the forward's
-// flash_wgmma_kernel) and csrc/flash_attention_bwd.cu (the backward's wgmma
-// kernels): the two 16-bit element types (bf16 and fp16) as pairs, mbarriers,
+// Building blocks shared by csrc/flash_attention.cu (the forward's
+// flash_wgmma_kernel and flash_mma_kernel) and csrc/flash_attention_bwd.cu
+// (the backward's wgmma and mma kernels): the two 16-bit element types (bf16
+// and fp16) as pairs, the column-guarded pair store of an output row;
+// mma.sync m16n8k16, ldmatrix, 16-byte cp.async and the tile loader of the
+// mma.sync kernels; and, for Hopper, mbarriers,
 // TMA loads through 4-D tensor maps over (B, S, H, D) 16-bit elements with
 // 128-byte swizzle, wgmma descriptors and products (each for either element
 // type, bf16 by default: S-like products K-major from shared memory at N 32,
@@ -66,11 +69,12 @@ template <>
 __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // Columns col and col + 1 of an output row `row` (a T pointer at column 0)
-// of a head dim d: one 32-bit store when d is even (the pair is then 4-byte
-// aligned), else one store each; a column at or past d is not stored.
+// of a head dim d: one 32-bit store when both are below d and the pair is
+// 4-byte aligned (at an odd d every other row starts off 4 bytes), else one
+// store each; a column at or past d is not stored.
 template <typename T>
 __device__ __forceinline__ void store2(T* row, int col, int d, float lo, float hi) {
-  if (col + 1 < d && d % 2 == 0) {
+  if (col + 1 < d && reinterpret_cast<uintptr_t>(row + col) % 4 == 0) {
     *reinterpret_cast<uint32_t*>(row + col) = pack2<T>(lo, hi);
   } else {
     if (col < d) row[col] = from_f<T>(lo);
@@ -80,6 +84,90 @@ __device__ __forceinline__ void store2(T* row, int col, int d, float lo, float h
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mma.sync (the forward's flash_mma_kernel and the backward's "mma" route) ---
+
+// c += a b on one m16n8k16 tile, T bf16 or fp16, fp32 accumulation.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (is_f16<T>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes global -> shared without passing through registers; when `in`
+// is false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 16-bit matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i; plain: lane 4g + t gets row g, columns 2t, 2t + 1
+// of each; .trans: rows 2t, 2t + 1 of column g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// Rows [r0, r0 + rows) of one head (row stride `rs` elements) into a tile
+// of rows x DP with row stride DP + 8, zero past `valid` rows and past
+// column d.  `vec`: d and every stride multiples of 8 elements and the base
+// 16-byte aligned, so 16-byte cp.async copies (zero-filled past d in whole
+// chunks, asynchronous: the caller commits and waits); else 2-byte loads
+// through registers, stored at once.
+template <typename T, int DP>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int rows, int valid,
+                                          long long rs, int d, bool vec) {
+  constexpr int KS = DP + 8;
+  if (vec) {
+    constexpr int DV = DP / 8;
+    for (int e = threadIdx.x; e < rows * DV; e += blockDim.x) {
+      const int r = e / DV, c = (e % DV) * 8;
+      const bool in = r0 + r < valid && c < d;
+      cp_async16(dst + r * KS + c, src + (in ? (r0 + r) * rs + c : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += blockDim.x) {
+      const int r = e / DP, c = e % DP;
+      dst[r * KS + c] = r0 + r < valid && c < d ? src[(r0 + r) * rs + c] : from_f<T>(0.f);
+    }
+  }
 }
 
 namespace hopper {

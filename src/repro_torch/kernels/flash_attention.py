@@ -10,45 +10,49 @@ fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
 launches a kernel of ``csrc/flash_attention.cu`` (float16, bfloat16, float32
 or float64 at any head dim 1 <= D <= 256, as the reference's Pallas kernel
 takes any) or raises.  ``route`` picks the kernel from the dtype and D alone:
-bf16 and fp16 at a D that is a multiple of 8 in (32, 256] go to the Hopper
-kernel (wgmma fed by TMA over tiles 64, 128, 192 or 256 columns wide, the
-least multiple of 64 that holds D, whose columns past D TMA fills with
-zeros, storing D columns; key tiles of 128 up to width 128, of 64 past it;
-bf16 at D 64, 112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their
-own: llama3-8b and the MoE configs take 64 or 128, zamba2-7b's shared
-attention 112), bf16 and fp16 at every other D (off a multiple of 8, or at
-most 32) to the ``mma.sync`` kernel (the example trainers' heads:
-``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16),
-fp32 to the fp32 kernel, and fp64 to the fp32 kernel on fp32 copies, the
-output cast back, as the reference's kernel body computes in fp32.  The
-mma.sync and fp32 kernels run on the least padded width of 16, 32, 64, 128,
-256 that holds D (``padded_dim``), their loads zero past D.  An input whose
-layout the route cannot read (a stride along D other than 1; for the Hopper
-kernel also other strides or a start off 16 bytes) is copied to a
-contiguous tensor first, and each such copy adds one to
-``launches["layout_copy"]``.  ``plan`` does the shape and stride arithmetic
-of a launch (the route, the grid, and the Hopper kernel's tensor maps and
-shared memory) and runs on any tensors.  Each launch adds one to
-``launches["gqa_flash"]`` and one to the count of its route.
+bf16 and fp16 at every D in (32, 256] go to the Hopper kernel (wgmma fed
+by TMA over tiles 64, 128, 192 or 256 columns wide, the least multiple of
+64 that holds D, whose columns past D TMA fills with zeros, storing D
+columns; key tiles of 128 up to width 128, of 64 past it; bf16 at D 64,
+112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own: llama3-8b
+and the MoE configs take 64 or 128, zamba2-7b's shared attention 112),
+bf16 and fp16 at D <= 32 to the ``mma.sync`` kernel (the example trainers'
+heads: ``repro_torch.examples.train_carbon_aware``'s tiny preset has D
+16), fp32 to the fp32 kernel, and fp64 to the fp32 kernel on fp32 copies,
+the output cast back, as the reference's kernel body computes in fp32.
+The mma.sync and fp32 kernels run on the least padded width of 16, 32,
+64, 128, 256 that holds D (``padded_dim``), their loads zero past D.  An
+input whose layout the route cannot read is copied first, and each copy
+adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
+strides multiples of 16, a 16-byte aligned start) into a buffer of rows
+``tma_width(D)`` wide, handed in as its [..., :D] view (``stage``; every
+contiguous 16-bit input off a multiple of 8 is such a case), for the
+others (a stride along D other than 1) into a contiguous tensor.
+``plan`` does the shape and stride arithmetic of a launch (the route, the
+grid, and the Hopper kernel's tensor maps and shared memory) and runs on
+any tensors.  Each launch adds one to ``launches["gqa_flash"]`` and one to
+the count of its route.
 
 The gradient: when grad mode is on and q, k or v requires grad,
 ``gqa_flash`` runs through ``FlashAttention`` (a ``torch.autograd.Function``)
-and saves q, k, v, the output and, on the Hopper route, each row's
-log-sum-exp that the forward kernel wrote beside it.  Its backward is
-``gqa_flash_bwd``: on CPU tensors ``gqa_flash_bwd_plain``, the explicit
-fp32 gradient of ``gqa_flash_plain``; on CUDA tensors the kernels of
-``csrc/flash_attention_bwd.cu`` on the route ``bwd_route`` picks from the
-dtype and D alone: "wgmma" where the forward's route is "wgmma" (two Hopper
-kernels, dQ then dK/dV, on the forward's tiles, reading the forward's LSE;
-their plain version is ``gqa_flash_bwd_lse_plain``; past width 128 dQ's
-key tiles are 32 and every TMA box 32 rows), "fma" everywhere else (three
-fp32 FMA kernels: row statistics, dK/dV, dQ, on the forward's padded
-widths, with tiles of 32 rows at width 256; fp64 on fp32 copies, the
-gradients cast back), planned by ``plan_bwd``.  Each backward adds one to
-``launches["gqa_flash_bwd"]`` and one to each of its kernels' counts.  Under
-``no_grad``, or on tensors that need no grad, ``gqa_flash`` is the serving
-path above, unchanged: it asks for no LSE, and the output's bits do not
-depend on it.
+and saves q, k, v (on the Hopper route as staged), the output and, on the
+16-bit routes, each row's log-sum-exp that the forward kernel wrote beside
+it.  Its backward is ``gqa_flash_bwd``: on CPU tensors
+``gqa_flash_bwd_plain``, the explicit fp32 gradient of ``gqa_flash_plain``;
+on CUDA tensors the kernels of ``csrc/flash_attention_bwd.cu`` on the route
+``bwd_route`` picks from the dtype and D alone: "wgmma" where the
+forward's route is "wgmma" (two Hopper kernels, dQ then dK/dV, on the
+forward's tiles, reading the forward's LSE; past width 128 dQ's key tiles
+are 32 and every TMA box 32 rows), "mma" for bf16 and fp16 at D <= 32 (two
+``mma.sync`` kernels, dQ then dK/dV, reading the ``mma.sync`` forward's
+LSE), both with the plain version ``gqa_flash_bwd_lse_plain``; "fma" for
+fp32 and fp64 (three fp32 FMA kernels: row statistics, dK/dV, dQ, on the
+forward's padded widths, with tiles of 32 rows at width 256; fp64 on fp32
+copies, the gradients cast back), planned by ``plan_bwd``.  Each backward
+adds one to ``launches["gqa_flash_bwd"]`` and one to each of its kernels'
+counts.  Under ``no_grad``, or on tensors that need no grad, ``gqa_flash``
+is the serving path above, unchanged: it asks for no LSE, and the output's
+bits do not depend on it.
 
 On ``meta`` tensors (the dry-run's op counting, ``launch/dryrun.py``) the
 forward and the backward return their outputs' shapes and dtypes, launch
@@ -69,7 +73,8 @@ from ._build import build_library
 #: "gqa_flash", and each under its route.
 launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
             "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "layout_copy": 0}
+            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0, "bwd_mma_dkdv": 0,
+            "layout_copy": 0}
 
 #: The head dims of the pinned routes (``ROUTES``).
 HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -121,6 +126,19 @@ BWD_WGMMA_WIDE_DQ_KEYS = 32     # dQ's keys per tile past width 128
 BWD_WGMMA_WIDE_BOX_ROWS = 32    # every box's rows past width 128
 #: The wgmma route's kernels in launch order, by their ``which`` in the C entry.
 BWD_WGMMA_KERNELS = ("bwd_wgmma_dq", "bwd_wgmma_dkdv")
+
+# The mma route's tiling (csrc/flash_attention_bwd.cu, namespace mm): dQ
+# blocks of 64 query rows over key tiles of 64, dK/dV blocks of 64 keys over
+# query tiles of 64, 4 warps, tile rows of DP + 8 16-bit elements.
+BWD_MMA_ROWS = 64
+BWD_MMA_KEYS = 64
+BWD_MMA_THREADS = 128
+#: The largest head dim of the mma route (padded widths 16 and 32).
+BWD_MMA_MAX_DIM = 32
+#: The mma route's kernels in launch order, by their ``which`` in the C entry.
+BWD_MMA_KERNELS = ("bwd_mma_dq", "bwd_mma_dkdv")
+#: Each backward route's kernels in launch order.
+BWD_ROUTE_KERNELS = {"fma": BWD_KERNELS, "wgmma": BWD_WGMMA_KERNELS, "mma": BWD_MMA_KERNELS}
 
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
@@ -227,7 +245,7 @@ def build() -> str:
         return ""
     lib, log = build_library("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gqa_flash_fwd.argtypes = [i, p, p, p, p] + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
+    lib.gqa_flash_fwd.argtypes = [i] + [p] * 5 + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
     lib.gqa_flash_fwd.restype = i
     lib.gqa_flash_wgmma.argtypes = [i] + [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
@@ -245,6 +263,8 @@ def build_bwd() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gqa_flash_bwd.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
     lib.gqa_flash_bwd.restype = i
+    lib.gqa_flash_bwd_mma.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
+    lib.gqa_flash_bwd_mma.restype = i
     lib.gqa_flash_bwd_wgmma.argtypes = [i, i] + [p] * 10 + [i] * 7 + [p] + [i] * 3 + \
         [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_wgmma.restype = i
@@ -260,8 +280,8 @@ def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
-    "wgmma" for bf16 and fp16 at a multiple of 8 in (32, 256], "mma_sync"
-    for them at every other D, "fp32" for fp32 and fp64."""
+    "wgmma" for bf16 and fp16 at every D in (32, 256], "mma_sync" for them
+    at D <= 32, "fp32" for fp32 and fp64."""
     _check_dtype_and_dim(dtype, d, "kernel")
     if dtype in _HALF:
         return "wgmma" if _wgmma_dim(d) else "mma_sync"
@@ -270,27 +290,37 @@ def route(dtype: torch.dtype, d: int) -> str:
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward's route for this dtype and head dim: "wgmma" where the
-    forward's route is (it writes the LSE the wgmma backward reads), else
-    "fma"."""
+    forward's route is (it writes the LSE the wgmma backward reads), "mma"
+    for bf16 and fp16 at D <= 32 (on the LSE of the mma.sync forward), "fma"
+    for fp32 and fp64."""
     _check_dtype_and_dim(dtype, d, "backward kernel")
-    return "wgmma" if route(dtype, d) == "wgmma" else "fma"
+    if dtype not in _HALF:
+        return "fma"
+    return "wgmma" if route(dtype, d) == "wgmma" else "mma"
 
 
 def padded_dim(d: int) -> int:
-    """The width of the tiles the mma.sync, fp32 and fma kernels run head
-    dim d on: the least of ``PADDED_DIMS`` that holds it."""
+    """The width of the tiles the mma.sync, fp32, mma and fma kernels run
+    head dim d on: the least of ``PADDED_DIMS`` that holds it."""
     return next(p for p in PADDED_DIMS if d <= p)
 
 
 def _wgmma_dim(d: int) -> bool:
-    """Whether the wgmma kernels take head dim d: a multiple of 8 in (32, 256]."""
-    return d % 8 == 0 and 32 < d <= MAX_HEAD_DIM
+    """Whether the wgmma kernels take head dim d: any D in (32, 256]."""
+    return 32 < d <= MAX_HEAD_DIM
+
+
+def tma_width(d: int) -> int:
+    """The row width of a staged copy at head dim d: the least multiple of 8
+    that holds it, so that the 16-bit rows' byte strides are multiples of 16,
+    as TMA needs (``stage``)."""
+    return -(-d // 8) * 8
 
 
 def wgmma_tile_dim(d: int) -> int:
-    """The width of the Hopper kernels' tiles at head dim d (a multiple of 8
-    in (32, 256]): the least multiple of 64 that holds it, 64, 128, 192 or
-    256; TMA fills columns d.. with zeros."""
+    """The width of the Hopper kernels' tiles at head dim d (in (32, 256]):
+    the least multiple of 64 that holds it, 64, 128, 192 or 256; TMA fills
+    columns d.. with zeros."""
     return -(-d // TMA_BOX_COLS) * TMA_BOX_COLS
 
 
@@ -411,7 +441,8 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offs
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
          kernel: str | None = None) -> Plan:
     """Check q/k/v's layout and plan the launch of ``kernel`` (default: the
-    route of q's dtype and D)."""
+    route of q's dtype and D).  The Hopper kernel's inputs must be as TMA
+    reads them (``launch`` stages those that are not: ``stage``)."""
     _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
@@ -432,9 +463,9 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
 @dataclass(frozen=True)
 class BwdPlan:
     """The backward's launches on its route: grid (x, y, z) and dynamic
-    shared memory of each kernel of ``BWD_KERNELS`` ("fma") or
-    ``BWD_WGMMA_KERNELS`` ("wgmma"), in that order, and for "wgmma" the
-    tensor maps of q, k, v and do (eleven numbers each, boxes of 64 rows)."""
+    shared memory of each kernel of ``BWD_ROUTE_KERNELS[route]``, in that
+    order, and for "wgmma" the tensor maps of q, k, v and do (eleven numbers
+    each)."""
     route: str
     grids: tuple[tuple[int, int, int], ...]
     smem: tuple[int, ...]
@@ -456,6 +487,15 @@ def bwd_smem_bytes(d: int) -> tuple[int, int, int]:
     tile = r * (dp + 1)
     ps = r + 1
     return (4 * 2 * tile, 4 * (4 * tile + 2 * r * ps + 2 * r), 4 * (4 * tile + r * ps))
+
+
+def bwd_mma_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory of the mma route's dQ and dK/dV kernels at head
+    dim d <= 32: six tiles of 64 rows of DP + 8 16-bit elements (dQ: Q, dO
+    and two buffers each of K and V; dK/dV: K, V and two buffers each of Q
+    and dO), and for dK/dV each buffer's 64 LSEs and 64 D_i in fp32."""
+    tiles = 2 * 6 * BWD_MMA_ROWS * (padded_dim(d) + 8)
+    return tiles, tiles + 4 * 2 * 2 * BWD_MMA_ROWS
 
 
 def bwd_wgmma_box_rows(d: int) -> int:
@@ -501,10 +541,12 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     stride along D; o and do shaped as q, in its dtype) and plan the
     launches of ``route`` (default: ``bwd_route`` of q's dtype and D).
     "fma": stats and dQ over (query tiles, Hq, B), dK/dV over (key tiles,
-    Hkv, B), tiles of ``bwd_tile_rows(D)``; "wgmma" (bf16 and fp16 at a
-    multiple of 8 in (32, 256]): dQ over (Hq, B, query tiles of 128), dK/dV
-    over (Hkv, B, key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows.  float64 inputs are planned as the
-    float32 copies the launch runs on."""
+    Hkv, B), tiles of ``bwd_tile_rows(D)``; "mma" (bf16 and fp16 at D <=
+    32): dQ over (query tiles of 64, Hq, B), dK/dV over (key tiles of 64,
+    Hkv, B); "wgmma" (bf16 and fp16 at D in (32, 256], q, k, v as TMA reads
+    them, do in rows ``tma_width(D)`` wide): dQ over (Hq, B, query tiles of 128), dK/dV over (Hkv, B,
+    key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows.  float64
+    inputs are planned as the float32 copies the launch runs on."""
     _check_shapes(q, k, v, causal_offset)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -520,11 +562,19 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         k_tiles = -(-sk // r)
         return BwdPlan("fma", grids=((q_tiles, hq, b), (k_tiles, hkv, b), (q_tiles, hq, b)),
                        smem=bwd_smem_bytes(d))
-    if name != "wgmma" or q.dtype not in _HALF or not _wgmma_dim(d):
+    ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": _wgmma_dim(d)}
+    if not ok.get(name, False) or q.dtype not in _HALF:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
+    if name == "mma":
+        _check_layout(q, k, v, causal_offset, name)
+        return BwdPlan("mma", grids=((-(-sq // BWD_MMA_ROWS), hq, b),
+                                     (-(-sk // BWD_MMA_KEYS), hkv, b)),
+                       smem=bwd_mma_smem_bytes(d))
     _check_layout(q, k, v, causal_offset, name)
-    if not _tma_ready(do):
-        raise ValueError(f"do needs q's layout rules for its tensor map; got strides "
+    w = tma_width(d)
+    if do.stride() != (sq * hq * w, hq * w, w, 1) or do.data_ptr() % 16:
+        raise ValueError(f"do must lie in rows {w} wide (``stage``'s layout), 16-byte "
+                         f"aligned, for its tensor map and the D_i pass; got strides "
                          f"{do.stride()}")
     rows = bwd_wgmma_box_rows(d)
     return BwdPlan("wgmma", grids=((hq, b, -(-sq // BWD_WGMMA_DQ_ROWS)),
@@ -536,11 +586,15 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``gqa_flash`` with its gradient: the forward saves q, k, v, the output
-    and, on the Hopper route, its rows' LSE; the backward is
-    ``gqa_flash_bwd``."""
+    and, on the 16-bit routes, its rows' LSE; the backward is
+    ``gqa_flash_bwd``.  On CUDA tensors of the Hopper route the forward
+    stages the q, k and v that TMA cannot read (``stage``) and saves the
+    staged views, so the backward stages only dO."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal_offset: int):
+        if q.device.type == "cuda" and route(q.dtype, q.shape[-1]) == "wgmma":
+            q, k, v = (_readable_copy(t, "wgmma") for t in (q, k, v))
         o, lse = _forward(q, k, v, causal_offset, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal_offset = causal_offset
@@ -566,19 +620,25 @@ def kernel_work(q: torch.Tensor, k: torch.Tensor, causal_offset: int, backward: 
     """(FLOPs, bytes) of the kernels of one forward (``backward`` False) or
     backward on these shapes: 2·D FLOPs per unmasked (row, key) pair per
     query head for each product (the forward's 2; the backward's 7 on the
-    "wgmma" route, S and dP twice beside dV, dK and dQ, and 8 on "fma",
-    whose stats pass adds one S); each input read once and each output
-    written once: q, k, v in and o (and the LSE, with ``lse``) out; q, k, v,
-    o, dO and the LSE in, dq, dk, dv and D_i out."""
+    "wgmma" and "mma" routes, S and dP twice beside dV, dK and dQ, and 8 on
+    "fma", whose stats pass adds one S); each input read once and each
+    output written once: q, k, v in and o (and the LSE, with ``lse``) out;
+    q, k, v, o, dO and the LSE in, dq, dk, dv and D_i out.  A staged call
+    (the Hopper route at a D off a multiple of 8) adds its copies, each
+    tensor read and written once: q, k and v in the forward, dO in the
+    backward (``FlashAttention`` hands it the forward's staged q, k, v)."""
     b, sq, hq, d = q.shape
     sk = k.shape[1]
     pairs = sum(min(max(i + causal_offset + 1, 0), sk) for i in range(sq))
-    products = 2 if not backward else (7 if bwd_route(q.dtype, d) == "wgmma" else 8)
+    products = 2 if not backward else (8 if bwd_route(q.dtype, d) == "fma" else 7)
     flops = products * 2 * d * hq * b * pairs
-    qkv = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    qkv = 2 * qb + 2 * kb
     rows = 4 * b * hq * sq                          # one fp32 per query row and head
     nbytes = qkv + (rows if lse else 0) if not backward else \
-        2 * qkv + 2 * k.numel() * k.element_size() + 2 * rows
+        2 * qkv + 2 * kb + 2 * rows
+    if route(q.dtype, d) == "wgmma" and tma_width(d) != d:
+        nbytes += 2 * qb if backward else 2 * (qb + 2 * kb)
     return flops, nbytes
 
 
@@ -586,7 +646,7 @@ def _meta_forward(q, k, v, causal_offset: int, with_lse: bool):
     from repro_torch.launch.op_analysis import record_kernel
 
     b, sq, hq, d = q.shape
-    lse = with_lse and route(q.dtype, d) == "wgmma"
+    lse = with_lse and q.dtype in _HALF
     record_kernel("gqa_flash", *kernel_work(q, k, causal_offset, False, lse))
     return (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device),
             torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if lse else None)
@@ -594,12 +654,13 @@ def _meta_forward(q, k, v, causal_offset: int, with_lse: bool):
 
 def _forward(q, k, v, causal_offset: int, with_lse: bool = False):
     """(output, LSE): the LSE (B, Hq, Sq) fp32 when ``with_lse`` asks for it
-    and the Hopper kernel runs (the wgmma backward reads it), else None."""
+    and a 16-bit kernel runs (the wgmma and mma backwards read it), else
+    None."""
     if _on_cpu(q, k, v):
         return gqa_flash_plain(q, k, v, causal_offset), None
     if _on_meta(q, k, v):
         return _meta_forward(q, k, v, causal_offset, with_lse)
-    if with_lse and route(q.dtype, q.shape[-1]) == "wgmma":
+    if with_lse and q.dtype in _HALF:
         return launch(q, k, v, causal_offset, with_lse=True)
     return launch(q, k, v, causal_offset), None
 
@@ -617,22 +678,41 @@ def gqa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
                   do: torch.Tensor, causal_offset: int = 0, lse: torch.Tensor | None = None):
     """(dq, dk, dv) of ``gqa_flash``: the plain version on CPU tensors, the
     kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors (the wgmma
-    route reads ``lse``, the forward's)."""
+    and mma routes read ``lse``, the forward's)."""
     if _on_cpu(q, k, v, o, do):
         return gqa_flash_bwd_plain(q, k, v, o, do, causal_offset)
     if _on_meta(q, k, v, o, do):
         from repro_torch.launch.op_analysis import record_kernel
 
         record_kernel("gqa_flash_bwd", *kernel_work(q, k, causal_offset, True))
-        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty(k.shape, dtype=k.dtype, device=k.device),
+                torch.empty(v.shape, dtype=v.dtype, device=v.device))
     return launch_bwd(q, k, v, o, do, causal_offset, lse=lse)
 
 
+def stage(t: torch.Tensor) -> torch.Tensor:
+    """t copied into a buffer (B, S, H, ``tma_width(D)``), returned as its
+    [..., :D] view: a layout TMA reads (byte strides multiples of 16, a
+    16-byte aligned start) whose extent stays D, so the tensor maps
+    zero-fill columns D..; the pad columns are never read.  One copy, added
+    to ``launches["layout_copy"]``."""
+    b, s, h, d = t.shape
+    buf = torch.empty((b, s, h, tma_width(d)), dtype=t.dtype, device=t.device)
+    view = buf[..., :d]
+    view.copy_(t)
+    launches["layout_copy"] += 1
+    return view
+
+
 def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
-    """t, or a contiguous copy of it where route ``name`` cannot read its
-    layout (each copy counted under "layout_copy")."""
+    """t, or a copy of it where route ``name`` cannot read its layout: for
+    the Hopper route the staged view (``stage``), for the others a
+    contiguous copy (each copy counted under "layout_copy")."""
     if _readable(t, name):
         return t
+    if name == "wgmma":
+        return stage(t)
     launches["layout_copy"] += 1
     return t.contiguous()
 
@@ -641,39 +721,40 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
            kernel: str | None = None, with_lse: bool = False):
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
     "mma_sync" or "fp32"; default: its route), to hold one kernel against
-    another at one shape.  With ``with_lse`` (the Hopper kernel only)
-    returns (output, LSE (B, Hq, Sq) fp32).  float64 runs the fp32 kernel on
-    fp32 copies, the output cast back; an input whose layout the kernel
-    cannot read is copied first (``_readable_copy``)."""
+    another at one shape.  With ``with_lse`` (the 16-bit kernels) returns
+    (output, LSE (B, Hq, Sq) fp32); the output is the same either way.
+    float64 runs the fp32 kernel on fp32 copies, the output cast back; an
+    input whose layout the kernel cannot read is copied first
+    (``_readable_copy``)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"q ({q.device}), k ({k.device}) and v ({v.device}) "
                          "must lie on the same CUDA device")
     _check_shapes(q, k, v, causal_offset)
     if q.dtype == torch.float64:
         if with_lse:
-            raise ValueError("only the wgmma kernel writes the LSE, not fp32")
+            raise ValueError("only the 16-bit kernels write the LSE, not fp32")
         return launch(q.float(), k.float(), v.float(), causal_offset, kernel).double()
     name = route(q.dtype, q.shape[3]) if kernel is None else kernel
     q, k, v = (_readable_copy(t, name) for t in (q, k, v))
     pl = plan(q, k, v, causal_offset, kernel)
-    if with_lse and pl.route != "wgmma":
-        raise ValueError(f"only the wgmma kernel writes the LSE, not {pl.route}")
+    if with_lse and pl.route == "fp32":
+        raise ValueError("only the 16-bit kernels write the LSE, not fp32")
     build()
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if pl.route == "wgmma":
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
         err = _lib.gqa_flash_wgmma(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, sq, sk, hq, hkv, d,
-            int(causal_offset), maps, *pl.grid, pl.smem, stream)
+            lse_ptr, b, sq, sk, hq, hkv, d, int(causal_offset), maps, *pl.grid, pl.smem, stream)
     else:
         err = _lib.gqa_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, hq, hkv, d, int(causal_offset),
+            lse_ptr, b, sq, sk, hq, hkv, d, int(causal_offset),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *pl.grid, stream)
     if err != 0:
         raise RuntimeError(f"the {pl.route} kernel of gqa_flash failed: "
@@ -688,31 +769,40 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                do: torch.Tensor, causal_offset: int = 0, lse: torch.Tensor | None = None,
                route: str | None = None):
     """``gqa_flash_bwd`` on CUDA tensors on ``route`` (default: ``bwd_route``):
-    "wgmma" launches dQ (which writes D_i) then dK/dV and needs ``lse``, the
-    forward's (B, Hq, Sq) fp32; "fma" launches the stats kernel (LSE and D_i
-    into fp32 scratch), then dK/dV and dQ, and ignores ``lse``.  The inputs
-    are made contiguous; float64 runs the fma kernels on fp32 copies, the
-    gradients cast back."""
+    "wgmma" launches dQ (which writes D_i) then dK/dV, "mma" the same pair
+    on mma.sync, both reading ``lse``, the forward's (B, Hq, Sq) fp32; "fma"
+    launches the stats kernel (LSE and D_i into fp32 scratch), then dK/dV
+    and dQ, and ignores ``lse``.  o and do are made contiguous, and so are q,
+    k and v except on "wgmma", whose tensor maps read them as they lie where
+    TMA can (q, k, v and do staged where it cannot: ``_readable_copy``; the
+    staged do is also what the D_i pass reads);
+    float64 runs the fma kernels on fp32 copies, the gradients cast back."""
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must lie on the same CUDA device")
+    _check_shapes(q, k, v, causal_offset)
     if q.dtype == torch.float64:
         grads = launch_bwd(*(t.float() for t in (q, k, v, o, do)), causal_offset,
                            route=route)
         return tuple(g.double() for g in grads)
-    ts = [t.contiguous() for t in (q, k, v, o, do)]
-    pl = plan_bwd(*ts, causal_offset, route)
-    if pl.route == "wgmma":
+    name = bwd_route(q.dtype, q.shape[-1]) if route is None else route
+    o, do = o.contiguous(), do.contiguous()
+    if name == "wgmma":
+        q, k, v, do = (_readable_copy(t, name) for t in (q, k, v, do))
+    else:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    pl = plan_bwd(q, k, v, o, do, causal_offset, name)
+    if pl.route != "fma":
         b, sq, hq, _ = q.shape
         if lse is None or lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
                 or lse.device != q.device:
-            raise ValueError(f"the wgmma backward reads the forward's LSE, a ({b}, {hq}, "
+            raise ValueError(f"the {pl.route} backward reads the forward's LSE, a ({b}, {hq}, "
                              f"{sq}) float32 tensor on {q.device}; got "
                              + ("None" if lse is None else
                                 f"{tuple(lse.shape)} {lse.dtype} on {lse.device}"))
         lse = lse.contiguous()
-    bufs = bwd_buffers(ts[0], ts[1], lse if pl.route == "wgmma" else None)
+    bufs = bwd_buffers(q, k, lse if pl.route != "fma" else None)
     for which in range(len(pl.grids)):
-        launch_bwd_kernel(which, *ts, bufs, causal_offset, pl)
+        launch_bwd_kernel(which, q, k, v, o, do, bufs, causal_offset, pl)
     launches["gqa_flash_bwd"] += 1
     return bufs[2:]
 
@@ -720,35 +810,41 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
 def bwd_buffers(q: torch.Tensor, k: torch.Tensor,
                 lse: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
     """The backward's scratch and outputs: LSE (``lse``, else new) and D_i
-    (B, Hq, Sq) fp32, then dq, dk, dv shaped and typed as q, k, k."""
+    (B, Hq, Sq) fp32, then dq, dk, dv contiguous, shaped and typed as q, k,
+    k."""
     b, sq, hq, _ = q.shape
     if lse is None:
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     return lse, torch.empty((b, hq, sq), dtype=torch.float32, device=q.device), \
-        torch.empty_like(q), torch.empty_like(k), torch.empty_like(k)
+        torch.empty(q.shape, dtype=q.dtype, device=q.device), \
+        torch.empty(k.shape, dtype=k.dtype, device=k.device), \
+        torch.empty(k.shape, dtype=k.dtype, device=k.device)
 
 
 def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
                       pl: BwdPlan) -> None:
-    """One launch of the kernel ``which`` of ``pl``'s route (``BWD_KERNELS``
-    or ``BWD_WGMMA_KERNELS``) on contiguous CUDA inputs, into ``bufs``
-    (``bwd_buffers``), as ``pl`` plans it; adds one to that kernel's count."""
+    """One launch of the kernel ``which`` of ``pl``'s route
+    (``BWD_ROUTE_KERNELS``) on CUDA inputs as ``launch_bwd`` lays them out
+    (o contiguous; on "wgmma" q, k, v and do as the tensor maps read them,
+    do in rows ``tma_width(D)`` wide; else q, k, v and do contiguous), into
+    ``bufs`` (``bwd_buffers``), as ``pl`` plans it; adds one to that
+    kernel's count."""
     build_bwd()
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (q, k, v, o, do, *bufs)]
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
+    outs = [t.data_ptr() for t in bufs]
+    name = BWD_ROUTE_KERNELS[pl.route][which]
     if pl.route == "wgmma":
-        name = BWD_WGMMA_KERNELS[which]
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
-        err = _bwd_lib.gqa_flash_bwd_wgmma(which, _DTYPES[q.dtype], *ptrs, b, sq, sk, hq, hkv,
-                                           d, int(causal_offset), maps, *pl.grids[which],
-                                           pl.smem[which], stream)
+        err = _bwd_lib.gqa_flash_bwd_wgmma(which, _DTYPES[q.dtype], *ptrs, *outs, b, sq, sk,
+                                           hq, hkv, d, int(causal_offset), maps,
+                                           *pl.grids[which], pl.smem[which], stream)
     else:
-        name = BWD_KERNELS[which]
-        err = _bwd_lib.gqa_flash_bwd(which, _DTYPES[q.dtype], *ptrs, b, sq, sk, hq, hkv, d,
-                                     int(causal_offset), *pl.grids[which], pl.smem[which],
-                                     stream)
+        entry = _bwd_lib.gqa_flash_bwd_mma if pl.route == "mma" else _bwd_lib.gqa_flash_bwd
+        err = entry(which, _DTYPES[q.dtype], *ptrs, *outs, b, sq, sk, hq, hkv, d,
+                    int(causal_offset), *pl.grids[which], pl.smem[which], stream)
     if err != 0:
         raise RuntimeError(f"the {name} kernel of gqa_flash's backward failed: "
                            + (f"cudaError_t {err}" if err > 0

@@ -351,8 +351,9 @@ BWD_CASES = [(1, 0, 2, 1), (17, 37, 4, 2), (64, 0, 8, 4), (130, 0, 4, 2), (130, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 def test_kernel_flash_bwd_matches_plain(cuda_flash_bwd, dtype, d):
-    """The fma route at every dtype and head dim (its own route for fp32 and
-    bf16 D 16 and 32; the yardstick of the wgmma route elsewhere)."""
+    """The fma route at every dtype and head dim (its own route for fp32; the
+    yardstick of the mma route at bf16 D 16 and 32 and of the wgmma route
+    elsewhere)."""
     for sq, extra, hq, group in BWD_CASES[:6]:
         q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sq + extra, hq, hq // group, d,
                                   seed=sq + extra + d, dtype=dtype)
@@ -416,8 +417,15 @@ def test_kernel_flash_lse_leaves_the_output_unchanged(cuda_flash, d):
         np.testing.assert_allclose(lse.cpu().numpy(),
                                    fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="writes the LSE"):
-        fa.launch(q, k, v, kernel="mma_sync", with_lse=True)
+    # the mma.sync kernel writes it too (the mma backward reads it), the fp32
+    # kernel none
+    out, lse = fa.launch(q, k, v, off, kernel="mma_sync", with_lse=True)
+    assert torch.equal(out, fa.launch(q, k, v, off, kernel="mma_sync"))
+    np.testing.assert_allclose(lse.cpu().numpy(),
+                               fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="the LSE"):
+        fa.launch(q.float(), k.float(), v.float(), with_lse=True)
     with pytest.raises(ValueError, match="LSE"):
         fa.launch_bwd(q, k, v, out, out)     # the wgmma route needs the forward's LSE
 
@@ -450,8 +458,8 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 1, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1,
-                           "layout_copy": 0}
+                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1, "bwd_mma_dq": 0,
+                           "bwd_mma_dkdv": 0, "layout_copy": 0}
     out, lse = fa.launch(q, k, v, with_lse=True)
     assert torch.equal(out, o.detach())
     direct = fa.launch_bwd(q, k, v, out, do, lse=lse)
@@ -494,8 +502,8 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
     L = cfg.num_layers
     assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
                            "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
-                           "layout_copy": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
+                           "bwd_mma_dkdv": 0, "layout_copy": 0}
     np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
     old = dict(leaves(cpu0.params))
@@ -571,8 +579,8 @@ def test_kernel_flash_head_dim_112(cuda_flash, shape, dtype, kernel):
 # Head dim 16, the tiny trainer of repro_torch.examples.train_carbon_aware
 # (d_model 64 over 4 heads, 2 KV heads, bf16): its batch of 4 and a rank's 2
 # at S 128, then edge shapes (one row, ragged tails past the 64-row tiles,
-# keys no row sees); bf16 on the mma.sync kernel and fp32 on its own, each
-# forward and its fma backward against the plain versions.
+# keys no row sees); bf16 on the mma.sync kernel with the mma backward, fp32
+# on its own kernel with the fma backward, each against the plain versions.
 D16_SHAPES = [(4, 128, 128, 4, 2, 0), (2, 128, 128, 4, 2, 0), (1, 1, 300, 4, 1, 299),
               (2, 130, 167, 4, 2, 37), (1, 70, 70, 2, 2, 0), (2, 5, 300, 4, 2, 3)]
 
@@ -585,23 +593,25 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
     q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, 16, seed=sq + sk,
                               dtype=dtype)
     route = "mma_sync" if dtype == torch.bfloat16 else "fp32"
+    mma = int(route == "mma_sync")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.reset_launches()
     out = fa.gqa_flash(*leaves, causal_offset=off)
     out.backward(do)
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": int(route == "mma_sync"),
-                           "fp32": int(route == "fp32"), "gqa_flash_bwd": 1,
-                           "bwd_stats": 1, "bwd_dkdv": 1, "bwd_dq": 1,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
-                           "layout_copy": 0}, fa.launches
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": mma,
+                           "fp32": 1 - mma, "gqa_flash_bwd": 1,
+                           "bwd_stats": 1 - mma, "bwd_dkdv": 1 - mma, "bwd_dq": 1 - mma,
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": mma,
+                           "bwd_mma_dkdv": mma, "layout_copy": 0}, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype}")
     o = out.detach()
     want = fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off)
     _assert_bwd_close([t.grad for t in leaves], want, f"{shape} {dtype} backward")
-    again = fa.launch_bwd(q, k, v, o, do, causal_offset=off)
+    lse = fa.launch(q, k, v, off, with_lse=True)[1] if mma else None
+    again = fa.launch_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, again))   # no atomics
 
 
@@ -618,8 +628,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
-                           "layout_copy": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
+                           "bwd_mma_dkdv": 0, "layout_copy": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 
@@ -704,9 +714,10 @@ def test_kernel_flash_strided_and_checks(cuda_flash):
 
 
 # Every float dtype at head dims off the pinned routes: each route's edges
-# (D 8, 24 and 33 on mma.sync with and without 16-byte copies; 40 and 72 on
-# the Hopper kernel's 64- and 128-wide tiles; 100 unaligned; 160 and 256 past
-# the tensor cores' 128) on a ragged GQA shape, forward and backward.
+# (D 8 and 24 on mma.sync and the mma backward with and without 16-byte
+# copies; 33, 40 and 72 on the Hopper kernel's 64- and 128-wide tiles, 33
+# staged; 100 staged; 160 and 256 past the tensor cores' 128) on a ragged
+# GQA shape, forward and backward.
 DIMS_SHAPES = [(2, 130, 167, 4, 2, 37), (1, 1, 300, 4, 1, 299), (2, 200, 333, 8, 2, 133)]
 
 
@@ -725,10 +736,13 @@ def test_kernel_flash_every_head_dim(cuda_flash_bwd, d, dtype):
         out = fa.gqa_flash(*leaves, causal_offset=off)
         out.backward(do)
         torch.cuda.synchronize()
-        kernels = fa.BWD_WGMMA_KERNELS if broute == "wgmma" else fa.BWD_KERNELS
+        # the Hopper route stages q, k, v (forward) and dO (backward) off a
+        # multiple of 8
+        staged = 4 if route == "wgmma" and d % 8 else 0
         assert {n: c for n, c in fa.launches.items() if c} == {
-            "gqa_flash": 1, route: 1, "gqa_flash_bwd": 1, **dict.fromkeys(kernels, 1)}, \
-            (what, fa.launches)
+            "gqa_flash": 1, route: 1, "gqa_flash_bwd": 1,
+            **dict.fromkeys(fa.BWD_ROUTE_KERNELS[broute], 1),
+            **({"layout_copy": staged} if staged else {})}, (what, fa.launches)
         assert out.dtype == dtype and out.shape == q.shape
         o = out.detach()
         _assert_flash_close(o, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
@@ -782,6 +796,91 @@ def test_kernel_flash_wgmma_wide(cuda_flash_bwd, d, dtype):
                           fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off), "fma")
         assert fa.launches["mma_sync"] == 1 and all(fa.launches[n] == 1
                                                     for n in fa.BWD_KERNELS), fa.launches
+
+
+# The mma backward (bf16 and fp16 at D <= 32, on the mma.sync forward's
+# LSE): both padded widths, D off a multiple of 8 (element loads), the fma
+# cases and keys no row sees, Sq past Sk, one key.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [5, 8, 16, 24, 32])
+def test_kernel_flash_bwd_mma_matches_plain(cuda_flash_bwd, d, dtype):
+    """Against the fp32 plain backward and, within BWD_ROUNDED_REL, the plain
+    version that rounds P and dS where the kernels round them; one launch of
+    each mma kernel and none of the fma route's; two runs equal bit for bit."""
+    cases = [(sq, sq + extra, extra, hq, group) for sq, extra, hq, group in BWD_CASES] + \
+        [(5, 300, 3, 4, 2), (200, 65, 0, 4, 2), (3, 1, 7, 2, 1)]
+    for sq, sk, off, hq, group in cases:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sk, hq, hq // group, d,
+                                  seed=sq + sk + d, dtype=dtype)
+        o, lse = fa.launch(q, k, v, off, with_lse=True)
+        what = str((sq, sk, off, hq, group, d, dtype))
+        assert torch.equal(o, fa.gqa_flash(q, k, v, causal_offset=off)), what
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=what)
+        fa.reset_launches()
+        got = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash_bwd": 1, "bwd_mma_dq": 1, "bwd_mma_dkdv": 1}, (what, fa.launches)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off), what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, off,
+                                                          round_bf16=True),
+                          what + " rounded", rel_limit=BWD_ROUNDED_REL)
+        again = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what   # no atomics
+
+
+# The Hopper route off a multiple of 8: each input staged into rows
+# ceil(D / 8) * 8 wide (3 copies in the forward, q, k, v and dO in a direct
+# backward, dO alone behind the Function), the stores guarded by column.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [33, 100, 250])
+def test_kernel_flash_wgmma_staged(cuda_flash_bwd, d, dtype):
+    for b, sq, sk, hq, hkv, off in DIMS_SHAPES + [(2, 300, 300, 16, 8, 0)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        bare = fa.gqa_flash(q, k, v, causal_offset=off)
+        got = fa.gqa_flash_bwd(q, k, v, out, do, causal_offset=off, lse=lse)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 2, "wgmma": 2, "gqa_flash_bwd": 1, "bwd_wgmma_dq": 1,
+            "bwd_wgmma_dkdv": 1, "layout_copy": 10}, (what, fa.launches)
+        assert torch.equal(out, bare), what
+        _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, out, do, lse, off,
+                                                          round_bf16=True),
+                          what + " rounded", rel_limit=BWD_ROUNDED_REL)
+        # through the Function: the forward's staged q, k, v are saved, only
+        # dO is staged again; the same gradients
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launches()
+        o = fa.gqa_flash(*leaves, causal_offset=off)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert fa.launches["layout_copy"] == 4 and fa.launches["gqa_flash_bwd"] == 1, \
+            (what, fa.launches)
+        assert torch.equal(o.detach(), out) and all(
+            torch.equal(t.grad, g) for t, g in zip(leaves, got)), what
+    # the yardsticks at D 250 (the width-256 instantiations)
+    if d == 250:
+        fa.reset_launches()
+        _assert_flash_close(fa.launch(q, k, v, off, kernel="mma_sync"),
+                            fa.gqa_flash_plain(q, k, v, causal_offset=off), "mma_sync")
+        _assert_bwd_close(fa.launch_bwd(q, k, v, out, do, off, route="fma"),
+                          fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off), "fma")
+        assert fa.launches["mma_sync"] == 1 and fa.launches["layout_copy"] == 0 and all(
+            fa.launches[n] == 1 for n in fa.BWD_KERNELS), fa.launches
 
 
 @pytest.mark.cuda

@@ -257,7 +257,8 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
     assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
                            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "layout_copy": 0}
+                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
+                           "bwd_mma_dkdv": 0, "layout_copy": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 

@@ -152,15 +152,16 @@ def test_plan_bwd_grids_cover_every_output_once(shape):
 @pytest.mark.parametrize("b,sq,sk,hq,hkv", [(4, 128, 128, 4, 2), (2, 128, 128, 4, 2),
                                              (1, 65, 130, 2, 1)])
 def test_bf16_head_dim_16_runs_the_fma_kernels_over_every_column_once(b, sq, sk, hq, hkv):
-    """The tiny trainer's backward (bf16, D 16: B 4 and a rank's 2, S 128, Hq
-    4, Hkv 2) runs the fma route: its plan's grids and shared memory are
-    those of ``bwd_smem_bytes(16)``; each kernel's thread (ty, tx) writes
-    columns tx + 16j for j < D / 16 of its rows (dQ) or keys (dK, dV), so at
-    D 16 the 16 lanes of a half warp cover the row's columns once."""
+    """The tiny trainer's backward shapes (bf16, D 16: B 4 and a rank's 2, S
+    128, Hq 4, Hkv 2) on the fma route, the yardstick of the mma route they
+    take by default: its plan's grids and shared memory are those of
+    ``bwd_smem_bytes(16)``; each kernel's thread (ty, tx) writes columns tx
+    + 16j for j < D / 16 of its rows (dQ) or keys (dK, dV), so at D 16 the 16
+    lanes of a half warp cover the row's columns once."""
     d = 16
     q, k, v, o, do = (t.bfloat16() for t in _tensors((b, sq, sk, hq, hkv, d, 0)))
-    assert fa.bwd_route(torch.bfloat16, d) == "fma"
-    pl = fa.plan_bwd(q, k, v, o, do)
+    assert fa.bwd_route(torch.bfloat16, d) == "mma"
+    pl = fa.plan_bwd(q, k, v, o, do, route="fma")
     tiles_q, tiles_k = -(-sq // fa.BWD_ROWS), -(-sk // fa.BWD_KEYS)
     assert pl.route == "fma" and pl.maps is None
     assert pl.grids == ((tiles_q, hq, b), (tiles_k, hkv, b), (tiles_q, hq, b))
@@ -170,6 +171,46 @@ def test_bf16_head_dim_16_runs_the_fma_kernels_over_every_column_once(b, sq, sk,
     tx, j = np.meshgrid(np.arange(16), np.arange(d // 16), indexing="ij")
     cols = np.bincount((tx + 16 * j).ravel(), minlength=d)
     assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv", [(4, 128, 128, 4, 2), (2, 128, 128, 4, 2),
+                                             (1, 65, 130, 2, 1)])
+@pytest.mark.parametrize("d", [16, 5, 24, 32])
+def test_bf16_head_dim_16_runs_the_mma_kernels_over_every_column_once(b, sq, sk, hq, hkv, d):
+    """The same shapes on the mma route, the tiny trainer's (and at D 5, 24
+    and 32 the route's other padded widths and a D off a multiple of 8):
+    dQ blocks (x, h, b) own query rows 64 (gx - 1 - x) + 16w + g (+ 8) of
+    warp w < 4, lane 4g + t, dK/dV blocks (x, hk, b) the keys 64x + 16w + g
+    (+ 8); each thread stores columns 8n + 2t and 8n + 2t + 1 below D for n <
+    DP / 8 (``store2``), and only rows or keys below Sq or Sk: every
+    gradient element is stored once.  Shared memory: six tiles of 64 rows of
+    DP + 8 elements, and dK/dV's two buffers of 64 LSEs and 64 D_i."""
+    q, k, v, o, do = (t.bfloat16() for t in _tensors((b, sq, sk, hq, hkv, d, 0)))
+    assert fa.bwd_route(torch.bfloat16, d) == "mma"
+    pl = fa.plan_bwd(q, k, v, o, do)
+    dp = fa.padded_dim(d)
+    assert pl.route == "mma" and pl.maps is None and dp in (16, 32)
+    assert pl.grids == ((-(-sq // 64), hq, b), (-(-sk // 64), hkv, b))
+    assert pl.smem == fa.bwd_mma_smem_bytes(d) == (2 * 6 * 64 * (dp + 8),
+                                                  2 * 6 * 64 * (dp + 8) + 4 * 4 * 64)
+    assert fa.BWD_ROUTE_KERNELS["mma"] == ("bwd_mma_dq", "bwd_mma_dkdv")
+    w, g, t, r, n = np.meshgrid(np.arange(4), np.arange(8), np.arange(4), np.arange(2),
+                                np.arange(dp // 8), indexing="ij")
+    rows = (16 * w + g + 8 * r).ravel()
+    base = (8 * n + 2 * t).ravel()
+    for which, n_rows, heads in (("bwd_mma_dq", sq, hq), ("bwd_mma_dkdv", sk, hkv)):
+        gx, gy, gz = pl.grids[fa.BWD_MMA_KERNELS.index(which)]
+        assert (gy, gz) == (heads, b)
+        hits = np.zeros((b, n_rows, heads, dp), dtype=np.int64)
+        for x in range(gx):
+            tile = gx - 1 - x if which == "bwd_mma_dq" else x
+            rr = tile * 64 + rows
+            for col in (base, base + 1):
+                keep = (rr < n_rows) & (col < d)
+                for h in range(gy):
+                    for bi in range(gz):
+                        np.add.at(hits, (bi, rr[keep], h, col[keep]), 1)
+        assert (hits[..., :d] == 1).all() and not hits[..., d:].any(), which
 
 
 def test_plan_bwd_checks():

@@ -155,16 +155,23 @@ def test_reduced_config_head_dim_24_fp16_matches_reference():
 
 # --- routing and launch arithmetic ---------------------------------------------
 
+def _staged(shape, dtype):
+    """A meta tensor laid out as ``fa.stage`` lays one out: the [..., :D]
+    view of rows ``tma_width(D)`` wide (contiguous where D is a multiple of
+    8)."""
+    *lead, d = shape
+    return torch.empty((*lead, fa.tma_width(d)), dtype=dtype, device="meta")[..., :d]
+
+
 def test_route_at_every_head_dim_and_dtype():
     for dtype in FLOATS:
         for d in range(1, 257):
             half = dtype in (torch.float16, torch.bfloat16)
-            want = ("wgmma" if d % 8 == 0 and 32 < d <= 256 else "mma_sync") if half \
-                else "fp32"
+            want = ("wgmma" if 32 < d <= 256 else "mma_sync") if half else "fp32"
             assert fa.route(dtype, d) == want, (dtype, d)
-            assert fa.bwd_route(dtype, d) == ("wgmma" if want == "wgmma" else "fma")
-            q = torch.empty((1, 3, 4, d), dtype=dtype, device="meta")
-            k = torch.empty((1, 5, 2, d), dtype=dtype, device="meta")
+            assert fa.bwd_route(dtype, d) == ("wgmma" if want == "wgmma" else
+                                              "mma" if half else "fma")
+            q, k = _staged((1, 3, 4, d), dtype), _staged((1, 5, 2, d), dtype)
             assert fa.plan(q, k, k, causal_offset=2).route == want
             assert fa.plan_bwd(q, k, k, q, q, causal_offset=2).route == fa.bwd_route(dtype, d)
         for d in (0, 257, 512):
@@ -192,11 +199,12 @@ def _walk_forward(pl, b, sq, hq, d, dp):
         for z in range(gz):
             rows = ((gz - 1 - z) * fa.WGMMA_ROWS + 64 * c + 16 * w + g + 8 * r).ravel()
             cols = (8 * n + 2 * t).ravel()
-            keep = (rows < sq) & keep_n
             for h in range(gx):
                 for bb in range(gy):
-                    for col in (cols[keep], cols[keep] + 1):
-                        np.add.at(hits, (bb, rows[keep], h, col), 1)
+                    # store2: each of the pair's columns only below d
+                    for col in (cols, cols + 1):
+                        keep = (rows < sq) & keep_n & (col < d)
+                        np.add.at(hits, (bb, rows[keep], h, col[keep]), 1)
         return hits
     if pl.route == "mma_sync":
         w, g, t, r, n = np.meshgrid(np.arange(4), np.arange(8), np.arange(4), np.arange(2),
@@ -228,7 +236,7 @@ def _walk_forward(pl, b, sq, hq, d, dp):
     ids=str)
 def test_forward_grid_stores_each_output_once(dtype, d):
     b, sq, hq = 2, 130, 3
-    q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
+    q = _staged((b, sq, hq, d), dtype)
     pl = fa.plan(q, q, q)
     dp = fa.wgmma_tile_dim(d) if pl.route == "wgmma" else fa.padded_dim(d)
     hits = _walk_forward(pl, b, sq, hq, d, dp)
@@ -332,15 +340,22 @@ def test_source_constants_and_routes():
     assert widths in fwd and widths in bwd
     assert fa.PADDED_DIMS == (16, 32, 64, 128, 256)
     assert "return DP > 128 ? 32 : BQ;" in bwd and fa.BWD_WIDE_ROWS == 32
-    for src in (fwd, bwd):
-        assert "d % 8 != 0 || d <= 32 || d > 256" in src        # the wgmma entries
+    for src, ns in ((fwd, "hopper"), (bwd, "wg")):
+        assert "(dtype != 1 && dtype != 2) || d <= 32 || d > 256)" in src   # the wgmma entries
+        # any D in (32, 256]: off a multiple of 8 on the guarded instantiations
+        assert f"d % 8 != 0 ? {ns}::by_tile<-1, __half>" in src
+        assert f"d % 8 != 0 ? {ns}::by_tile<-1, __nv_bfloat16>" in src
         assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" not in src      # in hopper.cuh
+    assert "(dtype != 1 && dtype != 2) || d < 1 || d > 32)" in bwd      # the mma entry
+    assert fa.BWD_MMA_MAX_DIM == 32
     assert "constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : KEYS; }" in fwd
     assert "constexpr int WIDE_KEYS = 64;" in fwd and fa.WGMMA_WIDE_KEYS == 64
     assert "static constexpr int STAGES = D == 64 || D == 192 ? 3 : 2;" in fwd
     assert [fa.wgmma_stages(t) for t in (64, 128, 192, 256)] == [3, 2, 3, 2]
-    assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in (csrc / "hopper.cuh").read_text()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in fwd
+    hopper = (csrc / "hopper.cuh").read_text()
+    assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in hopper
+    # mma.sync, shared by the forward's flash_mma_kernel and the mma backward
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in hopper
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96), (torch.float16, 24),
@@ -360,7 +375,7 @@ def test_meta_route_reports_new_head_dims(dtype, d):
     fwd, bwd = counter.stats.by_op["gqa_flash"], counter.stats.by_op["gqa_flash_bwd"]
     assert fwd[0] == bwd[0] == 1
     assert fwd[1] == fa.kernel_work(q, k, 0, False)[0] == 2 * 2 * d * hq * b * pairs
-    products = 7 if fa.bwd_route(dtype, d) == "wgmma" else 8
+    products = 8 if fa.bwd_route(dtype, d) == "fma" else 7
     assert bwd[1] == fa.kernel_work(q, k, 0, True)[0] == products * 2 * d * hq * b * pairs
 
 
@@ -375,8 +390,10 @@ def test_layout_copies_on_the_cpu_stay_uncounted():
     assert fa.launches["layout_copy"] == 0
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         fa.plan(q, q, q)
-    odd = base[..., :33]
-    assert fa.plan(odd, odd, odd).route == "mma_sync"
+    odd = base[..., :33]                        # D 33: the Hopper route, rows 194 bytes apart
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.plan(odd, odd, odd)
+    assert fa.plan(odd, odd, odd, kernel="mma_sync").route == "mma_sync"
     every_other = torch.zeros((1, 10, 2, 66), dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         fa.plan(every_other, odd, odd)

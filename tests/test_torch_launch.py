@@ -263,7 +263,7 @@ def test_flash_meta_route_counts_its_kernels():
     k = torch.empty((b, s, cfg.num_kv_heads, hd), dtype=torch.bfloat16, device="meta")
     pairs = s * (s + 1) // 2
     assert fa.kernel_work(q, k, 0, False)[0] == 2 * 2 * hd * cfg.num_heads * b * pairs
-    route_products = 7 if fa.bwd_route(torch.bfloat16, hd) == "wgmma" else 8
+    route_products = 8 if fa.bwd_route(torch.bfloat16, hd) == "fma" else 7
     assert fa.kernel_work(q, k, 0, True)[0] == route_products * 2 * hd * cfg.num_heads * b * pairs
     assert fwd[1] == 2 * L * fa.kernel_work(q, k, 0, False)[0]
     assert "bmm" not in " ".join(stats.by_op)           # no attention product left in torch
