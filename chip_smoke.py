@@ -27,11 +27,16 @@ Phases, any failure exits non-zero:
    versions and SDPA; ``gqa_flash``'s backward (the wgmma pair and the fma
    route's stats, dK/dV and dQ kernels) against the plain backward at the
    train step's shape (bf16, S 2304, Hq 16, Hkv 8, D 128) and at the
-   launcher's fp32 D-32 shape, twice with equal bits, each kernel timed
-   beside its bound, the plain backward and SDPA's backward; every head
-   dim and dtype (the head-dim sweep: the staged Hopper route off a
-   multiple of 8, the mma backward at D <= 32) against the plain versions,
-   the new routes timed in turns against the routes they replaced; the
+   launcher's fp32 D-32 shape (the tiled pair, fp32's route, and fma beside
+   it), twice with equal bits, each kernel timed beside its bound, the
+   plain backward and SDPA's backward; every head dim and dtype (the
+   head-dim sweep: the staged Hopper route off a multiple of 8, the mma
+   backward at D <= 32, fp32 and fp64 on the tiled forward and backward,
+   run twice with equal bits) against the plain versions, the new routes
+   timed in turns against the routes they replaced (fp32 D 100: the tiled
+   forward against flash_f32_kernel, at most FP32_FWD_RATIO of it; the
+   tiled backward and each of its kernels against the fma route, at most
+   FP32_BWD_RATIO of it); the
    batch KNN lookup on the cluster kernel equal bit for bit to the previous
    (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
    device time (the cluster kernel at most half), beside the floor (an empty
@@ -410,6 +415,22 @@ def device_ms(fn, iters: int = 200, warmup: int = 20) -> float | None:
     when the profiler records no device time)."""
     total_us, _ = device_trace(fn, iters, warmup)
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def device_ms_again(fn, iters: int, per_call: int = 1) -> float | None:
+    """Device milliseconds a call of ``fn``, which makes ``per_call`` device
+    events (kernels) a call: the busy time ``torch.profiler`` records over
+    ``iters`` calls after one warm-up call, per recorded event, times
+    ``per_call``.  The profiler drops some events of long kernels (1 or 3 of
+    5 recorded on an H100), so the busy time over the calls would undercount;
+    a trace that recorded none is taken again, at most twice."""
+    for _ in range(3):
+        us, n = device_trace(fn, iters, 1)
+        if us > 0:
+            if n < per_call * iters:
+                log(f"device time: {n} device events recorded of {per_call * iters}")
+            return us / n * per_call / 1e3
+    return None
 
 
 def in_turns(runs, rounds: int = 2) -> dict:
@@ -1170,8 +1191,8 @@ FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
 # at the head-dim path's D 100 scaled to that prefill; and of the timed
 # backwards: bf16 D 96, 256 and 250 and fp32 D 100 at internvl2-2b's train
 # shape, bf16 D 32 (the mma route's widest) at the forward's prefill.  At
-# D 250 and on the mma route the route they replaced (mma.sync, fma) runs in
-# the same turns, gated.
+# D 250, on the mma route and in fp32 (the tiled kernels) the route they
+# replaced (mma.sync, flash_f32_kernel, fma) runs in the same turns, gated.
 DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
                   ("bf16-d256", 4, 2048, 2048, 16, 8, 256, torch.bfloat16),
                   ("bf16-d250", 4, 2048, 2048, 16, 8, 250, torch.bfloat16),
@@ -1179,9 +1200,14 @@ DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
                   ("fp32-d100", 4, 2048, 2048, 16, 8, 100, torch.float32)]
 # The staged wgmma route past D 128 against the route it replaced, in
 # turns: at most this share of its time (forward, backward); the mma
-# backward against the fma route at most MMA_BWD_RATIO of it
+# backward against the fma route at most MMA_BWD_RATIO of it; fp32's tiled
+# forward against flash_f32_kernel ("fp32_simple") at most FP32_FWD_RATIO,
+# its tiled backward against the fma route at most FP32_BWD_RATIO
 WIDE_FWD_RATIO, WIDE_BWD_RATIO = 0.4, 0.1
 MMA_BWD_RATIO = 0.25
+FP32_FWD_RATIO, FP32_BWD_RATIO = 0.75, 0.6
+# The tiled kernels' instantiations: one per count of accumulator slots
+TILED_SLOTS = sorted({fa.tiled_slots(d) for d in range(1, fa.MAX_HEAD_DIM + 1)})
 DIMS_BWD_TIMED = [("bf16-d96", 4, 2304, 2304, 16, 8, 96, torch.bfloat16),
                   ("bf16-d256", 4, 2304, 2304, 16, 8, 256, torch.bfloat16),
                   ("bf16-d250", 4, 2304, 2304, 16, 8, 250, torch.bfloat16),
@@ -1211,8 +1237,8 @@ def fwd_instance(dtype, d) -> str:
         return f"flash_wgmma_kernel<{tile}, {d if pinned else 0 if d % 8 == 0 else -1}, {t}>"
     if route == "mma_sync":
         return f"flash_mma_kernel<{t}, {fa.padded_dim(d)}>"
-    return f"flash_f32_kernel<{fa.padded_dim(d)}>" + (" on fp32 copies"
-                                                       if dtype == torch.float64 else "")
+    return f"flash_tiled_kernel<{fa.tiled_slots(d)}>" + (" on fp32 copies"
+                                                          if dtype == torch.float64 else "")
 
 
 def bwd_instance(dtype, d) -> str:
@@ -1222,19 +1248,20 @@ def bwd_instance(dtype, d) -> str:
                 f"{d if pinned else 0 if d % 8 == 0 else -1}, {str(dtype)[6:]}>")
     if fa.bwd_route(dtype, d) == "mma":
         return f"flash_bwd_{{dq,dkdv}}_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}>"
-    t = {torch.float64: "float (fp32 copies)"}.get(dtype, str(dtype)[6:])
-    return f"flash_bwd_{{stats,dkdv,dq}}_kernel<{t}, {fa.padded_dim(d)}>"
+    return f"flash_bwd_{{dq,dkdv}}_tiled_kernel<{fa.tiled_slots(d)}>" + (
+        " on fp32 copies" if dtype == torch.float64 else "")
 
 
 def flash_dims_phase(reports):
     """``gqa_flash`` and its backward at every sweep case
     (``FLASH_DIMS_CASES`` at ``FLASH_DIMS_SHAPE``): the forward against the
-    plain version (FLASH_TOL, FLASH_REL by dtype), on the 16-bit routes also
-    with its LSE (the output equal bit for bit, the LSE within LSE_TOL), the
-    backward on its route against the plain backward (``bwd_check``); the
-    launches by route, and the staged copies, equal to those the cases make;
-    the ptxas report of every flash instantiation (registers, spills); then
-    the timed shapes.  Returns the sweep's readings and the kernel line's
+    plain version (FLASH_TOL, FLASH_REL by dtype), also with its LSE (the
+    output equal bit for bit, the LSE within LSE_TOL), the backward on its
+    route against the plain backward (``bwd_check``); on the tiled route
+    (fp32, fp64) the forward with its LSE and the backward run again, equal
+    bit for bit; the launches by route, and the staged copies, equal to those
+    the cases make; the ptxas report of every flash instantiation
+    (registers, spills); then the timed shapes.  Returns the sweep's readings and the kernel line's
     new entries."""
     gen = np.random.default_rng(21)
     b, sq, sk, hq, hkv, off = FLASH_DIMS_SHAPE
@@ -1249,26 +1276,32 @@ def flash_dims_phase(reports):
             .to("cuda", dtype)
         route, broute = fa.route(dtype, d), fa.bwd_route(dtype, d)
         err, rel = flash_check(q, k, v, off, f"gqa_flash sweep {what}")
-        lse, lse_err = None, None
-        if route != "fp32":
-            o, lse = fa.launch(q, k, v, off, with_lse=True)
-            same = torch.equal(o, fa.gqa_flash(q, k, v, off))
-            lse_err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
-            if not (same and lse_err <= LSE_TOL):
-                raise AssertionError(f"gqa_flash sweep {what} with the LSE: output equal "
-                                     f"{same}, LSE off by up to {lse_err} (limit {LSE_TOL})")
-        else:
-            o = fa.gqa_flash(q, k, v, off)
-        calls = 3 if route != "fp32" else 2
-        expect["gqa_flash"] += calls
-        expect[route] += calls
+        o, lse = fa.launch(q, k, v, off, with_lse=True)
+        same = torch.equal(o, fa.gqa_flash(q, k, v, off))
+        lse_err = (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item()
+        if not (same and lse_err <= LSE_TOL):
+            raise AssertionError(f"gqa_flash sweep {what} with the LSE: output equal "
+                                 f"{same}, LSE off by up to {lse_err} (limit {LSE_TOL})")
+        calls = 3
         berr, brel, brounded = bwd_check(q, k, v, o, do, off, f"gqa_flash_bwd sweep {what}",
                                          route=broute, lse=lse)
-        expect["gqa_flash_bwd"] += 1
+        runs = 1
+        if broute == "tiled":           # two runs of either kernel: equal bits
+            o2, lse2 = fa.launch(q, k, v, off, with_lse=True)
+            first = fa.launch_bwd(q, k, v, o, do, off, lse=lse)
+            second = fa.launch_bwd(q, k, v, o2, do, off, lse=lse2)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, c) for a, c in zip(first, second))):
+                raise AssertionError(f"gqa_flash sweep {what}: two runs of the tiled "
+                                     "kernels differ")
+            calls, runs = 4, 3
+        expect["gqa_flash"] += calls
+        expect[route] += calls
+        expect["gqa_flash_bwd"] += runs
         if route == "wgmma" and fa.tma_width(d) != d:    # q, k, v a forward; and dO
             expect["layout_copy"] += 3 * calls + 4
         for name in BWD_ROUTE_KERNELS[broute]:
-            expect[name] += 1
+            expect[name] += runs
         sweep[what] = dict(route=route, kernel=fwd_instance(dtype, d), max_abs_err=err,
                            rel_l2=rel, lse_err=lse_err, bwd_route=broute,
                            bwd_kernel=bwd_instance(dtype, d), bwd_max_abs_err=berr,
@@ -1276,7 +1309,8 @@ def flash_dims_phase(reports):
         log(f"gqa_flash sweep {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} offset={off}: "
             f"forward on {route} ({fwd_instance(dtype, d)}) max abs diff {err}, relative L2 "
             f"{rel} (limit {FLASH_REL[dtype]}), LSE {lse_err}; backward on {broute} max abs "
-            f"diff {berr}, relative L2 {brel}, against the rounding plain version {brounded}")
+            f"diff {berr}, relative L2 {brel}, against the plain version from the LSE "
+            f"{brounded}")
     if fa.launches != expect:
         raise AssertionError(f"sweep launches by route {fa.launches}, expected {expect}")
     log(f"gqa_flash sweep: {len(FLASH_DIMS_CASES)} cases agree with the plain versions; "
@@ -1286,9 +1320,11 @@ def flash_dims_phase(reports):
     # report, sixteen (dQ's and dK/dV's) in the backward's; the guarded
     # instantiations of the narrower tiles (64 and 128 wide: four and eight);
     # the mma route's kernels (dQ and dK/dV, bf16 and fp16, widths 16 and 32):
-    # eight in the backward's; and the forward that writes their LSE
-    # (flash_mma_kernel at widths 16 and 32): four; none of which may spill or
-    # serialise its products
+    # eight in the backward's; the forward that writes their LSE
+    # (flash_mma_kernel at widths 16 and 32): four; and fp32's tiled kernels,
+    # one of each for every count J of accumulator slots (1..8, 10, 12, 14,
+    # 16: tiled_slots): twelve forward, twenty-four backward; none of which
+    # may spill or serialise its products
     ptx, gated = {}, {}
     for src, pattern, count in (
             ("flash_attention.cu", r"wgmma_kernelILi(192|256)E", 8),
@@ -1296,7 +1332,10 @@ def flash_dims_phase(reports):
             ("flash_attention.cu", r"wgmma_kernelILi(64|128)ELin1E", 4),
             ("flash_attention_bwd.cu", r"wgmma_kernelILi(64|128)ELin1E", 8),
             ("flash_attention.cu", r"flash_mma_kernelI\w+Li(16|32)EE", 4),
-            ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_mma_kernel", 8)):
+            ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_mma_kernel", 8),
+            ("flash_attention.cu", r"flash_tiled_kernelILi\d+EE", len(TILED_SLOTS)),
+            ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_tiled_kernelILi\d+EE",
+             2 * len(TILED_SLOTS))):
         rep = ptxas_report(reports[f"src/repro_torch/csrc/{src}"], "flash_")
         if not rep:
             log(f"{src}: no ptxas report (the library was built before this run)")
@@ -1313,9 +1352,9 @@ def flash_dims_phase(reports):
     bad = {n: r for n, r in gated.items()
            if r.get("spill_stores") or r.get("spill_loads") or r["remarks"]}
     if bad:
-        raise AssertionError(f"the wide wgmma or the mma backward instantiations spill or "
-                             f"serialise: {bad}")
-    log("wide wgmma and mma backward instantiations, ptxas: " + "; ".join(
+        raise AssertionError(f"the wide wgmma, the mma backward or the tiled instantiations "
+                             f"spill or serialise: {bad}")
+    log("wide wgmma, mma backward and tiled instantiations, ptxas: " + "; ".join(
         f"{n}: {r.get('registers')} registers, spills {r.get('spill_stores', 0)}/"
         f"{r.get('spill_loads', 0)}" for n, r in gated.items()))
     walls = {"sweep and ptxas": time.perf_counter() - start}
@@ -1351,17 +1390,21 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     time, beside the bound (16-bit tensor-core peak; fp32's 67 TFLOP/s for
     fp32).  At a D past 128 off a multiple of 8 (staged) the route it
     replaced (mma.sync) runs in the same turns, and the kernel must take at
-    most WIDE_FWD_RATIO of its time."""
+    most WIDE_FWD_RATIO of its time; in fp32 the first design's
+    flash_f32_kernel ("fp32_simple") does, held to the plain version too,
+    and the tiled kernel must take at most FP32_FWD_RATIO of its time."""
     q, k, v = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), dtype=dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     route = fa.route(dtype, d)
     wide = route == "wgmma" and d > 128 and fa.tma_width(d) != d
+    fp32 = route == "fp32"
+    old, ratio_limit = ("fp32_simple", FP32_FWD_RATIO) if fp32 else ("mma_sync", WIDE_FWD_RATIO)
 
     def kernel():
         return fa.launch(q, k, v, 0)
 
     def previous():
-        return fa.launch(q, k, v, 0, "mma_sync")
+        return fa.launch(q, k, v, 0, old)
 
     def plain():
         return fa.gqa_flash_plain(q, k, v)
@@ -1375,13 +1418,13 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         raise AssertionError(f"gqa_flash {tag}: relative L2 {rel} to the plain version")
     lib_diff = (library().transpose(1, 2).float() - got.float()).abs().max().item()
     checked = {}
-    if wide:
+    if wide or fp32:
         # the yardstick is held to the plain version too before it is timed
         prev = previous()
         checked = dict(previous_max_abs_err=(prev.float() - want.float()).abs().max().item(),
-                       previous_rel_l2=rel_l2(prev, want))
+                       previous_rel_l2=rel_l2(prev, want), previous=old)
         if not checked["previous_rel_l2"] <= FLASH_REL[dtype]:
-            raise AssertionError(f"gqa_flash {tag} on mma_sync: relative L2 "
+            raise AssertionError(f"gqa_flash {tag} on {old}: relative L2 "
                                  f"{checked['previous_rel_l2']} to the plain version")
         del prev
     del got, want
@@ -1393,13 +1436,16 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         tq, tk, tv = (fa.stage(t) for t in (q, k, v))
         runs.update(stage_ms=(lambda: [fa.stage(t) for t in (q, k, v)], n, 3),
                     prestaged_ms=(lambda: fa.launch(tq, tk, tv, 0), n, 3))
-    if wide:
-        runs["previous_ms"] = (previous, 10, 2)
+    if wide or fp32:
+        runs["previous_ms"] = (previous, 10 if wide else n, 2 if wide else 1)
     runs.update(plain_ms=(plain, 3, 1), library_ms=(library, n, 3))
     turns, t = in_turns_ms(runs)
-    # each function warmed by its turns
-    t.update(device_ms=device_ms(kernel, n // 2, 1), plain_device_ms=device_ms(plain, 3, 1),
+    # each function warmed by its turns; a trace that recorded no device
+    # time (the fp32 kernel's, now and then) is taken again, at most twice
+    t.update(device_ms=device_ms_again(kernel, n), plain_device_ms=device_ms(plain, 3, 1),
              library_device_ms=device_ms(library, n // 2, 1))
+    if fp32:
+        t["previous_device_ms"] = device_ms_again(previous, n)
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, 0, q.element_size())
     bound, by = bound_ms(nbytes, flops,
                          FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
@@ -1413,13 +1459,13 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         f"relative L2 {rel}; SDPA differs by up to {lib_diff}"
         + (f"; staging q, k, v {t['stage_ms']:.6f}, the kernel on staged inputs "
            f"{t['prestaged_ms']:.6f}" if "stage_ms" in t else "")
-        + (f"; the mma.sync kernel {t['previous_ms']:.6f} (kernel / it "
-           f"{t['ms'] / t['previous_ms']:.4f}, limit {WIDE_FWD_RATIO}; max abs diff "
-           f"{checked['previous_max_abs_err']}, relative L2 {checked['previous_rel_l2']})"
-           if wide else ""))
-    if wide and not t["ms"] <= WIDE_FWD_RATIO * t["previous_ms"]:
-        raise AssertionError(f"gqa_flash {tag}: the wgmma kernel takes {t['ms']} ms, more "
-                             f"than {WIDE_FWD_RATIO} of the mma.sync kernel's "
+        + (f"; the {old} kernel {t['previous_ms']:.6f} (device "
+           f"{t.get('previous_device_ms')}; kernel / it {t['ms'] / t['previous_ms']:.4f}, "
+           f"limit {ratio_limit}; max abs diff {checked['previous_max_abs_err']}, relative "
+           f"L2 {checked['previous_rel_l2']})" if wide or fp32 else ""))
+    if (wide or fp32) and not t["ms"] <= ratio_limit * t["previous_ms"]:
+        raise AssertionError(f"gqa_flash {tag}: the {route} kernel takes {t['ms']} ms, more "
+                             f"than {ratio_limit} of the {old} kernel's "
                              f"{t['previous_ms']} ms")
     return dict(name=f"gqa_flash_{tag.replace('-', '_')}", route="cuda",
                 kernel=fwd_instance(dtype, d), flash_route=route,
@@ -1439,14 +1485,17 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     SDPA's backward (its forward + backward less its forward) in turns by
     CUDA events, and by profiler device time, beside the function's bound
     (five products; fp32's 67 TFLOP/s for fp32).  On the wgmma route at a D
-    past 128 off a multiple of 8 (staged), and on the mma route, the route
-    it replaced (fma) runs in the same turns: the wgmma route must take at
-    most WIDE_BWD_RATIO of its time, the mma route MMA_BWD_RATIO."""
+    past 128 off a multiple of 8 (staged), on the mma route and on the tiled
+    route (fp32), the route it replaced (fma) runs in the same turns: the
+    wgmma route must take at most WIDE_BWD_RATIO of its time, the mma route
+    MMA_BWD_RATIO, the tiled route FP32_BWD_RATIO.  On the tiled route each
+    of its two kernels is timed in the same turns too (``launch_bwd_kernel``
+    on the whole route's buffers), and returned as the kernel line's entries
+    under "kernel_entries"."""
     q, k, v, do = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
                               (b, sq, hq, d), dtype=dtype)
     route = fa.bwd_route(dtype, d)
-    o, lse = fa.launch(q, k, v, 0, with_lse=True) if route != "fma" \
-        else (fa.launch(q, k, v, 0), None)
+    o, lse = fa.launch(q, k, v, 0, with_lse=True)
     tq, tk, tv = (fa._readable_copy(t, "wgmma") for t in (q, k, v)) if route == "wgmma" \
         else (q, k, v)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -1481,26 +1530,39 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
                                  f"(limit {limit})")
         return err, rel
 
-    wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route == "mma"
-    ratio_limit = MMA_BWD_RATIO if route == "mma" else WIDE_BWD_RATIO
+    tiled = route == "tiled"
+    wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route in ("mma", "tiled")
+    ratio_limit = {"mma": MMA_BWD_RATIO, "tiled": FP32_BWD_RATIO}.get(route, WIDE_BWD_RATIO)
     want = plain()
-    limit = BWD_REL[dtype] if route == "fma" else BWD_WGMMA_REL
+    limit = BWD_REL[dtype] if route in ("fma", "tiled") else BWD_WGMMA_REL
     err, rel = held(kernels(), want, route, limit)
     # the yardstick is held to the plain backward too before it is timed
     prev_err, prev_rel = held(previous(), want, "fma", BWD_REL[dtype]) if wide else (None, None)
     del want
-    iters = 3 if route == "fma" else 10
+    iters = 3 if route in ("fma", "tiled") else 10
     runs = dict(ms=(kernels, iters, 1))
     if route == "wgmma" and fa.tma_width(d) != d:
         runs["stage_ms"] = (lambda: fa.stage(do), iters, 1)    # the call's dO copy
     if wide:
         runs["previous_ms"] = (previous, 2, 1)
+    if tiled:       # each kernel alone, on the whole route's buffers (D_i in place)
+        pl, bufs = fa.plan_bwd(q, k, v, o, do, 0), fa.bwd_buffers(q, k, lse)
+        for which, name in enumerate(fa.BWD_TILED_KERNELS):
+            fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, 0, pl)
+            runs[name] = (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, 0, pl),
+                          iters, 1)
     runs.update(plain_ms=(plain, 2, 1), sdpa_fwd=(sdpa_fwd, 10, 2),
                 sdpa_fwd_bwd=(sdpa_fwd_bwd, 10, 2))
     turns, t = in_turns_ms(runs)
     dev = {key: device_ms(fn, n, 1) for key, fn, n in (    # each warmed by its turns
         ("device_ms", kernels, iters), ("plain_device_ms", plain, 2),
         ("sdpa_fwd", sdpa_fwd, 10), ("sdpa_fwd_bwd", sdpa_fwd_bwd, 10))}
+    if wide:
+        dev["previous_device_ms"] = device_ms(previous, 2, 1)
+    for name in fa.BWD_TILED_KERNELS if tiled else ():
+        dev[name] = device_ms_again(runs[name][0], iters)
+    if tiled:       # the profiler drops events of these long kernels: the sum of the two
+        dev["device_ms"] = sum(dev[name] for name in fa.BWD_TILED_KERNELS)
     library = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     library_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                    if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
@@ -1516,16 +1578,38 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         f"{library_dev}; route / SDPA {over}), bound {bound:.6f} by {by}; "
         f"max abs diff {err}, relative L2 {rel} (limit {limit})"
         + (f"; staging dO {t['stage_ms']:.6f}" if "stage_ms" in t else "")
-        + (f"; the fma route {t['previous_ms']:.6f} (route / it "
-           f"{t['ms'] / t['previous_ms']:.4f}, limit {ratio_limit}; max abs diff "
-           f"{prev_err}, relative L2 {prev_rel} (limit {BWD_REL[dtype]}))" if wide else ""))
+        + (f"; the fma route {t['previous_ms']:.6f} (device {dev.get('previous_device_ms')}; "
+           f"route / it {t['ms'] / t['previous_ms']:.4f}, limit {ratio_limit}; max abs diff "
+           f"{prev_err}, relative L2 {prev_rel} (limit {BWD_REL[dtype]}))" if wide else "")
+        + "".join(f"; {name} {t[name]:.6f} (device {dev[name]})"
+                  for name in (fa.BWD_TILED_KERNELS if tiled else ())))
     if wide and not t["ms"] <= ratio_limit * t["previous_ms"]:
         raise AssertionError(f"gqa_flash_bwd {tag}: the {route} route takes {t['ms']} ms, more "
                              f"than {ratio_limit} of the fma route's {t['previous_ms']} ms")
     extra = dict(previous_ms=t["previous_ms"], previous="the fma route",
+                 previous_device_ms=dev["previous_device_ms"],
                  previous_max_abs_err=prev_err, previous_rel_l2=prev_rel) if wide else {}
     if "stage_ms" in t:
         extra["stage_ms"] = t["stage_ms"]
+    if tiled:
+        extra["kernel_entries"] = [dict(
+            name=f"gqa_flash_{name}", route="cuda",
+            kernel=f"flash_bwd_{name[len('bwd_tiled_'):]}_tiled_kernel<{fa.tiled_slots(d)}>",
+            bwd_route=route, source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
+                     "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
+                     "no gradient)",
+            max_abs_err=err, rel_l2=rel, ms=t[name], device_ms=dev[name],
+            plain_ms=t["plain_ms"], plain_device_ms=dev["plain_device_ms"],
+            plain_of="the whole backward",
+            bound_ms=kb, bound_by=kby, bound_share=kb / t[name],
+            library_ms=library, library_device_ms=library_dev,
+            library_of="the whole backward: SDPA forward + backward less forward",
+            whole_ms=t["ms"], whole_device_ms=dev["device_ms"], previous_whole_ms=t["previous_ms"],
+            shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal",
+            turns={key: turns[key] for key in (name, "ms", "previous_ms")})
+            for name in fa.BWD_TILED_KERNELS
+            for kb, kby in [bound_ms(*work[name], FP32_FLOP_PER_S)]]
     return dict(name=f"gqa_flash_bwd_{tag.replace('-', '_')}", route="cuda",
                 kernel=bwd_instance(dtype, d), bwd_route=route,
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2438,8 +2522,9 @@ def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
     route's stats pass does Q K^T, its dK/dV four products (S, dP, dV,
     dK), its dQ three (S, dP, dQ); the wgmma and mma routes take the LSE
     from the forward and run seven: dQ (S, dP, dQ; it reads o and writes
-    D_i) and dK/dV (S, dP, dV, dK).  The second S and dP are the price of
-    determinism, not the bound's."""
+    D_i) and dK/dV (S, dP, dV, dK), and so do the tiled route's fp32
+    kernels.  The second S and dP are the price of determinism, not the
+    bound's."""
     pairs = sum(min(sk, offset + r + 1) for r in range(sq))
     product = 2.0 * b * hq * d * pairs
     qs, ks, stats = elt * b * sq * hq * d, elt * b * sk * hkv * d, 4.0 * b * hq * sq
@@ -2450,31 +2535,38 @@ def bwd_work(b, sq, sk, hq, hkv, d, offset, elt):
             "bwd_wgmma_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
             "bwd_mma_dq": (4 * qs + 2 * ks + 2 * stats, 3 * product),
             "bwd_mma_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
+            "bwd_tiled_dq": (4 * qs + 2 * ks + 2 * stats, 3 * product),
+            "bwd_tiled_dkdv": (2 * qs + 4 * ks + 2 * stats, 4 * product),
             "gqa_flash_bwd": (4 * qs + 4 * ks, 5 * product),
             "gqa_flash_bwd_wgmma": (4 * qs + 4 * ks + stats, 7 * product)}
 
 
 def bwd_check(q, k, v, o, do, offset, what, elementwise=True, rel_limit=None, route=None,
               lse=None):
-    """The kernels of ``route`` (default: the inputs' ``bwd_route``; wgmma
-    and mma read ``lse``) against ``gqa_flash_bwd_plain`` on the same
+    """The kernels of ``route`` (default: the inputs' ``bwd_route``; wgmma,
+    mma and tiled read ``lse``) against ``gqa_flash_bwd_plain`` on the same
     inputs: each output within ``rel_limit`` relative L2 (default BWD_REL
-    for fma, BWD_WGMMA_REL for wgmma and mma) and, on unit-normal inputs
-    (``elementwise``), elementwise within BWD_TOL; a model layer's gradients
-    span many decades under the reference init, so there the whole output's
-    relative L2 is the measure.  The wgmma and mma routes are also held
-    against the plain version that rounds P and dS to bf16 where they do,
-    within BWD_ROUNDED_REL (and BWD_TOL elementwise) when ``elementwise``,
-    printed otherwise.  Returns (max abs difference, largest relative L2,
-    largest relative L2 against the rounding plain version or None)."""
+    for fma and tiled, BWD_WGMMA_REL for wgmma and mma) and, on unit-normal
+    inputs (``elementwise``), elementwise within BWD_TOL; a model layer's
+    gradients span many decades under the reference init, so there the
+    whole output's relative L2 is the measure.  The wgmma and mma routes are
+    also held against the plain version that rounds P and dS to bf16 where
+    they do, within BWD_ROUNDED_REL (and BWD_TOL elementwise) when
+    ``elementwise``, printed otherwise; the tiled route against its own
+    plain version, the unrounded one from the LSE, within BWD_REL.  Returns
+    (max abs difference, largest relative L2, largest relative L2 against
+    the plain version from the LSE or None)."""
     route = route or fa.bwd_route(q.dtype, q.shape[-1])
     got = fa.launch_bwd(q, k, v, o, do, offset, lse=lse, route=route)
     torch.cuda.synchronize()
+    fp32 = route in ("fma", "tiled")
     wants = [(fa.gqa_flash_bwd_plain(q, k, v, o, do, offset),
-              rel_limit or (BWD_REL[q.dtype] if route == "fma" else BWD_WGMMA_REL))]
+              rel_limit or (BWD_REL[q.dtype] if fp32 else BWD_WGMMA_REL))]
     if route != "fma":
-        wants.append((fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, offset, round_bf16=True),
-                      BWD_ROUNDED_REL if elementwise else math.inf))
+        wants.append((fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, offset,
+                                                 round_bf16=not fp32),
+                      (rel_limit or BWD_REL[q.dtype] if fp32 else BWD_ROUNDED_REL)
+                      if elementwise else math.inf))
     err, rels = 0.0, [0.0] * len(wants)
     for i, (want, limit) in enumerate(wants):
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -2497,14 +2589,17 @@ def flash_bwd_kernel_phase(report):
     """Phase 2 for the backward of ``gqa_flash``: each route against the
     plain backward, twice (equal bits), at the train step's shape (bf16, on
     both routes: the wgmma route on the forward kernel's LSE), the
-    launcher's fp32 D-32 shape (fma, its route) and the tiny preset's
+    launcher's fp32 D-32 shape (the tiled route, its own, on the tiled
+    forward's LSE, and fma beside it) and the tiny preset's
     shapes (bf16 D 16: the mma route on the mma.sync forward's LSE, and fma
     beside it); at the train shape each
     kernel and each route's whole backward timed in turns by CUDA events and
     by profiler device time beside their bounds, the plain backward, and
     SDPA's backward (its forward + backward less its forward, for timing
     only); the wgmma route's whole backward at most BWD_RATIO of the fma
-    route's.  Returns the five kernels' entries."""
+    route's.  Returns the five kernels' entries (the fma route's three,
+    on no default path since the tiled route, leave the kernel line for the
+    yardsticks' line in ``main``)."""
     gen = np.random.default_rng(11)
     ptx = ptxas_report(report, "flash_bwd_")
     for name, rep in ptx.items():
@@ -2540,7 +2635,8 @@ def flash_bwd_kernel_phase(report):
             log(f"gqa_flash_bwd {what} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
                 f"{str(dtype)[6:]} on {route}: agrees with the plain backward (max abs diff "
                 f"{checks[what, route][0]}, largest relative L2 {checks[what, route][1]}, "
-                f"against the rounding plain version {checks[what, route][2]}); two runs equal")
+                f"against the plain version from the LSE {checks[what, route][2]}); two runs "
+                f"equal")
 
     what, b, sq, sk, hq, hkv, d, off, dtype = BWD_SHAPES[0]
     q, k, v, o, do, lse = inputs[what]
@@ -3086,9 +3182,9 @@ def elastic_phase(device="cuda"):
                                   os.path.join(tmp, "comp")])
     L, n = cfg.num_layers, len(plan["losses"])
     want = dict.fromkeys(fa.launches, 0)
-    if device == "cuda":
+    if device == "cuda":      # the tiled forward and backward, no stats pass
         want.update(gqa_flash=2 * L * n, fp32=2 * L * n, gqa_flash_bwd=L * n,
-                    **{k: L * n for k in fa.BWD_KERNELS})
+                    **{k: L * n for k in fa.BWD_TILED_KERNELS})
     ok = (plan["final_step"] == 6 and plan["recoveries"] >= 1
           and resumed["final_step"] == 8 and tr2.recoveries >= 1
           and all(math.isfinite(x) for x in plan["losses"] + resumed["losses"]
@@ -3760,7 +3856,7 @@ def shard_elastic(rank, root):
     L, n = cfg.num_layers, card["taken"]
     want = dict.fromkeys(fa.launches, 0)
     want.update(gqa_flash=2 * L * n, fp32=2 * L * n, gqa_flash_bwd=L * n,
-                **{k: L * n for k in fa.BWD_KERNELS})
+                **{k: L * n for k in fa.BWD_TILED_KERNELS})
     planned = (sum(s for _, s in SHARD_PLAN + SHARD_RESUME) if rank == 0
                else sum(s for k, s in SHARD_PLAN + SHARD_RESUME if k > 1))
     losses = card["plan"]["losses"] + card["resumed"]["losses"]
@@ -6763,6 +6859,9 @@ def phases(card, reports, shard_ranks, twins):
     kernels[2].update(launches=serve["launches"]["wgmma"], path="serve-prefill")
     dims_path = timed("head-dim path", dims_path_phase)
     by_tag = {e["name"]: e for e in dims_fwd + dims_bwd}
+    # fp32's tiled backward kernels, each timed at the fp32 D-100 shape
+    tiled_entries = by_tag["gqa_flash_bwd_fp32_d100"].pop("kernel_entries")
+    fp32_path = dims_path["D=100 float32"]["launches"]
     by_tag["gqa_flash_fp16_d128"].update(
         launches=serve["fp16_prefill"]["launches"]["wgmma"], path="serve-prefill fp16")
     for d, dtype in ((96, torch.bfloat16), (256, torch.bfloat16), (250, torch.bfloat16),
@@ -6786,18 +6885,27 @@ def phases(card, reports, shard_ranks, twins):
     # the serving paths launch no backward
     for what, counts in (("serve", serve["launches"]), ("moe serve", moe["launches"])):
         if any(counts[n] for n in ("gqa_flash_bwd",) + fa.BWD_KERNELS
-               + fa.BWD_WGMMA_KERNELS + fa.BWD_MMA_KERNELS):
+               + fa.BWD_WGMMA_KERNELS + fa.BWD_MMA_KERNELS + fa.BWD_TILED_KERNELS):
             raise AssertionError(f"the {what} path launched the backward: {counts}")
     train = timed("training", train_phase)
     train["wall_s"] = walls["training"]
-    # the wgmma kernels run on the train step; the fma kernels on the elastic
-    # path (fp32, D 32), their route there
+    # the wgmma kernels run on the train step; the tiled kernels on the
+    # elastic path (fp32, D 32) and the head-dim path's fp32 step; the fma
+    # kernels, the yardsticks, on no default path: their entries leave the
+    # kernel line for a line of their own
     for entry in bwd_entries:
         name = entry["name"][len("gqa_flash_"):]
         wgmma = entry["bwd_route"] == "wgmma"
         entry.update(launches=(train if wgmma else train["elastic"])["launches"][name],
                      path="train-step" if wgmma else "elastic",
                      train_launches=train["launches"][name],
+                     elastic_launches=train["elastic"]["launches"][name])
+    yardsticks = [e for e in bwd_entries if e["bwd_route"] == "fma"]
+    bwd_entries = [e for e in bwd_entries if e["bwd_route"] != "fma"]
+    for entry in tiled_entries:
+        name = entry["name"][len("gqa_flash_"):]
+        entry.update(launches=train["elastic"]["launches"][name], path="elastic",
+                     train_launches=train["launches"][name], dims_path_launches=fp32_path[name],
                      elastic_launches=train["elastic"]["launches"][name])
     kernels[2].update(train_launches=train["launches"]["wgmma"])
     shard = timed("shard", shard_phase, shard_ranks)
@@ -6819,11 +6927,10 @@ def phases(card, reports, shard_ranks, twins):
         name = entry["name"][len("gqa_flash_"):]
         entry.update(launches=tiny[0][name], path="train_carbon_aware --preset tiny",
                      rank_launches=[r[name] for r in tiny])
-    for entry in bwd_entries:
-        if entry["bwd_route"] == "fma":
-            name = entry["name"][len("gqa_flash_"):]
-            entry["shard_elastic_launches"] = [r["card"]["launches"][name]
-                                               for r in shard["elastic"]]
+    for entry in tiled_entries + yardsticks:
+        name = entry["name"][len("gqa_flash_"):]
+        entry["shard_elastic_launches"] = [r["card"]["launches"][name]
+                                           for r in shard["elastic"]]
     dag = timed("dag", dag_path_phase, twins)
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -6840,6 +6947,7 @@ def phases(card, reports, shard_ranks, twins):
     kernels.append(d112_entry)
     kernels.extend(bwd_entries)
     kernels.extend([d16_entry, bwd_d16_entry, *bwd_mma_entries])
+    kernels.extend(tiled_entries)
     kernels.extend(dims_fwd + dims_bwd)
     chaos = timed("resilience", chaos_phase)
     # launches on the resilience paths, beside each kernel's own path
@@ -6920,6 +7028,7 @@ def phases(card, reports, shard_ranks, twins):
     log(json.dumps({"telemetry_path": tele}))
     log(json.dumps({"examples_path": examples}, default=str))
     log(json.dumps({"flash_dims": dims, "dims_path": dims_path}, default=str))
+    log(json.dumps({"yardsticks": yardsticks}, default=str))
     log("phase walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
         + f"; the whole script so far {time.perf_counter() - T_START:.3f}")
     log(card)

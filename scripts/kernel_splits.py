@@ -28,7 +28,19 @@ builds (none of them is kept in the library):
 4. ``capacity_fill`` at B=64 on the mpc-scale tile's busiest recorded step
    of ``sweep-full`` (n_pad 1792), each route of ``csrc/fill.cu`` cut the
    same way: an empty kernel, the staging pass alone, the whole kernel.
-5. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
+5. ``tiled``, only when named: fp32's tiled kernels at chip_smoke.py's fp32
+   D-100 shapes (forward B=4 S=2048 Hq=16 Hkv=8, backward the same at S
+   2304), each cut after its phases: the forward with its loads alone (Q, the
+   K and V tiles by cp.async, the barriers), + S = Q K^T (summed into the
+   output, to keep it), + the online softmax, whole; and two trial designs
+   of it, whole: 64 query rows and 64 keys a tile (128 threads, two blocks
+   an SM) and the accurate exp2f for the exponentials (the kernel takes
+   ex2.approx.ftz), alone and together; dQ with its staging, D_i and loads
+   alone, + S, dP, P and dS, whole; dK/dV with its loads alone, + S^T and
+   P^T, + dV += P^T dO, + dP^T and dS^T, whole (a cut-off product's inputs
+   summed into the accumulators, to keep them); beside the shipped wrappers and the first design's kernels
+   (``kernel="fp32_simple"``, ``route="fma"``).
+6. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
    forward and backward on this checkout's wrappers and kernels against
    those of the checkout at ROOT (say the parent commit, unpacked there by
    ``git archive``; its sources built into its own ``build/``), at every
@@ -42,9 +54,11 @@ The variants that compute the output are first held equal to the shipped
 kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
 power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
-splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``flash``):
+splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``tiled``,
+``flash``):
 
     python3 scripts/kernel_splits.py geo fill
+    python3 scripts/kernel_splits.py tiled
     python3 scripts/kernel_splits.py flash --against build/parent
 """
 import argparse
@@ -63,7 +77,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
 from repro_torch.kernels import fill, geo_walk, knn, score  # noqa: E402
-from repro_torch.kernels._build import NVCC_FLAGS, _nvcc  # noqa: E402
+from repro_torch.kernels._build import CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
 SCORE_VARIANTS = r"""
 #include <cuda_runtime.h>
@@ -209,7 +223,10 @@ def build(name: str, source: str) -> ctypes.CDLL:
     so = os.path.join(ROOT, "build", f"lib{name}.so")
     with open(cu, "w") as f:
         f.write(source)
-    subprocess.run([_nvcc(Path(cu)), *NVCC_FLAGS, "-o", so, cu], check=True, capture_output=True)
+    proc = subprocess.run([_nvcc(Path(cu)), *NVCC_FLAGS, "-I", CSRC, "-o", so, cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:      # the sources' headers come from csrc/
+        raise RuntimeError(f"nvcc failed to build {cu}:\n{proc.stdout}{proc.stderr}")
     return ctypes.CDLL(so)
 
 
@@ -521,6 +538,277 @@ def fill_split():
            f"({b_tile} cells repeated; {int(args[0].sum())} candidates)", cs.in_turns(runs))
 
 
+# fp32's tiled kernels at J = 7 accumulator slots (D 97..112), each copied
+# under a STOP parameter; the forward also under its tiling L and APPROX
+# (ex2.approx.ftz, the shipped kernel's, or else the accurate exp2f).
+TILED_FWD_SPLITS = {
+    "forward": dict(
+        start="template <int J>\n__global__ void __launch_bounds__(tiled::FwdTiles<J>::THREADS, "
+              "tiled::FwdTiles<J>::BLOCKS)\nflash_tiled_kernel(",
+        end="template <int J>\ncudaError_t launch_tiled(",
+        stops=("loads alone (Q, K and V tiles, barriers)", "+ S = Q K^T (summed into O)",
+               "+ the online softmax", "whole kernel"),
+        cuts=[
+            ("template <int J>\n__global__ void __launch_bounds__(tiled::FwdTiles<J>::THREADS, "
+             "tiled::FwdTiles<J>::BLOCKS)\nflash_tiled_kernel(",
+             "template <int J, int STOP, class L, bool APPROX>\n"
+             "__global__ void __launch_bounds__(L::THREADS, L::BLOCKS)\ntiled_fwd_cut("),
+            ("  using L = tiled::FwdTiles<J>;\n", ""),
+            ("    if (active) {\n      tiled::abt<RT, CT, RS>(s, qt + a0 * RS, kt + tx * RS, w);",
+             "    if (STOP >= 2 && active) {\n"
+             "      tiled::abt<RT, CT, RS>(s, qt + a0 * RS, kt + tx * RS, w);"),
+            ("      for (int i = 0; i < RT; ++i) {\n        float mx = m[i];",
+             "      for (int i = 0; i < (STOP >= 3 ? RT : 0); ++i) {\n        float mx = m[i];"),
+            ("const float corr = hopper::exp2_ftz(m[i] - mx);",
+             "const float corr = APPROX ? hopper::exp2_ftz(m[i] - mx) : exp2f(m[i] - mx);"),
+            ("s[i][j] = hopper::exp2_ftz(s[i][j] - mx);",
+             "s[i][j] = APPROX ? hopper::exp2_ftz(s[i][j] - mx) : exp2f(s[i][j] - mx);"),
+            # a product cut off keeps its inputs alive by summing them into the output
+            ("    if (active) tiled::xty_chunks<RT, CT, J, NCH, PS, RS>(acc, s, pt, vt + tx, tx, "
+             "a0);",
+             "    if (STOP >= 4 && active)\n"
+             "      tiled::xty_chunks<RT, CT, J, NCH, PS, RS>(acc, s, pt, vt + tx, tx, a0);\n"
+             "    else if (STOP >= 2 && active)\n"
+             "      for (int i = 0; i < RT * CT; ++i) acc[0][0] += s[i / CT][i % CT];"),
+        ]),
+}
+TILED_FWD_ENTRY = r"""
+// The forward's tiles with 64 query rows and 64 keys a tile: 128 threads, two
+// blocks an SM.
+template <int J>
+struct Rows64 {
+  static constexpr int TY = 8, THREADS = TY * tiled::TX, BLOCKS = 2;
+  static constexpr int RT = 8, ROWS = TY * RT, RS = tiled::row_stride(J), PS = ROWS + 4;
+  static constexpr int KEYS = 64, CT = KEYS / tiled::TX, NCH = 1;
+  static constexpr int Q = 0, K = ROWS * RS, V = K + KEYS * RS, P = V + KEYS * RS;
+  static constexpr size_t SMEM = sizeof(float) * (P + KEYS * PS);
+};
+
+template <int STOP, class L, bool APPROX>
+static int fwd_cut(const float* q, const float* k, const float* v, float* o, int b, int sq,
+                   int sk, int hq, int hkv, int d, cudaStream_t s) {
+  constexpr int J = 7;
+  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_cut<J, STOP, L, APPROX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, b, (sq + L::ROWS - 1) / L::ROWS);
+  const Strides qs{(long long)sq * hq * d, (long long)hq * d, d};
+  const Strides ks{(long long)sk * hkv * d, (long long)hkv * d, d};
+  tiled_fwd_cut<J, STOP, L, APPROX><<<grid, L::THREADS, L::SMEM, s>>>(
+      q, k, v, o, nullptr, sq, sk, hq, hq / hkv, 0, d, true, qs, ks, ks,
+      tiled::LOG2E / sqrtf((float)d));
+  return (int)cudaGetLastError();
+}
+
+// variant 0: the shipped kernel, cut at stop 1..4; 1: Rows64; 2: exp2f in
+// place of ex2.approx.ftz; 3: both (the last three whole).  Contiguous fp32
+// inputs, 97 <= d <= 112.
+extern "C" int tiled_fwd_split(int variant, int stop, const float* q, const float* k,
+                               const float* v, float* o, int b, int sq, int sk, int hq, int hkv,
+                               int d, void* stream) {
+  using F = tiled::FwdTiles<7>;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0 && stop == 1) return fwd_cut<1, F, true>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  if (variant == 0 && stop == 2) return fwd_cut<2, F, true>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  if (variant == 0 && stop == 3) return fwd_cut<3, F, true>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  if (variant == 0) return fwd_cut<4, F, true>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  if (variant == 1) return fwd_cut<4, Rows64<7>, true>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  if (variant == 2) return fwd_cut<4, F, false>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+  return fwd_cut<4, Rows64<7>, false>(q, k, v, o, b, sq, sk, hq, hkv, d, s);
+}
+"""
+TILED_BWD_SPLITS = {
+    "dQ": dict(
+        start="template <int J>\n__global__ void __launch_bounds__(tiled::DqTiles<J>::THREADS, "
+              "tiled::DqTiles<J>::BLOCKS)\nflash_bwd_dq_tiled_kernel(",
+        end="// dK/dV: one block per (KEYS keys",
+        stops=("staging, D_i and the loads alone", "+ S, dP, P and dS (dS^T stored)",
+               "whole kernel"),
+        cuts=[
+            ("template <int J>\n__global__ void __launch_bounds__(tiled::DqTiles<J>::THREADS, "
+             "tiled::DqTiles<J>::BLOCKS)\nflash_bwd_dq_tiled_kernel(",
+             "using tiled::LOG2E;\ntemplate <int J, int STOP>\n__global__ void "
+             "__launch_bounds__(tiled::DqTiles<J>::THREADS, tiled::DqTiles<J>::BLOCKS)\n"
+             "tiled_dq_cut("),
+            ("    if (active) tiled::abt<RT, CT, RS>(dp, dot + a0 * RS, vt + tx * RS, w);",
+             "    if (STOP >= 2 && active) tiled::abt<RT, CT, RS>(dp, dot + a0 * RS, vt + tx * RS, "
+             "w);"),
+            ("    if (active) {\n      float s[RT][CT];",
+             "    if (STOP >= 2 && active) {\n      float s[RT][CT];"),
+            ("      tiled::xty<RT, J, KEYS, XS, RS>(acc, dst + a0, kt + tx);",
+             "      if (STOP >= 3) tiled::xty<RT, J, KEYS, XS, RS>(acc, dst + a0, kt + tx);"),
+        ]),
+    "dK/dV": dict(
+        start="template <int J>\n__global__ void __launch_bounds__(tiled::DkdvTiles<J>::THREADS, "
+              "tiled::DkdvTiles<J>::BLOCKS)\nflash_bwd_dkdv_tiled_kernel(",
+        end="enum Kernel { DQ = 0, DKDV = 1 };",
+        stops=("the loads alone", "+ S^T and P^T (summed into the accumulators)",
+               "+ dV += P^T dO", "+ dP^T and dS^T (summed into the accumulators)",
+               "whole kernel"),
+        cuts=[
+            ("template <int J>\n__global__ void __launch_bounds__(tiled::DkdvTiles<J>::THREADS, "
+             "tiled::DkdvTiles<J>::BLOCKS)\nflash_bwd_dkdv_tiled_kernel(",
+             "template <int J, int STOP>\n__global__ void "
+             "__launch_bounds__(tiled::DkdvTiles<J>::THREADS, tiled::DkdvTiles<J>::BLOCKS)\n"
+             "tiled_dkdv_cut("),
+            ("    if (active) {\n      float st[RT][CT];           // S^T, then P^T",
+             "    if (STOP >= 2 && active) {\n      float st[RT][CT];"),
+            # a product cut off keeps its inputs alive by summing them into the accumulators
+            ("      tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_v, st, pbuf, dot + tx, tx, a0);  // dV",
+             "      if (STOP >= 3)\n"
+             "        tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_v, st, pbuf, dot + tx, tx, a0);\n"
+             "      else\n"
+             "        for (int i = 0; i < RT * CT; ++i) acc_v[0][0] += st[i / CT][i % CT];\n"
+             "      if (STOP >= 4) {"),
+            ("        for (int i = 0; i < RT; ++i) ds[i][c] = st[i][c] * (ds[i][c] - di);\n      }\n"
+             "    }",
+             "        for (int i = 0; i < RT; ++i) ds[i][c] = st[i][c] * (ds[i][c] - di);\n      }\n"
+             "      }\n    }"),
+            ("    if (active) tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_k, ds, pbuf, qt + tx, "
+             "tx, a0);",
+             "    if (STOP >= 5 && active)\n"
+             "      tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_k, ds, pbuf, qt + tx, tx, a0);\n"
+             "    else if (STOP == 4 && active)\n"
+             "      for (int i = 0; i < RT * CT; ++i) acc_k[0][0] += ds[i / CT][i % CT];"),
+        ]),
+}
+TILED_BWD_ENTRY = r"""
+template <int STOP>
+static int dq_cut(const Args& a, Dims dm, int b, cudaStream_t s) {
+  using L = tiled::DqTiles<7>;
+  cudaError_t err = cudaFuncSetAttribute(tiled_dq_cut<7, STOP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(dm.hq, b, (dm.sq + L::ROWS - 1) / L::ROWS);
+  tiled_dq_cut<7, STOP><<<grid, L::THREADS, L::SMEM, s>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.o,
+      (const float*)a.dout, a.lse, a.dvec, (float*)a.dq, dm, true);
+  return (int)cudaGetLastError();
+}
+
+template <int STOP>
+static int dkdv_cut(const Args& a, Dims dm, int b, cudaStream_t s) {
+  using L = tiled::DkdvTiles<7>;
+  cudaError_t err = cudaFuncSetAttribute(tiled_dkdv_cut<7, STOP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(dm.hq / dm.group, b, (dm.sk + L::KEYS - 1) / L::KEYS);
+  tiled_dkdv_cut<7, STOP><<<grid, L::THREADS, L::SMEM, s>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dout, a.lse,
+      a.dvec, (float*)a.dk, (float*)a.dv, dm, true);
+  return (int)cudaGetLastError();
+}
+
+// kernel 0: dQ (stop 1..3), 1: dK/dV (stop 1..5).  Contiguous fp32 inputs,
+// 97 <= d <= 112, the LSE the forward's, D_i as the dQ kernel writes it.
+extern "C" int tiled_bwd_split(int kernel, int stop, const void* q, const void* k,
+                               const void* v, const void* o, const void* dout, float* lse,
+                               float* dvec, void* dq, void* dk, void* dv, int b, int sq, int sk,
+                               int hq, int hkv, int d, void* stream) {
+  const Args a{q, k, v, o, dout, lse, dvec, dq, dk, dv};
+  const Dims dm{sq, sk, hq, hq / hkv, 0, d, 1.0f / sqrtf((float)d)};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (kernel == 0)
+    return stop == 1 ? dq_cut<1>(a, dm, b, s) : stop == 2 ? dq_cut<2>(a, dm, b, s)
+                                                          : dq_cut<3>(a, dm, b, s);
+  return stop == 1   ? dkdv_cut<1>(a, dm, b, s)
+         : stop == 2 ? dkdv_cut<2>(a, dm, b, s)
+         : stop == 3 ? dkdv_cut<3>(a, dm, b, s)
+         : stop == 4 ? dkdv_cut<4>(a, dm, b, s)
+                     : dkdv_cut<5>(a, dm, b, s);
+}
+"""
+
+
+def tiled_split():
+    from concurrent.futures import ThreadPoolExecutor
+
+    fa = cs.fa
+    fa.build()
+    fa.build_bwd()
+    with ThreadPoolExecutor(2) as ex:
+        fwd_lib, bwd_lib = ex.map(lambda a: build(*a), [
+            ("tiled_fwd_splits", split_source("flash_attention.cu", TILED_FWD_SPLITS,
+                                              TILED_FWD_ENTRY)),
+            ("tiled_bwd_splits", split_source("flash_attention_bwd.cu", TILED_BWD_SPLITS,
+                                              TILED_BWD_ENTRY))])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fwd_lib.tiled_fwd_split.argtypes = [i, i] + [p] * 4 + [i] * 6 + [p]
+    bwd_lib.tiled_bwd_split.argtypes = [i, i] + [p] * 10 + [i] * 6 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = np.random.default_rng(0)
+
+    def checked(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: cudaError_t {err}")
+
+    # the forward
+    tag, b, sq, sk, hq, hkv, d, dtype = [s for s in cs.DIMS_FWD_TIMED if s[0] == "fp32-d100"][0]
+    q, k, v = cs.card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), dtype=dtype)
+    o = torch.empty_like(q)
+
+    def fwd(variant, stop):
+        return lambda: checked(fwd_lib.tiled_fwd_split(
+            variant, stop, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk,
+            hq, hkv, d, stream), f"forward variant {variant} stop {stop}")
+
+    want = fa.launch(q, k, v, 0)
+    for variant in range(4):
+        fwd(variant, 4)()
+        torch.cuda.synchronize()
+        log(f"forward variant {variant} whole: equal to the wrapper's output "
+            f"{torch.equal(o, want)}, max abs difference {(o - want).abs().max().item()}")
+    stops = TILED_FWD_SPLITS["forward"]["stops"]
+    runs = {f"forward: {what}": fwd(0, stop) for stop, what in enumerate(stops, 1)}
+    runs.update({"forward: 64 rows and 64 keys a tile, two blocks an SM": fwd(1, 4),
+                 "forward: exp2f": fwd(2, 4), "forward: both": fwd(3, 4),
+                 "forward: the wrapper": lambda: fa.launch(q, k, v, 0),
+                 "forward: flash_f32_kernel": lambda: fa.launch(q, k, v, 0, "fp32_simple")})
+    nbytes, flops = cs.flash_work(b, sq, sk, hq, hkv, d, 0, 4)
+    bound, _ = cs.bound_ms(nbytes, flops, cs.FP32_FLOP_PER_S)
+    report(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} fp32), the tiled forward "
+           f"cut after each phase; the bound {bound:.6f} ms", cs.in_turns(runs),
+           lambda key, ms: f", {bound / ms:.4f} of the bound")
+    del q, k, v, o, want
+
+    # the backward, on the forward's LSE; D_i in place from one dQ run
+    tag, b, sq, sk, hq, hkv, d, dtype = [s for s in cs.DIMS_BWD_TIMED if s[0] == "fp32-d100"][0]
+    q, k, v, do = cs.card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                                 (b, sq, hq, d), dtype=dtype)
+    o, lse = fa.launch(q, k, v, 0, with_lse=True)
+    bufs = fa.bwd_buffers(q, k, lse)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, *bufs)]
+
+    def bwd(kernel, stop):
+        return lambda: checked(bwd_lib.tiled_bwd_split(kernel, stop, *ptrs, b, sq, sk, hq, hkv,
+                                                       d, stream),
+                               f"backward kernel {kernel} stop {stop}")
+
+    want = fa.launch_bwd(q, k, v, o, do, 0, lse=lse)
+    bwd(0, 3)()
+    bwd(1, len(TILED_BWD_SPLITS["dK/dV"]["stops"]))()
+    torch.cuda.synchronize()
+    log("backward cuts, whole: equal to the wrapper's gradients "
+        f"{all(torch.equal(a, w) for a, w in zip(bufs[2:], want))}")
+    runs = {}
+    for kernel, (name, sp) in enumerate(TILED_BWD_SPLITS.items()):
+        for stop, what in enumerate(sp["stops"], 1):
+            runs[f"{name}: {what}"] = bwd(kernel, stop)
+    runs.update({"the tiled route (the wrapper)": lambda: fa.launch_bwd(q, k, v, o, do, 0,
+                                                                        lse=lse),
+                 "the fma route": lambda: fa.launch_bwd(q, k, v, o, do, 0, route="fma")})
+    work = cs.bwd_work(b, sq, sk, hq, hkv, d, 0, 4)
+    bound, _ = cs.bound_ms(*work["gqa_flash_bwd"], cs.FP32_FLOP_PER_S)
+    report(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} fp32), the tiled "
+           f"kernels cut after each phase; the function's bound {bound:.6f} ms (dQ's three "
+           f"products {cs.bound_ms(*work['bwd_tiled_dq'], cs.FP32_FLOP_PER_S)[0]:.6f}, dK/dV's "
+           f"four {cs.bound_ms(*work['bwd_tiled_dkdv'], cs.FP32_FLOP_PER_S)[0]:.6f})",
+           cs.in_turns(runs))
+
+
 def checkout_flash(root: str):
     """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
     imported beside this checkout's: the package's modules leave
@@ -564,7 +852,8 @@ def flash_split(against: str):
         def call(m):
             if not backward:
                 return lambda: m.launch(q, k, v, 0)
-            o, lse = m.launch(q, k, v, 0, with_lse=True) if half else (m.launch(q, k, v, 0), None)
+            o, lse = m.launch(q, k, v, 0, with_lse=True) if routes["this"] != "fma" \
+                else (m.launch(q, k, v, 0), None)
             return lambda: m.launch_bwd(q, k, v, o, do, 0, lse=lse)
 
         fns = {key: call(m) for key, m in mods.items()}
@@ -581,11 +870,12 @@ def flash_split(against: str):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("splits", nargs="*", help="score, knn, geo, fill (the default), flash")
+    ap.add_argument("splits", nargs="*",
+                    help="score, knn, geo, fill (the default), tiled, flash")
     ap.add_argument("--against", help="the root of the checkout the flash split compares")
     args = ap.parse_args()
     splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
-                  flash=lambda: flash_split(args.against))
+                  tiled=tiled_split, flash=lambda: flash_split(args.against))
     if set(args.splits) - set(splits):
         ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")
     if "flash" in args.splits and not args.against:

@@ -2,7 +2,8 @@
 // softmax (flash attention, forward only), the attention of the LM prefill.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
-//   gqa_flash_fwd, gqa_flash_wgmma  <- _flash_kernel  (pallas_call at
+//   gqa_flash_fwd, gqa_flash_wgmma,
+//   gqa_flash_tiled                 <- _flash_kernel  (pallas_call at
 //       flash_attention.py:94, called via gqa_flash, from models/common.py
 //       attention when attention_backend="pallas")
 //
@@ -20,8 +21,9 @@
 // over the key tiles itself, (m, l, acc) in registers, reading q/k/v in the
 // model's (B, S, H, D) layout through their strides.  The loop stops after
 // the last tile any row of the block can see: the tiles it skips would
-// contribute exactly 0.  Three kernels, routed by dtype and D alone (the
-// wrapper, kernels/flash_attention.py, picks one):
+// contribute exactly 0.  Four kernels, routed by dtype and D alone (the
+// wrapper, kernels/flash_attention.py, picks one; the fourth only on
+// request):
 //
 //   flash_wgmma_kernel (bf16 and fp16, every D in (32, 256]; every model
 //     config's 16-bit head dim but the example trainers'): the Hopper
@@ -98,11 +100,35 @@
 //     shared memory (169 KB in all) and is read at each product.  Given an
 //     lse pointer it stores each row's log-sum-exp (m + ln l), which the
 //     backward's "mma" route reads; the output is the same either way.
-//   flash_f32_kernel<DP> (fp32, every D, on the same padded widths): 16x16
-//     threads, each owning a 4x4 block of scores and 4 rows x DP/16 columns
-//     of the output, fp32 FMA on the CUDA cores (no TF32, so the result
-//     stays within 2e-5 of the fp32 reference); element loads, so any
-//     stride; 214 KB of shared memory at DP 256.
+//   flash_tiled_kernel<J> (fp32 at every D, fp64 on fp32 copies; the route
+//     "fp32"): register micro-tiles on the CUDA cores' FMA pipe (no TF32, so
+//     the result stays within 2e-5 of the fp32 reference), building blocks
+//     in f32_tiles.cuh.  16 x 16 threads; up to width 128 a block owns 128
+//     query rows and each thread 8 rows of S, P and O: of S 8 keys of a
+//     128-key tile up to width 112 (keys tx + 16j), 4 of a 64-key tile at
+//     128; of O J columns (tx + 16j, J = ceil(D / 16) slots).  Past width
+//     128 a block owns 64 rows and a thread 4 x 4 scores, so that O's 4 J
+//     floats fit beside S.  Q, K and V lie in shared memory row by row
+//     (rows 16 J + 4 floats apart, zero from D on), so S = Q K^T reads a
+//     thread's rows and keys as 128-bit loads (its rows a broadcast over
+//     the half warp): 4 loads for 64 FMAs a column at 8 x 8, over the least
+//     multiple of 8 that holds D (104 at D 100, not 128).  K and V tiles come
+//     by cp.async (16-byte where D, the strides and the starts allow it,
+//     else 4-byte zero-filled) into one buffer each, in turns: V_j under
+//     S_j, K_{j+1} under O += P_j V_j; P^T passes to the same half warp
+//     through one shared buffer of 64 keys, chunk by chunk (only a half
+//     warp reads what it writes there, so __syncwarp orders it), which is
+//     what leaves room for 128-key tiles.  Heaviest query tiles first; a
+//     warp skips a tile none of its rows sees.  Given an lse pointer it
+//     stores each row's log-sum-exp (m + ln l) for the backward's "tiled"
+//     route; the output is the same either way.  211,968 bytes of shared
+//     memory at D 100, 217,088 at width 256.
+//   flash_f32_kernel<DP> (the first design of fp32, on the same padded
+//     widths as mma.sync; only on request, kernel="fp32_simple", the
+//     yardstick of the tiled kernel): 16x16 threads, each owning a 4x4 block
+//     of scores and 4 rows x DP/16 columns of the output, operands read one
+//     32-bit word at a time from shared memory; element loads, so any
+//     stride; 214 KB of shared memory at DP 256; writes no LSE.
 //
 // What bounds it on an H100: at the prefill shape of llama3-8b (B=4,
 // S=2048, Hq=32, Hkv=8, D=128) one call does 4*B*Hq*D*(S(S+1)/2) = 137 GFLOP
@@ -119,7 +145,10 @@
 // mma.sync kernel reached 10 % of that bound on an H100 80GB HBM3 at 700 W
 // (1.33 ms; SDPA 0.25 ms), the 256-wide Hopper kernel 46 % (0.300 ms): its
 // tiles of 64 keys halve the product per barrier and per softmax pass.  The
-// fp32 kernel is bound by the 67 TFLOP/s of fp32 FMA.  Issuing
+// fp32 kernels are bound by the 67 TFLOP/s of fp32 FMA (at B 4, S 2048, Hq
+// 16, Hkv 8, D 100: 53.7 GFLOP, 0.802 ms); flash_f32_kernel's loops read 8
+// shared words for 16 FMAs and ran at 0.27 of that bound, the tiled
+// kernel's S loop 4 128-bit loads for 64.  Issuing
 // tile j's S product before tile j-1's P V product (FlashAttention-3's
 // intra-warpgroup overlap) keeps S, O and P live at once, and ptxas then
 // spills P and serialises every wgmma, which made it slower.
@@ -135,6 +164,7 @@
 
 #include <cstdint>
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -539,6 +569,141 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
+// --- fp32: register-tiled FMA on the CUDA cores (the "tiled" route) ----------
+
+// One block per (ROWS query rows, query head, batch), heaviest tiles first;
+// 16 x 16 threads (f32_tiles.cuh), thread (ty, tx) owning query rows q0 + RT
+// ty + i (i < RT) of S, P and O, keys k0 + tx + 16 j (j < CT) of S, and
+// output columns tx + 16 j (j < J).  Q stays in shared memory; K and V
+// tiles of KEYS keys come by cp.async into one buffer each, in turn: V_j
+// while S_j is computed, K_{j + 1} while O += P_j V_j is.  S = Q K^T over
+// width(d) columns, the online softmax in the log2 domain (each row's max
+// over its half warp by shuffles; per-thread partial sums, summed at the
+// end), P^T through shared memory to the same half warp in chunks of 64
+// keys (xty_chunks: up to width 112 tiles of 128 keys, 8 x 8 scores a
+// thread), O += P V over the tile's keys, the exponentials by ex2.approx.ftz (3 % faster than exp2f,
+// equal bits at D 100: scripts/kernel_splits.py tiled).  A warp skips a
+// tile none of its 2 RT rows sees, and masks only tiles that cross the
+// diagonal or the end of K.  With `lse` each
+// row's log-sum-exp m + ln l goes to lse (B, Hq, Sq) in fp32, as
+// flash_mma_kernel's, for the backward's "tiled" route; the output is the
+// same either way.  `vec`: d, every stride and the starts allow 16-byte
+// copies.
+template <int J>
+__global__ void __launch_bounds__(tiled::FwdTiles<J>::THREADS, tiled::FwdTiles<J>::BLOCKS)
+flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   int sq, int sk, int hq, int group, int offset, int d, bool vec, Strides qs,
+                   Strides ks, Strides vs, float scale_log2) {
+  using L = tiled::FwdTiles<J>;
+  constexpr int RT = L::RT, CT = L::CT, ROWS = L::ROWS, KEYS = L::KEYS, RS = L::RS,
+                PS = L::PS, NCH = L::NCH;
+  extern __shared__ __align__(16) float tiled_smem[];
+  float* qt = tiled_smem + L::Q;
+  float* kt = tiled_smem + L::K;
+  float* vt = tiled_smem + L::V;
+  float* pt = tiled_smem + L::P;
+
+  const int tid = threadIdx.x, ty = tid / tiled::TX, tx = tid % tiled::TX, warp = tid / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // heaviest query tiles first
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / group) * ks.h;
+  const float* vb = v + b * vs.b + (h / group) * vs.h;
+  const int w = tiled::width(d);
+  const int n_tiles = kv_tiles<ROWS, KEYS>(q0, sq, sk, offset);
+
+  tiled::load_tile<J>(qt, qb, q0, ROWS, sq, qs.s, d, vec);
+  tiled::load_tile<J>(kt, kb, 0, KEYS, sk, ks.s, d, vec);
+  cp_async_commit();
+
+  const int a0 = RT * ty;                                // the thread's first row in the block
+  const long long pos0 = static_cast<long long>(offset) + q0 + a0;
+  const int wr0 = q0 + 2 * RT * warp;                    // the warp's rows: wr0 .. wr0 + 2 RT - 1
+  const long long w_first = static_cast<long long>(offset) + wr0;
+  const long long w_last = static_cast<long long>(offset) + min(wr0 + 2 * RT, sq) - 1;
+  float acc[RT][J], m[RT], l[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = tiled::NEG, l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * KEYS;
+    cp_async_wait<0>();
+    __syncthreads();               // K_j is in; every warp is done with V_{j - 1}
+    tiled::load_tile<J>(vt, vb, k0, KEYS, sk, vs.s, d, vec);
+    cp_async_commit();
+    const bool active = wr0 < sq && k0 <= w_last;
+    float s[RT][CT];              // S, then P
+    if (active) {
+      tiled::abt<RT, CT, RS>(s, qt + a0 * RS, kt + tx * RS, w);
+      const bool full = k0 + KEYS <= sk && k0 + KEYS - 1 <= w_first;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int key = k0 + tx + 16 * j;
+          s[i][j] = full || (key < sk && pos0 + i >= key) ? s[i][j] * scale_log2 : tiled::NEG;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        mx = tiled::max16(mx);
+        const float corr = hopper::exp2_ftz(m[i] - mx);
+        m[i] = mx;
+        l[i] *= corr;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          s[i][j] = hopper::exp2_ftz(s[i][j] - mx);
+          l[i] += s[i][j];
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) acc[i][j] *= corr;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();               // V_j is in; every warp is done with K_j
+    if (tile + 1 < n_tiles) tiled::load_tile<J>(kt, kb, k0 + KEYS, KEYS, sk, ks.s, d, vec);
+    cp_async_commit();
+    if (active) tiled::xty_chunks<RT, CT, J, NCH, PS, RS>(acc, s, pt, vt + tx, tx, a0);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float sum = tiled::sum16(l[i]);
+    const int row = q0 + a0 + i;
+    if (row < sq) {
+      const float den = fmaxf(sum, 1e-30f);
+      float* op = o + ((static_cast<long long>(b) * sq + row) * hq + h) * d;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (tx + 16 * j < d) op[tx + 16 * j] = acc[i][j] / den;
+      // m is the row's max of its scores in the log2 domain (times
+      // scale_log2), l its sum of 2^(s scale_log2 - m) = e^(s scale - m ln 2)
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<long long>(b) * hq + h) * sq + row] = (m[i] + log2f(sum)) * tiled::LN2;
+    }
+  }
+}
+
+template <int J>
+cudaError_t launch_tiled(const float* q, const float* k, const float* v, float* o, float* lse,
+                         dim3 grid, size_t smem, int sq, int sk, int hq, int hkv, int offset,
+                         int d, bool vec, Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
+  using L = tiled::FwdTiles<J>;
+  if (smem != L::SMEM || grid.z != static_cast<unsigned>((sq + L::ROWS - 1) / L::ROWS))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tiled_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_tiled_kernel<J><<<grid, L::THREADS, smem, stream>>>(
+      q, k, v, o, lse, sq, sk, hq, hq / hkv, offset, d, vec, qs, ks, vs,
+      tiled::LOG2E / sqrtf(static_cast<float>(d)));
+  return cudaGetLastError();
+}
+
 // --- bf16 on Hopper: wgmma fed by TMA, one producer and two consumers --------
 
 namespace hopper {
@@ -875,7 +1040,8 @@ extern "C" {
 // as the wrapper plans it.  The 16-bit kernels copy 16 bytes at a time where
 // d, the strides and the starts allow it, else element by element; given
 // `lse` ((b, hq, sq) float32), they also store each row's log-sum-exp for
-// the backward's "mma" route (the fp32 kernel takes none).
+// the backward's "mma" route (flash_f32_kernel, the first fp32 design,
+// takes none; gqa_flash_tiled is fp32's route).
 int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
                   long long q_sb, long long q_ss, long long q_sh, long long k_sb,
@@ -909,6 +1075,39 @@ int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
       return static_cast<int>(launch<256>(dtype, q, k, v, o, lse, b, sq, sk, hq, hkv, d,
                                           causal_offset, vec, qs, ks, vs, s));
   }
+}
+
+// The "tiled" route (fp32).  q (b, sq, hq, d), k/v (b, sk, hkv, d) with unit
+// stride along d and the given element strides along b, s, h; o (b, sq, hq,
+// d) contiguous; lse, when not null, (b, hq, sq) float32: each row's
+// log-sum-exp for the backward's "tiled" route.  1 <= d <= 256, on J =
+// ceil(d / 16) accumulator slots (flash_tiled_kernel<J>); hq a multiple of
+// hkv, causal_offset >= 0.  The grid must be (hq, b, ceil(sq / R)), R the
+// block's query rows (128 up to d 128, 64 past it), `smem` the kernel's
+// dynamic shared memory.  Tiles come by 16-byte cp.async where d, the
+// strides and the starts allow it, else by 4-byte cp.async.
+int gqa_flash_tiled(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                    int sq, int sk, int hq, int hkv, int d, int causal_offset, long long q_sb,
+                    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int grid_x,
+                    int grid_y, int grid_z, long long smem, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
+      b > 65535 || hq > 65535 || d < 1 || d > 256 || grid_x != hq || grid_y != b ||
+      grid_z < 1 || grid_z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
+  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  bool vec = d % 4 == 0;
+  for (long long st : strides) vec = vec && st % 4 == 0;
+  for (const void* ptr : {q, k, v}) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(tiled::with_slots(tiled::slots(d), [&](auto j) {
+    return launch_tiled<decltype(j)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, grid,
+        static_cast<size_t>(smem), sq, sk, hq, hkv, causal_offset, d, vec, qs, ks, vs, s);
+  }));
 }
 
 // dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),

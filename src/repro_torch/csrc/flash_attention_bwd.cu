@@ -19,7 +19,7 @@
 // Outputs are written in the inputs' dtype (float32, bfloat16 or float16;
 // the wrapper runs float64 on fp32 copies), at any head dim 1 <= D <= 256.
 // Three routes, picked by dtype and D alone
-// (kernels/flash_attention.py::bwd_route):
+// (kernels/flash_attention.py::bwd_route), and a fourth on request:
 //
 // "wgmma" (bf16 and fp16 at every D in (32, 256], where the forward's route
 // is the Hopper kernel; every model config that trains in bf16), namespace
@@ -106,14 +106,43 @@
 // them.  Seven products on the tensor cores where the fma route runs eight
 // on the CUDA cores' fp32 FMA, in two launches instead of three.
 //
-// "fma" (fp32 and fp64 at any D; and, on request, any shape as the
-// yardstick of the other routes): the first design's
-// three kernels, on the forward's padded widths DP of 16, 32, 64, 128, 256
+// "tiled" (fp32 at every D, fp64 on fp32 copies), namespace tl, on the
+// register micro-tiles of f32_tiles.cuh (16 x 16 threads, every product
+// fp32 FMA on the CUDA cores, no TF32).  The forward's flash_tiled_kernel
+// writes each row's LSE, so no statistics pass: two kernels, launched in
+// this order, over tiles whose rows lie 16 J + 4 floats apart (J = ceil(D
+// / 16) accumulator slots of 16 columns, columns past D zero), their
+// S-like products over the least multiple of 8 that holds D:
+//   flash_bwd_dq_tiled_kernel<J>: one block per (128 query rows, 64 past
+//     width 128; query head, batch), heaviest tiles first; D_i of its rows
+//     (written to fp32 scratch for the next kernel), Q and dO resident; per
+//     key tile of 64 keys (32 where shared memory runs out: width 128 and
+//     past 192) K and V in one buffer each, K_j loading under dP = dO V_j^T,
+//     V_{j+1} under S = Q K_j^T, P, dS and dQ += dS K_j, dS^T through shared
+//     memory to the same half warp.  Each thread owns 8 rows x 4 keys of S
+//     and dP (4 x 4, or 8 x 2 and 4 x 2 at 32 keys) and 8 (4) rows x J
+//     columns of dQ.
+//   flash_bwd_dkdv_tiled_kernel<J>: one block per (128 keys up to width
+//     112, 64 at 128, 32 past it; KV head, batch); K and V resident; per
+//     query head of the group and query tile of 64 rows (32 where shared
+//     memory runs out) that sees the block's keys, Q (two buffers, the next
+//     tile's with its rows' LSE and D_i loading under this one) and dO (one
+//     buffer, the next loading under dK += dS^T Q): S^T = K Q^T and P^T in
+//     registers, dV += P^T dO, then dP^T = V dO^T and dS^T in registers,
+//     dK += dS^T Q, P^T and dS^T passing to the same half warp through one
+//     shared buffer in chunks of 32 rows.  Each thread owns 8
+//     keys x 4 rows of the scores (4 x 4 at width 128, 2 x 2 past it) and
+//     as many keys x J columns of dK and dV.  The group is summed inside
+//     the block: no atomics, equal bits run to run.
+// Seven products in two launches where the fma route runs eight in three.
+//
+// "fma" (only on request: any shape, the yardstick of the other routes):
+// the first design's three kernels, on the forward's padded widths DP of 16, 32, 64, 128, 256
 // (tile columns past D zero), in this order:
 //   flash_bwd_stats_kernel: one block per (query tile, query head, batch):
 //     each row's log-sum-exp LSE = m + log(l), streamed over the row's live
 //     key tiles with an online max, and D_i; both fp32 into (B, Hq, Sq)
-//     scratch (the fp32 and mma.sync forwards emit no LSE).
+//     scratch (it reads no forward's LSE).
 //   flash_bwd_dkdv_kernel: one block per (key tile, KV head, batch).  K and
 //     V of its 64 keys stay in shared memory; it loops over the group's
 //     query heads and, for each, the query tiles that can see its keys,
@@ -141,7 +170,9 @@
 // (dQ: S, dP, dQ; dK/dV: S, dP, dV, dK), 304.5 GFLOP, 0.308 ms: the two
 // recomputed products are the price of determinism.  At D 256 the
 // function's five products are 435.1 GFLOP (0.440 ms) and the route's seven
-// 609.1.  One kernel over key
+// 609.1.  In fp32 (B 4, S 2304, Hq 16, Hkv 8, D 100) the five products are
+// 169.9 GFLOP, 2.536 ms at the 67 TFLOP/s of fp32 FMA; the tiled route's
+// seven at width 104 247.4 GFLOP.  One kernel over key
 // tiles would need dQ summed across blocks: fp32 atomics (runs would
 // differ) or per-key-tile partials, sum_j (2304 - 128j) * B*Hq*D*4 bytes =
 // 717 MB a call, whose write and read (~0.43 ms at 3.35 TB/s) cost twice
@@ -163,6 +194,7 @@
 
 #include <cstdint>
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -224,14 +256,6 @@ __device__ __forceinline__ float max16(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
-}
-
-// 4 bytes global -> shared, asynchronously; when `in` is false nothing is
-// read and the 4 bytes are zero-filled.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
 }
 
 // --- (a) row statistics ------------------------------------------------------
@@ -1645,6 +1669,297 @@ cudaError_t launch(int which, const Args& a, Dims dm, bool vec, dim3 grid, size_
 
 }  // namespace mm
 
+// --- fp32: register-tiled FMA, the LSE from flash_tiled_kernel ---------------
+
+namespace tl {
+
+using tiled::LOG2E;
+
+// dQ: one block per (ROWS query rows, query head, batch), heaviest tiles
+// first; 16 x 16 threads (f32_tiles.cuh), thread (ty, tx) owning rows q0 +
+// RT ty + i (i < RT) of S, dP, dS and dQ, keys k0 + tx + 16 j (j < CT) of the
+// scores and dQ columns tx + 16 j (j < J).  D_i = dO_i . O_i of its rows
+// from device memory (fp32, written to `dvec` for the dK/dV kernel), the
+// rows' LSE in the log2 domain.  Q and dO stay in shared memory; per key
+// tile, K and V each in one buffer: V_j came while tile j - 1's products ran,
+// K_j loads while dP = dO V_j^T runs, V_{j + 1} while S = Q K_j^T, P = 2^(S
+// scale_log2 - LSE log2 e) (0 where masked), dS = P (dP - D_i) and dQ += dS
+// K_j run, dS^T passing to the same half warp through shared memory.  A warp
+// skips a tile none of its 2 RT rows sees.  Rows past Sq load as zeros with
+// LSE and D_i 0, and are not stored.
+template <int J>
+__global__ void __launch_bounds__(tiled::DqTiles<J>::THREADS, tiled::DqTiles<J>::BLOCKS)
+flash_bwd_dq_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ o,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          float* __restrict__ dvec, float* __restrict__ dq, Dims dm, bool vec) {
+  using L = tiled::DqTiles<J>;
+  constexpr int RT = L::RT, CT = L::CT, ROWS = L::ROWS, KEYS = L::KEYS, RS = L::RS,
+                XS = L::XS;
+  extern __shared__ __align__(16) float tiled_smem[];
+  float* qt = tiled_smem + L::Q;
+  float* dot = tiled_smem + L::DO;
+  float* kt = tiled_smem + L::K;
+  float* vt = tiled_smem + L::V;
+  float* dst = tiled_smem + L::DS;
+
+  const int tid = threadIdx.x, ty = tid / tiled::TX, tx = tid % tiled::TX, warp = tid / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // heaviest query tiles first
+  const int hkv = dm.hq / dm.group, d = dm.d;
+  const long long q_rs = static_cast<long long>(dm.hq) * d, k_rs = static_cast<long long>(hkv) * d;
+  const long long q_off = static_cast<long long>(b) * dm.sq * q_rs + h * d;
+  const long long kv_off = static_cast<long long>(b) * dm.sk * k_rs + (h / dm.group) * d;
+  const int w = tiled::width(d);
+  const int n_tiles = kv_tiles<ROWS, KEYS>(q0, dm.sq, dm.sk, dm.offset);
+  tiled::load_tile<J>(qt, q + q_off, q0, ROWS, dm.sq, q_rs, d, vec);
+  tiled::load_tile<J>(dot, dout + q_off, q0, ROWS, dm.sq, q_rs, d, vec);
+  tiled::load_tile<J>(vt, v + kv_off, 0, KEYS, dm.sk, k_rs, d, vec);
+  cp_async_commit();
+
+  // D_i: the row's 16 threads sum columns tx + 16 j; and the LSE.
+  const int a0 = RT * ty;
+  const long long stat = (static_cast<long long>(b) * dm.hq + h) * dm.sq;
+  float di[RT], lse2[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + a0 + i;
+    float part = 0.f;
+    if (row < dm.sq) {
+      const long long at = q_off + row * q_rs;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (tx + 16 * j < d) part = fmaf(o[at + tx + 16 * j], dout[at + tx + 16 * j], part);
+    }
+    di[i] = tiled::sum16(part);
+    if (tx == 0 && row < dm.sq) dvec[stat + row] = di[i];
+    lse2[i] = row < dm.sq ? lse[stat + row] * LOG2E : 0.f;
+  }
+  const float scale_log2 = dm.scale * LOG2E;
+
+  float acc[RT][J];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+  const long long pos0 = static_cast<long long>(dm.offset) + q0 + a0;
+  const int wr0 = q0 + 2 * RT * warp;                    // the warp's rows: wr0 .. wr0 + 2 RT - 1
+  const long long w_first = static_cast<long long>(dm.offset) + wr0;
+  const long long w_last = static_cast<long long>(dm.offset) + min(wr0 + 2 * RT, dm.sq) - 1;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * KEYS;
+    cp_async_wait<0>();
+    __syncthreads();               // V_j is in; every warp is done with K_{j - 1} and dS^T
+    tiled::load_tile<J>(kt, k + kv_off, k0, KEYS, dm.sk, k_rs, d, vec);
+    cp_async_commit();
+    const bool active = wr0 < dm.sq && k0 <= w_last;
+    float dp[RT][CT];
+    if (active) tiled::abt<RT, CT, RS>(dp, dot + a0 * RS, vt + tx * RS, w);
+    cp_async_wait<0>();
+    __syncthreads();               // K_j is in; every warp is done with V_j
+    if (tile + 1 < n_tiles)
+      tiled::load_tile<J>(vt, v + kv_off, k0 + KEYS, KEYS, dm.sk, k_rs, d, vec);
+    cp_async_commit();
+    if (active) {
+      float s[RT][CT];
+      tiled::abt<RT, CT, RS>(s, qt + a0 * RS, kt + tx * RS, w);
+      const bool full = k0 + KEYS <= dm.sk && k0 + KEYS - 1 <= w_first;
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int key = k0 + tx + 16 * j;
+          const bool live = full || (key < dm.sk && pos0 + i >= key);
+          const float p = live ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.f;
+          s[i][j] = p * (dp[i][j] - di[i]);          // dS
+        }
+      tiled::store_t<RT, CT, XS>(dst + tx * XS + a0, s);
+      __syncwarp();
+      tiled::xty<RT, J, KEYS, XS, RS>(acc, dst + a0, kt + tx);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + a0 + i;
+    if (row < dm.sq) {
+      float* op = dq + q_off + row * q_rs;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (tx + 16 * j < d) op[tx + 16 * j] = acc[i][j] * dm.scale;
+    }
+  }
+}
+
+// dK/dV: one block per (KEYS keys, KV head, batch), the first key tiles
+// (which the most rows see) first; 16 x 16 threads, thread (ty, tx) owning
+// keys k0 + RT ty + i (i < RT) of S^T, dP^T and the accumulators, query rows
+// r0 + tx + 16 j (j < CT) of the scores and dK/dV columns tx + 16 j (j <
+// J).  K and V stay in shared memory; for each query head of the group and
+// each ROWS-row query tile that sees the block's first key, Q (two buffers,
+// the next tile's loading under this one's products, with its rows' LSE and
+// D_i) and dO (one buffer: the next tile's loads while dK += dS^T Q runs):
+// S^T = K Q^T, P^T = 2^(S^T scale_log2 - LSE log2 e), 0 where masked, dV +=
+// P^T dO, then dP^T = V dO^T, dS^T = P^T (dP^T - D_i), dK += dS^T Q, P^T
+// and dS^T held in registers and passing to the same half warp through one
+// shared buffer in NCH chunks of rows (xty_chunks); computing dP^T after dV
+// keeps dP^T, P^T and both accumulators the most a thread holds at once.  Up to
+// width 112 a thread holds 8 keys x 4 rows of each score tile (128 keys a
+// block), which the one chunked buffer leaves room for.  A warp skips a
+// tile in which none of its 2 RT keys is seen, or whose keys lie past Sk.
+// The group is summed inside the block: no atomics, so two runs give equal
+// bits.
+template <int J>
+__global__ void __launch_bounds__(tiled::DkdvTiles<J>::THREADS, tiled::DkdvTiles<J>::BLOCKS)
+flash_bwd_dkdv_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ dvec,
+                            float* __restrict__ dk, float* __restrict__ dv, Dims dm, bool vec) {
+  using L = tiled::DkdvTiles<J>;
+  constexpr int RT = L::RT, CT = L::CT, ROWS = L::ROWS, KEYS = L::KEYS, RS = L::RS,
+                XS = L::XS, NCH = L::NCH;
+  extern __shared__ __align__(16) float tiled_smem[];
+  float* kt = tiled_smem + L::K;
+  float* vt = tiled_smem + L::V;
+  float* dot = tiled_smem + L::DO;
+  float* pbuf = tiled_smem + L::P;
+  auto qbuf = [&](int buf) { return tiled_smem + L::Q + buf * ROWS * RS; };
+  auto stats = [&](int buf) { return tiled_smem + L::STATS + buf * 2 * ROWS; };   // LSE, D_i
+
+  const int tid = threadIdx.x, ty = tid / tiled::TX, tx = tid % tiled::TX, warp = tid / 32;
+  const int k0 = blockIdx.z * KEYS, hk = blockIdx.x, b = blockIdx.y;
+  const int hkv = dm.hq / dm.group, d = dm.d;
+  const long long q_rs = static_cast<long long>(dm.hq) * d, k_rs = static_cast<long long>(hkv) * d;
+  const long long kv_off = static_cast<long long>(b) * dm.sk * k_rs + hk * d;
+  const int w = tiled::width(d);
+  // Query tiles from the one holding the first row that sees key k0
+  // (offset + row >= k0): every one of them sees it.
+  const long long first_row = max(0LL, static_cast<long long>(k0) - dm.offset);
+  const int n_q = (dm.sq + ROWS - 1) / ROWS;
+  const int t0 = first_row >= dm.sq ? n_q : static_cast<int>(first_row / ROWS);
+  const int per_head = n_q - t0;
+  const int n_tiles = dm.group * per_head;
+  auto head = [&](int j) { return hk * dm.group + j / per_head; };
+  auto rows_of = [&](int j) { return (t0 + j % per_head) * ROWS; };
+  auto q_off = [&](int j) { return static_cast<long long>(b) * dm.sq * q_rs + head(j) * d; };
+  auto load_q = [&](int j, int buf) {
+    tiled::load_tile<J>(qbuf(buf), q + q_off(j), rows_of(j), ROWS, dm.sq, q_rs, d, vec);
+    const long long stat = (static_cast<long long>(b) * dm.hq + head(j)) * dm.sq;
+    tiled::load_stats(stats(buf), lse + stat, rows_of(j), ROWS, dm.sq);
+    tiled::load_stats(stats(buf) + ROWS, dvec + stat, rows_of(j), ROWS, dm.sq);
+  };
+  tiled::load_tile<J>(kt, k + kv_off, k0, KEYS, dm.sk, k_rs, d, vec);
+  tiled::load_tile<J>(vt, v + kv_off, k0, KEYS, dm.sk, k_rs, d, vec);
+  if (n_tiles > 0) {
+    load_q(0, 0);
+    tiled::load_tile<J>(dot, dout + q_off(0), rows_of(0), ROWS, dm.sq, q_rs, d, vec);
+  }
+  cp_async_commit();
+
+  float acc_k[RT][J], acc_v[RT][J];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  const int a0 = RT * ty;                                // the thread's first key in the block
+  const int wk0 = k0 + 2 * RT * warp, wk_last = wk0 + 2 * RT - 1;   // the warp's keys
+  const float scale_log2 = dm.scale * LOG2E;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1, r0 = rows_of(j);
+    const float* qt = qbuf(buf);
+    const float* st_t = stats(buf);
+    cp_async_wait<0>();
+    __syncthreads();               // Q_j, dO_j and their rows' LSE and D_i are in; every
+                                   // warp is done with tile j - 1 (Q buffer buf ^ 1)
+    if (j + 1 < n_tiles) load_q(j + 1, buf ^ 1);
+    cp_async_commit();
+    const long long first = static_cast<long long>(dm.offset) + r0;    // the tile's first row
+    const long long last = static_cast<long long>(dm.offset) + min(r0 + ROWS, dm.sq) - 1;
+    const bool active = wk0 < dm.sk && last >= wk0;
+    float ds[RT][CT];             // dP^T, then dS^T
+    if (active) {
+      float st[RT][CT];           // S^T, then P^T
+      tiled::abt<RT, CT, RS>(st, kt + a0 * RS, qt + tx * RS, w);
+      const bool full = r0 + ROWS <= dm.sq && wk_last < dm.sk && first >= wk_last;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const int r = tx + 16 * c;                       // the row in the tile
+        const float l2 = st_t[r] * LOG2E;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int kr = k0 + a0 + i;
+          const bool live = full || (kr < dm.sk && r0 + r < dm.sq && first + r >= kr);
+          st[i][c] = live ? exp2f(fmaf(st[i][c], scale_log2, -l2)) : 0.f;
+        }
+      }
+      tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_v, st, pbuf, dot + tx, tx, a0);  // dV
+      // dP^T beside P^T and both accumulators: at 8 keys a thread its loop
+      // is not unrolled, which keeps the registers under 255
+      tiled::abt<RT, CT, RS, RT == 8 ? 1 : 2>(ds, vt + a0 * RS, dot + tx * RS, w);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const float di = st_t[ROWS + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) ds[i][c] = st[i][c] * (ds[i][c] - di);
+      }
+    }
+    __syncthreads();               // every warp is done with dO_j
+    if (j + 1 < n_tiles)
+      tiled::load_tile<J>(dot, dout + q_off(j + 1), rows_of(j + 1), ROWS, dm.sq, q_rs, d, vec);
+    cp_async_commit();
+    if (active) tiled::xty_chunks<RT, CT, J, NCH, XS, RS>(acc_k, ds, pbuf, qt + tx, tx, a0);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int key = k0 + a0 + i;
+    if (key < dm.sk) {
+      const long long at = kv_off + key * k_rs;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (tx + 16 * j < d) {
+          dk[at + tx + 16 * j] = acc_k[i][j] * dm.scale;
+          dv[at + tx + 16 * j] = acc_v[i][j];
+        }
+      }
+    }
+  }
+}
+
+enum Kernel { DQ = 0, DKDV = 1 };
+
+// The grid's z extent and the dynamic shared memory of kernel `which` at J
+// slots: query tiles of DqTiles<J>::ROWS for dQ, key blocks of
+// DkdvTiles<J>::KEYS for dK/dV.
+template <int J>
+cudaError_t launch(int which, const Args& a, Dims dm, bool vec, dim3 grid, size_t smem,
+                   cudaStream_t stream) {
+  using Q = tiled::DqTiles<J>;
+  using K = tiled::DkdvTiles<J>;
+  const int tiles = which == DQ ? (dm.sq + Q::ROWS - 1) / Q::ROWS : (dm.sk + K::KEYS - 1) / K::KEYS;
+  if (smem != (which == DQ ? Q::SMEM : K::SMEM) || grid.z != static_cast<unsigned>(tiles))
+    return cudaErrorInvalidValue;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  cudaError_t err;
+  if (which == DQ) {
+    if ((err = prepare(flash_bwd_dq_tiled_kernel<J>, smem)) != cudaSuccess) return err;
+    flash_bwd_dq_tiled_kernel<J><<<grid, Q::THREADS, smem, stream>>>(
+        q, k, v, static_cast<const float*>(a.o), dout, a.lse, a.dvec, static_cast<float*>(a.dq),
+        dm, vec);
+  } else {
+    if ((err = prepare(flash_bwd_dkdv_tiled_kernel<J>, smem)) != cudaSuccess) return err;
+    flash_bwd_dkdv_tiled_kernel<J><<<grid, K::THREADS, smem, stream>>>(
+        q, k, v, dout, a.lse, a.dvec, static_cast<float*>(a.dk), static_cast<float*>(a.dv), dm,
+        vec);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace tl
+
 }  // namespace
 
 extern "C" {
@@ -1773,6 +2088,39 @@ int gqa_flash_bwd_mma(int which, int dtype, const void* q, const void* k, const 
                                     : mm::launch<__half, 32>(which, a, dm, vec, grid, sm, s));
   return static_cast<int>(d <= 16 ? mm::launch<__nv_bfloat16, 16>(which, a, dm, vec, grid, sm, s)
                                   : mm::launch<__nv_bfloat16, 32>(which, a, dm, vec, grid, sm, s));
+}
+
+// The "tiled" route (fp32).  which: 0 = dQ (and D_i), 1 = dK/dV, launched in
+// that order; dtype must be 0 (float32).  q, o, dout, dq (b, sq, hq, d) and
+// k, v, dk, dv (b, sk, hkv, d) contiguous; lse, the forward's (b, hq, sq)
+// (flash_tiled_kernel's), and dvec (b, hq, sq) float32: the dQ kernel
+// writes D_i there, the dK/dV kernel reads it.  1 <= d <= 256, on J =
+// ceil(d / 16) accumulator slots; hq a multiple of hkv, causal_offset >= 0.
+// The grid must be the kernel's: (hq, b, ceil(sq / R)) for dQ, R its query
+// rows a block, (hkv, b, ceil(sk / K)) for dK/dV, K its keys a block;
+// `smem` its dynamic shared memory.  Tiles come by 16-byte cp.async where d
+// is a multiple of 4 and the starts 16-byte aligned, else by 4-byte
+// cp.async.
+int gqa_flash_bwd_tiled(int which, int dtype, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse, float* dvec,
+                        void* dq, void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
+                        int d, int causal_offset, int grid_x, int grid_y, int grid_z,
+                        long long smem, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
+      b > 65535 || hq > 65535 || (which != tl::DQ && which != tl::DKDV) || dtype != 0 ||
+      d < 1 || d > 256 || grid_x != (which == tl::DQ ? hq : hkv) || grid_y != b ||
+      grid_z < 1 || grid_z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool vec = d % 4 == 0;
+  for (const void* ptr : {q, k, v, dout}) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const Args a{q, k, v, o, dout, const_cast<float*>(lse), dvec, dq, dk, dv};
+  const Dims dm{sq, sk, hq, hq / hkv, causal_offset, d, 1.0f / sqrtf(static_cast<float>(d))};
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  return static_cast<int>(tiled::with_slots(tiled::slots(d), [&](auto j) {
+    return tl::launch<decltype(j)::value>(which, a, dm, vec, grid, sm, s);
+  }));
 }
 
 }  // extern "C"

@@ -18,11 +18,15 @@ columns; key tiles of 128 up to width 128, of 64 past it; bf16 at D 64,
 and the MoE configs take 64 or 128, zamba2-7b's shared attention 112),
 bf16 and fp16 at D <= 32 to the ``mma.sync`` kernel (the example trainers'
 heads: ``repro_torch.examples.train_carbon_aware``'s tiny preset has D
-16), fp32 to the fp32 kernel, and fp64 to the fp32 kernel on fp32 copies,
-the output cast back, as the reference's kernel body computes in fp32.
-The mma.sync and fp32 kernels run on the least padded width of 16, 32,
-64, 128, 256 that holds D (``padded_dim``), their loads zero past D.  An
-input whose layout the route cannot read is copied first, and each copy
+16), fp32 to the tiled fp32 kernel (route "fp32", ``flash_tiled_kernel``:
+register micro-tiles on the FMA pipe, over the least multiple of 8 that
+holds D, ``tiled_width``; tiles and grids by ``tiled_fwd_tiling``), and fp64
+to it on fp32 copies, the output cast back, as the reference's kernel body
+computes in fp32.  The first design's fp32 kernel (``flash_f32_kernel``)
+runs only when named, ``kernel="fp32_simple"``, the yardstick.  The
+mma.sync and first-design fp32 kernels run on the least padded width of
+16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads zero past
+D.  An input whose layout the route cannot read is copied first, and each copy
 adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
 strides multiples of 16, a 16-byte aligned start) into a buffer of rows
 ``tma_width(D)`` wide, handed in as its [..., :D] view (``stage``; every
@@ -35,9 +39,10 @@ the count of its route.
 
 The gradient: when grad mode is on and q, k or v requires grad,
 ``gqa_flash`` runs through ``FlashAttention`` (a ``torch.autograd.Function``)
-and saves q, k, v (on the Hopper route as staged), the output and, on the
-16-bit routes, each row's log-sum-exp that the forward kernel wrote beside
-it.  Its backward is ``gqa_flash_bwd``: on CPU tensors
+and saves q, k, v (on the Hopper route as staged), the output and, on CUDA
+tensors, each row's log-sum-exp that the forward kernel wrote beside it
+(every default route's forward writes it).  Its backward is
+``gqa_flash_bwd``: on CPU tensors
 ``gqa_flash_bwd_plain``, the explicit fp32 gradient of ``gqa_flash_plain``;
 on CUDA tensors the kernels of ``csrc/flash_attention_bwd.cu`` on the route
 ``bwd_route`` picks from the dtype and D alone: "wgmma" where the
@@ -45,10 +50,13 @@ forward's route is "wgmma" (two Hopper kernels, dQ then dK/dV, on the
 forward's tiles, reading the forward's LSE; past width 128 dQ's key tiles
 are 32 and every TMA box 32 rows), "mma" for bf16 and fp16 at D <= 32 (two
 ``mma.sync`` kernels, dQ then dK/dV, reading the ``mma.sync`` forward's
-LSE), both with the plain version ``gqa_flash_bwd_lse_plain``; "fma" for
-fp32 and fp64 (three fp32 FMA kernels: row statistics, dK/dV, dQ, on the
-forward's padded widths, with tiles of 32 rows at width 256; fp64 on fp32
-copies, the gradients cast back), planned by ``plan_bwd``.  Each backward
+LSE), "tiled" for fp32 and fp64 (two register-tiled fp32 FMA kernels, dQ
+then dK/dV, reading the tiled forward's LSE; fp64 on fp32 copies, the
+gradients cast back), each with the plain version
+``gqa_flash_bwd_lse_plain`` (unrounded for "tiled"); and "fma" only on
+request (the first design's three fp32 FMA kernels: row statistics,
+dK/dV, dQ, on the padded widths, with tiles of 32 rows at width 256; the
+yardstick), planned by ``plan_bwd``.  Each backward
 adds one to ``launches["gqa_flash_bwd"]`` and one to each of its kernels'
 counts.  Under ``no_grad``, or on tensors that need no grad, ``gqa_flash``
 is the serving path above, unchanged: it asks for no LSE, and the output's
@@ -71,10 +79,10 @@ from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``: all of them under
 #: "gqa_flash", and each under its route.
-launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
+launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0, "fp32_simple": 0,
             "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
             "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0, "bwd_mma_dkdv": 0,
-            "layout_copy": 0}
+            "bwd_tiled_dq": 0, "bwd_tiled_dkdv": 0, "layout_copy": 0}
 
 #: The head dims of the pinned routes (``ROUTES``).
 HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -94,7 +102,8 @@ ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
 #: width of the tiles each runs on; every other D of the Hopper route runs
 #: on ``wgmma_tile_dim(D)`` with the head dim taken at run time.
 WGMMA_TILE_DIM = {64: 64, 112: 128, 128: 128}
-#: The padded widths of the mma.sync, fp32 and fma kernels.
+#: The padded widths of the mma.sync, first-design fp32 ("fp32_simple") and
+#: fma kernels (the tiled kernels run on ``tiled_width(D)``).
 PADDED_DIMS = (16, 32, 64, 128, 256)
 
 # The Hopper kernel's tiling (csrc/flash_attention.cu, namespace hopper).
@@ -137,8 +146,18 @@ BWD_MMA_THREADS = 128
 BWD_MMA_MAX_DIM = 32
 #: The mma route's kernels in launch order, by their ``which`` in the C entry.
 BWD_MMA_KERNELS = ("bwd_mma_dq", "bwd_mma_dkdv")
+
+# The "tiled" route's tiling (csrc/f32_tiles.cuh): 16 x 16 threads, the
+# accumulators' J = ceil(D / 16) slots of 16 columns (at most 16), tile rows
+# of 16 J + 4 floats; what a block's shared memory may take.
+TILED_THREADS = 256
+TILED_MAX_SLOTS = 16
+SMEM_LIMIT = 232_448
+#: The "tiled" backward's kernels in launch order, by their ``which`` in the C entry.
+BWD_TILED_KERNELS = ("bwd_tiled_dq", "bwd_tiled_dkdv")
 #: Each backward route's kernels in launch order.
-BWD_ROUTE_KERNELS = {"fma": BWD_KERNELS, "wgmma": BWD_WGMMA_KERNELS, "mma": BWD_MMA_KERNELS}
+BWD_ROUTE_KERNELS = {"fma": BWD_KERNELS, "wgmma": BWD_WGMMA_KERNELS, "mma": BWD_MMA_KERNELS,
+                     "tiled": BWD_TILED_KERNELS}
 
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
@@ -249,6 +268,8 @@ def build() -> str:
     lib.gqa_flash_fwd.restype = i
     lib.gqa_flash_wgmma.argtypes = [i] + [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
+    lib.gqa_flash_tiled.argtypes = [p] * 5 + [i] * 7 + [ll] * 9 + [i] * 3 + [ll, p]
+    lib.gqa_flash_tiled.restype = i
     _lib = lib
     return log
 
@@ -265,6 +286,8 @@ def build_bwd() -> str:
     lib.gqa_flash_bwd.restype = i
     lib.gqa_flash_bwd_mma.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_mma.restype = i
+    lib.gqa_flash_bwd_tiled.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
+    lib.gqa_flash_bwd_tiled.restype = i
     lib.gqa_flash_bwd_wgmma.argtypes = [i, i] + [p] * 10 + [i] * 7 + [p] + [i] * 3 + \
         [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_wgmma.restype = i
@@ -281,7 +304,8 @@ def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
     "wgmma" for bf16 and fp16 at every D in (32, 256], "mma_sync" for them
-    at D <= 32, "fp32" for fp32 and fp64."""
+    at D <= 32, "fp32" for fp32 and fp64 (``flash_tiled_kernel``; the
+    first design's fp32 kernel, "fp32_simple", only on request)."""
     _check_dtype_and_dim(dtype, d, "kernel")
     if dtype in _HALF:
         return "wgmma" if _wgmma_dim(d) else "mma_sync"
@@ -291,11 +315,12 @@ def route(dtype: torch.dtype, d: int) -> str:
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward's route for this dtype and head dim: "wgmma" where the
     forward's route is (it writes the LSE the wgmma backward reads), "mma"
-    for bf16 and fp16 at D <= 32 (on the LSE of the mma.sync forward), "fma"
-    for fp32 and fp64."""
+    for bf16 and fp16 at D <= 32 (on the LSE of the mma.sync forward),
+    "tiled" for fp32 and fp64 (on the LSE of the tiled forward); "fma", the
+    first design's three kernels, only on request."""
     _check_dtype_and_dim(dtype, d, "backward kernel")
     if dtype not in _HALF:
-        return "fma"
+        return "tiled"
     return "wgmma" if route(dtype, d) == "wgmma" else "mma"
 
 
@@ -363,6 +388,89 @@ def f32_smem_bytes(d: int) -> int:
     return 4 * ((FWD_ROWS + 2 * 64) * (dp + 1) + FWD_ROWS * 65)
 
 
+def tiled_slots(d: int) -> int:
+    """The "tiled" kernels' accumulator slots of 16 columns at head dim d
+    (the instantiation's J): thread column tx holds columns tx + 16 j, j <
+    ceil(D / 16), past 8 rounded up to an even count (the widths past 128
+    build 4 instantiations of each kernel, not 8)."""
+    j = -(-d // 16)
+    return j if j <= 8 else -(-j // 2) * 2
+
+
+def tiled_width(d: int) -> int:
+    """The columns the "tiled" kernels' S-like products run over at head dim
+    d: the least multiple of 8 that holds it (104 at D 100); every tile's
+    columns past D are zeros."""
+    return -(-d // 8) * 8
+
+
+def tiled_row_stride(d: int) -> int:
+    """The row stride, in floats, of the "tiled" kernels' Q, K, V and dO
+    tiles: 16 J + 4 (J = ``tiled_slots(d)``), 4 times an odd number, so that
+    eight lanes reading 16 bytes of eight consecutive rows hit distinct
+    banks."""
+    return 16 * tiled_slots(d) + 4
+
+
+@dataclass(frozen=True)
+class Tiling:
+    """A "tiled" kernel's tile at one head dim: ``rt`` of its ``rows`` A-rows
+    and ``ct`` of its ``cols`` B-rows a thread (the score tile's rows and
+    columns: query rows and keys in the forward and dQ, keys and query rows
+    in dK/dV), and its dynamic shared memory in bytes."""
+    rows: int
+    cols: int
+    rt: int
+    ct: int
+    smem: int
+
+
+def tiled_fwd_tiling(d: int) -> Tiling:
+    """``flash_tiled_kernel``'s (``FwdTiles``): 16 RT query rows a block (RT
+    8 up to width 128, 4 past it), tiles of 128 keys (8 x 8 scores a thread)
+    where Q, K, V and the P^T buffer (64 keys: ``xty_chunks``) fit at RT 8,
+    else 64, else 32."""
+    rt, rs = (8 if tiled_slots(d) <= 8 else 4), tiled_row_stride(d)
+    rows = 16 * rt
+
+    def smem(keys):
+        return 4 * ((rows + 2 * keys) * rs + min(keys, 64) * (rows + 4))
+
+    keys = next(n for n in ((128, 64, 32) if rt == 8 else (64, 32)) if smem(n) <= SMEM_LIMIT)
+    return Tiling(rows, keys, rt, keys // 16, smem(keys))
+
+
+def tiled_dq_tiling(d: int) -> Tiling:
+    """``flash_bwd_dq_tiled_kernel``'s (``DqTiles``): 16 RT query rows a
+    block (RT 8 up to width 128, 4 past it), tiles of 64 keys where Q, dO,
+    K, V and dS^T fit, else 32."""
+    rt, rs = (8 if tiled_slots(d) <= 8 else 4), tiled_row_stride(d)
+    rows = 16 * rt
+
+    def smem(keys):
+        return 4 * ((2 * rows + 2 * keys) * rs + keys * (rows + 4))
+
+    keys = next(n for n in (64, 32) if smem(n) <= SMEM_LIMIT)
+    return Tiling(rows, keys, rt, keys // 16, smem(keys))
+
+
+def tiled_dkdv_tiling(d: int) -> Tiling:
+    """``flash_bwd_dkdv_tiled_kernel``'s (``DkdvTiles``): 16 RT keys a block
+    (RT 8 up to width 112, 4 at 128, 2 past it), query tiles of 64 rows
+    where K, V, two Q buffers, dO, the P^T / dS^T buffer (all the tile's
+    rows, half of them at RT 8: ``xty_chunks``) and two buffers of the rows'
+    LSE and D_i fit, else 32."""
+    j, rs = tiled_slots(d), tiled_row_stride(d)
+    rt = 8 if j < 8 else 4 if j == 8 else 2
+    keys, chunks = 16 * rt, 2 if rt == 8 else 1
+
+    def smem(rows):
+        return 4 * ((2 * keys + 3 * rows) * rs + rows // chunks * (keys + 4) + 4 * rows)
+
+    rows = next(n for n in (64, 32) if smem(n) <= SMEM_LIMIT)
+    return Tiling(keys, rows, rt, rows // 16, smem(rows))
+
+
 def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
     """The 4-D TMA map over t (B, S, H, D), innermost first: dims
     (D, H, S, B), byte strides along H, S and B, box (64, 1, rows, 1).
@@ -377,11 +485,14 @@ def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class Plan:
     """A launch: its route, its grid ((Hq, B, query tiles of 128) for the
-    Hopper kernel, (query tiles of 64, Hq, B) for the others) and, for the
-    Hopper kernel, the tensor maps of q, k and v (eleven numbers each,
-    ``tensor_map``) and the dynamic shared memory (the others' is fixed by
-    the padded width: ``mma_smem_bytes``, ``f32_smem_bytes``).  float64
-    inputs are planned as the float32 copies the launch runs on."""
+    Hopper kernel, (Hq, B, query tiles of ``tiled_fwd_tiling(D).rows``) for
+    the tiled kernel ("fp32"), (query tiles of 64, Hq, B) for the others)
+    and, for the Hopper kernel, the tensor maps of q, k and v (eleven
+    numbers each, ``tensor_map``), for it and the tiled kernel the dynamic
+    shared memory
+    (the others' is fixed by the padded width: ``mma_smem_bytes``,
+    ``f32_smem_bytes``).  float64 inputs are planned as the float32 copies
+    the launch runs on."""
     route: str
     maps: tuple[int, ...] | None = None
     grid: tuple[int, int, int] | None = None
@@ -448,11 +559,15 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     name = route(q.dtype, d) if kernel is None else kernel
     ok = {"wgmma": q.dtype in _HALF and _wgmma_dim(d),
           "mma_sync": q.dtype in _HALF,
-          "fp32": q.dtype in (torch.float32, torch.float64)}
+          "fp32": q.dtype in (torch.float32, torch.float64),
+          "fp32_simple": q.dtype in (torch.float32, torch.float64)}
     if not ok.get(name, False):
         raise ValueError(f"kernel {name!r} does not take {q.dtype} at head dim {d}")
     _check_layout(q, k, v, causal_offset, name)
     b, sq, hq, _ = q.shape
+    if name == "fp32":
+        t = tiled_fwd_tiling(d)
+        return Plan(name, grid=(hq, b, -(-sq // t.rows)), smem=t.smem)
     if name != "wgmma":
         return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
     rows = wgmma_keys(d)
@@ -540,8 +655,11 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     """Check the backward's inputs (the forward's dtypes and head dims, unit
     stride along D; o and do shaped as q, in its dtype) and plan the
     launches of ``route`` (default: ``bwd_route`` of q's dtype and D).
-    "fma": stats and dQ over (query tiles, Hq, B), dK/dV over (key tiles,
-    Hkv, B), tiles of ``bwd_tile_rows(D)``; "mma" (bf16 and fp16 at D <=
+    "tiled" (fp32 and fp64): dQ over (Hq, B, query tiles of
+    ``tiled_dq_tiling(D).rows``), dK/dV over (Hkv, B, key blocks of
+    ``tiled_dkdv_tiling(D).rows``); "fma": stats and dQ over (query tiles,
+    Hq, B), dK/dV over (key tiles, Hkv, B), tiles of ``bwd_tile_rows(D)``;
+    "mma" (bf16 and fp16 at D <=
     32): dQ over (query tiles of 64, Hq, B), dK/dV over (key tiles of 64,
     Hkv, B); "wgmma" (bf16 and fp16 at D in (32, 256], q, k, v as TMA reads
     them, do in rows ``tma_width(D)`` wide): dQ over (Hq, B, query tiles of 128), dK/dV over (Hkv, B,
@@ -562,6 +680,13 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         k_tiles = -(-sk // r)
         return BwdPlan("fma", grids=((q_tiles, hq, b), (k_tiles, hkv, b), (q_tiles, hq, b)),
                        smem=bwd_smem_bytes(d))
+    if name == "tiled":
+        if q.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"backward route 'tiled' does not take {q.dtype}")
+        _check_layout(q, k, v, causal_offset, name)
+        dq_t, kv_t = tiled_dq_tiling(d), tiled_dkdv_tiling(d)
+        return BwdPlan("tiled", grids=((hq, b, -(-sq // dq_t.rows)), (hkv, b, -(-sk // kv_t.rows))),
+                       smem=(dq_t.smem, kv_t.smem))
     ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": _wgmma_dim(d)}
     if not ok.get(name, False) or q.dtype not in _HALF:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
@@ -586,7 +711,8 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``gqa_flash`` with its gradient: the forward saves q, k, v, the output
-    and, on the 16-bit routes, its rows' LSE; the backward is
+    and, on CUDA tensors, its rows' LSE (every default route's forward
+    writes it); the backward is
     ``gqa_flash_bwd``.  On CUDA tensors of the Hopper route the forward
     stages the q, k and v that TMA cannot read (``stage``) and saves the
     staged views, so the backward stages only dO."""
@@ -620,8 +746,8 @@ def kernel_work(q: torch.Tensor, k: torch.Tensor, causal_offset: int, backward: 
     """(FLOPs, bytes) of the kernels of one forward (``backward`` False) or
     backward on these shapes: 2·D FLOPs per unmasked (row, key) pair per
     query head for each product (the forward's 2; the backward's 7 on the
-    "wgmma" and "mma" routes, S and dP twice beside dV, dK and dQ, and 8 on
-    "fma", whose stats pass adds one S); each input read once and each
+    "wgmma", "mma" and "tiled" routes, S and dP twice beside dV, dK and dQ,
+    and 8 on "fma", whose stats pass adds one S); each input read once and each
     output written once: q, k, v in and o (and the LSE, with ``lse``) out;
     q, k, v, o, dO and the LSE in, dq, dk, dv and D_i out.  A staged call
     (the Hopper route at a D off a multiple of 8) adds its copies, each
@@ -646,21 +772,21 @@ def _meta_forward(q, k, v, causal_offset: int, with_lse: bool):
     from repro_torch.launch.op_analysis import record_kernel
 
     b, sq, hq, d = q.shape
-    lse = with_lse and q.dtype in _HALF
+    lse = with_lse
     record_kernel("gqa_flash", *kernel_work(q, k, causal_offset, False, lse))
     return (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device),
             torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if lse else None)
 
 
 def _forward(q, k, v, causal_offset: int, with_lse: bool = False):
-    """(output, LSE): the LSE (B, Hq, Sq) fp32 when ``with_lse`` asks for it
-    and a 16-bit kernel runs (the wgmma and mma backwards read it), else
-    None."""
+    """(output, LSE): on CUDA tensors the LSE (B, Hq, Sq) fp32 when
+    ``with_lse`` asks for it (the backward routes read the forward's), else
+    None; None on the CPU."""
     if _on_cpu(q, k, v):
         return gqa_flash_plain(q, k, v, causal_offset), None
     if _on_meta(q, k, v):
         return _meta_forward(q, k, v, causal_offset, with_lse)
-    if with_lse and q.dtype in _HALF:
+    if with_lse:
         return launch(q, k, v, causal_offset, with_lse=True)
     return launch(q, k, v, causal_offset), None
 
@@ -677,8 +803,8 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                   do: torch.Tensor, causal_offset: int = 0, lse: torch.Tensor | None = None):
     """(dq, dk, dv) of ``gqa_flash``: the plain version on CPU tensors, the
-    kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors (the wgmma
-    and mma routes read ``lse``, the forward's)."""
+    kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors (every route
+    but "fma" reads ``lse``, the forward's)."""
     if _on_cpu(q, k, v, o, do):
         return gqa_flash_bwd_plain(q, k, v, o, do, causal_offset)
     if _on_meta(q, k, v, o, do):
@@ -720,25 +846,24 @@ def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
            kernel: str | None = None, with_lse: bool = False):
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
-    "mma_sync" or "fp32"; default: its route), to hold one kernel against
-    another at one shape.  With ``with_lse`` (the 16-bit kernels) returns
-    (output, LSE (B, Hq, Sq) fp32); the output is the same either way.
-    float64 runs the fp32 kernel on fp32 copies, the output cast back; an
-    input whose layout the kernel cannot read is copied first
+    "mma_sync", "fp32" or "fp32_simple"; default: its route), to hold one
+    kernel against another at one shape.  With ``with_lse`` (every kernel
+    but "fp32_simple") returns (output, LSE (B, Hq, Sq) fp32); the output is the same
+    either way.  float64 runs the fp32 kernels on fp32 copies, the output
+    cast back; an input whose layout the kernel cannot read is copied first
     (``_readable_copy``)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"q ({q.device}), k ({k.device}) and v ({v.device}) "
                          "must lie on the same CUDA device")
     _check_shapes(q, k, v, causal_offset)
     if q.dtype == torch.float64:
-        if with_lse:
-            raise ValueError("only the 16-bit kernels write the LSE, not fp32")
-        return launch(q.float(), k.float(), v.float(), causal_offset, kernel).double()
+        got = launch(q.float(), k.float(), v.float(), causal_offset, kernel, with_lse)
+        return (got[0].double(), got[1]) if with_lse else got.double()
     name = route(q.dtype, q.shape[3]) if kernel is None else kernel
     q, k, v = (_readable_copy(t, name) for t in (q, k, v))
     pl = plan(q, k, v, causal_offset, kernel)
-    if with_lse and pl.route == "fp32":
-        raise ValueError("only the 16-bit kernels write the LSE, not fp32")
+    if with_lse and pl.route == "fp32_simple":
+        raise ValueError("the first-design fp32 kernel writes no LSE (the tiled one does)")
     build()
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -751,6 +876,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
         err = _lib.gqa_flash_wgmma(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse_ptr, b, sq, sk, hq, hkv, d, int(causal_offset), maps, *pl.grid, pl.smem, stream)
+    elif pl.route == "fp32":
+        err = _lib.gqa_flash_tiled(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, sq, sk, hq,
+            hkv, d, int(causal_offset), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *pl.grid, pl.smem, stream)
     else:
         err = _lib.gqa_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -770,18 +900,19 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                route: str | None = None):
     """``gqa_flash_bwd`` on CUDA tensors on ``route`` (default: ``bwd_route``):
     "wgmma" launches dQ (which writes D_i) then dK/dV, "mma" the same pair
-    on mma.sync, both reading ``lse``, the forward's (B, Hq, Sq) fp32; "fma"
-    launches the stats kernel (LSE and D_i into fp32 scratch), then dK/dV
-    and dQ, and ignores ``lse``.  o and do are made contiguous, and so are q,
-    k and v except on "wgmma", whose tensor maps read them as they lie where
-    TMA can (q, k, v and do staged where it cannot: ``_readable_copy``; the
-    staged do is also what the D_i pass reads);
-    float64 runs the fma kernels on fp32 copies, the gradients cast back."""
+    on mma.sync, "tiled" the same pair on fp32 FMA, each reading ``lse``,
+    the forward's (B, Hq, Sq) fp32; "fma" launches the stats kernel (LSE and
+    D_i into fp32 scratch), then dK/dV and dQ, and ignores ``lse``.  o and
+    do are made contiguous, and so are q, k and v except on "wgmma", whose
+    tensor maps read them as they lie where TMA can (q, k, v and do staged
+    where it cannot: ``_readable_copy``; the staged do is also what the D_i
+    pass reads); float64 runs the fp32 kernels ("tiled" or "fma") on fp32
+    copies, the gradients cast back."""
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must lie on the same CUDA device")
     _check_shapes(q, k, v, causal_offset)
     if q.dtype == torch.float64:
-        grads = launch_bwd(*(t.float() for t in (q, k, v, o, do)), causal_offset,
+        grads = launch_bwd(*(t.float() for t in (q, k, v, o, do)), causal_offset, lse=lse,
                            route=route)
         return tuple(g.double() for g in grads)
     name = bwd_route(q.dtype, q.shape[-1]) if route is None else route
@@ -842,7 +973,8 @@ def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
                                            hq, hkv, d, int(causal_offset), maps,
                                            *pl.grids[which], pl.smem[which], stream)
     else:
-        entry = _bwd_lib.gqa_flash_bwd_mma if pl.route == "mma" else _bwd_lib.gqa_flash_bwd
+        entry = {"mma": _bwd_lib.gqa_flash_bwd_mma, "tiled": _bwd_lib.gqa_flash_bwd_tiled,
+                 "fma": _bwd_lib.gqa_flash_bwd}[pl.route]
         err = entry(which, _DTYPES[q.dtype], *ptrs, *outs, b, sq, sk, hq, hkv, d,
                     int(causal_offset), *pl.grids[which], pl.smem[which], stream)
     if err != 0:

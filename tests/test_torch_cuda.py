@@ -370,6 +370,37 @@ def test_kernel_flash_bwd_matches_plain(cuda_flash_bwd, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("d", [1, 16, 33, 100, 128, 136, 256])
+def test_kernel_flash_tiled_matches_plain(cuda_flash_bwd, dtype, d):
+    """fp32 and fp64's routes: the tiled forward with its LSE (the output
+    bit for bit with and without it) and the tiled backward on that LSE,
+    against the plain versions at the fp32 limits, two runs equal bits; the
+    first design's kernels, named, agree too."""
+    for sq, extra, hq, group in BWD_CASES[:6]:
+        what = str((sq, extra, hq, group, d, dtype))
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, 2, sq, sq + extra, hq, hq // group, d,
+                                  seed=sq + extra + d, dtype=dtype)
+        fa.reset_launches()
+        o, lse = fa.launch(q, k, v, extra, with_lse=True)
+        got = fa.launch_bwd(q, k, v, o, do, causal_offset=extra, lse=lse)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 1, "fp32": 1, "gqa_flash_bwd": 1, "bwd_tiled_dq": 1,
+            "bwd_tiled_dkdv": 1}, (what, fa.launches)
+        assert torch.equal(o, fa.launch(q, k, v, extra))
+        _assert_flash_close(o, fa.gqa_flash_plain(q, k, v, causal_offset=extra), what)
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, extra).cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=extra), what)
+        again = fa.launch_bwd(q, k, v, o, do, causal_offset=extra, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+    _assert_flash_close(fa.launch(q, k, v, extra, kernel="fp32_simple"), o, what + " simple")
+    _assert_bwd_close(fa.launch_bwd(q, k, v, o, do, extra, route="fma"), got, what + " fma")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 112, 128])
 def test_kernel_flash_bwd_wgmma_matches_plain(cuda_flash_bwd, d):
     """The wgmma route (bf16, the LSE from the forward kernel) against the
@@ -417,27 +448,34 @@ def test_kernel_flash_lse_leaves_the_output_unchanged(cuda_flash, d):
         np.testing.assert_allclose(lse.cpu().numpy(),
                                    fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
-    # the mma.sync kernel writes it too (the mma backward reads it), the fp32
-    # kernel none
+    # the mma.sync kernel writes it too (the mma backward reads it), and the
+    # tiled fp32 kernel (the tiled backward reads it); the first design's
+    # fp32 kernel none
     out, lse = fa.launch(q, k, v, off, kernel="mma_sync", with_lse=True)
     assert torch.equal(out, fa.launch(q, k, v, off, kernel="mma_sync"))
     np.testing.assert_allclose(lse.cpu().numpy(),
                                fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="the LSE"):
-        fa.launch(q.float(), k.float(), v.float(), with_lse=True)
+    out32, lse32 = fa.launch(q.float(), k.float(), v.float(), off, with_lse=True)
+    assert torch.equal(out32, fa.launch(q.float(), k.float(), v.float(), off))
+    np.testing.assert_allclose(lse32.cpu().numpy(),
+                               fa.gqa_flash_lse_plain(q.float(), k.float(), off).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="LSE"):
+        fa.launch(q.float(), k.float(), v.float(), kernel="fp32_simple", with_lse=True)
     with pytest.raises(ValueError, match="LSE"):
         fa.launch_bwd(q, k, v, out, out)     # the wgmma route needs the forward's LSE
 
 
 @pytest.mark.cuda
 def test_kernel_flash_bwd_offsets_and_tails(cuda_flash_bwd):
-    """Keys no row sees (Sk past offset + Sq), Sq > Sk, one key."""
+    """Keys no row sees (Sk past offset + Sq), Sq > Sk, one key; fp32's
+    route reads the forward's LSE."""
     for b, sq, sk, off in [(1, 5, 300, 3), (2, 200, 65, 0), (1, 1, 1, 0), (1, 3, 1, 7)]:
         q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, 4, 2, 64, seed=sq * sk,
                                   dtype=torch.float32)
-        o = fa.gqa_flash_plain(q, k, v, causal_offset=off)
-        _assert_bwd_close(fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off),
+        o, lse = fa.launch(q, k, v, off, with_lse=True)
+        _assert_bwd_close(fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse),
                           fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off),
                           str((b, sq, sk, off)))
 
@@ -457,9 +495,10 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     o.backward(do.transpose(1, 2).contiguous().transpose(1, 2))   # a strided dO
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 1, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1, "bwd_mma_dq": 0,
-                           "bwd_mma_dkdv": 0, "layout_copy": 0}
+                           "fp32_simple": 0, "gqa_flash_bwd": 1, "bwd_stats": 0,
+                           "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1,
+                           "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
     out, lse = fa.launch(q, k, v, with_lse=True)
     assert torch.equal(out, o.detach())
     direct = fa.launch_bwd(q, k, v, out, do, lse=lse)
@@ -476,7 +515,7 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["internvl2-2b", "stablelm-1.6b"])
 def test_train_step_on_the_card(cuda_flash_bwd, arch):
-    """A reduced config's train step (fp32, D 32: the fp32 forward and
+    """A reduced config's train step (fp32, D 32: the tiled fp32 forward and
     backward kernels) on the card against the same step on the CPU (the
     plain versions): loss rtol 1e-5, grad norm rtol 2e-3 and every leaf's
     update within 5e-2 relative L2 (fp32 sums in another order; the same
@@ -501,9 +540,10 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
     torch.cuda.synchronize()
     L = cfg.num_layers
     assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
-                           "gqa_flash_bwd": L, "bwd_stats": L, "bwd_dkdv": L, "bwd_dq": L,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
-                           "bwd_mma_dkdv": 0, "layout_copy": 0}
+                           "fp32_simple": 0, "gqa_flash_bwd": L, "bwd_stats": 0,
+                           "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": L,
+                           "bwd_tiled_dkdv": L, "layout_copy": 0}
     np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
     old = dict(leaves(cpu0.params))
@@ -600,17 +640,18 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
     out.backward(do)
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": mma,
-                           "fp32": 1 - mma, "gqa_flash_bwd": 1,
-                           "bwd_stats": 1 - mma, "bwd_dkdv": 1 - mma, "bwd_dq": 1 - mma,
+                           "fp32": 1 - mma, "fp32_simple": 0, "gqa_flash_bwd": 1,
+                           "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
                            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": mma,
-                           "bwd_mma_dkdv": mma, "layout_copy": 0}, fa.launches
+                           "bwd_mma_dkdv": mma, "bwd_tiled_dq": 1 - mma,
+                           "bwd_tiled_dkdv": 1 - mma, "layout_copy": 0}, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype}")
     o = out.detach()
     want = fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off)
     _assert_bwd_close([t.grad for t in leaves], want, f"{shape} {dtype} backward")
-    lse = fa.launch(q, k, v, off, with_lse=True)[1] if mma else None
+    lse = fa.launch(q, k, v, off, with_lse=True)[1]
     again = fa.launch_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, again))   # no atomics
 
@@ -627,9 +668,10 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     out = fa.gqa_flash(q, k, v, causal_offset=extra)
     torch.cuda.synchronize()
     assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
-                           "bwd_mma_dkdv": 0, "layout_copy": 0}
+                           "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
+                           "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 

@@ -185,17 +185,33 @@ def test_wgmma_head_dim_112_walk_covers_each_output_once(b, sq, hq):
                                        (2, 65, 4, 32)])
 def test_mma_sync_and_fp32_walk_covers_each_output_once(dtype, b, sq, hq, d):
     """The mma.sync (bf16) and fp32 launches walked as the kernels walk
-    them, at the tiny trainer's head dim 16 and at 32: the grid (ceil(Sq /
-    64), Hq, B); mma.sync: block (x, h, b) owns rows 64x + 16w + g (+ 8) of
+    them, at the tiny trainer's head dim 16 and at 32: mma.sync: the grid
+    (ceil(Sq / 64), Hq, B), block (x, h, b) owns rows 64x + 16w + g (+ 8) of
     warp w < 4, lane 4g + t, each storing columns 8n + 2t and 8n + 2t + 1 for
-    n < D / 8; fp32: thread (ty, tx) of 16 x 16 owns rows 64x + ty + 16i
-    (i < 4) and columns tx + 16j (j < D / 16).  Each stores only rows below
-    Sq; every output element is stored once."""
+    n < D / 8; fp32 (the tiled kernel): the grid (Hq, B, ceil(Sq / 128)),
+    block (h, b, z) owns rows 128 (gz - 1 - z) + 8 ty + i (i < 8), thread
+    (ty, tx) of 16 x 16 columns tx + 16j (j < D / 16).  Each stores only rows
+    below Sq; every output element is stored once."""
     q = torch.zeros((b, sq, hq, d), dtype=dtype)
     k = torch.zeros((b, 3, 1, d), dtype=dtype)
     pl = fa.plan(q, k, k)
     assert pl.route == ("mma_sync" if dtype == torch.bfloat16 else "fp32")
-    assert pl.grid == (-(-sq // fa.FWD_ROWS), hq, b) and pl.maps is None
+    assert pl.maps is None
+    if pl.route == "fp32":
+        assert pl.grid == (hq, b, -(-sq // 128)) and pl.smem == fa.tiled_fwd_tiling(d).smem
+        ty, tx, i, j = np.meshgrid(np.arange(16), np.arange(16), np.arange(8),
+                                   np.arange(d // 16), indexing="ij")
+        rows, cols = (8 * ty + i).ravel(), (tx + 16 * j).ravel()
+        hits = np.zeros((b, sq, hq, d), dtype=np.int64)
+        for z in range(pl.grid[2]):
+            r = (pl.grid[2] - 1 - z) * 128 + rows
+            keep = r < sq
+            for h in range(hq):
+                for bb in range(b):
+                    np.add.at(hits, (bb, r[keep], h, cols[keep]), 1)
+        assert (hits == 1).all()
+        return
+    assert pl.grid == (-(-sq // fa.FWD_ROWS), hq, b)
     gx, gy, gz = pl.grid
     if pl.route == "mma_sync":
         w, g, t, r, n = np.meshgrid(np.arange(4), np.arange(8), np.arange(4), np.arange(2),
@@ -256,9 +272,10 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     fa.reset_launches()
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
     assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
-                           "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0,
-                           "bwd_mma_dkdv": 0, "layout_copy": 0}
+                           "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
+                           "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
+                           "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 

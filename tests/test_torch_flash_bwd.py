@@ -129,7 +129,7 @@ def _tensors(shape, dtype=torch.float32):
 @pytest.mark.parametrize("shape", _grid_shapes(), ids=str)
 def test_plan_bwd_grids_cover_every_output_once(shape):
     b, sq, sk, hq, hkv, d, off = shape
-    pl = fa.plan_bwd(*_tensors(shape), causal_offset=off)
+    pl = fa.plan_bwd(*_tensors(shape), causal_offset=off, route="fma")   # the yardstick
     assert pl.smem == fa.bwd_smem_bytes(d) and max(pl.smem) <= 232_448
     rows, keys = fa.BWD_ROWS, fa.BWD_KEYS
     # stats and dQ: block (x, h, b) owns query rows of tile x (dQ: the tiles

@@ -101,7 +101,7 @@ def test_lse_backward_matches_jax_vjp(shape, round_bf16):
 
 def test_bwd_route_table():
     for d in fa.HEAD_DIMS:
-        assert fa.bwd_route(torch.float32, d) == "fma"
+        assert fa.bwd_route(torch.float32, d) == "tiled"
         assert fa.bwd_route(torch.bfloat16, d) == ("mma" if d in (16, 32) else "wgmma")
         # the backward reads the LSE exactly where the forward's route writes it
         assert (fa.bwd_route(torch.bfloat16, d) == "wgmma") == \

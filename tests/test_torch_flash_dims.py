@@ -170,7 +170,7 @@ def test_route_at_every_head_dim_and_dtype():
             want = ("wgmma" if 32 < d <= 256 else "mma_sync") if half else "fp32"
             assert fa.route(dtype, d) == want, (dtype, d)
             assert fa.bwd_route(dtype, d) == ("wgmma" if want == "wgmma" else
-                                              "mma" if half else "fma")
+                                              "mma" if half else "tiled")
             q, k = _staged((1, 3, 4, d), dtype), _staged((1, 5, 2, d), dtype)
             assert fa.plan(q, k, k, causal_offset=2).route == want
             assert fa.plan_bwd(q, k, k, q, q, causal_offset=2).route == fa.bwd_route(dtype, d)
@@ -214,10 +214,19 @@ def _walk_forward(pl, b, sq, hq, d, dp):
         keep_n = (8 * n < d).ravel()
         cols = [(base, keep_n & (base < d)), (base + 1, keep_n & (base + 1 < d))]
     else:
-        ty, tx, i, j = np.meshgrid(np.arange(16), np.arange(16), np.arange(4),
-                                   np.arange(dp // 16), indexing="ij")
-        rows, c = (ty + 16 * i).ravel(), (tx + 16 * j).ravel()
-        cols = [(c, c < d)]
+        # the tiled kernel (fp32, fp64): grid (Hq, B, query tiles, heaviest
+        # first), thread (ty, tx) owning rows RT ty + i and columns tx + 16 j
+        t = fa.tiled_fwd_tiling(d)
+        ty, tx, i, j = np.meshgrid(np.arange(16), np.arange(16), np.arange(t.rt),
+                                   np.arange(fa.tiled_slots(d)), indexing="ij")
+        rows, c = (t.rt * ty + i).ravel(), (tx + 16 * j).ravel()
+        for z in range(gz):
+            r = (gz - 1 - z) * t.rows + rows
+            for h in range(gx):
+                for bb in range(gy):
+                    keep = (c < d) & (r < sq)
+                    np.add.at(hits, (bb, r[keep], h, c[keep]), 1)
+        return hits
     for x in range(gx):
         r = x * fa.FWD_ROWS + rows
         for h in range(gy):

@@ -76,7 +76,7 @@ def test_route_table_of_every_16_bit_head_dim():
                 tile = fa.wgmma_tile_dim(d)
                 assert tile % 64 == 0 and tile - 64 < d <= tile
         for dtype in (torch.float32, torch.float64):
-            assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("fp32", "fma")
+            assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("fp32", "tiled")
     for (dtype, d), kernel in fa.ROUTES.items():       # the pinned pairs stay
         assert fa.route(dtype, d) == kernel
     assert fa.tma_width(250) == 256 and fa.tma_width(36) == 40 and fa.tma_width(96) == 96
@@ -241,8 +241,8 @@ def test_mma_loops_model_matches_plain(shape):
 @pytest.mark.parametrize("dtype,d,products,staged", [
     (torch.bfloat16, 16, 7, False), (torch.float16, 24, 7, False),
     (torch.bfloat16, 36, 7, True), (torch.float16, 250, 7, True),
-    (torch.bfloat16, 128, 7, False), (torch.float32, 16, 8, False),
-    (torch.float32, 250, 8, False), (torch.float64, 36, 8, False)], ids=str)
+    (torch.bfloat16, 128, 7, False), (torch.float32, 16, 7, False),
+    (torch.float32, 250, 7, False), (torch.float64, 36, 7, False)], ids=str)
 def test_kernel_work_by_route(dtype, d, products, staged):
     b, sq, sk, hq, hkv, off = SHAPE
     q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
