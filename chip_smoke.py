@@ -8,9 +8,10 @@ Phases, any failure exits non-zero:
    of ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once) and
    time each build; then spawn the shard phase's two ranks and the CPU twin
    (``cpu_twin``: the host-only runs that later gates compare with, in a
-   process of their own beside the card's phases: the DAG tile and
-   ``sweep-full`` on the CPU's vector engine, the examples with
-   ``--device cpu``);
+   process of their own beside the card's phases: the DAG tile,
+   ``sweep-full``, ``geo-full``, the resilience phase's runs and the
+   tuner's on the CPU's vector engine, the examples with ``--device
+   cpu``); the flash sources' builds are not waited for here;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, with times from CUDA events beside the
    bound, the plain version and one library call (the single-query KNN
@@ -21,22 +22,25 @@ Phases, any failure exits non-zero:
    launches counted by route, and at the prefill's shape the Hopper kernel
    timed in turns with the retained mma.sync kernel (at most half its time),
    at zamba2-7b's forward shape (D 112) beside the plain version and SDPA,
-   and at ``train_carbon_aware``'s tiny preset (bf16 D 16 on the mma.sync
-   kernel, forward with its LSE and the mma backward pair, the fma route
-   beside it, also at a rank's batch and an edge shape) beside the plain
-   versions and SDPA; ``gqa_flash``'s backward (the wgmma pair and the fma
+   and at ``train_carbon_aware``'s tiny preset (bf16 D 16 on the Hopper
+   kernels' 16-wide tiles, forward with its LSE and the wgmma backward pair,
+   the yardsticks beside them: the mma.sync forward, the mma and fma
+   backward routes; also at a rank's batch and an edge shape) beside the
+   plain versions and SDPA; ``gqa_flash``'s backward (the wgmma pair and the fma
    route's stats, dK/dV and dQ kernels) against the plain backward at the
    train step's shape (bf16, S 2304, Hq 16, Hkv 8, D 128) and at the
    launcher's fp32 D-32 shape (the tiled pair, fp32's route, and fma beside
    it), twice with equal bits, each kernel timed beside its bound, the
    plain backward and SDPA's backward; every head dim and dtype (the
-   head-dim sweep: the staged Hopper route off a multiple of 8, the mma
-   backward at D <= 32, fp32 and fp64 on the tiled forward and backward,
-   run twice with equal bits) against the plain versions, the new routes
-   timed in turns against the routes they replaced (fp32 D 100: the tiled
-   forward against flash_f32_kernel, at most FP32_FWD_RATIO of it; the
+   head-dim sweep: the staged Hopper route off a multiple of 8, the narrow
+   tiles at every 16-bit D in 1..32, fp32 and fp64 on the tiled forward and
+   backward, run twice with equal bits) against the plain versions, the new
+   routes timed in turns against the routes they replaced (fp32 D 100: the
+   tiled forward against flash_f32_kernel, at most FP32_FWD_RATIO of it; the
    tiled backward and each of its kernels against the fma route, at most
-   FP32_BWD_RATIO of it); the
+   FP32_BWD_RATIO of it; bf16 D 32: the narrow forward against mma.sync, at
+   most NARROW_FWD_RATIO, the narrow backward pair against the mma pair, at
+   most NARROW_BWD_RATIO, by device time in turns); the
    batch KNN lookup on the cluster kernel equal bit for bit to the previous
    (warp) kernel, and at Q=168 N=1344 the two timed in turns by profiler
    device time (the cluster kernel at most half), beside the floor (an empty
@@ -423,8 +427,10 @@ def device_ms_again(fn, iters: int, per_call: int = 1) -> float | None:
     ``iters`` calls after one warm-up call, per recorded event, times
     ``per_call``.  The profiler drops some events of long kernels (1 or 3 of
     5 recorded on an H100), so the busy time over the calls would undercount;
-    a trace that recorded none is taken again, at most twice."""
-    for _ in range(3):
+    a trace that recorded none is taken again, at most four times (three
+    empty traces in a row were seen for the tiled dQ kernel on an H100);
+    None if every one was empty."""
+    for _ in range(5):
         us, n = device_trace(fn, iters, 1)
         if us > 0:
             if n < per_call * iters:
@@ -953,24 +959,28 @@ def flash_kernel_phase(report):
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
     err112, rel112 = 0.0, 0.0
-    err16, rel16 = 0.0, 0.0
+    err16 = {"wgmma": (0.0, 0.0), "mma_sync": (0.0, 0.0)}
     fa.reset_launches()
     expect = dict.fromkeys(fa.launches, 0)
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
-            kernels = [None] + (["mma_sync"] if name in ("prefill", "zamba2")
+            # the yardstick mma.sync beside the Hopper kernel at D 128, 112
+            # and the narrow widths
+            kernels = [None] + (["mma_sync"] if (name in ("prefill", "zamba2")
+                                                 or d <= fa.WGMMA_NARROW)
                                 and dtype == torch.bfloat16 else [])
             for kern in kernels:
                 e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype} {kern}", kern)
                 route = kern or fa.route(dtype, d)
                 expect["gqa_flash"] += 1
                 expect[route] += 1
-                err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
+                if route != "mma_sync":
+                    err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
                 if d == 112 and route == "wgmma":
                     err112, rel112 = max(err112, e), max(rel112, r)
-                if d == 16 and route == "mma_sync":
-                    err16, rel16 = max(err16, e), max(rel16, r)
+                if d == 16 and route in err16:
+                    err16[route] = (max(err16[route][0], e), max(err16[route][1], r))
                 log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
                     f"D={d} offset={off} {str(dtype)[6:]} on {route}: agrees with the "
                     f"plain version (max abs diff {e}, relative L2 {r}, limit "
@@ -1032,7 +1042,7 @@ def flash_kernel_phase(report):
         raise AssertionError(f"the Hopper kernel takes {t['ms']} ms, more than half "
                              f"the mma.sync kernel's {t['previous_ms']} ms")
     d112 = flash_d112_timing(gen, err112, rel112)
-    d16 = flash_d16_timing(gen, err16, rel16)
+    d16 = flash_d16_timing(gen, err16)
     return dict(name="gqa_flash", route="cuda", kernel="flash_wgmma_kernel",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
@@ -1052,12 +1062,11 @@ LSE_TOL = 1e-4
 
 def flash_lse_check():
     """The Hopper forward and the mma.sync forward, each with and without
-    its LSE, at the prefill's (D 128), zamba2's (D 112) and the ragged (D
-    64) shapes, and the mma.sync forward (its route) at the tiny preset's
-    and the multi-head shape (D 16 and 32): the output equal bit for bit
-    (the serving path asks for none), the LSE within LSE_TOL of
-    ``gqa_flash_lse_plain``.  Returns each (shape, kernel)'s largest LSE
-    difference."""
+    its LSE, at the prefill's (D 128), zamba2's (D 112), the ragged (D 64),
+    the tiny preset's and the multi-head shapes (the narrow tiles, D 16 and
+    32): the output equal bit for bit (the serving path asks for none), the
+    LSE within LSE_TOL of ``gqa_flash_lse_plain``.  Returns each (shape,
+    kernel)'s largest LSE difference."""
     gen = np.random.default_rng(2)
     out = {}
     for name, b, sq, sk, hq, hkv, d, off in FLASH_SHAPES:
@@ -1065,7 +1074,7 @@ def flash_lse_check():
             continue
         q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
         want = fa.gqa_flash_lse_plain(q, k, off)
-        for kernel in ("wgmma", "mma_sync") if d > 32 else ("mma_sync",):
+        for kernel in ("wgmma", "mma_sync"):
             got, lse = fa.launch(q, k, v, off, kernel, with_lse=True)
             same = torch.equal(got, fa.launch(q, k, v, off, kernel))
             err = (lse - want).abs().max().item()
@@ -1122,15 +1131,21 @@ def flash_d112_timing(gen, err, rel):
                 sdpa_max_abs_diff=lib_diff, turns=turns, **t)
 
 
-def flash_d16_timing(gen, err, rel):
-    """train_carbon_aware's tiny preset (head dim 16, bf16 on the mma.sync
-    kernel) at its batch of 4, S 128: the kernel, the plain version and SDPA
-    in turns by CUDA events, and by profiler device time, beside the bound."""
+def flash_d16_timing(gen, errs):
+    """train_carbon_aware's tiny preset (head dim 16, bf16: the Hopper
+    kernel's 16-wide tiles) at its batch of 4, S 128: the kernel, the
+    mma.sync kernel it replaced (the yardstick, by name), the plain version
+    and SDPA in turns by CUDA events, and by profiler device time, beside
+    the bound; both sit at the launch floor, so no ratio is gated.  Returns
+    the kernel's entry and the yardstick's."""
     _, b, sq, sk, hq, hkv, d, off = next(x for x in FLASH_SHAPES if x[0] == "tiny")
     q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def kernel():
+        return fa.launch(q, k, v, off)
+
+    def previous():
         return fa.launch(q, k, v, off, "mma_sync")
 
     def plain():
@@ -1140,49 +1155,59 @@ def flash_d16_timing(gen, err, rel):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
     lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
-    runs = dict(ms=(kernel, 200, 20), plain_ms=(plain, 50, 5), library_ms=(library, 200, 20))
-    turns = {key: [] for key in runs}
-    for key in list(runs) + list(runs)[::-1]:
-        fn, iters, warmup = runs[key]
-        turns[key].append(time_ms(fn, iters, warmup=warmup))
-    t = {key: float(np.mean(v)) for key, v in turns.items()}
-    t.update(device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 20),
-             library_device_ms=device_ms(library, 50))
+    runs = dict(ms=(kernel, 200, 20), previous_ms=(previous, 200, 20), plain_ms=(plain, 50, 5),
+                library_ms=(library, 200, 20))
+    turns, t = in_turns_ms(runs)
+    t.update(device_ms=device_ms(kernel, 50), previous_device_ms=device_ms(previous, 50),
+             plain_device_ms=device_ms(plain, 20), library_device_ms=device_ms(library, 50))
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
     bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
     log(f"gqa_flash tiny shape bf16 D=16, in turns {turns}")
-    log(f"gqa_flash tiny shape bf16 D=16: mma.sync kernel {t['ms']:.6f} ms/call "
-        f"({bound / t['ms']:.4f} of the bound), plain {t['plain_ms']:.6f}, SDPA "
-        f"{t['library_ms']:.6f}, bound {bound:.6f} by {by}: {flops / 1e9:.6f} GFLOP, "
-        f"{nbytes / 1e6:.6f} MB; device time {t['device_ms']} ms/call (plain "
-        f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); SDPA differs from the "
-        f"kernel by up to {lib_diff}")
-    return dict(name="gqa_flash_d16", route="cuda", kernel="flash_mma_kernel<__nv_bfloat16, 16>",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:94",
-                max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
-                bound_share=bound / t["ms"],
-                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, turns=turns, **t)
+    log(f"gqa_flash tiny shape bf16 D=16: Hopper kernel (16-wide tiles) {t['ms']:.6f} ms/call "
+        f"({bound / t['ms']:.4f} of the bound), mma.sync kernel {t['previous_ms']:.6f}, plain "
+        f"{t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} by {by}: "
+        f"{flops / 1e9:.6f} GFLOP, {nbytes / 1e6:.6f} MB; device time {t['device_ms']} ms/call "
+        f"(mma.sync {t['previous_device_ms']}, plain {t['plain_device_ms']}, SDPA "
+        f"{t['library_device_ms']}); SDPA differs from the kernel by up to {lib_diff}")
+    common = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:94", bound_ms=bound,
+                  bound_by=by, plain_ms=t["plain_ms"], plain_device_ms=t["plain_device_ms"],
+                  library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
+                  shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
+                  sdpa_max_abs_diff=lib_diff, turns=turns)
+    entry = dict(name="gqa_flash_d16", kernel="flash_wgmma_kernel<16, 0, __nv_bfloat16>",
+                 max_abs_err=errs["wgmma"][0], rel_l2=errs["wgmma"][1], ms=t["ms"],
+                 device_ms=t["device_ms"], bound_share=bound / t["ms"],
+                 previous="flash_mma_kernel<__nv_bfloat16, 16>", previous_ms=t["previous_ms"],
+                 previous_device_ms=t["previous_device_ms"], **common)
+    yardstick = dict(name="gqa_flash_mma_sync_d16",
+                     kernel="flash_mma_kernel<__nv_bfloat16, 16> (kernel=\"mma_sync\")",
+                     max_abs_err=errs["mma_sync"][0], rel_l2=errs["mma_sync"][1],
+                     ms=t["previous_ms"], device_ms=t["previous_device_ms"],
+                     bound_share=bound / t["previous_ms"], **common)
+    return entry, yardstick
 
 
 # --- gqa_flash at every head dim and float dtype ------------------------------
 
 # Head dims of the sweep, none of them a pinned route's: below 16 and 24
-# (the mma.sync forward and the mma backward), between the wgmma tiles'
+# (the narrow wgmma tiles, 16 and 32 wide), between the wgmma tiles'
 # widths, not a multiple of 8 (33, 100: the wgmma route on staged copies),
 # past 128 (160, 192, 256: the wide tiles); each in fp32, bf16 and fp16,
 # then in bf16 and fp16 136 and 200 (the wide tiles 192 and 256 off their
 # edges) and 250 (past 128 off a multiple of 8: staged, on the 256-wide
-# tiles), fp16 at the pinned head dims and float64 (the fp32 kernels on
-# copies) at two.
+# tiles), fp16 at the pinned head dims, float64 (the fp32 kernels on
+# copies) at two, and bf16 and fp16 at every other D in 1..32 (the narrow
+# tiles at each head dim they take, staged off a multiple of 8).
 FLASH_DIMS = (8, 24, 33, 40, 72, 80, 96, 100, 120, 160, 192, 256)
 FLASH_DIMS_CASES = ([(d, dt) for d in FLASH_DIMS
                      for dt in (torch.float32, torch.bfloat16, torch.float16)]
                     + [(d, dt) for d in (136, 200, 250)
                        for dt in (torch.bfloat16, torch.float16)]
                     + [(d, torch.float16) for d in fa.HEAD_DIMS]
-                    + [(33, torch.float64), (256, torch.float64)])
+                    + [(33, torch.float64), (256, torch.float64)]
+                    + [(d, dt) for d in range(1, fa.WGMMA_NARROW + 1) if d not in FLASH_DIMS
+                       for dt in (torch.bfloat16, torch.float16)])
 # B, Sq, Sk, Hq, Hkv, causal offset: no dimension a multiple of a tile
 FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
 # (name, B, Sq, Sk, Hq, Hkv, D, dtype) of the timed forwards: bf16 at D 96,
@@ -1190,21 +1215,31 @@ FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
 # staged) at a prefill of 4 x 2048, fp16 at llama3-8b's prefill shape, fp32
 # at the head-dim path's D 100 scaled to that prefill; and of the timed
 # backwards: bf16 D 96, 256 and 250 and fp32 D 100 at internvl2-2b's train
-# shape, bf16 D 32 (the mma route's widest) at the forward's prefill.  At
-# D 250, on the mma route and in fp32 (the tiled kernels) the route they
-# replaced (mma.sync, flash_f32_kernel, fma) runs in the same turns, gated.
+# shape; bf16 D 32 (the narrow tiles' widest: train_carbon_aware's 10m
+# preset) both ways at the forward's prefill.  At D 250, at D 32 and in
+# fp32 (the tiled kernels) the route they replaced (mma.sync and fma,
+# mma.sync and the mma pair, flash_f32_kernel and fma) runs in the same
+# turns, gated.
 DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
                   ("bf16-d256", 4, 2048, 2048, 16, 8, 256, torch.bfloat16),
                   ("bf16-d250", 4, 2048, 2048, 16, 8, 250, torch.bfloat16),
                   ("fp16-d128", 4, 2048, 2048, 32, 8, 128, torch.float16),
-                  ("fp32-d100", 4, 2048, 2048, 16, 8, 100, torch.float32)]
+                  ("fp32-d100", 4, 2048, 2048, 16, 8, 100, torch.float32),
+                  ("bf16-d32", 4, 2048, 2048, 16, 8, 32, torch.bfloat16)]
 # The staged wgmma route past D 128 against the route it replaced, in
 # turns: at most this share of its time (forward, backward); the mma
 # backward against the fma route at most MMA_BWD_RATIO of it; fp32's tiled
 # forward against flash_f32_kernel ("fp32_simple") at most FP32_FWD_RATIO,
-# its tiled backward against the fma route at most FP32_BWD_RATIO
+# its tiled backward against the fma route at most FP32_BWD_RATIO; the
+# narrow wgmma tiles at D 32 against mma.sync (forward) and the mma pair
+# (backward) at most NARROW_FWD_RATIO and NARROW_BWD_RATIO by profiler
+# device time in turns (readings 0.28 and 0.53 on an H100 80GB HBM3)
 WIDE_FWD_RATIO, WIDE_BWD_RATIO = 0.4, 0.1
 MMA_BWD_RATIO = 0.25
+NARROW_FWD_RATIO, NARROW_BWD_RATIO = 0.8, 0.75
+# One ex2 a score at Hopper's ~3.9 T special-function results a second
+# (the FlashAttention-3 paper's figure): the narrow widths' softmax floor
+EXP2_PER_S = 3.9e12
 FP32_FWD_RATIO, FP32_BWD_RATIO = 0.75, 0.6
 # The tiled kernels' instantiations: one per count of accumulator slots
 TILED_SLOTS = sorted({fa.tiled_slots(d) for d in range(1, fa.MAX_HEAD_DIM + 1)})
@@ -1317,11 +1352,11 @@ def flash_dims_phase(reports):
         f"launches by route {dict(fa.launches)}, as expected")
     # the wgmma kernels on the tiles past 128 (192 and 256 wide, bf16 and
     # fp16, head dims a multiple of 8 and any): eight in the forward's
-    # report, sixteen (dQ's and dK/dV's) in the backward's; the guarded
-    # instantiations of the narrower tiles (64 and 128 wide: four and eight);
-    # the mma route's kernels (dQ and dK/dV, bf16 and fp16, widths 16 and 32):
-    # eight in the backward's; the forward that writes their LSE
-    # (flash_mma_kernel at widths 16 and 32): four; and fp32's tiled kernels,
+    # report, sixteen (dQ's and dK/dV's) in the backward's; the same on the
+    # narrow tiles (16 and 32 wide); the guarded instantiations of the tiles
+    # 64 and 128 wide: four and eight; the mma route's kernels (dQ and dK/dV,
+    # bf16 and fp16, widths 16 and 32): eight in the backward's; the forward
+    # yardstick at those widths (flash_mma_kernel): four; and fp32's tiled kernels,
     # one of each for every count J of accumulator slots (1..8, 10, 12, 14,
     # 16: tiled_slots): twelve forward, twenty-four backward; none of which
     # may spill or serialise its products
@@ -1329,6 +1364,8 @@ def flash_dims_phase(reports):
     for src, pattern, count in (
             ("flash_attention.cu", r"wgmma_kernelILi(192|256)E", 8),
             ("flash_attention_bwd.cu", r"wgmma_kernelILi(192|256)E", 16),
+            ("flash_attention.cu", r"wgmma_kernelILi(16|32)E", 8),
+            ("flash_attention_bwd.cu", r"wgmma_kernelILi(16|32)E", 16),
             ("flash_attention.cu", r"wgmma_kernelILi(64|128)ELin1E", 4),
             ("flash_attention_bwd.cu", r"wgmma_kernelILi(64|128)ELin1E", 8),
             ("flash_attention.cu", r"flash_mma_kernelI\w+Li(16|32)EE", 4),
@@ -1352,9 +1389,9 @@ def flash_dims_phase(reports):
     bad = {n: r for n, r in gated.items()
            if r.get("spill_stores") or r.get("spill_loads") or r["remarks"]}
     if bad:
-        raise AssertionError(f"the wide wgmma, the mma backward or the tiled instantiations "
-                             f"spill or serialise: {bad}")
-    log("wide wgmma, mma backward and tiled instantiations, ptxas: " + "; ".join(
+        raise AssertionError(f"the wide or narrow wgmma, the mma backward or the tiled "
+                             f"instantiations spill or serialise: {bad}")
+    log("wide and narrow wgmma, mma backward and tiled instantiations, ptxas: " + "; ".join(
         f"{n}: {r.get('registers')} registers, spills {r.get('spill_stores', 0)}/"
         f"{r.get('spill_loads', 0)}" for n, r in gated.items()))
     walls = {"sweep and ptxas": time.perf_counter() - start}
@@ -1392,13 +1429,20 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     replaced (mma.sync) runs in the same turns, and the kernel must take at
     most WIDE_FWD_RATIO of its time; in fp32 the first design's
     flash_f32_kernel ("fp32_simple") does, held to the plain version too,
-    and the tiled kernel must take at most FP32_FWD_RATIO of its time."""
+    and the tiled kernel must take at most FP32_FWD_RATIO of its time; on the
+    narrow tiles (D <= 32) mma.sync does, and the kernel must take at most
+    NARROW_FWD_RATIO of its profiler device time in turns (the exponentials'
+    floor printed beside the bound).  The yardstick's own entry, for the
+    yardsticks' line, comes under "yardstick" at D <= 32."""
     q, k, v = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), dtype=dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     route = fa.route(dtype, d)
     wide = route == "wgmma" and d > 128 and fa.tma_width(d) != d
+    narrow = route == "wgmma" and d <= fa.WGMMA_NARROW
     fp32 = route == "fp32"
-    old, ratio_limit = ("fp32_simple", FP32_FWD_RATIO) if fp32 else ("mma_sync", WIDE_FWD_RATIO)
+    old, ratio_limit = ("fp32_simple", FP32_FWD_RATIO) if fp32 else \
+        ("mma_sync", NARROW_FWD_RATIO if narrow else WIDE_FWD_RATIO)
+    paired = wide or fp32 or narrow
 
     def kernel():
         return fa.launch(q, k, v, 0)
@@ -1418,7 +1462,7 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         raise AssertionError(f"gqa_flash {tag}: relative L2 {rel} to the plain version")
     lib_diff = (library().transpose(1, 2).float() - got.float()).abs().max().item()
     checked = {}
-    if wide or fp32:
+    if paired:
         # the yardstick is held to the plain version too before it is timed
         prev = previous()
         checked = dict(previous_max_abs_err=(prev.float() - want.float()).abs().max().item(),
@@ -1436,7 +1480,7 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         tq, tk, tv = (fa.stage(t) for t in (q, k, v))
         runs.update(stage_ms=(lambda: [fa.stage(t) for t in (q, k, v)], n, 3),
                     prestaged_ms=(lambda: fa.launch(tq, tk, tv, 0), n, 3))
-    if wide or fp32:
+    if paired:
         runs["previous_ms"] = (previous, 10 if wide else n, 2 if wide else 1)
     runs.update(plain_ms=(plain, 3, 1), library_ms=(library, n, 3))
     turns, t = in_turns_ms(runs)
@@ -1446,9 +1490,15 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
              library_device_ms=device_ms(library, n // 2, 1))
     if fp32:
         t["previous_device_ms"] = device_ms_again(previous, n)
+    if narrow:      # the gate's reading: profiler device time, in turns
+        dev_turns = in_turns({"device_ms": kernel, "previous_device_ms": previous})
+        t.update({key: float(np.mean(val)) for key, val in dev_turns.items()},
+                 device_turns=dev_turns)
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, 0, q.element_size())
     bound, by = bound_ms(nbytes, flops,
                          FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
+    scores = b * hq * sum(min(sk, r + 1) for r in range(sq))
+    exp_floor = scores / EXP2_PER_S * 1e3
     log(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]}, "
         f"{route}), in turns {turns}")
     log(f"gqa_flash {tag}: kernel {t['ms']:.6f} ms/call ({flops / t['ms'] / 1e9:.3f} TFLOP/s, "
@@ -1456,25 +1506,44 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         f"{t['library_ms']:.6f} (kernel / SDPA {t['ms'] / t['library_ms']:.3f}), bound "
         f"{bound:.6f} by {by}; device time {t['device_ms']} ms/call (plain "
         f"{t['plain_device_ms']}, SDPA {t['library_device_ms']}); max abs diff {err}, "
-        f"relative L2 {rel}; SDPA differs by up to {lib_diff}"
+        f"relative L2 {rel}; SDPA differs by up to {lib_diff}; the exponentials' floor "
+        f"{exp_floor:.6f} ({scores} scores at {EXP2_PER_S:.3g}/s)"
         + (f"; staging q, k, v {t['stage_ms']:.6f}, the kernel on staged inputs "
            f"{t['prestaged_ms']:.6f}" if "stage_ms" in t else "")
         + (f"; the {old} kernel {t['previous_ms']:.6f} (device "
-           f"{t.get('previous_device_ms')}; kernel / it {t['ms'] / t['previous_ms']:.4f}, "
-           f"limit {ratio_limit}; max abs diff {checked['previous_max_abs_err']}, relative "
-           f"L2 {checked['previous_rel_l2']})" if wide or fp32 else ""))
-    if (wide or fp32) and not t["ms"] <= ratio_limit * t["previous_ms"]:
+           f"{t.get('previous_device_ms')}; kernel / it {t['ms'] / t['previous_ms']:.4f}"
+           + (f", by device time {t['device_ms'] / t['previous_device_ms']:.4f}"
+              if narrow else "")
+           + f", limit {ratio_limit}; max abs diff {checked['previous_max_abs_err']}, relative "
+           f"L2 {checked['previous_rel_l2']})" if paired else ""))
+    if narrow:
+        if not t["device_ms"] <= ratio_limit * t["previous_device_ms"]:
+            raise AssertionError(f"gqa_flash {tag}: the narrow wgmma kernel takes "
+                                 f"{t['device_ms']} ms of device time, more than {ratio_limit} "
+                                 f"of the mma.sync kernel's {t['previous_device_ms']} ms")
+    elif (wide or fp32) and not t["ms"] <= ratio_limit * t["previous_ms"]:
         raise AssertionError(f"gqa_flash {tag}: the {route} kernel takes {t['ms']} ms, more "
                              f"than {ratio_limit} of the {old} kernel's "
                              f"{t['previous_ms']} ms")
+    shape = f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal"
+    if narrow:
+        checked["yardstick"] = dict(
+            name=f"gqa_flash_mma_sync_{tag.replace('-', '_')}", route="cuda",
+            kernel=f"flash_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}> "
+                   "(kernel=\"mma_sync\")",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:94",
+            max_abs_err=checked["previous_max_abs_err"], rel_l2=checked["previous_rel_l2"],
+            ms=t["previous_ms"], device_ms=t["previous_device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=bound, bound_by=by, library_ms=t["library_ms"],
+            library_device_ms=t["library_device_ms"], shape=shape)
     return dict(name=f"gqa_flash_{tag.replace('-', '_')}", route="cuda",
                 kernel=fwd_instance(dtype, d), flash_route=route,
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
                 max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
                 tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
-                over_sdpa=t["ms"] / t["library_ms"],
-                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal",
+                over_sdpa=t["ms"] / t["library_ms"], exp_floor_ms=exp_floor, shape=shape,
                 sdpa_max_abs_diff=lib_diff, turns=turns, **checked, **t)
 
 
@@ -1485,10 +1554,15 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     SDPA's backward (its forward + backward less its forward) in turns by
     CUDA events, and by profiler device time, beside the function's bound
     (five products; fp32's 67 TFLOP/s for fp32).  On the wgmma route at a D
-    past 128 off a multiple of 8 (staged), on the mma route and on the tiled
-    route (fp32), the route it replaced (fma) runs in the same turns: the
-    wgmma route must take at most WIDE_BWD_RATIO of its time, the mma route
-    MMA_BWD_RATIO, the tiled route FP32_BWD_RATIO.  On the tiled route each
+    past 128 off a multiple of 8 (staged) and on the tiled route (fp32), the
+    route it replaced (fma) runs in the same turns: the wgmma route must
+    take at most WIDE_BWD_RATIO of its time, the tiled route FP32_BWD_RATIO.
+    On the narrow wgmma tiles (D <= 32) the route they replaced, the mma
+    pair (by name, the yardstick), runs in the same turns with its own
+    yardstick, fma: the mma pair must take at most MMA_BWD_RATIO of fma's
+    time, and the wgmma pair at most NARROW_BWD_RATIO of the
+    mma pair's profiler device time in turns; the mma pair's entry, for the
+    yardsticks' line, comes under "yardstick".  On the tiled route each
     of its two kernels is timed in the same turns too (``launch_bwd_kernel``
     on the whole route's buffers), and returned as the kernel line's entries
     under "kernel_entries"."""
@@ -1506,6 +1580,9 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
 
     def previous():
         return fa.launch_bwd(q, k, v, o, do, 0, route="fma")
+
+    def mma():
+        return fa.launch_bwd(q, k, v, o, do, 0, lse=lse, route="mma")
 
     def plain():
         return fa.gqa_flash_bwd_plain(q, k, v, o, do, 0)
@@ -1531,18 +1608,22 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         return err, rel
 
     tiled = route == "tiled"
-    wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route in ("mma", "tiled")
-    ratio_limit = {"mma": MMA_BWD_RATIO, "tiled": FP32_BWD_RATIO}.get(route, WIDE_BWD_RATIO)
+    narrow = route == "wgmma" and d <= fa.WGMMA_NARROW
+    wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route == "tiled" or narrow
+    ratio_limit = {"tiled": FP32_BWD_RATIO}.get(route, WIDE_BWD_RATIO)
     want = plain()
     limit = BWD_REL[dtype] if route in ("fma", "tiled") else BWD_WGMMA_REL
     err, rel = held(kernels(), want, route, limit)
-    # the yardstick is held to the plain backward too before it is timed
+    # the yardsticks are held to the plain backward too before they are timed
     prev_err, prev_rel = held(previous(), want, "fma", BWD_REL[dtype]) if wide else (None, None)
+    mma_err, mma_rel = held(mma(), want, "mma", BWD_WGMMA_REL) if narrow else (None, None)
     del want
     iters = 3 if route in ("fma", "tiled") else 10
     runs = dict(ms=(kernels, iters, 1))
     if route == "wgmma" and fa.tma_width(d) != d:
         runs["stage_ms"] = (lambda: fa.stage(do), iters, 1)    # the call's dO copy
+    if narrow:
+        runs["mma_ms"] = (mma, iters, 1)
     if wide:
         runs["previous_ms"] = (previous, 2, 1)
     if tiled:       # each kernel alone, on the whole route's buffers (D_i in place)
@@ -1562,7 +1643,11 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     for name in fa.BWD_TILED_KERNELS if tiled else ():
         dev[name] = device_ms_again(runs[name][0], iters)
     if tiled:       # the profiler drops events of these long kernels: the sum of the two
-        dev["device_ms"] = sum(dev[name] for name in fa.BWD_TILED_KERNELS)
+        parts = [dev[name] for name in fa.BWD_TILED_KERNELS]
+        dev["device_ms"] = None if None in parts else sum(parts)
+    if narrow:      # the gate's reading: profiler device time, in turns
+        dev_turns = in_turns({"device_ms": kernels, "mma_device_ms": mma})
+        dev.update({key: float(np.mean(val)) for key, val in dev_turns.items()})
     library = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     library_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                    if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
@@ -1580,15 +1665,49 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         + (f"; staging dO {t['stage_ms']:.6f}" if "stage_ms" in t else "")
         + (f"; the fma route {t['previous_ms']:.6f} (device {dev.get('previous_device_ms')}; "
            f"route / it {t['ms'] / t['previous_ms']:.4f}, limit {ratio_limit}; max abs diff "
-           f"{prev_err}, relative L2 {prev_rel} (limit {BWD_REL[dtype]}))" if wide else "")
+           f"{prev_err}, relative L2 {prev_rel} (limit {BWD_REL[dtype]}))"
+           if wide and not narrow else "")
+        + (f"; the mma pair {t['mma_ms']:.6f} (device {dev['mma_device_ms']}; the wgmma pair "
+           f"over it by device time in turns {dev['device_ms'] / dev['mma_device_ms']:.4f}, "
+           f"limit {NARROW_BWD_RATIO}; max abs diff {mma_err}, relative L2 {mma_rel}); the fma "
+           f"route {t['previous_ms']:.6f} (device {dev.get('previous_device_ms')}; the mma pair "
+           f"over it {t['mma_ms'] / t['previous_ms']:.4f}, limit {MMA_BWD_RATIO})"
+           if narrow else "")
         + "".join(f"; {name} {t[name]:.6f} (device {dev[name]})"
                   for name in (fa.BWD_TILED_KERNELS if tiled else ())))
-    if wide and not t["ms"] <= ratio_limit * t["previous_ms"]:
+    if narrow:
+        if not t["mma_ms"] <= MMA_BWD_RATIO * t["previous_ms"]:
+            raise AssertionError(f"gqa_flash_bwd {tag}: the mma route takes {t['mma_ms']} ms, "
+                                 f"more than {MMA_BWD_RATIO} of the fma route's "
+                                 f"{t['previous_ms']} ms")
+        if not dev["device_ms"] <= NARROW_BWD_RATIO * dev["mma_device_ms"]:
+            raise AssertionError(f"gqa_flash_bwd {tag}: the narrow wgmma pair takes "
+                                 f"{dev['device_ms']} ms of device time, more than "
+                                 f"{NARROW_BWD_RATIO} of the mma pair's {dev['mma_device_ms']} ms")
+    elif wide and not t["ms"] <= ratio_limit * t["previous_ms"]:
         raise AssertionError(f"gqa_flash_bwd {tag}: the {route} route takes {t['ms']} ms, more "
                              f"than {ratio_limit} of the fma route's {t['previous_ms']} ms")
     extra = dict(previous_ms=t["previous_ms"], previous="the fma route",
                  previous_device_ms=dev["previous_device_ms"],
                  previous_max_abs_err=prev_err, previous_rel_l2=prev_rel) if wide else {}
+    shape = f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal"
+    if narrow:      # one exponential a score in each kernel
+        extra["exp_floor_ms"] = 2 * b * hq * sum(min(sk, r + 1) for r in range(sq)) \
+            / EXP2_PER_S * 1e3
+        extra.update(mma_ms=t["mma_ms"], mma_device_ms=dev["mma_device_ms"],
+                     over_mma_device=dev["device_ms"] / dev["mma_device_ms"],
+                     device_turns=dev_turns)
+        extra["yardstick"] = dict(
+            name=f"gqa_flash_bwd_mma_{tag.replace('-', '_')}", route="cuda",
+            kernel=f"flash_bwd_{{dq,dkdv}}_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}> "
+                   "(route=\"mma\")", bwd_route="mma",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention)",
+            max_abs_err=mma_err, rel_l2=mma_rel, ms=t["mma_ms"], device_ms=dev["mma_device_ms"],
+            plain_ms=t["plain_ms"], bound_ms=bound, bound_by=by, library_ms=library,
+            library_device_ms=library_dev, previous="the fma route",
+            previous_ms=t["previous_ms"], over_previous=t["mma_ms"] / t["previous_ms"],
+            shape=shape)
     if "stage_ms" in t:
         extra["stage_ms"] = t["stage_ms"]
     if tiled:
@@ -1621,9 +1740,7 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
                 plain_of="the whole backward", bound_ms=bound, bound_by=by,
                 bound_share=bound / t["ms"], library_ms=library, library_device_ms=library_dev,
                 library_of="the whole backward: SDPA forward + backward less forward",
-                over_sdpa=over,
-                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal",
-                turns=turns, **extra)
+                over_sdpa=over, shape=shape, turns=turns, **extra)
 
 
 def dims_path_phase(device="cuda"):
@@ -2591,28 +2708,36 @@ def flash_bwd_kernel_phase(report):
     both routes: the wgmma route on the forward kernel's LSE), the
     launcher's fp32 D-32 shape (the tiled route, its own, on the tiled
     forward's LSE, and fma beside it) and the tiny preset's
-    shapes (bf16 D 16: the mma route on the mma.sync forward's LSE, and fma
-    beside it); at the train shape each
+    shapes (bf16 D 16: the wgmma route on the narrow tiles, and the mma and
+    fma routes, the yardsticks, beside it, all on the forward's LSE); at the
+    train shape each
     kernel and each route's whole backward timed in turns by CUDA events and
     by profiler device time beside their bounds, the plain backward, and
     SDPA's backward (its forward + backward less its forward, for timing
     only); the wgmma route's whole backward at most BWD_RATIO of the fma
     route's.  Returns the five kernels' entries (the fma route's three,
     on no default path since the tiled route, leave the kernel line for the
-    yardsticks' line in ``main``)."""
+    yardsticks' line in ``main``) and the tiny preset's
+    (``flash_bwd_d16_timing``)."""
     gen = np.random.default_rng(11)
     ptx = ptxas_report(report, "flash_bwd_")
     for name, rep in ptx.items():
         log(f"{name}: ptxas {rep}")
-    # the gate holds the pinned bf16 instantiations (D 64, 112, 128) and the
-    # mma route's kernels; the others' spills are reported (flash_dims_phase)
+    # the gate holds the pinned bf16 instantiations (D 64, 112, 128), the
+    # narrow ones (tiles 16 and 32 wide) and the mma route's kernels; the
+    # others' spills are reported (flash_dims_phase)
+    def narrow(n):
+        return "wgmma" in n and wgmma_template(n)[0] <= fa.WGMMA_NARROW
+
     gated = {n: r for n, r in ptx.items()
-             if ("wgmma" in n and pinned_wgmma(n)) or ("_mma_kernel" in n and "wgmma" not in n)}
+             if ("wgmma" in n and (pinned_wgmma(n) or narrow(n)))
+             or ("_mma_kernel" in n and "wgmma" not in n)}
     spilled = {n: r for n, r in gated.items()
                if r.get("spill_stores", 0) or r.get("spill_loads", 0) or r["remarks"]}
-    if ptx and sum("_mma_kernel" in n and "wgmma" not in n for n in gated) != 8:
-        raise AssertionError(f"expected 8 mma backward instantiations in the ptxas report: "
-                             f"{sorted(gated)}")
+    if ptx and (sum("_mma_kernel" in n and "wgmma" not in n for n in gated) != 8
+                or sum(map(narrow, gated)) != 16):
+        raise AssertionError(f"expected 8 mma and 16 narrow wgmma backward instantiations in "
+                             f"the ptxas report: {sorted(gated)}")
     if spilled:
         raise AssertionError(f"the wgmma and mma backward kernels spill or serialise: {spilled}")
     checks, inputs = {}, {}
@@ -2621,7 +2746,8 @@ def flash_bwd_kernel_phase(report):
         do = torch.from_numpy(gen.normal(size=(b, sq, hq, d)).astype(np.float32)) \
             .to("cuda", dtype)
         broute = fa.bwd_route(dtype, d)
-        routes = ["fma"] + ([broute] if broute != "fma" else [])
+        # the narrow tiles' yardstick, the mma route, beside them by name
+        routes = ["fma", broute] + (["mma"] if what.startswith("tiny") else [])
         o, lse = fa.launch(q, k, v, off, with_lse=True) if broute != "fma" \
             else (fa.launch(q, k, v, off), None)
         inputs[what] = q, k, v, o, do, lse
@@ -2737,25 +2863,32 @@ def flash_bwd_kernel_phase(report):
                 shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
                 ptxas={n: r for n, r in ptx.items() if kernel in n},
                 turns={key: turns[key] for key in (name, whole, "plain", "plain_lse")}))
-    d16 = [checks[w, "mma"] for w in ("tiny", "tiny-rank", "tiny-edge")]
-    return entries, flash_bwd_d16_timing(inputs["tiny"], max(c[0] for c in d16),
-                                         max(c[1] for c in d16), max(c[2] for c in d16))
+    tiny = ("tiny", "tiny-rank", "tiny-edge")
+    return entries, flash_bwd_d16_timing(
+        inputs["tiny"], {route: [max(checks[w, route][i] for w in tiny) for i in range(3)]
+                         for route in ("wgmma", "mma")})
 
 
-def flash_bwd_d16_timing(inputs, err, rel, rel_rounded):
+def flash_bwd_d16_timing(inputs, checks):
     """The backward at train_carbon_aware's tiny preset (bf16, D 16): the
-    mma route's two kernels and the whole route, and the fma route it
-    replaced, in turns by CUDA events and by profiler device time, beside
+    wgmma route's two kernels on the 16-wide tiles and the whole route, and
+    beside them the mma route's (by name, the yardstick it replaced) and the
+    fma route, in turns by CUDA events and by profiler device time, beside
     the function's bound, the plain backward from the LSE (rounding as the
-    kernels) and SDPA's backward (forward + backward less forward).
-    Returns the whole route's entry and one entry per mma kernel."""
+    kernels) and SDPA's backward (forward + backward less forward); all sit
+    at the launch floor, so no ratio is gated.  ``checks`` holds each route's
+    (max abs difference, relative L2, relative L2 to the rounding plain
+    version) over the tiny shapes.  Returns the wgmma route's entries (the
+    whole route's, then one a kernel) and the mma route's (the yardsticks'
+    line)."""
     q, k, v, o, do, lse = inputs
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    pl = fa.plan_bwd(q, k, v, o, do)
-    bufs = fa.bwd_buffers(q, k, lse)
-    for which in range(len(fa.BWD_MMA_KERNELS)):      # D_i in place for dK/dV
-        fa.launch_bwd_kernel(which, q, k, v, o, do, bufs, 0, pl)
+    pls = {r: fa.plan_bwd(q, k, v, o, do, route=r) for r in ("wgmma", "mma")}
+    bufs = {r: fa.bwd_buffers(q, k, lse) for r in pls}
+    for r, pl in pls.items():                     # D_i in place for dK/dV
+        for which in range(len(fa.BWD_ROUTE_KERNELS[r])):
+            fa.launch_bwd_kernel(which, q, k, v, o, do, bufs[r], 0, pl)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -2767,9 +2900,12 @@ def flash_bwd_d16_timing(inputs, err, rel, rel_rounded):
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
 
-    runs = {name: (lambda w=which: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs, 0, pl))
-            for which, name in enumerate(fa.BWD_MMA_KERNELS)}
+    kernel_names = fa.BWD_WGMMA_KERNELS + fa.BWD_MMA_KERNELS
+    runs = {name: (lambda w=which, r=r: fa.launch_bwd_kernel(w, q, k, v, o, do, bufs[r], 0,
+                                                               pls[r]))
+            for r in pls for which, name in enumerate(fa.BWD_ROUTE_KERNELS[r])}
     runs.update(whole=lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse),
+                mma=lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse, route="mma"),
                 previous=lambda: fa.launch_bwd(q, k, v, o, do, 0, route="fma"),
                 plain=lambda: fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, 0,
                                                          round_bf16=True),
@@ -2781,48 +2917,52 @@ def flash_bwd_d16_timing(inputs, err, rel, rel_rounded):
     dev = {}
     for key in runs:
         us, n = device_trace(runs[key], 20)
-        dev[key] = (us / n if key in fa.BWD_MMA_KERNELS else us / 20) / 1e3 if us > 0 else None
+        dev[key] = (us / n if key in kernel_names else us / 20) / 1e3 if us > 0 else None
     sdpa_bwd = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     sdpa_bwd_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
                     if dev["sdpa_fwd_bwd"] and dev["sdpa_fwd"] else None)
     work = bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
     bound, by = bound_ms(*work["gqa_flash_bwd"], BF16_FLOP_PER_S)
-    ratio_dev = dev["whole"] / dev["previous"] if dev["whole"] and dev["previous"] else None
-    log(f"gqa_flash_bwd tiny shape bf16 D=16 (mma; fma beside it), in turns {turns}")
-    log(f"gqa_flash_bwd tiny shape bf16 D=16: the mma route {t['whole']:.6f} ms/call (device "
-        f"{dev['whole']}; kernels {[dev[n] for n in fa.BWD_MMA_KERNELS]}), the fma route "
-        f"{t['previous']:.6f} (device {dev['previous']}; mma / fma by device time "
-        f"{ratio_dev}); the function's bound {bound:.6f} by {by} "
-        f"({work['gqa_flash_bwd'][1] / 1e9:.6f} GFLOP); the rounding plain version "
-        f"{t['plain']:.6f} (device {dev['plain']}); SDPA's backward {sdpa_bwd:.6f} (device "
-        f"{sdpa_bwd_dev})")
-    common = dict(route="cuda", bwd_route="mma",
-                  source="src/repro_torch/csrc/flash_attention_bwd.cu",
-                  replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention; "
-                           "the Pallas gqa_flash at src/repro/kernels/flash_attention.py:94 has "
-                           "no gradient)",
-                  max_abs_err=err, rel_l2=rel, rel_l2_rounded=rel_rounded,
-                  plain_ms=t["plain"], plain_device_ms=dev["plain"],
-                  plain_of="the whole backward, from the LSE, rounding as the kernels",
-                  library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
-                  library_of="the whole backward: SDPA forward + backward less forward",
-                  shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal")
-    whole = dict(name="gqa_flash_bwd_d16",
-                 kernel="flash_bwd_{dq,dkdv}_mma_kernel<bf16, 16> (the mma route)",
-                 ms=t["whole"], device_ms=dev["whole"], bound_ms=bound, bound_by=by,
-                 bound_share=bound / t["whole"], previous="the fma route",
-                 previous_ms=t["previous"], previous_device_ms=dev["previous"],
-                 over_previous_device=ratio_dev, turns=turns, **common)
-    kernels = []
-    for name in fa.BWD_MMA_KERNELS:
-        kb, kby = bound_ms(*work[name], BF16_FLOP_PER_S)
-        kernels.append(dict(name=f"gqa_flash_{name}",
-                            kernel=f"flash_bwd_{name[len('bwd_mma_'):]}_mma_kernel<bf16, 16>",
-                            ms=t[name], device_ms=dev[name], bound_ms=kb, bound_by=kby,
-                            bound_share=kb / t[name], whole_ms=t["whole"],
-                            turns={key: turns[key] for key in (name, "whole", "plain")},
-                            **common))
-    return whole, kernels
+    log(f"gqa_flash_bwd tiny shape bf16 D=16 (wgmma; mma and fma beside it), in turns {turns}")
+    log(f"gqa_flash_bwd tiny shape bf16 D=16: the wgmma route {t['whole']:.6f} ms/call (device "
+        f"{dev['whole']}; kernels {[dev[n] for n in fa.BWD_WGMMA_KERNELS]}), the mma route "
+        f"{t['mma']:.6f} (device {dev['mma']}; kernels {[dev[n] for n in fa.BWD_MMA_KERNELS]}),"
+        f" the fma route {t['previous']:.6f} (device {dev['previous']}); the function's bound "
+        f"{bound:.6f} by {by} ({work['gqa_flash_bwd'][1] / 1e9:.6f} GFLOP); the rounding plain "
+        f"version {t['plain']:.6f} (device {dev['plain']}); SDPA's backward {sdpa_bwd:.6f} "
+        f"(device {sdpa_bwd_dev})")
+    out = {}
+    for route, whole, tile in (("wgmma", "whole", "16, 0, bf16"), ("mma", "mma", "bf16, 16")):
+        err, rel, rel_rounded = checks[route]
+        common = dict(route="cuda", bwd_route=route,
+                      source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                      replaces="src/repro/models/common.py:255 (XLA autodiff of "
+                               "chunked_attention; the Pallas gqa_flash at "
+                               "src/repro/kernels/flash_attention.py:94 has no gradient)",
+                      max_abs_err=err, rel_l2=rel, rel_l2_rounded=rel_rounded,
+                      plain_ms=t["plain"], plain_device_ms=dev["plain"],
+                      plain_of="the whole backward, from the LSE, rounding as the kernels",
+                      library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev,
+                      library_of="the whole backward: SDPA forward + backward less forward",
+                      shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal")
+        name = "gqa_flash_bwd_d16" if route == "wgmma" else "gqa_flash_bwd_mma_d16"
+        out[route] = [dict(name=name, kernel=f"flash_bwd_{{dq,dkdv}}_{route}_kernel<{tile}> "
+                                             f"(the {route} route)",
+                           ms=t[whole], device_ms=dev[whole], bound_ms=bound, bound_by=by,
+                           bound_share=bound / t[whole], previous="the fma route",
+                           previous_ms=t["previous"], previous_device_ms=dev["previous"],
+                           turns={key: turns[key] for key in (whole, "previous", "plain")},
+                           **common)]
+        for name in fa.BWD_ROUTE_KERNELS[route]:
+            kb, kby = bound_ms(*work[name], BF16_FLOP_PER_S)
+            which = name[len(f"bwd_{route}_"):]
+            out[route].append(dict(
+                name=f"gqa_flash_{name}" + ("_d16" if route == "wgmma" else ""),
+                kernel=f"flash_bwd_{which}_{route}_kernel<{tile}>", ms=t[name],
+                device_ms=dev[name], bound_ms=kb, bound_by=kby, bound_share=kb / t[name],
+                whole_ms=t[whole], turns={key: turns[key] for key in (name, whole, "plain")},
+                **common))
+    return out["wgmma"], out["mma"]
 
 
 def traced_step(fn):
@@ -3891,8 +4031,9 @@ def shard_elastic(rank, root):
 
 def shard_tiny(rank, root):
     """(g) ``train_carbon_aware --preset tiny --max-dp 2 --fault-at 6`` in
-    both ranks on the card (bf16, head dim 16: the mma.sync forward and the
-    mma backward, no fma kernel): the plan the host computes, its steps and rescales, one
+    both ranks on the card (bf16, head dim 16: the wgmma forward and backward
+    on the 16-wide tiles, no mma.sync, mma or fma kernel): the plan the host
+    computes, its steps and rescales, one
     recovery, finite losses; the steps each rank took counted at the step
     function, and the D-16 route's launches against them."""
     import contextlib
@@ -3934,7 +4075,9 @@ def shard_tiny(rank, root):
     if not (res["plan"] == ks and res["final_step"] == steps and res["rescales"] == rescales
             and res["recoveries"] == 1 and len(res["losses"]) == steps + 1
             and all(map(math.isfinite, res["losses"])) and launches == want
-            and launches["mma_sync"] > 0 and (own is None or taken[0] == own)
+            and launches["wgmma"] > 0 and launches["bwd_wgmma_dq"] > 0
+            and launches["mma_sync"] == 0 and launches["bwd_mma_dq"] == 0
+            and (own is None or taken[0] == own)
             and 0 < taken[0] <= len(res["losses"])):
         raise AssertionError(f"shard tiny, rank {rank}: plan {res['plan']} (host {ks}), "
                              f"{res['final_step']} steps ({steps}), {res['rescales']} rescales "
@@ -5562,9 +5705,10 @@ def geo_kernel_phase(record, report):
                 serial_chain=walked[busiest], recorded_steps=len(record), **tm)
 
 
-def geo_phase(report):
-    """Phase 8: ``geo-full`` on the card against the CPU; the mixed-k_min
-    world; the walk kernel against its plain version and timed."""
+def geo_phase(report, twins=None):
+    """Phase 8: ``geo-full`` on the card against the CPU (the CPU twin's
+    run); the mixed-k_min world; the walk kernel against its plain version
+    and timed."""
     record = []
     reset_counts()
     card, tc = geo_full("cuda", "scan", record)
@@ -5572,13 +5716,14 @@ def geo_phase(report):
     by_route = {r: geo_walk.launches[r] for r in geo_walk.ROUTES}
     all_compact("geo-full", geo_walk.launches, "geo_walk")
     stats = dict(scan_engine.stats)
-    cpu, tcpu = geo_full("cpu", "vector")
+    cpu = twin_result(twins, "geo_full")
+    tcpu = cpu["timing"]
     log(f"geo-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s, CPU vector "
         f"engine {tcpu['wall_s']:.3f} s")
     log(card.table())
     RECORDER_OFF["geo-full"] = card.to_json()
-    if card.to_json() != cpu.to_json():
-        diff = [(a["seed"], a["policy"]) for a, b in zip(card.rows(), cpu.rows()) if a != b]
+    if card.to_json() != cpu["json"]:
+        diff = [(a["seed"], a["policy"]) for a, b in zip(card.rows(), cpu["rows"]) if a != b]
         raise AssertionError(f"geo-full: the card and the CPU differ in {diff}")
     if not (launches == stats["geo_steps"] >= 1):
         raise AssertionError(f"geo-full: {launches} geo_walk launches for {stats}")
@@ -5801,10 +5946,10 @@ def by_kind(tiles):
     return out
 
 
-def chaos_phase():
+def chaos_phase(twins=None):
     """Phase 9: ``chaos-full`` and ``geo-chaos`` on the card against the CPU's
-    vector engine, the DAG path under a feed outage, and the golden serving
-    grid."""
+    vector engine, the DAG path under a feed outage (the CPU runs the CPU
+    twin's, ``chaos_cpu``), and the golden serving grid."""
     # chaos-full: the outage-only cells of the four native kinds on the card's
     # slot loop, every faulted cell (and carbonflex) on the vector engine
     calls = [0]
@@ -5822,7 +5967,8 @@ def chaos_phase():
     counts = dict(knn=dict(knn.launches), greedy=dict(oracle_greedy.launches),
                   fill=dict(fill.launches), stats=dict(scan_engine.stats),
                   oracle=dict(oracle_mod.stats), provision_calls=calls[0])
-    cpu, tcpu = chaos_full("cpu", "vector", "numpy")
+    twin = twin_result(twins, "chaos")
+    cpu, tcpu = twin["chaos"], twin["chaos"]["timing"]
     n_faults = len(chaos_faults())
     log(f"chaos-full ({len(card.rows())} cells): card {tc['wall_s']:.3f} s (learning "
         f"{tc['learn_s']:.3f}, execution {tc['execute_s']:.3f}); CPU vector engine, numpy "
@@ -5830,9 +5976,9 @@ def chaos_phase():
         f"{tcpu['execute_s']:.3f})")
     log(card.table())
     RECORDER_OFF["chaos-full"] = card.to_json()
-    if card.to_json() != cpu.to_json():
+    if card.to_json() != cpu["json"]:
         diff = [(a["seed"], a["fault"], a["policy"]) for a, b in
-                zip(card.rows(), cpu.rows()) if a != b]
+                zip(card.rows(), cpu["rows"]) if a != b]
         raise AssertionError(f"chaos-full: the card and the CPU differ in {diff}")
     stats = counts["stats"]
     kinds = by_kind(tc["tiles"])
@@ -5870,14 +6016,14 @@ def chaos_phase():
     gcard, tgc = geo_chaos("cuda", "scan")
     glaunch, gstats = geo_walk.launches["geo_walk"], dict(scan_engine.stats)
     all_compact("geo-chaos", geo_walk.launches, "geo_walk")
-    gcpu, tgcpu = geo_chaos("cpu", "vector")
+    gcpu, tgcpu = twin["geo"], twin["geo"]["timing"]
     log(f"geo-chaos ({len(gcard.rows())} cells): card {tgc['wall_s']:.3f} s (execution "
         f"{tgc['execute_s']:.3f}), CPU vector engine {tgcpu['wall_s']:.3f} s (execution "
         f"{tgcpu['execute_s']:.3f})")
     log(gcard.table())
-    if gcard.to_json() != gcpu.to_json():
+    if gcard.to_json() != gcpu["json"]:
         diff = [(a["seed"], a["fault"], a["policy"]) for a, b in
-                zip(gcard.rows(), gcpu.rows()) if a != b]
+                zip(gcard.rows(), gcpu["rows"]) if a != b]
         raise AssertionError(f"geo-chaos: the card and the CPU differ in {diff}")
     gkinds = by_kind(tgc["tiles"])
     n_geo = len(GEO_SEEDS) * len(DEFAULT_GEO_POLICIES)
@@ -5903,13 +6049,10 @@ def chaos_phase():
     torch.cuda.synchronize()
     dwall = time.perf_counter() - t
     dlaunch, dstats = gating.launches["dep_release"], dict(scan_engine.stats)
-    t = time.perf_counter()
-    dcpu = run(Scenario(dag=DagConfig(), ci_outage=outage, engine="vector", **DAG),
-               DEFAULT_DAG_POLICIES, device="cpu")
-    dcpu_wall = time.perf_counter() - t
-    weeks, slots = same_results(dres.weekly, dcpu.weekly, DEFAULT_DAG_POLICIES)
+    dcpu_weekly, dcpu_wall = twin["dag"]["weekly"], twin["dag"]["wall_s"]
+    weeks, slots = same_results(dres.weekly, dcpu_weekly, DEFAULT_DAG_POLICIES)
     resil = [(a.resilience, b.resilience) for n in DEFAULT_DAG_POLICIES
-             for a, b in zip(dres.weekly[n], dcpu.weekly[n])]
+             for a, b in zip(dres.weekly[n], dcpu_weekly[n])]
     log(f"dag path under the outage: card {dwall:.3f} s ({dstats['steps']} slot steps, "
         f"{1e3 * dstats['loop_s'] / max(dstats['steps'], 1):.6f} ms per step), CPU vector "
         f"engine {dcpu_wall:.3f} s: {weeks} weekly results and {slots} slots differ; "
@@ -6227,18 +6370,19 @@ def tuned(device, engine, policy, scale, seed):
     return gaps, buf.getvalue(), flex, wall
 
 
-def tune_phase():
+def tune_phase(twins=None):
     """The tuner (``python -m repro_torch.experiment.tune_policy`` and its
     ``--scale``) on the card's scan engine against the port's vector engine
-    on the CPU: gap dicts float for float, printed lines equal; launches read
-    per run."""
+    on the CPU (the CPU twin's runs, ``tune_cpu``): gap dicts float for
+    float, printed lines equal; launches read per run."""
     out, t0 = {}, time.perf_counter()
+    cpu_runs = twin_result(twins, "tune")
     for policy, scale, seed in TUNE_RUNS:
         reset_counts()
         gaps, lines, flex, wall = tuned("cuda", "scan", policy, scale, seed)
         counts = dict(knn=knn.launches["knn_topk"], fill=fill.launches["capacity_fill"],
                       routes=dict(fill.launches), stats=dict(scan_engine.stats))
-        cpu_gaps, cpu_lines, cpu_flex, cpu_wall = tuned("cpu", "vector", policy, scale, seed)
+        cpu_gaps, cpu_lines, cpu_flex, cpu_wall = cpu_runs[policy, scale, seed]
         stats = counts["stats"]
         name = f"{policy}/seed={seed}"
         log(f"tune {name}: {len(gaps)} rows, card scan engine {wall:.3f} s, CPU vector "
@@ -6664,10 +6808,13 @@ def dryrun_in(train, tmp):
 # --- the CPU twins --------------------------------------------------------------
 
 # Host-only runs that gated comparisons need, computed in a spawned process
-# beside the card's phases, in this order: the DAG tile on the CPU's vector
-# engine, sweep-full on it with the numpy pass, the examples with --device
-# cpu.  (On an H100 host the first two take ~20 s and ~30 s, which this
-# process no longer waits for.)  TWIN_WAIT bounds a wait for one result.
+# beside the card's phases, in the order the phases read them: the DAG tile
+# on the CPU's vector engine, sweep-full on it with the numpy pass,
+# geo-full, the resilience phase's three CPU runs, the tuner's four, the
+# examples with --device cpu.  (On an H100 host the first two take ~20 s and
+# ~30 s, and geo-full, the resilience runs and the tuner's ~4, ~21 and ~9 s,
+# which this process no longer waits for.)  TWIN_WAIT
+# bounds a wait for one result.
 TWIN_WAIT = 900
 
 
@@ -6676,7 +6823,32 @@ def sweep_full_cpu():
     return dict(json=res.to_json(), rows=res.rows(), timing=timing)
 
 
-TWIN_JOBS = {"tile": tile_cpu, "sweep_full": sweep_full_cpu, "examples": examples_cpu}
+def geo_full_cpu():
+    res, timing = geo_full("cpu", "vector")
+    return dict(json=res.to_json(), rows=res.rows(), timing=timing)
+
+
+def chaos_cpu():
+    """The resilience phase's CPU runs: ``chaos-full`` (numpy pass) and
+    ``geo-chaos`` on the vector engine, and the DAG week under the outage."""
+    chaos, tchaos = chaos_full("cpu", "vector", "numpy")
+    geo, tgeo = geo_chaos("cpu", "vector")
+    t = time.perf_counter()
+    dag = run(Scenario(dag=DagConfig(), ci_outage=CarbonDataOutage(**CHAOS_OUTAGE),
+                       engine="vector", **DAG), DEFAULT_DAG_POLICIES, device="cpu")
+    return dict(chaos=dict(json=chaos.to_json(), rows=chaos.rows(), timing=tchaos),
+                geo=dict(json=geo.to_json(), rows=geo.rows(), timing=tgeo),
+                dag=dict(weekly=dag.weekly, wall_s=time.perf_counter() - t))
+
+
+def tune_cpu():
+    """The tuner's runs on the CPU's vector engine, by (policy, scale, seed)."""
+    return {(policy, scale, seed): tuned("cpu", "vector", policy, scale, seed)
+            for policy, scale, seed in TUNE_RUNS}
+
+
+TWIN_JOBS = {"tile": tile_cpu, "sweep_full": sweep_full_cpu, "geo_full": geo_full_cpu,
+             "chaos": chaos_cpu, "tune": tune_cpu, "examples": examples_cpu}
 
 
 def cpu_twin(_, root, parent):
@@ -6777,18 +6949,21 @@ class BuildReports(dict):
         return report
 
 
-# The backward's source builds longest (~46 s against ~24 s for the next,
-# on an H100 host): build_kernels does not wait for it, so the knn and
-# forward flash phases run while it builds.
-DEFERRED_BUILD = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# The flash sources build longest (the backward's ~89 s and the forward's
+# ~48 s against ~20 s for knn.cu, on H100 hosts): build_kernels waits for
+# neither, so the knn phase runs while both build (waiting for the forward's
+# held every phase back by its lead over knn.cu's, ~25 s), and the forward
+# flash phases while the backward builds.
+DEFERRED_BUILDS = ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro_torch/csrc/flash_attention.cu")
 
 
 def build_kernels():
     """Build every kernel source at once (one nvcc each), print each
     build's time and the compiler's report, and return the reports.  The
     host's first call of ``torch.utils.checkpoint`` is made meanwhile
-    (``warm_checkpoint``), while this thread only waits.  DEFERRED_BUILD is
-    not waited for here: reading its report waits for it."""
+    (``warm_checkpoint``), while this thread only waits.  DEFERRED_BUILDS
+    are not waited for here: reading a report waits for it."""
     def timed(build):
         t = time.perf_counter()
         report = build()
@@ -6808,7 +6983,7 @@ def build_kernels():
     ex.shutdown(wait=False)
     log(f"warmed torch.utils.checkpoint in {warm.result():.3f} s")
     for src, _ in sources:
-        if src != DEFERRED_BUILD:
+        if src not in DEFERRED_BUILDS:
             reports[src]
     return reports
 
@@ -6831,7 +7006,9 @@ def main():
 
 def phases(card, reports, shard_ranks, twins):
     """Every phase after the build, in order; the last lines printed."""
-    walls = {}
+    # the card's line, the builds waited for and the spawns, before the
+    # first phase (the imports come before T_START)
+    walls = {"start": time.perf_counter() - T_START}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -6840,11 +7017,11 @@ def phases(card, reports, shard_ranks, twins):
         return out
 
     kernels = timed("kernel (knn)", kernel_phase, reports["src/repro_torch/csrc/knn.cu"])
-    flash_entry, d112_entry, d16_entry = timed(
+    flash_entry, d112_entry, (d16_entry, d16_yardstick) = timed(
         "kernel (gqa_flash)", flash_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention.cu"])
     kernels.append(flash_entry)
-    bwd_entries, (bwd_d16_entry, bwd_mma_entries) = timed(
+    bwd_entries, (bwd_d16_entries, bwd_mma_entries) = timed(
         "kernel (gqa_flash backward)", flash_bwd_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention_bwd.cu"])
     dims, dims_fwd, dims_bwd = timed("kernel (gqa_flash head dims and dtypes)",
@@ -6861,6 +7038,9 @@ def phases(card, reports, shard_ranks, twins):
     by_tag = {e["name"]: e for e in dims_fwd + dims_bwd}
     # fp32's tiled backward kernels, each timed at the fp32 D-100 shape
     tiled_entries = by_tag["gqa_flash_bwd_fp32_d100"].pop("kernel_entries")
+    # the narrow tiles' yardsticks at D 32 (mma.sync, the mma pair)
+    narrow_yardsticks = [by_tag[n].pop("yardstick")
+                         for n in ("gqa_flash_bf16_d32", "gqa_flash_bwd_bf16_d32")]
     fp32_path = dims_path["D=100 float32"]["launches"]
     by_tag["gqa_flash_fp16_d128"].update(
         launches=serve["fp16_prefill"]["launches"]["wgmma"], path="serve-prefill fp16")
@@ -6917,20 +7097,28 @@ def phases(card, reports, shard_ranks, twins):
     d112_entry.update(shard_tp_launches=[r["zamba2-7b"]["launches"]["wgmma"]
                                          for r in shard["ssm"]],
                       shard_tp_heads=zamba0["heads"], shard_tp_timing=zamba0["flash_timing"])
-    # the D-16 route runs on train_carbon_aware's tiny preset (shard cell (g))
+    # the D-16 route (the narrow wgmma tiles) runs on train_carbon_aware's
+    # tiny preset (shard cell (g)); its yardsticks, mma.sync and the mma
+    # pair, on no default path
     tiny = [r["launches"] for r in shard["tiny"]]
-    d16_entry.update(launches=tiny[0]["mma_sync"], path="train_carbon_aware --preset tiny",
-                     rank_launches=[r["mma_sync"] for r in tiny])
-    bwd_d16_entry.update(launches=tiny[0]["bwd_mma_dq"], path="train_carbon_aware --preset tiny",
-                         rank_launches={k: [r[k] for r in tiny] for k in fa.BWD_MMA_KERNELS})
-    for entry in bwd_mma_entries:
-        name = entry["name"][len("gqa_flash_"):]
+    d16_entry.update(launches=tiny[0]["wgmma"], path="train_carbon_aware --preset tiny",
+                     rank_launches=[r["wgmma"] for r in tiny])
+    for entry in bwd_d16_entries:
+        name = "bwd_wgmma_dq" if entry["name"] == "gqa_flash_bwd_d16" \
+            else entry["name"][len("gqa_flash_"):-len("_d16")]
         entry.update(launches=tiny[0][name], path="train_carbon_aware --preset tiny",
                      rank_launches=[r[name] for r in tiny])
     for entry in tiled_entries + yardsticks:
         name = entry["name"][len("gqa_flash_"):]
         entry["shard_elastic_launches"] = [r["card"]["launches"][name]
                                            for r in shard["elastic"]]
+    yardsticks += [d16_yardstick, *bwd_mma_entries, *narrow_yardsticks]
+    default_paths = {"tiny rank": tiny, "head-dim path": [v["launches"]
+                                                           for v in dims_path.values()]}
+    for what, counts in default_paths.items():
+        stray = [{n: c[n] for n in ("mma_sync",) + fa.BWD_MMA_KERNELS if c[n]} for c in counts]
+        if any(stray):
+            raise AssertionError(f"the {what} launched a yardstick: {stray}")
     dag = timed("dag", dag_path_phase, twins)
     kernels[3].update(launches=dag["launches"], path="dag-scan")
     windows = oracle_windows()
@@ -6942,14 +7130,14 @@ def phases(card, reports, shard_ranks, twins):
                          reports["src/repro_torch/csrc/oracle_greedy.cu"]))
     fill_entry, sweep = timed("sweep", sweep_phase, reports["src/repro_torch/csrc/fill.cu"], twins)
     kernels.append(fill_entry)
-    geo_entry, geo = timed("geo", geo_phase, reports["src/repro_torch/csrc/geo_walk.cu"])
+    geo_entry, geo = timed("geo", geo_phase, reports["src/repro_torch/csrc/geo_walk.cu"], twins)
     kernels.append(geo_entry)
     kernels.append(d112_entry)
     kernels.extend(bwd_entries)
-    kernels.extend([d16_entry, bwd_d16_entry, *bwd_mma_entries])
+    kernels.extend([d16_entry, *bwd_d16_entries])
     kernels.extend(tiled_entries)
     kernels.extend(dims_fwd + dims_bwd)
-    chaos = timed("resilience", chaos_phase)
+    chaos = timed("resilience", chaos_phase, twins)
     # launches on the resilience paths, beside each kernel's own path
     by_name = {kern["name"]: kern for kern in kernels}
     by_name["knn_topk"]["chaos_launches"] = chaos["chaos"]["launches"]["knn"]["knn_topk"]
@@ -6960,15 +7148,16 @@ def phases(card, reports, shard_ranks, twins):
     by_name["geo_walk"]["chaos_launches"] = chaos["geo"]["launches"]
     by_name["dep_release_csr"]["chaos_launches"] = chaos["dag"]["launches"]
     tele = timed("telemetry", telemetry_phase)
-    tune = timed("tuner", tune_phase)
+    tune = timed("tuner", tune_phase, twins)
     by_name["knn_topk"]["tune_launches"] = sum(
         v["knn_launches"] for v in tune["runs"].values())
     examples = timed("examples", examples_phase, twins)
     kernels[2].update(launches_by_route={
-        "wgmma": serve["launches"]["wgmma"], "mma_sync": d16_entry["launches"],
+        "wgmma": serve["launches"]["wgmma"], "wgmma (16-wide tiles)": d16_entry["launches"],
         "fp32": examples["serve_elastic"]["launches"]["fp32"]},
         launches_by_route_paths={"wgmma": "serve-prefill",
-                                 "mma_sync": "train_carbon_aware --preset tiny (D 16)",
+                                 "wgmma (16-wide tiles)": "train_carbon_aware --preset tiny "
+                                                          "(D 16)",
                                  "fp32": "serve_elastic prefill (D 32)"},
         example_100m_launches=examples["train_100m"]["launches"])
     dry = timed("dry-run", dryrun_phase, train)

@@ -40,7 +40,21 @@ builds (none of them is kept in the library):
    P^T, + dV += P^T dO, + dP^T and dS^T, whole (a cut-off product's inputs
    summed into the accumulators, to keep them); beside the shipped wrappers and the first design's kernels
    (``kernel="fp32_simple"``, ``route="fma"``).
-6. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
+6. ``mma``, only when named: the mma backward pair (``route="mma"``, the
+   yardstick of the narrow wgmma pair) at bf16 D 32 (B 4, S 2048, Hq 16,
+   Hkv 8), each kernel cut after its phases: dQ with its staging, D_i and
+   loads alone, + S, dP, P and dS (summed into dQ), whole; dK/dV with its
+   loads alone, + S^T, dP^T, P^T and dS^T (summed into the accumulators),
+   whole; beside the whole route and the narrow wgmma pair.
+7. ``narrow``, only when named: the narrow wgmma kernels (tiles 32 wide) at
+   the same shape, each cut after its phases: the forward with its loads,
+   barriers and turns alone, + S = Q K^T, + the online softmax, whole; dQ
+   with D_i and the loads alone, + S, dP, P and dS, whole; dK/dV with its
+   loads and P^T, dS^T and their exchange on zero scores, + S^T and dP^T,
+   whole; and the layout they replaced, whole: a producer warpgroup and two
+   consumers, one block an SM (``hopper.cuh::Roles<false>``), beside the
+   wrappers, ``mma.sync`` and the mma pair.
+8. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
    forward and backward on this checkout's wrappers and kernels against
    those of the checkout at ROOT (say the parent commit, unpacked there by
    ``git archive``; its sources built into its own ``build/``), at every
@@ -55,10 +69,11 @@ kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
 power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
 splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``tiled``,
-``flash``):
+``mma``, ``narrow``, ``flash``):
 
     python3 scripts/kernel_splits.py geo fill
     python3 scripts/kernel_splits.py tiled
+    python3 scripts/kernel_splits.py mma narrow
     python3 scripts/kernel_splits.py flash --against build/parent
 """
 import argparse
@@ -438,9 +453,10 @@ extern "C" int fill_split(int route, int stop, const unsigned char* cand,
 """
 
 
-def split_source(cu: str, splits: dict, entry: str) -> str:
+def split_source(cu: str, splits: dict, entry: str, close: str = "}  // namespace") -> str:
     """``csrc/<cu>`` with each route's kernel copied under its cuts (each
-    must apply exactly once) into the anonymous namespace, and ``entry``."""
+    must apply exactly once) into the namespace that ``close`` (its last
+    occurrence) ends, the anonymous one by default, and ``entry``."""
     src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", cu)).read()
     copies = ""
     for route, sp in splits.items():
@@ -452,8 +468,8 @@ def split_source(cu: str, splits: dict, entry: str) -> str:
                                    "update the cuts")
             kernel = kernel.replace(old, new)
         copies += kernel
-    close = src.rindex("}  // namespace")
-    return src[:close] + copies + src[close:] + entry
+    at = src.rindex(close)
+    return src[:at] + copies + src[at:] + entry
 
 
 def split_runs(splits, variant, floor, wrapper, equal):
@@ -809,6 +825,396 @@ def tiled_split():
            cs.in_turns(runs))
 
 
+MMA_BWD_SPLITS = {
+    "dQ": dict(
+        start="template <typename T, int DP>\n__global__ void __launch_bounds__(WARPS * 32)\n"
+              "flash_bwd_dq_mma_kernel(",
+        end="// dK/dV: one block per (64 keys, KV head, batch), the first key tiles",
+        stops=("staging, D_i and the loads alone", "+ S, dP, P and dS (summed into dQ)",
+               "whole kernel"),
+        cuts=[
+            ("template <typename T, int DP>\n__global__ void __launch_bounds__(WARPS * 32)\n"
+             "flash_bwd_dq_mma_kernel(",
+             "template <typename T, int DP, int STOP>\n"
+             "__global__ void __launch_bounds__(WARPS * 32)\nmma_dq_cut("),
+            ("    if (k0 <= first + 15) {        // some row of this warp sees a key of the tile",
+             "    if (STOP >= 2 && k0 <= first + 15) {"),
+            # a product cut off keeps its inputs alive by summing them into the output
+            ("      xb<T, DP>(acc, s, kt, lane);",
+             "      if (STOP >= 3) xb<T, DP>(acc, s, kt, lane);\n"
+             "      else for (int i = 0; i < 32; ++i) acc[0][0] += s[i / 4][i % 4];"),
+        ]),
+    "dK/dV": dict(
+        start="template <typename T, int DP>\n__global__ void __launch_bounds__(WARPS * 32)\n"
+              "flash_bwd_dkdv_mma_kernel(",
+        end="enum Kernel { DQ = 0, DKDV = 1 };",
+        stops=("K, V and the Q/dO/LSE/D_i loads alone",
+               "+ S^T, dP^T, P^T and dS^T (summed into dK, dV)", "whole kernel"),
+        cuts=[
+            ("template <typename T, int DP>\n__global__ void __launch_bounds__(WARPS * 32)\n"
+             "flash_bwd_dkdv_mma_kernel(",
+             "template <typename T, int DP, int STOP>\n"
+             "__global__ void __launch_bounds__(WARPS * 32)\nmma_dkdv_cut("),
+            ("    if (first + ROWS - 1 >= k0 + 16 * warp && k0 + 16 * warp < dm.sk) {",
+             "    if (STOP >= 2 && first + ROWS - 1 >= k0 + 16 * warp && k0 + 16 * warp < dm.sk) {"),
+            ("      xb<T, DP>(acc_v, st, dot, lane);\n      xb<T, DP>(acc_k, dpt, qt, lane);",
+             "      if (STOP >= 3) {\n        xb<T, DP>(acc_v, st, dot, lane);\n"
+             "        xb<T, DP>(acc_k, dpt, qt, lane);\n      } else {\n"
+             "        for (int i = 0; i < 32; ++i) {\n"
+             "          acc_v[0][0] += st[i / 4][i % 4];\n"
+             "          acc_k[0][0] += dpt[i / 4][i % 4];\n        }\n      }"),
+        ]),
+}
+MMA_BWD_ENTRY = r"""
+template <int STOP>
+static int mma_cut(int kernel, const Args& a, Dims dm, int b, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr int DP = 32;
+  const size_t smem = kernel == 0 ? mm::dq_smem_bytes<DP>() : mm::dkdv_smem_bytes<DP>();
+  cudaError_t err;
+  if (kernel == 0) {
+    err = cudaFuncSetAttribute(mm::mma_dq_cut<T, DP, STOP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((dm.sq + mm::ROWS - 1) / mm::ROWS, dm.hq, b);
+    mm::mma_dq_cut<T, DP, STOP><<<grid, mm::WARPS * 32, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o, (const T*)a.dout, a.lse,
+        a.dvec, (T*)a.dq, dm, true);
+  } else {
+    err = cudaFuncSetAttribute(mm::mma_dkdv_cut<T, DP, STOP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((dm.sk + mm::KEYS - 1) / mm::KEYS, dm.hq / dm.group, b);
+    mm::mma_dkdv_cut<T, DP, STOP><<<grid, mm::WARPS * 32, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse, a.dvec,
+        (T*)a.dk, (T*)a.dv, dm, true);
+  }
+  return (int)cudaGetLastError();
+}
+
+// kernel 0: dQ, 1: dK/dV, each cut at stop 1..3.  Contiguous bf16 inputs,
+// 17 <= d <= 32 a multiple of 8, the LSE the forward's, D_i as the dQ
+// kernel writes it.
+extern "C" int mma_bwd_split(int kernel, int stop, const void* q, const void* k,
+                             const void* v, const void* o, const void* dout, float* lse,
+                             float* dvec, void* dq, void* dk, void* dv, int b, int sq, int sk,
+                             int hq, int hkv, int d, void* stream) {
+  const Args a{q, k, v, o, dout, lse, dvec, dq, dk, dv};
+  const Dims dm{sq, sk, hq, hq / hkv, 0, d, 1.0f / sqrtf((float)d)};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return stop == 1 ? mma_cut<1>(kernel, a, dm, b, s)
+         : stop == 2 ? mma_cut<2>(kernel, a, dm, b, s) : mma_cut<3>(kernel, a, dm, b, s);
+}
+"""
+_NARROW_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16>\n__global__ void "
+                "__launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)\n")
+_NARROW_CUT_HEAD = ("template <int D, int DO, typename T, int STOP, class R>\n__global__ void "
+                    "__launch_bounds__(R::THREADS, R::BLOCKS)\n")
+NARROW_FWD_SPLITS = {
+    "forward": dict(
+        start=_NARROW_HEAD + "flash_wgmma_kernel(",
+        end="// The Hopper kernel on tiles D wide for head dim DO",
+        stops=("loads alone (Q, the K/V ring, the barriers and turns)",
+               "+ S = Q K^T (summed into O)", "+ the online softmax", "whole kernel"),
+        cuts=[
+            (_NARROW_HEAD + "flash_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_fwd_cut("),
+            ("  using R = RolesOf<D>;\n", ""),
+            ("      qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);",
+             "      if constexpr (STOP >= 2) qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);\n"
+             "      else for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;"),
+            ("      softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);",
+             "      if constexpr (STOP >= 3)\n"
+             "        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);\n"
+             "      else corr[0] = corr[1] = 1.f;"),
+            # a product cut off keeps its inputs alive by summing them into the output
+            ("      pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);",
+             "      if constexpr (STOP >= 4) pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);\n"
+             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (D / 2)] += __uint_as_float(p[i]);"),
+        ]),
+}
+NARROW_FWD_ENTRY = r"""
+template <int STOP, class R>
+static int narrow_fwd(const void* q, const void* k, const void* v, void* o,
+                      const unsigned long long* maps, int b, int sq, int sk, int hq, int hkv,
+                      int d, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr int D = 32;
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap tm[3];
+  const int e = hopper::encode_maps(tm, ptrs, 3, maps, d, hopper::keys_of(d));
+  if (e != 0) return e;
+  const size_t smem = hopper::Layout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(hopper::narrow_fwd_cut<D, 0, T, STOP, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, b, (sq + hopper::ROWS - 1) / hopper::ROWS);
+  hopper::narrow_fwd_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+      tm[0], tm[1], tm[2], (T*)o, nullptr, sq, sk, hq, hq / hkv, 0, d,
+      1.4426950408889634f / sqrtf((float)d));
+  return (int)cudaGetLastError();
+}
+
+// variant 0: the shipped layout (no producer, two blocks an SM) cut at stop
+// 1..4; 1: the producer warpgroup and two consumers, one block an SM
+// (Roles<false>), whole.  bf16, 17 <= d <= 32 a multiple of 8, the maps
+// the wrapper plans.
+extern "C" int narrow_fwd_split(int variant, int stop, const void* q, const void* k,
+                                const void* v, void* o, const unsigned long long* maps, int b,
+                                int sq, int sk, int hq, int hkv, int d, void* stream) {
+  using N = hopper::RolesOf<32>;
+  using P = hopper::Roles<false, 1>;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1) return narrow_fwd<4, P>(q, k, v, o, maps, b, sq, sk, hq, hkv, d, s);
+  return stop == 1   ? narrow_fwd<1, N>(q, k, v, o, maps, b, sq, sk, hq, hkv, d, s)
+         : stop == 2 ? narrow_fwd<2, N>(q, k, v, o, maps, b, sq, sk, hq, hkv, d, s)
+         : stop == 3 ? narrow_fwd<3, N>(q, k, v, o, maps, b, sq, sk, hq, hkv, d, s)
+                     : narrow_fwd<4, N>(q, k, v, o, maps, b, sq, sk, hq, hkv, d, s);
+}
+"""
+NARROW_BWD_SPLITS = {
+    "dQ": dict(
+        start=_NARROW_HEAD + "flash_bwd_dq_wgmma_kernel(",
+        end="// dK/dV: one block per (64 keys, KV head, batch), the first key tiles (which",
+        stops=("staging, D_i and the loads alone", "+ S, dP, P and dS (summed into dQ)",
+               "whole kernel"),
+        cuts=[
+            (_NARROW_HEAD + "flash_bwd_dq_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_dq_cut("),
+            ("  using R = RolesOf<D>;\n", ""),
+            ("      if (k0 > first + 63) {          // no row of this consumer sees a key of the tile",
+             "      if (STOP < 2 || k0 > first + 63) {"),
+            ("      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);",
+             "      if constexpr (STOP >= 3) rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);\n"
+             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (D / 2)] += __uint_as_float(ds[i]);"),
+        ]),
+    "dK/dV": dict(
+        start=_NARROW_HEAD + "flash_bwd_dkdv_wgmma_kernel(",
+        end="enum Kernel { DQ = 0, DKDV = 1 };",
+        stops=("the loads, and P^T, dS^T and their exchange on zero scores",
+               "+ S^T and dP^T (summed into dK, dV)", "whole kernel"),
+        cuts=[
+            (_NARROW_HEAD + "flash_bwd_dkdv_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_dkdv_cut("),
+            ("  using R = RolesOf<D>;\n", ""),
+            ("      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T>(s, a_op, c == 0 ? qt : dot);",
+             "      if constexpr (STOP >= 2)\n"
+             "        ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T>(s, a_op, c == 0 ? qt : dot);\n"
+             "      else for (int i = 0; i < 32; ++i) s[i] = 0.f;"),
+            ("      rs_product<D, L::Rows::BOX_STRIDE, T>(acc, a, c == 0 ? dot : qt);",
+             "      if constexpr (STOP >= 3) rs_product<D, L::Rows::BOX_STRIDE, T>(acc, a, c == 0 ? dot : qt);\n"
+             "      else for (int i = 0; i < 16; ++i) acc[i % (D / 2)] += __uint_as_float(a[i]);"),
+        ]),
+}
+NARROW_BWD_ENTRY = r"""
+template <int STOP, class R>
+static int narrow_bwd(int kernel, const void* const* ptrs, const void* o, const float* lse,
+                      float* dvec, void* dq, void* dk, void* dv, const unsigned long long* maps,
+                      int b, int sq, int sk, int hq, int hkv, int d, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr int D = 32;
+  CUtensorMap tm[4];
+  const int e = hopper::encode_maps(tm, ptrs, 4, maps, d, wg::BOX_ROWS);
+  if (e != 0) return e;
+  const float scale = 1.0f / sqrtf((float)d), scale_log2 = scale * wg::LOG2E;
+  cudaError_t err;
+  if (kernel == 0) {
+    const size_t smem = wg::DqLayout<D>::SMEM;
+    err = cudaFuncSetAttribute(wg::narrow_dq_cut<D, 0, T, STOP, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(hq, b, (sq + wg::DQ_ROWS - 1) / wg::DQ_ROWS);
+    wg::narrow_dq_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+        tm[0], tm[1], tm[2], tm[3], (const T*)o, (const T*)ptrs[3], lse, dvec, (T*)dq, sq, sk,
+        hq, hq / hkv, 0, d, scale_log2, scale);
+  } else {
+    const size_t smem = wg::KvLayout<D>::SMEM;
+    err = cudaFuncSetAttribute(wg::narrow_dkdv_cut<D, 0, T, STOP, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(hkv, b, (sk + wg::KV_KEYS - 1) / wg::KV_KEYS);
+    wg::narrow_dkdv_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+        tm[0], tm[1], tm[2], tm[3], lse, dvec, (T*)dk, (T*)dv, sq, sk, hq, hq / hkv, 0, d,
+        scale_log2, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// kernel 0: dQ, 1: dK/dV; variant 0: the shipped layout (no producer, two
+// blocks an SM) cut at stop 1..3; 1: the producer warpgroup and two
+// consumers, one block an SM (Roles<false>), whole.  bf16, 17 <= d <= 32 a
+// multiple of 8, the maps the wrapper plans, the LSE the forward's, D_i as
+// the dQ kernel writes it.
+extern "C" int narrow_bwd_split(int kernel, int variant, int stop, const void* q,
+                                const void* k, const void* v, const void* o, const void* dout,
+                                float* lse, float* dvec, void* dq, void* dk, void* dv,
+                                const unsigned long long* maps, int b, int sq, int sk, int hq,
+                                int hkv, int d, void* stream) {
+  using N = hopper::RolesOf<32>;
+  using P = hopper::Roles<false, 1>;
+  const void* ptrs[4] = {q, k, v, dout};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1)
+    return narrow_bwd<3, P>(kernel, ptrs, o, lse, dvec, dq, dk, dv, maps, b, sq, sk, hq, hkv, d, s);
+  return stop == 1   ? narrow_bwd<1, N>(kernel, ptrs, o, lse, dvec, dq, dk, dv, maps, b, sq, sk,
+                                        hq, hkv, d, s)
+         : stop == 2 ? narrow_bwd<2, N>(kernel, ptrs, o, lse, dvec, dq, dk, dv, maps, b, sq, sk,
+                                        hq, hkv, d, s)
+                     : narrow_bwd<3, N>(kernel, ptrs, o, lse, dvec, dq, dk, dv, maps, b, sq, sk,
+                                        hq, hkv, d, s);
+}
+"""
+# bf16 D 32 at chip_smoke.py's timed shape (B 4, S 2048, Hq 16, Hkv 8): the
+# narrow tiles' widest, train_carbon_aware's 10m preset
+NARROW_SHAPE = ("bf16-d32", 4, 2048, 2048, 16, 8, 32, torch.bfloat16)
+
+
+def narrow_inputs(gen):
+    """bf16 D 32 q, k, v, dO at NARROW_SHAPE, the forward's output and LSE."""
+    fa = cs.fa
+    _, b, sq, sk, hq, hkv, d, dtype = NARROW_SHAPE
+    q, k, v, do = cs.card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                                 (b, sq, hq, d), dtype=dtype)
+    o, lse = fa.launch(q, k, v, 0, with_lse=True)
+    return q, k, v, do, o, lse
+
+
+def bwd_cut_runs(splits, call, bufs, want):
+    """Each backward kernel's cut at every stop (the whole cuts first held
+    equal to the wrapper's gradients ``want``), by name."""
+    for kernel, sp in enumerate(splits.values()):
+        call(kernel, len(sp["stops"]))()
+    torch.cuda.synchronize()
+    log("backward cuts, whole: equal to the wrapper's gradients "
+        f"{all(torch.equal(a, w) for a, w in zip(bufs[2:], want))}")
+    return {f"{name}: {what}": call(kernel, stop)
+            for kernel, (name, sp) in enumerate(splits.items())
+            for stop, what in enumerate(sp["stops"], 1)}
+
+
+def mma_split():
+    """The mma pair (the yardstick of the narrow wgmma backward) at bf16 D
+    32, each kernel cut after its phases, beside the whole route and the
+    narrow wgmma pair, by profiler device time in turns."""
+    fa = cs.fa
+    fa.build()
+    fa.build_bwd()
+    lib = build("mma_bwd_splits", split_source("flash_attention_bwd.cu", MMA_BWD_SPLITS,
+                                               MMA_BWD_ENTRY, close="}  // namespace mm"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mma_bwd_split.argtypes = [i, i] + [p] * 10 + [i] * 6 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    q, k, v, do, o, lse = narrow_inputs(np.random.default_rng(0))
+    tag, b, sq, sk, hq, hkv, d, _ = NARROW_SHAPE
+    bufs = fa.bwd_buffers(q, k, lse)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, *bufs)]
+
+    def cut(kernel, stop):
+        def run():
+            err = lib.mma_bwd_split(kernel, stop, *ptrs, b, sq, sk, hq, hkv, d, stream)
+            if err != 0:
+                raise RuntimeError(f"mma kernel {kernel} stop {stop}: cudaError_t {err}")
+        return run
+
+    want = fa.launch_bwd(q, k, v, o, do, 0, lse=lse, route="mma")
+    runs = bwd_cut_runs(MMA_BWD_SPLITS, cut, bufs, want)
+    runs.update({"the mma route (the wrapper)":
+                 lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse, route="mma"),
+                 "the narrow wgmma route": lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse)})
+    work = cs.bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, _ = cs.bound_ms(*work["gqa_flash_bwd"], cs.BF16_FLOP_PER_S)
+    scores = b * hq * sum(min(sk, r + 1) for r in range(sq))
+    report(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bf16), the mma "
+           f"kernels cut after each phase; the function's bound {bound:.6f} ms, the "
+           f"exponentials' floor {2 * scores / cs.EXP2_PER_S * 1e3:.6f} ms (one a score in "
+           f"each kernel)", cs.in_turns(runs))
+
+
+def narrow_split():
+    """The narrow wgmma kernels at bf16 D 32, each cut after its phases, and
+    the layout they replaced (a producer warpgroup, one block an SM), beside
+    the wrappers and the yardsticks, by profiler device time in turns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fa = cs.fa
+    fa.build()
+    fa.build_bwd()
+    with ThreadPoolExecutor(2) as ex:
+        fwd_lib, bwd_lib = ex.map(lambda a: build(*a), [
+            ("narrow_fwd_splits", split_source("flash_attention.cu", NARROW_FWD_SPLITS,
+                                               NARROW_FWD_ENTRY, close="}  // namespace hopper")),
+            ("narrow_bwd_splits", split_source("flash_attention_bwd.cu", NARROW_BWD_SPLITS,
+                                               NARROW_BWD_ENTRY, close="}  // namespace wg"))])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fwd_lib.narrow_fwd_split.argtypes = [i, i] + [p] * 5 + [i] * 6 + [p]
+    bwd_lib.narrow_bwd_split.argtypes = [i, i, i] + [p] * 11 + [i] * 6 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    q, k, v, do, o, lse = narrow_inputs(np.random.default_rng(0))
+    tag, b, sq, sk, hq, hkv, d, _ = NARROW_SHAPE
+    scores = b * hq * sum(min(sk, r + 1) for r in range(sq))
+    floor = scores / cs.EXP2_PER_S * 1e3
+
+    def maps_of(values):
+        return (ctypes.c_ulonglong * len(values))(*values)
+
+    fmaps = maps_of(fa.plan(q, k, v).maps)
+    out = torch.empty_like(q)
+
+    def fwd(variant, stop):
+        def run():
+            err = fwd_lib.narrow_fwd_split(variant, stop, q.data_ptr(), k.data_ptr(),
+                                           v.data_ptr(), out.data_ptr(), fmaps, b, sq, sk, hq,
+                                           hkv, d, stream)
+            if err != 0:
+                raise RuntimeError(f"forward variant {variant} stop {stop}: error {err}")
+        return run
+
+    for variant in range(2):
+        fwd(variant, 4)()
+        torch.cuda.synchronize()
+        log(f"forward variant {variant} whole: equal to the wrapper's output "
+            f"{torch.equal(out, o)}, max abs difference {(out - o).abs().max().item()}")
+    stops = NARROW_FWD_SPLITS["forward"]["stops"]
+    runs = {f"forward: {what}": fwd(0, stop) for stop, what in enumerate(stops, 1)}
+    runs.update({"forward: a producer warpgroup, one block an SM": fwd(1, 4),
+                 "forward: the wrapper": lambda: fa.launch(q, k, v, 0, with_lse=True),
+                 "forward: mma.sync": lambda: fa.launch(q, k, v, 0, "mma_sync", with_lse=True)})
+    nbytes, flops = cs.flash_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, _ = cs.bound_ms(nbytes, flops, cs.BF16_FLOP_PER_S)
+    report(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bf16), the narrow forward "
+           f"cut after each phase; the bound {bound:.6f} ms, the exponentials' floor "
+           f"{floor:.6f} ms", cs.in_turns(runs))
+
+    bmaps = maps_of(fa.plan_bwd(q, k, v, o, do).maps)
+    bufs = fa.bwd_buffers(q, k, lse)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, *bufs)]
+
+    def bwd(kernel, stop, variant=0):
+        def run():
+            err = bwd_lib.narrow_bwd_split(kernel, variant, stop, *ptrs, bmaps, b, sq, sk, hq,
+                                           hkv, d, stream)
+            if err != 0:
+                raise RuntimeError(f"backward kernel {kernel} variant {variant} stop {stop}: "
+                                   f"error {err}")
+        return run
+
+    want = fa.launch_bwd(q, k, v, o, do, 0, lse=lse)
+    runs = bwd_cut_runs(NARROW_BWD_SPLITS, bwd, bufs, want)
+    for kernel in range(2):
+        bwd(kernel, 3, variant=1)()
+    torch.cuda.synchronize()
+    log("backward, a producer warpgroup, one block an SM: equal to the wrapper's gradients "
+        f"{all(torch.equal(a, w) for a, w in zip(bufs[2:], want))}")
+    runs.update({"dQ: a producer warpgroup, one block an SM": bwd(0, 3, 1),
+                 "dK/dV: a producer warpgroup, one block an SM": bwd(1, 3, 1),
+                 "the narrow wgmma route (the wrapper)":
+                     lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse),
+                 "the mma route": lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse,
+                                                        route="mma")})
+    work = cs.bwd_work(b, sq, sk, hq, hkv, d, 0, 2)
+    bound, _ = cs.bound_ms(*work["gqa_flash_bwd"], cs.BF16_FLOP_PER_S)
+    report(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bf16), the narrow "
+           f"kernels cut after each phase; the function's bound {bound:.6f} ms, the "
+           f"exponentials' floor {2 * floor:.6f} ms", cs.in_turns(runs))
+
+
 def checkout_flash(root: str):
     """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
     imported beside this checkout's: the package's modules leave
@@ -871,11 +1277,12 @@ def flash_split(against: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("splits", nargs="*",
-                    help="score, knn, geo, fill (the default), tiled, flash")
+                    help="score, knn, geo, fill (the default), tiled, mma, narrow, flash")
     ap.add_argument("--against", help="the root of the checkout the flash split compares")
     args = ap.parse_args()
     splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
-                  tiled=tiled_split, flash=lambda: flash_split(args.against))
+                  tiled=tiled_split, mma=mma_split, narrow=narrow_split,
+                  flash=lambda: flash_split(args.against))
     if set(args.splits) - set(splits):
         ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")
     if "flash" in args.splits and not args.against:

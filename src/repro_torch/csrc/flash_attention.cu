@@ -25,8 +25,8 @@
 // wrapper, kernels/flash_attention.py, picks one; the fourth only on
 // request):
 //
-//   flash_wgmma_kernel (bf16 and fp16, every D in (32, 256]; every model
-//     config's 16-bit head dim but the example trainers'): the Hopper
+//   flash_wgmma_kernel (bf16 and fp16, every D in [1, 256]; every model
+//     config's 16-bit head dim and the example trainers'): the Hopper
 //     design.  One block owns 128 query rows of one head and runs
 //     three warpgroups.  Warpgroup 0 is the producer: it gives up registers
 //     (setmaxnreg 40) and one thread issues TMA loads, 4-D tensor maps over
@@ -81,11 +81,25 @@
 //     stages before the loop and tile j + 1 into tile j - 1's stage in its
 //     turn j, which the ping-pong order puts after both consumers released
 //     tile j - 1 (hopper.cuh, Roles).  Width 192 fits 168 registers and
-//     keeps the producer warpgroup.
-//   flash_mma_kernel<T, DP> (bf16 and fp16 at D <= 32, where a wgmma tile
-//     of 64 columns would be mostly zeros; the small trainers of
-//     repro_torch.examples.train_carbon_aware take D 16 and 32; on request
-//     any D, the yardstick of the Hopper kernel): 4 warps,
+//     keeps the producer warpgroup.  At D <= 32 (the example trainers of
+//     repro_torch.examples.train_carbon_aware: D 16 in the tiny preset, 32
+//     in the 10m one) the tiles are 16 or 32 columns wide (hopper.cuh,
+//     tile_of and Swz): one box a row, as wide as the tile, under the 32-
+//     or 64-byte swizzle, wgmma descriptors of the same layout (S = Q K^T
+//     in 1 or 2 k-steps, O += P V at N 16 or 32), K/V tiles of 128 keys in
+//     a ring 4 deep (16 KB a stage at 32).  There the products are small
+//     beside the softmax: one ex2 a score at the special-function units'
+//     ~3.9 T/s is 0.034 ms at B 4, S 2048, 16 x 8 heads, twice the
+//     products' 0.017 ms at 989 TFLOP/s; what a tile costs is its
+//     exponentials and its barriers, waits and turns.  So the narrow tiles
+//     run without the producer warpgroup, as width 256 does, two blocks an
+//     SM (O, S and P of 128 keys fit the 128 registers a thread that
+//     leaves, 103-110 used, no spill): four consumer warpgroups an SM hide
+//     each other's waits, where the producer layout's one block runs two
+//     (0.068 against 0.096 ms at that shape on an H100, both on this code:
+//     scripts/kernel_splits.py narrow; the mma.sync kernel below 0.24 ms).
+//   flash_mma_kernel<T, DP> (bf16 and fp16 on request, any D, the
+//     yardstick of the Hopper kernel, kernel="mma_sync"): 4 warps,
 //     each owning 16 of 64 query rows, mma.sync m16n8k16 (.bf16 or .f16);
 //     K and V tiles of 64 keys stream into two shared-memory buffers, the
 //     next tile loading while the block computes on the current one;
@@ -98,8 +112,8 @@
 //     distinct banks.  At DP 256, Q's fragments (64 registers) beside the
 //     128-float output would pass 255 registers a thread, so Q stays in
 //     shared memory (169 KB in all) and is read at each product.  Given an
-//     lse pointer it stores each row's log-sum-exp (m + ln l), which the
-//     backward's "mma" route reads; the output is the same either way.
+//     lse pointer it stores each row's log-sum-exp (m + ln l), as the
+//     Hopper kernel does; the output is the same either way.
 //   flash_tiled_kernel<J> (fp32 at every D, fp64 on fp32 copies; the route
 //     "fp32"): register micro-tiles on the CUDA cores' FMA pipe (no TF32, so
 //     the result stays within 2e-5 of the fp32 reference), building blocks
@@ -218,8 +232,8 @@ constexpr size_t mma_smem_bytes() {          // K and V, two buffers each (and Q
 // head dim d <= DP, columns d..DP-1 of every tile zero (they add nothing to
 // q.k, and give output columns that are not stored).  With `lse` each
 // row's log-sum-exp of its scaled scores, m + ln(l), goes to lse (B, Hq, Sq)
-// in fp32 for the backward's "mma" route; nullptr stores nothing, and the
-// output is the same either way.
+// in fp32 (the "mma" backward, the yardstick, reads it, or the Hopper
+// forward's); nullptr stores nothing, and the output is the same either way.
 template <typename T, int DP>
 __global__ void __launch_bounds__(128)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -716,18 +730,22 @@ constexpr int WIDE_KEYS = 64;      // past it, where O takes D/2 = 96 or 128 flo
 // in a wide consumer's 224 registers.  The keys of a K/V tile at tile width d:
 __host__ __device__ constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : KEYS; }
 
-// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle repeats
-// every 8 rows): Q (ROWS rows), the K ring, the V ring (KEYS rows a stage),
-// then the mbarriers q_full, k_full[STAGES], v_full[STAGES], empty[STAGES].
-// A tile's D / 64 column boxes lie one after another, each its rows of 128
-// swizzled bytes; TMA fills them by boxes of KEYS rows (Q by ROWS / KEYS).
+// Shared memory, from a 1024-byte aligned base (every swizzle repeats
+// within 8 rows, at most 1024 bytes): Q (ROWS rows), the K ring, the V ring
+// (KEYS rows a stage), then the mbarriers q_full, k_full[STAGES],
+// v_full[STAGES], empty[STAGES].  A tile's column boxes (Swz: one at widths
+// 16 and 32, D / 64 past them) lie one after another, each its rows of
+// W::ROW swizzled bytes; TMA fills them by boxes of KEYS rows (Q by ROWS /
+// KEYS).  The ring is as deep as 227 KB allows, at most 4 (the narrow
+// tiles: 16 KB a stage at width 32, two blocks an SM).
 template <int D>
 struct Layout {
+  using W = Swz<D>;
   static constexpr int KEYS = keys_of(D);
-  static constexpr int BOXES = D / BOX;                // column boxes per tile
-  static constexpr int STAGES = D == 64 || D == 192 ? 3 : 2;   // ring depth: what fits
-  static constexpr uint32_t Q_BOX = ROWS * ROW_BYTES;  // Q: from one column box to the next
-  static constexpr uint32_t KV_BOX = KEYS * ROW_BYTES; // K and V: the same
+  static constexpr int BOXES = D / W::COLS;            // column boxes per tile
+  static constexpr int STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;
+  static constexpr uint32_t Q_BOX = ROWS * W::ROW;     // Q: from one column box to the next
+  static constexpr uint32_t KV_BOX = KEYS * W::ROW;    // K and V: the same
   static constexpr uint32_t Q_TILE = BOXES * Q_BOX;
   static constexpr uint32_t KV_TILE = BOXES * KV_BOX;
   static constexpr uint32_t Q = 0;
@@ -739,14 +757,16 @@ struct Layout {
 
 // S = Q K^T (issued, not waited for): D/16 steps of 16 along D, each 32
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
-// swizzle); 8-row groups 1024 bytes apart (the SBO).
+// swizzle); 8-row groups W::GROUP bytes apart (the SBO).
 template <int D, typename T>
 __device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint32_t k) {
   using L = Layout<D>;
+  using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t a = sw128_desc(q + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, GROUP_BYTES);
-    const uint64_t b = sw128_desc(k + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, GROUP_BYTES);
+    const int box = kk / W::KSTEPS, at = (kk % W::KSTEPS) * 32;
+    const uint64_t a = W::desc(q + box * L::Q_BOX + at, 16, W::GROUP);
+    const uint64_t b = W::desc(k + box * L::KV_BOX + at, 16, W::GROUP);
     if (kk == 0)
       wgmma_ss<L::KEYS, true, T>(s, a, b);
     else
@@ -756,14 +776,16 @@ __device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint3
 }
 
 // O += P V (issued, not waited for): KEYS/16 steps of 16 keys, each 16 rows
-// (2048 bytes) into V's boxes; N = D spans D/64 boxes, KV_BOX apart (the LBO).
+// (16 W::ROW bytes) into V's boxes; N = D spans the D / W::COLS boxes,
+// KV_BOX apart (the LBO).
 template <int D, typename T>
 __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[keys_of(D) / 4],
                                    uint32_t v) {
   using L = Layout<D>;
+  using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < L::KEYS / 16; ++kk)
-    wgmma_rs<D, T>(acc, p + 4 * kk, sw128_desc(v + kk * 16 * ROW_BYTES, L::KV_BOX, GROUP_BYTES));
+    wgmma_rs<D, T>(acc, p + 4 * kk, W::desc(v + kk * 16 * W::ROW, L::KV_BOX, W::GROUP));
   wgmma_commit();
 }
 
@@ -808,25 +830,27 @@ __device__ __forceinline__ void softmax(float (&s)[KEYS / 2], float (&m)[2], flo
 // elements 8kk + 0..7 of the accumulator of S for key slice kk.  D is the
 // tiles' width, DO <= D the head dim: the output's row length and the
 // columns stored; DO = 0 takes the head dim from `dh` at run time (a
-// multiple of 8 in (D - 64, D]).  T is bf16 or fp16.  With `lse` each row's
+// multiple of 8 in [least_dim(D), D]: (D - 64, D] from width 64 on, 8 or 16
+// at width 16, 24 or 32 at 32).  T is bf16 or fp16.  With `lse` each row's
 // log-sum-exp of its scaled scores, m * scale + ln(l), goes to lse (B, Hq,
 // Sq) in fp32 for the backward; nullptr stores nothing, and the output is
-// the same either way.  DO = -1 takes any head dim in (D - 64, D] (the
-// wrapper's staged inputs at a head dim off a multiple of 8: 33, 100, 250)
-// and guards every store by column (hopper.cuh, store2): the last chunk of
+// the same either way.  DO = -1 takes any head dim in [least_dim(D), D]
+// (the wrapper's staged inputs at a head dim off a multiple of 8: 5, 33,
+// 100, 250) and guards every store by column (hopper.cuh, store2): the last chunk of
 // 8 columns is then partial, and at an odd head dim the pairs are not
 // 4-byte aligned.  The multiples of 8 keep instantiations without those
 // guards (a separate instantiation: the guards, compiled into them, cost
 // 3-6 % of their time on an H100).
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
+__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                    float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
                    int dh, float scale_log2) {
   using L = Layout<D>;
-  using R = Roles<(D > 192)>;
+  using W = Swz<D>;
+  using R = RolesOf<D>;
   constexpr int S = L::STAGES, KEYS = L::KEYS;
   extern __shared__ unsigned char hopper_smem[];
   const uint32_t base = (smem_addr(hopper_smem) + 1023) & ~1023u;
@@ -858,7 +882,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_expect(q_full, L::Q_TILE);
     for (int x = 0; x < L::BOXES; ++x)
       for (int y = 0; y < ROWS / KEYS; ++y)      // boxes of KEYS rows
-        tma_load(base + L::Q + x * L::Q_BOX + y * KEYS * ROW_BYTES, qmap, q_full, x * BOX, h,
+        tma_load(base + L::Q + x * L::Q_BOX + y * KEYS * W::ROW, qmap, q_full, x * W::COLS, h,
                  q0 + y * KEYS, b);
   };
   auto load_kv = [&](int j) {
@@ -866,15 +890,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(empty(s), ((j / S) & 1) ^ 1);    // round 0 finds every stage free
     mbar_expect(k_full(s), L::KV_TILE);
     for (int x = 0; x < L::BOXES; ++x)
-      tma_load(base + L::K + s * L::KV_TILE + x * L::KV_BOX, kmap, k_full(s), x * BOX, hk,
+      tma_load(base + L::K + s * L::KV_TILE + x * L::KV_BOX, kmap, k_full(s), x * W::COLS, hk,
                j * KEYS, b);
     mbar_expect(v_full(s), L::KV_TILE);
     for (int x = 0; x < L::BOXES; ++x)
-      tma_load(base + L::V + s * L::KV_TILE + x * L::KV_BOX, vmap, v_full(s), x * BOX, hk,
+      tma_load(base + L::V + s * L::KV_TILE + x * L::KV_BOX, vmap, v_full(s), x * W::COLS, hk,
                j * KEYS, b);
   };
-  // The wide kernels' loader: consumer 1's first thread, which loads Q and
-  // the first S tiles here and tile j + S - 1 in its turn j (below).
+  // The loader of the layouts without a producer (the widest and the
+  // narrow tiles): consumer 1's first thread, which loads Q and the first S
+  // tiles here and tile j + S - 1 in its turn j (below).
   constexpr int LOADER = 128;
 
   if (R::producer()) {
@@ -892,7 +917,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row = q0 + 64 * c + 16 * warp + g;     // this thread's rows: row, row + 8
     const long long qpos = static_cast<long long>(offset) + row;
     const long long first = static_cast<long long>(offset) + q0 + 64 * c;
-    const uint32_t qa = base + L::Q + c * 64 * ROW_BYTES;
+    const uint32_t qa = base + L::Q + c * 64 * W::ROW;
 
     float s[KEYS / 2];    // S for KEYS keys, then P in fp32
     float acc[D / 2];     // O
@@ -979,17 +1004,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D =
-// 128; DO = 0: the head dim dh, a multiple of 8, in (D - 64, D]; DO = -1:
-// any dh there), T bf16 or fp16.
+// 128; DO = 0: the head dim dh, a multiple of 8, in [least_dim(D), D]; DO =
+// -1: any dh there), T bf16 or fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
                    int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
-  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
-                "DO: the head dim in D's last box");
-  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || D - dh >= BOX))
+  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && DO >= least_dim(D)),
+                "DO: a head dim of D's tiles");
+  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || dh < least_dim(D)))
     return cudaErrorInvalidValue;
   if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
-  using R = Roles<(D > 192)>;
+  using R = RolesOf<D>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T>);
   if (err != cudaSuccess) return err;
@@ -1004,13 +1029,19 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
   return cudaGetLastError();
 }
 
-// The run-time head dim's instantiations: tiles as wide as the least
-// multiple of 64 that holds d (64, 128, 192 or 256), DO 0 (d a multiple of
-// 8) or -1 (any d: the guarded stores).
+// The run-time head dim's instantiations: tiles tile_of(d) wide (16, 32,
+// 64, 128, 192 or 256), DO 0 (d a multiple of 8) or -1 (any d: the guarded
+// stores).
 template <int DO, typename T>
 int by_tile(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, int hq, int hkv,
             int d, int offset, dim3 grid, size_t smem, cudaStream_t s) {
-  switch ((d + 63) / 64 * 64) {
+  switch (tile_of(d)) {
+    case 16:
+      return static_cast<int>(launch<16, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
+    case 32:
+      return static_cast<int>(launch<32, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
     case 64:
       return static_cast<int>(launch<64, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
                                                 smem, s));
@@ -1039,9 +1070,10 @@ extern "C" {
 // causal_offset >= 0.  The grid must be the kernels' (ceil(sq / 64), hq, b),
 // as the wrapper plans it.  The 16-bit kernels copy 16 bytes at a time where
 // d, the strides and the starts allow it, else element by element; given
-// `lse` ((b, hq, sq) float32), they also store each row's log-sum-exp for
-// the backward's "mma" route (flash_f32_kernel, the first fp32 design,
-// takes none; gqa_flash_tiled is fp32's route).
+// `lse` ((b, hq, sq) float32), they also store each row's log-sum-exp, as
+// the Hopper kernel does (flash_f32_kernel, the first fp32 design, takes
+// none; gqa_flash_tiled is fp32's route).  Both run only on request, the
+// yardsticks of the Hopper and tiled kernels.
 int gqa_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                   int b, int sq, int sk, int hq, int hkv, int d, int causal_offset,
                   long long q_sb, long long q_ss, long long q_sh, long long k_sb,
@@ -1111,17 +1143,18 @@ int gqa_flash_tiled(const void* q, const void* k, const void* v, void* o, float*
 }
 
 // dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),
-// 32 < d <= 256, through the Hopper kernel: bf16 at d 64,
+// 1 <= d <= 256, through the Hopper kernel: bf16 at d 64,
 // 112 and 128 on instantiations of their own (d = 112 on the d = 128
-// tiles), every other d on the tiles 64, 128, 192 or 256 wide (the least
-// multiple of 64 that holds d) with the head dim taken at run time; o (b,
+// tiles), every other d on the tiles 16, 32, 64, 128, 192 or 256 wide
+// (hopper::tile_of(d)) with the head dim taken at run time; o (b,
 // sq, hq, d) contiguous; lse, when not null, (b, hq, sq) float32: each
 // row's log-sum-exp for the backward.  TMA needs byte strides that are
 // multiples of 16, so at a d off a multiple of 8 the wrapper hands in views
 // of copies whose rows are ceil(d / 8) * 8 wide.  `maps` holds, for q, k and v in
 // turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
-// strides along h, s and b, and its box (64, 1, R, 1), R the keys of a K/V
-// tile (128 up to d 128, else 64).  The grid is (hq, b, ceil(sq / 128));
+// strides along h, s and b, and its box (w, 1, R, 1), w 16, 32 or 64 (the
+// tiles' width up to 64), R the keys of a K/V tile (128 up to d 128, else
+// 64).  The grid is (hq, b, ceil(sq / 128));
 // `smem` the kernel's dynamic shared memory.
 int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void* o,
                     float* lse, int b, int sq, int sk, int hq, int hkv, int d,
@@ -1130,7 +1163,7 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   using hopper::ROWS;
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
-      grid_z > 65535 || (dtype != 1 && dtype != 2) || d <= 32 || d > 256)
+      grid_z > 65535 || (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];

@@ -18,12 +18,12 @@
 // dK and dV summed over the Hq / Hkv query heads of their KV head.
 // Outputs are written in the inputs' dtype (float32, bfloat16 or float16;
 // the wrapper runs float64 on fp32 copies), at any head dim 1 <= D <= 256.
-// Three routes, picked by dtype and D alone
-// (kernels/flash_attention.py::bwd_route), and a fourth on request:
+// Two routes, picked by dtype and D alone
+// (kernels/flash_attention.py::bwd_route), and two more on request:
 //
-// "wgmma" (bf16 and fp16 at every D in (32, 256], where the forward's route
-// is the Hopper kernel; every model config that trains in bf16), namespace
-// wg.  The forward's flash_wgmma_kernel writes each row's
+// "wgmma" (bf16 and fp16 at every D in [1, 256], where the forward's route
+// is the Hopper kernel; every model config that trains in bf16, and the
+// example trainers), namespace wg.  The forward's flash_wgmma_kernel writes each row's
 // LSE, so P = exp(S * scale - LSE) needs no statistics pass.  Two kernels,
 // each a TMA producer warpgroup (one thread issuing 4-D tensor-map loads
 // with 128-byte swizzle, boxes of 64 rows x 64 bf16) and two wgmma consumer
@@ -81,14 +81,27 @@
 // stage once consumer 0's P^T of tile j is in, which it wrote after
 // releasing tile j - 1.  Width 192 fits 168 registers and keeps the
 // producer warpgroup (hopper.cuh, Roles).
+// At D <= 32 (train_carbon_aware's tiny preset, D 16, and 10m, D 32) the
+// tiles are 16 or 32 columns wide (hopper.cuh, Swz: boxes as wide as the
+// tile under the 32- or 64-byte swizzle, descriptors of that layout, dQ +=
+// dS K and dK/dV's products at N 16 or 32).  There one exponential a score
+// in each kernel (0.069 ms at B 4, S 2048, 16 x 8 heads at ~3.9 T/s) sets
+// the floor, not the seven products (0.043 ms), and a tile's cost is its
+// exponentials, waits and barriers: the narrow kernels run without the
+// producer warpgroup, two blocks an SM (RolesOf), four consumer
+// warpgroups an SM hiding each other's waits; in 128 registers a thread
+// (dQ at 128, dK/dV 107-111, no spill) the 64-key dQ tiles and 64-row
+// dK/dV tiles stay (S and dP of 64 keys beside dS and dQ; twice the keys
+// or rows would pass 128).  The pair took 0.285 ms there on an H100 (dQ
+// 0.127, dK/dV 0.157), the producer layout's 0.355, the mma pair below
+// 0.539 (scripts/kernel_splits.py narrow and mma).
 // Rows past Sq add nothing: their Q and dO land as zeros and their LSE and
 // D_i are taken as 0, so dS and P^T dO vanish there; tiles that cross the
 // diagonal or the end of K are masked.
 //
-// "mma" (bf16 and fp16 at D <= 32, where the forward is flash_mma_kernel;
-// the example trainers' heads, train_carbon_aware's tiny preset at D 16),
-// namespace mm.  flash_mma_kernel writes each row's LSE, so no statistics
-// pass: two kernels of 4 warps on mma.sync m16n8k16 (.bf16 or .f16), tiles
+// "mma" (only on request, route="mma": bf16 and fp16 at D <= 32, the
+// yardstick of the narrow wgmma kernels), namespace mm.  It reads the forward's LSE (either forward writes one), so no
+// statistics pass: two kernels of 4 warps on mma.sync m16n8k16 (.bf16 or .f16), tiles
 // of 64 rows and 64 keys with rows of DP + 8 elements (DP 16 or 32, the
 // columns past D zero), launched in this order:
 //   flash_bwd_dq_mma_kernel: one block per (64 query rows, query head,
@@ -682,7 +695,12 @@ constexpr int WIDE_BOX_ROWS = 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The tiling of the kernels on tiles D wide: TMA boxes' rows, dQ's keys per
-// tile, and each ring's depth, what fits 227 KB (at most STAGES).
+// tile, and each ring's depth, what fits 227 KB (at most STAGES).  The
+// narrow tiles (16 and 32 wide: hopper.cuh, RolesOf) run two blocks an SM,
+// 128 registers a thread: a dQ consumer holds S and dP of 64 keys (64
+// floats) beside dS (16) and dQ (at most 16), a dK/dV consumer S^T of 64
+// rows (32) beside P^T (16) and its output, so the 64-key and 64-row tiles
+// stay; twice their keys or rows would pass the 128 registers.
 template <int D>
 struct Tiling {
   static constexpr int BOX_ROWS = D > 128 ? WIDE_BOX_ROWS : wg::BOX_ROWS;
@@ -691,12 +709,13 @@ struct Tiling {
   static constexpr int KV_STAGES = D == 256 ? 2 : D == 192 ? 3 : STAGES;
 };
 
-// A tile of R rows by D columns in shared memory: D / 64 column boxes, each R
-// rows of 128 swizzled bytes, filled by boxes of Tiling<D>::BOX_ROWS rows.
+// A tile of R rows by D columns in shared memory: D / Swz<D>::COLS column
+// boxes (one at widths 16 and 32), each R rows of Swz<D>::ROW swizzled
+// bytes, filled by boxes of Tiling<D>::BOX_ROWS rows.
 template <int D, int R>
 struct Tile {
-  static constexpr uint32_t BOX_STRIDE = R * ROW_BYTES;   // from one column box to the next
-  static constexpr uint32_t BYTES = (D / BOX) * BOX_STRIDE;
+  static constexpr uint32_t BOX_STRIDE = R * Swz<D>::ROW;   // from one column box to the next
+  static constexpr uint32_t BYTES = (D / Swz<D>::COLS) * BOX_STRIDE;
 };
 
 // Shared memory of the dQ kernel, from a 1024-byte aligned base: Q and dO
@@ -743,12 +762,13 @@ struct KvLayout {
 template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, uint32_t bar,
                                           int h, int r0, int b) {
+  using W = Swz<D>;
   constexpr int BR = Tiling<D>::BOX_ROWS;
 #pragma unroll
-  for (int x = 0; x < D / BOX; ++x)
+  for (int x = 0; x < D / W::COLS; ++x)
 #pragma unroll
     for (int y = 0; y < R / BR; ++y)
-      tma_load(dst + x * Tile<D, R>::BOX_STRIDE + y * BR * ROW_BYTES, map, bar, x * BOX, h,
+      tma_load(dst + x * Tile<D, R>::BOX_STRIDE + y * BR * W::ROW, map, bar, x * W::COLS, h,
                r0 + y * BR, b);
 }
 
@@ -758,12 +778,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, 
 // into a swizzled row (the qk pattern of the forward).
 template <int D, uint32_t A_STRIDE, uint32_t B_STRIDE, typename T, int N = 64>
 __device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
-  wgmma_ss<N, true, T>(acc, sw128_desc(a, 16, GROUP_BYTES), sw128_desc(b, 16, GROUP_BYTES));
+  using W = Swz<D>;
+  wgmma_ss<N, true, T>(acc, W::desc(a, 16, W::GROUP), W::desc(b, 16, W::GROUP));
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss<N, false, T>(acc,
-                          sw128_desc(a + (kk / 4) * A_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES),
-                          sw128_desc(b + (kk / 4) * B_STRIDE + (kk % 4) * 32, 16, GROUP_BYTES));
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const int box = kk / W::KSTEPS, at = (kk % W::KSTEPS) * 32;
+    wgmma_ss<N, false, T>(acc, W::desc(a + box * A_STRIDE + at, 16, W::GROUP),
+                          W::desc(b + box * B_STRIDE + at, 16, W::GROUP));
+  }
 }
 
 // acc (64 x D, fp32) += A B (issued, not committed): A 64 x K in registers
@@ -773,9 +795,10 @@ __device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint
 template <int D, uint32_t B_STRIDE, typename T, int K = 64>
 __device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
                                            uint32_t b) {
+  using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs<D, T>(acc, a + 4 * kk, sw128_desc(b + kk * 16 * ROW_BYTES, B_STRIDE, GROUP_BYTES));
+    wgmma_rs<D, T>(acc, a + 4 * kk, W::desc(b + kk * 16 * W::ROW, B_STRIDE, W::GROUP));
 }
 
 // Arrive on `bar` once this thread's earlier cp.async copies have landed
@@ -812,7 +835,7 @@ __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, u
 // the staged dO element by element, and every store is guarded by column: hopper.cuh, store2; separate instantiations, so that the
 // multiples of 8 keep their unguarded code).  T is bf16 or fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
+__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
@@ -821,7 +844,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk, int hq,
                           int group, int offset, int dh, float scale_log2, float scale) {
   using L = DqLayout<D>;
-  using R = Roles<(D > 192)>;
+  using R = RolesOf<D>;
   constexpr int KEYS = L::KEYS, STAGES = L::STAGES;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
@@ -850,7 +873,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     load_tile<D, KEYS>(base + L::K + s * L::Keys::BYTES, kmap, kv_full(s), hk, j * KEYS, b);
     load_tile<D, KEYS>(base + L::V + s * L::Keys::BYTES, vmap, kv_full(s), hk, j * KEYS, b);
   };
-  if (R::WIDE && threadIdx.x == 0) {      // the wide kernels' loader: consumer 0's first thread
+  if (R::WIDE && threadIdx.x == 0) {      // the loader without a producer: consumer 0's first thread
     load_rows();
     for (int j = 0; j < min(STAGES, n_tiles); ++j) load_kv(j);
   }
@@ -940,8 +963,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     float acc[D / 2];     // dQ
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    const uint32_t qa = base + L::Q + c * BOX_ROWS * ROW_BYTES;
-    const uint32_t da = base + L::DOUT + c * BOX_ROWS * ROW_BYTES;
+    const uint32_t qa = base + L::Q + c * 64 * Swz<D>::ROW;
+    const uint32_t da = base + L::DOUT + c * 64 * Swz<D>::ROW;
     const long long first = static_cast<long long>(offset) + q0 + 64 * c;   // first row's position
     const long long qpos = static_cast<long long>(offset) + row;
     mbar_wait(q_full, 0);
@@ -1037,7 +1060,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // MN-major.  Each dK/dV element has one writer and its sum one order.  D,
 // DO (0: `dh` at run time) and T as in the dQ kernel.
 template <int D, int DO = D, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(Roles<(D > 192)>::THREADS, 1)
+__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -1046,7 +1069,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int hq,
                             int group, int offset, int dh, float scale_log2, float scale) {
   using L = KvLayout<D>;
-  using R = Roles<(D > 192)>;
+  using R = RolesOf<D>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
@@ -1231,12 +1254,12 @@ size_t smem_bytes(int which) {
   return which == DQ ? DqLayout<D>::SMEM : KvLayout<D>::SMEM;
 }
 
-template <bool WIDE, typename Fn>
+template <class R, typename Fn>
 cudaError_t prepare(Fn kernel, size_t smem) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (!Roles<WIDE>::launchable(attr.numRegs)) return cudaErrorLaunchOutOfResources;
+  if (!R::launchable(attr.numRegs)) return cudaErrorLaunchOutOfResources;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -1249,30 +1272,31 @@ struct Args {
 };
 
 // The kernel `which` on tiles D wide for head dim DO (DO = 0: dh, a
-// multiple of 8, in (D - 64, D]; DO = -1: any dh there), T bf16 or fp16.
+// multiple of 8, in [least_dim(D), D]; DO = -1: any dh there), T bf16 or
+// fp16.
 template <int D, int DO = D, typename T = __nv_bfloat16>
 cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int sq, int sk,
                    int hq, int hkv, int dh, int offset, dim3 grid, size_t smem,
                    cudaStream_t stream) {
-  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && D - DO < BOX),
-                "DO: the head dim in D's last box");
-  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || D - dh >= BOX))
+  static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && DO >= least_dim(D)),
+                "DO: a head dim of D's tiles");
+  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || dh < least_dim(D)))
     return cudaErrorInvalidValue;
   if (smem != smem_bytes<D>(which)) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   const float scale_log2 = scale * LOG2E;
-  constexpr bool WIDE = D > 192;
-  constexpr int THREADS = Roles<WIDE>::THREADS;
+  using R = RolesOf<D>;
+  constexpr int THREADS = R::THREADS;
   cudaError_t err;
   if (which == DQ) {
-    if ((err = prepare<WIDE>(flash_bwd_dq_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+    if ((err = prepare<R>(flash_bwd_dq_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
       return err;
     flash_bwd_dq_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(a.o),
         static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(a.dq), sq, sk, hq,
         hq / hkv, offset, dh, scale_log2, scale);
   } else {
-    if ((err = prepare<WIDE>(flash_bwd_dkdv_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+    if ((err = prepare<R>(flash_bwd_dkdv_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
       return err;
     flash_bwd_dkdv_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], a.lse, a.dvec, static_cast<T*>(a.dk),
@@ -1281,13 +1305,19 @@ cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int s
   return cudaGetLastError();
 }
 
-// The run-time head dim's instantiations: tiles as wide as the least
-// multiple of 64 that holds d (64, 128, 192 or 256), DO 0 (d a multiple of
-// 8) or -1 (any d: the guarded stores, element loads in D_i).
+// The run-time head dim's instantiations: tiles tile_of(d) wide (16, 32,
+// 64, 128, 192 or 256), DO 0 (d a multiple of 8) or -1 (any d: the guarded
+// stores, element loads in D_i).
 template <int DO, typename T>
 int by_tile(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int sk, int hq,
             int hkv, int d, int offset, dim3 grid, size_t smem, cudaStream_t s) {
-  switch ((d + 63) / 64 * 64) {
+  switch (tile_of(d)) {
+    case 16:
+      return static_cast<int>(launch<16, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
+    case 32:
+      return static_cast<int>(launch<32, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset, grid,
+                                                smem, s));
     case 64:
       return static_cast<int>(launch<64, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset, grid,
                                                 smem, s));
@@ -2001,13 +2031,13 @@ int gqa_flash_bwd(int which, int dtype, const void* q, const void* k, const void
 // dout are what the tensor maps read: the inputs, or at a d off a multiple
 // of 8 views of copies with rows ceil(d / 8) * 8 wide (TMA's byte strides
 // are multiples of 16); dout's rows are ceil(d / 8) * 8 wide in any case
-// (the D_i pass reads it so, beside o).  32 < d <= 256: bf16 at d 64, 112
+// (the D_i pass reads it so, beside o).  1 <= d <= 256: bf16 at d 64, 112
 // and 128 on instantiations of their own (d = 112 on the d = 128 tiles),
-// every other d on the tiles 64, 128, 192 or 256 wide (the least multiple
-// of 64 that holds d) with the head dim taken at run time; hq a multiple of
-// hkv, causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn, eleven
-// numbers (gqa_flash_wgmma's, with box (64, 1, R, 1): R 64 up to d 128,
-// else 32).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
+// every other d on the tiles 16, 32, 64, 128, 192 or 256 wide
+// (hopper::tile_of(d)) with the head dim taken at run time; hq a multiple
+// of hkv, causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn,
+// eleven numbers (gqa_flash_wgmma's, with box (w, 1, R, 1): w 16, 32 or 64,
+// R 64 up to d 128, else 32).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
 // dQ, (hkv, b, ceil(sk / 64)) for dK/dV; `smem` its dynamic shared memory.
 int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse, float* dvec,
@@ -2016,7 +2046,7 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
                         int grid_y, int grid_z, long long smem, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || (which != wg::DQ && which != wg::DKDV) ||
-      (dtype != 1 && dtype != 2) || d <= 32 || d > 256)
+      (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
   const int tiles = ((which == wg::DQ ? sq : sk) + rows - 1) / rows;
@@ -2056,7 +2086,7 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
 // The "mma" route.  which: 0 = dQ (and D_i), 1 = dK/dV, launched in that
 // order; dtype 1 = bfloat16, 2 = float16.  q, o, dout, dq (b, sq, hq, d) and
 // k, v, dk, dv (b, sk, hkv, d) contiguous; lse, the forward's (b, hq, sq)
-// (flash_mma_kernel's), and dvec (b, hq, sq) float32: the dQ kernel writes
+// (either forward's), and dvec (b, hq, sq) float32: the dQ kernel writes
 // D_i there, the dK/dV kernel reads it.  1 <= d <= 32, on padded width 16 or
 // 32; hq a multiple of hkv, causal_offset >= 0.  The grid must be the
 // kernel's: (ceil(sq / 64), hq, b) for dQ, (ceil(sk / 64), hkv, b) for

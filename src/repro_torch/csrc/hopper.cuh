@@ -5,9 +5,10 @@
 // mma.sync m16n8k16, ldmatrix, 16-byte cp.async and the tile loader of the
 // mma.sync kernels; and, for Hopper, mbarriers,
 // TMA loads through 4-D tensor maps over (B, S, H, D) 16-bit elements with
-// 128-byte swizzle, wgmma descriptors and products (each for either element
-// type, bf16 by default: S-like products K-major from shared memory at N 32,
-// 64 and 128; O-like products with A in registers and B MN-major at N 64,
+// 32-, 64- or 128-byte swizzle (tiles 16, 32, or 64 and more columns wide:
+// Swz), wgmma descriptors and products (each for either element type, bf16
+// by default: S-like products K-major from shared memory at N 32, 64 and
+// 128; O-like products with A in registers and B MN-major at N 16, 32, 64,
 // 128, 192 and 256, the tiles' widths), and the encoding of the tensor maps
 // on the host.
 // Everything has internal linkage: each library that includes it gets its
@@ -173,8 +174,41 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int rows
 namespace hopper {
 
 constexpr int BOX = 64;            // bf16 per 128-byte swizzled row: a box's inner extent
-constexpr uint32_t ROW_BYTES = 128;
-constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;   // 8 rows, one swizzle atom: wgmma's SBO
+
+// The width of the tiles that head dim d runs on: 16 up to 16, 32 up to 32,
+// else the least multiple of BOX that holds it (64, 128, 192 or 256); and
+// the least head dim a tile of width w takes (the widths below it take the
+// rest).
+__host__ __device__ constexpr int tile_of(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : (d + BOX - 1) / BOX * BOX;
+}
+__host__ __device__ constexpr int least_dim(int w) {
+  return w == 16 ? 1 : w == 32 ? 17 : w == 64 ? 33 : w - BOX + 1;
+}
+
+// The swizzled layout of tiles D columns wide: rows of COLS 16-bit elements
+// (a box's inner extent: 16, 32, or 64 from width 64 on), ROW bytes each,
+// under the swizzle of the same span (32, 64 or 128 bytes), which TMA writes
+// and wgmma reads through descriptors of layout type LAYOUT (3, 2 or 1).  A
+// tile wider than 64 lies as D / 64 such column boxes one after another.  A
+// row holds KSTEPS steps of 16 along D, 32 bytes each; 8 rows (GROUP bytes)
+// are one swizzle atom, wgmma's stride byte offset.  Tiles start at
+// multiples of 1024 bytes, where every swizzle's pattern starts.
+template <int D>
+struct Swz {
+  static constexpr int COLS = D < BOX ? D : BOX;
+  static constexpr uint32_t ROW = 2 * COLS;
+  static constexpr uint32_t GROUP = 8 * ROW;
+  static constexpr int KSTEPS = ROW / 32;
+  static constexpr uint64_t LAYOUT = COLS == 16 ? 3 : COLS == 32 ? 2 : 1;
+  static_assert(COLS == 16 || COLS == 32 || COLS == BOX, "a tile width");
+  // wgmma's descriptor of a matrix at `addr`: start address, leading and
+  // stride byte offsets (in 16-byte units), the layout type.
+  __device__ static uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+           static_cast<uint64_t>(sbo >> 4) << 32 | LAYOUT << 62;
+  }
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -225,13 +259,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, u
       : "memory");
 }
 
-// wgmma's descriptor of a 128-byte-swizzled matrix in shared memory: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
 // The roles of the threads of a block of two consumer warpgroups (the
 // forward's and the backward's wgmma kernels).  Up to tile width 128 (WIDE
 // false) a producer warpgroup 0 issues the TMA loads and gives registers to
@@ -247,10 +274,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 // stage it fills is known to be free.  Tiles 192 wide fit 168 registers and
 // keep the producer, which timed faster there than the consumers alone (trial
 // builds with Roles<true> at 192); chip_smoke.py times the bf16 D 192
-// forward and backward on this layout, the yardstick for a re-check.
-template <bool W>
+// forward and backward on this layout, the yardstick for a re-check.  The
+// narrow tiles (16 and 32 wide, NARROW) take the layout without a producer
+// too, two blocks an SM (BLOCKS): at these widths a tile holds little work
+// for its barriers and waits (the exponentials set the floor, not the
+// products), and a consumer's O, S and P fit the 128 registers that two
+// blocks of 256 threads leave a thread, so four consumer warpgroups share an
+// SM where the producer layout runs two.
+template <bool W, int B = 1>
 struct Roles {
   static constexpr bool WIDE = W;
+  static constexpr int BLOCKS = B;
   static constexpr int THREADS = WIDE ? 256 : 384;
   static constexpr int CONSUMER = WIDE ? 0 : 128;      // consumer 0's first thread
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
@@ -269,6 +303,11 @@ struct Roles {
     return WIDE || regs * THREADS >= PRODUCER_REGS * 128 + CONSUMER_REGS * 256;
   }
 };
+
+// The widest tiles of the narrow layout, and the roles of the tiles D wide.
+constexpr int NARROW = 32;
+template <int D>
+using RolesOf = Roles<(D > 192 || D <= NARROW), (D <= NARROW ? 2 : 1)>;
 
 // Named barrier `id` over the 256 threads of the two consumer warpgroups (0
 // is __syncthreads): wait for all 256, or arrive without waiting.
@@ -386,6 +425,43 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
     WGMMA_RS_N128_ASM("f16");
   else
     WGMMA_RS_N128_ASM("bf16");
+}
+
+// d (64 x 16, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 16, shared
+// memory, MN-major: the transpose bit is set).
+#define WGMMA_RS_N16_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7" \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N16_ASM("f16");
+  else
+    WGMMA_RS_N16_ASM("bf16");
+}
+
+// d (64 x 32, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 32, shared
+// memory, MN-major: the transpose bit is set).
+#define WGMMA_RS_N32_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N32_ASM("f16");
+  else
+    WGMMA_RS_N32_ASM("bf16");
 }
 
 // d (64 x 64, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 64, shared
@@ -567,19 +643,24 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a
 }
 
 // The product of each width: d (64 x N, fp32) += a (64 x 16, registers) *
-// b (16 x N, MN-major) at N 64, 128, 192 or 256; and d (64 x N) = a b
+// b (16 x N, MN-major) at N 16, 32, 64, 128, 192 or 256; and d (64 x N) = a b
 // (FIRST) or += a b, both K-major in shared memory, at N 32, 64 or 128.
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "a tile width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "a tile width");
   if constexpr (N == 256)
     wgmma_rs_n256<T>(d, a, b);
   else if constexpr (N == 192)
     wgmma_rs_n192<T>(d, a, b);
   else if constexpr (N == 128)
     wgmma_rs_n128<T>(d, a, b);
-  else
+  else if constexpr (N == 64)
     wgmma_rs_n64<T>(d, a, b);
+  else if constexpr (N == 32)
+    wgmma_rs_n32<T>(d, a, b);
+  else
+    wgmma_rs_n16<T>(d, a, b);
 }
 template <int N, bool FIRST, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
@@ -630,13 +711,16 @@ EncodeTiled encode_tiled() {
 // Tensor maps over n (B, S, H, D) tensors of 16-bit elements (bf16, or fp16
 // with `f16`), from the wrapper's numbers: eleven for each
 // (kernels/flash_attention.py::tensor_map), its dims (d, h, s, b), byte
-// strides along h, s and b, and box (BOX, 1, box_rows, 1).  128-byte
-// swizzle; boxes reaching past S or D land as zeros.  Returns 0, a
+// strides along h, s and b, and box (w, 1, box_rows, 1), w the inner extent
+// of the tiles of head dim d (Swz<tile_of(d)>::COLS: 16, 32 or 64).  The
+// swizzle spans a box's row, 2 w bytes (32, 64 or 128: the wrapper's
+// tma_swizzle); boxes reaching past S or D land as zeros.  Returns 0, a
 // cudaError_t, or the CUresult of a failed encoding negated.
 int encode_maps(CUtensorMap* tm, const void* const* ptrs, int n,
                 const unsigned long long* maps, int d, unsigned box_rows, bool f16 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t cols = tile_of(d) < BOX ? tile_of(d) : BOX;
   for (int i = 0; i < n; ++i) {
     const unsigned long long* m = maps + 11 * i;
     const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
@@ -644,13 +728,16 @@ int encode_maps(CUtensorMap* tm, const void* const* ptrs, int n,
     const cuuint32_t box[4] = {static_cast<cuuint32_t>(m[7]), static_cast<cuuint32_t>(m[8]),
                                static_cast<cuuint32_t>(m[9]), static_cast<cuuint32_t>(m[10])};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (dims[0] != static_cast<cuuint64_t>(d) || box[0] != BOX || box[1] != 1 ||
+    if (dims[0] != static_cast<cuuint64_t>(d) || box[0] != cols || box[1] != 1 ||
         box[2] != box_rows || box[3] != 1)
       return static_cast<int>(cudaErrorInvalidValue);
+    const CUtensorMapSwizzle swizzle = cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                       : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_128B;
     const CUresult r = encode(&tm[i], f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                               const_cast<void*>(ptrs[i]), dims, strides, box, unit,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);

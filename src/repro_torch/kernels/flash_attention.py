@@ -10,23 +10,26 @@ fp32.  On CPU tensors it runs ``gqa_flash_plain``; on CUDA tensors it
 launches a kernel of ``csrc/flash_attention.cu`` (float16, bfloat16, float32
 or float64 at any head dim 1 <= D <= 256, as the reference's Pallas kernel
 takes any) or raises.  ``route`` picks the kernel from the dtype and D alone:
-bf16 and fp16 at every D in (32, 256] go to the Hopper kernel (wgmma fed
-by TMA over tiles 64, 128, 192 or 256 columns wide, the least multiple of
-64 that holds D, whose columns past D TMA fills with zeros, storing D
-columns; key tiles of 128 up to width 128, of 64 past it; bf16 at D 64,
-112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own: llama3-8b
-and the MoE configs take 64 or 128, zamba2-7b's shared attention 112),
-bf16 and fp16 at D <= 32 to the ``mma.sync`` kernel (the example trainers'
-heads: ``repro_torch.examples.train_carbon_aware``'s tiny preset has D
-16), fp32 to the tiled fp32 kernel (route "fp32", ``flash_tiled_kernel``:
-register micro-tiles on the FMA pipe, over the least multiple of 8 that
-holds D, ``tiled_width``; tiles and grids by ``tiled_fwd_tiling``), and fp64
-to it on fp32 copies, the output cast back, as the reference's kernel body
-computes in fp32.  The first design's fp32 kernel (``flash_f32_kernel``)
-runs only when named, ``kernel="fp32_simple"``, the yardstick.  The
-mma.sync and first-design fp32 kernels run on the least padded width of
-16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads zero past
-D.  An input whose layout the route cannot read is copied first, and each copy
+bf16 and fp16 at every D go to the Hopper kernel (wgmma fed by TMA over
+tiles ``wgmma_tile_dim(D)`` wide: 16 up to D 16, 32 up to D 32, else the
+least multiple of 64 that holds D, 64, 128, 192 or 256, whose columns past
+D TMA fills with zeros, storing D columns; key tiles of 128 up to width
+128, of 64 past it; the narrow tiles 16 and 32 wide under the 32- and
+64-byte swizzle, two blocks an SM without a producer warpgroup; bf16 at D
+64, 112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own:
+llama3-8b and the MoE configs take 64 or 128, zamba2-7b's shared attention
+112; the example trainers' heads are narrow:
+``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16, its
+10m preset D 32), fp32 to the tiled fp32 kernel (route "fp32",
+``flash_tiled_kernel``: register micro-tiles on the FMA pipe, over the
+least multiple of 8 that holds D, ``tiled_width``; tiles and grids by
+``tiled_fwd_tiling``), and fp64 to it on fp32 copies, the output cast back,
+as the reference's kernel body computes in fp32.  Two first designs run
+only when named, the yardsticks: the ``mma.sync`` kernel for 16-bit inputs
+(``kernel="mma_sync"``, ``flash_mma_kernel``) and the first fp32 kernel
+(``kernel="fp32_simple"``, ``flash_f32_kernel``), both on the least padded
+width of 16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads
+zero past D.  An input whose layout the route cannot read is copied first, and each copy
 adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
 strides multiples of 16, a 16-byte aligned start) into a buffer of rows
 ``tma_width(D)`` wide, handed in as its [..., :D] view (``stage``; every
@@ -46,17 +49,17 @@ tensors, each row's log-sum-exp that the forward kernel wrote beside it
 ``gqa_flash_bwd_plain``, the explicit fp32 gradient of ``gqa_flash_plain``;
 on CUDA tensors the kernels of ``csrc/flash_attention_bwd.cu`` on the route
 ``bwd_route`` picks from the dtype and D alone: "wgmma" where the
-forward's route is "wgmma" (two Hopper kernels, dQ then dK/dV, on the
-forward's tiles, reading the forward's LSE; past width 128 dQ's key tiles
-are 32 and every TMA box 32 rows), "mma" for bf16 and fp16 at D <= 32 (two
-``mma.sync`` kernels, dQ then dK/dV, reading the ``mma.sync`` forward's
-LSE), "tiled" for fp32 and fp64 (two register-tiled fp32 FMA kernels, dQ
-then dK/dV, reading the tiled forward's LSE; fp64 on fp32 copies, the
-gradients cast back), each with the plain version
-``gqa_flash_bwd_lse_plain`` (unrounded for "tiled"); and "fma" only on
-request (the first design's three fp32 FMA kernels: row statistics,
-dK/dV, dQ, on the padded widths, with tiles of 32 rows at width 256; the
-yardstick), planned by ``plan_bwd``.  Each backward
+forward's route is, every 16-bit D (two Hopper kernels, dQ then dK/dV, on
+the forward's tiles, reading the forward's LSE; past width 128 dQ's key
+tiles are 32 and every TMA box 32 rows), "tiled" for fp32 and fp64 (two
+register-tiled fp32 FMA kernels, dQ then dK/dV, reading the tiled forward's
+LSE; fp64 on fp32 copies, the gradients cast back), each with the plain
+version ``gqa_flash_bwd_lse_plain`` (unrounded for "tiled"); and, only on
+request, the yardsticks "mma" for bf16 and fp16 at D <= 32 (two
+``mma.sync`` kernels, dQ then dK/dV, reading an LSE such as the
+``mma.sync`` forward writes) and "fma" (the first design's three fp32 FMA
+kernels: row statistics, dK/dV, dQ, on the padded widths, with tiles of 32
+rows at width 256), planned by ``plan_bwd``.  Each backward
 adds one to ``launches["gqa_flash_bwd"]`` and one to each of its kernels'
 counts.  Under ``no_grad``, or on tensors that need no grad, ``gqa_flash``
 is the serving path above, unchanged: it asks for no LSE, and the output's
@@ -94,8 +97,8 @@ _HALF = (torch.bfloat16, torch.float16)
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 #: The routes of the model configs' (dtype, D) pairs, pinned.
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
-          (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 16): "mma_sync",
-          (torch.bfloat16, 32): "mma_sync", (torch.float32, 16): "fp32",
+          (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 16): "wgmma",
+          (torch.bfloat16, 32): "wgmma", (torch.float32, 16): "fp32",
           (torch.float32, 32): "fp32", (torch.float32, 64): "fp32",
           (torch.float32, 112): "fp32", (torch.float32, 128): "fp32"}
 #: The bf16 head dims with a Hopper instantiation of their own, and the
@@ -111,6 +114,14 @@ WGMMA_ROWS = 128        # query rows per block
 WGMMA_KEYS = 128        # keys per tile and the boxes' rows, up to width 128
 WGMMA_WIDE_KEYS = 64    # the same past width 128 (``wgmma_keys``)
 TMA_BOX_COLS = 64       # 16-bit elements per 128-byte swizzled row: a box's inner extent
+#: The narrow tiles (widths 16 and 32, up to ``WGMMA_NARROW``): a box as
+#: wide as the tile under the 32- or 64-byte swizzle, two blocks an SM of
+#: 256 threads (no producer warpgroup: ``hopper.cuh::RolesOf``), a ring of
+#: ``WGMMA_NARROW_STAGES`` in the forward.
+WGMMA_NARROW = 32
+WGMMA_NARROW_STAGES = 4
+#: ``CUtensorMapSwizzle`` of a box's row bytes: 32, 64 or 128 (``tma_swizzle``).
+TMA_SWIZZLE = {32: 1, 64: 2, 128: 3}
 # The mma.sync and fp32 kernels' tiling: query rows per block (grid
 # (ceil(Sq / 64), Hq, B)).
 FWD_ROWS = 64
@@ -303,36 +314,26 @@ def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
-    "wgmma" for bf16 and fp16 at every D in (32, 256], "mma_sync" for them
-    at D <= 32, "fp32" for fp32 and fp64 (``flash_tiled_kernel``; the
-    first design's fp32 kernel, "fp32_simple", only on request)."""
+    "wgmma" for bf16 and fp16 at every D, "fp32" for fp32 and fp64
+    (``flash_tiled_kernel``); the first designs, "mma_sync" (16-bit) and
+    "fp32_simple", only on request."""
     _check_dtype_and_dim(dtype, d, "kernel")
-    if dtype in _HALF:
-        return "wgmma" if _wgmma_dim(d) else "mma_sync"
-    return "fp32"
+    return "wgmma" if dtype in _HALF else "fp32"
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward's route for this dtype and head dim: "wgmma" where the
-    forward's route is (it writes the LSE the wgmma backward reads), "mma"
-    for bf16 and fp16 at D <= 32 (on the LSE of the mma.sync forward),
-    "tiled" for fp32 and fp64 (on the LSE of the tiled forward); "fma", the
-    first design's three kernels, only on request."""
+    forward's route is (it writes the LSE the wgmma backward reads), every
+    16-bit D; "tiled" for fp32 and fp64 (on the LSE of the tiled forward);
+    the first designs, "mma" (16-bit D <= 32) and "fma", only on request."""
     _check_dtype_and_dim(dtype, d, "backward kernel")
-    if dtype not in _HALF:
-        return "tiled"
-    return "wgmma" if route(dtype, d) == "wgmma" else "mma"
+    return "wgmma" if route(dtype, d) == "wgmma" else "tiled"
 
 
 def padded_dim(d: int) -> int:
     """The width of the tiles the mma.sync, fp32, mma and fma kernels run
     head dim d on: the least of ``PADDED_DIMS`` that holds it."""
     return next(p for p in PADDED_DIMS if d <= p)
-
-
-def _wgmma_dim(d: int) -> bool:
-    """Whether the wgmma kernels take head dim d: any D in (32, 256]."""
-    return 32 < d <= MAX_HEAD_DIM
 
 
 def tma_width(d: int) -> int:
@@ -343,10 +344,27 @@ def tma_width(d: int) -> int:
 
 
 def wgmma_tile_dim(d: int) -> int:
-    """The width of the Hopper kernels' tiles at head dim d (in (32, 256]):
-    the least multiple of 64 that holds it, 64, 128, 192 or 256; TMA fills
-    columns d.. with zeros."""
+    """The width of the Hopper kernels' tiles at head dim d (in [1, 256]):
+    16 up to 16, 32 up to 32 (the narrow tiles), else the least multiple of
+    64 that holds it, 64, 128, 192 or 256; TMA fills columns d.. with zeros
+    (``hopper.cuh::tile_of``)."""
+    if d <= WGMMA_NARROW:
+        return 16 if d <= 16 else 32
     return -(-d // TMA_BOX_COLS) * TMA_BOX_COLS
+
+
+def tma_box_cols(d: int) -> int:
+    """The inner extent of the tensor maps' boxes at head dim d, in
+    elements: the tiles' width up to 64 (16 or 32 for the narrow tiles), else
+    64, one 128-byte swizzled row (``hopper.cuh::Swz<D>::COLS``)."""
+    return min(wgmma_tile_dim(d), TMA_BOX_COLS)
+
+
+def tma_swizzle(d: int) -> int:
+    """The ``CUtensorMapSwizzle`` the maps of head dim d are encoded with:
+    the swizzle that spans a box's row, 32, 64 or 128 bytes (1, 2, 3), as
+    ``hopper.cuh::encode_maps`` derives it from the box's inner extent."""
+    return TMA_SWIZZLE[2 * tma_box_cols(d)]
 
 
 def wgmma_keys(d: int) -> int:
@@ -358,8 +376,10 @@ def wgmma_keys(d: int) -> int:
 
 
 def wgmma_stages(d: int) -> int:
-    """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB."""
-    return 3 if wgmma_tile_dim(d) in (64, 192) else 2
+    """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB
+    (``WGMMA_NARROW_STAGES`` at the narrow widths, 16 KB a stage at 32)."""
+    tile = wgmma_tile_dim(d)
+    return WGMMA_NARROW_STAGES if tile <= WGMMA_NARROW else 3 if tile in (64, 192) else 2
 
 
 def wgmma_smem_bytes(d: int) -> int:
@@ -473,13 +493,15 @@ def tiled_dkdv_tiling(d: int) -> Tiling:
 
 def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
     """The 4-D TMA map over t (B, S, H, D), innermost first: dims
-    (D, H, S, B), byte strides along H, S and B, box (64, 1, rows, 1).
-    Where D is not a multiple of 64 (112, 40, 72 ...) the last box of a row
-    reaches past D: TMA fills its columns D.. with zeros."""
+    (D, H, S, B), byte strides along H, S and B, box (``tma_box_cols(D)``,
+    1, rows, 1): 16 or 32 columns at D <= 32, else 64, encoded under the
+    swizzle of that row (``tma_swizzle``).  Where D is not a multiple of the
+    tiles' width (112, 40, 24, 5 ...) the last box of a row reaches past D:
+    TMA fills its columns D.. with zeros."""
     b, s, h, d = t.shape
     e = t.element_size()
     return (d, h, s, b, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e,
-            TMA_BOX_COLS, 1, rows, 1)
+            tma_box_cols(d), 1, rows, 1)
 
 
 @dataclass(frozen=True)
@@ -557,7 +579,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
-    ok = {"wgmma": q.dtype in _HALF and _wgmma_dim(d),
+    ok = {"wgmma": q.dtype in _HALF,
           "mma_sync": q.dtype in _HALF,
           "fp32": q.dtype in (torch.float32, torch.float64),
           "fp32_simple": q.dtype in (torch.float32, torch.float64)}
@@ -661,7 +683,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     Hq, B), dK/dV over (key tiles, Hkv, B), tiles of ``bwd_tile_rows(D)``;
     "mma" (bf16 and fp16 at D <=
     32): dQ over (query tiles of 64, Hq, B), dK/dV over (key tiles of 64,
-    Hkv, B); "wgmma" (bf16 and fp16 at D in (32, 256], q, k, v as TMA reads
+    Hkv, B); "wgmma" (bf16 and fp16 at every D, q, k, v as TMA reads
     them, do in rows ``tma_width(D)`` wide): dQ over (Hq, B, query tiles of 128), dK/dV over (Hkv, B,
     key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows.  float64
     inputs are planned as the float32 copies the launch runs on."""
@@ -687,7 +709,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         dq_t, kv_t = tiled_dq_tiling(d), tiled_dkdv_tiling(d)
         return BwdPlan("tiled", grids=((hq, b, -(-sq // dq_t.rows)), (hkv, b, -(-sk // kv_t.rows))),
                        smem=(dq_t.smem, kv_t.smem))
-    ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": _wgmma_dim(d)}
+    ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": True}
     if not ok.get(name, False) or q.dtype not in _HALF:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
     if name == "mma":

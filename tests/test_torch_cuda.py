@@ -619,8 +619,9 @@ def test_kernel_flash_head_dim_112(cuda_flash, shape, dtype, kernel):
 # Head dim 16, the tiny trainer of repro_torch.examples.train_carbon_aware
 # (d_model 64 over 4 heads, 2 KV heads, bf16): its batch of 4 and a rank's 2
 # at S 128, then edge shapes (one row, ragged tails past the 64-row tiles,
-# keys no row sees); bf16 on the mma.sync kernel with the mma backward, fp32
-# on its own kernel with the fma backward, each against the plain versions.
+# keys no row sees); bf16 on the Hopper kernels' 16-wide tiles (the wgmma
+# forward and backward), fp32 on its own tiled kernels, each against the
+# plain versions.
 D16_SHAPES = [(4, 128, 128, 4, 2, 0), (2, 128, 128, 4, 2, 0), (1, 1, 300, 4, 1, 299),
               (2, 130, 167, 4, 2, 37), (1, 70, 70, 2, 2, 0), (2, 5, 300, 4, 2, 3)]
 
@@ -632,19 +633,19 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
     b, sq, sk, hq, hkv, off = shape
     q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, 16, seed=sq + sk,
                               dtype=dtype)
-    route = "mma_sync" if dtype == torch.bfloat16 else "fp32"
-    mma = int(route == "mma_sync")
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    wg = int(route == "wgmma")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.reset_launches()
     out = fa.gqa_flash(*leaves, causal_offset=off)
     out.backward(do)
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": 0, "mma_sync": mma,
-                           "fp32": 1 - mma, "fp32_simple": 0, "gqa_flash_bwd": 1,
+    assert fa.launches == {"gqa_flash": 1, "wgmma": wg, "mma_sync": 0,
+                           "fp32": 1 - wg, "fp32_simple": 0, "gqa_flash_bwd": 1,
                            "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-                           "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": mma,
-                           "bwd_mma_dkdv": mma, "bwd_tiled_dq": 1 - mma,
-                           "bwd_tiled_dkdv": 1 - mma, "layout_copy": 0}, fa.launches
+                           "bwd_wgmma_dq": wg, "bwd_wgmma_dkdv": wg, "bwd_mma_dq": 0,
+                           "bwd_mma_dkdv": 0, "bwd_tiled_dq": 1 - wg,
+                           "bwd_tiled_dkdv": 1 - wg, "layout_copy": 0}, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype}")
@@ -699,13 +700,12 @@ def test_kernel_flash_serving_shapes(cuda_flash, shape, kernel):
 
 @pytest.mark.cuda
 def test_kernel_flash_routes(cuda_flash):
-    """The prefill's shape and D = 64 count under the Hopper kernel's
-    route; bf16 at D = 32 and 16 stays on the mma.sync kernel, fp32 on its
-    own."""
+    """The prefill's shape, D = 64 and the narrow D = 32 and 16 count under
+    the Hopper kernel's route; fp32 on its own."""
     cases = [((1, 256, 256, 32, 8, 128), torch.bfloat16, "wgmma"),
              ((1, 256, 256, 8, 2, 64), torch.bfloat16, "wgmma"),
-             ((1, 256, 256, 8, 2, 32), torch.bfloat16, "mma_sync"),
-             ((1, 256, 256, 8, 2, 16), torch.bfloat16, "mma_sync"),
+             ((1, 256, 256, 8, 2, 32), torch.bfloat16, "wgmma"),
+             ((1, 256, 256, 8, 2, 16), torch.bfloat16, "wgmma"),
              ((1, 256, 256, 8, 2, 16), torch.float32, "fp32"),
              ((1, 256, 256, 8, 2, 128), torch.float32, "fp32")]
     for (b, sq, sk, hq, hkv, d), dtype, kernel in cases:
@@ -756,8 +756,8 @@ def test_kernel_flash_strided_and_checks(cuda_flash):
 
 
 # Every float dtype at head dims off the pinned routes: each route's edges
-# (D 8 and 24 on mma.sync and the mma backward with and without 16-byte
-# copies; 33, 40 and 72 on the Hopper kernel's 64- and 128-wide tiles, 33
+# (D 8 and 24 on the Hopper kernels' 16- and 32-wide tiles; 33, 40 and 72 on
+# the Hopper kernel's 64- and 128-wide tiles, 33
 # staged; 100 staged; 160 and 256 past the tensor cores' 128) on a ragged
 # GQA shape, forward and backward.
 DIMS_SHAPES = [(2, 130, 167, 4, 2, 37), (1, 1, 300, 4, 1, 299), (2, 200, 333, 8, 2, 133)]
@@ -840,9 +840,10 @@ def test_kernel_flash_wgmma_wide(cuda_flash_bwd, d, dtype):
                                                     for n in fa.BWD_KERNELS), fa.launches
 
 
-# The mma backward (bf16 and fp16 at D <= 32, on the mma.sync forward's
-# LSE): both padded widths, D off a multiple of 8 (element loads), the fma
-# cases and keys no row sees, Sq past Sk, one key.
+# The mma backward by name (bf16 and fp16 at D <= 32, the yardstick of the
+# narrow wgmma pair, on the forward's LSE): both padded widths, D off a
+# multiple of 8 (element loads), the fma cases and keys no row sees, Sq past
+# Sk, one key.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("d", [5, 8, 16, 24, 32])
@@ -862,7 +863,7 @@ def test_kernel_flash_bwd_mma_matches_plain(cuda_flash_bwd, d, dtype):
                                    fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=what)
         fa.reset_launches()
-        got = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        got = fa.launch_bwd(q, k, v, o, do, off, lse=lse, route="mma")
         torch.cuda.synchronize()
         assert {n: c for n, c in fa.launches.items() if c} == {
             "gqa_flash_bwd": 1, "bwd_mma_dq": 1, "bwd_mma_dkdv": 1}, (what, fa.launches)
@@ -870,8 +871,49 @@ def test_kernel_flash_bwd_mma_matches_plain(cuda_flash_bwd, d, dtype):
         _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, off,
                                                           round_bf16=True),
                           what + " rounded", rel_limit=BWD_ROUNDED_REL)
-        again = fa.gqa_flash_bwd(q, k, v, o, do, causal_offset=off, lse=lse)
+        again = fa.launch_bwd(q, k, v, o, do, off, lse=lse, route="mma")
         assert all(torch.equal(a, b) for a, b in zip(got, again)), what   # no atomics
+
+
+# The Hopper kernels' narrow tiles (16 and 32 wide) at every 16-bit head dim
+# they take, staged off a multiple of 8, on ragged GQA shapes with causal
+# offsets.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", range(1, 33))
+def test_kernel_flash_narrow_matches_plain(cuda_flash_bwd, d, dtype):
+    """Forward, LSE and backward on the narrow tiles: the output bit for bit
+    with and without the LSE and within the flash limits; the LSE within
+    1e-4 of ``gqa_flash_lse_plain``; the backward within the limits of the
+    fp32 plain backward and BWD_ROUNDED_REL of the plain version that rounds
+    where the kernels round; two runs of each equal bit for bit; only the
+    wgmma kernels launched (and the staging copies off a multiple of 8)."""
+    for b, sq, sk, hq, hkv, off in DIMS_SHAPES + [(4, 128, 128, 4, 2, 0)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        bare = fa.gqa_flash(q, k, v, causal_offset=off)
+        got = fa.gqa_flash_bwd(q, k, v, out, do, causal_offset=off, lse=lse)
+        again = fa.gqa_flash_bwd(q, k, v, out, do, causal_offset=off, lse=lse)
+        torch.cuda.synchronize()
+        staged = {"layout_copy": 14} if d % 8 else {}
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 2, "wgmma": 2, "gqa_flash_bwd": 2, "bwd_wgmma_dq": 2,
+            "bwd_wgmma_dkdv": 2, **staged}, (what, fa.launches)
+        assert torch.equal(out, bare), what
+        assert torch.equal(out, fa.launch(q, k, v, off, with_lse=True)[0]), what
+        _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   fa.gqa_flash_lse_plain(q, k, off).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what)
+        _assert_bwd_close(got, fa.gqa_flash_bwd_lse_plain(q, k, v, out, do, lse, off,
+                                                          round_bf16=True),
+                          what + " rounded", rel_limit=BWD_ROUNDED_REL)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), what   # no atomics
 
 
 # The Hopper route off a multiple of 8: each input staged into rows

@@ -85,8 +85,8 @@ def test_chunked_attention_matches_reference(sq, extra, hq, group, d, chunk):
 
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 112, "wgmma"),
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "mma_sync"),
-    (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 16, "wgmma"),
     (torch.float32, 128, "fp32"), (torch.float32, 112, "fp32"),
     (torch.float32, 64, "fp32"), (torch.float32, 32, "fp32"), (torch.float32, 16, "fp32")])
 def test_route_depends_on_dtype_and_head_dim(dtype, d, kernel):
@@ -184,8 +184,9 @@ def test_wgmma_head_dim_112_walk_covers_each_output_once(b, sq, hq):
 @pytest.mark.parametrize("b,sq,hq,d", [(4, 128, 4, 16), (2, 130, 3, 16), (1, 1, 2, 16),
                                        (2, 65, 4, 32)])
 def test_mma_sync_and_fp32_walk_covers_each_output_once(dtype, b, sq, hq, d):
-    """The mma.sync (bf16) and fp32 launches walked as the kernels walk
-    them, at the tiny trainer's head dim 16 and at 32: mma.sync: the grid
+    """The mma.sync (bf16, by name: the yardstick) and fp32 launches walked
+    as the kernels walk them, at the tiny trainer's head dim 16 and at 32:
+    mma.sync: the grid
     (ceil(Sq / 64), Hq, B), block (x, h, b) owns rows 64x + 16w + g (+ 8) of
     warp w < 4, lane 4g + t, each storing columns 8n + 2t and 8n + 2t + 1 for
     n < D / 8; fp32 (the tiled kernel): the grid (Hq, B, ceil(Sq / 128)),
@@ -194,7 +195,7 @@ def test_mma_sync_and_fp32_walk_covers_each_output_once(dtype, b, sq, hq, d):
     below Sq; every output element is stored once."""
     q = torch.zeros((b, sq, hq, d), dtype=dtype)
     k = torch.zeros((b, 3, 1, d), dtype=dtype)
-    pl = fa.plan(q, k, k)
+    pl = fa.plan(q, k, k, kernel="mma_sync" if dtype == torch.bfloat16 else None)
     assert pl.route == ("mma_sync" if dtype == torch.bfloat16 else "fp32")
     assert pl.maps is None
     if pl.route == "fp32":
@@ -262,7 +263,7 @@ def test_plan_named_kernel():
     q, k = _bf16(1, 8, 4, 128), _bf16(1, 8, 2, 128)
     assert fa.plan(q, k, k, kernel="mma_sync") == fa.Plan("mma_sync", grid=(1, 4, 1))
     with pytest.raises(ValueError, match="does not take"):
-        fa.plan(_bf16(1, 8, 4, 32), _bf16(1, 8, 2, 32), _bf16(1, 8, 2, 32), kernel="wgmma")
+        fa.plan(q.float(), k.float(), k.float(), kernel="wgmma")
     with pytest.raises(ValueError, match="does not take"):
         fa.plan(q.float(), k.float(), k.float(), kernel="mma_sync")
 
@@ -293,8 +294,9 @@ def test_tiling_constants_match_the_cuda_source():
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", hopper)}
     assert const["ROWS"] == fa.WGMMA_ROWS and const["KEYS"] == fa.WGMMA_KEYS
     assert const["BOX"] == fa.TMA_BOX_COLS
-    assert "STAGES = D == 64 || D == 192 ? 3 : 2;" in hopper
-    assert (fa.wgmma_stages(128), fa.wgmma_stages(64)) == (2, 3)
+    assert "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;" in hopper
+    assert const["NARROW"] == fa.WGMMA_NARROW and fa.WGMMA_NARROW_STAGES == 4
+    assert (fa.wgmma_stages(128), fa.wgmma_stages(64), fa.wgmma_stages(32)) == (2, 3, 4)
     # the Hopper entry point runs D = 112 on the D = 128 tiles
     assert "case 112:\n      return static_cast<int>(hopper::launch<128, 112>(" in src
     assert fa.WGMMA_TILE_DIM == {64: 64, 112: 128, 128: 128}

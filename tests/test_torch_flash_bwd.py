@@ -153,14 +153,14 @@ def test_plan_bwd_grids_cover_every_output_once(shape):
                                              (1, 65, 130, 2, 1)])
 def test_bf16_head_dim_16_runs_the_fma_kernels_over_every_column_once(b, sq, sk, hq, hkv):
     """The tiny trainer's backward shapes (bf16, D 16: B 4 and a rank's 2, S
-    128, Hq 4, Hkv 2) on the fma route, the yardstick of the mma route they
+    128, Hq 4, Hkv 2) on the fma route, a yardstick of the wgmma route they
     take by default: its plan's grids and shared memory are those of
     ``bwd_smem_bytes(16)``; each kernel's thread (ty, tx) writes columns tx
     + 16j for j < D / 16 of its rows (dQ) or keys (dK, dV), so at D 16 the 16
     lanes of a half warp cover the row's columns once."""
     d = 16
     q, k, v, o, do = (t.bfloat16() for t in _tensors((b, sq, sk, hq, hkv, d, 0)))
-    assert fa.bwd_route(torch.bfloat16, d) == "mma"
+    assert fa.bwd_route(torch.bfloat16, d) == "wgmma"
     pl = fa.plan_bwd(q, k, v, o, do, route="fma")
     tiles_q, tiles_k = -(-sq // fa.BWD_ROWS), -(-sk // fa.BWD_KEYS)
     assert pl.route == "fma" and pl.maps is None
@@ -177,8 +177,9 @@ def test_bf16_head_dim_16_runs_the_fma_kernels_over_every_column_once(b, sq, sk,
                                              (1, 65, 130, 2, 1)])
 @pytest.mark.parametrize("d", [16, 5, 24, 32])
 def test_bf16_head_dim_16_runs_the_mma_kernels_over_every_column_once(b, sq, sk, hq, hkv, d):
-    """The same shapes on the mma route, the tiny trainer's (and at D 5, 24
-    and 32 the route's other padded widths and a D off a multiple of 8):
+    """The same shapes on the mma route by name (the yardstick of the wgmma
+    route the tiny trainer takes by default; at D 5, 24 and 32 the route's
+    other padded widths and a D off a multiple of 8):
     dQ blocks (x, h, b) own query rows 64 (gx - 1 - x) + 16w + g (+ 8) of
     warp w < 4, lane 4g + t, dK/dV blocks (x, hk, b) the keys 64x + 16w + g
     (+ 8); each thread stores columns 8n + 2t and 8n + 2t + 1 below D for n <
@@ -186,8 +187,8 @@ def test_bf16_head_dim_16_runs_the_mma_kernels_over_every_column_once(b, sq, sk,
     gradient element is stored once.  Shared memory: six tiles of 64 rows of
     DP + 8 elements, and dK/dV's two buffers of 64 LSEs and 64 D_i."""
     q, k, v, o, do = (t.bfloat16() for t in _tensors((b, sq, sk, hq, hkv, d, 0)))
-    assert fa.bwd_route(torch.bfloat16, d) == "mma"
-    pl = fa.plan_bwd(q, k, v, o, do)
+    assert fa.bwd_route(torch.bfloat16, d) == "wgmma"
+    pl = fa.plan_bwd(q, k, v, o, do, route="mma")
     dp = fa.padded_dim(d)
     assert pl.route == "mma" and pl.maps is None and dp in (16, 32)
     assert pl.grids == ((-(-sq // 64), hq, b), (-(-sk // 64), hkv, b))

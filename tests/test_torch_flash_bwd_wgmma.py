@@ -102,7 +102,7 @@ def test_lse_backward_matches_jax_vjp(shape, round_bf16):
 def test_bwd_route_table():
     for d in fa.HEAD_DIMS:
         assert fa.bwd_route(torch.float32, d) == "tiled"
-        assert fa.bwd_route(torch.bfloat16, d) == ("mma" if d in (16, 32) else "wgmma")
+        assert fa.bwd_route(torch.bfloat16, d) == "wgmma"
         # the backward reads the LSE exactly where the forward's route writes it
         assert (fa.bwd_route(torch.bfloat16, d) == "wgmma") == \
             (fa.route(torch.bfloat16, d) == "wgmma")
@@ -159,7 +159,7 @@ def test_plan_bwd_wgmma_checks():
     with pytest.raises(ValueError, match="does not take"):
         fa.plan_bwd(*(t.float() for t in (q, k, v, o, do)), route="wgmma")
     with pytest.raises(ValueError, match="does not take"):
-        fa.plan_bwd(*_bf16_tensors((1, 8, 8, 4, 2, 32, 0)), route="wgmma")
+        fa.plan_bwd(*_bf16_tensors((1, 8, 8, 4, 2, 64, 0)), route="mma")
     shifted = torch.zeros(do.numel() + 1, dtype=do.dtype)[1:].view(do.shape)
     with pytest.raises(ValueError, match="layout"):       # a start 2 bytes off 16
         fa.plan_bwd(q, k, v, o, shifted)

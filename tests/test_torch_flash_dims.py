@@ -3,9 +3,9 @@ JAX package, on the CPU.
 
 The reference's Pallas ``gqa_flash`` takes any dtype and any head dim (its
 body casts to fp32 and back); the port routes each (dtype, D) to a
-hand-written kernel: "wgmma" for bf16 and fp16 at a multiple of 8 in (32,
-256], "mma_sync" for them elsewhere, "fp32" for fp32 and fp64 (fp64 on
-fp32 copies).  Here, without a card:
+hand-written kernel: "wgmma" for bf16 and fp16 at every D (off a multiple
+of 8 on staged inputs), "fp32" for fp32 and fp64 (fp64 on fp32 copies);
+"mma_sync" only by name.  Here, without a card:
 
 - the plain forward against the Pallas kernel in interpret mode and
   ``flash_attention_ref`` at D in {8, 33, 96, 160, 256} x {fp32, bf16,
@@ -167,10 +167,9 @@ def test_route_at_every_head_dim_and_dtype():
     for dtype in FLOATS:
         for d in range(1, 257):
             half = dtype in (torch.float16, torch.bfloat16)
-            want = ("wgmma" if 32 < d <= 256 else "mma_sync") if half else "fp32"
+            want = "wgmma" if half else "fp32"
             assert fa.route(dtype, d) == want, (dtype, d)
-            assert fa.bwd_route(dtype, d) == ("wgmma" if want == "wgmma" else
-                                              "mma" if half else "tiled")
+            assert fa.bwd_route(dtype, d) == ("wgmma" if half else "tiled")
             q, k = _staged((1, 3, 4, d), dtype), _staged((1, 5, 2, d), dtype)
             assert fa.plan(q, k, k, causal_offset=2).route == want
             assert fa.plan_bwd(q, k, k, q, q, causal_offset=2).route == fa.bwd_route(dtype, d)
@@ -251,7 +250,7 @@ def test_forward_grid_stores_each_output_once(dtype, d):
     hits = _walk_forward(pl, b, sq, hq, d, dp)
     assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
     if pl.route == "wgmma":
-        # TMA's boxes of 64 columns cover the tile; the maps' extent d makes
+        # TMA's boxes (16, 32 or 64 columns) cover the tile; the maps' extent d makes
         # every column at or past d a zero
         extent, box = pl.maps[0], pl.maps[7]
         loaded = np.arange(fa.wgmma_tile_dim(d) // box * box)
@@ -350,8 +349,8 @@ def test_source_constants_and_routes():
     assert fa.PADDED_DIMS == (16, 32, 64, 128, 256)
     assert "return DP > 128 ? 32 : BQ;" in bwd and fa.BWD_WIDE_ROWS == 32
     for src, ns in ((fwd, "hopper"), (bwd, "wg")):
-        assert "(dtype != 1 && dtype != 2) || d <= 32 || d > 256)" in src   # the wgmma entries
-        # any D in (32, 256]: off a multiple of 8 on the guarded instantiations
+        assert "(dtype != 1 && dtype != 2) || d < 1 || d > 256)" in src   # the wgmma entries
+        # any D in [1, 256]: off a multiple of 8 on the guarded instantiations
         assert f"d % 8 != 0 ? {ns}::by_tile<-1, __half>" in src
         assert f"d % 8 != 0 ? {ns}::by_tile<-1, __nv_bfloat16>" in src
         assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" not in src      # in hopper.cuh
@@ -359,8 +358,8 @@ def test_source_constants_and_routes():
     assert fa.BWD_MMA_MAX_DIM == 32
     assert "constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : KEYS; }" in fwd
     assert "constexpr int WIDE_KEYS = 64;" in fwd and fa.WGMMA_WIDE_KEYS == 64
-    assert "static constexpr int STAGES = D == 64 || D == 192 ? 3 : 2;" in fwd
-    assert [fa.wgmma_stages(t) for t in (64, 128, 192, 256)] == [3, 2, 3, 2]
+    assert "static constexpr int STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;" in fwd
+    assert [fa.wgmma_stages(t) for t in (16, 32, 64, 128, 192, 256)] == [4, 4, 3, 2, 3, 2]
     hopper = (csrc / "hopper.cuh").read_text()
     assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT16" in hopper
     # mma.sync, shared by the forward's flash_mma_kernel and the mma backward

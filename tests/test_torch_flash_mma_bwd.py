@@ -1,9 +1,9 @@
 """Every 16-bit head dim of ``gqa_flash`` on tensor cores, on the CPU.
 
-bf16 and fp16 take the Hopper (wgmma) route at every D in (32, 256], a
-multiple of 8 or not, and at D <= 32 the mma.sync forward with the "mma"
-backward: two mma.sync kernels (``csrc/flash_attention_bwd.cu``, namespace
-``mm``) that read the LSE the forward writes.  TMA needs byte strides that
+bf16 and fp16 take the Hopper (wgmma) route at every D, a multiple of 8
+or not; at D <= 32 the mma.sync forward and the "mma" backward run by name,
+the yardsticks: two mma.sync kernels (``csrc/flash_attention_bwd.cu``,
+namespace ``mm``) that read the LSE the forward writes.  TMA needs byte strides that
 are multiples of 16, so at a D off a multiple of 8 the wrapper stages each
 input into rows ``tma_width(D)`` wide and hands the kernels the [..., :D]
 view.  Here, without a card:
@@ -67,14 +67,15 @@ def _rel_l2(a, b):
 def test_route_table_of_every_16_bit_head_dim():
     for d in range(1, 257):
         for dtype in HALF.values():
-            if d <= 32:
-                assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("mma_sync", "mma")
-            else:
-                assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("wgmma", "wgmma")
-            # the Hopper kernel's tiles: the least multiple of 64 that holds D
+            # every D on the Hopper kernels; mma.sync and "mma" only by name
+            assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("wgmma", "wgmma")
+            # the Hopper kernel's tiles: 16 or 32 wide at D <= 32, else the
+            # least multiple of 64 that holds D
+            tile = fa.wgmma_tile_dim(d)
             if d > 32:
-                tile = fa.wgmma_tile_dim(d)
                 assert tile % 64 == 0 and tile - 64 < d <= tile
+            else:
+                assert tile == (16 if d <= 16 else 32)
         for dtype in (torch.float32, torch.float64):
             assert (fa.route(dtype, d), fa.bwd_route(dtype, d)) == ("fp32", "tiled")
     for (dtype, d), kernel in fa.ROUTES.items():       # the pinned pairs stay
