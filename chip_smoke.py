@@ -21,7 +21,11 @@ Phases, any failure exits non-zero:
    shape's route (the Hopper kernel for bf16 at D 64, 112 and 128), its
    launches counted by route, and at the prefill's shape the Hopper kernel
    timed in turns with the retained mma.sync kernel (at most half its time),
-   at zamba2-7b's forward shape (D 112) beside the plain version and SDPA,
+   at zamba2-7b's forward shape (D 112) the D-112 kernel (112-wide products,
+   its blocks in the L2 order) against the kernel it replaced (the 128-wide
+   tiles' whole width in the grid's order, kernel="wgmma_pad128": equal
+   bits, at most D112_RATIO of its device time in turns, neither spilling)
+   beside the plain version and SDPA,
    and at ``train_carbon_aware``'s tiny preset (bf16 D 16 on the Hopper
    kernels' 16-wide tiles, forward with its LSE and the wgmma backward pair,
    the yardsticks beside them: the mma.sync forward, the mma and fma
@@ -442,21 +446,30 @@ def device_ms_again(fn, iters: int, per_call: int = 1) -> float | None:
 def in_turns(runs, rounds: int = 2) -> dict:
     """``device_ms`` of each function of ``runs`` in turns, there and back
     (a, b, b, a, ...) ``rounds`` times: per key the list of its turns.  A
-    turn whose trace holds no device time is taken again (at most twice).
+    turn whose trace holds no device time, or fewer events than half its
+    calls (each call makes at least one), is taken again (at most twice),
+    and the trace that recorded the most events is kept.
     The profiler loses some events of a long run of short calls (on an
     H100, 1-7 of 200 calls of a 4 µs kernel, now and then most), and a turn's
     busy time then undercounts by what it lost; so each turn's time per call
     is its busy time per recorded event times the events a call makes (the
     most any turn of its key recorded, over the calls, rounded).  With no
-    event lost that is the busy time over the calls."""
+    event lost that is the busy time over the calls.  A trace that lost most
+    of its events does not read so: one that kept 40 of 200 read the geo
+    walk's compact kernel at 0.133 ms a call against 0.029 in its other three
+    turns (an H100 80GB HBM3; the kernel's work is the same in every call)."""
     iters = 200
     taken = []
     for _ in range(rounds):
         for key in list(runs) + list(runs)[::-1]:
+            best = (0.0, 0)
             for _ in range(3):
                 us, n = device_trace(runs[key], iters)
-                if us > 0:
+                if us > 0 and n > best[1]:
+                    best = (us, n)
+                if best[1] >= iters // 2:
                     break
+            us, n = best
             if us <= 0:
                 raise AssertionError(f"{key}: the profiler recorded no device time")
             taken.append((key, us, n))
@@ -949,16 +962,19 @@ def ptxas_report(report, kernel):
 def flash_kernel_phase(report):
     """Phase 2 for ``gqa_flash``: every check shape in fp32 and bf16 against
     the plain version, each on its route's kernel, and the prefill's and
-    zamba2's shapes also on the retained mma.sync kernel; then, at the
-    prefill's shape in bf16 and in turns, the Hopper kernel, the mma.sync
-    kernel, the plain version and SDPA, by CUDA events and by profiler
-    device time; last, the same (without mma.sync) at zamba2's shape, head
-    dim 112.  Returns the kernel line's entry of each shape."""
+    zamba2's shapes also on the retained mma.sync kernel (zamba2's and the
+    other D-112 shapes also on the kernel the D-112 kernel replaced,
+    "wgmma_pad128"); then, at the prefill's shape in bf16 and in turns, the
+    Hopper kernel, the mma.sync kernel, the plain version and SDPA, by CUDA
+    events and by profiler device time; last, zamba2's shape, head dim 112
+    (``flash_d112_timing``), and the tiny preset's (``flash_d16_timing``).
+    Returns the kernel line's entry of each shape (and the yardsticks' of
+    the last two)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = np.random.default_rng(1)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    err112, rel112 = 0.0, 0.0
+    err112 = {"wgmma": (0.0, 0.0), "wgmma_pad128": (0.0, 0.0)}
     err16 = {"wgmma": (0.0, 0.0), "mma_sync": (0.0, 0.0)}
     fa.reset_launches()
     expect = dict.fromkeys(fa.launches, 0)
@@ -966,19 +982,21 @@ def flash_kernel_phase(report):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
             # the yardstick mma.sync beside the Hopper kernel at D 128, 112
-            # and the narrow widths
+            # and the narrow widths; at D 112 also the Hopper kernel on the
+            # 128-wide tiles' whole width that the D-112 kernel replaced
             kernels = [None] + (["mma_sync"] if (name in ("prefill", "zamba2")
                                                  or d <= fa.WGMMA_NARROW)
-                                and dtype == torch.bfloat16 else [])
+                                and dtype == torch.bfloat16 else []) \
+                + (["wgmma_pad128"] if d == fa.WGMMA_D112 and dtype == torch.bfloat16 else [])
             for kern in kernels:
                 e, r = flash_check(q, k, v, off, f"gqa_flash {name} {dtype} {kern}", kern)
                 route = kern or fa.route(dtype, d)
                 expect["gqa_flash"] += 1
                 expect[route] += 1
-                if route != "mma_sync":
+                if route not in ("mma_sync", "wgmma_pad128"):
                     err[dtype], rels[dtype] = max(err[dtype], e), max(rels[dtype], r)
-                if d == 112 and route == "wgmma":
-                    err112, rel112 = max(err112, e), max(rel112, r)
+                if d == 112 and route in err112:
+                    err112[route] = (max(err112[route][0], e), max(err112[route][1], r))
                 if d == 16 and route in err16:
                     err16[route] = (max(err16[route][0], e), max(err16[route][1], r))
                 log(f"gqa_flash {name:11s} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
@@ -1041,7 +1059,7 @@ def flash_kernel_phase(report):
     if not t["ms"] <= 0.5 * t["previous_ms"]:
         raise AssertionError(f"the Hopper kernel takes {t['ms']} ms, more than half "
                              f"the mma.sync kernel's {t['previous_ms']} ms")
-    d112 = flash_d112_timing(gen, err112, rel112)
+    d112 = flash_d112_timing(gen, err112, ptx)
     d16 = flash_d16_timing(gen, err16)
     return dict(name="gqa_flash", route="cuda", kernel="flash_wgmma_kernel",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -1087,16 +1105,43 @@ def flash_lse_check():
     return out
 
 
-def flash_d112_timing(gen, err, rel):
-    """zamba2-7b's forward shape (head dim 112, on the Hopper kernel's
-    D = 128 tiles) in bf16: the kernel, the plain version and SDPA in turns
-    by CUDA events, and by profiler device time, beside the bound."""
+# The D-112 kernel against the kernel it replaced (the 128-wide products in
+# the grid's order, kernel="wgmma_pad128") at zamba2-7b's forward, by
+# profiler device time in turns: at most this share of its time (readings
+# 0.72-0.75 on an H100 80GB HBM3 at 700 W, scripts/kernel_splits.py d112)
+D112_RATIO = 0.8
+
+
+def d112_instances(ptx) -> dict:
+    """The ptxas report's D-112 kernel (``hopper::D112``: Products<112, 112,
+    true>) and its yardstick (flash_wgmma_kernel<128, 112>, whole-width
+    products), by mangled name."""
+    return {n: r for n, r in ptx.items() if "ILi128ELi112E" in n and "__nv_bfloat16" in n}
+
+
+def flash_d112_timing(gen, errs, ptx):
+    """zamba2-7b's forward shape (head dim 112) in bf16: the D-112 kernel
+    (7 k-steps and 112-wide products on the 128-wide tiles, its blocks in
+    the L2 order), the kernel it replaced (the yardstick: "wgmma_pad128"),
+    the plain version and SDPA in turns by CUDA events and by profiler
+    device time, beside the bound.  Gates: the D-112 kernel's output equal
+    to the yardstick's bit for bit (the cut k-step adds only zeros, and each
+    output column's sum is the same at N 112), its device time at most
+    D112_RATIO of the yardstick's in turns, and no spill or serialisation
+    remark in either instantiation (``ptx``, the build's ptxas report; an
+    empty report, a library built before this run, is logged).  ``errs``:
+    each kernel's largest difference from the plain version on the check
+    shapes.  Returns the kernel's entry and the yardstick's."""
     _, b, sq, sk, hq, hkv, d, off = FLASH_SHAPES[1]
     q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pl = fa.plan(q, k, v, off)
 
     def kernel():
-        return fa.launch(q, k, v, off, "wgmma")
+        return fa.launch(q, k, v, off)
+
+    def previous():
+        return fa.launch(q, k, v, off, "wgmma_pad128")
 
     def plain():
         return fa.gqa_flash_plain(q, k, v)
@@ -1104,31 +1149,68 @@ def flash_d112_timing(gen, err, rel):
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-    lib_diff = (library().transpose(1, 2).float() - kernel().float()).abs().max().item()
-    runs = dict(ms=(kernel, 50, 5), plain_ms=(plain, 10, 3), library_ms=(library, 50, 5))
-    turns = {key: [] for key in runs}
-    for key in list(runs) + list(runs)[::-1]:
-        fn, iters, warmup = runs[key]
-        turns[key].append(time_ms(fn, iters, warmup=warmup))
-    t = {key: float(np.mean(v)) for key, v in turns.items()}
-    t.update(device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 10),
-             library_device_ms=device_ms(library, 20))
+    got, yard = kernel(), previous()
+    same = torch.equal(got, yard)
+    diff = (got.float() - yard.float()).abs().max().item()
+    lib_diff = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+    del got, yard
+    if not same:
+        raise AssertionError(f"gqa_flash zamba2 D=112: the D-112 kernel's output differs "
+                             f"from the yardstick's by up to {diff}")
+    inst = d112_instances(ptx)
+    bad = {n: r for n, r in inst.items()
+           if r.get("spill_stores") or r.get("spill_loads") or r["remarks"]}
+    if ptx and (len(inst) != 2 or bad):
+        raise AssertionError(f"the D-112 kernel and its yardstick in ptxas: {inst}")
+    runs = dict(ms=(kernel, 50, 5), previous_ms=(previous, 50, 5), plain_ms=(plain, 10, 3),
+                library_ms=(library, 50, 5))
+    turns, t = in_turns_ms(runs)
+    # the gate's reading: profiler device time, in turns
+    dev_turns = in_turns({"device_ms": kernel, "previous_device_ms": previous,
+                          "library_device_ms": library})
+    t.update({key: float(np.mean(val)) for key, val in dev_turns.items()},
+             device_turns=dev_turns, plain_device_ms=device_ms(plain, 10))
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, off, 2)
     bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-    log(f"gqa_flash zamba2 shape bf16 D=112, in turns {turns}")
-    log(f"gqa_flash zamba2 shape bf16 D=112: Hopper kernel (D=128 tiles) {t['ms']:.6f} "
-        f"ms/call ({flops / t['ms'] / 1e9:.3f} TFLOP/s, {bound / t['ms']:.4f} of the "
-        f"bound), plain {t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, bound {bound:.6f} "
-        f"by {by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; device time "
-        f"{t['device_ms']} ms/call (plain {t['plain_device_ms']}, SDPA "
-        f"{t['library_device_ms']}); SDPA differs from the kernel by up to {lib_diff}")
-    return dict(name="gqa_flash_d112", route="cuda", kernel="flash_wgmma_kernel<128, 112>",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:94",
-                max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
-                tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
-                shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal",
-                sdpa_max_abs_diff=lib_diff, turns=turns, **t)
+    ratio = t["device_ms"] / t["previous_device_ms"]
+    log(f"gqa_flash zamba2 shape bf16 D=112, in turns {turns}; device time in turns {dev_turns}")
+    log(f"gqa_flash zamba2 shape bf16 D=112: the D-112 kernel (L2 order, {pl.group_kv} KV heads "
+        f"a group, {pl.grid[0]} blocks) {t['ms']:.6f} ms/call by events, {t['device_ms']:.6f} "
+        f"device ({flops / t['device_ms'] / 1e9:.3f} TFLOP/s, {bound / t['device_ms']:.4f} of "
+        f"the bound); the yardstick (128-wide products, the grid's order) {t['previous_ms']:.6f}"
+        f" / {t['previous_device_ms']:.6f} device ({bound / t['previous_device_ms']:.4f} of the "
+        f"bound): {ratio:.4f} by device time (limit {D112_RATIO}); plain {t['plain_ms']:.6f} / "
+        f"{t['plain_device_ms']}; SDPA {t['library_ms']:.6f} / {t['library_device_ms']:.6f} "
+        f"(kernel / SDPA {t['device_ms'] / t['library_device_ms']:.3f} by device time); bound "
+        f"{bound:.6f} by {by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; equal to the "
+        f"yardstick bit for bit; SDPA differs from the kernel by up to {lib_diff}; ptxas "
+        + "; ".join(f"{n}: {r.get('registers')} registers, spills {r.get('spill_stores', 0)}/"
+                    f"{r.get('spill_loads', 0)}" for n, r in inst.items()))
+    if not ratio <= D112_RATIO:
+        raise AssertionError(f"gqa_flash zamba2 D=112: the D-112 kernel takes "
+                             f"{t['device_ms']} ms of device time, more than {D112_RATIO} of "
+                             f"the yardstick's {t['previous_device_ms']} ms")
+    shape = f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} bf16 causal"
+    common = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:94", bound_ms=bound,
+                  bound_by=by, plain_ms=t["plain_ms"], plain_device_ms=t["plain_device_ms"],
+                  library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
+                  shape=shape, sdpa_max_abs_diff=lib_diff)
+    entry = dict(name="gqa_flash_d112",
+                 kernel="flash_wgmma_kernel<128, 112, __nv_bfloat16, Products<112, 112, true>>",
+                 max_abs_err=errs["wgmma"][0], rel_l2=errs["wgmma"][1], ms=t["ms"],
+                 device_ms=t["device_ms"], tflops=flops / t["device_ms"] / 1e9,
+                 bound_share=bound / t["device_ms"], group_kv=pl.group_kv,
+                 previous="flash_wgmma_kernel<128, 112> (kernel=\"wgmma_pad128\")",
+                 previous_ms=t["previous_ms"], previous_device_ms=t["previous_device_ms"],
+                 over_previous=ratio, equal_to_previous=same, turns=turns,
+                 device_turns=dev_turns, ptxas=inst, **common)
+    yardstick = dict(name="gqa_flash_wgmma_pad128_d112",
+                     kernel="flash_wgmma_kernel<128, 112> (kernel=\"wgmma_pad128\")",
+                     max_abs_err=errs["wgmma_pad128"][0], rel_l2=errs["wgmma_pad128"][1],
+                     ms=t["previous_ms"], device_ms=t["previous_device_ms"],
+                     bound_share=bound / t["previous_device_ms"], **common)
+    return entry, yardstick
 
 
 def flash_d16_timing(gen, errs):
@@ -3793,8 +3875,9 @@ def shard_ssm(rank, cfgs=None, device="cuda"):
     heads they read; the kernel on those heads against its plain version);
     each block on the one-rank path's own input against that path's output
     of the block; the replay prefill and decode on the sharded caches
-    against the one-rank path; on rank 0 the local-heads kernel timed
-    against SDPA (the other rank waiting).  ``cfgs`` and ``device``: other
+    against the one-rank path; on rank 0 the local-heads kernel and its
+    yardstick timed against SDPA by events and device time
+    (``local_heads_timing``; the other rank waiting).  ``cfgs`` and ``device``: other
     configs, and the CPU, for a rehearsal (the plain versions, nothing
     timed)."""
     import torch.distributed as dist
@@ -3917,20 +4000,42 @@ def shard_ssm(rank, cfgs=None, device="cuda"):
 
 def local_heads_timing(q, k, v):
     """``gqa_flash`` on one rank's heads (zamba2's 16 of 32 at D 112, B 4,
-    S 512) against SDPA on the same inputs, in turns by CUDA events, beside
-    the bound."""
+    S 512): the D-112 kernel, the kernel it replaced ("wgmma_pad128", held
+    to the plain version and to the D-112 kernel's output bit for bit) and
+    SDPA on the same inputs, in turns by CUDA events (the wrapper's calls
+    back to back: its host time, ~0.1 ms a call, exceeds the kernels') and
+    by profiler device time, beside the bound; the wrapper's host time a
+    call (``plan`` alone, and a whole enqueued launch)."""
     b, sq, hq, d = q.shape
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    runs = dict(ms=lambda: fa.launch(q, k, v, 0, "wgmma"),
-                library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    turns = {key: [] for key in runs}
-    for key in list(runs) + list(runs)[::-1]:
-        turns[key].append(time_ms(runs[key], 50, warmup=5))
+    err, rel = flash_check(q, k, v, 0, "local heads: the yardstick", "wgmma_pad128")
+    same = torch.equal(fa.launch(q, k, v, 0), fa.launch(q, k, v, 0, "wgmma_pad128"))
+    if not same:
+        raise AssertionError("local heads: the D-112 kernel's output differs from the "
+                             "yardstick's")
+    fns = dict(ms=lambda: fa.launch(q, k, v, 0),
+               previous_ms=lambda: fa.launch(q, k, v, 0, "wgmma_pad128"),
+               library_ms=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    turns, t = in_turns_ms({key: (fn, 50, 5) for key, fn in fns.items()})
+    dev_turns = in_turns({key.replace("ms", "device_ms"): fn for key, fn in fns.items()})
+    t.update({key: float(np.mean(val)) for key, val in dev_turns.items()})
+    host = {}
+    for key, fn in (("plan_host_ms", lambda: fa.plan(q, k, v, 0)), ("launch_host_ms", fns["ms"])):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host[key] = (time.perf_counter() - start) / 100 * 1e3
+        torch.cuda.synchronize()
     nbytes, flops = flash_work(b, sq, sq, hq, k.shape[2], d, 0, 2)
     bound, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"local heads (B={b} S={sq} Hq={hq} D={d}): ms a call by events {turns}, by device "
+        f"time {dev_turns}; host {host}; the yardstick against the plain version max abs "
+        f"{err}, relative L2 {rel}, equal to the D-112 kernel bit for bit")
     return dict(shape=f"B={b} Sq=Sk={sq} Hq={hq} Hkv={k.shape[2]} D={d} bf16 causal",
-                turns=turns, ms=float(np.mean(turns["ms"])),
-                library_ms=float(np.mean(turns["library_ms"])), bound_ms=bound, bound_by=by)
+                turns=turns, device_turns=dev_turns, bound_ms=bound, bound_by=by,
+                previous_max_abs_err=err, previous_rel_l2=rel, equal_to_previous=same,
+                **t, **host)
 
 
 def shard_elastic(rank, root):
@@ -7017,7 +7122,7 @@ def phases(card, reports, shard_ranks, twins):
         return out
 
     kernels = timed("kernel (knn)", kernel_phase, reports["src/repro_torch/csrc/knn.cu"])
-    flash_entry, d112_entry, (d16_entry, d16_yardstick) = timed(
+    flash_entry, (d112_entry, d112_yardstick), (d16_entry, d16_yardstick) = timed(
         "kernel (gqa_flash)", flash_kernel_phase,
         reports["src/repro_torch/csrc/flash_attention.cu"])
     kernels.append(flash_entry)
@@ -7112,7 +7217,15 @@ def phases(card, reports, shard_ranks, twins):
         name = entry["name"][len("gqa_flash_"):]
         entry["shard_elastic_launches"] = [r["card"]["launches"][name]
                                            for r in shard["elastic"]]
-    yardsticks += [d16_yardstick, *bwd_mma_entries, *narrow_yardsticks]
+    # the D-112 kernel's yardstick (kernel="wgmma_pad128") on no path either:
+    # its numbers stand in the D-112 entry (previous_ms, previous_device_ms)
+    # and in its own entry here
+    d112_yardstick.update(launches=0, path=None,
+                          zamba2_forward_launches=ssm_path["zamba2-7b"]["forward_flash"][
+                              "wgmma_pad128"],
+                          shard_tp_launches=[r["zamba2-7b"]["launches"]["wgmma_pad128"]
+                                             for r in shard["ssm"]])
+    yardsticks += [d112_yardstick, d16_yardstick, *bwd_mma_entries, *narrow_yardsticks]
     default_paths = {"tiny rank": tiny, "head-dim path": [v["launches"]
                                                            for v in dims_path.values()]}
     for what, counts in default_paths.items():

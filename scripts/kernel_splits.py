@@ -54,12 +54,23 @@ builds (none of them is kept in the library):
    whole; and the layout they replaced, whole: a producer warpgroup and two
    consumers, one block an SM (``hopper.cuh::Roles<false>``), beside the
    wrappers, ``mma.sync`` and the mma pair.
-8. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
+8. ``d112``, only when named: ``gqa_flash`` at bf16 D 112 (zamba2-7b's
+   shared attention) at its forward (B 4, S 2048, 32 heads, no GQA) and the
+   same over 8 KV heads: the kernel on the 128-wide tiles that it replaced
+   (the yardstick: the 8th, zero k-step of S and O at N 128, the grid's
+   order), with the k-step cut, with O at N 112, in the L2 order, and the
+   D-112 kernel (all three), each held against the yardstick's output; the
+   D-112 kernel at other group sizes of the L2 order; then shard cell (f)'s
+   local heads (B 4, S 512, 16 heads): device time, CUDA events and the
+   wrapper's host time a call.
+9. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
    forward and backward on this checkout's wrappers and kernels against
    those of the checkout at ROOT (say the parent commit, unpacked there by
    ``git archive``; its sources built into its own ``build/``), at every
    timed shape of ``chip_smoke.py`` (``DIMS_FWD_TIMED``, ``DIMS_BWD_TIMED``,
-   ``DIMS_D192_TIMED``) on which both take the same route: the outputs
+   ``DIMS_D192_TIMED``) and at the pinned bf16 routes' shapes
+   (``FLASH_PINNED_FWD``, ``FLASH_PINNED_BWD``) on which both take the same
+   route: the outputs
    compared, then each timed by CUDA events in turns (ROOT's, this one's,
    this one's, ROOT's), the call as a user makes it (``launch``; the
    backward ``launch_bwd`` on the forward's LSE).
@@ -69,11 +80,12 @@ kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
 power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
 splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``tiled``,
-``mma``, ``narrow``, ``flash``):
+``mma``, ``narrow``, ``d112``, ``flash``):
 
     python3 scripts/kernel_splits.py geo fill
     python3 scripts/kernel_splits.py tiled
     python3 scripts/kernel_splits.py mma narrow
+    python3 scripts/kernel_splits.py d112
     python3 scripts/kernel_splits.py flash --against build/parent
 """
 import argparse
@@ -89,6 +101,7 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
 from repro_torch.kernels import fill, geo_walk, knn, score  # noqa: E402
@@ -910,26 +923,32 @@ _NARROW_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16>\n__glo
                 "__launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)\n")
 _NARROW_CUT_HEAD = ("template <int D, int DO, typename T, int STOP, class R>\n__global__ void "
                     "__launch_bounds__(R::THREADS, R::BLOCKS)\n")
+# the forward's head: its products and block order (P) too
+_FWD_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, "
+             "false>>\n__global__ void __launch_bounds__(RolesOf<D>::THREADS, "
+             "RolesOf<D>::BLOCKS)\n")
+_FWD_CUT_HEAD = ("template <int D, int DO, typename T, class P, int STOP, class R>\n__global__ "
+                 "void __launch_bounds__(R::THREADS, R::BLOCKS)\n")
 NARROW_FWD_SPLITS = {
     "forward": dict(
-        start=_NARROW_HEAD + "flash_wgmma_kernel(",
+        start=_FWD_HEAD + "flash_wgmma_kernel(",
         end="// The Hopper kernel on tiles D wide for head dim DO",
         stops=("loads alone (Q, the K/V ring, the barriers and turns)",
                "+ S = Q K^T (summed into O)", "+ the online softmax", "whole kernel"),
         cuts=[
-            (_NARROW_HEAD + "flash_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_fwd_cut("),
+            (_FWD_HEAD + "flash_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_fwd_cut("),
             ("  using R = RolesOf<D>;\n", ""),
-            ("      qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);",
-             "      if constexpr (STOP >= 2) qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);\n"
+            ("      qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);",
+             "      if constexpr (STOP >= 2) qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);\n"
              "      else for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;"),
             ("      softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);",
              "      if constexpr (STOP >= 3)\n"
              "        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);\n"
              "      else corr[0] = corr[1] = 1.f;"),
             # a product cut off keeps its inputs alive by summing them into the output
-            ("      pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);",
-             "      if constexpr (STOP >= 4) pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);\n"
-             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (D / 2)] += __uint_as_float(p[i]);"),
+            ("      pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);",
+             "      if constexpr (STOP >= 4) pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);\n"
+             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (PV / 2)] += __uint_as_float(p[i]);"),
         ]),
 }
 NARROW_FWD_ENTRY = r"""
@@ -944,13 +963,14 @@ static int narrow_fwd(const void* q, const void* k, const void* v, void* o,
   const int e = hopper::encode_maps(tm, ptrs, 3, maps, d, hopper::keys_of(d));
   if (e != 0) return e;
   const size_t smem = hopper::Layout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(hopper::narrow_fwd_cut<D, 0, T, STOP, R>,
+  using P = hopper::Products<D, D, false>;
+  cudaError_t err = cudaFuncSetAttribute(hopper::narrow_fwd_cut<D, 0, T, P, STOP, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, b, (sq + hopper::ROWS - 1) / hopper::ROWS);
-  hopper::narrow_fwd_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+  hopper::narrow_fwd_cut<D, 0, T, P, STOP, R><<<grid, R::THREADS, smem, s>>>(
       tm[0], tm[1], tm[2], (T*)o, nullptr, sq, sk, hq, hq / hkv, 0, d,
-      1.4426950408889634f / sqrtf((float)d));
+      1.4426950408889634f / sqrtf((float)d), 0);
   return (int)cudaGetLastError();
 }
 
@@ -1215,6 +1235,170 @@ def narrow_split():
            f"exponentials' floor {2 * floor:.6f} ms", cs.in_turns(runs))
 
 
+# The D-112 kernel's parts, each an instance of csrc/flash_attention.cu's
+# flash_wgmma_kernel on the 128-wide tiles with its own products and block
+# order (hopper::Products<QK, PV, L2>), built here and launched on the maps
+# and grid that the wrapper plans: S = Q K^T over QK columns, O += P V at N =
+# PV, the grid's order (group_kv 0) or the L2 order (group_kv KV heads a
+# group).
+D112_VARIANTS = {
+    "(a) the 128-wide products, the grid's order (the yardstick)": (128, 128, False),
+    "(c) S in 7 k-steps, O at N 128, the grid's order": (112, 128, False),
+    "S in 7 k-steps, O at N 112, the grid's order": (112, 112, False),
+    "(d) the 128-wide products, the L2 order": (128, 128, True),
+    "S in 7 k-steps, O at N 128, the L2 order (the fallback)": (112, 128, True),
+    "the D-112 kernel: S in 7 k-steps, O at N 112, the L2 order": (112, 112, True),
+}
+D112_ENTRY = r"""
+template <int QK, int PV, bool L2>
+static int d112_launch(const void* q, const void* k, const void* v, void* o,
+                       const unsigned long long* maps, int b, int sq, int sk, int hq, int hkv,
+                       int group_kv, cudaStream_t s) {
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap tm[3];
+  const int e = hopper::encode_maps(tm, ptrs, 3, maps, 112, hopper::keys_of(112));
+  if (e != 0) return e;
+  const int tiles = (sq + hopper::ROWS - 1) / hopper::ROWS;
+  const dim3 grid = L2 ? dim3(b * hq * tiles, 1, 1) : dim3(hq, b, tiles);
+  return (int)hopper::launch<128, 112, __nv_bfloat16, hopper::Products<QK, PV, L2>>(
+      tm, o, nullptr, sq, sk, hq, hkv, 112, 0, grid, hopper::Layout<128>::SMEM, s,
+      L2 ? group_kv : 0);
+}
+
+// variant: D112_VARIANTS' order; bf16, head dim 112, causal offset 0, the
+// maps the wrapper plans; group_kv the L2 order's KV heads a group.
+extern "C" int d112_split(int variant, const void* q, const void* k, const void* v, void* o,
+                          const unsigned long long* maps, int b, int sq, int sk, int hq,
+                          int hkv, int group_kv, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case 0: return d112_launch<128, 128, false>(q, k, v, o, maps, b, sq, sk, hq, hkv, 0, s);
+    case 1: return d112_launch<112, 128, false>(q, k, v, o, maps, b, sq, sk, hq, hkv, 0, s);
+    case 2: return d112_launch<112, 112, false>(q, k, v, o, maps, b, sq, sk, hq, hkv, 0, s);
+    case 3: return d112_launch<128, 128, true>(q, k, v, o, maps, b, sq, sk, hq, hkv, group_kv, s);
+    case 4: return d112_launch<112, 128, true>(q, k, v, o, maps, b, sq, sk, hq, hkv, group_kv, s);
+    default:
+      return d112_launch<112, 112, true>(q, k, v, o, maps, b, sq, sk, hq, hkv, group_kv, s);
+  }
+}
+"""
+# zamba2-7b's forward (B 4, S 2048, 32 heads of 112, no GQA), the same over 8
+# KV heads (the same tile work, GQA) and shard cell (f)'s local heads (16 of
+# 32 at S 512)
+D112_SHAPES = {"zamba2": (4, 2048, 32, 32), "zamba2 over 8 KV heads": (4, 2048, 32, 8),
+               "local heads": (4, 512, 16, 16)}
+# KV heads a group of the L2 order, beside the planned one (``fa.kv_group``)
+D112_GROUPS = (1, 2, 4, 6, 7, 8, 9, 10, 12, 16, 20, 28, 56, 128)
+
+
+def d112_split():
+    """gqa_flash at bf16 D 112: the parts of the D-112 kernel
+    (``D112_VARIANTS``: the 7 k-steps of S, O at N 112, the L2 order, each
+    alone and together) at zamba2-7b's forward, at the same over 8 KV heads,
+    and the D-112 kernel at other group sizes of the L2 order; then shard
+    cell (f)'s local heads: the D-112 kernel and the yardstick by device time
+    and by CUDA events, the wrapper's host time a call (``plan`` alone, and a
+    whole ``launch`` enqueued back to back); SDPA beside each, all in turns by
+    profiler device time.  Each variant's output is first held against the
+    yardstick's."""
+    import shutil
+    import time
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    fa = cs.fa
+    fa.build()
+    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", "flash_attention.cu")).read()
+    ring = "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;"
+    if src.count(ring) != 1:
+        raise RuntimeError(f"flash_attention.cu no longer reads {ring!r}: update the split")
+    # the same instances with a K/V ring 3 deep at width 128 (230,480 bytes)
+    deep = src.replace(ring, "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 || D == 128 ? 3 : 2;")
+    with ThreadPoolExecutor(2) as ex:
+        lib, lib3 = ex.map(lambda a: build(*a), [("d112_splits", src + D112_ENTRY),
+                                                 ("d112_splits_ring3", deep + D112_ENTRY)])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for one in (lib, lib3):
+        one.d112_split.argtypes = [i] + [p] * 5 + [i] * 6 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    log(f"ncu on PATH: {shutil.which('ncu')} (L2 hit rate and device-memory bytes are read "
+        "from it where it runs; else the turns below are the evidence)")
+    gen = np.random.default_rng(0)
+    names = list(D112_VARIANTS)
+    for tag, (b, sq, hq, hkv) in D112_SHAPES.items():
+        d = fa.WGMMA_D112
+        q, k, v = cs.card_normal(gen, (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pl = fa.plan(q, k, v)
+        maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
+        outs = {}
+
+        def variant(n, group=pl.group_kv, which=lib):
+            out = outs.setdefault((n, which is lib3), torch.empty_like(q))
+
+            def run():
+                err = which.d112_split(n, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       out.data_ptr(), maps, b, sq, sq, hq, hkv, group, stream)
+                if err != 0:
+                    raise RuntimeError(f"d112 variant {n} ({names[n]}), group {group}: "
+                                       f"error {err}")
+            return run
+
+        for n in range(len(names)):
+            variant(n)()
+        for n in (0, len(names) - 1):
+            variant(n, which=lib3)()
+        want = fa.gqa_flash_plain(q, k, v)
+        torch.cuda.synchronize()
+        for (n, deep_ring), out in outs.items():
+            log(f"{tag}: {names[n]}{', a ring 3 deep' if deep_ring else ''}: equal to the "
+                f"yardstick bit for bit {torch.equal(out, outs[0, False])}, max abs difference "
+                f"{(out.float() - outs[0, False].float()).abs().max().item()}; against the "
+                f"plain version max abs {(out.float() - want.float()).abs().max().item()}, "
+                f"relative L2 {cs.rel_l2(out, want)}")
+        got = fa.launch(q, k, v)
+        log(f"{tag}: the wrapper (plan: grid {pl.grid}, group_kv {pl.group_kv}) equal to the "
+            f"D-112 variant {torch.equal(got, outs[len(names) - 1, False])}")
+        del want, got
+        runs = {name: variant(n) for n, name in enumerate(names)}
+        runs.update({f"{names[n]}, a ring 3 deep": variant(n, which=lib3)
+                     for n in (0, len(names) - 1)})
+        if tag == "zamba2":
+            runs.update({f"the D-112 kernel, group_kv {g}": variant(len(names) - 1, g)
+                         for g in D112_GROUPS if g != pl.group_kv})
+        if tag == "local heads":
+            runs = {names[0]: runs[names[0]], names[-1]: runs[names[-1]]}
+        runs["SDPA"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True)
+        nbytes, flops = cs.flash_work(b, sq, sq, hq, hkv, d, 0, 2)
+        bound, by = cs.bound_ms(nbytes, flops, cs.BF16_FLOP_PER_S)
+        report(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} bf16): device ms a call "
+               f"in turns; planned group_kv {pl.group_kv} ({pl.grid[0]} blocks); the bound "
+               f"{bound:.6f} ms by {by}; K/V {2 * b * sq * hkv * d * 2 / 1e6:.3f} MB",
+               cs.in_turns(runs), lambda key, ms: f", {bound / ms:.4f} of the bound")
+        if tag == "local heads":
+            calls = {"the D-112 kernel (the wrapper)": lambda: fa.launch(q, k, v),
+                     "the yardstick (the wrapper)": lambda: fa.launch(q, k, v,
+                                                                      kernel="wgmma_pad128"),
+                     "SDPA": runs["SDPA"]}
+            turns, _ = cs.in_turns_ms({key: (fn, 200, 20) for key, fn in calls.items()})
+            report(f"gqa_flash {tag}: ms a call by CUDA events, 200 calls back to back",
+                   turns)
+            host = {}
+            for key, fn in (("plan", lambda: fa.plan(q, k, v)),
+                            ("launch (enqueue)", lambda: fa.launch(q, k, v))):
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                host[key] = (time.perf_counter() - t) / 200 * 1e3
+                torch.cuda.synchronize()
+            log(f"gqa_flash {tag}: host ms a call, {host}")
+        del q, k, v, qt, kt, vt, outs
+        torch.cuda.empty_cache()
+
+
 def checkout_flash(root: str):
     """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
     imported beside this checkout's: the package's modules leave
@@ -1235,6 +1419,16 @@ def checkout_flash(root: str):
         sys.modules.update(saved)
 
 
+# The pinned bf16 routes' shapes beside chip_smoke.py's timed ones: llama3-8b's
+# prefill (D 128), qwen3-moe's (D 64, 16 query heads a KV head), zamba2-7b's
+# forward (D 112: the D-112 kernel here, its yardstick's design in a parent
+# before it), and internvl2-2b's train step (the D-128 backward)
+FLASH_PINNED_FWD = [("bf16-d128", 4, 2048, 2048, 32, 8, 128, torch.bfloat16),
+                    ("bf16-d64", 4, 2048, 2048, 64, 4, 64, torch.bfloat16),
+                    ("bf16-d112", 4, 2048, 2048, 32, 32, 112, torch.bfloat16)]
+FLASH_PINNED_BWD = [("bf16-d128", 4, 2304, 2304, 16, 8, 128, torch.bfloat16)]
+
+
 def flash_split(against: str):
     theirs = checkout_flash(against)
     mods = {"against": theirs, "this": cs.fa}
@@ -1242,8 +1436,9 @@ def flash_split(against: str):
         m.build()
         m.build_bwd()
     gen = np.random.default_rng(0)
-    shapes = [(s, False) for s in [*cs.DIMS_FWD_TIMED, cs.DIMS_D192_TIMED[0]]] \
-        + [(s, True) for s in [*cs.DIMS_BWD_TIMED, cs.DIMS_D192_TIMED[1]]]
+    shapes = [(s, False) for s in [*cs.DIMS_FWD_TIMED, cs.DIMS_D192_TIMED[0],
+                                   *FLASH_PINNED_FWD]] \
+        + [(s, True) for s in [*cs.DIMS_BWD_TIMED, cs.DIMS_D192_TIMED[1], *FLASH_PINNED_BWD]]
     for (tag, b, sq, sk, hq, hkv, d, dtype), backward in shapes:
         what = f"gqa_flash{'_bwd' if backward else ''} {tag} (B={b} S={sq} Hq={hq} Hkv={hkv})"
         routes = {key: (m.bwd_route if backward else m.route)(dtype, d)
@@ -1277,11 +1472,12 @@ def flash_split(against: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("splits", nargs="*",
-                    help="score, knn, geo, fill (the default), tiled, mma, narrow, flash")
+                    help="score, knn, geo, fill (the default), tiled, mma, narrow, d112, "
+                         "flash")
     ap.add_argument("--against", help="the root of the checkout the flash split compares")
     args = ap.parse_args()
     splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
-                  tiled=tiled_split, mma=mma_split, narrow=narrow_split,
+                  tiled=tiled_split, mma=mma_split, narrow=narrow_split, d112=d112_split,
                   flash=lambda: flash_split(args.against))
     if set(args.splits) - set(splits):
         ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")

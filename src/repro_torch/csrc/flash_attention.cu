@@ -50,17 +50,33 @@
 //     query tiles first (grid
 //     (Hq, B, Sq tiles), the tile index reversed), so the light causal tiles
 //     fill the tail.  D = 112 (zamba2-7b's shared attention: d_model 3584
-//     over 32 heads) runs the D = 128 instantiation: the tensor maps keep D
-//     = 112 as their innermost extent, so the second box of each row reaches
-//     past it and TMA fills its columns 112..127 with zeros (they add
-//     nothing to q.k, and V's give output columns that are not stored); the
+//     over 32 heads, no GQA) runs the D-112 kernel on the D = 128 tiles: the
+//     tensor maps keep D = 112 as their innermost extent, so the second box
+//     of each row reaches past it and TMA fills its columns 112..127 with
+//     zeros; S = Q K^T skips them (7 k-steps, not 8) and O += P V runs at
+//     m64n112k16 (56 accumulators a thread, V's second 128-byte swizzle atom
+//     read 48 columns deep), so the products do the function's work; the
 //     softmax scale is 1/sqrt(112), and the epilogue stores 112 columns a
-//     row, so no store reaches the next head.  The products do 128/112 =
-//     1.14x the work the function needs.  Every other head dim of the route
-//     runs the same way with D taken at run time on tiles as wide as the
-//     least multiple of 64 that holds it (instantiations <64, 0, T>, <128,
-//     0, T>, <192, 0, T>, <256, 0, T>; bf16 at 64, 112 and 128 keep their
-//     own), fp16 through the .f16 forms of wgmma and FLOAT16 tensor maps.
+//     row.  Its output equals the 128-wide kernel's bit for bit (the cut
+//     step adds only zeros; each output column's sum is the same at N 112),
+//     which stays by name (kernel="wgmma_pad128", the yardstick).  What held
+//     that kernel back was not the padding (the two cuts alone gain 1.6 %)
+//     but K/V traffic: without GQA every block of a wave of ~132 reads
+//     another head's K and V (917 KB each at S 2048, ~117 MB a wave against
+//     the 50 MB L2), so each wave read them from device memory again.  The
+//     D-112 kernel's blocks run in the L2 order (block_of): a group of KV
+//     heads at a time, its query tiles heaviest first, groups sized by the
+//     wrapper to a quarter of L2 and to divide the heads evenly (8 of
+//     zamba2-7b's 128 KV heads).  At its forward (B 4, S 2048) on an H100
+//     80GB HBM3 at 700 W: 0.288 against the 128-wide kernel's 0.390 ms of
+//     device time, the L2 order alone 0.296, over 8 KV heads (GQA, the same
+//     tiles) the 128-wide kernel 0.307; SDPA 0.262 (scripts/kernel_splits.py
+//     d112).  A ring 3 deep (230,480 bytes) timed the same as 2.  Every
+//     other head dim of the route runs the same way with D taken at run
+//     time on tiles as wide as the least multiple of 64 that holds it
+//     (instantiations <64, 0, T>, <128, 0, T>, <192, 0, T>, <256, 0, T>;
+//     bf16 at 64, 112 and 128 keep their own), fp16 through the .f16 forms
+//     of wgmma and FLOAT16 tensor maps.
 //     At a D off a multiple of 8 (33, 100, 250) a contiguous 16-bit tensor
 //     has rows whose byte stride TMA refuses (not a multiple of 16): the
 //     wrapper copies each such input into a buffer of rows ceil(D / 8) * 8
@@ -148,13 +164,16 @@
 // S=2048, Hq=32, Hkv=8, D=128) one call does 4*B*Hq*D*(S(S+1)/2) = 137 GFLOP
 // and must move 168 MB, so it is bound by the tensor cores (0.139 ms at
 // 989 TFLOP/s) far above the bytes (0.050 ms at 3.35 TB/s); at zamba2-7b's
-// forward (B=4, S=2048, Hq=Hkv=32, D=112) 120.3 GFLOP (0.122 ms), for which
-// the D = 128 tiles run 137.4 GFLOP of products.  Only wgmma
-// reaches the tensor cores' full rate; mma.sync reached 14 % of it.  In the
-// Hopper kernel the K/V tiles still cross from L2 once per 128 query rows
-// (1.1 GB per prefill call), and the softmax is not overlapped with the
-// same consumer's products: each consumer runs S, softmax and P V in
-// series, and only the other consumer's products fill the gap.  At D 256
+// forward (B=4, S=2048, Hq=Hkv=32, D=112) 120.3 GFLOP (0.122 ms), which
+// the D-112 kernel's products do (the 128-wide tiles' whole width: 137.4).
+// Only wgmma reaches the tensor cores' full rate; mma.sync reached 14 % of
+// it.  In the Hopper kernel the K/V tiles still cross from L2 once per 128
+// query rows (1.1 GB per prefill call), which holds only while L2 holds
+// them: the query heads of a KV head run side by side (GQA), and at D 112,
+// which has none, the blocks run in the L2 order; and the softmax is not
+// overlapped with the same consumer's products: each consumer runs S,
+// softmax and P V in series, and only the other consumer's products fill
+// the gap.  At D 256
 // (B 4, S 2048, Hq 16, Hkv 8: 137.5 GFLOP, 0.139 ms at 989 TFLOP/s) the
 // mma.sync kernel reached 10 % of that bound on an H100 80GB HBM3 at 700 W
 // (1.33 ms; SDPA 0.25 ms), the 256-wide Hopper kernel 46 % (0.300 ms): its
@@ -755,15 +774,64 @@ struct Layout {
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
 };
 
-// S = Q K^T (issued, not waited for): D/16 steps of 16 along D, each 32
+// What an instance of flash_wgmma_kernel runs on its tiles D wide: S = Q K^T
+// over their first QK columns (QK / 16 k-steps), O += P V at N = PV (wgmma
+// m64nPVk16, PV / 2 accumulators a thread), and its blocks in the grid's
+// order or, with L2, in the order that keeps a group of KV heads' K and V in
+// L2 (block_of).  Every instance runs its tiles' whole width in the grid's
+// order (Products<D, D, false>) but the D-112 kernel (D112): 7 k-steps and
+// 112 columns on the 128-wide tiles, in the L2 order.
+template <int QK_COLS, int PV_COLS, bool L2_ORDER>
+struct Products {
+  static constexpr int QK = QK_COLS, PV = PV_COLS;
+  static constexpr bool L2 = L2_ORDER;
+  static_assert(QK % 16 == 0 && PV % 8 == 0, "whole k-steps, whole 8-column slices");
+};
+using D112 = Products<112, 112, true>;
+
+// The query head, batch and first query row of this block.  The grid's
+// order: grid (Hq, B, query tiles), the tile index reversed, so that the
+// heaviest tiles go first and the light causal tiles fill the tail.  The L2
+// order (a 1-D grid): the KV heads (b, hk) in groups of group_kv, one group
+// after another (the last may hold fewer); in a group its query tiles
+// heaviest first, each tile's blocks KV head by KV head, the `group` query
+// heads that read one KV head side by side.  The blocks in flight then read
+// the K and V of one group's heads, which kernels/flash_attention.py::plan
+// sizes to a share of L2; in the grid's order each wave of ~132 blocks
+// reads ~132 heads' K/V (~117 MB at zamba2-7b's forward, more than twice
+// the 50 MB L2) and the next wave reads them again from device memory.
+struct Block {
+  int h, b, q0;
+};
+template <bool L2>
+__device__ __forceinline__ Block block_of(int sq, int hq, int group, int group_kv) {
+  if constexpr (!L2) {
+    return {static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y),
+            static_cast<int>((gridDim.z - 1 - blockIdx.z) * ROWS)};
+  } else {
+    const int tiles = (sq + ROWS - 1) / ROWS;
+    const int i = blockIdx.x;
+    const int full = group_kv * group * tiles;            // the blocks of a whole group
+    const int kv0 = i / full * group_kv;                  // the group's first KV head
+    const int kvs = gridDim.x / (group * tiles);          // B * Hkv
+    const int heads = min(group_kv, kvs - kv0) * group;   // the group's query heads
+    const int r = i % full;
+    const int kv = kv0 + r % heads / group;
+    const int hkv = hq / group;
+    return {kv % hkv * group + r % group, kv / hkv, (tiles - 1 - r / heads) * ROWS};
+  }
+}
+
+// S = Q K^T (issued, not waited for): QK/16 steps of 16 along D, each 32
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
-// swizzle); 8-row groups W::GROUP bytes apart (the SBO).
-template <int D, typename T>
+// swizzle); 8-row groups W::GROUP bytes apart (the SBO).  Columns QK.. of
+// the tiles are zeros (TMA's fill past the head dim), so they are skipped.
+template <int D, int QK, typename T>
 __device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint32_t k) {
   using L = Layout<D>;
   using W = Swz<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < QK / 16; ++kk) {
     const int box = kk / W::KSTEPS, at = (kk % W::KSTEPS) * 32;
     const uint64_t a = W::desc(q + box * L::Q_BOX + at, 16, W::GROUP);
     const uint64_t b = W::desc(k + box * L::KV_BOX + at, 16, W::GROUP);
@@ -776,16 +844,17 @@ __device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint3
 }
 
 // O += P V (issued, not waited for): KEYS/16 steps of 16 keys, each 16 rows
-// (16 W::ROW bytes) into V's boxes; N = D spans the D / W::COLS boxes,
-// KV_BOX apart (the LBO).
-template <int D, typename T>
-__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&p)[keys_of(D) / 4],
+// (16 W::ROW bytes) into V's boxes; N = PV spans the first PV columns of the
+// D / W::COLS boxes, KV_BOX apart (the LBO): at PV 112 one box and 48
+// columns of the next.
+template <int D, int PV, typename T>
+__device__ __forceinline__ void pv(float (&acc)[PV / 2], const uint32_t (&p)[keys_of(D) / 4],
                                    uint32_t v) {
   using L = Layout<D>;
   using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < L::KEYS / 16; ++kk)
-    wgmma_rs<D, T>(acc, p + 4 * kk, W::desc(v + kk * 16 * W::ROW, L::KV_BOX, W::GROUP));
+    wgmma_rs<PV, T>(acc, p + 4 * kk, W::desc(v + kk * 16 * W::ROW, L::KV_BOX, W::GROUP));
   wgmma_commit();
 }
 
@@ -840,18 +909,20 @@ __device__ __forceinline__ void softmax(float (&s)[KEYS / 2], float (&m)[2], flo
 // 8 columns is then partial, and at an odd head dim the pairs are not
 // 4-byte aligned.  The multiples of 8 keep instantiations without those
 // guards (a separate instantiation: the guards, compiled into them, cost
-// 3-6 % of their time on an H100).
-template <int D, int DO = D, typename T = __nv_bfloat16>
+// 3-6 % of their time on an H100).  P (Products) sets the products' widths
+// and the block order; group_kv is the L2 order's KV heads a group (read
+// only with P::L2).
+template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 __global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                    float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
-                   int dh, float scale_log2) {
+                   int dh, float scale_log2, int group_kv) {
   using L = Layout<D>;
   using W = Swz<D>;
   using R = RolesOf<D>;
-  constexpr int S = L::STAGES, KEYS = L::KEYS;
+  constexpr int S = L::STAGES, KEYS = L::KEYS, PV = P::PV;
   extern __shared__ unsigned char hopper_smem[];
   const uint32_t base = (smem_addr(hopper_smem) + 1023) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -860,8 +931,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto v_full = [bars](int s) { return bars + 8 * (1 + S + s); };
   auto empty = [bars](int s) { return bars + 8 * (1 + 2 * S + s); };
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // heaviest query tiles first
+  const Block blk = block_of<P::L2>(sq, hq, group, group_kv);   // heaviest query tiles first
+  const int h = blk.h, b = blk.b, q0 = blk.q0;
   const int n_tiles = kv_tiles<ROWS, KEYS>(q0, sq, sk, offset);
 
   if (threadIdx.x == 0) {
@@ -920,10 +991,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t qa = base + L::Q + c * 64 * W::ROW;
 
     float s[KEYS / 2];    // S for KEYS keys, then P in fp32
-    float acc[D / 2];     // O
+    float acc[PV / 2];    // O: its first PV columns
     uint32_t p[KEYS / 4]; // P in bf16 pairs: the A fragments of the KEYS / 16 key slices
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < PV / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
     // The two consumers take turns to issue their S products (ping-pong, on
@@ -949,20 +1020,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         load_kv(j + S - 1);
       if constexpr (R::WIDE) __syncwarp();
       wgmma_fence();
-      qk<D, T>(s, qa, base + L::K + st * L::KV_TILE);
+      qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);
       if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
       wgmma_wait<0>();
       pin(s);
       softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < PV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
       for (int i = 0; i < KEYS / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
       mbar_wait(v_full(st), parity);
       pin(acc);
       pin(p);
       wgmma_fence();
-      pv<D, T>(acc, p, base + L::V + st * L::KV_TILE);
+      pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);
       wgmma_wait<0>();
       pin(acc);
       pin(p);
@@ -980,14 +1051,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if constexpr (DO < 0) {             // any head dim: each column guarded
           T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
+          for (int n = 0; n < PV / 8; ++n)
             if (8 * n < dcols)
               store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * inv,
                         acc[4 * n + 2 * r + 1] * inv);
         } else {
           T* op = o + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+          for (int n = 0; n < PV / 8; ++n)  // columns 8n + 2t, +1 < the head dim
             if (8 * n < dcols)
               *reinterpret_cast<uint32_t*>(op + n * 8) =
                   pack2<T>(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
@@ -1005,27 +1076,32 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D =
 // 128; DO = 0: the head dim dh, a multiple of 8, in [least_dim(D), D]; DO =
-// -1: any dh there), T bf16 or fp16.
-template <int D, int DO = D, typename T = __nv_bfloat16>
+// -1: any dh there), T bf16 or fp16, its products and block order P; the
+// L2 order's KV heads a group group_kv (0 in the grid's order).
+template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
-                   int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream) {
+                   int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream,
+                   int group_kv = 0) {
   static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && DO >= least_dim(D)),
                 "DO: a head dim of D's tiles");
+  static_assert(P::QK <= D && P::PV <= D &&
+                    (DO > 0 ? P::QK >= DO && P::PV >= DO : P::QK == D && P::PV == D),
+                "the products span the head dim, within the tiles");
   if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || dh < least_dim(D)))
     return cudaErrorInvalidValue;
-  if (smem != Layout<D>::SMEM) return cudaErrorInvalidValue;
+  if (smem != Layout<D>::SMEM || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
   using R = RolesOf<D>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T, P>);
   if (err != cudaSuccess) return err;
   if (!R::launchable(attr.numRegs)) return cudaErrorLaunchOutOfResources;
-  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO, T>,
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D, DO, T, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(dh));
-  flash_wgmma_kernel<D, DO, T><<<grid, R::THREADS, smem, stream>>>(
+  flash_wgmma_kernel<D, DO, T, P><<<grid, R::THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<T*>(o), lse, sq, sk, hq, hq / hkv, offset, dh,
-      scale_log2);
+      scale_log2, group_kv);
   return cudaGetLastError();
 }
 
@@ -1143,27 +1219,34 @@ int gqa_flash_tiled(const void* q, const void* k, const void* v, void* o, float*
 }
 
 // dtype 1 = bfloat16, 2 = float16.  q (b, sq, hq, d), k/v (b, sk, hkv, d),
-// 1 <= d <= 256, through the Hopper kernel: bf16 at d 64,
-// 112 and 128 on instantiations of their own (d = 112 on the d = 128
-// tiles), every other d on the tiles 16, 32, 64, 128, 192 or 256 wide
-// (hopper::tile_of(d)) with the head dim taken at run time; o (b,
-// sq, hq, d) contiguous; lse, when not null, (b, hq, sq) float32: each
-// row's log-sum-exp for the backward.  TMA needs byte strides that are
-// multiples of 16, so at a d off a multiple of 8 the wrapper hands in views
-// of copies whose rows are ceil(d / 8) * 8 wide.  `maps` holds, for q, k and v in
-// turn, eleven numbers: the tensor map's dims (d, h, s, b), its byte
-// strides along h, s and b, and its box (w, 1, R, 1), w 16, 32 or 64 (the
-// tiles' width up to 64), R the keys of a K/V tile (128 up to d 128, else
-// 64).  The grid is (hq, b, ceil(sq / 128));
-// `smem` the kernel's dynamic shared memory.
+// 1 <= d <= 256, through the Hopper kernel: bf16 at d 64 and 128 on
+// instantiations of their own, bf16 at d 112 on the D-112 kernel (7 k-steps
+// and 112-wide products on the d = 128 tiles, its blocks in the L2 order:
+// group_kv > 0, the KV heads a group) or, given group_kv 0, on the d = 128
+// instantiation that runs the tiles' whole width (the yardstick); every
+// other d on the tiles 16, 32, 64, 128, 192 or 256 wide (hopper::tile_of(d))
+// with the head dim taken at run time; o (b, sq, hq, d) contiguous; lse,
+// when not null, (b, hq, sq) float32: each row's log-sum-exp for the
+// backward.  TMA needs byte strides that are multiples of 16, so at a d off
+// a multiple of 8 the wrapper hands in views of copies whose rows are
+// ceil(d / 8) * 8 wide.  `maps` holds, for q, k and v in turn, eleven
+// numbers: the tensor map's dims (d, h, s, b), its byte strides along h, s
+// and b, and its box (w, 1, R, 1), w 16, 32 or 64 (the tiles' width up to
+// 64), R the keys of a K/V tile (128 up to d 128, else 64).  The grid is
+// (hq, b, ceil(sq / 128)), or in the L2 order (b * hq * ceil(sq / 128), 1,
+// 1); `smem` the kernel's dynamic shared memory.
 int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void* o,
                     float* lse, int b, int sq, int sk, int hq, int hkv, int d,
-                    int causal_offset, const unsigned long long* maps, int grid_x, int grid_y,
-                    int grid_z, long long smem, void* stream) {
+                    int causal_offset, int group_kv, const unsigned long long* maps, int grid_x,
+                    int grid_y, int grid_z, long long smem, void* stream) {
   using hopper::ROWS;
+  const long long tiles = (sq + static_cast<long long>(ROWS) - 1) / ROWS;
+  const bool ordered = group_kv > 0;     // the L2 order: bf16 at d 112 only
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
-      grid_x != hq || grid_y != b || grid_z != (sq + ROWS - 1) / ROWS || b > 65535 ||
-      grid_z > 65535 || (dtype != 1 && dtype != 2) || d < 1 || d > 256)
+      b > 65535 || hq > 65535 || group_kv < 0 || (ordered && (dtype != 1 || d != 112)) ||
+      (ordered ? grid_x != static_cast<long long>(b) * hq * tiles || grid_y != 1 || grid_z != 1
+               : grid_x != hq || grid_y != b || grid_z != tiles || grid_z > 65535) ||
+      (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
@@ -1182,8 +1265,11 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
       return static_cast<int>(hopper::launch<64>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
                                                  grid, sm, s));
     case 112:
-      return static_cast<int>(hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv, d,
-                                                       causal_offset, grid, sm, s));
+      return static_cast<int>(
+          ordered ? hopper::launch<128, 112, __nv_bfloat16, hopper::D112>(
+                        tm, o, lse, sq, sk, hq, hkv, d, causal_offset, grid, sm, s, group_kv)
+                  : hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
+                                             grid, sm, s));
     case 128:
       return static_cast<int>(hopper::launch<128>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
                                                   grid, sm, s));

@@ -9,7 +9,7 @@
 // Swz), wgmma descriptors and products (each for either element type, bf16
 // by default: S-like products K-major from shared memory at N 32, 64 and
 // 128; O-like products with A in registers and B MN-major at N 16, 32, 64,
-// 128, 192 and 256, the tiles' widths), and the encoding of the tensor maps
+// 128, 192 and 256, the tiles' widths, and 112), and the encoding of the tensor maps
 // on the host.
 // Everything has internal linkage: each library that includes it gets its
 // own copy.
@@ -427,6 +427,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
     WGMMA_RS_N128_ASM("bf16");
 }
 
+// d (64 x 112, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 112,
+// shared memory, MN-major: the transpose bit is set).  The 112 columns span
+// one 64-column swizzle atom and 48 columns of the next, LBO bytes on.
+#define WGMMA_RS_N112_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55" \
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N112_ASM("f16");
+  else
+    WGMMA_RS_N112_ASM("bf16");
+}
+
 // d (64 x 16, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 16, shared
 // memory, MN-major: the transpose bit is set).
 #define WGMMA_RS_N16_ASM(TY) \
@@ -643,18 +671,21 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a
 }
 
 // The product of each width: d (64 x N, fp32) += a (64 x 16, registers) *
-// b (16 x N, MN-major) at N 16, 32, 64, 128, 192 or 256; and d (64 x N) = a b
+// b (16 x N, MN-major) at N 16, 32, 64, 112, 128, 192 or 256 (the tiles'
+// widths, and zamba2-7b's head dim on 128-wide tiles); and d (64 x N) = a b
 // (FIRST) or += a b, both K-major in shared memory, at N 32, 64 or 128.
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
-                "a tile width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 112 || N == 128 || N == 192 ||
+                N == 256, "a product width");
   if constexpr (N == 256)
     wgmma_rs_n256<T>(d, a, b);
   else if constexpr (N == 192)
     wgmma_rs_n192<T>(d, a, b);
   else if constexpr (N == 128)
     wgmma_rs_n128<T>(d, a, b);
+  else if constexpr (N == 112)
+    wgmma_rs_n112<T>(d, a, b);
   else if constexpr (N == 64)
     wgmma_rs_n64<T>(d, a, b);
   else if constexpr (N == 32)

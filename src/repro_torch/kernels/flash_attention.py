@@ -18,18 +18,23 @@ D TMA fills with zeros, storing D columns; key tiles of 128 up to width
 64-byte swizzle, two blocks an SM without a producer warpgroup; bf16 at D
 64, 112 and 128, ``WGMMA_TILE_DIM``, on instantiations of their own:
 llama3-8b and the MoE configs take 64 or 128, zamba2-7b's shared attention
-112; the example trainers' heads are narrow:
+112, whose kernel runs S = Q K^T in 7 k-steps and O += P V at N 112 on the
+128-wide tiles, its blocks in the L2 order (``plan``'s ``group_kv``: a
+group of KV heads at a time, heaviest query tiles first, so that their K
+and V stay in L2); the example trainers' heads are narrow:
 ``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16, its
 10m preset D 32), fp32 to the tiled fp32 kernel (route "fp32",
 ``flash_tiled_kernel``: register micro-tiles on the FMA pipe, over the
 least multiple of 8 that holds D, ``tiled_width``; tiles and grids by
 ``tiled_fwd_tiling``), and fp64 to it on fp32 copies, the output cast back,
-as the reference's kernel body computes in fp32.  Two first designs run
+as the reference's kernel body computes in fp32.  Three first designs run
 only when named, the yardsticks: the ``mma.sync`` kernel for 16-bit inputs
 (``kernel="mma_sync"``, ``flash_mma_kernel``) and the first fp32 kernel
 (``kernel="fp32_simple"``, ``flash_f32_kernel``), both on the least padded
 width of 16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads
-zero past D.  An input whose layout the route cannot read is copied first, and each copy
+zero past D; and at bf16 D 112 the Hopper kernel that runs the 128-wide
+tiles' whole width in the grid's order (``kernel="wgmma_pad128"``).  An
+input whose layout the route cannot read is copied first, and each copy
 adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
 strides multiples of 16, a 16-byte aligned start) into a buffer of rows
 ``tma_width(D)`` wide, handed in as its [..., :D] view (``stage``; every
@@ -82,8 +87,8 @@ from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``: all of them under
 #: "gqa_flash", and each under its route.
-launches = {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0, "fp32_simple": 0,
-            "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
+launches = {"gqa_flash": 0, "wgmma": 0, "wgmma_pad128": 0, "mma_sync": 0, "fp32": 0,
+            "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
             "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0, "bwd_mma_dkdv": 0,
             "bwd_tiled_dq": 0, "bwd_tiled_dkdv": 0, "layout_copy": 0}
 
@@ -94,6 +99,8 @@ MAX_HEAD_DIM = 256
 #: The C entry points' dtype codes; float64 runs the float32 kernels on copies.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HALF = (torch.bfloat16, torch.float16)
+#: The routes of the Hopper kernels, whose inputs TMA reads.
+_TMA_ROUTES = ("wgmma", "wgmma_pad128")
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 #: The routes of the model configs' (dtype, D) pairs, pinned.
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
@@ -114,6 +121,20 @@ WGMMA_ROWS = 128        # query rows per block
 WGMMA_KEYS = 128        # keys per tile and the boxes' rows, up to width 128
 WGMMA_WIDE_KEYS = 64    # the same past width 128 (``wgmma_keys``)
 TMA_BOX_COLS = 64       # 16-bit elements per 128-byte swizzled row: a box's inner extent
+#: The bf16 head dim whose kernel runs its products at that width on the
+#: 128-wide tiles (7 k-steps of S, O at N 112) and its blocks in the L2 order
+#: (``l2_order``): zamba2-7b's shared attention.  ``kernel="wgmma_pad128"``
+#: runs the same head dim on the 128-wide tiles' whole width in the grid's
+#: order, the kernel it replaced (the yardstick).
+WGMMA_D112 = 112
+#: The K and V that a group of the L2 order may hold, in bytes: a quarter of
+#: the H100's 50 MB L2 (Q, O and the next group's first tiles pass through it
+#: too).  At zamba2-7b's forward, groups of 8 of its 128 KV heads (7.3 MB)
+#: ran the D-112 kernel in 0.2845-0.2877 ms of device time in two calls,
+#: groups of 28 and 56 (25.7 and 51 MB) in 0.2957-0.2969 and 0.3082-0.3137,
+#: all 128 at once (the grid's order) in 0.3901-0.3970 (H100 80GB HBM3,
+#: 700 W; scripts/kernel_splits.py d112).
+L2_KV_BUDGET = 50 * 2**20 // 4
 #: The narrow tiles (widths 16 and 32, up to ``WGMMA_NARROW``): a box as
 #: wide as the tile under the 32- or 64-byte swizzle, two blocks an SM of
 #: 256 threads (no producer warpgroup: ``hopper.cuh::RolesOf``), a ring of
@@ -277,7 +298,7 @@ def build() -> str:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gqa_flash_fwd.argtypes = [i] + [p] * 5 + [i] * 7 + [ll] * 9 + [i] * 3 + [p]
     lib.gqa_flash_fwd.restype = i
-    lib.gqa_flash_wgmma.argtypes = [i] + [p] * 5 + [i] * 7 + [p] + [i] * 3 + [ll, p]
+    lib.gqa_flash_wgmma.argtypes = [i] + [p] * 5 + [i] * 8 + [p] + [i] * 3 + [ll, p]
     lib.gqa_flash_wgmma.restype = i
     lib.gqa_flash_tiled.argtypes = [p] * 5 + [i] * 7 + [ll] * 9 + [i] * 3 + [ll, p]
     lib.gqa_flash_tiled.restype = i
@@ -315,8 +336,8 @@ def _check_dtype_and_dim(dtype: torch.dtype, d: int, what: str) -> None:
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
     "wgmma" for bf16 and fp16 at every D, "fp32" for fp32 and fp64
-    (``flash_tiled_kernel``); the first designs, "mma_sync" (16-bit) and
-    "fp32_simple", only on request."""
+    (``flash_tiled_kernel``); the first designs, "mma_sync" (16-bit),
+    "wgmma_pad128" (bf16 D 112) and "fp32_simple", only on request."""
     _check_dtype_and_dim(dtype, d, "kernel")
     return "wgmma" if dtype in _HALF else "fp32"
 
@@ -351,6 +372,25 @@ def wgmma_tile_dim(d: int) -> int:
     if d <= WGMMA_NARROW:
         return 16 if d <= 16 else 32
     return -(-d // TMA_BOX_COLS) * TMA_BOX_COLS
+
+
+def l2_order(dtype: torch.dtype, d: int) -> bool:
+    """Whether the Hopper forward at this dtype and head dim runs its blocks
+    in the L2 order (``plan``'s ``group_kv``): bf16 at ``WGMMA_D112``."""
+    return dtype == torch.bfloat16 and d == WGMMA_D112
+
+
+def kv_group(b: int, sk: int, hkv: int, d: int, elt: int = 2,
+             budget: int = L2_KV_BUDGET) -> int:
+    """The KV heads a group of the L2 order holds: the largest divisor of
+    the B x Hkv (batch, KV head) pairs whose K and V fit ``budget`` bytes
+    (Sk x D x 2 elements of ``elt`` bytes a pair), at least 1.  Every group
+    then holds as many, so the grid ends on a whole group's light tiles: a
+    last group of a few heads would start its heaviest tiles among the last
+    blocks (groups of 9 over zamba2-7b's 128 leave 2 and ran 4-6 % slower
+    than groups of 8; scripts/kernel_splits.py d112)."""
+    n, most = b * hkv, max(1, budget // (2 * sk * d * elt))
+    return max(g for g in range(1, min(n, most) + 1) if n % g == 0)
 
 
 def tma_box_cols(d: int) -> int:
@@ -507,18 +547,21 @@ def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class Plan:
     """A launch: its route, its grid ((Hq, B, query tiles of 128) for the
-    Hopper kernel, (Hq, B, query tiles of ``tiled_fwd_tiling(D).rows``) for
-    the tiled kernel ("fp32"), (query tiles of 64, Hq, B) for the others)
-    and, for the Hopper kernel, the tensor maps of q, k and v (eleven
-    numbers each, ``tensor_map``), for it and the tiled kernel the dynamic
-    shared memory
-    (the others' is fixed by the padded width: ``mma_smem_bytes``,
-    ``f32_smem_bytes``).  float64 inputs are planned as the float32 copies
-    the launch runs on."""
+    Hopper kernels, (B x Hq x query tiles of 128, 1, 1) for the one in the
+    L2 order (``l2_order``), (Hq, B, query tiles of
+    ``tiled_fwd_tiling(D).rows``) for the tiled kernel ("fp32"), (query
+    tiles of 64, Hq, B) for the others) and, for the Hopper kernels, the
+    tensor maps of q, k and v (eleven numbers each, ``tensor_map``), for
+    them and the tiled kernel the dynamic shared memory (the others' is
+    fixed by the padded width: ``mma_smem_bytes``, ``f32_smem_bytes``);
+    ``group_kv``, the L2 order's KV heads a group (``kv_group``; 0 in the
+    grid's order).  float64 inputs are planned as the float32 copies the
+    launch runs on."""
     route: str
     maps: tuple[int, ...] | None = None
     grid: tuple[int, int, int] | None = None
     smem: int | None = None
+    group_kv: int = 0
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -552,7 +595,7 @@ def _tma_ready(t: torch.Tensor) -> bool:
 
 def _readable(t: torch.Tensor, name: str) -> bool:
     """Whether the kernels of route ``name`` read t as it lies."""
-    return _tma_ready(t) if name == "wgmma" else t.stride(3) == 1
+    return _tma_ready(t) if name in _TMA_ROUTES else t.stride(3) == 1
 
 
 def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int,
@@ -563,7 +606,7 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offs
     _check_shapes(q, k, v, causal_offset)
     align = 16 // q.element_size()
     for nm, t in (("q", q), ("k", k), ("v", v)):
-        if name == "wgmma" and not _tma_ready(t):
+        if name in _TMA_ROUTES and not _tma_ready(t):
             raise ValueError(f"{nm} needs unit stride along D, the other strides "
                              f"multiples of {align} elements and a 16-byte aligned "
                              f"start; got strides {t.stride()}")
@@ -580,6 +623,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
     ok = {"wgmma": q.dtype in _HALF,
+          "wgmma_pad128": q.dtype == torch.bfloat16 and d == WGMMA_D112,
           "mma_sync": q.dtype in _HALF,
           "fp32": q.dtype in (torch.float32, torch.float64),
           "fp32_simple": q.dtype in (torch.float32, torch.float64)}
@@ -590,11 +634,15 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     if name == "fp32":
         t = tiled_fwd_tiling(d)
         return Plan(name, grid=(hq, b, -(-sq // t.rows)), smem=t.smem)
-    if name != "wgmma":
+    if name not in _TMA_ROUTES:
         return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
-    rows = wgmma_keys(d)
-    return Plan(name, maps=tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows),
-                grid=(hq, b, -(-sq // WGMMA_ROWS)), smem=wgmma_smem_bytes(d))
+    rows, tiles = wgmma_keys(d), -(-sq // WGMMA_ROWS)
+    maps = tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows)
+    if name == "wgmma" and l2_order(q.dtype, d):
+        _, sk, hkv, _ = k.shape
+        return Plan(name, maps=maps, grid=(b * hq * tiles, 1, 1), smem=wgmma_smem_bytes(d),
+                    group_kv=kv_group(b, sk, hkv, d, q.element_size()))
+    return Plan(name, maps=maps, grid=(hq, b, tiles), smem=wgmma_smem_bytes(d))
 
 
 @dataclass(frozen=True)
@@ -859,7 +907,7 @@ def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
     contiguous copy (each copy counted under "layout_copy")."""
     if _readable(t, name):
         return t
-    if name == "wgmma":
+    if name in _TMA_ROUTES:
         return stage(t)
     launches["layout_copy"] += 1
     return t.contiguous()
@@ -868,10 +916,10 @@ def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
            kernel: str | None = None, with_lse: bool = False):
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
-    "mma_sync", "fp32" or "fp32_simple"; default: its route), to hold one
-    kernel against another at one shape.  With ``with_lse`` (every kernel
-    but "fp32_simple") returns (output, LSE (B, Hq, Sq) fp32); the output is the same
-    either way.  float64 runs the fp32 kernels on fp32 copies, the output
+    "wgmma_pad128", "mma_sync", "fp32" or "fp32_simple"; default: its
+    route), to hold one kernel against another at one shape.  With
+    ``with_lse`` (every kernel but "fp32_simple") returns (output, LSE (B,
+    Hq, Sq) fp32); the output is the same either way.  float64 runs the fp32 kernels on fp32 copies, the output
     cast back; an input whose layout the kernel cannot read is copied first
     (``_readable_copy``)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -893,11 +941,12 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if pl.route == "wgmma":
+    if pl.route in _TMA_ROUTES:
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
         err = _lib.gqa_flash_wgmma(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse_ptr, b, sq, sk, hq, hkv, d, int(causal_offset), maps, *pl.grid, pl.smem, stream)
+            lse_ptr, b, sq, sk, hq, hkv, d, int(causal_offset), pl.group_kv, maps, *pl.grid,
+            pl.smem, stream)
     elif pl.route == "fp32":
         err = _lib.gqa_flash_tiled(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, sq, sk, hq,

@@ -37,8 +37,9 @@ probabilities; a bf16 block within 1e-2 relative L2 of fp32 on the same
 routing; a reduced MoE serve gives the same bits twice.  The knob tuner's
 quick grid on the card's scan engine equals the CPU's vector engine.
 rwkv6 and zamba2: the flash kernels at zamba2-7b's head dim 112 (the
-Hopper route at its forward's shape and a ragged one, mma.sync and fp32 on
-the ragged one) within the flash limits; the reduced configs (fp32)
+D-112 kernel at its forward's shape, the local heads', GQA and ragged ones,
+equal bit for bit to the kernel it replaced, kernel="wgmma_pad128";
+mma.sync and fp32 on the ragged one) within the flash limits; the reduced configs (fp32)
 served on the card within rtol = atol = 1e-3 of the same on the CPU (fp32
 products in another order, chained through the recurrence and, in zamba2,
 the attention), with the same greedy tokens.
@@ -494,8 +495,8 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
     o = fa.gqa_flash(*leaves)
     o.backward(do.transpose(1, 2).contiguous().transpose(1, 2))   # a strided dO
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "fp32_simple": 0, "gqa_flash_bwd": 1, "bwd_stats": 0,
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "wgmma_pad128": 0, "mma_sync": 0,
+                           "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 1, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
                            "bwd_tiled_dkdv": 0, "layout_copy": 0}
@@ -539,8 +540,8 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
     got_state, got = step(card0, on_card)
     torch.cuda.synchronize()
     L = cfg.num_layers
-    assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "mma_sync": 0, "fp32": 2 * L,
-                           "fp32_simple": 0, "gqa_flash_bwd": L, "bwd_stats": 0,
+    assert fa.launches == {"gqa_flash": 2 * L, "wgmma": 0, "wgmma_pad128": 0, "mma_sync": 0,
+                           "fp32": 2 * L, "fp32_simple": 0, "gqa_flash_bwd": L, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": L,
                            "bwd_tiled_dkdv": L, "layout_copy": 0}
@@ -592,14 +593,24 @@ def _flash_qkv(device, b, sq, sk, hq, hkv, d, seed, dtype=torch.bfloat16):
                  .to(device, dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
 
 
-# zamba2-7b's head dim 112: the Hopper kernel on the D = 128 tiles at its
-# forward's shape (B=4, S=2048, 32 heads, no GQA) and a ragged GQA shape;
-# the mma.sync and fp32 kernels take D = 112 too.
+# zamba2-7b's head dim 112: the D-112 kernel (7 k-steps and 112-wide products
+# on the 128-wide tiles, its blocks in the L2 order) at its forward's shape
+# (B=4, S=2048, 32 heads, no GQA), at shard cell (f)'s local heads (16 of
+# them at S 512), on a GQA shape, a ragged GQA shape and one row; the
+# kernel it replaced (kernel="wgmma_pad128", the 128-wide products in the
+# grid's order: the yardstick), mma.sync and fp32 take D = 112 too.  The
+# D-112 kernel's output equals the yardstick's bit for bit: the k-step it
+# cuts adds only zeros, and each output column's sum is the same at N 112.
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,kernel", [
     ((4, 2048, 2048, 32, 32, 0), torch.bfloat16, "wgmma"),
+    ((4, 512, 512, 16, 16, 0), torch.bfloat16, "wgmma"),
+    ((2, 1000, 1000, 32, 8, 0), torch.bfloat16, "wgmma"),
     ((2, 130, 167, 4, 2, 37), torch.bfloat16, "wgmma"),
     ((2, 1, 300, 4, 4, 299), torch.bfloat16, "wgmma"),
+    ((4, 2048, 2048, 32, 32, 0), torch.bfloat16, "wgmma_pad128"),
+    ((4, 512, 512, 16, 16, 0), torch.bfloat16, "wgmma_pad128"),
+    ((2, 130, 167, 4, 2, 37), torch.bfloat16, "wgmma_pad128"),
     ((2, 130, 167, 4, 2, 37), torch.bfloat16, "mma_sync"),
     ((2, 130, 167, 4, 2, 37), torch.float32, "fp32"),
 ], ids=str)
@@ -607,13 +618,20 @@ def test_kernel_flash_head_dim_112(cuda_flash, shape, dtype, kernel):
     b, sq, sk, hq, hkv, off = shape
     q, k, v = _flash_qkv(cuda_flash, b, sq, sk, hq, hkv, 112, seed=sq + sk, dtype=dtype)
     fa.reset_launches()
-    out = fa.launch(q, k, v, off, kernel=kernel) if kernel == "mma_sync" \
+    out = fa.launch(q, k, v, off, kernel=kernel) if kernel in ("mma_sync", "wgmma_pad128") \
         else fa.gqa_flash(q, k, v, causal_offset=off)
     torch.cuda.synchronize()
     assert fa.launches["gqa_flash"] == fa.launches[kernel] == 1, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype} {kernel}")
+    if kernel == "wgmma":
+        pl = fa.plan(q, k, v, off)
+        assert pl.group_kv == fa.kv_group(b, sk, hkv, 112) and pl.grid[1:] == (1, 1)
+        out2, lse = fa.launch(q, k, v, off, with_lse=True)
+        pad, pad_lse = fa.launch(q, k, v, off, kernel="wgmma_pad128", with_lse=True)
+        assert torch.equal(out, out2) and torch.equal(out, pad) and torch.equal(lse, pad_lse)
+        assert fa.launches["wgmma"] == 2 and fa.launches["wgmma_pad128"] == 1, fa.launches
 
 
 # Head dim 16, the tiny trainer of repro_torch.examples.train_carbon_aware
@@ -640,7 +658,7 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
     out = fa.gqa_flash(*leaves, causal_offset=off)
     out.backward(do)
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": wg, "mma_sync": 0,
+    assert fa.launches == {"gqa_flash": 1, "wgmma": wg, "wgmma_pad128": 0, "mma_sync": 0,
                            "fp32": 1 - wg, "fp32_simple": 0, "gqa_flash_bwd": 1,
                            "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
                            "bwd_wgmma_dq": wg, "bwd_wgmma_dkdv": wg, "bwd_mma_dq": 0,
@@ -668,8 +686,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
     fa.reset_launches()
     out = fa.gqa_flash(q, k, v, causal_offset=extra)
     torch.cuda.synchronize()
-    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "mma_sync": 0, "fp32": 0,
-                           "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
+    assert fa.launches == {"gqa_flash": 1, "wgmma": 1, "wgmma_pad128": 0, "mma_sync": 0,
+                           "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
                            "bwd_tiled_dkdv": 0, "layout_copy": 0}

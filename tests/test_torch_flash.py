@@ -138,46 +138,70 @@ def test_plan_zamba2_forward_at_head_dim_112():
     """zamba2-7b's shared attention (d_model 3584 over 32 heads): D = 112
     stays the maps' innermost extent (H stride 224 bytes, a multiple of 16,
     as TMA requires), on the D = 128 kernel's tiles, ring and shared
-    memory."""
+    memory; the D-112 kernel's 2048 blocks in the L2 order, 8 KV heads a
+    group, and the yardstick's grid (Hq, B, query tiles) on the same maps."""
     q, k, v = (_bf16(4, 2048, 32, 112) for _ in range(3))
     pl = fa.plan(q, k, v)
-    assert pl.route == "wgmma" and pl.grid == (32, 4, 16)
+    assert pl.route == "wgmma" and pl.grid == (4 * 32 * 16, 1, 1) and pl.group_kv == 8
     one = (112, 32, 2048, 4, 224, 32 * 224, 2048 * 32 * 224, 64, 1, 128, 1)
     assert pl.maps == one * 3
     assert all(s % 16 == 0 for s in one[4:7])
     assert fa.WGMMA_TILE_DIM[112] == 128 and fa.wgmma_stages(112) == 2
     assert pl.smem == fa.wgmma_smem_bytes(128) == 164920
+    yard = fa.plan(q, k, v, kernel="wgmma_pad128")
+    assert yard.route == "wgmma_pad128" and yard.grid == (32, 4, 16) and yard.group_kv == 0
+    assert yard.maps == pl.maps and yard.smem == pl.smem
+
+
+def _l2_block(i, grid_x, sq, hq, group, group_kv):
+    """``hopper::block_of<true>`` (csrc/flash_attention.cu): block i's query
+    head, batch and first query row in the L2 order."""
+    tiles = -(-sq // fa.WGMMA_ROWS)
+    full = group_kv * group * tiles
+    kv0 = i // full * group_kv
+    heads = min(group_kv, grid_x // (group * tiles) - kv0) * group
+    r = i % full
+    kv = kv0 + r % heads // group
+    hkv = hq // group
+    return kv % hkv * group + r % group, kv // hkv, (tiles - 1 - r // heads) * fa.WGMMA_ROWS
 
 
 @pytest.mark.parametrize("b,sq,hq", [(4, 2048, 32), (2, 130, 3), (1, 1, 2)])
 def test_wgmma_head_dim_112_walk_covers_each_output_once(b, sq, hq):
-    """The D = 112 launch walked as the kernel walks it: each block (h, b,
-    z) owns query rows q0 = (Z - 1 - z) * 128 onward; its two consumer
-    warpgroups' threads (warp w, lane 4g + t) store rows q0 + 64c + 16w + g
-    (+ 8) below Sq, columns 8n + 2t and 8n + 2t + 1 for n < 112 / 8.  Every
-    output element is stored once and no column at or past 112; the two
-    64-column boxes of a tile load columns 0..127, of which TMA fills those
-    at or past the maps' extent 112 with zeros."""
+    """The D = 112 launches walked as the kernels walk them: the D-112
+    kernel's blocks in the L2 order (decoded from blockIdx.x as
+    ``hopper::block_of`` does), the yardstick's (h, b, z) in the grid's
+    order, q0 = (Z - 1 - z) * 128; each block's two consumer warpgroups'
+    threads (warp w, lane 4g + t) store rows q0 + 64c + 16w + g (+ 8) below
+    Sq, columns 8n + 2t and 8n + 2t + 1 for n < 112 / 8 (the D-112 kernel's
+    accumulators hold those columns alone; the yardstick's hold 128 and
+    store those below 112).  Every output element is stored once and no
+    column at or past 112; the two 64-column boxes of a tile load columns
+    0..127, of which TMA fills those at or past the maps' extent 112 with
+    zeros."""
     d = 112
     q = _bf16(b, sq, hq, d)
-    pl = fa.plan(q, q, q)
-    hits = np.zeros((b, sq, hq, 128), dtype=np.int64)
-    gx, gy, gz = pl.grid
     c, w, g, t, r, n = np.meshgrid(np.arange(2), np.arange(4), np.arange(8), np.arange(4),
                                    np.arange(2), np.arange(d // 8), indexing="ij")
-    for z in range(gz):
-        q0 = (gz - 1 - z) * fa.WGMMA_ROWS
-        rows = (q0 + 64 * c + 16 * w + g + 8 * r).ravel()
-        cols = (8 * n + 2 * t).ravel()
-        keep = rows < sq
-        for h in range(gx):
-            for bb in range(gy):
-                for col in (cols[keep], cols[keep] + 1):
-                    np.add.at(hits, (bb, rows[keep], h, col), 1)
-    assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
-    extent, box = pl.maps[0], pl.maps[7]
-    loaded = np.arange(fa.WGMMA_TILE_DIM[d] // box * box)
-    assert extent == d and set(loaded[loaded < extent]) == set(range(d))
+    for kernel in (None, "wgmma_pad128"):
+        pl = fa.plan(q, q, q, kernel=kernel)
+        gx, gy, gz = pl.grid
+        if kernel is None:
+            blocks = [_l2_block(i, gx, sq, hq, 1, pl.group_kv) for i in range(gx)]
+        else:
+            blocks = [(h, bb, (gz - 1 - z) * fa.WGMMA_ROWS) for z in range(gz)
+                      for h in range(gx) for bb in range(gy)]
+        hits = np.zeros((b, sq, hq, 128), dtype=np.int64)
+        for h, bb, q0 in blocks:
+            rows = (q0 + 64 * c + 16 * w + g + 8 * r).ravel()
+            cols = (8 * n + 2 * t).ravel()
+            keep = rows < sq
+            for col in (cols[keep], cols[keep] + 1):
+                np.add.at(hits, (bb, rows[keep], h, col), 1)
+        assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
+        extent, box = pl.maps[0], pl.maps[7]
+        loaded = np.arange(fa.WGMMA_TILE_DIM[d] // box * box)
+        assert extent == d and set(loaded[loaded < extent]) == set(range(d))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -272,8 +296,8 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
     q = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16)
     fa.reset_launches()
     fa.gqa_flash(q, q, q)                      # CPU tensors: the plain version
-    assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "mma_sync": 0, "fp32": 0,
-                           "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
+    assert fa.launches == {"gqa_flash": 0, "wgmma": 0, "wgmma_pad128": 0, "mma_sync": 0,
+                           "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
                            "bwd_tiled_dkdv": 0, "layout_copy": 0}
@@ -297,6 +321,9 @@ def test_tiling_constants_match_the_cuda_source():
     assert "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;" in hopper
     assert const["NARROW"] == fa.WGMMA_NARROW and fa.WGMMA_NARROW_STAGES == 4
     assert (fa.wgmma_stages(128), fa.wgmma_stages(64), fa.wgmma_stages(32)) == (2, 3, 4)
-    # the Hopper entry point runs D = 112 on the D = 128 tiles
-    assert "case 112:\n      return static_cast<int>(hopper::launch<128, 112>(" in src
+    # the Hopper entry point runs D = 112 on the D = 128 tiles: the D-112
+    # kernel given the L2 order's group, the yardstick given none
+    assert ("case 112:\n      return static_cast<int>(\n          ordered ? hopper::launch<128, "
+            "112, __nv_bfloat16, hopper::D112>(") in src
+    assert ": hopper::launch<128, 112>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset," in src
     assert fa.WGMMA_TILE_DIM == {64: 64, 112: 128, 128: 128}
