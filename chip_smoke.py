@@ -1294,15 +1294,19 @@ FLASH_DIMS_CASES = ([(d, dt) for d in FLASH_DIMS
 FLASH_DIMS_SHAPE = (2, 200, 333, 8, 2, 133)
 # (name, B, Sq, Sk, Hq, Hkv, D, dtype) of the timed forwards: bf16 at D 96,
 # 256 (Gemma-2-9B's heads, on the 256-wide tiles) and 250 (the same tiles,
-# staged) at a prefill of 4 x 2048, fp16 at llama3-8b's prefill shape, fp32
-# at the head-dim path's D 100 scaled to that prefill; and of the timed
-# backwards: bf16 D 96, 256 and 250 and fp32 D 100 at internvl2-2b's train
-# shape; bf16 D 32 (the narrow tiles' widest: train_carbon_aware's 10m
-# preset) both ways at the forward's prefill.  At D 250, at D 32 and in
-# fp32 (the tiled kernels) the route they replaced (mma.sync and fma,
-# mma.sync and the mma pair, flash_f32_kernel and fma) runs in the same
-# turns, gated.
+# staged) at a prefill of 4 x 2048, fp16 at D 112 at zamba2-7b's forward (32
+# heads over 32), fp16 at llama3-8b's prefill shape, fp32 at the head-dim
+# path's D 100 scaled to that prefill; and of the timed backwards: bf16 D 96,
+# 256 and 250 and fp32 D 100 at internvl2-2b's train shape, bf16 D 112 at
+# zamba2-7b's layout; bf16 D 32 (the narrow tiles' widest:
+# train_carbon_aware's 10m preset) both ways at the forward's prefill.  At D
+# 250, at D 32, in fp32 (the tiled kernels) and on the head-dim kernels (D 96
+# and 112, products at the head's width in the L2 order) the route they
+# replaced (mma.sync and fma, mma.sync and the mma pair, flash_f32_kernel and
+# fma, the whole-tile instantiations "wgmma_tile") runs in the same turns,
+# gated.
 DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
+                  ("fp16-d112", 4, 2048, 2048, 32, 32, 112, torch.float16),
                   ("bf16-d256", 4, 2048, 2048, 16, 8, 256, torch.bfloat16),
                   ("bf16-d250", 4, 2048, 2048, 16, 8, 250, torch.bfloat16),
                   ("fp16-d128", 4, 2048, 2048, 32, 8, 128, torch.float16),
@@ -1319,6 +1323,16 @@ DIMS_FWD_TIMED = [("bf16-d96", 4, 2048, 2048, 32, 8, 96, torch.bfloat16),
 WIDE_FWD_RATIO, WIDE_BWD_RATIO = 0.4, 0.1
 MMA_BWD_RATIO = 0.25
 NARROW_FWD_RATIO, NARROW_BWD_RATIO = 0.8, 0.75
+# The head-dim kernels (products at W = ceil(D / 16) * 16, the L2 order)
+# against the whole-tile instantiations they replaced (kernel="wgmma_tile",
+# route="wgmma_tile"), by profiler device time in turns, at most this share
+# of their time, by timed case (readings on an H100 80GB HBM3 at 700 W,
+# scripts/kernel_splits.py widths: forward bf16 D 96 0.917, fp16 D 112
+# 0.723; backward pair bf16 D 96 0.891, bf16 D 112 0.833)
+WIDTH_FWD_RATIO = {"bf16-d96": 0.95, "fp16-d112": D112_RATIO}
+WIDTH_BWD_RATIO = {"bf16-d96": 0.95, "bf16-d112": 0.95}
+# a head-dim kernel's mangled name: the tiles 64 or 128 wide, DO 0, Products<W, W, true>
+WIDTH_INSTANCE = r"wgmma_kernelILi(64|128)ELi0E\w+?ProductsILi\d+ELi\d+ELb1E"
 # One ex2 a score at Hopper's ~3.9 T special-function results a second
 # (the FlashAttention-3 paper's figure): the narrow widths' softmax floor
 EXP2_PER_S = 3.9e12
@@ -1326,6 +1340,7 @@ FP32_FWD_RATIO, FP32_BWD_RATIO = 0.75, 0.6
 # The tiled kernels' instantiations: one per count of accumulator slots
 TILED_SLOTS = sorted({fa.tiled_slots(d) for d in range(1, fa.MAX_HEAD_DIM + 1)})
 DIMS_BWD_TIMED = [("bf16-d96", 4, 2304, 2304, 16, 8, 96, torch.bfloat16),
+                  ("bf16-d112", 4, 2048, 2048, 32, 32, 112, torch.bfloat16),
                   ("bf16-d256", 4, 2304, 2304, 16, 8, 256, torch.bfloat16),
                   ("bf16-d250", 4, 2304, 2304, 16, 8, 250, torch.bfloat16),
                   ("bf16-d32", 4, 2048, 2048, 16, 8, 32, torch.bfloat16),
@@ -1337,36 +1352,28 @@ DIMS_D192_TIMED = (("bf16-d192", 4, 2048, 2048, 16, 8, 192, torch.bfloat16),
                    ("bf16-d192", 4, 2304, 2304, 16, 8, 192, torch.bfloat16))
 # The head-dim path: one train step of reduced llama3-8b at these head dims
 # and compute dtypes through make_train_step (the forward and backward
-# kernels of each route on a user's entry point), 2 x 256 tokens.
+# kernels of each route on a user's entry point), 2 x 256 tokens: D 96 bf16,
+# D 80 and 112 fp16 on the head-dim kernels both ways, bf16 D 112's backward
+# on them (its forward the D-112 kernel), the staged D 100 and 250 on the
+# whole-tile instantiations.
 DIMS_PATH = [(96, torch.bfloat16), (256, torch.bfloat16), (250, torch.bfloat16),
              (24, torch.float16), (80, torch.float16), (100, torch.float16),
-             (32, torch.bfloat16), (100, torch.float32)]
+             (112, torch.float16), (112, torch.bfloat16), (32, torch.bfloat16),
+             (100, torch.float32)]
 DIMS_PATH_BATCH, DIMS_PATH_SEQ = 2, 256
 
 
-def fwd_instance(dtype, d) -> str:
-    """The forward kernel instantiation of (dtype, D)."""
-    route = fa.route(dtype, d)
-    t = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}.get(dtype)
-    if route == "wgmma":
-        tile = fa.wgmma_tile_dim(d)
-        pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
-        return f"flash_wgmma_kernel<{tile}, {d if pinned else 0 if d % 8 == 0 else -1}, {t}>"
-    if route == "mma_sync":
-        return f"flash_mma_kernel<{t}, {fa.padded_dim(d)}>"
-    return f"flash_tiled_kernel<{fa.tiled_slots(d)}>" + (" on fp32 copies"
-                                                          if dtype == torch.float64 else "")
+def fwd_instance(dtype, d, kernel=None) -> str:
+    """The forward kernel instantiation of (dtype, D) on ``kernel`` (default:
+    its route), as ``fa.launch`` counts it in ``fa.instances``."""
+    return fa.instance(dtype, d, kernel) + (" on fp32 copies" if dtype == torch.float64 else "")
 
 
-def bwd_instance(dtype, d) -> str:
-    if fa.bwd_route(dtype, d) == "wgmma":
-        pinned = dtype == torch.bfloat16 and d in fa.WGMMA_TILE_DIM
-        return (f"flash_bwd_{{dq,dkdv}}_wgmma_kernel<{fa.wgmma_tile_dim(d)}, "
-                f"{d if pinned else 0 if d % 8 == 0 else -1}, {str(dtype)[6:]}>")
-    if fa.bwd_route(dtype, d) == "mma":
-        return f"flash_bwd_{{dq,dkdv}}_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}>"
-    return f"flash_bwd_{{dq,dkdv}}_tiled_kernel<{fa.tiled_slots(d)}>" + (
-        " on fp32 copies" if dtype == torch.float64 else "")
+def bwd_instance(dtype, d, route=None) -> str:
+    """The backward pair's instantiation of (dtype, D) on ``route`` (default:
+    its route)."""
+    return fa.bwd_instance(dtype, d, route) + (" on fp32 copies"
+                                               if dtype == torch.float64 else "")
 
 
 def flash_dims_phase(reports):
@@ -1440,8 +1447,10 @@ def flash_dims_phase(reports):
     # bf16 and fp16, widths 16 and 32): eight in the backward's; the forward
     # yardstick at those widths (flash_mma_kernel): four; and fp32's tiled kernels,
     # one of each for every count J of accumulator slots (1..8, 10, 12, 14,
-    # 16: tiled_slots): twelve forward, twenty-four backward; none of which
-    # may spill or serialise its products
+    # 16: tiled_slots): twelve forward, twenty-four backward; the head-dim
+    # kernels (products at W 48, 64, 80, 96, 112, 128 in the L2 order, bf16
+    # and fp16): twelve forward, twenty-four backward; none of which may
+    # spill or serialise its products
     ptx, gated = {}, {}
     for src, pattern, count in (
             ("flash_attention.cu", r"wgmma_kernelILi(192|256)E", 8),
@@ -1454,7 +1463,9 @@ def flash_dims_phase(reports):
             ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_mma_kernel", 8),
             ("flash_attention.cu", r"flash_tiled_kernelILi\d+EE", len(TILED_SLOTS)),
             ("flash_attention_bwd.cu", r"flash_bwd_(dq|dkdv)_tiled_kernelILi\d+EE",
-             2 * len(TILED_SLOTS))):
+             2 * len(TILED_SLOTS)),
+            ("flash_attention.cu", WIDTH_INSTANCE, 2 * len(fa.PRODUCT_WIDTHS)),
+            ("flash_attention_bwd.cu", WIDTH_INSTANCE, 4 * len(fa.PRODUCT_WIDTHS))):
         rep = ptxas_report(reports[f"src/repro_torch/csrc/{src}"], "flash_")
         if not rep:
             log(f"{src}: no ptxas report (the library was built before this run)")
@@ -1471,8 +1482,8 @@ def flash_dims_phase(reports):
     bad = {n: r for n, r in gated.items()
            if r.get("spill_stores") or r.get("spill_loads") or r["remarks"]}
     if bad:
-        raise AssertionError(f"the wide or narrow wgmma, the mma backward or the tiled "
-                             f"instantiations spill or serialise: {bad}")
+        raise AssertionError(f"the wide, narrow or head-dim wgmma, the mma backward or the "
+                             f"tiled instantiations spill or serialise: {bad}")
     log("wide and narrow wgmma, mma backward and tiled instantiations, ptxas: " + "; ".join(
         f"{n}: {r.get('registers')} registers, spills {r.get('spill_stores', 0)}/"
         f"{r.get('spill_loads', 0)}" for n, r in gated.items()))
@@ -1514,17 +1525,24 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     and the tiled kernel must take at most FP32_FWD_RATIO of its time; on the
     narrow tiles (D <= 32) mma.sync does, and the kernel must take at most
     NARROW_FWD_RATIO of its profiler device time in turns (the exponentials'
-    floor printed beside the bound).  The yardstick's own entry, for the
-    yardsticks' line, comes under "yardstick" at D <= 32."""
+    floor printed beside the bound); on a head-dim kernel (``fa.width_kernel``)
+    the whole-tile instantiation it replaced ("wgmma_tile") does, its output
+    equal bit for bit, and the kernel, the yardstick and SDPA are timed by
+    profiler device time in turns, the kernel at most WIDTH_FWD_RATIO[tag] of
+    the yardstick's time.  The yardstick's own entry, for the yardsticks'
+    line, comes under "yardstick" at D <= 32 and on the head-dim kernels."""
     q, k, v = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), dtype=dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     route = fa.route(dtype, d)
     wide = route == "wgmma" and d > 128 and fa.tma_width(d) != d
     narrow = route == "wgmma" and d <= fa.WGMMA_NARROW
+    width = route == "wgmma" and fa.width_kernel(dtype, d)
     fp32 = route == "fp32"
     old, ratio_limit = ("fp32_simple", FP32_FWD_RATIO) if fp32 else \
+        ("wgmma_tile", WIDTH_FWD_RATIO.get(tag)) if width else \
         ("mma_sync", NARROW_FWD_RATIO if narrow else WIDE_FWD_RATIO)
-    paired = wide or fp32 or narrow
+    paired = wide or fp32 or narrow or width
+    by_device = narrow or width     # gated by profiler device time in turns
 
     def kernel():
         return fa.launch(q, k, v, 0)
@@ -1552,6 +1570,12 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         if not checked["previous_rel_l2"] <= FLASH_REL[dtype]:
             raise AssertionError(f"gqa_flash {tag} on {old}: relative L2 "
                                  f"{checked['previous_rel_l2']} to the plain version")
+        if width:   # the head-dim kernel's output is the yardstick's, bit for bit
+            checked["equal_to_previous"] = torch.equal(got, prev)
+            if not checked["equal_to_previous"]:
+                raise AssertionError(f"gqa_flash {tag}: the head-dim kernel's output differs "
+                                     f"from the yardstick's ({old}) by up to "
+                                     f"{(got.float() - prev.float()).abs().max().item()}")
         del prev
     del got, want
     n = 20 if dtype != torch.float32 else 5
@@ -1572,8 +1596,9 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
              library_device_ms=device_ms(library, n // 2, 1))
     if fp32:
         t["previous_device_ms"] = device_ms_again(previous, n)
-    if narrow:      # the gate's reading: profiler device time, in turns
-        dev_turns = in_turns({"device_ms": kernel, "previous_device_ms": previous})
+    if by_device:   # the gate's reading: profiler device time, in turns
+        dev_turns = in_turns({"device_ms": kernel, "previous_device_ms": previous,
+                              **({"library_device_ms": library} if width else {})})
         t.update({key: float(np.mean(val)) for key, val in dev_turns.items()},
                  device_turns=dev_turns)
     nbytes, flops = flash_work(b, sq, sk, hq, hkv, d, 0, q.element_size())
@@ -1595,37 +1620,41 @@ def flash_dims_fwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         + (f"; the {old} kernel {t['previous_ms']:.6f} (device "
            f"{t.get('previous_device_ms')}; kernel / it {t['ms'] / t['previous_ms']:.4f}"
            + (f", by device time {t['device_ms'] / t['previous_device_ms']:.4f}"
-              if narrow else "")
+              if by_device else "")
            + f", limit {ratio_limit}; max abs diff {checked['previous_max_abs_err']}, relative "
            f"L2 {checked['previous_rel_l2']})" if paired else ""))
-    if narrow:
-        if not t["device_ms"] <= ratio_limit * t["previous_device_ms"]:
-            raise AssertionError(f"gqa_flash {tag}: the narrow wgmma kernel takes "
+    if by_device:
+        if ratio_limit is not None and not t["device_ms"] <= ratio_limit * t["previous_device_ms"]:
+            raise AssertionError(f"gqa_flash {tag}: the {fwd_instance(dtype, d)} takes "
                                  f"{t['device_ms']} ms of device time, more than {ratio_limit} "
-                                 f"of the mma.sync kernel's {t['previous_device_ms']} ms")
+                                 f"of the {old} kernel's {t['previous_device_ms']} ms")
     elif (wide or fp32) and not t["ms"] <= ratio_limit * t["previous_ms"]:
         raise AssertionError(f"gqa_flash {tag}: the {route} kernel takes {t['ms']} ms, more "
                              f"than {ratio_limit} of the {old} kernel's "
                              f"{t['previous_ms']} ms")
     shape = f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]} causal"
-    if narrow:
+    if by_device:
+        checked["over_previous_device"] = t["device_ms"] / t["previous_device_ms"]
         checked["yardstick"] = dict(
-            name=f"gqa_flash_mma_sync_{tag.replace('-', '_')}", route="cuda",
-            kernel=f"flash_mma_kernel<{str(dtype)[6:]}, {fa.padded_dim(d)}> "
-                   "(kernel=\"mma_sync\")",
+            name=f"gqa_flash_{old}_{tag.replace('-', '_')}", route="cuda",
+            kernel=f"{fwd_instance(dtype, d, old)} (kernel=\"{old}\")",
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:94",
             max_abs_err=checked["previous_max_abs_err"], rel_l2=checked["previous_rel_l2"],
             ms=t["previous_ms"], device_ms=t["previous_device_ms"], plain_ms=t["plain_ms"],
-            bound_ms=bound, bound_by=by, library_ms=t["library_ms"],
-            library_device_ms=t["library_device_ms"], shape=shape)
+            bound_ms=bound, bound_by=by, bound_share=bound / t["previous_device_ms"],
+            library_ms=t["library_ms"], library_device_ms=t["library_device_ms"], shape=shape)
     return dict(name=f"gqa_flash_{tag.replace('-', '_')}", route="cuda",
                 kernel=fwd_instance(dtype, d), flash_route=route,
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:94",
                 max_abs_err=err, rel_l2=rel, bound_ms=bound, bound_by=by,
                 tflops=flops / t["ms"] / 1e9, bound_share=bound / t["ms"],
-                over_sdpa=t["ms"] / t["library_ms"], exp_floor_ms=exp_floor, shape=shape,
+                bound_share_device=bound / t["device_ms"] if t["device_ms"] else None,
+                over_sdpa=t["ms"] / t["library_ms"],
+                over_sdpa_device=(t["device_ms"] / t["library_device_ms"]
+                                  if t["device_ms"] and t["library_device_ms"] else None),
+                exp_floor_ms=exp_floor, shape=shape,
                 sdpa_max_abs_diff=lib_diff, turns=turns, **checked, **t)
 
 
@@ -1647,7 +1676,12 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     yardsticks' line, comes under "yardstick".  On the tiled route each
     of its two kernels is timed in the same turns too (``launch_bwd_kernel``
     on the whole route's buffers), and returned as the kernel line's entries
-    under "kernel_entries"."""
+    under "kernel_entries".  On the head-dim kernels (``fa.width_kernel(...,
+    backward=True)``) the whole-tile pair they replaced (``route="wgmma_tile"``)
+    runs in the same turns, its dQ, dK and dV equal bit for bit, and the pair,
+    the yardstick and SDPA's backward are timed by profiler device time in
+    turns, the pair at most WIDTH_BWD_RATIO[tag] of the yardstick's time; the
+    yardstick's entry, for the yardsticks' line, comes under "yardstick"."""
     q, k, v, do = card_normal(gen, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d),
                               (b, sq, hq, d), dtype=dtype)
     route = fa.bwd_route(dtype, d)
@@ -1665,6 +1699,9 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
 
     def mma():
         return fa.launch_bwd(q, k, v, o, do, 0, lse=lse, route="mma")
+
+    def whole_tile():
+        return fa.launch_bwd(tq, tk, tv, o, do, 0, lse=lse, route="wgmma_tile")
 
     def plain():
         return fa.gqa_flash_bwd_plain(q, k, v, o, do, 0)
@@ -1691,6 +1728,7 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
 
     tiled = route == "tiled"
     narrow = route == "wgmma" and d <= fa.WGMMA_NARROW
+    width = route == "wgmma" and fa.width_kernel(dtype, d, backward=True)
     wide = (route == "wgmma" and d > 128 and fa.tma_width(d) != d) or route == "tiled" or narrow
     ratio_limit = {"tiled": FP32_BWD_RATIO}.get(route, WIDE_BWD_RATIO)
     want = plain()
@@ -1699,6 +1737,13 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     # the yardsticks are held to the plain backward too before they are timed
     prev_err, prev_rel = held(previous(), want, "fma", BWD_REL[dtype]) if wide else (None, None)
     mma_err, mma_rel = held(mma(), want, "mma", BWD_WGMMA_REL) if narrow else (None, None)
+    tile_err, tile_rel = held(whole_tile(), want, "wgmma_tile", BWD_WGMMA_REL) if width \
+        else (None, None)
+    if width:       # the head-dim pair's gradients are the yardstick's, bit for bit
+        same = [torch.equal(a, c) for a, c in zip(kernels(), whole_tile())]
+        if not all(same):
+            raise AssertionError(f"gqa_flash_bwd {tag}: dQ, dK, dV of the head-dim pair equal "
+                                 f"to the whole-tile pair's: {same}")
     del want
     iters = 3 if route in ("fma", "tiled") else 10
     runs = dict(ms=(kernels, iters, 1))
@@ -1706,6 +1751,8 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         runs["stage_ms"] = (lambda: fa.stage(do), iters, 1)    # the call's dO copy
     if narrow:
         runs["mma_ms"] = (mma, iters, 1)
+    if width:
+        runs["tile_ms"] = (whole_tile, iters, 1)
     if wide:
         runs["previous_ms"] = (previous, 2, 1)
     if tiled:       # each kernel alone, on the whole route's buffers (D_i in place)
@@ -1729,6 +1776,10 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
         dev["device_ms"] = None if None in parts else sum(parts)
     if narrow:      # the gate's reading: profiler device time, in turns
         dev_turns = in_turns({"device_ms": kernels, "mma_device_ms": mma})
+        dev.update({key: float(np.mean(val)) for key, val in dev_turns.items()})
+    if width:       # the gate's reading: profiler device time, in turns, SDPA's too
+        dev_turns = in_turns({"device_ms": kernels, "tile_device_ms": whole_tile,
+                              "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd})
         dev.update({key: float(np.mean(val)) for key, val in dev_turns.items()})
     library = t["sdpa_fwd_bwd"] - t["sdpa_fwd"]
     library_dev = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
@@ -1755,6 +1806,11 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
            f"route {t['previous_ms']:.6f} (device {dev.get('previous_device_ms')}; the mma pair "
            f"over it {t['mma_ms'] / t['previous_ms']:.4f}, limit {MMA_BWD_RATIO})"
            if narrow else "")
+        + (f"; the whole-tile pair (route \"wgmma_tile\") {t['tile_ms']:.6f} (device "
+           f"{dev['tile_device_ms']}; the head-dim pair over it by device time in turns "
+           f"{dev['device_ms'] / dev['tile_device_ms']:.4f}, limit {WIDTH_BWD_RATIO.get(tag)}; "
+           f"equal bit for bit; max abs diff {tile_err}, relative L2 {tile_rel}; device "
+           f"turns {dev_turns})" if width else "")
         + "".join(f"; {name} {t[name]:.6f} (device {dev[name]})"
                   for name in (fa.BWD_TILED_KERNELS if tiled else ())))
     if narrow:
@@ -1769,6 +1825,11 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
     elif wide and not t["ms"] <= ratio_limit * t["previous_ms"]:
         raise AssertionError(f"gqa_flash_bwd {tag}: the {route} route takes {t['ms']} ms, more "
                              f"than {ratio_limit} of the fma route's {t['previous_ms']} ms")
+    if width and tag in WIDTH_BWD_RATIO \
+            and not dev["device_ms"] <= WIDTH_BWD_RATIO[tag] * dev["tile_device_ms"]:
+        raise AssertionError(f"gqa_flash_bwd {tag}: the head-dim pair takes {dev['device_ms']} "
+                             f"ms of device time, more than {WIDTH_BWD_RATIO[tag]} of the "
+                             f"whole-tile pair's {dev['tile_device_ms']} ms")
     extra = dict(previous_ms=t["previous_ms"], previous="the fma route",
                  previous_device_ms=dev["previous_device_ms"],
                  previous_max_abs_err=prev_err, previous_rel_l2=prev_rel) if wide else {}
@@ -1790,6 +1851,19 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
             library_device_ms=library_dev, previous="the fma route",
             previous_ms=t["previous_ms"], over_previous=t["mma_ms"] / t["previous_ms"],
             shape=shape)
+    if width:
+        extra.update(tile_ms=t["tile_ms"], tile_device_ms=dev["tile_device_ms"],
+                     over_tile_device=dev["device_ms"] / dev["tile_device_ms"],
+                     equal_to_tile=True, device_turns=dev_turns)
+        extra["yardstick"] = dict(
+            name=f"gqa_flash_bwd_wgmma_tile_{tag.replace('-', '_')}", route="cuda",
+            kernel=f"{bwd_instance(dtype, d, 'wgmma_tile')} (route=\"wgmma_tile\")",
+            bwd_route="wgmma_tile", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/common.py:255 (XLA autodiff of chunked_attention)",
+            max_abs_err=tile_err, rel_l2=tile_rel, ms=t["tile_ms"],
+            device_ms=dev["tile_device_ms"], plain_ms=t["plain_ms"], bound_ms=bound,
+            bound_by=by, bound_share=bound / dev["tile_device_ms"], library_ms=library,
+            library_device_ms=library_dev, shape=shape)
     if "stage_ms" in t:
         extra["stage_ms"] = t["stage_ms"]
     if tiled:
@@ -1820,9 +1894,13 @@ def flash_dims_bwd_timing(gen, tag, b, sq, sk, hq, hkv, d, dtype):
                 max_abs_err=err, rel_l2=rel, ms=t["ms"], device_ms=dev["device_ms"],
                 plain_ms=t["plain_ms"], plain_device_ms=dev["plain_device_ms"],
                 plain_of="the whole backward", bound_ms=bound, bound_by=by,
-                bound_share=bound / t["ms"], library_ms=library, library_device_ms=library_dev,
+                bound_share=bound / t["ms"],
+                bound_share_device=bound / dev["device_ms"] if dev["device_ms"] else None,
+                library_ms=library, library_device_ms=library_dev,
                 library_of="the whole backward: SDPA forward + backward less forward",
-                over_sdpa=over, shape=shape, turns=turns, **extra)
+                over_sdpa=over, over_sdpa_device=(dev["device_ms"] / library_dev
+                                                  if dev["device_ms"] and library_dev else None),
+                shape=shape, turns=turns, **extra)
 
 
 def dims_path_phase(device="cuda"):
@@ -1831,7 +1909,10 @@ def dims_path_phase(device="cuda"):
     ``make_train_step``, launch counts reset just before and read just
     after: two forwards a layer (the recompute) on its route and one
     backward on the route that pairs with it (``train_launch_counts``).
-    Returns each case's launches, loss and grad norm."""
+    Launches are also held by kernel instantiation (``fa.instances``): D 96
+    bf16, D 80 and 112 fp16 and bf16 D 112's backward on the head-dim kernels,
+    the staged D 100 and 250 on the whole-tile ones.  Returns each case's
+    launches, loss and grad norm."""
     from repro_torch.configs import reduced
     from repro_torch.train import (DataConfig, OptimizerConfig, SyntheticLM, init_state,
                                    make_train_step)
@@ -1848,14 +1929,21 @@ def dims_path_phase(device="cuda"):
         fa.reset_launches()
         _, met = step(state, batch)
         torch.cuda.synchronize()
-        counts = dict(fa.launches)
+        counts, instances = dict(fa.launches), dict(fa.instances)
         want = train_launch_counts(dtype, d, cfg.num_layers, 1)
+        # by instantiation: the head-dim kernels at D 96, 80 and 112, the
+        # whole-tile ones at the staged D 100 and 250
+        layers, pair = cfg.num_layers, fa.BWD_ROUTE_KERNELS[fa.bwd_route(dtype, d)]
+        want_inst = {fa.instance(dtype, d): 2 * layers,
+                     **{fa.bwd_instance(dtype, d, which=i): layers for i in range(len(pair))}}
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
-        if counts != want or not math.isfinite(loss) or not math.isfinite(gnorm):
+        if counts != want or instances != want_inst or not math.isfinite(loss) \
+                or not math.isfinite(gnorm):
             raise AssertionError(f"head-dim path D={d} {dtype}: launches {counts} (expected "
-                                 f"{want}), loss {loss}, grad norm {gnorm}")
-        out[f"D={d} {str(dtype)[6:]}"] = dict(launches=counts, loss=loss, grad_norm=gnorm,
-                                              kernel=fwd_instance(dtype, d),
+                                 f"{want}), by instantiation {instances} (expected "
+                                 f"{want_inst}), loss {loss}, grad norm {gnorm}")
+        out[f"D={d} {str(dtype)[6:]}"] = dict(launches=counts, instances=instances, loss=loss,
+                                              grad_norm=gnorm, kernel=fwd_instance(dtype, d),
                                               bwd_kernel=bwd_instance(dtype, d))
         log(f"head-dim path: {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
             f"{cfg.num_heads} x {d} heads), one train step of {DIMS_PATH_BATCH} x "
@@ -7143,23 +7231,27 @@ def phases(card, reports, shard_ranks, twins):
     by_tag = {e["name"]: e for e in dims_fwd + dims_bwd}
     # fp32's tiled backward kernels, each timed at the fp32 D-100 shape
     tiled_entries = by_tag["gqa_flash_bwd_fp32_d100"].pop("kernel_entries")
-    # the narrow tiles' yardsticks at D 32 (mma.sync, the mma pair)
-    narrow_yardsticks = [by_tag[n].pop("yardstick")
-                         for n in ("gqa_flash_bf16_d32", "gqa_flash_bwd_bf16_d32")]
+    # the narrow tiles' yardsticks at D 32 (mma.sync, the mma pair) and the
+    # head-dim kernels' (the whole-tile instantiations, "wgmma_tile")
+    dims_yardsticks = [e.pop("yardstick") for e in dims_fwd + dims_bwd if "yardstick" in e]
     fp32_path = dims_path["D=100 float32"]["launches"]
     by_tag["gqa_flash_fp16_d128"].update(
         launches=serve["fp16_prefill"]["launches"]["wgmma"], path="serve-prefill fp16")
-    for d, dtype in ((96, torch.bfloat16), (256, torch.bfloat16), (250, torch.bfloat16),
-                     (32, torch.bfloat16), (100, torch.float32)):
-        counts = dims_path[f"D={d} {str(dtype)[6:]}"]["launches"]
-        name = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}_d{d}"
+    # each timed case's launches of its own instantiation on the head-dim path
+    short = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
+    for d, dtype in DIMS_PATH:
+        case = dims_path[f"D={d} {str(dtype)[6:]}"]
+        name = f"{short[dtype]}_d{d}"
         if f"gqa_flash_{name}" in by_tag:
-            by_tag[f"gqa_flash_{name}"].update(launches=counts[fa.route(dtype, d)],
-                                               path="head-dim path train step")
+            by_tag[f"gqa_flash_{name}"].update(
+                launches=case["instances"].get(fa.instance(dtype, d), 0),
+                route_launches=case["launches"][fa.route(dtype, d)],
+                path="head-dim path train step")
         if f"gqa_flash_bwd_{name}" in by_tag:
             first = BWD_ROUTE_KERNELS[fa.bwd_route(dtype, d)][0]
-            by_tag[f"gqa_flash_bwd_{name}"].update(launches=counts[first],
-                                                   path="head-dim path train step")
+            by_tag[f"gqa_flash_bwd_{name}"].update(
+                launches=case["instances"].get(fa.bwd_instance(dtype, d, which=0), 0),
+                route_launches=case["launches"][first], path="head-dim path train step")
     moe = timed("moe serving", moe_serve_phase)
     moe["wall_s"] = walls["moe serving"]
     kernels[2].update(moe_launches=moe["launches"]["wgmma"], moe_flash_d64=moe["flash_d64"])
@@ -7225,11 +7317,17 @@ def phases(card, reports, shard_ranks, twins):
                               "wgmma_pad128"],
                           shard_tp_launches=[r["zamba2-7b"]["launches"]["wgmma_pad128"]
                                              for r in shard["ssm"]])
-    yardsticks += [d112_yardstick, d16_yardstick, *bwd_mma_entries, *narrow_yardsticks]
+    for entry in dims_yardsticks:
+        entry.update(launches=0, path=None)
+    yardsticks += [d112_yardstick, d16_yardstick, *bwd_mma_entries, *dims_yardsticks]
     default_paths = {"tiny rank": tiny, "head-dim path": [v["launches"]
-                                                           for v in dims_path.values()]}
+                                                           for v in dims_path.values()],
+                     "serving paths": [serve["launches"], moe["launches"]],
+                     "zamba2 forward": [ssm_path["zamba2-7b"]["forward_flash"]],
+                     "train step": [train["launches"]]}
     for what, counts in default_paths.items():
-        stray = [{n: c[n] for n in ("mma_sync",) + fa.BWD_MMA_KERNELS if c[n]} for c in counts]
+        stray = [{n: c[n] for n in ("mma_sync", "wgmma_tile") + fa.BWD_MMA_KERNELS
+                  + fa.BWD_WGMMA_TILE_KERNELS if c.get(n)} for c in counts]
         if any(stray):
             raise AssertionError(f"the {what} launched a yardstick: {stray}")
     dag = timed("dag", dag_path_phase, twins)

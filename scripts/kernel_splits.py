@@ -919,11 +919,7 @@ extern "C" int mma_bwd_split(int kernel, int stop, const void* q, const void* k,
          : stop == 2 ? mma_cut<2>(kernel, a, dm, b, s) : mma_cut<3>(kernel, a, dm, b, s);
 }
 """
-_NARROW_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16>\n__global__ void "
-                "__launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)\n")
-_NARROW_CUT_HEAD = ("template <int D, int DO, typename T, int STOP, class R>\n__global__ void "
-                    "__launch_bounds__(R::THREADS, R::BLOCKS)\n")
-# the forward's head: its products and block order (P) too
+# the wgmma kernels' head (forward and backward): their products and block order (P)
 _FWD_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, "
              "false>>\n__global__ void __launch_bounds__(RolesOf<D>::THREADS, "
              "RolesOf<D>::BLOCKS)\n")
@@ -993,34 +989,36 @@ extern "C" int narrow_fwd_split(int variant, int stop, const void* q, const void
 """
 NARROW_BWD_SPLITS = {
     "dQ": dict(
-        start=_NARROW_HEAD + "flash_bwd_dq_wgmma_kernel(",
+        start=_FWD_HEAD + "flash_bwd_dq_wgmma_kernel(",
         end="// dK/dV: one block per (64 keys, KV head, batch), the first key tiles (which",
         stops=("staging, D_i and the loads alone", "+ S, dP, P and dS (summed into dQ)",
                "whole kernel"),
         cuts=[
-            (_NARROW_HEAD + "flash_bwd_dq_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_dq_cut("),
+            (_FWD_HEAD + "flash_bwd_dq_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_dq_cut("),
             ("  using R = RolesOf<D>;\n", ""),
             ("      if (k0 > first + 63) {          // no row of this consumer sees a key of the tile",
              "      if (STOP < 2 || k0 > first + 63) {"),
-            ("      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);",
-             "      if constexpr (STOP >= 3) rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);\n"
-             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (D / 2)] += __uint_as_float(ds[i]);"),
+            ("      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS, PV>(acc, ds, kt);",
+             "      if constexpr (STOP >= 3) rs_product<D, L::Keys::BOX_STRIDE, T, KEYS, PV>(acc, ds, kt);\n"
+             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (PV / 2)] += __uint_as_float(ds[i]);"),
         ]),
     "dK/dV": dict(
-        start=_NARROW_HEAD + "flash_bwd_dkdv_wgmma_kernel(",
+        start=_FWD_HEAD + "flash_bwd_dkdv_wgmma_kernel(",
         end="enum Kernel { DQ = 0, DKDV = 1 };",
         stops=("the loads, and P^T, dS^T and their exchange on zero scores",
                "+ S^T and dP^T (summed into dK, dV)", "whole kernel"),
         cuts=[
-            (_NARROW_HEAD + "flash_bwd_dkdv_wgmma_kernel(", _NARROW_CUT_HEAD + "narrow_dkdv_cut("),
+            (_FWD_HEAD + "flash_bwd_dkdv_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_dkdv_cut("),
             ("  using R = RolesOf<D>;\n", ""),
-            ("      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T>(s, a_op, c == 0 ? qt : dot);",
+            ("      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T, 64, P::QK>(s, a_op,\n"
+             "                                                                          c == 0 ? qt : dot);",
              "      if constexpr (STOP >= 2)\n"
-             "        ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T>(s, a_op, c == 0 ? qt : dot);\n"
+             "        ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T, 64, P::QK>(\n"
+             "            s, a_op, c == 0 ? qt : dot);\n"
              "      else for (int i = 0; i < 32; ++i) s[i] = 0.f;"),
-            ("      rs_product<D, L::Rows::BOX_STRIDE, T>(acc, a, c == 0 ? dot : qt);",
-             "      if constexpr (STOP >= 3) rs_product<D, L::Rows::BOX_STRIDE, T>(acc, a, c == 0 ? dot : qt);\n"
-             "      else for (int i = 0; i < 16; ++i) acc[i % (D / 2)] += __uint_as_float(a[i]);"),
+            ("      rs_product<D, L::Rows::BOX_STRIDE, T, 64, PV>(acc, a, c == 0 ? dot : qt);",
+             "      if constexpr (STOP >= 3) rs_product<D, L::Rows::BOX_STRIDE, T, 64, PV>(acc, a, c == 0 ? dot : qt);\n"
+             "      else for (int i = 0; i < 16; ++i) acc[i % (PV / 2)] += __uint_as_float(a[i]);"),
         ]),
 }
 NARROW_BWD_ENTRY = r"""
@@ -1030,6 +1028,7 @@ static int narrow_bwd(int kernel, const void* const* ptrs, const void* o, const 
                       int b, int sq, int sk, int hq, int hkv, int d, cudaStream_t s) {
   using T = __nv_bfloat16;
   constexpr int D = 32;
+  using W = hopper::Products<D, D, false>;
   CUtensorMap tm[4];
   const int e = hopper::encode_maps(tm, ptrs, 4, maps, d, wg::BOX_ROWS);
   if (e != 0) return e;
@@ -1037,22 +1036,22 @@ static int narrow_bwd(int kernel, const void* const* ptrs, const void* o, const 
   cudaError_t err;
   if (kernel == 0) {
     const size_t smem = wg::DqLayout<D>::SMEM;
-    err = cudaFuncSetAttribute(wg::narrow_dq_cut<D, 0, T, STOP, R>,
+    err = cudaFuncSetAttribute(wg::narrow_dq_cut<D, 0, T, W, STOP, R>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(hq, b, (sq + wg::DQ_ROWS - 1) / wg::DQ_ROWS);
-    wg::narrow_dq_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+    wg::narrow_dq_cut<D, 0, T, W, STOP, R><<<grid, R::THREADS, smem, s>>>(
         tm[0], tm[1], tm[2], tm[3], (const T*)o, (const T*)ptrs[3], lse, dvec, (T*)dq, sq, sk,
-        hq, hq / hkv, 0, d, scale_log2, scale);
+        hq, hq / hkv, 0, d, scale_log2, scale, 0);
   } else {
     const size_t smem = wg::KvLayout<D>::SMEM;
-    err = cudaFuncSetAttribute(wg::narrow_dkdv_cut<D, 0, T, STOP, R>,
+    err = cudaFuncSetAttribute(wg::narrow_dkdv_cut<D, 0, T, W, STOP, R>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(hkv, b, (sk + wg::KV_KEYS - 1) / wg::KV_KEYS);
-    wg::narrow_dkdv_cut<D, 0, T, STOP, R><<<grid, R::THREADS, smem, s>>>(
+    wg::narrow_dkdv_cut<D, 0, T, W, STOP, R><<<grid, R::THREADS, smem, s>>>(
         tm[0], tm[1], tm[2], tm[3], lse, dvec, (T*)dk, (T*)dv, sq, sk, hq, hq / hkv, 0, d,
-        scale_log2, scale);
+        scale_log2, scale, 0);
   }
   return (int)cudaGetLastError();
 }
@@ -1399,6 +1398,219 @@ def d112_split():
         torch.cuda.empty_cache()
 
 
+# The head-dim kernels' parts: the variant that only the split builds is
+# the L2 order on the tiles' whole width, an instance of
+# csrc/flash_attention.cu's flash_wgmma_kernel (Products<tile, tile, true>,
+# DO = 0), and for the record bf16 D 64's own instantiation (DO = 64) in the
+# L2 order; the rest are the library's (the yardstick "wgmma_tile", the
+# head-dim kernel with one group of every KV head, which is the grid's
+# order, and with the planned groups).
+WIDTHS_ENTRY = r"""
+template <int D, int DO, typename T>
+static int widths_launch(const void* q, const void* k, const void* v, void* o,
+                         const unsigned long long* maps, int b, int sq, int sk, int hq, int hkv,
+                         int d, int group_kv, cudaStream_t s) {
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap tm[3];
+  const int e = hopper::encode_maps(tm, ptrs, 3, maps, d, hopper::keys_of(d),
+                                    std::is_same<T, __half>::value);
+  if (e != 0) return e;
+  const int tiles = (sq + hopper::ROWS - 1) / hopper::ROWS;
+  return (int)hopper::launch<D, DO, T, hopper::Products<D, D, true>>(
+      tm, o, nullptr, sq, sk, hq, hkv, d, 0, dim3(b * hq * tiles, 1, 1),
+      hopper::Layout<D>::SMEM, s, group_kv);
+}
+
+// variant 0: the tiles' whole width (run-time head dim d) in the L2 order;
+// 1: bf16 D 64's own instantiation in the L2 order.  dtype 1 bf16, 2 fp16;
+// causal offset 0, the maps the wrapper plans, group_kv KV heads a group.
+extern "C" int widths_split(int variant, int dtype, const void* q, const void* k,
+                            const void* v, void* o, const unsigned long long* maps, int b,
+                            int sq, int sk, int hq, int hkv, int d, int group_kv,
+                            void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1)
+    return widths_launch<64, 64, __nv_bfloat16>(q, k, v, o, maps, b, sq, sk, hq, hkv, d,
+                                                group_kv, s);
+  if (d > 64)
+    return dtype == 2 ? widths_launch<128, 0, __half>(q, k, v, o, maps, b, sq, sk, hq, hkv, d,
+                                                      group_kv, s)
+                      : widths_launch<128, 0, __nv_bfloat16>(q, k, v, o, maps, b, sq, sk, hq,
+                                                             hkv, d, group_kv, s);
+  return dtype == 2 ? widths_launch<64, 0, __half>(q, k, v, o, maps, b, sq, sk, hq, hkv, d,
+                                                   group_kv, s)
+                    : widths_launch<64, 0, __nv_bfloat16>(q, k, v, o, maps, b, sq, sk, hq, hkv,
+                                                          d, group_kv, s);
+}
+"""
+# (tag, B, S, Hq, Hkv, D, dtype) of the forward cases: (i)-(iii) at
+# chip_smoke.py's DIMS_FWD_TIMED shape (32 query heads over 8 KV heads), (iv)
+# zamba2-7b's forward in fp16 (32 heads, no GQA), (vii) stablelm-1.6b's MHA
+# layout at bf16 D 64 (its own instantiation; for the record)
+WIDTHS_FWD = [("(i) bf16 D 96", 4, 2048, 32, 8, 96, torch.bfloat16),
+              ("(ii) fp16 D 80", 4, 2048, 32, 8, 80, torch.float16),
+              ("(iii) bf16 D 48", 4, 2048, 32, 8, 48, torch.bfloat16),
+              ("(iv) fp16 D 112", 4, 2048, 32, 32, 112, torch.float16),
+              ("(vii) bf16 D 64", 4, 2048, 32, 32, 64, torch.bfloat16)]
+# the backward cases: (v) internvl2-2b's train shape at bf16 D 96, (vi)
+# zamba2-7b's layout at bf16 D 112
+WIDTHS_BWD = [("(v) bf16 D 96", 4, 2304, 16, 8, 96, torch.bfloat16),
+              ("(vi) bf16 D 112", 4, 2048, 32, 32, 112, torch.bfloat16)]
+
+
+def widths_split():
+    """gqa_flash's head-dim kernels (products at W = ceil(D / 16) * 16, the
+    L2 order) and their parts at ``WIDTHS_FWD``: (a) the whole-tile
+    instantiation in the grid's order (the yardstick, ``kernel="wgmma_tile"``),
+    (b) the products at W in the grid's order (the head-dim kernel on one
+    group of every KV head), (c) the L2 order on the whole tile (built
+    here), (d) both (the head-dim kernel on the planned groups); at (vii)
+    bf16 D 64's own kernel in the grid's and the L2 order.  The backward at
+    ``WIDTHS_BWD``: (a) the whole-tile pair (``route="wgmma_tile"``), (b) both
+    kernels' products at W in the grid's order, (c) (b) in the L2 order (dQ
+    in groups of ``kv_group``'s KV heads, dK/dV of ``rows_group``'s), the
+    pair and each kernel alone.  Every variant's output is first held
+    against (a)'s; then all are timed in turns by profiler device time, SDPA
+    beside them."""
+    import dataclasses
+
+    fa = cs.fa
+    fa.build()
+    fa.build_bwd()
+    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", "flash_attention.cu")).read()
+    lib = build("widths_splits", src + WIDTHS_ENTRY)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.widths_split.argtypes = [i, i] + [p] * 5 + [i] * 7 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = np.random.default_rng(0)
+    for tag, b, sq, hq, hkv, d, dtype in WIDTHS_FWD:
+        q, k, v = cs.card_normal(gen, (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d),
+                                 dtype=dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pl = fa.plan(q, k, v)
+        maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
+        code = fa._DTYPES[dtype]
+        tiles = -(-sq // fa.WGMMA_ROWS)
+        own = dtype == torch.bfloat16 and d == 64
+        group = fa.kv_group(b, sq, hkv, d, q.element_size())
+
+        def library(group_kv, out):
+            def run():
+                err = fa._lib.gqa_flash_wgmma(
+                    code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b,
+                    sq, sq, hq, hkv, d, 0, group_kv, maps, b * hq * tiles, 1, 1, pl.smem,
+                    stream)
+                if err != 0:
+                    raise RuntimeError(f"{tag}: the head-dim kernel, group {group_kv}: {err}")
+            return run
+
+        def split(variant, group_kv, out):
+            def run():
+                err = lib.widths_split(variant, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       out.data_ptr(), maps, b, sq, sq, hq, hkv, d, group_kv,
+                                       stream)
+                if err != 0:
+                    raise RuntimeError(f"{tag}: split variant {variant}: error {err}")
+            return run
+
+        outs = {}
+        if own:
+            runs = {"bf16 D 64's kernel, the grid's order": lambda: fa.launch(q, k, v),
+                    f"the same in the L2 order ({group} KV heads a group)":
+                        split(1, group, outs.setdefault("l2", torch.empty_like(q)))}
+        else:
+            runs = {"(a) the whole tile, the grid's order (the yardstick)":
+                        lambda: fa.launch(q, k, v, kernel="wgmma_tile"),
+                    f"(b) products at W {fa.product_dim(d)}, the grid's order":
+                        library(b * hkv, outs.setdefault("b", torch.empty_like(q))),
+                    f"(c) the whole tile, the L2 order ({group} KV heads a group)":
+                        split(0, group, outs.setdefault("c", torch.empty_like(q))),
+                    f"(d) both: the head-dim kernel ({pl.group_kv} KV heads a group)":
+                        lambda: fa.launch(q, k, v)}
+        for fn in runs.values():
+            fn()
+        first = runs[next(iter(runs))]()
+        want = fa.gqa_flash_plain(q, k, v)
+        torch.cuda.synchronize()
+        for key, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            got = got if got is not None else outs[{"(b": "b", "(c": "c"}.get(key[:2], "l2")]
+            log(f"{tag}: {key}: equal to the first bit for bit {torch.equal(got, first)}, max "
+                f"abs difference {(got.float() - first.float()).abs().max().item()}; against "
+                f"the plain version relative L2 {cs.rel_l2(got, want)}")
+        del want
+        runs["SDPA"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True)
+        nbytes, flops = cs.flash_work(b, sq, sq, hq, hkv, d, 0, 2)
+        bound, by = cs.bound_ms(nbytes, flops, cs.BF16_FLOP_PER_S)
+        report(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} {str(dtype)[6:]}): "
+               f"device ms a call in turns; the bound {bound:.6f} ms by {by}; K/V "
+               f"{2 * b * sq * hkv * d * 2 / 1e6:.3f} MB", cs.in_turns(runs),
+               lambda key, ms: f", {bound / ms:.4f} of the bound")
+        del q, k, v, qt, kt, vt, outs, first
+        torch.cuda.empty_cache()
+    for tag, b, sq, hq, hkv, d, dtype in WIDTHS_BWD:
+        q, k, v, do = cs.card_normal(gen, (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d),
+                                     (b, sq, hq, d), dtype=dtype)
+        o, lse = fa.launch(q, k, v, 0, with_lse=True)
+        pl = fa.plan_bwd(q, k, v, o, do)
+        plans = {"(a) the whole tile, the grid's order (the yardstick)":
+                     fa.plan_bwd(q, k, v, o, do, route="wgmma_tile"),
+                 f"(b) products at W {fa.product_dim(d)}, the grid's order":
+                     dataclasses.replace(pl, groups=(b * hkv, b * hkv)),
+                 f"(c) (b) in the L2 order (groups {fa.kv_group(b, sq, hkv, d)} and "
+                 f"{fa.rows_group(b, sq, hq, hkv, d)} KV heads)":
+                     dataclasses.replace(pl, groups=(fa.kv_group(b, sq, hkv, d),
+                                                     fa.rows_group(b, sq, hq, hkv, d)))}
+        bufs = {key: fa.bwd_buffers(q, k, lse) for key in plans}
+
+        def kernel(key, which):
+            return lambda: fa.launch_bwd_kernel(which, q, k, v, o, do, bufs[key], 0, plans[key])
+
+        def pair(key):
+            return lambda: (kernel(key, 0)(), kernel(key, 1)())
+
+        for key in plans:
+            pair(key)()
+        torch.cuda.synchronize()
+        first = bufs[next(iter(plans))][2:]
+        want = fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, round_bf16=True)
+        for key in plans:
+            got = bufs[key][2:]
+            log(f"{tag}: {key}: dQ, dK, dV equal to the first bit for bit "
+                f"{[torch.equal(a, c) for a, c in zip(got, first)]}; against the rounding "
+                f"plain version relative L2 {[cs.rel_l2(a, w) for a, w in zip(got, want)]}")
+        del want
+        runs = {}
+        for key in plans:
+            runs[f"{key}: the pair"] = pair(key)
+        for key in plans:
+            runs[f"{key}: dQ"] = kernel(key, 0)
+            runs[f"{key}: dK/dV"] = kernel(key, 1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        runs.update({"SDPA forward": sdpa_fwd, "SDPA forward + backward": sdpa_fwd_bwd})
+        work = cs.bwd_work(b, sq, sq, hq, hkv, d, 0, 2)
+        bound, by = cs.bound_ms(*work["gqa_flash_bwd"], cs.BF16_FLOP_PER_S)
+        report(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv} D={d} "
+               f"{str(dtype)[6:]}): device ms a call in turns; the five products' bound "
+               f"{bound:.6f} ms by {by}", cs.in_turns(runs),
+               lambda key, ms: f", {bound / ms:.4f} of the bound")
+        del q, k, v, do, o, lse, bufs, first, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
 def checkout_flash(root: str):
     """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
     imported beside this checkout's: the package's modules leave
@@ -1422,11 +1634,13 @@ def checkout_flash(root: str):
 # The pinned bf16 routes' shapes beside chip_smoke.py's timed ones: llama3-8b's
 # prefill (D 128), qwen3-moe's (D 64, 16 query heads a KV head), zamba2-7b's
 # forward (D 112: the D-112 kernel here, its yardstick's design in a parent
-# before it), and internvl2-2b's train step (the D-128 backward)
+# before it), and internvl2-2b's train step (the D-128 backward, and the
+# same at D 64)
 FLASH_PINNED_FWD = [("bf16-d128", 4, 2048, 2048, 32, 8, 128, torch.bfloat16),
                     ("bf16-d64", 4, 2048, 2048, 64, 4, 64, torch.bfloat16),
                     ("bf16-d112", 4, 2048, 2048, 32, 32, 112, torch.bfloat16)]
-FLASH_PINNED_BWD = [("bf16-d128", 4, 2304, 2304, 16, 8, 128, torch.bfloat16)]
+FLASH_PINNED_BWD = [("bf16-d128", 4, 2304, 2304, 16, 8, 128, torch.bfloat16),
+                    ("bf16-d64", 4, 2304, 2304, 16, 8, 64, torch.bfloat16)]
 
 
 def flash_split(against: str):
@@ -1473,12 +1687,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("splits", nargs="*",
                     help="score, knn, geo, fill (the default), tiled, mma, narrow, d112, "
-                         "flash")
+                         "widths, flash")
     ap.add_argument("--against", help="the root of the checkout the flash split compares")
     args = ap.parse_args()
     splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
                   tiled=tiled_split, mma=mma_split, narrow=narrow_split, d112=d112_split,
-                  flash=lambda: flash_split(args.against))
+                  widths=widths_split, flash=lambda: flash_split(args.against))
     if set(args.splits) - set(splits):
         ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")
     if "flash" in args.splits and not args.against:

@@ -72,11 +72,27 @@
 //     device time, the L2 order alone 0.296, over 8 KV heads (GQA, the same
 //     tiles) the 128-wide kernel 0.307; SDPA 0.262 (scripts/kernel_splits.py
 //     d112).  A ring 3 deep (230,480 bytes) timed the same as 2.  Every
-//     other head dim of the route runs the same way with D taken at run
-//     time on tiles as wide as the least multiple of 64 that holds it
-//     (instantiations <64, 0, T>, <128, 0, T>, <192, 0, T>, <256, 0, T>;
-//     bf16 at 64, 112 and 128 keep their own), fp16 through the .f16 forms
-//     of wgmma and FLOAT16 tensor maps.
+//     other 16-bit head dim that is a multiple of 8 in (32, 128] runs a
+//     head-dim kernel (by_width), the same design at the head's own width
+//     W = ceil(D / 16) * 16 with D taken at run time: instantiations <64 or
+//     128, 0, T, Products<W, W, true>>, S = Q K^T in W / 16 k-steps, O += P
+//     V at m64nWk16 (48, 80, 96 and 112 beside the tiles' 64 and 128), the
+//     L2 order with the wrapper's groups (one group of every KV head, the
+//     grid's order, where all their K and V fit a quarter of L2).  Its
+//     output equals the whole-tile instantiation's bit for bit, which stays
+//     by name (kernel="wgmma_tile", the yardstick).  At a prefill of 4 x
+//     2048 on an H100 80GB HBM3 at 700 W (scripts/kernel_splits.py widths):
+//     bf16 D 96 over 8 KV heads 0.265 against 0.289 ms of device time, the
+//     products alone 0.268 (the L2 order at 2 groups adds ~1 %); fp16 D 80
+//     0.249 against 0.286; bf16 D 48 0.206 against 0.209 (at width 64 the
+//     softmax and the waits, not the products, set the time); fp16 D 112 at
+//     zamba2-7b's forward 0.289 against 0.399, where the L2 order does the
+//     work (0.303 on the whole tile) as at bf16 D 112.  Every other head
+//     dim of the route (past 128, at most 32, or off a multiple of 8) runs
+//     on tiles as wide as the least multiple of 64 that holds it, or 16 or
+//     32, with D taken at run time and the tiles' whole width
+//     (instantiations <16, 32, 64, 128, 192 or 256, 0 or -1, T>), fp16
+//     through the .f16 forms of wgmma and FLOAT16 tensor maps.
 //     At a D off a multiple of 8 (33, 100, 250) a contiguous 16-bit tensor
 //     has rows whose byte stride TMA refuses (not a multiple of 16): the
 //     wrapper copies each such input into a buffer of rows ceil(D / 8) * 8
@@ -774,19 +790,17 @@ struct Layout {
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
 };
 
-// What an instance of flash_wgmma_kernel runs on its tiles D wide: S = Q K^T
-// over their first QK columns (QK / 16 k-steps), O += P V at N = PV (wgmma
-// m64nPVk16, PV / 2 accumulators a thread), and its blocks in the grid's
-// order or, with L2, in the order that keeps a group of KV heads' K and V in
-// L2 (block_of).  Every instance runs its tiles' whole width in the grid's
-// order (Products<D, D, false>) but the D-112 kernel (D112): 7 k-steps and
-// 112 columns on the 128-wide tiles, in the L2 order.
-template <int QK_COLS, int PV_COLS, bool L2_ORDER>
-struct Products {
-  static constexpr int QK = QK_COLS, PV = PV_COLS;
-  static constexpr bool L2 = L2_ORDER;
-  static_assert(QK % 16 == 0 && PV % 8 == 0, "whole k-steps, whole 8-column slices");
-};
+// What an instance of flash_wgmma_kernel runs on its tiles D wide
+// (hopper.cuh, Products): S = Q K^T over their first QK columns (QK / 16
+// k-steps), O += P V at N = PV (wgmma m64nPVk16, PV / 2 accumulators a
+// thread), and its blocks in the grid's order or, with L2, in the order that
+// keeps a group of KV heads' K and V in L2 (block_of).  The pinned bf16
+// instances at 64 and 128, the widths past 128, the narrow tiles and the
+// staged head dims run their tiles' whole width in the grid's order
+// (Products<D, D, false>); the D-112 kernel (D112) runs 7 k-steps and 112
+// columns on the 128-wide tiles in the L2 order, and the head-dim kernels
+// (by_width) the same at W = ceil(d / 16) * 16 for every other run-time
+// head dim in (32, 128].
 using D112 = Products<112, 112, true>;
 
 // The query head, batch and first query row of this block.  The grid's
@@ -1075,9 +1089,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // The Hopper kernel on tiles D wide for head dim DO (DO = D, or 112 on D =
-// 128; DO = 0: the head dim dh, a multiple of 8, in [least_dim(D), D]; DO =
-// -1: any dh there), T bf16 or fp16, its products and block order P; the
-// L2 order's KV heads a group group_kv (0 in the grid's order).
+// 128; DO = 0: the head dim dh, a multiple of 8, in [least_dim(D), D] and
+// within the products' width; DO = -1: any dh there), T bf16 or fp16, its
+// products and block order P; the L2 order's KV heads a group group_kv (0
+// in the grid's order).
 template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, int sk, int hq,
                    int hkv, int dh, int offset, dim3 grid, size_t smem, cudaStream_t stream,
@@ -1085,9 +1100,12 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
   static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && DO >= least_dim(D)),
                 "DO: a head dim of D's tiles");
   static_assert(P::QK <= D && P::PV <= D &&
-                    (DO > 0 ? P::QK >= DO && P::PV >= DO : P::QK == D && P::PV == D),
+                    (DO > 0 ? P::QK >= DO && P::PV >= DO
+                            : DO == 0 ? P::QK == P::PV && P::QK > least_dim(D)
+                                      : P::QK == D && P::PV == D),
                 "the products span the head dim, within the tiles");
-  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || dh < least_dim(D)))
+  if (DO > 0 ? dh != DO
+             : ((DO == 0 && dh % 8 != 0) || dh > P::QK || dh > P::PV || dh < least_dim(D)))
     return cudaErrorInvalidValue;
   if (smem != Layout<D>::SMEM || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
   using R = RolesOf<D>;
@@ -1131,6 +1149,37 @@ int by_tile(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, int
       return static_cast<int>(launch<256, DO, T>(tm, o, lse, sq, sk, hq, hkv, d, offset, grid,
                                                  smem, s));
   }
+}
+
+// The head-dim kernels: a head dim d, a multiple of 8 in (32, 128], with
+// its products at W = ceil(d / 16) * 16 (S in W / 16 k-steps, O at N = W:
+// the columns past W are TMA's zeros, so they are skipped) on the tiles 64
+// or 128 wide, in the L2 order (group_kv > 0 KV heads a group; a group of
+// every KV head is the grid's order), T bf16 or fp16.
+template <typename T>
+int by_width(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, int hq, int hkv,
+             int d, int offset, dim3 grid, size_t smem, cudaStream_t s, int group_kv) {
+  switch ((d + 15) / 16 * 16) {
+    case 48:
+      return static_cast<int>(launch<64, 0, T, Products<48, 48, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 64:
+      return static_cast<int>(launch<64, 0, T, Products<64, 64, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 80:
+      return static_cast<int>(launch<128, 0, T, Products<80, 80, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 96:
+      return static_cast<int>(launch<128, 0, T, Products<96, 96, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 112:
+      return static_cast<int>(launch<128, 0, T, Products<112, 112, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 128:
+      return static_cast<int>(launch<128, 0, T, Products<128, 128, true>>(
+          tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace hopper
@@ -1224,8 +1273,12 @@ int gqa_flash_tiled(const void* q, const void* k, const void* v, void* o, float*
 // and 112-wide products on the d = 128 tiles, its blocks in the L2 order:
 // group_kv > 0, the KV heads a group) or, given group_kv 0, on the d = 128
 // instantiation that runs the tiles' whole width (the yardstick); every
-// other d on the tiles 16, 32, 64, 128, 192 or 256 wide (hopper::tile_of(d))
-// with the head dim taken at run time; o (b, sq, hq, d) contiguous; lse,
+// other multiple of 8 in (32, 128] on a head-dim kernel (hopper::by_width:
+// products ceil(d / 16) * 16 wide, the L2 order) given group_kv > 0, or on
+// the tiles' whole width in the grid's order (by_tile, the yardstick) given
+// 0; every other d on the tiles 16, 32, 64, 128, 192 or 256 wide
+// (hopper::tile_of(d)) with the head dim taken at run time, in the grid's
+// order (group_kv 0); o (b, sq, hq, d) contiguous; lse,
 // when not null, (b, hq, sq) float32: each row's log-sum-exp for the
 // backward.  TMA needs byte strides that are multiples of 16, so at a d off
 // a multiple of 8 the wrapper hands in views of copies whose rows are
@@ -1241,9 +1294,11 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
                     int grid_y, int grid_z, long long smem, void* stream) {
   using hopper::ROWS;
   const long long tiles = (sq + static_cast<long long>(ROWS) - 1) / ROWS;
-  const bool ordered = group_kv > 0;     // the L2 order: bf16 at d 112 only
+  // the L2 order: the D-112 kernel and the head-dim kernels
+  const bool ordered = group_kv > 0;
+  const bool widths = d % 8 == 0 && d > 32 && d <= 128 && !(dtype == 1 && d % 64 == 0);
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
-      b > 65535 || hq > 65535 || group_kv < 0 || (ordered && (dtype != 1 || d != 112)) ||
+      b > 65535 || hq > 65535 || group_kv < 0 || (ordered && !widths) ||
       (ordered ? grid_x != static_cast<long long>(b) * hq * tiles || grid_y != 1 || grid_z != 1
                : grid_x != hq || grid_y != b || grid_z != tiles || grid_z > 65535) ||
       (dtype != 1 && dtype != 2) || d < 1 || d > 256)
@@ -1255,6 +1310,11 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  if (ordered && !(dtype == 1 && d == 112))
+    return dtype == 2 ? hopper::by_width<__half>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
+                                                 grid, sm, s, group_kv)
+                      : hopper::by_width<__nv_bfloat16>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                        causal_offset, grid, sm, s, group_kv);
   if (dtype == 2)
     return d % 8 != 0 ? hopper::by_tile<-1, __half>(tm, o, lse, sq, sk, hq, hkv, d,
                                                    causal_offset, grid, sm, s)

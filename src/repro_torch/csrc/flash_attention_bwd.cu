@@ -49,15 +49,31 @@
 //     dV are stored once.  Summing the group inside the block keeps GQA
 //     free of atomics: each output element has one writer and each sum one
 //     order, so two runs give equal bits.
-// D = 112 runs the D = 128 kernels: TMA fills columns 112..127 of every tile
-// with zeros and 112 columns are stored.  At a D off a multiple of 8 the
+// Every 16-bit multiple of 8 in (32, 128] but bf16 64 and 128 (their own
+// instantiations) runs the head-dim kernels (by_width): the same two kernels
+// with every product at the head's own width W = ceil(D / 16) * 16 on the
+// tiles 64 or 128 wide (Products<W, W, true>: S, dP and their transposes in
+// W / 16 k-steps, TMA's zero columns past W skipped; dQ += dS K, dV += P^T
+// dO and dK += dS^T Q at N = W, W / 2 accumulators a thread), their blocks
+// in the L2 order (l2_unit): dQ a group of KV heads whose K and V fit a
+// quarter of L2 at a time, dK/dV a group whose query heads' Q and dO do
+// (kernels/flash_attention.py::plan_bwd; one group of every KV head is the
+// grid's order).  Their gradients equal the whole-tile pair's bit for bit,
+// which stays by name (route="wgmma_tile", the yardstick; at bf16 D 112 the
+// D = 128 kernels storing 112 columns).  On an H100 80GB HBM3 at 700 W
+// (scripts/kernel_splits.py widths): at internvl2-2b's train shape in bf16
+// D 96 the pair 0.603 against 0.677 ms of device time (the products 0.611,
+// dK/dV's 0.379 -> 0.335 the most); at zamba2-7b's layout in bf16 D 112
+// 1.088 against 1.307, where the L2 order does the work (the products
+// alone 1.298: dK/dV reads each head's Q and dO once a key tile, 117 MB a
+// wave in the grid's order).  At a D off a multiple of 8 the
 // tensor maps read views of copies of q, k, v and dO whose rows are
 // ceil(D / 8) * 8 wide (a contiguous 16-bit row of D elements has a byte
 // stride TMA refuses), the D_i pass o and the staged dO element by
 // element, and every store is guarded by column.  Every other D of the
-// route runs on tiles as wide as the least multiple of 64 that holds it, the
-// same way with D taken at run time (instantiations <64, 0, T>, <128, 0,
-// T>, <192, 0, T> and <256, 0, T>; fp16 through .f16 wgmma).  Past width 128 (D in (128,
+// route runs on tiles as wide as the least multiple of 64 that holds it (or
+// 16 or 32), the tiles' whole width with D taken at run time
+// (instantiations <16 ... 256, 0 or -1, T>; fp16 through .f16 wgmma).  Past width 128 (D in (128,
 // 256]) each consumer's dQ, dK or dV takes 96 or 128 fp32 registers a
 // thread, and Q and dO of the dQ kernel's 128 rows take 96 or 128 KiB:
 //   dQ keeps its 128 rows a block (two consumers of 64, Q and dO resident)
@@ -772,33 +788,58 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& map, 
                r0 + y * BR, b);
 }
 
-// acc (64 x N, fp32) = A B^T over D (issued, not committed): A's 64 rows at
-// `a` and B's N rows at `b`, both K-major in tiles whose column boxes are
-// A_STRIDE and B_STRIDE bytes apart; D/16 steps of 16 columns, each 32 bytes
-// into a swizzled row (the qk pattern of the forward).
-template <int D, uint32_t A_STRIDE, uint32_t B_STRIDE, typename T, int N = 64>
+// acc (64 x N, fp32) = A B^T over the tiles' first QK columns (issued, not
+// committed): A's 64 rows at `a` and B's N rows at `b`, both K-major in
+// tiles D wide whose column boxes are A_STRIDE and B_STRIDE bytes apart;
+// QK/16 steps of 16 columns, each 32 bytes into a swizzled row (the qk
+// pattern of the forward).  Columns QK.. are TMA's zeros, so they are skipped.
+template <int D, uint32_t A_STRIDE, uint32_t B_STRIDE, typename T, int N = 64, int QK = D>
 __device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
   using W = Swz<D>;
   wgmma_ss<N, true, T>(acc, W::desc(a, 16, W::GROUP), W::desc(b, 16, W::GROUP));
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk) {
+  for (int kk = 1; kk < QK / 16; ++kk) {
     const int box = kk / W::KSTEPS, at = (kk % W::KSTEPS) * 32;
     wgmma_ss<N, false, T>(acc, W::desc(a + box * A_STRIDE + at, 16, W::GROUP),
                           W::desc(b + box * B_STRIDE + at, 16, W::GROUP));
   }
 }
 
-// acc (64 x D, fp32) += A B (issued, not committed): A 64 x K in registers
+// acc (64 x N, fp32) += A B (issued, not committed): A 64 x K in registers
 // (four bf16x2 a slice of 16 along the product), B the K rows at `b` of a
-// tile whose column boxes are B_STRIDE apart, read MN-major through the
-// transpose bit (the pv pattern of the forward).
-template <int D, uint32_t B_STRIDE, typename T, int K = 64>
-__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
+// tile D wide whose column boxes are B_STRIDE apart, read MN-major through
+// the transpose bit (the pv pattern of the forward), its first N columns.
+template <int D, uint32_t B_STRIDE, typename T, int K = 64, int N = D>
+__device__ __forceinline__ void rs_product(float (&acc)[N / 2], const uint32_t (&a)[K / 4],
                                            uint32_t b) {
   using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs<D, T>(acc, a + 4 * kk, W::desc(b + kk * 16 * W::ROW, B_STRIDE, W::GROUP));
+    wgmma_rs<N, T>(acc, a + 4 * kk, W::desc(b + kk * 16 * W::ROW, B_STRIDE, W::GROUP));
+}
+
+// A block of the L2 order (a 1-D grid): the heads of group_kv KV heads, one
+// group after another (the last may hold fewer), in a group its tiles in
+// walk order (the k-th of `tiles`), each tile's blocks KV head by KV head,
+// the `group` heads of one KV head side by side: dQ walks (query head,
+// query tile), group the query heads a KV head; dK/dV walks (KV head, key
+// tile), group 1.  Then the blocks in flight read the K and V (dQ) or the
+// Q and dO (dK/dV) of one group's heads, which
+// kernels/flash_attention.py::plan_bwd sizes to a share of L2.  One group of
+// every KV head is the grid's order.  heads: Hq (dQ) or Hkv (dK/dV).
+struct Unit {
+  int h, b, k;
+};
+__device__ __forceinline__ Unit l2_unit(int tiles, int heads, int group, int group_kv) {
+  const int i = blockIdx.x;
+  const int full = group_kv * group * tiles;            // the blocks of a whole group
+  const int kv0 = i / full * group_kv;                  // the group's first KV head
+  const int kvs = gridDim.x / (group * tiles);          // B * Hkv
+  const int n = min(group_kv, kvs - kv0) * group;       // the group's heads
+  const int r = i % full;
+  const int kv = kv0 + r % n / group;
+  const int hkv = heads / group;
+  return {kv % hkv * group + r % group, kv / hkv, r / n};
 }
 
 // Arrive on `bar` once this thread's earlier cp.async copies have landed
@@ -833,8 +874,11 @@ __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, u
 // it from `dh` at run time (a multiple of 8 in (D - 64, D]), DO = -1 any dh
 // there (TMA reads the staged copies of q, k, v and dO, the D_i pass o and
 // the staged dO element by element, and every store is guarded by column: hopper.cuh, store2; separate instantiations, so that the
-// multiples of 8 keep their unguarded code).  T is bf16 or fp16.
-template <int D, int DO = D, typename T = __nv_bfloat16>
+// multiples of 8 keep their unguarded code).  T is bf16 or fp16.  P
+// (hopper.cuh, Products) sets S's and dP's k-steps (P::QK / 16), dQ's N
+// (P::PV) and the block order: the grid's, or with P::L2 the L2 order
+// (l2_unit, group_kv KV heads a group).
+template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 __global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -842,10 +886,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap, const T* __restrict__ o,
                           const T* __restrict__ dout, const float* __restrict__ lse,
                           float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk, int hq,
-                          int group, int offset, int dh, float scale_log2, float scale) {
+                          int group, int offset, int dh, float scale_log2, float scale,
+                          int group_kv) {
   using L = DqLayout<D>;
   using R = RolesOf<D>;
-  constexpr int KEYS = L::KEYS, STAGES = L::STAGES;
+  constexpr int KEYS = L::KEYS, STAGES = L::STAGES, PV = P::PV;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -853,8 +898,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto kv_full = [bars](int s) { return bars + 8 * (1 + s); };
   auto empty = [bars](int s) { return bars + 8 * (1 + STAGES + s); };
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_ROWS;   // heaviest query tiles first
+  int h = blockIdx.x, b = blockIdx.y;
+  int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_ROWS;   // heaviest query tiles first
+  if constexpr (P::L2) {
+    const int tiles = (sq + DQ_ROWS - 1) / DQ_ROWS;
+    const Unit u = l2_unit(tiles, hq, group, group_kv);
+    h = u.h;
+    b = u.b;
+    q0 = (tiles - 1 - u.k) * DQ_ROWS;
+  }
   const int n_tiles = kv_tiles<DQ_ROWS, KEYS>(q0, sq, sk, offset);
   if (threadIdx.x == 0) init_ring<STAGES>(q_full, 1, bars);
   __syncthreads();
@@ -960,9 +1012,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int r = 0; r < 2; ++r) lse2[r] = row + 8 * r < sq ? lse[stat + row + 8 * r] * LOG2E : 0.f;
 
-    float acc[D / 2];     // dQ
+    float acc[PV / 2];    // dQ: its first PV columns
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < PV / 2; ++i) acc[i] = 0.f;
     const uint32_t qa = base + L::Q + c * 64 * Swz<D>::ROW;
     const uint32_t da = base + L::DOUT + c * 64 * Swz<D>::ROW;
     const long long first = static_cast<long long>(offset) + q0 + 64 * c;   // first row's position
@@ -985,8 +1037,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t kt = base + L::K + st * L::Keys::BYTES;
       float s[KEYS / 2], dp[KEYS / 2];
       wgmma_fence();
-      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS>(s, qa, kt);
-      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS>(
+      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS, P::QK>(s, qa, kt);
+      ss_product<D, L::Rows::BOX_STRIDE, L::Keys::BOX_STRIDE, T, KEYS, P::QK>(
           dp, da, base + L::V + st * L::Keys::BYTES);
       wgmma_commit();
       wgmma_wait<0>();
@@ -1011,7 +1063,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       pin(acc);
       pin(ds);
       wgmma_fence();
-      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS>(acc, ds, kt);
+      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS, PV>(acc, ds, kt);
       wgmma_commit();
       wgmma_wait<0>();
       pin(acc);
@@ -1026,14 +1078,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if constexpr (DO < 0) {           // any head dim: each column guarded
           T* op = dq + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
+          for (int n = 0; n < PV / 8; ++n)
             if (8 * n < dcols)
               store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * scale,
                         acc[4 * n + 2 * r + 1] * scale);
         } else {
           T* op = dq + ((static_cast<long long>(b) * sq + orow) * hq + h) * dcols + 2 * t;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+          for (int n = 0; n < PV / 8; ++n)  // columns 8n + 2t, +1 < the head dim
             if (8 * n < dcols)
               *reinterpret_cast<uint32_t*>(op + n * 8) =
                   pack2<T>(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
@@ -1058,8 +1110,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // consumer 1 takes dP^T = V dO^T, dS^T = P^T (dP^T - D_i), and runs dK +=
 // dS^T Q; P^T and dS^T enter as bf16 register-A operands, dO and Q are read
 // MN-major.  Each dK/dV element has one writer and its sum one order.  D,
-// DO (0: `dh` at run time) and T as in the dQ kernel.
-template <int D, int DO = D, typename T = __nv_bfloat16>
+// DO (0: `dh` at run time), T and P (S^T's and dP^T's k-steps, dV's and
+// dK's N, the order: with P::L2 group_kv KV heads a group, their key tiles
+// first to last) as in the dQ kernel.
+template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 __global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -1067,10 +1121,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap domap,
                             const float* __restrict__ lse, const float* __restrict__ dvec,
                             T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int hq,
-                            int group, int offset, int dh, float scale_log2, float scale) {
+                            int group, int offset, int dh, float scale_log2, float scale,
+                            int group_kv) {
   using L = KvLayout<D>;
   using R = RolesOf<D>;
-  constexpr int STAGES = L::STAGES;
+  constexpr int STAGES = L::STAGES, PV = P::PV;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
   unsigned char* const aligned = bwd_smem + (base - smem_addr(bwd_smem));
@@ -1081,8 +1136,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto q_full = [bars](int s) { return bars + 8 * (1 + s); };
   auto empty = [bars](int s) { return bars + 8 * (1 + STAGES + s); };
 
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * KV_KEYS;
+  int hk = blockIdx.x, b = blockIdx.y;
+  int k0 = blockIdx.z * KV_KEYS;
+  if constexpr (P::L2) {
+    const Unit u = l2_unit((sk + KV_KEYS - 1) / KV_KEYS, hq / group, 1, group_kv);
+    hk = u.h;
+    b = u.b;
+    k0 = u.k * KV_KEYS;
+  }
   // Query tiles from the one holding the first row that sees key k0
   // (offset + row >= k0): every one of them sees it.
   const long long first_row = max(0LL, static_cast<long long>(k0) - offset);
@@ -1149,9 +1210,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int g = lane >> 2, t = lane & 3;
     const int key = k0 + 16 * warp + g;              // this thread's keys: key, key + 8
 
-    float acc[D / 2];                                // dV (consumer 0) or dK (consumer 1)
+    float acc[PV / 2];                               // dV (consumer 0) or dK (consumer 1)
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < PV / 2; ++i) acc[i] = 0.f;
     const uint32_t a_op = base + (c == 0 ? L::K : L::V);
     mbar_wait(kv_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
@@ -1162,7 +1223,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t dot = base + L::DOUT + st * L::Rows::BYTES;
       float s[32];                                   // S^T (consumer 0) or dP^T (consumer 1)
       wgmma_fence();
-      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T>(s, a_op, c == 0 ? qt : dot);
+      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T, 64, P::QK>(s, a_op,
+                                                                          c == 0 ? qt : dot);
       wgmma_commit();
       wgmma_wait<0>();
       pin(s);
@@ -1211,7 +1273,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       pin(acc);
       pin(a);
       wgmma_fence();
-      rs_product<D, L::Rows::BOX_STRIDE, T>(acc, a, c == 0 ? dot : qt);
+      rs_product<D, L::Rows::BOX_STRIDE, T, 64, PV>(acc, a, c == 0 ? dot : qt);
       wgmma_commit();
       wgmma_wait<0>();
       pin(acc);
@@ -1230,14 +1292,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if constexpr (DO < 0) {           // any head dim: each column guarded
           T* op = out + ((static_cast<long long>(b) * sk + kr) * hkv + hk) * dcols;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
+          for (int n = 0; n < PV / 8; ++n)
             if (8 * n < dcols)
               store2<T>(op, 8 * n + 2 * t, dcols, acc[4 * n + 2 * r] * mul,
                         acc[4 * n + 2 * r + 1] * mul);
         } else {
           T* op = out + ((static_cast<long long>(b) * sk + kr) * hkv + hk) * dcols + 2 * t;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)   // columns 8n + 2t, +1 < the head dim
+          for (int n = 0; n < PV / 8; ++n)  // columns 8n + 2t, +1 < the head dim
             if (8 * n < dcols)
               *reinterpret_cast<uint32_t*>(op + n * 8) =
                   pack2<T>(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
@@ -1272,35 +1334,40 @@ struct Args {
 };
 
 // The kernel `which` on tiles D wide for head dim DO (DO = 0: dh, a
-// multiple of 8, in [least_dim(D), D]; DO = -1: any dh there), T bf16 or
-// fp16.
-template <int D, int DO = D, typename T = __nv_bfloat16>
+// multiple of 8, in [least_dim(D), D] and within the products' width; DO =
+// -1: any dh there), T bf16 or fp16, its products and block order P; the L2
+// order's KV heads a group group_kv (0 in the grid's order).
+template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
 cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int sq, int sk,
                    int hq, int hkv, int dh, int offset, dim3 grid, size_t smem,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int group_kv = 0) {
   static_assert(DO <= 0 || (DO <= D && DO % 16 == 0 && DO >= least_dim(D)),
                 "DO: a head dim of D's tiles");
-  if (DO > 0 ? dh != DO : ((DO == 0 && dh % 8 != 0) || dh > D || dh < least_dim(D)))
+  static_assert(P::QK == P::PV && P::QK <= D &&
+                    (DO > 0 ? P::QK >= DO : DO == 0 ? P::QK > least_dim(D) : P::QK == D),
+                "the products span the head dim, within the tiles");
+  if (DO > 0 ? dh != DO
+             : ((DO == 0 && dh % 8 != 0) || dh > P::QK || dh < least_dim(D)))
     return cudaErrorInvalidValue;
-  if (smem != smem_bytes<D>(which)) return cudaErrorInvalidValue;
+  if (smem != smem_bytes<D>(which) || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   const float scale_log2 = scale * LOG2E;
   using R = RolesOf<D>;
   constexpr int THREADS = R::THREADS;
   cudaError_t err;
   if (which == DQ) {
-    if ((err = prepare<R>(flash_bwd_dq_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+    if ((err = prepare<R>(flash_bwd_dq_wgmma_kernel<D, DO, T, P>, smem)) != cudaSuccess)
       return err;
-    flash_bwd_dq_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
+    flash_bwd_dq_wgmma_kernel<D, DO, T, P><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(a.o),
         static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(a.dq), sq, sk, hq,
-        hq / hkv, offset, dh, scale_log2, scale);
+        hq / hkv, offset, dh, scale_log2, scale, group_kv);
   } else {
-    if ((err = prepare<R>(flash_bwd_dkdv_wgmma_kernel<D, DO, T>, smem)) != cudaSuccess)
+    if ((err = prepare<R>(flash_bwd_dkdv_wgmma_kernel<D, DO, T, P>, smem)) != cudaSuccess)
       return err;
-    flash_bwd_dkdv_wgmma_kernel<D, DO, T><<<grid, THREADS, smem, stream>>>(
+    flash_bwd_dkdv_wgmma_kernel<D, DO, T, P><<<grid, THREADS, smem, stream>>>(
         maps[0], maps[1], maps[2], maps[3], a.lse, a.dvec, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), sq, sk, hq, hq / hkv, offset, dh, scale_log2, scale);
+        static_cast<T*>(a.dv), sq, sk, hq, hq / hkv, offset, dh, scale_log2, scale, group_kv);
   }
   return cudaGetLastError();
 }
@@ -1331,6 +1398,37 @@ int by_tile(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int sk
       return static_cast<int>(launch<256, DO, T>(which, tm, a, sq, sk, hq, hkv, d, offset,
                                                  grid, smem, s));
   }
+}
+
+// The head-dim kernels: a head dim d, a multiple of 8 in (32, 128], with
+// every product at W = ceil(d / 16) * 16 (S, dP and their transposes in W /
+// 16 k-steps; dQ, dK and dV at N = W) on the tiles 64 or 128 wide, in the L2
+// order (group_kv > 0 KV heads a group; one group of every KV head is the
+// grid's order), T bf16 or fp16.
+template <typename T>
+int by_width(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int sk, int hq,
+             int hkv, int d, int offset, dim3 grid, size_t smem, cudaStream_t s, int group_kv) {
+  switch ((d + 15) / 16 * 16) {
+    case 48:
+      return static_cast<int>(launch<64, 0, T, Products<48, 48, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 64:
+      return static_cast<int>(launch<64, 0, T, Products<64, 64, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 80:
+      return static_cast<int>(launch<128, 0, T, Products<80, 80, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 96:
+      return static_cast<int>(launch<128, 0, T, Products<96, 96, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 112:
+      return static_cast<int>(launch<128, 0, T, Products<112, 112, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+    case 128:
+      return static_cast<int>(launch<128, 0, T, Products<128, 128, true>>(
+          which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace wg
@@ -2031,26 +2129,37 @@ int gqa_flash_bwd(int which, int dtype, const void* q, const void* k, const void
 // dout are what the tensor maps read: the inputs, or at a d off a multiple
 // of 8 views of copies with rows ceil(d / 8) * 8 wide (TMA's byte strides
 // are multiples of 16); dout's rows are ceil(d / 8) * 8 wide in any case
-// (the D_i pass reads it so, beside o).  1 <= d <= 256: bf16 at d 64, 112
-// and 128 on instantiations of their own (d = 112 on the d = 128 tiles),
+// (the D_i pass reads it so, beside o).  1 <= d <= 256: given group_kv > 0
+// a multiple of 8 in (32, 128] on the head-dim kernels (wg::by_width: the
+// products ceil(d / 16) * 16 wide, the L2 order with group_kv KV heads a
+// group), else bf16 at d 64, 112 and 128 on instantiations of their own (d
+// = 112 on the d = 128 tiles: the head-dim kernels' yardstick there) and
 // every other d on the tiles 16, 32, 64, 128, 192 or 256 wide
 // (hopper::tile_of(d)) with the head dim taken at run time; hq a multiple
 // of hkv, causal_offset >= 0.  `maps` holds, for q, k, v and dout in turn,
 // eleven numbers (gqa_flash_wgmma's, with box (w, 1, R, 1): w 16, 32 or 64,
 // R 64 up to d 128, else 32).  The grid must be the kernel's: (hq, b, ceil(sq / 128)) for
-// dQ, (hkv, b, ceil(sk / 64)) for dK/dV; `smem` its dynamic shared memory.
+// dQ, (hkv, b, ceil(sk / 64)) for dK/dV, or in the L2 order (b * hq * ceil(sq
+// / 128), 1, 1) and (b * hkv * ceil(sk / 64), 1, 1); `smem` its dynamic
+// shared memory.
 int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse, float* dvec,
                         void* dq, void* dk, void* dv, int b, int sq, int sk, int hq, int hkv,
-                        int d, int causal_offset, const unsigned long long* maps, int grid_x,
-                        int grid_y, int grid_z, long long smem, void* stream) {
+                        int d, int causal_offset, int group_kv, const unsigned long long* maps,
+                        int grid_x, int grid_y, int grid_z, long long smem, void* stream) {
+  // the L2 order: the head-dim kernels
+  const bool ordered = group_kv > 0;
+  const bool widths = d % 8 == 0 && d > 32 && d <= 128;
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || (which != wg::DQ && which != wg::DKDV) ||
       (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (group_kv < 0 || (ordered && !widths)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
-  const int tiles = ((which == wg::DQ ? sq : sk) + rows - 1) / rows;
-  if (grid_x != (which == wg::DQ ? hq : hkv) || grid_y != b || grid_z != tiles || tiles > 65535)
+  const long long tiles = ((which == wg::DQ ? sq : sk) + static_cast<long long>(rows) - 1) / rows;
+  const long long heads = which == wg::DQ ? hq : hkv;
+  if (ordered ? grid_x != b * heads * tiles || grid_y != 1 || grid_z != 1
+              : grid_x != heads || grid_y != b || grid_z != tiles || tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[4] = {q, k, v, dout};
   CUtensorMap tm[4];
@@ -2061,6 +2170,11 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  if (ordered)
+    return dtype == 2 ? wg::by_width<__half>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
+                                             grid, sm, s, group_kv)
+                      : wg::by_width<__nv_bfloat16>(which, tm, a, sq, sk, hq, hkv, d,
+                                                    causal_offset, grid, sm, s, group_kv);
   if (dtype == 2)
     return d % 8 != 0 ? wg::by_tile<-1, __half>(which, tm, a, sq, sk, hq, hkv, d,
                                                causal_offset, grid, sm, s)

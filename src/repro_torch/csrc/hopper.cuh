@@ -9,8 +9,9 @@
 // Swz), wgmma descriptors and products (each for either element type, bf16
 // by default: S-like products K-major from shared memory at N 32, 64 and
 // 128; O-like products with A in registers and B MN-major at N 16, 32, 64,
-// 128, 192 and 256, the tiles' widths, and 112), and the encoding of the tensor maps
-// on the host.
+// 128, 192 and 256, the tiles' widths, and 48, 80, 96 and 112, the head
+// dims' own widths: Products), and the encoding of the tensor maps on the
+// host.
 // Everything has internal linkage: each library that includes it gets its
 // own copy.
 #pragma once
@@ -455,6 +456,79 @@ __device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t* a,
     WGMMA_RS_N112_ASM("bf16");
 }
 
+// d (64 x 96, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 96,
+// shared memory, MN-major: the transpose bit is set).  The 96 columns span
+// one 64-column swizzle atom and 32 columns of the next, LBO bytes on.
+#define WGMMA_RS_N96_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N96_ASM("f16");
+  else
+    WGMMA_RS_N96_ASM("bf16");
+}
+
+// d (64 x 80, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 80,
+// shared memory, MN-major: the transpose bit is set).  The 80 columns span
+// one 64-column swizzle atom and 16 columns of the next, LBO bytes on.
+#define WGMMA_RS_N80_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39" \
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N80_ASM("f16");
+  else
+    WGMMA_RS_N80_ASM("bf16");
+}
+
+// d (64 x 48, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 48,
+// shared memory, MN-major: the transpose bit is set).  The 48 columns are
+// the first 48 of one 64-column swizzle atom.
+#define WGMMA_RS_N48_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23" \
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t* a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_RS_N48_ASM("f16");
+  else
+    WGMMA_RS_N48_ASM("bf16");
+}
+
 // d (64 x 16, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 16, shared
 // memory, MN-major: the transpose bit is set).
 #define WGMMA_RS_N16_ASM(TY) \
@@ -671,13 +745,14 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a
 }
 
 // The product of each width: d (64 x N, fp32) += a (64 x 16, registers) *
-// b (16 x N, MN-major) at N 16, 32, 64, 112, 128, 192 or 256 (the tiles'
-// widths, and zamba2-7b's head dim on 128-wide tiles); and d (64 x N) = a b
-// (FIRST) or += a b, both K-major in shared memory, at N 32, 64 or 128.
+// b (16 x N, MN-major) at N 16, 32, 64, 128, 192 or 256 (the tiles'
+// widths) and 48, 80, 96 or 112 (the head's own width, ceil(D / 16) * 16,
+// on the 64- and 128-wide tiles: Products); and d (64 x N) = a b (FIRST) or
+// += a b, both K-major in shared memory, at N 32, 64 or 128.
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 112 || N == 128 || N == 192 ||
-                N == 256, "a product width");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 80 || N == 96 || N == 112 ||
+                N == 128 || N == 192 || N == 256, "a product width");
   if constexpr (N == 256)
     wgmma_rs_n256<T>(d, a, b);
   else if constexpr (N == 192)
@@ -686,6 +761,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, u
     wgmma_rs_n128<T>(d, a, b);
   else if constexpr (N == 112)
     wgmma_rs_n112<T>(d, a, b);
+  else if constexpr (N == 96)
+    wgmma_rs_n96<T>(d, a, b);
+  else if constexpr (N == 80)
+    wgmma_rs_n80<T>(d, a, b);
+  else if constexpr (N == 48)
+    wgmma_rs_n48<T>(d, a, b);
   else if constexpr (N == 64)
     wgmma_rs_n64<T>(d, a, b);
   else if constexpr (N == 32)
@@ -738,6 +819,25 @@ EncodeTiled encode_tiled() {
   }
   return fn;
 }
+
+// What an instance of a wgmma kernel (the forward's flash_wgmma_kernel, the
+// backward's dQ and dK/dV kernels) runs on its tiles D wide: the S-like
+// products (S = Q K^T, dP = dO V^T and their transposes) over the tiles'
+// first QK columns (QK / 16 k-steps), the O-like products (O += P V, dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q) at N = PV (PV / 2 accumulators a
+// thread), and its blocks in the grid's order or, with L2, in the order
+// that keeps a group of KV heads' K and V (or Q and dO) in L2, a 1-D grid
+// decoded by the kernel (the group's size group_kv is a launch argument;
+// one group of every KV head is the grid's order).  Products<D, D, false>
+// runs the tiles' whole width in the grid's order; the head-dim kernels run
+// Products<W, W, true>, W = ceil(D / 16) * 16, the columns past the head dim
+// being TMA's zeros.
+template <int QK_COLS, int PV_COLS, bool L2_ORDER>
+struct Products {
+  static constexpr int QK = QK_COLS, PV = PV_COLS;
+  static constexpr bool L2 = L2_ORDER;
+  static_assert(QK % 16 == 0 && PV % 8 == 0, "whole k-steps, whole 8-column slices");
+};
 
 // Tensor maps over n (B, S, H, D) tensors of 16-bit elements (bf16, or fp16
 // with `f16`), from the wrapper's numbers: eleven for each

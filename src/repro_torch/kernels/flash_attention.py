@@ -21,7 +21,10 @@ llama3-8b and the MoE configs take 64 or 128, zamba2-7b's shared attention
 112, whose kernel runs S = Q K^T in 7 k-steps and O += P V at N 112 on the
 128-wide tiles, its blocks in the L2 order (``plan``'s ``group_kv``: a
 group of KV heads at a time, heaviest query tiles first, so that their K
-and V stay in L2); the example trainers' heads are narrow:
+and V stay in L2); every other multiple of 8 in (32, 128], in fp16 and
+bf16, on the head-dim kernels, which do the same at the head's own width W
+= ``product_dim(D)`` (48, 64, 80, 96, 112 or 128: S in W / 16 k-steps, O
+at N = W, the L2 order; ``width_kernel``); the example trainers' heads are narrow:
 ``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16, its
 10m preset D 32), fp32 to the tiled fp32 kernel (route "fp32",
 ``flash_tiled_kernel``: register micro-tiles on the FMA pipe, over the
@@ -32,8 +35,10 @@ only when named, the yardsticks: the ``mma.sync`` kernel for 16-bit inputs
 (``kernel="mma_sync"``, ``flash_mma_kernel``) and the first fp32 kernel
 (``kernel="fp32_simple"``, ``flash_f32_kernel``), both on the least padded
 width of 16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads
-zero past D; and at bf16 D 112 the Hopper kernel that runs the 128-wide
-tiles' whole width in the grid's order (``kernel="wgmma_pad128"``).  An
+zero past D; at bf16 D 112 the Hopper kernel that runs the 128-wide
+tiles' whole width in the grid's order (``kernel="wgmma_pad128"``); and at
+the head-dim kernels' (dtype, D) the whole-tile instantiations they
+replaced, in the grid's order (``kernel="wgmma_tile"``).  An
 input whose layout the route cannot read is copied first, and each copy
 adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
 strides multiples of 16, a 16-byte aligned start) into a buffer of rows
@@ -56,11 +61,15 @@ on CUDA tensors the kernels of ``csrc/flash_attention_bwd.cu`` on the route
 ``bwd_route`` picks from the dtype and D alone: "wgmma" where the
 forward's route is, every 16-bit D (two Hopper kernels, dQ then dK/dV, on
 the forward's tiles, reading the forward's LSE; past width 128 dQ's key
-tiles are 32 and every TMA box 32 rows), "tiled" for fp32 and fp64 (two
+tiles are 32 and every TMA box 32 rows; at every multiple of 8 in (32,
+128] but bf16 64 and 128 the head-dim kernels, every product at
+``product_dim(D)``, in the L2 order: ``plan_bwd``'s groups), "tiled" for fp32 and fp64 (two
 register-tiled fp32 FMA kernels, dQ then dK/dV, reading the tiled forward's
 LSE; fp64 on fp32 copies, the gradients cast back), each with the plain
 version ``gqa_flash_bwd_lse_plain`` (unrounded for "tiled"); and, only on
-request, the yardsticks "mma" for bf16 and fp16 at D <= 32 (two
+request, the yardsticks "wgmma_tile" at the head-dim kernels' (dtype, D)
+(the whole-tile pair they replaced, in the grid's order), "mma" for bf16
+and fp16 at D <= 32 (two
 ``mma.sync`` kernels, dQ then dK/dV, reading an LSE such as the
 ``mma.sync`` forward writes) and "fma" (the first design's three fp32 FMA
 kernels: row statistics, dK/dV, dQ, on the padded widths, with tiles of 32
@@ -78,6 +87,7 @@ nothing, and report the work of the kernels their route would launch to
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -87,10 +97,15 @@ from ._build import build_library
 
 #: Kernel launches since the last ``reset_launches()``: all of them under
 #: "gqa_flash", and each under its route.
-launches = {"gqa_flash": 0, "wgmma": 0, "wgmma_pad128": 0, "mma_sync": 0, "fp32": 0,
-            "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
-            "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_mma_dq": 0, "bwd_mma_dkdv": 0,
-            "bwd_tiled_dq": 0, "bwd_tiled_dkdv": 0, "layout_copy": 0}
+launches = {"gqa_flash": 0, "wgmma": 0, "wgmma_pad128": 0, "wgmma_tile": 0, "mma_sync": 0,
+            "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0, "bwd_dkdv": 0,
+            "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0, "bwd_wgmma_tile_dq": 0,
+            "bwd_wgmma_tile_dkdv": 0, "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
+            "bwd_tiled_dkdv": 0, "layout_copy": 0}
+#: The same launches by kernel instantiation (``instance``, ``bwd_instance``):
+#: which template instance of ``csrc/flash_attention.cu`` or
+#: ``csrc/flash_attention_bwd.cu`` each launch ran.
+instances: dict[str, int] = {}
 
 #: The head dims of the pinned routes (``ROUTES``).
 HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -100,7 +115,7 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HALF = (torch.bfloat16, torch.float16)
 #: The routes of the Hopper kernels, whose inputs TMA reads.
-_TMA_ROUTES = ("wgmma", "wgmma_pad128")
+_TMA_ROUTES = ("wgmma", "wgmma_pad128", "wgmma_tile")
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 #: The routes of the model configs' (dtype, D) pairs, pinned.
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 112): "wgmma",
@@ -127,6 +142,15 @@ TMA_BOX_COLS = 64       # 16-bit elements per 128-byte swizzled row: a box's inn
 #: runs the same head dim on the 128-wide tiles' whole width in the grid's
 #: order, the kernel it replaced (the yardstick).
 WGMMA_D112 = 112
+#: The widths of the head-dim kernels' products (``hopper::by_width`` in both
+#: flash sources): a 16-bit head dim D, a multiple of 8 in (32, 128], runs S
+#: = Q K^T (and dP, and the backward's transposes) in W / 16 k-steps and O +=
+#: P V (dQ, dK, dV) at N = W, W = ``product_dim(D)``, on the 64- and 128-wide
+#: tiles, in the L2 order; all but bf16 at 64, 112 and 128 in the forward
+#: (their own instantiations) and 64 and 128 in the backward
+#: (``width_kernel``).  The whole-tile instantiations they replaced run by
+#: name: ``kernel="wgmma_tile"`` and ``route="wgmma_tile"``, the yardsticks.
+PRODUCT_WIDTHS = (48, 64, 80, 96, 112, 128)
 #: The K and V that a group of the L2 order may hold, in bytes: a quarter of
 #: the H100's 50 MB L2 (Q, O and the next group's first tiles pass through it
 #: too).  At zamba2-7b's forward, groups of 8 of its 128 KV heads (7.3 MB)
@@ -167,6 +191,10 @@ BWD_WGMMA_WIDE_DQ_KEYS = 32     # dQ's keys per tile past width 128
 BWD_WGMMA_WIDE_BOX_ROWS = 32    # every box's rows past width 128
 #: The wgmma route's kernels in launch order, by their ``which`` in the C entry.
 BWD_WGMMA_KERNELS = ("bwd_wgmma_dq", "bwd_wgmma_dkdv")
+#: The same whole-tile kernels, by name (``route="wgmma_tile"``), at the head
+#: dims of the head-dim kernels (``width_kernel(..., backward=True)``): the
+#: yardstick they replaced.
+BWD_WGMMA_TILE_KERNELS = ("bwd_wgmma_tile_dq", "bwd_wgmma_tile_dkdv")
 
 # The mma route's tiling (csrc/flash_attention_bwd.cu, namespace mm): dQ
 # blocks of 64 query rows over key tiles of 64, dK/dV blocks of 64 keys over
@@ -188,7 +216,8 @@ SMEM_LIMIT = 232_448
 #: The "tiled" backward's kernels in launch order, by their ``which`` in the C entry.
 BWD_TILED_KERNELS = ("bwd_tiled_dq", "bwd_tiled_dkdv")
 #: Each backward route's kernels in launch order.
-BWD_ROUTE_KERNELS = {"fma": BWD_KERNELS, "wgmma": BWD_WGMMA_KERNELS, "mma": BWD_MMA_KERNELS,
+BWD_ROUTE_KERNELS = {"fma": BWD_KERNELS, "wgmma": BWD_WGMMA_KERNELS,
+                     "wgmma_tile": BWD_WGMMA_TILE_KERNELS, "mma": BWD_MMA_KERNELS,
                      "tiled": BWD_TILED_KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -198,6 +227,7 @@ _bwd_lib: ctypes.CDLL | None = None
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    instances.clear()
 
 
 def gqa_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -320,7 +350,7 @@ def build_bwd() -> str:
     lib.gqa_flash_bwd_mma.restype = i
     lib.gqa_flash_bwd_tiled.argtypes = [i, i] + [p] * 10 + [i] * 10 + [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_tiled.restype = i
-    lib.gqa_flash_bwd_wgmma.argtypes = [i, i] + [p] * 10 + [i] * 7 + [p] + [i] * 3 + \
+    lib.gqa_flash_bwd_wgmma.argtypes = [i, i] + [p] * 10 + [i] * 8 + [p] + [i] * 3 + \
         [ctypes.c_longlong, p]
     lib.gqa_flash_bwd_wgmma.restype = i
     _bwd_lib = lib
@@ -337,7 +367,8 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
     "wgmma" for bf16 and fp16 at every D, "fp32" for fp32 and fp64
     (``flash_tiled_kernel``); the first designs, "mma_sync" (16-bit),
-    "wgmma_pad128" (bf16 D 112) and "fp32_simple", only on request."""
+    "wgmma_pad128" (bf16 D 112), "wgmma_tile" (the head-dim kernels'
+    (dtype, D): ``width_kernel``) and "fp32_simple", only on request."""
     _check_dtype_and_dim(dtype, d, "kernel")
     return "wgmma" if dtype in _HALF else "fp32"
 
@@ -346,7 +377,8 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward's route for this dtype and head dim: "wgmma" where the
     forward's route is (it writes the LSE the wgmma backward reads), every
     16-bit D; "tiled" for fp32 and fp64 (on the LSE of the tiled forward);
-    the first designs, "mma" (16-bit D <= 32) and "fma", only on request."""
+    the first designs, "wgmma_tile" (the head-dim kernels' (dtype, D)),
+    "mma" (16-bit D <= 32) and "fma", only on request."""
     _check_dtype_and_dim(dtype, d, "backward kernel")
     return "wgmma" if route(dtype, d) == "wgmma" else "tiled"
 
@@ -374,10 +406,38 @@ def wgmma_tile_dim(d: int) -> int:
     return -(-d // TMA_BOX_COLS) * TMA_BOX_COLS
 
 
+def product_dim(d: int) -> int:
+    """The width W of the head-dim kernels' products at head dim d (a
+    multiple of 8 in (32, 128]): the least multiple of 16 that holds it, 48,
+    64, 80, 96, 112 or 128 (``PRODUCT_WIDTHS``; ``hopper::by_width``)."""
+    return -(-d // 16) * 16
+
+
+def width_kernel(dtype: torch.dtype, d: int, backward: bool = False) -> bool:
+    """Whether the Hopper route runs this dtype and head dim on a head-dim
+    kernel (products ``product_dim(d)`` wide, the L2 order): 16-bit at a
+    multiple of 8 in (32, 128], but for bf16 at 64 and 128 (and 112 in the
+    forward: the D-112 kernel), which keep instantiations of their own."""
+    if dtype not in _HALF or d % 8 or not 32 < d <= 128:
+        return False
+    return not (dtype == torch.bfloat16 and d in ((64, 128) if backward else WGMMA_TILE_DIM))
+
+
 def l2_order(dtype: torch.dtype, d: int) -> bool:
     """Whether the Hopper forward at this dtype and head dim runs its blocks
-    in the L2 order (``plan``'s ``group_kv``): bf16 at ``WGMMA_D112``."""
-    return dtype == torch.bfloat16 and d == WGMMA_D112
+    in the L2 order (``plan``'s ``group_kv``): the D-112 kernel (bf16 at
+    ``WGMMA_D112``) and the head-dim kernels (``width_kernel``).  The shape
+    sets the groups (``kv_group``): where the K and V of every (batch, KV
+    head) pair fit ``L2_KV_BUDGET`` there is one group, which is the grid's
+    order."""
+    return (dtype == torch.bfloat16 and d == WGMMA_D112) or width_kernel(dtype, d)
+
+
+def _group(n: int, pair_bytes: int, budget: int) -> int:
+    """The largest divisor of n whose pairs, ``pair_bytes`` each, fit
+    ``budget`` bytes; at least 1."""
+    most = max(1, budget // pair_bytes)
+    return max(g for g in range(1, min(n, most) + 1) if n % g == 0)
 
 
 def kv_group(b: int, sk: int, hkv: int, d: int, elt: int = 2,
@@ -389,8 +449,73 @@ def kv_group(b: int, sk: int, hkv: int, d: int, elt: int = 2,
     last group of a few heads would start its heaviest tiles among the last
     blocks (groups of 9 over zamba2-7b's 128 leave 2 and ran 4-6 % slower
     than groups of 8; scripts/kernel_splits.py d112)."""
-    n, most = b * hkv, max(1, budget // (2 * sk * d * elt))
-    return max(g for g in range(1, min(n, most) + 1) if n % g == 0)
+    return _group(b * hkv, 2 * sk * d * elt, budget)
+
+
+def rows_group(b: int, sq: int, hq: int, hkv: int, d: int, elt: int = 2,
+               budget: int = L2_KV_BUDGET) -> int:
+    """The KV heads a group of the dK/dV kernel's L2 order holds: the
+    largest divisor of the B x Hkv pairs whose query heads' Q and dO (Sq x D
+    x 2 elements of ``elt`` bytes a query head, Hq / Hkv query heads a pair)
+    fit ``budget`` bytes, at least 1: what that kernel's blocks read again
+    and again, as the forward's and dQ's read K and V."""
+    return _group(b * hkv, 2 * sq * (hq // hkv) * d * elt, budget)
+
+
+_T_NAMES = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
+
+
+@functools.lru_cache(maxsize=None)
+def instance(dtype: torch.dtype, d: int, kernel: str | None = None) -> str:
+    """The forward kernel instantiation that ``launch`` runs for this dtype
+    and head dim through ``kernel`` (default: the route), as
+    ``csrc/flash_attention.cu``'s C entry picks it; float64 names the fp32
+    kernel its copies run on."""
+    name = route(dtype, d) if kernel is None else kernel
+    t = _T_NAMES.get(dtype)
+    if name == "wgmma_pad128":
+        return "flash_wgmma_kernel<128, 112, __nv_bfloat16>"
+    if name in ("wgmma", "wgmma_tile"):
+        tile = wgmma_tile_dim(d)
+        if name == "wgmma" and dtype == torch.bfloat16 and d == WGMMA_D112:
+            return "flash_wgmma_kernel<128, 112, __nv_bfloat16, Products<112, 112, true>>"
+        if name == "wgmma" and width_kernel(dtype, d):
+            w = product_dim(d)
+            return f"flash_wgmma_kernel<{tile}, 0, {t}, Products<{w}, {w}, true>>"
+        pinned = dtype == torch.bfloat16 and d in WGMMA_TILE_DIM
+        return f"flash_wgmma_kernel<{tile}, {d if pinned else 0 if d % 8 == 0 else -1}, {t}>"
+    if name == "mma_sync":
+        return f"flash_mma_kernel<{t}, {padded_dim(d)}>"
+    if name == "fp32_simple":
+        return f"flash_f32_kernel<{padded_dim(d)}>"
+    return f"flash_tiled_kernel<{tiled_slots(d)}>"
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_instance(dtype: torch.dtype, d: int, route: str | None = None,
+                 which: int | None = None) -> str:
+    """The backward kernel instantiation of kernel ``which`` (its index in
+    ``BWD_ROUTE_KERNELS[route]``; None: the route's kernels in one name) that
+    ``launch_bwd`` runs for this dtype and head dim on ``route`` (default:
+    ``bwd_route``), as ``csrc/flash_attention_bwd.cu``'s C entries pick it."""
+    name = bwd_route(dtype, d) if route is None else route
+    kinds = {"fma": ("stats", "dkdv", "dq")}.get(name, ("dq", "dkdv"))
+    kind = "{" + ",".join(kinds) + "}" if which is None else kinds[which]
+    t = _T_NAMES.get(dtype)
+    if name in ("wgmma", "wgmma_tile"):
+        tile = wgmma_tile_dim(d)
+        if name == "wgmma" and width_kernel(dtype, d, backward=True):
+            w = product_dim(d)
+            return f"flash_bwd_{kind}_wgmma_kernel<{tile}, 0, {t}, Products<{w}, {w}, true>>"
+        pinned = dtype == torch.bfloat16 and d in WGMMA_TILE_DIM
+        return (f"flash_bwd_{kind}_wgmma_kernel<{tile}, "
+                f"{d if pinned else 0 if d % 8 == 0 else -1}, {t}>")
+    if name == "mma":
+        return f"flash_bwd_{kind}_mma_kernel<{t}, {padded_dim(d)}>"
+    if name == "tiled":
+        return f"flash_bwd_{kind}_tiled_kernel<{tiled_slots(d)}>"
+    elt = t or "float"
+    return f"flash_bwd_{kind}_kernel<{elt}, {padded_dim(d)}>"
 
 
 def tma_box_cols(d: int) -> int:
@@ -547,7 +672,7 @@ def tensor_map(t: torch.Tensor, rows: int = WGMMA_ROWS) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class Plan:
     """A launch: its route, its grid ((Hq, B, query tiles of 128) for the
-    Hopper kernels, (B x Hq x query tiles of 128, 1, 1) for the one in the
+    Hopper kernels, (B x Hq x query tiles of 128, 1, 1) for those in the
     L2 order (``l2_order``), (Hq, B, query tiles of
     ``tiled_fwd_tiling(D).rows``) for the tiled kernel ("fp32"), (query
     tiles of 64, Hq, B) for the others) and, for the Hopper kernels, the
@@ -618,12 +743,17 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
          kernel: str | None = None) -> Plan:
     """Check q/k/v's layout and plan the launch of ``kernel`` (default: the
     route of q's dtype and D).  The Hopper kernel's inputs must be as TMA
-    reads them (``launch`` stages those that are not: ``stage``)."""
+    reads them (``launch`` stages those that are not: ``stage``).  The
+    D-112 kernel and the head-dim kernels (``l2_order``) take the L2 order:
+    a 1-D grid and ``kv_group``'s KV heads a group; "wgmma_tile" (the
+    head-dim kernels' yardstick, the whole-tile instantiations) and
+    "wgmma_pad128" (the D-112 kernel's) keep the grid's order."""
     _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
     ok = {"wgmma": q.dtype in _HALF,
           "wgmma_pad128": q.dtype == torch.bfloat16 and d == WGMMA_D112,
+          "wgmma_tile": width_kernel(q.dtype, d),
           "mma_sync": q.dtype in _HALF,
           "fp32": q.dtype in (torch.float32, torch.float64),
           "fp32_simple": q.dtype in (torch.float32, torch.float64)}
@@ -649,12 +779,14 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
 class BwdPlan:
     """The backward's launches on its route: grid (x, y, z) and dynamic
     shared memory of each kernel of ``BWD_ROUTE_KERNELS[route]``, in that
-    order, and for "wgmma" the tensor maps of q, k, v and do (eleven numbers
-    each)."""
+    order, for "wgmma" and "wgmma_tile" the tensor maps of q, k, v and do
+    (eleven numbers each), and each kernel's KV heads a group of the L2
+    order (0 in the grid's order: every kernel but the head-dim ones)."""
     route: str
     grids: tuple[tuple[int, int, int], ...]
     smem: tuple[int, ...]
     maps: tuple[int, ...] | None = None
+    groups: tuple[int, ...] = (0, 0)
 
 
 def bwd_tile_rows(d: int) -> int:
@@ -757,7 +889,8 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         dq_t, kv_t = tiled_dq_tiling(d), tiled_dkdv_tiling(d)
         return BwdPlan("tiled", grids=((hq, b, -(-sq // dq_t.rows)), (hkv, b, -(-sk // kv_t.rows))),
                        smem=(dq_t.smem, kv_t.smem))
-    ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": True}
+    ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": True,
+          "wgmma_tile": width_kernel(q.dtype, d, backward=True)}
     if not ok.get(name, False) or q.dtype not in _HALF:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
     if name == "mma":
@@ -772,11 +905,15 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                          f"aligned, for its tensor map and the D_i pass; got strides "
                          f"{do.stride()}")
     rows = bwd_wgmma_box_rows(d)
-    return BwdPlan("wgmma", grids=((hq, b, -(-sq // BWD_WGMMA_DQ_ROWS)),
-                                   (hkv, b, -(-sk // BWD_WGMMA_KV_KEYS))),
-                   smem=bwd_wgmma_smem_bytes(d),
-                   maps=tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows)
-                   + tensor_map(do, rows))
+    maps = tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows) + tensor_map(do, rows)
+    q_tiles, k_tiles = -(-sq // BWD_WGMMA_DQ_ROWS), -(-sk // BWD_WGMMA_KV_KEYS)
+    if name == "wgmma" and width_kernel(q.dtype, d, backward=True):
+        elt = q.element_size()
+        groups = (kv_group(b, sk, hkv, d, elt), rows_group(b, sq, hq, hkv, d, elt))
+        return BwdPlan(name, grids=((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1)),
+                       smem=bwd_wgmma_smem_bytes(d), maps=maps, groups=groups)
+    return BwdPlan(name, grids=((hq, b, q_tiles), (hkv, b, k_tiles)),
+                   smem=bwd_wgmma_smem_bytes(d), maps=maps)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -916,8 +1053,10 @@ def _readable_copy(t: torch.Tensor, name: str) -> torch.Tensor:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int = 0,
            kernel: str | None = None, with_lse: bool = False):
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
-    "wgmma_pad128", "mma_sync", "fp32" or "fp32_simple"; default: its
-    route), to hold one kernel against another at one shape.  With
+    "wgmma_pad128", "wgmma_tile", "mma_sync", "fp32" or "fp32_simple";
+    default: its route), to hold one kernel against another at one shape:
+    "wgmma" runs the head-dim kernels where ``width_kernel`` says so,
+    "wgmma_tile" the whole-tile instantiations they replaced.  With
     ``with_lse`` (every kernel but "fp32_simple") returns (output, LSE (B,
     Hq, Sq) fp32); the output is the same either way.  float64 runs the fp32 kernels on fp32 copies, the output
     cast back; an input whose layout the kernel cannot read is copied first
@@ -963,6 +1102,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
                               else f"CUresult {-err} encoding a tensor map"))
     launches["gqa_flash"] += 1
     launches[pl.route] += 1
+    key = instance(q.dtype, d, pl.route)
+    instances[key] = instances.get(key, 0) + 1
     return (out, lse) if with_lse else out
 
 
@@ -970,11 +1111,14 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                do: torch.Tensor, causal_offset: int = 0, lse: torch.Tensor | None = None,
                route: str | None = None):
     """``gqa_flash_bwd`` on CUDA tensors on ``route`` (default: ``bwd_route``):
-    "wgmma" launches dQ (which writes D_i) then dK/dV, "mma" the same pair
+    "wgmma" launches dQ (which writes D_i) then dK/dV (the head-dim kernels
+    where ``width_kernel(..., backward=True)`` says so), "wgmma_tile" the
+    whole-tile pair they replaced (the yardstick), "mma" the same pair
     on mma.sync, "tiled" the same pair on fp32 FMA, each reading ``lse``,
     the forward's (B, Hq, Sq) fp32; "fma" launches the stats kernel (LSE and
     D_i into fp32 scratch), then dK/dV and dQ, and ignores ``lse``.  o and
-    do are made contiguous, and so are q, k and v except on "wgmma", whose
+    do are made contiguous, and so are q, k and v except on "wgmma" and
+    "wgmma_tile", whose
     tensor maps read them as they lie where TMA can (q, k, v and do staged
     where it cannot: ``_readable_copy``; the staged do is also what the D_i
     pass reads); float64 runs the fp32 kernels ("tiled" or "fma") on fp32
@@ -988,7 +1132,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
         return tuple(g.double() for g in grads)
     name = bwd_route(q.dtype, q.shape[-1]) if route is None else route
     o, do = o.contiguous(), do.contiguous()
-    if name == "wgmma":
+    if name in _TMA_ROUTES:
         q, k, v, do = (_readable_copy(t, name) for t in (q, k, v, do))
     else:
         q, k, v = (t.contiguous() for t in (q, k, v))
@@ -1038,11 +1182,11 @@ def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
     ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
     outs = [t.data_ptr() for t in bufs]
     name = BWD_ROUTE_KERNELS[pl.route][which]
-    if pl.route == "wgmma":
+    if pl.route in _TMA_ROUTES:
         maps = (ctypes.c_ulonglong * len(pl.maps))(*pl.maps)
         err = _bwd_lib.gqa_flash_bwd_wgmma(which, _DTYPES[q.dtype], *ptrs, *outs, b, sq, sk,
-                                           hq, hkv, d, int(causal_offset), maps,
-                                           *pl.grids[which], pl.smem[which], stream)
+                                           hq, hkv, d, int(causal_offset), pl.groups[which],
+                                           maps, *pl.grids[which], pl.smem[which], stream)
     else:
         entry = {"mma": _bwd_lib.gqa_flash_bwd_mma, "tiled": _bwd_lib.gqa_flash_bwd_tiled,
                  "fma": _bwd_lib.gqa_flash_bwd}[pl.route]
@@ -1053,3 +1197,5 @@ def launch_bwd_kernel(which: int, q, k, v, o, do, bufs, causal_offset: int,
                            + (f"cudaError_t {err}" if err > 0
                               else f"CUresult {-err} encoding a tensor map"))
     launches[name] += 1
+    key = bwd_instance(q.dtype, d, pl.route, which)
+    instances[key] = instances.get(key, 0) + 1

@@ -499,7 +499,8 @@ def test_kernel_flash_autograd_on_the_card(cuda_flash_bwd):
                            "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 1, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 1, "bwd_wgmma_dkdv": 1,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
-                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0,
+                           "wgmma_tile": 0, "bwd_wgmma_tile_dq": 0, "bwd_wgmma_tile_dkdv": 0}
     out, lse = fa.launch(q, k, v, with_lse=True)
     assert torch.equal(out, o.detach())
     direct = fa.launch_bwd(q, k, v, out, do, lse=lse)
@@ -544,7 +545,8 @@ def test_train_step_on_the_card(cuda_flash_bwd, arch):
                            "fp32": 2 * L, "fp32_simple": 0, "gqa_flash_bwd": L, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": L,
-                           "bwd_tiled_dkdv": L, "layout_copy": 0}
+                           "bwd_tiled_dkdv": L, "layout_copy": 0,
+                           "wgmma_tile": 0, "bwd_wgmma_tile_dq": 0, "bwd_wgmma_tile_dkdv": 0}
     np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"].item(), want["grad_norm"].item(), rtol=2e-3)
     old = dict(leaves(cpu0.params))
@@ -663,7 +665,8 @@ def test_kernel_flash_head_dim_16(cuda_flash_bwd, shape, dtype):
                            "bwd_stats": 0, "bwd_dkdv": 0, "bwd_dq": 0,
                            "bwd_wgmma_dq": wg, "bwd_wgmma_dkdv": wg, "bwd_mma_dq": 0,
                            "bwd_mma_dkdv": 0, "bwd_tiled_dq": 1 - wg,
-                           "bwd_tiled_dkdv": 1 - wg, "layout_copy": 0}, fa.launches
+                           "bwd_tiled_dkdv": 1 - wg, "layout_copy": 0,
+                           "wgmma_tile": 0, "bwd_wgmma_tile_dq": 0, "bwd_wgmma_tile_dkdv": 0}, fa.launches
     assert out.shape == q.shape and out.dtype == dtype
     _assert_flash_close(out.detach(), fa.gqa_flash_plain(q, k, v, causal_offset=off),
                         f"{shape} {dtype}")
@@ -690,7 +693,8 @@ def test_kernel_flash_wgmma_ragged(cuda_flash, sq, extra, d):
                            "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
-                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0,
+                           "wgmma_tile": 0, "bwd_wgmma_tile_dq": 0, "bwd_wgmma_tile_dkdv": 0}
     _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=extra),
                         f"Sq={sq} Sk={sq + extra} D={d}")
 
@@ -809,6 +813,107 @@ def test_kernel_flash_every_head_dim(cuda_flash_bwd, d, dtype):
         _assert_bwd_close([t.grad for t in leaves],
                           fa.gqa_flash_bwd_plain(q, k, v, o, do, causal_offset=off),
                           what + " backward")
+
+
+# The head-dim kernels: every 16-bit multiple of 8 in (32, 128] that is not
+# a pinned bf16 instantiation runs S in W / 16 k-steps and O at N = W (W =
+# ceil(D / 16) * 16: 48, 64, 80, 96, 112, 128) on the 64- and 128-wide tiles,
+# in the L2 order, forward and backward (the backward also at bf16 112).
+# Each is held to the plain versions and, bit for bit, to the whole-tile
+# instantiations it replaced (kernel="wgmma_tile", route="wgmma_tile"): a
+# k-step it cuts adds only zeros, and each output column's sum is the same
+# at N = W.  Shapes: ragged GQA ones with causal offsets (keys no row sees,
+# one row over 300 keys), zamba2-7b's layout in fp16 (B 4, S 2048, 32 heads
+# over 32: eight KV heads a group of the L2 order, 16 groups) and shard cell
+# (f)'s local heads (B 4, S 512, 16 over 16).
+WIDTH_CASES = [(dtype, d) for dtype in (torch.bfloat16, torch.float16)
+               for d in range(40, 129, 8) if fa.width_kernel(dtype, d, backward=True)]
+WIDTH_SHAPES = [(2, 130, 167, 4, 2, 37), (1, 1, 300, 4, 1, 299), (2, 200, 333, 8, 2, 133),
+                (1, 257, 257, 6, 3, 0)]
+
+
+def _width_launches(dtype, d, fwd, bwd):
+    """The launch counts of ``fwd`` forwards on the default route and ``bwd``
+    backwards, by route and by instantiation."""
+    width = fa.width_kernel(dtype, d)
+    counts = {"gqa_flash": fwd, "wgmma": fwd, "gqa_flash_bwd": bwd, "bwd_wgmma_dq": bwd,
+              "bwd_wgmma_dkdv": bwd}
+    names = {fa.instance(dtype, d): fwd, fa.bwd_instance(dtype, d, which=0): bwd,
+             fa.bwd_instance(dtype, d, which=1): bwd}
+    assert width or d == fa.WGMMA_D112
+    return {k: v for k, v in counts.items() if v}, {k: v for k, v in names.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES, ids=str)
+def test_kernel_flash_head_dim_width(cuda_flash_bwd, dtype, d):
+    """Forward (with and without the LSE) and backward of the head-dim
+    kernels at every (dtype, D) they take, on ragged shapes: within the flash
+    and backward limits of the plain versions, equal bit for bit to the
+    whole-tile yardsticks (output, LSE, dQ, dK, dV), launches counted by
+    route and by instantiation."""
+    for b, sq, sk, hq, hkv, off in WIDTH_SHAPES:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        grads = fa.launch_bwd(q, k, v, out, do, off, lse=lse)
+        torch.cuda.synchronize()
+        counts, names = _width_launches(dtype, d, 1, 1)
+        assert {n: c for n, c in fa.launches.items() if c} == counts, (what, fa.launches)
+        assert fa.instances == names, (what, fa.instances)
+        _assert_flash_close(out, fa.gqa_flash_plain(q, k, v, causal_offset=off), what)
+        assert (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item() <= 1e-4
+        _assert_bwd_close(grads, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what + " backward")
+        assert torch.equal(out, fa.launch(q, k, v, off))
+        if fa.width_kernel(dtype, d):
+            yard, yard_lse = fa.launch(q, k, v, off, kernel="wgmma_tile", with_lse=True)
+            assert torch.equal(out, yard) and torch.equal(lse, yard_lse), what
+        tile = fa.launch_bwd(q, k, v, out, do, off, lse=lse, route="wgmma_tile")
+        assert all(torch.equal(g, t) for g, t in zip(grads, tile)), what + " backward"
+        assert fa.launches["bwd_wgmma_tile_dq"] == fa.launches["bwd_wgmma_tile_dkdv"] == 1
+        assert fa.launches["wgmma_tile"] == int(fa.width_kernel(dtype, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 112), (torch.bfloat16, 112),
+                                     (torch.float16, 64), (torch.bfloat16, 96)], ids=str)
+@pytest.mark.parametrize("shape", [(4, 2048, 2048, 32, 32, 0), (4, 512, 512, 16, 16, 0)],
+                         ids=str)
+def test_kernel_flash_head_dim_width_layouts(cuda_flash_bwd, shape, dtype, d):
+    """zamba2-7b's layout and shard cell (f)'s local heads: the head-dim
+    kernels' groups of the L2 order (several at zamba2's), forward through
+    ``gqa_flash`` and backward through autograd, each against the plain
+    versions and bit for bit against the yardsticks; bf16 112's forward is
+    the D-112 kernel, its backward the head-dim pair."""
+    b, sq, sk, hq, hkv, off = shape
+    q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=d, dtype=dtype)
+    pl, bpl = fa.plan(q, k, v), fa.plan_bwd(q, k, v, q, do)
+    assert pl.group_kv == fa.kv_group(b, sk, hkv, d) and pl.grid[1:] == (1, 1)
+    assert bpl.groups == (fa.kv_group(b, sk, hkv, d), fa.rows_group(b, sq, hq, hkv, d))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    out = fa.gqa_flash(*leaves, causal_offset=off)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts, names = _width_launches(dtype, d, 1, 1)
+    assert {n: c for n, c in fa.launches.items() if c} == counts, fa.launches
+    assert fa.instances == names, fa.instances
+    o = out.detach()
+    _assert_flash_close(o, fa.gqa_flash_plain(q, k, v, causal_offset=off), f"{shape} {d}")
+    if fa.width_kernel(dtype, d):
+        assert torch.equal(o, fa.launch(q, k, v, off, kernel="wgmma_tile"))
+    else:
+        assert torch.equal(o, fa.launch(q, k, v, off, kernel="wgmma_pad128"))
+    lse = fa.launch(q, k, v, off, with_lse=True)[1]
+    tile = fa.launch_bwd(q, k, v, o, do, off, lse=lse, route="wgmma_tile")
+    grads = [t.grad for t in leaves]
+    assert all(torch.equal(g, t) for g, t in zip(grads, tile)), f"{shape} {d} backward"
+    _assert_bwd_close(grads, fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, off,
+                                                         round_bf16=True),
+                      f"{shape} {d} backward", rel_limit=BWD_ROUNDED_REL)
 
 
 # The wgmma route past width 128, on tiles 192 and 256 wide: D 136 and 200

@@ -300,7 +300,8 @@ def test_launch_needs_cuda_and_counts_stay_zero_on_cpu():
                            "fp32": 0, "fp32_simple": 0, "gqa_flash_bwd": 0, "bwd_stats": 0,
                            "bwd_dkdv": 0, "bwd_dq": 0, "bwd_wgmma_dq": 0, "bwd_wgmma_dkdv": 0,
                            "bwd_mma_dq": 0, "bwd_mma_dkdv": 0, "bwd_tiled_dq": 0,
-                           "bwd_tiled_dkdv": 0, "layout_copy": 0}
+                           "bwd_tiled_dkdv": 0, "layout_copy": 0,
+                           "wgmma_tile": 0, "bwd_wgmma_tile_dq": 0, "bwd_wgmma_tile_dkdv": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         fa.launch(q, q, q)
 

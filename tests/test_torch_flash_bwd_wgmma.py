@@ -136,21 +136,45 @@ def test_plan_bwd_wgmma_grids_cover_every_output_once(shape):
     assert len(pl.maps) == 4 * 11 and all(pl.maps[11 * i + 9] == rows for i in range(4))
     # dQ: block (h, b, z) owns query rows of tile gz - 1 - z (heaviest first)
     # of head h; dK/dV: block (hk, b, z) owns keys of tile z of KV head hk.
-    (gx, gy, gz), (kx, ky, kz) = pl.grids
-    assert (gx, gy, kx, ky) == (hq, b, hkv, b)
+    # The head-dim kernels (D 112 here) run 1-D grids in the L2 order
+    # (``wg::l2_unit``): the same blocks, a group of KV heads at a time.
+    q_tiles, k_tiles = -(-sq // fa.BWD_WGMMA_DQ_ROWS), -(-sk // fa.BWD_WGMMA_KV_KEYS)
+    if any(pl.groups):
+        assert fa.width_kernel(torch.bfloat16, d, backward=True)
+        assert pl.grids == ((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1))
+        dq_blocks = [(h, bi, (q_tiles - 1 - z) * fa.BWD_WGMMA_DQ_ROWS)
+                     for h, bi, z in _l2_units(b * hq * q_tiles, q_tiles, hq, hq // hkv,
+                                               pl.groups[0])]
+        kv_blocks = [(hk, bi, z * fa.BWD_WGMMA_KV_KEYS)
+                     for hk, bi, z in _l2_units(b * hkv * k_tiles, k_tiles, hkv, 1,
+                                                pl.groups[1])]
+    else:
+        (gx, gy, gz), (kx, ky, kz) = pl.grids
+        assert (gx, gy, kx, ky) == (hq, b, hkv, b)
+        dq_blocks = [(h, bi, (gz - 1 - z) * fa.BWD_WGMMA_DQ_ROWS)
+                     for h in range(gx) for bi in range(gy) for z in range(gz)]
+        kv_blocks = [(hk, bi, z * fa.BWD_WGMMA_KV_KEYS)
+                     for hk in range(kx) for bi in range(ky) for z in range(kz)]
     dq = np.zeros((b, sq, hq), dtype=int)
-    for h in range(gx):
-        for bi in range(gy):
-            for z in range(gz):
-                q0 = (gz - 1 - z) * fa.BWD_WGMMA_DQ_ROWS
-                dq[bi, q0:q0 + fa.BWD_WGMMA_DQ_ROWS, h] += 1
+    for h, bi, q0 in dq_blocks:
+        dq[bi, q0:q0 + fa.BWD_WGMMA_DQ_ROWS, h] += 1
     dkv = np.zeros((b, sk, hkv), dtype=int)
-    for hk in range(kx):
-        for bi in range(ky):
-            for z in range(kz):
-                k0 = z * fa.BWD_WGMMA_KV_KEYS
-                dkv[bi, k0:k0 + fa.BWD_WGMMA_KV_KEYS, hk] += 1
+    for hk, bi, k0 in kv_blocks:
+        dkv[bi, k0:k0 + fa.BWD_WGMMA_KV_KEYS, hk] += 1
     assert (dq == 1).all() and (dkv == 1).all()
+
+
+def _l2_units(n, tiles, heads, group, group_kv):
+    """``wg::l2_unit``: each block of a 1-D grid of n in the L2 order, (head,
+    batch, the tile's place in the walk)."""
+    for i in range(n):
+        full = group_kv * group * tiles
+        kv0 = i // full * group_kv
+        m = min(group_kv, n // (group * tiles) - kv0) * group
+        r = i % full
+        kv = kv0 + r % m // group
+        hkv = heads // group
+        yield kv % hkv * group + r % group, kv // hkv, r // m
 
 
 def test_plan_bwd_wgmma_checks():

@@ -145,11 +145,18 @@ def test_zamba2_groups_and_the_yardstick_plan():
     (torch.float16, 112, None), (torch.bfloat16, 128, None), (torch.bfloat16, 96, None),
     (torch.bfloat16, 112, "mma_sync")], ids=str)
 def test_l2_order_only_at_bf16_d112(dtype, d, kernel):
-    """Every other route keeps the grid's order: fp16 at D 112, bf16 at other
-    head dims, the named kernels."""
+    """The L2 order is the D-112 kernel's and, since the head-dim kernels
+    took it too, theirs: fp16 at D 112 and bf16 at D 96 run it (one group of
+    both KV pairs here, whose K and V fit the budget: the grid's order on a
+    1-D grid); bf16 at D 128 (its own instantiation) and the named kernels
+    keep the 3-D grid's order."""
     q = torch.empty((2, 300, 8, d), dtype=dtype, device="meta")
     k = torch.empty((2, 300, 2, d), dtype=dtype, device="meta")
     pl = fa.plan(q, k, k, kernel=kernel)
+    if kernel is None and fa.width_kernel(dtype, d):
+        assert fa.l2_order(dtype, d) and pl.grid == (2 * 8 * 3, 1, 1)
+        assert pl.group_kv == fa.kv_group(2, 300, 2, d) == 4
+        return
     assert pl.group_kv == 0
     if kernel is None:
         assert not fa.l2_order(dtype, d) and pl.grid == (8, 2, 3)

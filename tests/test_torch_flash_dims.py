@@ -8,7 +8,7 @@ of 8 on staged inputs), "fp32" for fp32 and fp64 (fp64 on fp32 copies);
 "mma_sync" only by name.  Here, without a card:
 
 - the plain forward against the Pallas kernel in interpret mode and
-  ``flash_attention_ref`` at D in {8, 33, 96, 160, 256} x {fp32, bf16,
+  ``flash_attention_ref`` at D in {8, 33, 48, 80, 96, 112, 160, 256} x {fp32, bf16,
   fp16}, Sq != Sk, an offset: 2e-5 in fp32, 5e-2 in bf16 (the reference's
   kernel tolerances, ``tests/test_kernels.py``), 1e-2 in fp16 (11
   significant bits against bf16's 8: one output rounding is 5e-4 at 1);
@@ -44,7 +44,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import op_analysis
 from repro_torch.models import api
 
-DIMS = (8, 33, 96, 160, 256)
+DIMS = (8, 33, 48, 80, 96, 112, 160, 256)
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 5e-2),
           "float16": (torch.float16, jnp.float16, 1e-2)}
@@ -186,24 +186,42 @@ def test_route_at_every_head_dim_and_dtype():
         fa.plan(q, q, q)
 
 
-def _walk_forward(pl, b, sq, hq, d, dp):
+def _l2_blocks(n, tiles, hq, group, group_kv):
+    """``hopper::block_of<true>``: each block of a 1-D grid of n in the L2
+    order, (query head, batch, first row)."""
+    for i in range(n):
+        full = group_kv * group * tiles
+        kv0 = i // full * group_kv
+        heads = min(group_kv, n // (group * tiles) - kv0) * group
+        r = i % full
+        kv = kv0 + r % heads // group
+        hkv = hq // group
+        yield kv % hkv * group + r % group, kv // hkv, (tiles - 1 - r // heads) * fa.WGMMA_ROWS
+
+
+def _walk_forward(pl, b, sq, hq, d, dp, pv=None, hkv=None):
     """Each output element's stores under ``pl``, as the kernel of its route
-    stores them (columns up to the tile's width, those past d skipped)."""
+    stores them (columns up to the products' width pv, by default the
+    tile's, those past d skipped; the grid's order, or the L2 order over hkv
+    KV heads)."""
     hits = np.zeros((b, sq, hq, dp), dtype=np.int64)
     gx, gy, gz = pl.grid
     if pl.route == "wgmma":
         c, w, g, t, r, n = np.meshgrid(np.arange(2), np.arange(4), np.arange(8), np.arange(4),
-                                       np.arange(2), np.arange(dp // 8), indexing="ij")
+                                       np.arange(2), np.arange((pv or dp) // 8), indexing="ij")
         keep_n = (8 * n < d).ravel()
-        for z in range(gz):
-            rows = ((gz - 1 - z) * fa.WGMMA_ROWS + 64 * c + 16 * w + g + 8 * r).ravel()
-            cols = (8 * n + 2 * t).ravel()
-            for h in range(gx):
-                for bb in range(gy):
-                    # store2: each of the pair's columns only below d
-                    for col in (cols, cols + 1):
-                        keep = (rows < sq) & keep_n & (col < d)
-                        np.add.at(hits, (bb, rows[keep], h, col[keep]), 1)
+        cols = (8 * n + 2 * t).ravel()
+        if pl.group_kv:
+            blocks = _l2_blocks(gx, -(-sq // fa.WGMMA_ROWS), hq, hq // hkv, pl.group_kv)
+        else:
+            blocks = ((h, bb, (gz - 1 - z) * fa.WGMMA_ROWS)
+                      for z in range(gz) for h in range(gx) for bb in range(gy))
+        for h, bb, q0 in blocks:
+            rows = (q0 + 64 * c + 16 * w + g + 8 * r).ravel()
+            # store2: each of the pair's columns only below d
+            for col in (cols, cols + 1):
+                keep = (rows < sq) & keep_n & (col < d)
+                np.add.at(hits, (bb, rows[keep], h, col[keep]), 1)
         return hits
     if pl.route == "mma_sync":
         w, g, t, r, n = np.meshgrid(np.arange(4), np.arange(8), np.arange(4), np.arange(2),
@@ -243,11 +261,18 @@ def _walk_forward(pl, b, sq, hq, d, dp):
     (torch.float16, 136), (torch.bfloat16, 192), (torch.bfloat16, 200), (torch.float16, 256)],
     ids=str)
 def test_forward_grid_stores_each_output_once(dtype, d):
+    """Each output element stored once, columns past d never: the head-dim
+    kernels (bf16 40 and 96, fp16 72 and 120: products ``product_dim(d)``
+    wide) in the L2 order, the other Hopper kernels in the grid's order."""
     b, sq, hq = 2, 130, 3
     q = _staged((b, sq, hq, d), dtype)
     pl = fa.plan(q, q, q)
     dp = fa.wgmma_tile_dim(d) if pl.route == "wgmma" else fa.padded_dim(d)
-    hits = _walk_forward(pl, b, sq, hq, d, dp)
+    width = fa.width_kernel(dtype, d)
+    assert (pl.group_kv > 0) == width
+    if width:
+        assert pl.grid == (b * hq * -(-sq // fa.WGMMA_ROWS), 1, 1)
+    hits = _walk_forward(pl, b, sq, hq, d, dp, fa.product_dim(d) if width else None, hq)
     assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
     if pl.route == "wgmma":
         # TMA's boxes (16, 32 or 64 columns) cover the tile; the maps' extent d makes
@@ -299,13 +324,20 @@ def test_fma_grids_cover_each_gradient_once(dtype, d):
                                      (torch.bfloat16, 96), (torch.float16, 128),
                                      (torch.bfloat16, 200), (torch.float16, 256)], ids=str)
 def test_wgmma_backward_plan_at_a_run_time_head_dim(dtype, d):
+    """The head-dim kernels (40, 72, 96, 128 here) on 1-D grids in the L2
+    order, their groups ``kv_group``'s and ``rows_group``'s; past 128 the
+    grid's order."""
     b, sq, sk, hq, hkv = 2, 130, 200, 4, 2
     q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
     k = torch.empty((b, sk, hkv, d), dtype=dtype, device="meta")
     pl = fa.plan_bwd(q, k, k, q, q, causal_offset=70)
     assert pl.route == "wgmma"
-    assert pl.grids == ((hq, b, -(-sq // fa.BWD_WGMMA_DQ_ROWS)),
-                        (hkv, b, -(-sk // fa.BWD_WGMMA_KV_KEYS)))
+    q_tiles, k_tiles = -(-sq // fa.BWD_WGMMA_DQ_ROWS), -(-sk // fa.BWD_WGMMA_KV_KEYS)
+    if fa.width_kernel(dtype, d, backward=True):
+        assert pl.grids == ((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1))
+        assert pl.groups == (fa.kv_group(b, sk, hkv, d), fa.rows_group(b, sq, hq, hkv, d))
+    else:
+        assert pl.grids == ((hq, b, q_tiles), (hkv, b, k_tiles)) and pl.groups == (0, 0)
     assert pl.smem == fa.bwd_wgmma_smem_bytes(d) and max(pl.smem) <= SMEM_LIMIT
     assert [pl.maps[11 * i] for i in range(4)] == [d] * 4      # each map's extent: d
     rows = fa.BWD_WGMMA_BOX_ROWS if d <= 128 else fa.BWD_WGMMA_WIDE_BOX_ROWS
