@@ -60,10 +60,23 @@ builds (none of them is kept in the library):
    (the yardstick: the 8th, zero k-step of S and O at N 128, the grid's
    order), with the k-step cut, with O at N 112, in the L2 order, and the
    D-112 kernel (all three), each held against the yardstick's output; the
+   variants in the L2 order also from a second build whose kernels wait for
+   each product in turn (``hopper::overlapped`` false, the loop of the
+   kernels in the grid's order); the
    D-112 kernel at other group sizes of the L2 order; then shard cell (f)'s
    local heads (B 4, S 512, 16 heads): device time, CUDA events and the
    wrapper's host time a call.
-9. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
+9. ``wide``, only when named: ``gqa_flash``'s wide kernels (16-bit head
+   dims past 128, tiles 192 and 256 wide) and their parts, each an instance
+   built here (``WIDE_FWD_VARIANTS``, ``WIDE_BWD_VARIANTS``): ptxas's
+   report of every variant and the SASS's highest register (also with the
+   role branch taken on a ``__shfl_sync`` broadcast, compiled only), then
+   bf16 D 256 and 192 at B 4, S 2048 (forward) and 2304 (backward), 16 over
+   8 heads: the yardstick (the whole tile in the grid's order), a producer
+   warpgroup at width 256, the L2 order, both, larger key tiles (80 or 96
+   in the forward, 64 in dQ), each held against the yardstick and the
+   plain version, and the wrappers.
+10. ``flash``, only when named and given ``--against ROOT``: ``gqa_flash``'s
    forward and backward on this checkout's wrappers and kernels against
    those of the checkout at ROOT (say the parent commit, unpacked there by
    ``git archive``; its sources built into its own ``build/``), at every
@@ -80,18 +93,21 @@ kernel; then every variant is timed in turns by profiler device time
 (``chip_smoke.device_ms``, 200 calls a turn, 4 turns each).  The card and its
 power limit come first.  Builds go to ``build/`` (nvcc, ``sm_90a``).  Name
 splits to run only those (``score``, ``knn``, ``geo``, ``fill``, ``tiled``,
-``mma``, ``narrow``, ``d112``, ``flash``):
+``mma``, ``narrow``, ``d112``, ``widths``, ``wide``, ``flash``):
 
     python3 scripts/kernel_splits.py geo fill
     python3 scripts/kernel_splits.py tiled
     python3 scripts/kernel_splits.py mma narrow
     python3 scripts/kernel_splits.py d112
+    python3 scripts/kernel_splits.py wide
     python3 scripts/kernel_splits.py flash --against build/parent
 """
 import argparse
 import ctypes
 import importlib
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -921,8 +937,8 @@ extern "C" int mma_bwd_split(int kernel, int stop, const void* q, const void* k,
 """
 # the wgmma kernels' head (forward and backward): their products and block order (P)
 _FWD_HEAD = ("template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, "
-             "false>>\n__global__ void __launch_bounds__(RolesOf<D>::THREADS, "
-             "RolesOf<D>::BLOCKS)\n")
+             "false>>\n__global__ void __launch_bounds__(RolesOf<D, P>::THREADS, "
+             "RolesOf<D, P>::BLOCKS)\n")
 _FWD_CUT_HEAD = ("template <int D, int DO, typename T, class P, int STOP, class R>\n__global__ "
                  "void __launch_bounds__(R::THREADS, R::BLOCKS)\n")
 NARROW_FWD_SPLITS = {
@@ -933,18 +949,23 @@ NARROW_FWD_SPLITS = {
                "+ S = Q K^T (summed into O)", "+ the online softmax", "whole kernel"),
         cuts=[
             (_FWD_HEAD + "flash_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_fwd_cut("),
-            ("  using R = RolesOf<D>;\n", ""),
-            ("      qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);",
-             "      if constexpr (STOP >= 2) qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);\n"
-             "      else for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;"),
-            ("      softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);",
-             "      if constexpr (STOP >= 3)\n"
-             "        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);\n"
-             "      else corr[0] = corr[1] = 1.f;"),
+            ("  using R = RolesOf<D, P>;\n", ""),
+            # the loop that waits for each product (the narrow tiles are not overlapped)
+            ("        if constexpr (R::WIDE) __syncwarp();\n        wgmma_fence();\n"
+             "        qk<D, KEYS, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);",
+             "        if constexpr (R::WIDE) __syncwarp();\n        wgmma_fence();\n"
+             "        if constexpr (STOP >= 2) qk<D, KEYS, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);\n"
+             "        else for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;"),
+            ("        wgmma_wait<0>();\n        pin(s);\n"
+             "        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);",
+             "        wgmma_wait<0>();\n        pin(s);\n"
+             "        if constexpr (STOP >= 3)\n"
+             "          softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);\n"
+             "        else corr[0] = corr[1] = 1.f;"),
             # a product cut off keeps its inputs alive by summing them into the output
-            ("      pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);",
-             "      if constexpr (STOP >= 4) pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);\n"
-             "      else for (int i = 0; i < KEYS / 4; ++i) acc[i % (PV / 2)] += __uint_as_float(p[i]);"),
+            ("        pv<D, KEYS, PV, T>(acc, p, base + L::V + st * L::KV_TILE);",
+             "        if constexpr (STOP >= 4) pv<D, KEYS, PV, T>(acc, p, base + L::V + st * L::KV_TILE);\n"
+             "        else for (int i = 0; i < KEYS / 4; ++i) acc[i % (PV / 2)] += __uint_as_float(p[i]);"),
         ]),
 }
 NARROW_FWD_ENTRY = r"""
@@ -995,7 +1016,7 @@ NARROW_BWD_SPLITS = {
                "whole kernel"),
         cuts=[
             (_FWD_HEAD + "flash_bwd_dq_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_dq_cut("),
-            ("  using R = RolesOf<D>;\n", ""),
+            ("  using R = RolesOf<D, P>;\n", ""),
             ("      if (k0 > first + 63) {          // no row of this consumer sees a key of the tile",
              "      if (STOP < 2 || k0 > first + 63) {"),
             ("      rs_product<D, L::Keys::BOX_STRIDE, T, KEYS, PV>(acc, ds, kt);",
@@ -1009,7 +1030,7 @@ NARROW_BWD_SPLITS = {
                "+ S^T and dP^T (summed into dK, dV)", "whole kernel"),
         cuts=[
             (_FWD_HEAD + "flash_bwd_dkdv_wgmma_kernel(", _FWD_CUT_HEAD + "narrow_dkdv_cut("),
-            ("  using R = RolesOf<D>;\n", ""),
+            ("  using R = RolesOf<D, P>;\n", ""),
             ("      ss_product<D, L::Keys::BOX_STRIDE, L::Rows::BOX_STRIDE, T, 64, P::QK>(s, a_op,\n"
              "                                                                          c == 0 ? qt : dot);",
              "      if constexpr (STOP >= 2)\n"
@@ -1260,8 +1281,8 @@ static int d112_launch(const void* q, const void* k, const void* v, void* o,
   const int tiles = (sq + hopper::ROWS - 1) / hopper::ROWS;
   const dim3 grid = L2 ? dim3(b * hq * tiles, 1, 1) : dim3(hq, b, tiles);
   return (int)hopper::launch<128, 112, __nv_bfloat16, hopper::Products<QK, PV, L2>>(
-      tm, o, nullptr, sq, sk, hq, hkv, 112, 0, grid, hopper::Layout<128>::SMEM, s,
-      L2 ? group_kv : 0);
+      tm, o, nullptr, sq, sk, hq, hkv, 112, 0, grid,
+      hopper::FwdLayout<128, hopper::Products<QK, PV, L2>>::SMEM, s, L2 ? group_kv : 0);
 }
 
 // variant: D112_VARIANTS' order; bf16, head dim 112, causal offset 0, the
@@ -1308,14 +1329,16 @@ def d112_split():
     fa = cs.fa
     fa.build()
     src = open(os.path.join(ROOT, "src", "repro_torch", "csrc", "flash_attention.cu")).read()
-    ring = "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;"
-    if src.count(ring) != 1:
-        raise RuntimeError(f"flash_attention.cu no longer reads {ring!r}: update the split")
-    # the same instances with a K/V ring 3 deep at width 128 (230,480 bytes)
-    deep = src.replace(ring, "STAGES = D <= NARROW ? 4 : D == 64 || D == 192 || D == 128 ? 3 : 2;")
+    overlap = "return P::L2 && D > NARROW && D <= 128; }"
+    if src.count(overlap) != 1:
+        raise RuntimeError(f"flash_attention.cu no longer reads {overlap!r}: update the split")
+    # the same instances, each waiting for its products in turn (the loop of
+    # the kernels in the grid's order, a ring 2 deep) beside the ones that
+    # overlap each consumer's softmax with its products
+    waits = src.replace(overlap, "return false; }")
     with ThreadPoolExecutor(2) as ex:
         lib, lib3 = ex.map(lambda a: build(*a), [("d112_splits", src + D112_ENTRY),
-                                                 ("d112_splits_ring3", deep + D112_ENTRY)])
+                                                 ("d112_splits_waits", waits + D112_ENTRY)])
     p, i = ctypes.c_void_p, ctypes.c_int
     for one in (lib, lib3):
         one.d112_split.argtypes = [i] + [p] * 5 + [i] * 6 + [p]
@@ -1345,12 +1368,12 @@ def d112_split():
 
         for n in range(len(names)):
             variant(n)()
-        for n in (0, len(names) - 1):
+        for n in (3, len(names) - 1):
             variant(n, which=lib3)()
         want = fa.gqa_flash_plain(q, k, v)
         torch.cuda.synchronize()
-        for (n, deep_ring), out in outs.items():
-            log(f"{tag}: {names[n]}{', a ring 3 deep' if deep_ring else ''}: equal to the "
+        for (n, waited), out in outs.items():
+            log(f"{tag}: {names[n]}{', each product waited for' if waited else ''}: equal to the "
                 f"yardstick bit for bit {torch.equal(out, outs[0, False])}, max abs difference "
                 f"{(out.float() - outs[0, False].float()).abs().max().item()}; against the "
                 f"plain version max abs {(out.float() - want.float()).abs().max().item()}, "
@@ -1360,8 +1383,8 @@ def d112_split():
             f"D-112 variant {torch.equal(got, outs[len(names) - 1, False])}")
         del want, got
         runs = {name: variant(n) for n, name in enumerate(names)}
-        runs.update({f"{names[n]}, a ring 3 deep": variant(n, which=lib3)
-                     for n in (0, len(names) - 1)})
+        runs.update({f"{names[n]}, each product waited for": variant(n, which=lib3)
+                     for n in (3, len(names) - 1)})
         if tag == "zamba2":
             runs.update({f"the D-112 kernel, group_kv {g}": variant(len(names) - 1, g)
                          for g in D112_GROUPS if g != pl.group_kv})
@@ -1418,7 +1441,7 @@ static int widths_launch(const void* q, const void* k, const void* v, void* o,
   const int tiles = (sq + hopper::ROWS - 1) / hopper::ROWS;
   return (int)hopper::launch<D, DO, T, hopper::Products<D, D, true>>(
       tm, o, nullptr, sq, sk, hq, hkv, d, 0, dim3(b * hq * tiles, 1, 1),
-      hopper::Layout<D>::SMEM, s, group_kv);
+      hopper::FwdLayout<D, hopper::Products<D, D, true>>::SMEM, s, group_kv);
 }
 
 // variant 0: the tiles' whole width (run-time head dim d) in the L2 order;
@@ -1611,6 +1634,377 @@ def widths_split():
         torch.cuda.empty_cache()
 
 
+# The wide kernels' parts (tiles 192 and 256 wide, past head dim 128): each
+# variant an instance of csrc/flash_attention.cu's flash_wgmma_kernel or
+# csrc/flash_attention_bwd.cu's pair, on hopper::Products<D, D, L2, KEYS,
+# REGS> (KEYS: the forward's or dQ's K/V tile, 0 the tiles' own; REGS: a
+# consumer's registers from a producer warpgroup at width 256, 0 none),
+# built here beside the library's (the yardstick is variant 0, the shipped
+# Wide<D> one of the others).  bf16, DO 0, causal offset 0.
+WIDE_FWD_VARIANTS = {
+    256: [("(a) the yardstick: no producer, 64 keys, the grid's order", "false, 0, 0"),
+          ("(b) a producer, 24/240 registers, 64 keys, the grid's order", "false, 0, 240"),
+          ("(b') a producer, 40/232 registers, 64 keys, the grid's order", "false, 0, 232"),
+          ("(c) no producer, 64 keys, the L2 order", "true, 0, 0"),
+          ("(d) a producer (240), 64 keys, the L2 order", "true, 64, 240"),
+          ("(e) a producer (240), 80 keys, the L2 order", "true, 80, 240"),
+          ("(e') no producer, 80 keys, the L2 order", "true, 80, 0"),
+          ("(f) a producer (240), 80 keys, the grid's order", "false, 80, 240")],
+    192: [("(a) the yardstick: 64 keys, the grid's order", "false, 0, 0"),
+          ("(c) 64 keys, the L2 order", "true, 0, 0"),
+          ("(e) 96 keys, the L2 order", "true, 96, 0"),
+          ("(e') 96 keys, the grid's order", "false, 96, 0")]}
+WIDE_BWD_VARIANTS = {
+    256: [("(a) the yardstick: no producer, dQ 32 keys, the grid's order", "false, 0, 0"),
+          ("(b) a producer, 24/240 registers, the grid's order", "false, 0, 240"),
+          ("(c) no producer, the L2 order", "true, 0, 0"),
+          ("(d) a producer (240), the L2 order", "true, 32, 240")],
+    192: [("(a) the yardstick: dQ 32 keys, the grid's order", "false, 0, 0"),
+          ("(c) dQ 32 keys, the L2 order", "true, 0, 0"),
+          ("(e) dQ 64 keys, the L2 order", "true, 64, 0"),
+          ("(e') dQ 64 keys, the grid's order", "false, 64, 0")]}
+
+
+def wide_entries() -> tuple[str, str]:
+    """The split's C entries: wide_fwd(variant, D, ...) and wide_bwd(variant,
+    which, D, ...), a switch over WIDE_FWD_VARIANTS / WIDE_BWD_VARIANTS."""
+    def cases(variants, call):
+        out = []
+        for d, vs in variants.items():
+            for n, (_, args) in enumerate(vs):
+                out.append(f"  if (t == {d} && variant == {n}) return {call(d, args)};")
+        return "\n".join(out)
+
+    fwd = r"""
+template <int D, class P>
+static int wide_fwd_launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                           const unsigned long long* maps, int b, int sq, int hq, int hkv,
+                           int d, int group_kv, cudaStream_t s) {
+  constexpr int KEYS = P::KEYS ? P::KEYS : hopper::keys_of(D);
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap tm[3];
+  const int e = hopper::encode_maps(tm, ptrs, 3, maps, d, KEYS, false, hopper::q_rows_of(KEYS));
+  if (e != 0) return e;
+  const int tiles = (sq + hopper::ROWS - 1) / hopper::ROWS;
+  const dim3 grid = P::L2 ? dim3(b * hq * tiles, 1, 1) : dim3(hq, b, tiles);
+  return (int)hopper::launch<D, 0, __nv_bfloat16, P>(tm, o, lse, sq, sq, hq, hkv, d, 0, grid,
+                                                     hopper::FwdLayout<D, P>::SMEM, s,
+                                                     P::L2 ? group_kv : 0);
+}
+
+// variant: the index in the split's list of tile D's variants (bf16, DO 0,
+// causal offset 0, Sk = Sq); maps as the variant reads them (K/V boxes of
+// its keys, Q's of q_rows_of them); group_kv KV heads a group in the L2 order.
+extern "C" int wide_fwd(int variant, int d, const void* q, const void* k, const void* v,
+                        void* o, float* lse, const unsigned long long* maps, int b, int sq,
+                        int hq, int hkv, int group_kv, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  using hopper::Products;
+  const int t = hopper::tile_of(d);
+""" + cases(WIDE_FWD_VARIANTS, lambda dd, a: (
+        f"wide_fwd_launch<{dd}, Products<{dd}, {dd}, {a}>>(q, k, v, o, lse, maps, b, sq, hq, "
+        f"hkv, d, group_kv, s)")) + r"""
+  return -1000;
+}
+"""
+    bwd = r"""
+template <int D, class P>
+static int wide_bwd_launch(int which, const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse, float* dvec,
+                           void* dq, void* dk, void* dv, const unsigned long long* maps, int b,
+                           int sq, int hq, int hkv, int d, int group_kv, cudaStream_t s) {
+  const void* ptrs[4] = {q, k, v, dout};
+  CUtensorMap tm[4];
+  const int e = hopper::encode_maps(tm, ptrs, 4, maps, d, wg::Tiling<D>::BOX_ROWS);
+  if (e != 0) return e;
+  const wg::Args a{o, dout, lse, dvec, dq, dk, dv};
+  const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
+  const int tiles = (sq + rows - 1) / rows, heads = which == wg::DQ ? hq : hkv;
+  const dim3 grid = P::L2 ? dim3(b * heads * tiles, 1, 1) : dim3(heads, b, tiles);
+  return (int)wg::launch<D, 0, __nv_bfloat16, P>(which, tm, a, sq, sq, hq, hkv, d, 0, grid,
+                                                 wg::smem_bytes<D, P>(which), s,
+                                                 P::L2 ? group_kv : 0);
+}
+
+// variant as wide_fwd's; which 0 dQ (and D_i), 1 dK/dV; maps of q, k, v
+// and dO with boxes of 32 rows.
+extern "C" int wide_bwd(int variant, int which, int d, const void* q, const void* k,
+                        const void* v, const void* o, const void* dout, const float* lse,
+                        float* dvec, void* dq, void* dk, void* dv,
+                        const unsigned long long* maps, int b, int sq, int hq, int hkv,
+                        int group_kv, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  using hopper::Products;
+  const int t = hopper::tile_of(d);
+""" + cases(WIDE_BWD_VARIANTS, lambda dd, a: (
+        f"wide_bwd_launch<{dd}, Products<{dd}, {dd}, {a}>>(which, q, k, v, o, dout, lse, "
+        f"dvec, dq, dk, dv, maps, b, sq, hq, hkv, d, group_kv, s)")) + r"""
+  return -1000;
+}
+"""
+    return fwd, bwd
+
+
+# (tag, B, S, Hq, Hkv, D) of the timed cases, bf16: Gemma-2-9B's heads (16
+# over 8 KV heads of 256) at a prefill of 4 x 2048 and at internvl2-2b's
+# train shape (4 x 2304), and the same at D 192, as chip_smoke.py times them
+WIDE_FWD = [("bf16 D 256", 4, 2048, 16, 8, 256), ("bf16 D 192", 4, 2048, 16, 8, 192)]
+WIDE_BWD = [("bf16 D 256", 4, 2304, 16, 8, 256), ("bf16 D 192", 4, 2304, 16, 8, 192)]
+# the role branch on the warpgroup's index broadcast from lane 0
+# (__shfl_sync, as CUTLASS takes it) in place of threadIdx.x < 128, for the
+# ptxas record of which branch lets setmaxnreg through
+WIDE_SHFL_ROLES = ("  __device__ static bool producer() { return !WIDE && threadIdx.x < 128; }",
+                   "  __device__ static bool producer() {\n    return !WIDE && __shfl_sync("
+                   "0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0) == 0;\n  }")
+
+
+def ptxas_lines(report: str, pattern: str) -> list[str]:
+    """The lines of an nvcc -Xptxas -v report about the kernels whose
+    mangled names match ``pattern``: each one's registers and spills, and
+    every warning (C7508 and the other C75xx remarks) that names one."""
+    keep, on = [], False
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            on = re.search(pattern, m.group(1)) is not None
+            if on:
+                keep.append(line.strip())
+            continue
+        if re.search(r"\(C75\d\d\)", line) and re.search(pattern, line):
+            keep.append(line.strip())
+        elif on and re.search(r"registers|spill", line):
+            keep.append("    " + line.strip())
+    return keep
+
+
+def sass_registers(lib: str, pattern: str) -> dict:
+    """{kernel: (the highest register its SASS names + 1, whether it holds
+    USETMAXREG, local loads/stores)} from ``cuobjdump -sass`` of ``lib``,
+    for the kernels whose mangled names match ``pattern``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+    out, name, regs, setmax, local = {}, None, 0, False, 0
+
+    def close():
+        if name is not None and re.search(pattern, name):
+            out[name] = (regs + 1, setmax, local)
+
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            name, regs, setmax, local = m.group(1), 0, False, 0
+            continue
+        for r in re.findall(r"\bR(\d+)\b", line):
+            regs = max(regs, int(r))
+        setmax = setmax or "USETMAXREG" in line
+        local += len(re.findall(r"\b(LDL|STL)\b", line))
+    close()
+    return out
+
+
+def wide_split():
+    """gqa_flash's wide kernels (tiles 192 and 256 wide) and their parts
+    (``WIDE_FWD_VARIANTS``, ``WIDE_BWD_VARIANTS``): first what ptxas made of
+    each (its -Xptxas -v lines: registers, spills, C7508 or other remarks;
+    the SASS's highest register and USETMAXREG, each kernel's local loads
+    and stores), also with the role branch broadcast by ``__shfl_sync``
+    (``WIDE_SHFL_ROLES``), compiled only; then at ``WIDE_FWD`` and ``WIDE_BWD`` each variant's output held
+    against the yardstick's (variant 0) and the plain version, and all timed
+    in turns by profiler device time, SDPA beside them, with the shipped
+    wrappers (``launch``, ``launch_bwd``) on the planned groups and the
+    shipped kernels at other group sizes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fa = cs.fa
+    csrc = os.path.join(ROOT, "src", "repro_torch", "csrc")
+    fwd_src = open(os.path.join(csrc, "flash_attention.cu")).read()
+    bwd_src = open(os.path.join(csrc, "flash_attention_bwd.cu")).read()
+    fwd_entry, bwd_entry = wide_entries()
+    alt = os.path.join(ROOT, "build", "wide_shfl_roles")
+    os.makedirs(alt, exist_ok=True)
+    for name in os.listdir(csrc):
+        text = open(os.path.join(csrc, name)).read()
+        if name == "hopper.cuh":
+            if text.count(WIDE_SHFL_ROLES[0]) != 1:
+                raise RuntimeError("hopper.cuh no longer reads the role branch: update the split")
+            text = text.replace(*WIDE_SHFL_ROLES)
+        with open(os.path.join(alt, name), "w") as f:
+            f.write(text)
+
+    def compile_only(name, source):
+        cu = os.path.join(alt, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(source)
+        flags = [x for x in NVCC_FLAGS if x not in ("-shared", "-Xcompiler", "-fPIC")]
+        proc = subprocess.run([_nvcc(Path(cu)), *flags, "-cubin", "-I", alt, "-o",
+                               cu[:-3] + ".cubin", cu], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stdout}{proc.stderr}")
+        return proc.stdout + proc.stderr
+
+    jobs = [lambda: build_logged("wide_fwd_splits", fwd_src + fwd_entry),
+            lambda: build_logged("wide_bwd_splits", bwd_src + bwd_entry),
+            lambda: compile_only("wide_fwd_shfl_roles", fwd_src + fwd_entry),
+            lambda: compile_only("wide_bwd_shfl_roles", bwd_src + bwd_entry),
+            lambda: (fa.build(), fa.build_bwd())]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        (flib, flog), (blib, blog), fold, bold, _ = ex.map(lambda f: f(), jobs)
+    wide = r"wgmma_kernelILi(192|256)E"
+    for title, rep in (("forward, this tree", flog), ("backward, this tree", blog),
+                       ("forward, the role branch broadcast by __shfl_sync", fold),
+                       ("backward, the role branch broadcast by __shfl_sync", bold)):
+        log(f"ptxas, the wide instantiations, {title}:")
+        for line in ptxas_lines(rep, wide):
+            log(f"  {line}")
+    for path in (os.path.join(ROOT, "build", "libwide_fwd_splits.so"),
+                 os.path.join(ROOT, "build", "libwide_bwd_splits.so"),
+                 os.path.join(alt, "wide_fwd_shfl_roles.cubin"),
+                 os.path.join(alt, "wide_bwd_shfl_roles.cubin")):
+        for name, (regs, setmax, local) in sass_registers(path, wide).items():
+            log(f"SASS {os.path.basename(path)}: {name}: registers named up to R{regs - 1} "
+                f"({regs}), USETMAXREG {setmax}, local loads and stores {local}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    flib.wide_fwd.argtypes = [i, i] + [p] * 6 + [i] * 5 + [p]
+    blib.wide_bwd.argtypes = [i, i, i] + [p] * 11 + [i] * 5 + [p]
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = np.random.default_rng(0)
+
+    def fwd_maps(q, k, v, keys):
+        rows = fa.wgmma_q_rows(keys)
+        m = fa.tensor_map(q, rows) + fa.tensor_map(k, keys) + fa.tensor_map(v, keys)
+        return (ctypes.c_ulonglong * len(m))(*m)
+
+    for tag, b, sq, hq, hkv, d in WIDE_FWD:
+        q, k, v = cs.card_normal(gen, (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        group = fa.kv_group(b, sq, hkv, d)
+        variants = WIDE_FWD_VARIANTS[d]
+        outs = [torch.empty_like(q) for _ in variants]
+
+        def variant(n, group_kv=group):
+            keys = int(variants[n][1].split(",")[1]) or fa.wgmma_keys(d)
+            maps = fwd_maps(q, k, v, keys)
+
+            def run():
+                err = flib.wide_fwd(n, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    outs[n].data_ptr(), None, maps, b, sq, hq, hkv, group_kv,
+                                    stream)
+                if err != 0:
+                    raise RuntimeError(f"{tag}: variant {variants[n][0]}: error {err}")
+            return run
+
+        runs = {name: variant(n) for n, (name, _) in enumerate(variants)}
+        for fn in runs.values():
+            fn()
+        want = fa.gqa_flash_plain(q, k, v)
+        got = fa.launch(q, k, v)
+        torch.cuda.synchronize()
+        for n, (name, _) in enumerate(variants):
+            log(f"{tag}: {name}: equal to the yardstick bit for bit "
+                f"{torch.equal(outs[n], outs[0])}, max abs difference "
+                f"{(outs[n].float() - outs[0].float()).abs().max().item()}; against the plain "
+                f"version max abs {(outs[n].float() - want.float()).abs().max().item()}, "
+                f"relative L2 {cs.rel_l2(outs[n], want)}")
+        log(f"{tag}: the wrapper ({fa.instance(torch.bfloat16, d)}, group_kv "
+            f"{fa.plan(q, k, v).group_kv}) relative L2 to the plain version "
+            f"{cs.rel_l2(got, want)}")
+        del want, got
+        runs["the wrapper (launch)"] = lambda: fa.launch(q, k, v)
+        shipped = [a for _, a in variants].index(
+            f"true, {fa.wide_keys(d)}, {240 if d > 192 else 0}")
+        for g in (2, 8) if d == 256 else (4, 16):
+            runs[f"{variants[shipped][0]}, group_kv {g}"] = variant(shipped, g)
+        runs["SDPA"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True)
+        nbytes, flops = cs.flash_work(b, sq, sq, hq, hkv, d, 0, 2)
+        bound, by = cs.bound_ms(nbytes, flops, cs.BF16_FLOP_PER_S)
+        report(f"gqa_flash {tag} (B={b} S={sq} Hq={hq} Hkv={hkv}): device ms a call in turns; "
+               f"group_kv {group}; the bound {bound:.6f} ms by {by}", cs.in_turns(runs),
+               lambda key, ms: f", {bound / ms:.4f} of the bound")
+        del q, k, v, qt, kt, vt, outs
+        torch.cuda.empty_cache()
+    for tag, b, sq, hq, hkv, d in WIDE_BWD:
+        q, k, v, do = cs.card_normal(gen, (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d),
+                                     (b, sq, hq, d))
+        o, lse = fa.launch(q, k, v, 0, with_lse=True)
+        rows = fa.bwd_wgmma_box_rows(d)
+        m = fa.tensor_map(q, rows) + fa.tensor_map(k, rows) + fa.tensor_map(v, rows) \
+            + fa.tensor_map(do, rows)
+        maps = (ctypes.c_ulonglong * len(m))(*m)
+        groups = (fa.kv_group(b, sq, hkv, d), fa.rows_group(b, sq, hq, hkv, d))
+        variants = WIDE_BWD_VARIANTS[d]
+        bufs = [fa.bwd_buffers(q, k, lse) for _ in variants]
+
+        def kernel(n, which):
+            bf = bufs[n]
+
+            def run():
+                err = blib.wide_bwd(n, which, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    o.data_ptr(), do.data_ptr(), bf[0].data_ptr(),
+                                    bf[1].data_ptr(), bf[2].data_ptr(), bf[3].data_ptr(),
+                                    bf[4].data_ptr(), maps, b, sq, hq, hkv, groups[which],
+                                    stream)
+                if err != 0:
+                    raise RuntimeError(f"{tag}: variant {variants[n][0]}, kernel {which}: "
+                                       f"error {err}")
+            return run
+
+        def pair(n):
+            return lambda: (kernel(n, 0)(), kernel(n, 1)())
+
+        for n in range(len(variants)):
+            pair(n)()
+        torch.cuda.synchronize()
+        want = fa.gqa_flash_bwd_lse_plain(q, k, v, o, do, lse, round_bf16=True)
+        for n, (name, _) in enumerate(variants):
+            got = bufs[n][2:]
+            log(f"{tag} backward: {name}: dQ, dK, dV equal to the yardstick's bit for bit "
+                f"{[torch.equal(a, c) for a, c in zip(got, bufs[0][2:])]}; against the "
+                f"rounding plain version relative L2 {[cs.rel_l2(a, w) for a, w in zip(got, want)]}")
+        del want
+        runs = {f"{name}: the pair": pair(n) for n, (name, _) in enumerate(variants)}
+        for n, (name, _) in enumerate(variants):
+            runs[f"{name}: dQ"] = kernel(n, 0)
+            runs[f"{name}: dK/dV"] = kernel(n, 1)
+        runs["the wrapper (launch_bwd)"] = lambda: fa.launch_bwd(q, k, v, o, do, 0, lse=lse)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        runs.update({"SDPA forward": sdpa_fwd, "SDPA forward + backward": sdpa_fwd_bwd})
+        work = cs.bwd_work(b, sq, sq, hq, hkv, d, 0, 2)
+        bound, by = cs.bound_ms(*work["gqa_flash_bwd"], cs.BF16_FLOP_PER_S)
+        report(f"gqa_flash_bwd {tag} (B={b} S={sq} Hq={hq} Hkv={hkv}): device ms a call in "
+               f"turns; groups {groups}; the five products' bound {bound:.6f} ms by {by}",
+               cs.in_turns(runs), lambda key, ms: f", {bound / ms:.4f} of the bound")
+        del q, k, v, do, o, lse, bufs, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def build_logged(name: str, source: str) -> tuple[ctypes.CDLL, str]:
+    """``build``, returning the compiler's report (-Xptxas -v) beside the
+    library."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cu = os.path.join(ROOT, "build", f"{name}.cu")
+    so = os.path.join(ROOT, "build", f"lib{name}.so")
+    with open(cu, "w") as f:
+        f.write(source)
+    proc = subprocess.run([_nvcc(Path(cu)), *NVCC_FLAGS, "-I", CSRC, "-o", so, cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {cu}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(so), proc.stdout + proc.stderr
+
+
 def checkout_flash(root: str):
     """``repro_torch.kernels.flash_attention`` of the checkout at ``root``,
     imported beside this checkout's: the package's modules leave
@@ -1687,12 +2081,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("splits", nargs="*",
                     help="score, knn, geo, fill (the default), tiled, mma, narrow, d112, "
-                         "widths, flash")
+                         "widths, wide, flash")
     ap.add_argument("--against", help="the root of the checkout the flash split compares")
     args = ap.parse_args()
     splits = dict(score=score_split, knn=knn_split, geo=geo_split, fill=fill_split,
                   tiled=tiled_split, mma=mma_split, narrow=narrow_split, d112=d112_split,
-                  widths=widths_split, flash=lambda: flash_split(args.against))
+                  widths=widths_split, wide=wide_split,
+                  flash=lambda: flash_split(args.against))
     if set(args.splits) - set(splits):
         ap.error(f"unknown splits {sorted(set(args.splits) - set(splits))}")
     if "flash" in args.splits and not args.against:

@@ -71,7 +71,10 @@
 //     80GB HBM3 at 700 W: 0.288 against the 128-wide kernel's 0.390 ms of
 //     device time, the L2 order alone 0.296, over 8 KV heads (GQA, the same
 //     tiles) the 128-wide kernel 0.307; SDPA 0.262 (scripts/kernel_splits.py
-//     d112).  A ring 3 deep (230,480 bytes) timed the same as 2.  Every
+//     d112).  A ring 3 deep (230,480 bytes) timed the same as 2, until each
+//     consumer's softmax ran under its own products (overlapped(), the
+//     ring 3 deep): 0.271 against 0.286 ms waiting for each product, the
+//     yardstick 0.386 (the same split, the same card).  Every
 //     other 16-bit head dim that is a multiple of 8 in (32, 128] runs a
 //     head-dim kernel (by_width), the same design at the head's own width
 //     W = ceil(D / 16) * 16 with D taken at run time: instantiations <64 or
@@ -98,22 +101,31 @@
 //     wrapper copies each such input into a buffer of rows ceil(D / 8) * 8
 //     wide and hands in its [..., :D] view, whose maps keep extent D, so TMA
 //     zero-fills columns D.. as at D 112; the epilogue guards every store by
-//     column.  Past width 128 (D in (128, 256], Gemma-2-9B's 256 among them) O takes
-//     D/2 = 96 or 128 fp32 registers a thread, so the K/V tiles hold 64 keys
-//     (S 32 floats, P 16 registers): S = Q K^T is m64n64k16 over D/16 steps,
-//     O += P V m64nDk16 (n192 or n256) over 4 steps, V read MN-major across
-//     its 3 or 4 column boxes, and every TMA box is 64 rows (Q takes two a
-//     column box).  Shared memory: Q 48 or 64 KiB, stages of 48 or 64 KiB, 3
-//     stages at 192 and 2 at 256 (197,712 and 197,688 bytes).  Registers:
-//     ptxas gives each thread only what the launch does, 168 at 384 threads
-//     (three warps on each SM sub-partition), whatever setmaxnreg adds later,
-//     and at width 256 O, S and P need ~190: that instantiation runs the two
-//     consumer warpgroups alone (256 threads, 188 registers, no spill), and
-//     consumer 1's first thread issues the TMA loads, Q and the first
-//     stages before the loop and tile j + 1 into tile j - 1's stage in its
-//     turn j, which the ping-pong order puts after both consumers released
-//     tile j - 1 (hopper.cuh, Roles).  Width 192 fits 168 registers and
-//     keeps the producer warpgroup.  At D <= 32 (the example trainers of
+//     column.  Past width 128 (D in (128, 256], Gemma-2-9B's 256 among
+//     them) O takes D/2 = 96 or 128 fp32 registers a thread, and every such
+//     head dim, a multiple of 8 or staged, runs a wide kernel (Wide, by_wide):
+//     its blocks in the L2 order (block_of, the wrapper's kv_group: 4 of
+//     Gemma-2-9B's 32 (batch, KV head) pairs a group at S 2048, 8 MiB of K
+//     and V), and at width 256 the producer layout, each consumer taking 240
+//     registers by setmaxnreg (hopper.cuh, Roles: ptxas allocates the
+//     consumers' code at 240 there, the SASS naming up to R186, 0 spills);
+//     its K/V tiles hold 64 keys at width 256 (S 32 floats, P 16 registers:
+//     S = Q K^T m64n64k16 over D/16 steps, O += P V m64n256k16 over 4, 2
+//     stages, 197,688 bytes) and 96 at width 192 (S m64n96k16, O += P V over
+//     6 steps, 2 stages of 72 KiB, 197,688 bytes; Q in boxes of 64 rows).
+//     At width 256 its output equals the yardstick's bit for bit (the order
+//     of blocks and the roles change, no row's sums), at 192 the 96-key tiles
+//     sum each row in another order.  The whole-tile instantiations in the
+//     grid's order stay by name (kernel="wgmma_tile", the yardsticks): at
+//     width 256 the two consumer warpgroups alone (256 threads, 188
+//     registers), consumer 1's first thread issuing the TMA loads, tile j + 1
+//     into tile j - 1's stage in its turn j, after both consumers released
+//     it.  At B 4, S 2048, 16 query heads over 8 KV heads on an H100 80GB
+//     HBM3 at 700 W (scripts/kernel_splits.py wide, profiler device time in
+//     turns): bf16 D 256 0.2725 against the yardstick's 0.3092 ms (the L2
+//     order alone 0.2910, the producer alone 0.2940; 80-key tiles 0.2729;
+//     SDPA 0.2527); bf16 D 192 0.2168 against 0.2268 (64 keys in the L2
+//     order 0.2210; SDPA 0.1977).  At D <= 32 (the example trainers of
 //     repro_torch.examples.train_carbon_aware: D 16 in the tiny preset, 32
 //     in the 10m one) the tiles are 16 or 32 columns wide (hopper.cuh,
 //     tile_of and Swz): one box a row, as wide as the tile, under the 32-
@@ -186,14 +198,19 @@
 // it.  In the Hopper kernel the K/V tiles still cross from L2 once per 128
 // query rows (1.1 GB per prefill call), which holds only while L2 holds
 // them: the query heads of a KV head run side by side (GQA), and at D 112,
-// which has none, the blocks run in the L2 order; and the softmax is not
-// overlapped with the same consumer's products: each consumer runs S,
-// softmax and P V in series, and only the other consumer's products fill
-// the gap.  At D 256
+// which has none, the blocks run in the L2 order.  In the kernels that
+// wait for each product a consumer runs S, softmax and P V in series, and
+// only the other consumer's products fill the gap; the overlapped kernels
+// (the L2 order up to width 128) run tile j's softmax under tile j - 1's
+// P V, 5 % faster at D 112.  At D 256
 // (B 4, S 2048, Hq 16, Hkv 8: 137.5 GFLOP, 0.139 ms at 989 TFLOP/s) the
 // mma.sync kernel reached 10 % of that bound on an H100 80GB HBM3 at 700 W
-// (1.33 ms; SDPA 0.25 ms), the 256-wide Hopper kernel 46 % (0.300 ms): its
-// tiles of 64 keys halve the product per barrier and per softmax pass.  The
+// (1.33 ms; SDPA 0.25 ms), the 256-wide whole-tile kernel 45 % (0.309 ms),
+// the wide kernel 51 % (0.2725 ms): a block of 128 rows reads 1 KiB of K
+// and V from L2 a key for 128 FLOP a byte, so the L2 (its capacity in the
+// grid's order, its rate per SM in any) and not the tensor cores sets the
+// pace; tiles of 64 keys halve the product per barrier and per softmax
+// pass, and 80-key tiles did not gain.  The
 // fp32 kernels are bound by the 67 TFLOP/s of fp32 FMA (at B 4, S 2048, Hq
 // 16, Hkv 8, D 100: 53.7 GFLOP, 0.802 ms); flash_f32_kernel's loops read 8
 // shared words for 16 FMAs and ran at 0.27 of that bound, the tiled
@@ -767,27 +784,37 @@ __host__ __device__ constexpr int keys_of(int d) { return d > 128 ? WIDE_KEYS : 
 
 // Shared memory, from a 1024-byte aligned base (every swizzle repeats
 // within 8 rows, at most 1024 bytes): Q (ROWS rows), the K ring, the V ring
-// (KEYS rows a stage), then the mbarriers q_full, k_full[STAGES],
-// v_full[STAGES], empty[STAGES].  A tile's column boxes (Swz: one at widths
+// (KEYS rows a stage), then the mbarriers q_full, k_full[RING],
+// v_full[RING], empty[RING].  A tile's column boxes (Swz: one at widths
 // 16 and 32, D / 64 past them) lie one after another, each its rows of
-// W::ROW swizzled bytes; TMA fills them by boxes of KEYS rows (Q by ROWS /
-// KEYS).  The ring is as deep as 227 KB allows, at most 4 (the narrow
-// tiles: 16 KB a stage at width 32, two blocks an SM).
-template <int D>
+// W::ROW swizzled bytes; TMA fills them by boxes of KEYS rows (Q by boxes
+// of Q_ROWS: KEYS where that divides ROWS, else 64).  At the tiles' own
+// keys (keys_of) the ring is as deep as 227 KB allows, at most 4 (the
+// narrow tiles: 16 KB a stage at width 32, two blocks an SM); at other keys
+// (the wide kernels' 96 at width 192: Wide) 2 deep.  OVERLAP (the
+// overlapped kernels, overlapped()) takes 3 stages at width 128 too
+// (230,480 bytes): such a kernel holds tile j - 1's V until its turn j has
+// run, so a ring of 2 would leave the next tile's load no turn ahead of its
+// use.
+template <int D, int KEYS_ = keys_of(D), bool OVERLAP = false>
 struct Layout {
   using W = Swz<D>;
-  static constexpr int KEYS = keys_of(D);
+  static constexpr int KEYS = KEYS_;
   static constexpr int BOXES = D / W::COLS;            // column boxes per tile
-  static constexpr int STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;
+  static constexpr int STAGES = D <= NARROW ? 4 : D == 64 || D == 192 ? 3 : 2;   // at keys_of(D)
+  static constexpr int RING = OVERLAP && D == 128 ? 3 : KEYS == keys_of(D) ? STAGES : 2;
+  static constexpr int Q_ROWS = ROWS % KEYS == 0 ? KEYS : 64;
   static constexpr uint32_t Q_BOX = ROWS * W::ROW;     // Q: from one column box to the next
   static constexpr uint32_t KV_BOX = KEYS * W::ROW;    // K and V: the same
   static constexpr uint32_t Q_TILE = BOXES * Q_BOX;
   static constexpr uint32_t KV_TILE = BOXES * KV_BOX;
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = Q + Q_TILE;
-  static constexpr uint32_t V = K + STAGES * KV_TILE;
-  static constexpr uint32_t BARS = V + STAGES * KV_TILE;
-  static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);   // 1024: alignment slack
+  static constexpr uint32_t V = K + RING * KV_TILE;
+  static constexpr uint32_t BARS = V + RING * KV_TILE;
+  static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * RING);   // 1024: alignment slack
+  static_assert(SMEM <= 232448 && KEYS % 16 == 0 && KV_BOX % 1024 == 0,
+                "a block's shared memory; whole key slices; boxes on the swizzle's period");
 };
 
 // What an instance of flash_wgmma_kernel runs on its tiles D wide
@@ -802,6 +829,35 @@ struct Layout {
 // (by_width) the same at W = ceil(d / 16) * 16 for every other run-time
 // head dim in (32, 128].
 using D112 = Products<112, 112, true>;
+
+// The wide kernels: every 16-bit head dim past 128 on the tiles 192 or 256
+// wide (the tiles' whole width, the head dim taken at run time), their
+// blocks in the L2 order, K/V tiles of wide_keys(D) keys (hopper.cuh), and
+// at width 256 a producer warpgroup that hands each consumer thread 240
+// registers (hopper.cuh, Roles).  The whole-tile instantiations in the
+// grid's order, Products<D, D, false> (at 256 without a producer), stay by
+// name, the yardsticks.
+template <int D>
+using Wide = Products<D, D, true, wide_keys(D), (D > 192 ? 240 : 0)>;
+// The rows of the forward's Q boxes at a K/V tile of `keys` keys: keys
+// where they divide the block's 128 rows, else 64.
+__host__ __device__ constexpr int q_rows_of(int keys) { return 128 % keys == 0 ? keys : 64; }
+
+// Whether an instance overlaps each consumer's softmax with its own
+// products: the kernels in the L2 order on the tiles 64 and 128 wide (the
+// D-112 kernel and the head-dim kernels).  In its turn j a consumer issues
+// S = Q K^T of tile j and then O += P V of tile j - 1, waits for S alone,
+// and runs tile j's softmax while its O += P V still holds the tensor cores
+// (FlashAttention-3's intra-warpgroup pipelining, beside the ping-pong of
+// the two consumers).  O is scaled by tile j's correction only after tile
+// j - 1's product has landed, so each row's sums are the same operations in
+// the same order as in the kernel that waits for each product (the
+// yardsticks' loop): the output is the same bits.  The wide kernels keep
+// that loop: at widths 192 and 256 a third stage does not fit.
+template <int D, class P>
+__host__ __device__ constexpr bool overlapped() { return P::L2 && D > NARROW && D <= 128; }
+template <int D, class P>
+using FwdLayout = Layout<D, P::KEYS ? P::KEYS : keys_of(D), overlapped<D, P>()>;
 
 // The query head, batch and first query row of this block.  The grid's
 // order: grid (Hq, B, query tiles), the tile index reversed, so that the
@@ -840,9 +896,9 @@ __device__ __forceinline__ Block block_of(int sq, int hq, int group, int group_k
 // bytes into a swizzled row of Q's and K's boxes (the hardware applies the
 // swizzle); 8-row groups W::GROUP bytes apart (the SBO).  Columns QK.. of
 // the tiles are zeros (TMA's fill past the head dim), so they are skipped.
-template <int D, int QK, typename T>
-__device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint32_t k) {
-  using L = Layout<D>;
+template <int D, int KEYS, int QK, typename T>
+__device__ __forceinline__ void qk(float (&s)[KEYS / 2], uint32_t q, uint32_t k) {
+  using L = Layout<D, KEYS>;
   using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < QK / 16; ++kk) {
@@ -861,10 +917,10 @@ __device__ __forceinline__ void qk(float (&s)[keys_of(D) / 2], uint32_t q, uint3
 // (16 W::ROW bytes) into V's boxes; N = PV spans the first PV columns of the
 // D / W::COLS boxes, KV_BOX apart (the LBO): at PV 112 one box and 48
 // columns of the next.
-template <int D, int PV, typename T>
-__device__ __forceinline__ void pv(float (&acc)[PV / 2], const uint32_t (&p)[keys_of(D) / 4],
+template <int D, int KEYS, int PV, typename T>
+__device__ __forceinline__ void pv(float (&acc)[PV / 2], const uint32_t (&p)[KEYS / 4],
                                    uint32_t v) {
-  using L = Layout<D>;
+  using L = Layout<D, KEYS>;
   using W = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < L::KEYS / 16; ++kk)
@@ -927,16 +983,18 @@ __device__ __forceinline__ void softmax(float (&s)[KEYS / 2], float (&m)[2], flo
 // and the block order; group_kv is the L2 order's KV heads a group (read
 // only with P::L2).
 template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
-__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
+__global__ void __launch_bounds__(RolesOf<D, P>::THREADS, RolesOf<D, P>::BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                    float* __restrict__ lse, int sq, int sk, int hq, int group, int offset,
                    int dh, float scale_log2, int group_kv) {
-  using L = Layout<D>;
+  using L = FwdLayout<D, P>;
   using W = Swz<D>;
-  using R = RolesOf<D>;
-  constexpr int S = L::STAGES, KEYS = L::KEYS, PV = P::PV;
+  using R = RolesOf<D, P>;
+  constexpr int S = L::RING, KEYS = L::KEYS, PV = P::PV;
+  constexpr bool OVERLAP = overlapped<D, P>();
+  static_assert(!OVERLAP || !R::WIDE, "the overlapped loop's loads come from a producer");
   extern __shared__ unsigned char hopper_smem[];
   const uint32_t base = (smem_addr(hopper_smem) + 1023) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -966,9 +1024,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto load_q = [&] {
     mbar_expect(q_full, L::Q_TILE);
     for (int x = 0; x < L::BOXES; ++x)
-      for (int y = 0; y < ROWS / KEYS; ++y)      // boxes of KEYS rows
-        tma_load(base + L::Q + x * L::Q_BOX + y * KEYS * W::ROW, qmap, q_full, x * W::COLS, h,
-                 q0 + y * KEYS, b);
+      for (int y = 0; y < ROWS / L::Q_ROWS; ++y)      // boxes of Q_ROWS rows
+        tma_load(base + L::Q + x * L::Q_BOX + y * L::Q_ROWS * W::ROW, qmap, q_full, x * W::COLS,
+                 h, q0 + y * L::Q_ROWS, b);
   };
   auto load_kv = [&](int j) {
     const int s = j % S;
@@ -1023,35 +1081,85 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if constexpr (R::WIDE) __syncwarp();   // the loader's warp, converged for wgmma
     mbar_wait(q_full, 0);
     if (c == 1) bar_arrive_consumers(1);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % S;
-      const uint32_t parity = (j / S) & 1;
-      mbar_wait(k_full(st), parity);
+    if constexpr (OVERLAP) {
+      // Turn 0: tile 0's S (O is still zero: nothing to rescale).  Turn j >
+      // 0: tile j's S, then tile j - 1's O += P V, and tile j's softmax under
+      // that product; tile j - 1's stage is released once it has landed.
+      // The last tile's O += P V follows the turns.
+      mbar_wait(k_full(0), 0);
       bar_sync_consumers(1 + c);
-      // Consumer 1's turn j comes after consumer 0 issued its S of tile j,
-      // so after both released tile j - 1: its stage takes tile j + S - 1.
-      if (R::WIDE && threadIdx.x == LOADER && j >= 1 && j + S - 1 < n_tiles)
-        load_kv(j + S - 1);
-      if constexpr (R::WIDE) __syncwarp();
       wgmma_fence();
-      qk<D, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);
-      if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
+      qk<D, KEYS, P::QK, T>(s, qa, base + L::K);
+      if (c == 0 || 1 < n_tiles) bar_arrive_consumers(2 - c);
       wgmma_wait<0>();
       pin(s);
-      softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
-#pragma unroll
-      for (int i = 0; i < PV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      softmax<KEYS>(s, m, l, corr, 0, sk, qpos, first, t, scale_log2);
 #pragma unroll
       for (int i = 0; i < KEYS / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
-      mbar_wait(v_full(st), parity);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int st = j % S, sp = (j - 1) % S;
+        mbar_wait(k_full(st), (j / S) & 1);
+        mbar_wait(v_full(sp), ((j - 1) / S) & 1);
+        bar_sync_consumers(1 + c);
+        pin(acc);
+        pin(p);
+        wgmma_fence();
+        qk<D, KEYS, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);
+        pv<D, KEYS, PV, T>(acc, p, base + L::V + sp * L::KV_TILE);
+        if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
+        wgmma_wait<1>();                 // S landed (the groups retire in order)
+        pin(s);
+        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(p);
+        mbar_arrive(empty(sp));
+#pragma unroll
+        for (int i = 0; i < PV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < KEYS / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+      }
+      const int sl = (n_tiles - 1) % S;
+      mbar_wait(v_full(sl), ((n_tiles - 1) / S) & 1);
       pin(acc);
       pin(p);
       wgmma_fence();
-      pv<D, PV, T>(acc, p, base + L::V + st * L::KV_TILE);
+      pv<D, KEYS, PV, T>(acc, p, base + L::V + sl * L::KV_TILE);
       wgmma_wait<0>();
       pin(acc);
       pin(p);
-      mbar_arrive(empty(st));
+      mbar_arrive(empty(sl));
+    } else {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % S;
+        const uint32_t parity = (j / S) & 1;
+        mbar_wait(k_full(st), parity);
+        bar_sync_consumers(1 + c);
+        // Consumer 1's turn j comes after consumer 0 issued its S of tile j,
+        // so after both released tile j - 1: its stage takes tile j + S - 1.
+        if (R::WIDE && threadIdx.x == LOADER && j >= 1 && j + S - 1 < n_tiles)
+          load_kv(j + S - 1);
+        if constexpr (R::WIDE) __syncwarp();
+        wgmma_fence();
+        qk<D, KEYS, P::QK, T>(s, qa, base + L::K + st * L::KV_TILE);
+        if (c == 0 || j + 1 < n_tiles) bar_arrive_consumers(2 - c);
+        wgmma_wait<0>();
+        pin(s);
+        softmax<KEYS>(s, m, l, corr, j * KEYS, sk, qpos, first, t, scale_log2);
+#pragma unroll
+        for (int i = 0; i < PV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < KEYS / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+        mbar_wait(v_full(st), parity);
+        pin(acc);
+        pin(p);
+        wgmma_fence();
+        pv<D, KEYS, PV, T>(acc, p, base + L::V + st * L::KV_TILE);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(p);
+        mbar_arrive(empty(st));
+      }
     }
 
 #pragma unroll
@@ -1107,8 +1215,9 @@ cudaError_t launch(const CUtensorMap (&maps)[3], void* o, float* lse, int sq, in
   if (DO > 0 ? dh != DO
              : ((DO == 0 && dh % 8 != 0) || dh > P::QK || dh > P::PV || dh < least_dim(D)))
     return cudaErrorInvalidValue;
-  if (smem != Layout<D>::SMEM || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
-  using R = RolesOf<D>;
+  if (smem != FwdLayout<D, P>::SMEM || P::L2 != (group_kv > 0))
+    return cudaErrorInvalidValue;
+  using R = RolesOf<D, P>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D, DO, T, P>);
   if (err != cudaSuccess) return err;
@@ -1180,6 +1289,19 @@ int by_width(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, in
           tm, o, lse, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide kernels (Wide): a head dim d in (128, 256] on the tiles 192 or
+// 256 wide, DO 0 (d a multiple of 8) or -1 (any d: the guarded stores), T
+// bf16 or fp16, in the L2 order (group_kv > 0 KV heads a group).
+template <int DO, typename T>
+int by_wide(const CUtensorMap (&tm)[3], void* o, float* lse, int sq, int sk, int hq, int hkv,
+            int d, int offset, dim3 grid, size_t smem, cudaStream_t s, int group_kv) {
+  if (tile_of(d) == 192)
+    return static_cast<int>(launch<192, DO, T, Wide<192>>(tm, o, lse, sq, sk, hq, hkv, d, offset,
+                                                          grid, smem, s, group_kv));
+  return static_cast<int>(launch<256, DO, T, Wide<256>>(tm, o, lse, sq, sk, hq, hkv, d, offset,
+                                                        grid, smem, s, group_kv));
 }
 
 }  // namespace hopper
@@ -1297,19 +1419,33 @@ int gqa_flash_wgmma(int dtype, const void* q, const void* k, const void* v, void
   // the L2 order: the D-112 kernel and the head-dim kernels
   const bool ordered = group_kv > 0;
   const bool widths = d % 8 == 0 && d > 32 && d <= 128 && !(dtype == 1 && d % 64 == 0);
+  const bool wide = d > 128;      // the wide kernels, at every run-time head dim past 128
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
-      b > 65535 || hq > 65535 || group_kv < 0 || (ordered && !widths) ||
+      b > 65535 || hq > 65535 || group_kv < 0 || (ordered && !widths && !wide) ||
       (ordered ? grid_x != static_cast<long long>(b) * hq * tiles || grid_y != 1 || grid_z != 1
                : grid_x != hq || grid_y != b || grid_z != tiles || grid_z > 65535) ||
       (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[3] = {q, k, v};
   CUtensorMap tm[3];
-  const int err = hopper::encode_maps(tm, ptrs, 3, maps, d, hopper::keys_of(d), dtype == 2);
+  const int keys = ordered && wide ? hopper::wide_keys(d) : hopper::keys_of(d);
+  const int err =
+      hopper::encode_maps(tm, ptrs, 3, maps, d, keys, dtype == 2, hopper::q_rows_of(keys));
   if (err != 0) return err;
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  if (ordered && wide) {
+    if (dtype == 2)
+      return d % 8 != 0 ? hopper::by_wide<-1, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                     causal_offset, grid, sm, s, group_kv)
+                        : hopper::by_wide<0, __half>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                    causal_offset, grid, sm, s, group_kv);
+    return d % 8 != 0 ? hopper::by_wide<-1, __nv_bfloat16>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                          causal_offset, grid, sm, s, group_kv)
+                      : hopper::by_wide<0, __nv_bfloat16>(tm, o, lse, sq, sk, hq, hkv, d,
+                                                         causal_offset, grid, sm, s, group_kv);
+  }
   if (ordered && !(dtype == 1 && d == 112))
     return dtype == 2 ? hopper::by_width<__half>(tm, o, lse, sq, sk, hq, hkv, d, causal_offset,
                                                  grid, sm, s, group_kv)

@@ -86,17 +86,30 @@
 //   dK/dV keeps its 64 keys a block and 64-row Q/dO tiles, with 3 stages at
 //     192 and 2 at 256 (231,992 and 231,464 bytes, the P^T buffers in fp32
 //     as the narrow kernels').
-// Every TMA box is then 32 rows.  At width 256 the consumers need ~200-225
-// registers, more than the 168 a thread ptxas allocates at 384 threads
-// whatever setmaxnreg adds later, so both kernels run the two consumer
-// warpgroups alone (256 threads; 196 and 225 registers, no spill): in dQ,
-// consumer 0's first thread issues the loads, tile j + STAGES - 1 at the
-// top of its turn j once consumer 1 has released tile j - 1 (consumer 0's
-// rows see fewer keys and run ahead); in dK/dV, consumer 1's first warp
-// (lane 0 the TMA loads, every lane the LSE and D_i) fills tile j - 1's
-// stage once consumer 0's P^T of tile j is in, which it wrote after
-// releasing tile j - 1.  Width 192 fits 168 registers and keeps the
-// producer warpgroup (hopper.cuh, Roles).
+// Every TMA box is then 32 rows.  Every such head dim, a multiple of 8 or
+// staged, runs the wide pair (Wide, by_wide): both kernels in the L2 order
+// (l2_unit; dQ kv_group's KV heads a group, dK/dV rows_group's), at width
+// 256 the producer layout with 240 registers a consumer thread (hopper.cuh,
+// Roles: the SASS names up to R189-R230 in dQ and R203 in dK/dV under the
+// launch's 168, 0 spills), and at width 192 dQ's K/V tiles of 64 keys (S
+// and dP m64n64k16, dQ += dS K over 4 steps, 2 stages, 197,672 bytes).
+// Their gradients equal the yardsticks' bit for bit at width 256; at 192
+// dK and dV do, and dQ sums each row in another order.  The whole-tile pair
+// in the grid's order stays by name (route="wgmma_tile", the yardstick):
+// at width 256 the two consumer warpgroups alone (256 threads; 196 and 225
+// registers): in dQ, consumer 0's first thread issues the loads, tile j +
+// STAGES - 1 at the top of its turn j once consumer 1 has released tile
+// j - 1 (consumer 0's rows see fewer keys and run ahead); in dK/dV,
+// consumer 1's first warp (lane 0 the TMA loads, every lane the LSE and
+// D_i) fills tile j - 1's stage once consumer 0's P^T of tile j is in,
+// which it wrote after releasing tile j - 1.  At internvl2-2b's train
+// shape with 16 query heads over 8 KV heads (B 4, S 2304) on an H100 80GB
+// HBM3 at 700 W (scripts/kernel_splits.py wide, device time in turns):
+// bf16 D 256 1.3929 against the yardstick's 1.6460 ms (dQ 0.6526 against
+// 0.7489, dK/dV 0.7104 against 0.9044; the producer in the grid's order
+// 1.4034, the L2 order without it 1.7233; SDPA's backward ~1.52); bf16 D
+// 192 0.9905 against 1.1067 (dQ 0.4032 against 0.5242; dK/dV 0.5707 in the
+// L2 order, 0.5446 in the grid's).
 // At D <= 32 (train_carbon_aware's tiny preset, D 16, and 10m, D 32) the
 // tiles are 16 or 32 columns wide (hopper.cuh, Swz: boxes as wide as the
 // tile under the 32- or 64-byte swizzle, descriptors of that layout, dQ +=
@@ -735,20 +748,29 @@ struct Tile {
 };
 
 // Shared memory of the dQ kernel, from a 1024-byte aligned base: Q and dO
-// (128 rows), the K ring and the V ring (KEYS keys a stage), then the
-// mbarriers q_full, kv_full[STAGES], empty[STAGES].
-template <int D>
+// (128 rows), the K ring and the V ring (KEYS keys a stage: the tiles' own,
+// Tiling<D>::DQ_KEYS, or the wide kernels', hopper::wide_dq_keys), then the
+// mbarriers q_full, kv_full[STAGES], empty[STAGES].  At other keys than the
+// tiles' own the ring is as deep as 227 KB allows (2 at width 192 and 64
+// keys).
+template <int D, int KEYS_ = Tiling<D>::DQ_KEYS>
 struct DqLayout {
-  static constexpr int KEYS = Tiling<D>::DQ_KEYS;
-  static constexpr int STAGES = Tiling<D>::DQ_STAGES;
+  static constexpr int KEYS = KEYS_;
   using Rows = Tile<D, DQ_ROWS>;
   using Keys = Tile<D, KEYS>;
+  static constexpr int STAGES =
+      KEYS == Tiling<D>::DQ_KEYS
+          ? Tiling<D>::DQ_STAGES
+          : (232448 - 1024 - 2 * Rows::BYTES - 8) / (2 * Keys::BYTES + 16) < wg::STAGES
+                ? (232448 - 1024 - 2 * Rows::BYTES - 8) / (2 * Keys::BYTES + 16)
+                : wg::STAGES;
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t DOUT = Q + Rows::BYTES;
   static constexpr uint32_t K = DOUT + Rows::BYTES;
   static constexpr uint32_t V = K + STAGES * Keys::BYTES;
   static constexpr uint32_t BARS = V + STAGES * Keys::BYTES;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+  static_assert(STAGES >= 2 && SMEM <= 232448, "a ring within a block's shared memory");
 };
 
 // Shared memory of the dK/dV kernel: K and V (64 keys), the Q ring and the
@@ -879,7 +901,7 @@ __device__ __forceinline__ void init_ring(uint32_t first, uint32_t full_count, u
 // (P::PV) and the block order: the grid's, or with P::L2 the L2 order
 // (l2_unit, group_kv KV heads a group).
 template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
-__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
+__global__ void __launch_bounds__(RolesOf<D, P>::THREADS, RolesOf<D, P>::BLOCKS)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
@@ -888,8 +910,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk, int hq,
                           int group, int offset, int dh, float scale_log2, float scale,
                           int group_kv) {
-  using L = DqLayout<D>;
-  using R = RolesOf<D>;
+  using L = DqLayout<D, P::KEYS ? P::KEYS : Tiling<D>::DQ_KEYS>;
+  using R = RolesOf<D, P>;
   constexpr int KEYS = L::KEYS, STAGES = L::STAGES, PV = P::PV;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
@@ -1114,7 +1136,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // dK's N, the order: with P::L2 group_kv KV heads a group, their key tiles
 // first to last) as in the dQ kernel.
 template <int D, int DO = D, typename T = __nv_bfloat16, class P = Products<D, D, false>>
-__global__ void __launch_bounds__(RolesOf<D>::THREADS, RolesOf<D>::BLOCKS)
+__global__ void __launch_bounds__(RolesOf<D, P>::THREADS, RolesOf<D, P>::BLOCKS)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -1124,7 +1146,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             int group, int offset, int dh, float scale_log2, float scale,
                             int group_kv) {
   using L = KvLayout<D>;
-  using R = RolesOf<D>;
+  using R = RolesOf<D, P>;
   constexpr int STAGES = L::STAGES, PV = P::PV;
   extern __shared__ unsigned char bwd_smem[];
   const uint32_t base = (smem_addr(bwd_smem) + 1023) & ~1023u;
@@ -1311,9 +1333,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 enum Kernel { DQ = 0, DKDV = 1 };
 
-template <int D>
+template <int D, class P>
 size_t smem_bytes(int which) {
-  return which == DQ ? DqLayout<D>::SMEM : KvLayout<D>::SMEM;
+  return which == DQ ? DqLayout<D, P::KEYS ? P::KEYS : Tiling<D>::DQ_KEYS>::SMEM
+                     : KvLayout<D>::SMEM;
 }
 
 template <class R, typename Fn>
@@ -1349,10 +1372,10 @@ cudaError_t launch(int which, const CUtensorMap (&maps)[4], const Args& a, int s
   if (DO > 0 ? dh != DO
              : ((DO == 0 && dh % 8 != 0) || dh > P::QK || dh < least_dim(D)))
     return cudaErrorInvalidValue;
-  if (smem != smem_bytes<D>(which) || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
+  if (smem != smem_bytes<D, P>(which) || P::L2 != (group_kv > 0)) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   const float scale_log2 = scale * LOG2E;
-  using R = RolesOf<D>;
+  using R = RolesOf<D, P>;
   constexpr int THREADS = R::THREADS;
   cudaError_t err;
   if (which == DQ) {
@@ -1429,6 +1452,23 @@ int by_width(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int s
           which, tm, a, sq, sk, hq, hkv, d, offset, grid, smem, s, group_kv));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide kernels (hopper::Wide, flash_attention.cu's): a head dim d in
+// (128, 256] on the tiles 192 or 256 wide, DO 0 (d a multiple of 8) or -1
+// (any d), T bf16 or fp16, dQ's K/V tiles of wide_dq_keys(D) keys, at width
+// 256 a producer warpgroup, both kernels in the L2 order (group_kv > 0 KV
+// heads a group).
+template <int D>
+using Wide = Products<D, D, true, wide_dq_keys(D), (D > 192 ? 240 : 0)>;
+template <int DO, typename T>
+int by_wide(int which, const CUtensorMap (&tm)[4], const Args& a, int sq, int sk, int hq,
+            int hkv, int d, int offset, dim3 grid, size_t smem, cudaStream_t s, int group_kv) {
+  if (tile_of(d) == 192)
+    return static_cast<int>(launch<192, DO, T, Wide<192>>(which, tm, a, sq, sk, hq, hkv, d,
+                                                          offset, grid, smem, s, group_kv));
+  return static_cast<int>(launch<256, DO, T, Wide<256>>(which, tm, a, sq, sk, hq, hkv, d, offset,
+                                                        grid, smem, s, group_kv));
 }
 
 }  // namespace wg
@@ -2150,11 +2190,13 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
   // the L2 order: the head-dim kernels
   const bool ordered = group_kv > 0;
   const bool widths = d % 8 == 0 && d > 32 && d <= 128;
+  const bool wide = d > 128;      // the wide kernels, at every run-time head dim past 128
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || causal_offset < 0 ||
       b > 65535 || hq > 65535 || (which != wg::DQ && which != wg::DKDV) ||
       (dtype != 1 && dtype != 2) || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (group_kv < 0 || (ordered && !widths)) return static_cast<int>(cudaErrorInvalidValue);
+  if (group_kv < 0 || (ordered && !widths && !wide))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rows = which == wg::DQ ? wg::DQ_ROWS : wg::KV_KEYS;
   const long long tiles = ((which == wg::DQ ? sq : sk) + static_cast<long long>(rows) - 1) / rows;
   const long long heads = which == wg::DQ ? hq : hkv;
@@ -2170,6 +2212,17 @@ int gqa_flash_bwd_wgmma(int which, int dtype, const void* q, const void* k, cons
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  if (ordered && wide) {
+    if (dtype == 2)
+      return d % 8 != 0 ? wg::by_wide<-1, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                 causal_offset, grid, sm, s, group_kv)
+                        : wg::by_wide<0, __half>(which, tm, a, sq, sk, hq, hkv, d,
+                                                causal_offset, grid, sm, s, group_kv);
+    return d % 8 != 0 ? wg::by_wide<-1, __nv_bfloat16>(which, tm, a, sq, sk, hq, hkv, d,
+                                                      causal_offset, grid, sm, s, group_kv)
+                      : wg::by_wide<0, __nv_bfloat16>(which, tm, a, sq, sk, hq, hkv, d,
+                                                     causal_offset, grid, sm, s, group_kv);
+  }
   if (ordered)
     return dtype == 2 ? wg::by_width<__half>(which, tm, a, sq, sk, hq, hkv, d, causal_offset,
                                              grid, sm, s, group_kv)

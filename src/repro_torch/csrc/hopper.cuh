@@ -10,8 +10,8 @@
 // by default: S-like products K-major from shared memory at N 32, 64 and
 // 128; O-like products with A in registers and B MN-major at N 16, 32, 64,
 // 128, 192 and 256, the tiles' widths, and 48, 80, 96 and 112, the head
-// dims' own widths: Products), and the encoding of the tensor maps on the
-// host.
+// dims' own widths: Products; S-like products at N 80 and 96 too, the wide
+// kernels' key tiles), and the encoding of the tensor maps on the host.
 // Everything has internal linkage: each library that includes it gets its
 // own copy.
 #pragma once
@@ -187,6 +187,14 @@ __host__ __device__ constexpr int least_dim(int w) {
   return w == 16 ? 1 : w == 32 ? 17 : w == 64 ? 33 : w - BOX + 1;
 }
 
+// The wide kernels' K/V tiles (the tiles 192 and 256 wide, past head dim
+// 128; Products::KEYS): the forward's keys a tile, and dQ's.  At width 256
+// the tiles' own (64 and 32): 80 keys in the forward timed the same as 64
+// (scripts/kernel_splits.py wide) and change the order of sums; at 192 the
+// registers and shared memory that the tiles' own leave take 96 and 64.
+__host__ __device__ constexpr int wide_keys(int w) { return w > 192 ? 64 : 96; }
+__host__ __device__ constexpr int wide_dq_keys(int w) { return w > 192 ? 32 : 64; }
+
 // The swizzled layout of tiles D columns wide: rows of COLS 16-bit elements
 // (a box's inner extent: 16, 32, or 64 from width 64 on), ROW bytes each,
 // under the swizzle of the same span (32, 64 or 128 bytes), which TMA writes
@@ -260,38 +268,72 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, u
       : "memory");
 }
 
+// What an instance of a wgmma kernel (the forward's flash_wgmma_kernel, the
+// backward's dQ and dK/dV kernels) runs on its tiles D wide: the S-like
+// products (S = Q K^T, dP = dO V^T and their transposes) over the tiles'
+// first QK columns (QK / 16 k-steps), the O-like products (O += P V, dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q) at N = PV (PV / 2 accumulators a
+// thread), and its blocks in the grid's order or, with L2, in the order
+// that keeps a group of KV heads' K and V (or Q and dO) in L2, a 1-D grid
+// decoded by the kernel (the group's size group_kv is a launch argument;
+// one group of every KV head is the grid's order).  Products<D, D, false>
+// runs the tiles' whole width in the grid's order; the head-dim kernels run
+// Products<W, W, true>, W = ceil(D / 16) * 16, the columns past the head dim
+// being TMA's zeros.  Past width 128 two more choices: KEYS, the keys of the
+// forward's and dQ's K/V tiles (0: the tiles' own, 64 and 32), and REGS,
+// the registers a consumer thread takes by setmaxnreg at width 256 from a
+// producer warpgroup (0: no producer there, the two consumers alone, as the
+// yardstick runs; Roles).  The wide kernels run Wide<D> (flash_attention.cu).
+template <int QK_COLS, int PV_COLS, bool L2_ORDER, int KEYS_ = 0, int REGS_ = 0>
+struct Products {
+  static constexpr int QK = QK_COLS, PV = PV_COLS;
+  static constexpr bool L2 = L2_ORDER;
+  static constexpr int KEYS = KEYS_, REGS = REGS_;
+  static_assert(QK % 16 == 0 && PV % 8 == 0, "whole k-steps, whole 8-column slices");
+  static_assert(KEYS % 16 == 0 && (REGS == 0 || REGS == 232 || REGS == 240),
+                "whole key slices; a consumer's registers");
+};
+
 // The roles of the threads of a block of two consumer warpgroups (the
-// forward's and the backward's wgmma kernels).  Up to tile width 128 (WIDE
-// false) a producer warpgroup 0 issues the TMA loads and gives registers to
-// the consumers, warpgroups 1 and 2, by setmaxnreg: 384 threads, 168
-// registers a thread at launch, 40 and 232 after.  ptxas allocates each
-// kernel only what the launch gives a thread, whatever setmaxnreg asks for
-// later: an SM sub-partition's 16,384 registers over its three warps, 168
-// (kernels built for 168, 232 and 240 after setmaxnreg spill alike, and so
-// does a block of 288 threads).  A consumer whose output takes 128 floats
-// (tiles 256 wide) spills there, so the 256-wide kernels (WIDE) run the two
-// consumer warpgroups alone, 256 threads of up to 255 registers, and a
-// consumer thread (LOADER) issues the loads at a point of its loop where the
-// stage it fills is known to be free.  Tiles 192 wide fit 168 registers and
-// keep the producer, which timed faster there than the consumers alone (trial
-// builds with Roles<true> at 192); chip_smoke.py times the bf16 D 192
-// forward and backward on this layout, the yardstick for a re-check.  The
-// narrow tiles (16 and 32 wide, NARROW) take the layout without a producer
-// too, two blocks an SM (BLOCKS): at these widths a tile holds little work
-// for its barriers and waits (the exponentials set the floor, not the
-// products), and a consumer's O, S and P fit the 128 registers that two
-// blocks of 256 threads leave a thread, so four consumer warpgroups share an
-// SM where the producer layout runs two.
-template <bool W, int B = 1>
+// forward's and the backward's wgmma kernels).  With a producer (WIDE false)
+// warpgroup 0 issues the TMA loads and gives registers to the consumers,
+// warpgroups 1 and 2, by setmaxnreg: 384 threads, 168 registers a thread at
+// launch, PREGS and CREGS after (40 and 232 up to width 192; 24 and 240 at
+// width 256, where O takes 128 floats a thread).  ptxas reports the
+// launch's 168 and allocates the code after each setmaxnreg at the count it
+// sets: the roles are one if/else on threadIdx.x < 128 that runs to the
+// kernel's end, neither branch reaching code of the other after its
+// setmaxnreg.  At width 256 (sm_90a; scripts/kernel_splits.py
+// wide) the forward's and both backward kernels on this layout report 168
+// registers, 0 spills and no C75xx remark, and their SASS names registers
+// up to R186 (forward) and R189-R230 (dQ), R201-R203 (dK/dV): the
+// consumers run past 168.  The same kernels with the branch taken on the
+// warpgroup's index broadcast by __shfl_sync (as CUTLASS takes it) spilled
+// 180-528 bytes, serialised their wgmma (C7512) and named registers only up
+// to R165-R185, with no C7508 to say why.  So the producer layout carries
+// width 256 (Wide in flash_attention.cu); the whole-tile yardstick there
+// runs the two consumers alone (Products::REGS 0).
+// Without a producer (WIDE: the narrow tiles, and width 256 on the
+// yardstick, Products::REGS 0) the two consumer warpgroups run alone, 256
+// threads of up to 255 registers, and a consumer thread (LOADER) issues
+// the loads at a point of its loop where the stage it fills is known to be
+// free.  The narrow tiles (16 and 32 wide, NARROW) take that layout, two
+// blocks an SM (BLOCKS): at these widths a tile holds little work for its
+// barriers and waits (the exponentials set the floor, not the products),
+// and a consumer's O, S and P fit the 128 registers that two blocks of 256
+// threads leave a thread, so four consumer warpgroups share an SM where the
+// producer layout runs two.
+template <bool W, int B = 1, int PREGS = 40, int CREGS = 232>
 struct Roles {
   static constexpr bool WIDE = W;
   static constexpr int BLOCKS = B;
   static constexpr int THREADS = WIDE ? 256 : 384;
   static constexpr int CONSUMER = WIDE ? 0 : 128;      // consumer 0's first thread
-  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // 40*128 + 232*256 = 168*384
+  static constexpr int PRODUCER_REGS = PREGS, CONSUMER_REGS = CREGS;   // 128 P + 256 C = 168*384
+  static_assert(PREGS * 128 + CREGS * 256 == 168 * 384, "the launch's registers, handed over");
   __device__ static bool producer() { return !WIDE && threadIdx.x < 128; }
   __device__ static int consumer() { return (threadIdx.x - CONSUMER) / 128; }
-  // Hand the producer's registers to the consumers (narrow kernels only).
+  // Hand the producer's registers to the consumers (the producer layout only).
   __device__ static void producer_regs() {
     if constexpr (!WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
   }
@@ -305,10 +347,13 @@ struct Roles {
   }
 };
 
-// The widest tiles of the narrow layout, and the roles of the tiles D wide.
+// The widest tiles of the narrow layout, and the roles of the tiles D wide
+// of an instance running P: past 192 a producer where P::REGS asks for one.
 constexpr int NARROW = 32;
-template <int D>
-using RolesOf = Roles<(D > 192 || D <= NARROW), (D <= NARROW ? 2 : 1)>;
+template <int D, class P = Products<D, D, false>>
+using RolesOf = Roles<(D <= NARROW || (D > 192 && P::REGS == 0)), (D <= NARROW ? 2 : 1),
+                      (D > 192 && P::REGS ? (168 * 384 - 256 * P::REGS) / 128 : 40),
+                      (D > 192 && P::REGS ? P::REGS : 232)>;
 
 // Named barrier `id` over the 256 threads of the two consumer warpgroups (0
 // is __syncthreads): wait for all 256, or arrive without waiting.
@@ -670,6 +715,104 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_
     WGMMA_SS_N32_ASM("bf16");
 }
 
+// d (64 x 80, fp32) = a (64 x 16) * b (16 x 80), a and b in shared memory,
+// both K-major: the first step of a product, which reads nothing of d.
+#define WGMMA_SS_N80_FIRST_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39" \
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), \
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), \
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), \
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]) \
+      : "l"(a), "l"(b), "r"(0))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n80_first(float (&d)[40], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N80_FIRST_ASM("f16");
+  else
+    WGMMA_SS_N80_FIRST_ASM("bf16");
+}
+
+// d (64 x 80, fp32) += a (64 x 16) * b (16 x 80), a and b in shared memory,
+// both K-major.
+#define WGMMA_SS_N80_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39" \
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]) \
+      : "l"(a), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N80_ASM("f16");
+  else
+    WGMMA_SS_N80_ASM("bf16");
+}
+
+// d (64 x 96, fp32) = a (64 x 16) * b (16 x 96), a and b in shared memory,
+// both K-major: the first step of a product, which reads nothing of d.
+#define WGMMA_SS_N96_FIRST_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n" \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), \
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), \
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), \
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), \
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), \
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]) \
+      : "l"(a), "l"(b), "r"(0))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n96_first(float (&d)[48], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N96_FIRST_ASM("f16");
+  else
+    WGMMA_SS_N96_FIRST_ASM("bf16");
+}
+
+// d (64 x 96, fp32) += a (64 x 16) * b (16 x 96), a and b in shared memory,
+// both K-major.
+#define WGMMA_SS_N96_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
+      : "l"(a), "l"(b), "r"(1))
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a, uint64_t b) {
+  if constexpr (is_f16<T>)
+    WGMMA_SS_N96_ASM("f16");
+  else
+    WGMMA_SS_N96_ASM("bf16");
+}
+
 // d (64 x 192, fp32) += a (64 x 16, four bf16x2 registers) * b (16 x 192, shared
 // memory, MN-major: the transpose bit is set).
 #define WGMMA_RS_N192_ASM(TY) \
@@ -748,7 +891,8 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a
 // b (16 x N, MN-major) at N 16, 32, 64, 128, 192 or 256 (the tiles'
 // widths) and 48, 80, 96 or 112 (the head's own width, ceil(D / 16) * 16,
 // on the 64- and 128-wide tiles: Products); and d (64 x N) = a b (FIRST) or
-// += a b, both K-major in shared memory, at N 32, 64 or 128.
+// += a b, both K-major in shared memory, at N 32, 64, 80, 96 or 128 (a K/V
+// tile's keys).
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t b) {
   static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 80 || N == 96 || N == 112 ||
@@ -776,9 +920,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, u
 }
 template <int N, bool FIRST, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  static_assert(N == 32 || N == 64 || N == 128, "a score tile's keys");
+  static_assert(N == 32 || N == 64 || N == 80 || N == 96 || N == 128, "a score tile's keys");
   if constexpr (N == 128) {
     if constexpr (FIRST) wgmma_ss_n128_first<T>(d, a, b); else wgmma_ss_n128<T>(d, a, b);
+  } else if constexpr (N == 96) {
+    if constexpr (FIRST) wgmma_ss_n96_first<T>(d, a, b); else wgmma_ss_n96<T>(d, a, b);
+  } else if constexpr (N == 80) {
+    if constexpr (FIRST) wgmma_ss_n80_first<T>(d, a, b); else wgmma_ss_n80<T>(d, a, b);
   } else if constexpr (N == 64) {
     if constexpr (FIRST) wgmma_ss_n64_first<T>(d, a, b); else wgmma_ss_n64<T>(d, a, b);
   } else {
@@ -820,37 +968,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// What an instance of a wgmma kernel (the forward's flash_wgmma_kernel, the
-// backward's dQ and dK/dV kernels) runs on its tiles D wide: the S-like
-// products (S = Q K^T, dP = dO V^T and their transposes) over the tiles'
-// first QK columns (QK / 16 k-steps), the O-like products (O += P V, dQ +=
-// dS K, dV += P^T dO, dK += dS^T Q) at N = PV (PV / 2 accumulators a
-// thread), and its blocks in the grid's order or, with L2, in the order
-// that keeps a group of KV heads' K and V (or Q and dO) in L2, a 1-D grid
-// decoded by the kernel (the group's size group_kv is a launch argument;
-// one group of every KV head is the grid's order).  Products<D, D, false>
-// runs the tiles' whole width in the grid's order; the head-dim kernels run
-// Products<W, W, true>, W = ceil(D / 16) * 16, the columns past the head dim
-// being TMA's zeros.
-template <int QK_COLS, int PV_COLS, bool L2_ORDER>
-struct Products {
-  static constexpr int QK = QK_COLS, PV = PV_COLS;
-  static constexpr bool L2 = L2_ORDER;
-  static_assert(QK % 16 == 0 && PV % 8 == 0, "whole k-steps, whole 8-column slices");
-};
-
 // Tensor maps over n (B, S, H, D) tensors of 16-bit elements (bf16, or fp16
 // with `f16`), from the wrapper's numbers: eleven for each
 // (kernels/flash_attention.py::tensor_map), its dims (d, h, s, b), byte
 // strides along h, s and b, and box (w, 1, box_rows, 1), w the inner extent
 // of the tiles of head dim d (Swz<tile_of(d)>::COLS: 16, 32 or 64).  The
 // swizzle spans a box's row, 2 w bytes (32, 64 or 128: the wrapper's
-// tma_swizzle); boxes reaching past S or D land as zeros.  Returns 0, a
-// cudaError_t, or the CUresult of a failed encoding negated.
+// tma_swizzle); boxes reaching past S or D land as zeros.  The first map's
+// boxes are q_rows high where that is given (the forward's Q, where the K/V
+// tiles' keys do not divide its 128 rows), the others' box_rows.  Returns
+// 0, a cudaError_t, or the CUresult of a failed encoding negated.
+// cuTensorMapEncodeTiled wants the device's context current on the calling
+// thread, which a thread that has made no runtime call yet lacks (the
+// autograd engine's device thread, when a backward's first call is this
+// one: CUDA_ERROR_INVALID_CONTEXT), so the thread's device is set first.
 int encode_maps(CUtensorMap* tm, const void* const* ptrs, int n,
-                const unsigned long long* maps, int d, unsigned box_rows, bool f16 = false) {
+                const unsigned long long* maps, int d, unsigned box_rows, bool f16 = false,
+                unsigned q_rows = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return static_cast<int>(ctx);
   const cuuint32_t cols = tile_of(d) < BOX ? tile_of(d) : BOX;
   for (int i = 0; i < n; ++i) {
     const unsigned long long* m = maps + 11 * i;
@@ -860,7 +1000,7 @@ int encode_maps(CUtensorMap* tm, const void* const* ptrs, int n,
                                static_cast<cuuint32_t>(m[9]), static_cast<cuuint32_t>(m[10])};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     if (dims[0] != static_cast<cuuint64_t>(d) || box[0] != cols || box[1] != 1 ||
-        box[2] != box_rows || box[3] != 1)
+        box[2] != (i == 0 && q_rows ? q_rows : box_rows) || box[3] != 1)
       return static_cast<int>(cudaErrorInvalidValue);
     const CUtensorMapSwizzle swizzle = cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
                                        : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B

@@ -24,7 +24,11 @@ group of KV heads at a time, heaviest query tiles first, so that their K
 and V stay in L2); every other multiple of 8 in (32, 128], in fp16 and
 bf16, on the head-dim kernels, which do the same at the head's own width W
 = ``product_dim(D)`` (48, 64, 80, 96, 112 or 128: S in W / 16 k-steps, O
-at N = W, the L2 order; ``width_kernel``); the example trainers' heads are narrow:
+at N = W, the L2 order; ``width_kernel``); every 16-bit D past 128 on the
+wide kernels (``wide_kernel``: the tiles 192 or 256 wide in the L2 order, K/V
+tiles of ``wide_keys(D)`` keys, 96 at width 192, and at width 256 a producer
+warpgroup whose consumers take 240 registers; Gemma-2-9B's heads are 256
+wide); the example trainers' heads are narrow:
 ``repro_torch.examples.train_carbon_aware``'s tiny preset has D 16, its
 10m preset D 32), fp32 to the tiled fp32 kernel (route "fp32",
 ``flash_tiled_kernel``: register micro-tiles on the FMA pipe, over the
@@ -37,8 +41,8 @@ only when named, the yardsticks: the ``mma.sync`` kernel for 16-bit inputs
 width of 16, 32, 64, 128, 256 that holds D (``padded_dim``), their loads
 zero past D; at bf16 D 112 the Hopper kernel that runs the 128-wide
 tiles' whole width in the grid's order (``kernel="wgmma_pad128"``); and at
-the head-dim kernels' (dtype, D) the whole-tile instantiations they
-replaced, in the grid's order (``kernel="wgmma_tile"``).  An
+the head-dim and wide kernels' (dtype, D) the whole-tile instantiations
+they replaced, in the grid's order (``kernel="wgmma_tile"``).  An
 input whose layout the route cannot read is copied first, and each copy
 adds one to ``launches["layout_copy"]``: for the Hopper kernel (TMA: byte
 strides multiples of 16, a 16-byte aligned start) into a buffer of rows
@@ -63,12 +67,14 @@ forward's route is, every 16-bit D (two Hopper kernels, dQ then dK/dV, on
 the forward's tiles, reading the forward's LSE; past width 128 dQ's key
 tiles are 32 and every TMA box 32 rows; at every multiple of 8 in (32,
 128] but bf16 64 and 128 the head-dim kernels, every product at
-``product_dim(D)``, in the L2 order: ``plan_bwd``'s groups), "tiled" for fp32 and fp64 (two
+``product_dim(D)``, in the L2 order: ``plan_bwd``'s groups; past 128 the
+wide pair, in the L2 order, dQ's K/V tiles of ``wide_dq_keys(D)`` keys, at
+width 256 a producer warpgroup), "tiled" for fp32 and fp64 (two
 register-tiled fp32 FMA kernels, dQ then dK/dV, reading the tiled forward's
 LSE; fp64 on fp32 copies, the gradients cast back), each with the plain
 version ``gqa_flash_bwd_lse_plain`` (unrounded for "tiled"); and, only on
-request, the yardsticks "wgmma_tile" at the head-dim kernels' (dtype, D)
-(the whole-tile pair they replaced, in the grid's order), "mma" for bf16
+request, the yardsticks "wgmma_tile" at the head-dim and wide kernels'
+(dtype, D) (the whole-tile pair they replaced, in the grid's order), "mma" for bf16
 and fp16 at D <= 32 (two
 ``mma.sync`` kernels, dQ then dK/dV, reading an LSE such as the
 ``mma.sync`` forward writes) and "fma" (the first design's three fp32 FMA
@@ -159,6 +165,16 @@ PRODUCT_WIDTHS = (48, 64, 80, 96, 112, 128)
 #: all 128 at once (the grid's order) in 0.3901-0.3970 (H100 80GB HBM3,
 #: 700 W; scripts/kernel_splits.py d112).
 L2_KV_BUDGET = 50 * 2**20 // 4
+#: The wide kernels (``wide_kernel``: every 16-bit head dim past 128, on the
+#: tiles 192 and 256 wide, forward and backward, the L2 order): the
+#: forward's keys a K/V tile and dQ's, by tile width (``hopper::wide_keys``,
+#: ``hopper::wide_dq_keys``), and the registers a consumer thread takes from
+#: the producer warpgroup at width 256 (``hopper::Wide``; the yardsticks,
+#: ``kernel="wgmma_tile"`` and ``route="wgmma_tile"``, run the tiles' own
+#: keys in the grid's order, at 256 without a producer).
+WIDE_KEYS = {192: 96, 256: 64}
+WIDE_DQ_KEYS = {192: 64, 256: 32}
+WIDE_REGS = 240
 #: The narrow tiles (widths 16 and 32, up to ``WGMMA_NARROW``): a box as
 #: wide as the tile under the 32- or 64-byte swizzle, two blocks an SM of
 #: 256 threads (no producer warpgroup: ``hopper.cuh::RolesOf``), a ring of
@@ -367,8 +383,9 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``gqa_flash`` launches for this dtype and head dim:
     "wgmma" for bf16 and fp16 at every D, "fp32" for fp32 and fp64
     (``flash_tiled_kernel``); the first designs, "mma_sync" (16-bit),
-    "wgmma_pad128" (bf16 D 112), "wgmma_tile" (the head-dim kernels'
-    (dtype, D): ``width_kernel``) and "fp32_simple", only on request."""
+    "wgmma_pad128" (bf16 D 112), "wgmma_tile" (the head-dim and wide
+    kernels' (dtype, D): ``width_kernel``, ``wide_kernel``) and
+    "fp32_simple", only on request."""
     _check_dtype_and_dim(dtype, d, "kernel")
     return "wgmma" if dtype in _HALF else "fp32"
 
@@ -377,8 +394,8 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward's route for this dtype and head dim: "wgmma" where the
     forward's route is (it writes the LSE the wgmma backward reads), every
     16-bit D; "tiled" for fp32 and fp64 (on the LSE of the tiled forward);
-    the first designs, "wgmma_tile" (the head-dim kernels' (dtype, D)),
-    "mma" (16-bit D <= 32) and "fma", only on request."""
+    the first designs, "wgmma_tile" (the head-dim and wide kernels' (dtype,
+    D)), "mma" (16-bit D <= 32) and "fma", only on request."""
     _check_dtype_and_dim(dtype, d, "backward kernel")
     return "wgmma" if route(dtype, d) == "wgmma" else "tiled"
 
@@ -423,14 +440,42 @@ def width_kernel(dtype: torch.dtype, d: int, backward: bool = False) -> bool:
     return not (dtype == torch.bfloat16 and d in ((64, 128) if backward else WGMMA_TILE_DIM))
 
 
+def wide_kernel(dtype: torch.dtype, d: int) -> bool:
+    """Whether the Hopper route runs this dtype and head dim on a wide
+    kernel (``hopper::Wide``): 16-bit at every D in (128, 256], the tiles 192
+    or 256 wide, forward and backward, their blocks in the L2 order, the
+    forward's K/V tiles of ``wide_keys(D)`` keys and dQ's of
+    ``wide_dq_keys(D)``, at width 256 a producer warpgroup."""
+    return dtype in _HALF and 128 < d <= MAX_HEAD_DIM
+
+
+def wide_keys(d: int) -> int:
+    """The wide kernels' forward keys a K/V tile at head dim d (past 128):
+    ``WIDE_KEYS`` of its tiles' width."""
+    return WIDE_KEYS[wgmma_tile_dim(d)]
+
+
+def wide_dq_keys(d: int) -> int:
+    """The wide dQ kernel's keys a K/V tile at head dim d (past 128)."""
+    return WIDE_DQ_KEYS[wgmma_tile_dim(d)]
+
+
+def wgmma_q_rows(keys: int) -> int:
+    """The rows of the forward's Q boxes at K/V tiles of ``keys`` keys: the
+    keys where they divide the block's 128 rows, else 64
+    (``hopper::q_rows_of``)."""
+    return keys if WGMMA_ROWS % keys == 0 else 64
+
+
 def l2_order(dtype: torch.dtype, d: int) -> bool:
     """Whether the Hopper forward at this dtype and head dim runs its blocks
     in the L2 order (``plan``'s ``group_kv``): the D-112 kernel (bf16 at
-    ``WGMMA_D112``) and the head-dim kernels (``width_kernel``).  The shape
-    sets the groups (``kv_group``): where the K and V of every (batch, KV
-    head) pair fit ``L2_KV_BUDGET`` there is one group, which is the grid's
-    order."""
-    return (dtype == torch.bfloat16 and d == WGMMA_D112) or width_kernel(dtype, d)
+    ``WGMMA_D112``), the head-dim kernels (``width_kernel``) and the wide
+    kernels (``wide_kernel``).  The shape sets the groups (``kv_group``):
+    where the K and V of every (batch, KV head) pair fit ``L2_KV_BUDGET``
+    there is one group, which is the grid's order."""
+    return (dtype == torch.bfloat16 and d == WGMMA_D112) or width_kernel(dtype, d) \
+        or wide_kernel(dtype, d)
 
 
 def _group(n: int, pair_bytes: int, budget: int) -> int:
@@ -465,6 +510,12 @@ def rows_group(b: int, sq: int, hq: int, hkv: int, d: int, elt: int = 2,
 _T_NAMES = {torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
 
 
+def _wide_products(d: int, keys: int) -> str:
+    """``hopper::Wide``'s Products at head dim d, with the kernel's keys."""
+    tile = wgmma_tile_dim(d)
+    return f"Products<{tile}, {tile}, true, {keys}, {WIDE_REGS if tile > 192 else 0}>"
+
+
 @functools.lru_cache(maxsize=None)
 def instance(dtype: torch.dtype, d: int, kernel: str | None = None) -> str:
     """The forward kernel instantiation that ``launch`` runs for this dtype
@@ -482,6 +533,9 @@ def instance(dtype: torch.dtype, d: int, kernel: str | None = None) -> str:
         if name == "wgmma" and width_kernel(dtype, d):
             w = product_dim(d)
             return f"flash_wgmma_kernel<{tile}, 0, {t}, Products<{w}, {w}, true>>"
+        if name == "wgmma" and wide_kernel(dtype, d):
+            return (f"flash_wgmma_kernel<{tile}, {0 if d % 8 == 0 else -1}, {t}, "
+                    f"{_wide_products(d, wide_keys(d))}>")
         pinned = dtype == torch.bfloat16 and d in WGMMA_TILE_DIM
         return f"flash_wgmma_kernel<{tile}, {d if pinned else 0 if d % 8 == 0 else -1}, {t}>"
     if name == "mma_sync":
@@ -507,6 +561,9 @@ def bwd_instance(dtype: torch.dtype, d: int, route: str | None = None,
         if name == "wgmma" and width_kernel(dtype, d, backward=True):
             w = product_dim(d)
             return f"flash_bwd_{kind}_wgmma_kernel<{tile}, 0, {t}, Products<{w}, {w}, true>>"
+        if name == "wgmma" and wide_kernel(dtype, d):
+            return (f"flash_bwd_{kind}_wgmma_kernel<{tile}, {0 if d % 8 == 0 else -1}, {t}, "
+                    f"{_wide_products(d, wide_dq_keys(d))}>")
         pinned = dtype == torch.bfloat16 and d in WGMMA_TILE_DIM
         return (f"flash_bwd_{kind}_wgmma_kernel<{tile}, "
                 f"{d if pinned else 0 if d % 8 == 0 else -1}, {t}>")
@@ -540,21 +597,31 @@ def wgmma_keys(d: int) -> int:
     return WGMMA_KEYS if wgmma_tile_dim(d) <= 128 else WGMMA_WIDE_KEYS
 
 
-def wgmma_stages(d: int) -> int:
-    """Depth of the Hopper kernel's K/V ring at head dim d: what fits 227 KB
-    (``WGMMA_NARROW_STAGES`` at the narrow widths, 16 KB a stage at 32)."""
+def wgmma_stages(d: int, keys: int | None = None, ordered: bool = False) -> int:
+    """Depth of the Hopper kernel's K/V ring at head dim d: at the tiles'
+    own keys (``wgmma_keys``, the default) what fits 227 KB
+    (``WGMMA_NARROW_STAGES`` at the narrow widths, 16 KB a stage at 32); at
+    other keys (the wide kernels' 96 at width 192) 2.  ``ordered``: a kernel
+    in the L2 order (``l2_order``), which on the tiles 64 and 128 wide
+    overlaps its softmax with its products and holds a stage a turn longer
+    (``hopper::overlapped``): 3 stages at width 128 too."""
     tile = wgmma_tile_dim(d)
+    if ordered and tile == 128:
+        return 3
+    if keys is not None and keys != wgmma_keys(d):
+        return 2
     return WGMMA_NARROW_STAGES if tile <= WGMMA_NARROW else 3 if tile in (64, 192) else 2
 
 
-def wgmma_smem_bytes(d: int) -> int:
+def wgmma_smem_bytes(d: int, keys: int | None = None, ordered: bool = False) -> int:
     """The Hopper kernel's dynamic shared memory at head dim d: 1024 bytes
     of alignment slack, the Q tile (128 rows), a ring of K and V tiles
-    (``wgmma_keys(d)`` rows), each ``wgmma_tile_dim(d)`` columns wide, 8
-    bytes per mbarrier."""
+    (``keys`` rows, by default ``wgmma_keys(d)``; ``wgmma_stages`` deep),
+    each ``wgmma_tile_dim(d)`` columns wide, 8 bytes per mbarrier."""
     row = wgmma_tile_dim(d) * 2
-    stages = wgmma_stages(d)
-    return 1024 + WGMMA_ROWS * row + 2 * stages * wgmma_keys(d) * row + 8 * (1 + 3 * stages)
+    keys = wgmma_keys(d) if keys is None else keys
+    stages = wgmma_stages(d, keys, ordered)
+    return 1024 + WGMMA_ROWS * row + 2 * stages * keys * row + 8 * (1 + 3 * stages)
 
 
 def mma_smem_bytes(d: int) -> int:
@@ -744,16 +811,18 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
     """Check q/k/v's layout and plan the launch of ``kernel`` (default: the
     route of q's dtype and D).  The Hopper kernel's inputs must be as TMA
     reads them (``launch`` stages those that are not: ``stage``).  The
-    D-112 kernel and the head-dim kernels (``l2_order``) take the L2 order:
-    a 1-D grid and ``kv_group``'s KV heads a group; "wgmma_tile" (the
-    head-dim kernels' yardstick, the whole-tile instantiations) and
-    "wgmma_pad128" (the D-112 kernel's) keep the grid's order."""
+    D-112 kernel, the head-dim kernels and the wide kernels (``l2_order``)
+    take the L2 order: a 1-D grid and ``kv_group``'s KV heads a group, the
+    wide kernels' K/V boxes ``wide_keys(D)`` rows high (Q's
+    ``wgmma_q_rows`` of them); "wgmma_tile" (the head-dim and wide kernels'
+    yardstick, the whole-tile instantiations) and "wgmma_pad128" (the D-112
+    kernel's) keep the grid's order."""
     _check_shapes(q, k, v, causal_offset)
     d = q.shape[3]
     name = route(q.dtype, d) if kernel is None else kernel
     ok = {"wgmma": q.dtype in _HALF,
           "wgmma_pad128": q.dtype == torch.bfloat16 and d == WGMMA_D112,
-          "wgmma_tile": width_kernel(q.dtype, d),
+          "wgmma_tile": width_kernel(q.dtype, d) or wide_kernel(q.dtype, d),
           "mma_sync": q.dtype in _HALF,
           "fp32": q.dtype in (torch.float32, torch.float64),
           "fp32_simple": q.dtype in (torch.float32, torch.float64)}
@@ -766,11 +835,14 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int =
         return Plan(name, grid=(hq, b, -(-sq // t.rows)), smem=t.smem)
     if name not in _TMA_ROUTES:
         return Plan(name, grid=(-(-sq // FWD_ROWS), hq, b))
-    rows, tiles = wgmma_keys(d), -(-sq // WGMMA_ROWS)
-    maps = tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows)
+    keys, tiles = wgmma_keys(d), -(-sq // WGMMA_ROWS)
+    if name == "wgmma" and wide_kernel(q.dtype, d):
+        keys = wide_keys(d)
+    maps = tensor_map(q, wgmma_q_rows(keys)) + tensor_map(k, keys) + tensor_map(v, keys)
     if name == "wgmma" and l2_order(q.dtype, d):
         _, sk, hkv, _ = k.shape
-        return Plan(name, maps=maps, grid=(b * hq * tiles, 1, 1), smem=wgmma_smem_bytes(d),
+        return Plan(name, maps=maps, grid=(b * hq * tiles, 1, 1),
+                    smem=wgmma_smem_bytes(d, keys, ordered=True),
                     group_kv=kv_group(b, sk, hkv, d, q.element_size()))
     return Plan(name, maps=maps, grid=(hq, b, tiles), smem=wgmma_smem_bytes(d))
 
@@ -828,24 +900,32 @@ def bwd_wgmma_dq_keys(d: int) -> int:
     return BWD_WGMMA_DQ_KEYS if wgmma_tile_dim(d) <= 128 else BWD_WGMMA_WIDE_DQ_KEYS
 
 
-def bwd_wgmma_stages(d: int) -> tuple[int, int]:
+def bwd_wgmma_stages(d: int, dq_keys: int | None = None) -> tuple[int, int]:
     """Ring depths of the wgmma route's dQ and dK/dV kernels at head dim d:
-    what fits 227 KB, at most ``BWD_WGMMA_STAGES``."""
+    what fits 227 KB, at most ``BWD_WGMMA_STAGES``; dQ's at its K/V tiles of
+    ``dq_keys`` keys (by default ``bwd_wgmma_dq_keys(d)``; the wide dQ
+    kernel's ``wide_dq_keys``)."""
     tile = wgmma_tile_dim(d)
-    return (3 if tile == 256 else BWD_WGMMA_STAGES,
-            {256: 2, 192: 3}.get(tile, BWD_WGMMA_STAGES))
+    s_kv = {256: 2, 192: 3}.get(tile, BWD_WGMMA_STAGES)
+    if dq_keys is not None and dq_keys != bwd_wgmma_dq_keys(d):
+        cols = tile * 2
+        fit = (SMEM_LIMIT - 1024 - 2 * BWD_WGMMA_DQ_ROWS * cols - 8) // (2 * dq_keys * cols + 16)
+        return min(fit, BWD_WGMMA_STAGES), s_kv
+    return (3 if tile == 256 else BWD_WGMMA_STAGES, s_kv)
 
 
-def bwd_wgmma_smem_bytes(d: int) -> tuple[int, int]:
+def bwd_wgmma_smem_bytes(d: int, dq_keys: int | None = None) -> tuple[int, int]:
     """Dynamic shared memory of the wgmma route's dQ and dK/dV kernels at
     head dim d: 1024 bytes of alignment slack; dQ: Q and dO (128 rows) and a
-    ring of K and V tiles (``bwd_wgmma_dq_keys(d)`` keys); dK/dV: K and V (64
-    keys), a ring of Q and dO tiles (64 rows) with each stage's 64 LSEs and
-    D_i in fp32, and two 64 x 64 fp32 buffers of P^T; tiles
-    ``wgmma_tile_dim(d)`` columns wide, 8 bytes per mbarrier of each ring."""
+    ring of K and V tiles (``dq_keys`` keys, by default
+    ``bwd_wgmma_dq_keys(d)``); dK/dV: K and V (64 keys), a ring of Q and dO
+    tiles (64 rows) with each stage's 64 LSEs and D_i in fp32, and two 64 x
+    64 fp32 buffers of P^T; tiles ``wgmma_tile_dim(d)`` columns wide, 8
+    bytes per mbarrier of each ring."""
     cols = wgmma_tile_dim(d) * 2
-    s_dq, s_kv = bwd_wgmma_stages(d)
-    dq = 2 * BWD_WGMMA_DQ_ROWS * cols + 2 * s_dq * bwd_wgmma_dq_keys(d) * cols
+    dq_keys = bwd_wgmma_dq_keys(d) if dq_keys is None else dq_keys
+    s_dq, s_kv = bwd_wgmma_stages(d, dq_keys)
+    dq = 2 * BWD_WGMMA_DQ_ROWS * cols + 2 * s_dq * dq_keys * cols
     dkdv = 2 * BWD_WGMMA_KV_KEYS * cols + s_kv * (2 * BWD_WGMMA_KV_ROWS * cols
                                                   + 2 * BWD_WGMMA_KV_ROWS * 4) \
         + 2 * BWD_WGMMA_KV_KEYS * BWD_WGMMA_KV_ROWS * 4
@@ -865,7 +945,8 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     32): dQ over (query tiles of 64, Hq, B), dK/dV over (key tiles of 64,
     Hkv, B); "wgmma" (bf16 and fp16 at every D, q, k, v as TMA reads
     them, do in rows ``tma_width(D)`` wide): dQ over (Hq, B, query tiles of 128), dK/dV over (Hkv, B,
-    key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows.  float64
+    key tiles of 64), boxes of ``bwd_wgmma_box_rows(D)`` rows; the head-dim
+    and wide kernels on 1-D grids in the L2 order (``groups``).  float64
     inputs are planned as the float32 copies the launch runs on."""
     _check_shapes(q, k, v, causal_offset)
     for name, t in (("o", o), ("do", do)):
@@ -890,7 +971,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         return BwdPlan("tiled", grids=((hq, b, -(-sq // dq_t.rows)), (hkv, b, -(-sk // kv_t.rows))),
                        smem=(dq_t.smem, kv_t.smem))
     ok = {"mma": d <= BWD_MMA_MAX_DIM, "wgmma": True,
-          "wgmma_tile": width_kernel(q.dtype, d, backward=True)}
+          "wgmma_tile": width_kernel(q.dtype, d, backward=True) or wide_kernel(q.dtype, d)}
     if not ok.get(name, False) or q.dtype not in _HALF:
         raise ValueError(f"backward route {name!r} does not take {q.dtype} at head dim {d}")
     if name == "mma":
@@ -907,11 +988,13 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     rows = bwd_wgmma_box_rows(d)
     maps = tensor_map(q, rows) + tensor_map(k, rows) + tensor_map(v, rows) + tensor_map(do, rows)
     q_tiles, k_tiles = -(-sq // BWD_WGMMA_DQ_ROWS), -(-sk // BWD_WGMMA_KV_KEYS)
-    if name == "wgmma" and width_kernel(q.dtype, d, backward=True):
+    wide = wide_kernel(q.dtype, d)
+    if name == "wgmma" and (width_kernel(q.dtype, d, backward=True) or wide):
         elt = q.element_size()
         groups = (kv_group(b, sk, hkv, d, elt), rows_group(b, sq, hq, hkv, d, elt))
         return BwdPlan(name, grids=((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1)),
-                       smem=bwd_wgmma_smem_bytes(d), maps=maps, groups=groups)
+                       smem=bwd_wgmma_smem_bytes(d, wide_dq_keys(d) if wide else None),
+                       maps=maps, groups=groups)
     return BwdPlan(name, grids=((hq, b, q_tiles), (hkv, b, k_tiles)),
                    smem=bwd_wgmma_smem_bytes(d), maps=maps)
 
@@ -1055,8 +1138,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal_offset: int
     """``gqa_flash`` on CUDA tensors through ``kernel`` ("wgmma",
     "wgmma_pad128", "wgmma_tile", "mma_sync", "fp32" or "fp32_simple";
     default: its route), to hold one kernel against another at one shape:
-    "wgmma" runs the head-dim kernels where ``width_kernel`` says so,
-    "wgmma_tile" the whole-tile instantiations they replaced.  With
+    "wgmma" runs the head-dim and wide kernels where ``width_kernel`` and
+    ``wide_kernel`` say so, "wgmma_tile" the whole-tile instantiations they
+    replaced.  With
     ``with_lse`` (every kernel but "fp32_simple") returns (output, LSE (B,
     Hq, Sq) fp32); the output is the same either way.  float64 runs the fp32 kernels on fp32 copies, the output
     cast back; an input whose layout the kernel cannot read is copied first
@@ -1112,8 +1196,9 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                route: str | None = None):
     """``gqa_flash_bwd`` on CUDA tensors on ``route`` (default: ``bwd_route``):
     "wgmma" launches dQ (which writes D_i) then dK/dV (the head-dim kernels
-    where ``width_kernel(..., backward=True)`` says so), "wgmma_tile" the
-    whole-tile pair they replaced (the yardstick), "mma" the same pair
+    where ``width_kernel(..., backward=True)`` says so, the wide pair past
+    128), "wgmma_tile" the whole-tile pair they replaced (the yardstick),
+    "mma" the same pair
     on mma.sync, "tiled" the same pair on fp32 FMA, each reading ``lse``,
     the forward's (B, Hq, Sq) fp32; "fma" launches the stats kernel (LSE and
     D_i into fp32 scratch), then dK/dV and dQ, and ignores ``lse``.  o and

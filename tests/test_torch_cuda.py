@@ -916,6 +916,45 @@ def test_kernel_flash_head_dim_width_layouts(cuda_flash_bwd, shape, dtype, d):
                       f"{shape} {d} backward", rel_limit=BWD_ROUNDED_REL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 112), (torch.float16, 96),
+                                     (torch.bfloat16, 256)], ids=str)
+def test_kernel_flash_tensor_maps_on_a_new_thread(cuda_flash_bwd, dtype, d):
+    """A thread that has made no CUDA runtime call yet (autograd's device
+    thread when a backward's first call is gqa_flash's) encodes its tensor
+    maps: the forward and the backward launched from a new thread, and
+    autograd's backward straight after the forward, equal the main thread's
+    bit for bit."""
+    import threading
+
+    b, sq, sk, hq, hkv, off = 2, 300, 300, 8, 2, 0
+    q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=d, dtype=dtype)
+    out, lse = fa.launch(q, k, v, off, with_lse=True)
+    grads = fa.launch_bwd(q, k, v, out, do, off, lse=lse)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            o2, l2 = fa.launch(q, k, v, off, with_lse=True)
+            got["fwd"] = (o2, l2)
+            got["bwd"] = fa.launch_bwd(q, k, v, o2, do, off, lse=l2)
+            torch.cuda.synchronize()
+        except Exception as err:        # raised again on the main thread
+            got["error"] = err
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and "error" not in got, got.get("error")
+    assert torch.equal(got["fwd"][0], out) and torch.equal(got["fwd"][1], lse)
+    assert all(torch.equal(g, w) for g, w in zip(got["bwd"], grads))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.gqa_flash(*leaves, causal_offset=off).backward(do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, grads))
+
+
 # The wgmma route past width 128, on tiles 192 and 256 wide: D 136 and 200
 # off the tiles' edges (TMA zero-fills the rest), 192 and 256 on them.
 @pytest.mark.cuda
@@ -961,6 +1000,122 @@ def test_kernel_flash_wgmma_wide(cuda_flash_bwd, d, dtype):
                           fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off), "fma")
         assert fa.launches["mma_sync"] == 1 and all(fa.launches[n] == 1
                                                     for n in fa.BWD_KERNELS), fa.launches
+
+
+# The wide kernels (every 16-bit D past 128: the L2 order, the forward's K/V
+# tiles of fa.wide_keys(D) keys, dQ's of fa.wide_dq_keys(D), at width 256 a
+# producer warpgroup) against their yardsticks, the whole-tile
+# instantiations in the grid's order (kernel="wgmma_tile",
+# route="wgmma_tile"): D 136 and 200 off the tiles' edges, 192 and 256 on
+# them, 250 staged (DO = -1).
+WIDE_CASES = [(dtype, d) for dtype in (torch.bfloat16, torch.float16)
+              for d in (136, 192, 200, 250, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", WIDE_CASES, ids=str)
+def test_kernel_flash_wide_against_yardsticks(cuda_flash_bwd, dtype, d):
+    """Forward (with and without the LSE) and backward of the wide kernels
+    on ragged GQA shapes with causal offsets, Gemma-2-9B's grouping among
+    them: within the flash and backward limits of the plain versions, the
+    output bit for bit with and without its LSE, launches counted by
+    instantiation (none on a yardstick); the yardsticks, run by name, within
+    the same limits; where the design keeps the yardstick's order of sums
+    (the backward at width 256: only the order of blocks and the roles
+    change) equal to it bit for bit; two backward runs equal bit for bit."""
+    for b, sq, sk, hq, hkv, off in WIDTH_SHAPES + [(1, 300, 300, 16, 8, 0)]:
+        q, k, v, do = _bwd_inputs(cuda_flash_bwd, b, sq, sk, hq, hkv, d, seed=sq + d,
+                                  dtype=dtype)
+        what = f"{(b, sq, sk, hq, hkv, off)} D={d} {dtype}"
+        fa.reset_launches()
+        out, lse = fa.launch(q, k, v, off, with_lse=True)
+        grads = fa.launch_bwd(q, k, v, out, do, off, lse=lse)
+        torch.cuda.synchronize()
+        # staged copies off a multiple of 8: q, k, v in the forward; q, k, v
+        # and dO again in the backward, which is handed the unstaged inputs
+        staged = 7 if fa.tma_width(d) != d else 0
+        assert {n: c for n, c in fa.launches.items() if c} == {
+            "gqa_flash": 1, "wgmma": 1, "gqa_flash_bwd": 1, "bwd_wgmma_dq": 1,
+            "bwd_wgmma_dkdv": 1, **({"layout_copy": staged} if staged else {})}, \
+            (what, fa.launches)
+        assert fa.instances == {fa.instance(dtype, d): 1, fa.bwd_instance(dtype, d, which=0): 1,
+                                fa.bwd_instance(dtype, d, which=1): 1}, (what, fa.instances)
+        assert "Products<" in fa.instance(dtype, d) and fa.wide_kernel(dtype, d)
+        assert torch.equal(out, fa.launch(q, k, v, off)), what
+        want = fa.gqa_flash_plain(q, k, v, causal_offset=off)
+        _assert_flash_close(out, want, what)
+        assert (lse - fa.gqa_flash_lse_plain(q, k, off)).abs().max().item() <= 1e-4, what
+        _assert_bwd_close(grads, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what + " backward")
+        _assert_bwd_close(grads, fa.gqa_flash_bwd_lse_plain(q, k, v, out, do, lse, off,
+                                                            round_bf16=True),
+                          what + " backward, rounded", rel_limit=BWD_ROUNDED_REL)
+        again = fa.launch_bwd(q, k, v, out, do, off, lse=lse)
+        assert all(torch.equal(a, c) for a, c in zip(grads, again)), what   # no atomics
+        yard, yard_lse = fa.launch(q, k, v, off, kernel="wgmma_tile", with_lse=True)
+        _assert_flash_close(yard, want, what + " yardstick")
+        assert (yard_lse - lse).abs().max().item() <= 1e-4, what
+        if fa.wide_keys(d) == fa.wgmma_keys(d):
+            assert torch.equal(out, yard), what
+        tile = fa.launch_bwd(q, k, v, out, do, off, lse=lse, route="wgmma_tile")
+        _assert_bwd_close(tile, fa.gqa_flash_bwd_plain(q, k, v, out, do, causal_offset=off),
+                          what + " yardstick backward")
+        if fa.wide_dq_keys(d) == fa.bwd_wgmma_dq_keys(d):
+            assert all(torch.equal(g, t) for g, t in zip(grads, tile)), what + " backward"
+        else:       # dQ's order of sums differs; dK/dV's is the yardstick's
+            assert torch.equal(grads[1], tile[1]) and torch.equal(grads[2], tile[2]), what
+        assert fa.launches["wgmma_tile"] == 1 and fa.launches["bwd_wgmma_tile_dq"] == 1
+
+
+@pytest.mark.cuda
+def test_ptxas_wide_instantiations(cuda_flash, tmp_path):
+    """Both flash sources compiled as the library builds them, ptxas's report
+    read: the wide kernels' instantiations (Wide<192>, Wide<256>: bf16 and
+    fp16, DO 0 and -1, the forward and the backward's dQ and dK/dV) spill
+    nothing and draw no C75xx remark (C7508: setmaxnreg ignored; C7512: wgmma
+    serialised); at width 256 they run the producer layout, 168 registers a
+    thread at launch."""
+    import re
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels._build import CSRC as SRC, NVCC_FLAGS, _nvcc
+
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+
+    def report(name):
+        src = SRC / f"{name}.cu"
+        proc = subprocess.run([_nvcc(src), *flags, "-cubin", "-o",
+                               str(tmp_path / f"{name}.cubin"), str(src)],
+                              capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr
+        return proc.stdout + proc.stderr
+
+    with ThreadPoolExecutor(2) as ex:
+        reports = list(ex.map(report, ("flash_attention", "flash_attention_bwd")))
+    wide = r"wgmma_kernelILi(192|256)E\w+?ProductsILi(192|256)ELi(192|256)ELb1ELi(80|96|32|64)E"
+    for text, count in zip(reports, (8, 16)):
+        found, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1) if re.search(wide, m.group(1)) else None
+                if name:
+                    found[name] = {}
+                continue
+            m = re.search(r"\((C75\d\d)\).*'(\S+)'", line)
+            if m and re.search(wide, m.group(2)):
+                found.setdefault(m.group(2), {})["remark"] = m.group(1)
+            if name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                        line)):
+                found[name]["spills"] = (int(m.group(1)), int(m.group(2)))
+            if name and (m := re.search(r"Used (\d+) registers", line)):
+                found[name]["registers"] = int(m.group(1))
+        assert len(found) == count, sorted(found)
+        for n, r in found.items():
+            assert "remark" not in r and r["spills"] == (0, 0), (n, r)
+            if "ILi256E" in n:          # the producer layout: 384 threads at launch
+                assert r["registers"] <= 168, (n, r)
 
 
 # The mma backward by name (bf16 and fp16 at D <= 32, the yardstick of the

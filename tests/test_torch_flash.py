@@ -137,9 +137,11 @@ def test_plan_grid_and_shared_memory(sq, d, grid_z, smem):
 def test_plan_zamba2_forward_at_head_dim_112():
     """zamba2-7b's shared attention (d_model 3584 over 32 heads): D = 112
     stays the maps' innermost extent (H stride 224 bytes, a multiple of 16,
-    as TMA requires), on the D = 128 kernel's tiles, ring and shared
-    memory; the D-112 kernel's 2048 blocks in the L2 order, 8 KV heads a
-    group, and the yardstick's grid (Hq, B, query tiles) on the same maps."""
+    as TMA requires), on the D = 128 kernel's tiles; the D-112 kernel's
+    2048 blocks in the L2 order, 8 KV heads a group, its ring 3 deep (it
+    overlaps its softmax with its products: ``hopper::overlapped``), and the
+    yardstick's grid (Hq, B, query tiles) on the same maps with the ring 2
+    deep of the kernels in the grid's order."""
     q, k, v = (_bf16(4, 2048, 32, 112) for _ in range(3))
     pl = fa.plan(q, k, v)
     assert pl.route == "wgmma" and pl.grid == (4 * 32 * 16, 1, 1) and pl.group_kv == 8
@@ -147,10 +149,12 @@ def test_plan_zamba2_forward_at_head_dim_112():
     assert pl.maps == one * 3
     assert all(s % 16 == 0 for s in one[4:7])
     assert fa.WGMMA_TILE_DIM[112] == 128 and fa.wgmma_stages(112) == 2
-    assert pl.smem == fa.wgmma_smem_bytes(128) == 164920
+    assert fa.wgmma_stages(112, ordered=True) == 3
+    assert pl.smem == fa.wgmma_smem_bytes(128, ordered=True) == 1024 + 32768 + 3 * 65536 + 80
+    assert pl.smem == 230480 <= 232448
     yard = fa.plan(q, k, v, kernel="wgmma_pad128")
     assert yard.route == "wgmma_pad128" and yard.grid == (32, 4, 16) and yard.group_kv == 0
-    assert yard.maps == pl.maps and yard.smem == pl.smem
+    assert yard.maps == pl.maps and yard.smem == fa.wgmma_smem_bytes(128) == 164920
 
 
 def _l2_block(i, grid_x, sq, hq, group, group_kv):

@@ -131,16 +131,19 @@ def test_plan_bwd_wgmma_grids_cover_every_output_once(shape):
     b, sq, sk, hq, hkv, d, off = shape
     pl = fa.plan_bwd(*_bf16_tensors(shape), causal_offset=off)
     assert pl.route == "wgmma"
-    assert pl.smem == fa.bwd_wgmma_smem_bytes(d) and max(pl.smem) <= 232_448
+    wide = fa.wide_kernel(torch.bfloat16, d)
+    assert pl.smem == fa.bwd_wgmma_smem_bytes(d, fa.wide_dq_keys(d) if wide else None)
+    assert max(pl.smem) <= 232_448
     rows = fa.BWD_WGMMA_BOX_ROWS if d <= 128 else fa.BWD_WGMMA_WIDE_BOX_ROWS
     assert len(pl.maps) == 4 * 11 and all(pl.maps[11 * i + 9] == rows for i in range(4))
     # dQ: block (h, b, z) owns query rows of tile gz - 1 - z (heaviest first)
     # of head h; dK/dV: block (hk, b, z) owns keys of tile z of KV head hk.
-    # The head-dim kernels (D 112 here) run 1-D grids in the L2 order
-    # (``wg::l2_unit``): the same blocks, a group of KV heads at a time.
+    # The head-dim kernels (D 112 here) and the wide kernels (160, 256) run
+    # 1-D grids in the L2 order (``wg::l2_unit``): the same blocks, a group
+    # of KV heads at a time.
     q_tiles, k_tiles = -(-sq // fa.BWD_WGMMA_DQ_ROWS), -(-sk // fa.BWD_WGMMA_KV_KEYS)
     if any(pl.groups):
-        assert fa.width_kernel(torch.bfloat16, d, backward=True)
+        assert fa.width_kernel(torch.bfloat16, d, backward=True) or wide
         assert pl.grids == ((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1))
         dq_blocks = [(h, bi, (q_tiles - 1 - z) * fa.BWD_WGMMA_DQ_ROWS)
                      for h, bi, z in _l2_units(b * hq * q_tiles, q_tiles, hq, hq // hkv,

@@ -131,13 +131,15 @@ def test_l2_order_walk_ragged_last_group(shape, group_kv):
 def test_zamba2_groups_and_the_yardstick_plan():
     """zamba2-7b's forward: 917,504 bytes of K and V a KV head, 14 of them
     within the quarter of L2, the largest divisor of its 128 pairs 8; 2048
-    blocks.  The yardstick plans the grid's order on the same maps and
-    shared memory."""
+    blocks.  The yardstick plans the grid's order on the same maps, with the
+    ring 2 deep where the D-112 kernel's is 3 deep."""
     q = _bf16(4, 2048, 32)
     pl, yard = fa.plan(q, q, q), fa.plan(q, q, q, kernel="wgmma_pad128")
     assert fa.L2_KV_BUDGET == 13_107_200 and fa.L2_KV_BUDGET // (2 * 2048 * D * 2) == 14
     assert pl.group_kv == 8 and pl.grid == (2048, 1, 1)
-    assert yard == fa.Plan("wgmma_pad128", maps=pl.maps, grid=(32, 4, 16), smem=pl.smem)
+    assert yard == fa.Plan("wgmma_pad128", maps=pl.maps, grid=(32, 4, 16),
+                           smem=fa.wgmma_smem_bytes(D))
+    assert pl.smem == fa.wgmma_smem_bytes(D, ordered=True) == yard.smem + 65536 + 24
     assert fa.plan(_bf16(4, 512, 16), _bf16(4, 512, 16), _bf16(4, 512, 16)).group_kv == 32
 
 

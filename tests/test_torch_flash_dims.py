@@ -263,14 +263,15 @@ def _walk_forward(pl, b, sq, hq, d, dp, pv=None, hkv=None):
 def test_forward_grid_stores_each_output_once(dtype, d):
     """Each output element stored once, columns past d never: the head-dim
     kernels (bf16 40 and 96, fp16 72 and 120: products ``product_dim(d)``
-    wide) in the L2 order, the other Hopper kernels in the grid's order."""
+    wide) and the wide kernels (past 128) in the L2 order, the other Hopper
+    kernels in the grid's order."""
     b, sq, hq = 2, 130, 3
     q = _staged((b, sq, hq, d), dtype)
     pl = fa.plan(q, q, q)
     dp = fa.wgmma_tile_dim(d) if pl.route == "wgmma" else fa.padded_dim(d)
-    width = fa.width_kernel(dtype, d)
-    assert (pl.group_kv > 0) == width
-    if width:
+    width, wide = fa.width_kernel(dtype, d), fa.wide_kernel(dtype, d)
+    assert (pl.group_kv > 0) == (width or wide)
+    if width or wide:
         assert pl.grid == (b * hq * -(-sq // fa.WGMMA_ROWS), 1, 1)
     hits = _walk_forward(pl, b, sq, hq, d, dp, fa.product_dim(d) if width else None, hq)
     assert (hits[..., :d] == 1).all() and not hits[..., d:].any()
@@ -280,12 +281,19 @@ def test_forward_grid_stores_each_output_once(dtype, d):
         extent, box = pl.maps[0], pl.maps[7]
         loaded = np.arange(fa.wgmma_tile_dim(d) // box * box)
         assert extent == d and set(loaded[loaded < extent]) == set(range(d))
-        assert fa.wgmma_tile_dim(d) - d < box and pl.smem == fa.wgmma_smem_bytes(d)
+        keys = fa.wide_keys(d) if wide else fa.wgmma_keys(d)
+        assert fa.wgmma_tile_dim(d) - d < box
+        assert pl.smem == fa.wgmma_smem_bytes(d, keys, ordered=pl.group_kv > 0)
         assert pl.smem <= SMEM_LIMIT and fa.wgmma_tile_dim(d) % box == 0
         assert all(s % 16 == 0 for s in pl.maps[4:7])     # TMA's byte strides
-        # boxes of the K/V tiles' keys: 128 up to width 128, 64 past it
+        # boxes of the K/V tiles' keys: 128 up to width 128, 64 past it on the
+        # tiles' own keys, the wide kernels' 96 (width 192) and 64 (256); Q's
+        # boxes of those keys where they divide its 128 rows, else 64
         rows = 128 if d <= 128 else 64
-        assert fa.wgmma_keys(d) == rows and all(pl.maps[11 * i + 9] == rows for i in range(3))
+        assert fa.wgmma_keys(d) == rows
+        assert keys == (rows if not wide else 96 if d <= 192 else 64)
+        assert [pl.maps[11 * i + 9] for i in range(3)] == [fa.wgmma_q_rows(keys), keys, keys]
+        assert pl.maps[9] == (keys if 128 % keys == 0 else 64)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float16, 160),
@@ -324,21 +332,23 @@ def test_fma_grids_cover_each_gradient_once(dtype, d):
                                      (torch.bfloat16, 96), (torch.float16, 128),
                                      (torch.bfloat16, 200), (torch.float16, 256)], ids=str)
 def test_wgmma_backward_plan_at_a_run_time_head_dim(dtype, d):
-    """The head-dim kernels (40, 72, 96, 128 here) on 1-D grids in the L2
-    order, their groups ``kv_group``'s and ``rows_group``'s; past 128 the
-    grid's order."""
+    """The head-dim kernels (40, 72, 96, 128 here) and the wide kernels (200,
+    256) on 1-D grids in the L2 order, their groups ``kv_group``'s and
+    ``rows_group``'s; the wide dQ kernel's K/V tiles of ``wide_dq_keys``."""
     b, sq, sk, hq, hkv = 2, 130, 200, 4, 2
     q = torch.empty((b, sq, hq, d), dtype=dtype, device="meta")
     k = torch.empty((b, sk, hkv, d), dtype=dtype, device="meta")
     pl = fa.plan_bwd(q, k, k, q, q, causal_offset=70)
     assert pl.route == "wgmma"
     q_tiles, k_tiles = -(-sq // fa.BWD_WGMMA_DQ_ROWS), -(-sk // fa.BWD_WGMMA_KV_KEYS)
-    if fa.width_kernel(dtype, d, backward=True):
+    wide = fa.wide_kernel(dtype, d)
+    if fa.width_kernel(dtype, d, backward=True) or wide:
         assert pl.grids == ((b * hq * q_tiles, 1, 1), (b * hkv * k_tiles, 1, 1))
         assert pl.groups == (fa.kv_group(b, sk, hkv, d), fa.rows_group(b, sq, hq, hkv, d))
     else:
         assert pl.grids == ((hq, b, q_tiles), (hkv, b, k_tiles)) and pl.groups == (0, 0)
-    assert pl.smem == fa.bwd_wgmma_smem_bytes(d) and max(pl.smem) <= SMEM_LIMIT
+    assert pl.smem == fa.bwd_wgmma_smem_bytes(d, fa.wide_dq_keys(d) if wide else None)
+    assert max(pl.smem) <= SMEM_LIMIT
     assert [pl.maps[11 * i] for i in range(4)] == [d] * 4      # each map's extent: d
     rows = fa.BWD_WGMMA_BOX_ROWS if d <= 128 else fa.BWD_WGMMA_WIDE_BOX_ROWS
     assert all(pl.maps[11 * i + 9] == rows == fa.bwd_wgmma_box_rows(d) for i in range(4))

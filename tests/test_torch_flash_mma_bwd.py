@@ -99,7 +99,8 @@ def test_staging_gives_tma_views_of_extent_d(d, dtype):
         assert fa._readable_copy(s, "wgmma") is s    # read as it lies: no second copy
     assert fa.launches["layout_copy"] == 4
     pl = fa.plan(*staged[:3], causal_offset=off)
-    assert pl.route == "wgmma" and pl.smem == fa.wgmma_smem_bytes(d)
+    keys = fa.wide_keys(d) if fa.wide_kernel(dtype, d) else None   # 250: the wide kernels'
+    assert pl.route == "wgmma" and pl.smem == fa.wgmma_smem_bytes(d, keys)
     for i in range(3):                              # extent D, byte strides of 16
         assert pl.maps[11 * i] == d and all(s % 16 == 0 for s in pl.maps[11 * i + 4:11 * i + 7])
     o = fa.gqa_flash_plain(q, k, v, off)

@@ -151,9 +151,13 @@ def test_tensor_map_box_widths_and_swizzle(d):
     assert fa.tma_swizzle(d) == {16: 1, 32: 2, 64: 3}[box]
     q = _staged((2, 130, 4, d))
     pl = fa.plan(q, q, q)
+    # the K/V boxes as high as a tile's keys (the wide kernels' past 128), Q's
+    # boxes as high where those divide its 128 rows
+    keys = fa.wide_keys(d) if fa.wide_kernel(q.dtype, d) else fa.wgmma_keys(d)
     for i in range(3):
         m = pl.maps[11 * i:11 * i + 11]
-        assert m[0] == d and m[7] == box and m[8] == m[10] == 1 and m[9] == fa.wgmma_keys(d)
+        assert m[0] == d and m[7] == box and m[8] == m[10] == 1
+        assert m[9] == (fa.wgmma_q_rows(keys) if i == 0 else keys)
         assert all(s % 16 == 0 for s in m[4:7])
     bp = fa.plan_bwd(q, q, q, q, q)
     assert all(bp.maps[11 * i + 7] == box and bp.maps[11 * i + 9] == fa.bwd_wgmma_box_rows(d)
@@ -412,7 +416,8 @@ def test_constants_against_the_sources():
     fwd = (CSRC / "flash_attention.cu").read_text()
     bwd = (CSRC / "flash_attention_bwd.cu").read_text()
     assert f"constexpr int NARROW = {fa.WGMMA_NARROW};" in hopper
-    assert "using RolesOf = Roles<(D > 192 || D <= NARROW), (D <= NARROW ? 2 : 1)>;" in hopper
+    assert "using RolesOf = Roles<(D <= NARROW || (D > 192 && P::REGS == 0)), (D <= NARROW ? 2 : 1)," \
+        in hopper
     assert "return d <= 16 ? 16 : d <= 32 ? 32 : (d + BOX - 1) / BOX * BOX;" in hopper
     assert all(fa.wgmma_tile_dim(d) == (16 if d <= 16 else 32 if d <= 32 else -(-d // 64) * 64)
                for d in range(1, 257))

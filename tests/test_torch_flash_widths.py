@@ -220,11 +220,17 @@ def test_group_rules_at_the_timed_shapes():
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 112), (torch.bfloat16, 96),
                                      (torch.float16, 40), (torch.bfloat16, 120)], ids=str)
 def test_yardstick_plans(dtype, d):
-    """The whole-tile yardsticks keep the grid's order and the default plan's
-    maps and shared memory."""
+    """The whole-tile yardsticks keep the grid's order, the default plan's
+    maps and the ring of the kernels in the grid's order (2 deep at width
+    128, where the head-dim kernels overlap their softmax with their
+    products on a ring 3 deep)."""
     q, k = _meta((2, 300, 8, d), dtype), _meta((2, 300, 2, d), dtype)
     pl, yard = fa.plan(q, k, k), fa.plan(q, k, k, kernel="wgmma_tile")
-    assert yard == fa.Plan("wgmma_tile", maps=pl.maps, grid=(8, 2, 3), smem=pl.smem)
+    assert yard == fa.Plan("wgmma_tile", maps=pl.maps, grid=(8, 2, 3),
+                           smem=fa.wgmma_smem_bytes(d))
+    assert pl.smem == fa.wgmma_smem_bytes(d, ordered=True)
+    assert fa.wgmma_stages(d, ordered=True) == (3 if fa.wgmma_tile_dim(d) == 128 else
+                                                fa.wgmma_stages(d))
     bpl, byard = fa.plan_bwd(q, k, k, q, q), fa.plan_bwd(q, k, k, q, q, route="wgmma_tile")
     assert byard.route == "wgmma_tile" and byard.groups == (0, 0)
     assert byard.grids == ((8, 2, 3), (2, 2, 5)) and byard.maps == bpl.maps
@@ -238,9 +244,15 @@ def test_yardstick_plans(dtype, d):
                                      (torch.float32, 96)], ids=str)
 def test_yardsticks_take_only_the_head_dim_kernels(dtype, d):
     """``kernel="wgmma_tile"`` only where the forward runs a head-dim kernel
-    (bf16 112 keeps ``"wgmma_pad128"``), ``route="wgmma_tile"`` only where
-    the backward does (bf16 112 included)."""
+    (bf16 112 keeps ``"wgmma_pad128"``) or a wide kernel (past 128, 136
+    here: the whole-tile instantiations in the grid's order),
+    ``route="wgmma_tile"`` only where the backward does (bf16 112
+    included)."""
     q = _meta((1, 8, 4, fa.tma_width(d)), dtype)[..., :d]
+    if fa.wide_kernel(dtype, d):
+        assert fa.plan(q, q, q, kernel="wgmma_tile").group_kv == 0
+        assert fa.plan_bwd(q, q, q, q, q, route="wgmma_tile").groups == (0, 0)
+        return
     with pytest.raises(ValueError, match="does not take"):
         fa.plan(q, q, q, kernel="wgmma_tile")
     if dtype == torch.bfloat16 and d == 112:
